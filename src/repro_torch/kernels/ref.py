@@ -1,0 +1,81 @@
+"""Plain PyTorch versions of the port's kernels (allclose targets).
+
+``chai_fused_decode_ref`` is the CUDA kernel's plain version: the CPU
+path of ``kernels.ops.chai_decode_attention`` and the yardstick the
+kernel is held against on the card. It mirrors the reference package's
+oracle (whole-row softmax, not the kernel's tiled online softmax).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -2.0e38
+
+
+def _softcap(sc, cap):
+    """tanh logit softcap after QK-scale, before the mask (0 = off)."""
+    if cap:
+        return cap * torch.tanh(sc / cap)
+    return sc
+
+
+def chai_scores_ref(q_rep, k_cache, pos, *, reps_per_group=0, window=0,
+                    softcap=0.0):
+    """Clustered scores. q_rep: (B, R, hd); k_cache: (B, KV, S, hd); rep j
+    reads K row j // reps_per_group. Returns normalized A (B, R, S) fp32."""
+    b, r_total, hd = q_rep.shape
+    s = k_cache.shape[2]
+    r = reps_per_group or 1
+    rows = torch.arange(r_total, device=k_cache.device) // r
+    kg = k_cache[:, rows]                                    # (B, R, S, hd)
+    sc = torch.einsum("bre,brse->brs", q_rep.float(),
+                      kg.float()) / math.sqrt(hd)
+    sc = _softcap(sc, softcap)
+    kv_pos = torch.arange(s, dtype=torch.int32, device=k_cache.device)
+    valid = kv_pos[None, :] <= pos[:, None]
+    if window:
+        valid &= (pos[:, None] - kv_pos[None, :]) < window
+    sc = torch.where(valid[:, None, :], sc, NEG_INF)
+    return torch.softmax(sc, dim=-1)
+
+
+def chai_av_ref(a, v_cache, h2c):
+    """a: (B, R, S); v_cache: (B, H, S, hd); h2c: (B, H) or (H,).
+    Returns (B, H, hd) fp32."""
+    b, h = v_cache.shape[0], v_cache.shape[1]
+    if h2c.ndim == 1:
+        h2c = h2c.expand(b, h)
+    a_full = torch.gather(a, 1, h2c.long()[..., None].expand(
+        b, h, a.shape[-1]))                                  # (B, H, S)
+    return torch.einsum("bhs,bhsd->bhd", a_full.float(), v_cache.float())
+
+
+def chai_fused_decode_ref(q_rep, k_cache, v_cache, h2c, pos, *,
+                          k_scale=None, v_scale=None, reps_per_group=0,
+                          share_values=False, window=0, softcap=0.0):
+    """Plain version of ``chai_fused_decode`` across its dispatch matrix:
+    {MHA, GQA} x {float, int8 scale rows} x {share_values} x {window}.
+
+    v_cache rows: H (per-head), a divisor of H (GQA per-group) or R
+    (share_values). Returns (B, H, hd) fp32."""
+    b = q_rep.shape[0]
+    kf = k_cache.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()[..., None]
+    a = chai_scores_ref(q_rep, kf, pos, reps_per_group=reps_per_group,
+                        window=window, softcap=softcap)      # (B, R, S)
+    vf = v_cache.float()
+    if v_scale is not None:
+        vf = vf * v_scale.float()[..., None]
+    if h2c.ndim == 1:
+        h2c = h2c.expand(b, h2c.shape[0])
+    h = h2c.shape[1]
+    if share_values:
+        out_rep = torch.einsum("brs,brsd->brd", a, vf)
+        return torch.gather(out_rep, 1, h2c.long()[..., None].expand(
+            b, h, out_rep.shape[-1]))
+    if vf.shape[1] != h:         # GQA: head h reads V of group h // qpk
+        vf = vf.repeat_interleave(h // vf.shape[1], dim=1)
+    return chai_av_ref(a, vf, h2c)
