@@ -7,8 +7,9 @@ compiled on first use with
          -Xcompiler -fPIC -o build/kernels/lib<name>.so csrc/<name>.cu
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
-A library newer than its source is reused. A missing ``nvcc`` or a failed
-build raises: nothing falls back.
+A library newer than its source and than every header in ``csrc/`` (the
+tile steps both decode kernels include) is reused. A missing ``nvcc`` or
+a failed build raises: nothing falls back.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("chai_fused_decode",)
+KERNELS = ("chai_fused_decode", "paged_chai_fused_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,7 +42,10 @@ def _paths(name):
 
 def _stale(name) -> bool:
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    return lib.stat().st_mtime < newest
 
 
 def _start(name, extra_flags=()):

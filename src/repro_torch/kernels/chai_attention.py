@@ -7,7 +7,13 @@ broadcast and per-head AV in one launch, with no (B, R, S) score tensor
 in device memory. The wrapper takes CUDA tensors only; the CPU path is
 the plain version in ``kernels.ref``, chosen by ``kernels.ops``.
 
-``LAUNCHES`` counts the kernel's launches, one per successful launch,
+``paged_chai_fused_decode`` launches ``csrc/paged_chai_fused_decode.cu``
+(the port of the Pallas ``paged_chai_fused_decode``): the same function
+over block-table page pools, the continuous engine's STEADY decode. Both
+kernels run one block body (``csrc/chai_decode_tiles.cuh``), so at equal
+tile size (dense ``ts`` == page) their outputs are bitwise equal.
+
+``LAUNCHES`` counts each kernel's launches, one per successful launch,
 so a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
@@ -16,7 +22,7 @@ import ctypes
 
 import torch
 
-LAUNCHES = {"chai_fused_decode": 0}
+LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0}
 
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
@@ -29,13 +35,52 @@ def fused_tile_size(ts: int, s: int) -> int:
     return s if s % ts else ts
 
 
-def _launcher():
+def _launcher(name, n_ptrs, n_ints):
     from repro_torch.kernels import build
-    fn = build.load("chai_fused_decode").chai_fused_decode_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [
+    fn = getattr(build.load(name), f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _refuse_unported(name, k_scale, v_scale, share_values, softcap,
+                     emit_state):
+    for flag, what in ((k_scale is not None, "int8 K scales"),
+                       (v_scale is not None, "int8 V scales"),
+                       (share_values, "share_values"),
+                       (bool(softcap), "softcap"),
+                       (emit_state, "emit_state")):
+        if flag:
+            raise NotImplementedError(
+                f"{name}: {what} is not ported to CUDA yet")
+
+
+def _check_common(name, q_rep, k, v, h2c, reps_per_group):
+    """Device, dtype and width checks both wrappers share; returns
+    (b, R, hd, H, h2c as (B, H))."""
+    if q_rep.device.type != "cuda":
+        raise ValueError(f"{name} launches a CUDA kernel; got tensors on "
+                         f"{q_rep.device}")
+    b, r_total, hd = q_rep.shape
+    if h2c.ndim == 1:
+        h2c = h2c.expand(b, h2c.shape[0])
+    h_total = h2c.shape[1]
+    if k.dtype != v.dtype or k.dtype not in _KV_DTYPES:
+        raise TypeError(f"K/V must share one dtype of fp32/bf16; got "
+                        f"{k.dtype}, {v.dtype}")
+    if k.shape[1] * reps_per_group != r_total or h_total % v.shape[1]:
+        raise ValueError(f"R={r_total} must be KVk={k.shape[1]} x "
+                         f"reps_per_group={reps_per_group} and KVv="
+                         f"{v.shape[1]} must divide H={h_total}")
+    if hd % 2:
+        raise ValueError(f"head_dim {hd} must be even (paired V loads)")
+    return b, r_total, hd, h_total, h2c
+
+
+def _small(t, dev):
+    """int32 contiguous copy of a small index tensor (h2c, pos, tables)."""
+    return t.to(device=dev, dtype=torch.int32).contiguous()
 
 
 def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
@@ -50,36 +95,16 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     h2c: (B, H) or (H,) head -> rep row, values in [0, R); pos: (B,).
     Returns (B, H, hd) fp32 from ONE kernel launch.
     """
-    for flag, name in ((k_scale is not None, "k_scale"),
-                       (v_scale is not None, "v_scale"),
-                       (share_values, "share_values"),
-                       (bool(softcap), "softcap"),
-                       (emit_state, "emit_state")):
-        if flag:
-            raise NotImplementedError(
-                f"chai_fused_decode: {name} is not ported to CUDA yet")
-    if q_rep.device.type != "cuda":
-        raise ValueError("chai_fused_decode launches a CUDA kernel; got "
-                         f"tensors on {q_rep.device}")
-    b, r_total, hd = q_rep.shape
-    _, kv_k, s, _ = k_cache.shape
-    kv_v = v_cache.shape[1]
-    if h2c.ndim == 1:
-        h2c = h2c.expand(b, h2c.shape[0])
-    h_total = h2c.shape[1]
-    if k_cache.dtype != v_cache.dtype or k_cache.dtype not in _KV_DTYPES:
-        raise TypeError(f"K/V must share one dtype of fp32/bf16; got "
-                        f"{k_cache.dtype}, {v_cache.dtype}")
+    _refuse_unported("chai_fused_decode", k_scale, v_scale, share_values,
+                     softcap, emit_state)
+    s = k_cache.shape[2]
+    b, r_total, hd, h_total, h2c = _check_common(
+        "chai_fused_decode", q_rep, k_cache, v_cache, h2c, reps_per_group)
+    kv_k, kv_v = k_cache.shape[1], v_cache.shape[1]
     if (k_cache.shape[0] != b or k_cache.shape[3] != hd
             or v_cache.shape != (b, kv_v, s, hd)):
         raise ValueError(f"shape mismatch: q {tuple(q_rep.shape)}, "
                          f"k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
-    if kv_k * reps_per_group != r_total or h_total % kv_v:
-        raise ValueError(f"R={r_total} must be KVk={kv_k} x reps_per_group="
-                         f"{reps_per_group} and KVv={kv_v} must divide "
-                         f"H={h_total}")
-    if hd % 2:
-        raise ValueError(f"head_dim {hd} must be even (paired V loads)")
     ts = fused_tile_size(ts, s)
     smem = (hd + s + 3 * (s // ts)) * 4 + h_total * 4
     if smem > _SMEM_LIMIT:
@@ -92,10 +117,9 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     for name, t in (("k_cache", k), ("v_cache", v)):
         if t.data_ptr() % (2 * t.element_size()):
             raise ValueError(f"{name} must be aligned to two elements")
-    h2c_i = h2c.to(device=dev, dtype=torch.int32).contiguous()
-    pos_i = pos.to(device=dev, dtype=torch.int32).contiguous()
+    h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
     out = torch.empty((b, h_total, hd), dtype=torch.float32, device=dev)
-    fn = _launcher()
+    fn = _launcher("chai_fused_decode", 6, 12)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), h2c_i.data_ptr(),
@@ -106,4 +130,67 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
         raise RuntimeError(f"chai_fused_decode launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["chai_fused_decode"] += 1
+    return out
+
+
+def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
+                            k_scale_pool=None, v_scale_pool=None,
+                            reps_per_group=1, share_values=False, window=0,
+                            softcap=0.0, emit_state=False):
+    """One-pass fused clustered decode over block-table page pools, on
+    the GPU.
+
+    q_rep: (B, R, hd) (any float dtype; read as fp32); k_pool:
+    (nPk, KVk, page, hd), the clustered pool of one layer (MHA: KVk ==
+    k_max); v_pool: (nPv, KVv, page, hd), the dense per-head pool;
+    bt_k/bt_v: (B, P) block tables into their own pools (tile t of row b
+    is page bt[b, t]; the tile size is the page); h2c: (B, H) or (H,);
+    pos: (B,). K/V fp32 or bf16, one dtype. The pools are layer slices
+    of the engine's state and are read in place: they must be contiguous
+    already (a copy would move the whole pool every call). Returns
+    (B, H, hd) fp32 from ONE kernel launch.
+    """
+    _refuse_unported("paged_chai_fused_decode", k_scale_pool, v_scale_pool,
+                     share_values, softcap, emit_state)
+    n_pages = bt_k.shape[1]
+    page = k_pool.shape[2]
+    b, r_total, hd, h_total, h2c = _check_common(
+        "paged_chai_fused_decode", q_rep, k_pool, v_pool, h2c,
+        reps_per_group)
+    kv_k, kv_v = k_pool.shape[1], v_pool.shape[1]
+    if (k_pool.shape[3] != hd or v_pool.shape[2:] != (page, hd)
+            or bt_k.shape != (b, n_pages) or bt_v.shape != (b, n_pages)):
+        raise ValueError(f"shape mismatch: q {tuple(q_rep.shape)}, k_pool "
+                         f"{tuple(k_pool.shape)}, v_pool "
+                         f"{tuple(v_pool.shape)}, bt_k {tuple(bt_k.shape)}, "
+                         f"bt_v {tuple(bt_v.shape)}")
+    smem = ((hd + n_pages * page + 3 * n_pages) * 4 + h_total * 4
+            + 2 * n_pages * 4)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{n_pages} pages of {page} need {smem} B of "
+                         "shared memory, above the block limit")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (pools are read "
+                             "in place, never copied)")
+        if t.data_ptr() % (2 * t.element_size()):
+            raise ValueError(f"{name} must be aligned to two elements")
+    dev = q_rep.device
+    q = q_rep.float().contiguous()
+    bt_k_i, bt_v_i = _small(bt_k, dev), _small(bt_v, dev)
+    h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
+    out = torch.empty((b, h_total, hd), dtype=torch.float32, device=dev)
+    fn = _launcher("paged_chai_fused_decode", 8, 12)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 bt_k_i.data_ptr(), bt_v_i.data_ptr(), h2c_i.data_ptr(),
+                 pos_i.data_ptr(), out.data_ptr(), b, r_total, h_total,
+                 kv_k, kv_v, n_pages, page, hd, reps_per_group,
+                 h_total // kv_v, int(window), _KV_DTYPES[k_pool.dtype],
+                 stream)
+    if err:
+        raise RuntimeError(f"paged_chai_fused_decode launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["paged_chai_fused_decode"] += 1
     return out

@@ -1,9 +1,10 @@
-"""Dispatch for the port's decode op.
+"""Dispatch for the port's decode ops.
 
-``chai_decode_attention`` is the paper's decode op: a tensor on the CPU
+``chai_decode_attention`` (dense cache) and ``paged_chai_decode_attention``
+(block-table page pools) are the paper's decode op: a tensor on the CPU
 takes the plain version (``kernels.ref``); any other device goes to the
-CUDA kernel, which launches or raises. There is no fallback from the
-kernel to the plain version.
+CUDA kernel, which launches or raises. There is no fallback from a
+kernel to its plain version.
 """
 from __future__ import annotations
 
@@ -29,3 +30,27 @@ def chai_decode_attention(q_rep, k_cache, v_cache, h2c, pos, *,
         q_rep, k_cache, v_cache, h2c, pos, k_scale=k_scale, v_scale=v_scale,
         reps_per_group=reps_per_group, share_values=share_values,
         window=window, ts=ts, softcap=softcap, emit_state=emit_state)
+
+
+def paged_chai_decode_attention(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos,
+                                *, k_scale_pool=None, v_scale_pool=None,
+                                reps_per_group=1, share_values=False,
+                                window=0, softcap=0.0, emit_state=False):
+    """The decode op over the engine's paged layout. q_rep: (B, R, hd);
+    k_pool: (nP, KVk, page, hd) clustered pages (MHA: KVk == k_max);
+    v_pool: (nP, KVv, page, hd) per-head V pages; bt_k/bt_v: (B, P)
+    block tables; h2c: (B, H) or (H,); pos: (B,). Returns (B, H, hd)
+    fp32."""
+    if q_rep.device.type == "cpu":
+        if emit_state:
+            raise NotImplementedError("emit_state is not ported yet")
+        return ref.paged_chai_fused_decode_ref(
+            q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos,
+            k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool,
+            reps_per_group=reps_per_group, share_values=share_values,
+            window=window, softcap=softcap)
+    return ck.paged_chai_fused_decode(
+        q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos,
+        k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool,
+        reps_per_group=reps_per_group, share_values=share_values,
+        window=window, softcap=softcap, emit_state=emit_state)

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the port's kernels (allclose targets).
 
-``chai_fused_decode_ref`` is the CUDA kernel's plain version: the CPU
-path of ``kernels.ops.chai_decode_attention`` and the yardstick the
+``chai_fused_decode_ref`` is the dense CUDA kernel's plain version: the
+CPU path of ``kernels.ops.chai_decode_attention`` and the yardstick the
 kernel is held against on the card. It mirrors the reference package's
 oracle (whole-row softmax, not the kernel's tiled online softmax).
+``paged_chai_fused_decode_ref`` is the paged kernel's: it densifies the
+pools through their block tables, then runs the dense plain version.
 """
 from __future__ import annotations
 
@@ -79,3 +81,29 @@ def chai_fused_decode_ref(q_rep, k_cache, v_cache, h2c, pos, *,
     if vf.shape[1] != h:         # GQA: head h reads V of group h // qpk
         vf = vf.repeat_interleave(h // vf.shape[1], dim=1)
     return chai_av_ref(a, vf, h2c)
+
+
+def gather_pages_ref(pool, bt):
+    """Densify a page pool through block tables. pool: (nP, rows, page,
+    hd); bt: (B, P) -> (B, rows, P*page, hd). Null-page entries yield
+    garbage rows that the ``pos`` masks of the decode hide (the contract
+    the paged kernel relies on). The engine's own gather."""
+    from repro_torch.core.cache import gather_pages
+    return gather_pages(pool, bt)
+
+
+def paged_chai_fused_decode_ref(q_rep, k_pool, bt_k, v_pool, bt_v, h2c,
+                                pos, *, k_scale_pool=None,
+                                v_scale_pool=None, reps_per_group=0,
+                                share_values=False, window=0, softcap=0.0):
+    """Plain version of ``paged_chai_fused_decode``: densify, then the
+    dense plain version. Returns (B, H, hd) fp32."""
+    return chai_fused_decode_ref(
+        q_rep, gather_pages_ref(k_pool, bt_k), gather_pages_ref(v_pool, bt_v),
+        h2c, pos,
+        k_scale=(None if k_scale_pool is None
+                 else gather_pages_ref(k_scale_pool, bt_k)),
+        v_scale=(None if v_scale_pool is None
+                 else gather_pages_ref(v_scale_pool, bt_v)),
+        reps_per_group=reps_per_group, share_values=share_values,
+        window=window, softcap=softcap)

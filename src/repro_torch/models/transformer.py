@@ -122,15 +122,27 @@ def _layer(group, i):
 # Decode state
 # ---------------------------------------------------------------------------
 
-def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, device):
-    """{"pos": (B,) int32, "kg"/"vg": (nG, B, KV, S, hd) model dtype}."""
+def decode_state_shapes(cfg: ModelConfig, batch: int, max_seq: int):
+    """{name: (shape, dtype)} of the decode state: ``pos`` (B,) int32 and
+    the global caches ``kg``/``vg`` (nG, B, KV, S, hd) in the model dtype
+    (the reference's ``decode_state_structs``, global-attention subset)."""
     check_supported(cfg)
-    dt = model_dtype(cfg)
     shape = (cfg.n_global_layers, batch, cfg.n_kv_heads, max_seq,
              cfg.head_dim)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "kg": torch.zeros(shape, dtype=dt, device=device),
-            "vg": torch.zeros(shape, dtype=dt, device=device)}
+    dt = model_dtype(cfg)
+    return {"pos": ((batch,), torch.int32), "kg": (shape, dt),
+            "vg": (shape, dt)}
+
+
+def zeros_state(shapes, device):
+    """Zero tensors for a ``{name: (shape, dtype)}`` table."""
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in shapes.items()}
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, device):
+    """{"pos": (B,) int32, "kg"/"vg": (nG, B, KV, S, hd) model dtype}."""
+    return zeros_state(decode_state_shapes(cfg, batch, max_seq), device)
 
 
 # ---------------------------------------------------------------------------
@@ -216,49 +228,142 @@ def _decode_attention_batched(q, kc, vc, kv_pos, pos, window, cap):
     return out.reshape(b, h, hd).to(q.dtype), p
 
 
-def _plain_decode_attention(xn, p, cfg, state, gi, ai):
+def _masked_rows(write_mask, new, old):
+    """Commit ``new`` only for slots in ``write_mask`` (mixed-phase step);
+    identity when no mask. new/old: (B, ...)."""
+    if write_mask is None:
+        return new
+    m = write_mask.reshape((-1,) + (1,) * (new.ndim - 1))
+    return torch.where(m, new, old)
+
+
+def write_positions(pos, s):
+    """Cache row each slot writes this step. A FREE slot's ``pos`` keeps
+    advancing with every batched step until the slot is refilled; the
+    reference's scatter drops such out-of-range writes, and here they are
+    clamped onto the FREE slot's own last row, which is rewritten before
+    it is read again."""
+    return pos.long().clamp(max=s - 1)
+
+
+def paged_token_coords(bt, pos, page):
+    """(physical page, in-page row) for each slot's current write
+    position. bt: (B, P) block table; pos: (B,). Unallocated logical
+    pages map to the null sink page 0, where writes are harmless (a FREE
+    slot past its table's end is clamped onto its last entry, also the
+    null page)."""
+    b = pos.shape[0]
+    logical = (pos.long() // page).clamp(max=bt.shape[1] - 1)
+    ar = torch.arange(b, device=pos.device)
+    return bt[ar, logical].long(), pos.long() % page
+
+
+def _paged_write_rows(pool, page_idx, row, new, write_mask):
+    """Commit one token's rows into pool pages, in place. pool: (nP, rows,
+    page, hd); page_idx/row: (B,); new: (B, rows, hd). Slots whose
+    current page is the null page 0 (FREE slots, a STEADY slot's nulled
+    dense K table) may collide there; whichever write wins, page 0 is
+    never read as valid."""
+    old = pool[page_idx, :, row, :]
+    pool[page_idx, :, row, :] = _masked_rows(write_mask, new.to(pool.dtype),
+                                             old)
+
+
+def _paged_global_write(state, gi, k, v, pos, write_mask):
+    """Paged-layout global-cache decode write: commit one token's K/V rows
+    into each slot's current page of the shared dense pool. Returns the
+    layer's pool (a view, updated in place)."""
+    pool = state["kvp"][gi]                              # (nP, KV, page, hd)
+    page = pool.shape[2]
+    pk, row = paged_token_coords(state["bt_kg"], pos, page)
+    pv, _ = paged_token_coords(state["bt_vg"], pos, page)
+    _paged_write_rows(pool, pk, row, k, write_mask)
+    _paged_write_rows(pool, pv, row, v, write_mask)
+    return pool
+
+
+def _paged_global_update(state, gi, k, v, pos, write_mask):
+    """``_paged_global_write`` + dense logical views (B, KV, S, hd)
+    gathered through the block tables (the attention math downstream is
+    the dense layout's)."""
+    from repro_torch.core.cache import gather_pages
+    pool = _paged_global_write(state, gi, k, v, pos, write_mask)
+    return gather_pages(pool, state["bt_kg"]), gather_pages(pool,
+                                                            state["bt_vg"])
+
+
+def _plain_decode_attention(xn, p, cfg, state, gi, ai, write_mask=None):
     """MHA/GQA decode for one token. xn: (B, d). Returns (B, H, hd).
 
-    Writes the token's K/V rows at ``pos`` and, during CHAI WARMUP (a
-    ``chai_scores`` buffer in the state), adds this step's attention
-    probabilities over the first ``feature_window`` positions to the
-    layer's clustering features (paper §3.3)."""
+    Writes the token's K/V rows at ``pos`` (dense ``kg``/``vg``, or the
+    paged pool ``kvp`` through ``bt_kg``/``bt_vg``) and, during CHAI
+    WARMUP (a ``chai_scores`` buffer in the state), adds this step's
+    attention probabilities over the first ``feature_window`` positions
+    to the layer's clustering features (paper §3.3). ``write_mask`` (B,)
+    bool: rows and features are committed only for masked slots (the
+    mixed-phase step runs this path alongside the CHAI path)."""
     b = xn.shape[0]
     pos = state["pos"]
-    ar = torch.arange(b, device=xn.device)
-    pl = pos.long()
     q, k, v = attn_mod.project_qkv(xn[:, None], p, cfg, pos[:, None])
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
-    kc, vc = state["kg"][gi], state["vg"][gi]
-    kc[ar, :, pl, :] = k.to(kc.dtype)
-    vc[ar, :, pl, :] = v.to(vc.dtype)
+    if "kvp" in state:
+        kc, vc = _paged_global_update(state, gi, k, v, pos, write_mask)
+    else:
+        kc, vc = state["kg"][gi], state["vg"][gi]
+        ar = torch.arange(b, device=xn.device)
+        pl = write_positions(pos, kc.shape[2])
+        kc[ar, :, pl, :] = _masked_rows(write_mask, k.to(kc.dtype),
+                                        kc[ar, :, pl, :])
+        vc[ar, :, pl, :] = _masked_rows(write_mask, v.to(vc.dtype),
+                                        vc[ar, :, pl, :])
     s = kc.shape[2]
     kv_pos = torch.arange(s, dtype=torch.int32, device=xn.device).expand(b, s)
     y, probs = _decode_attention_batched(q, kc, vc, kv_pos, pos, 0,
                                          cfg.attn_logit_softcap)
     if "chai_scores" in state:
         wf = state["chai_scores"].shape[-1]
-        state["chai_scores"][ai] += probs.reshape(b, -1, s)[:, :, :wf]
+        pw = probs.reshape(b, -1, s)[:, :, :wf]
+        if write_mask is not None:   # steady slots: features stay frozen
+            pw = pw * write_mask[:, None, None]
+        state["chai_scores"][ai] += pw
     return y
 
 
 def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
-                decode_ts=0):
+                mixed_phase=False, decode_ts=0):
     """One decode step. tokens: (B,) int. Returns (logits (B, V) fp32,
     state) with ``pos`` advanced by one.
 
     ``chai_ctx`` (membership, see ``repro_torch.core.clustering``) routes
     every attention layer through Clustered Head Attention over the
-    compacted ``kg_chai`` cache; ``decode_ts`` is the S-tile size of the
-    fused CHAI decode kernel (the engine passes its page size)."""
+    clustered K cache (``kg_chai``, or the paged pool ``cp``);
+    ``decode_ts`` is the S-tile size of the dense fused CHAI decode (the
+    engine passes its page size, the paged kernel's tile).
+
+    ``mixed_phase`` (continuous batching, with a ``chai_ctx``): WARMUP and
+    STEADY slots share the batch. Both attention paths run for every
+    slot, each committing its cache writes only for its own slots
+    (``state["phase"]`` STEADY -> CHAI path, else the MHA path), and the
+    output is selected per slot."""
     from repro_torch.core import chai_attention as chai_mod
     plan = layer_plan(cfg)
     h = embed_lookup(params["embed"]["tok"], tokens).to(model_dtype(cfg))
+    steady = None
+    if chai_ctx is not None and mixed_phase:
+        from repro_torch.core.cache import PHASE_STEADY
+        steady = state["phase"] >= PHASE_STEADY                # (B,)
     for i in range(cfg.n_layers):
         ai, gi = plan["attn"][i], plan["global"][i]
         p = _layer(params["attn"], ai)
         xn = rms_norm(h, p["ln"], cfg.norm_eps)
-        if chai_ctx is not None:
+        if steady is not None:
+            y_m = _plain_decode_attention(xn, p, cfg, state, gi, ai,
+                                          write_mask=~steady)
+            y_c = chai_mod.chai_decode_attention(
+                xn, p, cfg, state, gi, ai, chai_ctx, write_mask=steady,
+                decode_ts=decode_ts)
+            y = torch.where(steady[:, None, None], y_c, y_m)
+        elif chai_ctx is not None:
             y = chai_mod.chai_decode_attention(xn, p, cfg, state, gi, ai,
                                                chai_ctx, decode_ts=decode_ts)
         else:

@@ -3,8 +3,8 @@
 ``SamplingParams`` is the knob set a request carries through the engine,
 field for field the reference's. Greedy decode (``temperature == 0``) is
 ``argmax`` over the fp32 logits. The batched sampler for
-``temperature > 0`` comes with the continuous engine; until then the
-engine refuses such requests with ``NotImplementedError``.
+``temperature > 0`` and stop strings are not ported yet; the engine
+refuses such requests with ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -30,7 +30,9 @@ def test_port_files_exist():
     assert "chip_smoke.py" in names
     assert "src/repro_torch/kernels/chai_attention.py" in names
     csrc = ROOT / "src/repro_torch/kernels/csrc"
-    assert (csrc / "chai_fused_decode.cu").exists()
+    for name in ("chai_fused_decode.cu", "paged_chai_fused_decode.cu",
+                 "chai_decode_tiles.cuh"):
+        assert (csrc / name).exists(), name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -51,8 +53,9 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
     from repro_torch.weights import params_from_numpy
     cfg = reduced(get_config("chai-llama-7b"), n_layers=1)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ServingEngine(cfg, params, EngineConfig(scheduler="cohort"))
+    for ecfg in (EngineConfig(), EngineConfig(scheduler="cohort")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ServingEngine(cfg, params, ecfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -62,10 +65,20 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
 
 
 def test_continuous_scheduler_names_the_next_slice():
+    """The default ``EngineConfig()`` is the continuous scheduler on the
+    paged layout, and it runs; the settings of later slices raise
+    ``NotImplementedError`` naming their ROADMAP item."""
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.sampling import SamplingParams
     cfg = reduced(get_config("chai-llama-7b"), n_layers=1)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="paged"):
-        ServingEngine(cfg, params, EngineConfig(), device="cpu")
+    eng = ServingEngine(cfg, params, EngineConfig(), device="cpu")
+    assert eng.ecfg.scheduler == "continuous" and eng.paged
+    eng.submit([1, 2, 3], max_new_tokens=2)
+    assert [len(r.generated) for r in eng.run()] == [2]
+    for kw in (dict(sampling=SamplingParams(temperature=1.0)),
+               dict(priority=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            eng.add_request([1, 2, 3], max_new_tokens=2, **kw)
