@@ -11,10 +11,14 @@ result line):
    GQA shape, with CUDA-event timings and the bound the card could reach;
    the paged kernel also on shuffled pages, on a WARMUP-like row whose K
    table is all null page 0, and bitwise (``torch.equal``) against the
-   dense kernel at page = tile;
+   dense kernel at page = tile; the prefill kernels at a full chunk's
+   shapes (bf16 and fp32, GQA, ``flash_prefill`` finalized and as state,
+   with an offset, ``paged_prefix_attend`` on shuffled pages at plen
+   128/256/384 and at plen 0, which must be the merge identity exactly);
 4. a reduced model on the card against the same model on the CPU (the
    plain path): teacher-forced cohort steps, logits held at 1e-4; then
-   the continuous engine, paged and dense, cuda against cpu;
+   the continuous engine, paged and dense, cuda against cpu; then the
+   chunked continuous engine, cuda against cpu;
 5. the cohort main path: full-width chai-llama-7b (bf16, random weights
    from a seed) served through the cohort ``ServingEngine`` — 4
    requests, 32 new tokens each — with every kernel's launches counted
@@ -25,12 +29,19 @@ result line):
    (paged, then dense), with the launches counted over each run, the
    greedy tokens of the two layouts identical, the KV bytes falling at
    every CLUSTER transition and both pools empty at the end;
-7. a ``kernels`` JSON line, the card's name and power limit, and, last,
+7. the chunked continuous path: the paged run of phase 6 again with
+   ``prefill_chunk_tokens=128`` (20 chunks, so 640 launches of each
+   prefill kernel), its greedy tokens held against phase 6's on every
+   step whose phase-6 top-2 logit margin exceeds ``CHUNK_MARGIN``, the
+   prefill kernels held against their plain versions on the layer-0
+   inputs of its chunks and timed there;
+8. a ``kernels`` JSON line, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -48,6 +59,7 @@ from repro_torch.core import chai_attention as chai_core  # noqa: E402
 from repro_torch.core import clustering  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import chai_attention as ck  # noqa: E402
+from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -58,7 +70,12 @@ from repro_torch.serving.sampling import FINISH_LENGTH  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 TOL = dict(atol=2e-5, rtol=2e-5)
+# A finalized bf16 output rounds the fp32 result once, and the kernel and
+# the plain version may round a value whose fp32 forms differ in the last
+# bits to neighbouring bf16 values: one bf16 step (2^-7 relative).
+BF16_OUT_TOL = dict(atol=2e-5, rtol=2 ** -7)
 ARCH = "chai-llama-7b"
 PROMPT_LENS = (200, 320, 450, 500)
 MAX_NEW = 32
@@ -67,6 +84,13 @@ CONT_MAX_NEW = (32, 48) * 4
 MAX_SEQ = 1024
 PAGE = 16
 SLOTS = 4
+CHUNK = 128
+# Phase 7 holds a chunked run's greedy token to the monolithic run's where
+# the monolithic top-2 logit margin exceeds this. The two prefills round
+# bf16 activations at different places (the chunk's two-pass attention
+# against the whole-prompt one); logits of this model are ~N(0, 1), and
+# their rounding differences are expected around 1e-2.
+CHUNK_MARGIN = 0.1
 KERNEL_ROWS = {
     "chai_fused_decode": dict(
         route="cuda",
@@ -76,6 +100,14 @@ KERNEL_ROWS = {
         route="cuda",
         source="src/repro_torch/kernels/csrc/paged_chai_fused_decode.cu",
         replaces="src/repro/kernels/chai_attention.py:579"),
+    "flash_prefill": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+        replaces="src/repro/kernels/flash_attention.py:273"),
+    "paged_prefix_attend": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_prefix_attend.cu",
+        replaces="src/repro/kernels/flash_attention.py:413"),
 }
 
 
@@ -121,10 +153,46 @@ def build_kernels():
 
 # ------------------------------------------------------------ phase 3 ----
 def time_ms(fn, reps=20, warmup=3):
-    """Median over ``reps`` single calls, each between two CUDA events."""
+    """Device time of one call: ``reps`` calls back to back between two
+    CUDA events, after ``warmup`` calls, over the count. The host
+    enqueues ahead of the card, so a wrapper's Python time hides behind
+    the kernels unless it is the longer of the two."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, kernel, reps=20):
+    """Device time per launch of the CUDA kernel named ``kernel`` over
+    ``reps`` calls of ``fn``, from a ``torch.profiler`` trace of the card:
+    no host time in it, whichever side is the slower. None when the trace
+    holds no device time for that kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    pat = re.compile(rf"\b{kernel}\b")
+    hits = [e for e in prof.key_averages() if pat.search(e.key)]
+    count = sum(e.count for e in hits)
+    total_us = sum(e.device_time_total for e in hits)
+    return total_us / count / 1e3 if count and total_us else None
+
+
+def single_call_ms(fn, reps=20):
+    """Median over ``reps`` single calls, each between two CUDA events: the
+    method of the earlier runs, whose interval also holds the wrapper's
+    host time before the launch (the card idles through it)."""
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -311,6 +379,202 @@ def paged_kernel_checks():
     return cases
 
 
+def _max_err(got, want):
+    """Largest |got - want| over a tensor or a state triple."""
+    if isinstance(got, tuple):
+        return max(_max_err(g, w) for g, w in zip(got, want))
+    return float((got.float() - want.float()).abs().max())
+
+
+def _hold(got, want, tol=TOL):
+    """Shapes, finiteness (a state's m may hold the identity's -2e38,
+    which is finite) and ``tol``; returns the max abs error."""
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    for g, w in pairs:
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"kernel output {tuple(g.shape)} not "
+                                 f"finite or not of the plain version's "
+                                 f"shape {tuple(w.shape)}")
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+    return _max_err(got, want)
+
+
+def flash_prefill_bound(q, k, offset, emit_state):
+    """Least time for ``flash_prefill``'s work: q, k and v read once, the
+    output (q's dtype) or the fp32 state written once; the QK and PV
+    multiply-adds of the causal pairs (query offset + t sees keys
+    0..offset + t) at the inputs' peak rate (bf16 tensor cores, or fp32)."""
+    b, t, h, hd = q.shape
+    s = k.shape[1]
+    es = q.element_size()
+    n_bytes = (q.numel() + 2 * k.numel()) * es + 4
+    n_bytes += (2 * b * h * t + b * h * t * hd) * 4 if emit_state else (
+        q.numel() * es)
+    pairs = sum(min(s, offset + i + 1) for i in range(t))
+    flops = 4 * b * h * hd * pairs
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def prefix_bound(q, pool, bt_k, plen):
+    """Least time for ``paged_prefix_attend``'s work: q, the K and V rows
+    of the positions < plen and the table entries of their pages read
+    once, the fp32 state written once; 4 * hd flops per (query, head,
+    position) at the inputs' peak rate."""
+    b, t, h, hd = q.shape
+    kv, page = pool.shape[1], pool.shape[2]
+    es = q.element_size()
+    lens = [min(int(n), bt_k.shape[1] * page) for n in plen.tolist()]
+    n_bytes = (q.numel() * es + sum(2 * n * kv * hd * es for n in lens)
+               + sum(2 * 4 * -(-n // page) for n in lens) + 4 * b
+               + (2 * b * h * t + b * h * t * hd) * 4)
+    flops = sum(4 * h * hd * t * n for n in lens)
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_case(q, k, v, *, offset=0, emit_state=True, library=False):
+    """``flash_prefill`` against its plain version on one input (2e-5,
+    or one bf16 step for a finalized bf16 output); returns the case's
+    record with its times and bound. ``library``: also time PyTorch's
+    ``scaled_dot_product_attention(is_causal=True)`` beside the finalized
+    mode on the same (MHA, offset 0, T == S) inputs."""
+    got = fk.flash_prefill(q, k, v, offset=offset, emit_state=emit_state)
+    torch.cuda.synchronize()
+    if emit_state:
+        want, tol = kref.flash_prefill_state_ref(q, k, v, offset=offset), TOL
+    else:
+        if got.dtype != q.dtype:
+            raise AssertionError(f"finalized output in {got.dtype}")
+        want = kref.flash_prefill_ref(q, k, v, offset=offset)
+        tol = TOL if q.dtype == torch.float32 else BF16_OUT_TOL
+    err = _hold(got, want, tol)
+    ms = time_ms(lambda: fk.flash_prefill(q, k, v, offset=offset,
+                                          emit_state=emit_state))
+    plain = (kref.flash_prefill_state_ref if emit_state
+             else kref.flash_prefill_ref)
+    plain_ms = time_ms(lambda: plain(q, k, v, offset=offset))
+    bound, by = flash_prefill_bound(q, k, offset, emit_state)
+    rec = dict(q=list(q.shape), k=list(k.shape), dtype=str(q.dtype),
+               offset=offset, emit_state=emit_state, max_abs_err=err,
+               tolerance="2e-5" if tol is TOL else "one bf16 step",
+               ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    if library:
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = sdpa(qh, kh, vh, is_causal=True).transpose(1, 2)
+        fin = fk.flash_prefill(q, k, v)
+        rec["library_ms"] = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
+        rec["finalized_ms"] = time_ms(lambda: fk.flash_prefill(q, k, v))
+        rec["library_vs_kernel_max_abs_diff"] = _max_err(lib, fin)
+    return rec
+
+
+def prefix_case(q, pool, bt_k, bt_v, plen):
+    """``paged_prefix_attend`` against its plain version (2e-5); rows with
+    plen == 0 must hold the merge identity exactly. Returns the record."""
+    got = fk.paged_prefix_attend(q, pool, bt_k, bt_v, plen)
+    torch.cuda.synchronize()
+    want = kref.paged_prefix_attend_ref(q, pool, bt_k, bt_v, plen)
+    err = _hold(got, want)
+    empty = plen == 0
+    if empty.any():
+        m, l, acc = (x[empty] for x in got)
+        if not ((m == kref.NEG_INF).all() and (l == 0).all()
+                and (acc == 0).all()):
+            raise AssertionError("paged_prefix_attend: a plen == 0 row is "
+                                 "not the merge identity")
+    ms = time_ms(lambda: fk.paged_prefix_attend(q, pool, bt_k, bt_v, plen))
+    plain_ms = time_ms(lambda: kref.paged_prefix_attend_ref(
+        q, pool, bt_k, bt_v, plen))
+    bound, by = prefix_bound(q, pool, bt_k, plen)
+    return dict(q=list(q.shape), pool=list(pool.shape), dtype=str(q.dtype),
+                plen=plen.tolist(), identity_rows=int(empty.sum()),
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by)
+
+
+def _log_case(name, case):
+    log(f"{name} {case['case']}: q {tuple(case['q'])} {case['dtype']} "
+        + (f"plen {case['plen']} " if "plen" in case else
+           f"offset {case['offset']} emit_state {case['emit_state']} ")
+        + f"max_abs_err {case['max_abs_err']:.3e} kernel {case['ms']:.4f} "
+        f"ms plain {case['plain_ms']:.4f} ms bound {case['bound_ms']:.4f} ms"
+        f" ({case['bound_by']})"
+        + (f" library {case['library_ms']:.4f} ms (kernel finalized "
+           f"{case['finalized_ms']:.4f} ms)" if "library_ms" in case else ""))
+
+
+def prefill_kernel_checks():
+    """Both prefill kernels at a full chunk's shapes (T = 128 queries of 32
+    heads of 128, a pool of 513 pages of 16) and at the edges."""
+    gen = torch.Generator("cuda").manual_seed(3)
+    dev = "cuda"
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    flash = []
+    for name, (t, s, h, kv, dtype, offset, emit, lib) in {
+            "chunk_bf16_state": (128, 128, 32, 32, torch.bfloat16, 0, True,
+                                 False),
+            "chunk_bf16_finalized": (128, 128, 32, 32, torch.bfloat16, 0,
+                                     False, True),
+            "chunk_fp32_state": (128, 128, 32, 32, torch.float32, 0, True,
+                                 False),
+            "chunk_fp32_finalized": (128, 128, 32, 32, torch.float32, 0,
+                                     False, False),
+            "offset384_bf16_state": (128, 512, 32, 32, torch.bfloat16, 384,
+                                     True, False),
+            "ragged_t40_offset60_fp32": (40, 100, 32, 32, torch.float32, 60,
+                                         True, False),
+            "gqa_h48_kv8_bf16_state": (128, 128, 48, 8, torch.bfloat16, 0,
+                                       True, False)}.items():
+        q = rand(1, t, h, 128, dtype=dtype)
+        k, v = rand(1, s, kv, 128, dtype=dtype), rand(1, s, kv, 128,
+                                                      dtype=dtype)
+        case = dict(case=name, **flash_case(q, k, v, offset=offset,
+                                            emit_state=emit, library=lib))
+        flash.append(case)
+        _log_case("flash_prefill", case)
+    # a device tensor offset gives the int offset's bits
+    q, k, v = rand(1, 128, 32, 128), rand(1, 512, 32, 128), rand(1, 512, 32,
+                                                                  128)
+    a = fk.flash_prefill(q, k, v, offset=384, emit_state=True)
+    b = fk.flash_prefill(q, k, v, offset=torch.tensor([384], device=dev),
+                         emit_state=True)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("flash_prefill: tensor offset differs from int")
+
+    prefix = []
+    n_pool, p_slot = 2 * SLOTS * MAX_SEQ // PAGE + 1, MAX_SEQ // PAGE
+    for name, (b, h, kv, dtype, plens) in {
+            "plen128_bf16": (1, 32, 32, torch.bfloat16, (128,)),
+            "plen256_bf16": (1, 32, 32, torch.bfloat16, (256,)),
+            "plen384_bf16": (1, 32, 32, torch.bfloat16, (384,)),
+            "plen0_bf16": (1, 32, 32, torch.bfloat16, (0,)),
+            "rows_0_200_384_bf16": (3, 32, 32, torch.bfloat16, (0, 200, 384)),
+            "plen384_fp32": (1, 32, 32, torch.float32, (384,)),
+            "gqa_h48_kv8_plen384_bf16": (1, 48, 8, torch.bfloat16,
+                                         (384,))}.items():
+        pool = rand(n_pool, kv, PAGE, 128, dtype=dtype)
+        ids = (torch.randperm(n_pool - 1, generator=gen, device=dev)
+               + 1).to(torch.int32)
+        bt_k = ids[:b * p_slot].reshape(b, p_slot)
+        bt_v = ids[b * p_slot:2 * b * p_slot].reshape(b, p_slot)
+        plen = torch.tensor(plens, dtype=torch.int32, device=dev)
+        q = rand(b, 128, h, 128, dtype=dtype)
+        case = dict(case=name, **prefix_case(q, pool, bt_k, bt_v, plen))
+        prefix.append(case)
+        _log_case("paged_prefix_attend", case)
+        del pool
+    return flash, prefix
+
+
 # ------------------------------------------------------------ phase 4 ----
 def reduced_reference_check():
     """The reduced model on the card (kernel path) against the same model
@@ -371,8 +635,92 @@ def reduced_reference_check():
 
 
 def _reset_launches():
-    for name in ck.LAUNCHES:
-        ck.LAUNCHES[name] = 0
+    for counts in (ck.LAUNCHES, fk.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _launches():
+    """Every kernel's launch count since the last reset."""
+    return {**ck.LAUNCHES, **fk.LAUNCHES}
+
+
+def _reduced_model():
+    cfg = reduced(get_config(ARCH), n_layers=2)
+    params_cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+    params_gpu = {g: {n: t.cuda() for n, t in grp.items()}
+                  for g, grp in params_cpu.items()}
+    return cfg, params_cpu, params_gpu
+
+
+def _reduced_serve(cfg, params, device, prompts, budgets, identify=None,
+                   **ecfg):
+    """Serve ``prompts`` on a 2-slot continuous engine; returns ({uid:
+    tokens}, [(argmax input, live rows)], [(WARMUP buffer, membership)]).
+    ``identify(sc, n)``: the n-th CLUSTER transition's membership in place
+    of the engine's own."""
+    eng = ServingEngine(cfg, params, EngineConfig(batch_slots=2,
+                                                  page_size=PAGE, **ecfg),
+                        device=device)
+    calls, idents = [], []
+    argmax, own = eng._argmax, eng._identify
+
+    def rec_argmax(lg):
+        live = ([True] if lg.shape[0] == 1 else
+                [r is not None and eng._phases[i] != chai_cache.PHASE_PREFILL
+                 for i, r in enumerate(eng._slot_req)])
+        calls.append((lg.detach().cpu(), live))
+        return argmax(lg)
+
+    def rec_identify(sc):
+        out = identify(sc, len(idents)) if identify else own(sc)
+        idents.append((sc.cpu(), {k: v.cpu() for k, v in out.items()}))
+        return out
+
+    eng._argmax, eng._identify = rec_argmax, rec_identify
+    for i, (pr, m) in enumerate(zip(prompts, budgets)):
+        eng.submit(pr, max_new_tokens=m, uid=i)
+    done = {r.uid: r.generated for r in eng.run()}
+    if [len(done[u]) for u in sorted(done)] != list(budgets):
+        raise AssertionError(f"{device} {ecfg}: token counts wrong")
+    if eng.paged and eng.dense_pool.pages_in_use:
+        raise AssertionError(f"{device} {ecfg}: pages left in use")
+    return done, calls, idents
+
+
+def _forced_identify(cpu_idents):
+    """Cluster a cuda run through the cpu run's memberships, after holding
+    its WARMUP buffer to the cpu one."""
+    def forced(sc, n):
+        want, ctx = cpu_idents[n]
+        torch.testing.assert_close(sc.cpu(), want, atol=1e-5, rtol=1e-4)
+        return {k: v.cuda() for k, v in ctx.items()}
+    return forced
+
+
+def _hold_calls(gpu_calls, cpu_calls, label):
+    """Logits of every live row at 1e-4, call by call, until the first
+    greedy token that differs, which must sit on a cpu top-2 margin <=
+    1e-3. Returns (calls held, logits max abs diff)."""
+    worst, held = 0.0, 0
+    for (lg, live), (lc, _) in zip(gpu_calls, cpu_calls):
+        rows = [i for i, a in enumerate(live) if a]
+        g, c = lg[rows], lc[rows]
+        differ = g.argmax(-1) != c.argmax(-1)
+        if differ.any():
+            top2 = c.topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1])[differ]
+            if (margin > 1e-3).any():
+                raise AssertionError(f"{label}: cuda token differs at "
+                                     f"margin {margin.tolist()}")
+            log(f"{label}: tokens part at a near-tie (margin "
+                f"{margin.tolist()}) after {held} held steps")
+            break
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+        worst = max(worst, float((g - c).abs().max()))
+        held += 1
+    return held, worst
 
 
 def reduced_continuous_check():
@@ -383,84 +731,71 @@ def reduced_continuous_check():
     logits of every live row are held at 1e-4 until the first greedy
     token that differs, which must sit on a cpu top-2 margin <= 1e-3.
     The two cuda layouts must give identical tokens."""
-    cfg = reduced(get_config(ARCH), n_layers=2)
-    params_cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0),
-                                 "cpu")
-    params_gpu = {g: {n: t.cuda() for n, t in grp.items()}
-                  for g, grp in params_cpu.items()}
+    cfg, params_cpu, params_gpu = _reduced_model()
     rng = np.random.default_rng(1)
     budgets = (12, 7, 10, 4, 9)
     prompts = [rng.integers(0, cfg.vocab_size, size=n)
                for n in (11, 6, 17, 9, 14)]
-
-    def run(params, device, layout, identify=None):
-        eng = ServingEngine(cfg, params, EngineConfig(
-            batch_slots=2, max_seq=64, page_size=PAGE, kv_layout=layout),
-            device=device)
-        calls, idents = [], []
-        argmax, own = eng._argmax, eng._identify
-
-        def rec_argmax(lg):
-            live = ([True] if lg.shape[0] == 1 else
-                    [r is not None for r in eng._slot_req])
-            calls.append((lg.detach().cpu(), live))
-            return argmax(lg)
-
-        def rec_identify(sc):
-            out = identify(sc, len(idents)) if identify else own(sc)
-            idents.append((sc.cpu(), {k: v.cpu() for k, v in out.items()}))
-            return out
-
-        eng._argmax, eng._identify = rec_argmax, rec_identify
-        for i, (pr, m) in enumerate(zip(prompts, budgets)):
-            eng.submit(pr, max_new_tokens=m, uid=i)
-        done = {r.uid: r.generated for r in eng.run()}
-        if [len(done[u]) for u in sorted(done)] != list(budgets):
-            raise AssertionError(f"{device} {layout}: token counts wrong")
-        return done, calls, idents
-
-    cpu_done, cpu_calls, cpu_idents = run(params_cpu, "cpu", "paged")
-
-    def forced(sc, n):
-        want, ctx = cpu_idents[n]
-        torch.testing.assert_close(sc.cpu(), want, atol=1e-5, rtol=1e-4)
-        return {k: v.cuda() for k, v in ctx.items()}
-
+    cpu_done, cpu_calls, cpu_idents = _reduced_serve(
+        cfg, params_cpu, "cpu", prompts, budgets, max_seq=64)
     gpu = {}
     for layout in ("paged", "dense"):
         _reset_launches()
-        gpu[layout] = run(params_gpu, "cuda", layout, forced)
-        launched = dict(ck.LAUNCHES)
+        gpu[layout] = _reduced_serve(
+            cfg, params_gpu, "cuda", prompts, budgets,
+            _forced_identify(cpu_idents), max_seq=64, kv_layout=layout)
+        launched = _launches()
         own, other = (("paged_chai_fused_decode", "chai_fused_decode")
                       if layout == "paged" else
                       ("chai_fused_decode", "paged_chai_fused_decode"))
-        if not launched[own] or launched[other]:
+        if (not launched[own] or launched[other]
+                or launched["flash_prefill"]
+                or launched["paged_prefix_attend"]):
             raise AssertionError(f"reduced continuous {layout}: launches "
                                  f"{launched}")
     if gpu["paged"][0] != gpu["dense"][0]:
         raise AssertionError("reduced continuous: paged and dense layouts "
                              "gave different tokens on the card")
-    worst, held = 0.0, 0
-    for (lg, live), (lc, _) in zip(gpu["paged"][1], cpu_calls):
-        rows = [i for i, a in enumerate(live) if a]
-        g, c = lg[rows], lc[rows]
-        differ = g.argmax(-1) != c.argmax(-1)
-        if differ.any():
-            top2 = c.topk(2, dim=-1).values
-            margin = (top2[:, 0] - top2[:, 1])[differ]
-            if (margin > 1e-3).any():
-                raise AssertionError(f"reduced continuous: cuda token "
-                                     f"differs at margin {margin.tolist()}")
-            log(f"reduced continuous: tokens part at a near-tie (margin "
-                f"{margin.tolist()}) after {held} held steps")
-            break
-        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
-        worst = max(worst, float((g - c).abs().max()))
-        held += 1
+    held, worst = _hold_calls(gpu["paged"][1], cpu_calls,
+                              "reduced continuous")
     log(f"reduced continuous engine cuda vs cpu: {held} of "
         f"{len(cpu_calls)} argmax calls held, logits max abs diff "
         f"{worst:.3e}; tokens paged == dense on the card; cpu == cuda "
         f"tokens: {cpu_done == gpu['paged'][0]}")
+
+
+def reduced_chunked_check():
+    """The chunked continuous engine (chunks of 16 tokens, max_seq 128) on
+    the reduced model, cuda against cpu as in ``reduced_continuous_check``:
+    5 prompts of 40/9/33/20/50 tokens take 3 + 3 + 2 + 4 = 12 chunks, so
+    each prefill kernel launches 12 x 2 layers times; logits held at 1e-4
+    until a near-tie."""
+    cfg, params_cpu, params_gpu = _reduced_model()
+    rng = np.random.default_rng(2)
+    lens, budgets = (40, 9, 33, 20, 50), (10, 6, 8, 5, 7)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    kw = dict(max_seq=128, prefill_chunk_tokens=16)
+    cpu_done, cpu_calls, cpu_idents = _reduced_serve(
+        cfg, params_cpu, "cpu", prompts, budgets, **kw)
+    _reset_launches()
+    gpu_done, gpu_calls, _ = _reduced_serve(
+        cfg, params_gpu, "cuda", prompts, budgets,
+        _forced_identify(cpu_idents), **kw)
+    launched = _launches()
+    n_chunks = sum(-(-n // 16) for n in lens if n > 16)
+    if (launched["flash_prefill"] != n_chunks * cfg.n_layers
+            or launched["paged_prefix_attend"] != n_chunks * cfg.n_layers
+            or not launched["paged_chai_fused_decode"]):
+        raise AssertionError(f"reduced chunked: launches {launched}, "
+                             f"{n_chunks} chunks")
+    held, worst = _hold_calls(gpu_calls, cpu_calls, "reduced chunked")
+    mono, _, _ = _reduced_serve(cfg, params_gpu, "cuda", prompts, budgets,
+                                max_seq=128)
+    log(f"reduced chunked engine cuda vs cpu: {n_chunks} chunks, launches "
+        f"{launched}; {held} of {len(cpu_calls)} argmax calls held, logits "
+        f"max abs diff {worst:.3e}; cpu == cuda tokens: "
+        f"{cpu_done == gpu_done}; information only: chunked == monolithic "
+        f"tokens on the card: {gpu_done == mono}")
 
 
 # ------------------------------------------------------------ phase 5 ----
@@ -564,7 +899,7 @@ def main_path(cfg, params):
     try:
         _reset_launches()
         eng, done, wall, phases = serve(cfg, params, use_chai=True)
-        launches = dict(ck.LAUNCHES)
+        launches = _launches()
     finally:
         chai_core.kops = kops
     n_tok = sum(len(r.generated) for r in done)
@@ -574,8 +909,8 @@ def main_path(cfg, params):
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
         raise AssertionError("token id out of vocabulary")
     steady = MAX_NEW - 1 - cfg.chai.warmup_tokens
-    want = {"chai_fused_decode": steady * cfg.n_layers,
-            "paged_chai_fused_decode": 0}
+    want = {name: 0 for name in launches}
+    want["chai_fused_decode"] = steady * cfg.n_layers
     if launches != want:
         raise AssertionError(f"cohort path launches {launches}, expected "
                              f"{want}")
@@ -596,11 +931,17 @@ def main_path(cfg, params):
         rpg=rpg, ts=first["kw"]["ts"])
     bound, by = fused_decode_bound(first["q"], first["k"], first["v"],
                                    first["h2c"], first["pos"], rpg)
+    dense_call = (lambda: ck.chai_fused_decode(
+        first["q"], first["k"], first["v"], first["h2c"], first["pos"],
+        reps_per_group=rpg, ts=first["kw"]["ts"]))
+    single = single_call_ms(dense_call)
+    dev_ms = device_ms(dense_call, "chai_fused_decode_kernel")
     log(f"cohort layer 0, first STEADY step: q {tuple(first['q'].shape)}"
         f" {first['q'].dtype}, k {tuple(first['k'].shape)} "
         f"{first['k'].dtype}, pos {first['pos'].tolist()}: max_abs_err "
-        f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound:.4f} ms ({by})")
+        f"{err:.3e}, kernel {ms:.4f} ms (single call {single:.4f} ms, "
+        f"profiled device time {dev_ms} ms), "
+        f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
 
     _, mha_done, mha_wall, mha_phases = serve(cfg, params, use_chai=False)
     agree = sum(a == b for r, m in zip(done, mha_done)
@@ -612,25 +953,107 @@ def main_path(cfg, params):
                 k=list(first["k"].shape), v=list(first["v"].shape),
                 dtype=str(first["k"].dtype), ts=first["kw"]["ts"],
                 pos=first["pos"].tolist(), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+                single_call_ms=single, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
     return launches, main
 
 
 # ------------------------------------------------------------ phase 6 ----
-def serve_continuous(cfg, params, layout):
-    """Serve the continuous path's requests on one KV layout, with the
-    launches counted over the run, each step kind timed and counted,
-    the KV bytes read around every CLUSTER transition and the decode
-    ops' layer-0 inputs kept at the first all-STEADY step."""
+class _PrefillCapture:
+    """Stands in for ``kernels.ops`` inside ``models.transformer`` and keeps
+    a copy of each prefill op's inputs the first time ``when()`` names a
+    chunk start (layer 0 of that chunk); every call goes on to the real
+    dispatch."""
+
+    def __init__(self, when):
+        self.first = {}
+        self.when = when
+
+    def _keep(self, op, tensors):
+        key = (op, self.when())
+        if key not in self.first:
+            self.first[key] = {k: t.clone() for k, t in tensors.items()}
+
+    def paged_prefix_attention(self, q, kv_pool, bt_k, bt_v, plen):
+        self._keep("paged_prefix_attend", dict(q=q, pool=kv_pool, bt_k=bt_k,
+                                               bt_v=bt_v, plen=plen))
+        return kops.paged_prefix_attention(q, kv_pool, bt_k, bt_v, plen)
+
+    def flash_prefill_attention(self, q, k, v, offset=0, **kw):
+        self._keep("flash_prefill", dict(q=q, k=k, v=v))
+        return kops.flash_prefill_attention(q, k, v, offset, **kw)
+
+    merge_prefill_states = staticmethod(kops.merge_prefill_states)
+    finalize_prefill_state = staticmethod(kops.finalize_prefill_state)
+
+
+def _record_margins(eng):
+    """Wrap the engine's argmax: {uid: [top-2 logit margin behind each of
+    its greedy tokens]} (the first from the prefill's batch-1 logits,
+    then one row per decode step)."""
+    margins, prefilling = {}, []
+    argmax, finish = eng._argmax, eng._finish_prefill
+
+    def finish_prefill(i, req, logits):
+        prefilling.append(req.uid)
+        try:
+            return finish(i, req, logits)
+        finally:
+            prefilling.pop()
+
+    def rec_argmax(logits):
+        top2 = logits.float().topk(2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        uids = (prefilling[-1:] if prefilling else
+                [r.uid if r is not None
+                 and eng._phases[i] != chai_cache.PHASE_PREFILL else None
+                 for i, r in enumerate(eng._slot_req)])
+        for uid, gap in zip(uids, gaps):
+            if uid is not None:
+                margins.setdefault(uid, []).append(gap)
+        return argmax(logits)
+
+    eng._argmax, eng._finish_prefill = rec_argmax, finish_prefill
+    return margins
+
+
+def serve_continuous(cfg, params, layout, chunk=0, membership=None):
+    """Serve the continuous path's requests on one KV layout (``chunk``:
+    with chunked prefill), with the launches counted over the run, each
+    step kind and each ``step()`` timed, the KV bytes read around every
+    CLUSTER transition, the decode ops' layer-0 inputs kept at the first
+    all-STEADY and mixed steps, the prefill ops' at the first chunk of
+    each start position, the top-2 margin behind every greedy token and
+    each request's WARMUP buffer and membership. ``membership`` ({uid:
+    (buffer, ctx, _)}, another run's): cluster each request through it,
+    noting whether its own membership was the same."""
     eng = ServingEngine(cfg, params, EngineConfig(
         batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
-        kv_layout=layout))
+        kv_layout=layout, prefill_chunk_tokens=chunk))
     times, calls = {}, {}
     for attr, phase in (("_slot_prefill", "prefill"),
+                        ("_chunk_prefill", "chunk"),
                         ("_mha_step", "warmup_step"),
                         ("_mixed_step", "mixed_step"),
                         ("_chai_step", "steady_step")):
-        setattr(eng, attr, _timed(getattr(eng, attr), phase, times, calls))
+        if hasattr(eng, attr):
+            setattr(eng, attr, _timed(getattr(eng, attr), phase, times,
+                                      calls))
+    idents, own = {}, eng._identify
+
+    def identify(sc):
+        i = int(np.flatnonzero(eng._phases == chai_cache.PHASE_CLUSTER)[0])
+        uid = eng._slot_req[i].uid
+        out = own(sc)        # run either way: both runs pay for K-Means
+        if membership is not None:
+            forced = membership[uid][1]
+            same = all(torch.equal(out[k], forced[k]) for k in out)
+            out = forced
+        else:
+            same = True
+        idents[uid] = (sc.clone(), out, same)
+        return out
+    eng._identify = identify
     cluster = eng._cluster_fn()
     transitions = []
 
@@ -641,6 +1064,31 @@ def serve_continuous(cfg, params, layout):
         return out
     eng._cluster_slot = _timed(watched_cluster, "cluster", times, calls)
     _check_logits(eng, cfg.vocab_size)
+    margins = _record_margins(eng)
+    chunk_start = [None]
+    if chunk:
+        chunk_fn = eng._chunk_prefill
+
+        def noted_chunk(*args):
+            chunk_start[0] = args[3]          # prefix_len: the chunk start
+            return chunk_fn(*args)
+        eng._chunk_prefill = noted_chunk
+    step, step_s = eng.step, []
+    in_flight = {"mixed": 0, "no_decode": 0}
+
+    def timed_step():
+        mixed0 = calls.get("mixed_step", 0)
+        n0 = eng.steps_executed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if any(st is not None for st in eng._slot_prefill_state):
+            in_flight["mixed"] += calls.get("mixed_step", 0) > mixed0
+            in_flight["no_decode"] += eng.steps_executed == n0
+        return out
+    eng.step = timed_step
 
     def step_kind():
         """"steady" when every occupied slot is STEADY, else "mixed" (the
@@ -650,11 +1098,12 @@ def serve_continuous(cfg, params, layout):
                 else "mixed")
     cap = _Capture(step_kind, lambda: torch.from_numpy(
         eng._phases.copy()).cuda())
+    pcap = _PrefillCapture(lambda: chunk_start[0])
     rng = np.random.default_rng(0)
     for i, (n, m) in enumerate(zip(CONT_PROMPT_LENS, CONT_MAX_NEW)):
         eng.submit(rng.integers(0, cfg.vocab_size, size=n),
                    max_new_tokens=m, uid=i)
-    chai_core.kops = cap
+    chai_core.kops, tfm.kops = cap, pcap
     try:
         torch.cuda.synchronize()
         _reset_launches()
@@ -662,73 +1111,94 @@ def serve_continuous(cfg, params, layout):
         done = eng.run()
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = dict(ck.LAUNCHES)
+        launches = _launches()
     finally:
-        chai_core.kops = kops
+        chai_core.kops, tfm.kops = kops, kops
     return dict(eng=eng, done=sorted(done, key=lambda r: r.uid), wall=wall,
                 times=times, calls=calls, transitions=transitions,
-                launches=launches, capture=cap.first)
+                launches=launches, capture=cap.first, prefill=pcap.first,
+                margins=margins, idents=idents, step_s=step_s,
+                in_flight=in_flight)
+
+
+def _check_served(cfg, run, label):
+    """Token counts, vocabulary, and both step kinds ran."""
+    done, calls = run["done"], run["calls"]
+    counts = [len(r.generated) for r in done]
+    if (counts != list(CONT_MAX_NEW)
+            or any(r.finish_reason != FINISH_LENGTH for r in done)):
+        raise AssertionError(f"{label}: token counts {counts}")
+    if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
+        raise AssertionError("token id out of vocabulary")
+    if not (calls.get("mixed_step") and calls.get("steady_step")):
+        raise AssertionError(f"{label}: step kinds {calls}")
+    if [len(run["margins"][r.uid]) for r in done] != counts:
+        raise AssertionError(f"{label}: margins not recorded per token")
+
+
+def _log_served(run, label):
+    eng, done, calls = run["eng"], run["done"], run["calls"]
+    n_tok = sum(len(r.generated) for r in done)
+    per_call = {k: 1e3 * run["times"][k] / calls[k] for k in calls}
+    log(f"{label}: served {len(done)} requests (prompts {CONT_PROMPT_LENS}, "
+        f"new {CONT_MAX_NEW}) in {run['wall']:.3f} s: "
+        f"{n_tok / run['wall']:.1f} tok/s, TTFT "
+        f"{[round(r.ttft, 4) for r in done]} s (mean "
+        f"{statistics.mean(r.ttft for r in done):.4f}), decode steps "
+        f"{eng.steps_executed} {calls}, launches {run['launches']}")
+    log(f"{label} by phase (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in run["times"].items())
+        + "; ms per call: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in per_call.items())
+        + f"; engine steps {len(run['step_s'])}, longest "
+        f"{1e3 * max(run['step_s']):.2f} ms")
+
+
+def _check_kv_bytes(run, label):
+    """The allocated KV bytes fall at every CLUSTER transition, and both
+    pools are empty at the end."""
+    eng = run["eng"]
+    hist = eng.kv_bytes_history
+    falls = [(before, hist[idx]["kv_bytes"])
+             for before, idx in run["transitions"]]
+    if (len(falls) != len(CONT_PROMPT_LENS)
+            or not all(after < before for before, after in falls)):
+        raise AssertionError(f"{label}: KV bytes around CLUSTER: {falls}")
+    if eng.dense_pool.pages_in_use or eng.chai_pool.pages_in_use:
+        raise AssertionError(f"{label}: pools not empty after the run")
+    log(f"{label} KV bytes (before -> after) at each CLUSTER transition: "
+        f"{falls}; peak {eng.kv_bytes_peak():,}, capacity "
+        f"{eng.kv_bytes_capacity():,}, at the end {eng.kv_bytes():,}")
 
 
 def continuous_path(cfg, params):
     """The continuous path on both layouts (phase 6); returns
     ({path: launches}, the paged kernel's main-path case at the first
-    all-STEADY step, its case at the first mixed step)."""
+    all-STEADY step, its case at the first mixed step, the paged run's
+    tokens, margins and memberships for phase 7)."""
     runs = {}
     for layout in ("paged", "dense"):
         run = serve_continuous(cfg, params, layout)
-        eng, done, calls = run["eng"], run["done"], run["calls"]
-        counts = [len(r.generated) for r in done]
-        if (counts != list(CONT_MAX_NEW)
-                or any(r.finish_reason != FINISH_LENGTH for r in done)):
-            raise AssertionError(f"{layout}: token counts {counts}")
-        if not all(0 <= t < cfg.vocab_size for r in done
-                   for t in r.generated):
-            raise AssertionError("token id out of vocabulary")
-        n_mixed, n_steady = calls.get("mixed_step", 0), calls.get(
-            "steady_step", 0)
-        if not (n_mixed and n_steady):
-            raise AssertionError(f"{layout}: step kinds {calls}")
+        eng, calls = run["eng"], run["calls"]
+        _check_served(cfg, run, layout)
         own = ("paged_chai_fused_decode" if layout == "paged"
                else "chai_fused_decode")
-        want = {name: 0 for name in ck.LAUNCHES}
-        want[own] = cfg.n_layers * (n_mixed + n_steady)
+        want = {name: 0 for name in run["launches"]}
+        want[own] = cfg.n_layers * (calls["mixed_step"]
+                                    + calls["steady_step"])
         if run["launches"] != want:
             raise AssertionError(f"{layout}: launches {run['launches']}, "
                                  f"expected {want}")
-        n_tok = sum(counts)
-        per_step = {k: 1e3 * run["times"][k] / calls[k]
-                    for k in calls if k.endswith("_step")}
-        log(f"continuous {layout}: served {len(done)} requests (prompts "
-            f"{CONT_PROMPT_LENS}, new {CONT_MAX_NEW}) in {run['wall']:.3f}"
-            f" s: {n_tok / run['wall']:.1f} tok/s, TTFT "
-            f"{[round(r.ttft, 4) for r in done]} s (mean "
-            f"{statistics.mean(r.ttft for r in done):.4f}), decode steps "
-            f"{eng.steps_executed} {calls}, launches {run['launches']}")
-        log(f"continuous {layout} by phase (s): " + ", ".join(
-            f"{k} {v:.4f}" for k, v in run["times"].items())
-            + "; ms per step: " + ", ".join(
-                f"{k} {v:.2f}" for k, v in per_step.items()))
+        _log_served(run, f"continuous {layout}")
         if layout == "paged":
-            hist = eng.kv_bytes_history
-            falls = [(before, hist[idx]["kv_bytes"])
-                     for before, idx in run["transitions"]]
-            if (len(falls) != len(CONT_PROMPT_LENS)
-                    or not all(after < before for before, after in falls)):
-                raise AssertionError(f"KV bytes around CLUSTER: {falls}")
-            if eng.dense_pool.pages_in_use or eng.chai_pool.pages_in_use:
-                raise AssertionError("pools not empty after the run")
-            log(f"continuous paged KV bytes (before -> after) at each "
-                f"CLUSTER transition: {falls}; peak "
-                f"{eng.kv_bytes_peak():,}, capacity "
-                f"{eng.kv_bytes_capacity():,}, at the end "
-                f"{eng.kv_bytes():,}")
+            _check_kv_bytes(run, "continuous paged")
         else:
             log(f"continuous dense (unified layout) resident KV bytes "
                 f"{eng.kv_bytes():,}")
         runs[layout] = run
         del eng
         run.pop("eng")
+        run.pop("prefill")
         torch.cuda.empty_cache()
     paged, dense = runs["paged"], runs["dense"]
     if [r.generated for r in paged["done"]] != [r.generated
@@ -759,6 +1229,9 @@ def continuous_path(cfg, params):
                                    tables=(pc["bt_k"], pc["bt_v"]))
     dense_ms = time_ms(lambda: ck.chai_fused_decode(
         dc["q"], dc["k"], dc["v"], dc["h2c"], dc["pos"], ts=dc["kw"]["ts"]))
+    single = single_call_ms(lambda: ck.paged_chai_fused_decode(*pa))
+    dev_ms = device_ms(lambda: ck.paged_chai_fused_decode(*pa),
+                       "paged_chai_fused_decode_kernel")
     # The first mixed step: its WARMUP rows run the kernel too (and their
     # output is discarded), with every head in cluster 0.
     mc = paged["capture"]["paged", "mixed"]
@@ -772,7 +1245,8 @@ def continuous_path(cfg, params):
     log(f"continuous layer 0, first all-STEADY step: q "
         f"{tuple(pc['q'].shape)}, k_pool {tuple(pc['k_pool'].shape)} "
         f"{pc['k_pool'].dtype}, v_pool {tuple(pc['v_pool'].shape)}, pos "
-        f"{pc['pos'].tolist()}: paged kernel {ms:.4f} ms (max_abs_err "
+        f"{pc['pos'].tolist()}: paged kernel {ms:.4f} ms (single call "
+        f"{single:.4f} ms, profiled device time {dev_ms} ms, max_abs_err "
         f"{err:.3e}, bitwise = dense kernel, dense kernel {dense_ms:.4f} "
         f"ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
     main = dict(case="continuous_main_path_layer0", q=list(pc["q"].shape),
@@ -780,13 +1254,108 @@ def continuous_path(cfg, params):
                 v_pool=list(pc["v_pool"].shape),
                 dtype=str(pc["k_pool"].dtype), page=PAGE,
                 pos=pc["pos"].tolist(), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                dense_kernel_ms=dense_ms)
+                single_call_ms=single, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, dense_kernel_ms=dense_ms)
     mixed = dict(case="continuous_first_mixed_step_layer0",
                  phases=mc["note"].tolist(), pos=mc["pos"].tolist(),
                  max_abs_err=m_err, ms=m_ms, plain_ms=m_plain_ms)
+    mono = dict(tokens={r.uid: r.generated for r in paged["done"]},
+                ttft={r.uid: r.ttft for r in paged["done"]},
+                margins=paged["margins"], membership=paged["idents"],
+                longest_step_s=max(paged["step_s"]))
     return ({"continuous_paged": paged["launches"],
-             "continuous_dense": dense["launches"]}, main, mixed)
+             "continuous_dense": dense["launches"]}, main, mixed, mono)
+
+
+# ------------------------------------------------------------ phase 7 ----
+def _hold_tokens(run, mono):
+    """Each request's greedy tokens against the monolithic run's, up to
+    its first divergence, which must sit on a monolithic top-2 margin <=
+    CHUNK_MARGIN. Returns (tokens held, tokens compared, divergences)."""
+    held = compared = 0
+    parted = []
+    for r in run["done"]:
+        want, gaps = mono["tokens"][r.uid], mono["margins"][r.uid]
+        for k, (got, tok) in enumerate(zip(r.generated, want)):
+            compared += 1
+            if got != tok:
+                if gaps[k] > CHUNK_MARGIN:
+                    raise AssertionError(
+                        f"chunked uid {r.uid} token {k}: {got} != {tok} at "
+                        f"monolithic margin {gaps[k]:.4f} > {CHUNK_MARGIN}")
+                parted.append((r.uid, k, round(gaps[k], 5)))
+                break
+            held += gaps[k] > CHUNK_MARGIN
+    return held, compared, parted
+
+
+def chunked_path(cfg, params, mono):
+    """The chunked continuous path (phase 7): phase 6's paged run with
+    ``prefill_chunk_tokens=CHUNK``, clustering each request through its
+    phase-6 membership (its own K-Means still runs, so both runs pay for
+    it, and is compared for information); returns
+    (launches, the prefill kernels' main-path cases, their cases at the
+    other chunk starts)."""
+    run = serve_continuous(cfg, params, "paged", chunk=CHUNK,
+                           membership=mono["membership"])
+    eng, calls = run["eng"], run["calls"]
+    _check_served(cfg, run, "chunked")
+    n_chunks = sum(-(-n // CHUNK) for n in CONT_PROMPT_LENS if n > CHUNK)
+    if calls.get("chunk") != n_chunks:
+        raise AssertionError(f"chunked: {calls.get('chunk')} chunks, "
+                             f"expected {n_chunks}")
+    want = {name: 0 for name in run["launches"]}
+    want["paged_chai_fused_decode"] = cfg.n_layers * (
+        calls["mixed_step"] + calls["steady_step"])
+    want["flash_prefill"] = want["paged_prefix_attend"] = (
+        cfg.n_layers * n_chunks)
+    if run["launches"] != want:
+        raise AssertionError(f"chunked: launches {run['launches']}, "
+                             f"expected {want}")
+    _log_served(run, "continuous paged chunked")
+    _check_kv_bytes(run, "continuous paged chunked")
+    held, compared, parted = _hold_tokens(run, mono)
+    own_same = sum(same for _, _, same in run["idents"].values())
+    chunk_ms = 1e3 * run["times"]["chunk"] / calls["chunk"]
+    log(f"chunked vs monolithic: {held} of {compared} tokens held at "
+        f"margin > {CHUNK_MARGIN} (first divergences at near-ties: "
+        f"{parted}); own K-Means membership equal to the monolithic run's "
+        f"for {own_same} of {len(run['idents'])} requests; {n_chunks} "
+        f"chunks, {chunk_ms:.2f} ms each; steps while chunks were in "
+        f"flight: {run['in_flight']['mixed']} mixed, "
+        f"{run['in_flight']['no_decode']} with no decode; TTFT mean "
+        f"{statistics.mean(r.ttft for r in run['done']):.4f} s (monolithic "
+        f"{statistics.mean(mono['ttft'].values()):.4f}); longest step "
+        f"{1e3 * max(run['step_s']):.2f} ms (monolithic "
+        f"{1e3 * mono['longest_step_s']:.2f})")
+    cases = {"flash_prefill": [], "paged_prefix_attend": []}
+    for (op, start), t in sorted(run["prefill"].items()):
+        if op == "flash_prefill":
+            case = flash_case(t["q"], t["k"], t["v"], library=start == 0)
+        else:
+            case = prefix_case(t["q"], t["pool"], t["bt_k"], t["bt_v"],
+                               t["plen"])
+        case = dict(case=f"chunk_start{start}_layer0", **case)
+        cases[op].append(case)
+        _log_case(f"{op} main path", case)
+    mains = {"flash_prefill": cases["flash_prefill"][0],
+             "paged_prefix_attend": cases["paged_prefix_attend"][-1]}
+    f, p = (run["prefill"]["flash_prefill", 0],
+            run["prefill"]["paged_prefix_attend", 3 * CHUNK])
+    calls = {"flash_prefill": lambda: fk.flash_prefill(
+        f["q"], f["k"], f["v"], emit_state=True),
+             "paged_prefix_attend": lambda: fk.paged_prefix_attend(
+        p["q"], p["pool"], p["bt_k"], p["bt_v"], p["plen"])}
+    for op, call in calls.items():
+        mains[op]["single_call_ms"] = single_call_ms(call)
+        mains[op]["device_ms"] = device_ms(call, f"{op}_kernel")
+        log(f"{op} main path: profiled device time "
+            f"{mains[op]['device_ms']} ms, single call "
+            f"{mains[op]['single_call_ms']:.4f} ms")
+    if (mains["flash_prefill"]["q"][1] != CHUNK
+            or mains["paged_prefix_attend"]["plen"] != [3 * CHUNK]):
+        raise AssertionError(f"main-path prefill cases {mains}")
+    return run["launches"], mains, cases
 
 
 def main():
@@ -794,26 +1363,45 @@ def main():
     build_kernels()
     dense_cases = kernel_checks()
     paged_cases = paged_kernel_checks()
+    flash_cases, prefix_cases = prefill_kernel_checks()
     reduced_reference_check()
     reduced_continuous_check()
+    reduced_chunked_check()
     cfg, params = init_full_model()
     cohort_launches, dense_main = main_path(cfg, params)
-    cont_launches, paged_main, paged_mixed = continuous_path(cfg, params)
-    by_path = {"cohort": cohort_launches, **cont_launches}
-    mains = {"chai_fused_decode": (dense_main, "cohort", dense_cases),
-             "paged_chai_fused_decode": (paged_main, "continuous_paged",
-                                         paged_cases + [paged_mixed])}
+    cont_launches, paged_main, paged_mixed, mono = continuous_path(cfg,
+                                                                   params)
+    chunked_launches, prefill_mains, path_cases = chunked_path(cfg, params,
+                                                               mono)
+    by_path = {"cohort": cohort_launches, **cont_launches,
+               "continuous_paged_chunked": chunked_launches}
+    mains = {"chai_fused_decode": (dense_main, "cohort",
+                                   dense_cases + [dense_main]),
+             "paged_chai_fused_decode": (
+                 paged_main, "continuous_paged",
+                 paged_cases + [paged_mixed, paged_main]),
+             "flash_prefill": (prefill_mains["flash_prefill"],
+                               "continuous_paged_chunked",
+                               flash_cases + path_cases["flash_prefill"]),
+             "paged_prefix_attend": (
+                 prefill_mains["paged_prefix_attend"],
+                 "continuous_paged_chunked",
+                 prefix_cases + path_cases["paged_prefix_attend"])}
     rows = []
     for name, info in KERNEL_ROWS.items():
         main_case, path, cases = mains[name]
-        cases = cases + [main_case]
+        # A finalized bf16 output is held at one bf16 step; its error
+        # stands in its own case.
+        held = [c for c in cases if c.get("tolerance", "2e-5") == "2e-5"]
         rows.append(dict(
             name=name, **info, launches=by_path[path][name],
             launches_by_path={p: c[name] for p, c in by_path.items()},
-            max_abs_err=max(c["max_abs_err"] for c in cases),
+            max_abs_err=max(c["max_abs_err"] for c in held),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-            library_ms=None, cases=cases))
+            library_ms=main_case.get("library_ms"),
+            single_call_ms=main_case["single_call_ms"],
+            device_ms=main_case["device_ms"], cases=cases))
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -378,19 +378,27 @@ def _scatter_pages(pool, x, pages):
     pool[:, pages.long()] = m.movedim(2, 1).to(pool.dtype)
 
 
-def insert_slot_paged(state, mini, slot, kg_pages, vg_pages):
+def insert_slot_paged(state, mini, slot, kg_pages, vg_pages, *,
+                      bt_kg_row=None, bt_vg_row=None):
     """Paged ``insert_slot``: write a prefilled batch=1 dense decode state
     into slot ``slot``, scattering its global K/V rows into the slot's
-    freshly allocated pages (``kg_pages``/``vg_pages``: (P,) int32,
-    null-padded) and recording them as the slot's block tables."""
+    pages (``kg_pages``/``vg_pages``: (P,) int32, null-padded) and
+    recording the block tables.
+
+    A chunk of a chunked prefill passes SCATTER vectors that null every
+    page outside the chunk (so the mini state's zero rows land in the
+    null sink) and the slot's full logical -> physical mapping as
+    ``bt_kg_row``/``bt_vg_row``. Default: block tables == scatter
+    vectors. Every call re-anchors ``pos`` and zeroes the slot's
+    clustering features."""
     for k, v in mini.items():
         if k not in ("kg", "vg"):
             _put_slot(state, k, v, slot)
     if "kvp" in state and "kg" in mini:
         _scatter_pages(state["kvp"], mini["kg"], kg_pages)
         _scatter_pages(state["kvp"], mini["vg"], vg_pages)
-        state["bt_kg"][slot] = kg_pages
-        state["bt_vg"][slot] = vg_pages
+        state["bt_kg"][slot] = kg_pages if bt_kg_row is None else bt_kg_row
+        state["bt_vg"][slot] = vg_pages if bt_vg_row is None else bt_vg_row
     if "chai_scores" in state:
         state["chai_scores"][:, slot] = 0
     state["phase"][slot] = PHASE_WARMUP

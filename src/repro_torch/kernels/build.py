@@ -8,7 +8,7 @@ compiled on first use with
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
 A library newer than its source and than every header in ``csrc/`` (the
-tile steps both decode kernels include) is reused. A missing ``nvcc`` or
+tile steps the decode kernels and the prefill kernels include) is reused. A missing ``nvcc`` or
 a failed build raises: nothing falls back.
 """
 from __future__ import annotations
@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("chai_fused_decode", "paged_chai_fused_decode")
+KERNELS = ("chai_fused_decode", "paged_chai_fused_decode", "flash_prefill",
+           "paged_prefix_attend")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -123,6 +123,44 @@ def make_paged_slot_prefill(cfg: ModelConfig, max_seq: int):
     return slot_prefill
 
 
+def _paged_prefix_kv(state, bt_kg_row, bt_vg_row):
+    """``prefix_kv`` of a chunk prefill: the engine's pool and the slot's
+    block tables as they are; the paged prefix pass reads only the real
+    pages through the tables, with no densifying gather."""
+    return {"pool": state["kvp"], "bt_k": bt_kg_row[None],
+            "bt_v": bt_vg_row[None]}
+
+
+def make_paged_chunk_prefill(cfg: ModelConfig, max_seq: int):
+    """Chunked prefill: forward ONE page-aligned chunk of a long prompt,
+    treating every position the slot has already prefilled (earlier
+    chunks) as the cached prefix. ``prefix_len`` is the chunk's start;
+    ``kg_scatter``/``vg_scatter`` null every page outside the chunk's
+    range, so the mini state touches only the pages this chunk fills;
+    ``bt_kg_row``/``bt_vg_row`` are the slot's full page mapping.
+
+    ``phase`` marks the final chunk (``PHASE_WARMUP``: the slot joins the
+    decode batch next) or an intermediate one (``PHASE_FREE``: the
+    interleaved batched decode treats the slot as empty; its stray write
+    at ``pos`` lands in the first page of the next chunk, which that
+    chunk's whole-page scatter overwrites, and ``insert_slot_paged``
+    re-anchors ``pos`` and zeroes the clustering features every chunk)."""
+    def chunk_prefill(params, tokens, true_len, prefix_len, state, slot,
+                      kg_scatter, vg_scatter, bt_kg_row, bt_vg_row, phase):
+        mini = tfm.init_decode_state(cfg, 1, max_seq, tokens.device)
+        logits, mini = tfm.forward_fullseq(
+            params, cfg, tokens, state=mini, logits_slice="last",
+            valid_len=true_len, prefix_len=prefix_len,
+            prefix_kv=_paged_prefix_kv(state, bt_kg_row, bt_vg_row))
+        state = chai_cache.insert_slot_paged(
+            state, mini, slot, kg_scatter, vg_scatter, bt_kg_row=bt_kg_row,
+            bt_vg_row=bt_vg_row)
+        state["phase"][slot] = phase
+        return logits[:, 0], state
+
+    return chunk_prefill
+
+
 def make_paged_slot_cluster(cfg: ModelConfig, identify_fn):
     """Paged CLUSTER transition: membership, the ctx scatter, and the
     slot's representative K rows gathered from its dense pages into the

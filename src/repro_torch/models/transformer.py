@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN_GLOBAL, FFN_DENSE, ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp
 from repro_torch.models.layers import embed_lookup, rms_norm, softcap, unembed
@@ -154,8 +155,24 @@ def _unembed_w(params, cfg):
             else params["unembed"]["w"])
 
 
+def _prefix_attention(q, k, v, prefix_kv, gi, plen):
+    """A chunk's attention over the cached prefix and itself, two passes
+    merged by online-softmax state: the non-causal paged pass over the
+    positions < plen that earlier chunks wrote (``prefix_kv``'s pool,
+    layer ``gi``, read through its block tables) and the causal pass over
+    the chunk's own K/V at relative offset 0. plen == 0 (a first chunk)
+    leaves the paged state at the exact merge identity."""
+    st_p = kops.paged_prefix_attention(q, prefix_kv["pool"][gi],
+                                       prefix_kv["bt_k"], prefix_kv["bt_v"],
+                                       plen)
+    st_s = kops.flash_prefill_attention(q, k, v, emit_state=True)
+    return kops.finalize_prefill_state(kops.merge_prefill_states(st_s, st_p),
+                                       dtype=q.dtype)
+
+
 def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
-                    positions=None, logits_slice=None, valid_len=None):
+                    positions=None, logits_slice=None, valid_len=None,
+                    prefix_len=None, prefix_kv=None):
     """tokens: (B, T) int. ``state``: decode state to fill (prefill) or None.
 
     Returns (logits, state). ``logits_slice="last"`` computes only the last
@@ -164,23 +181,39 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
     last REAL token's, and ``pos`` starts at ``valid_len``. Padding rows
     are written to the cache too: decode masks them by ``pos`` and
     overwrites them as the sequence advances.
+
+    ``prefix_len`` (int or (B,)) and ``prefix_kv`` ({"pool": (nG, nP, KV,
+    page, hd) paged KV pool, "bt_k"/"bt_v": (B, P) block tables} holding
+    positions [0, prefix_len)): the chunked prefill. This call's tokens
+    sit at absolute positions ``prefix_len + arange(T)``, attend over the
+    cached pages and themselves (``_prefix_attention``), write the cache
+    at those positions, and ``pos`` starts at ``prefix_len + valid_len``.
     """
     plan = layer_plan(cfg)
     dt = model_dtype(cfg)
     h = embed_lookup(params["embed"]["tok"], tokens).to(dt)
     b, t = h.shape[0], h.shape[1]
+    plen = None
+    if prefix_len is not None:
+        plen = torch.as_tensor(prefix_len, dtype=torch.int32,
+                               device=h.device).expand(b)
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=h.device)
+        if plen is not None:
+            positions = positions + plen[0]
     pos_idx = positions.long()
 
     for i in range(cfg.n_layers):
         p = _layer(params["attn"], plan["attn"][i])
+        gi = plan["global"][i]
         xn = rms_norm(h, p["ln"], cfg.norm_eps)
         q, k, v = attn_mod.project_qkv(xn, p, cfg, positions)
-        y = attn_mod.attention_fullseq(q, k, v, positions, positions)
+        if prefix_kv is not None:
+            y = _prefix_attention(q, k, v, prefix_kv, gi, plen)
+        else:
+            y = attn_mod.attention_fullseq(q, k, v, positions, positions)
         h = h + attn_mod.output_proj(y, p)
         if state is not None:
-            gi = plan["global"][i]
             state["kg"][gi].index_copy_(
                 2, pos_idx, k.transpose(1, 2).to(state["kg"].dtype))
             state["vg"][gi].index_copy_(
@@ -201,6 +234,8 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
     logits = unembed(h, _unembed_w(params, cfg), cfg.final_logit_softcap)
     if state is not None:
         fill = (torch.full((b,), t, device=h.device) if vl is None else vl)
+        if plen is not None:
+            fill = fill + plen
         state["pos"] = fill.to(torch.int32)
     return logits, state
 

@@ -10,12 +10,19 @@ Request lifecycle (paper Fig 10), tracked PER BATCH SLOT:
     STEADY   --(Clustered Head Attention decode until a finish condition)
 
 plus ``abort(uid)``, which cancels a request at any phase (or still
-queued) and returns every page it held to the pools.
+queued) and returns every page it held to the pools, and the chunked
+PREFILL self-loop: with ``EngineConfig.prefill_chunk_tokens`` (paged
+layout, global-attention archs), a prompt longer than the chunk forwards
+one page-aligned chunk per ``step()``, interleaved with the batched decode
+of the other slots; greedy tokens equal the monolithic prefill's. Each
+chunk's attention is the CUDA ``paged_prefix_attend`` over the pages the
+earlier chunks wrote plus the CUDA ``flash_prefill`` over the chunk.
 
 * ``EngineCore`` owns the device state and the page pools, and ONE
   scheduling primitive: ``step()`` runs exactly one iteration (admit
-  arrived requests into free slots -> cluster/compact slots whose warmup
-  completed -> one batched decode -> retire finished slots) and returns a
+  arrived requests into free slots, after advancing every mid-prefill
+  slot by one chunk -> cluster/compact slots whose warmup completed ->
+  one batched decode -> retire finished slots) and returns a
   ``StepOutput`` per request that produced tokens.
 * ``ServingEngine`` is the ``submit()`` / ``run()`` batch surface over it.
 
@@ -39,9 +46,9 @@ Two schedulers (``EngineConfig.scheduler``):
 
 * ``"cohort"``: the lockstep path (``serving.cohort``).
 
-This slice decodes greedily. Not ported yet, and refused with
+This port decodes greedily. Not ported yet, and refused with
 ``NotImplementedError``: sampling with temperature > 0, stop strings,
-``priority`` (preemption), prefix cache, chunked prefill, relay decode,
+``priority`` (preemption); not there yet: prefix cache, relay decode,
 fault injection and auditing, telemetry and KV tiers.
 """
 from __future__ import annotations
@@ -55,7 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_GLOBAL, ModelConfig
 from repro_torch.core import cache as chai_cache
 from repro_torch.core import clustering
 from repro_torch.launch import steps as steps_mod
@@ -125,6 +132,13 @@ class EngineConfig:
     # 0 = auto: worst case for batch_slots requests of max_seq tokens.
     num_pages: int = 0                 # dense K/V pool
     num_chai_pages: int = 0            # clustered pool (MHA+CHAI archs)
+    # Chunked prefill (paged layout, global-attention archs): a prompt
+    # longer than this forwards at most ``prefill_chunk_tokens`` per
+    # ``step()`` (rounded up to a page multiple), interleaved with the
+    # running decodes, so a long prompt does not stall every concurrent
+    # stream for its whole prefill. 0 = monolithic. Ignored on
+    # kv_layout="dense", as in the reference.
+    prefill_chunk_tokens: int = 0
 
 
 class EngineCore(CohortSchedulerMixin):
@@ -177,6 +191,17 @@ class EngineCore(CohortSchedulerMixin):
             if self.chai_clustered:
                 self.chai_pool = chai_cache.PagePool(
                     ecfg.num_chai_pages or (b * p_slot + 1), ecfg.page_size)
+        # Chunked prefill: page-aligned chunks, paged layout only.
+        self._chunk = 0
+        if ecfg.prefill_chunk_tokens and self.paged:
+            if any(t != ATTN_GLOBAL for t in cfg.layer_types):
+                raise ValueError(
+                    "prefill_chunk_tokens supports global-attention-only "
+                    f"archs (got {cfg.name!r} with local/recurrent "
+                    "layers): chunk forwards cannot rebuild local rings "
+                    "or recurrent state from earlier chunks")
+            ps = ecfg.page_size
+            self._chunk = -(-ecfg.prefill_chunk_tokens // ps) * ps
         # Device state persists across step()/run() calls; None until the
         # first continuous step.
         self._dev_state = None
@@ -186,6 +211,9 @@ class EngineCore(CohortSchedulerMixin):
         self._slot_req: List[Optional[Request]] = [None] * b
         self._slot_count = [0] * b       # tokens generated this admission
         self._slot_pages: List[dict] = [{} for _ in range(b)]  # page ids
+        # Mid-prefill cursors of chunked prefills: {"req", "tokens",
+        # "cursor"} per slot, None otherwise.
+        self._slot_prefill_state: List[Optional[dict]] = [None] * b
         self._next_tok = np.zeros((b,), np.int64)     # host mirror
         self._next_tok_dev = None
         self._tok_dirty = True
@@ -199,6 +227,7 @@ class EngineCore(CohortSchedulerMixin):
                                                    decode_ts=ts)
         if self.paged:
             self._slot_prefill = steps_mod.make_paged_slot_prefill(cfg, s)
+            self._chunk_prefill = steps_mod.make_paged_chunk_prefill(cfg, s)
             self._reset_slot = steps_mod.make_paged_slot_reset(cfg)
         else:
             self._slot_prefill = steps_mod.make_slot_prefill(cfg, s)
@@ -291,10 +320,11 @@ class EngineCore(CohortSchedulerMixin):
         return bool(self.queue) or self.has_active
 
     def step(self) -> List[StepOutput]:
-        """Run exactly ONE scheduler iteration: admit arrived requests
-        into free slots, run CLUSTER transitions for slots whose warmup
-        just completed, one batched decode, and retire slots that hit a
-        finish condition. Returns one ``StepOutput`` per request that
+        """Run exactly ONE scheduler iteration: forward one chunk of every
+        mid-prefill slot, admit arrived requests into free slots, run
+        CLUSTER transitions for slots whose warmup just completed, one
+        batched decode over the slots past prefill, and retire slots that
+        hit a finish condition. Returns one ``StepOutput`` per request that
         emitted tokens; ``[]`` when there is no admissible work. With the
         engine idle and the queue head beyond the pools' capacity, raises
         ``MemoryError``."""
@@ -303,10 +333,14 @@ class EngineCore(CohortSchedulerMixin):
                                "cohort engines run via run()")
         outs: List[StepOutput] = []
         self._ensure_dev_state()
+        self._advance_prefills(outs)
         blocked = self._admit(outs)
         active = [i for i in range(self.ecfg.batch_slots)
-                  if self._slot_req[i] is not None]
+                  if self._slot_req[i] is not None
+                  and self._phases[i] != chai_cache.PHASE_PREFILL]
         if not active:
+            if self.has_active:
+                return outs        # only mid-prefill slots: progress made
             if self.queue and blocked:
                 head = self.queue[0]
                 n = self._pages_for(head)
@@ -329,14 +363,23 @@ class EngineCore(CohortSchedulerMixin):
             b <<= 1
         return min(b, cap)
 
-    def _padded_prompt(self, prompt):
-        """Right-pad a prompt to its power-of-two bucket (the reference's
-        shapes, so both packages prefill the same padded length); returns
-        (tokens (1, bucket), true length)."""
-        t = len(prompt)
-        toks = np.zeros((1, self._prompt_bucket(t, self.ecfg.max_seq)),
-                        np.int64)
-        toks[0, :t] = prompt
+    def _padded_suffix(self, suffix, prefix_len: int):
+        """Right-pad the tokens at positions ``prefix_len..`` (a whole
+        prompt when 0, else a chunk) to their bucket, the reference's
+        shapes, so both packages forward the same padded length; returns
+        (tokens (1, bucket), true length). The bucket is the next power of
+        two, or the page multiple of the length where the power of two
+        would run past max_seq: padded cache rows must stay inside the
+        slot's logical pages."""
+        t = len(suffix)
+        ps = self.ecfg.page_size
+        bucket = self._prompt_bucket(t, self.ecfg.max_seq)
+        if bucket > self.ecfg.max_seq - prefix_len:
+            bucket = chai_cache.pages_needed(t, ps) * ps
+        assert t <= bucket <= self.ecfg.max_seq - prefix_len, \
+            (bucket, t, prefix_len)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :t] = suffix
         return torch.from_numpy(toks).to(self.device), t
 
     def _cluster_fn(self):
@@ -452,15 +495,25 @@ class EngineCore(CohortSchedulerMixin):
             if reason:
                 req.generated = trunc
                 self._retire_slot(i, reason)
-            outs.append(StepOutput(req.uid, list(req.generated),
-                                   bool(reason), reason))
+            if req.generated or reason:
+                # A chunked admission has no first token yet: its
+                # StepOutput comes with its final chunk.
+                outs.append(StepOutput(req.uid, list(req.generated),
+                                       bool(reason), reason))
         return False
 
     def _admit_to_slot(self, i: int, req: Request, pages: dict):
         """Prefill ``req`` into free slot ``i`` (cold: no cached prefix)."""
         self._slot_pages[i] = pages
         self._phases[i] = chai_cache.PHASE_PREFILL
-        toks, true_len = self._padded_prompt(req.prompt)
+        if self._chunk and len(req.prompt) > self._chunk:
+            # Chunked prefill: the first chunk now; step() advances one
+            # chunk per iteration until the final one enters WARMUP.
+            self._slot_prefill_state[i] = {"req": req, "tokens": req.prompt,
+                                           "cursor": 0}
+            self._advance_chunk(i)
+            return
+        toks, true_len = self._padded_suffix(req.prompt, 0)
         if self.paged:
             logits, self._dev_state = self._slot_prefill(
                 self.params, toks, true_len, self._dev_state, i,
@@ -470,8 +523,56 @@ class EngineCore(CohortSchedulerMixin):
                 self.params, toks, true_len, self._dev_state, i)
         self._finish_prefill(i, req, logits)
 
+    def _advance_prefills(self, outs: List[StepOutput]):
+        """Forward ONE chunk for every mid-prefill slot. A slot whose final
+        chunk completes enters WARMUP and emits its first token here."""
+        for i in range(self.ecfg.batch_slots):
+            st = self._slot_prefill_state[i]
+            if st is None:
+                continue
+            req = st["req"]
+            self._advance_chunk(i)
+            if self._slot_prefill_state[i] is not None:
+                continue                    # more chunks to go
+            reason = self._finish_of(req)
+            if reason:
+                self._retire_slot(i, reason)
+            outs.append(StepOutput(req.uid, [req.generated[-1]],
+                                   bool(reason), reason))
+
+    def _advance_chunk(self, i: int):
+        """Prefill the next chunk of slot ``i``'s prompt. Chunk starts are
+        page-aligned (the chunk is a page multiple), so each chunk's
+        scatter touches exactly its own page range; an intermediate chunk
+        parks the device phase at FREE so the interleaved decode treats
+        the slot as empty."""
+        st = self._slot_prefill_state[i]
+        prompt, cur = st["tokens"], st["cursor"]
+        end = min(cur + self._chunk, len(prompt))
+        final = end == len(prompt)
+        toks, true_len = self._padded_suffix(prompt[cur:end], cur)
+        ps = self.ecfg.page_size
+        lo, hi = cur // ps, chai_cache.pages_needed(end, ps)
+        pages = self._slot_pages[i]
+
+        def scatter(page_list):
+            return [p if lo <= j < hi else chai_cache.NULL_PAGE
+                    for j, p in enumerate(page_list)]
+
+        phase = chai_cache.PHASE_WARMUP if final else chai_cache.PHASE_FREE
+        logits, self._dev_state = self._chunk_prefill(
+            self.params, toks, true_len, cur, self._dev_state, i,
+            self._page_vec(scatter(pages["kg"])),
+            self._page_vec(scatter(pages["vg"])),
+            self._page_vec(pages["kg"]), self._page_vec(pages["vg"]), phase)
+        st["cursor"] = end
+        if final:
+            self._slot_prefill_state[i] = None
+            self._finish_prefill(i, st["req"], logits)
+
     def _finish_prefill(self, i: int, req: Request, logits):
-        """Prefill completed: enter WARMUP and take the first token."""
+        """Prefill completed (monolithic, or a chunked prefill's final
+        chunk): enter WARMUP and take the first token."""
         self._phases[i] = chai_cache.PHASE_WARMUP
         self._slot_count[i] = 1
         tok = int(self._argmax(logits)[0])
@@ -555,6 +656,7 @@ class EngineCore(CohortSchedulerMixin):
         r.retire_step = self.steps_executed
         self._done(r)
         self._slot_req[i] = None
+        self._slot_prefill_state[i] = None
         self._phases[i] = chai_cache.PHASE_FREE
         self._slot_count[i] = 0
         self._dev_state = self._reset_slot(self._dev_state, i)

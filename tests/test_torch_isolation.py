@@ -28,11 +28,26 @@ def _imported_roots(path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "chip_smoke.py" in names
-    assert "src/repro_torch/kernels/chai_attention.py" in names
+    for mod in ("chai_attention", "flash_attention"):
+        assert f"src/repro_torch/kernels/{mod}.py" in names
     csrc = ROOT / "src/repro_torch/kernels/csrc"
     for name in ("chai_fused_decode.cu", "paged_chai_fused_decode.cu",
-                 "chai_decode_tiles.cuh"):
+                 "chai_decode_tiles.cuh", "flash_prefill.cu",
+                 "paged_prefix_attend.cu", "flash_tiles.cuh"):
         assert (csrc / name).exists(), name
+
+
+def test_every_kernel_source_is_built():
+    """``build.KERNELS`` names every ``csrc/*.cu`` (so ``chip_smoke.py``
+    builds and checks each), and each source exports its launcher."""
+    from repro_torch.kernels import build
+    csrc = ROOT / "src/repro_torch/kernels/csrc"
+    assert sorted(build.KERNELS) == sorted(p.stem
+                                           for p in csrc.glob("*.cu"))
+    for name in build.KERNELS:
+        src = (csrc / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}_launch(' in src, name
+        assert "cudaGetLastError()" in src, name
 
 
 @pytest.mark.parametrize("path", _port_files(),

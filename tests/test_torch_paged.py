@@ -356,4 +356,5 @@ def test_build_treats_a_newer_header_as_stale(monkeypatch, tmp_path):
     assert build._stale("k")
     os.utime(lib, (400, 400))
     assert not build._stale("k")
-    assert build.KERNELS == ("chai_fused_decode", "paged_chai_fused_decode")
+    assert build.KERNELS == ("chai_fused_decode", "paged_chai_fused_decode",
+                             "flash_prefill", "paged_prefix_attend")
