@@ -35,8 +35,27 @@ result line):
    step whose phase-6 top-2 logit margin exceeds ``CHUNK_MARGIN``, the
    prefill kernels held against their plain versions on the layer-0
    inputs of its chunks and timed there;
-8. a ``kernels`` JSON line, the card's name and power limit, and, last,
+8. the prefix-cache and relay path: the continuous paged engine with
+   ``prefix_cache=True`` serves a 256-token system prompt (warmed by one
+   request), eight requests of it plus a private suffix of 32-144
+   tokens, then the first of them again (a snapshot hit) and once more
+   with a budget its warmup tokens cover (a replay), once with
+   ``relay_decode=False`` and once with ``True``: the plan kinds, exactly
+   32 launches of each prefill kernel per suffix prefill and of
+   ``relay_prefix_decode`` per relay step, identical memberships, the
+   warm, snapshot and replay requests' tokens identical and the others'
+   held on margins, empty pools after a clear, and the relay kernel held
+   against its plain version on the layer-0 inputs of the first relay
+   step;
+9. a ``kernels`` JSON line, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
+
+Phase 3 also holds ``relay_prefix_decode`` on synthetic groups (G = 2,
+4 and 3 members of 25 reps, plen 200 and 256, bf16 and fp32) and both
+decode kernels' ``emit_state`` mode (against the plain versions; paged
+== dense bitwise; emit + merge with the empty state + finalize equal to
+the finalized launch bit for bit); phase 4 also runs the reduced engine
+with ``prefix_cache=True, relay_decode=True``, cuda against cpu.
 """
 from __future__ import annotations
 
@@ -91,6 +110,13 @@ CHUNK = 128
 # against the whole-prompt one); logits of this model are ~N(0, 1), and
 # their rounding differences are expected around 1e-2.
 CHUNK_MARGIN = 0.1
+# Phase 8: a 256-token system prompt, warmed by one request, then eight
+# requests of the prompt plus a private suffix, then the first of them
+# again (a snapshot hit) and once more with a budget its warmup tokens
+# cover (a replay).
+SYS_LEN = 256
+SUFFIX_LENS = (32, 64, 96, 128, 48, 80, 112, 144)
+SUFFIX_NEW = (32, 48) * 4
 KERNEL_ROWS = {
     "chai_fused_decode": dict(
         route="cuda",
@@ -108,6 +134,10 @@ KERNEL_ROWS = {
         route="cuda",
         source="src/repro_torch/kernels/csrc/paged_prefix_attend.cu",
         replaces="src/repro/kernels/flash_attention.py:413"),
+    "relay_prefix_decode": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/relay_prefix_decode.cu",
+        replaces="src/repro/kernels/chai_attention.py:766"),
 }
 
 
@@ -575,6 +605,161 @@ def prefill_kernel_checks():
     return flash, prefix
 
 
+def _identity_state(b, r, h, hd):
+    """The empty decode state: the exact merge identity."""
+    return (torch.full((b, r), kref.NEG_INF, device="cuda"),
+            torch.zeros((b, r), device="cuda"),
+            torch.zeros((b, h, hd), device="cuda"))
+
+
+def emit_state_checks():
+    """Both decode kernels' ``emit_state`` mode at the continuous path's
+    shapes (B = 4, R = k_max = 25, H = 32, S = 1024, page 16, a rep with
+    no member head): each against its plain version at 2e-5; paged ==
+    dense bitwise; and emit + merge with the identity + finalize equal
+    to the finalized launch bit for bit."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    full = get_config(ARCH)
+    cases = {"chai_fused_decode": [], "paged_chai_fused_decode": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, h2c, pos = synthetic_case(
+            gen, b=4, h=32, kv=full.k_max, rpg=1, s=MAX_SEQ, hd=128,
+            dtype=dtype, empty_rep=7)
+        k_pool, bt_k = to_pages(gen, k)
+        v_pool, bt_v = to_pages(gen, v)
+        pa = (q, k_pool, bt_k, v_pool, bt_v, h2c, pos)
+        dense = ck.chai_fused_decode(q, k, v, h2c, pos, ts=PAGE,
+                                     emit_state=True)
+        paged = ck.paged_chai_fused_decode(*pa, emit_state=True)
+        fin_dense = ck.chai_fused_decode(q, k, v, h2c, pos, ts=PAGE)
+        fin_paged = ck.paged_chai_fused_decode(*pa)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(paged, dense)):
+            raise AssertionError("emit_state: paged kernel differs from the "
+                                 "dense kernel at page = tile")
+        ident = _identity_state(4, full.k_max, 32, 128)
+        for st, fin, label in ((dense, fin_dense, "dense"),
+                               (paged, fin_paged, "paged")):
+            merged = kops.finalize_decode_state(
+                kops.merge_decode_states(st, ident, h2c), h2c)
+            if not torch.equal(merged, fin):
+                raise AssertionError(
+                    f"emit_state {label}: emit + identity merge + finalize "
+                    "differs from the finalized launch: max abs diff "
+                    f"{float((merged - fin).abs().max()):.3e}")
+        for name, got, want, call, plain in (
+                ("chai_fused_decode", dense,
+                 kref.chai_fused_decode_ref(q, k, v, h2c, pos,
+                                            emit_state=True),
+                 lambda: ck.chai_fused_decode(q, k, v, h2c, pos, ts=PAGE,
+                                              emit_state=True),
+                 lambda: kref.chai_fused_decode_ref(q, k, v, h2c, pos,
+                                                    emit_state=True)),
+                ("paged_chai_fused_decode", paged,
+                 kref.paged_chai_fused_decode_ref(*pa, emit_state=True),
+                 lambda: ck.paged_chai_fused_decode(*pa, emit_state=True),
+                 lambda: kref.paged_chai_fused_decode_ref(
+                     *pa, emit_state=True))):
+            err = _hold(got, want)
+            kk, vv = (k, v) if name == "chai_fused_decode" else (k_pool,
+                                                                 v_pool)
+            bound, by = fused_decode_bound(q, kk, vv, h2c, pos, 1)
+            if by == "bytes":   # the state mode writes m and l (B, R) too
+                bound += 2 * q.numel() // q.shape[2] * 4 / HBM_BYTES_PER_S \
+                    * 1e3
+            case = dict(case=f"emit_state_{str(dtype)[6:]}", emit_state=True,
+                        q=list(q.shape), dtype=str(dtype), pos=pos.tolist(),
+                        max_abs_err=err, ms=time_ms(call),
+                        plain_ms=time_ms(plain), bound_ms=bound, bound_by=by,
+                        bitwise_equal_dense=True,
+                        identity_merge_finalize_equal=True)
+            cases[name].append(case)
+            log(f"{name} {case['case']}: max_abs_err {err:.3e}, kernel "
+                f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+                f"bound {bound:.4f} ms; paged == dense bitwise, emit + "
+                "identity merge + finalize == finalized launch bitwise")
+    return cases
+
+
+def relay_bound(q, k, k_row, a_row, v_row, plen):
+    """Least time for ``relay_prefix_decode``'s work: per group the K rows
+    its query rows name and the V rows its acc rows name, positions <
+    plen, read once; q, the maps and plen read and the fp32 state (m, l
+    and acc) written once; the QK and AV multiply-adds in fp32."""
+    g, nr, hd = q.shape
+    a = a_row.shape[1]
+    es = k.element_size()
+    n_bytes = (q.numel() + k_row.numel() + a_row.numel() + v_row.numel()
+               + plen.numel() + 2 * g * nr + g * a * hd) * 4
+    flops = 0
+    for i in range(g):
+        n = int(plen[i])
+        rows = len(set(k_row[i].tolist())) + len(set(v_row[i].tolist()))
+        n_bytes += rows * n * hd * es
+        flops += 2 * (nr + a) * n * hd
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def relay_case(q, k, v, k_row, a_row, v_row, plen, ts):
+    """``relay_prefix_decode`` against its plain version (2e-5); returns
+    the case's record with its times and bound."""
+    args = (q, k, v, k_row, a_row, v_row, plen)
+    got = ck.relay_prefix_decode(*args, ts=ts)
+    torch.cuda.synchronize()
+    err = _hold(got, kref.relay_prefix_decode_ref(*args))
+    bound, by = relay_bound(q, k, k_row, a_row, v_row, plen)
+    return dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
+                a=a_row.shape[1], dtype=str(k.dtype), ts=ts,
+                plen=plen.tolist(), max_abs_err=err,
+                ms=time_ms(lambda: ck.relay_prefix_decode(*args, ts=ts)),
+                plain_ms=time_ms(lambda: kref.relay_prefix_decode_ref(*args)),
+                bound_ms=bound, bound_by=by)
+
+
+def relay_kernel_checks():
+    """``relay_prefix_decode`` on synthetic groups at the full-width
+    shapes: G = 2 groups of 4 and 3 members (the fourth slot of group 1
+    is a padded member, index 0 in every map), R = 25 reps of H = 32
+    heads (one rep of each member without a head), hd 128, plen 200 and
+    256 in a view of Sp = 256 whose tail past plen is zero, bf16 and
+    fp32."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    dev = "cuda"
+    r, h, hd, sp, nmax = get_config(ARCH).k_max, 32, 128, 256, 4
+    plen = torch.tensor([200, 256], dtype=torch.int32, device=dev)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        g = len(plen)
+        q = torch.randn(g, nmax * r, hd, generator=gen, device=dev)
+        k = torch.randn(g, h, sp, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(g, h, sp, hd, generator=gen, device=dev).to(dtype)
+        for i, n in enumerate(plen.tolist()):
+            k[i, :, n:] = 0
+            v[i, :, n:] = 0
+        k_row = torch.zeros(g, nmax * r, dtype=torch.int32, device=dev)
+        a_row = torch.zeros(g, nmax * h, dtype=torch.int32, device=dev)
+        v_row = torch.zeros(g, nmax * h, dtype=torch.int32, device=dev)
+        for i, n_mem in enumerate((4, 3)):
+            for j in range(n_mem):
+                reps = torch.randperm(h, generator=gen, device=dev)[:r]
+                h2c = torch.randint(0, r - 1, (h,), generator=gen,
+                                    device=dev)
+                k_row[i, j * r:(j + 1) * r] = reps
+                a_row[i, j * h:(j + 1) * h] = j * r + h2c
+                v_row[i, j * h:(j + 1) * h] = torch.arange(h, device=dev)
+        case = dict(case=f"synthetic_g2_{str(dtype)[6:]}",
+                    **relay_case(q, k, v, k_row, a_row, v_row, plen, PAGE))
+        cases.append(case)
+        log(f"relay_prefix_decode {case['case']}: q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} plen {case['plen']} max_abs_err "
+            f"{case['max_abs_err']:.3e} kernel {case['ms']:.4f} ms plain "
+            f"{case['plain_ms']:.4f} ms bound {case['bound_ms']:.4f} ms "
+            f"({case['bound_by']})")
+    return cases
+
+
 # ------------------------------------------------------------ phase 4 ----
 def reduced_reference_check():
     """The reduced model on the card (kernel path) against the same model
@@ -798,6 +983,111 @@ def reduced_chunked_check():
         f"tokens on the card: {gpu_done == mono}")
 
 
+def _prefix_traffic(rng, vocab, prefix_len, suffix_lens, suffix_new,
+                    replay_new):
+    """(warm request, the rest) as (uid, prompt, max_new): a shared prompt
+    warmed by a request of 4 tokens (it retires in WARMUP), requests of
+    the prompt plus a private suffix, then the first of them again (a
+    snapshot hit) and once more with ``replay_new`` tokens (a replay)."""
+    prefix = rng.integers(0, vocab, size=prefix_len).tolist()
+    warm = (0, prefix + [int(rng.integers(0, vocab))], 4)
+    rest = [(i + 1, prefix + rng.integers(0, vocab, size=n).tolist(), m)
+            for i, (n, m) in enumerate(zip(suffix_lens, suffix_new))]
+    first = rest[0][1]
+    rest += [(len(rest) + 1, first, suffix_new[0]),
+             (len(rest) + 2, first, replay_new)]
+    return warm, rest
+
+
+def _expected_hits(warm, rest, prefix_len):
+    """{uid: (cache_hit, cached_tokens, prefill_tokens)} of that traffic."""
+    hits = {warm[0]: ("", 0, len(warm[1]))}
+    for uid, prompt, _ in rest[:-2]:
+        hits[uid] = ("prefix", prefix_len, len(prompt) - prefix_len)
+    hits[rest[-2][0]] = ("snapshot", len(rest[-2][1]), 0)
+    hits[rest[-1][0]] = ("replay", len(rest[-1][1]), 0)
+    return hits
+
+
+def reduced_prefix_relay_check():
+    """The continuous engine with ``prefix_cache=True, relay_decode=True``
+    on the reduced model (2 slots, max_seq 64), cuda against cpu: a
+    32-token prompt warmed by one request, three suffix requests (the
+    first two decode as a relay group of 2), a snapshot hit and a replay.
+    The cuda run clusters through the cpu run's memberships; logits held
+    at 1e-4 until a near-tie; the plan kinds as expected on both; exactly
+    2 x relay steps launches of ``relay_prefix_decode`` and 2 x 3 of
+    each prefill kernel; both pools empty after a clear."""
+    cfg, params_cpu, params_gpu = _reduced_model()
+    warm, rest = _prefix_traffic(np.random.default_rng(3), cfg.vocab_size,
+                                 32, (4, 6, 5), (10, 12, 10),
+                                 cfg.chai.warmup_tokens + 1)
+    want_hits = _expected_hits(warm, rest, 32)
+    runs = {}
+    for device, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        eng = ServingEngine(cfg, params, EngineConfig(
+            batch_slots=2, max_seq=64, page_size=PAGE, num_pages=33,
+            num_chai_pages=25, prefix_cache=True, relay_decode=True),
+            device=device)
+        calls, idents = [], []
+        argmax, own = eng._argmax, eng._identify
+        forced = (None if device == "cpu"
+                  else _forced_identify(runs["cpu"]["idents"]))
+
+        def rec_argmax(lg, eng=eng, calls=calls, argmax=argmax):
+            live = ([True] if lg.shape[0] == 1 else
+                    [r is not None
+                     and eng._phases[i] != chai_cache.PHASE_PREFILL
+                     for i, r in enumerate(eng._slot_req)])
+            calls.append((lg.detach().cpu(), live))
+            return argmax(lg)
+
+        def rec_identify(sc, idents=idents, own=own, forced=forced):
+            out = forced(sc, len(idents)) if forced else own(sc)
+            idents.append((sc.cpu(), {k: v.cpu() for k, v in out.items()}))
+            return out
+
+        eng._argmax, eng._identify = rec_argmax, rec_identify
+        _reset_launches()
+        eng.submit(warm[1], max_new_tokens=warm[2], uid=warm[0])
+        eng.run()
+        for uid, prompt, m in rest:
+            eng.submit(prompt, max_new_tokens=m, uid=uid)
+        done = {r.uid: r for r in eng.run()}
+        launched = _launches()
+        hits = {u: (r.cache_hit, r.cached_tokens, r.prefill_tokens)
+                for u, r in done.items()}
+        if hits != want_hits or not eng.relay_steps:
+            raise AssertionError(f"reduced prefix/relay {device}: hits "
+                                 f"{hits}, relay steps {eng.relay_steps}")
+        eng.prefix_cache.clear()
+        if eng.dense_pool.pages_in_use or eng.chai_pool.pages_in_use:
+            raise AssertionError(f"reduced prefix/relay {device}: pages "
+                                 "left in use after clear()")
+        runs[device] = dict(tokens={u: r.generated for u, r in done.items()},
+                            calls=calls, idents=idents,
+                            relay_steps=eng.relay_steps, launched=launched)
+    gpu = runs["cuda"]
+    n_suffix = len(rest) - 2
+    if (gpu["launched"]["relay_prefix_decode"]
+            != cfg.n_layers * gpu["relay_steps"]
+            or gpu["launched"]["flash_prefill"] != cfg.n_layers * n_suffix
+            or gpu["launched"]["paged_prefix_attend"]
+            != cfg.n_layers * n_suffix
+            or not gpu["launched"]["paged_chai_fused_decode"]):
+        raise AssertionError(f"reduced prefix/relay: launches "
+                             f"{gpu['launched']}, relay steps "
+                             f"{gpu['relay_steps']}")
+    held, worst = _hold_calls(gpu["calls"], runs["cpu"]["calls"],
+                              "reduced prefix/relay")
+    log(f"reduced prefix cache + relay engine cuda vs cpu: relay steps "
+        f"{gpu['relay_steps']} (cpu {runs['cpu']['relay_steps']}), launches"
+        f" {gpu['launched']}; {held} of {len(runs['cpu']['calls'])} argmax "
+        f"calls held, logits max abs diff {worst:.3e}; plan kinds "
+        f"{want_hits}; cpu == cuda tokens: "
+        f"{runs['cpu']['tokens'] == gpu['tokens']}")
+
+
 # ------------------------------------------------------------ phase 5 ----
 class _Capture:
     """Stands in for ``kernels.ops`` inside ``core.chai_attention`` and
@@ -827,6 +1117,16 @@ class _Capture:
                    kw)
         return kops.paged_chai_decode_attention(q_rep, k_pool, bt_k, v_pool,
                                                 bt_v, h2c, pos, **kw)
+
+    def relay_prefix_attention(self, q, k, v, k_row, a_row, v_row, plen,
+                               **kw):
+        self._keep("relay", dict(q=q, k=k, v=v, k_row=k_row, a_row=a_row,
+                                 v_row=v_row, plen=plen), kw)
+        return kops.relay_prefix_attention(q, k, v, k_row, a_row, v_row,
+                                           plen, **kw)
+
+    merge_decode_states = staticmethod(kops.merge_decode_states)
+    finalize_decode_state = staticmethod(kops.finalize_decode_state)
 
 
 def _timed(fn, phase, acc, calls=None):
@@ -1358,28 +1658,263 @@ def chunked_path(cfg, params, mono):
     return run["launches"], mains, cases
 
 
+# ------------------------------------------------------------ phase 8 ----
+def serve_prefix(cfg, params, relay):
+    """Serve phase 8's traffic on a continuous paged engine with the
+    prefix cache (and ``relay``: relay decode): the warm request to
+    completion, then the rest. Launches counted over both; each step kind,
+    each relay formation (the packed prefix views and their stack) and
+    each ``step()`` timed; the decode ops' layer-0 inputs kept at the
+    first step of each kind; the top-2 margin behind every greedy token
+    and each request's membership recorded."""
+    eng = ServingEngine(cfg, params, EngineConfig(
+        batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+        prefix_cache=True, relay_decode=relay))
+    times, calls, kind = {}, {}, {"now": None}
+    for attr, phase in (("_slot_prefill", "prefill"),
+                        ("_suffix_prefill", "suffix_prefill"),
+                        ("_mha_step", "warmup_step"),
+                        ("_mixed_step", "mixed_step"),
+                        ("_chai_step", "steady_step"),
+                        ("_relay_step", "relay_step"),
+                        ("_build_relay", "relay_form")):
+        if hasattr(eng, attr):
+            fn = _timed(getattr(eng, attr), phase, times, calls)
+
+            def noted(*a, _fn=fn, _k=phase.split("_")[0]):
+                kind["now"] = _k
+                try:
+                    return _fn(*a)
+                finally:
+                    kind["now"] = None
+            setattr(eng, attr, noted)
+    idents, own = {}, eng._identify
+
+    def identify(sc):
+        i = int(np.flatnonzero(eng._phases == chai_cache.PHASE_CLUSTER)[0])
+        out = own(sc)
+        idents[eng._slot_req[i].uid] = {k: v.clone() for k, v in out.items()}
+        return out
+    eng._identify = identify
+    _check_logits(eng, cfg.vocab_size)
+    margins = _record_margins(eng)
+    step, step_s = eng.step, []
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+    eng.step = timed_step
+    cap = _Capture(lambda: kind["now"])
+    warm, rest = _prefix_traffic(np.random.default_rng(0), cfg.vocab_size,
+                                 SYS_LEN, SUFFIX_LENS, SUFFIX_NEW,
+                                 cfg.chai.warmup_tokens + 1)
+    chai_core.kops = cap
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.time()
+        eng.submit(warm[1], max_new_tokens=warm[2], uid=warm[0])
+        eng.run()
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
+        for uid, prompt, m in rest:
+            eng.submit(prompt, max_new_tokens=m, uid=uid)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _launches()
+    finally:
+        chai_core.kops = kops
+    run = dict(eng=eng, done=sorted(done, key=lambda r: r.uid), wall=wall,
+               warm_s=warm_s, times=times, calls=calls, launches=launches,
+               capture=cap.first, margins=margins, idents=idents,
+               step_s=step_s, warm=warm, rest=rest,
+               device_peak=torch.cuda.max_memory_allocated())
+    return run
+
+
+def _check_prefix_run(cfg, run, label):
+    """Plan kinds, token counts, launches and pools of one phase-8 run."""
+    eng, done, calls = run["eng"], run["done"], run["calls"]
+    warm, rest = run["warm"], run["rest"]
+    want_hits = _expected_hits(warm, rest, SYS_LEN)
+    hits = {r.uid: (r.cache_hit, r.cached_tokens, r.prefill_tokens)
+            for r in done}
+    if hits != want_hits:
+        raise AssertionError(f"{label}: plan kinds {hits}, expected "
+                             f"{want_hits}")
+    budgets = {uid: m for uid, _, m in [warm] + rest}
+    if ({r.uid: len(r.generated) for r in done} != budgets
+            or any(r.finish_reason != FINISH_LENGTH for r in done)):
+        raise AssertionError(f"{label}: token counts")
+    if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
+        raise AssertionError("token id out of vocabulary")
+    n_suffix = len(rest) - 2
+    steps = (calls.get("relay_step", 0) + calls.get("mixed_step", 0)
+             + calls.get("steady_step", 0))
+    want = {name: 0 for name in run["launches"]}
+    want["flash_prefill"] = want["paged_prefix_attend"] = (
+        cfg.n_layers * n_suffix)
+    want["paged_chai_fused_decode"] = cfg.n_layers * steps
+    want["relay_prefix_decode"] = cfg.n_layers * eng.relay_steps
+    if (run["launches"] != want or calls.get("suffix_prefill") != n_suffix
+            or eng.relay_steps != calls.get("relay_step", 0)):
+        raise AssertionError(f"{label}: launches {run['launches']}, "
+                             f"expected {want}; calls {calls}")
+    run["stats"] = eng.prefix_stats()
+    run["kv_peak"] = eng.kv_bytes_peak()
+    eng.prefix_cache.clear()
+    if eng.dense_pool.pages_in_use or eng.chai_pool.pages_in_use:
+        raise AssertionError(f"{label}: pools not empty after clear()")
+
+
+def _log_prefix_run(run, label):
+    eng, done, calls = run["eng"], run["done"], run["calls"]
+    rest = [r for r in done if r.uid != run["warm"][0]]
+    n_tok = sum(len(r.generated) for r in rest)
+    per_call = {k: 1e3 * run["times"][k] / calls[k] for k in calls}
+    log(f"{label}: warm request {run['warm_s']:.3f} s; then {len(rest)} "
+        f"requests, {n_tok} tokens in {run['wall']:.3f} s: "
+        f"{n_tok / run['wall']:.1f} tok/s, TTFT "
+        f"{[round(r.ttft, 4) for r in rest]} s (mean "
+        f"{statistics.mean(r.ttft for r in rest):.4f}); decode steps "
+        f"{eng.steps_executed}, by kind {calls}; relay steps "
+        f"{eng.relay_steps}, grouped slot-steps {eng.relay_grouped_slots}; "
+        f"launches {run['launches']}")
+    log(f"{label} by phase (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in run["times"].items())
+        + "; ms per call: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in per_call.items())
+        + f"; engine steps {len(run['step_s'])}, longest "
+        f"{1e3 * max(run['step_s']):.2f} ms; KV bytes peak "
+        f"{run['kv_peak']:,}; device memory peak {run['device_peak']:,} B; "
+        f"prefix_stats {run['stats']}")
+
+
+def prefix_path(cfg, params):
+    """The prefix cache and relay decode at full width (phase 8): the same
+    traffic with ``relay_decode=False``, then ``True``. Returns
+    ({path: launches}, the relay kernel's main-path case, the paged
+    kernel's state-mode case there)."""
+    runs = {}
+    for label, relay in (("prefix_plain", False), ("prefix_relay", True)):
+        run = serve_prefix(cfg, params, relay)
+        _check_prefix_run(cfg, run, label)
+        _log_prefix_run(run, label)
+        run.pop("eng")
+        runs[label] = run
+        torch.cuda.empty_cache()
+    plain, relay = runs["prefix_plain"], runs["prefix_relay"]
+    if plain["calls"].get("relay_step") or not relay["calls"].get(
+            "relay_step"):
+        raise AssertionError(f"relay steps: plain {plain['calls']}, relay "
+                             f"{relay['calls']}")
+    # Relay touches only STEADY steps: every WARMUP buffer, hence every
+    # membership, is the same in both runs.
+    if sorted(plain["idents"]) != sorted(relay["idents"]) or not all(
+            torch.equal(plain["idents"][u][k], relay["idents"][u][k])
+            for u in plain["idents"] for k in plain["idents"][u]):
+        raise AssertionError("relay and plain runs clustered differently")
+    mono = dict(tokens={r.uid: r.generated for r in plain["done"]},
+                margins=plain["margins"])
+    snap_uid, replay_uid = relay["rest"][-2][0], relay["rest"][-1][0]
+    exact = (relay["warm"][0], snap_uid, replay_uid)
+    for uid in exact:
+        if mono["tokens"][uid] != [r.generated for r in relay["done"]
+                                   if r.uid == uid][0]:
+            raise AssertionError(f"prefix_relay uid {uid}: tokens differ "
+                                 "from the plain run")
+    grouped = dict(relay, done=[r for r in relay["done"]
+                                if r.uid not in exact])
+    held, compared, parted = _hold_tokens(grouped, mono)
+    def per(run, k):
+        return (1e3 * run["times"][k] / run["calls"][k]
+                if run["calls"].get(k) else float("nan"))
+    form = relay["times"]["relay_form"] / relay["calls"]["relay_form"]
+    log(f"relay vs plain: {held} of {compared} suffix-request tokens held "
+        f"at plain margin > {CHUNK_MARGIN} (first divergences at near-ties:"
+        f" {parted}); warm, snapshot and replay requests identical; "
+        f"memberships identical for {len(plain['idents'])} requests; mean "
+        f"relay step {per(relay, 'relay_step'):.2f} ms against a plain "
+        f"run's all-STEADY step {per(plain, 'steady_step'):.2f} ms and "
+        f"mixed step {per(plain, 'mixed_step'):.2f} ms (the relay run's "
+        f"own all-STEADY steps {per(relay, 'steady_step'):.2f} ms); relay "
+        f"formation (packed views + stack) {1e3 * form:.3f} ms per step; "
+        f"wall {relay['wall']:.3f} s against {plain['wall']:.3f} s")
+    rc = relay["capture"]["relay", "relay"]
+    ra = (rc["q"], rc["k"], rc["v"], rc["k_row"], rc["a_row"], rc["v_row"],
+          rc["plen"])
+    relay_main = dict(case="prefix_relay_first_relay_step_layer0",
+                      **relay_case(*ra, ts=rc["kw"]["ts"]))
+    call = lambda: ck.relay_prefix_decode(*ra, ts=rc["kw"]["ts"])  # noqa
+    relay_main["single_call_ms"] = single_call_ms(call)
+    relay_main["device_ms"] = device_ms(call, "relay_prefix_decode_kernel")
+    relay_main["stack_ms_per_step"] = 1e3 * form
+    log(f"relay_prefix_decode main path (layer 0, first relay step): q "
+        f"{relay_main['q']} k {relay_main['k']} {relay_main['dtype']} plen "
+        f"{relay_main['plen']}: max_abs_err {relay_main['max_abs_err']:.3e},"
+        f" kernel {relay_main['ms']:.4f} ms (single call "
+        f"{relay_main['single_call_ms']:.4f} ms, profiled device time "
+        f"{relay_main['device_ms']} ms), plain {relay_main['plain_ms']:.4f} "
+        f"ms, bound {relay_main['bound_ms']:.4f} ms "
+        f"({relay_main['bound_by']})")
+    pc = relay["capture"]["paged", "relay"]
+    pa = (pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
+          pc["h2c"], pc["pos"])
+    got = ck.paged_chai_fused_decode(*pa, emit_state=True)
+    err = _hold(got, kref.paged_chai_fused_decode_ref(*pa, emit_state=True))
+    emit_main = dict(case="prefix_relay_first_relay_step_layer0_emit_state",
+                     emit_state=True, pos=pc["pos"].tolist(), max_abs_err=err,
+                     ms=time_ms(lambda: ck.paged_chai_fused_decode(
+                         *pa, emit_state=True)),
+                     plain_ms=time_ms(lambda: kref.paged_chai_fused_decode_ref(
+                         *pa, emit_state=True)))
+    log(f"paged_chai_fused_decode state mode at the same step (suffix-only "
+        f"tables, pos {emit_main['pos']}): max_abs_err {err:.3e}, kernel "
+        f"{emit_main['ms']:.4f} ms, plain {emit_main['plain_ms']:.4f} ms")
+    return ({"prefix_plain": plain["launches"],
+             "prefix_relay": relay["launches"]}, relay_main, emit_main)
+
+
 def main():
     environment()
     build_kernels()
     dense_cases = kernel_checks()
     paged_cases = paged_kernel_checks()
+    emit_cases = emit_state_checks()
+    relay_cases = relay_kernel_checks()
     flash_cases, prefix_cases = prefill_kernel_checks()
     reduced_reference_check()
     reduced_continuous_check()
     reduced_chunked_check()
+    reduced_prefix_relay_check()
     cfg, params = init_full_model()
     cohort_launches, dense_main = main_path(cfg, params)
     cont_launches, paged_main, paged_mixed, mono = continuous_path(cfg,
                                                                    params)
     chunked_launches, prefill_mains, path_cases = chunked_path(cfg, params,
                                                                mono)
+    prefix_launches, relay_main, emit_main = prefix_path(cfg, params)
     by_path = {"cohort": cohort_launches, **cont_launches,
-               "continuous_paged_chunked": chunked_launches}
-    mains = {"chai_fused_decode": (dense_main, "cohort",
-                                   dense_cases + [dense_main]),
+               "continuous_paged_chunked": chunked_launches,
+               **prefix_launches}
+    mains = {"chai_fused_decode": (
+                 dense_main, "cohort",
+                 dense_cases + emit_cases["chai_fused_decode"]
+                 + [dense_main]),
              "paged_chai_fused_decode": (
                  paged_main, "continuous_paged",
-                 paged_cases + [paged_mixed, paged_main]),
+                 paged_cases + emit_cases["paged_chai_fused_decode"]
+                 + [paged_mixed, emit_main, paged_main]),
+             "relay_prefix_decode": (relay_main, "prefix_relay",
+                                     relay_cases + [relay_main]),
              "flash_prefill": (prefill_mains["flash_prefill"],
                                "continuous_paged_chunked",
                                flash_cases + path_cases["flash_prefill"]),

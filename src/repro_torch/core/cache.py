@@ -25,7 +25,10 @@ Three layouts, one phase machine (PREFILL -> WARMUP -> CLUSTER -> STEADY):
    masked by ``pos``. ``PagePool`` is the host-side allocator.
    ``compact_kv_slot_paged`` gathers the representative rows into
    clustered pages and nulls the dense K block-table row; the engine then
-   returns those pages to the pool (``paged_kv_bytes`` falls).
+   returns those pages to the pool (``paged_kv_bytes`` falls). The prefix
+   cache shares pages between slots through the refcounts, copies a page
+   it must not share (``copy_pool_page``) and resumes a slot from a CHAI
+   snapshot (``restore_slot_snapshot``).
 
 The reference's functions return new state trees; these update the state
 tensors IN PLACE and return the same dict. Only bf16/fp32 caches are
@@ -423,6 +426,32 @@ def compact_kv_slot_paged(state, slot_ctx, cfg: ModelConfig, slot,
         state["cp"][:, kc_pages.long()] = g
         state["bt_kg"][slot] = NULL_PAGE
         state["bt_kc"][slot] = kc_pages
+    state["phase"][slot] = PHASE_STEADY
+    return state
+
+
+def copy_pool_page(state, src, dst, *, kind):
+    """Copy ONE physical page (all global layers) inside a pool, the
+    prefix cache's copy-on-write step: ``kind="dense"`` copies ``kvp``,
+    ``kind="chai"`` copies ``cp``."""
+    pool = state["kvp" if kind == "dense" else "cp"]
+    pool[:, int(dst)] = pool[:, int(src)]
+    return state
+
+
+def restore_slot_snapshot(state, slot, bt_kg_row, bt_vg_row, bt_kc_row,
+                          pos):
+    """Prefix-cache snapshot resume: point slot ``slot``'s block tables at
+    the snapshot's (shared or copied) pages, set ``pos`` to its
+    STEADY-entry position, zero the slot's clustering features and enter
+    STEADY directly, skipping PREFILL, WARMUP and CLUSTER."""
+    for key, row in (("bt_kg", bt_kg_row), ("bt_vg", bt_vg_row),
+                     ("bt_kc", bt_kc_row)):
+        if key in state:
+            state[key][slot] = row
+    state["pos"][slot] = pos
+    if "chai_scores" in state:
+        state["chai_scores"][:, slot] = 0
     state["phase"][slot] = PHASE_STEADY
     return state
 

@@ -11,9 +11,18 @@ math is ONE fused launch per layer and step
 block tables: the clustered K through ``bt_kc``, the per-head V through
 ``bt_vg``).
 
+Relay shared-prefix decode (paged, with the engine's ``relay`` dict):
+the STEADY slots of a relay group share the pages of one cached prefix.
+Their fused decode covers only their private suffix pages (rolled block
+tables, ``pos`` shifted down by the prefix length) and emits its
+online-softmax state; ONE group-batched pass per layer
+(``kernels.ops.relay_prefix_attention``) covers the shared prefix for
+every member; the two states merge and are normalized per slot. A slot
+outside any group gets the empty prefix state, the exact merge identity.
+
 Ported: the MHA branch, dense and paged, with the mixed-phase
-``write_mask``, without int8 or ``share_values``. GQA, local layers and
-relay decode raise ``NotImplementedError``.
+``write_mask`` and the relay decode, without int8 or ``share_values``.
+GQA and local layers raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import torch
 
 from repro_torch.kernels import chai_attention as ck
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.transformer import (_masked_rows, _paged_write_rows,
                                             paged_token_coords,
@@ -39,24 +49,76 @@ def _gather_heads(x, idx):
 
 
 def chai_decode_attention(xn, p, cfg, state, gi, ai, chai_ctx, *,
-                          write_mask=None, decode_ts=0):
+                          write_mask=None, decode_ts=0, relay=None):
     """xn: (B, d) normed hidden; ``gi``/``ai``: the layer's global-cache
     and attention-layer index. Returns (B, H, hd) in xn's dtype; writes
     the token's clustered K rows and per-head V rows into the state
     (only for slots in ``write_mask`` (B,) bool, when given: the
-    mixed-phase step runs this path alongside the MHA path)."""
+    mixed-phase step runs this path alongside the MHA path). ``relay``:
+    the relay decode's group-batched tensors (paged layout; see
+    ``_relay_prefix_state``)."""
     if not cfg.is_mha:
-        raise NotImplementedError("CHAI decode for GQA models is not "
-                                  "ported yet")
+        raise NotImplementedError("CHAI decode (and relay decode) for GQA "
+                                  "models is not ported yet: ROADMAP "
+                                  "Queue 1 #5")
     if cfg.chai.share_values or cfg.kv_cache_dtype:
         raise NotImplementedError("share_values / int8 CHAI decode is not "
-                                  "ported yet")
+                                  "ported yet: ROADMAP Queue 1 #3 / #2")
     return _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask,
-                            decode_ts=decode_ts)
+                            decode_ts=decode_ts, relay=relay)
+
+
+def _roll_bt(bt, shift):
+    """Rotate each slot's block-table row left by ``shift`` (B,) pages, so
+    the kernel's logical page 0 is the slot's first private (post-prefix)
+    page. With ``pos`` shifted down by the prefix length, the prefix
+    entries wrapped to the tail sit at positions past the shifted ``pos``
+    and are never read as valid."""
+    p = bt.shape[1]
+    idx = (torch.arange(p, device=bt.device)[None, :]
+           + shift.long()[:, None]) % p
+    return torch.gather(bt, 1, idx)
+
+
+def _relay_prefix_state(relay, gi, ai, q_rep, ts):
+    """One group-batched prefix pass for this layer, scattered back to
+    batch rows as an unnormalized (m (B, R), l (B, R), acc (B, H, hd))
+    state.
+
+    ``relay`` (built by the engine on the host, tensors on the device):
+      k / v              (nG, G, KV, Sp, hd)  packed copies of each
+                         group's shared dense pages (zero tail past plen)
+      plen               (G,)                 shared prefix length
+      members            (G, Nmax)            slot of each member
+      k_row/a_row/v_row  (nA, G, NR / A)      routing maps per layer (query
+                         row -> K row, acc row -> query row, acc row -> V
+                         row): the head -> cluster broadcast lives here
+      gid / midx / len   (B,)                 slot -> group, member index,
+                         prefix length (0 outside any group)
+      in_group           (B,) bool
+
+    A slot outside any group gets the empty state (m = NEG_INF, l = 0,
+    acc = 0), the exact merge identity. ``ts``: the prefix pass's S-tile
+    (the engine's page, as for the fused decode)."""
+    g, nmax = relay["members"].shape
+    _, r, hd = q_rep.shape
+    qg = q_rep[relay["members"].long()].reshape(g, nmax * r, hd)
+    m, l, acc = kops.relay_prefix_attention(
+        qg, relay["k"][gi], relay["v"][gi], relay["k_row"][ai],
+        relay["a_row"][ai], relay["v_row"][ai], relay["plen"], ts=ts)
+    gid, midx = relay["gid"].long(), relay["midx"].long()
+    ing = relay["in_group"]
+    h = acc.shape[1] // nmax
+    m_pb = torch.where(ing[:, None], m.reshape(g, nmax, r)[gid, midx],
+                       NEG_INF)
+    l_pb = torch.where(ing[:, None], l.reshape(g, nmax, r)[gid, midx], 0.0)
+    acc_pb = torch.where(ing[:, None, None],
+                         acc.reshape(g, nmax, h, hd)[gid, midx], 0.0)
+    return m_pb, l_pb, acc_pb
 
 
 def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
-                     *, decode_ts=0):
+                     *, decode_ts=0, relay=None):
     b = xn.shape[0]
     h = cfg.n_heads
     pos = state["pos"]
@@ -87,8 +149,22 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
         _paged_write_rows(cp, pk, row, k_rep, write_mask)
         pv, vrow = paged_token_coords(state["bt_vg"], pos, page)
         _paged_write_rows(vp, pv, vrow, v_new, write_mask)
-        out = kops.paged_chai_decode_attention(
-            q_rep, cp, state["bt_kc"], vp, state["bt_vg"], gather_idx, pos)
+        if relay is None:
+            out = kops.paged_chai_decode_attention(
+                q_rep, cp, state["bt_kc"], vp, state["bt_vg"], gather_idx,
+                pos)
+            return out.to(xn.dtype)
+        # Suffix-only fused decode: rolled tables and the shifted pos drop
+        # the prefix pages from this launch; the group pass covers them.
+        shift = relay["len"] // page
+        suffix = kops.paged_chai_decode_attention(
+            q_rep, cp, _roll_bt(state["bt_kc"], shift), vp,
+            _roll_bt(state["bt_vg"], shift), gather_idx,
+            pos - relay["len"], emit_state=True)
+        prefix = _relay_prefix_state(relay, gi, ai, q_rep, decode_ts)
+        out = kops.finalize_decode_state(
+            kops.merge_decode_states(suffix, prefix, gather_idx),
+            gather_idx)
         return out.to(xn.dtype)
 
     kc = state["kg_chai"][gi]                     # (B, k, S, hd)

@@ -13,6 +13,16 @@ over block-table page pools, the continuous engine's STEADY decode. Both
 kernels run one block body (``csrc/chai_decode_tiles.cuh``), so at equal
 tile size (dense ``ts`` == page) their outputs are bitwise equal.
 
+Both take ``emit_state``: instead of the finalized output they return
+the unnormalized online-softmax state (m (B, R), l (B, R), acc (B, H,
+hd)), the suffix pass of the relay decode, which ``kernels.ops`` merges
+with ``relay_prefix_decode``'s state and finalizes in torch.
+
+``relay_prefix_decode`` launches ``csrc/relay_prefix_decode.cu`` (the port
+of the Pallas ``relay_prefix_decode``): one pass per relay group over a
+packed shared prefix, the member slots' rep queries stacked on one row
+axis and routed by three int32 maps; it emits the same kind of state.
+
 ``LAUNCHES`` counts each kernel's launches, one per successful launch,
 so a run can show that its main path went through the kernel.
 """
@@ -22,7 +32,8 @@ import ctypes
 
 import torch
 
-LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0}
+LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0,
+            "relay_prefix_decode": 0}
 
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
@@ -44,16 +55,14 @@ def _launcher(name, n_ptrs, n_ints):
     return fn
 
 
-def _refuse_unported(name, k_scale, v_scale, share_values, softcap,
-                     emit_state):
-    for flag, what in ((k_scale is not None, "int8 K scales"),
-                       (v_scale is not None, "int8 V scales"),
-                       (share_values, "share_values"),
-                       (bool(softcap), "softcap"),
-                       (emit_state, "emit_state")):
+def _refuse_unported(name, k_scale, v_scale, share_values, softcap):
+    for flag, what, item in (
+            (k_scale is not None, "int8 K scales", 2),
+            (v_scale is not None, "int8 V scales", 2),
+            (share_values, "share_values", 3), (bool(softcap), "softcap", 14)):
         if flag:
-            raise NotImplementedError(
-                f"{name}: {what} is not ported to CUDA yet")
+            raise NotImplementedError(f"{name}: {what} is not ported to "
+                                      f"CUDA yet: ROADMAP Queue 1 #{item}")
 
 
 def _check_common(name, q_rep, k, v, h2c, reps_per_group):
@@ -83,6 +92,21 @@ def _small(t, dev):
     return t.to(device=dev, dtype=torch.int32).contiguous()
 
 
+def _outputs(b, r_total, h_total, hd, dev, emit_state):
+    """The decode kernels' outputs: (B, H, hd) fp32, and with
+    ``emit_state`` the (B, R) m and l as well (else None)."""
+    out = torch.empty((b, h_total, hd), dtype=torch.float32, device=dev)
+    if not emit_state:
+        return out, None, None
+    return (out,) + tuple(torch.empty((b, r_total), dtype=torch.float32,
+                                      device=dev) for _ in range(2))
+
+
+def _ptr(t):
+    """A tensor's address, or a null pointer for None."""
+    return None if t is None else t.data_ptr()
+
+
 def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
                       v_scale=None, reps_per_group=1, share_values=False,
                       window=0, ts=512, softcap=0.0, emit_state=False):
@@ -93,10 +117,12 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     clustered cache: KVk == R); v_cache: (B, KVv, S, hd), per-head
     (KVv == H) or per-group (H % KVv == 0); K/V fp32 or bf16, one dtype;
     h2c: (B, H) or (H,) head -> rep row, values in [0, R); pos: (B,).
-    Returns (B, H, hd) fp32 from ONE kernel launch.
+    Returns (B, H, hd) fp32 from ONE kernel launch, or with
+    ``emit_state`` the unnormalized (m (B, R), l (B, R), acc (B, H, hd))
+    fp32 state.
     """
     _refuse_unported("chai_fused_decode", k_scale, v_scale, share_values,
-                     softcap, emit_state)
+                     softcap)
     s = k_cache.shape[2]
     b, r_total, hd, h_total, h2c = _check_common(
         "chai_fused_decode", q_rep, k_cache, v_cache, h2c, reps_per_group)
@@ -118,19 +144,19 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
         if t.data_ptr() % (2 * t.element_size()):
             raise ValueError(f"{name} must be aligned to two elements")
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
-    out = torch.empty((b, h_total, hd), dtype=torch.float32, device=dev)
-    fn = _launcher("chai_fused_decode", 6, 12)
+    out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state)
+    fn = _launcher("chai_fused_decode", 8, 12)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), h2c_i.data_ptr(),
-                 pos_i.data_ptr(), out.data_ptr(), b, r_total, h_total, kv_k,
-                 kv_v, s, hd, ts, reps_per_group, h_total // kv_v,
-                 int(window), _KV_DTYPES[k.dtype], stream)
+                 pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l), b,
+                 r_total, h_total, kv_k, kv_v, s, hd, ts, reps_per_group,
+                 h_total // kv_v, int(window), _KV_DTYPES[k.dtype], stream)
     if err:
         raise RuntimeError(f"chai_fused_decode launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["chai_fused_decode"] += 1
-    return out
+    return (m, l, out) if emit_state else out
 
 
 def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
@@ -148,10 +174,10 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     pos: (B,). K/V fp32 or bf16, one dtype. The pools are layer slices
     of the engine's state and are read in place: they must be contiguous
     already (a copy would move the whole pool every call). Returns
-    (B, H, hd) fp32 from ONE kernel launch.
+    (B, H, hd) fp32 from ONE kernel launch, or the ``emit_state`` triple.
     """
     _refuse_unported("paged_chai_fused_decode", k_scale_pool, v_scale_pool,
-                     share_values, softcap, emit_state)
+                     share_values, softcap)
     n_pages = bt_k.shape[1]
     page = k_pool.shape[2]
     b, r_total, hd, h_total, h2c = _check_common(
@@ -179,18 +205,78 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     q = q_rep.float().contiguous()
     bt_k_i, bt_v_i = _small(bt_k, dev), _small(bt_v, dev)
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
-    out = torch.empty((b, h_total, hd), dtype=torch.float32, device=dev)
-    fn = _launcher("paged_chai_fused_decode", 8, 12)
+    out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state)
+    fn = _launcher("paged_chai_fused_decode", 10, 12)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  bt_k_i.data_ptr(), bt_v_i.data_ptr(), h2c_i.data_ptr(),
-                 pos_i.data_ptr(), out.data_ptr(), b, r_total, h_total,
-                 kv_k, kv_v, n_pages, page, hd, reps_per_group,
-                 h_total // kv_v, int(window), _KV_DTYPES[k_pool.dtype],
-                 stream)
+                 pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l), b,
+                 r_total, h_total, kv_k, kv_v, n_pages, page, hd,
+                 reps_per_group, h_total // kv_v, int(window),
+                 _KV_DTYPES[k_pool.dtype], stream)
     if err:
         raise RuntimeError(f"paged_chai_fused_decode launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["paged_chai_fused_decode"] += 1
-    return out
+    return (m, l, out) if emit_state else out
+
+
+def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
+    """One pass per relay group over its packed shared prefix, on the GPU.
+
+    q: (G, NR, hd) member rep queries stacked per group (any float dtype;
+    read as fp32); k: (G, KV, Sp, hd) and v: (G, VR, Sp, hd) the packed
+    prefix, fp32 or bf16, one dtype; k_row: (G, NR) query row -> K row;
+    a_row: (G, A) acc row -> query row; v_row: (G, A) acc row -> V row;
+    plen: (G,) valid prefix lengths (positions >= plen masked). ``ts``:
+    the S-tile (0: Sp; the whole prefix when it does not divide Sp).
+    Returns (m (G, NR), l (G, NR), acc (G, A, hd)) fp32, unnormalized,
+    from ONE kernel launch.
+    """
+    if q.device.type != "cuda":
+        raise ValueError(f"relay_prefix_decode launches a CUDA kernel; got "
+                         f"tensors on {q.device}")
+    g, nr, hd = q.shape
+    kv, sp = k.shape[1], k.shape[2]
+    vr, a_total = v.shape[1], a_row.shape[1]
+    if k.dtype != v.dtype or k.dtype not in _KV_DTYPES:
+        raise TypeError(f"K/V must share one dtype of fp32/bf16; got "
+                        f"{k.dtype}, {v.dtype}")
+    if (k.shape != (g, kv, sp, hd) or v.shape != (g, vr, sp, hd)
+            or k_row.shape != (g, nr) or a_row.shape != (g, a_total)
+            or v_row.shape != (g, a_total) or plen.shape != (g,)):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, k_row "
+                         f"{tuple(k_row.shape)}, a_row {tuple(a_row.shape)},"
+                         f" v_row {tuple(v_row.shape)}, plen "
+                         f"{tuple(plen.shape)}")
+    if hd % 2:
+        raise ValueError(f"head_dim {hd} must be even (paired V loads)")
+    ts = fused_tile_size(ts, sp)
+    smem = (hd + sp + 3 * (sp // ts)) * 4 + a_total * 4
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"Sp={sp} (tile {ts}) and A={a_total} need {smem} "
+                         "B of shared memory, above the block limit")
+    dev = q.device
+    qf = q.float().contiguous()
+    kc, vc = k.contiguous(), v.contiguous()
+    for name, t in (("k", kc), ("v", vc)):
+        if t.data_ptr() % (2 * t.element_size()):
+            raise ValueError(f"{name} must be aligned to two elements")
+    maps = [_small(t, dev) for t in (k_row, a_row, v_row, plen)]
+    m = torch.empty((g, nr), dtype=torch.float32, device=dev)
+    l = torch.empty((g, nr), dtype=torch.float32, device=dev)
+    acc = torch.empty((g, a_total, hd), dtype=torch.float32, device=dev)
+    fn = _launcher("relay_prefix_decode", 10, 9)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(qf.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                 *(t.data_ptr() for t in maps), m.data_ptr(), l.data_ptr(),
+                 acc.data_ptr(), g, nr, a_total, kv, vr, sp, hd, ts,
+                 _KV_DTYPES[kc.dtype], stream)
+    if err:
+        raise RuntimeError(f"relay_prefix_decode launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["relay_prefix_decode"] += 1
+    return m, l, acc

@@ -8,6 +8,9 @@
 // and its order are the same code in both, so at equal tile size (dense
 // ts == page) the two kernels are bitwise equal.
 //
+// The relay kernel (relay_prefix_decode.cu) runs the same row body,
+// ``attend_row``, over a packed prefix with its own routing maps.
+//
 // Per block (b, j): rep j's masked scores against its K row, the online
 // softmax state (running max m, sum l) over tiles in order, and
 // acc = acc * alpha_t + p_t . V_t for every member head h with
@@ -15,7 +18,8 @@
 // scale 1/sqrt(hd), mask idx <= pos (and pos - idx < window when
 // window > 0) to -2e38, the running max clamped >= -1e30, alpha =
 // exp(m_prev - m_new), p = exp(sc - m_new), l = l * alpha + sum(p), one
-// update per tile; output acc[h] / max(l, 1e-37). K/V elements are fp32 or
+// update per tile; output acc[h] / max(l, 1e-37), or in the state mode
+// (emit_state) m, l and the raw acc[h]. K/V elements are fp32 or
 // bf16, all math in fp32. Rep j reads K row j / reps_per_group; head h
 // reads V row h / v_rep (GQA). Tiles past pos are skipped: they are fully
 // masked and would leave m, l and acc bitwise unchanged.
@@ -169,63 +173,107 @@ __device__ float2 tile_av(const Tiles& tiles, int n_live, int ts, int hd,
   return acc;
 }
 
-// Dynamic shared memory the block body needs, in bytes: the rep query
+// Dynamic shared memory the block body needs, in bytes: the query row
 // (hd), every score of the row (n_tiles * ts), three per-tile scalars and
-// the member list (H).
+// the member list (n_map entries).
 __host__ __device__ inline size_t block_smem_bytes(int hd, int n_tiles,
-                                                   int ts, int H) {
+                                                   int ts, int n_map) {
   return (static_cast<size_t>(hd) + static_cast<size_t>(n_tiles) * ts +
           3 * static_cast<size_t>(n_tiles)) * sizeof(float) +
-         static_cast<size_t>(H) * sizeof(int);
+         static_cast<size_t>(n_map) * sizeof(int);
 }
 
-// The body of one block (b = blockIdx.y, j = blockIdx.x). Starts with a
-// barrier of its own, so a caller may fill shared memory past
-// block_smem_bytes (the paged kernel's block-table rows) just before.
-template <typename T, typename Tiles>
-__device__ void decode_block(const Tiles& tiles, const float* q,
-                             const int* h2c, const int* pos, float* out,
-                             int R, int H, int n_tiles, int ts, int hd,
-                             int rpg, int v_rep, int window, float scale,
-                             float* smem) {
+// The accumulator rows one block owns: entry e of ``map`` (n entries) is
+// a member iff map[e] == row; its acc row is e, written at out + e * hd,
+// and it reads V row ``v_rows[e]``, or e / v_rep when v_rows is null.
+struct Members {
+  const int* map;
+  const int* v_rows;
+  int n, row, v_rep;
+};
+
+// One query row against one K row, every member acc row of it: scores
+// over positions 0..pos (and pos - idx < window when window > 0), the
+// online softmax over tiles in order, and per member the AV sum. Writes
+// acc / max(l, 1e-37) per member, or in the state mode (kEmit) the
+// unnormalized state instead: the row's m (the final running max,
+// clamped >= -1e30; -1e30 when no tile is live) and l to m_out/l_out and
+// the raw acc per member. A row with no member writes nothing in the
+// finalized mode and only its m and l in the state mode. The mode is a
+// template parameter, so the finalized kernels carry no state-mode code.
+// Starts with a barrier of its own, so a caller may fill shared memory
+// past block_smem_bytes (the paged kernel's block-table rows) just
+// before.
+template <typename T, bool kEmit, typename Tiles>
+__device__ void attend_row(const Tiles& tiles, const float* q, int k_row,
+                           int pos, int window, const Members mem,
+                           float* out, float* m_out, float* l_out,
+                           int n_tiles, int ts, int hd, float scale,
+                           float* smem) {
   float* q_s = smem;                                     // hd
   float* sc_s = q_s + hd;                                // n_tiles * ts
   float* alpha_s = sc_s + static_cast<size_t>(n_tiles) * ts;  // n_tiles
   float* m_s = alpha_s + n_tiles;                        // n_tiles
   float* stat_s = m_s + n_tiles;                         // n_tiles
-  int* members = reinterpret_cast<int*>(stat_s + n_tiles);  // H
+  int* members = reinterpret_cast<int*>(stat_s + n_tiles);  // mem.n
   __shared__ int n_mem_s;
   __shared__ float l_s;
 
-  const int j = blockIdx.x, b = blockIdx.y;
   if (threadIdx.x == 0) {
     int n = 0;
-    for (int h = 0; h < H; ++h)
-      if (h2c[static_cast<size_t>(b) * H + h] == j) members[n++] = h;
+    for (int e = 0; e < mem.n; ++e)
+      if (mem.map[e] == mem.row) members[n++] = e;
     n_mem_s = n;
   }
-  for (int d = threadIdx.x; d < hd; d += kThreads)
-    q_s[d] = q[(static_cast<size_t>(b) * R + j) * hd + d];
+  for (int d = threadIdx.x; d < hd; d += kThreads) q_s[d] = q[d];
   __syncthreads();
   const int n_mem = n_mem_s;
-  if (n_mem == 0) return;  // no member head: nothing to compute or write
+  if (n_mem == 0 && !kEmit) return;  // no member: nothing to compute
 
-  const int p = pos[b];
-  const int n_live = p < 0 ? 0 : min(p / ts, n_tiles - 1) + 1;
-  tile_scores<T>(tiles, n_live, ts, hd, q_s, j / rpg, p, window, scale, sc_s);
+  const int n_live = pos < 0 ? 0 : min(pos / ts, n_tiles - 1) + 1;
+  tile_scores<T>(tiles, n_live, ts, hd, q_s, k_row, pos, window, scale, sc_s);
   __syncthreads();
   const float l = softmax_scan(n_live, ts, sc_s, alpha_s, m_s, stat_s, &l_s);
+  if (kEmit && threadIdx.x == 0) {
+    *m_out = n_live ? m_s[n_live - 1] : -1e30f;
+    *l_out = l;
+  }
   const float denom = fmaxf(l, 1e-37f);
 
   const int pairs = hd / 2;
   for (int e = threadIdx.x; e < n_mem * pairs; e += kThreads) {
     const int i = e / pairs, d = 2 * (e - i * pairs);
-    const float2 acc = tile_av<T>(tiles, n_live, ts, hd, members[i] / v_rep,
-                                  d, sc_s, alpha_s);
-    float* o = out + (static_cast<size_t>(b) * H + members[i]) * hd + d;
-    o[0] = acc.x / denom;
-    o[1] = acc.y / denom;
+    const int a = members[i];
+    const int v_row = mem.v_rows ? mem.v_rows[a] : a / mem.v_rep;
+    const float2 acc = tile_av<T>(tiles, n_live, ts, hd, v_row, d, sc_s,
+                                  alpha_s);
+    float* o = out + static_cast<size_t>(a) * hd + d;
+    if (kEmit) {
+      o[0] = acc.x;
+      o[1] = acc.y;
+    } else {
+      o[0] = acc.x / denom;
+      o[1] = acc.y / denom;
+    }
   }
+}
+
+// The decode kernels' block (b = blockIdx.y, rep j = blockIdx.x): rep j's
+// query, K row j / rpg, the heads h with h2c[b, h] == j, V row h / v_rep,
+// output rows out[b, h]; the state mode (kEmit) writes m[b, j] and
+// l[b, j] too (the relay decode's suffix pass).
+template <typename T, bool kEmit, typename Tiles>
+__device__ void decode_block(const Tiles& tiles, const float* q,
+                             const int* h2c, const int* pos, float* out,
+                             float* m, float* l, int R, int H, int n_tiles,
+                             int ts, int hd, int rpg, int v_rep, int window,
+                             float scale, float* smem) {
+  const int j = blockIdx.x, b = blockIdx.y;
+  const size_t row = static_cast<size_t>(b) * R + j;
+  const Members mem{h2c + static_cast<size_t>(b) * H, nullptr, H, j, v_rep};
+  attend_row<T, kEmit>(tiles, q + row * hd, j / rpg, pos[b], window, mem,
+                       out + static_cast<size_t>(b) * H * hd, m + row,
+                       l + row, n_tiles, ts, hd, scale, smem);
 }
 
 // Raise the kernel's dynamic shared memory limit when it needs more than

@@ -27,7 +27,7 @@ namespace {
 
 using namespace chai;
 
-template <typename T>
+template <typename T, bool kEmit>
 __global__ void __launch_bounds__(kThreads)
 paged_chai_fused_decode_kernel(const float* __restrict__ q,
                                const T* __restrict__ k_pool,
@@ -36,7 +36,9 @@ paged_chai_fused_decode_kernel(const float* __restrict__ q,
                                const int* __restrict__ bt_v,
                                const int* __restrict__ h2c,
                                const int* __restrict__ pos,
-                               float* __restrict__ out, int R, int H,
+                               float* __restrict__ out,
+                               float* __restrict__ m, float* __restrict__ l,
+                               int R, int H,
                                int kv_k, int kv_v, int P, int page, int hd,
                                int rpg, int v_rep, int window, float scale) {
   extern __shared__ float smem[];
@@ -50,19 +52,21 @@ paged_chai_fused_decode_kernel(const float* __restrict__ q,
   // decode_block's first barrier orders these writes before any tile read.
   const PagedTiles<T> tiles{k_pool, v_pool, bt_s, bt_s + P, kv_k, kv_v,
                             page, hd};
-  decode_block<T>(tiles, q, h2c, pos, out, R, H, P, page, hd, rpg, v_rep,
-                  window, scale, smem);
+  decode_block<T, kEmit>(tiles, q, h2c, pos, out, m, l, R, H, P, page, hd,
+                         rpg, v_rep, window, scale, smem);
 }
 
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* bt_k, const void* bt_v, const void* h2c,
-           const void* pos, void* out, int B, int R, int H, int kv_k,
-           int kv_v, int P, int page, int hd, int rpg, int v_rep, int window,
-           cudaStream_t stream) {
+           const void* pos, void* out, void* m, void* l, int B, int R, int H,
+           int kv_k, int kv_v, int P, int page, int hd, int rpg, int v_rep,
+           int window, cudaStream_t stream) {
   const size_t smem = block_smem_bytes(hd, P, page, H) +
                       2 * static_cast<size_t>(P) * sizeof(int);
-  auto kern = paged_chai_fused_decode_kernel<T>;
+  // m and l null: the finalized mode; else the state mode
+  auto kern = m ? paged_chai_fused_decode_kernel<T, true>
+                : paged_chai_fused_decode_kernel<T, false>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(R, B);
@@ -70,8 +74,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const float*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int*>(bt_k),
       static_cast<const int*>(bt_v), static_cast<const int*>(h2c),
-      static_cast<const int*>(pos), static_cast<float*>(out), R, H, kv_k,
-      kv_v, P, page, hd, rpg, v_rep, window, inv_sqrt_hd(hd));
+      static_cast<const int*>(pos), static_cast<float*>(out),
+      static_cast<float*>(m), static_cast<float*>(l), R, H, kv_k, kv_v, P,
+      page, hd, rpg, v_rep, window, inv_sqrt_hd(hd));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -80,19 +85,22 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 // q: (B, R, hd) fp32; k_pool: (nPk, kv_k, page, hd); v_pool:
 // (nPv, kv_v, page, hd), both fp32 (kv_bf16 == 0) or bf16 (kv_bf16 == 1);
 // bt_k, bt_v: (B, P) int32 page ids into their pools; h2c: (B, H) int32
-// with values in [0, R); pos: (B,) int32; out: (B, H, hd) fp32. All
-// contiguous; hd even and the pools aligned to two elements. Returns the
-// launch's cudaError_t (0 on success); does not synchronise.
+// with values in [0, R); pos: (B,) int32; out: (B, H, hd) fp32; m, l:
+// (B, R) fp32, or both null (finalized output; otherwise the state mode,
+// as in chai_fused_decode_launch). All contiguous; hd even and the pools
+// aligned to two elements. Returns the launch's cudaError_t (0 on
+// success); does not synchronise.
 extern "C" int paged_chai_fused_decode_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* bt_k,
-    const void* bt_v, const void* h2c, const void* pos, void* out, int B,
-    int R, int H, int kv_k, int kv_v, int P, int page, int hd, int rpg,
-    int v_rep, int window, int kv_bf16, void* stream) {
+    const void* bt_v, const void* h2c, const void* pos, void* out, void* m,
+    void* l, int B, int R, int H, int kv_k, int kv_v, int P, int page,
+    int hd, int rpg, int v_rep, int window, int kv_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_bf16)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, bt_k, bt_v, h2c, pos,
-                                 out, B, R, H, kv_k, kv_v, P, page, hd, rpg,
-                                 v_rep, window, st);
-  return launch<float>(q, k_pool, v_pool, bt_k, bt_v, h2c, pos, out, B, R,
-                       H, kv_k, kv_v, P, page, hd, rpg, v_rep, window, st);
+                                 out, m, l, B, R, H, kv_k, kv_v, P, page, hd,
+                                 rpg, v_rep, window, st);
+  return launch<float>(q, k_pool, v_pool, bt_k, bt_v, h2c, pos, out, m, l,
+                       B, R, H, kv_k, kv_v, P, page, hd, rpg, v_rep, window,
+                       st);
 }

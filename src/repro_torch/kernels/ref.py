@@ -6,6 +6,9 @@ kernel is held against on the card. It mirrors the reference package's
 oracle (whole-row softmax, not the kernel's tiled online softmax).
 ``paged_chai_fused_decode_ref`` is the paged kernel's: it densifies the
 pools through their block tables, then runs the dense plain version.
+Both take ``emit_state`` (the unnormalized (m, l, acc) triple the relay
+decode merges), and ``relay_prefix_decode_ref`` is the relay kernel's:
+the group-batched pass over a packed shared prefix.
 
 The prefill kernels' plain versions: ``flash_prefill_ref`` (finalized
 causal attention, the reference's whole-row softmax oracle) and
@@ -32,10 +35,10 @@ def _softcap(sc, cap):
     return sc
 
 
-def chai_scores_ref(q_rep, k_cache, pos, *, reps_per_group=0, window=0,
-                    softcap=0.0):
-    """Clustered scores. q_rep: (B, R, hd); k_cache: (B, KV, S, hd); rep j
-    reads K row j // reps_per_group. Returns normalized A (B, R, S) fp32."""
+def _chai_masked_scores(q_rep, k_cache, pos, *, reps_per_group=0,
+                        window=0, softcap=0.0):
+    """Scaled clustered scores, masked to NEG_INF past ``pos`` (and
+    outside the window). Returns (B, R, S) fp32."""
     b, r_total, hd = q_rep.shape
     s = k_cache.shape[2]
     r = reps_per_group or 1
@@ -48,8 +51,16 @@ def chai_scores_ref(q_rep, k_cache, pos, *, reps_per_group=0, window=0,
     valid = kv_pos[None, :] <= pos[:, None]
     if window:
         valid &= (pos[:, None] - kv_pos[None, :]) < window
-    sc = torch.where(valid[:, None, :], sc, NEG_INF)
-    return torch.softmax(sc, dim=-1)
+    return torch.where(valid[:, None, :], sc, NEG_INF)
+
+
+def chai_scores_ref(q_rep, k_cache, pos, *, reps_per_group=0, window=0,
+                    softcap=0.0):
+    """Clustered scores. q_rep: (B, R, hd); k_cache: (B, KV, S, hd); rep j
+    reads K row j // reps_per_group. Returns normalized A (B, R, S) fp32."""
+    return torch.softmax(_chai_masked_scores(
+        q_rep, k_cache, pos, reps_per_group=reps_per_group, window=window,
+        softcap=softcap), dim=-1)
 
 
 def chai_av_ref(a, v_cache, h2c):
@@ -65,18 +76,28 @@ def chai_av_ref(a, v_cache, h2c):
 
 def chai_fused_decode_ref(q_rep, k_cache, v_cache, h2c, pos, *,
                           k_scale=None, v_scale=None, reps_per_group=0,
-                          share_values=False, window=0, softcap=0.0):
+                          share_values=False, window=0, softcap=0.0,
+                          emit_state=False):
     """Plain version of ``chai_fused_decode`` across its dispatch matrix:
     {MHA, GQA} x {float, int8 scale rows} x {share_values} x {window}.
 
     v_cache rows: H (per-head), a divisor of H (GQA per-group) or R
-    (share_values). Returns (B, H, hd) fp32."""
+    (share_values). Returns (B, H, hd) fp32, or with ``emit_state`` the
+    unnormalized triple (m (B, R), l (B, R), acc (B, rows, hd)) fp32 as
+    the kernels emit it: m clamped at >= -1e30 on every row, l and acc
+    over p = exp(sc - m); acc rows are the heads (R under
+    ``share_values``)."""
     b = q_rep.shape[0]
     kf = k_cache.float()
     if k_scale is not None:
         kf = kf * k_scale.float()[..., None]
-    a = chai_scores_ref(q_rep, kf, pos, reps_per_group=reps_per_group,
-                        window=window, softcap=softcap)      # (B, R, S)
+    sc = _chai_masked_scores(q_rep, kf, pos, reps_per_group=reps_per_group,
+                             window=window, softcap=softcap)  # (B, R, S)
+    if emit_state:
+        m = torch.clamp(sc.amax(-1), min=-1e30)
+        a = torch.exp(sc - m[..., None])
+    else:
+        a = torch.softmax(sc, dim=-1)
     vf = v_cache.float()
     if v_scale is not None:
         vf = vf * v_scale.float()[..., None]
@@ -85,11 +106,14 @@ def chai_fused_decode_ref(q_rep, k_cache, v_cache, h2c, pos, *,
     h = h2c.shape[1]
     if share_values:
         out_rep = torch.einsum("brs,brsd->brd", a, vf)
+        if emit_state:
+            return m, a.sum(-1), out_rep
         return torch.gather(out_rep, 1, h2c.long()[..., None].expand(
             b, h, out_rep.shape[-1]))
     if vf.shape[1] != h:         # GQA: head h reads V of group h // qpk
         vf = vf.repeat_interleave(h // vf.shape[1], dim=1)
-    return chai_av_ref(a, vf, h2c)
+    out = chai_av_ref(a, vf, h2c)
+    return (m, a.sum(-1), out) if emit_state else out
 
 
 def gather_pages_ref(pool, bt):
@@ -104,9 +128,11 @@ def gather_pages_ref(pool, bt):
 def paged_chai_fused_decode_ref(q_rep, k_pool, bt_k, v_pool, bt_v, h2c,
                                 pos, *, k_scale_pool=None,
                                 v_scale_pool=None, reps_per_group=0,
-                                share_values=False, window=0, softcap=0.0):
+                                share_values=False, window=0, softcap=0.0,
+                                emit_state=False):
     """Plain version of ``paged_chai_fused_decode``: densify, then the
-    dense plain version. Returns (B, H, hd) fp32."""
+    dense plain version. Returns (B, H, hd) fp32, or the ``emit_state``
+    triple."""
     return chai_fused_decode_ref(
         q_rep, gather_pages_ref(k_pool, bt_k), gather_pages_ref(v_pool, bt_v),
         h2c, pos,
@@ -115,7 +141,34 @@ def paged_chai_fused_decode_ref(q_rep, k_pool, bt_k, v_pool, bt_v, h2c,
         v_scale=(None if v_scale_pool is None
                  else gather_pages_ref(v_scale_pool, bt_v)),
         reps_per_group=reps_per_group, share_values=share_values,
-        window=window, softcap=softcap)
+        window=window, softcap=softcap, emit_state=emit_state)
+
+
+def relay_prefix_decode_ref(q, k, v, k_row, a_row, v_row, plen):
+    """Plain version of ``relay_prefix_decode``: row gathers, then the
+    masked softmax state in one shot. q: (G, NR, hd); k: (G, KV, Sp, hd);
+    v: (G, VR, Sp, hd); k_row: (G, NR) query row -> K row; a_row/v_row:
+    (G, A) acc row -> query row / V row; plen: (G,), positions >= plen
+    masked (no causal mask). Returns (m (G, NR), l (G, NR), acc (G, A,
+    hd)) fp32, m clamped at >= -1e30."""
+    hd = q.shape[-1]
+    sp = k.shape[2]
+
+    def rows(x, idx):               # (G, rows, Sp, hd)[idx] per group
+        return torch.gather(x.float(), 1, idx.long()[..., None, None].expand(
+            *idx.shape, sp, hd))
+
+    sc = torch.einsum("gre,grse->grs", q.float(),
+                      rows(k, k_row)) / math.sqrt(hd)
+    idx = torch.arange(sp, device=q.device)
+    plen = plen.to(device=q.device).long()
+    sc = torch.where(idx[None, None, :] < plen[:, None, None], sc, NEG_INF)
+    m = torch.clamp(sc.amax(-1), min=-1e30)                # (G, NR)
+    p = torch.exp(sc - m[..., None])                       # (G, NR, Sp)
+    p_a = torch.gather(p, 1, a_row.long()[..., None].expand(
+        *a_row.shape, sp))                                 # (G, A, Sp)
+    return m, p.sum(-1), torch.einsum("gas,gasd->gad", p_a,
+                                      rows(v, v_row))
 
 
 def _causal_scores(q, k, offset):

@@ -2,7 +2,9 @@
 
 Cohort: whole-cohort prefill, decode, compact. Continuous: the mixed-phase
 decode step and the per-slot prefill / cluster / reset transitions, on
-the unified (``kv_layout="dense"``) and the paged layout. Plain callables
+the unified (``kv_layout="dense"``) and the paged layout; on the paged
+layout also the prefix cache's suffix prefill, snapshot restore and page
+copy, and the relay decode step. Plain callables
 (the reference wraps the same functions in ``jax.jit`` and donates the
 state; here the state tensors are updated in place).
 """
@@ -134,7 +136,8 @@ def _paged_prefix_kv(state, bt_kg_row, bt_vg_row):
 def make_paged_chunk_prefill(cfg: ModelConfig, max_seq: int):
     """Chunked prefill: forward ONE page-aligned chunk of a long prompt,
     treating every position the slot has already prefilled (earlier
-    chunks) as the cached prefix. ``prefix_len`` is the chunk's start;
+    chunks, or pages the prefix cache aliased) as the cached prefix: the
+    suffix prefill with the chunk's start as ``prefix_len``;
     ``kg_scatter``/``vg_scatter`` null every page outside the chunk's
     range, so the mini state touches only the pages this chunk fills;
     ``bt_kg_row``/``bt_vg_row`` are the slot's full page mapping.
@@ -145,8 +148,30 @@ def make_paged_chunk_prefill(cfg: ModelConfig, max_seq: int):
     at ``pos`` lands in the first page of the next chunk, which that
     chunk's whole-page scatter overwrites, and ``insert_slot_paged``
     re-anchors ``pos`` and zeroes the clustering features every chunk)."""
+    suffix_prefill = make_paged_suffix_prefill(cfg, max_seq)
+
     def chunk_prefill(params, tokens, true_len, prefix_len, state, slot,
                       kg_scatter, vg_scatter, bt_kg_row, bt_vg_row, phase):
+        logits, state = suffix_prefill(params, tokens, true_len, prefix_len,
+                                       state, slot, kg_scatter, vg_scatter,
+                                       bt_kg_row, bt_vg_row)
+        state["phase"][slot] = phase
+        return logits, state
+
+    return chunk_prefill
+
+
+def make_paged_suffix_prefill(cfg: ModelConfig, max_seq: int):
+    """Prefix-cache prefill: forward ONLY the uncached suffix of a prompt
+    whose first ``prefix_len`` tokens (whole pages) already live in shared
+    pages aliased into the slot's block tables. ``bt_kg_row``/
+    ``bt_vg_row`` are the full logical mapping (aliased prefix + fresh
+    suffix pages); ``kg_scatter``/``vg_scatter`` the same rows with the
+    aliased entries nulled, so the suffix writes only into the slot's own
+    pages (copy-on-write). The suffix attends the cached pages and itself
+    in two passes merged by online-softmax state, as a chunk does."""
+    def suffix_prefill(params, tokens, true_len, prefix_len, state, slot,
+                       kg_scatter, vg_scatter, bt_kg_row, bt_vg_row):
         mini = tfm.init_decode_state(cfg, 1, max_seq, tokens.device)
         logits, mini = tfm.forward_fullseq(
             params, cfg, tokens, state=mini, logits_slice="last",
@@ -155,10 +180,44 @@ def make_paged_chunk_prefill(cfg: ModelConfig, max_seq: int):
         state = chai_cache.insert_slot_paged(
             state, mini, slot, kg_scatter, vg_scatter, bt_kg_row=bt_kg_row,
             bt_vg_row=bt_vg_row)
-        state["phase"][slot] = phase
         return logits[:, 0], state
 
-    return chunk_prefill
+    return suffix_prefill
+
+
+def make_snapshot_restore(cfg: ModelConfig):
+    """CHAI snapshot resume: alias the snapshot's clustered K and dense V
+    pages into the slot's block tables and enter STEADY directly."""
+    def restore(state, slot, bt_kg_row, bt_vg_row, bt_kc_row, pos):
+        return chai_cache.restore_slot_snapshot(state, slot, bt_kg_row,
+                                                bt_vg_row, bt_kc_row, pos)
+
+    return restore
+
+
+def make_page_copy(cfg: ModelConfig, kind: str):
+    """Copy-on-write page copy inside one pool (``kind``: dense|chai)."""
+    def copy(state, src, dst):
+        return chai_cache.copy_pool_page(state, src, dst, kind=kind)
+
+    return copy
+
+
+def make_relay_step(cfg: ModelConfig, *, decode_ts=0):
+    """Shared-prefix relay decode step: the mixed-phase step plus a
+    ``relay`` dict of group-batched tensors (packed prefix K/V, routing
+    maps, membership) the engine builds on the host. Grouped STEADY slots
+    run ONE prefix pass per group and layer and a suffix-only fused
+    decode, merged by online-softmax state; other slots ride through
+    unchanged (their prefix state is the exact merge identity). Always
+    mixed-phase: a relay batch may hold WARMUP slots, which never
+    group."""
+    def relay_step(params, batch_inputs, state, chai_ctx, relay):
+        return tfm.decode_step(params, cfg, batch_inputs["tokens"], state,
+                               chai_ctx=chai_ctx, mixed_phase=True,
+                               decode_ts=decode_ts, relay=relay)
+
+    return relay_step
 
 
 def make_paged_slot_cluster(cfg: ModelConfig, identify_fn):

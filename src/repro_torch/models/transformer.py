@@ -365,7 +365,7 @@ def _plain_decode_attention(xn, p, cfg, state, gi, ai, write_mask=None):
 
 
 def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
-                mixed_phase=False, decode_ts=0):
+                mixed_phase=False, decode_ts=0, relay=None):
     """One decode step. tokens: (B,) int. Returns (logits (B, V) fp32,
     state) with ``pos`` advanced by one.
 
@@ -379,7 +379,11 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
     STEADY slots share the batch. Both attention paths run for every
     slot, each committing its cache writes only for its own slots
     (``state["phase"]`` STEADY -> CHAI path, else the MHA path), and the
-    output is selected per slot."""
+    output is selected per slot.
+
+    ``relay`` (the relay shared-prefix decode, paged layout): the engine's
+    dict of group-batched tensors, passed to every CHAI layer (see
+    ``repro_torch.core.chai_attention``)."""
     from repro_torch.core import chai_attention as chai_mod
     plan = layer_plan(cfg)
     h = embed_lookup(params["embed"]["tok"], tokens).to(model_dtype(cfg))
@@ -396,11 +400,12 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
                                           write_mask=~steady)
             y_c = chai_mod.chai_decode_attention(
                 xn, p, cfg, state, gi, ai, chai_ctx, write_mask=steady,
-                decode_ts=decode_ts)
+                decode_ts=decode_ts, relay=relay)
             y = torch.where(steady[:, None, None], y_c, y_m)
         elif chai_ctx is not None:
             y = chai_mod.chai_decode_attention(xn, p, cfg, state, gi, ai,
-                                               chai_ctx, decode_ts=decode_ts)
+                                               chai_ctx, decode_ts=decode_ts,
+                                               relay=relay)
         else:
             y = _plain_decode_attention(xn, p, cfg, state, gi, ai)
         h = h + torch.einsum("bhe,hed->bd", y, p["wo"])

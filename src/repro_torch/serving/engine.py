@@ -18,6 +18,20 @@ of the other slots; greedy tokens equal the monolithic prefill's. Each
 chunk's attention is the CUDA ``paged_prefix_attend`` over the pages the
 earlier chunks wrote plus the CUDA ``flash_prefill`` over the chunk.
 
+With ``EngineConfig.prefix_cache`` (paged layout) admission consults a
+radix tree over token blocks (``serving.prefix_cache``): a request whose
+prompt starts with cached whole pages aliases them (refcounted, never
+written) and prefills only its suffix (the PREFILL edge above shortened);
+a greedy request whose full prompt was served before resumes from the
+CHAI snapshot captured at that request's CLUSTER transition and enters
+STEADY directly (PREFILL -> STEADY), or, when the snapshot's warmup
+tokens cover its whole budget, is answered on the host without a slot.
+With ``relay_decode`` on top, STEADY slots admitted through the same
+cached chain form relay groups: each decode step reads the shared prefix
+once per group and layer (the CUDA ``relay_prefix_decode``) and each
+slot's fused decode only its private suffix, merged by online-softmax
+state.
+
 * ``EngineCore`` owns the device state and the page pools, and ONE
   scheduling primitive: ``step()`` runs exactly one iteration (admit
   arrived requests into free slots, after advancing every mid-prefill
@@ -48,8 +62,8 @@ Two schedulers (``EngineConfig.scheduler``):
 
 This port decodes greedily. Not ported yet, and refused with
 ``NotImplementedError``: sampling with temperature > 0, stop strings,
-``priority`` (preemption); not there yet: prefix cache, relay decode,
-fault injection and auditing, telemetry and KV tiers.
+``priority`` (preemption), ``kv_offload`` (KV tiers); not there yet:
+fault injection and auditing, telemetry.
 """
 from __future__ import annotations
 
@@ -68,6 +82,8 @@ from repro_torch.core import clustering
 from repro_torch.launch import steps as steps_mod
 from repro_torch.serving import sampling as sampling_mod
 from repro_torch.serving.cohort import CohortSchedulerMixin
+from repro_torch.serving.prefix_cache import BlockNode, ChaiSnapshot, \
+    PrefixCache
 from repro_torch.serving.sampling import SamplingParams
 
 
@@ -89,6 +105,10 @@ class Request:                         # abort() membership-test Requests
     slot: int = -1                     # continuous: slot the request ran in
     admit_step: int = -1               # continuous: engine step at admission
     retire_step: int = -1              # continuous: engine step at retire
+    # -- prefix cache --
+    cache_hit: str = ""                # "" | "prefix" | "snapshot" | "replay"
+    cached_tokens: int = 0             # prompt tokens served from cache
+    prefill_tokens: int = -1           # tokens actually forwarded (prefill)
 
     @property
     def finished(self) -> bool:
@@ -106,7 +126,8 @@ class Request:                         # abort() membership-test Requests
 @dataclasses.dataclass
 class StepOutput:
     """Per-request result of one ``EngineCore.step()``: the token ids
-    emitted for this request THIS step, and whether it just finished."""
+    emitted for this request THIS step (one decode token; several at a
+    snapshot or replay admission), and whether it just finished."""
     uid: int
     token_ids: List[int]
     finished: bool = False
@@ -139,6 +160,25 @@ class EngineConfig:
     # stream for its whole prefill. 0 = monolithic. Ignored on
     # kv_layout="dense", as in the reference.
     prefill_chunk_tokens: int = 0
+    # -- shared-prefix KV reuse (paged layout, global-attention archs) --
+    # Radix-tree prefix cache over token blocks: admission aliases the
+    # longest cached block prefix into the slot's block tables and
+    # prefills only the uncached suffix; a greedy request whose FULL
+    # prompt was served before resumes from a CHAI snapshot (membership
+    # + clustered pages) and enters STEADY directly. Cached pages are
+    # refcounted, copy-on-write, LRU-evicted under pressure.
+    prefix_cache: bool = False
+    # Host-memory KV tiers for evicted cache entries: not ported yet.
+    kv_offload: bool = False
+    # -- shared-prefix relay decode (prefix_cache + paged + CHAI) --
+    # STEADY slots admitted through the same radix chain group on their
+    # deepest shared node with >= relay_min_group members; each decode
+    # step runs ONE group-batched prefix pass per layer over a packed
+    # copy of the shared pages, while each slot's fused decode covers only
+    # its private suffix pages; the two online-softmax states merge before
+    # the finalize. Slots outside a group decode bitwise as without it.
+    relay_decode: bool = False
+    relay_min_group: int = 2           # smallest group worth a prefix pass
 
 
 class EngineCore(CohortSchedulerMixin):
@@ -191,6 +231,30 @@ class EngineCore(CohortSchedulerMixin):
             if self.chai_clustered:
                 self.chai_pool = chai_cache.PagePool(
                     ecfg.num_chai_pages or (b * p_slot + 1), ecfg.page_size)
+        # Shared-prefix KV reuse (paged layout only).
+        self.prefix_cache = None
+        if ecfg.kv_offload:
+            raise NotImplementedError(
+                "kv_offload (host-memory KV tiers) is not ported yet: "
+                "ROADMAP Queue 1, hierarchical KV tiers")
+        if ecfg.prefix_cache:
+            if not self.paged:
+                raise ValueError("prefix_cache requires the paged KV "
+                                 "layout on the continuous scheduler")
+            if any(t != ATTN_GLOBAL for t in cfg.layer_types):
+                raise ValueError(
+                    "prefix_cache supports global-attention-only archs "
+                    f"(got {cfg.name!r} with local/recurrent layers)")
+            self.prefix_cache = PrefixCache(self.dense_pool, self.chai_pool,
+                                            ecfg.page_size)
+        self.relay_decode = False
+        if ecfg.relay_decode:
+            if not (self.paged and self.chai_on and ecfg.prefix_cache):
+                raise ValueError(
+                    "relay_decode requires prefix_cache on the paged "
+                    "layout with CHAI enabled (the relay groups STEADY "
+                    "slots by their locked radix chain)")
+            self.relay_decode = True
         # Chunked prefill: page-aligned chunks, paged layout only.
         self._chunk = 0
         if ecfg.prefill_chunk_tokens and self.paged:
@@ -211,6 +275,7 @@ class EngineCore(CohortSchedulerMixin):
         self._slot_req: List[Optional[Request]] = [None] * b
         self._slot_count = [0] * b       # tokens generated this admission
         self._slot_pages: List[dict] = [{} for _ in range(b)]  # page ids
+        self._slot_locked: List[list] = [[] for _ in range(b)]  # cache pins
         # Mid-prefill cursors of chunked prefills: {"req", "tokens",
         # "cursor"} per slot, None otherwise.
         self._slot_prefill_state: List[Optional[dict]] = [None] * b
@@ -228,7 +293,12 @@ class EngineCore(CohortSchedulerMixin):
         if self.paged:
             self._slot_prefill = steps_mod.make_paged_slot_prefill(cfg, s)
             self._chunk_prefill = steps_mod.make_paged_chunk_prefill(cfg, s)
+            self._suffix_prefill = steps_mod.make_paged_suffix_prefill(cfg,
+                                                                       s)
             self._reset_slot = steps_mod.make_paged_slot_reset(cfg)
+            self._restore_snapshot = steps_mod.make_snapshot_restore(cfg)
+            self._copy_page = {kind: steps_mod.make_page_copy(cfg, kind)
+                               for kind in ("dense", "chai")}
         else:
             self._slot_prefill = steps_mod.make_slot_prefill(cfg, s)
             self._reset_slot = steps_mod.make_slot_reset(cfg)
@@ -240,6 +310,16 @@ class EngineCore(CohortSchedulerMixin):
             self._compact = steps_mod.make_compact_step(cfg)
             self._identify = lambda sc: clustering.identify_membership(sc,
                                                                        cfg)
+        # Relay decode: host caches keyed by a version of the clustering
+        # context, which moves only at CLUSTER transitions and snapshot
+        # restores, so the row maps are rebuilt only then.
+        self._ctx_version = 0
+        self._ctx_host_cache = None    # (version, {name: np.ndarray})
+        self._relay_rows_cache = None  # (key, {k_row, a_row, v_row})
+        self.relay_steps = 0           # decode steps that ran the relay
+        self.relay_grouped_slots = 0   # cumulative grouped-slot count
+        if self.relay_decode:
+            self._relay_step = steps_mod.make_relay_step(cfg, decode_ts=ts)
 
     # -- public API --------------------------------------------------------
     def default_sampling(self) -> SamplingParams:
@@ -334,22 +414,34 @@ class EngineCore(CohortSchedulerMixin):
         outs: List[StepOutput] = []
         self._ensure_dev_state()
         self._advance_prefills(outs)
-        blocked = self._admit(outs)
-        active = [i for i in range(self.ecfg.batch_slots)
-                  if self._slot_req[i] is not None
-                  and self._phases[i] != chai_cache.PHASE_PREFILL]
-        if not active:
+        drained = False
+        while True:
+            blocked = self._admit(outs)
+            active = [i for i in range(self.ecfg.batch_slots)
+                      if self._slot_req[i] is not None
+                      and self._phases[i] != chai_cache.PHASE_PREFILL]
+            if active:
+                break
             if self.has_active:
                 return outs        # only mid-prefill slots: progress made
-            if self.queue and blocked:
-                head = self.queue[0]
-                n = self._pages_for(head)
-                raise MemoryError(
-                    f"request uid={head.uid} needs {2 * n} dense and "
-                    f"{self._chai_pages_per(n)} clustered pages; pool "
-                    f"capacities {self.dense_pool.capacity} and "
-                    f"{self.chai_pool.capacity if self.chai_pool else 0}")
-            return outs
+            if not (self.queue and blocked):
+                return outs        # idle, or waiting on future arrivals
+            # The plan failed with the engine idle: drain the prefix cache
+            # and retry once; only if even an empty cache cannot cover the
+            # request is it impossible.
+            if not drained and self.prefix_cache is not None and (
+                    self.prefix_cache.num_blocks
+                    or self.prefix_cache.num_snapshots):
+                self.prefix_cache.clear()
+                drained = True
+                continue
+            head = self.queue[0]
+            n = self._pages_for(head)
+            raise MemoryError(
+                f"request uid={head.uid} needs {2 * n} dense and "
+                f"{self._chai_pages_per(n)} clustered pages; pool "
+                f"capacities {self.dense_pool.capacity} and "
+                f"{self.chai_pool.capacity if self.chai_pool else 0}")
         self._cluster_transitions(active)
         outs.extend(self._decode(active))
         return outs
@@ -404,17 +496,10 @@ class EngineCore(CohortSchedulerMixin):
     def _chai_pages_per(self, n: int) -> int:
         return n if self.chai_clustered else 0
 
-    def _try_alloc(self, req):
-        """Page-budget admission: allocate the request's dense K + V pages
-        and reserve its clustered pages, so the CLUSTER transition can
-        never stall mid-flight. Returns a page dict, or None if the pools
-        cannot cover it yet."""
-        n = self._pages_for(req)
-        chai_n = self._chai_pages_per(n)
-        if self.dense_pool.free_pages < 2 * n:
-            return None
-        if chai_n and self.chai_pool.free_pages < chai_n:
-            return None
+    def _alloc_pages(self, n: int) -> dict:
+        """Allocate a cold request's ``n`` dense K and V pages and reserve
+        its clustered pages, so the CLUSTER transition can never stall
+        mid-flight (the caller checked the pools can cover them)."""
         pages = {"kg": self.dense_pool.alloc(n),
                  "vg": self.dense_pool.alloc(n)}
         if self.chai_clustered:
@@ -432,6 +517,158 @@ class EngineCore(CohortSchedulerMixin):
         vec = np.zeros((self._slot_pages_max,), np.int32)
         vec[:len(pages)] = pages
         return torch.from_numpy(vec).to(self.device)
+
+    # -- prefix-cache admission planning (host side) -----------------------
+    def _eligible_snapshot(self, req):
+        """The CHAI snapshot of ``req``'s full prompt, if the snapshot fast
+        path applies: paged, cache on, clustered CHAI, a greedy request
+        with no tokens yet."""
+        if req.generated:
+            return None
+        if (self.prefix_cache is not None and self.chai_clustered
+                and req.sampling.greedy):
+            return self.prefix_cache.snapshot_for(req.prompt)
+        return None
+
+    def _pool_space(self, dense_need: int, chai_need: int) -> bool:
+        """True when the pools can cover the request, evicting unlocked
+        prefix-cache entries (LRU) if that is what it takes."""
+        ok = (self.dense_pool.free_pages >= dense_need
+              and (not chai_need
+                   or self.chai_pool.free_pages >= chai_need))
+        if ok or self.prefix_cache is None:
+            return ok
+        return self.prefix_cache.evict_until(dense_free=dense_need,
+                                             chai_free=chai_need)
+
+    def _plan_admission(self, req):
+        """An admission plan for the queue head, allocating and increfing
+        pool pages and locking the cache entries it aliases; None when the
+        pools cannot cover the request yet. Kinds: "cold" (no reuse),
+        "prefix" (the longest cached block prefix aliased, the suffix
+        prefilled), "snapshot" (full prompt cached with a CHAI snapshot:
+        STEADY directly). A snapshot that covers the whole budget is
+        replayed by ``_admit`` before planning."""
+        if not self.paged:
+            return {"kind": "cold", "pages": {}, "locked": []}
+        cache = self.prefix_cache
+        snap = self._eligible_snapshot(req)
+        if snap is not None:
+            return self._plan_snapshot(req, snap)
+        matched = cache.match(req.prompt) if cache is not None else []
+        if matched:
+            return self._plan_prefix(req, matched)
+        n = self._pages_for(req)
+        if not self._pool_space(2 * n, self._chai_pages_per(n)):
+            return None        # even LRU eviction cannot cover it yet
+        return {"kind": "cold", "pages": self._alloc_pages(n), "locked": []}
+
+    def _plan_prefix(self, req, matched):
+        """Alias the ``matched`` block pages; allocate fresh pages for the
+        suffix and the generation headroom (and the full clustered
+        reservation, as on the cold path)."""
+        cache = self.prefix_cache
+        n = self._pages_for(req)
+        n_m = min(len(matched), n)
+        matched = matched[:n_m]
+        chai_n = self._chai_pages_per(n)
+        cache.lock(matched)     # pin before eviction can run
+        if not self._pool_space(2 * (n - n_m), chai_n):
+            cache.unlock(matched)
+            return None
+        kg_fresh = self.dense_pool.alloc(n - n_m)
+        vg_fresh = self.dense_pool.alloc(n - n_m)
+        kg_alias = [m.kg_page for m in matched]
+        vg_alias = [m.vg_page for m in matched]
+        self.dense_pool.incref(kg_alias)
+        self.dense_pool.incref(vg_alias)
+        pages = {"kg": kg_alias + kg_fresh, "vg": vg_alias + vg_fresh}
+        if self.chai_clustered:
+            pages["kc"] = self.chai_pool.alloc(n)
+        null = [chai_cache.NULL_PAGE] * n_m
+        return {"kind": "prefix", "pages": pages, "locked": matched,
+                "prefix_len": n_m * self.ecfg.page_size,
+                "scatter_kg": null + kg_fresh,
+                "scatter_vg": null + vg_fresh}
+
+    def _plan_snapshot(self, req, snap):
+        """Resume from a CHAI snapshot: share its full pages, copy its
+        partial tail page (copy-on-write), allocate headroom for the rest
+        of the generation, and enter STEADY directly."""
+        cache = self.prefix_cache
+        n = self._pages_for(req)
+        p_full, rem = divmod(snap.pos, self.ecfg.page_size)
+        cache.lock([snap])
+        if not self._pool_space(n - p_full, n - p_full):
+            cache.unlock([snap])
+            return None
+        copies = []     # (pool kind, src physical page, dst physical page)
+        vg_fresh = self.dense_pool.alloc(n - p_full)
+        self.dense_pool.incref(snap.vg_pages[:p_full])
+        kc_fresh = self.chai_pool.alloc(n - p_full)
+        self.chai_pool.incref(snap.kc_pages[:p_full])
+        pages = {"vg": snap.vg_pages[:p_full] + vg_fresh,
+                 "kc": snap.kc_pages[:p_full] + kc_fresh}
+        if rem:
+            copies.append(("dense", snap.vg_pages[p_full], vg_fresh[0]))
+            copies.append(("chai", snap.kc_pages[p_full], kc_fresh[0]))
+        return {"kind": "snapshot", "snapshot": snap, "pages": pages,
+                "locked": [snap], "copies": copies}
+
+    def _replay_request(self, req, snap):
+        """Serve a request entirely from a CHAI snapshot's warmup tokens:
+        no slot, no pages, no device work."""
+        toks, reason = sampling_mod.scan_finish(
+            snap.tokens[:req.max_new_tokens], req.sampling,
+            req.max_new_tokens)
+        req.generated = toks
+        req.finish_reason = reason or sampling_mod.FINISH_LENGTH
+        req.cache_hit = "replay"
+        req.cached_tokens = len(req.prompt)
+        req.prefill_tokens = 0
+        req.t_first_token = time.time()
+        req.t_done = time.time()
+        req.admit_step = req.retire_step = self.steps_executed
+        self.prefix_cache.stats["snapshot_hits"] += 1
+        self.prefix_cache.stats["tokens_reused"] += len(req.prompt)
+        self._done(req)
+
+    def _capture_snapshot(self, slot, req, pages):
+        """Capture the slot's STEADY-entry state (membership, clustered K
+        pages, dense V pages, warmup tokens) keyed by its full prompt. Full
+        pages are shared (incref); the partial tail page, which the running
+        slot keeps writing, is copied. Skipped when the pools cannot spare
+        the copies."""
+        cache = self.prefix_cache
+        key = tuple(int(t) for t in req.prompt)
+        if cache.snapshot_for(key) is not None:
+            return
+        warm = self.cfg.chai.warmup_tokens
+        pos_steady = len(req.prompt) + warm
+        p_full, rem = divmod(pos_steady, self.ecfg.page_size)
+        n_copy = 1 if rem else 0
+        if not self._pool_space(n_copy, n_copy):
+            return
+        vg_pages = list(pages["vg"][:p_full])
+        kc_pages = list(pages["kc"][:p_full])
+        self.dense_pool.incref(vg_pages)
+        self.chai_pool.incref(kc_pages)
+        if rem:
+            for kind, pool, src, dst_list in (
+                    ("dense", self.dense_pool, pages["vg"][p_full],
+                     vg_pages),
+                    ("chai", self.chai_pool, pages["kc"][p_full],
+                     kc_pages)):
+                [dst] = pool.alloc(1)
+                self._dev_state = self._copy_page[kind](self._dev_state,
+                                                        src, dst)
+                dst_list.append(dst)
+        slot_ctx = {k: np.array(v[:, slot].cpu())      # a copy: the ctx
+                    for k, v in self._dev_ctx.items()}   # is updated in place
+        cache.add_snapshot(ChaiSnapshot(
+            prompt=key, pos=pos_steady,
+            tokens=list(req.generated[:warm + 1]), ctx=slot_ctx,
+            vg_pages=vg_pages, kc_pages=kc_pages))
 
     def _record_kv_bytes(self):
         bytes_now = self.kv_bytes()
@@ -474,20 +711,33 @@ class EngineCore(CohortSchedulerMixin):
     # -- step internals ----------------------------------------------------
     def _admit(self, outs: List[StepOutput]) -> bool:
         """Fill free slots from the arrived FIFO prefix while the page
-        budget covers prompt + generation headroom. Returns True when the
-        queue head had arrived but the pools could not cover it yet."""
+        budget covers prompt + generation headroom (prefix-cache hits
+        alias shared pages and need fewer). Returns True when the queue
+        head had arrived but the pools could not cover it yet."""
         now = time.time()
         while self.queue and self.queue[0].t_arrival <= now:
+            head = self.queue[0]
+            snap = self._eligible_snapshot(head)
+            if snap is not None and head.max_new_tokens <= len(snap.tokens):
+                # The snapshot covers the whole request: answer it on the
+                # host without a slot.
+                req = self.queue.popleft()
+                self._replay_request(req, snap)
+                outs.append(StepOutput(req.uid, list(req.generated), True,
+                                       req.finish_reason))
+                continue
             free_slots = [i for i in range(self.ecfg.batch_slots)
                           if self._slot_req[i] is None]
             if not free_slots:
                 break
-            pages = self._try_alloc(self.queue[0]) if self.paged else {}
-            if pages is None:         # FIFO holds until pages free up
+            plan = self._plan_admission(head)
+            if plan is None:          # FIFO holds until pages free up
                 return True
             i = free_slots[0]
             req = self.queue.popleft()
-            self._admit_to_slot(i, req, pages)
+            self._admit_to_slot(i, req, plan)
+            if req.generated and not req.t_first_token:
+                req.t_first_token = time.time()
             req.slot, req.admit_step = i, self.steps_executed
             self._slot_req[i] = req
             trunc, reason = sampling_mod.scan_finish(
@@ -502,19 +752,66 @@ class EngineCore(CohortSchedulerMixin):
                                        bool(reason), reason))
         return False
 
-    def _admit_to_slot(self, i: int, req: Request, pages: dict):
-        """Prefill ``req`` into free slot ``i`` (cold: no cached prefix)."""
-        self._slot_pages[i] = pages
+    def _admit_to_slot(self, i: int, req: Request, plan: dict):
+        """Place ``req`` into free slot ``i`` according to ``plan``."""
+        self._slot_pages[i] = plan["pages"]
+        self._slot_locked[i] = plan["locked"]
+        pages = plan["pages"]
+        if plan["kind"] == "snapshot":
+            snap = plan["snapshot"]
+            for kind, src, dst in plan["copies"]:
+                self._dev_state = self._copy_page[kind](self._dev_state,
+                                                        src, dst)
+            self._dev_state = self._restore_snapshot(
+                self._dev_state, i, self._page_vec([]),
+                self._page_vec(pages["vg"]), self._page_vec(pages["kc"]),
+                snap.pos)
+            clustering.update_ctx_slot(
+                self._dev_ctx, {k: torch.from_numpy(v).to(self.device)
+                                for k, v in snap.ctx.items()}, i)
+            self._ctx_version += 1
+            req.generated.extend(snap.tokens)
+            req.cache_hit = "snapshot"
+            req.cached_tokens = len(req.prompt)
+            req.prefill_tokens = 0
+            self._phases[i] = chai_cache.PHASE_STEADY
+            self._slot_count[i] = len(snap.tokens)
+            self.prefix_cache.stats["snapshot_hits"] += 1
+            self.prefix_cache.stats["tokens_reused"] += len(req.prompt)
+            self._next_tok[i] = snap.tokens[-1]
+            self._tok_dirty = True
+            return
         self._phases[i] = chai_cache.PHASE_PREFILL
-        if self._chunk and len(req.prompt) > self._chunk:
+        prompt, pre = req.prompt, 0
+        if plan["kind"] == "prefix":
+            pre = plan["prefix_len"]
+            req.cache_hit = "prefix"
+            req.cached_tokens = pre
+            req.prefill_tokens = len(prompt) - pre
+            self.prefix_cache.stats["partial_hits"] += 1
+            self.prefix_cache.stats["tokens_reused"] += pre
+            self.prefix_cache.stats["tokens_prefilled"] += \
+                req.prefill_tokens
+        else:
+            req.prefill_tokens = len(prompt)
+            if self.prefix_cache is not None:
+                self.prefix_cache.stats["misses"] += 1
+                self.prefix_cache.stats["tokens_prefilled"] += len(prompt)
+        if self._chunk and len(prompt) - pre > self._chunk:
             # Chunked prefill: the first chunk now; step() advances one
             # chunk per iteration until the final one enters WARMUP.
-            self._slot_prefill_state[i] = {"req": req, "tokens": req.prompt,
-                                           "cursor": 0}
+            self._slot_prefill_state[i] = {"req": req, "tokens": prompt,
+                                           "cursor": pre}
             self._advance_chunk(i)
             return
-        toks, true_len = self._padded_suffix(req.prompt, 0)
-        if self.paged:
+        toks, true_len = self._padded_suffix(prompt[pre:], pre)
+        if plan["kind"] == "prefix":
+            logits, self._dev_state = self._suffix_prefill(
+                self.params, toks, true_len, pre, self._dev_state, i,
+                self._page_vec(plan["scatter_kg"]),
+                self._page_vec(plan["scatter_vg"]),
+                self._page_vec(pages["kg"]), self._page_vec(pages["vg"]))
+        elif self.paged:
             logits, self._dev_state = self._slot_prefill(
                 self.params, toks, true_len, self._dev_state, i,
                 self._page_vec(pages["kg"]), self._page_vec(pages["vg"]))
@@ -572,7 +869,11 @@ class EngineCore(CohortSchedulerMixin):
 
     def _finish_prefill(self, i: int, req: Request, logits):
         """Prefill completed (monolithic, or a chunked prefill's final
-        chunk): enter WARMUP and take the first token."""
+        chunk): index the prompt into the prefix cache, enter WARMUP and
+        take the first token."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(req.prompt, self._slot_pages[i]["kg"],
+                                     self._slot_pages[i]["vg"])
         self._phases[i] = chai_cache.PHASE_WARMUP
         self._slot_count[i] = 1
         tok = int(self._argmax(logits)[0])
@@ -583,7 +884,8 @@ class EngineCore(CohortSchedulerMixin):
 
     def _cluster_transitions(self, active):
         """CLUSTER + compact the slots whose warmup just completed; paged:
-        the slot's dense K pages return to the pool here."""
+        the slot's dense K pages return to the pool here, after the prefix
+        cache (when on) captured the slot's CHAI snapshot."""
         if not self.chai_on:
             return
         warm = self.cfg.chai.warmup_tokens
@@ -597,12 +899,18 @@ class EngineCore(CohortSchedulerMixin):
                 self._dev_state, self._dev_ctx = self._cluster_fn()(
                     self._dev_state, self._dev_ctx, i,
                     self._page_vec(self._slot_pages[i].get("kc", [])))
+                self._ctx_version += 1
+                if (self.prefix_cache is not None and self.chai_clustered
+                        and self._slot_req[i].sampling.greedy):
+                    self._capture_snapshot(i, self._slot_req[i],
+                                           self._slot_pages[i])
                 if self.chai_clustered:
                     self.dense_pool.free(self._slot_pages[i].pop("kg"))
                 self._record_kv_bytes()
             else:
                 self._dev_state, self._dev_ctx = self._cluster_fn()(
                     self._dev_state, self._dev_ctx, i)
+                self._ctx_version += 1
             self._phases[i] = chai_cache.PHASE_STEADY
 
     def _decode(self, active) -> List[StepOutput]:
@@ -614,8 +922,9 @@ class EngineCore(CohortSchedulerMixin):
                 self.device)
             self._tok_dirty = False
         occupied = self._phases[self._phases != chai_cache.PHASE_FREE]
+        relay = self._build_relay(active) if self.relay_decode else None
         logits, self._dev_state = self._dispatch_decode(
-            {"tokens": self._next_tok_dev}, occupied)
+            {"tokens": self._next_tok_dev}, relay, occupied)
         tok_dev = self._argmax(logits)
         self._next_tok_dev = tok_dev
         toks = tok_dev.cpu().numpy()
@@ -634,10 +943,15 @@ class EngineCore(CohortSchedulerMixin):
             self._record_kv_bytes()
         return outs
 
-    def _dispatch_decode(self, inputs, occupied):
-        """All-CHAI when every occupied slot is STEADY, all-MHA when every
-        one is WARMUP (or CHAI is off), else the mixed-phase step."""
+    def _dispatch_decode(self, inputs, relay, occupied):
+        """The relay step when relay groups formed; else all-CHAI when
+        every occupied slot is STEADY, all-MHA when every one is WARMUP
+        (or CHAI is off), else the mixed-phase step."""
         state = self._dev_state
+        if relay is not None:
+            self.relay_steps += 1
+            return self._relay_step(self.params, inputs, state,
+                                    self._dev_ctx, relay)
         if not self.chai_on:
             return self._mha_step(self.params, inputs, state)
         if (occupied == chai_cache.PHASE_STEADY).all():
@@ -659,11 +973,184 @@ class EngineCore(CohortSchedulerMixin):
         self._slot_prefill_state[i] = None
         self._phases[i] = chai_cache.PHASE_FREE
         self._slot_count[i] = 0
+        if self.prefix_cache is not None:
+            self._index_retired(r, self._slot_pages[i])
         self._dev_state = self._reset_slot(self._dev_state, i)
         if self.paged:          # block tables are nulled; pages go back
             self._free_pages(self._slot_pages[i])
+            if self._slot_locked[i]:
+                self.prefix_cache.unlock(self._slot_locked[i])
+                self._slot_locked[i] = []
+
+    def _index_retired(self, req: Request, pages: dict):
+        """Retire-time radix insertion of the slot's FULL sequence (prompt
+        + generated; decode wrote K/V for every token but the last), so a
+        follow-up turn prefills only its new suffix. Only slots that still
+        hold their dense K and V pages have a complete paged record
+        (clustered CHAI slots freed dense K at compaction; their reuse
+        path is the prompt-keyed snapshot)."""
+        if "kg" not in pages or "vg" not in pages:
+            return
+        seq = list(map(int, req.prompt)) + list(req.generated[:-1])
+        self.prefix_cache.insert(seq, pages["kg"], pages["vg"])
+
+    # -- shared-prefix relay decode ----------------------------------------
+    def _ctx_host(self):
+        """numpy mirror of the clustering context, rebuilt only when the
+        ctx version moved (CLUSTER transition or snapshot restore)."""
+        if (self._ctx_host_cache is None
+                or self._ctx_host_cache[0] != self._ctx_version):
+            self._ctx_host_cache = (
+                self._ctx_version,
+                {k: np.array(v.cpu()) for k, v in self._dev_ctx.items()})
+        return self._ctx_host_cache[1]
+
+    def _resident_view(self, chain):
+        """Packed copy (nG, KV, len(chain) * page, hd) of a radix chain's
+        dense K and V pages, cached on the deepest node and keyed by the
+        chain's pages. Cached pages are never written (copy-on-write), and
+        eviction drops ``node.resident``, so the copy stays valid across
+        steps."""
+        node = chain[-1]
+        key = (tuple(n.kg_page for n in chain),
+               tuple(n.vg_page for n in chain))
+        if node.resident is None or node.resident[0] != key:
+            kvp = self._dev_state["kvp"]
+            ng, _, kv, page, hd = kvp.shape
+
+            def view(pages):
+                idx = torch.tensor(pages, dtype=torch.long,
+                                   device=kvp.device)
+                return kvp[:, idx].transpose(1, 2).reshape(
+                    ng, kv, len(pages) * page, hd)
+            node.resident = (key, {"k": view(key[0]), "v": view(key[1])})
+        return node.resident[1]
+
+    def _relay_row_maps(self, groups, nmax):
+        """Per-layer routing maps of the group-batched prefix pass (see
+        ``core.chai_attention._relay_prefix_state``), cached per (ctx
+        version, membership). Member j of a group owns query rows
+        [j*R, (j+1)*R) (its reps, read from the chain's dense K rows) and
+        acc rows [j*H, (j+1)*H) (its heads: query row j*R + h2c[h], V row
+        h). Padded member entries keep index 0: their rows compute values
+        the per-slot scatter discards."""
+        key = (self._ctx_version,
+               tuple((id(g["node"]), tuple(g["members"])) for g in groups))
+        if (self._relay_rows_cache is not None
+                and self._relay_rows_cache[0] == key):
+            return self._relay_rows_cache[1]
+        ctx = self._ctx_host()
+        reps, h2c = ctx["reps"], ctx["h2c"]     # (nA, B, R), (nA, B, H)
+        n_a, _, r = reps.shape
+        h = h2c.shape[-1]
+        n_g = len(groups)
+        k_row = np.zeros((n_a, n_g, nmax * r), np.int32)
+        a_row = np.zeros((n_a, n_g, nmax * h), np.int32)
+        v_row = np.zeros((n_a, n_g, nmax * h), np.int32)
+        for g, grp in enumerate(groups):
+            for j, slot in enumerate(grp["members"]):
+                k_row[:, g, j * r:(j + 1) * r] = reps[:, slot]
+                a_row[:, g, j * h:(j + 1) * h] = j * r + h2c[:, slot]
+                v_row[:, g, j * h:(j + 1) * h] = np.arange(h, dtype=np.int32)
+        maps = {name: torch.from_numpy(x).to(self.device)
+                for name, x in (("k_row", k_row), ("a_row", a_row),
+                                ("v_row", v_row))}
+        self._relay_rows_cache = (key, maps)
+        return maps
+
+    def _build_relay(self, active):
+        """Form shared-prefix relay groups over the STEADY slots.
+
+        Slots admitted through the radix cache keep their matched chain
+        pinned in ``_slot_locked``; each slot picks the DEEPEST chain node
+        shared by >= ``relay_min_group`` such slots, and slots that picked
+        the same node form one group. Returns the relay dict the relay
+        step consumes (None: the plain dispatch): the groups' packed
+        prefix copies stacked (zero tail to the longest), the routing
+        maps, and per-slot scatter coordinates; a slot outside a group has
+        ``in_group=False`` and ``len=0``."""
+        min_g = max(1, self.ecfg.relay_min_group)
+        chains = {}
+        for i in active:
+            if self._phases[i] != chai_cache.PHASE_STEADY:
+                continue
+            locked = self._slot_locked[i]
+            if not locked or not all(isinstance(e, BlockNode)
+                                     for e in locked):
+                continue      # snapshot pins / no radix plan
+            if any(e.evicted for e in locked):
+                continue      # the chain lost pages since admission
+            chains[i] = locked
+        if len(chains) < min_g:
+            return None
+        counts: dict = {}
+        for chain in chains.values():
+            for node in chain:
+                counts[id(node)] = counts.get(id(node), 0) + 1
+        by_node: dict = {}
+        for i, chain in sorted(chains.items()):
+            pick = None
+            for depth, node in enumerate(chain, start=1):
+                if counts[id(node)] >= min_g:
+                    pick = (node, depth)        # deepest wins
+            if pick is None:
+                continue
+            node, depth = pick
+            grp = by_node.setdefault(
+                id(node), {"node": node, "depth": depth, "members": []})
+            grp["members"].append(i)
+        groups = [g for g in by_node.values()
+                  if len(g["members"]) >= min_g]
+        if not groups:
+            return None
+        ps = self.ecfg.page_size
+        b = self.ecfg.batch_slots
+        nmax = max(len(g["members"]) for g in groups)
+        packs = [self._resident_view(chains[g["members"][0]][:g["depth"]])
+                 for g in groups]
+        sp_max = max(p["k"].shape[2] for p in packs)
+
+        def stack(name):
+            return torch.stack([torch.nn.functional.pad(
+                p[name], (0, 0, 0, sp_max - p[name].shape[2]))
+                for p in packs], dim=1)
+
+        relay = {"k": stack("k"), "v": stack("v")}
+        members = np.zeros((len(groups), nmax), np.int32)
+        plen_g = np.zeros((len(groups),), np.int32)
+        gid = np.zeros((b,), np.int32)
+        midx = np.zeros((b,), np.int32)
+        plen_b = np.zeros((b,), np.int32)
+        ing = np.zeros((b,), bool)
+        for g, grp in enumerate(groups):
+            plen_g[g] = grp["depth"] * ps
+            for j, slot in enumerate(grp["members"]):
+                members[g, j] = slot
+                gid[slot] = g
+                midx[slot] = j
+                plen_b[slot] = plen_g[g]
+                ing[slot] = True
+        relay.update(self._relay_row_maps(groups, nmax))
+        relay.update({name: torch.from_numpy(x).to(self.device)
+                      for name, x in (("plen", plen_g), ("members", members),
+                                      ("gid", gid), ("midx", midx),
+                                      ("len", plen_b), ("in_group", ing))})
+        self.relay_grouped_slots += int(ing.sum())
+        return relay
 
     # -- metrics ------------------------------------------------------------
+    def prefix_stats(self):
+        """Prefix-cache counters and current residency (empty when the
+        cache is off)."""
+        if self.prefix_cache is None:
+            return {}
+        dense_held, chai_held = self.prefix_cache.held_pages()
+        return {**self.prefix_cache.stats,
+                "blocks": self.prefix_cache.num_blocks,
+                "snapshots": self.prefix_cache.num_snapshots,
+                "dense_page_refs": dense_held,
+                "chai_page_refs": chai_held}
+
     def kv_bytes(self, *, chai: Optional[bool] = None):
         """KV-cache bytes. With explicit ``chai=``: the paper's analytic
         steady-state size (Fig 11 A/B comparisons). With no argument on

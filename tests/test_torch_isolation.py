@@ -33,7 +33,8 @@ def test_port_files_exist():
     csrc = ROOT / "src/repro_torch/kernels/csrc"
     for name in ("chai_fused_decode.cu", "paged_chai_fused_decode.cu",
                  "chai_decode_tiles.cuh", "flash_prefill.cu",
-                 "paged_prefix_attend.cu", "flash_tiles.cuh"):
+                 "paged_prefix_attend.cu", "flash_tiles.cuh",
+                 "relay_prefix_decode.cu"):
         assert (csrc / name).exists(), name
 
 

@@ -94,8 +94,10 @@ def test_tile_size_rule_matches_reference():
 
 
 @pytest.mark.parametrize("flag", [
-    dict(softcap=30.0), dict(emit_state=True), dict(share_values=True),
-    dict(k_scale="scale"), dict(v_scale="scale")])
+    pytest.param(dict(softcap=30.0), id="flag0"),
+    pytest.param(dict(share_values=True), id="flag2"),
+    pytest.param(dict(k_scale="scale"), id="flag3"),
+    pytest.param(dict(v_scale="scale"), id="flag4")])
 def test_kernel_path_refuses_unported_flags(flag):
     """A non-CPU tensor goes to the kernel, which raises on what it does
     not carry — never to the plain version."""
@@ -111,6 +113,21 @@ def test_kernel_path_refuses_unported_flags(flag):
         tops.chai_decode_attention(*args, **flag)
     with pytest.raises(ValueError, match="CUDA"):
         tops.chai_decode_attention(*args)
+    assert tck.LAUNCHES == before
+
+
+def test_kernel_path_takes_emit_state():
+    """``emit_state`` is ported: a non-CPU tensor goes to the kernel with
+    it, which checks the device (and would launch on a GPU) instead of
+    refusing the flag."""
+    meta = dict(device="meta")
+    args = (torch.empty(2, 5, 16, **meta), torch.empty(2, 5, 64, 16, **meta),
+            torch.empty(2, 8, 64, 16, **meta),
+            torch.empty(2, 8, dtype=torch.int32, **meta),
+            torch.empty(2, dtype=torch.int32, **meta))
+    before = dict(tck.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.chai_decode_attention(*args, emit_state=True)
     assert tck.LAUNCHES == before
 
 

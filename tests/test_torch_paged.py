@@ -295,8 +295,10 @@ def test_paged_op_bitwise_equals_dense_op(rng, name):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(softcap=30.0), dict(emit_state=True), dict(share_values=True),
-    dict(k_scale_pool="scale"), dict(v_scale_pool="scale")])
+    pytest.param(dict(softcap=30.0), id="flag0"),
+    pytest.param(dict(share_values=True), id="flag2"),
+    pytest.param(dict(k_scale_pool="scale"), id="flag3"),
+    pytest.param(dict(v_scale_pool="scale"), id="flag4")])
 def test_paged_kernel_path_refuses_unported_flags(flag):
     """A non-CPU tensor goes to the kernel, which raises on what it does
     not carry — never to the plain version."""
@@ -315,6 +317,23 @@ def test_paged_kernel_path_refuses_unported_flags(flag):
         tops.paged_chai_decode_attention(*args, **flag)
     with pytest.raises(ValueError, match="CUDA"):
         tops.paged_chai_decode_attention(*args)
+    assert tck.LAUNCHES == before
+
+
+def test_paged_kernel_path_takes_emit_state():
+    """``emit_state`` is ported: a non-CPU tensor goes to the paged
+    kernel with it, which checks the device instead of refusing it."""
+    meta = dict(device="meta")
+    args = (torch.empty(2, 5, 16, **meta),
+            torch.empty(9, 5, PAGE, 16, **meta),
+            torch.empty(2, 4, dtype=torch.int32, **meta),
+            torch.empty(9, 8, PAGE, 16, **meta),
+            torch.empty(2, 4, dtype=torch.int32, **meta),
+            torch.empty(2, 8, dtype=torch.int32, **meta),
+            torch.empty(2, dtype=torch.int32, **meta))
+    before = dict(tck.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.paged_chai_decode_attention(*args, emit_state=True)
     assert tck.LAUNCHES == before
 
 
@@ -357,4 +376,5 @@ def test_build_treats_a_newer_header_as_stale(monkeypatch, tmp_path):
     os.utime(lib, (400, 400))
     assert not build._stale("k")
     assert build.KERNELS == ("chai_fused_decode", "paged_chai_fused_decode",
-                             "flash_prefill", "paged_prefix_attend")
+                             "flash_prefill", "paged_prefix_attend",
+                             "relay_prefix_decode")
