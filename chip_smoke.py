@@ -47,8 +47,39 @@ result line):
    held on margins, empty pools after a clear, and the relay kernel held
    against its plain version on the layer-0 inputs of the first relay
    step;
-9. a ``kernels`` JSON line, the card's name and power limit, and, last,
-   ``{"ok": true, "device": {...}}``.
+9. the GQA path: chai-llama-7b's weights freed, full-width
+   nemotron-4-15b (bf16, random weights from a seed; 8 KV groups of 6
+   heads, r_max = 5 reps per group) through the default continuous
+   ``ServingEngine`` with phase 6's traffic, on the paged layout and
+   then the dense one: launches of the own fused kernel only, each with
+   ``reps_per_group = r_max``, identical greedy tokens on both layouts,
+   the KV bytes unchanged at every CLUSTER transition (GQA keeps its
+   dense pages until retirement), empty pools, and both fused kernels
+   held against their plain versions on the layer-0 GQA tensors of the
+   first all-STEADY step;
+10. the fused-vs-pipeline lane (the reference's
+   ``benchmarks/bench_latency.py`` lane): the three-kernel pipeline
+   (``kernels.ops.chai_three_kernel_decode`` /
+   ``paged_chai_three_kernel_decode``) and the fused kernel on the same
+   inputs, the counts set to 0 just before each call and read just
+   after: exactly 3 launches against 1, the outputs equal at 1e-4, on
+   the reference lane's shape (b=4, h=8, r=5, s=256, hd=32, ts=64; also
+   with int8 K through ``chai_qk_i8``, the fused side then its plain
+   version) and on the layer-0 inputs of the first STEADY step of phases
+   5, 6 and 9; each kernel's device time, back-to-back and single-call
+   times, and ``decode_hbm_bytes_estimate`` of both; then the six
+   pipeline kernels against their plain versions at the main path's and
+   nemotron's shapes;
+11. a ``kernels`` JSON line (eleven kernels), the card's name and power
+   limit, and, last, ``{"ok": true, "device": {...}}``.
+
+Phase 3 also holds the six pipeline kernels (``chai_qk``, ``chai_qk_i8``,
+``paged_chai_qk``, ``row_softmax``, ``chai_av``, ``paged_chai_av``) at
+the full-width shapes: fp32 and bf16, MHA and GQA, a window, a row at
+pos 2, shuffled pages with the null page 0 past pos, int8 K from the
+port's ``quant_rows``, masked scores ``torch.equal`` to -2e38 and a fully
+masked row's softmax all zeros; phase 4 also runs reduced nemotron (2 KV
+groups of 6 heads, head_dim 8) cuda against cpu.
 
 Phase 3 also holds ``relay_prefix_decode`` on synthetic groups (G = 2,
 4 and 3 members of 25 reps, plen 200 and 256, bf16 and fp32) and both
@@ -59,6 +90,7 @@ with ``prefix_cache=True, relay_decode=True``, cuda against cpu.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import statistics
@@ -96,6 +128,7 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 # bits to neighbouring bf16 values: one bf16 step (2^-7 relative).
 BF16_OUT_TOL = dict(atol=2e-5, rtol=2 ** -7)
 ARCH = "chai-llama-7b"
+NEMO = "nemotron-4-15b"        # the GQA model (8 KV groups of 6 heads)
 PROMPT_LENS = (200, 320, 450, 500)
 MAX_NEW = 32
 CONT_PROMPT_LENS = (200, 320, 450, 500, 96, 160, 384, 256)
@@ -138,6 +171,24 @@ KERNEL_ROWS = {
         route="cuda",
         source="src/repro_torch/kernels/csrc/relay_prefix_decode.cu",
         replaces="src/repro/kernels/chai_attention.py:766"),
+    "chai_qk": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/chai_qk.cu",
+        replaces="src/repro/kernels/chai_attention.py:76"),
+    "chai_qk_i8": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/chai_qk.cu",
+        replaces="src/repro/kernels/chai_attention.py:203"),
+    "row_softmax": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/row_softmax.cu",
+        replaces="src/repro/kernels/chai_attention.py:115"),
+    "chai_av": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/chai_av.cu",
+        replaces="src/repro/kernels/chai_attention.py:255"),
+    "paged_chai_qk": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/chai_qk.cu",
+        replaces="src/repro/kernels/chai_attention.py:146"),
+    "paged_chai_av": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/chai_av.cu",
+        replaces="src/repro/kernels/chai_attention.py:296"),
 }
 
 
@@ -200,23 +251,27 @@ def time_ms(fn, reps=20, warmup=3):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, kernel, reps=20):
+def device_ms(fn, kernel, reps=20, tries=3):
     """Device time per launch of the CUDA kernel named ``kernel`` over
     ``reps`` calls of ``fn``, from a ``torch.profiler`` trace of the card:
-    no host time in it, whichever side is the slower. None when the trace
-    holds no device time for that kernel."""
+    no host time in it, whichever side is the slower. A trace sometimes
+    comes back without device times; up to ``tries`` traces are taken.
+    None when none holds device time for that kernel."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     pat = re.compile(rf"\b{kernel}\b")
-    hits = [e for e in prof.key_averages() if pat.search(e.key)]
-    count = sum(e.count for e in hits)
-    total_us = sum(e.device_time_total for e in hits)
-    return total_us / count / 1e3 if count and total_us else None
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if pat.search(e.key)]
+        count = sum(e.count for e in hits)
+        total_us = sum(e.device_time_total for e in hits)
+        if count and total_us:
+            return total_us / count / 1e3
+    return None
 
 
 def single_call_ms(fn, reps=20):
@@ -760,12 +815,245 @@ def relay_kernel_checks():
     return cases
 
 
+# ------------------------------------------- phase 3: the pipeline ----
+PIPE_KERNELS = ("chai_qk", "chai_qk_i8", "paged_chai_qk", "row_softmax",
+                "chai_av", "paged_chai_av")
+# each pipeline kernel's CUDA function, as a torch.profiler trace names it
+PIPE_FUNCS = {"chai_qk": "qk_kernel", "chai_qk_i8": "qk_kernel",
+              "paged_chai_qk": "qk_kernel",
+              "row_softmax": "row_softmax_kernel", "chai_av": "av_kernel",
+              "paged_chai_av": "av_kernel"}
+
+
+def _bound(n_bytes, flops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _valid_positions(p, s, window):
+    """Positions a QK row at ``pos`` = p scores (idx <= p, and p - idx <
+    window when window > 0), within 0..s-1."""
+    lo = max(0, p - window + 1) if window else 0
+    return max(0, min(p, s - 1) - lo + 1)
+
+
+def qk_bound(q, k, pos, s, *, window=0, k_scale=None, tables=()):
+    """Least time for a QK kernel's work: every KV row's K elements (and
+    int8 scales) at the valid positions read once, whatever reps share
+    the row; q, pos and the block ``tables`` read and the (B, R, S) fp32
+    scores written once; 2 * hd fp32 flops per (rep, valid position)."""
+    b, r, hd = q.shape
+    kv = k.shape[1]
+    n_bytes = (q.numel() + pos.numel() + b * r * s
+               + sum(t.numel() for t in tables)) * 4
+    flops = 0
+    for p in pos.tolist():
+        n = _valid_positions(int(p), s, window)
+        n_bytes += kv * n * (hd * k.element_size()
+                             + (4 if k_scale is not None else 0))
+        flops += 2 * r * n * hd
+    return _bound(n_bytes, flops)
+
+
+def softmax_bound(scores):
+    """One read and one write of the (B, R, S) fp32 rows."""
+    return _bound(2 * scores.numel() * 4, 3 * scores.numel())
+
+
+def av_bound(a, v, h2c, *, tables=()):
+    """Least time for an AV kernel's work: the A rows the heads name and
+    every head's V row over all S read once (``v`` gives the element
+    size), h2c and ``tables`` read and the (B, H, hd) fp32 output written
+    once; 2 * hd fp32 flops per (head, position)."""
+    b, _, s = a.shape
+    h, hd = h2c.shape[-1], v.shape[-1]
+    h2c = h2c.expand(b, h) if h2c.ndim == 1 else h2c
+    rows = sum(len(set(r.tolist())) for r in h2c)
+    n_bytes = ((rows * s + b * h * hd + h2c.numel()
+                + sum(t.numel() for t in tables)) * 4
+               + b * h * s * hd * v.element_size())
+    return _bound(n_bytes, 2 * b * h * s * hd)
+
+
+def pipe_case(name, call, plain, bound, *, library=None, profile=False):
+    """One pipeline kernel against its plain version (2e-5; a QK kernel's
+    masked entries ``torch.equal`` to -2e38 where the plain version has
+    them, and nowhere else); returns (its record, the kernel's output).
+    ``profile``: also its single-call and profiled device times."""
+    got = call()
+    torch.cuda.synchronize()
+    want = plain()
+    err = _hold(got, want)
+    if name in ("chai_qk", "chai_qk_i8", "paged_chai_qk"):
+        masked = want == kref.NEG_INF
+        if not torch.equal(got == kref.NEG_INF, masked):
+            raise AssertionError(f"{name}: masked entries differ from the "
+                                 "plain version's")
+        n_masked = int(masked.sum())
+    rec = dict(max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain),
+               bound_ms=bound[0], bound_by=bound[1],
+               library_ms=time_ms(library) if library else None)
+    if name in ("chai_qk", "chai_qk_i8", "paged_chai_qk"):
+        rec["masked_entries"] = n_masked
+    if profile:
+        rec["single_call_ms"] = single_call_ms(call)
+        rec["device_ms"] = device_ms(call, PIPE_FUNCS[name])
+    return rec, got
+
+
+def null_past_pos(bt, pos):
+    """Block tables as the engine holds them: entries past a row's last
+    live page name the null page 0."""
+    bt = bt.clone()
+    for i, p in enumerate(pos.tolist()):
+        bt[i, max(int(p), 0) // PAGE + 1:] = 0
+    return bt
+
+
+def pipeline_stage_cases(tag, q, k, v, h2c, pos, *, rpg, window=0,
+                         pages=None, h2c_flat=None,
+                         mask_row=True, profile=False):
+    """The six pipeline kernels on one decode input, each against its
+    plain version. ``k``/``v``: dense (B, KV, S, hd) / (B, H, S, hd), and
+    with ``pages`` = (k_pool, bt_k, v_pool, bt_v) holding the same logical
+    K/V the paged kernels run on the pools too (paged QK bitwise equal to
+    dense QK); the int8 QK on K from ``quant_rows``. ``mask_row``: a
+    second softmax launch with row 1's scores masked everywhere, which
+    must give zeros. ``h2c_flat`` ((H,)): the AV kernels once more with a
+    batch-shared h2c. ``profile``: single-call and profiled device times
+    too. Returns {kernel: [records]}."""
+    out = {n: [] for n in PIPE_KERNELS}
+    s = k.shape[2]
+
+    def add(name, rec, **extra):
+        rec = dict(case=f"{tag}", q=list(q.shape), k=list(k.shape),
+                   dtype=str(k.dtype), pos=pos.tolist(), window=window,
+                   **extra, **rec)
+        out[name].append(rec)
+        log(f"{name} {rec['case']}: max_abs_err {rec['max_abs_err']:.3e} "
+            f"kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+            + (f" library {rec['library_ms']:.4f} ms"
+               if rec["library_ms"] is not None else "")
+            + (f" masked {rec['masked_entries']}" if "masked_entries" in rec
+               else ""))
+
+    kw = dict(reps_per_group=rpg, window=window)
+    rec, sc = pipe_case(
+        "chai_qk", lambda: ck.chai_qk(q, k, pos, ts=PAGE, **kw),
+        lambda: kref.chai_qk_ref(q, k, pos, **kw),
+        qk_bound(q, k, pos, s, window=window), profile=profile)
+    add("chai_qk", rec)
+    kq, ks = chai_cache.quant_rows(k)
+    rec, _ = pipe_case(
+        "chai_qk_i8", lambda: ck.chai_qk_i8(q, kq, ks, pos, ts=PAGE, **kw),
+        lambda: kref.chai_qk_i8_ref(q, kq, ks, pos, **kw),
+        qk_bound(q, kq, pos, s, window=window, k_scale=ks), profile=profile)
+    add("chai_qk_i8", rec)
+    rec, a = pipe_case(
+        "row_softmax", lambda: ck.row_softmax(sc),
+        lambda: kref.row_softmax_ref(sc), softmax_bound(sc),
+        library=lambda: torch.softmax(sc, -1), profile=profile)
+    add("row_softmax", rec)
+    if mask_row:
+        masked = sc.clone()
+        masked[1] = kref.NEG_INF
+        rec, am = pipe_case(
+            "row_softmax", lambda: ck.row_softmax(masked),
+            lambda: kref.row_softmax_ref(masked), softmax_bound(masked),
+            library=lambda: torch.softmax(masked, -1))
+        if am[1].any():
+            raise AssertionError("row_softmax: a fully masked row is not "
+                                 "zeros")
+        add("row_softmax", rec, masked_row=1)
+    for idx, label in ((h2c, "h2c_BH"), (h2c_flat, "h2c_H")):
+        if idx is None:
+            continue
+        rec, _ = pipe_case(
+            "chai_av", lambda: ck.chai_av(a, v, idx, ts=PAGE),
+            lambda: kref.chai_av_ref(a, v, idx), av_bound(a, v, idx),
+            profile=profile and label == "h2c_BH")
+        add("chai_av", rec, h2c=label)
+    if pages is None:
+        return out
+    k_pool, bt_k, v_pool, bt_v = pages
+    rec, psc = pipe_case(
+        "paged_chai_qk",
+        lambda: ck.paged_chai_qk(q, k_pool, bt_k, pos, **kw),
+        lambda: kref.paged_chai_qk_ref(q, k_pool, bt_k, pos, **kw),
+        qk_bound(q, k_pool, pos, s, window=window, tables=(bt_k,)),
+        profile=profile)
+    if not torch.equal(psc, sc):
+        raise AssertionError("paged_chai_qk differs from chai_qk on the "
+                             "same logical K")
+    add("paged_chai_qk", rec, k_pool=list(k_pool.shape),
+        bitwise_equal_dense=True)
+    for idx, label in ((h2c, "h2c_BH"), (h2c_flat, "h2c_H")):
+        if idx is None:
+            continue
+        rec, _ = pipe_case(
+            "paged_chai_av",
+            lambda: ck.paged_chai_av(a, v_pool, bt_v, idx),
+            lambda: kref.paged_chai_av_ref(a, v_pool, bt_v, idx),
+            av_bound(a, v_pool, idx, tables=(bt_v,)),
+            profile=profile and label == "h2c_BH")
+        add("paged_chai_av", rec, v_pool=list(v_pool.shape), h2c=label)
+    return out
+
+
+def pipeline_kernel_checks():
+    """The six pipeline kernels on synthetic inputs at the full-width
+    shapes (B = 4, S = 1024, hd = 128): MHA (R = k_max = 25 reps of 32
+    heads, fp32 and bf16, and with a window of 200) and GQA (8 KV groups
+    of 5 reps of 6 heads, nemotron-4-15b's r_max, bf16); int8 K from the
+    port's ``quant_rows``; row 0 at pos 2; shuffled pages with the null
+    page 0 past each row's pos; row 1's scores masked everywhere before
+    the softmax; h2c (B, H) and (H,)."""
+    gen = torch.Generator("cuda").manual_seed(6)
+    k_max = get_config(ARCH).k_max
+    cases = {n: [] for n in PIPE_KERNELS}
+    for tag, kw, window in (
+            ("mha_fp32", dict(b=4, h=32, kv=k_max, rpg=1,
+                              dtype=torch.float32, empty_rep=7), 0),
+            ("mha_bf16", dict(b=4, h=32, kv=k_max, rpg=1,
+                              dtype=torch.bfloat16, empty_rep=7), 0),
+            ("mha_bf16_window200", dict(b=4, h=32, kv=k_max, rpg=1,
+                                        dtype=torch.bfloat16, empty_rep=7),
+             200),
+            ("gqa_bf16", dict(b=4, h=48, kv=8, rpg=5, dtype=torch.bfloat16,
+                              empty_rep=None), 0)):
+        q, k, v, h2c, pos = synthetic_case(gen, s=MAX_SEQ, hd=128, **kw)
+        if kw["rpg"] > 1:      # the pipeline's AV takes per-head V rows
+            v = v.repeat_interleave(kw["h"] // kw["kv"], dim=1)
+        pos[0] = 2
+        k_pool, bt_k = to_pages(gen, k)
+        v_pool, bt_v = to_pages(gen, v)
+        pages = (k_pool, null_past_pos(bt_k, pos), v_pool,
+                 null_past_pos(bt_v, pos))
+        got = pipeline_stage_cases(tag, q, k, v, h2c, pos, rpg=kw["rpg"],
+                                   window=window, pages=pages,
+                                   h2c_flat=h2c[2] if tag == "mha_fp32"
+                                   else None)
+        for name in PIPE_KERNELS:
+            cases[name] += got[name]
+    return cases
+
+
 # ------------------------------------------------------------ phase 4 ----
-def reduced_reference_check():
+def reduced_cfg(arch=ARCH):
+    """The reduced model of phase 4: 2 layers, fp32. nemotron-4-15b at 12
+    heads of d_model 96: 2 KV groups of 6 heads, head_dim 8 (the default
+    d_model 64 would give head_dim 5; the kernels need an even one)."""
+    kw = dict(n_heads=12, d_model=96) if arch == NEMO else {}
+    return reduced(get_config(arch), n_layers=2, **kw)
+
+
+def reduced_reference_check(arch=ARCH):
     """The reduced model on the card (kernel path) against the same model
     on the CPU (plain path), teacher-forced: prefill, 5 WARMUP steps,
     membership from the CPU buffer used on both, 3 STEADY steps."""
-    cfg = reduced(get_config(ARCH), n_layers=2)
+    cfg = reduced_cfg(arch)
     b, s = 3, 64
     params_cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0),
                                  "cpu")
@@ -830,8 +1118,8 @@ def _launches():
     return {**ck.LAUNCHES, **fk.LAUNCHES}
 
 
-def _reduced_model():
-    cfg = reduced(get_config(ARCH), n_layers=2)
+def _reduced_model(arch=ARCH):
+    cfg = reduced_cfg(arch)
     params_cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0),
                                  "cpu")
     params_gpu = {g: {n: t.cuda() for n, t in grp.items()}
@@ -908,7 +1196,7 @@ def _hold_calls(gpu_calls, cpu_calls, label):
     return held, worst
 
 
-def reduced_continuous_check():
+def reduced_continuous_check(arch=ARCH):
     """The continuous engine on the reduced model: cpu (plain versions)
     against cuda (the kernels), paged and dense. The cuda runs cluster
     through the cpu run's membership (after holding their WARMUP buffers
@@ -916,7 +1204,7 @@ def reduced_continuous_check():
     logits of every live row are held at 1e-4 until the first greedy
     token that differs, which must sit on a cpu top-2 margin <= 1e-3.
     The two cuda layouts must give identical tokens."""
-    cfg, params_cpu, params_gpu = _reduced_model()
+    cfg, params_cpu, params_gpu = _reduced_model(arch)
     rng = np.random.default_rng(1)
     budgets = (12, 7, 10, 4, 9)
     prompts = [rng.integers(0, cfg.vocab_size, size=n)
@@ -943,7 +1231,7 @@ def reduced_continuous_check():
                              "gave different tokens on the card")
     held, worst = _hold_calls(gpu["paged"][1], cpu_calls,
                               "reduced continuous")
-    log(f"reduced continuous engine cuda vs cpu: {held} of "
+    log(f"reduced {cfg.name} continuous engine cuda vs cpu: {held} of "
         f"{len(cpu_calls)} argmax calls held, logits max abs diff "
         f"{worst:.3e}; tokens paged == dense on the card; cpu == cuda "
         f"tokens: {cpu_done == gpu['paged'][0]}")
@@ -1180,15 +1468,20 @@ def serve(cfg, params, use_chai):
     return eng, sorted(done, key=lambda r: r.uid), time.time() - t0, phases
 
 
-def init_full_model():
-    cfg = get_config(ARCH)
+def init_full_model(arch=ARCH):
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     params = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                              "cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for grp in params.values() for t in grp.values())
     log(f"{cfg.name}: {n_params / 1e9:.3f} B params in {cfg.dtype} "
-        f"({n_params * 2 / 1e9:.2f} GB), init {time.time() - t0:.1f} s")
+        f"({n_params * 2 / 1e9:.2f} GB), init {time.time() - t0:.1f} s, "
+        f"device memory peak during init "
+        f"{torch.cuda.max_memory_allocated():,} B, allocated after "
+        f"{torch.cuda.memory_allocated():,} B")
     return cfg, params
 
 
@@ -1255,7 +1548,7 @@ def main_path(cfg, params):
                 pos=first["pos"].tolist(), max_abs_err=err, ms=ms,
                 single_call_ms=single, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by)
-    return launches, main
+    return launches, main, first
 
 
 # ------------------------------------------------------------ phase 6 ----
@@ -1564,7 +1857,7 @@ def continuous_path(cfg, params):
                 margins=paged["margins"], membership=paged["idents"],
                 longest_step_s=max(paged["step_s"]))
     return ({"continuous_paged": paged["launches"],
-             "continuous_dense": dense["launches"]}, main, mixed, mono)
+             "continuous_dense": dense["launches"]}, main, mixed, mono, pc)
 
 
 # ------------------------------------------------------------ phase 7 ----
@@ -1883,6 +2176,269 @@ def prefix_path(cfg, params):
              "prefix_relay": relay["launches"]}, relay_main, emit_main)
 
 
+# ------------------------------------------------------------ phase 9 ----
+def _check_gqa_kv_bytes(run, label):
+    """GQA keeps every dense K/V page until retirement (the reference's
+    behaviour: no clustered pool, nothing freed at CLUSTER), so the
+    allocated KV bytes do not move at a CLUSTER transition; the pool is
+    empty at the end."""
+    eng = run["eng"]
+    hist = eng.kv_bytes_history
+    around = [(before, hist[idx]["kv_bytes"])
+              for before, idx in run["transitions"]]
+    if (len(around) != len(CONT_PROMPT_LENS)
+            or any(after != before for before, after in around)):
+        raise AssertionError(f"{label}: KV bytes around CLUSTER: {around}")
+    if eng.chai_pool is not None or eng.dense_pool.pages_in_use:
+        raise AssertionError(f"{label}: a clustered pool, or pages left in "
+                             "use")
+    log(f"{label} KV bytes at each CLUSTER transition (unchanged, GQA keeps "
+        f"its dense pages): {[b for b, _ in around]}; peak "
+        f"{eng.kv_bytes_peak():,}, capacity {eng.kv_bytes_capacity():,}, at "
+        f"the end {eng.kv_bytes():,}")
+
+
+def nemotron_path(cfg, params):
+    """Full-width nemotron-4-15b (GQA) through the default continuous
+    engine, phase 6's traffic, on the paged layout and then the dense one
+    (phase 9): launches of the own fused kernel only (n_layers per mixed
+    or all-STEADY step, each with reps_per_group = r_max), identical
+    greedy tokens, KV bytes unchanged at CLUSTER, empty pools, and both
+    fused kernels held against their plain versions on the layer-0 GQA
+    tensors of the first all-STEADY step. Returns ({path: launches},
+    {kernel: [cases]}, the dense and paged captures of that step)."""
+    _, r_max = clustering.chai_widths(cfg)
+    runs = {}
+    for layout in ("paged", "dense"):
+        label = f"{cfg.name} {layout}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = serve_continuous(cfg, params, layout)
+        run["device_peak"] = torch.cuda.max_memory_allocated()
+        calls = run["calls"]
+        _check_served(cfg, run, label)
+        own, op = (("paged_chai_fused_decode", "paged") if layout == "paged"
+                   else ("chai_fused_decode", "dense"))
+        want = {name: 0 for name in run["launches"]}
+        want[own] = cfg.n_layers * (calls["mixed_step"]
+                                    + calls["steady_step"])
+        if run["launches"] != want:
+            raise AssertionError(f"{label}: launches {run['launches']}, "
+                                 f"expected {want}")
+        for kind in ("steady", "mixed"):
+            rpg = run["capture"][op, kind]["kw"].get("reps_per_group")
+            if rpg != r_max:
+                raise AssertionError(f"{label}: reps_per_group {rpg}, "
+                                     f"expected r_max = {r_max}")
+        _log_served(run, label)
+        log(f"{label}: device memory peak {run['device_peak']:,} B")
+        if layout == "paged":
+            _check_gqa_kv_bytes(run, label)
+        else:
+            log(f"{label} (unified layout) resident KV bytes "
+                f"{run['eng'].kv_bytes():,}")
+        run.pop("eng")
+        run.pop("prefill")
+        runs[layout] = run
+        torch.cuda.empty_cache()
+    paged, dense = runs["paged"], runs["dense"]
+    if [r.generated for r in paged["done"]] != [r.generated
+                                                for r in dense["done"]]:
+        raise AssertionError(f"{cfg.name}: paged and dense layouts gave "
+                             "different greedy tokens")
+    pc = paged["capture"]["paged", "steady"]
+    dc = dense["capture"]["dense", "steady"]
+    pa = (pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
+          pc["h2c"], pc["pos"])
+    p_err, p_ms, p_plain = paged_decode_case(*pa, rpg=r_max)
+    p_bound, p_by = fused_decode_bound(pc["q"], pc["k_pool"], pc["v_pool"],
+                                       pc["h2c"], pc["pos"], r_max,
+                                       tables=(pc["bt_k"], pc["bt_v"]))
+    da = (dc["q"], dc["k"], dc["v"], dc["h2c"], dc["pos"])
+    d_err, d_ms, d_plain = fused_decode_case(*da, rpg=r_max,
+                                             ts=dc["kw"]["ts"])
+    d_bound, d_by = fused_decode_bound(*da, r_max)
+    cases = {
+        "paged_chai_fused_decode": [dict(
+            case="nemotron_paged_first_steady_layer0", q=list(pc["q"].shape),
+            k_pool=list(pc["k_pool"].shape), rpg=r_max,
+            dtype=str(pc["k_pool"].dtype), pos=pc["pos"].tolist(),
+            max_abs_err=p_err, ms=p_ms, plain_ms=p_plain, bound_ms=p_bound,
+            bound_by=p_by, bitwise_equal_dense=True)],
+        "chai_fused_decode": [dict(
+            case="nemotron_dense_first_steady_layer0", q=list(dc["q"].shape),
+            k=list(dc["k"].shape), rpg=r_max, dtype=str(dc["k"].dtype),
+            pos=dc["pos"].tolist(), max_abs_err=d_err, ms=d_ms,
+            plain_ms=d_plain, bound_ms=d_bound, bound_by=d_by)]}
+    n_tok = sum(len(r.generated) for r in paged["done"])
+    log(f"{cfg.name} layer 0, first all-STEADY step (GQA, reps_per_group "
+        f"{r_max}): paged kernel q {tuple(pc['q'].shape)} k_pool "
+        f"{tuple(pc['k_pool'].shape)} pos {pc['pos'].tolist()}: {p_ms:.4f} ms"
+        f" (max_abs_err {p_err:.3e}, bitwise = dense kernel), plain "
+        f"{p_plain:.4f} ms, bound {p_bound:.4f} ms ({p_by}); dense kernel "
+        f"{d_ms:.4f} ms (max_abs_err {d_err:.3e}), plain {d_plain:.4f} ms, "
+        f"bound {d_bound:.4f} ms ({d_by}); paged == dense tokens for all "
+        f"{n_tok}; TTFT mean paged "
+        f"{statistics.mean(r.ttft for r in paged['done']):.4f} s, dense "
+        f"{statistics.mean(r.ttft for r in dense['done']):.4f} s")
+    return ({"nemotron_paged": paged["launches"],
+             "nemotron_dense": dense["launches"]}, cases, dc, pc)
+
+
+# ----------------------------------------------------------- phase 10 ----
+def reference_lane_input(seed=0):
+    """The reference's fused-vs-pipeline lane shape
+    (``benchmarks/bench_latency.py``): b=4, h=8, r=5, s=256, hd=32, ts=64,
+    fp32, made from ``seed`` with numpy as there."""
+    rng = np.random.default_rng(seed)
+    b, h, r, s, hd, ts = 4, 8, 5, 256, 32, 64
+
+    def dev(x, dtype=np.float32):
+        return torch.from_numpy(np.asarray(x, dtype)).cuda()
+    return dict(q=dev(rng.normal(size=(b, r, hd))),
+                k=dev(rng.normal(size=(b, r, s, hd))),
+                v=dev(rng.normal(size=(b, h, s, hd))),
+                h2c=dev(rng.integers(0, r, size=(b, h)), np.int32),
+                pos=dev(rng.integers(s // 2, s, size=b), np.int32),
+                kw=dict(ts=ts))
+
+
+def lane_calls(kind, t, rpg, int8):
+    """(pipeline call, fused call, the fused kernel's name) on one lane
+    input. int8 K (the port's ``quant_rows`` of the input's K): the
+    pipeline runs ``chai_qk_i8``; the fused CUDA kernel does not take int8
+    yet, so the fused side is its plain version on the card."""
+    if kind == "paged":
+        args = (t["q"], t["k_pool"], t["bt_k"], t["v_pool"], t["bt_v"],
+                t["h2c"], t["pos"])
+        return (lambda: kops.paged_chai_three_kernel_decode(
+                    *args, reps_per_group=rpg),
+                lambda: ck.paged_chai_fused_decode(*args,
+                                                   reps_per_group=rpg),
+                "paged_chai_fused_decode")
+    ts = t["kw"]["ts"]
+    args = (t["q"], t["k"], t["v"], t["h2c"], t["pos"])
+    if not int8:
+        return (lambda: kops.chai_three_kernel_decode(
+                    *args, reps_per_group=rpg, ts=ts),
+                lambda: ck.chai_fused_decode(*args, reps_per_group=rpg,
+                                             ts=ts),
+                "chai_fused_decode")
+    kq, ks = chai_cache.quant_rows(t["k"])
+    args = (t["q"], kq, t["v"], t["h2c"], t["pos"])
+    return (lambda: kops.chai_three_kernel_decode(
+                *args, k_scale=ks, reps_per_group=rpg, ts=ts),
+            lambda: kref.chai_fused_decode_ref(*args, k_scale=ks,
+                                               reps_per_group=rpg),
+            None)
+
+
+def device_profile(fn, reps=20, tries=3):
+    """{CUDA kernel: device ms per call of ``fn``} from a
+    ``torch.profiler`` trace of ``reps`` calls (up to ``tries`` traces,
+    as in ``device_ms``; empty when none holds device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_time_total:
+                out[e.key] = (out.get(e.key, 0.0)
+                              + e.device_time_total / reps / 1e3)
+        if out:
+            break
+    return out
+
+
+def pipeline_lane(inputs):
+    """The fused-vs-pipeline lane (phase 10) on each (label, kind,
+    tensors, reps_per_group, int8) input: the pipeline driver (exactly 3
+    launches) and the fused kernel (exactly 1) on the same inputs, with
+    every count set to 0 just before each call and read just after; the
+    pipeline's output held to the fused one's at 1e-4 (two summation
+    orders, each held to the plain version at 2e-5 in phase 3); each
+    kernel's profiled device time, back-to-back and single-call times of
+    both, and ``decode_hbm_bytes_estimate`` of both. Returns (the lane's
+    launches, its records)."""
+    lane = {name: 0 for name in _launches()}
+    records = []
+    for label, kind, t, rpg, int8 in inputs:
+        pipe, fused, fused_name = lane_calls(kind, t, rpg, int8)
+        torch.cuda.synchronize()
+        _reset_launches()
+        out_p = pipe()
+        n_pipe = _launches()
+        _reset_launches()
+        out_f = fused()
+        n_fused = _launches()
+        torch.cuda.synchronize()
+        want_f = kops.decode_launch_count(fused=True) if fused_name else 0
+        if (sum(n_pipe.values()) != kops.decode_launch_count(fused=False)
+                or sum(n_fused.values()) != want_f):
+            raise AssertionError(f"lane {label}: pipeline launches {n_pipe},"
+                                 f" fused launches {n_fused}")
+        for name in lane:
+            lane[name] += n_pipe[name] + n_fused[name]
+        err = _hold(out_p, out_f, dict(atol=1e-4, rtol=1e-4))
+        b, r, hd = t["q"].shape
+        h = t["h2c"].shape[-1]
+        if kind == "paged":
+            s = t["bt_k"].shape[1] * t["k_pool"].shape[2]
+            cache = t["k_pool"].element_size()
+        else:
+            s, cache = t["k"].shape[2], (1 if int8 else t["k"].element_size())
+        prof = device_profile(pipe)
+        stages = {func: sum(ms for key, ms in prof.items()
+                            if re.search(rf"\b{func}\b", key))
+                  for func in ("qk_kernel", "row_softmax_kernel",
+                               "av_kernel")}
+        rec = dict(
+            case=label, kind=kind, q=list(t["q"].shape), rpg=rpg, int8=int8,
+            dtype=str((t["k_pool"] if kind == "paged" else t["k"]).dtype),
+            pos=t["pos"].tolist(),
+            launches_pipeline={k: v for k, v in n_pipe.items() if v},
+            launches_fused={k: v for k, v in n_fused.items() if v},
+            pipeline_vs_fused_max_abs_diff=err,
+            pipeline_ms=time_ms(pipe), fused_ms=time_ms(fused),
+            pipeline_single_call_ms=single_call_ms(pipe),
+            fused_single_call_ms=single_call_ms(fused),
+            pipeline_device_ms_by_stage=stages,
+            pipeline_device_ms_three_kernels=sum(stages.values()),
+            pipeline_device_ms_all=sum(prof.values()),
+            fused_device_ms=(device_ms(fused, f"{fused_name}_kernel")
+                             if fused_name else None),
+            hbm_bytes_estimate={
+                "pipeline": kops.decode_hbm_bytes_estimate(
+                    b, h, r, s, hd, cache_bytes=cache, fused=False),
+                "fused": kops.decode_hbm_bytes_estimate(
+                    b, h, r, s, hd, cache_bytes=cache, fused=True)})
+        records.append(rec)
+        log(f"lane {label} ({kind}, q {tuple(t['q'].shape)}, rpg {rpg}, "
+            f"int8 {int8}): launches pipeline {rec['launches_pipeline']} "
+            f"fused {rec['launches_fused']}; pipeline vs fused max abs diff "
+            f"{err:.3e}; pipeline {rec['pipeline_ms']:.4f} ms back to back, "
+            f"{rec['pipeline_single_call_ms']:.4f} single call, device "
+            f"{rec['pipeline_device_ms_three_kernels']:.4f} (by stage "
+            f"{ {k: round(v, 4) for k, v in stages.items()} }, all kernels "
+            f"{rec['pipeline_device_ms_all']:.4f}); fused "
+            f"{rec['fused_ms']:.4f} ms back to back, "
+            f"{rec['fused_single_call_ms']:.4f} single call, device "
+            f"{rec['fused_device_ms']}; HBM bytes estimate "
+            f"{rec['hbm_bytes_estimate']}")
+    return lane, records
+
+
+def densified(t):
+    """A paged capture's logical K/V views (the engine's own gather)."""
+    return (chai_cache.gather_pages(t["k_pool"], t["bt_k"]),
+            chai_cache.gather_pages(t["v_pool"], t["bt_v"]))
+
+
 def main():
     environment()
     build_kernels()
@@ -1891,28 +2447,72 @@ def main():
     emit_cases = emit_state_checks()
     relay_cases = relay_kernel_checks()
     flash_cases, prefix_cases = prefill_kernel_checks()
-    reduced_reference_check()
-    reduced_continuous_check()
+    pipe_cases = pipeline_kernel_checks()
+    for arch in (ARCH, NEMO):
+        reduced_reference_check(arch)
+        reduced_continuous_check(arch)
     reduced_chunked_check()
     reduced_prefix_relay_check()
     cfg, params = init_full_model()
-    cohort_launches, dense_main = main_path(cfg, params)
-    cont_launches, paged_main, paged_mixed, mono = continuous_path(cfg,
-                                                                   params)
+    cohort_launches, dense_main, cohort_cap = main_path(cfg, params)
+    cont_launches, paged_main, paged_mixed, mono, cont_cap = continuous_path(
+        cfg, params)
     chunked_launches, prefill_mains, path_cases = chunked_path(cfg, params,
                                                                mono)
     prefix_launches, relay_main, emit_main = prefix_path(cfg, params)
+    # The engines of phases 5-8 sit in reference cycles (their wrapped
+    # hooks); collect them so chai-llama-7b's weights are really freed.
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ncfg, nparams = init_full_model(NEMO)
+    nemo_launches, nemo_cases, nemo_dc, nemo_pc = nemotron_path(ncfg,
+                                                                nparams)
+    del nparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, r_max = clustering.chai_widths(ncfg)
+    ref_in = reference_lane_input()
+    lane_launches, _ = pipeline_lane([
+        ("reference_lane_shape", "dense", ref_in, 1, False),
+        ("reference_lane_shape_int8", "dense", ref_in, 1, True),
+        ("cohort_first_steady_layer0", "dense", cohort_cap, 1, False),
+        ("cohort_first_steady_layer0_int8", "dense", cohort_cap, 1, True),
+        ("continuous_paged_first_steady_layer0", "paged", cont_cap, 1,
+         False),
+        ("nemotron_dense_first_steady_layer0", "dense", nemo_dc, r_max,
+         False),
+        ("nemotron_paged_first_steady_layer0", "paged", nemo_pc, r_max,
+         False)])
+    # The six pipeline kernels at the continuous main path's shapes (its
+    # first all-STEADY step, layer 0) and at nemotron's.
+    k, v = densified(cont_cap)
+    pipe_mains = pipeline_stage_cases(
+        "continuous_paged_first_steady_layer0", cont_cap["q"], k, v,
+        cont_cap["h2c"], cont_cap["pos"], rpg=1, mask_row=False,
+        profile=True, pages=(cont_cap["k_pool"], cont_cap["bt_k"],
+                             cont_cap["v_pool"], cont_cap["bt_v"]))
+    k, v = densified(nemo_pc)
+    qpk = ncfg.q_per_kv
+    nemo_stage = pipeline_stage_cases(
+        "nemotron_paged_first_steady_layer0", nemo_pc["q"], k,
+        v.repeat_interleave(qpk, 1), nemo_pc["h2c"], nemo_pc["pos"],
+        rpg=r_max, mask_row=False,
+        pages=(nemo_pc["k_pool"], nemo_pc["bt_k"],
+               nemo_pc["v_pool"].repeat_interleave(qpk, 1), nemo_pc["bt_v"]))
     by_path = {"cohort": cohort_launches, **cont_launches,
                "continuous_paged_chunked": chunked_launches,
-               **prefix_launches}
+               **prefix_launches, **nemo_launches,
+               "pipeline_lane": lane_launches}
     mains = {"chai_fused_decode": (
                  dense_main, "cohort",
                  dense_cases + emit_cases["chai_fused_decode"]
-                 + [dense_main]),
+                 + [dense_main] + nemo_cases["chai_fused_decode"]),
              "paged_chai_fused_decode": (
                  paged_main, "continuous_paged",
                  paged_cases + emit_cases["paged_chai_fused_decode"]
-                 + [paged_mixed, emit_main, paged_main]),
+                 + [paged_mixed, emit_main, paged_main]
+                 + nemo_cases["paged_chai_fused_decode"]),
              "relay_prefix_decode": (relay_main, "prefix_relay",
                                      relay_cases + [relay_main]),
              "flash_prefill": (prefill_mains["flash_prefill"],
@@ -1922,6 +2522,10 @@ def main():
                  prefill_mains["paged_prefix_attend"],
                  "continuous_paged_chunked",
                  prefix_cases + path_cases["paged_prefix_attend"])}
+    for name in PIPE_KERNELS:
+        mains[name] = (pipe_mains[name][0], "pipeline_lane",
+                       pipe_cases[name] + pipe_mains[name]
+                       + nemo_stage[name])
     rows = []
     for name, info in KERNEL_ROWS.items():
         main_case, path, cases = mains[name]
@@ -1937,6 +2541,8 @@ def main():
             library_ms=main_case.get("library_ms"),
             single_call_ms=main_case["single_call_ms"],
             device_ms=main_case["device_ms"], cases=cases))
+        if not rows[-1]["launches"]:
+            raise AssertionError(f"{name}: no launch on its path {path}")
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -218,3 +218,4 @@ def get_config(name: str) -> ModelConfig:
 
 def _ensure_loaded():
     from repro_torch.configs import chai_llama_7b  # noqa: F401
+    from repro_torch.configs import nemotron_4_15b  # noqa: F401

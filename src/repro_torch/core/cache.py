@@ -57,6 +57,20 @@ PHASE_STEADY = 4
 NULL_PAGE = 0   # reserved per-pool sink; never allocated, never read valid
 
 
+def quant_rows(x):
+    """Symmetric int8 over the last axis, the reference's rule bit for
+    bit. x: (..., hd) -> (int8 same shape, fp32 scale (...)). Feeds the
+    int8 QK kernel (``chai_qk_i8``); int8 KV serving is not ported."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequant_rows(q, scale):
+    return q.float() * scale[..., None]
+
+
 def _check(cfg: ModelConfig):
     if cfg.kv_cache_dtype:
         raise NotImplementedError("int8 KV cache is not ported yet")

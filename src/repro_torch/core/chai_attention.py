@@ -20,9 +20,17 @@ online-softmax state; ONE group-batched pass per layer
 every member; the two states merge and are normalized per slot. A slot
 outside any group gets the empty prefix state, the exact merge identity.
 
-Ported: the MHA branch, dense and paged, with the mixed-phase
-``write_mask`` and the relay decode, without int8 or ``share_values``.
-GQA and local layers raise ``NotImplementedError``.
+GQA (``_chai_gqa_decode``): representatives are chosen within each KV
+group (``r_max`` per group, ctx ``cluster_of``/``reps``), the K/V caches
+stay per group (dense ``kg``/``vg``, or the dense pool ``kvp`` read
+through ``bt_kg``/``bt_vg``: GQA has no clustered pool), and the same
+fused kernels run with ``reps_per_group = r_max``; the saving is compute
+only.
+
+Ported: the MHA and GQA branches, dense and paged, with the mixed-phase
+``write_mask``, and the relay decode for MHA, without int8 or
+``share_values``. GQA relay decode and local layers raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,7 +40,8 @@ from repro_torch.kernels import chai_attention as ck
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope
-from repro_torch.models.transformer import (_masked_rows, _paged_write_rows,
+from repro_torch.models.transformer import (_masked_rows, _paged_global_write,
+                                            _paged_write_rows,
                                             paged_token_coords,
                                             write_positions)
 
@@ -57,13 +66,15 @@ def chai_decode_attention(xn, p, cfg, state, gi, ai, chai_ctx, *,
     mixed-phase step runs this path alongside the MHA path). ``relay``:
     the relay decode's group-batched tensors (paged layout; see
     ``_relay_prefix_state``)."""
-    if not cfg.is_mha:
-        raise NotImplementedError("CHAI decode (and relay decode) for GQA "
-                                  "models is not ported yet: ROADMAP "
-                                  "Queue 1 #5")
     if cfg.chai.share_values or cfg.kv_cache_dtype:
         raise NotImplementedError("share_values / int8 CHAI decode is not "
                                   "ported yet: ROADMAP Queue 1 #3 / #2")
+    if not cfg.is_mha:
+        if relay is not None:
+            raise NotImplementedError("relay decode for GQA models is not "
+                                      "ported yet: ROADMAP Queue 1 #17")
+        return _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx,
+                                write_mask, decode_ts=decode_ts)
     return _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask,
                             decode_ts=decode_ts, relay=relay)
 
@@ -177,5 +188,49 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
                                     vc[ar, :, pl, :])
     out = kops.chai_decode_attention(
         q_rep, kc, vc, gather_idx, pos,
+        ts=ck.fused_tile_size(decode_ts, kc.shape[2]))
+    return out.to(xn.dtype)
+
+
+def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
+                     *, decode_ts=0):
+    """GQA clustered decode with per-request membership: each KV group's
+    representative queries (``reps`` (B, KV, r)), flattened to rep rows
+    g * r + j, attend the group's own K; head h of group g reads rep row
+    g * r + cluster_of[b, g, h % qpk] and its group's V. The token's K/V
+    rows are written per group (dense rectangles, or the dense pool's
+    pages). One fused launch with ``reps_per_group = r``."""
+    b = xn.shape[0]
+    hd, h, n_kv, qpk = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.q_per_kv
+    pos = state["pos"]
+    reps, cluster_of = chai_ctx["reps"][ai], chai_ctx["cluster_of"][ai]
+    r = reps.shape[-1]
+    q = torch.einsum("bd,dhe->bhe", xn, p["wq"]).reshape(b, n_kv, qpk, hd)
+    q_rep = torch.gather(q, 2, reps.long()[..., None].expand(b, n_kv, r, hd))
+    q_flat = _rope1(q_rep.reshape(b, n_kv * r, hd), pos, cfg.rope_theta)
+    h2c_flat = (torch.arange(n_kv, dtype=torch.int32,
+                             device=xn.device)[None, :, None] * r
+                + cluster_of).reshape(b, h)
+
+    # K/V: the per-group projections, unchanged (no K saving for GQA).
+    k_new = _rope1(torch.einsum("bd,dke->bke", xn, p["wk"]), pos,
+                   cfg.rope_theta)
+    v_new = torch.einsum("bd,dke->bke", xn, p["wv"])
+    if "kvp" in state:
+        # Paged: K and V pages of one dense pool, read in place.
+        pool = _paged_global_write(state, gi, k_new, v_new, pos, write_mask)
+        out = kops.paged_chai_decode_attention(
+            q_flat, pool, state["bt_kg"], pool, state["bt_vg"], h2c_flat,
+            pos, reps_per_group=r)
+        return out.to(xn.dtype)
+    kc, vc = state["kg"][gi], state["vg"][gi]       # (B, KV, S, hd)
+    ar = torch.arange(b, device=xn.device)
+    pl = write_positions(pos, kc.shape[2])
+    kc[ar, :, pl, :] = _masked_rows(write_mask, k_new.to(kc.dtype),
+                                    kc[ar, :, pl, :])
+    vc[ar, :, pl, :] = _masked_rows(write_mask, v_new.to(vc.dtype),
+                                    vc[ar, :, pl, :])
+    out = kops.chai_decode_attention(
+        q_flat, kc, vc, h2c_flat, pos, reps_per_group=r,
         ts=ck.fused_tile_size(decode_ts, kc.shape[2]))
     return out.to(xn.dtype)

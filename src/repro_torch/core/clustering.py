@@ -3,12 +3,21 @@
 After ``warmup_tokens`` MHA decode steps, per-head attention-score
 features are standardized (so squared distance is 2·(1 − Pearson r)) and
 clustered with K-Means to decide which heads share a representative.
-Membership is per request: ``h2c (nA, B, H)`` and ``reps (nA, B, k_max)``.
-The continuous engine identifies one slot at a time
-(``identify_membership_slot``) and scatters the result into its batched
-buffer (``init_batched_ctx`` / ``update_ctx_slot``). Only the MHA branch
-is ported; GQA's block-diagonal clustering comes with the model-level GQA
-slice.
+Two modes, as in the reference:
+
+* MHA (n_kv == n_heads): global clustering across all H heads, ctx
+  ``h2c (nA, B, H)`` and ``reps (nA, B, k_max)``; enables the clustered
+  K cache.
+* GQA: block-diagonal clustering within each KV group (a
+  representative's scores are valid only for the heads that share its
+  K): ``r_max`` clusters per group over the group's ``q_per_kv`` heads,
+  ctx ``cluster_of (nA, B, KV, qpk)`` (cluster within the group) and
+  ``reps (nA, B, KV, r_max)`` (head within the group). The K cache stays
+  per group: the saving is compute only.
+
+Membership is per request. The continuous engine identifies one slot at
+a time (``identify_membership_slot``) and scatters the result into its
+batched buffer (``init_batched_ctx`` / ``update_ctx_slot``).
 """
 from __future__ import annotations
 
@@ -46,22 +55,28 @@ def chai_widths(cfg: ModelConfig):
 def identify_membership(scores, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """scores: (nA, B, H, F) accumulated warmup attention scores.
 
-    Returns {"h2c": (nA, B, H) int32, "reps": (nA, B, k_max) int32}, all
-    (layer, request) problems solved in one batched K-Means."""
+    Returns a batched ctx, all (layer, request[, group]) problems solved
+    in one batched K-Means:
+      MHA: {"h2c": (nA, B, H) int32, "reps": (nA, B, k_max) int32}
+      GQA: {"cluster_of": (nA, B, KV, qpk) int32,
+            "reps": (nA, B, KV, r_max) int32}"""
+    k_max, r_max = chai_widths(cfg)
     if not cfg.is_mha:
-        raise NotImplementedError(
-            "GQA membership (block-diagonal clustering) is not ported yet")
-    k_max, _ = chai_widths(cfg)
+        na, b, h, f = scores.shape
+        scores = scores.reshape(na, b, cfg.n_kv_heads, cfg.q_per_kv, f)
+    k = k_max if cfg.is_mha else r_max
     f = standardize(scores)
-    assign, centers, _ = kmeans(f, k_max, cfg.chai.kmeans_iters)
-    reps, _ = representatives(f, assign, centers, k_max)
-    return {"h2c": assign.to(torch.int32), "reps": reps}
+    assign, centers, _ = kmeans(f, k, cfg.chai.kmeans_iters)
+    reps, _ = representatives(f, assign, centers, k)
+    return {("h2c" if cfg.is_mha else "cluster_of"): assign.to(torch.int32),
+            "reps": reps}
 
 
 def identify_membership_slot(scores, cfg: ModelConfig, identify_fn=None):
     """Membership for ONE request. scores: (nA, H, F).
 
-    Returns a batch-free ctx (h2c (nA, H), reps (nA, k)).
+    Returns a batch-free ctx (MHA: h2c (nA, H), reps (nA, k); GQA:
+    cluster_of (nA, KV, qpk), reps (nA, KV, r)).
     ``identify_fn``: the batched identification hook (scores with a batch
     dim -> batched ctx), ``identify_membership`` by default; the engine
     passes its own so that a replaced hook applies."""
@@ -71,19 +86,22 @@ def identify_membership_slot(scores, cfg: ModelConfig, identify_fn=None):
 
 
 def init_batched_ctx(cfg: ModelConfig, batch: int, device):
-    """All-zero per-request membership buffers, h2c (nA, B, H) and reps
-    (nA, B, k_max). Zeros are valid indices (every head in cluster 0,
+    """All-zero per-request membership buffers (MHA: h2c (nA, B, H), reps
+    (nA, B, k_max); GQA: cluster_of (nA, B, KV, qpk), reps (nA, B, KV,
+    r_max)). Zeros are valid indices (every head in cluster 0,
     representative head 0), so a slot that is not STEADY yet can run
     through the clustered path harmlessly; its row is overwritten by
     ``update_ctx_slot`` before its first STEADY decode."""
-    if not cfg.is_mha:
-        raise NotImplementedError(
-            "GQA membership (block-diagonal clustering) is not ported yet")
-    k_max, _ = chai_widths(cfg)
-    na = cfg.n_attn_layers
-    return {k: torch.zeros((na, batch, width), dtype=torch.int32,
-                           device=device)
-            for k, width in (("h2c", cfg.n_heads), ("reps", k_max))}
+    k_max, r_max = chai_widths(cfg)
+    lead = (cfg.n_attn_layers, batch)
+    if cfg.is_mha:
+        shapes = {"h2c": lead + (cfg.n_heads,), "reps": lead + (k_max,)}
+    else:
+        kv = (cfg.n_kv_heads,)
+        shapes = {"cluster_of": lead + kv + (cfg.q_per_kv,),
+                  "reps": lead + kv + (r_max,)}
+    return {k: torch.zeros(shape, dtype=torch.int32, device=device)
+            for k, shape in shapes.items()}
 
 
 def update_ctx_slot(ctx, slot_ctx, slot):

@@ -1,7 +1,9 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exports a plain ``extern "C"`` launcher and is
-compiled on first use with
+Each ``csrc/<name>.cu`` exports a plain ``extern "C"`` launcher
+``<kernel>_launch`` for each kernel it holds (``SOURCE_OF`` names the
+kernels that share a source with others: the pipeline's QK and AV
+bodies) and is compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/kernels/lib<name>.so csrc/<name>.cu
@@ -22,7 +24,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("chai_fused_decode", "paged_chai_fused_decode", "flash_prefill",
-           "paged_prefix_attend", "relay_prefix_decode")
+           "paged_prefix_attend", "relay_prefix_decode", "chai_qk",
+           "row_softmax", "chai_av")
+# Kernels whose launcher lives in another kernel's source.
+SOURCE_OF = {"chai_qk_i8": "chai_qk", "paged_chai_qk": "chai_qk",
+             "paged_chai_av": "chai_av"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -77,7 +83,9 @@ def build_all(names=KERNELS, extra_flags=()):
 
 
 def load(name) -> ctypes.CDLL:
-    """The kernel's shared library, built first if missing or stale."""
+    """The shared library that holds kernel ``name``'s launcher, built
+    first if missing or stale."""
+    name = SOURCE_OF.get(name, name)
     lib = _LIBS.get(name)
     if lib is None:
         if _stale(name):

@@ -23,6 +23,15 @@ of the Pallas ``relay_prefix_decode``): one pass per relay group over a
 packed shared prefix, the member slots' rep queries stacked on one row
 axis and routed by three int32 maps; it emits the same kind of state.
 
+The three-kernel pipeline (the reference's retired decode, kept as the
+fused kernels' baseline): ``chai_qk``, ``chai_qk_i8`` and
+``paged_chai_qk`` launch ``csrc/chai_qk.cu`` (raw masked rep scores
+(B, R, S) fp32, exactly NEG_INF where masked); ``row_softmax`` launches
+``csrc/row_softmax.cu``; ``chai_av`` and ``paged_chai_av`` launch
+``csrc/chai_av.cu`` (head h reads A row h2c[b, h] and its own V rows,
+summed over every position). ``kernels.ops.chai_three_kernel_decode``
+and ``paged_chai_three_kernel_decode`` drive them.
+
 ``LAUNCHES`` counts each kernel's launches, one per successful launch,
 so a run can show that its main path went through the kernel.
 """
@@ -33,7 +42,9 @@ import ctypes
 import torch
 
 LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0,
-            "relay_prefix_decode": 0}
+            "relay_prefix_decode": 0, "chai_qk": 0, "chai_qk_i8": 0,
+            "row_softmax": 0, "chai_av": 0, "paged_chai_qk": 0,
+            "paged_chai_av": 0}
 
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
@@ -280,3 +291,227 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
                            f"{err}")
     LAUNCHES["relay_prefix_decode"] += 1
     return m, l, acc
+
+
+# ---------------------------------------------------------------------------
+# The three-kernel pipeline: QK -> row softmax -> AV
+# ---------------------------------------------------------------------------
+
+def _tile_check(name, ts, s):
+    """The Pallas wrappers' tile assertion: ``ts`` (capped at S) must
+    divide S. The CUDA kernels do not tile by it."""
+    ts = min(ts, s)
+    if ts <= 0 or s % ts:
+        raise ValueError(f"{name}: S={s} is not a multiple of ts={ts}")
+
+
+def _check_rows(name, x, hd):
+    """Even head dim and two-element alignment (the paired loads)."""
+    if hd % 2:
+        raise ValueError(f"{name}: head_dim {hd} must be even (paired "
+                         "loads)")
+    if x.data_ptr() % (2 * x.element_size()):
+        raise ValueError(f"{name}: K/V must be aligned to two elements")
+
+
+def _qk_inputs(name, q_rep, k, pos, reps_per_group, dtypes, s):
+    """Checks shared by the QK wrappers; returns (b, R, hd, q fp32, pos
+    int32, the (B, R, S) fp32 output)."""
+    if q_rep.device.type != "cuda" or k.device != q_rep.device:
+        raise ValueError(f"{name} launches a CUDA kernel; got q on "
+                         f"{q_rep.device} and K on {k.device}")
+    if k.dtype not in dtypes:
+        raise TypeError(f"{name}: K must be {dtypes}; got {k.dtype}")
+    b, r_total, hd = q_rep.shape
+    if k.shape[1] * reps_per_group != r_total or k.shape[3] != hd:
+        raise ValueError(f"{name}: q {tuple(q_rep.shape)} against K "
+                         f"{tuple(k.shape)} with reps_per_group="
+                         f"{reps_per_group}")
+    _check_rows(name, k, hd)
+    dev = q_rep.device
+    return (b, r_total, hd, q_rep.float().contiguous(), _small(pos, dev),
+            torch.empty((b, r_total, s), dtype=torch.float32, device=dev))
+
+
+def _launched(name, err):
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def chai_qk(q_rep, k_cache, pos, *, reps_per_group=1, window=0, ts=512):
+    """Raw masked clustered scores over a dense cache, on the GPU.
+
+    q_rep: (B, R, hd) (any float dtype; read as fp32); k_cache: (B, KV,
+    S, hd) fp32 or bf16 with KV * reps_per_group == R (rep j reads K row
+    j // reps_per_group); pos: (B,). Returns (B, R, S) fp32:
+    dot(q, k) * (1 / sqrt(hd)), exactly NEG_INF (-2e38) where s > pos or
+    (window > 0 and pos - s >= window). ``ts`` must divide S, as in the
+    Pallas wrapper. ONE launch."""
+    k = k_cache.contiguous()
+    s = k.shape[2]
+    _tile_check("chai_qk", ts, s)
+    b, r_total, hd, q, pos_i, out = _qk_inputs(
+        "chai_qk", q_rep, k, pos, reps_per_group, tuple(_KV_DTYPES), s)
+    if k.shape[0] != b:
+        raise ValueError(f"chai_qk: K batch {k.shape[0]} != {b}")
+    fn = _launcher("chai_qk", 4, 8)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), pos_i.data_ptr(),
+                 out.data_ptr(), b, r_total, k.shape[1], s, hd,
+                 reps_per_group, int(window), _KV_DTYPES[k.dtype], stream)
+    _launched("chai_qk", err)
+    return out
+
+
+def chai_qk_i8(q_rep, k_cache_i8, k_scale, pos, *, reps_per_group=1,
+               window=0, ts=512):
+    """``chai_qk`` over an int8 cache (B, KV, S, hd), read one byte per
+    element, with fp32 per-row scales k_scale (B, KV, S) applied after the
+    dot: dot(k_i8, q) * k_scale[row] * (1 / sqrt(hd)), the Pallas
+    kernel's order. Returns (B, R, S) fp32. ONE launch."""
+    k = k_cache_i8.contiguous()
+    s = k.shape[2]
+    _tile_check("chai_qk_i8", ts, s)
+    b, r_total, hd, q, pos_i, out = _qk_inputs(
+        "chai_qk_i8", q_rep, k, pos, reps_per_group, (torch.int8,), s)
+    if k.shape[0] != b or k_scale.shape != k.shape[:3]:
+        raise ValueError(f"chai_qk_i8: K {tuple(k.shape)}, k_scale "
+                         f"{tuple(k_scale.shape)}, batch {b}")
+    if k_scale.dtype != torch.float32 or k_scale.device != k.device:
+        raise TypeError(f"chai_qk_i8: k_scale must be fp32 on {k.device}; "
+                        f"got {k_scale.dtype} on {k_scale.device}")
+    ks = k_scale.contiguous()
+    fn = _launcher("chai_qk_i8", 5, 7)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), ks.data_ptr(), pos_i.data_ptr(),
+                 out.data_ptr(), b, r_total, k.shape[1], s, hd,
+                 reps_per_group, int(window), stream)
+    _launched("chai_qk_i8", err)
+    return out
+
+
+def paged_chai_qk(q_rep, k_pool, bt, pos, *, reps_per_group=1, window=0):
+    """``chai_qk`` over a K page pool (nP, KV, page, hd), fp32 or bf16,
+    read in place through the block table bt (B, P): position s of row b
+    is row s % page of page bt[b, s // page]. Returns (B, R, P * page)
+    fp32. ONE launch."""
+    if not k_pool.is_contiguous():
+        raise ValueError("paged_chai_qk: k_pool must be contiguous (pools "
+                         "are read in place, never copied)")
+    n_pages, page = bt.shape[1], k_pool.shape[2]
+    b, r_total, hd, q, pos_i, out = _qk_inputs(
+        "paged_chai_qk", q_rep, k_pool, pos, reps_per_group,
+        tuple(_KV_DTYPES), n_pages * page)
+    if bt.shape != (b, n_pages):
+        raise ValueError(f"paged_chai_qk: bt {tuple(bt.shape)} for batch {b}")
+    bt_i = _small(bt, q.device)
+    fn = _launcher("paged_chai_qk", 5, 9)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pool.data_ptr(), bt_i.data_ptr(),
+                 pos_i.data_ptr(), out.data_ptr(), b, r_total,
+                 k_pool.shape[1], n_pages, page, hd, reps_per_group,
+                 int(window), _KV_DTYPES[k_pool.dtype], stream)
+    _launched("paged_chai_qk", err)
+    return out
+
+
+def row_softmax(scores):
+    """Masked softmax of each (b, rep) row of raw scores (B, R, S) fp32,
+    on the GPU: p = exp(x - max(max(x), -1e30)), p / max(sum(p), 1e-37);
+    a row masked everywhere gives zeros. Returns (B, R, S) fp32. ONE
+    launch."""
+    if scores.device.type != "cuda":
+        raise ValueError(f"row_softmax launches a CUDA kernel; got tensors "
+                         f"on {scores.device}")
+    if scores.dtype != torch.float32 or scores.ndim != 3:
+        raise TypeError(f"row_softmax: scores must be (B, R, S) fp32; got "
+                        f"{tuple(scores.shape)} {scores.dtype}")
+    x = scores.contiguous()
+    b, r, s = x.shape
+    out = torch.empty_like(x)
+    fn = _launcher("row_softmax", 2, 2)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), b * r, s, stream)
+    _launched("row_softmax", err)
+    return out
+
+
+def _av_inputs(name, a, v, h2c, h):
+    """Checks shared by the AV wrappers; returns (b, R, a fp32, h2c as a
+    (B, H) int32 tensor, the (B, H, hd) output)."""
+    if a.device.type != "cuda" or v.device != a.device:
+        raise ValueError(f"{name} launches a CUDA kernel; got A on "
+                         f"{a.device} and V on {v.device}")
+    if a.dtype != torch.float32 or a.ndim != 3:
+        raise TypeError(f"{name}: A must be (B, R, S) fp32; got "
+                        f"{tuple(a.shape)} {a.dtype}")
+    if v.dtype not in _KV_DTYPES:
+        raise TypeError(f"{name}: V must be fp32 or bf16; got {v.dtype}")
+    b, r_total = a.shape[:2]
+    if h2c.ndim == 1:
+        h2c = h2c.expand(b, h2c.shape[0])
+    if h2c.shape != (b, h):
+        raise ValueError(f"{name}: h2c {tuple(h2c.shape)} for (B, H) = "
+                         f"({b}, {h})")
+    hd = v.shape[3]
+    _check_rows(name, v, hd)
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=a.device)
+    return b, r_total, a.contiguous(), _small(h2c, a.device), out
+
+
+def chai_av(a, v_cache, h2c, *, ts=512):
+    """Broadcast-and-accumulate over a dense V cache, on the GPU.
+
+    a: (B, R, S) fp32 normalized clustered scores; v_cache: (B, H, S, hd)
+    fp32 or bf16, one V row per head; h2c: (B, H) or (H,), head -> A row.
+    Returns (B, H, hd) fp32: out[b, h] = sum over every s of
+    a[b, h2c[b, h], s] * v[b, h, s] (no pos cut: A is zero past pos
+    because the softmax made it so). ``ts`` must divide S, as in the
+    Pallas wrapper. ONE launch."""
+    v = v_cache.contiguous()
+    b_v, h, s, hd = v.shape
+    _tile_check("chai_av", ts, s)
+    b, r_total, af, h2c_i, out = _av_inputs("chai_av", a, v, h2c, h)
+    if b_v != b or af.shape[2] != s:
+        raise ValueError(f"chai_av: A {tuple(a.shape)} against V "
+                         f"{tuple(v.shape)}")
+    fn = _launcher("chai_av", 4, 6)
+    with torch.cuda.device(af.device):
+        stream = torch.cuda.current_stream(af.device).cuda_stream
+        err = fn(af.data_ptr(), v.data_ptr(), h2c_i.data_ptr(),
+                 out.data_ptr(), b, r_total, h, s, hd, _KV_DTYPES[v.dtype],
+                 stream)
+    _launched("chai_av", err)
+    return out
+
+
+def paged_chai_av(a, v_pool, bt_v, h2c):
+    """``chai_av`` over a V page pool (nP, H, page, hd), fp32 or bf16,
+    read in place through bt_v (B, P): head h's position s is row s %
+    page of page bt_v[b, s // page]. a: (B, R, P * page). Returns (B, H,
+    hd) fp32. ONE launch."""
+    if not v_pool.is_contiguous():
+        raise ValueError("paged_chai_av: v_pool must be contiguous (pools "
+                         "are read in place, never copied)")
+    h, page = v_pool.shape[1], v_pool.shape[2]
+    n_pages = bt_v.shape[1]
+    if a.shape[2] != n_pages * page or bt_v.shape != (a.shape[0], n_pages):
+        raise ValueError(f"paged_chai_av: A {tuple(a.shape)} against "
+                         f"{n_pages} pages of {page} (bt_v "
+                         f"{tuple(bt_v.shape)})")
+    b, r_total, af, h2c_i, out = _av_inputs("paged_chai_av", a, v_pool, h2c,
+                                            h)
+    bt_i = _small(bt_v, af.device)
+    fn = _launcher("paged_chai_av", 5, 7)
+    with torch.cuda.device(af.device):
+        stream = torch.cuda.current_stream(af.device).cuda_stream
+        err = fn(af.data_ptr(), v_pool.data_ptr(), bt_i.data_ptr(),
+                 h2c_i.data_ptr(), out.data_ptr(), b, r_total, h, n_pages,
+                 page, v_pool.shape[3], _KV_DTYPES[v_pool.dtype], stream)
+    _launched("paged_chai_av", err)
+    return out

@@ -7,10 +7,16 @@ combines with ``relay_prefix_attention``'s group-batched pass over a
 shared prefix and ``finalize_decode_state`` normalizes (torch ops);
 ``flash_prefill_attention`` and ``paged_prefix_attention`` are the two
 passes of the chunked prefill, whose states ``merge_prefill_states`` and
-``finalize_prefill_state`` combine (torch ops). A tensor on the CPU takes
-the plain version (``kernels.ref``); any other device goes to the CUDA
-kernel, which launches or raises. There is no fallback from a kernel to
-its plain version.
+``finalize_prefill_state`` combine (torch ops).
+``chai_three_kernel_decode`` and ``paged_chai_three_kernel_decode`` drive
+the reference's retired three-kernel decode (QK -> row softmax -> AV,
+the (B, R, S) scores in device memory between launches), kept as the
+fused kernels' baseline; ``decode_flop_estimate``,
+``decode_launch_count`` and ``decode_hbm_bytes_estimate`` are the
+analytic side of that comparison. A tensor on the CPU takes the plain
+version (``kernels.ref``); any other device goes to the CUDA kernel,
+which launches or raises. There is no fallback from a kernel to its
+plain version.
 """
 from __future__ import annotations
 
@@ -153,3 +159,119 @@ def finalize_prefill_state(state, dtype=torch.float32):
     _, l, acc = state
     out = acc / torch.clamp(l, min=1e-37)[..., None]
     return out.transpose(1, 2).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# The three-kernel pipeline (the fused decode's baseline)
+# ---------------------------------------------------------------------------
+
+def _gather_head_rows(x, h2c):
+    """x: (B, R, hd) per-rep rows -> (B, H, hd) through h2c (B, H)."""
+    return torch.gather(x, 1, h2c.long()[..., None].expand(
+        *h2c.shape, x.shape[-1]))
+
+
+def chai_three_kernel_decode(q_rep, k_cache, v_cache, h2c, pos, *,
+                             k_scale=None, v_scale=None, reps_per_group=1,
+                             share_values=False, window=0, ts=512):
+    """The pre-fusion decode: QK kernel -> row softmax kernel -> AV
+    kernel, with the (B, R, S) fp32 scores in device memory between the
+    launches (3 launches, ``decode_launch_count(fused=False)``). Same
+    arguments and result as ``chai_decode_attention``'s finalized mode:
+    (B, H, hd) fp32.
+
+    ``k_scale`` (int8 K): the QK stage is ``chai_qk_i8``. ``v_scale``:
+    int8 V is dequantized outside the kernels (no int8 AV kernel exists).
+    ``share_values``: AV per rep row (identity h2c), then a gather of the
+    member heads. GQA (V rows a divisor of H): the per-group V is
+    expanded to per-head rows by a copy before AV."""
+    cpu = q_rep.device.type == "cpu"
+    kw = dict(reps_per_group=reps_per_group, window=window)
+    if k_scale is not None:
+        sc = (ref.chai_qk_i8_ref(q_rep, k_cache, k_scale, pos, **kw) if cpu
+              else ck.chai_qk_i8(q_rep, k_cache, k_scale, pos, ts=ts, **kw))
+    else:
+        sc = (ref.chai_qk_ref(q_rep, k_cache, pos, **kw) if cpu
+              else ck.chai_qk(q_rep, k_cache, pos, ts=ts, **kw))
+    a = ref.row_softmax_ref(sc) if cpu else ck.row_softmax(sc)
+
+    def av(v, idx):
+        return (ref.chai_av_ref(a, v, idx) if cpu
+                else ck.chai_av(a, v, idx, ts=ts))
+
+    vf = v_cache
+    if v_scale is not None:
+        vf = v_cache.float() * v_scale.float()[..., None]
+    if h2c.ndim == 1:
+        h2c = h2c.expand(q_rep.shape[0], h2c.shape[0])
+    h = h2c.shape[1]
+    if share_values:
+        r = a.shape[1]
+        return _gather_head_rows(
+            av(vf, torch.arange(r, dtype=torch.int32, device=a.device)), h2c)
+    if vf.shape[1] != h:
+        vf = vf.repeat_interleave(h // vf.shape[1], dim=1)
+    return av(vf, h2c)
+
+
+def paged_chai_three_kernel_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c,
+                                   pos, *, reps_per_group=1,
+                                   share_values=False, window=0):
+    """The three-kernel decode over block-table page pools:
+    ``paged_chai_qk`` -> ``row_softmax`` -> ``paged_chai_av`` (3
+    launches). Returns (B, H, hd) fp32. ``share_values``: AV per rep row,
+    then a gather. GQA (V pool rows a divisor of H): the V pool is
+    expanded to per-head rows before AV, which COPIES the whole layer's
+    pool (the reference does the same)."""
+    cpu = q_rep.device.type == "cpu"
+    kw = dict(reps_per_group=reps_per_group, window=window)
+    sc = (ref.paged_chai_qk_ref(q_rep, k_pool, bt_k, pos, **kw) if cpu
+          else ck.paged_chai_qk(q_rep, k_pool, bt_k, pos, **kw))
+    a = ref.row_softmax_ref(sc) if cpu else ck.row_softmax(sc)
+
+    def av(v, idx):
+        return (ref.paged_chai_av_ref(a, v, bt_v, idx) if cpu
+                else ck.paged_chai_av(a, v, bt_v, idx))
+
+    if h2c.ndim == 1:
+        h2c = h2c.expand(q_rep.shape[0], h2c.shape[0])
+    if share_values:
+        r = a.shape[1]
+        return _gather_head_rows(
+            av(v_pool, torch.arange(r, dtype=torch.int32, device=a.device)),
+            h2c)
+    h = h2c.shape[1]
+    if v_pool.shape[1] != h:
+        v_pool = v_pool.repeat_interleave(h // v_pool.shape[1], dim=1)
+    return av(v_pool, h2c)
+
+
+def decode_flop_estimate(b, h, r, s, hd, *, share_values=False, window=0):
+    """Analytic decode-attention FLOPs: clustered scores + AV.
+    ``share_values``: AV over R rows, not H; ``window``: at most
+    ``window`` positions."""
+    s_eff = min(s, window) if window else s
+    av_rows = r if share_values else h
+    return 2.0 * b * r * s_eff * hd + 2.0 * b * av_rows * s_eff * hd
+
+
+def decode_launch_count(fused=True):
+    """Kernel launches per CHAI decode call: the fused path is one; the
+    pipeline QK -> row softmax -> AV is three."""
+    return 1 if fused else 3
+
+
+def decode_hbm_bytes_estimate(b, h, r, s, hd, *, cache_bytes=4,
+                              share_values=False, window=0, fused=True):
+    """Analytic device-memory bytes of one CHAI decode-attention call (the
+    reference's estimator). Both paths stream the K rows of R reps and
+    the V rows of H heads (R under ``share_values``) plus the q/out
+    vectors; the pipeline also writes the (B, R, S) fp32 scores, reads and
+    writes them in the softmax, and reads an A row per head in AV."""
+    s_eff = min(s, window) if window else s
+    v_rows = r if share_values else h
+    total = b * (r + v_rows) * s_eff * hd * cache_bytes + b * (r + h) * hd * 4
+    if not fused:
+        total += b * r * s_eff * 4 * 3        # scores: write, read, write
+        total += b * h * s_eff * 4            # AV reads A row per head
+    return float(total)

@@ -10,6 +10,14 @@ Both take ``emit_state`` (the unnormalized (m, l, acc) triple the relay
 decode merges), and ``relay_prefix_decode_ref`` is the relay kernel's:
 the group-batched pass over a packed shared prefix.
 
+The three-kernel pipeline's plain versions, each the Pallas kernel's
+function exactly: ``chai_qk_ref`` / ``paged_chai_qk_ref`` (raw scores
+dot(q, k) * (1 / sqrt(hd)), exactly NEG_INF where masked),
+``chai_qk_i8_ref`` (the scale applied after the dot, in the kernel's
+order), ``row_softmax_ref`` (max clamped >= -1e30, sum >= 1e-37),
+``chai_av_ref`` / ``paged_chai_av_ref`` (A row h2c[b, h] times V row h,
+summed over every position).
+
 The prefill kernels' plain versions: ``flash_prefill_ref`` (finalized
 causal attention, the reference's whole-row softmax oracle) and
 ``flash_prefill_state_ref`` (its ``emit_state`` form), and
@@ -72,6 +80,62 @@ def chai_av_ref(a, v_cache, h2c):
     a_full = torch.gather(a, 1, h2c.long()[..., None].expand(
         b, h, a.shape[-1]))                                  # (B, H, S)
     return torch.einsum("bhs,bhsd->bhd", a_full.float(), v_cache.float())
+
+
+def chai_qk_ref(q_rep, k_cache, pos, *, reps_per_group=1, window=0,
+                k_scale=None):
+    """Plain version of ``chai_qk`` (and, with ``k_scale``, of
+    ``chai_qk_i8``). q_rep: (B, R, hd); k_cache: (B, KV, S, hd), rep j
+    reading K row j // reps_per_group; pos: (B,). Returns (B, R, S) fp32:
+    dot(q, k) [* k_scale[row]] * (1 / sqrt(hd)), NEG_INF where s > pos or
+    (window > 0 and pos - s >= window)."""
+    hd, s = q_rep.shape[-1], k_cache.shape[2]
+    rows = torch.arange(q_rep.shape[1], device=k_cache.device) // max(
+        reps_per_group, 1)
+    sc = torch.einsum("bre,brse->brs", q_rep.float(),
+                      k_cache[:, rows].float())
+    if k_scale is not None:
+        sc = sc * k_scale[:, rows].float()
+    sc = sc * (1.0 / math.sqrt(hd))
+    idx = torch.arange(s, device=k_cache.device)
+    p = pos.to(k_cache.device).long()[:, None]
+    valid = idx[None, :] <= p
+    if window:
+        valid &= (p - idx[None, :]) < window
+    return torch.where(valid[:, None, :], sc, NEG_INF)
+
+
+def chai_qk_i8_ref(q_rep, k_cache_i8, k_scale, pos, *, reps_per_group=1,
+                   window=0):
+    """Plain version of ``chai_qk_i8``: the int8 codes' dot, then the row
+    scale, then 1 / sqrt(hd) (not the dequantize-first order of
+    ``chai_fused_decode_ref``)."""
+    return chai_qk_ref(q_rep, k_cache_i8, pos, reps_per_group=reps_per_group,
+                       window=window, k_scale=k_scale)
+
+
+def row_softmax_ref(scores):
+    """Plain version of ``row_softmax``: p = exp(x - max(max(x), -1e30))
+    over each row of (B, R, S), p / max(sum(p), 1e-37); a row masked
+    everywhere gives zeros."""
+    x = scores.float()
+    m = torch.clamp(x.amax(-1, keepdim=True), min=-1e30)
+    p = torch.exp(x - m)
+    return p / torch.clamp(p.sum(-1, keepdim=True), min=1e-37)
+
+
+def paged_chai_qk_ref(q_rep, k_pool, bt, pos, *, reps_per_group=1,
+                      window=0):
+    """Plain version of ``paged_chai_qk``: densify the pool through the
+    block table, then ``chai_qk_ref``. Returns (B, R, P * page)."""
+    return chai_qk_ref(q_rep, gather_pages_ref(k_pool, bt), pos,
+                       reps_per_group=reps_per_group, window=window)
+
+
+def paged_chai_av_ref(a, v_pool, bt_v, h2c):
+    """Plain version of ``paged_chai_av``: densify the V pool through
+    ``bt_v``, then ``chai_av_ref``. a: (B, R, P * page)."""
+    return chai_av_ref(a, gather_pages_ref(v_pool, bt_v), h2c)
 
 
 def chai_fused_decode_ref(q_rep, k_cache, v_cache, h2c, pos, *,

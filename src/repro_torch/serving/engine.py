@@ -60,6 +60,11 @@ Two schedulers (``EngineConfig.scheduler``):
 
 * ``"cohort"``: the lockstep path (``serving.cohort``).
 
+GQA models (``nemotron-4-15b``) run every path above except the prefix
+cache and relay decode: membership is per KV group, the K cache stays
+per group (no clustered pool; no pages are freed at CLUSTER) and both
+fused kernels run with ``reps_per_group = r_max``.
+
 This port decodes greedily. Not ported yet, and refused with
 ``NotImplementedError``: sampling with temperature > 0, stop strings,
 ``priority`` (preemption), ``kv_offload`` (KV tiers); not there yet:
@@ -237,6 +242,13 @@ class EngineCore(CohortSchedulerMixin):
             raise NotImplementedError(
                 "kv_offload (host-memory KV tiers) is not ported yet: "
                 "ROADMAP Queue 1, hierarchical KV tiers")
+        if not cfg.is_mha:
+            for flag, what in ((ecfg.relay_decode, "relay_decode"),
+                               (ecfg.prefix_cache, "prefix_cache")):
+                if flag:
+                    raise NotImplementedError(
+                        f"{what} on a GQA model ({cfg.name}) is not ported "
+                        "yet: ROADMAP Queue 1 #17")
         if ecfg.prefix_cache:
             if not self.paged:
                 raise ValueError("prefix_cache requires the paged KV "

@@ -69,10 +69,22 @@ def test_identify_membership_exact(rng, arch_kw):
 
 
 def test_identify_membership_gqa_not_ported():
+    """GQA membership (block-diagonal K-Means within each KV group) is
+    ported now, so this no longer raises: on a GQA variant of the reduced
+    config (4 KV groups of 2 heads) the port returns the reference's GQA
+    ctx exactly from the same buffer (``tests/test_torch_gqa.py`` holds it
+    on nemotron-4-15b)."""
+    jcfg = jreduced(jget_config("chai-llama-7b"), n_layers=1).replace(
+        n_kv_heads=4)
     cfg = reduced(get_config("chai-llama-7b"), n_layers=1).replace(
         n_kv_heads=4)
-    with pytest.raises(NotImplementedError):
-        tclust.identify_membership(torch.zeros(1, 1, 8, 16), cfg)
+    sc = _scores(np.random.default_rng(0), (1, 2, 8, 64))
+    want = jax.jit(lambda s: jclust.identify_membership(s, jcfg))(
+        jnp.asarray(sc))
+    got = tclust.identify_membership(torch.from_numpy(sc), cfg)
+    assert set(got) == set(want) == {"cluster_of", "reps"}
+    for key in got:
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
 
 
 @pytest.mark.parametrize("batched", [True, False])

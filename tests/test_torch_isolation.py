@@ -30,11 +30,13 @@ def test_port_files_exist():
     assert "chip_smoke.py" in names
     for mod in ("chai_attention", "flash_attention"):
         assert f"src/repro_torch/kernels/{mod}.py" in names
+    assert "src/repro_torch/configs/nemotron_4_15b.py" in names
     csrc = ROOT / "src/repro_torch/kernels/csrc"
     for name in ("chai_fused_decode.cu", "paged_chai_fused_decode.cu",
                  "chai_decode_tiles.cuh", "flash_prefill.cu",
                  "paged_prefix_attend.cu", "flash_tiles.cuh",
-                 "relay_prefix_decode.cu"):
+                 "relay_prefix_decode.cu", "chai_qk.cu", "row_softmax.cu",
+                 "chai_av.cu"):
         assert (csrc / name).exists(), name
 
 
@@ -49,6 +51,10 @@ def test_every_kernel_source_is_built():
         src = (csrc / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch(' in src, name
         assert "cudaGetLastError()" in src, name
+    for name, source in build.SOURCE_OF.items():
+        assert source in build.KERNELS, name
+        src = (csrc / f"{source}.cu").read_text()
+        assert f'extern "C" int {name}_launch(' in src, name
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -377,4 +377,5 @@ def test_build_treats_a_newer_header_as_stale(monkeypatch, tmp_path):
     assert not build._stale("k")
     assert build.KERNELS == ("chai_fused_decode", "paged_chai_fused_decode",
                              "flash_prefill", "paged_prefix_attend",
-                             "relay_prefix_decode")
+                             "relay_prefix_decode", "chai_qk", "row_softmax",
+                             "chai_av")

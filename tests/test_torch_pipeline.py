@@ -1,0 +1,359 @@
+"""The port's three-kernel CHAI decode pipeline against the JAX package's,
+on the CPU.
+
+Stage level: each plain version (``kernels/ref.py``) against its Pallas
+kernel in interpret mode, on the same numpy inputs: raw scores of
+``chai_qk_ref`` / ``chai_qk_i8_ref`` / ``paged_chai_qk_ref`` at atol =
+rtol = 1e-5 with the masked entries exactly ``NEG_INF`` (-2e38) in both,
+``row_softmax_ref`` (a fully masked row gives zeros), ``chai_av_ref`` /
+``paged_chai_av_ref`` (h2c (B, H) and (H,)) at 2e-5; MHA, GQA, window,
+int8 and paged (shuffled pages, null page 0 in the tables past pos).
+
+Driver level: ``ops.chai_three_kernel_decode`` and
+``ops.paged_chai_three_kernel_decode`` against the reference's
+``ref.chai_three_kernel_decode`` / ``paged_chai_three_kernel_decode``
+(k_scale, v_scale, share_values, GQA, window) at 2e-5; the lane's three
+estimators equal to the reference's; ``quant_rows`` / ``dequant_rows``
+bit-equal to the reference's; the CUDA wrappers refuse CPU tensors and
+the Pallas wrappers' shape assertions.
+"""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from repro.core import cache as jcache
+from repro.kernels import chai_attention as jck
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import cache as tcache
+from repro_torch.kernels import chai_attention as tck
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+SCORE_TOL = dict(atol=1e-5, rtol=1e-5)
+TOL = dict(atol=2e-5, rtol=2e-5)
+NEG_INF = -2.0e38
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _j(a):
+    return jnp.asarray(np.array(a))
+
+
+def _normal(rng, shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _hold_scores(got, want):
+    """Raw scores: masked entries exactly NEG_INF in both, the rest at
+    1e-5."""
+    got, want = got.numpy(), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == np.float32
+    masked = want == np.float32(NEG_INF)
+    assert np.array_equal(got == np.float32(NEG_INF), masked)
+    np.testing.assert_allclose(got[~masked], want[~masked], **SCORE_TOL)
+    return masked
+
+
+def _tables(rng, b, n_pages, n_pool, pos, page):
+    """Shuffled distinct pages per row; entries past a row's last live
+    page point at the null page 0."""
+    perm = rng.permutation(np.arange(1, n_pool))[:b * n_pages]
+    bt = perm.reshape(b, n_pages).astype(np.int32)
+    for i in range(b):
+        bt[i, pos[i] // page + 1:] = 0
+    return bt
+
+
+def _gqa_h2c(rng, b, kv, rpg, qpk):
+    cluster_of = rng.integers(0, rpg, size=(b, kv, qpk))
+    return (np.arange(kv)[None, :, None] * rpg
+            + cluster_of).reshape(b, kv * qpk).astype(np.int32)
+
+
+# ------------------------------------------------------------ QK ---------
+@pytest.mark.parametrize("b,kv,rpg,s,hd,ts,window", [
+    (2, 4, 1, 32, 16, 8, 0),       # MHA clustered cache (KV == R)
+    (2, 2, 3, 64, 16, 16, 0),      # GQA: rep j reads K row j // 3
+    (3, 3, 1, 64, 8, 16, 24),      # window
+])
+def test_chai_qk_ref_matches_pallas(rng, b, kv, rpg, s, hd, ts, window):
+    q = _normal(rng, (b, kv * rpg, hd))
+    k = _normal(rng, (b, kv, s, hd))
+    pos = rng.integers(1, s, size=b).astype(np.int32)
+    pos[0] = 0                                      # one live position
+    want = jck.chai_qk(_j(q), _j(k), _j(pos), reps_per_group=rpg,
+                       window=window, ts=ts, interpret=True)
+    got = tref.chai_qk_ref(_t(q), _t(k), _t(pos), reps_per_group=rpg,
+                           window=window)
+    masked = _hold_scores(got, want)
+    assert masked[0, :, 1:].all() and not masked[0, :, 0].any()
+
+
+def test_chai_qk_ref_bf16_cache(rng):
+    b, r, s, hd = 2, 3, 32, 16
+    q = _normal(rng, (b, r, hd))
+    k = _j(_normal(rng, (b, r, s, hd))).astype(jnp.bfloat16)
+    pos = np.array([31, 9], np.int32)
+    want = jck.chai_qk(_j(q), k, _j(pos), ts=8, interpret=True)
+    k_t = torch.from_numpy(np.array(k).view(np.uint16)).view(
+        torch.bfloat16)
+    _hold_scores(tref.chai_qk_ref(_t(q), k_t, _t(pos)), want)
+
+
+@pytest.mark.parametrize("b,kv,rpg,s,hd,ts,window", [
+    (2, 4, 1, 32, 16, 8, 0),
+    (1, 2, 3, 64, 32, 16, 0),
+    (2, 2, 2, 64, 16, 32, 20),
+])
+def test_chai_qk_i8_ref_matches_pallas(rng, b, kv, rpg, s, hd, ts, window):
+    """int8 codes from the port's ``quant_rows``; the scale applied after
+    the dot, in the kernel's order."""
+    q = _normal(rng, (b, kv * rpg, hd))
+    kq, ks = tcache.quant_rows(_t(_normal(rng, (b, kv, s, hd))))
+    pos = rng.integers(1, s, size=b).astype(np.int32)
+    want = jck.chai_qk_i8(_j(q), _j(kq.numpy()), _j(ks.numpy()), _j(pos),
+                          reps_per_group=rpg, window=window, ts=ts,
+                          interpret=True)
+    got = tref.chai_qk_i8_ref(_t(q), kq, ks, _t(pos), reps_per_group=rpg,
+                              window=window)
+    _hold_scores(got, want)
+
+
+@pytest.mark.parametrize("b,kv,rpg,n_pages,page,hd", [
+    (2, 3, 1, 4, 8, 16),           # MHA clustered pool
+    (2, 2, 3, 4, 16, 8),           # GQA groups
+])
+def test_paged_chai_qk_ref_matches_pallas(rng, b, kv, rpg, n_pages, page,
+                                          hd):
+    n_pool = b * n_pages + 3
+    k_pool = _normal(rng, (n_pool, kv, page, hd))
+    pos = rng.integers(1, n_pages * page, size=b).astype(np.int32)
+    pos[0] = page + 2                             # later pages null
+    bt = _tables(rng, b, n_pages, n_pool, pos, page)
+    q = _normal(rng, (b, kv * rpg, hd))
+    want = jck.paged_chai_qk(_j(q), _j(k_pool), _j(bt), _j(pos),
+                             reps_per_group=rpg, interpret=True)
+    got = tref.paged_chai_qk_ref(_t(q), _t(k_pool), _t(bt), _t(pos),
+                                 reps_per_group=rpg)
+    _hold_scores(got, want)
+
+
+# -------------------------------------------------------- softmax --------
+def test_row_softmax_ref_matches_pallas_with_masked_row(rng):
+    """Scores from the Pallas QK kernel with one row whose pos is -1 (no
+    live position): its softmax is all zeros, not NaN."""
+    b, r, s, hd = 3, 4, 64, 16
+    q = _normal(rng, (b, r, hd))
+    k = _normal(rng, (b, r, s, hd)) * 3
+    pos = np.array([-1, 17, 63], np.int32)
+    sc = jck.chai_qk(_j(q), _j(k), _j(pos), ts=16, interpret=True)
+    want = jck.row_softmax(sc, interpret=True)
+    got = tref.row_softmax_ref(_t(sc))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert torch.equal(got[0], torch.zeros(r, s))
+    assert np.all(np.asarray(want)[0] == 0)
+    torch.testing.assert_close(got[1:].sum(-1), torch.ones(b - 1, r))
+
+
+# ------------------------------------------------------------- AV --------
+@pytest.mark.parametrize("shared_h2c", [False, True],
+                         ids=["h2c_BH", "h2c_H"])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_chai_av_ref_matches_pallas(rng, shared_h2c, dtype):
+    b, h, r, s, hd, ts = 2, 8, 3, 32, 16, 8
+    a = rng.random((b, r, s)).astype(np.float32)
+    vj = _j(_normal(rng, (b, h, s, hd)))
+    if dtype == "bfloat16":
+        vj = vj.astype(jnp.bfloat16)
+        vt = torch.from_numpy(np.array(vj).view(np.uint16)).view(
+            torch.bfloat16)
+    else:
+        vt = _t(vj)
+    h2c = rng.integers(0, r, size=(h,) if shared_h2c else (b, h))
+    h2c = h2c.astype(np.int32)
+    want = jck.chai_av(_j(a), vj, _j(h2c), ts=ts, interpret=True)
+    got = tref.chai_av_ref(_t(a), vt, _t(h2c))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("shared_h2c", [False, True],
+                         ids=["h2c_BH", "h2c_H"])
+def test_paged_chai_av_ref_matches_pallas(rng, shared_h2c):
+    """The AV sums over every position: A is given nonzero past pos too,
+    so a pos cut in either version would show."""
+    b, h, r, n_pages, page, hd = 2, 8, 3, 4, 8, 16
+    n_pool = b * n_pages + 1
+    a = rng.random((b, r, n_pages * page)).astype(np.float32)
+    v_pool = _normal(rng, (n_pool, h, page, hd))
+    bt_v = _tables(rng, b, n_pages, n_pool, [n_pages * page] * b, page)
+    h2c = rng.integers(0, r, size=(h,) if shared_h2c else (b, h))
+    h2c = h2c.astype(np.int32)
+    want = jck.paged_chai_av(_j(a), _j(v_pool), _j(bt_v), _j(h2c),
+                             interpret=True)
+    got = tref.paged_chai_av_ref(_t(a), _t(v_pool), _t(bt_v), _t(h2c))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# --------------------------------------------------------- drivers -------
+def _dense_case(rng, *, mode, int8, b=2, s=64, hd=16):
+    """One decode problem per mode (MHA, MHA + share_values, GQA), the
+    reference's ``_fused_case`` shapes; int8 K (and V unless
+    share_values) from the port's ``quant_rows``."""
+    if mode == "gqa":
+        kv, rpg, qpk = 2, 3, 4
+        h = kv * qpk
+        h2c = _gqa_h2c(rng, b, kv, rpg, qpk)
+        v_rows = kv
+    else:
+        kv, rpg, h = 3, 1, 8
+        h2c = rng.integers(0, kv, size=(b, h)).astype(np.int32)
+        v_rows = kv if mode == "mha_share" else h
+    q = _normal(rng, (b, kv * rpg, hd))
+    k = _normal(rng, (b, kv, s, hd))
+    v = _normal(rng, (b, v_rows, s, hd))
+    pos = rng.integers(1, s, size=b).astype(np.int32)
+    pos[0] = s - 1
+    kw = dict(reps_per_group=rpg, share_values=mode == "mha_share")
+    scales = {}
+    if int8:
+        kq, ks = tcache.quant_rows(_t(k))
+        k, scales["k_scale"] = kq.numpy(), ks.numpy()
+        if mode != "mha_share":
+            vq, vs = tcache.quant_rows(_t(v))
+            v, scales["v_scale"] = vq.numpy(), vs.numpy()
+    return (q, k, v, h2c, pos), kw, scales
+
+
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("mode", ["mha", "mha_share", "gqa"])
+def test_three_kernel_decode_matches_reference(rng, mode, int8, window):
+    args, kw, scales = _dense_case(rng, mode=mode, int8=int8)
+    want = jref.chai_three_kernel_decode(
+        *map(_j, args), ts=16, window=window,
+        **{k: _j(v) for k, v in scales.items()}, **kw)
+    got = tops.chai_three_kernel_decode(
+        *map(_t, args), ts=16, window=window,
+        **{k: _t(v) for k, v in scales.items()}, **kw)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["mha", "mha_share", "gqa"])
+def test_paged_three_kernel_decode_matches_reference(rng, mode):
+    b, n_pages, page, hd = 2, 4, 16, 16
+    if mode == "gqa":
+        kv, rpg, qpk = 2, 3, 4
+        h = kv * qpk
+        h2c = _gqa_h2c(rng, b, kv, rpg, qpk)
+        v_rows = kv
+    else:
+        kv, rpg, h = 3, 1, 8
+        h2c = rng.integers(0, kv, size=(b, h)).astype(np.int32)
+        v_rows = kv if mode == "mha_share" else h
+    n_pool = b * n_pages + 2
+    pos = rng.integers(1, n_pages * page, size=b).astype(np.int32)
+    pos[0] = n_pages * page - 1
+    args = (_normal(rng, (b, kv * rpg, hd)),
+            _normal(rng, (n_pool, kv, page, hd)),
+            _tables(rng, b, n_pages, n_pool, pos, page),
+            _normal(rng, (n_pool, v_rows, page, hd)),
+            _tables(rng, b, n_pages, n_pool, [n_pages * page] * b, page),
+            h2c, pos)
+    kw = dict(reps_per_group=rpg, share_values=mode == "mha_share")
+    want = jref.paged_chai_three_kernel_decode(*map(_j, args), **kw)
+    got = tops.paged_chai_three_kernel_decode(*map(_t, args), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_three_kernel_decode_matches_fused_plain(rng):
+    """Inside the port: the pipeline and the fused decode's plain version
+    compute one function (two summation orders)."""
+    args, kw, _ = _dense_case(rng, mode="gqa", int8=False)
+    args = tuple(map(_t, args))
+    pipe = tops.chai_three_kernel_decode(*args, ts=16, **kw)
+    fused = tops.chai_decode_attention(*args, ts=16, **kw)
+    torch.testing.assert_close(pipe, fused, **TOL)
+
+
+# -------------------------------------------------- lane estimators ------
+@pytest.mark.parametrize("kw", [
+    dict(), dict(share_values=True), dict(window=100),
+    dict(cache_bytes=2), dict(fused=False),
+    dict(fused=False, share_values=True, window=64, cache_bytes=1)])
+def test_lane_estimators_equal_reference(kw):
+    shape = (4, 48, 40, 1024, 128)
+    assert (tops.decode_hbm_bytes_estimate(*shape, **kw)
+            == jops.decode_hbm_bytes_estimate(*shape, **kw))
+    fkw = {k: v for k, v in kw.items() if k in ("share_values", "window")}
+    assert (tops.decode_flop_estimate(*shape, **fkw)
+            == jops.decode_flop_estimate(*shape, **fkw))
+    for fused in (True, False):
+        assert (tops.decode_launch_count(fused=fused)
+                == jops.decode_launch_count(fused=fused))
+    assert tops.decode_launch_count(fused=False) == 3
+
+
+def test_quant_rows_bit_equal_to_reference(rng):
+    x = _normal(rng, (2, 3, 17, 16)) * 4
+    x[0, 0, 0] = 0.0                               # scale floor 1e-6
+    x[1, 2, 3, 5] = 1e4
+    qj, sj = jcache.quant_rows(_j(x))
+    qt, st = tcache.quant_rows(_t(x))
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32
+    assert np.array_equal(qt.numpy(), np.asarray(qj))
+    assert np.array_equal(st.numpy(), np.asarray(sj))
+    dj = jcache.dequant_rows(qj, sj)
+    assert np.array_equal(tcache.dequant_rows(qt, st).numpy(),
+                          np.asarray(dj))
+
+
+# --------------------------------------------------- wrapper checks ------
+def test_cuda_wrappers_refuse_cpu_tensors(rng):
+    """On a CPU tensor each kernel wrapper raises (``kernels.ops`` takes
+    the plain versions there); nothing falls back."""
+    q = torch.zeros(1, 2, 8)
+    k = torch.zeros(1, 2, 16, 8)
+    pos = torch.zeros(1, dtype=torch.int32)
+    a = torch.zeros(1, 2, 16)
+    h2c = torch.zeros(1, 2, dtype=torch.int32)
+    bt = torch.zeros(1, 2, dtype=torch.int32)
+    pool = torch.zeros(3, 2, 8, 8)
+    calls = [
+        lambda: tck.chai_qk(q, k, pos, ts=8),
+        lambda: tck.chai_qk_i8(q, k.to(torch.int8), torch.ones(1, 2, 16),
+                               pos, ts=8),
+        lambda: tck.paged_chai_qk(q, pool, bt, pos),
+        lambda: tck.row_softmax(a),
+        lambda: tck.chai_av(a, k, h2c, ts=8),
+        lambda: tck.paged_chai_av(a, pool, bt, h2c)]
+    before = dict(tck.LAUNCHES)
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            call()
+    assert tck.LAUNCHES == before
+
+
+def test_wrappers_keep_the_pallas_shape_assertions():
+    """``ts`` must divide S (chai_qk, chai_qk_i8, chai_av), and A must
+    span P * page positions (paged_chai_av), checked before any launch."""
+    q = torch.zeros(1, 2, 8)
+    k = torch.zeros(1, 2, 24, 8)
+    pos = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of ts"):
+        tck.chai_qk(q, k, pos, ts=16)
+    with pytest.raises(ValueError, match="multiple of ts"):
+        tck.chai_qk_i8(q, k.to(torch.int8), torch.ones(1, 2, 24), pos,
+                       ts=16)
+    with pytest.raises(ValueError, match="multiple of ts"):
+        tck.chai_av(torch.zeros(1, 2, 24), k, torch.zeros(1, 2), ts=16)
+    with pytest.raises(ValueError, match="pages of 8"):
+        tck.paged_chai_av(torch.zeros(1, 2, 24), torch.zeros(3, 2, 8, 8),
+                          torch.zeros(1, 2, dtype=torch.int32),
+                          torch.zeros(1, 2, dtype=torch.int32))
