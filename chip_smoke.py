@@ -23,12 +23,22 @@ result line):
    from a seed) served through the cohort ``ServingEngine`` — 4
    requests, 32 new tokens each — with every kernel's launches counted
    over that run, and the kernel held against its plain version on the
-   layer-0 tensors of the first STEADY step;
+   layer-0 tensors of the first STEADY step; then the same requests with
+   CHAI off (the MHA baseline): exactly 32 ``flash_decode`` launches per
+   decode step, no eager decode attention;
 6. the continuous main path: the same model through the default
    continuous ``ServingEngine``, 4 slots, 8 requests, once per KV layout
    (paged, then dense), with the launches counted over each run, the
    greedy tokens of the two layouts identical, the KV bytes falling at
-   every CLUSTER transition and both pools empty at the end;
+   every CLUSTER transition and both pools empty at the end; then the MHA
+   baseline (``use_chai=False``) on the same traffic and layouts: every
+   decode step launches ``paged_decode`` (paged) or ``flash_decode``
+   (dense) once per layer and nothing else, the eager decode attention
+   never runs, paged == dense tokens, wall, tok/s and step ms logged
+   beside the CHAI runs', and both kernels held against their plain
+   versions (and bitwise against each other) on the layer-0 inputs of the
+   first decode step with every slot occupied, timed there beside
+   PyTorch's ``scaled_dot_product_attention``;
 7. the chunked continuous path: the paged run of phase 6 again with
    ``prefill_chunk_tokens=128`` (20 chunks, so 640 launches of each
    prefill kernel), its greedy tokens held against phase 6's on every
@@ -56,7 +66,11 @@ result line):
    the KV bytes unchanged at every CLUSTER transition (GQA keeps its
    dense pages until retirement), empty pools, and both fused kernels
    held against their plain versions on the layer-0 GQA tensors of the
-   first all-STEADY step;
+   first all-STEADY step; then nemotron's MHA baseline as in phase 6, and
+   phase 8's prefix traffic with relay off then on (every request a
+   ``"prefix"`` hit: a GQA model takes no CHAI snapshot; relay launches,
+   relay tokens held against plain ones on margins, no page left after a
+   clear);
 10. the fused-vs-pipeline lane (the reference's
    ``benchmarks/bench_latency.py`` lane): the three-kernel pipeline
    (``kernels.ops.chai_three_kernel_decode`` /
@@ -70,8 +84,19 @@ result line):
    times, and ``decode_hbm_bytes_estimate`` of both; then the six
    pipeline kernels against their plain versions at the main path's and
    nemotron's shapes;
-11. a ``kernels`` JSON line (eleven kernels), the card's name and power
+11. a ``kernels`` JSON line (thirteen kernels), the card's name and power
    limit, and, last, ``{"ok": true, "device": {...}}``.
+
+Phase 3 also holds ``flash_decode`` and ``paged_decode`` against their
+plain versions on the reference's sweep shapes (MHA, GQA 4:1, MQA, one
+tile, a window of 24; fp32 and bf16) and at full width (chai-llama-7b's
+32 heads and nemotron's 48 over 8 KV heads, bf16, with SDPA timed
+beside), paged == dense bitwise at ts == page on every case, and a null
+page (and dense positions past pos) poisoned with 999 changing no output
+bit; phase 4 also runs the MHA baseline (paged, dense, cohort) and the
+prefix cache + relay engine on reduced nemotron, cuda against cpu. The
+CHAI runs of phases 5-9 launch neither flash decode kernel (their
+WARMUP keeps the eager attention, which needs the probabilities).
 
 Phase 3 also holds the six pipeline kernels (``chai_qk``, ``chai_qk_i8``,
 ``paged_chai_qk``, ``row_softmax``, ``chai_av``, ``paged_chai_av``) at
@@ -189,7 +214,26 @@ KERNEL_ROWS = {
     "paged_chai_av": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/chai_av.cu",
         replaces="src/repro/kernels/chai_attention.py:296"),
+    "flash_decode": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_attention.py:74"),
+    "paged_decode": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/flash_attention.py:158"),
 }
+# Calls of the eager decode attention (``models.transformer.
+# _decode_attention_batched``, kept for CHAI WARMUP, which needs the
+# probabilities); ``count_eager_decode`` installs the counter.
+EAGER = {"calls": 0}
+
+
+def count_eager_decode():
+    inner = tfm._decode_attention_batched
+
+    def counted(*args):
+        EAGER["calls"] += 1
+        return inner(*args)
+    tfm._decode_attention_batched = counted
 
 
 def log(msg):
@@ -1040,6 +1084,211 @@ def pipeline_kernel_checks():
     return cases
 
 
+# ------------------------------------- phase 3: the flash decode pair ----
+# Each flash decode kernel's CUDA function, as a torch.profiler trace names
+# it.
+FLASH_FUNCS = {"flash_decode": "flash_decode_kernel",
+               "paged_decode": "paged_decode_kernel"}
+
+
+def flash_decode_bound(q, k, pos, *, window=0, s=None, page=0):
+    """Least time for a flash decode's work: q read, the (B, H, hd) fp32
+    output written, and per batch row the K and V rows of its KV groups at
+    the live positions (idx <= pos, and pos - idx < window) read once,
+    with, paged (``page``), the two table entries of each live page; the
+    QK and AV multiply-adds in fp32. ``k``: the cache or the pool (element
+    size, KV rows); ``s``: the logical length."""
+    b, h, hd = q.shape
+    kv, es = k.shape[1], k.element_size()
+    n_bytes = q.numel() * q.element_size() + b * 4 + b * h * hd * 4
+    flops = 0
+    for p in pos.tolist():
+        hi = min(int(p), s - 1)
+        lo = max(0, int(p) - window + 1) if window else 0
+        n = max(0, hi - lo + 1)
+        n_bytes += 2 * kv * n * hd * es
+        if page and n:
+            n_bytes += 2 * 4 * (hi // page - lo // page + 1)
+        flops += 4 * h * n * hd
+    return _bound(n_bytes, flops)
+
+
+def sdpa_call(q, k, v, pos, window=0):
+    """PyTorch's ``scaled_dot_product_attention`` computing
+    ``flash_decode``'s function on the same inputs (one query per head,
+    GQA through ``enable_gqa``, the positions as a boolean mask): the
+    library yardstick, timed beside the kernel and never on the path."""
+    b, h, hd = q.shape
+    s = k.shape[2]
+    idx = torch.arange(s, device=q.device)
+    p = pos.long()[:, None]
+    valid = idx[None, :] <= p
+    if window:
+        valid &= (p - idx[None, :]) < window
+    mask = valid[:, None, None, :]
+    q4 = q.to(k.dtype)[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q4, k, v, attn_mask=mask,
+                        enable_gqa=k.shape[1] != h)[:, :, 0]
+
+
+def flash_decode_case(name, args, *, window=0, ts=0, library=False,
+                      profile=False):
+    """One flash decode kernel (``name``) against its plain version on
+    ``args`` (2e-5: both compute in fp32 from the same inputs); the case's
+    record with back-to-back, plain and bound times, and with ``profile``
+    the single-call and profiled device times, and with ``library`` the
+    SDPA call's time (dense only)."""
+    if name == "flash_decode":
+        q, k, v, pos = args
+        call = lambda: fk.flash_decode(q, k, v, pos, window=window,  # noqa
+                                       ts=ts)
+        plain = lambda: kref.flash_decode_ref(q, k, v, pos,  # noqa: E731
+                                              window=window)
+        bound, by = flash_decode_bound(q, k, pos, window=window,
+                                       s=k.shape[2])
+        shapes = dict(k=list(k.shape), ts=ts)
+    else:
+        q, pool, bt_k, bt_v, pos = args
+        call = lambda: fk.paged_decode(q, pool, bt_k, bt_v, pos,  # noqa
+                                       window=window)
+        plain = lambda: kref.paged_decode_ref(q, pool, bt_k, bt_v, pos,  # noqa
+                                              window=window)
+        bound, by = flash_decode_bound(
+            q, pool, pos, window=window, s=bt_k.shape[1] * pool.shape[2],
+            page=pool.shape[2])
+        shapes = dict(pool=list(pool.shape), page=pool.shape[2])
+    got = call()
+    torch.cuda.synchronize()
+    err = _hold(got, plain())
+    rec = dict(q=list(q.shape), dtype=str(args[1].dtype),
+               q_dtype=str(q.dtype), window=window, pos=pos.tolist(),
+               **shapes, max_abs_err=err, ms=time_ms(call),
+               plain_ms=time_ms(plain), bound_ms=bound, bound_by=by)
+    if profile:
+        rec["single_call_ms"] = single_call_ms(call)
+        rec["device_ms"] = device_ms(call, FLASH_FUNCS[name])
+    if library:
+        lib = sdpa_call(q, k, v, pos, window)
+        rec["library_ms"] = time_ms(lib)
+        rec["library_vs_kernel_max_abs_diff"] = _max_err(lib(), got)
+    return rec, got
+
+
+def _log_flash_decode(name, case):
+    log(f"{name} {case['case']}: q {tuple(case['q'])} {case['q_dtype']}, "
+        + (f"k {tuple(case['k'])} ts {case['ts']}" if "k" in case else
+           f"pool {tuple(case['pool'])}")
+        + f" {case['dtype']} window {case['window']}: max_abs_err "
+        f"{case['max_abs_err']:.3e} kernel {case['ms']:.4f} ms plain "
+        f"{case['plain_ms']:.4f} ms bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']})"
+        + (f" single call {case['single_call_ms']:.4f} ms, device "
+           f"{case['device_ms']} ms" if "device_ms" in case else "")
+        + (f" library (SDPA) {case['library_ms']:.4f} ms, SDPA vs kernel "
+           f"{case['library_vs_kernel_max_abs_diff']:.3e}"
+           if "library_ms" in case else ""))
+
+
+def flash_decode_pair(tag, q, k, v, pos, *, window=0, page=PAGE,
+                     library=False, profile=False, gen=None):
+    """Both kernels on one logical cache: ``flash_decode`` on the dense
+    K/V at ts == page, ``paged_decode`` on a pool holding the same rows
+    at shuffled pages (table entries past each row's pos name the null
+    page 0), their outputs bitwise equal. Returns {kernel: record}."""
+    b, kv, s, hd = k.shape
+    n = s // page
+    n_pool = 2 * b * n + 5
+    pool = torch.randn((n_pool, kv, page, hd), generator=gen,
+                       device="cuda").to(k.dtype)
+    ids = torch.randperm(n_pool - 1, generator=gen, device="cuda")[:2 * b * n]
+    bt_k = (ids[:b * n] + 1).reshape(b, n).to(torch.int32)
+    bt_v = (ids[b * n:] + 1).reshape(b, n).to(torch.int32)
+    pool[bt_k.long()] = k.reshape(b, kv, n, page, hd).movedim(2, 1)
+    pool[bt_v.long()] = v.reshape(b, kv, n, page, hd).movedim(2, 1)
+    hi_page = (pos.long().clamp(max=s - 1) // page)[:, None]
+    past = torch.arange(n, device="cuda")[None, :] > hi_page
+    bt_k, bt_v = bt_k.masked_fill(past, 0), bt_v.masked_fill(past, 0)
+    dense, d_out = flash_decode_case(
+        "flash_decode", (q, k, v, pos), window=window, ts=page,
+        library=library, profile=profile)
+    paged, p_out = flash_decode_case(
+        "paged_decode", (q, pool, bt_k, bt_v, pos), window=window,
+        profile=profile)
+    if not torch.equal(d_out, p_out):
+        raise AssertionError(f"{tag}: paged_decode differs from flash_decode"
+                             f" at ts == page: max abs diff "
+                             f"{_max_err(d_out, p_out):.3e}")
+    out = {}
+    for name, rec in (("flash_decode", dense), ("paged_decode", paged)):
+        rec = dict(case=tag, **rec, bitwise_equal_dense=True)
+        out[name] = rec
+        _log_flash_decode(name, rec)
+    return out, (pool, bt_k, bt_v)
+
+
+def flash_decode_checks():
+    """``flash_decode`` and ``paged_decode`` against their plain versions:
+    the reference's sweep shapes (``tests/test_kernels.py``: MHA, GQA 4:1,
+    MQA, one tile, a window of 24; fp32 and bf16), the full-width
+    chai-llama-7b shape (B 4, H = KV = 32, hd 128, S 1024, bf16) and
+    nemotron-4-15b's (48 query heads over 8 KV heads); paged == dense
+    bitwise at ts == page on every case; the null page poisoned with 999,
+    and every dense position past pos, change no output bit. The
+    full-width cases also time PyTorch's SDPA on the same inputs."""
+    gen = torch.Generator("cuda").manual_seed(7)
+    dev = "cuda"
+    cases = {"flash_decode": [], "paged_decode": []}
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    sweep = (("mha", 1, 4, 4, 32, 16, 8, 0), ("gqa4", 2, 8, 2, 64, 32, 16, 0),
+             ("mqa", 3, 6, 1, 48, 8, 16, 0),
+             ("single_tile", 2, 4, 4, 64, 32, 64, 0),
+             ("window24", 2, 8, 4, 64, 16, 16, 24))
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, b, h, kv, s, hd, ts, window in sweep:
+            q, k, v = (rand(b, h, hd, dtype=dtype),
+                       rand(b, kv, s, hd, dtype=dtype),
+                       rand(b, kv, s, hd, dtype=dtype))
+            pos = torch.randint(1, s, (b,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            got, _ = flash_decode_pair(f"sweep_{tag}_{str(dtype)[6:]}", q,
+                                       k, v, pos, window=window, page=ts,
+                                       gen=gen)
+            for name in cases:
+                cases[name].append(got[name])
+    for tag, h, kv in (("chai_llama_7b_full_width", 32, 32),
+                       ("nemotron_gqa_full_width", 48, 8)):
+        q = rand(4, h, 128, dtype=torch.bfloat16)
+        k = rand(4, kv, MAX_SEQ, 128, dtype=torch.bfloat16)
+        v = rand(4, kv, MAX_SEQ, 128, dtype=torch.bfloat16)
+        pos = torch.randint(300, MAX_SEQ, (4,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        got, (pool, bt_k, bt_v) = flash_decode_pair(
+            f"synthetic_{tag}_bf16", q, k, v, pos, library=True,
+            profile=True, gen=gen)
+        for name in cases:
+            cases[name].append(got[name])
+        # poison: the null page, and every dense position past pos
+        ref_p = fk.paged_decode(q, pool, bt_k, bt_v, pos)
+        pool[0] = 999.0
+        ref_d = fk.flash_decode(q, k, v, pos, ts=PAGE)
+        past = (torch.arange(MAX_SEQ, device=dev)[None, :]
+                > pos.long()[:, None])[:, None, :, None]
+        kp, vp = k.masked_fill(past, 999.0), v.masked_fill(past, 999.0)
+        torch.cuda.synchronize()
+        if not (torch.equal(fk.paged_decode(q, pool, bt_k, bt_v, pos), ref_p)
+                and torch.equal(fk.flash_decode(q, kp, vp, pos, ts=PAGE),
+                                ref_d)):
+            raise AssertionError(f"{tag}: a poisoned null page or position "
+                                 "past pos changed the output")
+        log(f"{tag}: null page 0 and positions past pos poisoned with 999: "
+            "outputs bitwise unchanged")
+    return cases
+
+
 # ------------------------------------------------------------ phase 4 ----
 def reduced_cfg(arch=ARCH):
     """The reduced model of phase 4: 2 layers, fp32. nemotron-4-15b at 12
@@ -1128,19 +1377,21 @@ def _reduced_model(arch=ARCH):
 
 
 def _reduced_serve(cfg, params, device, prompts, budgets, identify=None,
-                   **ecfg):
+                   stats=None, **ecfg):
     """Serve ``prompts`` on a 2-slot continuous engine; returns ({uid:
     tokens}, [(argmax input, live rows)], [(WARMUP buffer, membership)]).
     ``identify(sc, n)``: the n-th CLUSTER transition's membership in place
-    of the engine's own."""
+    of the engine's own; ``stats``: a dict given the engine's decode step
+    count."""
     eng = ServingEngine(cfg, params, EngineConfig(batch_slots=2,
                                                   page_size=PAGE, **ecfg),
                         device=device)
     calls, idents = [], []
-    argmax, own = eng._argmax, eng._identify
+    argmax, own = eng._argmax, getattr(eng, "_identify", None)
 
     def rec_argmax(lg):
-        live = ([True] if lg.shape[0] == 1 else
+        live = ([True] * lg.shape[0]
+                if lg.shape[0] == 1 or eng.ecfg.scheduler == "cohort" else
                 [r is not None and eng._phases[i] != chai_cache.PHASE_PREFILL
                  for i, r in enumerate(eng._slot_req)])
         calls.append((lg.detach().cpu(), live))
@@ -1151,7 +1402,9 @@ def _reduced_serve(cfg, params, device, prompts, budgets, identify=None,
         idents.append((sc.cpu(), {k: v.cpu() for k, v in out.items()}))
         return out
 
-    eng._argmax, eng._identify = rec_argmax, rec_identify
+    eng._argmax = rec_argmax
+    if own is not None:
+        eng._identify = rec_identify
     for i, (pr, m) in enumerate(zip(prompts, budgets)):
         eng.submit(pr, max_new_tokens=m, uid=i)
     done = {r.uid: r.generated for r in eng.run()}
@@ -1159,6 +1412,8 @@ def _reduced_serve(cfg, params, device, prompts, budgets, identify=None,
         raise AssertionError(f"{device} {ecfg}: token counts wrong")
     if eng.paged and eng.dense_pool.pages_in_use:
         raise AssertionError(f"{device} {ecfg}: pages left in use")
+    if stats is not None:
+        stats["steps"] = eng.steps_executed
     return done, calls, idents
 
 
@@ -1237,6 +1492,49 @@ def reduced_continuous_check(arch=ARCH):
         f"tokens: {cpu_done == gpu['paged'][0]}")
 
 
+def reduced_mha_check(arch=ARCH):
+    """The MHA baseline (``use_chai=False``) on the reduced model, cuda
+    (the flash decode kernels) against cpu (their plain versions): the
+    continuous engine paged and dense and the cohort engine; logits held
+    at 1e-4 until a near-tie; ``paged_decode`` (paged) or
+    ``flash_decode`` launched n_layers times per decode step, no other
+    kernel, and the eager decode attention never; paged == dense tokens
+    on the card."""
+    cfg, params_cpu, params_gpu = _reduced_model(arch)
+    rng = np.random.default_rng(4)
+    budgets = (12, 7, 10, 4, 9)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (11, 6, 17, 9, 14)]
+    tokens = {}
+    for name, kw in (("paged", dict(kv_layout="paged")),
+                     ("dense", dict(kv_layout="dense")),
+                     ("cohort", dict(scheduler="cohort"))):
+        kw = dict(kw, max_seq=64, use_chai=False)
+        _, cpu_calls, _ = _reduced_serve(cfg, params_cpu, "cpu", prompts,
+                                         budgets, **kw)
+        _reset_launches()
+        EAGER["calls"] = 0
+        stats = {}
+        tokens[name], gpu_calls, _ = _reduced_serve(
+            cfg, params_gpu, "cuda", prompts, budgets, stats=stats, **kw)
+        launched = _launches()
+        own = "paged_decode" if name == "paged" else "flash_decode"
+        want = {k: 0 for k in launched}
+        want[own] = cfg.n_layers * stats["steps"]
+        if launched != want or EAGER["calls"]:
+            raise AssertionError(f"reduced MHA {name}: launches {launched}, "
+                                 f"expected {want}; eager decode calls "
+                                 f"{EAGER['calls']}")
+        held, worst = _hold_calls(gpu_calls, cpu_calls,
+                                  f"reduced MHA {name}")
+        log(f"reduced {cfg.name} MHA baseline ({name}) cuda vs cpu: "
+            f"{held} of {len(cpu_calls)} argmax calls held, logits max abs "
+            f"diff {worst:.3e}, launches {want[own]} of {own}")
+    if tokens["paged"] != tokens["dense"]:
+        raise AssertionError("reduced MHA: paged and dense tokens differ on "
+                             "the card")
+
+
 def reduced_chunked_check():
     """The chunked continuous engine (chunks of 16 tokens, max_seq 128) on
     the reduced model, cuda against cpu as in ``reduced_continuous_check``:
@@ -1287,30 +1585,36 @@ def _prefix_traffic(rng, vocab, prefix_len, suffix_lens, suffix_new,
     return warm, rest
 
 
-def _expected_hits(warm, rest, prefix_len):
-    """{uid: (cache_hit, cached_tokens, prefill_tokens)} of that traffic."""
+def _expected_hits(warm, rest, prefix_len, snapshots=True):
+    """{uid: (cache_hit, cached_tokens, prefill_tokens)} of that traffic.
+    Without CHAI snapshots (a GQA model), the repeated prompt is a
+    ``"prefix"`` hit on every block of it the first request's prefill
+    indexed, but the last token's."""
     hits = {warm[0]: ("", 0, len(warm[1]))}
     for uid, prompt, _ in rest[:-2]:
         hits[uid] = ("prefix", prefix_len, len(prompt) - prefix_len)
-    hits[rest[-2][0]] = ("snapshot", len(rest[-2][1]), 0)
-    hits[rest[-1][0]] = ("replay", len(rest[-1][1]), 0)
+    for (uid, prompt, _), kind in zip(rest[-2:], ("snapshot", "replay")):
+        cached = (len(prompt) - 1) // PAGE * PAGE
+        hits[uid] = ((kind, len(prompt), 0) if snapshots else
+                     ("prefix", cached, len(prompt) - cached))
     return hits
 
 
-def reduced_prefix_relay_check():
+def reduced_prefix_relay_check(arch=ARCH):
     """The continuous engine with ``prefix_cache=True, relay_decode=True``
     on the reduced model (2 slots, max_seq 64), cuda against cpu: a
     32-token prompt warmed by one request, three suffix requests (the
-    first two decode as a relay group of 2), a snapshot hit and a replay.
-    The cuda run clusters through the cpu run's memberships; logits held
-    at 1e-4 until a near-tie; the plan kinds as expected on both; exactly
-    2 x relay steps launches of ``relay_prefix_decode`` and 2 x 3 of
-    each prefill kernel; both pools empty after a clear."""
-    cfg, params_cpu, params_gpu = _reduced_model()
+    first two decode as a relay group of 2), a snapshot hit and a replay
+    (a GQA model: two more prefix hits). The cuda run clusters through the
+    cpu run's memberships; logits held at 1e-4 until a near-tie; the plan
+    kinds as expected on both; exactly 2 x relay steps launches of
+    ``relay_prefix_decode`` and 2 x each suffix prefill of each prefill
+    kernel; the pools empty after a clear."""
+    cfg, params_cpu, params_gpu = _reduced_model(arch)
     warm, rest = _prefix_traffic(np.random.default_rng(3), cfg.vocab_size,
                                  32, (4, 6, 5), (10, 12, 10),
                                  cfg.chai.warmup_tokens + 1)
-    want_hits = _expected_hits(warm, rest, 32)
+    want_hits = _expected_hits(warm, rest, 32, snapshots=cfg.is_mha)
     runs = {}
     for device, params in (("cpu", params_cpu), ("cuda", params_gpu)):
         eng = ServingEngine(cfg, params, EngineConfig(
@@ -1349,14 +1653,15 @@ def reduced_prefix_relay_check():
             raise AssertionError(f"reduced prefix/relay {device}: hits "
                                  f"{hits}, relay steps {eng.relay_steps}")
         eng.prefix_cache.clear()
-        if eng.dense_pool.pages_in_use or eng.chai_pool.pages_in_use:
+        if eng.dense_pool.pages_in_use or (eng.chai_pool is not None
+                                           and eng.chai_pool.pages_in_use):
             raise AssertionError(f"reduced prefix/relay {device}: pages "
                                  "left in use after clear()")
         runs[device] = dict(tokens={u: r.generated for u, r in done.items()},
                             calls=calls, idents=idents,
                             relay_steps=eng.relay_steps, launched=launched)
     gpu = runs["cuda"]
-    n_suffix = len(rest) - 2
+    n_suffix = len(rest) - (2 if cfg.is_mha else 0)
     if (gpu["launched"]["relay_prefix_decode"]
             != cfg.n_layers * gpu["relay_steps"]
             or gpu["launched"]["flash_prefill"] != cfg.n_layers * n_suffix
@@ -1368,8 +1673,9 @@ def reduced_prefix_relay_check():
                              f"{gpu['relay_steps']}")
     held, worst = _hold_calls(gpu["calls"], runs["cpu"]["calls"],
                               "reduced prefix/relay")
-    log(f"reduced prefix cache + relay engine cuda vs cpu: relay steps "
-        f"{gpu['relay_steps']} (cpu {runs['cpu']['relay_steps']}), launches"
+    log(f"reduced {cfg.name} prefix cache + relay engine cuda vs cpu: "
+        f"relay steps {gpu['relay_steps']} (cpu "
+        f"{runs['cpu']['relay_steps']}), launches"
         f" {gpu['launched']}; {held} of {len(runs['cpu']['calls'])} argmax "
         f"calls held, logits max abs diff {worst:.3e}; plan kinds "
         f"{want_hits}; cpu == cuda tokens: "
@@ -1491,8 +1797,10 @@ def main_path(cfg, params):
     chai_core.kops = cap
     try:
         _reset_launches()
+        EAGER["calls"] = 0
         eng, done, wall, phases = serve(cfg, params, use_chai=True)
         launches = _launches()
+        chai_eager = EAGER["calls"]
     finally:
         chai_core.kops = kops
     n_tok = sum(len(r.generated) for r in done)
@@ -1511,7 +1819,9 @@ def main_path(cfg, params):
     log(f"cohort: served {len(done)} requests (prompts {PROMPT_LENS}, "
         f"{MAX_NEW} new tokens each) in {wall:.3f} s: {n_tok / wall:.1f} "
         f"tok/s, TTFT {[round(r.ttft, 4) for r in done]} s, decode steps "
-        f"{eng.steps_executed}, launches {launches}")
+        f"{eng.steps_executed}, launches {launches} (none of flash_decode "
+        f"or paged_decode: WARMUP keeps the eager attention, {chai_eager} "
+        "calls)")
     log("cohort CHAI run by phase (s): " + ", ".join(
         f"{k} {v:.4f}" for k, v in phases.items()))
     log(f"KV bytes at capacity: CHAI {kc:,} vs MHA {km:,} "
@@ -1536,27 +1846,44 @@ def main_path(cfg, params):
         f"profiled device time {dev_ms} ms), "
         f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
 
-    _, mha_done, mha_wall, mha_phases = serve(cfg, params, use_chai=False)
+    # The MHA baseline on the same requests: every decode step of every
+    # layer through flash_decode (the cohort's dense cache, tile = page),
+    # never through the eager attention the CHAI run's WARMUP keeps.
+    _reset_launches()
+    EAGER["calls"] = 0
+    mha_eng, mha_done, mha_wall, mha_phases = serve(cfg, params,
+                                                    use_chai=False)
+    mha_launches = _launches()
+    want = {name: 0 for name in mha_launches}
+    want["flash_decode"] = cfg.n_layers * mha_eng.steps_executed
+    if mha_launches != want or EAGER["calls"]:
+        raise AssertionError(f"cohort MHA launches {mha_launches}, expected "
+                             f"{want}; eager decode calls {EAGER['calls']}")
     agree = sum(a == b for r, m in zip(done, mha_done)
                 for a, b in zip(r.generated, m.generated))
-    log(f"information only (random weights): CHAI vs MHA greedy token "
-        f"agreement {agree}/{n_tok}; MHA run {mha_wall:.3f} s, by phase "
-        + ", ".join(f"{k} {v:.4f}" for k, v in mha_phases.items()))
+    log(f"cohort MHA baseline: {mha_eng.steps_executed} decode steps, "
+        f"launches {want['flash_decode']} of flash_decode, 0 eager decode "
+        f"attention calls; {n_tok / mha_wall:.1f} tok/s in {mha_wall:.3f} s "
+        f"(CHAI run {n_tok / wall:.1f} tok/s in {wall:.3f} s); by phase "
+        + ", ".join(f"{k} {v:.4f}" for k, v in mha_phases.items())
+        + f"; information only (random weights): CHAI vs MHA greedy token "
+        f"agreement {agree}/{n_tok}")
     main = dict(case="main_path_layer0", q=list(first["q"].shape),
                 k=list(first["k"].shape), v=list(first["v"].shape),
                 dtype=str(first["k"].dtype), ts=first["kw"]["ts"],
                 pos=first["pos"].tolist(), max_abs_err=err, ms=ms,
                 single_call_ms=single, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by)
-    return launches, main, first
+    return launches, main, first, mha_launches
 
 
 # ------------------------------------------------------------ phase 6 ----
-class _PrefillCapture:
+class _TransformerCapture:
     """Stands in for ``kernels.ops`` inside ``models.transformer`` and keeps
     a copy of each prefill op's inputs the first time ``when()`` names a
-    chunk start (layer 0 of that chunk); every call goes on to the real
-    dispatch."""
+    chunk start (layer 0 of that chunk), and of each flash decode op's
+    (the MHA baseline's) the first time it names an occupancy; every call
+    goes on to the real dispatch."""
 
     def __init__(self, when):
         self.first = {}
@@ -1575,6 +1902,16 @@ class _PrefillCapture:
     def flash_prefill_attention(self, q, k, v, offset=0, **kw):
         self._keep("flash_prefill", dict(q=q, k=k, v=v))
         return kops.flash_prefill_attention(q, k, v, offset, **kw)
+
+    def flash_decode_attention(self, q, k, v, pos, **kw):
+        self._keep("flash_decode", dict(q=q, k=k, v=v, pos=pos,
+                                        ts=torch.tensor(kw.get("ts", 0))))
+        return kops.flash_decode_attention(q, k, v, pos, **kw)
+
+    def paged_decode_attention(self, q, kv_pool, bt_k, bt_v, pos, **kw):
+        self._keep("paged_decode", dict(q=q, pool=kv_pool, bt_k=bt_k,
+                                        bt_v=bt_v, pos=pos))
+        return kops.paged_decode_attention(q, kv_pool, bt_k, bt_v, pos, **kw)
 
     merge_prefill_states = staticmethod(kops.merge_prefill_states)
     finalize_prefill_state = staticmethod(kops.finalize_prefill_state)
@@ -1610,7 +1947,8 @@ def _record_margins(eng):
     return margins
 
 
-def serve_continuous(cfg, params, layout, chunk=0, membership=None):
+def serve_continuous(cfg, params, layout, chunk=0, membership=None,
+                     use_chai=True):
     """Serve the continuous path's requests on one KV layout (``chunk``:
     with chunked prefill), with the launches counted over the run, each
     step kind and each ``step()`` timed, the KV bytes read around every
@@ -1619,20 +1957,23 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None):
     each start position, the top-2 margin behind every greedy token and
     each request's WARMUP buffer and membership. ``membership`` ({uid:
     (buffer, ctx, _)}, another run's): cluster each request through it,
-    noting whether its own membership was the same."""
+    noting whether its own membership was the same. ``use_chai=False``:
+    the MHA baseline, every decode step an "mha_step", the flash decode
+    ops' layer-0 inputs kept at the first step of each occupancy."""
     eng = ServingEngine(cfg, params, EngineConfig(
         batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
-        kv_layout=layout, prefill_chunk_tokens=chunk))
+        kv_layout=layout, prefill_chunk_tokens=chunk, use_chai=use_chai))
     times, calls = {}, {}
     for attr, phase in (("_slot_prefill", "prefill"),
                         ("_chunk_prefill", "chunk"),
-                        ("_mha_step", "warmup_step"),
+                        ("_mha_step",
+                         "warmup_step" if use_chai else "mha_step"),
                         ("_mixed_step", "mixed_step"),
                         ("_chai_step", "steady_step")):
         if hasattr(eng, attr):
             setattr(eng, attr, _timed(getattr(eng, attr), phase, times,
                                       calls))
-    idents, own = {}, eng._identify
+    idents, own = {}, getattr(eng, "_identify", None)
 
     def identify(sc):
         i = int(np.flatnonzero(eng._phases == chai_cache.PHASE_CLUSTER)[0])
@@ -1646,16 +1987,17 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None):
             same = True
         idents[uid] = (sc.clone(), out, same)
         return out
-    eng._identify = identify
-    cluster = eng._cluster_fn()
     transitions = []
+    if use_chai:
+        eng._identify = identify
+        cluster = eng._cluster_fn()
 
-    def watched_cluster(*args):
-        before = eng.kv_bytes()
-        out = cluster(*args)
-        transitions.append((before, len(eng.kv_bytes_history)))
-        return out
-    eng._cluster_slot = _timed(watched_cluster, "cluster", times, calls)
+        def watched_cluster(*args):
+            before = eng.kv_bytes()
+            out = cluster(*args)
+            transitions.append((before, len(eng.kv_bytes_history)))
+            return out
+        eng._cluster_slot = _timed(watched_cluster, "cluster", times, calls)
     _check_logits(eng, cfg.vocab_size)
     margins = _record_margins(eng)
     chunk_start = [None]
@@ -1691,7 +2033,9 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None):
                 else "mixed")
     cap = _Capture(step_kind, lambda: torch.from_numpy(
         eng._phases.copy()).cuda())
-    pcap = _PrefillCapture(lambda: chunk_start[0])
+    pcap = _TransformerCapture(
+        (lambda: chunk_start[0]) if use_chai else
+        (lambda: int((eng._phases != chai_cache.PHASE_FREE).sum())))
     rng = np.random.default_rng(0)
     for i, (n, m) in enumerate(zip(CONT_PROMPT_LENS, CONT_MAX_NEW)):
         eng.submit(rng.integers(0, cfg.vocab_size, size=n),
@@ -1857,7 +2201,98 @@ def continuous_path(cfg, params):
                 margins=paged["margins"], membership=paged["idents"],
                 longest_step_s=max(paged["step_s"]))
     return ({"continuous_paged": paged["launches"],
-             "continuous_dense": dense["launches"]}, main, mixed, mono, pc)
+             "continuous_dense": dense["launches"]}, main, mixed, mono, pc,
+            {layout: _run_summary(run) for layout, run in runs.items()})
+
+
+def _run_summary(run):
+    """Wall, tok/s and ms per call of each step kind of a served run."""
+    n_tok = sum(len(r.generated) for r in run["done"])
+    return dict(wall_s=run["wall"], tok_s=n_tok / run["wall"],
+                ttft_mean_s=statistics.mean(r.ttft for r in run["done"]),
+                step_ms={k: 1e3 * run["times"][k] / n
+                         for k, n in run["calls"].items()})
+
+
+# ------------------------------------------- phase 6b: the MHA baseline ----
+def mha_baseline_path(cfg, params, chai, label):
+    """The MHA baseline (``use_chai=False``) on the continuous engine with
+    phase 6's traffic, paged then dense: every decode step runs
+    ``paged_decode`` (paged) or ``flash_decode`` (dense) n_layers times
+    and nothing else, the eager decode attention never; identical greedy
+    tokens on both layouts; pools empty; wall, tok/s and step ms logged
+    beside the CHAI runs of the same traffic (``chai``: their
+    ``_run_summary``). Both kernels are then held against their plain
+    versions on the layer-0 inputs of the first decode step with every
+    slot occupied, timed there (with PyTorch's SDPA on the dense inputs),
+    and held bitwise against each other there. Returns ({path: launches},
+    {kernel: that case})."""
+    runs, launches = {}, {}
+    for layout in ("paged", "dense"):
+        EAGER["calls"] = 0
+        run = serve_continuous(cfg, params, layout, use_chai=False)
+        eng, calls, done = run["eng"], run["calls"], run["done"]
+        counts = [len(r.generated) for r in done]
+        if (counts != list(CONT_MAX_NEW)
+                or any(r.finish_reason != FINISH_LENGTH for r in done)
+                or not all(0 <= t < cfg.vocab_size
+                           for r in done for t in r.generated)):
+            raise AssertionError(f"{label} {layout}: token counts {counts}")
+        own = "paged_decode" if layout == "paged" else "flash_decode"
+        want = {name: 0 for name in run["launches"]}
+        want[own] = cfg.n_layers * calls.get("mha_step", 0)
+        if (run["launches"] != want or not want[own] or EAGER["calls"]
+                or set(calls) - {"prefill", "mha_step"}):
+            raise AssertionError(f"{label} {layout}: launches "
+                                 f"{run['launches']}, expected {want}; "
+                                 f"eager decode calls {EAGER['calls']}; "
+                                 f"calls {calls}")
+        if eng.paged and (eng.dense_pool.pages_in_use
+                          or eng.chai_pool is not None):
+            raise AssertionError(f"{label} {layout}: pages left in use")
+        _log_served(run, f"{label} {layout}")
+        mine, theirs = _run_summary(run), chai[layout]
+        chai_ms = {k: theirs["step_ms"].get(f"{k}_step", float("nan"))
+                   for k in ("steady", "mixed", "warmup")}
+        log(f"{label} {layout} against CHAI on the same traffic: "
+            f"{mine['tok_s']:.1f} tok/s against {theirs['tok_s']:.1f}, wall "
+            f"{mine['wall_s']:.3f} s against {theirs['wall_s']:.3f} s, TTFT "
+            f"mean {mine['ttft_mean_s']:.4f} s against "
+            f"{theirs['ttft_mean_s']:.4f} s; MHA step "
+            f"{mine['step_ms']['mha_step']:.2f} ms against CHAI all-STEADY "
+            f"{chai_ms['steady']:.2f} ms, mixed {chai_ms['mixed']:.2f} ms, "
+            f"WARMUP {chai_ms['warmup']:.2f} ms")
+        run["summary"] = mine
+        run.pop("eng")
+        launches[f"{label}_{layout}"] = run["launches"]
+        runs[layout] = run
+        torch.cuda.empty_cache()
+    paged, dense = runs["paged"], runs["dense"]
+    if [r.generated for r in paged["done"]] != [r.generated
+                                                for r in dense["done"]]:
+        raise AssertionError(f"{label}: paged and dense layouts gave "
+                             "different greedy tokens")
+    pc = paged["prefill"]["paged_decode", SLOTS]
+    dc = dense["prefill"]["flash_decode", SLOTS]
+    if not (torch.equal(pc["pos"], dc["pos"]) and torch.equal(pc["q"],
+                                                              dc["q"])):
+        raise AssertionError(f"{label}: the layouts' first full steps differ")
+    pa = (pc["q"], pc["pool"], pc["bt_k"], pc["bt_v"], pc["pos"])
+    da = (dc["q"], dc["k"], dc["v"], dc["pos"])
+    ts = int(dc["ts"])
+    cases = {}
+    for name, args, kw in (("flash_decode", da, dict(ts=ts, library=True)),
+                           ("paged_decode", pa, {})):
+        rec, _ = flash_decode_case(name, args, profile=True, **kw)
+        cases[name] = dict(case=f"{label}_first_full_step_layer0", **rec)
+        _log_flash_decode(name, cases[name])
+    if not torch.equal(fk.paged_decode(*pa), fk.flash_decode(*da, ts=ts)):
+        raise AssertionError(f"{label}: paged_decode and flash_decode differ "
+                             "on the main path's first full step")
+    log(f"{label}: paged_decode == flash_decode bitwise on the layer-0 "
+        f"inputs of the first full step (pos {pc['pos'].tolist()}); paged "
+        f"== dense tokens for all {sum(CONT_MAX_NEW)}")
+    return launches, cases
 
 
 # ------------------------------------------------------------ phase 7 ----
@@ -2037,7 +2472,7 @@ def _check_prefix_run(cfg, run, label):
     """Plan kinds, token counts, launches and pools of one phase-8 run."""
     eng, done, calls = run["eng"], run["done"], run["calls"]
     warm, rest = run["warm"], run["rest"]
-    want_hits = _expected_hits(warm, rest, SYS_LEN)
+    want_hits = _expected_hits(warm, rest, SYS_LEN, snapshots=cfg.is_mha)
     hits = {r.uid: (r.cache_hit, r.cached_tokens, r.prefill_tokens)
             for r in done}
     if hits != want_hits:
@@ -2049,7 +2484,7 @@ def _check_prefix_run(cfg, run, label):
         raise AssertionError(f"{label}: token counts")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
         raise AssertionError("token id out of vocabulary")
-    n_suffix = len(rest) - 2
+    n_suffix = len(rest) - (2 if cfg.is_mha else 0)
     steps = (calls.get("relay_step", 0) + calls.get("mixed_step", 0)
              + calls.get("steady_step", 0))
     want = {name: 0 for name in run["launches"]}
@@ -2064,7 +2499,8 @@ def _check_prefix_run(cfg, run, label):
     run["stats"] = eng.prefix_stats()
     run["kv_peak"] = eng.kv_bytes_peak()
     eng.prefix_cache.clear()
-    if eng.dense_pool.pages_in_use or eng.chai_pool.pages_in_use:
+    if eng.dense_pool.pages_in_use or (eng.chai_pool is not None
+                                       and eng.chai_pool.pages_in_use):
         raise AssertionError(f"{label}: pools not empty after clear()")
 
 
@@ -2091,20 +2527,22 @@ def _log_prefix_run(run, label):
         f"prefix_stats {run['stats']}")
 
 
-def prefix_path(cfg, params):
-    """The prefix cache and relay decode at full width (phase 8): the same
-    traffic with ``relay_decode=False``, then ``True``. Returns
-    ({path: launches}, the relay kernel's main-path case, the paged
-    kernel's state-mode case there)."""
+def prefix_path(cfg, params, tag="prefix"):
+    """The prefix cache and relay decode at full width (phase 8, and for
+    nemotron-4-15b phase 9): the same traffic with
+    ``relay_decode=False``, then ``True``. A GQA model takes no CHAI
+    snapshot, so its repeated prompt is a ``"prefix"`` hit like the
+    others. Returns ({path: launches}, the relay kernel's main-path case,
+    the paged kernel's state-mode case there)."""
     runs = {}
-    for label, relay in (("prefix_plain", False), ("prefix_relay", True)):
+    for label, relay in ((f"{tag}_plain", False), (f"{tag}_relay", True)):
         run = serve_prefix(cfg, params, relay)
         _check_prefix_run(cfg, run, label)
         _log_prefix_run(run, label)
         run.pop("eng")
         runs[label] = run
         torch.cuda.empty_cache()
-    plain, relay = runs["prefix_plain"], runs["prefix_relay"]
+    plain, relay = runs[f"{tag}_plain"], runs[f"{tag}_relay"]
     if plain["calls"].get("relay_step") or not relay["calls"].get(
             "relay_step"):
         raise AssertionError(f"relay steps: plain {plain['calls']}, relay "
@@ -2117,12 +2555,15 @@ def prefix_path(cfg, params):
         raise AssertionError("relay and plain runs clustered differently")
     mono = dict(tokens={r.uid: r.generated for r in plain["done"]},
                 margins=plain["margins"])
-    snap_uid, replay_uid = relay["rest"][-2][0], relay["rest"][-1][0]
-    exact = (relay["warm"][0], snap_uid, replay_uid)
+    # The warm request decodes alone (no group), and the snapshot and
+    # replay requests of an MHA model take no relay step: theirs must be
+    # identical; a GQA model's repeats decode in groups like the rest.
+    exact = (relay["warm"][0],) + (tuple(r[0] for r in relay["rest"][-2:])
+                                   if cfg.is_mha else ())
     for uid in exact:
         if mono["tokens"][uid] != [r.generated for r in relay["done"]
                                    if r.uid == uid][0]:
-            raise AssertionError(f"prefix_relay uid {uid}: tokens differ "
+            raise AssertionError(f"{tag}_relay uid {uid}: tokens differ "
                                  "from the plain run")
     grouped = dict(relay, done=[r for r in relay["done"]
                                 if r.uid not in exact])
@@ -2131,9 +2572,11 @@ def prefix_path(cfg, params):
         return (1e3 * run["times"][k] / run["calls"][k]
                 if run["calls"].get(k) else float("nan"))
     form = relay["times"]["relay_form"] / relay["calls"]["relay_form"]
-    log(f"relay vs plain: {held} of {compared} suffix-request tokens held "
-        f"at plain margin > {CHUNK_MARGIN} (first divergences at near-ties:"
-        f" {parted}); warm, snapshot and replay requests identical; "
+    same = sum(r.generated == mono["tokens"][r.uid] for r in relay["done"])
+    log(f"{tag} relay vs plain: {held} of {compared} grouped-request tokens "
+        f"held at plain margin > {CHUNK_MARGIN} (first divergences at "
+        f"near-ties: {parted}); requests {exact} identical, and "
+        f"{same} of {len(relay['done'])} requests identical in all; "
         f"memberships identical for {len(plain['idents'])} requests; mean "
         f"relay step {per(relay, 'relay_step'):.2f} ms against a plain "
         f"run's all-STEADY step {per(plain, 'steady_step'):.2f} ms and "
@@ -2144,13 +2587,13 @@ def prefix_path(cfg, params):
     rc = relay["capture"]["relay", "relay"]
     ra = (rc["q"], rc["k"], rc["v"], rc["k_row"], rc["a_row"], rc["v_row"],
           rc["plen"])
-    relay_main = dict(case="prefix_relay_first_relay_step_layer0",
+    relay_main = dict(case=f"{tag}_relay_first_relay_step_layer0",
                       **relay_case(*ra, ts=rc["kw"]["ts"]))
     call = lambda: ck.relay_prefix_decode(*ra, ts=rc["kw"]["ts"])  # noqa
     relay_main["single_call_ms"] = single_call_ms(call)
     relay_main["device_ms"] = device_ms(call, "relay_prefix_decode_kernel")
     relay_main["stack_ms_per_step"] = 1e3 * form
-    log(f"relay_prefix_decode main path (layer 0, first relay step): q "
+    log(f"relay_prefix_decode {tag} (layer 0, first relay step): q "
         f"{relay_main['q']} k {relay_main['k']} {relay_main['dtype']} plen "
         f"{relay_main['plen']}: max_abs_err {relay_main['max_abs_err']:.3e},"
         f" kernel {relay_main['ms']:.4f} ms (single call "
@@ -2161,19 +2604,21 @@ def prefix_path(cfg, params):
     pc = relay["capture"]["paged", "relay"]
     pa = (pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
           pc["h2c"], pc["pos"])
-    got = ck.paged_chai_fused_decode(*pa, emit_state=True)
-    err = _hold(got, kref.paged_chai_fused_decode_ref(*pa, emit_state=True))
-    emit_main = dict(case="prefix_relay_first_relay_step_layer0_emit_state",
+    kw = dict(emit_state=True,
+              reps_per_group=pc["kw"].get("reps_per_group", 1))
+    got = ck.paged_chai_fused_decode(*pa, **kw)
+    err = _hold(got, kref.paged_chai_fused_decode_ref(*pa, **kw))
+    emit_main = dict(case=f"{tag}_relay_first_relay_step_layer0_emit_state",
                      emit_state=True, pos=pc["pos"].tolist(), max_abs_err=err,
-                     ms=time_ms(lambda: ck.paged_chai_fused_decode(
-                         *pa, emit_state=True)),
+                     ms=time_ms(lambda: ck.paged_chai_fused_decode(*pa,
+                                                                   **kw)),
                      plain_ms=time_ms(lambda: kref.paged_chai_fused_decode_ref(
-                         *pa, emit_state=True)))
+                         *pa, **kw)))
     log(f"paged_chai_fused_decode state mode at the same step (suffix-only "
         f"tables, pos {emit_main['pos']}): max_abs_err {err:.3e}, kernel "
         f"{emit_main['ms']:.4f} ms, plain {emit_main['plain_ms']:.4f} ms")
-    return ({"prefix_plain": plain["launches"],
-             "prefix_relay": relay["launches"]}, relay_main, emit_main)
+    return ({f"{tag}_plain": plain["launches"],
+             f"{tag}_relay": relay["launches"]}, relay_main, emit_main)
 
 
 # ------------------------------------------------------------ phase 9 ----
@@ -2282,7 +2727,8 @@ def nemotron_path(cfg, params):
         f"{statistics.mean(r.ttft for r in paged['done']):.4f} s, dense "
         f"{statistics.mean(r.ttft for r in dense['done']):.4f} s")
     return ({"nemotron_paged": paged["launches"],
-             "nemotron_dense": dense["launches"]}, cases, dc, pc)
+             "nemotron_dense": dense["launches"]}, cases, dc, pc,
+            {layout: _run_summary(run) for layout, run in runs.items()})
 
 
 # ----------------------------------------------------------- phase 10 ----
@@ -2442,21 +2888,27 @@ def densified(t):
 def main():
     environment()
     build_kernels()
+    count_eager_decode()
     dense_cases = kernel_checks()
     paged_cases = paged_kernel_checks()
     emit_cases = emit_state_checks()
     relay_cases = relay_kernel_checks()
     flash_cases, prefix_cases = prefill_kernel_checks()
     pipe_cases = pipeline_kernel_checks()
+    decode_cases = flash_decode_checks()
     for arch in (ARCH, NEMO):
         reduced_reference_check(arch)
         reduced_continuous_check(arch)
+        reduced_mha_check(arch)
+        reduced_prefix_relay_check(arch)
     reduced_chunked_check()
-    reduced_prefix_relay_check()
     cfg, params = init_full_model()
-    cohort_launches, dense_main, cohort_cap = main_path(cfg, params)
-    cont_launches, paged_main, paged_mixed, mono, cont_cap = continuous_path(
-        cfg, params)
+    cohort_launches, dense_main, cohort_cap, cohort_mha = main_path(cfg,
+                                                                    params)
+    (cont_launches, paged_main, paged_mixed, mono, cont_cap,
+     cont_summary) = continuous_path(cfg, params)
+    mha_launches, mha_mains = mha_baseline_path(cfg, params, cont_summary,
+                                                "mha_continuous")
     chunked_launches, prefill_mains, path_cases = chunked_path(cfg, params,
                                                                mono)
     prefix_launches, relay_main, emit_main = prefix_path(cfg, params)
@@ -2466,8 +2918,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ncfg, nparams = init_full_model(NEMO)
-    nemo_launches, nemo_cases, nemo_dc, nemo_pc = nemotron_path(ncfg,
-                                                                nparams)
+    (nemo_launches, nemo_cases, nemo_dc, nemo_pc,
+     nemo_summary) = nemotron_path(ncfg, nparams)
+    nemo_mha_launches, nemo_mha = mha_baseline_path(
+        ncfg, nparams, nemo_summary, "nemotron_mha")
+    nemo_prefix_launches, nemo_relay, nemo_emit = prefix_path(
+        ncfg, nparams, tag="nemotron_prefix")
     del nparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -2500,10 +2956,11 @@ def main():
         rpg=r_max, mask_row=False,
         pages=(nemo_pc["k_pool"], nemo_pc["bt_k"],
                nemo_pc["v_pool"].repeat_interleave(qpk, 1), nemo_pc["bt_v"]))
-    by_path = {"cohort": cohort_launches, **cont_launches,
+    by_path = {"cohort": cohort_launches, "mha_cohort": cohort_mha,
+               **cont_launches, **mha_launches,
                "continuous_paged_chunked": chunked_launches,
-               **prefix_launches, **nemo_launches,
-               "pipeline_lane": lane_launches}
+               **prefix_launches, **nemo_launches, **nemo_mha_launches,
+               **nemo_prefix_launches, "pipeline_lane": lane_launches}
     mains = {"chai_fused_decode": (
                  dense_main, "cohort",
                  dense_cases + emit_cases["chai_fused_decode"]
@@ -2512,9 +2969,19 @@ def main():
                  paged_main, "continuous_paged",
                  paged_cases + emit_cases["paged_chai_fused_decode"]
                  + [paged_mixed, emit_main, paged_main]
-                 + nemo_cases["paged_chai_fused_decode"]),
+                 + nemo_cases["paged_chai_fused_decode"] + [nemo_emit]),
              "relay_prefix_decode": (relay_main, "prefix_relay",
-                                     relay_cases + [relay_main]),
+                                     relay_cases + [relay_main, nemo_relay]),
+             "flash_decode": (mha_mains["flash_decode"],
+                              "mha_continuous_dense",
+                              decode_cases["flash_decode"]
+                              + [mha_mains["flash_decode"],
+                                 nemo_mha["flash_decode"]]),
+             "paged_decode": (mha_mains["paged_decode"],
+                              "mha_continuous_paged",
+                              decode_cases["paged_decode"]
+                              + [mha_mains["paged_decode"],
+                                 nemo_mha["paged_decode"]]),
              "flash_prefill": (prefill_mains["flash_prefill"],
                                "continuous_paged_chunked",
                                flash_cases + path_cases["flash_prefill"]),

@@ -28,9 +28,8 @@ fused kernels run with ``reps_per_group = r_max``; the saving is compute
 only.
 
 Ported: the MHA and GQA branches, dense and paged, with the mixed-phase
-``write_mask``, and the relay decode for MHA, without int8 or
-``share_values``. GQA relay decode and local layers raise
-``NotImplementedError``.
+``write_mask``, and the relay decode for both, without int8 or
+``share_values``. Local layers raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -70,11 +69,8 @@ def chai_decode_attention(xn, p, cfg, state, gi, ai, chai_ctx, *,
         raise NotImplementedError("share_values / int8 CHAI decode is not "
                                   "ported yet: ROADMAP Queue 1 #3 / #2")
     if not cfg.is_mha:
-        if relay is not None:
-            raise NotImplementedError("relay decode for GQA models is not "
-                                      "ported yet: ROADMAP Queue 1 #17")
         return _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx,
-                                write_mask, decode_ts=decode_ts)
+                                write_mask, decode_ts=decode_ts, relay=relay)
     return _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask,
                             decode_ts=decode_ts, relay=relay)
 
@@ -128,6 +124,23 @@ def _relay_prefix_state(relay, gi, ai, q_rep, ts):
     return m_pb, l_pb, acc_pb
 
 
+def _relay_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, relay, gi,
+                  ai, ts, reps_per_group=1):
+    """One layer's relay decode over the paged pools: the suffix-only
+    fused pass in the state mode (rolled tables and the shifted ``pos``
+    drop the prefix pages from this launch), the group pass over the
+    packed prefix (``_relay_prefix_state``), merged and normalized per
+    slot. Returns (B, H, hd) fp32."""
+    shift = relay["len"] // k_pool.shape[2]
+    suffix = kops.paged_chai_decode_attention(
+        q_rep, k_pool, _roll_bt(bt_k, shift), v_pool, _roll_bt(bt_v, shift),
+        h2c, pos - relay["len"], reps_per_group=reps_per_group,
+        emit_state=True)
+    prefix = _relay_prefix_state(relay, gi, ai, q_rep, ts)
+    return kops.finalize_decode_state(
+        kops.merge_decode_states(suffix, prefix, h2c), h2c)
+
+
 def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
                      *, decode_ts=0, relay=None):
     b = xn.shape[0]
@@ -164,18 +177,10 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
             out = kops.paged_chai_decode_attention(
                 q_rep, cp, state["bt_kc"], vp, state["bt_vg"], gather_idx,
                 pos)
-            return out.to(xn.dtype)
-        # Suffix-only fused decode: rolled tables and the shifted pos drop
-        # the prefix pages from this launch; the group pass covers them.
-        shift = relay["len"] // page
-        suffix = kops.paged_chai_decode_attention(
-            q_rep, cp, _roll_bt(state["bt_kc"], shift), vp,
-            _roll_bt(state["bt_vg"], shift), gather_idx,
-            pos - relay["len"], emit_state=True)
-        prefix = _relay_prefix_state(relay, gi, ai, q_rep, decode_ts)
-        out = kops.finalize_decode_state(
-            kops.merge_decode_states(suffix, prefix, gather_idx),
-            gather_idx)
+        else:
+            out = _relay_decode(q_rep, cp, state["bt_kc"], vp,
+                                state["bt_vg"], gather_idx, pos, relay, gi,
+                                ai, decode_ts)
         return out.to(xn.dtype)
 
     kc = state["kg_chai"][gi]                     # (B, k, S, hd)
@@ -193,13 +198,16 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
 
 
 def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
-                     *, decode_ts=0):
+                     *, decode_ts=0, relay=None):
     """GQA clustered decode with per-request membership: each KV group's
     representative queries (``reps`` (B, KV, r)), flattened to rep rows
     g * r + j, attend the group's own K; head h of group g reads rep row
     g * r + cluster_of[b, g, h % qpk] and its group's V. The token's K/V
     rows are written per group (dense rectangles, or the dense pool's
-    pages). One fused launch with ``reps_per_group = r``."""
+    pages). One fused launch with ``reps_per_group = r``.
+
+    ``relay`` (paged): ``_relay_decode`` as for MHA, the group pass
+    routed by the engine's GQA maps."""
     b = xn.shape[0]
     hd, h, n_kv, qpk = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.q_per_kv
     pos = state["pos"]
@@ -219,9 +227,14 @@ def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
     if "kvp" in state:
         # Paged: K and V pages of one dense pool, read in place.
         pool = _paged_global_write(state, gi, k_new, v_new, pos, write_mask)
-        out = kops.paged_chai_decode_attention(
-            q_flat, pool, state["bt_kg"], pool, state["bt_vg"], h2c_flat,
-            pos, reps_per_group=r)
+        if relay is None:
+            out = kops.paged_chai_decode_attention(
+                q_flat, pool, state["bt_kg"], pool, state["bt_vg"],
+                h2c_flat, pos, reps_per_group=r)
+        else:
+            out = _relay_decode(q_flat, pool, state["bt_kg"], pool,
+                                state["bt_vg"], h2c_flat, pos, relay, gi, ai,
+                                decode_ts, reps_per_group=r)
         return out.to(xn.dtype)
     kc, vc = state["kg"][gi], state["vg"][gi]       # (B, KV, S, hd)
     ar = torch.arange(b, device=xn.device)

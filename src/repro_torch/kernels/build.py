@@ -10,8 +10,9 @@ bodies) and is compiled on first use with
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
 A library newer than its source and than every header in ``csrc/`` (the
-tile steps the decode, relay and prefill kernels include) is reused. A
-missing ``nvcc`` or a failed build raises: nothing falls back.
+tile steps the decode, relay, prefill and flash decode kernels include)
+is reused. A missing ``nvcc`` or a failed build raises: nothing falls
+back.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("chai_fused_decode", "paged_chai_fused_decode", "flash_prefill",
            "paged_prefix_attend", "relay_prefix_decode", "chai_qk",
-           "row_softmax", "chai_av")
+           "row_softmax", "chai_av", "flash_decode", "paged_decode")
 # Kernels whose launcher lives in another kernel's source.
 SOURCE_OF = {"chai_qk_i8": "chai_qk", "paged_chai_qk": "chai_qk",
              "paged_chai_av": "chai_av"}

@@ -11,6 +11,14 @@ prefill runs both in every global layer and merges the two states
 (``kernels.ops.merge_prefill_states``). Both kernels share the tile steps
 of ``csrc/flash_tiles.cuh``.
 
+``flash_decode`` launches ``csrc/flash_decode.cu`` (the port of the Pallas
+``flash_decode``): plain MHA/GQA decode attention of one query token over
+a dense (B, KV, S, hd) cache; ``paged_decode`` launches
+``csrc/paged_decode.cu`` (the port of the Pallas ``paged_decode``): the
+same over one shared K/V page pool read through block tables. The MHA
+baseline (CHAI off) decodes through them. Both share the block body of
+``csrc/decode_tiles.cuh``, so at ts == page they are bitwise equal.
+
 The wrappers take CUDA tensors only; the CPU path is the plain version in
 ``kernels.ref``, chosen by ``kernels.ops``. ``LAUNCHES`` counts each
 kernel's launches, one per successful launch.
@@ -21,10 +29,16 @@ import ctypes
 
 import torch
 
-LAUNCHES = {"flash_prefill": 0, "paged_prefix_attend": 0}
+from repro_torch.kernels.chai_attention import fused_tile_size
+
+LAUNCHES = {"flash_prefill": 0, "paged_prefix_attend": 0,
+            "flash_decode": 0, "paged_decode": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128, 256)     # flash_tiles.cuh: with_head_dim
+_DECODE_CHUNK = 128      # decode_tiles.cuh: kChunk, the longest step
+_DECODE_MAX_HD = 256     # decode_tiles.cuh: kMaxHd
+_DECODE_HEADS = 8        # decode_tiles.cuh: with_heads, query heads a block
 
 
 def _launcher(name, n_ptrs, n_ints):
@@ -175,3 +189,118 @@ def paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, *, k_scale_pool=None,
                            f"{err}")
     LAUNCHES["paged_prefix_attend"] += 1
     return m, l, acc
+
+
+def decode_step_size(ts: int) -> int:
+    """The decode kernels' online-softmax step for a tile of ``ts``
+    positions: ``ts`` itself up to 128 (every tile the engine and the
+    reference's sweeps use), else its largest divisor <= 128, so a step
+    never straddles a tile (or a page) and the block's shared memory stays
+    fixed whatever the tile."""
+    return max(d for d in range(1, min(ts, _DECODE_CHUNK) + 1) if ts % d == 0)
+
+
+def _check_decode(name, q, kv_heads, hd, pos):
+    """Checks both decode wrappers share; returns (hb, q_bf16): the
+    query heads each block serves and q's type flag."""
+    b, h = q.shape[:2]
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} launches a CUDA kernel; got tensors on "
+                         f"{q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: q must be fp32 or bf16; got {q.dtype}")
+    if q.ndim != 3 or kv_heads == 0 or h % kv_heads:
+        raise ValueError(f"{name}: q must be (B, H, hd) with KV={kv_heads} "
+                         f"dividing H; got {tuple(q.shape)}")
+    if hd % 8 or not 0 < hd <= _DECODE_MAX_HD:
+        raise ValueError(f"{name}: head_dim {hd} must be a multiple of 8 "
+                         f"and at most {_DECODE_MAX_HD} (16-byte row loads)")
+    if pos.shape != (b,):
+        raise ValueError(f"{name}: pos must be (B={b},); got "
+                         f"{tuple(pos.shape)}")
+    return min(h // kv_heads, _DECODE_HEADS), _DTYPES[q.dtype]
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, window=0, ts=0):
+    """Decode attention of one query token over a dense cache on the GPU.
+
+    q: (B, H, hd) fp32/bf16; k_cache/v_cache: (B, KV, S, hd) fp32/bf16,
+    contiguous (read in place); pos: (B,) int (the current position; keys
+    idx <= pos are visible, and pos - idx < window when window > 0). Head
+    h reads KV row h // (H // KV). ``ts``: the S-tile of the online
+    softmax (0: S; the whole sequence when it does not divide S, the
+    reference's rule). Returns (B, H, hd) fp32 from ONE kernel launch."""
+    b, h, hd = q.shape
+    hb, q_bf16 = _check_decode("flash_decode", q, k_cache.shape[1], hd, pos)
+    if (k_cache.ndim != 4 or k_cache.shape[0] != b
+            or k_cache.shape[3] != hd or v_cache.shape != k_cache.shape
+            or v_cache.dtype != k_cache.dtype
+            or k_cache.dtype not in _DTYPES):
+        raise ValueError(f"flash_decode: q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)} {k_cache.dtype}, v "
+                         f"{tuple(v_cache.shape)} {v_cache.dtype} do not "
+                         "match")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("flash_decode: the caches must be contiguous (they "
+                         "are read in place, never copied)")
+    dev = q.device
+    n_kv, s = k_cache.shape[1], k_cache.shape[2]
+    q = q.contiguous()
+    _check_aligned("flash_decode", q=q, k_cache=k_cache, v_cache=v_cache)
+    step = decode_step_size(fused_tile_size(ts, s))
+    p = pos.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    fn = _launcher("flash_decode", 5, 10)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 p.data_ptr(), out.data_ptr(), b, h, n_kv, s, hd, step,
+                 int(window), hb, q_bf16, _DTYPES[k_cache.dtype], stream)
+    if err:
+        raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def paged_decode(q, kv_pool, bt_k, bt_v, pos, *, window=0):
+    """``flash_decode`` over one shared K/V page pool on the GPU.
+
+    q: (B, H, hd) fp32/bf16; kv_pool: (nP, KV, page, hd) fp32/bf16, one
+    layer's pool, read in place (it must be contiguous already: a copy
+    would move the whole pool every call); bt_k/bt_v: (B, P) block tables
+    (K and V are distinct pages of the one pool; null entries name page 0
+    and lie past pos); pos: (B,). The logical length is P * page, the
+    tile is the page. Returns (B, H, hd) fp32 from ONE kernel launch,
+    bitwise equal to ``flash_decode`` of the densified pool at
+    ts == page."""
+    b, h, hd = q.shape
+    hb, q_bf16 = _check_decode("paged_decode", q, kv_pool.shape[1], hd, pos)
+    n_pages = bt_k.shape[-1]
+    if (kv_pool.ndim != 4 or kv_pool.shape[3] != hd
+            or kv_pool.dtype not in _DTYPES
+            or bt_k.shape != (b, n_pages) or bt_v.shape != (b, n_pages)):
+        raise ValueError(f"paged_decode: q {tuple(q.shape)}, kv_pool "
+                         f"{tuple(kv_pool.shape)} {kv_pool.dtype}, bt_k "
+                         f"{tuple(bt_k.shape)}, bt_v {tuple(bt_v.shape)} do "
+                         "not match")
+    if not kv_pool.is_contiguous():
+        raise ValueError("paged_decode: kv_pool must be contiguous (pools "
+                         "are read in place, never copied)")
+    dev = q.device
+    n_kv, page = kv_pool.shape[1], kv_pool.shape[2]
+    q = q.contiguous()
+    _check_aligned("paged_decode", q=q, kv_pool=kv_pool)
+    tables = [x.to(device=dev, dtype=torch.int32).contiguous()
+              for x in (bt_k, bt_v, pos)]
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    fn = _launcher("paged_decode", 6, 11)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q.data_ptr(), kv_pool.data_ptr(),
+                 *(x.data_ptr() for x in tables), out.data_ptr(), b, h,
+                 n_kv, n_pages, page, hd, decode_step_size(page),
+                 int(window), hb, q_bf16, _DTYPES[kv_pool.dtype], stream)
+    if err:
+        raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
+    LAUNCHES["paged_decode"] += 1
+    return out

@@ -5,9 +5,12 @@
 ``emit_state``, as the (m, l, acc) state that ``merge_decode_states``
 combines with ``relay_prefix_attention``'s group-batched pass over a
 shared prefix and ``finalize_decode_state`` normalizes (torch ops);
-``flash_prefill_attention`` and ``paged_prefix_attention`` are the two
-passes of the chunked prefill, whose states ``merge_prefill_states`` and
-``finalize_prefill_state`` combine (torch ops).
+``flash_decode_attention`` (dense cache) and ``paged_decode_attention``
+(one page pool through block tables) are plain MHA/GQA decode attention,
+the MHA baseline's (CHAI off); ``flash_prefill_attention`` and
+``paged_prefix_attention`` are the two passes of the chunked prefill,
+whose states ``merge_prefill_states`` and ``finalize_prefill_state``
+combine (torch ops).
 ``chai_three_kernel_decode`` and ``paged_chai_three_kernel_decode`` drive
 the reference's retired three-kernel decode (QK -> row softmax -> AV,
 the (B, R, S) scores in device memory between launches), kept as the
@@ -25,6 +28,27 @@ import torch
 from repro_torch.kernels import chai_attention as ck
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ref
+
+
+def flash_decode_attention(q, k_cache, v_cache, pos, *, window=0, ts=0):
+    """Decode attention of one query token per head over a dense cache.
+    q: (B, H, hd); k_cache/v_cache: (B, KV, S, hd), head h reading KV row
+    h // (H // KV); pos: (B,). ``ts``: the kernel's S-tile (0: S; the
+    engine passes its page size, so the dense and paged layouts round
+    alike). Returns (B, H, hd) fp32."""
+    if q.device.type == "cpu":
+        return ref.flash_decode_ref(q, k_cache, v_cache, pos, window=window)
+    return fk.flash_decode(q, k_cache, v_cache, pos, window=window, ts=ts)
+
+
+def paged_decode_attention(q, kv_pool, bt_k, bt_v, pos, *, window=0):
+    """``flash_decode_attention`` over one layer's page pool (nP, KV, page,
+    hd), read in place through the block tables bt_k/bt_v (B, P): no
+    densifying gather. Returns (B, H, hd) fp32."""
+    if q.device.type == "cpu":
+        return ref.paged_decode_ref(q, kv_pool, bt_k, bt_v, pos,
+                                    window=window)
+    return fk.paged_decode(q, kv_pool, bt_k, bt_v, pos, window=window)
 
 
 def chai_decode_attention(q_rep, k_cache, v_cache, h2c, pos, *,

@@ -18,6 +18,13 @@ order), ``row_softmax_ref`` (max clamped >= -1e30, sum >= 1e-37),
 ``chai_av_ref`` / ``paged_chai_av_ref`` (A row h2c[b, h] times V row h,
 summed over every position).
 
+The plain flash decode's: ``flash_decode_ref`` (one query token of every
+head over a dense cache; head h reads KV row h // (H // KV)) and
+``paged_decode_ref`` (the same over a page pool: densify, then
+``flash_decode_ref``), masked as the Pallas body masks (scores exactly
+NEG_INF outside idx <= pos and pos - idx < window) and normalized as it
+does, acc / max(l, 1e-37), in one shot over the row.
+
 The prefill kernels' plain versions: ``flash_prefill_ref`` (finalized
 causal attention, the reference's whole-row softmax oracle) and
 ``flash_prefill_state_ref`` (its ``emit_state`` form), and
@@ -233,6 +240,40 @@ def relay_prefix_decode_ref(q, k, v, k_row, a_row, v_row, plen):
         *a_row.shape, sp))                                 # (G, A, Sp)
     return m, p.sum(-1), torch.einsum("gas,gasd->gad", p_a,
                                       rows(v, v_row))
+
+
+def flash_decode_ref(q, k_cache, v_cache, pos, *, window=0):
+    """Plain version of ``flash_decode``. q: (B, H, hd); k_cache/v_cache:
+    (B, KV, S, hd); pos: (B,). Position idx is visible iff idx <= pos
+    (and pos - idx < window when window > 0); masked scores are NEG_INF;
+    m = max(max(sc), -1e30), p = exp(sc - m), out = (p . V) / max(sum(p),
+    1e-37). Returns (B, H, hd) fp32."""
+    b, h, hd = q.shape
+    n_kv, s = k_cache.shape[1], k_cache.shape[2]
+    qs = q.reshape(b, n_kv, h // n_kv, hd).float()
+    sc = torch.einsum("bkgd,bksd->bkgs", qs,
+                      k_cache.float()) * (1.0 / math.sqrt(hd))
+    idx = torch.arange(s, device=q.device)
+    p_ = pos.to(q.device).long()[:, None]
+    valid = idx[None, :] <= p_
+    if window:
+        valid &= (p_ - idx[None, :]) < window
+    sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
+    m = torch.clamp(sc.amax(-1, keepdim=True), min=-1e30)
+    p = torch.exp(sc - m)
+    acc = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
+    out = acc / torch.clamp(p.sum(-1, keepdim=True), min=1e-37)
+    return out.reshape(b, h, hd)
+
+
+def paged_decode_ref(q, kv_pool, bt_k, bt_v, pos, *, window=0):
+    """Plain version of ``paged_decode``: densify the pool through the
+    block tables (null entries read page 0, which ``pos`` masks), then
+    ``flash_decode_ref``. kv_pool: (nP, KV, page, hd); bt_k/bt_v: (B, P).
+    Returns (B, H, hd) fp32."""
+    return flash_decode_ref(q, gather_pages_ref(kv_pool, bt_k),
+                            gather_pages_ref(kv_pool, bt_v), pos,
+                            window=window)
 
 
 def _causal_scores(q, k, offset):

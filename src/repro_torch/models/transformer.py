@@ -327,7 +327,22 @@ def _paged_global_update(state, gi, k, v, pos, write_mask):
                                                             state["bt_vg"])
 
 
-def _plain_decode_attention(xn, p, cfg, state, gi, ai, write_mask=None):
+def _dense_global_write(state, gi, k, v, pos, write_mask):
+    """Dense-layout global-cache decode write: commit one token's K/V rows
+    at each slot's ``pos``, in place. Returns the layer's caches (B, KV,
+    S, hd)."""
+    kc, vc = state["kg"][gi], state["vg"][gi]
+    ar = torch.arange(k.shape[0], device=k.device)
+    pl = write_positions(pos, kc.shape[2])
+    kc[ar, :, pl, :] = _masked_rows(write_mask, k.to(kc.dtype),
+                                    kc[ar, :, pl, :])
+    vc[ar, :, pl, :] = _masked_rows(write_mask, v.to(vc.dtype),
+                                    vc[ar, :, pl, :])
+    return kc, vc
+
+
+def _plain_decode_attention(xn, p, cfg, state, gi, ai, write_mask=None,
+                            decode_ts=0):
     """MHA/GQA decode for one token. xn: (B, d). Returns (B, H, hd).
 
     Writes the token's K/V rows at ``pos`` (dense ``kg``/``vg``, or the
@@ -336,21 +351,30 @@ def _plain_decode_attention(xn, p, cfg, state, gi, ai, write_mask=None):
     attention probabilities over the first ``feature_window`` positions
     to the layer's clustering features (paper §3.3). ``write_mask`` (B,)
     bool: rows and features are committed only for masked slots (the
-    mixed-phase step runs this path alongside the CHAI path)."""
+    mixed-phase step runs this path alongside the CHAI path).
+
+    Without a ``chai_scores`` buffer (the MHA baseline: CHAI off) no
+    probabilities are needed, and the attention is the flash decode op:
+    over the paged pool in place (``kops.paged_decode_attention``, no
+    densifying gather), or over the dense cache with ``decode_ts`` (the
+    engine's page size) as its tile, so the two layouts round alike."""
     b = xn.shape[0]
     pos = state["pos"]
     q, k, v = attn_mod.project_qkv(xn[:, None], p, cfg, pos[:, None])
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
+    if "chai_scores" not in state:
+        if "kvp" in state:
+            pool = _paged_global_write(state, gi, k, v, pos, write_mask)
+            y = kops.paged_decode_attention(q, pool, state["bt_kg"],
+                                            state["bt_vg"], pos)
+        else:
+            kc, vc = _dense_global_write(state, gi, k, v, pos, write_mask)
+            y = kops.flash_decode_attention(q, kc, vc, pos, ts=decode_ts)
+        return y.to(q.dtype)
     if "kvp" in state:
         kc, vc = _paged_global_update(state, gi, k, v, pos, write_mask)
     else:
-        kc, vc = state["kg"][gi], state["vg"][gi]
-        ar = torch.arange(b, device=xn.device)
-        pl = write_positions(pos, kc.shape[2])
-        kc[ar, :, pl, :] = _masked_rows(write_mask, k.to(kc.dtype),
-                                        kc[ar, :, pl, :])
-        vc[ar, :, pl, :] = _masked_rows(write_mask, v.to(vc.dtype),
-                                        vc[ar, :, pl, :])
+        kc, vc = _dense_global_write(state, gi, k, v, pos, write_mask)
     s = kc.shape[2]
     kv_pos = torch.arange(s, dtype=torch.int32, device=xn.device).expand(b, s)
     y, probs = _decode_attention_batched(q, kc, vc, kv_pos, pos, 0,
@@ -372,8 +396,9 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
     ``chai_ctx`` (membership, see ``repro_torch.core.clustering``) routes
     every attention layer through Clustered Head Attention over the
     clustered K cache (``kg_chai``, or the paged pool ``cp``);
-    ``decode_ts`` is the S-tile size of the dense fused CHAI decode (the
-    engine passes its page size, the paged kernel's tile).
+    ``decode_ts`` is the S-tile size of the dense decode kernels (the
+    fused CHAI decode and, CHAI off, the flash decode; the engine passes
+    its page size, the paged kernels' tile).
 
     ``mixed_phase`` (continuous batching, with a ``chai_ctx``): WARMUP and
     STEADY slots share the batch. Both attention paths run for every
@@ -397,7 +422,8 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
         xn = rms_norm(h, p["ln"], cfg.norm_eps)
         if steady is not None:
             y_m = _plain_decode_attention(xn, p, cfg, state, gi, ai,
-                                          write_mask=~steady)
+                                          write_mask=~steady,
+                                          decode_ts=decode_ts)
             y_c = chai_mod.chai_decode_attention(
                 xn, p, cfg, state, gi, ai, chai_ctx, write_mask=steady,
                 decode_ts=decode_ts, relay=relay)
@@ -407,7 +433,8 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
                                                chai_ctx, decode_ts=decode_ts,
                                                relay=relay)
         else:
-            y = _plain_decode_attention(xn, p, cfg, state, gi, ai)
+            y = _plain_decode_attention(xn, p, cfg, state, gi, ai,
+                                        decode_ts=decode_ts)
         h = h + torch.einsum("bhe,hed->bd", y, p["wo"])
         pf = _layer(params["ffn"], plan["dense"][i])
         xf = rms_norm(h, pf["ln"], cfg.norm_eps)

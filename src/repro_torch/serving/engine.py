@@ -60,10 +60,16 @@ Two schedulers (``EngineConfig.scheduler``):
 
 * ``"cohort"``: the lockstep path (``serving.cohort``).
 
-GQA models (``nemotron-4-15b``) run every path above except the prefix
-cache and relay decode: membership is per KV group, the K cache stays
-per group (no clustered pool; no pages are freed at CLUSTER) and both
-fused kernels run with ``reps_per_group = r_max``.
+GQA models (``nemotron-4-15b``) run every path above: membership is
+per KV group, the K cache stays per group (no clustered pool; no pages
+are freed at CLUSTER) and both fused kernels run with ``reps_per_group
+= r_max``. Their prefix cache reuses the radix tree's dense pages only
+(no CHAI snapshot: as in the reference, snapshots need the clustered
+pool), and relay decode routes each KV group's reps to its K row.
+
+With ``use_chai=False`` (the MHA baseline) every decode step runs the
+flash decode kernels: ``paged_decode`` on the paged pool in place,
+``flash_decode`` on the dense layouts (either scheduler).
 
 This port decodes greedily. Not ported yet, and refused with
 ``NotImplementedError``: sampling with temperature > 0, stop strings,
@@ -242,13 +248,6 @@ class EngineCore(CohortSchedulerMixin):
             raise NotImplementedError(
                 "kv_offload (host-memory KV tiers) is not ported yet: "
                 "ROADMAP Queue 1, hierarchical KV tiers")
-        if not cfg.is_mha:
-            for flag, what in ((ecfg.relay_decode, "relay_decode"),
-                               (ecfg.prefix_cache, "prefix_cache")):
-                if flag:
-                    raise NotImplementedError(
-                        f"{what} on a GQA model ({cfg.name}) is not ported "
-                        "yet: ROADMAP Queue 1 #17")
         if ecfg.prefix_cache:
             if not self.paged:
                 raise ValueError("prefix_cache requires the paged KV "
@@ -1042,28 +1041,43 @@ class EngineCore(CohortSchedulerMixin):
         """Per-layer routing maps of the group-batched prefix pass (see
         ``core.chai_attention._relay_prefix_state``), cached per (ctx
         version, membership). Member j of a group owns query rows
-        [j*R, (j+1)*R) (its reps, read from the chain's dense K rows) and
-        acc rows [j*H, (j+1)*H) (its heads: query row j*R + h2c[h], V row
-        h). Padded member entries keep index 0: their rows compute values
-        the per-slot scatter discards."""
+        [j*R, (j+1)*R) and acc rows [j*H, (j+1)*H). MHA (R = k_max reps):
+        query row j*R + i reads the chain's dense K row reps[i]; head h
+        reads query row j*R + h2c[h] and V row h. GQA (R = KV * r reps,
+        r per KV group): query row j*R + g*r + i reads its group's K row
+        g; head h of group g reads query row j*R + g*r + cluster_of[g,
+        h % qpk] and V row g. Padded member entries keep index 0: their
+        rows compute values the per-slot scatter discards."""
         key = (self._ctx_version,
                tuple((id(g["node"]), tuple(g["members"])) for g in groups))
         if (self._relay_rows_cache is not None
                 and self._relay_rows_cache[0] == key):
             return self._relay_rows_cache[1]
         ctx = self._ctx_host()
-        reps, h2c = ctx["reps"], ctx["h2c"]     # (nA, B, R), (nA, B, H)
-        n_a, _, r = reps.shape
-        h = h2c.shape[-1]
+        if self.cfg.is_mha:
+            k_rows, a_rows = ctx["reps"], ctx["h2c"]  # (nA, B, R), (nA, B, H)
+            n_a, _, r = k_rows.shape
+            h = a_rows.shape[-1]
+            v_rows = np.arange(h, dtype=np.int32)
+        else:
+            # reps (nA, B, KV, r), cluster_of (nA, B, KV, qpk)
+            cluster_of = ctx["cluster_of"]
+            n_a, b, n_kv, r_g = ctx["reps"].shape
+            qpk = cluster_of.shape[-1]
+            r, h = n_kv * r_g, n_kv * qpk
+            group = np.arange(n_kv, dtype=np.int32)
+            k_rows = np.broadcast_to(np.repeat(group, r_g), (n_a, b, r))
+            a_rows = (group[:, None] * r_g + cluster_of).reshape(n_a, b, h)
+            v_rows = np.repeat(group, qpk)
         n_g = len(groups)
         k_row = np.zeros((n_a, n_g, nmax * r), np.int32)
         a_row = np.zeros((n_a, n_g, nmax * h), np.int32)
         v_row = np.zeros((n_a, n_g, nmax * h), np.int32)
         for g, grp in enumerate(groups):
             for j, slot in enumerate(grp["members"]):
-                k_row[:, g, j * r:(j + 1) * r] = reps[:, slot]
-                a_row[:, g, j * h:(j + 1) * h] = j * r + h2c[:, slot]
-                v_row[:, g, j * h:(j + 1) * h] = np.arange(h, dtype=np.int32)
+                k_row[:, g, j * r:(j + 1) * r] = k_rows[:, slot]
+                a_row[:, g, j * h:(j + 1) * h] = j * r + a_rows[:, slot]
+                v_row[:, g, j * h:(j + 1) * h] = v_rows
         maps = {name: torch.from_numpy(x).to(self.device)
                 for name, x in (("k_row", k_row), ("a_row", a_row),
                                 ("v_row", v_row))}

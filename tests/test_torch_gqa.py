@@ -22,8 +22,9 @@ one group hides.
   1e-3. The paged page accounting is held step by step (GQA frees no page
   at CLUSTER).
 * Inside the port: paged, dense and cohort give identical tokens.
-* ``relay_decode`` and ``prefix_cache`` on a GQA model raise
-  ``NotImplementedError``.
+* ``relay_decode`` and ``prefix_cache`` on a GQA model are accepted (a
+  request served through the cache); relay without the cache is refused
+  with the MHA model's ``ValueError``.
 """
 import numpy as np
 import pytest
@@ -255,6 +256,22 @@ def test_layouts_and_schedulers_agree_inside_the_port(models):
                                 dict(relay_decode=True)],
                          ids=["prefix_cache", "relay", "relay_alone"])
 def test_gqa_prefix_cache_and_relay_refused(models, kw):
+    """A GQA model takes ``prefix_cache`` and ``relay_decode`` as an MHA
+    model does (they were refused until the GQA branch was ported): the
+    engine serves a request through the cache, and relay decode without
+    the prefix cache is refused with the MHA model's ``ValueError``.
+    ``tests/test_torch_gqa_prefix_relay.py`` holds both against the
+    reference."""
     _, _, tcfg, _, tparams = models
-    with pytest.raises(NotImplementedError, match="Queue 1 #17"):
-        ServingEngine(tcfg, tparams, EngineConfig(**kw), device="cpu")
+    ecfg = EngineConfig(**_engine_cfg(kw))
+    if not kw.get("prefix_cache"):
+        with pytest.raises(ValueError, match="relay_decode requires"):
+            ServingEngine(tcfg, tparams, ecfg, device="cpu")
+        return
+    eng = ServingEngine(tcfg, tparams, ecfg, device="cpu")
+    assert eng.prefix_cache is not None and eng.chai_pool is None
+    assert eng.relay_decode == bool(kw.get("relay_decode"))
+    eng.submit(list(range(20)), max_new_tokens=3, uid=0)
+    assert [len(r.generated) for r in eng.run()] == [3]
+    eng.prefix_cache.clear()
+    assert eng.dense_pool.pages_in_use == 0

@@ -36,7 +36,8 @@ def test_port_files_exist():
                  "chai_decode_tiles.cuh", "flash_prefill.cu",
                  "paged_prefix_attend.cu", "flash_tiles.cuh",
                  "relay_prefix_decode.cu", "chai_qk.cu", "row_softmax.cu",
-                 "chai_av.cu"):
+                 "chai_av.cu", "flash_decode.cu", "paged_decode.cu",
+                 "decode_tiles.cuh"):
         assert (csrc / name).exists(), name
 
 

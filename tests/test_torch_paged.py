@@ -378,4 +378,4 @@ def test_build_treats_a_newer_header_as_stale(monkeypatch, tmp_path):
     assert build.KERNELS == ("chai_fused_decode", "paged_chai_fused_decode",
                              "flash_prefill", "paged_prefix_attend",
                              "relay_prefix_decode", "chai_qk", "row_softmax",
-                             "chai_av")
+                             "chai_av", "flash_decode", "paged_decode")
