@@ -112,6 +112,26 @@ decode kernels' ``emit_state`` mode (against the plain versions; paged
 == dense bitwise; emit + merge with the empty state + finalize equal to
 the finalized launch bit for bit); phase 4 also runs the reduced engine
 with ``prefix_cache=True, relay_decode=True``, cuda against cpu.
+
+The fused decode pair's block body cuts S into whole-tile splits (the
+plan of ``kernels.chai_attention.split_plan``) merged in split order
+inside the launch, with fixed shared memory. Phase 3 also holds both
+kernels at 2e-5 on split cases at full width (bf16, page 16): several
+splits with a partial last one, rows whose splits past the first lie
+beyond pos (one at pos 0), a WARMUP-like row (every head in rep 0, an
+all-null K table), nemotron's GQA shape, and one row of S = 65,536 (MHA
+and GQA), above the shared-memory cap the first design had; on each,
+paged == dense ``torch.equal`` at page = tile, two launches bitwise
+equal, and emit + empty-state merge + finalize bitwise equal to the
+finalized launch; and ``relay_prefix_decode`` at Sp = 65,536 (two
+groups, plen 65,536 and 50,000; each acc row held over its l at 2e-5,
+since the raw sums over that many positions round apart by ~1e-7 of
+l). Phase 10 also logs, for each input,
+the fused kernel's device time over the pipeline's three-kernel device
+time and over its bound. The ``kernels`` rows of ``row_softmax``,
+``flash_decode`` and ``flash_prefill`` carry the library call's device
+time (``library_device_ms``, every kernel of the call in a
+``torch.profiler`` trace) beside its back-to-back ``library_ms``.
 """
 from __future__ import annotations
 
@@ -316,6 +336,14 @@ def device_ms(fn, kernel, reps=20, tries=3):
         if count and total_us:
             return total_us / count / 1e3
     return None
+
+
+def library_device_ms(fn):
+    """Device time of one call of a PyTorch library ``fn``: every CUDA
+    kernel it launches, from a ``torch.profiler`` trace (``device_profile``);
+    None when no trace holds device time."""
+    prof = device_profile(fn)
+    return sum(prof.values()) if prof else None
 
 
 def single_call_ms(fn, reps=20):
@@ -598,6 +626,8 @@ def flash_case(q, k, v, *, offset=0, emit_state=True, library=False):
         lib = sdpa(qh, kh, vh, is_causal=True).transpose(1, 2)
         fin = fk.flash_prefill(q, k, v)
         rec["library_ms"] = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
+        rec["library_device_ms"] = library_device_ms(
+            lambda: sdpa(qh, kh, vh, is_causal=True))
         rec["finalized_ms"] = time_ms(lambda: fk.flash_prefill(q, k, v))
         rec["library_vs_kernel_max_abs_diff"] = _max_err(lib, fin)
     return rec
@@ -801,17 +831,33 @@ def relay_bound(q, k, k_row, a_row, v_row, plen):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def relay_case(q, k, v, k_row, a_row, v_row, plen, ts):
+def _per_l(state, a_row):
+    """A relay state with each acc row over its query row's l: the
+    quantity the merge and the finalize carry on, at the scale of one
+    attention output."""
+    m, l, acc = state
+    return m, l, acc / torch.gather(l, 1, a_row.long())[..., None]
+
+
+def relay_case(q, k, v, k_row, a_row, v_row, plen, ts, *, per_l=False):
     """``relay_prefix_decode`` against its plain version (2e-5); returns
-    the case's record with its times and bound."""
+    the case's record with its times and bound. ``per_l``: hold each acc
+    row over its l (and record the raw acc's error): over tens of
+    thousands of positions the raw acc and l are sums of that many terms
+    of up to 1, which two summation orders round apart by ~1e-7 of l."""
     args = (q, k, v, k_row, a_row, v_row, plen)
     got = ck.relay_prefix_decode(*args, ts=ts)
     torch.cuda.synchronize()
-    err = _hold(got, kref.relay_prefix_decode_ref(*args))
+    want = kref.relay_prefix_decode_ref(*args)
+    if per_l:
+        raw_err = _max_err(got, want)
+        got, want = _per_l(got, a_row), _per_l(want, a_row)
+    err = _hold(got, want)
     bound, by = relay_bound(q, k, k_row, a_row, v_row, plen)
+    extra = dict(held="acc / l", raw_max_abs_err=raw_err) if per_l else {}
     return dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
                 a=a_row.shape[1], dtype=str(k.dtype), ts=ts,
-                plen=plen.tolist(), max_abs_err=err,
+                plen=plen.tolist(), max_abs_err=err, **extra,
                 ms=time_ms(lambda: ck.relay_prefix_decode(*args, ts=ts)),
                 plain_ms=time_ms(lambda: kref.relay_prefix_decode_ref(*args)),
                 bound_ms=bound, bound_by=by)
@@ -857,6 +903,157 @@ def relay_kernel_checks():
             f"{case['plain_ms']:.4f} ms bound {case['bound_ms']:.4f} ms "
             f"({case['bound_by']})")
     return cases
+
+
+# ------------------------------------------ phase 3: split-S decode ----
+def _bitwise(name, got, want):
+    """``torch.equal`` of two outputs or two state triples, or raise."""
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    if not all(torch.equal(g, w) for g, w in pairs):
+        raise AssertionError(f"{name}: max abs diff "
+                             f"{_max_err(got, want):.3e}")
+
+
+def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=()):
+    """Both fused kernels on one input, the same K/V also on shuffled
+    pool pages (rows ``null_k_rows`` with an all-null K table, as a
+    WARMUP row of a mixed step): each against the plain version (2e-5),
+    paged ``torch.equal`` to dense at page = tile (dense reads the
+    densified pools), each launched twice with equal bits, and emit +
+    merge with the empty state + finalize equal to the finalized launch
+    bit for bit. Returns {kernel: record}."""
+    k_pool, bt_k = to_pages(gen, k)
+    v_pool, bt_v = to_pages(gen, v)
+    for row in null_k_rows:
+        bt_k[row] = 0
+    kd = kref.gather_pages_ref(k_pool, bt_k)
+    vd = kref.gather_pages_ref(v_pool, bt_v)
+    pa = (q, k_pool, bt_k, v_pool, bt_v, h2c, pos)
+    calls = {
+        "chai_fused_decode": lambda emit=False: ck.chai_fused_decode(
+            q, kd, vd, h2c, pos, reps_per_group=rpg, ts=PAGE,
+            emit_state=emit),
+        "paged_chai_fused_decode": lambda emit=False: (
+            ck.paged_chai_fused_decode(*pa, reps_per_group=rpg,
+                                       emit_state=emit))}
+    want = kref.paged_chai_fused_decode_ref(*pa, reps_per_group=rpg)
+    plain = lambda: kref.chai_fused_decode_ref(  # noqa: E731
+        q, kd, vd, h2c, pos, reps_per_group=rpg)
+    outs, states = {}, {}
+    for name, call in calls.items():
+        outs[name] = call()
+        again = call()
+        states[name] = call(True)
+        torch.cuda.synchronize()
+        _bitwise(f"{tag} {name}: two launches", again, outs[name])
+        merged = kops.finalize_decode_state(kops.merge_decode_states(
+            states[name], _identity_state(*q.shape[:2], h2c.shape[1],
+                                          q.shape[2]), h2c), h2c)
+        _bitwise(f"{tag} {name}: emit + identity merge + finalize vs the "
+                 "finalized launch", merged, outs[name])
+    _bitwise(f"{tag}: paged vs dense at page = tile",
+             outs["paged_chai_fused_decode"], outs["chai_fused_decode"])
+    _bitwise(f"{tag}: paged vs dense state",
+             states["paged_chai_fused_decode"], states["chai_fused_decode"])
+    cfg, _ = ck.dense_launch_config(q, kd, h2c, reps_per_group=rpg, ts=PAGE)
+    lib_smem = build.load("chai_fused_decode").chai_decode_smem_bytes(
+        rpg, q.shape[2], h2c.shape[1], cfg.n_cap)
+    if lib_smem != cfg.smem_bytes:
+        raise AssertionError(f"{tag}: the kernel's block takes {lib_smem} B "
+                             "of shared memory, the host's mirror says "
+                             f"{cfg.smem_bytes}")
+    plain_ms = time_ms(plain, reps=5, warmup=1)
+    recs = {}
+    for name, call in calls.items():
+        kk, vv, tables = ((kd, vd, ()) if name == "chai_fused_decode"
+                          else (k_pool, v_pool, (bt_k, bt_v)))
+        bound, by = fused_decode_bound(q, kk, vv, h2c, pos, rpg,
+                                       tables=tables)
+        recs[name] = dict(
+            case=tag, q=list(q.shape), k=list(k.shape), v=list(v.shape),
+            dtype=str(k.dtype), page=PAGE, rpg=rpg, pos=pos.tolist(),
+            n_split=cfg.n_split, tiles_per_split=cfg.tiles_per_split,
+            smem_bytes=cfg.smem_bytes,
+            max_abs_err=_hold(outs[name], want), ms=time_ms(call),
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            bitwise_equal_dense=True, repeat_bitwise=True,
+            identity_merge_finalize_equal=True)
+        r = recs[name]
+        log(f"{name} {tag}: q {tuple(q.shape)} k {tuple(k.shape)} rpg "
+            f"{rpg} pos {r['pos']} splits {cfg.n_split} x "
+            f"{cfg.tiles_per_split} tiles; max_abs_err "
+            f"{r['max_abs_err']:.3e}; paged == dense, repeat == repeat, "
+            f"emit identity: bitwise; kernel {r['ms']:.4f} ms plain "
+            f"{plain_ms:.4f} ms bound {bound:.4f} ms ({by})")
+    return recs
+
+
+def split_decode_checks():
+    """The fused decode pair's split-S cases at full width (hd 128, bf16,
+    page 16): several splits with a partial last one, all live; rows whose
+    splits past the first lie beyond pos (one at pos 0); a WARMUP-like
+    row (every head in rep 0, an all-null K table); nemotron's GQA shape
+    (48 heads over 8 KV groups, 5 reps each); and one row of S = 65,536,
+    above the old shared-memory cap (about 48,800 positions dense), MHA
+    and GQA. Then ``relay_prefix_decode`` at Sp = 65,536 against its
+    plain version. Returns ({kernel: [records]}, [relay records])."""
+    gen = torch.Generator("cuda").manual_seed(6)
+    k_max = get_config(ARCH).k_max
+    mha = dict(h=32, kv=k_max, rpg=1, hd=128, dtype=torch.bfloat16,
+               empty_rep=7)
+    gqa = dict(h=48, kv=8, rpg=5, hd=128, dtype=torch.bfloat16,
+               empty_rep=None)
+    cases = {"chai_fused_decode": [], "paged_chai_fused_decode": []}
+    for tag, kw, b, s, pos, warm in (
+            ("splits_partial_last", mha, 4, MAX_SEQ, (1023, 1000, 900, 885),
+             False),
+            ("first_split_only_rows", mha, 4, MAX_SEQ, (10, 0, 150, 700),
+             False),
+            ("warmup_row", mha, 4, MAX_SEQ, None, True),
+            ("nemotron_gqa", gqa, 4, MAX_SEQ, None, False),
+            ("long_65536_mha", mha, 1, 65536, (65535,), False),
+            ("long_65536_gqa", gqa, 1, 65536, (65535,), False)):
+        q, k, v, h2c, p = synthetic_case(gen, b=b, s=s, **kw)
+        if pos is not None:
+            p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        if warm:
+            h2c[1] = 0
+        recs = fused_pair_case(tag, q, k, v, h2c, p, rpg=kw["rpg"], gen=gen,
+                               null_k_rows=(1,) if warm else ())
+        for name, rec in recs.items():
+            cases[name].append(rec)
+        del q, k, v
+        torch.cuda.empty_cache()
+    relay = []
+    dev = "cuda"
+    r, h, hd, sp, nmax = k_max, 32, 128, 65536, 4
+    plen = torch.tensor([sp, 50000], dtype=torch.int32, device=dev)
+    g = len(plen)
+    q = torch.randn(g, nmax * r, hd, generator=gen, device=dev)
+    k = torch.randn(g, h, sp, hd, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn(g, h, sp, hd, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k_row = torch.stack([torch.cat([torch.randperm(
+        h, generator=gen, device=dev)[:r] for _ in range(nmax)])
+        for _ in range(g)]).int()
+    a_row = torch.stack([torch.cat([j * r + torch.randint(
+        0, r, (h,), generator=gen, device=dev) for j in range(nmax)])
+        for _ in range(g)]).int()
+    v_row = torch.arange(h, device=dev).repeat(g, nmax).int()
+    case = dict(case="long_65536_g2_bfloat16",
+                **relay_case(q, k, v, k_row, a_row, v_row, plen, PAGE,
+                             per_l=True))
+    relay.append(case)
+    log(f"relay_prefix_decode {case['case']}: q {tuple(q.shape)} k "
+        f"{tuple(k.shape)} plen {case['plen']} max_abs_err (acc / l) "
+        f"{case['max_abs_err']:.3e} (raw state "
+        f"{case['raw_max_abs_err']:.3e}) kernel {case['ms']:.4f} ms plain "
+        f"{case['plain_ms']:.4f} ms bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return cases, relay
 
 
 # ------------------------------------------- phase 3: the pipeline ----
@@ -938,6 +1135,8 @@ def pipe_case(name, call, plain, bound, *, library=None, profile=False):
     rec = dict(max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain),
                bound_ms=bound[0], bound_by=bound[1],
                library_ms=time_ms(library) if library else None)
+    if library and profile:
+        rec["library_device_ms"] = library_device_ms(library)
     if name in ("chai_qk", "chai_qk_i8", "paged_chai_qk"):
         rec["masked_entries"] = n_masked
     if profile:
@@ -1172,6 +1371,8 @@ def flash_decode_case(name, args, *, window=0, ts=0, library=False,
         lib = sdpa_call(q, k, v, pos, window)
         rec["library_ms"] = time_ms(lib)
         rec["library_vs_kernel_max_abs_diff"] = _max_err(lib(), got)
+        if profile:
+            rec["library_device_ms"] = library_device_ms(lib)
     return rec, got
 
 
@@ -2863,6 +3064,29 @@ def pipeline_lane(inputs):
                     b, h, r, s, hd, cache_bytes=cache, fused=False),
                 "fused": kops.decode_hbm_bytes_estimate(
                     b, h, r, s, hd, cache_bytes=cache, fused=True)})
+        if fused_name:
+            h2c = t["h2c"]
+            if h2c.ndim == 1:
+                h2c = h2c.expand(b, h)
+            kv = ((t["k_pool"], t["v_pool"]) if kind == "paged"
+                  else (t["k"], t["v"]))
+            tables = (t["bt_k"], t["bt_v"]) if kind == "paged" else ()
+            bound, _ = fused_decode_bound(t["q"], *kv, h2c, t["pos"], rpg,
+                                          tables=tables)
+            rec.update(fused_bound_ms=bound)
+            if rec["fused_device_ms"]:
+                rec.update(
+                    fused_over_pipeline_device=(
+                        rec["fused_device_ms"]
+                        / rec["pipeline_device_ms_three_kernels"]),
+                    fused_over_bound=rec["fused_device_ms"] / bound)
+                log(f"lane {label}: fused device "
+                    f"{rec['fused_device_ms']:.4f} ms = "
+                    f"{rec['fused_over_pipeline_device']:.3f} x the "
+                    f"pipeline's three kernels "
+                    f"({rec['pipeline_device_ms_three_kernels']:.4f} ms), "
+                    f"{rec['fused_over_bound']:.1f} x its bound "
+                    f"({bound:.4f} ms)")
         records.append(rec)
         log(f"lane {label} ({kind}, q {tuple(t['q'].shape)}, rpg {rpg}, "
             f"int8 {int8}): launches pipeline {rec['launches_pipeline']} "
@@ -2893,6 +3117,7 @@ def main():
     paged_cases = paged_kernel_checks()
     emit_cases = emit_state_checks()
     relay_cases = relay_kernel_checks()
+    split_cases, long_relay = split_decode_checks()
     flash_cases, prefix_cases = prefill_kernel_checks()
     pipe_cases = pipeline_kernel_checks()
     decode_cases = flash_decode_checks()
@@ -2964,14 +3189,17 @@ def main():
     mains = {"chai_fused_decode": (
                  dense_main, "cohort",
                  dense_cases + emit_cases["chai_fused_decode"]
+                 + split_cases["chai_fused_decode"]
                  + [dense_main] + nemo_cases["chai_fused_decode"]),
              "paged_chai_fused_decode": (
                  paged_main, "continuous_paged",
                  paged_cases + emit_cases["paged_chai_fused_decode"]
+                 + split_cases["paged_chai_fused_decode"]
                  + [paged_mixed, emit_main, paged_main]
                  + nemo_cases["paged_chai_fused_decode"] + [nemo_emit]),
              "relay_prefix_decode": (relay_main, "prefix_relay",
-                                     relay_cases + [relay_main, nemo_relay]),
+                                     relay_cases + long_relay
+                                     + [relay_main, nemo_relay]),
              "flash_decode": (mha_mains["flash_decode"],
                               "mha_continuous_dense",
                               decode_cases["flash_decode"]
@@ -3006,6 +3234,7 @@ def main():
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case.get("library_ms"),
+            library_device_ms=main_case.get("library_device_ms"),
             single_call_ms=main_case["single_call_ms"],
             device_ms=main_case["device_ms"], cases=cases))
         if not rows[-1]["launches"]:

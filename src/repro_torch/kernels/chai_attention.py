@@ -10,8 +10,13 @@ the plain version in ``kernels.ref``, chosen by ``kernels.ops``.
 ``paged_chai_fused_decode`` launches ``csrc/paged_chai_fused_decode.cu``
 (the port of the Pallas ``paged_chai_fused_decode``): the same function
 over block-table page pools, the continuous engine's STEADY decode. Both
-kernels run one block body (``csrc/chai_decode_tiles.cuh``), so at equal
-tile size (dense ``ts`` == page) their outputs are bitwise equal.
+kernels run one block body (``csrc/chai_decode_tiles.cuh``): one block per
+(S split, batch row, K row), the S axis streamed with fixed shared memory
+(no sequence length is refused) and the splits merged in split order
+inside the same launch. ``split_plan`` cuts S from (B, K rows, tiles)
+alone and both wrappers call it, so at equal tile size (dense ``ts`` ==
+page) their outputs are bitwise equal; ``decode_launch_config`` also
+gives the block's shared memory.
 
 Both take ``emit_state``: instead of the finalized output they return
 the unnormalized online-softmax state (m (B, R), l (B, R), acc (B, H,
@@ -22,6 +27,7 @@ with ``relay_prefix_decode``'s state and finalizes in torch.
 of the Pallas ``relay_prefix_decode``): one pass per relay group over a
 packed shared prefix, the member slots' rep queries stacked on one row
 axis and routed by three int32 maps; it emits the same kind of state.
+It runs the same streamed block body with one split.
 
 The three-kernel pipeline (the reference's retired decode, kept as the
 fused kernels' baseline): ``chai_qk``, ``chai_qk_i8`` and
@@ -38,6 +44,7 @@ so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -49,12 +56,119 @@ LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0,
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 
+# chai_decode_tiles.cuh: the block body's constants
+_CHUNK = 128            # kChunk: positions per chunk, the longest step
+_THREADS = 128          # kThreads
+_MAX_Q = 8              # kMaxQ: rep queries of one K row (reps_per_group)
+_MAX_HD = 256           # kMaxHd
+_MAX_SPLIT = 64         # kMaxSplit
+_SLICE = 8              # kSlice: members (accumulator rows) of a block
+_RED_VEC = 8            # kRedVec
+_TAB = _CHUNK + 2       # kTab
+# The split plan: aim at sixteen blocks per SM of the H100's 132 (short
+# splits keep each block's chain of memory round trips short; the card
+# holds that many blocks of this size at once), and cut no split shorter
+# than four tiles (64 positions at the engine's page of 16).
+SPLIT_TARGET_BLOCKS = 16 * 132
+SPLIT_MIN_TILES = 4
+
 
 def fused_tile_size(ts: int, s: int) -> int:
     """The S-tile the kernel uses: ``ts`` capped at S, and the whole
     sequence when ``ts`` does not divide it (the reference's rule)."""
     ts = min(ts, s) if ts else s
     return s if s % ts else ts
+
+
+def decode_step_size(ts: int) -> int:
+    """The decode kernels' online-softmax step for a tile of ``ts``
+    positions: ``ts`` itself up to 128 (every tile the engine and the
+    reference's sweeps use), else its largest divisor <= 128, so a step
+    never straddles a tile (or a page) and the block's shared memory stays
+    fixed whatever the tile."""
+    return max(d for d in range(1, min(ts, _CHUNK) + 1) if ts % d == 0)
+
+
+class DecodeLaunch(NamedTuple):
+    """How a fused decode call is cut: ``n_split`` ranges of
+    ``tiles_per_split`` whole tiles (the last may be shorter), ``n_cap``
+    member heads (accumulator rows) per block, and the block's dynamic
+    shared memory in bytes (``block_smem_bytes`` of
+    ``csrc/chai_decode_tiles.cuh``)."""
+    n_split: int
+    tiles_per_split: int
+    n_cap: int
+    smem_bytes: int
+
+
+def split_plan(b: int, k_rows: int, n_tiles: int):
+    """(n_split, tiles_per_split) of a call with ``b`` batch rows,
+    ``k_rows`` K rows per batch row (the work units are b * k_rows) and
+    ``n_tiles`` tiles per row: enough splits that units x splits reaches
+    ``SPLIT_TARGET_BLOCKS``, at most ``_MAX_SPLIT``, none shorter than
+    ``SPLIT_MIN_TILES`` tiles. It reads no layout and no ``pos``, so the
+    dense and the paged call at equal shapes cut alike."""
+    want = min(_MAX_SPLIT, max(1, -(-SPLIT_TARGET_BLOCKS // (b * k_rows))))
+    per = max(-(-n_tiles // want), SPLIT_MIN_TILES)
+    return -(-n_tiles // per), per
+
+
+def split_ranges(b: int, k_rows: int, n_tiles: int):
+    """The tile ranges [t0, t1) of the splits, in order (the kernel's
+    s * tps .. min(n_tiles, (s + 1) * tps))."""
+    n_split, per = split_plan(b, k_rows, n_tiles)
+    return [(s * per, min(n_tiles, (s + 1) * per)) for s in range(n_split)]
+
+
+def _query_bucket(nq: int) -> int:
+    return next(k for k in (1, 2, 4, _MAX_Q) if nq <= k)
+
+
+def block_smem_bytes(kq: int, hd: int, n_map: int, n_cap: int) -> int:
+    """``block_smem_bytes`` of ``csrc/chai_decode_tiles.cuh``: the block's
+    queries, a chunk of scores and of step factors per query, the AV
+    partials, n_cap accumulator rows, the merge factors and m/l/A (fp32),
+    then the member list (3 ints per map entry), the chunk's block-table
+    entries and two flags. No term depends on the sequence length."""
+    floats = (kq * hd + 2 * kq * _CHUNK + _THREADS * _RED_VEC + n_cap * hd
+              + kq * _MAX_SPLIT + 3 * kq)
+    ints = 3 * n_map + 2 * _TAB + 2
+    return (floats + ints) * 4
+
+
+def decode_launch_config(b: int, k_rows: int, n_tiles: int, hd: int,
+                         n_map: int, reps_per_group: int = 1,
+                         n_split: int | None = None) -> DecodeLaunch:
+    """The launch of one fused decode (or, with ``n_split=1``, relay)
+    call: the split plan from (b, k_rows, n_tiles), and the block's shared
+    memory for ``reps_per_group`` queries per block and an ``n_map``-entry
+    member map (H heads; the relay's A acc rows)."""
+    if n_split is None:
+        n_split, per = split_plan(b, k_rows, n_tiles)
+    else:
+        per = -(-n_tiles // n_split)
+    n_cap = max(1, min(n_map, _SLICE))
+    return DecodeLaunch(n_split, per, n_cap, block_smem_bytes(
+        _query_bucket(reps_per_group), hd, n_map, n_cap))
+
+
+def dense_launch_config(q_rep, k_cache, h2c, *, reps_per_group=1, ts=512):
+    """(the launch, the S-tile) of ``chai_fused_decode`` on these tensors
+    (their shapes only: any device, ``meta`` too)."""
+    s = k_cache.shape[2]
+    ts = fused_tile_size(ts, s)
+    return decode_launch_config(q_rep.shape[0], k_cache.shape[1], s // ts,
+                                q_rep.shape[2], h2c.shape[-1],
+                                reps_per_group), ts
+
+
+def paged_launch_config(q_rep, k_pool, bt_k, h2c, *, reps_per_group=1):
+    """The launch of ``paged_chai_fused_decode`` on these tensors (their
+    shapes only); the tile is the page. Equal to the dense call's at
+    S == P * page and ts == page."""
+    return decode_launch_config(q_rep.shape[0], k_pool.shape[1],
+                                bt_k.shape[1], q_rep.shape[2],
+                                h2c.shape[-1], reps_per_group)
 
 
 def _launcher(name, n_ptrs, n_ints):
@@ -76,6 +190,21 @@ def _refuse_unported(name, k_scale, v_scale, share_values, softcap):
                                       f"CUDA yet: ROADMAP Queue 1 #{item}")
 
 
+def _check_block(name, hd, reps_per_group, cfg):
+    """The block body's limits: 16-byte row loads, at most ``_MAX_Q``
+    queries a block, and a block's shared memory (fixed in S; it grows
+    with the member map only)."""
+    if hd % 8 or not 0 < hd <= _MAX_HD:
+        raise ValueError(f"{name}: head_dim {hd} must be a multiple of 8 "
+                         f"and at most {_MAX_HD} (16-byte row loads)")
+    if not 0 < reps_per_group <= _MAX_Q:
+        raise ValueError(f"{name}: reps_per_group {reps_per_group} must be "
+                         f"1..{_MAX_Q}")
+    if cfg.smem_bytes > _SMEM_LIMIT:
+        raise ValueError(f"{name}: the member map needs {cfg.smem_bytes} B "
+                         "of shared memory, above the block limit")
+
+
 def _check_common(name, q_rep, k, v, h2c, reps_per_group):
     """Device, dtype and width checks both wrappers share; returns
     (b, R, hd, H, h2c as (B, H))."""
@@ -93,9 +222,14 @@ def _check_common(name, q_rep, k, v, h2c, reps_per_group):
         raise ValueError(f"R={r_total} must be KVk={k.shape[1]} x "
                          f"reps_per_group={reps_per_group} and KVv="
                          f"{v.shape[1]} must divide H={h_total}")
-    if hd % 2:
-        raise ValueError(f"head_dim {hd} must be even (paired V loads)")
     return b, r_total, hd, h_total, h2c
+
+
+def _check_aligned(name, **tensors):
+    """The kernels load rows 16 bytes at a time."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
 def _small(t, dev):
@@ -113,6 +247,33 @@ def _outputs(b, r_total, h_total, hd, dev, emit_state):
                                       device=dev) for _ in range(2))
 
 
+# Ticket counters of the in-launch split merge, one int32 per work unit,
+# kept per (device, stream): zero between launches (each unit's merging
+# block resets its own), so a launch needs no fill of its own.
+_COUNTERS: dict = {}
+
+
+def _split_scratch(cfg, b, r_total, h_total, hd, units, dev, stream):
+    """(mp, lp, accp, counter) of a split launch: the partial m and l
+    (B, n_split, R) and the raw partial acc (B, n_split, H, hd), fp32, in
+    one ``torch.empty`` (the kernel reads no slot it has not written),
+    and the unit counters; all None when the call is not split."""
+    if cfg.n_split == 1:
+        return None, None, None, None
+    key = (dev.index, stream)
+    counter = _COUNTERS.get(key)
+    if counter is None or counter.numel() < units:
+        counter = torch.zeros(units, dtype=torch.int32, device=dev)
+        _COUNTERS[key] = counter
+    ns = cfg.n_split
+    buf = torch.empty(b * ns * (h_total * hd + 2 * r_total),
+                      dtype=torch.float32, device=dev)
+    # acc first: the merge reads it 16 bytes at a time (hd % 8 == 0)
+    acc, m, l = buf.split([b * ns * h_total * hd, b * ns * r_total,
+                           b * ns * r_total])
+    return m, l, acc, counter
+
+
 def _ptr(t):
     """A tensor's address, or a null pointer for None."""
     return None if t is None else t.data_ptr()
@@ -128,9 +289,10 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     clustered cache: KVk == R); v_cache: (B, KVv, S, hd), per-head
     (KVv == H) or per-group (H % KVv == 0); K/V fp32 or bf16, one dtype;
     h2c: (B, H) or (H,) head -> rep row, values in [0, R); pos: (B,).
-    Returns (B, H, hd) fp32 from ONE kernel launch, or with
-    ``emit_state`` the unnormalized (m (B, R), l (B, R), acc (B, H, hd))
-    fp32 state.
+    Any S: the kernel streams it with fixed shared memory, cut into
+    ``split_plan`` ranges merged inside the launch. Returns (B, H, hd)
+    fp32 from ONE kernel launch, or with ``emit_state`` the unnormalized
+    (m (B, R), l (B, R), acc (B, H, hd)) fp32 state.
     """
     _refuse_unported("chai_fused_decode", k_scale, v_scale, share_values,
                      softcap)
@@ -142,27 +304,27 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
             or v_cache.shape != (b, kv_v, s, hd)):
         raise ValueError(f"shape mismatch: q {tuple(q_rep.shape)}, "
                          f"k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
-    ts = fused_tile_size(ts, s)
-    smem = (hd + s + 3 * (s // ts)) * 4 + h_total * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"S={s} (tile {ts}) needs {smem} B of shared "
-                         "memory for its scores, above the block limit")
+    cfg, ts = dense_launch_config(q_rep, k_cache, h2c,
+                                  reps_per_group=reps_per_group, ts=ts)
+    _check_block("chai_fused_decode", hd, reps_per_group, cfg)
     dev = q_rep.device
     q = q_rep.float().contiguous()
     k = k_cache.contiguous()
     v = v_cache.contiguous()
-    for name, t in (("k_cache", k), ("v_cache", v)):
-        if t.data_ptr() % (2 * t.element_size()):
-            raise ValueError(f"{name} must be aligned to two elements")
+    _check_aligned("chai_fused_decode", k_cache=k, v_cache=v)
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state)
-    fn = _launcher("chai_fused_decode", 8, 12)
+    fn = _launcher("chai_fused_decode", 12, 16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _split_scratch(cfg, b, r_total, h_total, hd, b * kv_k, dev,
+                                 stream)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), h2c_i.data_ptr(),
-                 pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l), b,
-                 r_total, h_total, kv_k, kv_v, s, hd, ts, reps_per_group,
-                 h_total // kv_v, int(window), _KV_DTYPES[k.dtype], stream)
+                 pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),
+                 *(_ptr(t) for t in scratch), b, r_total, h_total, kv_k,
+                 kv_v, s, hd, ts, decode_step_size(ts), reps_per_group,
+                 h_total // kv_v, int(window), cfg.n_split,
+                 cfg.tiles_per_split, cfg.n_cap, _KV_DTYPES[k.dtype], stream)
     if err:
         raise RuntimeError(f"chai_fused_decode launch failed: CUDA error "
                            f"{err}")
@@ -182,10 +344,12 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     k_max); v_pool: (nPv, KVv, page, hd), the dense per-head pool;
     bt_k/bt_v: (B, P) block tables into their own pools (tile t of row b
     is page bt[b, t]; the tile size is the page); h2c: (B, H) or (H,);
-    pos: (B,). K/V fp32 or bf16, one dtype. The pools are layer slices
-    of the engine's state and are read in place: they must be contiguous
-    already (a copy would move the whole pool every call). Returns
-    (B, H, hd) fp32 from ONE kernel launch, or the ``emit_state`` triple.
+    pos: (B,). K/V fp32 or bf16, one dtype. Any P: the split plan is the
+    dense call's at equal shapes, so at page == ts the two are bitwise
+    equal. The pools are layer slices of the engine's state and are read
+    in place: they must be contiguous already (a copy would move the whole
+    pool every call). Returns (B, H, hd) fp32 from ONE kernel launch, or
+    the ``emit_state`` triple.
     """
     _refuse_unported("paged_chai_fused_decode", k_scale_pool, v_scale_pool,
                      share_values, softcap)
@@ -201,31 +365,32 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
                          f"{tuple(k_pool.shape)}, v_pool "
                          f"{tuple(v_pool.shape)}, bt_k {tuple(bt_k.shape)}, "
                          f"bt_v {tuple(bt_v.shape)}")
-    smem = ((hd + n_pages * page + 3 * n_pages) * 4 + h_total * 4
-            + 2 * n_pages * 4)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{n_pages} pages of {page} need {smem} B of "
-                         "shared memory, above the block limit")
+    cfg = paged_launch_config(q_rep, k_pool, bt_k, h2c,
+                              reps_per_group=reps_per_group)
+    _check_block("paged_chai_fused_decode", hd, reps_per_group, cfg)
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (pools are read "
                              "in place, never copied)")
-        if t.data_ptr() % (2 * t.element_size()):
-            raise ValueError(f"{name} must be aligned to two elements")
+    _check_aligned("paged_chai_fused_decode", k_pool=k_pool, v_pool=v_pool)
     dev = q_rep.device
     q = q_rep.float().contiguous()
     bt_k_i, bt_v_i = _small(bt_k, dev), _small(bt_v, dev)
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state)
-    fn = _launcher("paged_chai_fused_decode", 10, 12)
+    fn = _launcher("paged_chai_fused_decode", 14, 16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _split_scratch(cfg, b, r_total, h_total, hd, b * kv_k, dev,
+                                 stream)
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  bt_k_i.data_ptr(), bt_v_i.data_ptr(), h2c_i.data_ptr(),
-                 pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l), b,
-                 r_total, h_total, kv_k, kv_v, n_pages, page, hd,
-                 reps_per_group, h_total // kv_v, int(window),
-                 _KV_DTYPES[k_pool.dtype], stream)
+                 pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),
+                 *(_ptr(t) for t in scratch), b, r_total, h_total, kv_k,
+                 kv_v, n_pages, page, hd, decode_step_size(page),
+                 reps_per_group, h_total // kv_v, int(window), cfg.n_split,
+                 cfg.tiles_per_split, cfg.n_cap, _KV_DTYPES[k_pool.dtype],
+                 stream)
     if err:
         raise RuntimeError(f"paged_chai_fused_decode launch failed: CUDA "
                            f"error {err}")
@@ -241,9 +406,10 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
     prefix, fp32 or bf16, one dtype; k_row: (G, NR) query row -> K row;
     a_row: (G, A) acc row -> query row; v_row: (G, A) acc row -> V row;
     plen: (G,) valid prefix lengths (positions >= plen masked). ``ts``:
-    the S-tile (0: Sp; the whole prefix when it does not divide Sp).
-    Returns (m (G, NR), l (G, NR), acc (G, A, hd)) fp32, unnormalized,
-    from ONE kernel launch.
+    the S-tile (0: Sp; the whole prefix when it does not divide Sp). Any
+    Sp: the kernel streams it with fixed shared memory. Returns (m (G,
+    NR), l (G, NR), acc (G, A, hd)) fp32, unnormalized, from ONE kernel
+    launch.
     """
     if q.device.type != "cuda":
         raise ValueError(f"relay_prefix_decode launches a CUDA kernel; got "
@@ -262,30 +428,25 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
                          f"{tuple(k_row.shape)}, a_row {tuple(a_row.shape)},"
                          f" v_row {tuple(v_row.shape)}, plen "
                          f"{tuple(plen.shape)}")
-    if hd % 2:
-        raise ValueError(f"head_dim {hd} must be even (paired V loads)")
     ts = fused_tile_size(ts, sp)
-    smem = (hd + sp + 3 * (sp // ts)) * 4 + a_total * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"Sp={sp} (tile {ts}) and A={a_total} need {smem} "
-                         "B of shared memory, above the block limit")
+    cfg = decode_launch_config(g, nr, sp // ts, hd, a_total, n_split=1)
+    _check_block("relay_prefix_decode", hd, 1, cfg)
     dev = q.device
     qf = q.float().contiguous()
     kc, vc = k.contiguous(), v.contiguous()
-    for name, t in (("k", kc), ("v", vc)):
-        if t.data_ptr() % (2 * t.element_size()):
-            raise ValueError(f"{name} must be aligned to two elements")
+    _check_aligned("relay_prefix_decode", k=kc, v=vc)
     maps = [_small(t, dev) for t in (k_row, a_row, v_row, plen)]
     m = torch.empty((g, nr), dtype=torch.float32, device=dev)
     l = torch.empty((g, nr), dtype=torch.float32, device=dev)
     acc = torch.empty((g, a_total, hd), dtype=torch.float32, device=dev)
-    fn = _launcher("relay_prefix_decode", 10, 9)
+    fn = _launcher("relay_prefix_decode", 10, 11)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(qf.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                  *(t.data_ptr() for t in maps), m.data_ptr(), l.data_ptr(),
                  acc.data_ptr(), g, nr, a_total, kv, vr, sp, hd, ts,
-                 _KV_DTYPES[kc.dtype], stream)
+                 decode_step_size(ts), cfg.n_cap, _KV_DTYPES[kc.dtype],
+                 stream)
     if err:
         raise RuntimeError(f"relay_prefix_decode launch failed: CUDA error "
                            f"{err}")

@@ -29,14 +29,14 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.chai_attention import fused_tile_size
+from repro_torch.kernels.chai_attention import (decode_step_size,
+                                                 fused_tile_size)
 
 LAUNCHES = {"flash_prefill": 0, "paged_prefix_attend": 0,
             "flash_decode": 0, "paged_decode": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128, 256)     # flash_tiles.cuh: with_head_dim
-_DECODE_CHUNK = 128      # decode_tiles.cuh: kChunk, the longest step
 _DECODE_MAX_HD = 256     # decode_tiles.cuh: kMaxHd
 _DECODE_HEADS = 8        # decode_tiles.cuh: with_heads, query heads a block
 
@@ -189,15 +189,6 @@ def paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, *, k_scale_pool=None,
                            f"{err}")
     LAUNCHES["paged_prefix_attend"] += 1
     return m, l, acc
-
-
-def decode_step_size(ts: int) -> int:
-    """The decode kernels' online-softmax step for a tile of ``ts``
-    positions: ``ts`` itself up to 128 (every tile the engine and the
-    reference's sweeps use), else its largest divisor <= 128, so a step
-    never straddles a tile (or a page) and the block's shared memory stays
-    fixed whatever the tile."""
-    return max(d for d in range(1, min(ts, _DECODE_CHUNK) + 1) if ts % d == 0)
 
 
 def _check_decode(name, q, kv_heads, hd, pos):
