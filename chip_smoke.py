@@ -132,6 +132,19 @@ time and over its bound. The ``kernels`` rows of ``row_softmax``,
 ``flash_decode`` and ``flash_prefill`` carry the library call's device
 time (``library_device_ms``, every kernel of the call in a
 ``torch.profiler`` trace) beside its back-to-back ``library_ms``.
+
+The prefill pair runs its products on the tensor cores and the flash
+decode pair cuts S into splits merged inside the launch. Phase 2 logs
+the tensor-core instructions in each rewritten kernel's SASS
+(``tensor_core_counts``). Phase 3 also holds ``flash_prefill`` at T = 128
+over S = 512 at offset 384 (MHA and GQA, bf16 and fp32, finalized and as
+state) and at a ragged T = 77 (GQA, offset 200), times causal SDPA with
+``enable_gqa`` beside the GQA chunk, and holds ``flash_decode`` /
+``paged_decode`` on split cases (a partial last split, a row at pos 0,
+nemotron's 48 heads over 8, one row of S = 65,536, MHA and GQA), every
+flash decode case launched twice with equal bits. The last log lines
+before the ``kernels`` line give the rewritten kernels' rows: device,
+back-to-back and single-call times, bound and the library's device time.
 """
 from __future__ import annotations
 
@@ -294,6 +307,28 @@ def build_kernels():
                 log(f"  {name}: {line.strip()}")
     for name in KERNEL_ROWS:
         build.load(name)
+    tensor_core_counts()
+
+
+# The kernels whose SASS is logged for tensor-core instructions: the
+# prefill pair (mma.sync) and the flash decode pair (none expected).
+REWRITTEN = ("flash_prefill", "paged_prefix_attend", "flash_decode",
+             "paged_decode")
+
+
+def tensor_core_counts():
+    """Log the tensor-core instructions in each rewritten kernel's SASS
+    (``cuobjdump -sass`` of the built library): HMMA for ``mma.sync``,
+    HGMMA for ``wgmma``. For the record, not a gate."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    for name in REWRITTEN:
+        sass = subprocess.run(
+            [str(tool), "-sass", str(build.BUILD_DIR / f"lib{name}.so")],
+            capture_output=True, text=True).stdout.splitlines()
+        counts = {op: sum(f" {op}." in ln or f" {op} " in ln for ln in sass)
+                  for op in ("HMMA", "HGMMA")}
+        log(f"{name}: SASS tensor-core instructions {counts} "
+            f"({len(sass)} SASS lines)")
 
 
 # ------------------------------------------------------------ phase 3 ----
@@ -598,8 +633,9 @@ def flash_case(q, k, v, *, offset=0, emit_state=True, library=False):
     """``flash_prefill`` against its plain version on one input (2e-5,
     or one bf16 step for a finalized bf16 output); returns the case's
     record with its times and bound. ``library``: also time PyTorch's
-    ``scaled_dot_product_attention(is_causal=True)`` beside the finalized
-    mode on the same (MHA, offset 0, T == S) inputs."""
+    ``scaled_dot_product_attention(is_causal=True)`` (``enable_gqa`` when
+    KV < H) beside the finalized mode on the same (offset 0, T == S)
+    inputs."""
     got = fk.flash_prefill(q, k, v, offset=offset, emit_state=emit_state)
     torch.cuda.synchronize()
     if emit_state:
@@ -622,12 +658,19 @@ def flash_case(q, k, v, *, offset=0, emit_state=True, library=False):
                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
     if library:
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = sdpa(qh, kh, vh, is_causal=True).transpose(1, 2)
+        gqa = k.shape[2] != q.shape[2]
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=gqa)
+        lib = sdpa().transpose(1, 2)
         fin = fk.flash_prefill(q, k, v)
-        rec["library_ms"] = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True))
-        rec["library_device_ms"] = library_device_ms(
-            lambda: sdpa(qh, kh, vh, is_causal=True))
+        rec["library_ms"] = time_ms(sdpa)
+        rec["library_device_ms"] = library_device_ms(sdpa)
+        rec["device_ms"] = device_ms(
+            lambda: fk.flash_prefill(q, k, v, offset=offset,
+                                     emit_state=emit_state),
+            "flash_prefill_kernel")
         rec["finalized_ms"] = time_ms(lambda: fk.flash_prefill(q, k, v))
         rec["library_vs_kernel_max_abs_diff"] = _max_err(lib, fin)
     return rec
@@ -664,8 +707,10 @@ def _log_case(name, case):
         + f"max_abs_err {case['max_abs_err']:.3e} kernel {case['ms']:.4f} "
         f"ms plain {case['plain_ms']:.4f} ms bound {case['bound_ms']:.4f} ms"
         f" ({case['bound_by']})"
-        + (f" library {case['library_ms']:.4f} ms (kernel finalized "
-           f"{case['finalized_ms']:.4f} ms)" if "library_ms" in case else ""))
+        + (f" library {case['library_ms']:.4f} ms, device "
+           f"{case['library_device_ms']} ms (kernel finalized "
+           f"{case['finalized_ms']:.4f} ms; kernel device "
+           f"{case['device_ms']} ms)" if "library_ms" in case else ""))
 
 
 def prefill_kernel_checks():
@@ -678,21 +723,35 @@ def prefill_kernel_checks():
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     flash = []
-    for name, (t, s, h, kv, dtype, offset, emit, lib) in {
-            "chunk_bf16_state": (128, 128, 32, 32, torch.bfloat16, 0, True,
-                                 False),
-            "chunk_bf16_finalized": (128, 128, 32, 32, torch.bfloat16, 0,
-                                     False, True),
-            "chunk_fp32_state": (128, 128, 32, 32, torch.float32, 0, True,
-                                 False),
-            "chunk_fp32_finalized": (128, 128, 32, 32, torch.float32, 0,
-                                     False, False),
-            "offset384_bf16_state": (128, 512, 32, 32, torch.bfloat16, 384,
+    cases = {
+        "chunk_bf16_state": (128, 128, 32, 32, torch.bfloat16, 0, True,
+                             False),
+        "chunk_bf16_finalized": (128, 128, 32, 32, torch.bfloat16, 0,
+                                 False, True),
+        "chunk_fp32_state": (128, 128, 32, 32, torch.float32, 0, True,
+                             False),
+        "chunk_fp32_finalized": (128, 128, 32, 32, torch.float32, 0,
+                                 False, False),
+        "offset384_bf16_state": (128, 512, 32, 32, torch.bfloat16, 384,
+                                 True, False),
+        "ragged_t40_offset60_fp32": (40, 100, 32, 32, torch.float32, 60,
                                      True, False),
-            "ragged_t40_offset60_fp32": (40, 100, 32, 32, torch.float32, 60,
-                                         True, False),
-            "gqa_h48_kv8_bf16_state": (128, 128, 48, 8, torch.bfloat16, 0,
-                                       True, False)}.items():
+        "gqa_h48_kv8_bf16_state": (128, 128, 48, 8, torch.bfloat16, 0,
+                                   True, True)}
+    # T = 128 at offset 384 over S = 512, MHA and GQA, bf16 and fp32, each
+    # finalized and as state; a ragged T that is no multiple of the query
+    # tile (16 rows a warp, PREFILL_QUERY_WARPS warps a block).
+    for attn, (h, kv) in (("mha", (32, 32)), ("gqa", (48, 8))):
+        for dtype in (torch.bfloat16, torch.float32):
+            for emit in (True, False):
+                name = (f"offset384_{attn}_{str(dtype)[6:]}_"
+                        f"{'state' if emit else 'finalized'}")
+                cases[name] = (128, 512, h, kv, dtype, 384, emit, False)
+    for emit in (True, False):
+        cases[f"ragged_t77_offset200_gqa_bf16_"
+              f"{'state' if emit else 'finalized'}"] = (
+            77, 277, 48, 8, torch.bfloat16, 200, emit, False)
+    for name, (t, s, h, kv, dtype, offset, emit, lib) in cases.items():
         q = rand(1, t, h, 128, dtype=dtype)
         k, v = rand(1, s, kv, 128, dtype=dtype), rand(1, s, kv, 128,
                                                       dtype=dtype)
@@ -1384,9 +1443,13 @@ def _log_flash_decode(name, case):
         f"{case['max_abs_err']:.3e} kernel {case['ms']:.4f} ms plain "
         f"{case['plain_ms']:.4f} ms bound {case['bound_ms']:.4f} ms "
         f"({case['bound_by']})"
+        + (f" splits {case['n_split']} x {case['tiles_per_split']} tiles;"
+           " paged == dense, repeat == repeat: bitwise"
+           if "n_split" in case else "")
         + (f" single call {case['single_call_ms']:.4f} ms, device "
            f"{case['device_ms']} ms" if "device_ms" in case else "")
-        + (f" library (SDPA) {case['library_ms']:.4f} ms, SDPA vs kernel "
+        + (f" library (SDPA) {case['library_ms']:.4f} ms, device "
+           f"{case.get('library_device_ms')} ms, SDPA vs kernel "
            f"{case['library_vs_kernel_max_abs_diff']:.3e}"
            if "library_ms" in case else ""))
 
@@ -1420,9 +1483,22 @@ def flash_decode_pair(tag, q, k, v, pos, *, window=0, page=PAGE,
         raise AssertionError(f"{tag}: paged_decode differs from flash_decode"
                              f" at ts == page: max abs diff "
                              f"{_max_err(d_out, p_out):.3e}")
+    _bitwise(f"{tag} flash_decode: two launches", fk.flash_decode(
+        q, k, v, pos, window=window, ts=page), d_out)
+    _bitwise(f"{tag} paged_decode: two launches", fk.paged_decode(
+        q, pool, bt_k, bt_v, pos, window=window), p_out)
+    cfg = fk.flash_decode_launch_config(b, q.shape[1], kv, n)
+    lib_smem = build.load("flash_decode").flash_decode_smem_bytes(
+        cfg.heads_per_block)
+    if lib_smem != cfg.smem_bytes:
+        raise AssertionError(f"{tag}: the flash decode block takes "
+                             f"{lib_smem} B of shared memory, the host's "
+                             f"mirror says {cfg.smem_bytes}")
     out = {}
     for name, rec in (("flash_decode", dense), ("paged_decode", paged)):
-        rec = dict(case=tag, **rec, bitwise_equal_dense=True)
+        rec = dict(case=tag, **rec, n_split=cfg.n_split,
+                   tiles_per_split=cfg.tiles_per_split,
+                   bitwise_equal_dense=True, repeat_bitwise=True)
         out[name] = rec
         _log_flash_decode(name, rec)
     return out, (pool, bt_k, bt_v)
@@ -1436,7 +1512,11 @@ def flash_decode_checks():
     nemotron-4-15b's (48 query heads over 8 KV heads); paged == dense
     bitwise at ts == page on every case; the null page poisoned with 999,
     and every dense position past pos, change no output bit. The
-    full-width cases also time PyTorch's SDPA on the same inputs."""
+    full-width cases also time PyTorch's SDPA on the same inputs. Then the
+    split-S cases at full width (bf16, page 16): several splits with a
+    partial last one, a row at pos 0, nemotron's shape, and one row of
+    S = 65,536, MHA and GQA. Every case launches each kernel twice: the
+    two outputs must be equal bit for bit."""
     gen = torch.Generator("cuda").manual_seed(7)
     dev = "cuda"
     cases = {"flash_decode": [], "paged_decode": []}
@@ -1487,6 +1567,29 @@ def flash_decode_checks():
                                  "past pos changed the output")
         log(f"{tag}: null page 0 and positions past pos poisoned with 999: "
             "outputs bitwise unchanged")
+    # the split-S cases (kernels/flash_attention.py:
+    # flash_decode_launch_config): several splits with a partial last one
+    # (S = 1008, 63 pages), a row at pos 0 (every split past the first
+    # empty), nemotron's 48 heads over 8 KV groups, one row of S = 65,536
+    for tag, b, h, kv, s, pos, profile in (
+            ("split_partial_last", 4, 32, 32, 1008, (1007, 1000, 900, 885),
+             False),
+            ("split_row_at_pos0", 4, 32, 32, MAX_SEQ, (0, 10, 150, 700),
+             False),
+            ("split_nemotron_gqa", 4, 48, 8, 1008, (1007, 0, 500, 64),
+             False),
+            ("long_65536_mha", 1, 32, 32, 65536, (65535,), True),
+            ("long_65536_gqa", 1, 48, 8, 65536, (65535,), True)):
+        q = rand(b, h, 128, dtype=torch.bfloat16)
+        k = rand(b, kv, s, 128, dtype=torch.bfloat16)
+        v = rand(b, kv, s, 128, dtype=torch.bfloat16)
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        got, _ = flash_decode_pair(tag, q, k, v, p, profile=profile,
+                                   gen=gen)
+        for name in cases:
+            cases[name].append(got[name])
+        del q, k, v, got
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -3239,6 +3342,14 @@ def main():
             device_ms=main_case["device_ms"], cases=cases))
         if not rows[-1]["launches"]:
             raise AssertionError(f"{name}: no launch on its path {path}")
+    for row in rows:
+        if row["name"] in REWRITTEN:
+            log(f"{row['name']} (main path {row['launches']} launches): "
+                f"device {row['device_ms']} ms, back to back "
+                f"{row['ms']:.4f} ms, single call "
+                f"{row['single_call_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+                f"device {row['library_device_ms']} ms")
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -253,19 +253,22 @@ def _outputs(b, r_total, h_total, hd, dev, emit_state):
 _COUNTERS: dict = {}
 
 
-def _split_scratch(cfg, b, r_total, h_total, hd, units, dev, stream):
+def split_scratch(n_split, b, r_total, h_total, hd, units, dev, stream):
     """(mp, lp, accp, counter) of a split launch: the partial m and l
     (B, n_split, R) and the raw partial acc (B, n_split, H, hd), fp32, in
     one ``torch.empty`` (the kernel reads no slot it has not written),
-    and the unit counters; all None when the call is not split."""
-    if cfg.n_split == 1:
+    and the unit counters; all None when the call is not split. The flash
+    decode pair (``kernels.flash_attention``) takes its scratch here too,
+    with R == H; the counters are shared (launches on one stream run in
+    order, and each leaves them at zero)."""
+    if n_split == 1:
         return None, None, None, None
     key = (dev.index, stream)
     counter = _COUNTERS.get(key)
     if counter is None or counter.numel() < units:
         counter = torch.zeros(units, dtype=torch.int32, device=dev)
         _COUNTERS[key] = counter
-    ns = cfg.n_split
+    ns = n_split
     buf = torch.empty(b * ns * (h_total * hd + 2 * r_total),
                       dtype=torch.float32, device=dev)
     # acc first: the merge reads it 16 bytes at a time (hd % 8 == 0)
@@ -317,8 +320,8 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     fn = _launcher("chai_fused_decode", 12, 16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch = _split_scratch(cfg, b, r_total, h_total, hd, b * kv_k, dev,
-                                 stream)
+        scratch = split_scratch(cfg.n_split, b, r_total, h_total, hd,
+                                b * kv_k, dev, stream)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), h2c_i.data_ptr(),
                  pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),
                  *(_ptr(t) for t in scratch), b, r_total, h_total, kv_k,
@@ -381,8 +384,8 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     fn = _launcher("paged_chai_fused_decode", 14, 16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch = _split_scratch(cfg, b, r_total, h_total, hd, b * kv_k, dev,
-                                 stream)
+        scratch = split_scratch(cfg.n_split, b, r_total, h_total, hd,
+                                b * kv_k, dev, stream)
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  bt_k_i.data_ptr(), bt_v_i.data_ptr(), h2c_i.data_ptr(),
                  pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),

@@ -11,12 +11,20 @@
 //
 // What bounds it: at a chunk of T = 128 queries the work is small (q, k, v
 // and the output are ~1 MB each in bf16 at 32 heads of 128), so the least
-// time is the bytes over device memory. Design: one block per (query tile
-// of 16 rows, head, batch row); the Pallas kv-tile axis is a loop inside
-// the block over 64-key tiles staged in shared memory (flash_tiles.cuh),
-// stopping at the block's causal edge, so tiles wholly above the diagonal
-// are never read. T and S need not be multiples of the tiles: rows and keys
-// past the edges are masked in the kernel. The offset is read from device
+// time is the bytes over device memory; the first port, which did every
+// multiply-add on the CUDA cores out of fp32 shared memory, took 17x that
+// and 5x causal SDPA. Design: one block per (query tile of 64 rows, head,
+// batch row): four query warps each owning 16 rows (a probe on the card
+// timed 1, 2 and 4 warps: 4 was the fastest), twice, one set for the even
+// key tiles and one for the odd, their states merged at the end; the
+// Pallas kv-tile axis is a loop inside the block over rounds of two
+// 64-key tiles (fewer keys for rows over 256 bytes) staged by cp.async in
+// the inputs' dtype, double-buffered, and both products run on the tensor
+// cores with the precision split of flash_tiles.cuh. The loop stops at
+// the block's causal edge, so tiles wholly above the diagonal are never
+// read, and a warp whose rows all precede a tile skips it. T and S need
+// not be multiples of the tiles: rows and keys past the edges are
+// zero-filled and masked in the kernel. The offset is read from device
 // memory, so a traced start position costs no host sync.
 
 #include "flash_tiles.cuh"
@@ -40,7 +48,7 @@ struct DenseRows {                 // k, v: (B, S, KV, hd)
 };
 
 struct CausalMask {                // absolute positions: key <= query
-  int q_first;                     // position of the block's row 0
+  int q_first;                     // position of the warp's row 0
   int k0;                          // position of the tile's key 0
   __device__ bool operator()(int r, int j) const {
     return k0 + j <= q_first + r;
@@ -54,33 +62,76 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ out, float* __restrict__ m_out,
                      float* __restrict__ l_out, float* __restrict__ acc_out,
                      int n_q, int S, int H, int KV, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const Tile<HD> sm(smem);
-  const int q0 = blockIdx.x * kTq, h = blockIdx.y, b = blockIdx.z;
+  using L = Layout<T, HD>;
+  constexpr int kTs = L::kTs;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + kBlockRows * L::kStride;    // kStages x kKeyGroups K tiles
+  T* vs = ks + kStages * kKeyGroups * kTs * L::kStride;   // and V tiles
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wq = warp % kWarps, kg = warp / kWarps;  // row group, key group
+  const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int off = offset[0];
-  load_queries<T, HD>(sm, q, b, h, q0, n_q, H);
-  // The block's last real query sits at off + min(q0 + kTq, n_q) - 1: key
+  stage_rows<T, HD>(qs, kBlockRows, n_q - q0, [&](int r) {
+    return q + ((static_cast<size_t>(b) * n_q + q0 + r) * H + h) * HD;
+  }, tid, kThreads);
+  // The block's last real query sits at off + min(q0 + rows, n_q) - 1: key
   // tiles past it are masked for every row and would leave the state
   // bitwise unchanged.
-  const int q_last = off + min(q0 + kTq, n_q) - 1;
+  const int q_last = off + min(q0 + kBlockRows, n_q) - 1;
   const int n_tiles =
       q_last < 0 ? 0 : min((S + kTs - 1) / kTs, q_last / kTs + 1);
+  const int n_rounds = (n_tiles + kKeyGroups - 1) / kKeyGroups;
   const DenseRows<T> rows{k, v,
                           (static_cast<size_t>(b) * S * KV + kvh) * HD,
                           KV * HD};
-  float acc[Acc<HD>::kSlots];
-#pragma unroll
-  for (int i = 0; i < Acc<HD>::kSlots; ++i) acc[i] = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTs;
-    load_keys<T, HD>(sm, rows, k0, min(kTs, S - k0));
+  // tile t of round r = t / kKeyGroups sits in buffer slot
+  // (r % kStages) * kKeyGroups + t % kKeyGroups
+  auto slot = [&](int t) {
+    return ((t / kKeyGroups) % kStages * kKeyGroups + t % kKeyGroups) *
+           kTs * L::kStride;
+  };
+  auto stage_round = [&](int r) {
+    for (int t = r * kKeyGroups; t < min(n_tiles, (r + 1) * kKeyGroups);
+         ++t) {
+      const int k0 = t * kTs, n_keys = min(kTs, S - k0);
+      stage_rows<T, HD>(ks + slot(t), kTs, n_keys,
+                        [&](int j) { return rows.krow(k0 + j); }, tid,
+                        kThreads);
+      stage_rows<T, HD>(vs + slot(t), kTs, n_keys,
+                        [&](int j) { return rows.vrow(k0 + j); }, tid,
+                        kThreads);
+    }
+  };
+  if (n_rounds > 0) stage_round(0);
+  cp_async_commit();
+  // the warp's rows: sequence rows r0 .. r0 + 15, positions off + r0 ..
+  const int r0 = q0 + wq * kRows;
+  const int w_last = off + min(r0 + kRows, n_q) - 1;
+  const bool w_live = r0 < n_q;
+  State<HD> st;
+  st.init();
+  for (int r = 0; r < n_rounds; ++r) {
+    if (r + 1 < n_rounds) {
+      stage_round(r + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    attend_tile<HD>(sm, min(kTs, S - k0), CausalMask{off + q0, k0}, scale,
-                    acc);
+    const int t = r * kKeyGroups + kg, k0 = t * kTs;
+    if (t < n_tiles && w_live && k0 <= w_last)
+      attend_tile<T, HD>(qs + wq * kRows * L::kStride, ks + slot(t),
+                         vs + slot(t), min(kTs, S - k0),
+                         CausalMask{off + r0, k0}, scale, st);
+    __syncthreads();
   }
-  __syncthreads();
-  store_rows<T, HD>(sm, acc, b, h, q0, n_q, H, out, m_out, l_out, acc_out);
+  cp_async_wait<0>();
+  merge_key_groups<HD>(st, reinterpret_cast<float*>(ks));
+  if (kg == 0 && w_live)
+    store_rows<T, HD>(st, b, h, r0, n_q, H, out, m_out, l_out, acc_out);
 }
 
 template <typename T>
@@ -89,17 +140,17 @@ int launch(const void* q, const void* k, const void* v, const void* offset,
            int n_q, int S, int H, int KV, int hd, cudaStream_t stream) {
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    constexpr size_t smem = Tile<HD>::bytes();
+    constexpr size_t smem = Layout<T, HD>::kBytes;
     auto kern = flash_prefill_kernel<T, HD>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((n_q + kTq - 1) / kTq, H, B);
+    dim3 grid((n_q + kBlockRows - 1) / kBlockRows, H, B);
     kern<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const int*>(offset),
         static_cast<T*>(out), static_cast<float*>(m_out),
-        static_cast<float*>(l_out), static_cast<float*>(acc_out), n_q, S, H,
-        KV, inv_sqrt_hd(HD));
+        static_cast<float*>(l_out), static_cast<float*>(acc_out), n_q, S,
+        H, KV, inv_sqrt_hd(HD));
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -1,27 +1,60 @@
 // Tile steps of the prefill attention kernels, shared by flash_prefill.cu
 // (causal attention of a chunk over its own keys) and
 // paged_prefix_attend.cu (the chunk's queries over the pages that earlier
-// chunks wrote).
+// chunks wrote). Both products run on the tensor cores (mma.sync).
 //
-// One block owns kTq query rows of one (batch, head). It walks its key
-// tiles of kTs keys in order (the Pallas grid's sequential kv axis becomes
-// this loop), staging each tile's K and V rows in shared memory as fp32,
-// and keeps the online-softmax state per query row: the running max m
-// (shared memory), the sum l (shared memory) and the accumulator acc
-// (registers: kTq * HD / kThreads elements per thread). Arithmetic follows
-// the TPU tile body step for step: scores q.k * 1/sqrt(hd), masked
-// positions -2e38, m_new = max(m, max(tile), -1e30), alpha =
-// exp(m - m_new), p = exp(sc - m_new), l = l * alpha + sum(p),
-// acc = acc * alpha + p.V, one update per tile. A row that sees no tile
-// keeps m = -2e38, l = 0, acc = 0, the exact identity of the state merge.
-// Q/K/V elements are fp32 or bf16; all math is fp32.
+// A block owns kWarps * 16 query rows of one (batch, head) and has two
+// key groups of kWarps warps: warp (g, w) owns rows 16w .. 16w + 15 (the M
+// of an m16n8 mma) over the key tiles t = g, g + 2, ... of Layout::kTs
+// keys (the Pallas grid's sequential kv axis becomes this loop, split in
+// two so that each warp's serial chain of tiles is half as long). The two
+// groups' states for a row merge in shared memory at the end. Each round's
+// two tiles of K and V rows are staged in shared memory in their own
+// dtype by 16-byte cp.async copies, double-buffered: round r + 1 loads
+// while round r computes. Rows past the edges are zero-filled
+// by the copy itself (source size 0), so no garbage reaches a product.
+// Each warp keeps its rows' online-softmax state in registers (the FA2
+// layout): the thread of lane (g = lane / 4, c = lane % 4) holds rows g
+// and g + 8 of its warp, their m and l, and output columns 8n + 2c,
+// 8n + 2c + 1 of every 8-column slice n.
+//
+// Arithmetic per tile, as the TPU tile body: scores q.k * 1/sqrt(hd),
+// masked positions -2e38, m_new = max(m, max(tile), -1e30), alpha =
+// exp(m - m_new), p = exp(sc - m_new), l = l * alpha + sum(p), acc = acc *
+// alpha + p.V. A row that sees no tile keeps m = -2e38, l = 0, acc = 0,
+// the exact identity of the state merge.
+//
+// Precision. The reference computes in fp32 and keeps p in fp32 before
+// the p.V dot; the card check holds the state at 2e-5. Rounding p to bf16
+// (as a bf16 attention does) costs ~4e-3, so the operands are split:
+// - bf16 inputs: Q.K^T is an m16n8k16 bf16 mma with fp32 accumulation
+//   (bf16 products are exact in fp32; only the summation order differs);
+//   p.V is three m16n8k16 bf16 mmas, p1.V + p2.V + p3.V with p1 = bf16(p),
+//   p2 = bf16(p - p1), p3 = bf16(p - p1 - p2): the three carry all 24 bits
+//   of p, and bf16 V is exact. (Two tf32 pieces, tf32(p) and tf32(p -
+//   tf32(p)), give ~2^-20 too, but take four k = 8 mmas for every 16
+//   keys where the bf16 pieces take three k = 16 ones, and V's fragments
+//   from scalar loads: slower on the card.)
+// - fp32 inputs: both products as 3xTF32, a_hi.b_hi + a_hi.b_lo +
+//   a_lo.b_hi, with tf32(x) clearing the low 13 mantissa bits (what the
+//   tensor core ignores).
+// tests/test_torch_prefill_precision.py emulates these roundings on the
+// CPU. The tensor core truncates its own sums, so each tile's p.V is
+// summed there from zeros and added to acc in fp32 on the CUDA cores: acc
+// carried through the mmas drifted past 2e-5 on a row of 512 keys.
+//
+// Fragments: the bf16 Q and K fragments come from ldmatrix, V's from
+// ldmatrix.trans (rows padded by 16 bytes, so the eight rows of a matrix
+// hit different banks); the score fragments of two 8-key slices are the
+// A fragment of the next product as they stand. The tf32 fragments are
+// plain 32-bit shared loads; there the key axis of p.V is permuted (A's
+// k = c <-> key 2c, k = c + 4 <-> key 2c + 1, and V's rows alike), so no
+// shuffle moves p between lanes.
 //
 // The head dim HD is a template parameter (a power of two from 8 to 256,
-// chosen at launch by with_head_dim), so every index of the tile steps is a
-// constant shift: with a runtime head dim, the accumulator update's
-// indexing took most of the kernel's time. Rows are staged with 16-byte
-// loads, kBatch of them in flight per thread before any is stored. The
-// wrappers require 16-byte aligned tensors.
+// chosen at launch by with_head_dim). bf16 rows shorter than the mma's k
+// of 16 are staged zero-padded to 16. The wrappers require 16-byte
+// aligned tensors.
 
 #pragma once
 
@@ -29,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -36,11 +70,13 @@ namespace flash {
 
 constexpr float kNegInf = -2.0e38f;
 constexpr float kMinM = -1.0e30f;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTq = 16;                          // query rows per block
-constexpr int kTs = 64;                          // keys per tile
-constexpr int kBatch = 8;                        // row loads in flight
+constexpr int kRows = 16;       // query rows of a warp (the mma's M)
+constexpr int kWarps = 4;       // query warps of a key group (timed: 1, 2, 4)
+constexpr int kKeyGroups = 2;   // key groups of a block: tiles 2r and 2r + 1
+constexpr int kGroupThreads = kWarps * 32;
+constexpr int kThreads = kGroupThreads * kKeyGroups;
+constexpr int kBlockRows = kWarps * kRows;
+constexpr int kStages = 2;      // rounds of tiles in flight (double buffering)
 
 // Calls f(std::integral_constant<int, HD>()) for a supported head dim and
 // returns its result; cudaErrorInvalidValue for any other.
@@ -57,243 +93,418 @@ int with_head_dim(int hd, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The thread's accumulator slots: slot i is element e = tid + i * kThreads
-// of the kTq x HD output tile, row e / HD and column e % HD.
-template <int HD>
-struct Acc {
+// The staged row layout of element type T at head dim HD.
+template <typename T, int HD>
+struct Layout {
   static_assert(HD >= 8 && HD <= 256 && (HD & (HD - 1)) == 0, "head dim");
-  static constexpr int kSlots = kTq * HD / kThreads;
-  __device__ static int row(int i) {
-    if constexpr (HD <= kThreads)
-      return threadIdx.x / HD + i * (kThreads / HD);
-    else
-      return i / (HD / kThreads);
-  }
-  __device__ static int col(int i) {
-    if constexpr (HD <= kThreads)
-      return threadIdx.x % HD;
-    else
-      return threadIdx.x + (i % (HD / kThreads)) * kThreads;
-  }
+  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int kVec = 16 / sizeof(T);               // T per copy
+  static constexpr int kDim = (kBf16 && HD < 16) ? 16 : HD;  // staged width
+  static constexpr int kStride = kDim + kVec;                // +16 bytes
+  static constexpr int kVecs = kDim / kVec;                  // copies a row
+  static constexpr int kLive = HD / kVec;                    // of real data
+  // keys per tile: 64 where a row is at most 256 bytes (bf16 up to 128
+  // wide), 32 up to 512 bytes, else 16, so every block fits (64 was faster
+  // than 32 at the chunk's shapes on the card)
+  static constexpr int kTs =
+      sizeof(T) * HD <= 256 ? 64 : sizeof(T) * HD <= 512 ? 32 : 16;
+  // the K and V tiles of kStages rounds of kKeyGroups tiles
+  static constexpr size_t kTileBytes =
+      static_cast<size_t>(2 * kStages * kKeyGroups * kTs) * kStride *
+      sizeof(T);
+  // Shared memory of a block, in bytes: the queries, then the tiles.
+  static constexpr size_t kBytes =
+      static_cast<size_t>(kBlockRows) * kStride * sizeof(T) + kTileBytes;
+  // the tiles' space holds the key groups' exchange at the end
+  static_assert(kTileBytes >= (HD / 2 + 4) * kGroupThreads * sizeof(float),
+                "exchange");
 };
 
-// The block's shared memory. K rows are padded to HD + 4 floats: rows stay
-// 16-byte aligned, and the threads of a warp, which score consecutive keys
-// against one query row with 16-byte reads, hit different banks.
-template <int HD>
-struct Tile {
-  static constexpr int kKStride = HD + 4;
-  float* q;      // kTq x HD
-  float* k;      // kTs x kKStride
-  float* v;      // kTs x HD
-  float* s;      // kTq x kTs scores, then probabilities
-  float* m;      // kTq running max
-  float* l;      // kTq running sum
-  float* alpha;  // kTq rescale of the current tile
-
-  __host__ __device__ static constexpr size_t bytes() {
-    return (static_cast<size_t>(kTq) * HD +
-            static_cast<size_t>(kTs) * kKStride +
-            static_cast<size_t>(kTs) * HD + kTq * kTs + 3 * kTq) *
-           sizeof(float);
-  }
-  __device__ explicit Tile(float* smem)
-      : q(smem),
-        k(q + kTq * HD),
-        v(k + kTs * kKStride),
-        s(v + kTs * HD),
-        m(s + kTq * kTs),
-        l(m + kTq),
-        alpha(l + kTq) {}
-};
-
-// 16 bytes of T (4 floats or 8 bf16) as fp32 to dst (16-byte aligned).
-__device__ __forceinline__ void unpack16(const uint4& raw, const float*,
-                                         float* dst) {
-  *reinterpret_cast<float4*>(dst) =
-      make_float4(__uint_as_float(raw.x), __uint_as_float(raw.y),
-                  __uint_as_float(raw.z), __uint_as_float(raw.w));
-}
-__device__ __forceinline__ void unpack16(const uint4& raw,
-                                         const __nv_bfloat16*, float* dst) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
+// ------------------------------------------------------------- PTX ----
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+// 16 bytes from global to shared memory; src_bytes 0 zero-fills them.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
 }
 
-// Stage n_rows rows of HD elements as fp32 into dst (row stride ``stride``
-// floats, a multiple of 4): row r from src(r) for r < n_valid, zeros past
-// it. 16-byte loads, kBatch per thread in flight before the first is stored.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a . b, m16n8k16, bf16 operands, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b, m16n8k8, tf32 operands, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo + O(2^-22 x): hi = tf32(x), lo = tf32(x - hi); x - hi is
+// exact in fp32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// (x, y) = hi + mid + lo, each a packed bf16 pair (x in the low half):
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), every
+// difference exact in fp32, so the three carry all 24 bits of x.
+__device__ __forceinline__ void split_bf16x3(float x, float y, uint32_t& hi,
+                                             uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(rx - mf.x, ry - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// ----------------------------------------------------------- staging ----
+// Stage n_rows rows into dst (Layout's stride): row r from src(r) for
+// r < n_valid, zeros past it and in the pad columns of a short bf16 row.
+// Threads tid, tid + n_threads, ... each issue some 16-byte copies; the
+// caller commits the group.
 template <typename T, int HD, typename Src>
-__device__ void stage_rows(float* dst, int stride, int n_rows, int n_valid,
-                           const Src& src) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = HD / kVec;
-  const int n_vec = n_rows * kPerRow;
-  for (int base = threadIdx.x; base < n_vec; base += kBatch * kThreads) {
-    uint4 raw[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = base + u * kThreads, r = e / kPerRow;
-      raw[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (e < n_vec && r < n_valid)
-        raw[u] = *reinterpret_cast<const uint4*>(src(r) +
-                                                 (e % kPerRow) * kVec);
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int e = base + u * kThreads;
-      if (e < n_vec)
-        unpack16(raw[u], static_cast<const T*>(nullptr),
-                 dst + (e / kPerRow) * stride + (e % kPerRow) * kVec);
-    }
+__device__ void stage_rows(T* dst, int n_rows, int n_valid, const Src& src,
+                           int tid, int n_threads) {
+  using L = Layout<T, HD>;
+  for (int e = tid; e < n_rows * L::kVecs; e += n_threads) {
+    const int r = e / L::kVecs, c = e - r * L::kVecs;
+    const bool live = r < n_valid && c < L::kLive;
+    const T* g = live ? src(r) + c * L::kVec : src(0);
+    cp_async16(dst + r * L::kStride + c * L::kVec, g, live ? 16 : 0);
   }
 }
 
-// Query rows q0 .. q0 + kTq - 1 of (b, h) from q (B, n_q, H, HD), zero past
-// n_q; m = -2e38, l = 0.
-template <typename T, int HD>
-__device__ void load_queries(const Tile<HD>& sm, const T* q, int b, int h,
-                             int q0, int n_q, int H) {
-  stage_rows<T, HD>(sm.q, HD, kTq, n_q - q0, [&](int r) {
-    return q + ((static_cast<size_t>(b) * n_q + q0 + r) * H + h) * HD;
-  });
-  for (int r = threadIdx.x; r < kTq; r += kThreads) {
-    sm.m[r] = kNegInf;
-    sm.l[r] = 0.f;
-  }
-}
+// ------------------------------------------------------------- state ----
+// A warp's 16 rows: this thread's rows g and g + 8 (index i = 0, 1).
+template <int HD>
+struct State {
+  float m[2];
+  float l[2];
+  float acc[HD / 8][4];   // [slice n][c0 c1 (row g), c2 c3 (row g + 8)]
 
-// Stage keys k0 .. k0 + n_keys - 1 into the tile as fp32; rows past n_keys
-// are zero. ``rows.krow(j)`` / ``rows.vrow(j)`` locate key j's K and V rows.
-template <typename T, int HD, typename Rows>
-__device__ void load_keys(const Tile<HD>& sm, const Rows& rows, int k0,
-                          int n_keys) {
-  stage_rows<T, HD>(sm.k, Tile<HD>::kKStride, kTs, n_keys,
-                    [&](int j) { return rows.krow(k0 + j); });
-  stage_rows<T, HD>(sm.v, HD, kTs, n_keys,
-                    [&](int j) { return rows.vrow(k0 + j); });
-}
-
-// One online-softmax update of the block's rows with the staged tile of
-// n_keys keys; ``valid(r, j)`` masks (query row r, tile key j). Starts after
-// a barrier that published the tile; ends with one, so the next tile may be
-// staged at once.
-template <int HD, typename Mask>
-__device__ void attend_tile(const Tile<HD>& sm, int n_keys,
-                            const Mask& valid, float scale,
-                            float (&acc)[Acc<HD>::kSlots]) {
-  using A = Acc<HD>;
-  // scores: four partial sums over 16-byte reads of the q and k rows
-  for (int e = threadIdx.x; e < kTq * kTs; e += kThreads) {
-    const int r = e / kTs, j = e % kTs;
-    float sc = kNegInf;
-    if (j < n_keys && valid(r, j)) {
-      const float4* qr = reinterpret_cast<const float4*>(sm.q + r * HD);
-      const float4* kr = reinterpret_cast<const float4*>(
-          sm.k + j * Tile<HD>::kKStride);
-      float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+  __device__ void init() {
 #pragma unroll
-      for (int d = 0; d < HD / 4; ++d) {
-        const float4 a = qr[d], c = kr[d];
-        d0 = fmaf(a.x, c.x, d0);
-        d1 = fmaf(a.y, c.y, d1);
-        d2 = fmaf(a.z, c.z, d2);
-        d3 = fmaf(a.w, c.w, d3);
+    for (int i = 0; i < 2; ++i) {
+      m[i] = kNegInf;
+      l[i] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+};
+
+// One online-softmax update of a warp's 16 rows with the staged tile of
+// n_keys keys. qs: the warp's 16 staged query rows; ks, vs: the tile's K
+// and V rows; ``valid(r, j)`` masks (warp row r, tile key j).
+template <typename T, int HD, typename Mask>
+__device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
+                                            const T* vs, int n_keys,
+                                            const Mask& valid, float scale,
+                                            State<HD>& st) {
+  using L = Layout<T, HD>;
+  constexpr int kNt = L::kTs / 8;  // 8-key slices of the tile
+  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+
+  // scores: s[n] is rows (g, g + 8) x keys (8n + 2c, 8n + 2c + 1)
+  float s[kNt][4];
+#pragma unroll
+  for (int n = 0; n < kNt; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  if constexpr (L::kBf16) {
+#pragma unroll
+    for (int kk = 0; kk < L::kDim; kk += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qs + (lane % 16) * L::kStride + kk + (lane / 16) * 8);
+#pragma unroll
+      for (int n = 0; n < kNt; n += 2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + (n * 8 + lane % 8 + (lane / 16) * 8) *
+                                L::kStride + kk + ((lane / 8) % 2) * 8);
+        mma_bf16(s[n], a, b[0], b[1]);
+        mma_bf16(s[n + 1], a, b[2], b[3]);
       }
-      sc = ((d0 + d1) + (d2 + d3)) * scale;
     }
-    sm.s[e] = sc;
-  }
-  __syncthreads();
-  // running max, rescale, probabilities and sum: one warp per row
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < kTq; r += kWarps) {
-    float* sr = sm.s + r * kTs;
-    float mx = kNegInf;
-    for (int j = lane; j < kTs; j += 32) mx = fmaxf(mx, sr[j]);
-    mx = warp_max(mx);
-    const float m_prev = sm.m[r];
-    const float m_new = fmaxf(fmaxf(m_prev, mx), kMinM);
-    float sum = 0.f;
-    for (int j = lane; j < kTs; j += 32) {
-      const float p = expf(sr[j] - m_new);
-      sr[j] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      const float a = expf(m_prev - m_new);
-      sm.alpha[r] = a;
-      sm.l[r] = sm.l[r] * a + sum;
-      sm.m[r] = m_new;
+  } else {
+#pragma unroll 4
+    for (int kk = 0; kk < HD; kk += 8) {
+      const T* qr = qs + g * L::kStride + kk + c;
+      uint32_t ah[4], al[4];
+      split_tf32(to_f32(qr[0]), ah[0], al[0]);
+      split_tf32(to_f32(qr[8 * L::kStride]), ah[1], al[1]);
+      split_tf32(to_f32(qr[4]), ah[2], al[2]);
+      split_tf32(to_f32(qr[8 * L::kStride + 4]), ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        const T* kr = ks + (n * 8 + g) * L::kStride + kk + c;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(to_f32(kr[0]), bh0, bl0);
+        split_tf32(to_f32(kr[4]), bh1, bl1);
+        mma_tf32(s[n], al, bh0, bh1);
+        mma_tf32(s[n], ah, bl0, bl1);
+        mma_tf32(s[n], ah, bh0, bh1);
+      }
     }
   }
-  __syncthreads();
-  // acc = acc * alpha + p . V over the tile's keys
-  float pv[A::kSlots];
+
+  // scale, mask, running max, rescale, probabilities and sums; a row's
+  // values sit in the four lanes of its group (xor 1, 2)
+  float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int i = 0; i < A::kSlots; ++i) pv[i] = 0.f;
-  for (int j = 0; j < n_keys; ++j) {
-    const float* vj = sm.v + j * HD;
-    const float* pj = sm.s + j;
+  for (int n = 0; n < kNt; ++n)
 #pragma unroll
-    for (int i = 0; i < A::kSlots; ++i)
-      pv[i] = fmaf(pj[A::row(i) * kTs], vj[A::col(i)], pv[i]);
+    for (int e = 0; e < 4; ++e) {
+      const int j = n * 8 + 2 * c + (e & 1), r = g + (e >> 1) * 8;
+      const float x =
+          (j < n_keys && valid(r, j)) ? s[n][e] * scale : kNegInf;
+      s[n][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(fmaxf(st.m[i], mx[i]), kMinM);
+    alpha[i] = expf(st.m[i] - m_new);
+    st.m[i] = m_new;
   }
 #pragma unroll
-  for (int i = 0; i < A::kSlots; ++i)
-    acc[i] = acc[i] * sm.alpha[A::row(i)] + pv[i];
-  __syncthreads();
+  for (int n = 0; n < kNt; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = expf(s[n][e] - st.m[e >> 1]);
+      s[n][e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    st.l[i] = st.l[i] * alpha[i] + sum[i];
+  }
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    st.acc[n][0] *= alpha[0];
+    st.acc[n][1] *= alpha[0];
+    st.acc[n][2] *= alpha[1];
+    st.acc[n][3] *= alpha[1];
+  }
+
+  // acc += p . V. The tile's product for each 8-column slice n is summed
+  // in the tensor core from zeros and added to acc in fp32 once a tile.
+  if constexpr (L::kBf16) {
+    // p = p1 + p2 + p3 in bf16 (24 bits: p itself), 16 keys an mma. The
+    // score fragments of key slices 2j, 2j + 1 are the A fragment of key
+    // chunk j as they stand; V's B fragments come from ldmatrix.trans.
+    // The loops run piece by piece over every slice, so 2 * kDim / 16
+    // independent sums keep the tensor core busy (a chain per slice, one
+    // mma after another, took most of the kernel's time).
+    constexpr int kNp = L::kDim / 16;     // pairs of 8-column slices
+    float t[2 * kNp][4];
+#pragma unroll
+    for (int n = 0; n < 2 * kNp; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNt / 2; ++j) {
+      if (j * 16 >= n_keys) break;
+      uint32_t pa[3][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float* sp = s[2 * j + r / 2] + 2 * (r % 2);
+        split_bf16x3(sp[0], sp[1], pa[0][r], pa[1][r], pa[2][r]);
+      }
+      uint32_t b[kNp][4];
+#pragma unroll
+      for (int np = 0; np < kNp; ++np)
+        ldmatrix_x4_trans(b[np], vs + (j * 16 + lane % 8 +
+                                       ((lane / 8) % 2) * 8) * L::kStride +
+                                     np * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int piece = 2; piece >= 0; --piece)
+#pragma unroll
+        for (int np = 0; np < kNp; ++np) {
+          mma_bf16(t[2 * np], pa[piece], b[np][0], b[np][1]);
+          mma_bf16(t[2 * np + 1], pa[piece], b[np][2], b[np][3]);
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st.acc[n][e] += t[n][e];
+  } else {
+    // fp32: 3xTF32, 8 keys an mma (A's k = c <-> key 2c, c + 4 <-> 2c + 1)
+    uint32_t ph[kNt][4], pl[kNt][4];
+#pragma unroll
+    for (int kc = 0; kc < kNt; ++kc) {
+      split_tf32(s[kc][0], ph[kc][0], pl[kc][0]);
+      split_tf32(s[kc][2], ph[kc][1], pl[kc][1]);
+      split_tf32(s[kc][1], ph[kc][2], pl[kc][2]);
+      split_tf32(s[kc][3], ph[kc][3], pl[kc][3]);
+    }
+    float t[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kNt; ++kc) {
+      if (kc * 8 >= n_keys) break;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        const T* v0 = vs + (kc * 8 + 2 * c) * L::kStride + n * 8 + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(to_f32(v0[0]), bh0, bl0);
+        split_tf32(to_f32(v0[L::kStride]), bh1, bl1);
+        mma_tf32(t[n], pl[kc], bh0, bh1);
+        mma_tf32(t[n], ph[kc], bl0, bl1);
+        mma_tf32(t[n], ph[kc], bh0, bh1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st.acc[n][e] += t[n][e];
+  }
 }
 
-// Write the block's rows (t = q0 + r < n_q) of (b, h). With ``out``: the
-// finalized acc / max(l, 1e-37) into out (B, n_q, H, HD); else the
-// head-major state m, l (B, H, n_q) and acc (B, H, n_q, HD). Starts after a
-// barrier that published m and l.
+// Merge the two key groups' states of each row into group 0's threads
+// (the state merge: m = max(m0, m1), c_g = exp(m_g - m), l and acc summed
+// with those factors; a group that saw no key holds the exact identity,
+// and two identities stay one). ``xch``: (HD / 2 + 4) * kGroupThreads
+// floats of shared memory no thread still reads. Starts and ends with
+// every thread of the block at a barrier.
+template <int HD>
+__device__ void merge_key_groups(State<HD>& st, float* xch) {
+  const int g = threadIdx.x / kGroupThreads;
+  const int t = threadIdx.x - g * kGroupThreads;
+  constexpr int kAcc = HD / 2;   // this thread's acc values
+  if (g == 1) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        xch[(n * 4 + e) * kGroupThreads + t] = st.acc[n][e];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      xch[(kAcc + i) * kGroupThreads + t] = st.m[i];
+      xch[(kAcc + 2 + i) * kGroupThreads + t] = st.l[i];
+    }
+  }
+  __syncthreads();
+  if (g == 0) {
+    float c0[2], c1[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m1 = xch[(kAcc + i) * kGroupThreads + t];
+      const float l1 = xch[(kAcc + 2 + i) * kGroupThreads + t];
+      const float m = fmaxf(st.m[i], m1);
+      c0[i] = expf(st.m[i] - m);
+      c1[i] = expf(m1 - m);
+      st.l[i] = st.l[i] * c0[i] + l1 * c1[i];
+      st.m[i] = m;
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        st.acc[n][e] = st.acc[n][e] * c0[e >> 1] +
+                       xch[(n * 4 + e) * kGroupThreads + t] * c1[e >> 1];
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Write a warp's rows (t = r0 + row < n_q, r0 its first row in the
+// sequence) of (b, h). With ``out``: the finalized acc / max(l, 1e-37)
+// into out (B, n_q, H, HD); else the head-major state m, l (B, H, n_q)
+// and acc (B, H, n_q, HD).
 template <typename T, int HD>
-__device__ void store_rows(const Tile<HD>& sm,
-                           const float (&acc)[Acc<HD>::kSlots], int b, int h,
-                           int q0, int n_q, int H, T* out, float* m_out,
+__device__ void store_rows(const State<HD>& st, int b, int h, int r0,
+                           int n_q, int H, T* out, float* m_out,
                            float* l_out, float* acc_out) {
-  using A = Acc<HD>;
+  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
   const size_t bh = static_cast<size_t>(b) * H + h;
-  if (out == nullptr) {
-    for (int r = threadIdx.x; r < kTq; r += kThreads) {
-      if (q0 + r < n_q) {
-        m_out[bh * n_q + q0 + r] = sm.m[r];
-        l_out[bh * n_q + q0 + r] = sm.l[r];
-      }
-    }
-  }
 #pragma unroll
-  for (int i = 0; i < A::kSlots; ++i) {
-    const int t = q0 + A::row(i);
+  for (int i = 0; i < 2; ++i) {
+    const int t = r0 + g + 8 * i;
     if (t >= n_q) continue;
     if (out == nullptr) {
-      acc_out[(bh * n_q + t) * HD + A::col(i)] = acc[i];
+      if (c == 0) {
+        m_out[bh * n_q + t] = st.m[i];
+        l_out[bh * n_q + t] = st.l[i];
+      }
+      float* row = acc_out + (bh * n_q + t) * HD + 2 * c;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        store2(row + n * 8, st.acc[n][2 * i], st.acc[n][2 * i + 1]);
     } else {
-      const float x = acc[i] / fmaxf(sm.l[A::row(i)], 1e-37f);
-      store_as(out + ((static_cast<size_t>(b) * n_q + t) * H + h) * HD +
-                   A::col(i),
-               x);
+      const float den = fmaxf(st.l[i], 1e-37f);
+      T* row = out + ((static_cast<size_t>(b) * n_q + t) * H + h) * HD +
+               2 * c;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        store2(row + n * 8, st.acc[n][2 * i] / den,
+               st.acc[n][2 * i + 1] / den);
     }
   }
 }

@@ -16,11 +16,14 @@
 // What bounds it: the prefix's K and V pages, read once (at a chunk of 128
 // queries over 384 cached positions, 32 heads of 128 in bf16: ~6.3 MB of
 // pages beside ~1 MB of queries and ~2 MB of fp32 state), so device memory.
-// Design: flash_prefill's block (16 query rows of one head) and tile steps
-// (flash_tiles.cuh), with the key tile gathered row by row (16-byte loads)
-// through the batch row's two block tables, so only positions < plen are read:
-// whole pages up to the last one, which is masked at plen inside the page.
-// The block reads the tables itself; nothing is densified.
+// Design: flash_prefill's block (4 query warps of 16 rows of one head, for
+// the even and for the odd key tiles, merged at the end) and tile steps
+// (flash_tiles.cuh: cp.async staging in the pool's dtype, double-buffered,
+// both products on the tensor cores), with the key tile
+// gathered row by row (16-byte copies) through the batch row's two block
+// tables, so only positions < plen are read: whole pages up to the last
+// one, which is masked at plen inside the page. The block reads the tables
+// itself; nothing is densified.
 
 #include "flash_tiles.cuh"
 
@@ -57,27 +60,72 @@ paged_prefix_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool,
                            float* __restrict__ l_out,
                            float* __restrict__ acc_out, int n_q, int H,
                            int KV, int P, int page, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const Tile<HD> sm(smem);
-  const int q0 = blockIdx.x * kTq, h = blockIdx.y, b = blockIdx.z;
+  using L = Layout<T, HD>;
+  constexpr int kTs = L::kTs;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + kBlockRows * L::kStride;    // kStages x kKeyGroups K tiles
+  T* vs = ks + kStages * kKeyGroups * kTs * L::kStride;   // and V tiles
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wq = warp % kWarps, kg = warp / kWarps;  // row group, key group
+  const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
   // plen past the table is cut to the table's positions, as the TPU grid
   // over P pages does.
   const int n_keys = max(0, min(plen[b], P * page));
-  load_queries<T, HD>(sm, q, b, h, q0, n_q, H);
+  const int n_tiles = (n_keys + kTs - 1) / kTs;
+  const int n_rounds = (n_tiles + kKeyGroups - 1) / kKeyGroups;
   const PagedRows<T> rows{pool, bt_k + static_cast<size_t>(b) * P,
                           bt_v + static_cast<size_t>(b) * P, KV,
                           h / (H / KV), page, HD};
-  float acc[Acc<HD>::kSlots];
-#pragma unroll
-  for (int i = 0; i < Acc<HD>::kSlots; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < n_keys; k0 += kTs) {
-    load_keys<T, HD>(sm, rows, k0, min(kTs, n_keys - k0));
-    __syncthreads();
-    attend_tile<HD>(sm, min(kTs, n_keys - k0), AllVisible{}, scale, acc);
+  if (n_tiles > 0) {
+    stage_rows<T, HD>(qs, kBlockRows, n_q - q0, [&](int r) {
+      return q + ((static_cast<size_t>(b) * n_q + q0 + r) * H + h) * HD;
+    }, tid, kThreads);
   }
-  __syncthreads();
-  store_rows<T, HD>(sm, acc, b, h, q0, n_q, H, nullptr, m_out, l_out,
-                    acc_out);
+  // tile t of round r = t / kKeyGroups sits in buffer slot
+  // (r % kStages) * kKeyGroups + t % kKeyGroups
+  auto slot = [&](int t) {
+    return ((t / kKeyGroups) % kStages * kKeyGroups + t % kKeyGroups) *
+           kTs * L::kStride;
+  };
+  auto stage_round = [&](int r) {
+    for (int t = r * kKeyGroups; t < min(n_tiles, (r + 1) * kKeyGroups);
+         ++t) {
+      const int k0 = t * kTs, n = min(kTs, n_keys - k0);
+      stage_rows<T, HD>(ks + slot(t), kTs, n,
+                        [&](int j) { return rows.krow(k0 + j); }, tid,
+                        kThreads);
+      stage_rows<T, HD>(vs + slot(t), kTs, n,
+                        [&](int j) { return rows.vrow(k0 + j); }, tid,
+                        kThreads);
+    }
+  };
+  if (n_rounds > 0) stage_round(0);
+  cp_async_commit();
+  const int r0 = q0 + wq * kRows;
+  const bool w_live = r0 < n_q;
+  State<HD> st;
+  st.init();
+  for (int r = 0; r < n_rounds; ++r) {
+    if (r + 1 < n_rounds) {
+      stage_round(r + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int t = r * kKeyGroups + kg;
+    if (t < n_tiles && w_live)
+      attend_tile<T, HD>(qs + wq * kRows * L::kStride, ks + slot(t),
+                         vs + slot(t), min(kTs, n_keys - t * kTs),
+                         AllVisible{}, scale, st);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  merge_key_groups<HD>(st, reinterpret_cast<float*>(ks));
+  if (kg == 0 && w_live)
+    store_rows<T, HD>(st, b, h, r0, n_q, H, nullptr, m_out, l_out, acc_out);
 }
 
 template <typename T>
@@ -87,11 +135,11 @@ int launch(const void* q, const void* pool, const void* bt_k,
            int hd, cudaStream_t stream) {
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    constexpr size_t smem = Tile<HD>::bytes();
+    constexpr size_t smem = Layout<T, HD>::kBytes;
     auto kern = paged_prefix_attend_kernel<T, HD>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((n_q + kTq - 1) / kTq, H, B);
+    dim3 grid((n_q + kBlockRows - 1) / kBlockRows, H, B);
     kern<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(pool),
         static_cast<const int*>(bt_k), static_cast<const int*>(bt_v),
@@ -120,7 +168,8 @@ extern "C" int paged_prefix_attend_launch(const void* q, const void* pool,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch<__nv_bfloat16>(q, pool, bt_k, bt_v, plen, m_out, l_out,
-                                 acc_out, B, n_q, H, KV, P, page, hd, st);
+                                 acc_out, B, n_q, H, KV, P, page, hd,
+                                 st);
   return launch<float>(q, pool, bt_k, bt_v, plen, m_out, l_out, acc_out, B,
                        n_q, H, KV, P, page, hd, st);
 }

@@ -26,11 +26,12 @@ kernel's launches, one per successful launch.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.chai_attention import (decode_step_size,
-                                                 fused_tile_size)
+from repro_torch.kernels import chai_attention as ck
+from repro_torch.kernels.chai_attention import fused_tile_size
 
 LAUNCHES = {"flash_prefill": 0, "paged_prefix_attend": 0,
             "flash_decode": 0, "paged_decode": 0}
@@ -38,7 +39,16 @@ LAUNCHES = {"flash_prefill": 0, "paged_prefix_attend": 0,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128, 256)     # flash_tiles.cuh: with_head_dim
 _DECODE_MAX_HD = 256     # decode_tiles.cuh: kMaxHd
-_DECODE_HEADS = 8        # decode_tiles.cuh: with_heads, query heads a block
+# Query heads of one KV group a decode block serves: at most 2
+# (decode_tiles.cuh: with_heads). Timed on the card for nemotron-4-15b's
+# 6-head groups at 1 to 6 heads a block, 2 was the fastest: a block's chain
+# of dependent phases grows with its heads, and the group's K/V rows come
+# again from L2.
+_DECODE_HEADS = 2
+_DECODE_CHUNK = 64       # decode_tiles.cuh: kChunk
+_DECODE_THREADS = 128    # decode_tiles.cuh: kThreads
+_DECODE_RED_VEC = 8      # decode_tiles.cuh: kRedVec
+_DECODE_MAX_SPLIT = 64   # decode_tiles.cuh: kMaxSplit (split_plan's cap)
 
 
 def _launcher(name, n_ptrs, n_ints):
@@ -191,9 +201,62 @@ def paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, *, k_scale_pool=None,
     return m, l, acc
 
 
+class FlashDecodeLaunch(NamedTuple):
+    """How a flash decode call is cut: ``n_split`` ranges of
+    ``tiles_per_split`` whole tiles (the last may be shorter), each block
+    serving ``heads_per_block`` query heads of one KV group, and the
+    block's shared memory in bytes (fixed in S)."""
+    n_split: int
+    tiles_per_split: int
+    heads_per_block: int
+    smem_bytes: int
+
+
+def decode_block_smem_bytes(heads_per_block: int) -> int:
+    """``sizeof(BlockSmem<kH>)`` of ``csrc/decode_tiles.cuh``: the
+    block's queries, a chunk of scores per head, the AV partials, the
+    merge factors and m, l, alpha per head (fp32), and a flag. No term
+    depends on the sequence length."""
+    kh = 1 if heads_per_block == 1 else _DECODE_HEADS
+    floats = (kh * _DECODE_MAX_HD + kh * _DECODE_CHUNK
+              + kh * _DECODE_THREADS * _DECODE_RED_VEC
+              + kh * _DECODE_MAX_SPLIT + 3 * kh)
+    return floats * 4 + 4
+
+
+def flash_decode_launch_config(b: int, h: int, kv: int,
+                               n_tiles: int) -> FlashDecodeLaunch:
+    """The launch of a flash decode call with ``b`` batch rows, ``h``
+    query heads over ``kv`` KV groups and ``n_tiles`` tiles per row (the
+    dense call's S / ts, the paged call's pages): blocks of up to two
+    heads of a group, and ``chai_attention.split_plan`` over the units
+    (b, group, head slice). It reads shapes only, never ``pos`` or the
+    layout, so the dense and the paged call at equal shapes cut alike."""
+    qpk = h // kv
+    hb = min(qpk, _DECODE_HEADS)
+    n_split, per = ck.split_plan(b, kv * -(-qpk // hb), n_tiles)
+    return FlashDecodeLaunch(n_split, per, hb, decode_block_smem_bytes(hb))
+
+
+def dense_decode_config(q, k_cache, ts=0):
+    """(the launch, the S-tile) of ``flash_decode`` on these tensors
+    (their shapes only: any device, ``meta`` too)."""
+    s = k_cache.shape[2]
+    tile = fused_tile_size(ts, s)
+    return flash_decode_launch_config(q.shape[0], q.shape[1],
+                                      k_cache.shape[1], s // tile), tile
+
+
+def paged_decode_config(q, kv_pool, bt_k):
+    """The launch of ``paged_decode`` on these tensors (their shapes
+    only); the tile is the page. Equal to the dense call's at S == P *
+    page and ts == page."""
+    return flash_decode_launch_config(q.shape[0], q.shape[1],
+                                      kv_pool.shape[1], bt_k.shape[-1])
+
+
 def _check_decode(name, q, kv_heads, hd, pos):
-    """Checks both decode wrappers share; returns (hb, q_bf16): the
-    query heads each block serves and q's type flag."""
+    """Checks both decode wrappers share; returns q's type flag."""
     b, h = q.shape[:2]
     if q.device.type != "cuda":
         raise ValueError(f"{name} launches a CUDA kernel; got tensors on "
@@ -209,7 +272,15 @@ def _check_decode(name, q, kv_heads, hd, pos):
     if pos.shape != (b,):
         raise ValueError(f"{name}: pos must be (B={b},); got "
                          f"{tuple(pos.shape)}")
-    return min(h // kv_heads, _DECODE_HEADS), _DTYPES[q.dtype]
+    return _DTYPES[q.dtype]
+
+
+def _decode_scratch(cfg, b, h, kv, hd, dev, stream):
+    """The split scratch (all None when not split): partial m, l
+    (B, n_split, H), acc (B, n_split, H, hd) and one ticket counter per
+    unit (b, group, head slice), shared with the CHAI kernels."""
+    units = b * kv * -(-(h // kv) // cfg.heads_per_block)
+    return ck.split_scratch(cfg.n_split, b, h, h, hd, units, dev, stream)
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, window=0, ts=0):
@@ -222,7 +293,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, window=0, ts=0):
     softmax (0: S; the whole sequence when it does not divide S, the
     reference's rule). Returns (B, H, hd) fp32 from ONE kernel launch."""
     b, h, hd = q.shape
-    hb, q_bf16 = _check_decode("flash_decode", q, k_cache.shape[1], hd, pos)
+    q_bf16 = _check_decode("flash_decode", q, k_cache.shape[1], hd, pos)
     if (k_cache.ndim != 4 or k_cache.shape[0] != b
             or k_cache.shape[3] != hd or v_cache.shape != k_cache.shape
             or v_cache.dtype != k_cache.dtype
@@ -238,15 +309,18 @@ def flash_decode(q, k_cache, v_cache, pos, *, window=0, ts=0):
     n_kv, s = k_cache.shape[1], k_cache.shape[2]
     q = q.contiguous()
     _check_aligned("flash_decode", q=q, k_cache=k_cache, v_cache=v_cache)
-    step = decode_step_size(fused_tile_size(ts, s))
+    cfg, tile = dense_decode_config(q, k_cache, ts)
     p = pos.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    fn = _launcher("flash_decode", 5, 10)
+    fn = _launcher("flash_decode", 9, 12)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _decode_scratch(cfg, b, h, n_kv, hd, dev, stream)
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 p.data_ptr(), out.data_ptr(), b, h, n_kv, s, hd, step,
-                 int(window), hb, q_bf16, _DTYPES[k_cache.dtype], stream)
+                 p.data_ptr(), out.data_ptr(), *map(ck._ptr, scratch), b, h,
+                 n_kv, s, hd, tile, int(window), cfg.heads_per_block,
+                 cfg.n_split, cfg.tiles_per_split, q_bf16,
+                 _DTYPES[k_cache.dtype], stream)
     if err:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
     LAUNCHES["flash_decode"] += 1
@@ -265,7 +339,7 @@ def paged_decode(q, kv_pool, bt_k, bt_v, pos, *, window=0):
     bitwise equal to ``flash_decode`` of the densified pool at
     ts == page."""
     b, h, hd = q.shape
-    hb, q_bf16 = _check_decode("paged_decode", q, kv_pool.shape[1], hd, pos)
+    q_bf16 = _check_decode("paged_decode", q, kv_pool.shape[1], hd, pos)
     n_pages = bt_k.shape[-1]
     if (kv_pool.ndim != 4 or kv_pool.shape[3] != hd
             or kv_pool.dtype not in _DTYPES
@@ -281,16 +355,20 @@ def paged_decode(q, kv_pool, bt_k, bt_v, pos, *, window=0):
     n_kv, page = kv_pool.shape[1], kv_pool.shape[2]
     q = q.contiguous()
     _check_aligned("paged_decode", q=q, kv_pool=kv_pool)
+    cfg = paged_decode_config(q, kv_pool, bt_k)
     tables = [x.to(device=dev, dtype=torch.int32).contiguous()
               for x in (bt_k, bt_v, pos)]
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    fn = _launcher("paged_decode", 6, 11)
+    fn = _launcher("paged_decode", 10, 12)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _decode_scratch(cfg, b, h, n_kv, hd, dev, stream)
         err = fn(q.data_ptr(), kv_pool.data_ptr(),
-                 *(x.data_ptr() for x in tables), out.data_ptr(), b, h,
-                 n_kv, n_pages, page, hd, decode_step_size(page),
-                 int(window), hb, q_bf16, _DTYPES[kv_pool.dtype], stream)
+                 *(x.data_ptr() for x in tables), out.data_ptr(),
+                 *map(ck._ptr, scratch), b, h, n_kv, n_pages, page, hd,
+                 int(window), cfg.heads_per_block, cfg.n_split,
+                 cfg.tiles_per_split, q_bf16, _DTYPES[kv_pool.dtype],
+                 stream)
     if err:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
     LAUNCHES["paged_decode"] += 1

@@ -165,8 +165,11 @@ def paged_prefix_attention(q, kv_pool, bt_k, bt_v, plen):
 def merge_prefill_states(s1, s2):
     """Online-softmax combine of two head-major prefill-state triples
     (m (B, H, T), l (B, H, T), acc (B, H, T, hd)): the chunk's causal pass
-    and its pass over the cached pages. An empty side (m = NEG_INF, l = 0,
-    acc = 0; ``plen == 0``) merges as the exact identity: the other side's
+    and its pass over the cached pages. Any per-row triple merges alike:
+    the tests combine the flash decode's per-head split states (m (B, H),
+    l (B, H), acc (B, H, hd); ``ref.flash_decode_state_ref``) with it. An
+    empty side (m = NEG_INF, l = 0, acc = 0; ``plen == 0``) merges as the
+    exact identity: the other side's
     m is clamped >= -1e30, so its rescale is exp(0) == 1 and the empty
     side's is exp(-2e38 - m) == 0."""
     m1, l1, acc1 = s1

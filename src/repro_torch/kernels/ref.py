@@ -23,7 +23,9 @@ head over a dense cache; head h reads KV row h // (H // KV)) and
 ``paged_decode_ref`` (the same over a page pool: densify, then
 ``flash_decode_ref``), masked as the Pallas body masks (scores exactly
 NEG_INF outside idx <= pos and pos - idx < window) and normalized as it
-does, acc / max(l, 1e-37), in one shot over the row.
+does, acc / max(l, 1e-37), in one shot over the row;
+``flash_decode_state_ref`` is its unfinalized per-head (m, l, acc) form,
+from which the tests build the kernels' split-S algorithm.
 
 The prefill kernels' plain versions: ``flash_prefill_ref`` (finalized
 causal attention, the reference's whole-row softmax oracle) and
@@ -242,12 +244,13 @@ def relay_prefix_decode_ref(q, k, v, k_row, a_row, v_row, plen):
                                       rows(v, v_row))
 
 
-def flash_decode_ref(q, k_cache, v_cache, pos, *, window=0):
-    """Plain version of ``flash_decode``. q: (B, H, hd); k_cache/v_cache:
-    (B, KV, S, hd); pos: (B,). Position idx is visible iff idx <= pos
-    (and pos - idx < window when window > 0); masked scores are NEG_INF;
-    m = max(max(sc), -1e30), p = exp(sc - m), out = (p . V) / max(sum(p),
-    1e-37). Returns (B, H, hd) fp32."""
+def flash_decode_state_ref(q, k_cache, v_cache, pos, *, window=0):
+    """``flash_decode_ref`` unfinalized, per head: the online-softmax
+    triple (m (B, H), l (B, H), acc (B, H, hd)) fp32 over the visible
+    positions idx <= pos (and pos - idx < window when window > 0), m
+    clamped at >= -1e30. A split of the CUDA kernels' plan is this state
+    over its own positions (``ops.merge_prefill_states`` combines two).
+    Used by the tests; nothing on the card's path calls it."""
     b, h, hd = q.shape
     n_kv, s = k_cache.shape[1], k_cache.shape[2]
     qs = q.reshape(b, n_kv, h // n_kv, hd).float()
@@ -262,8 +265,19 @@ def flash_decode_ref(q, k_cache, v_cache, pos, *, window=0):
     m = torch.clamp(sc.amax(-1, keepdim=True), min=-1e30)
     p = torch.exp(sc - m)
     acc = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
-    out = acc / torch.clamp(p.sum(-1, keepdim=True), min=1e-37)
-    return out.reshape(b, h, hd)
+    return (m.reshape(b, h), p.sum(-1).reshape(b, h),
+            acc.reshape(b, h, hd))
+
+
+def flash_decode_ref(q, k_cache, v_cache, pos, *, window=0):
+    """Plain version of ``flash_decode``. q: (B, H, hd); k_cache/v_cache:
+    (B, KV, S, hd); pos: (B,). Position idx is visible iff idx <= pos
+    (and pos - idx < window when window > 0); masked scores are NEG_INF;
+    m = max(max(sc), -1e30), p = exp(sc - m), out = (p . V) / max(sum(p),
+    1e-37). Returns (B, H, hd) fp32."""
+    _, l, acc = flash_decode_state_ref(q, k_cache, v_cache, pos,
+                                       window=window)
+    return acc / torch.clamp(l, min=1e-37)[..., None]
 
 
 def paged_decode_ref(q, kv_pool, bt_k, bt_v, pos, *, window=0):

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import torch
 
 from repro.kernels import flash_attention as jfk
+from repro_torch.kernels import chai_attention as tck
 from repro_torch.kernels import flash_attention as tfk
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -167,11 +168,12 @@ def test_null_page_and_future_positions_are_masked():
 
 @pytest.mark.parametrize("window", [0, 5])
 def test_decode_step_and_masked_row(window):
-    """The kernels' online-softmax step is the tile up to 128 positions,
-    else its largest divisor under that; a row whose every position is
-    masked (pos < 0) gives zeros, as the Pallas kernel's clamped max
+    """The fused CHAI kernels' online-softmax step is the tile up to 128
+    positions, else its largest divisor under that (the flash decode
+    kernels step by their 64-position chunk); a row whose every position
+    is masked (pos < 0) gives zeros, as the Pallas kernel's clamped max
     does."""
-    assert [tfk.decode_step_size(t) for t in (8, 16, 48, 128, 512, 1000,
+    assert [tck.decode_step_size(t) for t in (8, 16, 48, 128, 512, 1000,
                                               1009)] == [8, 16, 48, 128,
                                                          128, 125, 1]
     q = torch.randn(2, 4, 8)
