@@ -107,7 +107,12 @@ masked row's softmax all zeros; phase 4 also runs reduced nemotron (2 KV
 groups of 6 heads, head_dim 8) cuda against cpu.
 
 Phase 3 also holds ``relay_prefix_decode`` on synthetic groups (G = 2,
-4 and 3 members of 25 reps, plen 200 and 256, bf16 and fp32) and both
+4 and 3 members of 25 reps, plen 200 and 256, bf16 and fp32; GQA maps
+with 20 query rows on each K row, and with a group of 3 in ``nmax`` 4;
+three groups at plen 200, 1024 and 0 in a view of 1024, whose later
+splits lie wholly past plen), each case launched twice with equal bits
+and its plan (score and sum units, splits, blocks) and the prefix rows
+its blocks stream logged, and both
 decode kernels' ``emit_state`` mode (against the plain versions; paged
 == dense bitwise; emit + merge with the empty state + finalize equal to
 the finalized launch bit for bit); phase 4 also runs the reduced engine
@@ -872,22 +877,46 @@ def emit_state_checks():
 def relay_bound(q, k, k_row, a_row, v_row, plen):
     """Least time for ``relay_prefix_decode``'s work: per group the K rows
     its query rows name and the V rows its acc rows name, positions <
-    plen, read once; q, the maps and plen read and the fp32 state (m, l
+    plen, read once (``kops.relay_prefix_hbm_bytes_estimate`` over the
+    distinct rows); q, the maps and plen read and the fp32 state (m, l
     and acc) written once; the QK and AV multiply-adds in fp32."""
     g, nr, hd = q.shape
     a = a_row.shape[1]
-    es = k.element_size()
     n_bytes = (q.numel() + k_row.numel() + a_row.numel() + v_row.numel()
                + plen.numel() + 2 * g * nr + g * a * hd) * 4
     flops = 0
     for i in range(g):
         n = int(plen[i])
-        rows = len(set(k_row[i].tolist())) + len(set(v_row[i].tolist()))
-        n_bytes += rows * n * hd * es
+        n_bytes += kops.relay_prefix_hbm_bytes_estimate(
+            len(set(k_row[i].tolist())), len(set(v_row[i].tolist())), n, hd,
+            cache_bytes=k.element_size())
         flops += 2 * (nr + a) * n * hd
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def relay_plan(q, k, v, k_row, a_row, v_row, ts):
+    """The relay kernel's cut of one call (``ck.relay_launch_config``) and
+    the prefix rows its blocks stream against the distinct rows the bound
+    counts (``ck.relay_units``, the kernel's routing): a score block
+    streams its K row once, a sum block its V row once."""
+    g, nr, hd = q.shape
+    sp = k.shape[2]
+    ts = ck.fused_tile_size(ts, sp)
+    cfg = ck.relay_launch_config(g, nr, a_row.shape[1], k.shape[1],
+                                 v.shape[1], sp // ts)
+    units = ck.relay_units(k_row, a_row, v_row)
+    scores = sum(len(u["scores"]) for u in units)
+    sums = sum(len(u["sums"]) for u in units)
+    return dict(
+        score_units=scores, sum_units=sums, q_slots=cfg.q_slots,
+        v_slots=cfg.v_slots, n_split=cfg.n_split,
+        tiles_per_split=cfg.tiles_per_split,
+        blocks=(cfg.q_slots + cfg.v_slots) * cfg.n_split * g,
+        k_row_reads=scores, k_rows=sum(len(set(r.tolist())) for r in k_row),
+        v_row_reads=sums, v_rows=sum(len(set(r.tolist())) for r in v_row),
+        smem_bytes=cfg.smem_bytes)
 
 
 def _per_l(state, a_row):
@@ -899,68 +928,140 @@ def _per_l(state, a_row):
 
 
 def relay_case(q, k, v, k_row, a_row, v_row, plen, ts, *, per_l=False):
-    """``relay_prefix_decode`` against its plain version (2e-5); returns
-    the case's record with its times and bound. ``per_l``: hold each acc
-    row over its l (and record the raw acc's error): over tens of
-    thousands of positions the raw acc and l are sums of that many terms
-    of up to 1, which two summation orders round apart by ~1e-7 of l."""
+    """``relay_prefix_decode`` against its plain version (2e-5) and
+    launched twice with equal bits; returns the case's record with its
+    plan, rows streamed, times and bound. ``per_l``: hold each acc row
+    over its l (and record the raw acc's error): over tens of thousands of
+    positions the raw acc and l are sums of that many terms of up to 1,
+    which two summation orders round apart by ~1e-7 of l."""
     args = (q, k, v, k_row, a_row, v_row, plen)
     got = ck.relay_prefix_decode(*args, ts=ts)
+    again = ck.relay_prefix_decode(*args, ts=ts)
     torch.cuda.synchronize()
+    _bitwise("relay_prefix_decode: two launches", again, got)
     want = kref.relay_prefix_decode_ref(*args)
     if per_l:
         raw_err = _max_err(got, want)
         got, want = _per_l(got, a_row), _per_l(want, a_row)
     err = _hold(got, want)
     bound, by = relay_bound(q, k, k_row, a_row, v_row, plen)
+    lib_smem = build.load("relay_prefix_decode").relay_smem_bytes()
+    plan = relay_plan(q, k, v, k_row, a_row, v_row, ts)
+    if lib_smem != plan["smem_bytes"]:
+        raise AssertionError(f"relay: the kernel's block takes {lib_smem} B "
+                             "of shared memory, the host's mirror says "
+                             f"{plan['smem_bytes']}")
     extra = dict(held="acc / l", raw_max_abs_err=raw_err) if per_l else {}
+    call = lambda: ck.relay_prefix_decode(*args, ts=ts)  # noqa: E731
     return dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
                 a=a_row.shape[1], dtype=str(k.dtype), ts=ts,
                 plen=plen.tolist(), max_abs_err=err, **extra,
-                ms=time_ms(lambda: ck.relay_prefix_decode(*args, ts=ts)),
+                repeat_bitwise=True, plan=plan, ms=time_ms(call),
+                device_ms=device_ms(call, "relay_prefix_decode_kernel",
+                                    reps=5 if per_l else 20),
                 plain_ms=time_ms(lambda: kref.relay_prefix_decode_ref(*args)),
                 bound_ms=bound, bound_by=by)
 
 
-def relay_kernel_checks():
-    """``relay_prefix_decode`` on synthetic groups at the full-width
-    shapes: G = 2 groups of 4 and 3 members (the fourth slot of group 1
-    is a padded member, index 0 in every map), R = 25 reps of H = 32
-    heads (one rep of each member without a head), hd 128, plen 200 and
-    256 in a view of Sp = 256 whose tail past plen is zero, bf16 and
-    fp32."""
-    gen = torch.Generator("cuda").manual_seed(5)
+def _log_relay(case):
+    p = case["plan"]
+    log(f"relay_prefix_decode {case['case']}: q {tuple(case['q'])} k "
+        f"{tuple(case['k'])} A {case['a']} plen {case['plen']}: max_abs_err"
+        f" {case['max_abs_err']:.3e}"
+        + (f" ({case['held']}; raw state {case['raw_max_abs_err']:.3e})"
+           if "held" in case else "")
+        + f", two launches bitwise; plan {p['score_units']} score units "
+        f"in {p['q_slots']} slots and {p['sum_units']} sum units in "
+        f"{p['v_slots']} slots x {p['n_split']} splits of "
+        f"{p['tiles_per_split']} tiles = {p['blocks']} blocks; rows "
+        f"streamed K {p['k_row_reads']} / "
+        f"{p['k_rows']} distinct, V {p['v_row_reads']} / {p['v_rows']} "
+        f"distinct; kernel {case['ms']:.4f} ms back to back, device "
+        f"{case['device_ms']} ms, plain {case['plain_ms']:.4f} ms, bound "
+        f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
+
+
+def relay_maps(gen, members, nmax, *, gqa):
+    """Routing maps as the engine builds them (``serving.engine.
+    _relay_row_maps``) for groups of ``members`` real slots of ``nmax``;
+    padded entries stay 0. MHA (chai-llama-7b: R = 25 reps of H = 32
+    heads, K and V rows per head): query row j*R + i reads K row reps[i],
+    head h reads query row j*R + h2c[h] (one rep without a head) and V row
+    h. GQA (nemotron-4-15b: 8 KV groups of 5 reps and 6 heads, R = 40, H =
+    48): query row j*R + c*5 + i reads K row c, so 4 x 5 = 20 query rows
+    of a full group read each K row; head h of KV group c reads query row
+    j*R + c*5 + (its cluster) and V row c. Returns (k_row, a_row, v_row,
+    R, K rows, V rows)."""
     dev = "cuda"
-    r, h, hd, sp, nmax = get_config(ARCH).k_max, 32, 128, 256, 4
-    plen = torch.tensor([200, 256], dtype=torch.int32, device=dev)
-    cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        g = len(plen)
-        q = torch.randn(g, nmax * r, hd, generator=gen, device=dev)
-        k = torch.randn(g, h, sp, hd, generator=gen, device=dev).to(dtype)
-        v = torch.randn(g, h, sp, hd, generator=gen, device=dev).to(dtype)
-        for i, n in enumerate(plen.tolist()):
-            k[i, :, n:] = 0
-            v[i, :, n:] = 0
-        k_row = torch.zeros(g, nmax * r, dtype=torch.int32, device=dev)
-        a_row = torch.zeros(g, nmax * h, dtype=torch.int32, device=dev)
-        v_row = torch.zeros(g, nmax * h, dtype=torch.int32, device=dev)
-        for i, n_mem in enumerate((4, 3)):
-            for j in range(n_mem):
+    if gqa:
+        n_kv, r_g, qpk = 8, 5, 6
+        r, h, kv, vr = n_kv * r_g, n_kv * qpk, n_kv, n_kv
+    else:
+        r, h = get_config(ARCH).k_max, 32
+        kv = vr = h
+    g = len(members)
+    k_row = torch.zeros(g, nmax * r, dtype=torch.int32, device=dev)
+    a_row = torch.zeros(g, nmax * h, dtype=torch.int32, device=dev)
+    v_row = torch.zeros(g, nmax * h, dtype=torch.int32, device=dev)
+    for i, n_mem in enumerate(members):
+        for j in range(n_mem):
+            if gqa:
+                grp = torch.arange(h, device=dev) // qpk
+                k_row[i, j * r:(j + 1) * r] = torch.arange(
+                    n_kv, device=dev).repeat_interleave(r_g)
+                a_row[i, j * h:(j + 1) * h] = j * r + grp * r_g + (
+                    torch.randint(0, r_g, (h,), generator=gen, device=dev))
+                v_row[i, j * h:(j + 1) * h] = grp
+            else:
                 reps = torch.randperm(h, generator=gen, device=dev)[:r]
                 h2c = torch.randint(0, r - 1, (h,), generator=gen,
                                     device=dev)
                 k_row[i, j * r:(j + 1) * r] = reps
                 a_row[i, j * h:(j + 1) * h] = j * r + h2c
                 v_row[i, j * h:(j + 1) * h] = torch.arange(h, device=dev)
-        case = dict(case=f"synthetic_g2_{str(dtype)[6:]}",
-                    **relay_case(q, k, v, k_row, a_row, v_row, plen, PAGE))
+    return k_row, a_row, v_row, r, kv, vr
+
+
+def relay_kernel_checks():
+    """``relay_prefix_decode`` on synthetic groups at the full-width
+    shapes (hd 128; ``relay_maps``; the tail of each group's view past
+    plen zero, as the engine's views): G = 2 MHA groups of 4 and 3
+    members (the fourth slot of group 1 padded, index 0 in every map; plen
+    200 and 256, Sp = 256), bf16 and fp32; one GQA group of 4 members (20
+    query rows on each K row); GQA groups of 4 and 3 (the padded slot's 40
+    query rows on K row 0 and its 48 acc rows on query row 0, so its unit
+    sums its members in several passes); and G = 3 MHA groups at plen
+    200, 1024 and 0 in a view of Sp = 1024, whose later splits lie wholly
+    past plen (every split of the third)."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    dev = "cuda"
+    hd, nmax = 128, 4
+    cases = []
+    for tag, dtype, members, plen, sp, gqa in (
+            ("synthetic_g2_bfloat16", torch.bfloat16, (4, 3), (200, 256),
+             256, False),
+            ("synthetic_g2_float32", torch.float32, (4, 3), (200, 256), 256,
+             False),
+            ("gqa_20_per_k_row_bfloat16", torch.bfloat16, (4,), (256,), 256,
+             True),
+            ("gqa_group_of_3_in_4_bfloat16", torch.bfloat16, (4, 3),
+             (256, 180), 256, True),
+            ("splits_past_plen_bfloat16", torch.bfloat16, (4, 3, 2),
+             (200, 1024, 0), 1024, False)):
+        k_row, a_row, v_row, r, kv, vr = relay_maps(gen, members, nmax,
+                                                    gqa=gqa)
+        g = len(members)
+        plen_t = torch.tensor(plen, dtype=torch.int32, device=dev)
+        q = torch.randn(g, nmax * r, hd, generator=gen, device=dev)
+        k = torch.randn(g, kv, sp, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(g, vr, sp, hd, generator=gen, device=dev).to(dtype)
+        for i, n in enumerate(plen):
+            k[i, :, n:] = 0
+            v[i, :, n:] = 0
+        case = dict(case=tag, **relay_case(q, k, v, k_row, a_row, v_row,
+                                           plen_t, PAGE))
         cases.append(case)
-        log(f"relay_prefix_decode {case['case']}: q {tuple(q.shape)} k "
-            f"{tuple(k.shape)} plen {case['plen']} max_abs_err "
-            f"{case['max_abs_err']:.3e} kernel {case['ms']:.4f} ms plain "
-            f"{case['plain_ms']:.4f} ms bound {case['bound_ms']:.4f} ms "
-            f"({case['bound_by']})")
+        _log_relay(case)
     return cases
 
 
@@ -1104,12 +1205,10 @@ def split_decode_checks():
                 **relay_case(q, k, v, k_row, a_row, v_row, plen, PAGE,
                              per_l=True))
     relay.append(case)
-    log(f"relay_prefix_decode {case['case']}: q {tuple(q.shape)} k "
-        f"{tuple(k.shape)} plen {case['plen']} max_abs_err (acc / l) "
-        f"{case['max_abs_err']:.3e} (raw state "
-        f"{case['raw_max_abs_err']:.3e}) kernel {case['ms']:.4f} ms plain "
-        f"{case['plain_ms']:.4f} ms bound {case['bound_ms']:.4f} ms "
-        f"({case['bound_by']})")
+    _log_relay(case)
+    log(f"relay_prefix_decode {case['case']}: device {case['device_ms']} ms"
+        f" = {(case['device_ms'] or float('nan')) / case['bound_ms']:.2f} x "
+        "its bound")
     del q, k, v
     torch.cuda.empty_cache()
     return cases, relay
@@ -2895,16 +2994,13 @@ def prefix_path(cfg, params, tag="prefix"):
                       **relay_case(*ra, ts=rc["kw"]["ts"]))
     call = lambda: ck.relay_prefix_decode(*ra, ts=rc["kw"]["ts"])  # noqa
     relay_main["single_call_ms"] = single_call_ms(call)
-    relay_main["device_ms"] = device_ms(call, "relay_prefix_decode_kernel")
     relay_main["stack_ms_per_step"] = 1e3 * form
-    log(f"relay_prefix_decode {tag} (layer 0, first relay step): q "
-        f"{relay_main['q']} k {relay_main['k']} {relay_main['dtype']} plen "
-        f"{relay_main['plen']}: max_abs_err {relay_main['max_abs_err']:.3e},"
-        f" kernel {relay_main['ms']:.4f} ms (single call "
+    _log_relay(relay_main)
+    log(f"relay_prefix_decode {tag} (layer 0, first relay step, "
+        f"{relay_main['dtype']}): single call "
         f"{relay_main['single_call_ms']:.4f} ms, profiled device time "
-        f"{relay_main['device_ms']} ms), plain {relay_main['plain_ms']:.4f} "
-        f"ms, bound {relay_main['bound_ms']:.4f} ms "
-        f"({relay_main['bound_by']})")
+        f"{relay_main['device_ms']} ms against a bound of "
+        f"{relay_main['bound_ms']:.4f} ms")
     pc = relay["capture"]["paged", "relay"]
     pa = (pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
           pc["h2c"], pc["pos"])

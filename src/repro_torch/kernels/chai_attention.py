@@ -27,7 +27,13 @@ with ``relay_prefix_decode``'s state and finalizes in torch.
 of the Pallas ``relay_prefix_decode``): one pass per relay group over a
 packed shared prefix, the member slots' rep queries stacked on one row
 axis and routed by three int32 maps; it emits the same kind of state.
-It runs the same streamed block body with one split.
+It runs two kinds of block in one launch: score blocks (a slice of the
+query rows of one K row) and sum blocks (a slice of the acc rows of one
+V row), so each K and V row is streamed once; ``relay_units`` is the
+routing the kernel builds from the maps, ``relay_launch_config`` its
+grid, split plan (``split_plan`` over the group's K rows) and shared
+memory; the splits merge in order inside the launch, as in the fused
+pair.
 
 The three-kernel pipeline (the reference's retired decode, kept as the
 fused kernels' baseline): ``chai_qk``, ``chai_qk_i8`` and
@@ -71,6 +77,13 @@ _TAB = _CHUNK + 2       # kTab
 # than four tiles (64 positions at the engine's page of 16).
 SPLIT_TARGET_BLOCKS = 16 * 132
 SPLIT_MIN_TILES = 4
+# relay_prefix_decode.cu: the K or V rows of one group its in-kernel
+# count holds (kMaxRows), and its fixed shared memory (kSmemBytes: the sum
+# blocks' reduce, a chunk per row, m and split factors; ints)
+_RELAY_MAX_ROWS = 2 * _THREADS
+_RELAY_SMEM = ((_THREADS * 8 * _SLICE + _MAX_Q * _CHUNK + _MAX_Q
+                + _MAX_Q * _MAX_SPLIT) * 4
+               + (_RELAY_MAX_ROWS + _THREADS // 32 + 4 + 2 * _MAX_Q + 1) * 4)
 
 
 def fused_tile_size(ts: int, s: int) -> int:
@@ -137,19 +150,83 @@ def block_smem_bytes(kq: int, hd: int, n_map: int, n_cap: int) -> int:
 
 
 def decode_launch_config(b: int, k_rows: int, n_tiles: int, hd: int,
-                         n_map: int, reps_per_group: int = 1,
-                         n_split: int | None = None) -> DecodeLaunch:
-    """The launch of one fused decode (or, with ``n_split=1``, relay)
-    call: the split plan from (b, k_rows, n_tiles), and the block's shared
-    memory for ``reps_per_group`` queries per block and an ``n_map``-entry
-    member map (H heads; the relay's A acc rows)."""
-    if n_split is None:
-        n_split, per = split_plan(b, k_rows, n_tiles)
-    else:
-        per = -(-n_tiles // n_split)
+                         n_map: int, reps_per_group: int = 1) -> DecodeLaunch:
+    """The launch of one fused decode call: the split plan from (b,
+    k_rows, n_tiles), and the block's shared memory for ``reps_per_group``
+    queries per block and an ``n_map``-entry member map (H heads)."""
+    n_split, per = split_plan(b, k_rows, n_tiles)
     n_cap = max(1, min(n_map, _SLICE))
     return DecodeLaunch(n_split, per, n_cap, block_smem_bytes(
         _query_bucket(reps_per_group), hd, n_map, n_cap))
+
+
+class RelayLaunch(NamedTuple):
+    """How a ``relay_prefix_decode`` call is cut: ``q_slots`` score blocks
+    and ``v_slots`` sum blocks per (group, split), upper bounds on the
+    group's query slices and acc slices; ``n_split`` ranges of
+    ``tiles_per_split`` whole tiles; the block's dynamic shared memory in
+    bytes (``kSmemBytes`` of ``csrc/relay_prefix_decode.cu``)."""
+    q_slots: int
+    v_slots: int
+    n_split: int
+    tiles_per_split: int
+    smem_bytes: int
+
+
+def relay_slots(n: int, rows: int) -> int:
+    """An upper bound on the slices of a map of ``n`` entries over
+    ``rows`` rows, each row's entries cut into ceil(c / 8) slices: at most
+    n // 8 + (the rows named), and never more than n; at least 1."""
+    return max(1, min(n, n // _MAX_Q + min(rows, n)))
+
+
+def relay_launch_config(g: int, nr: int, a_total: int, kv: int, vr: int,
+                        n_tiles: int) -> RelayLaunch:
+    """The launch of one relay call on G groups of ``nr`` query rows over
+    ``kv`` K rows and ``a_total`` acc rows over ``vr`` V rows, ``n_tiles``
+    tiles each: the fused pair's split plan over the (group, K row)
+    units, and shared memory fixed whatever Sp, NR and A."""
+    n_split, per = split_plan(g, kv, n_tiles)
+    return RelayLaunch(relay_slots(nr, kv), relay_slots(a_total, vr),
+                       n_split, per, _RELAY_SMEM)
+
+
+def relay_counters(g: int, cfg: RelayLaunch) -> int:
+    """int32 counters of one relay launch: the dispatch counter, two per
+    (group, split) and a merge ticket per score and per sum slot."""
+    return 1 + 2 * g * cfg.n_split + g * (cfg.q_slots + cfg.v_slots)
+
+
+def _slices(row_of, cap):
+    """A map's entries (row_of[e]) as the kernel slices them: row by row,
+    each row's entries in map order cut into ceil(c / cap) slices of
+    near-equal size, slice z holding ranks [z * c // n, (z + 1) * c // n)
+    of n slices. Returns [(row, [entries])]."""
+    out = []
+    for row in sorted(set(row_of)):
+        ents = [e for e, x in enumerate(row_of) if x == row]
+        n = -(-len(ents) // cap)
+        out += [(row, ents[z * len(ents) // n:(z + 1) * len(ents) // n])
+                for z in range(n)]
+    return out
+
+
+def relay_units(k_row, a_row, v_row):
+    """The routing ``relay_prefix_decode``'s blocks build from the maps,
+    as plain Python (the kernel's mirror; also the tests' and
+    ``chip_smoke.py``'s count of the rows streamed). Per group, in slot
+    order: ``scores``, dicts of ``kv`` and ``queries`` (the query rows a
+    score block dots with K row kv, at most 8), and ``sums``, dicts of
+    ``vr`` and ``members`` (at most 8 (acc row, query row) pairs a sum
+    block weights V row vr for). Returns [{scores, sums} of group 0,
+    ...]."""
+    k_row, a_row, v_row = ([list(map(int, r)) for r in x.tolist()]
+                           for x in (k_row, a_row, v_row))
+    return [dict(scores=[dict(kv=kv, queries=qs)
+                         for kv, qs in _slices(kr, _MAX_Q)],
+                 sums=[dict(vr=vr, members=[(e, ar[e]) for e in ents])
+                       for vr, ents in _slices(vrow, _SLICE)])
+            for kr, ar, vrow in zip(k_row, a_row, v_row)]
 
 
 def dense_launch_config(q_rep, k_cache, h2c, *, reps_per_group=1, ts=512):
@@ -253,15 +330,17 @@ def _outputs(b, r_total, h_total, hd, dev, emit_state):
 _COUNTERS: dict = {}
 
 
-def split_scratch(n_split, b, r_total, h_total, hd, units, dev, stream):
+def split_scratch(n_split, b, r_total, h_total, hd, units, dev, stream, *,
+                  one_split=False):
     """(mp, lp, accp, counter) of a split launch: the partial m and l
     (B, n_split, R) and the raw partial acc (B, n_split, H, hd), fp32, in
     one ``torch.empty`` (the kernel reads no slot it has not written),
-    and the unit counters; all None when the call is not split. The flash
+    and the unit counters; all None when the call is not split, unless
+    ``one_split`` (the relay kernel merges one split like many). The flash
     decode pair (``kernels.flash_attention``) takes its scratch here too,
     with R == H; the counters are shared (launches on one stream run in
     order, and each leaves them at zero)."""
-    if n_split == 1:
+    if n_split == 1 and not one_split:
         return None, None, None, None
     key = (dev.index, stream)
     counter = _COUNTERS.get(key)
@@ -410,9 +489,12 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
     a_row: (G, A) acc row -> query row; v_row: (G, A) acc row -> V row;
     plen: (G,) valid prefix lengths (positions >= plen masked). ``ts``:
     the S-tile (0: Sp; the whole prefix when it does not divide Sp). Any
-    Sp: the kernel streams it with fixed shared memory. Returns (m (G,
-    NR), l (G, NR), acc (G, A, hd)) fp32, unnormalized, from ONE kernel
-    launch.
+    Sp, NR and A: the kernel streams Sp with shared memory fixed in all
+    three, cut into ``split_plan`` ranges merged inside the launch; at
+    most 256 K rows and 256 V rows. Scratch: the scores (G, NR, Sp) fp32
+    and the splits' partial states.
+    Returns (m (G, NR), l (G, NR), acc (G, A, hd)) fp32, unnormalized, from
+    ONE kernel launch.
     """
     if q.device.type != "cuda":
         raise ValueError(f"relay_prefix_decode launches a CUDA kernel; got "
@@ -431,8 +513,14 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
                          f"{tuple(k_row.shape)}, a_row {tuple(a_row.shape)},"
                          f" v_row {tuple(v_row.shape)}, plen "
                          f"{tuple(plen.shape)}")
+    if not (0 < kv <= _RELAY_MAX_ROWS and 0 < vr <= _RELAY_MAX_ROWS
+            and nr):
+        raise ValueError(f"relay_prefix_decode: {kv} K rows, {vr} V rows "
+                         f"and {nr} query rows; the kernel counts 1.."
+                         f"{_RELAY_MAX_ROWS} rows of each and needs a query "
+                         "row")
     ts = fused_tile_size(ts, sp)
-    cfg = decode_launch_config(g, nr, sp // ts, hd, a_total, n_split=1)
+    cfg = relay_launch_config(g, nr, a_total, kv, vr, sp // ts)
     _check_block("relay_prefix_decode", hd, 1, cfg)
     dev = q.device
     qf = q.float().contiguous()
@@ -442,14 +530,20 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
     m = torch.empty((g, nr), dtype=torch.float32, device=dev)
     l = torch.empty((g, nr), dtype=torch.float32, device=dev)
     acc = torch.empty((g, a_total, hd), dtype=torch.float32, device=dev)
-    fn = _launcher("relay_prefix_decode", 10, 11)
+    scores = torch.empty((g, nr, sp), dtype=torch.float32, device=dev)
+    fn = _launcher("relay_prefix_decode", 15, 13)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        mp, lp, accp, counter = split_scratch(
+            cfg.n_split, g, nr, a_total, hd, relay_counters(g, cfg), dev,
+            stream, one_split=True)
         err = fn(qf.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                  *(t.data_ptr() for t in maps), m.data_ptr(), l.data_ptr(),
-                 acc.data_ptr(), g, nr, a_total, kv, vr, sp, hd, ts,
-                 decode_step_size(ts), cfg.n_cap, _KV_DTYPES[kc.dtype],
-                 stream)
+                 acc.data_ptr(), mp.data_ptr(), lp.data_ptr(),
+                 accp.data_ptr(), scores.data_ptr(), counter.data_ptr(), g,
+                 nr, a_total, kv, vr, sp, hd, ts, cfg.n_split,
+                 cfg.tiles_per_split, cfg.q_slots, cfg.v_slots,
+                 _KV_DTYPES[kc.dtype], stream)
     if err:
         raise RuntimeError(f"relay_prefix_decode launch failed: CUDA error "
                            f"{err}")

@@ -1,9 +1,9 @@
 // Block body of the one-pass fused clustered decode (CHAI STEADY
-// attention), shared by the dense kernel (chai_fused_decode.cu), the paged
-// kernel (paged_chai_fused_decode.cu) and the relay prefix kernel
-// (relay_prefix_decode.cu).
+// attention), shared by the dense kernel (chai_fused_decode.cu) and the
+// paged kernel (paged_chai_fused_decode.cu); the relay prefix kernel
+// (relay_prefix_decode.cu) takes its row loads, reductions and constants.
 //
-// Every kernel runs ``unit_block`` over a "where is position idx of K/V
+// Both kernels run ``unit_block`` over a "where is position idx of K/V
 // row r" object: ``DenseTiles`` for a (rows, S, hd) cache, ``PagedTiles``
 // for (nP, rows, page, hd) pools read through one batch row's block
 // tables (K and V take tables of their own). The arithmetic and its order
@@ -143,8 +143,8 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
-// A dense cache (rows, S, hd) of one batch row (the relay: of one group):
-// position idx of row r at (r * S + idx) * hd.
+// A dense cache (rows, S, hd) of one batch row: position idx of row r at
+// (r * S + idx) * hd.
 template <typename T>
 struct DenseTiles {
   const T* k;

@@ -16,7 +16,8 @@ the reference's retired three-kernel decode (QK -> row softmax -> AV,
 the (B, R, S) scores in device memory between launches), kept as the
 fused kernels' baseline; ``decode_flop_estimate``,
 ``decode_launch_count`` and ``decode_hbm_bytes_estimate`` are the
-analytic side of that comparison. A tensor on the CPU takes the plain
+analytic side of that comparison, ``relay_prefix_hbm_bytes_estimate``
+the relay pass's bytes. A tensor on the CPU takes the plain
 version (``kernels.ref``); any other device goes to the CUDA kernel,
 which launches or raises. There is no fallback from a kernel to its
 plain version.
@@ -286,6 +287,21 @@ def decode_launch_count(fused=True):
     """Kernel launches per CHAI decode call: the fused path is one; the
     pipeline QK -> row softmax -> AV is three."""
     return 1 if fused else 3
+
+
+def relay_prefix_hbm_bytes_estimate(k_rows, v_rows, prefix_len, hd, *,
+                                    cache_bytes=4, int8_scales=False):
+    """Device-memory bytes one relay group's shared-prefix pass must read
+    per decode step (the reference's estimator): the packed prefix's
+    k_rows + v_rows rows of prefix_len x hd, once, whatever the member
+    count; the q/acc traffic (O(members x R x hd)) is left out, as
+    ``decode_hbm_bytes_estimate`` leaves out q/out. ``int8_scales``: the
+    rows' fp32 scales too. Without relay each slot reads the prefix
+    through its own block table: members x this figure."""
+    total = (k_rows + v_rows) * prefix_len * hd * cache_bytes
+    if int8_scales:
+        total += (k_rows + v_rows) * prefix_len * 4
+    return float(total)
 
 
 def decode_hbm_bytes_estimate(b, h, r, s, hd, *, cache_bytes=4,

@@ -7,10 +7,11 @@ online-softmax state and merge the states in split order inside the
 launch. Here:
 
 * the plan: its ranges are whole tiles, in order, covering every tile
-  once; it is the same for the dense and the paged call at equal shapes
+  once (also at the relay kernel's (groups, K rows, tiles)); it is the
+  same for the dense and the paged call at equal shapes
   (``dense_launch_config`` / ``paged_launch_config``, the helpers both
-  wrappers call); a block's shared memory does not grow with S and stays
-  under the block limit;
+  wrappers call); a block's shared memory does not grow with S (the
+  relay's with Sp, NR and A) and stays under the block limit;
 * the algorithm: per-split states from the port's plain pieces (each
   split's positions only), merged in split order with
   ``ops.merge_decode_states`` and finalized with
@@ -51,7 +52,10 @@ def _j(a):
 # ------------------------------------------------------------- the plan ---
 @pytest.mark.parametrize("b,k_rows,n_tiles", [
     (4, 25, 64), (4, 8, 64), (1, 25, 4096), (1, 8, 65536), (2, 5, 18),
-    (3, 3, 7), (1, 1, 1), (64, 25, 2)])
+    (3, 3, 7), (1, 1, 1), (64, 25, 2),
+    # the relay kernel's (G, K rows, tiles): the main path's 256-token
+    # prompt on chai-llama-7b and nemotron-4-15b, Sp = 65,536, and 3 groups
+    (1, 32, 16), (1, 8, 16), (2, 32, 4096), (3, 32, 64)])
 def test_split_ranges_are_whole_tiles_in_order_covering_every_tile(
         b, k_rows, n_tiles):
     ranges = tck.split_ranges(b, k_rows, n_tiles)
@@ -87,9 +91,23 @@ def test_split_plan_is_the_same_for_dense_and_paged(b, r, h, kv_v, rpg,
     assert dense.n_split * dense.tiles_per_split >= n_pages
 
 
-@pytest.mark.parametrize("h,kv_k,rpg", [(32, 25, 1), (48, 8, 5)])
+@pytest.mark.parametrize("h,kv_k,rpg", [
+    (32, 25, 1), (48, 8, 5),
+    # the relay kernel (rpg None): H heads and K rows of one slot, its
+    # shared memory fixed as Sp, NR and A grow
+    pytest.param(32, 32, None, id="relay-32-32"),
+    pytest.param(48, 8, None, id="relay-48-8")])
 def test_block_shared_memory_does_not_grow_with_s(h, kv_k, rpg):
     hd, page = 128, 16
+    if rpg is None:
+        reps = 25 if kv_k == h else 5 * kv_k
+        sizes = [tck.relay_launch_config(g, nmax * reps, nmax * h, kv_k,
+                                         kv_k, sp // page).smem_bytes
+                 for g, nmax, sp in ((1, 4, 256), (2, 4, 65536),
+                                     (8, 64, 1048576))]
+        assert len(set(sizes)) == 1
+        assert sizes[0] < BLOCK_SMEM_LIMIT
+        return
     meta = dict(device="meta")
     q = torch.empty(4, kv_k * rpg, hd, **meta)
     h2c = torch.empty(4, h, dtype=torch.int32, **meta)
