@@ -84,8 +84,33 @@ result line):
    times, and ``decode_hbm_bytes_estimate`` of both; then the six
    pipeline kernels against their plain versions at the main path's and
    nemotron's shapes;
-11. a ``kernels`` JSON line (thirteen kernels), the card's name and power
-   limit, and, last, ``{"ok": true, "device": {...}}``.
+11. the int8 KV cache (``cfg.replace(kv_cache_dtype="int8")``) at full
+   width and depth: chai-llama-7b after phase 8 on phase 6's traffic,
+   paged then dense (launches of the layout's own fused kernel only, in
+   its int8 mode; paged == dense tokens; ``kv_bytes()`` at the first
+   all-STEADY step exactly 132/256 of the bf16 run's; tok/s, TTFT, step
+   ms and device memory peak beside the bf16 run's; greedy agreement
+   with it, information only), each then the MHA baseline on the int8
+   cache (``flash_decode`` over the dequantized view on both layouts),
+   then phase 8's prefix traffic, relay off then on (the int8 modes of
+   ``paged_prefix_attend`` and ``relay_prefix_decode``); nemotron-4-15b
+   after phase 9, phase 6's traffic, paged then dense; the fused pair
+   held against its plain version on each run's first all-STEADY layer-0
+   int8 tensors;
+12. a ``kernels`` JSON line (the thirteen kernels, and a ``[int8]`` row
+   for each of the four int8 modes, its launches those of its phase-11
+   path), the card's name and power limit, and, last,
+   ``{"ok": true, "device": {...}}``.
+
+Phase 3 also holds the int8 modes of ``chai_fused_decode``,
+``paged_chai_fused_decode``, ``relay_prefix_decode`` and
+``paged_prefix_attend`` (``int8_kernel_checks``: codes and scales from
+``quant_rows``, hd 128, page 16; MHA and nemotron's GQA; shuffled pages
+with the null page 0; a padded relay slot; plen 0 as the merge identity;
+the fused pair and the relay kernel at S = Sp = 65,536; paged == dense and
+two launches ``torch.equal``), each at 2e-5 against its plain version with
+its device, back-to-back and single times and its int8 bound beside the
+same kernel's bf16 numbers on the same shapes.
 
 Phase 3 also holds ``flash_decode`` and ``paged_decode`` against their
 plain versions on the reference's sweep shapes (MHA, GQA 4:1, MQA, one
@@ -402,16 +427,22 @@ def single_call_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def _row_bytes(k, hd):
+    """Bytes of one K/V row at one position: hd elements, and an int8
+    cache's fp32 row scale (1 B a code plus 4 B a row-position scale)."""
+    return hd * k.element_size() + (4 if k.dtype == torch.int8 else 0)
+
+
 def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=()):
     """Least time for the work these inputs need: K rows of reps that
     have members and every head's V row, positions 0..pos, read once
     (``k``/``v`` give the element size and the V row count: a dense cache
-    or a page pool); q, h2c, pos and the block ``tables`` read and the
-    (B, H, hd) fp32 output written once; the QK and AV multiply-adds in
-    fp32."""
+    or a page pool; int8 rows with their scales, ``_row_bytes``); q, h2c,
+    pos and the block ``tables`` read and the (B, H, hd) fp32 output
+    written once; the QK and AV multiply-adds in fp32."""
     b, _, hd = q.shape
     h = h2c.shape[1]
-    esize = k.element_size()
+    row = _row_bytes(k, hd)
     n_bytes = (q.numel() + h2c.numel() + pos.numel() + b * h * hd
                + sum(t.numel() for t in tables)) * 4
     flops = 0
@@ -419,18 +450,21 @@ def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=()):
         n = int(pos[i]) + 1
         k_rows = len({int(j) // rpg for j in h2c[i].tolist()})
         reps = len(set(h2c[i].tolist()))
-        n_bytes += (k_rows + v.shape[1]) * n * hd * esize
+        n_bytes += (k_rows + v.shape[1]) * n * row
         flops += 2 * (reps + h) * n * hd
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def fused_decode_case(q, k, v, h2c, pos, *, rpg, ts):
-    """Kernel vs plain on one input; returns (max_abs_err, ms, plain_ms)."""
-    out = ck.chai_fused_decode(q, k, v, h2c, pos, reps_per_group=rpg, ts=ts)
+def fused_decode_case(q, k, v, h2c, pos, *, rpg, ts, **scales):
+    """Kernel vs plain on one input (``scales``: an int8 cache's k_scale
+    and v_scale); returns (max_abs_err, ms, plain_ms)."""
+    out = ck.chai_fused_decode(q, k, v, h2c, pos, reps_per_group=rpg, ts=ts,
+                               **scales)
     torch.cuda.synchronize()
-    want = kref.chai_fused_decode_ref(q, k, v, h2c, pos, reps_per_group=rpg)
+    want = kref.chai_fused_decode_ref(q, k, v, h2c, pos, reps_per_group=rpg,
+                                      **scales)
     torch.cuda.synchronize()
     if out.shape != want.shape or not torch.isfinite(out).all():
         raise AssertionError(f"kernel output {tuple(out.shape)} not finite "
@@ -438,9 +472,10 @@ def fused_decode_case(q, k, v, h2c, pos, *, rpg, ts):
     err = float((out - want).abs().max())
     torch.testing.assert_close(out, want, **TOL)
     ms = time_ms(lambda: ck.chai_fused_decode(q, k, v, h2c, pos,
-                                              reps_per_group=rpg, ts=ts))
+                                              reps_per_group=rpg, ts=ts,
+                                              **scales))
     plain_ms = time_ms(lambda: kref.chai_fused_decode_ref(
-        q, k, v, h2c, pos, reps_per_group=rpg))
+        q, k, v, h2c, pos, reps_per_group=rpg, **scales))
     return err, ms, plain_ms
 
 
@@ -491,9 +526,11 @@ def kernel_checks():
     return cases
 
 
-def to_pages(gen, x, n_extra=7):
+def to_pages(gen, x, n_extra=7, scale=None):
     """Dense (B, rows, S, hd) -> (pool, block table): every row's pages
-    at shuffled ids of a pool whose other pages hold random values."""
+    at shuffled ids of a pool whose other pages hold random values. With
+    ``scale`` (B, rows, S), an int8 cache's scales: also its scale pool
+    (nP, rows, page), the same pages at the same ids."""
     b, rows, s, hd = x.shape
     n = s // PAGE
     n_pool = b * n + n_extra
@@ -502,35 +539,45 @@ def to_pages(gen, x, n_extra=7):
     ids = torch.randperm(n_pool - 1, generator=gen, device="cuda")[:b * n]
     bt = (ids + 1).reshape(b, n).to(torch.int32)
     pool[bt.long()] = x.reshape(b, rows, n, PAGE, hd).movedim(2, 1)
-    return pool, bt
+    if scale is None:
+        return pool, bt
+    spool = torch.rand((n_pool, rows, PAGE), generator=gen, device="cuda")
+    spool[bt.long()] = scale.reshape(b, rows, n, PAGE).movedim(2, 1)
+    return pool, bt, spool
 
 
-def paged_decode_case(q, k_pool, bt_k, v_pool, bt_v, h2c, pos, *, rpg):
+def paged_decode_case(q, k_pool, bt_k, v_pool, bt_v, h2c, pos, *, rpg,
+                      k_scale_pool=None, v_scale_pool=None):
     """Paged kernel vs its plain version and, bitwise, vs the dense
-    kernel on the densified pools at tile = page; returns
-    (max_abs_err, ms, plain_ms)."""
+    kernel on the densified pools (and int8 scale pools) at tile = page;
+    returns (max_abs_err, ms, plain_ms)."""
     args = (q, k_pool, bt_k, v_pool, bt_v, h2c, pos)
-    out = ck.paged_chai_fused_decode(*args, reps_per_group=rpg)
+    pools = dict(k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+    out = ck.paged_chai_fused_decode(*args, reps_per_group=rpg, **pools)
     torch.cuda.synchronize()
-    want = kref.paged_chai_fused_decode_ref(*args, reps_per_group=rpg)
+    want = kref.paged_chai_fused_decode_ref(*args, reps_per_group=rpg,
+                                            **pools)
     if out.shape != want.shape or not torch.isfinite(out).all():
         raise AssertionError(f"paged kernel output {tuple(out.shape)} not "
                              "finite or of the wrong shape")
     err = float((out - want).abs().max())
     torch.testing.assert_close(out, want, **TOL)
+    scales = ({} if k_scale_pool is None else dict(
+        k_scale=kref.gather_pages_ref(k_scale_pool, bt_k),
+        v_scale=kref.gather_pages_ref(v_scale_pool, bt_v)))
     dense = ck.chai_fused_decode(
         q, kref.gather_pages_ref(k_pool, bt_k),
         kref.gather_pages_ref(v_pool, bt_v), h2c, pos, reps_per_group=rpg,
-        ts=k_pool.shape[2])
+        ts=k_pool.shape[2], **scales)
     torch.cuda.synchronize()
     if not torch.equal(out, dense):
         raise AssertionError("paged kernel differs from the dense kernel "
                              "at page = tile: max abs diff "
                              f"{float((out - dense).abs().max()):.3e}")
-    ms = time_ms(lambda: ck.paged_chai_fused_decode(*args,
-                                                    reps_per_group=rpg))
+    ms = time_ms(lambda: ck.paged_chai_fused_decode(*args, reps_per_group=rpg,
+                                                    **pools))
     plain_ms = time_ms(lambda: kref.paged_chai_fused_decode_ref(
-        *args, reps_per_group=rpg))
+        *args, reps_per_group=rpg, **pools))
     return err, ms, plain_ms
 
 
@@ -617,14 +664,15 @@ def flash_prefill_bound(q, k, offset, emit_state):
 
 def prefix_bound(q, pool, bt_k, plen):
     """Least time for ``paged_prefix_attend``'s work: q, the K and V rows
-    of the positions < plen and the table entries of their pages read
-    once, the fp32 state written once; 4 * hd flops per (query, head,
-    position) at the inputs' peak rate."""
+    of the positions < plen (an int8 pool's with their scales,
+    ``_row_bytes``) and the table entries of their pages read once, the
+    fp32 state written once; 4 * hd flops per (query, head, position) at
+    the queries' peak rate."""
     b, t, h, hd = q.shape
     kv, page = pool.shape[1], pool.shape[2]
-    es = q.element_size()
+    es, row = q.element_size(), _row_bytes(pool, hd)
     lens = [min(int(n), bt_k.shape[1] * page) for n in plen.tolist()]
-    n_bytes = (q.numel() * es + sum(2 * n * kv * hd * es for n in lens)
+    n_bytes = (q.numel() * es + sum(2 * n * kv * row for n in lens)
                + sum(2 * 4 * -(-n // page) for n in lens) + 4 * b
                + (2 * b * h * t + b * h * t * hd) * 4)
     flops = sum(4 * h * hd * t * n for n in lens)
@@ -681,12 +729,14 @@ def flash_case(q, k, v, *, offset=0, emit_state=True, library=False):
     return rec
 
 
-def prefix_case(q, pool, bt_k, bt_v, plen):
+def prefix_case(q, pool, bt_k, bt_v, plen, **scale_pools):
     """``paged_prefix_attend`` against its plain version (2e-5); rows with
-    plen == 0 must hold the merge identity exactly. Returns the record."""
-    got = fk.paged_prefix_attend(q, pool, bt_k, bt_v, plen)
+    plen == 0 must hold the merge identity exactly (``scale_pools``: an
+    int8 pool's k_scale_pool and v_scale_pool). Returns the record."""
+    got = fk.paged_prefix_attend(q, pool, bt_k, bt_v, plen, **scale_pools)
     torch.cuda.synchronize()
-    want = kref.paged_prefix_attend_ref(q, pool, bt_k, bt_v, plen)
+    want = kref.paged_prefix_attend_ref(q, pool, bt_k, bt_v, plen,
+                                        **scale_pools)
     err = _hold(got, want)
     empty = plen == 0
     if empty.any():
@@ -695,11 +745,13 @@ def prefix_case(q, pool, bt_k, bt_v, plen):
                 and (acc == 0).all()):
             raise AssertionError("paged_prefix_attend: a plen == 0 row is "
                                  "not the merge identity")
-    ms = time_ms(lambda: fk.paged_prefix_attend(q, pool, bt_k, bt_v, plen))
+    ms = time_ms(lambda: fk.paged_prefix_attend(q, pool, bt_k, bt_v, plen,
+                                                **scale_pools))
     plain_ms = time_ms(lambda: kref.paged_prefix_attend_ref(
-        q, pool, bt_k, bt_v, plen))
+        q, pool, bt_k, bt_v, plen, **scale_pools))
     bound, by = prefix_bound(q, pool, bt_k, plen)
     return dict(q=list(q.shape), pool=list(pool.shape), dtype=str(q.dtype),
+                pool_dtype=str(pool.dtype),
                 plen=plen.tolist(), identity_rows=int(empty.sum()),
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by)
@@ -878,8 +930,9 @@ def relay_bound(q, k, k_row, a_row, v_row, plen):
     """Least time for ``relay_prefix_decode``'s work: per group the K rows
     its query rows name and the V rows its acc rows name, positions <
     plen, read once (``kops.relay_prefix_hbm_bytes_estimate`` over the
-    distinct rows); q, the maps and plen read and the fp32 state (m, l
-    and acc) written once; the QK and AV multiply-adds in fp32."""
+    distinct rows; an int8 view's rows with their fp32 scales); q, the
+    maps and plen read and the fp32 state (m, l and acc) written once; the
+    QK and AV multiply-adds in fp32."""
     g, nr, hd = q.shape
     a = a_row.shape[1]
     n_bytes = (q.numel() + k_row.numel() + a_row.numel() + v_row.numel()
@@ -889,7 +942,7 @@ def relay_bound(q, k, k_row, a_row, v_row, plen):
         n = int(plen[i])
         n_bytes += kops.relay_prefix_hbm_bytes_estimate(
             len(set(k_row[i].tolist())), len(set(v_row[i].tolist())), n, hd,
-            cache_bytes=k.element_size())
+            cache_bytes=k.element_size(), int8_scales=k.dtype == torch.int8)
         flops += 2 * (nr + a) * n * hd
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
@@ -927,19 +980,22 @@ def _per_l(state, a_row):
     return m, l, acc / torch.gather(l, 1, a_row.long())[..., None]
 
 
-def relay_case(q, k, v, k_row, a_row, v_row, plen, ts, *, per_l=False):
+def relay_case(q, k, v, k_row, a_row, v_row, plen, ts, *, per_l=False,
+               k_scale=None, v_scale=None):
     """``relay_prefix_decode`` against its plain version (2e-5) and
     launched twice with equal bits; returns the case's record with its
     plan, rows streamed, times and bound. ``per_l``: hold each acc row
     over its l (and record the raw acc's error): over tens of thousands of
     positions the raw acc and l are sums of that many terms of up to 1,
-    which two summation orders round apart by ~1e-7 of l."""
+    which two summation orders round apart by ~1e-7 of l. ``k_scale``/
+    ``v_scale``: an int8 view's scale planes."""
     args = (q, k, v, k_row, a_row, v_row, plen)
-    got = ck.relay_prefix_decode(*args, ts=ts)
-    again = ck.relay_prefix_decode(*args, ts=ts)
+    sc = dict(k_scale=k_scale, v_scale=v_scale)
+    got = ck.relay_prefix_decode(*args, ts=ts, **sc)
+    again = ck.relay_prefix_decode(*args, ts=ts, **sc)
     torch.cuda.synchronize()
     _bitwise("relay_prefix_decode: two launches", again, got)
-    want = kref.relay_prefix_decode_ref(*args)
+    want = kref.relay_prefix_decode_ref(*args, **sc)
     if per_l:
         raw_err = _max_err(got, want)
         got, want = _per_l(got, a_row), _per_l(want, a_row)
@@ -952,14 +1008,15 @@ def relay_case(q, k, v, k_row, a_row, v_row, plen, ts, *, per_l=False):
                              "of shared memory, the host's mirror says "
                              f"{plan['smem_bytes']}")
     extra = dict(held="acc / l", raw_max_abs_err=raw_err) if per_l else {}
-    call = lambda: ck.relay_prefix_decode(*args, ts=ts)  # noqa: E731
+    call = lambda: ck.relay_prefix_decode(*args, ts=ts, **sc)  # noqa: E731
     return dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
                 a=a_row.shape[1], dtype=str(k.dtype), ts=ts,
                 plen=plen.tolist(), max_abs_err=err, **extra,
                 repeat_bitwise=True, plan=plan, ms=time_ms(call),
                 device_ms=device_ms(call, "relay_prefix_decode_kernel",
                                     reps=5 if per_l else 20),
-                plain_ms=time_ms(lambda: kref.relay_prefix_decode_ref(*args)),
+                plain_ms=time_ms(lambda: kref.relay_prefix_decode_ref(
+                    *args, **sc)),
                 bound_ms=bound, bound_by=by)
 
 
@@ -1074,31 +1131,45 @@ def _bitwise(name, got, want):
                              f"{_max_err(got, want):.3e}")
 
 
-def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=()):
+def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
+                    k_scale=None, v_scale=None, profile=False):
     """Both fused kernels on one input, the same K/V also on shuffled
     pool pages (rows ``null_k_rows`` with an all-null K table, as a
     WARMUP row of a mixed step): each against the plain version (2e-5),
     paged ``torch.equal`` to dense at page = tile (dense reads the
     densified pools), each launched twice with equal bits, and emit +
     merge with the empty state + finalize equal to the finalized launch
-    bit for bit. Returns {kernel: record}."""
-    k_pool, bt_k = to_pages(gen, k)
-    v_pool, bt_v = to_pages(gen, v)
+    bit for bit. ``k_scale``/``v_scale``: int8 K/V's row scales (B, rows,
+    S), paged beside their codes. ``profile``: also each kernel's device
+    time (a ``torch.profiler`` trace) and single-call time. Returns
+    {kernel: record}."""
+    if k_scale is None:
+        (k_pool, bt_k), (v_pool, bt_v) = to_pages(gen, k), to_pages(gen, v)
+        ks_pool = vs_pool = None
+    else:
+        k_pool, bt_k, ks_pool = to_pages(gen, k, scale=k_scale)
+        v_pool, bt_v, vs_pool = to_pages(gen, v, scale=v_scale)
     for row in null_k_rows:
         bt_k[row] = 0
     kd = kref.gather_pages_ref(k_pool, bt_k)
     vd = kref.gather_pages_ref(v_pool, bt_v)
+    dense_sc = paged_sc = {}
+    if ks_pool is not None:
+        dense_sc = dict(k_scale=kref.gather_pages_ref(ks_pool, bt_k),
+                        v_scale=kref.gather_pages_ref(vs_pool, bt_v))
+        paged_sc = dict(k_scale_pool=ks_pool, v_scale_pool=vs_pool)
     pa = (q, k_pool, bt_k, v_pool, bt_v, h2c, pos)
     calls = {
         "chai_fused_decode": lambda emit=False: ck.chai_fused_decode(
             q, kd, vd, h2c, pos, reps_per_group=rpg, ts=PAGE,
-            emit_state=emit),
+            emit_state=emit, **dense_sc),
         "paged_chai_fused_decode": lambda emit=False: (
             ck.paged_chai_fused_decode(*pa, reps_per_group=rpg,
-                                       emit_state=emit))}
-    want = kref.paged_chai_fused_decode_ref(*pa, reps_per_group=rpg)
+                                       emit_state=emit, **paged_sc))}
+    want = kref.paged_chai_fused_decode_ref(*pa, reps_per_group=rpg,
+                                            **paged_sc)
     plain = lambda: kref.chai_fused_decode_ref(  # noqa: E731
-        q, kd, vd, h2c, pos, reps_per_group=rpg)
+        q, kd, vd, h2c, pos, reps_per_group=rpg, **dense_sc)
     outs, states = {}, {}
     for name, call in calls.items():
         outs[name] = call()
@@ -1138,6 +1209,10 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=()):
             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             bitwise_equal_dense=True, repeat_bitwise=True,
             identity_merge_finalize_equal=True)
+        if profile:
+            recs[name]["device_ms"] = device_ms(call, f"{name}_kernel",
+                                                reps=5)
+            recs[name]["single_call_ms"] = single_call_ms(call, reps=5)
         r = recs[name]
         log(f"{name} {tag}: q {tuple(q.shape)} k {tuple(k.shape)} rpg "
             f"{rpg} pos {r['pos']} splits {cfg.n_split} x "
@@ -1212,6 +1287,158 @@ def split_decode_checks():
     del q, k, v
     torch.cuda.empty_cache()
     return cases, relay
+
+
+# ------------------------------------------ phase 3: the int8 modes ----
+def _quantized(x):
+    """int8 codes and fp32 row scales of ``x`` (the port's ``quant_rows``,
+    the int8 cache's own rule), and the bf16 rows they stand for (the
+    bf16 run beside, on the same shapes)."""
+    codes, scale = chai_cache.quant_rows(x)
+    return codes, scale, chai_cache.dequant_rows(codes, scale).to(
+        torch.bfloat16)
+
+
+def _beside(rec, bf16):
+    """The same kernel's bf16 numbers on the same shapes, into ``rec``."""
+    rec.update({f"bf16_{k}": bf16.get(k) for k in (
+        "ms", "device_ms", "single_call_ms", "bound_ms", "max_abs_err")})
+    return rec
+
+
+def int8_kernel_checks():
+    """The int8 modes of the four kernels at full width (hd 128, page 16),
+    on codes and scales from ``quant_rows``, each against its plain
+    version at 2e-5, with its device (profiler), back-to-back and single
+    times and its int8 bound (1 B a code plus 4 B a row-position scale),
+    each beside the same kernel's bf16 numbers on the same shapes (the
+    dequantized rows in bf16):
+
+    * the fused pair (``fused_pair_case``: shuffled pages with the null
+      page 0, paged == dense ``torch.equal`` at page = tile, two launches
+      ``torch.equal``, emit + identity merge + finalize == finalized): MHA
+      (chai-llama-7b's 32 heads, k_max = 25 reps, a WARMUP-like row), GQA
+      (nemotron's 48 heads over 8 KV groups, reps_per_group = 5), and one
+      row of S = 65,536 of each;
+    * ``relay_prefix_decode``: MHA groups of 4 and 3 members (the fourth
+      slot of group 1 padded), GQA groups of 4 and 3, and Sp = 65,536
+      (plen 65,536 and 50,000; acc held over l as in the bf16 case);
+    * ``paged_prefix_attend``: bf16 queries over an int8 pool on shuffled
+      pages, rows at plen 0 (the merge identity exactly), 200 and 384, and
+      nemotron's 48 heads over 8 at plen 384; two launches ``torch.equal``.
+    Returns {kernel: [records]}."""
+    gen = torch.Generator("cuda").manual_seed(7)
+    dev = "cuda"
+    k_max = get_config(ARCH).k_max
+    mha = dict(h=32, kv=k_max, rpg=1, hd=128, dtype=torch.float32,
+               empty_rep=7)
+    gqa = dict(h=48, kv=8, rpg=5, hd=128, dtype=torch.float32,
+               empty_rep=None)
+    out = {"chai_fused_decode": [], "paged_chai_fused_decode": [],
+           "relay_prefix_decode": [], "paged_prefix_attend": []}
+    for tag, kw, b, s, warm in (
+            ("int8_mha", mha, 4, MAX_SEQ, True),
+            ("int8_nemotron_gqa", gqa, 4, MAX_SEQ, False),
+            ("int8_long_65536_mha", mha, 1, 65536, False),
+            ("int8_long_65536_gqa", gqa, 1, 65536, False)):
+        q, k, v, h2c, p = synthetic_case(gen, b=b, s=s, **kw)
+        if s > MAX_SEQ:                   # a long row: every position live
+            p = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+        if warm:
+            h2c[1] = 0
+        kq, ks, kb = _quantized(k)
+        vq, vs, vb = _quantized(v)
+        del k, v
+        null = (1,) if warm else ()
+        recs = fused_pair_case(tag, q, kq, vq, h2c, p, rpg=kw["rpg"],
+                               gen=gen, null_k_rows=null, k_scale=ks,
+                               v_scale=vs, profile=True)
+        bf = fused_pair_case(f"{tag}_bf16_beside", q, kb, vb, h2c, p,
+                             rpg=kw["rpg"], gen=gen, null_k_rows=null,
+                             profile=True)
+        for name, rec in recs.items():
+            out[name].append(_beside(rec, bf[name]))
+            log(f"{name} {tag}: device {rec['device_ms']} ms (bf16 "
+                f"{rec['bf16_device_ms']}), back to back {rec['ms']:.4f} ms "
+                f"(bf16 {rec['bf16_ms']:.4f}), single call "
+                f"{rec['single_call_ms']:.4f} ms (bf16 "
+                f"{rec['bf16_single_call_ms']:.4f}), bound "
+                f"{rec['bound_ms']:.4f} ms (bf16 {rec['bf16_bound_ms']:.4f})")
+        del kq, vq, kb, vb, q
+        torch.cuda.empty_cache()
+    hd, nmax = 128, 4
+    for tag, members, plen, sp, gqa_maps in (
+            ("int8_g2_padded_slot", (4, 3), (200, 256), 256, False),
+            ("int8_gqa_group_of_3_in_4", (4, 3), (256, 180), 256, True),
+            ("int8_long_65536_g2", (4, 4), (65536, 50000), 65536, False)):
+        k_row, a_row, v_row, r, kv, vr = relay_maps(gen, members, nmax,
+                                                    gqa=gqa_maps)
+        g = len(members)
+        plen_t = torch.tensor(plen, dtype=torch.int32, device=dev)
+        q = torch.randn(g, nmax * r, hd, generator=gen, device=dev)
+        k = torch.randn(g, kv, sp, hd, generator=gen, device=dev)
+        v = torch.randn(g, vr, sp, hd, generator=gen, device=dev)
+        for i, n in enumerate(plen):      # the engine's views: zero tail
+            k[i, :, n:] = 0
+            v[i, :, n:] = 0
+        kq, ks, kb = _quantized(k)
+        vq, vs, vb = _quantized(v)
+        del k, v
+        long = sp > MAX_SEQ
+        rec = dict(case=tag, **relay_case(q, kq, vq, k_row, a_row, v_row,
+                                          plen_t, PAGE, per_l=long,
+                                          k_scale=ks, v_scale=vs))
+        call = lambda: ck.relay_prefix_decode(  # noqa: E731
+            q, kq, vq, k_row, a_row, v_row, plen_t, ts=PAGE, k_scale=ks,
+            v_scale=vs)
+        rec["single_call_ms"] = single_call_ms(call, reps=5)
+        bf = relay_case(q, kb, vb, k_row, a_row, v_row, plen_t, PAGE,
+                        per_l=long)
+        bf["single_call_ms"] = single_call_ms(
+            lambda: ck.relay_prefix_decode(q, kb, vb, k_row, a_row, v_row,
+                                           plen_t, ts=PAGE), reps=5)
+        out["relay_prefix_decode"].append(_beside(rec, bf))
+        _log_relay(rec)
+        log(f"relay_prefix_decode {tag}: device {rec['device_ms']} ms (bf16 "
+            f"{rec['bf16_device_ms']}), bound {rec['bound_ms']:.4f} ms (bf16 "
+            f"{rec['bf16_bound_ms']:.4f})")
+        del kq, vq, kb, vb
+        torch.cuda.empty_cache()
+    n_pool, p_slot = 2 * SLOTS * MAX_SEQ // PAGE + 1, MAX_SEQ // PAGE
+    for tag, (b, h, kv, plens) in {
+            "int8_rows_0_200_384": (3, 32, 32, (0, 200, 384)),
+            "int8_plen0": (1, 32, 32, (0,)),
+            "int8_gqa_h48_kv8_plen384": (1, 48, 8, (384,))}.items():
+        pool, spool, poolb = _quantized(torch.randn(
+            n_pool, kv, PAGE, hd, generator=gen, device=dev))
+        ids = (torch.randperm(n_pool - 1, generator=gen, device=dev)
+               + 1).to(torch.int32)
+        bt_k = ids[:b * p_slot].reshape(b, p_slot)
+        bt_v = ids[b * p_slot:2 * b * p_slot].reshape(b, p_slot)
+        plen = torch.tensor(plens, dtype=torch.int32, device=dev)
+        q = torch.randn(b, 128, h, hd, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        args = (q, pool, bt_k, bt_v, plen)
+        sc = dict(k_scale_pool=spool, v_scale_pool=spool)
+        _bitwise(f"paged_prefix_attend {tag}: two launches",
+                 fk.paged_prefix_attend(*args, **sc),
+                 fk.paged_prefix_attend(*args, **sc))
+        rec = dict(case=tag, **prefix_case(*args, **sc), repeat_bitwise=True)
+        bf = prefix_case(q, poolb, bt_k, bt_v, plen)
+        for r_, a_, kw_ in ((rec, args, sc), (bf, (q, poolb, bt_k, bt_v,
+                                                  plen), {})):
+            call = lambda a_=a_, kw_=kw_: fk.paged_prefix_attend(  # noqa
+                *a_, **kw_)
+            r_["device_ms"] = device_ms(call, "paged_prefix_attend_kernel")
+            r_["single_call_ms"] = single_call_ms(call)
+        out["paged_prefix_attend"].append(_beside(rec, bf))
+        _log_case("paged_prefix_attend", rec)
+        log(f"paged_prefix_attend {tag}: device {rec['device_ms']} ms (bf16 "
+            f"{rec['bf16_device_ms']}), bound {rec['bound_ms']:.4f} ms (bf16 "
+            f"{rec['bf16_bound_ms']:.4f}), two launches bitwise")
+        del pool, spool, poolb
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------- phase 3: the pipeline ----
@@ -2100,8 +2327,9 @@ class _Capture:
         kind = self.when()
         if kind is not None and (op, kind) not in self.first:
             self.first[op, kind] = dict(
-                {k: t.clone() for k, t in tensors.items()}, kw=kw,
-                note=self.note())
+                {k: t.clone() for k, t in tensors.items()},
+                kw={k: v.clone() if torch.is_tensor(v) else v
+                    for k, v in kw.items()}, note=self.note())
 
     def chai_decode_attention(self, q_rep, k, v, h2c, pos, **kw):
         self._keep("dense", dict(q=q_rep, k=k, v=v, h2c=h2c, pos=pos), kw)
@@ -2297,10 +2525,12 @@ class _TransformerCapture:
         if key not in self.first:
             self.first[key] = {k: t.clone() for k, t in tensors.items()}
 
-    def paged_prefix_attention(self, q, kv_pool, bt_k, bt_v, plen):
-        self._keep("paged_prefix_attend", dict(q=q, pool=kv_pool, bt_k=bt_k,
-                                               bt_v=bt_v, plen=plen))
-        return kops.paged_prefix_attention(q, kv_pool, bt_k, bt_v, plen)
+    def paged_prefix_attention(self, q, kv_pool, bt_k, bt_v, plen, **kw):
+        self._keep("paged_prefix_attend", dict(
+            q=q, pool=kv_pool, bt_k=bt_k, bt_v=bt_v, plen=plen,
+            **{k: v for k, v in kw.items() if v is not None}))
+        return kops.paged_prefix_attention(q, kv_pool, bt_k, bt_v, plen,
+                                           **kw)
 
     def flash_prefill_attention(self, q, k, v, offset=0, **kw):
         self._keep("flash_prefill", dict(q=q, k=k, v=v))
@@ -2445,7 +2675,7 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
                    max_new_tokens=m, uid=i)
     chai_core.kops, tfm.kops = cap, pcap
     try:
-        torch.cuda.synchronize()
+        start = _memory_start()
         _reset_launches()
         t0 = time.time()
         done = eng.run()
@@ -2458,7 +2688,21 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
                 times=times, calls=calls, transitions=transitions,
                 launches=launches, capture=cap.first, prefill=pcap.first,
                 margins=margins, idents=idents, step_s=step_s,
-                in_flight=in_flight)
+                in_flight=in_flight, kv_history=eng.kv_bytes_history,
+                device_start=start,
+                device_peak=torch.cuda.max_memory_allocated())
+
+
+def _memory_start():
+    """Collect the engines of earlier runs (they sit in reference cycles
+    through their wrapped hooks), reset the peak, and return the device
+    memory allocated now: a run's peak above it is its own (pools,
+    activations)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
 
 
 def _check_served(cfg, run, label):
@@ -2491,7 +2735,9 @@ def _log_served(run, label):
         + "; ms per call: " + ", ".join(
             f"{k} {v:.2f}" for k, v in per_call.items())
         + f"; engine steps {len(run['step_s'])}, longest "
-        f"{1e3 * max(run['step_s']):.2f} ms")
+        f"{1e3 * max(run['step_s']):.2f} ms; device memory peak "
+        f"{run['device_peak']:,} B, {run['device_peak'] - run['device_start']:,}"
+        " B above the run's start")
 
 
 def _check_kv_bytes(run, label):
@@ -2609,12 +2855,16 @@ def continuous_path(cfg, params):
 
 
 def _run_summary(run):
-    """Wall, tok/s and ms per call of each step kind of a served run."""
+    """Wall, tok/s and ms per call of each step kind of a served run, its
+    greedy tokens and its KV-bytes history."""
     n_tok = sum(len(r.generated) for r in run["done"])
     return dict(wall_s=run["wall"], tok_s=n_tok / run["wall"],
                 ttft_mean_s=statistics.mean(r.ttft for r in run["done"]),
                 step_ms={k: 1e3 * run["times"][k] / n
-                         for k, n in run["calls"].items()})
+                         for k, n in run["calls"].items()},
+                tokens={r.uid: r.generated for r in run["done"]},
+                kv_history=run["kv_history"],
+                device_peak_run=run["device_peak"] - run["device_start"])
 
 
 # ------------------------------------------- phase 6b: the MHA baseline ----
@@ -2796,8 +3046,9 @@ def serve_prefix(cfg, params, relay):
     completion, then the rest. Launches counted over both; each step kind,
     each relay formation (the packed prefix views and their stack) and
     each ``step()`` timed; the decode ops' layer-0 inputs kept at the
-    first step of each kind; the top-2 margin behind every greedy token
-    and each request's membership recorded."""
+    first step of each kind, the prefill ops' at the first suffix prefill;
+    the top-2 margin behind every greedy token and each request's
+    membership recorded."""
     eng = ServingEngine(cfg, params, EngineConfig(
         batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
         prefix_cache=True, relay_decode=relay))
@@ -2840,13 +3091,13 @@ def serve_prefix(cfg, params, relay):
         return out
     eng.step = timed_step
     cap = _Capture(lambda: kind["now"])
+    pcap = _TransformerCapture(lambda: "first")
     warm, rest = _prefix_traffic(np.random.default_rng(0), cfg.vocab_size,
                                  SYS_LEN, SUFFIX_LENS, SUFFIX_NEW,
                                  cfg.chai.warmup_tokens + 1)
-    chai_core.kops = cap
+    chai_core.kops, tfm.kops = cap, pcap
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        start = _memory_start()
         _reset_launches()
         t0 = time.time()
         eng.submit(warm[1], max_new_tokens=warm[2], uid=warm[0])
@@ -2862,11 +3113,12 @@ def serve_prefix(cfg, params, relay):
         wall = time.time() - t0
         launches = _launches()
     finally:
-        chai_core.kops = kops
+        chai_core.kops, tfm.kops = kops, kops
     run = dict(eng=eng, done=sorted(done, key=lambda r: r.uid), wall=wall,
                warm_s=warm_s, times=times, calls=calls, launches=launches,
-               capture=cap.first, margins=margins, idents=idents,
-               step_s=step_s, warm=warm, rest=rest,
+               capture=cap.first, prefill=pcap.first, margins=margins,
+               idents=idents,
+               step_s=step_s, warm=warm, rest=rest, device_start=start,
                device_peak=torch.cuda.max_memory_allocated())
     return run
 
@@ -2926,7 +3178,9 @@ def _log_prefix_run(run, label):
             f"{k} {v:.2f}" for k, v in per_call.items())
         + f"; engine steps {len(run['step_s'])}, longest "
         f"{1e3 * max(run['step_s']):.2f} ms; KV bytes peak "
-        f"{run['kv_peak']:,}; device memory peak {run['device_peak']:,} B; "
+        f"{run['kv_peak']:,}; device memory peak {run['device_peak']:,} B "
+        f"({run['device_peak'] - run['device_start']:,} B above the run's "
+        "start); "
         f"prefix_stats {run['stats']}")
 
 
@@ -2935,8 +3189,11 @@ def prefix_path(cfg, params, tag="prefix"):
     nemotron-4-15b phase 9): the same traffic with
     ``relay_decode=False``, then ``True``. A GQA model takes no CHAI
     snapshot, so its repeated prompt is a ``"prefix"`` hit like the
-    others. Returns ({path: launches}, the relay kernel's main-path case,
-    the paged kernel's state-mode case there)."""
+    others. An int8 ``cfg`` runs the same checks on its int8 kernels.
+    Returns ({path: launches}, the relay kernel's main-path case, the
+    paged kernel's state-mode case there, and ``paged_prefix_attend``'s
+    case on the layer-0 inputs of the relay-off run's first suffix
+    prefill)."""
     runs = {}
     for label, relay in ((f"{tag}_plain", False), (f"{tag}_relay", True)):
         run = serve_prefix(cfg, params, relay)
@@ -2990,9 +3247,11 @@ def prefix_path(cfg, params, tag="prefix"):
     rc = relay["capture"]["relay", "relay"]
     ra = (rc["q"], rc["k"], rc["v"], rc["k_row"], rc["a_row"], rc["v_row"],
           rc["plen"])
+    rsc = {k: rc["kw"].get(k) for k in ("k_scale", "v_scale")}
     relay_main = dict(case=f"{tag}_relay_first_relay_step_layer0",
-                      **relay_case(*ra, ts=rc["kw"]["ts"]))
-    call = lambda: ck.relay_prefix_decode(*ra, ts=rc["kw"]["ts"])  # noqa
+                      **relay_case(*ra, ts=rc["kw"]["ts"], **rsc))
+    call = lambda: ck.relay_prefix_decode(  # noqa: E731
+        *ra, ts=rc["kw"]["ts"], **rsc)
     relay_main["single_call_ms"] = single_call_ms(call)
     relay_main["stack_ms_per_step"] = 1e3 * form
     _log_relay(relay_main)
@@ -3004,8 +3263,7 @@ def prefix_path(cfg, params, tag="prefix"):
     pc = relay["capture"]["paged", "relay"]
     pa = (pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
           pc["h2c"], pc["pos"])
-    kw = dict(emit_state=True,
-              reps_per_group=pc["kw"].get("reps_per_group", 1))
+    kw = dict(pc["kw"], emit_state=True)
     got = ck.paged_chai_fused_decode(*pa, **kw)
     err = _hold(got, kref.paged_chai_fused_decode_ref(*pa, **kw))
     emit_main = dict(case=f"{tag}_relay_first_relay_step_layer0_emit_state",
@@ -3017,8 +3275,18 @@ def prefix_path(cfg, params, tag="prefix"):
     log(f"paged_chai_fused_decode state mode at the same step (suffix-only "
         f"tables, pos {emit_main['pos']}): max_abs_err {err:.3e}, kernel "
         f"{emit_main['ms']:.4f} ms, plain {emit_main['plain_ms']:.4f} ms")
+    pp = plain["prefill"]["paged_prefix_attend", "first"]
+    pargs = (pp["q"], pp["pool"], pp["bt_k"], pp["bt_v"], pp["plen"])
+    psc = {k: pp[k] for k in ("k_scale_pool", "v_scale_pool") if k in pp}
+    prefix_main = dict(case=f"{tag}_first_suffix_prefill_layer0",
+                       **prefix_case(*pargs, **psc))
+    pcall = lambda: fk.paged_prefix_attend(*pargs, **psc)  # noqa: E731
+    prefix_main["single_call_ms"] = single_call_ms(pcall)
+    prefix_main["device_ms"] = device_ms(pcall, "paged_prefix_attend_kernel")
+    _log_case("paged_prefix_attend", prefix_main)
     return ({f"{tag}_plain": plain["launches"],
-             f"{tag}_relay": relay["launches"]}, relay_main, emit_main)
+             f"{tag}_relay": relay["launches"]}, relay_main, emit_main,
+            prefix_main)
 
 
 # ------------------------------------------------------------ phase 9 ----
@@ -3056,10 +3324,7 @@ def nemotron_path(cfg, params):
     runs = {}
     for layout in ("paged", "dense"):
         label = f"{cfg.name} {layout}"
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         run = serve_continuous(cfg, params, layout)
-        run["device_peak"] = torch.cuda.max_memory_allocated()
         calls = run["calls"]
         _check_served(cfg, run, label)
         own, op = (("paged_chai_fused_decode", "paged") if layout == "paged"
@@ -3076,7 +3341,6 @@ def nemotron_path(cfg, params):
                 raise AssertionError(f"{label}: reps_per_group {rpg}, "
                                      f"expected r_max = {r_max}")
         _log_served(run, label)
-        log(f"{label}: device memory peak {run['device_peak']:,} B")
         if layout == "paged":
             _check_gqa_kv_bytes(run, label)
         else:
@@ -3129,6 +3393,175 @@ def nemotron_path(cfg, params):
     return ({"nemotron_paged": paged["launches"],
              "nemotron_dense": dense["launches"]}, cases, dc, pc,
             {layout: _run_summary(run) for layout, run in runs.items()})
+
+
+# ----------------------------------------------------------- phase 11 ----
+def _first_all_steady(hist, label):
+    """The KV-bytes record of a run's first all-STEADY decode step."""
+    for rec in hist:
+        if rec["n_steady"] and not rec["n_warmup"]:
+            return rec
+    raise AssertionError(f"{label}: no all-STEADY step")
+
+
+def _check_int8_bytes(cfg8, hist8, hist16, label):
+    """``kv_bytes()`` at the first all-STEADY step of an int8 run against
+    the model-dtype run of the same traffic: the same step and pages in
+    use, and exactly (hd + 4) / (2 hd) of the bytes for a bf16 model (132 /
+    256 at hd 128: a byte a code and a row's 4-byte scale against two bytes
+    a value), as is every page's ratio."""
+    a = _first_all_steady(hist8, label)
+    b = _first_all_steady(hist16, label)
+    hd = cfg8.head_dim
+    cfg16 = cfg8.replace(kv_cache_dtype="")
+    den = hd * tfm.model_dtype(cfg16).itemsize       # 2 hd for bf16
+    kinds = ("dense", "chai") if cfg8.is_mha else ("dense",)
+    page8 = {k: chai_cache.paged_page_bytes(cfg8, PAGE, kind=k)
+             for k in kinds}
+    page16 = {k: chai_cache.paged_page_bytes(cfg16, PAGE, kind=k)
+              for k in kinds}
+    if ((a["step"], a["dense_pages"], a["chai_pages"])
+            != (b["step"], b["dense_pages"], b["chai_pages"])
+            or a["kv_bytes"] * den != b["kv_bytes"] * (hd + 4)
+            or any(page8[k] * den != page16[k] * (hd + 4)
+                   for k in kinds)):
+        raise AssertionError(f"{label}: int8 {a}, bf16 {b}, page bytes "
+                             f"{page8} against {page16}")
+    log(f"{label}: kv_bytes() at the first all-STEADY step (step "
+        f"{a['step']}, {a['dense_pages']} dense + {a['chai_pages']} "
+        f"clustered pages): int8 {a['kv_bytes']:,} B against bf16 "
+        f"{b['kv_bytes']:,} B = {a['kv_bytes']}/{b['kv_bytes']} = "
+        f"{hd + 4}/{den} exactly; page bytes {page8} against {page16}")
+    return dict(step=a["step"], int8=a["kv_bytes"], bf16=b["kv_bytes"])
+
+
+def int8_path(cfg8, params, bf16, label):
+    """One model with ``kv_cache_dtype="int8"`` through the default
+    continuous engine on phase 6's traffic, paged then dense (phase 11):
+    launches of the layout's own fused kernel only (its int8 mode), the
+    same greedy tokens on both layouts, ``kv_bytes()`` at the first
+    all-STEADY step against the bf16 run (``bf16``: its ``_run_summary``
+    per layout; greedy agreement with it logged, information only), the
+    KV bytes around CLUSTER as the bf16 run's, empty pools; then both
+    fused kernels held against their plain versions on the layer-0 int8
+    tensors of the first all-STEADY step and timed there. Returns
+    ({path: launches}, {kernel: that case})."""
+    runs, launches = {}, {}
+    for layout in ("paged", "dense"):
+        name = f"{label}_{layout}"
+        run = serve_continuous(cfg8, params, layout)
+        calls = run["calls"]
+        _check_served(cfg8, run, name)
+        own = ("paged_chai_fused_decode" if layout == "paged"
+               else "chai_fused_decode")
+        want = {k: 0 for k in run["launches"]}
+        want[own] = cfg8.n_layers * (calls["mixed_step"]
+                                     + calls["steady_step"])
+        if run["launches"] != want:
+            raise AssertionError(f"{name}: launches {run['launches']}, "
+                                 f"expected {want}")
+        _log_served(run, name)
+        if layout == "paged":
+            (_check_kv_bytes if cfg8.is_mha else _check_gqa_kv_bytes)(
+                run, name)
+            _check_int8_bytes(cfg8, run["kv_history"],
+                              bf16["paged"]["kv_history"], name)
+        mine, theirs = _run_summary(run), bf16[layout]
+        agree = sum(a == b for u, toks in mine["tokens"].items()
+                    for a, b in zip(toks, theirs["tokens"][u]))
+        log(f"{name}: device memory peak above the run's start "
+            f"{mine['device_peak_run']:,} B against bf16 "
+            f"{theirs['device_peak_run']:,} B; "
+            f"{mine['tok_s']:.1f} tok/s against bf16 {theirs['tok_s']:.1f}, "
+            f"TTFT mean {mine['ttft_mean_s']:.4f} s against "
+            f"{theirs['ttft_mean_s']:.4f} s, step ms {mine['step_ms']} "
+            f"against {theirs['step_ms']}; information only (random "
+            f"weights): greedy agreement with bf16 {agree}/"
+            f"{sum(CONT_MAX_NEW)}")
+        launches[name] = run["launches"]
+        run.pop("eng")
+        run.pop("prefill")
+        runs[layout] = run
+        torch.cuda.empty_cache()
+    paged, dense = runs["paged"], runs["dense"]
+    if [r.generated for r in paged["done"]] != [r.generated
+                                                for r in dense["done"]]:
+        raise AssertionError(f"{label}: paged and dense layouts gave "
+                             "different greedy tokens")
+    pc = paged["capture"]["paged", "steady"]
+    dc = dense["capture"]["dense", "steady"]
+    rpg = pc["kw"].get("reps_per_group", 1)
+    pa = (pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
+          pc["h2c"], pc["pos"])
+    psc = {k: pc["kw"][k] for k in ("k_scale_pool", "v_scale_pool")}
+    da = (dc["q"], dc["k"], dc["v"], dc["h2c"], dc["pos"])
+    dsc = {k: dc["kw"][k] for k in ("k_scale", "v_scale")}
+    if pc["k_pool"].dtype != torch.int8 or dc["k"].dtype != torch.int8:
+        raise AssertionError(f"{label}: the captured caches are not int8")
+    cases = {}
+    for kernel, case_fn, args, tables, kk, vv, sc, extra in (
+            ("paged_chai_fused_decode", paged_decode_case, pa,
+             (pc["bt_k"], pc["bt_v"]), pc["k_pool"], pc["v_pool"], psc, {}),
+            ("chai_fused_decode", fused_decode_case, da, (), dc["k"],
+             dc["v"], dsc, dict(ts=dc["kw"]["ts"]))):
+        err, ms, plain_ms = case_fn(*args, rpg=rpg, **sc, **extra)
+        bound, by = fused_decode_bound(args[0], kk, vv, args[-2], args[-1],
+                                       rpg, tables=tables)
+        fn = getattr(ck, kernel)
+        call = lambda fn=fn, a=args, kw=dict(  # noqa: E731
+            reps_per_group=rpg, **sc, **extra): fn(*a, **kw)
+        cases[kernel] = dict(
+            case=f"{label}_{'paged' if tables else 'dense'}_first_steady"
+                 "_layer0", q=list(args[0].shape), k=list(kk.shape),
+            dtype=str(kk.dtype), rpg=rpg, pos=args[-1].tolist(),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, single_call_ms=single_call_ms(call),
+            device_ms=device_ms(call, f"{kernel}_kernel"))
+        c = cases[kernel]
+        log(f"{kernel} {c['case']}: q {tuple(c['q'])} k {tuple(c['k'])} "
+            f"{c['dtype']} pos {c['pos']}: max_abs_err {err:.3e}, device "
+            f"{c['device_ms']} ms, back to back {ms:.4f} ms, single call "
+            f"{c['single_call_ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by})")
+    return launches, cases
+
+
+def int8_mha_path(cfg8, params, label):
+    """The MHA baseline (``use_chai=False``) on an int8 cache, phase 6's
+    traffic, paged then dense: every decode step reads the dequantized
+    view through ``flash_decode`` (n_layers launches a step, on both
+    layouts: the flash decode pair has no scale mode, as in the
+    reference), never ``paged_decode`` nor the eager attention; the same
+    greedy tokens on both layouts; pools empty. Returns {path:
+    launches}."""
+    runs, launches = {}, {}
+    for layout in ("paged", "dense"):
+        name = f"{label}_{layout}"
+        EAGER["calls"] = 0
+        run = serve_continuous(cfg8, params, layout, use_chai=False)
+        eng, calls, done = run["eng"], run["calls"], run["done"]
+        if ([len(r.generated) for r in done] != list(CONT_MAX_NEW)
+                or any(r.finish_reason != FINISH_LENGTH for r in done)):
+            raise AssertionError(f"{name}: token counts")
+        want = {k: 0 for k in run["launches"]}
+        want["flash_decode"] = cfg8.n_layers * calls.get("mha_step", 0)
+        if (run["launches"] != want or not want["flash_decode"]
+                or EAGER["calls"] or set(calls) - {"prefill", "mha_step"}):
+            raise AssertionError(f"{name}: launches {run['launches']}, "
+                                 f"expected {want}; eager decode calls "
+                                 f"{EAGER['calls']}; calls {calls}")
+        if eng.paged and eng.dense_pool.pages_in_use:
+            raise AssertionError(f"{name}: pages left in use")
+        _log_served(run, name)
+        launches[name] = run["launches"]
+        run.pop("eng")
+        runs[layout] = run
+        torch.cuda.empty_cache()
+    if [r.generated for r in runs["paged"]["done"]] != [
+            r.generated for r in runs["dense"]["done"]]:
+        raise AssertionError(f"{label}: paged and dense layouts gave "
+                             "different greedy tokens")
+    return launches
 
 
 # ----------------------------------------------------------- phase 10 ----
@@ -3320,6 +3753,7 @@ def main():
     flash_cases, prefix_cases = prefill_kernel_checks()
     pipe_cases = pipeline_kernel_checks()
     decode_cases = flash_decode_checks()
+    int8_cases = int8_kernel_checks()
     for arch in (ARCH, NEMO):
         reduced_reference_check(arch)
         reduced_continuous_check(arch)
@@ -3335,7 +3769,15 @@ def main():
                                                 "mha_continuous")
     chunked_launches, prefill_mains, path_cases = chunked_path(cfg, params,
                                                                mono)
-    prefix_launches, relay_main, emit_main = prefix_path(cfg, params)
+    prefix_launches, relay_main, emit_main, prefix_main = prefix_path(
+        cfg, params)
+    # Phase 11, chai-llama-7b: the int8 KV cache on phases 6 and 8's traffic.
+    cfg8 = cfg.replace(kv_cache_dtype="int8")
+    i8_launches, i8_mains = int8_path(cfg8, params, cont_summary,
+                                      "int8_continuous")
+    i8_mha_launches = int8_mha_path(cfg8, params, "int8_mha_continuous")
+    i8_prefix_launches, i8_relay, i8_emit, i8_prefix = prefix_path(
+        cfg8, params, tag="int8_prefix")
     # The engines of phases 5-8 sit in reference cycles (their wrapped
     # hooks); collect them so chai-llama-7b's weights are really freed.
     del params
@@ -3346,8 +3788,11 @@ def main():
      nemo_summary) = nemotron_path(ncfg, nparams)
     nemo_mha_launches, nemo_mha = mha_baseline_path(
         ncfg, nparams, nemo_summary, "nemotron_mha")
-    nemo_prefix_launches, nemo_relay, nemo_emit = prefix_path(
+    nemo_prefix_launches, nemo_relay, nemo_emit, nemo_prefix = prefix_path(
         ncfg, nparams, tag="nemotron_prefix")
+    # Phase 11, nemotron-4-15b: the int8 KV cache on phase 6's traffic.
+    n8_launches, n8_mains = int8_path(ncfg.replace(kv_cache_dtype="int8"),
+                                      nparams, nemo_summary, "int8_nemotron")
     del nparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -3384,7 +3829,9 @@ def main():
                **cont_launches, **mha_launches,
                "continuous_paged_chunked": chunked_launches,
                **prefix_launches, **nemo_launches, **nemo_mha_launches,
-               **nemo_prefix_launches, "pipeline_lane": lane_launches}
+               **nemo_prefix_launches, **i8_launches, **i8_mha_launches,
+               **i8_prefix_launches, **n8_launches,
+               "pipeline_lane": lane_launches}
     mains = {"chai_fused_decode": (
                  dense_main, "cohort",
                  dense_cases + emit_cases["chai_fused_decode"]
@@ -3415,20 +3862,44 @@ def main():
              "paged_prefix_attend": (
                  prefill_mains["paged_prefix_attend"],
                  "continuous_paged_chunked",
-                 prefix_cases + path_cases["paged_prefix_attend"])}
+                 prefix_cases + path_cases["paged_prefix_attend"]
+                 + [prefix_main, nemo_prefix])}
     for name in PIPE_KERNELS:
         mains[name] = (pipe_mains[name][0], "pipeline_lane",
                        pipe_cases[name] + pipe_mains[name]
                        + nemo_stage[name])
+    # The int8 modes: one row each, on its int8 serving path (phase 11).
+    int8_mains = {
+        "chai_fused_decode": (
+            i8_mains["chai_fused_decode"], "int8_continuous_dense",
+            int8_cases["chai_fused_decode"] + [
+                i8_mains["chai_fused_decode"],
+                n8_mains["chai_fused_decode"]]),
+        "paged_chai_fused_decode": (
+            i8_mains["paged_chai_fused_decode"], "int8_continuous_paged",
+            int8_cases["paged_chai_fused_decode"] + [
+                i8_mains["paged_chai_fused_decode"], i8_emit,
+                n8_mains["paged_chai_fused_decode"]]),
+        "relay_prefix_decode": (i8_relay, "int8_prefix_relay",
+                                int8_cases["relay_prefix_decode"]
+                                + [i8_relay]),
+        "paged_prefix_attend": (i8_prefix, "int8_prefix_plain",
+                                int8_cases["paged_prefix_attend"]
+                                + [i8_prefix])}
+    for name, main_info in int8_mains.items():
+        mains[f"{name}[int8]"] = main_info
+    kernel_rows = dict(KERNEL_ROWS, **{f"{name}[int8]": KERNEL_ROWS[name]
+                                       for name in int8_mains})
     rows = []
-    for name, info in KERNEL_ROWS.items():
+    for name, info in kernel_rows.items():
         main_case, path, cases = mains[name]
+        base = name.removesuffix("[int8]")
         # A finalized bf16 output is held at one bf16 step; its error
         # stands in its own case.
         held = [c for c in cases if c.get("tolerance", "2e-5") == "2e-5"]
         rows.append(dict(
-            name=name, **info, launches=by_path[path][name],
-            launches_by_path={p: c[name] for p, c in by_path.items()},
+            name=name, **info, launches=by_path[path][base],
+            launches_by_path={p: c[base] for p, c in by_path.items()},
             max_abs_err=max(c["max_abs_err"] for c in held),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
@@ -3439,7 +3910,7 @@ def main():
         if not rows[-1]["launches"]:
             raise AssertionError(f"{name}: no launch on its path {path}")
     for row in rows:
-        if row["name"] in REWRITTEN:
+        if row["name"] in REWRITTEN or row["name"].endswith("[int8]"):
             log(f"{row['name']} (main path {row['launches']} launches): "
                 f"device {row['device_ms']} ms, back to back "
                 f"{row['ms']:.4f} ms, single call "

@@ -73,7 +73,7 @@ class ModelConfig:
     rwkv_head_dim: int = 64
     frontend: str = "none"
     tie_embeddings: bool = False
-    kv_cache_dtype: str = ""    # "" = model dtype; "int8" (not ported yet)
+    kv_cache_dtype: str = ""    # "" = model dtype; "int8": codes + fp32 row scales
     chai: CHAIConfig = field(default_factory=CHAIConfig)
     dtype: str = "bfloat16"
 

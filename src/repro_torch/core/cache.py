@@ -30,9 +30,16 @@ Three layouts, one phase machine (PREFILL -> WARMUP -> CLUSTER -> STEADY):
    it must not share (``copy_pool_page``) and resumes a slot from a CHAI
    snapshot (``restore_slot_snapshot``).
 
+Under ``kv_cache_dtype="int8"`` every K/V rectangle and pool holds int8
+codes beside a mirror-shaped fp32 scale tensor with the last axis dropped
+(``kg_scale``/``vg_scale``/``kg_chai_scale``; ``kvp_scale``/``cp_scale``,
+addressed by the same block tables): one scale a row (``quant_rows``).
+Every move of codes (slot insert, compaction, page copy) moves their
+scales with them; nothing is requantized.
+
 The reference's functions return new state trees; these update the state
-tensors IN PLACE and return the same dict. Only bf16/fp32 caches are
-ported (no int8, no ``share_values``).
+tensors IN PLACE and return the same dict. ``share_values`` (CHAI-QKV) is
+not ported.
 """
 from __future__ import annotations
 
@@ -41,8 +48,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.clustering import chai_widths
 from repro_torch.models.transformer import (decode_state_shapes,
-                                            init_decode_state, model_dtype,
-                                            zeros_state)
+                                            init_decode_state, kv_int8,
+                                            model_dtype, zeros_state)
 
 # Per-slot lifecycle phases (paper Fig 10). PREFILL and CLUSTER are
 # transient (they happen inside one host call); the device ``phase``
@@ -59,8 +66,8 @@ NULL_PAGE = 0   # reserved per-pool sink; never allocated, never read valid
 
 def quant_rows(x):
     """Symmetric int8 over the last axis, the reference's rule bit for
-    bit. x: (..., hd) -> (int8 same shape, fp32 scale (...)). Feeds the
-    int8 QK kernel (``chai_qk_i8``); int8 KV serving is not ported."""
+    bit. x: (..., hd) -> (int8 same shape, fp32 scale (...)). Every int8
+    KV cache write goes through it (and the int8 QK kernel's inputs)."""
     xf = x.float()
     scale = torch.clamp(xf.abs().amax(-1), min=1e-6) / 127.0
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
@@ -68,14 +75,14 @@ def quant_rows(x):
 
 
 def dequant_rows(q, scale):
+    """int8 codes (..., hd) and their fp32 scales (...) -> fp32 rows."""
     return q.float() * scale[..., None]
 
 
 def _check(cfg: ModelConfig):
-    if cfg.kv_cache_dtype:
-        raise NotImplementedError("int8 KV cache is not ported yet")
     if cfg.chai.share_values:
-        raise NotImplementedError("share_values (CHAI-QKV) is not ported yet")
+        raise NotImplementedError("share_values (CHAI-QKV) is not ported "
+                                  "yet: ROADMAP Queue 1 #3")
 
 
 def _chai_on(cfg: ModelConfig, chai: bool) -> bool:
@@ -88,7 +95,8 @@ def _chai_on(cfg: ModelConfig, chai: bool) -> bool:
 
 def init_chai_state(cfg: ModelConfig, batch: int, max_seq: int, device):
     """Zero decode state in the clustered layout (MHA + CHAI archs):
-    ``kg_chai`` (nG, B, k_max, S, hd) in place of ``kg``."""
+    ``kg_chai`` (nG, B, k_max, S, hd) in place of ``kg`` (and, int8,
+    ``kg_chai_scale`` (nG, B, k_max, S) in place of ``kg_scale``)."""
     _check(cfg)
     state = init_decode_state(cfg, batch, max_seq, device)
     if not (cfg.is_mha and cfg.chai.enabled):
@@ -97,6 +105,10 @@ def init_chai_state(cfg: ModelConfig, batch: int, max_seq: int, device):
     ng, b, _, s, hd = state.pop("kg").shape
     state["kg_chai"] = torch.zeros((ng, b, k_max, s, hd),
                                    dtype=state["vg"].dtype, device=device)
+    if state.pop("kg_scale", None) is not None:
+        state["kg_chai_scale"] = torch.zeros((ng, b, k_max, s),
+                                             dtype=torch.float32,
+                                             device=device)
     return state
 
 
@@ -123,7 +135,7 @@ def compact_kv(state, chai_ctx, cfg: ModelConfig):
 
     state["kg"]: (nG, B, H, S, hd); ctx reps: (nA, B, k) or (nA, k).
     Returns a new state dict with ``kg_chai`` (nG, B, k, S, hd) and no
-    ``kg``."""
+    ``kg`` (int8: ``kg_chai_scale`` gathered from ``kg_scale`` alike)."""
     _check(cfg)
     if not (cfg.is_mha and cfg.chai.enabled):
         return state
@@ -135,18 +147,25 @@ def compact_kv(state, chai_ctx, cfg: ModelConfig):
     # All-global MHA archs: attention layer i == global layer i.
     li = torch.arange(ng, device=kg.device)[:, None, None]
     bi = torch.arange(b, device=kg.device)[None, :, None]
-    new_state = {k: v for k, v in state.items() if k != "kg"}
+    new_state = {k: v for k, v in state.items()
+                 if k not in ("kg", "kg_scale")}
     new_state["kg_chai"] = kg[li, bi, reps]
+    if "kg_scale" in state:
+        new_state["kg_chai_scale"] = state["kg_scale"][li, bi, reps]
     return new_state
 
 
 def kv_cache_bytes(cfg: ModelConfig, batch: int, seq: int, *,
                    chai: bool = False):
-    """Analytic steady-state KV-cache size in bytes (paper Fig 11)."""
+    """Analytic steady-state KV-cache size in bytes (paper Fig 11); int8:
+    1 + 4 / hd bytes an element (a code, and a row's fp32 scale)."""
     _check(cfg)
     if cfg.n_attn_layers == 0:
         return 0
-    esize = torch.empty((), dtype=model_dtype(cfg)).element_size()
+    if kv_int8(cfg):
+        esize = 1 + 4 / cfg.head_dim
+    else:
+        esize = torch.empty((), dtype=model_dtype(cfg)).element_size()
     k_max, _ = chai_widths(cfg)
     k_rows = (k_max if (chai and cfg.is_mha and cfg.chai.enabled)
               else cfg.n_kv_heads)
@@ -168,7 +187,8 @@ def unified_state_shapes(cfg: ModelConfig, batch: int, max_seq: int, *,
                          chai: bool = True):
     """{name: (shape, dtype)} of the continuous engine's unified state:
     the dense decode state plus ``phase`` (B,) and, with CHAI,
-    ``chai_scores`` and the clustered ``kg_chai`` (nG, B, k_max, S, hd)."""
+    ``chai_scores`` and the clustered ``kg_chai`` (nG, B, k_max, S, hd)
+    (int8: and its ``kg_chai_scale`` (nG, B, k_max, S))."""
     _check(cfg)
     shapes = dict(decode_state_shapes(cfg, batch, max_seq))
     shapes["phase"] = ((batch,), torch.int32)
@@ -179,6 +199,8 @@ def unified_state_shapes(cfg: ModelConfig, batch: int, max_seq: int, *,
         k_max, _ = chai_widths(cfg)
         (ng, b, _, s, hd), dt = shapes["kg"]
         shapes["kg_chai"] = ((ng, b, k_max, s, hd), dt)
+        if kv_int8(cfg):
+            shapes["kg_chai_scale"] = ((ng, b, k_max, s), torch.float32)
     return shapes
 
 
@@ -220,6 +242,9 @@ def compact_kv_slot(state, slot_ctx, cfg: ModelConfig, slot):
         # All-global MHA archs: attention layer i == global layer i.
         li = torch.arange(kg.shape[0], device=kg.device)[:, None]
         state["kg_chai"][:, slot] = kg[li, slot, reps]
+        if "kg_chai_scale" in state:
+            state["kg_chai_scale"][:, slot] = state["kg_scale"][li, slot,
+                                                                reps]
     state["phase"][slot] = PHASE_STEADY
     return state
 
@@ -234,12 +259,14 @@ def reset_slot(state, slot):
 def unified_kv_bytes(cfg: ModelConfig, batch: int, seq: int, *,
                      chai: bool = True):
     """Resident KV bytes of the unified layout: dense AND clustered
-    rectangles stay allocated, summed from the layout's own shapes."""
+    rectangles (and their int8 scales) stay allocated, summed from the
+    layout's own shapes."""
     shapes = unified_state_shapes(cfg, batch, seq, chai=chai)
     return int(sum(torch.Size(shape).numel()
                    * torch.empty((), dtype=dt).element_size()
                    for k, (shape, dt) in shapes.items()
-                   if k in ("kg", "vg", "kg_chai")))
+                   if k in ("kg", "vg", "kg_scale", "vg_scale", "kg_chai",
+                            "kg_chai_scale")))
 
 
 # ---------------------------------------------------------------------------
@@ -348,18 +375,24 @@ def paged_state_shapes(cfg: ModelConfig, batch: int, max_seq: int, *,
     pool ``kvp`` (nG, dense_pages, KV, page, hd) plus per-slot block
     tables ``bt_kg``/``bt_vg`` (B, max_seq / page); MHA+CHAI archs add
     the clustered pool ``cp`` (nG, chai_pages, k_max, page, hd) with table
-    ``bt_kc``. ``pos``/``phase``/``chai_scores`` are the unified
-    layout's."""
+    ``bt_kc``. Under int8 each pool has a scale pool, ``kvp_scale`` /
+    ``cp_scale``, of its shape without the last axis. ``pos``/``phase``/
+    ``chai_scores`` are the unified layout's."""
     _check(cfg)
     assert max_seq % page_size == 0, (max_seq, page_size)
     shapes = dict(decode_state_shapes(cfg, batch, max_seq))
     shapes["phase"] = ((batch,), torch.int32)
     bt = ((batch, max_seq // page_size), torch.int32)
+    int8 = kv_int8(cfg)
     if cfg.n_global_layers:
         ng, kv, hd = cfg.n_global_layers, cfg.n_kv_heads, cfg.head_dim
         dt = shapes.pop("kg")[1]
-        shapes.pop("vg")
+        for key in ("vg", "kg_scale", "vg_scale"):
+            shapes.pop(key, None)
         shapes["kvp"] = ((ng, dense_pages, kv, page_size, hd), dt)
+        if int8:
+            shapes["kvp_scale"] = ((ng, dense_pages, kv, page_size),
+                                   torch.float32)
         shapes["bt_kg"] = bt
         shapes["bt_vg"] = bt
     if not _chai_on(cfg, chai):
@@ -370,6 +403,9 @@ def paged_state_shapes(cfg: ModelConfig, batch: int, max_seq: int, *,
         ng, hd = cfg.n_global_layers, cfg.head_dim
         shapes["cp"] = ((ng, chai_pages, k_max, page_size, hd),
                         shapes["kvp"][1])
+        if int8:
+            shapes["cp_scale"] = ((ng, chai_pages, k_max, page_size),
+                                  torch.float32)
         shapes["bt_kc"] = bt
     return shapes
 
@@ -385,7 +421,7 @@ def init_paged_state(cfg: ModelConfig, batch: int, max_seq: int, *,
 def _scatter_pages(pool, x, pages):
     """Scatter a dense batch-1 rectangle into pool pages.
 
-    pool: (nG, nP, rows, page, hd); x: (nG, 1, rows, S, hd); pages: (P,)
+    pool: (nG, nP, rows, page[, hd]); x: (nG, 1, rows, S[, hd]); pages: (P,)
     with null padding, S == P * page. The padding entries all name page
     0, so several rows of one index-put land on the null page; which one
     wins does not matter, because page 0 is never read as valid."""
@@ -398,9 +434,9 @@ def _scatter_pages(pool, x, pages):
 def insert_slot_paged(state, mini, slot, kg_pages, vg_pages, *,
                       bt_kg_row=None, bt_vg_row=None):
     """Paged ``insert_slot``: write a prefilled batch=1 dense decode state
-    into slot ``slot``, scattering its global K/V rows into the slot's
-    pages (``kg_pages``/``vg_pages``: (P,) int32, null-padded) and
-    recording the block tables.
+    into slot ``slot``, scattering its global K/V rows (and int8 scales)
+    into the slot's pages (``kg_pages``/``vg_pages``: (P,) int32,
+    null-padded) and recording the block tables.
 
     A chunk of a chunked prefill passes SCATTER vectors that null every
     page outside the chunk (so the mini state's zero rows land in the
@@ -409,11 +445,14 @@ def insert_slot_paged(state, mini, slot, kg_pages, vg_pages, *,
     vectors. Every call re-anchors ``pos`` and zeroes the slot's
     clustering features."""
     for k, v in mini.items():
-        if k not in ("kg", "vg"):
+        if k not in ("kg", "vg", "kg_scale", "vg_scale"):
             _put_slot(state, k, v, slot)
     if "kvp" in state and "kg" in mini:
         _scatter_pages(state["kvp"], mini["kg"], kg_pages)
         _scatter_pages(state["kvp"], mini["vg"], vg_pages)
+        if "kvp_scale" in state:
+            _scatter_pages(state["kvp_scale"], mini["kg_scale"], kg_pages)
+            _scatter_pages(state["kvp_scale"], mini["vg_scale"], vg_pages)
         state["bt_kg"][slot] = kg_pages if bt_kg_row is None else bt_kg_row
         state["bt_vg"][slot] = vg_pages if bt_vg_row is None else bt_vg_row
     if "chai_scores" in state:
@@ -425,7 +464,8 @@ def insert_slot_paged(state, mini, slot, kg_pages, vg_pages, *,
 def compact_kv_slot_paged(state, slot_ctx, cfg: ModelConfig, slot,
                           kc_pages):
     """Paged per-slot compaction: gather slot ``slot``'s representative K
-    rows out of its dense pages into the clustered pages ``kc_pages``
+    rows (and int8 scales) out of its dense pages into the clustered pages
+    ``kc_pages``
     ((P,) int32, null-padded), record them in ``bt_kc`` and null the
     dense K block-table row; the engine then hands the dense K pages back
     to the ``PagePool``. V stays in the dense pool until retire."""
@@ -438,6 +478,9 @@ def compact_kv_slot_paged(state, slot_ctx, cfg: ModelConfig, slot,
         # and land on page 0 of the clustered pool (never read valid).
         g = kvp[li, bt_row[None, :, None], reps[:, None, :]]
         state["cp"][:, kc_pages.long()] = g
+        if "cp_scale" in state:
+            state["cp_scale"][:, kc_pages.long()] = state["kvp_scale"][
+                li, bt_row[None, :, None], reps[:, None, :]]
         state["bt_kg"][slot] = NULL_PAGE
         state["bt_kc"][slot] = kc_pages
     state["phase"][slot] = PHASE_STEADY
@@ -446,10 +489,12 @@ def compact_kv_slot_paged(state, slot_ctx, cfg: ModelConfig, slot,
 
 def copy_pool_page(state, src, dst, *, kind):
     """Copy ONE physical page (all global layers) inside a pool, the
-    prefix cache's copy-on-write step: ``kind="dense"`` copies ``kvp``,
-    ``kind="chai"`` copies ``cp``."""
-    pool = state["kvp" if kind == "dense" else "cp"]
-    pool[:, int(dst)] = pool[:, int(src)]
+    prefix cache's copy-on-write step: ``kind="dense"`` copies ``kvp``
+    (and ``kvp_scale``), ``kind="chai"`` copies ``cp`` (and ``cp_scale``)."""
+    for key in (("kvp", "kvp_scale") if kind == "dense"
+                else ("cp", "cp_scale")):
+        if key in state:
+            state[key][:, int(dst)] = state[key][:, int(src)]
     return state
 
 
@@ -482,13 +527,17 @@ def reset_slot_paged(state, slot):
 
 def paged_page_bytes(cfg: ModelConfig, page_size: int, *, kind: str):
     """Bytes of ONE page (``page_size`` tokens x all global layers):
-    kind="dense": ``n_kv_heads`` rows; kind="chai": ``k_max`` rows."""
+    kind="dense": ``n_kv_heads`` rows; kind="chai": ``k_max`` rows. int8:
+    a byte a code plus a row's 4-byte scale, hd + 4 bytes a row."""
     _check(cfg)
     if cfg.n_global_layers == 0:
         return 0
     rows = cfg.n_kv_heads if kind == "dense" else chai_widths(cfg)[0]
+    n = cfg.n_global_layers * rows * page_size
+    if kv_int8(cfg):
+        return int(n * cfg.head_dim + n * 4)
     esize = torch.empty((), dtype=model_dtype(cfg)).element_size()
-    return int(cfg.n_global_layers * rows * page_size * cfg.head_dim * esize)
+    return int(n * cfg.head_dim * esize)
 
 
 def paged_kv_bytes(cfg: ModelConfig, page_size: int, dense_in_use: int,

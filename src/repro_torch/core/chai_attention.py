@@ -20,6 +20,11 @@ online-softmax state; ONE group-batched pass per layer
 every member; the two states merge and are normalized per slot. A slot
 outside any group gets the empty prefix state, the exact merge identity.
 
+int8 KV (``kv_cache_dtype="int8"``): the new rep-K rows and per-head V
+rows are written as ``quant_rows`` codes and scales, and the fused kernels
+(and the relay pass) read the codes with their scale tensors: the K scale
+multiplies the score after the dot, the V scale the V row before A.V.
+
 GQA (``_chai_gqa_decode``): representatives are chosen within each KV
 group (``r_max`` per group, ctx ``cluster_of``/``reps``), the K/V caches
 stay per group (dense ``kg``/``vg``, or the dense pool ``kvp`` read
@@ -27,9 +32,9 @@ through ``bt_kg``/``bt_vg``: GQA has no clustered pool), and the same
 fused kernels run with ``reps_per_group = r_max``; the saving is compute
 only.
 
-Ported: the MHA and GQA branches, dense and paged, with the mixed-phase
-``write_mask``, and the relay decode for both, without int8 or
-``share_values``. Local layers raise ``NotImplementedError``.
+Ported: the MHA and GQA branches, dense and paged, float and int8 caches,
+with the mixed-phase ``write_mask``, and the relay decode for both,
+without ``share_values``. Local layers raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,10 +44,11 @@ from repro_torch.kernels import chai_attention as ck
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope
-from repro_torch.models.transformer import (_masked_rows, _paged_global_write,
-                                            _paged_write_rows,
-                                            paged_token_coords,
-                                            write_positions)
+from repro_torch.models.transformer import (_dense_global_write,
+                                            _dense_write_rows,
+                                            _paged_global_write,
+                                            _paged_write_rows, layer_slice,
+                                            paged_token_coords)
 
 
 def _rope1(x, pos, theta):
@@ -65,9 +71,9 @@ def chai_decode_attention(xn, p, cfg, state, gi, ai, chai_ctx, *,
     mixed-phase step runs this path alongside the MHA path). ``relay``:
     the relay decode's group-batched tensors (paged layout; see
     ``_relay_prefix_state``)."""
-    if cfg.chai.share_values or cfg.kv_cache_dtype:
-        raise NotImplementedError("share_values / int8 CHAI decode is not "
-                                  "ported yet: ROADMAP Queue 1 #3 / #2")
+    if cfg.chai.share_values:
+        raise NotImplementedError("share_values CHAI decode is not ported "
+                                  "yet: ROADMAP Queue 1 #3")
     if not cfg.is_mha:
         return _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx,
                                 write_mask, decode_ts=decode_ts, relay=relay)
@@ -95,6 +101,8 @@ def _relay_prefix_state(relay, gi, ai, q_rep, ts):
     ``relay`` (built by the engine on the host, tensors on the device):
       k / v              (nG, G, KV, Sp, hd)  packed copies of each
                          group's shared dense pages (zero tail past plen)
+      k_scale / v_scale  (nG, G, KV, Sp)      their int8 scales (int8
+                         caches only)
       plen               (G,)                 shared prefix length
       members            (G, Nmax)            slot of each member
       k_row/a_row/v_row  (nA, G, NR / A)      routing maps per layer (query
@@ -112,7 +120,9 @@ def _relay_prefix_state(relay, gi, ai, q_rep, ts):
     qg = q_rep[relay["members"].long()].reshape(g, nmax * r, hd)
     m, l, acc = kops.relay_prefix_attention(
         qg, relay["k"][gi], relay["v"][gi], relay["k_row"][ai],
-        relay["a_row"][ai], relay["v_row"][ai], relay["plen"], ts=ts)
+        relay["a_row"][ai], relay["v_row"][ai], relay["plen"],
+        k_scale=layer_slice(relay, "k_scale", gi),
+        v_scale=layer_slice(relay, "v_scale", gi), ts=ts)
     gid, midx = relay["gid"].long(), relay["midx"].long()
     ing = relay["in_group"]
     h = acc.shape[1] // nmax
@@ -125,7 +135,8 @@ def _relay_prefix_state(relay, gi, ai, q_rep, ts):
 
 
 def _relay_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, relay, gi,
-                  ai, ts, reps_per_group=1):
+                  ai, ts, reps_per_group=1, k_scale_pool=None,
+                  v_scale_pool=None):
     """One layer's relay decode over the paged pools: the suffix-only
     fused pass in the state mode (rolled tables and the shifted ``pos``
     drop the prefix pages from this launch), the group pass over the
@@ -134,7 +145,8 @@ def _relay_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, relay, gi,
     shift = relay["len"] // k_pool.shape[2]
     suffix = kops.paged_chai_decode_attention(
         q_rep, k_pool, _roll_bt(bt_k, shift), v_pool, _roll_bt(bt_v, shift),
-        h2c, pos - relay["len"], reps_per_group=reps_per_group,
+        h2c, pos - relay["len"], k_scale_pool=k_scale_pool,
+        v_scale_pool=v_scale_pool, reps_per_group=reps_per_group,
         emit_state=True)
     prefix = _relay_prefix_state(relay, gi, ai, q_rep, ts)
     return kops.finalize_decode_state(
@@ -168,31 +180,32 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
         # Paged: the pools are read in place by the kernel, no densifying.
         cp = state["cp"][gi]                      # (nP, k, page, hd)
         vp = state["kvp"][gi]                     # (nP, H, page, hd)
+        csc = layer_slice(state, "cp_scale", gi)  # int8: (nP, k, page)
+        vsp = layer_slice(state, "kvp_scale", gi)
         page = cp.shape[2]
         pk, row = paged_token_coords(state["bt_kc"], pos, page)
-        _paged_write_rows(cp, pk, row, k_rep, write_mask)
+        _paged_write_rows(cp, pk, row, k_rep, write_mask, csc)
         pv, vrow = paged_token_coords(state["bt_vg"], pos, page)
-        _paged_write_rows(vp, pv, vrow, v_new, write_mask)
+        _paged_write_rows(vp, pv, vrow, v_new, write_mask, vsp)
         if relay is None:
             out = kops.paged_chai_decode_attention(
                 q_rep, cp, state["bt_kc"], vp, state["bt_vg"], gather_idx,
-                pos)
+                pos, k_scale_pool=csc, v_scale_pool=vsp)
         else:
             out = _relay_decode(q_rep, cp, state["bt_kc"], vp,
                                 state["bt_vg"], gather_idx, pos, relay, gi,
-                                ai, decode_ts)
+                                ai, decode_ts, k_scale_pool=csc,
+                                v_scale_pool=vsp)
         return out.to(xn.dtype)
 
     kc = state["kg_chai"][gi]                     # (B, k, S, hd)
     vc = state["vg"][gi]                          # (B, H, S, hd)
-    ar = torch.arange(b, device=xn.device)
-    pl = write_positions(pos, kc.shape[2])
-    kc[ar, :, pl, :] = _masked_rows(write_mask, k_rep.to(kc.dtype),
-                                    kc[ar, :, pl, :])
-    vc[ar, :, pl, :] = _masked_rows(write_mask, v_new.to(vc.dtype),
-                                    vc[ar, :, pl, :])
+    ksc = layer_slice(state, "kg_chai_scale", gi)
+    vsc = layer_slice(state, "vg_scale", gi)
+    _dense_write_rows(kc, pos, k_rep, write_mask, ksc)
+    _dense_write_rows(vc, pos, v_new, write_mask, vsc)
     out = kops.chai_decode_attention(
-        q_rep, kc, vc, gather_idx, pos,
+        q_rep, kc, vc, gather_idx, pos, k_scale=ksc, v_scale=vsc,
         ts=ck.fused_tile_size(decode_ts, kc.shape[2]))
     return out.to(xn.dtype)
 
@@ -225,25 +238,24 @@ def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
                    cfg.rope_theta)
     v_new = torch.einsum("bd,dke->bke", xn, p["wv"])
     if "kvp" in state:
-        # Paged: K and V pages of one dense pool, read in place.
-        pool = _paged_global_write(state, gi, k_new, v_new, pos, write_mask)
+        # Paged: K and V pages of one dense pool (and, int8, of its scale
+        # pool), read in place.
+        pool, spool = _paged_global_write(state, gi, k_new, v_new, pos,
+                                          write_mask)
         if relay is None:
             out = kops.paged_chai_decode_attention(
                 q_flat, pool, state["bt_kg"], pool, state["bt_vg"],
-                h2c_flat, pos, reps_per_group=r)
+                h2c_flat, pos, k_scale_pool=spool, v_scale_pool=spool,
+                reps_per_group=r)
         else:
             out = _relay_decode(q_flat, pool, state["bt_kg"], pool,
                                 state["bt_vg"], h2c_flat, pos, relay, gi, ai,
-                                decode_ts, reps_per_group=r)
+                                decode_ts, reps_per_group=r,
+                                k_scale_pool=spool, v_scale_pool=spool)
         return out.to(xn.dtype)
-    kc, vc = state["kg"][gi], state["vg"][gi]       # (B, KV, S, hd)
-    ar = torch.arange(b, device=xn.device)
-    pl = write_positions(pos, kc.shape[2])
-    kc[ar, :, pl, :] = _masked_rows(write_mask, k_new.to(kc.dtype),
-                                    kc[ar, :, pl, :])
-    vc[ar, :, pl, :] = _masked_rows(write_mask, v_new.to(vc.dtype),
-                                    vc[ar, :, pl, :])
+    kc, vc, ksc, vsc = _dense_global_write(state, gi, k_new, v_new, pos,
+                                           write_mask)   # (B, KV, S, hd)
     out = kops.chai_decode_attention(
-        q_flat, kc, vc, h2c_flat, pos, reps_per_group=r,
-        ts=ck.fused_tile_size(decode_ts, kc.shape[2]))
+        q_flat, kc, vc, h2c_flat, pos, k_scale=ksc, v_scale=vsc,
+        reps_per_group=r, ts=ck.fused_tile_size(decode_ts, kc.shape[2]))
     return out.to(xn.dtype)

@@ -59,7 +59,10 @@ LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0,
             "row_softmax": 0, "chai_av": 0, "paged_chai_qk": 0,
             "paged_chai_av": 0}
 
-_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# K/V element types of the fused pair and the relay kernel (the launchers'
+# kv_type); the pipeline's kernels take the two float types only.
+_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_FLOAT_KV = (torch.float32, torch.bfloat16)
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 
 # chai_decode_tiles.cuh: the block body's constants
@@ -257,14 +260,34 @@ def _launcher(name, n_ptrs, n_ints):
     return fn
 
 
-def _refuse_unported(name, k_scale, v_scale, share_values, softcap):
-    for flag, what, item in (
-            (k_scale is not None, "int8 K scales", 2),
-            (v_scale is not None, "int8 V scales", 2),
-            (share_values, "share_values", 3), (bool(softcap), "softcap", 14)):
+def _refuse_unported(name, share_values, softcap):
+    for flag, what, item in ((share_values, "share_values", 3),
+                             (bool(softcap), "softcap", 14)):
         if flag:
             raise NotImplementedError(f"{name}: {what} is not ported to "
                                       f"CUDA yet: ROADMAP Queue 1 #{item}")
+
+
+def _check_scales(name, k, v, k_scale, v_scale):
+    """The int8 mode: K and V are int8 together, each with an fp32 scale
+    tensor of its own shape without the last axis (one scale a row); float
+    K/V take no scales. Shapes only, so it runs on any device."""
+    int8 = k.dtype == torch.int8
+    if ((v.dtype == torch.int8) != int8 or (k_scale is None) == int8
+            or (v_scale is None) == int8):
+        raise ValueError(f"{name}: K and V are int8 together, each with its "
+                         f"scales, or float without; got K {k.dtype}, V "
+                         f"{v.dtype}, k_scale {k_scale is not None}, v_scale "
+                         f"{v_scale is not None}")
+    if int8 and (k_scale.shape != k.shape[:-1]
+                 or v_scale.shape != v.shape[:-1]
+                 or k_scale.dtype != torch.float32
+                 or v_scale.dtype != torch.float32):
+        raise ValueError(f"{name}: scales must be fp32 of K's and V's shapes "
+                         f"without the last axis; got {tuple(k_scale.shape)}"
+                         f" {k_scale.dtype} for K {tuple(k.shape)}, "
+                         f"{tuple(v_scale.shape)} {v_scale.dtype} for V "
+                         f"{tuple(v.shape)}")
 
 
 def _check_block(name, hd, reps_per_group, cfg):
@@ -293,7 +316,7 @@ def _check_common(name, q_rep, k, v, h2c, reps_per_group):
         h2c = h2c.expand(b, h2c.shape[0])
     h_total = h2c.shape[1]
     if k.dtype != v.dtype or k.dtype not in _KV_DTYPES:
-        raise TypeError(f"K/V must share one dtype of fp32/bf16; got "
+        raise TypeError(f"K/V must share one dtype of fp32/bf16/int8; got "
                         f"{k.dtype}, {v.dtype}")
     if k.shape[1] * reps_per_group != r_total or h_total % v.shape[1]:
         raise ValueError(f"R={r_total} must be KVk={k.shape[1]} x "
@@ -371,13 +394,16 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     clustered cache: KVk == R); v_cache: (B, KVv, S, hd), per-head
     (KVv == H) or per-group (H % KVv == 0); K/V fp32 or bf16, one dtype;
     h2c: (B, H) or (H,) head -> rep row, values in [0, R); pos: (B,).
-    Any S: the kernel streams it with fixed shared memory, cut into
-    ``split_plan`` ranges merged inside the launch. Returns (B, H, hd)
-    fp32 from ONE kernel launch, or with ``emit_state`` the unnormalized
-    (m (B, R), l (B, R), acc (B, H, hd)) fp32 state.
+    The int8 mode: K/V int8 codes with their fp32 row scales k_scale
+    (B, KVk, S) and v_scale (B, KVv, S); the K scale multiplies the score
+    after the dot, the V scale the V row before A.V (the Pallas tile's
+    order). Any S: the kernel streams it with fixed shared memory, cut
+    into ``split_plan`` ranges merged inside the launch. Returns (B, H,
+    hd) fp32 from ONE kernel launch, or with ``emit_state`` the
+    unnormalized (m (B, R), l (B, R), acc (B, H, hd)) fp32 state.
     """
-    _refuse_unported("chai_fused_decode", k_scale, v_scale, share_values,
-                     softcap)
+    _refuse_unported("chai_fused_decode", share_values, softcap)
+    _check_scales("chai_fused_decode", k_cache, v_cache, k_scale, v_scale)
     s = k_cache.shape[2]
     b, r_total, hd, h_total, h2c = _check_common(
         "chai_fused_decode", q_rep, k_cache, v_cache, h2c, reps_per_group)
@@ -394,14 +420,17 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     k = k_cache.contiguous()
     v = v_cache.contiguous()
     _check_aligned("chai_fused_decode", k_cache=k, v_cache=v)
+    ks, vs = (None if t is None else t.contiguous()
+              for t in (k_scale, v_scale))
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state)
-    fn = _launcher("chai_fused_decode", 12, 16)
+    fn = _launcher("chai_fused_decode", 14, 16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch = split_scratch(cfg.n_split, b, r_total, h_total, hd,
                                 b * kv_k, dev, stream)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), h2c_i.data_ptr(),
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks),
+                 _ptr(vs), h2c_i.data_ptr(),
                  pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),
                  *(_ptr(t) for t in scratch), b, r_total, h_total, kv_k,
                  kv_v, s, hd, ts, decode_step_size(ts), reps_per_group,
@@ -426,15 +455,18 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     k_max); v_pool: (nPv, KVv, page, hd), the dense per-head pool;
     bt_k/bt_v: (B, P) block tables into their own pools (tile t of row b
     is page bt[b, t]; the tile size is the page); h2c: (B, H) or (H,);
-    pos: (B,). K/V fp32 or bf16, one dtype. Any P: the split plan is the
-    dense call's at equal shapes, so at page == ts the two are bitwise
-    equal. The pools are layer slices of the engine's state and are read
-    in place: they must be contiguous already (a copy would move the whole
-    pool every call). Returns (B, H, hd) fp32 from ONE kernel launch, or
-    the ``emit_state`` triple.
+    pos: (B,). K/V fp32 or bf16, one dtype, or int8 with their scale
+    pools k_scale_pool (nPk, KVk, page) and v_scale_pool (nPv, KVv, page),
+    read through the same tables (the dense call's int8 mode). Any P: the
+    split plan is the dense call's at equal shapes, so at page == ts the
+    two are bitwise equal. The pools are layer slices of the engine's
+    state and are read in place: they must be contiguous already (a copy
+    would move the whole pool every call). Returns (B, H, hd) fp32 from
+    ONE kernel launch, or the ``emit_state`` triple.
     """
-    _refuse_unported("paged_chai_fused_decode", k_scale_pool, v_scale_pool,
-                     share_values, softcap)
+    _refuse_unported("paged_chai_fused_decode", share_values, softcap)
+    _check_scales("paged_chai_fused_decode", k_pool, v_pool, k_scale_pool,
+                  v_scale_pool)
     n_pages = bt_k.shape[1]
     page = k_pool.shape[2]
     b, r_total, hd, h_total, h2c = _check_common(
@@ -450,8 +482,10 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     cfg = paged_launch_config(q_rep, k_pool, bt_k, h2c,
                               reps_per_group=reps_per_group)
     _check_block("paged_chai_fused_decode", hd, reps_per_group, cfg)
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if not t.is_contiguous():
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("k_scale_pool", k_scale_pool),
+                    ("v_scale_pool", v_scale_pool)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (pools are read "
                              "in place, never copied)")
     _check_aligned("paged_chai_fused_decode", k_pool=k_pool, v_pool=v_pool)
@@ -460,12 +494,13 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     bt_k_i, bt_v_i = _small(bt_k, dev), _small(bt_v, dev)
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state)
-    fn = _launcher("paged_chai_fused_decode", 14, 16)
+    fn = _launcher("paged_chai_fused_decode", 16, 16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch = split_scratch(cfg.n_split, b, r_total, h_total, hd,
                                 b * kv_k, dev, stream)
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 _ptr(k_scale_pool), _ptr(v_scale_pool),
                  bt_k_i.data_ptr(), bt_v_i.data_ptr(), h2c_i.data_ptr(),
                  pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),
                  *(_ptr(t) for t in scratch), b, r_total, h_total, kv_k,
@@ -480,12 +515,16 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     return (m, l, out) if emit_state else out
 
 
-def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
+def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
+                        v_scale=None, ts=0):
     """One pass per relay group over its packed shared prefix, on the GPU.
 
     q: (G, NR, hd) member rep queries stacked per group (any float dtype;
     read as fp32); k: (G, KV, Sp, hd) and v: (G, VR, Sp, hd) the packed
-    prefix, fp32 or bf16, one dtype; k_row: (G, NR) query row -> K row;
+    prefix, fp32 or bf16, one dtype, or int8 with their scale planes
+    k_scale (G, KV, Sp) and v_scale (G, VR, Sp) (the score blocks scale
+    each score after the dot, the sum blocks each V row before the
+    weighted sum); k_row: (G, NR) query row -> K row;
     a_row: (G, A) acc row -> query row; v_row: (G, A) acc row -> V row;
     plen: (G,) valid prefix lengths (positions >= plen masked). ``ts``:
     the S-tile (0: Sp; the whole prefix when it does not divide Sp). Any
@@ -496,6 +535,7 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
     Returns (m (G, NR), l (G, NR), acc (G, A, hd)) fp32, unnormalized, from
     ONE kernel launch.
     """
+    _check_scales("relay_prefix_decode", k, v, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"relay_prefix_decode launches a CUDA kernel; got "
                          f"tensors on {q.device}")
@@ -503,7 +543,7 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
     kv, sp = k.shape[1], k.shape[2]
     vr, a_total = v.shape[1], a_row.shape[1]
     if k.dtype != v.dtype or k.dtype not in _KV_DTYPES:
-        raise TypeError(f"K/V must share one dtype of fp32/bf16; got "
+        raise TypeError(f"K/V must share one dtype of fp32/bf16/int8; got "
                         f"{k.dtype}, {v.dtype}")
     if (k.shape != (g, kv, sp, hd) or v.shape != (g, vr, sp, hd)
             or k_row.shape != (g, nr) or a_row.shape != (g, a_total)
@@ -526,18 +566,21 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
     qf = q.float().contiguous()
     kc, vc = k.contiguous(), v.contiguous()
     _check_aligned("relay_prefix_decode", k=kc, v=vc)
+    ks, vs = (None if t is None else t.contiguous()
+              for t in (k_scale, v_scale))
     maps = [_small(t, dev) for t in (k_row, a_row, v_row, plen)]
     m = torch.empty((g, nr), dtype=torch.float32, device=dev)
     l = torch.empty((g, nr), dtype=torch.float32, device=dev)
     acc = torch.empty((g, a_total, hd), dtype=torch.float32, device=dev)
     scores = torch.empty((g, nr, sp), dtype=torch.float32, device=dev)
-    fn = _launcher("relay_prefix_decode", 15, 13)
+    fn = _launcher("relay_prefix_decode", 17, 13)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         mp, lp, accp, counter = split_scratch(
             cfg.n_split, g, nr, a_total, hd, relay_counters(g, cfg), dev,
             stream, one_split=True)
-        err = fn(qf.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        err = fn(qf.data_ptr(), kc.data_ptr(), vc.data_ptr(), _ptr(ks),
+                 _ptr(vs),
                  *(t.data_ptr() for t in maps), m.data_ptr(), l.data_ptr(),
                  acc.data_ptr(), mp.data_ptr(), lp.data_ptr(),
                  accp.data_ptr(), scores.data_ptr(), counter.data_ptr(), g,
@@ -610,7 +653,7 @@ def chai_qk(q_rep, k_cache, pos, *, reps_per_group=1, window=0, ts=512):
     s = k.shape[2]
     _tile_check("chai_qk", ts, s)
     b, r_total, hd, q, pos_i, out = _qk_inputs(
-        "chai_qk", q_rep, k, pos, reps_per_group, tuple(_KV_DTYPES), s)
+        "chai_qk", q_rep, k, pos, reps_per_group, _FLOAT_KV, s)
     if k.shape[0] != b:
         raise ValueError(f"chai_qk: K batch {k.shape[0]} != {b}")
     fn = _launcher("chai_qk", 4, 8)
@@ -661,8 +704,8 @@ def paged_chai_qk(q_rep, k_pool, bt, pos, *, reps_per_group=1, window=0):
                          "are read in place, never copied)")
     n_pages, page = bt.shape[1], k_pool.shape[2]
     b, r_total, hd, q, pos_i, out = _qk_inputs(
-        "paged_chai_qk", q_rep, k_pool, pos, reps_per_group,
-        tuple(_KV_DTYPES), n_pages * page)
+        "paged_chai_qk", q_rep, k_pool, pos, reps_per_group, _FLOAT_KV,
+        n_pages * page)
     if bt.shape != (b, n_pages):
         raise ValueError(f"paged_chai_qk: bt {tuple(bt.shape)} for batch {b}")
     bt_i = _small(bt, q.device)
@@ -708,7 +751,7 @@ def _av_inputs(name, a, v, h2c, h):
     if a.dtype != torch.float32 or a.ndim != 3:
         raise TypeError(f"{name}: A must be (B, R, S) fp32; got "
                         f"{tuple(a.shape)} {a.dtype}")
-    if v.dtype not in _KV_DTYPES:
+    if v.dtype not in _FLOAT_KV:
         raise TypeError(f"{name}: V must be fp32 or bf16; got {v.dtype}")
     b, r_total = a.shape[:2]
     if h2c.ndim == 1:

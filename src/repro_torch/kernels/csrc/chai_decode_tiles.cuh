@@ -48,6 +48,17 @@
 // step factors, n_cap accumulator rows, the member list and the chunk's
 // block-table entries. Nothing grows with S.
 //
+// The int8 mode (T = int8_t): K and V rows are int8 codes, each row with
+// one fp32 scale in a scale tensor of the cache's shape without the last
+// axis, reached through the same tile locator (``k_scale``/``v_scale``),
+// so the dense and paged kernels stay bitwise equal. As the Pallas tile
+// (repro/kernels/chai_attention.py: _fused_tile) does it, the K scale
+// multiplies the score after the dot, sc = (q . codes) * ks * 1/sqrt(hd),
+// and the V scale dequantizes the V row before A.V, v = codes * vs. A
+// load carries 8 codes (8 bytes), as many values as a bf16 load, so the
+// AV items and their reduce buffer keep their shape and any hd % 8 == 0
+// works.
+//
 // Splits are merged inside the launch. With n_split > 1 every block writes
 // its partial m, l (per rep) and raw acc (per member head) to fp32
 // scratch, fences, and takes a ticket on its unit's counter. The last
@@ -79,6 +90,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace chai {
 
 constexpr float kNegInf = -2.0e38f;
@@ -105,8 +118,8 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// 16 bytes of a row: 4 fp32 or 8 bf16 values, loaded raw and unpacked to
-// floats where they are used.
+// One load of a row: 16 bytes of 4 fp32 or 8 bf16 values, or 8 bytes of
+// 8 int8 codes, loaded raw and unpacked to floats where they are used.
 template <typename T>
 struct Vec16;
 template <>
@@ -142,13 +155,32 @@ struct Vec16<__nv_bfloat16> {
     }
   }
 };
+template <>
+struct Vec16<int8_t> {
+  static constexpr int n = 8;
+  using Raw = uint2;
+  __device__ static Raw load(const int8_t* p) {
+    return *reinterpret_cast<const uint2*>(p);
+  }
+  __device__ static Raw zero() { return make_uint2(0u, 0u); }
+  __device__ static void unpack(const Raw& r, float* out) {
+    const int8_t* c = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
+  }
+};
+
+template <typename T>
+constexpr bool kIsInt8 = std::is_same<T, int8_t>::value;
 
 // A dense cache (rows, S, hd) of one batch row: position idx of row r at
-// (r * S + idx) * hd.
+// (r * S + idx) * hd; int8 rows' scales (rows, S) at ks / vs.
 template <typename T>
 struct DenseTiles {
   const T* k;
   const T* v;
+  const float* ks;
+  const float* vs;
   int s, hd;
   __device__ void locate(int, const int*) {}
   __device__ void fill(int, int, int*, int, int) const {}
@@ -158,6 +190,12 @@ struct DenseTiles {
   __device__ const T* v_pos(int row, int idx) const {
     return v + (static_cast<size_t>(row) * s + idx) * hd;
   }
+  __device__ float k_scale(int row, int idx) const {
+    return ks[static_cast<size_t>(row) * s + idx];
+  }
+  __device__ float v_scale(int row, int idx) const {
+    return vs[static_cast<size_t>(row) * s + idx];
+  }
 };
 
 // Page pools (nP, rows, page, hd): position idx of the batch row lives in
@@ -166,11 +204,14 @@ struct DenseTiles {
 // touches into shared memory (``tab``: K entries, then V entries at
 // + kTab; threads t0, t0 + stride, ... each load some) and ``locate``
 // points every thread at them, so a position's address is one
-// shared-memory read away.
+// shared-memory read away. int8 rows' scale pools (nP, rows, page) at
+// ks / vs, read through the same entries.
 template <typename T>
 struct PagedTiles {
   const T* k;
   const T* v;
+  const float* ks;
+  const float* vs;
   const int* bt_k;
   const int* bt_v;
   int kv_k, kv_v, page, hd;
@@ -204,6 +245,19 @@ struct PagedTiles {
   __device__ const T* v_pos(int row, int idx) const {
     const int t = tile_of(idx);
     return at(v, kv_v, tab[kTab + t - t_base], row, idx, t);
+  }
+  __device__ float scale_at(const float* pool, int rows, int pid, int row,
+                            int idx, int t) const {
+    return pool[(static_cast<size_t>(pid) * rows + row) * page +
+                (idx - t * page)];
+  }
+  __device__ float k_scale(int row, int idx) const {
+    const int t = tile_of(idx);
+    return scale_at(ks, kv_k, tab[t - t_base], row, idx, t);
+  }
+  __device__ float v_scale(int row, int idx) const {
+    const int t = tile_of(idx);
+    return scale_at(vs, kv_v, tab[kTab + t - t_base], row, idx, t);
   }
 };
 
@@ -342,9 +396,18 @@ __device__ void decode_range(Tiles& tiles, const Smem& sm, int nq, int k_row,
               dot[j] += sm.q[j * hd + d + u] * kv[u];
         }
       }
+      if constexpr (kIsInt8<T>) {   // the K scale after the dot
+        const float ks = valid ? tiles.k_scale(k_row, idx) : 0.f;
 #pragma unroll
-      for (int j = 0; j < kQ; ++j)
-        if (j < nq) sm.sc[j * kChunk + i] = valid ? dot[j] * scale : kNegInf;
+        for (int j = 0; j < kQ; ++j)
+          if (j < nq)
+            sm.sc[j * kChunk + i] = valid ? dot[j] * ks * scale : kNegInf;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kQ; ++j)
+          if (j < nq)
+            sm.sc[j * kChunk + i] = valid ? dot[j] * scale : kNegInf;
+      }
     }
     __syncthreads();
 
@@ -405,18 +468,25 @@ __device__ void decode_range(Tiles& tiles, const Smem& sm, int nq, int k_row,
         const int i1 = min(n, (sl + 1) * per);
         for (int i0 = sl * per; i0 < i1; i0 += kBatch) {
           Raw raw[kBatch];
+          float vs[kIsInt8<T> ? kBatch : 1];
 #pragma unroll
           for (int u = 0; u < kBatch; ++u) {
             const int idx = c0 + i0 + u;
-            raw[u] = (i0 + u < i1 && idx >= first && idx <= last)
-                         ? Vec16<T>::load(tiles.v_pos(vr, idx) + d)
-                         : Vec16<T>::zero();
+            const bool live = i0 + u < i1 && idx >= first && idx <= last;
+            raw[u] = live ? Vec16<T>::load(tiles.v_pos(vr, idx) + d)
+                          : Vec16<T>::zero();
+            if constexpr (kIsInt8<T>)
+              vs[u] = live ? tiles.v_scale(vr, idx) : 0.f;
           }
 #pragma unroll
           for (int u = 0; u < kBatch; ++u) {
             if (i0 + u < i1) {
               float vv[kVec];
               Vec16<T>::unpack(raw[u], vv);
+              if constexpr (kIsInt8<T>) {   // dequantize before A.V
+#pragma unroll
+                for (int x = 0; x < kVec; ++x) vv[x] *= vs[u];
+              }
               const float wi = w[i0 + u];
 #pragma unroll
               for (int x = 0; x < kVec; ++x) part[x] += wi * vv[x];

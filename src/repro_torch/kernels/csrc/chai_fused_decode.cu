@@ -25,6 +25,11 @@
 // run-to-run identical bits. Each block is a chain of dependent memory
 // round trips (positions, member list, K, V, the merge's reads), so at
 // the main path's sizes the time is that chain, not the bytes.
+//
+// The int8 mode (an int8 KV cache): the block body's int8_t instance reads
+// 8-byte loads of codes and one fp32 scale per row and position (hd + 4
+// bytes a row where bf16 moves 2 hd), the K scale on the score after the
+// dot and the V scale on the V row before A.V, as the Pallas tile does.
 
 #include "chai_decode_tiles.cuh"
 
@@ -36,6 +41,8 @@ struct Args {
   const float* q;
   const void* k;
   const void* v;
+  const float* ks;   // int8: (B, kv_k, S) scales of K's rows, else null
+  const float* vs;   // int8: (B, kv_v, S) scales of V's rows, else null
   const int* h2c;
   const int* pos;
   float* out;
@@ -58,9 +65,10 @@ chai_fused_decode_kernel(const Args a) {
   const int b = u / a.kv_k, g = u - b * a.kv_k;
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
-  DenseTiles<T> tiles{k + static_cast<size_t>(b) * a.kv_k * a.S * a.hd,
-                      v + static_cast<size_t>(b) * a.kv_v * a.S * a.hd, a.S,
-                      a.hd};
+  const size_t kb = static_cast<size_t>(b) * a.kv_k * a.S;
+  const size_t vb = static_cast<size_t>(b) * a.kv_v * a.S;
+  DenseTiles<T> tiles{k + kb * a.hd, v + vb * a.hd, a.ks ? a.ks + kb : nullptr,
+                      a.vs ? a.vs + vb : nullptr, a.S, a.hd};
   const Members mem{a.h2c + static_cast<size_t>(b) * a.H, nullptr, a.H,
                     a.rpg, g, a.v_rep};
   const size_t rep0 = static_cast<size_t>(b) * a.R + g * a.rpg;
@@ -102,7 +110,9 @@ struct Launch {
 }  // namespace
 
 // q: (B, R, hd) fp32; k: (B, kv_k, S, hd); v: (B, kv_v, S, hd), both fp32
-// (kv_bf16 == 0) or bf16 (kv_bf16 == 1); h2c: (B, H) int32 with values in
+// (kv_type == 0), bf16 (kv_type == 1) or int8 codes (kv_type == 2, with
+// ks: (B, kv_k, S) and vs: (B, kv_v, S) fp32 row scales; else both
+// null); h2c: (B, H) int32 with values in
 // [0, R); pos: (B,) int32; out: (B, H, hd) fp32; m, l: (B, R) fp32, or
 // both null. All contiguous and 16-byte aligned; hd % 8 == 0, hd <= 256;
 // R == kv_k * rpg with rpg <= 8; S % ts == 0; ``step`` (<= 128) divides
@@ -115,12 +125,14 @@ struct Launch {
 // unnormalized acc to out and each rep's m and l (emit_state). Returns the
 // launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int chai_fused_decode_launch(
-    const void* q, const void* k, const void* v, const void* h2c,
-    const void* pos, void* out, void* m, void* l, void* mp, void* lp,
-    void* accp, void* counter, int B, int R, int H, int kv_k, int kv_v,
-    int S, int hd, int ts, int step, int rpg, int v_rep, int window,
-    int n_split, int tps, int n_cap, int kv_bf16, void* stream) {
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* h2c, const void* pos, void* out, void* m,
+    void* l, void* mp, void* lp, void* accp, void* counter, int B, int R,
+    int H, int kv_k, int kv_v, int S, int hd, int ts, int step, int rpg,
+    int v_rep, int window, int n_split, int tps, int n_cap, int kv_type,
+    void* stream) {
   const Args a{static_cast<const float*>(q), k, v,
+               static_cast<const float*>(ks), static_cast<const float*>(vs),
                static_cast<const int*>(h2c), static_cast<const int*>(pos),
                static_cast<float*>(out), static_cast<float*>(m),
                static_cast<float*>(l), static_cast<float*>(mp),
@@ -129,7 +141,8 @@ extern "C" int chai_fused_decode_launch(
                v_rep, window, n_cap,
                Plan{n_split, tps, S / ts, ts, step}, inv_sqrt_hd(hd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_bf16) return with_queries(rpg, Launch<__nv_bfloat16>{a, B, st});
+  if (kv_type == 2) return with_queries(rpg, Launch<int8_t>{a, B, st});
+  if (kv_type == 1) return with_queries(rpg, Launch<__nv_bfloat16>{a, B, st});
   return with_queries(rpg, Launch<float>{a, B, st});
 }
 

@@ -225,6 +225,47 @@ __device__ void stage_rows(T* dst, int n_rows, int n_valid, const Src& src,
   }
 }
 
+// Stage n_rows int8 rows as T (codes are exact in bf16 and in tf32): row r
+// from src(r) for r < n_valid, 8 codes a load, zeros past n_valid and in
+// the pad columns of a short bf16 row; and each row's scale, scale(r), into
+// sc (zero past n_valid). Plain loads and stores: the caller's barrier
+// makes them visible.
+template <typename T, int HD, typename Src, typename Scale>
+__device__ void stage_codes(T* dst, float* sc, int n_rows, int n_valid,
+                            const Src& src, const Scale& scale, int tid,
+                            int n_threads) {
+  using L = Layout<T, HD>;
+  constexpr int kGroups = L::kDim / 8;     // 8-code groups of a staged row
+  for (int e = tid; e < n_rows * kGroups; e += n_threads) {
+    const int r = e / kGroups, c = e - r * kGroups;
+    float f[8];
+    if (r < n_valid && c * 8 < HD) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(src(r) + c * 8);
+      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) f[u] = static_cast<float>(b[u]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) f[u] = 0.f;
+    }
+    T* d = dst + r * L::kStride + c * 8;
+    if constexpr (L::kBf16) {
+      uint32_t w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * u], f[2 * u + 1]);
+        w[u] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      reinterpret_cast<float4*>(d)[0] = make_float4(f[0], f[1], f[2], f[3]);
+      reinterpret_cast<float4*>(d)[1] = make_float4(f[4], f[5], f[6], f[7]);
+    }
+  }
+  for (int r = tid; r < n_rows; r += n_threads)
+    sc[r] = r < n_valid ? scale(r) : 0.f;
+}
+
 // ------------------------------------------------------------- state ----
 // A warp's 16 rows: this thread's rows g and g + 8 (index i = 0, 1).
 template <int HD>
@@ -248,12 +289,18 @@ struct State {
 
 // One online-softmax update of a warp's 16 rows with the staged tile of
 // n_keys keys. qs: the warp's 16 staged query rows; ks, vs: the tile's K
-// and V rows; ``valid(r, j)`` masks (warp row r, tile key j).
-template <typename T, int HD, typename Mask>
+// and V rows; ``valid(r, j)`` masks (warp row r, tile key j). kScaled (an
+// int8 cache, its codes staged as T: exact for |c| <= 127): ksc, vsc hold
+// the tile keys' K and V row scales (zero past n_keys); the score is
+// (q . codes) * ksc[j] * scale, and p * vsc[j] (the V row's dequantization
+// moved onto p) enters p.V, split into its pieces after that product.
+template <typename T, int HD, bool kScaled = false, typename Mask>
 __device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
                                             const T* vs, int n_keys,
                                             const Mask& valid, float scale,
-                                            State<HD>& st) {
+                                            State<HD>& st,
+                                            const float* ksc = nullptr,
+                                            const float* vsc = nullptr) {
   using L = Layout<T, HD>;
   constexpr int kNt = L::kTs / 8;  // 8-key slices of the tile
   const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
@@ -308,8 +355,14 @@ __device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int j = n * 8 + 2 * c + (e & 1), r = g + (e >> 1) * 8;
-      const float x =
-          (j < n_keys && valid(r, j)) ? s[n][e] * scale : kNegInf;
+      float x = kNegInf;
+      if (j < n_keys && valid(r, j)) {
+        if constexpr (kScaled) {
+          x = s[n][e] * ksc[j] * scale;
+        } else {
+          x = s[n][e] * scale;
+        }
+      }
       s[n][e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }
@@ -335,6 +388,12 @@ __device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
     sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
     sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
     st.l[i] = st.l[i] * alpha[i] + sum[i];
+  }
+  if constexpr (kScaled) {   // p.(codes * vs) as (p * vs).codes
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= vsc[n * 8 + 2 * c + (e & 1)];
   }
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {

@@ -21,6 +21,9 @@
 // allocated or the null page 0, so the mixed step's rows that are not
 // STEADY (a WARMUP row's K table is all null page 0; a FREE row has pos 0)
 // read in-bounds pages only; their outputs are discarded by the caller.
+// The int8 mode reads the K and V scale pools (nP, rows, page) through the
+// same staged table entries (chai_decode_tiles.cuh: PagedTiles), so it
+// stays bitwise equal to the dense kernel's int8 mode too.
 
 #include "chai_decode_tiles.cuh"
 
@@ -32,6 +35,8 @@ struct Args {
   const float* q;
   const void* k_pool;
   const void* v_pool;
+  const float* ks_pool;   // int8: (nPk, kv_k, page) scales, else null
+  const float* vs_pool;   // int8: (nPv, kv_v, page) scales, else null
   const int* bt_k;
   const int* bt_v;
   const int* h2c;
@@ -55,7 +60,7 @@ paged_chai_fused_decode_kernel(const Args a) {
   const int z = blockIdx.x, s = blockIdx.y, u = blockIdx.z;
   const int b = u / a.kv_k, g = u - b * a.kv_k;
   PagedTiles<T> tiles{static_cast<const T*>(a.k_pool),
-                      static_cast<const T*>(a.v_pool),
+                      static_cast<const T*>(a.v_pool), a.ks_pool, a.vs_pool,
                       a.bt_k + static_cast<size_t>(b) * a.P,
                       a.bt_v + static_cast<size_t>(b) * a.P,
                       a.kv_k, a.kv_v, a.page, a.hd,
@@ -102,7 +107,10 @@ struct Launch {
 }  // namespace
 
 // q: (B, R, hd) fp32; k_pool: (nPk, kv_k, page, hd); v_pool:
-// (nPv, kv_v, page, hd), both fp32 (kv_bf16 == 0) or bf16 (kv_bf16 == 1);
+// (nPv, kv_v, page, hd), both fp32 (kv_type == 0), bf16 (kv_type == 1) or
+// int8 codes (kv_type == 2, with ks_pool: (nPk, kv_k, page) and vs_pool:
+// (nPv, kv_v, page) fp32 row scales read through the same tables; else
+// both null);
 // bt_k, bt_v: (B, P) int32 page ids into their pools; h2c: (B, H) int32
 // with values in [0, R); pos: (B,) int32; out: (B, H, hd) fp32; m, l:
 // (B, R) fp32, or both null (finalized output; otherwise the state mode,
@@ -112,13 +120,16 @@ struct Launch {
 // aligned; hd % 8 == 0, hd <= 256. Returns the launch's cudaError_t (0 on
 // success); does not synchronise.
 extern "C" int paged_chai_fused_decode_launch(
-    const void* q, const void* k_pool, const void* v_pool, const void* bt_k,
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* ks_pool, const void* vs_pool, const void* bt_k,
     const void* bt_v, const void* h2c, const void* pos, void* out, void* m,
     void* l, void* mp, void* lp, void* accp, void* counter, int B, int R,
     int H, int kv_k, int kv_v, int P, int page, int hd, int step, int rpg,
-    int v_rep, int window, int n_split, int tps, int n_cap, int kv_bf16,
+    int v_rep, int window, int n_split, int tps, int n_cap, int kv_type,
     void* stream) {
   const Args a{static_cast<const float*>(q), k_pool, v_pool,
+               static_cast<const float*>(ks_pool),
+               static_cast<const float*>(vs_pool),
                static_cast<const int*>(bt_k), static_cast<const int*>(bt_v),
                static_cast<const int*>(h2c), static_cast<const int*>(pos),
                static_cast<float*>(out), static_cast<float*>(m),
@@ -128,6 +139,7 @@ extern "C" int paged_chai_fused_decode_launch(
                rpg, v_rep, window, n_cap,
                Plan{n_split, tps, P, page, step}, inv_sqrt_hd(hd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_bf16) return with_queries(rpg, Launch<__nv_bfloat16>{a, B, st});
+  if (kv_type == 2) return with_queries(rpg, Launch<int8_t>{a, B, st});
+  if (kv_type == 1) return with_queries(rpg, Launch<__nv_bfloat16>{a, B, st});
   return with_queries(rpg, Launch<float>{a, B, st});
 }

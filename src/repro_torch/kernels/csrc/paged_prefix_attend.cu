@@ -24,6 +24,14 @@
 // tables, so only positions < plen are read: whole pages up to the last
 // one, which is masked at plen inside the page. The block reads the tables
 // itself; nothing is densified.
+//
+// The int8 mode (an int8 pool with its scale pools (nP, KV, page)): the
+// tile's codes are staged as the queries' type (exact: |c| <= 127), with
+// plain loads and stores instead of cp.async, and each key's K and V
+// scales beside them in shared memory. The K scale multiplies the score
+// after the dot and the V scale the probability before p.V, so the tensor
+// cores see the codes themselves; p * vs is split into its bf16 pieces
+// (or tf32 halves) after that product (flash_tiles.cuh: attend_tile).
 
 #include "flash_tiles.cuh"
 
@@ -31,28 +39,35 @@ namespace {
 
 using namespace flash;
 
-template <typename T>
+template <typename P>
 struct PagedRows {                 // pool (nP, KV, page, hd)
-  const T* pool;
+  const P* pool;
+  const float* ks;                 // int8: scale pools (nP, KV, page)
+  const float* vs;
   const int* bt_k;                 // the batch row's P entries
   const int* bt_v;
   int kv_k, kvh, page, hd;
-  __device__ const T* row(const int* bt, int j) const {
+  __device__ size_t at(const int* bt, int j) const {  // (page, KV row, pos)
     const int lp = j / page;
-    return pool + ((static_cast<size_t>(bt[lp]) * kv_k + kvh) * page +
-                   (j - lp * page)) * hd;
+    return (static_cast<size_t>(bt[lp]) * kv_k + kvh) * page +
+           (j - lp * page);
   }
-  __device__ const T* krow(int j) const { return row(bt_k, j); }
-  __device__ const T* vrow(int j) const { return row(bt_v, j); }
+  __device__ const P* krow(int j) const { return pool + at(bt_k, j) * hd; }
+  __device__ const P* vrow(int j) const { return pool + at(bt_v, j) * hd; }
+  __device__ float kscale(int j) const { return ks[at(bt_k, j)]; }
+  __device__ float vscale(int j) const { return vs[at(bt_v, j)]; }
 };
 
 struct AllVisible {                // positions past plen never enter a tile
   __device__ bool operator()(int, int) const { return true; }
 };
 
-template <typename T, int HD>
+template <typename T, int HD, bool kI8>
 __global__ void __launch_bounds__(kThreads)
-paged_prefix_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+paged_prefix_attend_kernel(const T* __restrict__ q,
+                           const void* __restrict__ pool,
+                           const float* __restrict__ ks_pool,
+                           const float* __restrict__ vs_pool,
                            const int* __restrict__ bt_k,
                            const int* __restrict__ bt_v,
                            const int* __restrict__ plen,
@@ -66,6 +81,10 @@ paged_prefix_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool,
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* ks = qs + kBlockRows * L::kStride;    // kStages x kKeyGroups K tiles
   T* vs = ks + kStages * kKeyGroups * kTs * L::kStride;   // and V tiles
+  // int8: the tiles' K and V scales, kTs floats each per tile slot
+  float* ksc = reinterpret_cast<float*>(vs + kStages * kKeyGroups * kTs *
+                                                 L::kStride);
+  float* vsc = ksc + kStages * kKeyGroups * kTs;
   const int tid = threadIdx.x, warp = tid / 32;
   const int wq = warp % kWarps, kg = warp / kWarps;  // row group, key group
   const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
@@ -74,9 +93,11 @@ paged_prefix_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool,
   const int n_keys = max(0, min(plen[b], P * page));
   const int n_tiles = (n_keys + kTs - 1) / kTs;
   const int n_rounds = (n_tiles + kKeyGroups - 1) / kKeyGroups;
-  const PagedRows<T> rows{pool, bt_k + static_cast<size_t>(b) * P,
-                          bt_v + static_cast<size_t>(b) * P, KV,
-                          h / (H / KV), page, HD};
+  using Pool = typename std::conditional<kI8, int8_t, T>::type;
+  const PagedRows<Pool> rows{static_cast<const Pool*>(pool), ks_pool,
+                             vs_pool, bt_k + static_cast<size_t>(b) * P,
+                             bt_v + static_cast<size_t>(b) * P, KV,
+                             h / (H / KV), page, HD};
   if (n_tiles > 0) {
     stage_rows<T, HD>(qs, kBlockRows, n_q - q0, [&](int r) {
       return q + ((static_cast<size_t>(b) * n_q + q0 + r) * H + h) * HD;
@@ -84,20 +105,32 @@ paged_prefix_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool,
   }
   // tile t of round r = t / kKeyGroups sits in buffer slot
   // (r % kStages) * kKeyGroups + t % kKeyGroups
-  auto slot = [&](int t) {
-    return ((t / kKeyGroups) % kStages * kKeyGroups + t % kKeyGroups) *
-           kTs * L::kStride;
+  auto tile_slot = [&](int t) {
+    return (t / kKeyGroups) % kStages * kKeyGroups + t % kKeyGroups;
   };
+  auto slot = [&](int t) { return tile_slot(t) * kTs * L::kStride; };
   auto stage_round = [&](int r) {
     for (int t = r * kKeyGroups; t < min(n_tiles, (r + 1) * kKeyGroups);
          ++t) {
       const int k0 = t * kTs, n = min(kTs, n_keys - k0);
-      stage_rows<T, HD>(ks + slot(t), kTs, n,
-                        [&](int j) { return rows.krow(k0 + j); }, tid,
-                        kThreads);
-      stage_rows<T, HD>(vs + slot(t), kTs, n,
-                        [&](int j) { return rows.vrow(k0 + j); }, tid,
-                        kThreads);
+      if constexpr (kI8) {
+        const int sc0 = tile_slot(t) * kTs;
+        stage_codes<T, HD>(
+            ks + slot(t), ksc + sc0, kTs, n,
+            [&](int j) { return rows.krow(k0 + j); },
+            [&](int j) { return rows.kscale(k0 + j); }, tid, kThreads);
+        stage_codes<T, HD>(
+            vs + slot(t), vsc + sc0, kTs, n,
+            [&](int j) { return rows.vrow(k0 + j); },
+            [&](int j) { return rows.vscale(k0 + j); }, tid, kThreads);
+      } else {
+        stage_rows<T, HD>(ks + slot(t), kTs, n,
+                          [&](int j) { return rows.krow(k0 + j); }, tid,
+                          kThreads);
+        stage_rows<T, HD>(vs + slot(t), kTs, n,
+                          [&](int j) { return rows.vrow(k0 + j); }, tid,
+                          kThreads);
+      }
     }
   };
   if (n_rounds > 0) stage_round(0);
@@ -117,9 +150,11 @@ paged_prefix_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool,
     __syncthreads();
     const int t = r * kKeyGroups + kg;
     if (t < n_tiles && w_live)
-      attend_tile<T, HD>(qs + wq * kRows * L::kStride, ks + slot(t),
-                         vs + slot(t), min(kTs, n_keys - t * kTs),
-                         AllVisible{}, scale, st);
+      attend_tile<T, HD, kI8>(qs + wq * kRows * L::kStride, ks + slot(t),
+                              vs + slot(t), min(kTs, n_keys - t * kTs),
+                              AllVisible{}, scale, st,
+                              ksc + tile_slot(t) * kTs,
+                              vsc + tile_slot(t) * kTs);
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -128,20 +163,25 @@ paged_prefix_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool,
     store_rows<T, HD>(st, b, h, r0, n_q, H, nullptr, m_out, l_out, acc_out);
 }
 
-template <typename T>
-int launch(const void* q, const void* pool, const void* bt_k,
-           const void* bt_v, const void* plen, void* m_out, void* l_out,
-           void* acc_out, int B, int n_q, int H, int KV, int P, int page,
-           int hd, cudaStream_t stream) {
+template <typename T, bool kI8>
+int launch(const void* q, const void* pool, const void* ks_pool,
+           const void* vs_pool, const void* bt_k, const void* bt_v,
+           const void* plen, void* m_out, void* l_out, void* acc_out, int B,
+           int n_q, int H, int KV, int P, int page, int hd,
+           cudaStream_t stream) {
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
-    constexpr size_t smem = Layout<T, HD>::kBytes;
-    auto kern = paged_prefix_attend_kernel<T, HD>;
+    using L = Layout<T, HD>;
+    // int8: the tiles' scales after the tiles (a key's K and V scale)
+    constexpr size_t smem =
+        L::kBytes + (kI8 ? 2 * kStages * kKeyGroups * L::kTs * 4 : 0);
+    auto kern = paged_prefix_attend_kernel<T, HD, kI8>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((n_q + kBlockRows - 1) / kBlockRows, H, B);
     kern<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(pool),
+        static_cast<const T*>(q), pool, static_cast<const float*>(ks_pool),
+        static_cast<const float*>(vs_pool),
         static_cast<const int*>(bt_k), static_cast<const int*>(bt_v),
         static_cast<const int*>(plen), static_cast<float*>(m_out),
         static_cast<float*>(l_out), static_cast<float*>(acc_out), n_q, H,
@@ -153,23 +193,26 @@ int launch(const void* q, const void* pool, const void* bt_k,
 }  // namespace
 
 // q: (B, n_q, H, hd); pool: (nP, KV, page, hd), both fp32 (bf16 == 0) or
-// bf16 (bf16 == 1); bt_k, bt_v: (B, P) int32 page ids into the pool; plen:
+// bf16 (bf16 == 1), or an int8 pool (i8 == 1) with its fp32 scale pools
+// ks_pool, vs_pool (nP, KV, page) (else both null) beside a q of either
+// type; bt_k, bt_v: (B, P) int32 page ids into the pool; plen:
 // (B,) int32 cached positions; m_out, l_out: (B, H, n_q) and acc_out:
 // (B, H, n_q, hd) fp32. All contiguous and 16-byte aligned; H % KV == 0,
 // hd a power of two from 8 to 256 (else cudaErrorInvalidValue). Returns
 // the launch's cudaError_t (0 on success); does not synchronise.
-extern "C" int paged_prefix_attend_launch(const void* q, const void* pool,
-                                          const void* bt_k, const void* bt_v,
-                                          const void* plen, void* m_out,
-                                          void* l_out, void* acc_out, int B,
-                                          int n_q, int H, int KV, int P,
-                                          int page, int hd, int bf16,
-                                          void* stream) {
+extern "C" int paged_prefix_attend_launch(
+    const void* q, const void* pool, const void* ks_pool, const void* vs_pool,
+    const void* bt_k, const void* bt_v, const void* plen, void* m_out,
+    void* l_out, void* acc_out, int B, int n_q, int H, int KV, int P,
+    int page, int hd, int bf16, int i8, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto t, auto i8_c) {
+    return launch<decltype(t), decltype(i8_c)::value>(
+        q, pool, ks_pool, vs_pool, bt_k, bt_v, plen, m_out, l_out, acc_out,
+        B, n_q, H, KV, P, page, hd, st);
+  };
   if (bf16)
-    return launch<__nv_bfloat16>(q, pool, bt_k, bt_v, plen, m_out, l_out,
-                                 acc_out, B, n_q, H, KV, P, page, hd,
-                                 st);
-  return launch<float>(q, pool, bt_k, bt_v, plen, m_out, l_out, acc_out, B,
-                       n_q, H, KV, P, page, hd, st);
+    return i8 ? go(__nv_bfloat16(), std::true_type())
+              : go(__nv_bfloat16(), std::false_type());
+  return i8 ? go(0.f, std::true_type()) : go(0.f, std::false_type());
 }

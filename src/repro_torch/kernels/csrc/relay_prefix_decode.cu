@@ -67,6 +67,12 @@
 // counter is left at zero by its last user. Padded members carry index 0
 // in every map: their rows read in-bounds rows and compute values the
 // caller's scatter discards.
+//
+// The int8 mode (packed int8 codes with their scale planes ks (G, KV, Sp)
+// and vs (G, VR, Sp)): the score blocks multiply each position's dot by
+// its K row's scale before 1/sqrt(hd), and the sum blocks dequantize each
+// V row (codes times the row's scale) before weighting it, as the Pallas
+// kernel does; a load carries 8 codes.
 
 #include "chai_decode_tiles.cuh"
 
@@ -82,6 +88,8 @@ struct Args {
   const float* q;
   const void* k;
   const void* v;
+  const float* ks;  // int8: (G, KV, Sp) K row scales, else null
+  const float* vs;  // int8: (G, VR, Sp) V row scales, else null
   const int* k_row;
   const int* a_row;
   const int* v_row;
@@ -249,13 +257,14 @@ __device__ inline Range split_range(const Args& a, int g, int s) {
 }
 
 // One chunk's scores of a K row for the block's nq queries (sm.big, kQ
-// rows of hd, zero past nq): thread i takes position c0 + i, 16-byte loads
-// of the K row dotted with every query, scaled; into sm.chunk (query j at
-// j * kChunk) and into the scores scratch ``out`` (query j's row at
-// sm.rows[j] * Sp).
+// rows of hd, zero past nq): thread i takes position c0 + i, row loads of
+// the K row dotted with every query, scaled (int8: by the row's scale
+// ``kscale[c0 + i]`` first); into sm.chunk (query j at j * kChunk) and
+// into the scores scratch ``out`` (query j's row at sm.rows[j] * Sp).
 template <typename T, int kQ>
-__device__ void score_chunk(const T* krow, const Smem& sm, int nq, int c0,
-                            int n, int hd, int sp, float scale, float* out) {
+__device__ void score_chunk(const T* krow, const float* kscale,
+                            const Smem& sm, int nq, int c0, int n, int hd,
+                            int sp, float scale, float* out) {
   constexpr int kVec = Vec16<T>::n;
   for (int i = threadIdx.x; i < n; i += kThreads) {
     float dot[kQ];
@@ -271,10 +280,12 @@ __device__ void score_chunk(const T* krow, const Smem& sm, int nq, int c0,
 #pragma unroll
         for (int u = 0; u < kVec; ++u) dot[j] += sm.big[j * hd + d + u] * kv[u];
     }
+    float ks = 1.f;
+    if constexpr (kIsInt8<T>) ks = kscale[c0 + i];
 #pragma unroll
     for (int j = 0; j < kQ; ++j) {
       if (j < nq) {
-        const float x = dot[j] * scale;
+        const float x = kIsInt8<T> ? dot[j] * ks * scale : dot[j] * scale;
         sm.chunk[j * kChunk + i] = x;
         out[static_cast<size_t>(sm.rows[j]) * sp + c0 + i] = x;
       }
@@ -297,8 +308,9 @@ __device__ void score_block(const Args& a, const Smem& sm, int g, int s,
   }
   const int kv = sm.slice[0], nq = sm.slice[2];
   const Range r = split_range(a, g, s);
-  const T* krow = static_cast<const T*>(a.k) +
-                  static_cast<size_t>(g * a.KV + kv) * a.Sp * a.hd;
+  const size_t k0 = static_cast<size_t>(g * a.KV + kv) * a.Sp;
+  const T* krow = static_cast<const T*>(a.k) + k0 * a.hd;
+  const float* kscale = a.ks ? a.ks + k0 : nullptr;
   if (r.first <= r.last)
     prefetch_chunk(krow, r.first, r.last, a.hd, sizeof(T));
   select_slice(k_row, a.NR, kv, sm.slice[1], sm.slice[1] + nq, nullptr, sm);
@@ -321,13 +333,17 @@ __device__ void score_block(const Args& a, const Smem& sm, int g, int s,
     const int n = min(kChunk, r.last - c0 + 1);
     __syncthreads();
     if (nq <= 1)
-      score_chunk<T, 1>(krow, sm, nq, c0, n, a.hd, a.Sp, a.scale, out);
+      score_chunk<T, 1>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
+                        out);
     else if (nq <= 2)
-      score_chunk<T, 2>(krow, sm, nq, c0, n, a.hd, a.Sp, a.scale, out);
+      score_chunk<T, 2>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
+                        out);
     else if (nq <= 4)
-      score_chunk<T, 4>(krow, sm, nq, c0, n, a.hd, a.Sp, a.scale, out);
+      score_chunk<T, 4>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
+                        out);
     else
-      score_chunk<T, kMaxQ>(krow, sm, nq, c0, n, a.hd, a.Sp, a.scale, out);
+      score_chunk<T, kMaxQ>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
+                            out);
     __syncthreads();
 #pragma unroll
     for (int u = 0; u < kQW; ++u) {
@@ -396,8 +412,9 @@ __device__ void sum_block(const Args& a, const Smem& sm, int g, int s,
   const bool found = find_slice(v_row, a.A, a.VR, kSlice, u, sm);
   const int vr = max(sm.slice[0], 0), nm = found ? sm.slice[2] : 0;
   const Range r = split_range(a, g, s);
-  const T* vrow = static_cast<const T*>(a.v) +
-                  static_cast<size_t>(g * a.VR + vr) * a.Sp * a.hd;
+  const size_t v0 = static_cast<size_t>(g * a.VR + vr) * a.Sp;
+  const T* vrow = static_cast<const T*>(a.v) + v0 * a.hd;
+  const float* vscale = a.vs ? a.vs + v0 : nullptr;
   if (found && r.first <= r.last)
     prefetch_chunk(vrow, r.first, r.last, a.hd, sizeof(T));
   if (found)
@@ -446,6 +463,11 @@ __device__ void sum_block(const Args& a, const Smem& sm, int g, int s,
           if (p < n) {
             float vv[kVec];
             Vec16<T>::unpack(raw[b], vv);
+            if constexpr (kIsInt8<T>) {   // dequantize before the sum
+              const float vsc = vscale[c0 + p];
+#pragma unroll
+              for (int x = 0; x < kVec; ++x) vv[x] *= vsc;
+            }
 #pragma unroll
             for (int mi = 0; mi < kSlice; ++mi) {
               if (mi < nm) {
@@ -582,7 +604,9 @@ relay_prefix_decode_kernel(const Args a) {
 }  // namespace
 
 // q: (G, NR, hd) fp32; k: (G, KV, Sp, hd); v: (G, VR, Sp, hd), both fp32
-// (kv_bf16 == 0) or bf16 (kv_bf16 == 1); k_row: (G, NR) int32 in [0, KV);
+// (kv_type == 0), bf16 (kv_type == 1) or int8 codes (kv_type == 2, with
+// ks: (G, KV, Sp) and vs: (G, VR, Sp) fp32 row scales; else both null);
+// k_row: (G, NR) int32 in [0, KV);
 // a_row: (G, A) int32 in [0, NR); v_row: (G, A) int32 in [0, VR); plen:
 // (G,) int32 in [0, Sp]; m, l: (G, NR) fp32; acc: (G, A, hd) fp32. All
 // contiguous and 16-byte aligned; hd % 8 == 0, hd <= 256; KV, VR <= 256;
@@ -594,12 +618,14 @@ relay_prefix_decode_kernel(const Args a) {
 // v_slots)) int32, all zero (the launch leaves them at zero again).
 // Returns the launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int relay_prefix_decode_launch(
-    const void* q, const void* k, const void* v, const void* k_row,
-    const void* a_row, const void* v_row, const void* plen, void* m, void* l,
-    void* acc, void* mp, void* lp, void* accp, void* sc, void* counter, int G,
-    int NR, int A, int KV, int VR, int Sp, int hd, int ts, int n_split,
-    int tps, int q_slots, int v_slots, int kv_bf16, void* stream) {
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* k_row, const void* a_row, const void* v_row,
+    const void* plen, void* m, void* l, void* acc, void* mp, void* lp,
+    void* accp, void* sc, void* counter, int G, int NR, int A, int KV,
+    int VR, int Sp, int hd, int ts, int n_split, int tps, int q_slots,
+    int v_slots, int kv_type, void* stream) {
   const Args a{static_cast<const float*>(q), k, v,
+               static_cast<const float*>(ks), static_cast<const float*>(vs),
                static_cast<const int*>(k_row), static_cast<const int*>(a_row),
                static_cast<const int*>(v_row), static_cast<const int*>(plen),
                static_cast<float*>(m), static_cast<float*>(l),
@@ -610,19 +636,15 @@ extern "C" int relay_prefix_decode_launch(
                inv_sqrt_hd(hd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(G * n_split * (q_slots + v_slots));
-  cudaError_t err;
-  if (kv_bf16) {
-    auto kern = relay_prefix_decode_kernel<__nv_bfloat16>;
-    err = allow_smem(kern, kSmemBytes);
+  auto run = [&](auto kern) {
+    const cudaError_t err = allow_smem(kern, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     kern<<<grid, kThreads, kSmemBytes, st>>>(a);
-  } else {
-    auto kern = relay_prefix_decode_kernel<float>;
-    err = allow_smem(kern, kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, kThreads, kSmemBytes, st>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (kv_type == 2) return run(relay_prefix_decode_kernel<int8_t>);
+  if (kv_type == 1) return run(relay_prefix_decode_kernel<__nv_bfloat16>);
+  return run(relay_prefix_decode_kernel<float>);
 }
 
 // The dynamic shared memory of one block in bytes, for a check that the

@@ -60,13 +60,11 @@ def _launcher(name, n_ptrs, n_ints):
     return fn
 
 
-def _refuse_unported(name, window=0, softcap=0.0, scale_pools=False):
+def _refuse_unported(name, window=0, softcap=0.0):
     for flag, what in ((bool(window), "window (local attention: ROADMAP "
                         "Queue 1 #14, rest of the arch zoo)"),
                        (bool(softcap), "softcap (ROADMAP Queue 1 #14, rest "
-                        "of the arch zoo)"),
-                       (scale_pools, "int8 scale pools (int8 KV: ROADMAP "
-                        "Queue 1 #2)")):
+                        "of the arch zoo)")):
         if flag:
             raise NotImplementedError(f"{name}: {what} is not ported yet")
 
@@ -159,18 +157,23 @@ def paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, *, k_scale_pool=None,
     q's dtype (fp32/bf16), read in place: it must be contiguous already
     (a copy would move the whole pool every call); bt_k/bt_v: (B, P)
     block tables (K and V are distinct pages of the one pool); plen:
-    (B,) cached positions (cut at P * page). Returns the head-major
-    triple (m (B, H, T), l (B, H, T), acc (B, H, T, hd)) fp32 from ONE
-    kernel launch; a row with plen == 0 holds the merge identity
-    (m = -2e38, l = 0, acc = 0) and reads no page.
+    (B,) cached positions (cut at P * page). The int8 mode: an int8 pool
+    with its fp32 scale pools k_scale_pool and v_scale_pool (nP, KV,
+    page) (the engine passes one scale pool as both), read through the
+    same tables: the K scale multiplies the score after the dot, the V
+    scale the probability before p.V. Returns the head-major triple
+    (m (B, H, T), l (B, H, T), acc (B, H, T, hd)) fp32 from ONE kernel
+    launch; a row with plen == 0 holds the merge identity (m = -2e38,
+    l = 0, acc = 0) and reads no page.
     """
-    _refuse_unported("paged_prefix_attend", softcap=softcap,
-                     scale_pools=(k_scale_pool is not None
-                                  or v_scale_pool is not None))
+    _refuse_unported("paged_prefix_attend", softcap=softcap)
+    ck._check_scales("paged_prefix_attend", kv_pool, kv_pool, k_scale_pool,
+                     v_scale_pool)
+    int8 = kv_pool.dtype == torch.int8
     b, t, h, hd = q.shape
     _check_heads("paged_prefix_attend", q, kv_pool.shape[1], hd)
     n_pages = bt_k.shape[-1]
-    if (kv_pool.dtype != q.dtype or kv_pool.ndim != 4
+    if ((kv_pool.dtype != q.dtype and not int8) or kv_pool.ndim != 4
             or kv_pool.shape[3] != hd or bt_k.shape != (b, n_pages)
             or bt_v.shape != (b, n_pages) or plen.shape != (b,)):
         raise ValueError(f"paged_prefix_attend: q {tuple(q.shape)} "
@@ -178,22 +181,25 @@ def paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, *, k_scale_pool=None,
                          f"{kv_pool.dtype}, bt_k {tuple(bt_k.shape)}, bt_v "
                          f"{tuple(bt_v.shape)}, plen {tuple(plen.shape)} do "
                          "not match")
-    if not kv_pool.is_contiguous():
-        raise ValueError("paged_prefix_attend: kv_pool must be contiguous "
-                         "(pools are read in place, never copied)")
+    if not all(x is None or x.is_contiguous()
+               for x in (kv_pool, k_scale_pool, v_scale_pool)):
+        raise ValueError("paged_prefix_attend: kv_pool and its scale pools "
+                         "must be contiguous (pools are read in place, never "
+                         "copied)")
     dev = q.device
     q = q.contiguous()
     _check_aligned("paged_prefix_attend", q=q, kv_pool=kv_pool)
     tables = [x.to(device=dev, dtype=torch.int32).contiguous()
               for x in (bt_k, bt_v, plen)]
     m, l, acc = _state(b, h, t, hd, dev)
-    fn = _launcher("paged_prefix_attend", 8, 8)
+    fn = _launcher("paged_prefix_attend", 10, 9)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q.data_ptr(), kv_pool.data_ptr(),
-                 *(x.data_ptr() for x in tables), m.data_ptr(), l.data_ptr(),
-                 acc.data_ptr(), b, t, h, kv_pool.shape[1], n_pages,
-                 kv_pool.shape[2], hd, _DTYPES[q.dtype], stream)
+        err = fn(q.data_ptr(), kv_pool.data_ptr(), ck._ptr(k_scale_pool),
+                 ck._ptr(v_scale_pool), *(x.data_ptr() for x in tables),
+                 m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, t, h,
+                 kv_pool.shape[1], n_pages, kv_pool.shape[2], hd,
+                 _DTYPES[q.dtype], int(int8), stream)
     if err:
         raise RuntimeError(f"paged_prefix_attend launch failed: CUDA error "
                            f"{err}")

@@ -58,8 +58,9 @@ def chai_decode_attention(q_rep, k_cache, v_cache, h2c, pos, *,
                           emit_state=False):
     """q_rep: (B, R, hd); k_cache: (B, KVk, S, hd) (clustered for MHA:
     KVk == R); v_cache: (B, KVv, S, hd); h2c: (B, H) or (H,); pos: (B,).
-    Returns (B, H, hd) fp32, or with ``emit_state`` the unnormalized
-    (m (B, R), l (B, R), acc (B, H, hd)) fp32 triple."""
+    int8 K/V come with their scales k_scale (B, KVk, S) and v_scale (B,
+    KVv, S). Returns (B, H, hd) fp32, or with ``emit_state`` the
+    unnormalized (m (B, R), l (B, R), acc (B, H, hd)) fp32 triple."""
     if q_rep.device.type == "cpu":
         return ref.chai_fused_decode_ref(
             q_rep, k_cache, v_cache, h2c, pos, k_scale=k_scale,
@@ -79,8 +80,9 @@ def paged_chai_decode_attention(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos,
     """The decode op over the engine's paged layout. q_rep: (B, R, hd);
     k_pool: (nP, KVk, page, hd) clustered pages (MHA: KVk == k_max);
     v_pool: (nP, KVv, page, hd) per-head V pages; bt_k/bt_v: (B, P)
-    block tables; h2c: (B, H) or (H,); pos: (B,). Returns (B, H, hd)
-    fp32, or the ``emit_state`` triple."""
+    block tables; h2c: (B, H) or (H,); pos: (B,); int8 pools with their
+    scale pools k_scale_pool (nP, KVk, page) and v_scale_pool (nP, KVv,
+    page). Returns (B, H, hd) fp32, or the ``emit_state`` triple."""
     if q_rep.device.type == "cpu":
         return ref.paged_chai_fused_decode_ref(
             q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos,
@@ -94,18 +96,21 @@ def paged_chai_decode_attention(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos,
         window=window, softcap=softcap, emit_state=emit_state)
 
 
-def relay_prefix_attention(q, k, v, k_row, a_row, v_row, plen, *, ts=0):
+def relay_prefix_attention(q, k, v, k_row, a_row, v_row, plen, *,
+                           k_scale=None, v_scale=None, ts=0):
     """One pass per relay group over its packed shared prefix: the member
     slots' rep queries stacked along one row axis, so the prefix is read
     once per group, not once per slot. q: (G, NR, hd); k: (G, KV, Sp,
-    hd); v: (G, VR, Sp, hd); k_row (G, NR), a_row/v_row (G, A) int
+    hd); v: (G, VR, Sp, hd) (int8 with their scales k_scale (G, KV, Sp)
+    and v_scale (G, VR, Sp)); k_row (G, NR), a_row/v_row (G, A) int
     routing maps; plen (G,). Returns the (m (G, NR), l (G, NR), acc (G,
     A, hd)) fp32 state; ``ts`` is the kernel's S-tile (0: Sp)."""
     if q.device.type == "cpu":
         return ref.relay_prefix_decode_ref(q, k, v, k_row, a_row, v_row,
-                                           plen)
+                                           plen, k_scale=k_scale,
+                                           v_scale=v_scale)
     return ck.relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen,
-                                  ts=ts)
+                                  k_scale=k_scale, v_scale=v_scale, ts=ts)
 
 
 def _gather_rows(x, h2c):
@@ -153,14 +158,20 @@ def flash_prefill_attention(q, k, v, offset=0, *, emit_state=False):
     return fk.flash_prefill(q, k, v, offset=offset, emit_state=emit_state)
 
 
-def paged_prefix_attention(q, kv_pool, bt_k, bt_v, plen):
+def paged_prefix_attention(q, kv_pool, bt_k, bt_v, plen, *,
+                           k_scale_pool=None, v_scale_pool=None):
     """Queries (B, T, H, hd) over the cached positions < plen (B,) of one
     layer's page pool (nP, KV, page, hd), read through the block tables
-    bt_k/bt_v (B, P), with no causal mask. Returns the head-major (m, l,
-    acc) fp32 triple; a row with plen == 0 is the merge identity."""
+    bt_k/bt_v (B, P), with no causal mask; an int8 pool with its scale
+    pools (nP, KV, page). Returns the head-major (m, l, acc) fp32 triple;
+    a row with plen == 0 is the merge identity."""
     if q.device.type == "cpu":
-        return ref.paged_prefix_attend_ref(q, kv_pool, bt_k, bt_v, plen)
-    return fk.paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen)
+        return ref.paged_prefix_attend_ref(q, kv_pool, bt_k, bt_v, plen,
+                                           k_scale_pool=k_scale_pool,
+                                           v_scale_pool=v_scale_pool)
+    return fk.paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen,
+                                  k_scale_pool=k_scale_pool,
+                                  v_scale_pool=v_scale_pool)
 
 
 def merge_prefill_states(s1, s2):
@@ -209,7 +220,8 @@ def chai_three_kernel_decode(q_rep, k_cache, v_cache, h2c, pos, *,
     (B, H, hd) fp32.
 
     ``k_scale`` (int8 K): the QK stage is ``chai_qk_i8``. ``v_scale``:
-    int8 V is dequantized outside the kernels (no int8 AV kernel exists).
+    int8 V is dequantized outside the kernels (the pipeline's AV kernels
+    have no int8 mode; the fused decode kernels read int8 V themselves).
     ``share_values``: AV per rep row (identity h2c), then a gather of the
     member heads. GQA (V rows a divisor of H): the per-group V is
     expanded to per-head rows by a copy before AV."""

@@ -31,6 +31,11 @@ The prefill kernels' plain versions: ``flash_prefill_ref`` (finalized
 causal attention, the reference's whole-row softmax oracle) and
 ``flash_prefill_state_ref`` (its ``emit_state`` form), and
 ``paged_prefix_attend_ref`` (the chunk's queries over cached pages). The
+int8 modes (``k_scale``/``v_scale`` of the fused pair and the relay pass,
+``k_scale_pool``/``v_scale_pool`` of the prefix pass) dequantize K and V
+first, as the reference's oracles do; the kernels scale the score after
+the dot and the V row before A.V, as the Pallas kernels do, which differs
+in the last bits. The
 state forms return the head-major (m, l, acc) triple as the kernels
 write it: ``m`` clamped at >= -1e30 on every computed row, and a row that
 attends no position (``plen == 0``) left at the exact merge identity
@@ -161,9 +166,7 @@ def chai_fused_decode_ref(q_rep, k_cache, v_cache, h2c, pos, *,
     over p = exp(sc - m); acc rows are the heads (R under
     ``share_values``)."""
     b = q_rep.shape[0]
-    kf = k_cache.float()
-    if k_scale is not None:
-        kf = kf * k_scale.float()[..., None]
+    kf = _dequant(k_cache, k_scale)
     sc = _chai_masked_scores(q_rep, kf, pos, reps_per_group=reps_per_group,
                              window=window, softcap=softcap)  # (B, R, S)
     if emit_state:
@@ -171,9 +174,7 @@ def chai_fused_decode_ref(q_rep, k_cache, v_cache, h2c, pos, *,
         a = torch.exp(sc - m[..., None])
     else:
         a = torch.softmax(sc, dim=-1)
-    vf = v_cache.float()
-    if v_scale is not None:
-        vf = vf * v_scale.float()[..., None]
+    vf = _dequant(v_cache, v_scale)
     if h2c.ndim == 1:
         h2c = h2c.expand(b, h2c.shape[0])
     h = h2c.shape[1]
@@ -217,20 +218,31 @@ def paged_chai_fused_decode_ref(q_rep, k_pool, bt_k, v_pool, bt_v, h2c,
         window=window, softcap=softcap, emit_state=emit_state)
 
 
-def relay_prefix_decode_ref(q, k, v, k_row, a_row, v_row, plen):
+def _dequant(x, scale):
+    """fp32 rows of x (..., hd), times their int8 scales (...) if given
+    (the reference oracles' dequantize-first order)."""
+    x = x.float()
+    return x if scale is None else x * scale.float()[..., None]
+
+
+def relay_prefix_decode_ref(q, k, v, k_row, a_row, v_row, plen, *,
+                            k_scale=None, v_scale=None):
     """Plain version of ``relay_prefix_decode``: row gathers, then the
     masked softmax state in one shot. q: (G, NR, hd); k: (G, KV, Sp, hd);
     v: (G, VR, Sp, hd); k_row: (G, NR) query row -> K row; a_row/v_row:
     (G, A) acc row -> query row / V row; plen: (G,), positions >= plen
-    masked (no causal mask). Returns (m (G, NR), l (G, NR), acc (G, A,
-    hd)) fp32, m clamped at >= -1e30."""
+    masked (no causal mask). int8 K/V take their scales k_scale (G, KV,
+    Sp) and v_scale (G, VR, Sp), dequantized first as the reference's
+    oracle does. Returns (m (G, NR), l (G, NR), acc (G, A, hd)) fp32, m
+    clamped at >= -1e30."""
     hd = q.shape[-1]
     sp = k.shape[2]
 
     def rows(x, idx):               # (G, rows, Sp, hd)[idx] per group
-        return torch.gather(x.float(), 1, idx.long()[..., None, None].expand(
+        return torch.gather(x, 1, idx.long()[..., None, None].expand(
             *idx.shape, sp, hd))
 
+    k, v = _dequant(k, k_scale), _dequant(v, v_scale)
     sc = torch.einsum("gre,grse->grs", q.float(),
                       rows(k, k_row)) / math.sqrt(hd)
     idx = torch.arange(sp, device=q.device)
@@ -328,15 +340,22 @@ def flash_prefill_state_ref(q, k, v, *, offset=0):
     return m, p.sum(-1), torch.einsum("bhts,bhsd->bhtd", p, vh)
 
 
-def paged_prefix_attend_ref(q, kv_pool, bt_k, bt_v, plen):
+def paged_prefix_attend_ref(q, kv_pool, bt_k, bt_v, plen, *,
+                            k_scale_pool=None, v_scale_pool=None):
     """Plain version of ``paged_prefix_attend``: densify the pool through
     the block tables, then the non-causal softmax state over positions
     < plen. q: (B, T, H, hd); kv_pool: (nP, KV, page, hd); bt_k/bt_v:
-    (B, P); plen: (B,). Returns the head-major (m, l, acc) fp32 triple;
-    rows with plen == 0 hold the merge identity (NEG_INF, 0, 0)."""
+    (B, P); plen: (B,). An int8 pool takes its scale pools (nP, KV, page),
+    gathered through the same tables and applied first, as the
+    reference's oracle does. Returns the head-major (m, l, acc) fp32
+    triple; rows with plen == 0 hold the merge identity (NEG_INF, 0, 0)."""
     h, hd = q.shape[2:]
-    kf = gather_pages_ref(kv_pool, bt_k).float()          # (B, KV, S, hd)
-    vf = gather_pages_ref(kv_pool, bt_v).float()
+
+    def view(bt, spool):                                  # (B, KV, S, hd)
+        return _dequant(gather_pages_ref(kv_pool, bt), None if spool is None
+                        else gather_pages_ref(spool, bt))
+
+    kf, vf = view(bt_k, k_scale_pool), view(bt_v, v_scale_pool)
     qpk = h // kf.shape[1]
     kf = kf.repeat_interleave(qpk, 1)                     # (B, H, S, hd)
     vf = vf.repeat_interleave(qpk, 1)

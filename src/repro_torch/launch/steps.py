@@ -126,11 +126,12 @@ def make_paged_slot_prefill(cfg: ModelConfig, max_seq: int):
 
 
 def _paged_prefix_kv(state, bt_kg_row, bt_vg_row):
-    """``prefix_kv`` of a chunk prefill: the engine's pool and the slot's
-    block tables as they are; the paged prefix pass reads only the real
-    pages through the tables, with no densifying gather."""
-    return {"pool": state["kvp"], "bt_k": bt_kg_row[None],
-            "bt_v": bt_vg_row[None]}
+    """``prefix_kv`` of a chunk prefill: the engine's pool (and its int8
+    scale pool) and the slot's block tables as they are; the paged prefix
+    pass reads only the real pages through the tables, with no densifying
+    gather."""
+    return {"pool": state["kvp"], "scale": state.get("kvp_scale"),
+            "bt_k": bt_kg_row[None], "bt_v": bt_vg_row[None]}
 
 
 def make_paged_chunk_prefill(cfg: ModelConfig, max_seq: int):

@@ -44,8 +44,9 @@ def check_supported(cfg: ModelConfig):
         raise NotImplementedError(f"{cfg.name}: MoE FFN is not ported yet")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: frontends are not ported yet")
-    if cfg.kv_cache_dtype:
-        raise NotImplementedError("int8 KV cache is not ported yet")
+    if cfg.kv_cache_dtype not in ("", "int8"):
+        raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: the cache "
+                         "is the model dtype ('') or 'int8'")
     if cfg.attn_logit_softcap:
         raise NotImplementedError("attention logit softcap is not ported yet")
     if cfg.qk_norm:
@@ -123,16 +124,27 @@ def _layer(group, i):
 # Decode state
 # ---------------------------------------------------------------------------
 
+def kv_int8(cfg: ModelConfig) -> bool:
+    """The KV cache holds int8 codes with one fp32 scale per row."""
+    return cfg.kv_cache_dtype == "int8"
+
+
 def decode_state_shapes(cfg: ModelConfig, batch: int, max_seq: int):
     """{name: (shape, dtype)} of the decode state: ``pos`` (B,) int32 and
-    the global caches ``kg``/``vg`` (nG, B, KV, S, hd) in the model dtype
-    (the reference's ``decode_state_structs``, global-attention subset)."""
+    the global caches ``kg``/``vg`` (nG, B, KV, S, hd) in the model dtype,
+    or, under int8, int8 codes with the rows' fp32 scales ``kg_scale``/
+    ``vg_scale`` (nG, B, KV, S) (the reference's ``decode_state_structs``,
+    global-attention subset)."""
     check_supported(cfg)
     shape = (cfg.n_global_layers, batch, cfg.n_kv_heads, max_seq,
              cfg.head_dim)
-    dt = model_dtype(cfg)
-    return {"pos": ((batch,), torch.int32), "kg": (shape, dt),
-            "vg": (shape, dt)}
+    dt = torch.int8 if kv_int8(cfg) else model_dtype(cfg)
+    shapes = {"pos": ((batch,), torch.int32), "kg": (shape, dt),
+              "vg": (shape, dt)}
+    if kv_int8(cfg):
+        shapes["kg_scale"] = (shape[:-1], torch.float32)
+        shapes["vg_scale"] = (shape[:-1], torch.float32)
+    return shapes
 
 
 def zeros_state(shapes, device):
@@ -142,7 +154,8 @@ def zeros_state(shapes, device):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, device):
-    """{"pos": (B,) int32, "kg"/"vg": (nG, B, KV, S, hd) model dtype}."""
+    """{"pos": (B,) int32, "kg"/"vg": (nG, B, KV, S, hd) model dtype (int8
+    codes plus ``kg_scale``/``vg_scale`` under int8)}."""
     return zeros_state(decode_state_shapes(cfg, batch, max_seq), device)
 
 
@@ -162,12 +175,27 @@ def _prefix_attention(q, k, v, prefix_kv, gi, plen):
     layer ``gi``, read through its block tables) and the causal pass over
     the chunk's own K/V at relative offset 0. plen == 0 (a first chunk)
     leaves the paged state at the exact merge identity."""
+    spool = layer_slice(prefix_kv, "scale", gi)
     st_p = kops.paged_prefix_attention(q, prefix_kv["pool"][gi],
                                        prefix_kv["bt_k"], prefix_kv["bt_v"],
-                                       plen)
+                                       plen, k_scale_pool=spool,
+                                       v_scale_pool=spool)
     st_s = kops.flash_prefill_attention(q, k, v, emit_state=True)
     return kops.finalize_prefill_state(kops.merge_prefill_states(st_s, st_p),
                                        dtype=q.dtype)
+
+
+def _prefill_write(state, gi, pos_idx, k, v):
+    """Write a prefill's K/V (B, T, KV, hd) at rows ``pos_idx`` of layer
+    ``gi``'s dense caches, in place; int8 caches take ``quant_rows`` codes
+    and scales (reference ``attn_branch``'s cache write)."""
+    for name, x in (("kg", k), ("vg", v)):
+        x = x.transpose(1, 2)                       # (B, KV, T, hd)
+        if name + "_scale" in state:
+            from repro_torch.core.cache import quant_rows
+            x, sc = quant_rows(x)
+            state[name + "_scale"][gi].index_copy_(2, pos_idx, sc)
+        state[name][gi].index_copy_(2, pos_idx, x.to(state[name].dtype))
 
 
 def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
@@ -182,8 +210,11 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
     are written to the cache too: decode masks them by ``pos`` and
     overwrites them as the sequence advances.
 
+    Under int8 the cache write stores ``quant_rows`` codes and scales.
+
     ``prefix_len`` (int or (B,)) and ``prefix_kv`` ({"pool": (nG, nP, KV,
-    page, hd) paged KV pool, "bt_k"/"bt_v": (B, P) block tables} holding
+    page, hd) paged KV pool, "scale": its (nG, nP, KV, page) int8 scale
+    pool or absent, "bt_k"/"bt_v": (B, P) block tables} holding
     positions [0, prefix_len)): the chunked prefill. This call's tokens
     sit at absolute positions ``prefix_len + arange(T)``, attend over the
     cached pages and themselves (``_prefix_attention``), write the cache
@@ -214,10 +245,7 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
             y = attn_mod.attention_fullseq(q, k, v, positions, positions)
         h = h + attn_mod.output_proj(y, p)
         if state is not None:
-            state["kg"][gi].index_copy_(
-                2, pos_idx, k.transpose(1, 2).to(state["kg"].dtype))
-            state["vg"][gi].index_copy_(
-                2, pos_idx, v.transpose(1, 2).to(state["vg"].dtype))
+            _prefill_write(state, gi, pos_idx, k, v)
         pf = _layer(params["ffn"], plan["dense"][i])
         h = h + mlp.dense_ffn(rms_norm(h, pf["ln"], cfg.norm_eps), pf, cfg)
 
@@ -293,51 +321,89 @@ def paged_token_coords(bt, pos, page):
     return bt[ar, logical].long(), pos.long() % page
 
 
-def _paged_write_rows(pool, page_idx, row, new, write_mask):
+def _paged_write_rows(pool, page_idx, row, new, write_mask, scale=None):
     """Commit one token's rows into pool pages, in place. pool: (nP, rows,
-    page, hd); page_idx/row: (B,); new: (B, rows, hd). Slots whose
-    current page is the null page 0 (FREE slots, a STEADY slot's nulled
-    dense K table) may collide there; whichever write wins, page 0 is
-    never read as valid."""
-    old = pool[page_idx, :, row, :]
-    pool[page_idx, :, row, :] = _masked_rows(write_mask, new.to(pool.dtype),
-                                             old)
+    page, hd); page_idx/row: (B,); new: (B, rows, hd). With ``scale`` (the
+    pool's int8 scale pool (nP, rows, page)) the rows are stored as
+    ``quant_rows`` codes and scales. Slots whose current page is the null
+    page 0 (FREE slots, a STEADY slot's nulled dense K table) may collide
+    there; whichever write wins, page 0 is never read as valid."""
+    if scale is not None:
+        from repro_torch.core.cache import quant_rows
+        new, sc = quant_rows(new)
+        scale[page_idx, :, row] = _masked_rows(write_mask, sc,
+                                               scale[page_idx, :, row])
+    pool[page_idx, :, row] = _masked_rows(write_mask, new.to(pool.dtype),
+                                          pool[page_idx, :, row])
+
+
+def _dense_write_rows(cache, pos, new, write_mask, scale=None):
+    """Commit one token's rows (B, rows, hd) at each slot's ``pos`` of a
+    dense cache (B, rows, S, hd), in place; with ``scale`` ((B, rows, S),
+    int8 caches) as ``quant_rows`` codes and scales."""
+    ar = torch.arange(new.shape[0], device=new.device)
+    pl = write_positions(pos, cache.shape[2])
+    if scale is not None:
+        from repro_torch.core.cache import quant_rows
+        new, sc = quant_rows(new)
+        scale[ar, :, pl] = _masked_rows(write_mask, sc, scale[ar, :, pl])
+    cache[ar, :, pl] = _masked_rows(write_mask, new.to(cache.dtype),
+                                    cache[ar, :, pl])
+
+
+def layer_slice(state, key, gi):
+    """Layer ``gi`` of ``state[key]``, or None when the state has no such
+    entry (the scale tensors exist only under int8)."""
+    t = state.get(key)
+    return None if t is None else t[gi]
 
 
 def _paged_global_write(state, gi, k, v, pos, write_mask):
     """Paged-layout global-cache decode write: commit one token's K/V rows
     into each slot's current page of the shared dense pool. Returns the
-    layer's pool (a view, updated in place)."""
+    layer's pool and its int8 scale pool (None for a float cache), views
+    updated in place."""
     pool = state["kvp"][gi]                              # (nP, KV, page, hd)
+    spool = layer_slice(state, "kvp_scale", gi)
     page = pool.shape[2]
     pk, row = paged_token_coords(state["bt_kg"], pos, page)
     pv, _ = paged_token_coords(state["bt_vg"], pos, page)
-    _paged_write_rows(pool, pk, row, k, write_mask)
-    _paged_write_rows(pool, pv, row, v, write_mask)
-    return pool
-
-
-def _paged_global_update(state, gi, k, v, pos, write_mask):
-    """``_paged_global_write`` + dense logical views (B, KV, S, hd)
-    gathered through the block tables (the attention math downstream is
-    the dense layout's)."""
-    from repro_torch.core.cache import gather_pages
-    pool = _paged_global_write(state, gi, k, v, pos, write_mask)
-    return gather_pages(pool, state["bt_kg"]), gather_pages(pool,
-                                                            state["bt_vg"])
+    _paged_write_rows(pool, pk, row, k, write_mask, spool)
+    _paged_write_rows(pool, pv, row, v, write_mask, spool)
+    return pool, spool
 
 
 def _dense_global_write(state, gi, k, v, pos, write_mask):
     """Dense-layout global-cache decode write: commit one token's K/V rows
     at each slot's ``pos``, in place. Returns the layer's caches (B, KV,
-    S, hd)."""
+    S, hd) and their int8 scales (B, KV, S) (None for a float cache)."""
     kc, vc = state["kg"][gi], state["vg"][gi]
-    ar = torch.arange(k.shape[0], device=k.device)
-    pl = write_positions(pos, kc.shape[2])
-    kc[ar, :, pl, :] = _masked_rows(write_mask, k.to(kc.dtype),
-                                    kc[ar, :, pl, :])
-    vc[ar, :, pl, :] = _masked_rows(write_mask, v.to(vc.dtype),
-                                    vc[ar, :, pl, :])
+    ksc = layer_slice(state, "kg_scale", gi)
+    vsc = layer_slice(state, "vg_scale", gi)
+    _dense_write_rows(kc, pos, k, write_mask, ksc)
+    _dense_write_rows(vc, pos, v, write_mask, vsc)
+    return kc, vc, ksc, vsc
+
+
+def _global_views(state, gi):
+    """Dense logical views (B, KV, S, hd) of layer ``gi``'s global K and V:
+    the dense caches, or the paged pool gathered through the block tables;
+    an int8 cache dequantized to fp32 (the reference's jnp decode path)."""
+    from repro_torch.core.cache import dequant_rows, gather_pages
+    if "kvp" in state:
+        pool = state["kvp"][gi]
+        spool = layer_slice(state, "kvp_scale", gi)
+        views = []
+        for bt in (state["bt_kg"], state["bt_vg"]):
+            x = gather_pages(pool, bt)
+            if spool is not None:
+                x = dequant_rows(x, gather_pages(spool, bt))
+            views.append(x)
+        return tuple(views)
+    kc, vc = state["kg"][gi], state["vg"][gi]
+    if "kg_scale" in state:
+        kc = dequant_rows(kc, state["kg_scale"][gi])
+        vc = dequant_rows(vc, state["vg_scale"][gi])
     return kc, vc
 
 
@@ -357,34 +423,40 @@ def _plain_decode_attention(xn, p, cfg, state, gi, ai, write_mask=None,
     probabilities are needed, and the attention is the flash decode op:
     over the paged pool in place (``kops.paged_decode_attention``, no
     densifying gather), or over the dense cache with ``decode_ts`` (the
-    engine's page size) as its tile, so the two layouts round alike."""
+    engine's page size) as its tile, so the two layouts round alike. An
+    int8 cache is read as the reference reads it: the rows are
+    dequantized into a dense fp32 view (paged: gathered first), and the
+    flash decode op runs over that view on both layouts (the flash decode
+    kernels, like the Pallas ones, have no scale mode)."""
     b = xn.shape[0]
     pos = state["pos"]
     q, k, v = attn_mod.project_qkv(xn[:, None], p, cfg, pos[:, None])
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
-    if "chai_scores" not in state:
+    if "kvp" in state:
+        pool, spool = _paged_global_write(state, gi, k, v, pos, write_mask)
+    else:
+        kc, vc, spool, _ = _dense_global_write(state, gi, k, v, pos,
+                                               write_mask)
+    if "chai_scores" not in state and spool is None:
         if "kvp" in state:
-            pool = _paged_global_write(state, gi, k, v, pos, write_mask)
             y = kops.paged_decode_attention(q, pool, state["bt_kg"],
                                             state["bt_vg"], pos)
         else:
-            kc, vc = _dense_global_write(state, gi, k, v, pos, write_mask)
             y = kops.flash_decode_attention(q, kc, vc, pos, ts=decode_ts)
         return y.to(q.dtype)
-    if "kvp" in state:
-        kc, vc = _paged_global_update(state, gi, k, v, pos, write_mask)
-    else:
-        kc, vc = _dense_global_write(state, gi, k, v, pos, write_mask)
+    kc, vc = _global_views(state, gi)
+    if "chai_scores" not in state:
+        return kops.flash_decode_attention(q, kc, vc, pos,
+                                           ts=decode_ts).to(q.dtype)
     s = kc.shape[2]
     kv_pos = torch.arange(s, dtype=torch.int32, device=xn.device).expand(b, s)
     y, probs = _decode_attention_batched(q, kc, vc, kv_pos, pos, 0,
                                          cfg.attn_logit_softcap)
-    if "chai_scores" in state:
-        wf = state["chai_scores"].shape[-1]
-        pw = probs.reshape(b, -1, s)[:, :, :wf]
-        if write_mask is not None:   # steady slots: features stay frozen
-            pw = pw * write_mask[:, None, None]
-        state["chai_scores"][ai] += pw
+    wf = state["chai_scores"].shape[-1]
+    pw = probs.reshape(b, -1, s)[:, :, :wf]
+    if write_mask is not None:   # steady slots: features stay frozen
+        pw = pw * write_mask[:, None, None]
+    state["chai_scores"][ai] += pw
     return y
 
 

@@ -1018,23 +1018,28 @@ class EngineCore(CohortSchedulerMixin):
 
     def _resident_view(self, chain):
         """Packed copy (nG, KV, len(chain) * page, hd) of a radix chain's
-        dense K and V pages, cached on the deepest node and keyed by the
-        chain's pages. Cached pages are never written (copy-on-write), and
-        eviction drops ``node.resident``, so the copy stays valid across
-        steps."""
+        dense K and V pages (int8: and of their scale planes (nG, KV,
+        len(chain) * page), the reference's ``_pack_prefix_fn``), cached
+        on the deepest node and keyed by the chain's pages. Cached pages
+        are never written (copy-on-write), and eviction drops
+        ``node.resident``, so the copy stays valid across steps."""
         node = chain[-1]
         key = (tuple(n.kg_page for n in chain),
                tuple(n.vg_page for n in chain))
         if node.resident is None or node.resident[0] != key:
-            kvp = self._dev_state["kvp"]
-            ng, _, kv, page, hd = kvp.shape
+            state = self._dev_state
 
-            def view(pages):
+            def view(name, pages):
+                pool = state[name]            # (nG, nP, KV, page[, hd])
                 idx = torch.tensor(pages, dtype=torch.long,
-                                   device=kvp.device)
-                return kvp[:, idx].transpose(1, 2).reshape(
-                    ng, kv, len(pages) * page, hd)
-            node.resident = (key, {"k": view(key[0]), "v": view(key[1])})
+                                   device=pool.device)
+                g = pool[:, idx].transpose(1, 2)
+                return g.reshape(g.shape[:2] + (-1,) + g.shape[4:])
+            packs = {"k": view("kvp", key[0]), "v": view("kvp", key[1])}
+            if "kvp_scale" in state:
+                packs["k_scale"] = view("kvp_scale", key[0])
+                packs["v_scale"] = view("kvp_scale", key[1])
+            node.resident = (key, packs)
         return node.resident[1]
 
     def _relay_row_maps(self, groups, nmax):
@@ -1137,11 +1142,12 @@ class EngineCore(CohortSchedulerMixin):
         sp_max = max(p["k"].shape[2] for p in packs)
 
         def stack(name):
+            # zero tail to the longest group's Sp (axis 2 of every pack)
             return torch.stack([torch.nn.functional.pad(
-                p[name], (0, 0, 0, sp_max - p[name].shape[2]))
-                for p in packs], dim=1)
+                p[name], (0, 0) * (p[name].ndim - 3)
+                + (0, sp_max - p[name].shape[2])) for p in packs], dim=1)
 
-        relay = {"k": stack("k"), "v": stack("v")}
+        relay = {name: stack(name) for name in packs[0]}
         members = np.zeros((len(groups), nmax), np.int32)
         plen_g = np.zeros((len(groups),), np.int32)
         gid = np.zeros((b,), np.int32)

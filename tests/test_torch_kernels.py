@@ -96,23 +96,33 @@ def test_tile_size_rule_matches_reference():
 @pytest.mark.parametrize("flag", [
     pytest.param(dict(softcap=30.0), id="flag0"),
     pytest.param(dict(share_values=True), id="flag2"),
-    pytest.param(dict(k_scale="scale"), id="flag3"),
-    pytest.param(dict(v_scale="scale"), id="flag4")])
+    pytest.param(dict(k_scale="scale", v_scale="scale"), id="flag3"),
+    pytest.param(dict(k_scale="scale", v_scale="scale", emit_state=True),
+                 id="flag4")])
 def test_kernel_path_refuses_unported_flags(flag):
     """A non-CPU tensor goes to the kernel, which raises on what it does
-    not carry — never to the plain version."""
+    not carry — never to the plain version. The int8 scales are ported
+    (flag3, flag4: int8 K/V with their scales, finalized and state mode):
+    they pass the refusal and reach the device check."""
     meta = dict(device="meta")
-    args = (torch.empty(2, 5, 16, **meta), torch.empty(2, 5, 64, 16, **meta),
-            torch.empty(2, 8, 64, 16, **meta),
+    int8 = "k_scale" in flag
+    kv_dt = dict(dtype=torch.int8) if int8 else {}
+    args = (torch.empty(2, 5, 16, **meta),
+            torch.empty(2, 5, 64, 16, **kv_dt, **meta),
+            torch.empty(2, 8, 64, 16, **kv_dt, **meta),
             torch.empty(2, 8, dtype=torch.int32, **meta),
             torch.empty(2, dtype=torch.int32, **meta))
-    flag = {n: (torch.empty(2, 5, 64, **meta) if v == "scale" else v)
-            for n, v in flag.items()}
+    flag = {n: (torch.empty(2, 5 if n == "k_scale" else 8, 64, **meta)
+                if v == "scale" else v) for n, v in flag.items()}
     before = dict(tck.LAUNCHES)
-    with pytest.raises(NotImplementedError):
-        tops.chai_decode_attention(*args, **flag)
-    with pytest.raises(ValueError, match="CUDA"):
-        tops.chai_decode_attention(*args)
+    if int8:
+        with pytest.raises(ValueError, match="CUDA"):
+            tops.chai_decode_attention(*args, **flag)
+    else:
+        with pytest.raises(NotImplementedError):
+            tops.chai_decode_attention(*args, **flag)
+        with pytest.raises(ValueError, match="CUDA"):
+            tops.chai_decode_attention(*args)
     assert tck.LAUNCHES == before
 
 

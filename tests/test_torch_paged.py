@@ -297,26 +297,36 @@ def test_paged_op_bitwise_equals_dense_op(rng, name):
 @pytest.mark.parametrize("flag", [
     pytest.param(dict(softcap=30.0), id="flag0"),
     pytest.param(dict(share_values=True), id="flag2"),
-    pytest.param(dict(k_scale_pool="scale"), id="flag3"),
-    pytest.param(dict(v_scale_pool="scale"), id="flag4")])
+    pytest.param(dict(k_scale_pool="scale", v_scale_pool="scale"),
+                 id="flag3"),
+    pytest.param(dict(k_scale_pool="scale", v_scale_pool="scale",
+                      emit_state=True), id="flag4")])
 def test_paged_kernel_path_refuses_unported_flags(flag):
     """A non-CPU tensor goes to the kernel, which raises on what it does
-    not carry — never to the plain version."""
+    not carry — never to the plain version. The int8 scale pools are
+    ported (flag3, flag4: int8 pools with their scale pools, finalized
+    and state mode): they pass the refusal and reach the device check."""
     meta = dict(device="meta")
+    int8 = "k_scale_pool" in flag
+    kv_dt = dict(dtype=torch.int8) if int8 else {}
     args = (torch.empty(2, 5, 16, **meta),
-            torch.empty(9, 5, PAGE, 16, **meta),
+            torch.empty(9, 5, PAGE, 16, **kv_dt, **meta),
             torch.empty(2, 4, dtype=torch.int32, **meta),
-            torch.empty(9, 8, PAGE, 16, **meta),
+            torch.empty(9, 8, PAGE, 16, **kv_dt, **meta),
             torch.empty(2, 4, dtype=torch.int32, **meta),
             torch.empty(2, 8, dtype=torch.int32, **meta),
             torch.empty(2, dtype=torch.int32, **meta))
-    flag = {n: (torch.empty(9, 5, PAGE, **meta) if v == "scale" else v)
-            for n, v in flag.items()}
+    flag = {n: (torch.empty(9, 5 if n == "k_scale_pool" else 8, PAGE, **meta)
+                if v == "scale" else v) for n, v in flag.items()}
     before = dict(tck.LAUNCHES)
-    with pytest.raises(NotImplementedError):
-        tops.paged_chai_decode_attention(*args, **flag)
-    with pytest.raises(ValueError, match="CUDA"):
-        tops.paged_chai_decode_attention(*args)
+    if int8:
+        with pytest.raises(ValueError, match="CUDA"):
+            tops.paged_chai_decode_attention(*args, **flag)
+    else:
+        with pytest.raises(NotImplementedError):
+            tops.paged_chai_decode_attention(*args, **flag)
+        with pytest.raises(ValueError, match="CUDA"):
+            tops.paged_chai_decode_attention(*args)
     assert tck.LAUNCHES == before
 
 

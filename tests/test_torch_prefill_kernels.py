@@ -174,16 +174,33 @@ def test_merge_and_finalize_match_reference(rng):
     assert bf.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("call", [
-    lambda q: tfk.flash_prefill(q, q, q, window=8),
-    lambda q: tfk.flash_prefill(q, q, q, softcap=30.0),
-    lambda q: tfk.paged_prefix_attend(q, q[0], None, None, None,
-                                      k_scale_pool=q),
+def _int8_pools_call(q):
+    """``paged_prefix_attend`` in its int8 mode on ``meta`` tensors."""
+    meta = dict(device="meta")
+    pool = torch.empty((3, 2, 16, 8), dtype=torch.int8, **meta)
+    scales = torch.empty((3, 2, 16), **meta)
+    bt = torch.zeros((1, 2), dtype=torch.int32, **meta)
+    return tfk.paged_prefix_attend(q.to("meta"), pool, bt, bt,
+                                   torch.zeros(1, dtype=torch.int32, **meta),
+                                   k_scale_pool=scales, v_scale_pool=scales)
+
+
+@pytest.mark.parametrize("call,err,match", [
+    (lambda q: tfk.flash_prefill(q, q, q, window=8), NotImplementedError,
+     "ROADMAP"),
+    (lambda q: tfk.flash_prefill(q, q, q, softcap=30.0), NotImplementedError,
+     "ROADMAP"),
+    (_int8_pools_call, ValueError, "CUDA"),
 ], ids=["window", "softcap", "int8_scale_pools"])
-def test_unported_options_raise_naming_roadmap(call):
+def test_unported_options_raise_naming_roadmap(call, err, match):
+    """window and softcap are not ported and raise naming their ROADMAP
+    item. The int8 scale pools are ported: they pass the refusal and reach
+    the device check (meta tensors), launching nothing."""
     q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    before = dict(tfk.LAUNCHES)
+    with pytest.raises(err, match=match):
         call(q)
+    assert tfk.LAUNCHES == before
 
 
 def test_wrappers_refuse_cpu_tensors(rng):
