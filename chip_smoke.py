@@ -97,10 +97,23 @@ result line):
    after phase 9, phase 6's traffic, paged then dense; the fused pair
    held against its plain version on each run's first all-STEADY layer-0
    int8 tensors;
-12. a ``kernels`` JSON line (the thirteen kernels, and a ``[int8]`` row
-   for each of the four int8 modes, its launches those of its phase-11
-   path), the card's name and power limit, and, last,
-   ``{"ok": true, "device": {...}}``.
+12. ``share_values`` (CHAI-QKV, ``cfg.with_chai(share_values=True)``) on
+   full-width chai-llama-7b after phase 11: the cohort on phase 5's
+   traffic, then phase 6's traffic paged then dense, bf16 and int8
+   (launches of the layout's own fused kernel only, every call in the
+   share mode; paged == dense tokens; ``kv_bytes()`` falling at every
+   CLUSTER by exactly the slot's dense K and V pages, and at the first
+   all-STEADY step exactly 50/57 of the K-only run's, phase 6's for bf16
+   and phase 11's for int8; empty pools), then phase 8's prefix traffic,
+   relay off then on, bf16 and int8 (the share shape of the relay maps,
+   scale-less int8 V); the fused pair held on each run's first
+   all-STEADY layer-0 tensors and the relay kernel on the first relay
+   step's;
+13. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
+   each of the four int8 modes, its launches those of its phase-11 path,
+   and a ``[share]`` row for each of the three share modes, its launches
+   those of its phase-12 path), the card's name and power limit, and,
+   last, ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the int8 modes of ``chai_fused_decode``,
 ``paged_chai_fused_decode``, ``relay_prefix_decode`` and
@@ -111,6 +124,15 @@ the fused pair and the relay kernel at S = Sp = 65,536; paged == dense and
 two launches ``torch.equal``), each at 2e-5 against its plain version with
 its device, back-to-back and single times and its int8 bound beside the
 same kernel's bf16 numbers on the same shapes.
+
+Phase 3 also holds the share_values modes of ``chai_fused_decode``,
+``paged_chai_fused_decode`` and ``relay_prefix_decode``
+(``share_kernel_checks``: V clustered like K, R rows; bf16 with several
+splits, a WARMUP-like row with all-null K and V tables, S = 65,536; int8
+K with scales beside raw V codes without; the relay on the share maps,
+Sp 256 and 65,536; paged == dense, two launches and emit + empty merge +
+finalize ``torch.equal``), each at 2e-5 against its plain version, with
+its times and bound beside the K-only mode's on the same shapes.
 
 Phase 3 also holds ``flash_decode`` and ``paged_decode`` against their
 plain versions on the reference's sweep shapes (MHA, GQA 4:1, MQA, one
@@ -427,22 +449,28 @@ def single_call_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def _row_bytes(k, hd):
+def _row_bytes(k, hd, scaled=True):
     """Bytes of one K/V row at one position: hd elements, and an int8
-    cache's fp32 row scale (1 B a code plus 4 B a row-position scale)."""
-    return hd * k.element_size() + (4 if k.dtype == torch.int8 else 0)
+    cache's fp32 row scale (1 B a code plus 4 B a row-position scale;
+    ``scaled=False``: the share_values clustered V codes, which have
+    none)."""
+    return hd * k.element_size() + (
+        4 if k.dtype == torch.int8 and scaled else 0)
 
 
-def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=()):
+def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=(), share=False):
     """Least time for the work these inputs need: K rows of reps that
     have members and every head's V row, positions 0..pos, read once
     (``k``/``v`` give the element size and the V row count: a dense cache
     or a page pool; int8 rows with their scales, ``_row_bytes``); q, h2c,
     pos and the block ``tables`` read and the (B, H, hd) fp32 output
-    written once; the QK and AV multiply-adds in fp32."""
+    written once; the QK and AV multiply-adds in fp32. ``share``
+    (share_values): the V rows are the reps' (those with members, as the
+    K rows), int8 V codes without scales, and AV runs once per rep."""
     b, _, hd = q.shape
     h = h2c.shape[1]
     row = _row_bytes(k, hd)
+    v_row = _row_bytes(v, hd, scaled=not share)
     n_bytes = (q.numel() + h2c.numel() + pos.numel() + b * h * hd
                + sum(t.numel() for t in tables)) * 4
     flops = 0
@@ -450,8 +478,9 @@ def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=()):
         n = int(pos[i]) + 1
         k_rows = len({int(j) // rpg for j in h2c[i].tolist()})
         reps = len(set(h2c[i].tolist()))
-        n_bytes += (k_rows + v.shape[1]) * n * row
-        flops += 2 * (reps + h) * n * hd
+        n_bytes += k_rows * n * row + (reps if share else v.shape[1]) * n \
+            * v_row
+        flops += 2 * (reps + (reps if share else h)) * n * hd
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -459,7 +488,8 @@ def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=()):
 
 def fused_decode_case(q, k, v, h2c, pos, *, rpg, ts, **scales):
     """Kernel vs plain on one input (``scales``: an int8 cache's k_scale
-    and v_scale); returns (max_abs_err, ms, plain_ms)."""
+    and v_scale, and ``share_values``); returns (max_abs_err, ms,
+    plain_ms)."""
     out = ck.chai_fused_decode(q, k, v, h2c, pos, reps_per_group=rpg, ts=ts,
                                **scales)
     torch.cuda.synchronize()
@@ -547,12 +577,14 @@ def to_pages(gen, x, n_extra=7, scale=None):
 
 
 def paged_decode_case(q, k_pool, bt_k, v_pool, bt_v, h2c, pos, *, rpg,
-                      k_scale_pool=None, v_scale_pool=None):
+                      k_scale_pool=None, v_scale_pool=None,
+                      share_values=False):
     """Paged kernel vs its plain version and, bitwise, vs the dense
     kernel on the densified pools (and int8 scale pools) at tile = page;
     returns (max_abs_err, ms, plain_ms)."""
     args = (q, k_pool, bt_k, v_pool, bt_v, h2c, pos)
-    pools = dict(k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+    pools = dict(k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool,
+                 share_values=share_values)
     out = ck.paged_chai_fused_decode(*args, reps_per_group=rpg, **pools)
     torch.cuda.synchronize()
     want = kref.paged_chai_fused_decode_ref(*args, reps_per_group=rpg,
@@ -562,13 +594,14 @@ def paged_decode_case(q, k_pool, bt_k, v_pool, bt_v, h2c, pos, *, rpg,
                              "finite or of the wrong shape")
     err = float((out - want).abs().max())
     torch.testing.assert_close(out, want, **TOL)
-    scales = ({} if k_scale_pool is None else dict(
-        k_scale=kref.gather_pages_ref(k_scale_pool, bt_k),
-        v_scale=kref.gather_pages_ref(v_scale_pool, bt_v)))
+    scales = {name: kref.gather_pages_ref(t, bt)
+              for name, t, bt in (("k_scale", k_scale_pool, bt_k),
+                                  ("v_scale", v_scale_pool, bt_v))
+              if t is not None}
     dense = ck.chai_fused_decode(
         q, kref.gather_pages_ref(k_pool, bt_k),
         kref.gather_pages_ref(v_pool, bt_v), h2c, pos, reps_per_group=rpg,
-        ts=k_pool.shape[2], **scales)
+        ts=k_pool.shape[2], share_values=share_values, **scales)
     torch.cuda.synchronize()
     if not torch.equal(out, dense):
         raise AssertionError("paged kernel differs from the dense kernel "
@@ -851,7 +884,8 @@ def prefill_kernel_checks():
 
 
 def _identity_state(b, r, h, hd):
-    """The empty decode state: the exact merge identity."""
+    """The empty decode state: the exact merge identity (``h`` acc rows:
+    the heads, or the reps under share_values)."""
     return (torch.full((b, r), kref.NEG_INF, device="cuda"),
             torch.zeros((b, r), device="cuda"),
             torch.zeros((b, h, hd), device="cuda"))
@@ -926,13 +960,14 @@ def emit_state_checks():
     return cases
 
 
-def relay_bound(q, k, k_row, a_row, v_row, plen):
+def relay_bound(q, k, k_row, a_row, v_row, plen, v_scaled=True):
     """Least time for ``relay_prefix_decode``'s work: per group the K rows
     its query rows name and the V rows its acc rows name, positions <
     plen, read once (``kops.relay_prefix_hbm_bytes_estimate`` over the
-    distinct rows; an int8 view's rows with their fp32 scales); q, the
-    maps and plen read and the fp32 state (m, l and acc) written once; the
-    QK and AV multiply-adds in fp32."""
+    distinct rows; an int8 view's rows with their fp32 scales, the V
+    rows' only when ``v_scaled``: the share_values relay reads none); q,
+    the maps and plen read and the fp32 state (m, l and acc) written once;
+    the QK and AV multiply-adds in fp32."""
     g, nr, hd = q.shape
     a = a_row.shape[1]
     n_bytes = (q.numel() + k_row.numel() + a_row.numel() + v_row.numel()
@@ -940,9 +975,13 @@ def relay_bound(q, k, k_row, a_row, v_row, plen):
     flops = 0
     for i in range(g):
         n = int(plen[i])
+        int8 = k.dtype == torch.int8
         n_bytes += kops.relay_prefix_hbm_bytes_estimate(
-            len(set(k_row[i].tolist())), len(set(v_row[i].tolist())), n, hd,
-            cache_bytes=k.element_size(), int8_scales=k.dtype == torch.int8)
+            len(set(k_row[i].tolist())), 0, n, hd,
+            cache_bytes=k.element_size(), int8_scales=int8)
+        n_bytes += kops.relay_prefix_hbm_bytes_estimate(
+            0, len(set(v_row[i].tolist())), n, hd,
+            cache_bytes=k.element_size(), int8_scales=int8 and v_scaled)
         flops += 2 * (nr + a) * n * hd
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
@@ -980,6 +1019,16 @@ def _per_l(state, a_row):
     return m, l, acc / torch.gather(l, 1, a_row.long())[..., None]
 
 
+def _share_per_l(state):
+    """A share_values decode state (acc rows: the reps) with each acc row
+    over its own l. Its raw sums round apart by ~1e-7 of l between two
+    summation orders, which over raw int8 V codes (up to 127) or tens of
+    thousands of positions exceeds 2e-5; over l it is one output's
+    scale."""
+    m, l, acc = state
+    return m, l, acc / torch.clamp(l, min=1e-37)[..., None]
+
+
 def relay_case(q, k, v, k_row, a_row, v_row, plen, ts, *, per_l=False,
                k_scale=None, v_scale=None):
     """``relay_prefix_decode`` against its plain version (2e-5) and
@@ -1000,7 +1049,8 @@ def relay_case(q, k, v, k_row, a_row, v_row, plen, ts, *, per_l=False,
         raw_err = _max_err(got, want)
         got, want = _per_l(got, a_row), _per_l(want, a_row)
     err = _hold(got, want)
-    bound, by = relay_bound(q, k, k_row, a_row, v_row, plen)
+    bound, by = relay_bound(q, k, k_row, a_row, v_row, plen,
+                            v_scaled=v_scale is not None)
     lib_smem = build.load("relay_prefix_decode").relay_smem_bytes()
     plan = relay_plan(q, k, v, k_row, a_row, v_row, ts)
     if lib_smem != plan["smem_bytes"]:
@@ -1132,7 +1182,7 @@ def _bitwise(name, got, want):
 
 
 def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
-                    k_scale=None, v_scale=None, profile=False):
+                    k_scale=None, v_scale=None, profile=False, share=False):
     """Both fused kernels on one input, the same K/V also on shuffled
     pool pages (rows ``null_k_rows`` with an all-null K table, as a
     WARMUP row of a mixed step): each against the plain version (2e-5),
@@ -1141,35 +1191,38 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
     merge with the empty state + finalize equal to the finalized launch
     bit for bit. ``k_scale``/``v_scale``: int8 K/V's row scales (B, rows,
     S), paged beside their codes. ``profile``: also each kernel's device
-    time (a ``torch.profiler`` trace) and single-call time. Returns
-    {kernel: record}."""
-    if k_scale is None:
-        (k_pool, bt_k), (v_pool, bt_v) = to_pages(gen, k), to_pages(gen, v)
-        ks_pool = vs_pool = None
-    else:
-        k_pool, bt_k, ks_pool = to_pages(gen, k, scale=k_scale)
-        v_pool, bt_v, vs_pool = to_pages(gen, v, scale=v_scale)
+    time (a ``torch.profiler`` trace) and single-call time. ``share``:
+    the share_values mode (v: the clustered V, (B, R, S, hd); int8 V
+    codes come without ``v_scale``; a null row's V table is all null too,
+    as a WARMUP row's ``bt_vc``). Returns {kernel: record}."""
+    k_pool, bt_k, *ks_pool = to_pages(gen, k, scale=k_scale)
+    v_pool, bt_v, *vs_pool = to_pages(gen, v, scale=v_scale)
+    ks_pool, vs_pool = (x[0] if x else None for x in (ks_pool, vs_pool))
     for row in null_k_rows:
         bt_k[row] = 0
+        if share:
+            bt_v[row] = 0
     kd = kref.gather_pages_ref(k_pool, bt_k)
     vd = kref.gather_pages_ref(v_pool, bt_v)
-    dense_sc = paged_sc = {}
-    if ks_pool is not None:
-        dense_sc = dict(k_scale=kref.gather_pages_ref(ks_pool, bt_k),
-                        v_scale=kref.gather_pages_ref(vs_pool, bt_v))
-        paged_sc = dict(k_scale_pool=ks_pool, v_scale_pool=vs_pool)
+    dense_sc = {name: kref.gather_pages_ref(t, bt)
+                for name, t, bt in (("k_scale", ks_pool, bt_k),
+                                    ("v_scale", vs_pool, bt_v))
+                if t is not None}
+    paged_sc = dict(k_scale_pool=ks_pool, v_scale_pool=vs_pool)
+    mode = dict(share_values=True) if share else {}
     pa = (q, k_pool, bt_k, v_pool, bt_v, h2c, pos)
     calls = {
         "chai_fused_decode": lambda emit=False: ck.chai_fused_decode(
             q, kd, vd, h2c, pos, reps_per_group=rpg, ts=PAGE,
-            emit_state=emit, **dense_sc),
+            emit_state=emit, **dense_sc, **mode),
         "paged_chai_fused_decode": lambda emit=False: (
             ck.paged_chai_fused_decode(*pa, reps_per_group=rpg,
-                                       emit_state=emit, **paged_sc))}
+                                       emit_state=emit, **paged_sc, **mode))}
     want = kref.paged_chai_fused_decode_ref(*pa, reps_per_group=rpg,
-                                            **paged_sc)
+                                            **paged_sc, **mode)
     plain = lambda: kref.chai_fused_decode_ref(  # noqa: E731
-        q, kd, vd, h2c, pos, reps_per_group=rpg, **dense_sc)
+        q, kd, vd, h2c, pos, reps_per_group=rpg, **dense_sc, **mode)
+    acc_rows = q.shape[1] if share else h2c.shape[1]
     outs, states = {}, {}
     for name, call in calls.items():
         outs[name] = call()
@@ -1178,15 +1231,22 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
         torch.cuda.synchronize()
         _bitwise(f"{tag} {name}: two launches", again, outs[name])
         merged = kops.finalize_decode_state(kops.merge_decode_states(
-            states[name], _identity_state(*q.shape[:2], h2c.shape[1],
-                                          q.shape[2]), h2c), h2c)
+            states[name], _identity_state(*q.shape[:2], acc_rows,
+                                          q.shape[2]), h2c, **mode),
+            h2c, **mode)
         _bitwise(f"{tag} {name}: emit + identity merge + finalize vs the "
                  "finalized launch", merged, outs[name])
     _bitwise(f"{tag}: paged vs dense at page = tile",
              outs["paged_chai_fused_decode"], outs["chai_fused_decode"])
     _bitwise(f"{tag}: paged vs dense state",
              states["paged_chai_fused_decode"], states["chai_fused_decode"])
-    cfg, _ = ck.dense_launch_config(q, kd, h2c, reps_per_group=rpg, ts=PAGE)
+    if share:
+        _hold(_share_per_l(states["chai_fused_decode"]),
+              _share_per_l(kref.chai_fused_decode_ref(
+                  q, kd, vd, h2c, pos, emit_state=True, **dense_sc,
+                  **mode)))
+    cfg, _ = ck.dense_launch_config(q, kd, h2c, reps_per_group=rpg, ts=PAGE,
+                                    share_values=share)
     lib_smem = build.load("chai_fused_decode").chai_decode_smem_bytes(
         rpg, q.shape[2], h2c.shape[1], cfg.n_cap)
     if lib_smem != cfg.smem_bytes:
@@ -1199,10 +1259,11 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
         kk, vv, tables = ((kd, vd, ()) if name == "chai_fused_decode"
                           else (k_pool, v_pool, (bt_k, bt_v)))
         bound, by = fused_decode_bound(q, kk, vv, h2c, pos, rpg,
-                                       tables=tables)
+                                       tables=tables, share=share)
         recs[name] = dict(
             case=tag, q=list(q.shape), k=list(k.shape), v=list(v.shape),
             dtype=str(k.dtype), page=PAGE, rpg=rpg, pos=pos.tolist(),
+            share_values=share,
             n_split=cfg.n_split, tiles_per_split=cfg.tiles_per_split,
             smem_bytes=cfg.smem_bytes,
             max_abs_err=_hold(outs[name], want), ms=time_ms(call),
@@ -1299,9 +1360,10 @@ def _quantized(x):
         torch.bfloat16)
 
 
-def _beside(rec, bf16):
-    """The same kernel's bf16 numbers on the same shapes, into ``rec``."""
-    rec.update({f"bf16_{k}": bf16.get(k) for k in (
+def _beside(rec, other, prefix="bf16"):
+    """The same kernel's numbers in another mode on the same shapes (bf16
+    against int8; the K-only mode against share_values), into ``rec``."""
+    rec.update({f"{prefix}_{k}": other.get(k) for k in (
         "ms", "device_ms", "single_call_ms", "bound_ms", "max_abs_err")})
     return rec
 
@@ -1437,6 +1499,156 @@ def int8_kernel_checks():
             f"{rec['bf16_device_ms']}), bound {rec['bound_ms']:.4f} ms (bf16 "
             f"{rec['bf16_bound_ms']:.4f}), two launches bitwise")
         del pool, spool, poolb
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------- phase 3: the share_values modes ----
+def share_relay_maps(gen, members, nmax, r, h):
+    """The engine's share_values relay maps (``serving.engine.
+    _relay_row_maps``): member j of a group owns query rows and acc rows
+    [j*R, (j+1)*R); query row j*R + i reads the dense K row reps[i], acc
+    row j*R + i reads query row j*R + i and the dense V row reps[i].
+    Padded entries stay 0. Returns (k_row, a_row, v_row)."""
+    dev = "cuda"
+    g = len(members)
+    k_row = torch.zeros(g, nmax * r, dtype=torch.int32, device=dev)
+    a_row = torch.zeros(g, nmax * r, dtype=torch.int32, device=dev)
+    v_row = torch.zeros(g, nmax * r, dtype=torch.int32, device=dev)
+    for i, n_mem in enumerate(members):
+        for j in range(n_mem):
+            reps = torch.randperm(h, generator=gen, device=dev)[:r]
+            k_row[i, j * r:(j + 1) * r] = reps
+            v_row[i, j * r:(j + 1) * r] = reps
+            a_row[i, j * r:(j + 1) * r] = torch.arange(
+                j * r, (j + 1) * r, device=dev)
+    return k_row, a_row, v_row
+
+
+def share_kernel_checks():
+    """The share_values mode of the three kernels at full width (hd 128,
+    page 16; chai-llama-7b's 32 heads and k_max = 25 reps), each against
+    its plain version at 2e-5, beside the K-only mode on the same shapes
+    (device, back-to-back and single times, bound):
+
+    * the fused pair (``fused_pair_case(share=True)``: shuffled pages
+      with the null page 0, paged == dense ``torch.equal`` at page =
+      tile, two launches ``torch.equal``, emit + identity merge +
+      finalize == finalized): bf16 with several splits and a partial last
+      one and a rep without members; a WARMUP-like row (every head in rep
+      0, all-null K and V tables); one row of S = 65,536; int8 (K codes
+      with scales, V raw codes in the full code range and no scales: the
+      reference's clustered V) with a WARMUP-like row, and at S = 65,536.
+      The K-only mode beside reads per-head V (B, 32, S, hd) (int8: with
+      scales);
+    * ``relay_prefix_decode`` on the share shape (``share_relay_maps``:
+      A = Nmax R acc rows, V rows the reps' dense rows): groups of 4 and 3
+      members (the fourth slot of group 1 padded) at plen 200 and 256, bf16
+      and int8 (K scaled, V codes scale-less; acc held over l), and Sp =
+      65,536 (plen 65,536 and 50,000; acc held over l), beside the K-only
+      maps
+      (``relay_maps``: A = Nmax H) on the same K and V.
+    Returns {kernel: [records]}."""
+    gen = torch.Generator("cuda").manual_seed(8)
+    dev = "cuda"
+    k_max, h, hd = get_config(ARCH).k_max, 32, 128
+    out = {"chai_fused_decode": [], "paged_chai_fused_decode": [],
+           "relay_prefix_decode": []}
+    for tag, b, s, int8, warm, pos in (
+            ("share_bf16_splits", 4, MAX_SEQ, False, False,
+             (1023, 1000, 900, 885)),
+            ("share_bf16_warmup_row", 4, MAX_SEQ, False, True, None),
+            ("share_bf16_long_65536", 1, 65536, False, False, (65535,)),
+            ("share_int8_warmup_row", 4, MAX_SEQ, True, True, None),
+            ("share_int8_long_65536", 1, 65536, True, False, (65535,))):
+        q, k, v_h, h2c, p = synthetic_case(
+            gen, b=b, h=h, kv=k_max, rpg=1, s=s, hd=hd,
+            dtype=torch.float32 if int8 else torch.bfloat16, empty_rep=7)
+        if pos is not None:
+            p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        if warm:
+            h2c[1] = 0
+        null = (1,) if warm else ()
+        if int8:
+            kq, ks, _ = _quantized(k)
+            vq, vs, _ = _quantized(v_h)
+            v_share = torch.randint(-127, 128, (b, k_max, s, hd),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int8)
+            recs = fused_pair_case(tag, q, kq, v_share, h2c, p, rpg=1,
+                                   gen=gen, null_k_rows=null, k_scale=ks,
+                                   profile=True, share=True)
+            konly = fused_pair_case(f"{tag}_konly_beside", q, kq, vq, h2c, p,
+                                    rpg=1, gen=gen, null_k_rows=null,
+                                    k_scale=ks, v_scale=vs, profile=True)
+            del kq, vq, v_share
+        else:
+            v_share = torch.randn(b, k_max, s, hd, generator=gen,
+                                  device=dev).to(torch.bfloat16)
+            recs = fused_pair_case(tag, q, k, v_share, h2c, p, rpg=1,
+                                   gen=gen, null_k_rows=null, profile=True,
+                                   share=True)
+            konly = fused_pair_case(f"{tag}_konly_beside", q, k, v_h, h2c, p,
+                                    rpg=1, gen=gen, null_k_rows=null,
+                                    profile=True)
+            del v_share
+        for name, rec in recs.items():
+            out[name].append(_beside(rec, konly[name], "konly"))
+            log(f"{name} {tag} [share]: device {rec['device_ms']} ms "
+                f"(K-only {rec['konly_device_ms']}), back to back "
+                f"{rec['ms']:.4f} ms (K-only {rec['konly_ms']:.4f}), single "
+                f"call {rec['single_call_ms']:.4f} ms (K-only "
+                f"{rec['konly_single_call_ms']:.4f}), bound "
+                f"{rec['bound_ms']:.4f} ms (K-only "
+                f"{rec['konly_bound_ms']:.4f})")
+        del q, k, v_h
+        torch.cuda.empty_cache()
+    nmax = 4
+    for tag, members, plen, sp, int8 in (
+            ("share_relay_g2_bfloat16", (4, 3), (200, 256), 256, False),
+            ("share_relay_g2_int8", (4, 3), (200, 256), 256, True),
+            ("share_relay_long_65536_g2_bfloat16", (4, 4), (65536, 50000),
+             65536, False)):
+        k_row, a_row, v_row = share_relay_maps(gen, members, nmax, k_max, h)
+        kk_row, ka_row, kv_row, *_ = relay_maps(gen, members, nmax,
+                                                gqa=False)
+        g = len(members)
+        plen_t = torch.tensor(plen, dtype=torch.int32, device=dev)
+        q = torch.randn(g, nmax * k_max, hd, generator=gen, device=dev)
+        k = torch.randn(g, h, sp, hd, generator=gen, device=dev)
+        v = torch.randn(g, h, sp, hd, generator=gen, device=dev)
+        for i, n in enumerate(plen):      # the engine's views: zero tail
+            k[i, :, n:] = 0
+            v[i, :, n:] = 0
+        if int8:
+            k, ks, _ = _quantized(k)
+            v, vs, _ = _quantized(v)      # the dense pool's codes and scales
+            sc, konly_sc = dict(k_scale=ks), dict(k_scale=ks, v_scale=vs)
+        else:
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            sc = konly_sc = {}
+        # Raw int8 codes (up to 127) make acc a sum of terms of up to 127:
+        # two summation orders round it apart by ~1e-4, so each acc row is
+        # held over its l there too (the raw error is recorded).
+        per_l = sp > MAX_SEQ or int8
+        recs = []
+        for maps, kw in (((k_row, a_row, v_row), sc),
+                         ((kk_row, ka_row, kv_row), konly_sc)):
+            rec = relay_case(q, k, v, *maps, plen_t, PAGE, per_l=per_l,
+                             **kw)
+            rec["single_call_ms"] = single_call_ms(
+                lambda maps=maps, kw=kw: ck.relay_prefix_decode(
+                    q, k, v, *maps, plen_t, ts=PAGE, **kw), reps=5)
+            recs.append(rec)
+        rec = dict(case=tag, share_values=True, **recs[0])
+        out["relay_prefix_decode"].append(_beside(rec, recs[1], "konly"))
+        _log_relay(rec)
+        log(f"relay_prefix_decode {tag} [share]: device {rec['device_ms']} "
+            f"ms (K-only maps {rec['konly_device_ms']}), single call "
+            f"{rec['single_call_ms']:.4f} ms (K-only "
+            f"{rec['konly_single_call_ms']:.4f}), bound "
+            f"{rec['bound_ms']:.4f} ms (K-only {rec['konly_bound_ms']:.4f})")
+        del q, k, v
         torch.cuda.empty_cache()
     return out
 
@@ -2317,13 +2529,16 @@ class _Capture:
     """Stands in for ``kernels.ops`` inside ``core.chai_attention`` and
     keeps a copy of a decode op's inputs (layer 0 of the step) the first
     time ``when()`` names a step kind, under (op, kind), with the value
-    ``note()`` gives; every call goes on to the real dispatch."""
+    ``note()`` gives; every call goes on to the real dispatch. ``modes``
+    counts the calls by (op, share_values)."""
 
     def __init__(self, when=lambda: "first", note=lambda: None):
-        self.first = {}
+        self.first, self.modes = {}, {}
         self.when, self.note = when, note
 
     def _keep(self, op, tensors, kw):
+        mode = (op, bool(kw.get("share_values")))
+        self.modes[mode] = self.modes.get(mode, 0) + 1
         kind = self.when()
         if kind is not None and (op, kind) not in self.first:
             self.first[op, kind] = dict(
@@ -2627,8 +2842,10 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
 
         def watched_cluster(*args):
             before = eng.kv_bytes()
+            pages = eng._slot_pages[int(args[2])] if eng.paged else {}
+            n_dense = len(pages.get("kg", ())) + len(pages.get("vg", ()))
             out = cluster(*args)
-            transitions.append((before, len(eng.kv_bytes_history)))
+            transitions.append((before, len(eng.kv_bytes_history), n_dense))
             return out
         eng._cluster_slot = _timed(watched_cluster, "cluster", times, calls)
     _check_logits(eng, cfg.vocab_size)
@@ -2686,8 +2903,9 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
         chai_core.kops, tfm.kops = kops, kops
     return dict(eng=eng, done=sorted(done, key=lambda r: r.uid), wall=wall,
                 times=times, calls=calls, transitions=transitions,
-                launches=launches, capture=cap.first, prefill=pcap.first,
-                margins=margins, idents=idents, step_s=step_s,
+                launches=launches, capture=cap.first, modes=cap.modes,
+                prefill=pcap.first, margins=margins, idents=idents,
+                step_s=step_s,
                 in_flight=in_flight, kv_history=eng.kv_bytes_history,
                 device_start=start,
                 device_peak=torch.cuda.max_memory_allocated())
@@ -2718,6 +2936,16 @@ def _check_served(cfg, run, label):
         raise AssertionError(f"{label}: step kinds {calls}")
     if [len(run["margins"][r.uid]) for r in done] != counts:
         raise AssertionError(f"{label}: margins not recorded per token")
+    _check_modes(cfg, run, label)
+
+
+def _check_modes(cfg, run, label):
+    """Every fused decode call of a CHAI run in the config's mode
+    (share_values or not); the relay op has no such flag."""
+    share = cfg.chai.share_values
+    if any(flag != share for (op, flag) in run["modes"] if op != "relay"):
+        raise AssertionError(f"{label}: decode calls by (op, share_values) "
+                             f"{run['modes']}, expected share_values={share}")
 
 
 def _log_served(run, label):
@@ -2746,7 +2974,7 @@ def _check_kv_bytes(run, label):
     eng = run["eng"]
     hist = eng.kv_bytes_history
     falls = [(before, hist[idx]["kv_bytes"])
-             for before, idx in run["transitions"]]
+             for before, idx, _ in run["transitions"]]
     if (len(falls) != len(CONT_PROMPT_LENS)
             or not all(after < before for before, after in falls)):
         raise AssertionError(f"{label}: KV bytes around CLUSTER: {falls}")
@@ -3116,7 +3344,8 @@ def serve_prefix(cfg, params, relay):
         chai_core.kops, tfm.kops = kops, kops
     run = dict(eng=eng, done=sorted(done, key=lambda r: r.uid), wall=wall,
                warm_s=warm_s, times=times, calls=calls, launches=launches,
-               capture=cap.first, prefill=pcap.first, margins=margins,
+               capture=cap.first, modes=cap.modes, prefill=pcap.first,
+               margins=margins,
                idents=idents,
                step_s=step_s, warm=warm, rest=rest, device_start=start,
                device_peak=torch.cuda.max_memory_allocated())
@@ -3151,6 +3380,7 @@ def _check_prefix_run(cfg, run, label):
             or eng.relay_steps != calls.get("relay_step", 0)):
         raise AssertionError(f"{label}: launches {run['launches']}, "
                              f"expected {want}; calls {calls}")
+    _check_modes(cfg, run, label)
     run["stats"] = eng.prefix_stats()
     run["kv_peak"] = eng.kv_bytes_peak()
     eng.prefix_cache.clear()
@@ -3248,8 +3478,12 @@ def prefix_path(cfg, params, tag="prefix"):
     ra = (rc["q"], rc["k"], rc["v"], rc["k_row"], rc["a_row"], rc["v_row"],
           rc["plen"])
     rsc = {k: rc["kw"].get(k) for k in ("k_scale", "v_scale")}
+    # share_values under int8 reads raw V codes (up to 127): its acc rows
+    # are held over their l, as phase 3's share relay cases are
+    raw_v = rc["v"].dtype == torch.int8 and rsc["v_scale"] is None
     relay_main = dict(case=f"{tag}_relay_first_relay_step_layer0",
-                      **relay_case(*ra, ts=rc["kw"]["ts"], **rsc))
+                      **relay_case(*ra, ts=rc["kw"]["ts"], per_l=raw_v,
+                                   **rsc))
     call = lambda: ck.relay_prefix_decode(  # noqa: E731
         *ra, ts=rc["kw"]["ts"], **rsc)
     relay_main["single_call_ms"] = single_call_ms(call)
@@ -3265,7 +3499,10 @@ def prefix_path(cfg, params, tag="prefix"):
           pc["h2c"], pc["pos"])
     kw = dict(pc["kw"], emit_state=True)
     got = ck.paged_chai_fused_decode(*pa, **kw)
-    err = _hold(got, kref.paged_chai_fused_decode_ref(*pa, **kw))
+    want = kref.paged_chai_fused_decode_ref(*pa, **kw)
+    if raw_v:       # raw int8 V codes: acc rows held over their l
+        got, want = _share_per_l(got), _share_per_l(want)
+    err = _hold(got, want)
     emit_main = dict(case=f"{tag}_relay_first_relay_step_layer0_emit_state",
                      emit_state=True, pos=pc["pos"].tolist(), max_abs_err=err,
                      ms=time_ms(lambda: ck.paged_chai_fused_decode(*pa,
@@ -3298,7 +3535,7 @@ def _check_gqa_kv_bytes(run, label):
     eng = run["eng"]
     hist = eng.kv_bytes_history
     around = [(before, hist[idx]["kv_bytes"])
-              for before, idx in run["transitions"]]
+              for before, idx, _ in run["transitions"]]
     if (len(around) != len(CONT_PROMPT_LENS)
             or any(after != before for before, after in around)):
         raise AssertionError(f"{label}: KV bytes around CLUSTER: {around}")
@@ -3445,7 +3682,7 @@ def int8_path(cfg8, params, bf16, label):
     KV bytes around CLUSTER as the bf16 run's, empty pools; then both
     fused kernels held against their plain versions on the layer-0 int8
     tensors of the first all-STEADY step and timed there. Returns
-    ({path: launches}, {kernel: that case})."""
+    ({path: launches}, {kernel: that case}, {layout: _run_summary})."""
     runs, launches = {}, {}
     for layout in ("paged", "dense"):
         name = f"{label}_{layout}"
@@ -3490,14 +3727,28 @@ def int8_path(cfg8, params, bf16, label):
                              "different greedy tokens")
     pc = paged["capture"]["paged", "steady"]
     dc = dense["capture"]["dense", "steady"]
-    rpg = pc["kw"].get("reps_per_group", 1)
-    pa = (pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
-          pc["h2c"], pc["pos"])
-    psc = {k: pc["kw"][k] for k in ("k_scale_pool", "v_scale_pool")}
-    da = (dc["q"], dc["k"], dc["v"], dc["h2c"], dc["pos"])
-    dsc = {k: dc["kw"][k] for k in ("k_scale", "v_scale")}
     if pc["k_pool"].dtype != torch.int8 or dc["k"].dtype != torch.int8:
         raise AssertionError(f"{label}: the captured caches are not int8")
+    return (launches, first_steady_cases(label, pc, dc),
+            {layout: _run_summary(run) for layout, run in runs.items()})
+
+
+def first_steady_cases(label, pc, dc):
+    """Both fused kernels held against their plain versions on the layer-0
+    tensors of a run's first all-STEADY step (``pc``/``dc``: the paged and
+    dense runs' captures, in whatever mode they ran: int8 scales and
+    share_values as captured), the paged one bitwise against the dense
+    kernel at page = tile, each timed there (device, back to back, single)
+    beside its bound. Returns {kernel: case}."""
+    rpg = pc["kw"].get("reps_per_group", 1)
+    share = bool(pc["kw"].get("share_values"))
+    pa = (pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
+          pc["h2c"], pc["pos"])
+    psc = {k: pc["kw"][k] for k in ("k_scale_pool", "v_scale_pool",
+                                    "share_values") if k in pc["kw"]}
+    da = (dc["q"], dc["k"], dc["v"], dc["h2c"], dc["pos"])
+    dsc = {k: dc["kw"][k] for k in ("k_scale", "v_scale", "share_values")
+           if dc["kw"].get(k) is not None}
     cases = {}
     for kernel, case_fn, args, tables, kk, vv, sc, extra in (
             ("paged_chai_fused_decode", paged_decode_case, pa,
@@ -3506,24 +3757,25 @@ def int8_path(cfg8, params, bf16, label):
              dc["v"], dsc, dict(ts=dc["kw"]["ts"]))):
         err, ms, plain_ms = case_fn(*args, rpg=rpg, **sc, **extra)
         bound, by = fused_decode_bound(args[0], kk, vv, args[-2], args[-1],
-                                       rpg, tables=tables)
+                                       rpg, tables=tables, share=share)
         fn = getattr(ck, kernel)
         call = lambda fn=fn, a=args, kw=dict(  # noqa: E731
             reps_per_group=rpg, **sc, **extra): fn(*a, **kw)
         cases[kernel] = dict(
             case=f"{label}_{'paged' if tables else 'dense'}_first_steady"
                  "_layer0", q=list(args[0].shape), k=list(kk.shape),
-            dtype=str(kk.dtype), rpg=rpg, pos=args[-1].tolist(),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, single_call_ms=single_call_ms(call),
+            v=list(vv.shape), dtype=str(kk.dtype), rpg=rpg,
+            share_values=share, pos=args[-1].tolist(), max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            single_call_ms=single_call_ms(call),
             device_ms=device_ms(call, f"{kernel}_kernel"))
         c = cases[kernel]
         log(f"{kernel} {c['case']}: q {tuple(c['q'])} k {tuple(c['k'])} "
-            f"{c['dtype']} pos {c['pos']}: max_abs_err {err:.3e}, device "
-            f"{c['device_ms']} ms, back to back {ms:.4f} ms, single call "
-            f"{c['single_call_ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({by})")
-    return launches, cases
+            f"v {tuple(c['v'])} {c['dtype']} pos {c['pos']}: max_abs_err "
+            f"{err:.3e}, device {c['device_ms']} ms, back to back {ms:.4f} "
+            f"ms, single call {c['single_call_ms']:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    return cases
 
 
 def int8_mha_path(cfg8, params, label):
@@ -3562,6 +3814,185 @@ def int8_mha_path(cfg8, params, label):
         raise AssertionError(f"{label}: paged and dense layouts gave "
                              "different greedy tokens")
     return launches
+
+
+# ----------------------------------------------------------- phase 12 ----
+def _check_share_kv_bytes(cfg_s, run, konly_hist, label):
+    """A share_values paged run's KV bytes: at every CLUSTER transition
+    they fall by exactly the slot's dense K and V pages (its clustered K
+    and V pages were reserved at admission); both pools empty at the end;
+    at the first all-STEADY step exactly 2 k_max / (k_max + H) (50/57 on
+    chai-llama-7b) of the K-only run's on the same traffic: the same step,
+    no dense page, twice its clustered pages. Returns the two byte
+    counts."""
+    eng = run["eng"]
+    hist = eng.kv_bytes_history
+    dense_page = chai_cache.paged_page_bytes(cfg_s, PAGE, kind="dense")
+    falls = [(before, hist[idx]["kv_bytes"], n)
+             for before, idx, n in run["transitions"]]
+    if (len(falls) != len(CONT_PROMPT_LENS)
+            or not all(n and before - after == n * dense_page
+                       for before, after, n in falls)):
+        raise AssertionError(f"{label}: KV bytes around CLUSTER (before, "
+                             f"after, dense pages) {falls}, a dense page "
+                             f"{dense_page} B")
+    if eng.dense_pool.pages_in_use or eng.chai_pool.pages_in_use:
+        raise AssertionError(f"{label}: pools not empty after the run")
+    a = _first_all_steady(hist, label)
+    b = _first_all_steady(konly_hist, label)
+    k_max, h = cfg_s.k_max, cfg_s.n_heads
+    if (a["step"] != b["step"] or a["dense_pages"]
+            or a["chai_pages"] != 2 * b["chai_pages"]
+            or a["kv_bytes"] * (k_max + h) != b["kv_bytes"] * 2 * k_max):
+        raise AssertionError(f"{label}: share {a}, K-only {b}")
+    log(f"{label} KV bytes (before -> after, dense pages freed) at each "
+        f"CLUSTER: {falls}; at the first all-STEADY step (step "
+        f"{a['step']}, {a['chai_pages']} clustered pages, no dense page): "
+        f"{a['kv_bytes']:,} B against the K-only run's {b['kv_bytes']:,} B "
+        f"({b['dense_pages']} dense + {b['chai_pages']} clustered) = "
+        f"{2 * k_max}/{k_max + h} exactly; peak {eng.kv_bytes_peak():,}, "
+        f"capacity {eng.kv_bytes_capacity():,}")
+    return dict(step=a["step"], share=a["kv_bytes"], konly=b["kv_bytes"])
+
+
+def share_continuous(cfg_s, params, konly, label):
+    """Phase 6's traffic with ``share_values``, paged then dense: launches
+    of the layout's own fused kernel only, every call in the share mode;
+    paged == dense greedy tokens; the paged run's KV bytes
+    (``_check_share_kv_bytes`` against ``konly``, the K-only run's
+    summaries); tok/s, TTFT and step ms beside the K-only run's; both
+    fused kernels held on the first all-STEADY step's layer-0 tensors.
+    Returns ({path: launches}, {kernel: case}, the KV-bytes record)."""
+    runs, launches, kv = {}, {}, None
+    for layout in ("paged", "dense"):
+        name = f"{label}_{layout}"
+        run = serve_continuous(cfg_s, params, layout)
+        calls = run["calls"]
+        _check_served(cfg_s, run, name)
+        own = ("paged_chai_fused_decode" if layout == "paged"
+               else "chai_fused_decode")
+        want = {k: 0 for k in run["launches"]}
+        want[own] = cfg_s.n_layers * (calls["mixed_step"]
+                                      + calls["steady_step"])
+        modes = {(layout, True): want[own]}
+        if run["launches"] != want or run["modes"] != modes:
+            raise AssertionError(f"{name}: launches {run['launches']}, "
+                                 f"expected {want}; calls by mode "
+                                 f"{run['modes']}, expected {modes}")
+        _log_served(run, name)
+        if layout == "paged":
+            kv = _check_share_kv_bytes(cfg_s, run,
+                                       konly["paged"]["kv_history"], name)
+        else:
+            log(f"{name} (unified layout) resident KV bytes "
+                f"{run['eng'].kv_bytes():,}")
+        mine, theirs = _run_summary(run), konly[layout]
+        agree = sum(a == b for u, toks in mine["tokens"].items()
+                    for a, b in zip(toks, theirs["tokens"][u]))
+        log(f"{name}: {mine['tok_s']:.1f} tok/s against K-only "
+            f"{theirs['tok_s']:.1f}, TTFT mean {mine['ttft_mean_s']:.4f} s "
+            f"against {theirs['ttft_mean_s']:.4f} s, step ms "
+            f"{mine['step_ms']} against {theirs['step_ms']}; device memory "
+            f"peak above the run's start {mine['device_peak_run']:,} B "
+            f"against {theirs['device_peak_run']:,} B; information only "
+            f"(random weights): greedy agreement with K-only {agree}/"
+            f"{sum(CONT_MAX_NEW)}")
+        launches[name] = run["launches"]
+        run.pop("eng")
+        run.pop("prefill")
+        runs[layout] = run
+        torch.cuda.empty_cache()
+    paged, dense = runs["paged"], runs["dense"]
+    if [r.generated for r in paged["done"]] != [r.generated
+                                                for r in dense["done"]]:
+        raise AssertionError(f"{label}: paged and dense layouts gave "
+                             "different greedy tokens")
+    pc = paged["capture"]["paged", "steady"]
+    dc = dense["capture"]["dense", "steady"]
+    if not (pc["kw"].get("share_values") and dc["kw"].get("share_values")
+            and pc["v_pool"].shape[1] == dc["v"].shape[1] == cfg_s.k_max):
+        raise AssertionError(f"{label}: the captured calls are not in the "
+                             "share mode")
+    return launches, first_steady_cases(label, pc, dc), kv
+
+
+def share_path(cfg, params, konly, konly8):
+    """Phase 12: full-width chai-llama-7b with ``cfg.with_chai(
+    share_values=True)`` (CHAI-QKV): the cohort on phase 5's traffic
+    (launches of ``chai_fused_decode`` in the share mode only, the kernel
+    held on the first STEADY step's layer-0 tensors); phase 6's traffic,
+    paged then dense, bf16 (``konly``: phase 6's summaries) and int8
+    (``konly8``: phase 11's); phase 8's prefix traffic, relay off then on,
+    bf16 and int8. Returns ({path: launches}, {row: (main case, path,
+    cases)} for the three ``[share]`` rows' path cases)."""
+    cfg_s = cfg.with_chai(share_values=True)
+    cap = _Capture()
+    chai_core.kops = cap
+    try:
+        _reset_launches()
+        eng, done, wall, phases = serve(cfg_s, params, use_chai=True)
+        cohort = _launches()
+    finally:
+        chai_core.kops = kops
+    if ([len(r.generated) for r in done] != [MAX_NEW] * len(PROMPT_LENS)
+            or not all(0 <= t < cfg.vocab_size for r in done
+                       for t in r.generated)):
+        raise AssertionError("share cohort: token counts or ids")
+    want = {name: 0 for name in cohort}
+    want["chai_fused_decode"] = ((MAX_NEW - 1 - cfg.chai.warmup_tokens)
+                                 * cfg.n_layers)
+    if cohort != want or cap.modes != {("dense", True):
+                                       want["chai_fused_decode"]}:
+        raise AssertionError(f"share cohort launches {cohort}, expected "
+                             f"{want}; calls by mode {cap.modes}")
+    first = cap.first["dense", "first"]
+    fa = (first["q"], first["k"], first["v"], first["h2c"], first["pos"])
+    err, ms, plain_ms = fused_decode_case(*fa, rpg=1, ts=first["kw"]["ts"],
+                                          share_values=True)
+    bound, by = fused_decode_bound(*fa, 1, share=True)
+    cohort_case = dict(case="share_cohort_first_steady_layer0",
+                       q=list(first["q"].shape), v=list(first["v"].shape),
+                       pos=first["pos"].tolist(), share_values=True,
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by)
+    n_tok = sum(len(r.generated) for r in done)
+    kc, kk = eng.kv_bytes(chai=True), chai_cache.kv_cache_bytes(
+        cfg, SLOTS, MAX_SEQ, chai=True)
+    log(f"share cohort: {len(done)} requests in {wall:.3f} s, "
+        f"{n_tok / wall:.1f} tok/s, launches {cohort} (every call in the "
+        f"share mode); by phase " + ", ".join(
+            f"{k} {v:.4f}" for k, v in phases.items())
+        + f"; layer 0, first STEADY step: v {tuple(first['v'].shape)}, "
+        f"max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); analytic KV "
+        f"bytes {kc:,} against K-only CHAI {kk:,} ({kc / kk:.4f})")
+    del eng
+    launches = {"share_cohort": cohort}
+    cont, cont_cases, kv = share_continuous(cfg_s, params, konly,
+                                            "share_continuous")
+    cfg_s8 = cfg_s.replace(kv_cache_dtype="int8")
+    cont8, cont8_cases, kv8 = share_continuous(cfg_s8, params, konly8,
+                                               "share_int8_continuous")
+    pre, relay_main, emit_main, prefix_main = prefix_path(
+        cfg_s, params, tag="share_prefix")
+    pre8, relay8, emit8, prefix8 = prefix_path(cfg_s8, params,
+                                               tag="share_int8_prefix")
+    for part in (cont, cont8, pre, pre8):
+        launches.update(part)
+    log(f"share KV bytes at the first all-STEADY step: bf16 {kv}, int8 "
+        f"{kv8}")
+    mains = {
+        "chai_fused_decode": (
+            cont_cases["chai_fused_decode"], "share_continuous_dense",
+            [cohort_case, cont_cases["chai_fused_decode"],
+             cont8_cases["chai_fused_decode"]]),
+        "paged_chai_fused_decode": (
+            cont_cases["paged_chai_fused_decode"], "share_continuous_paged",
+            [cont_cases["paged_chai_fused_decode"],
+             cont8_cases["paged_chai_fused_decode"], emit_main, emit8]),
+        "relay_prefix_decode": (relay_main, "share_prefix_relay",
+                                [relay_main, relay8])}
+    return launches, mains
 
 
 # ----------------------------------------------------------- phase 10 ----
@@ -3754,6 +4185,7 @@ def main():
     pipe_cases = pipeline_kernel_checks()
     decode_cases = flash_decode_checks()
     int8_cases = int8_kernel_checks()
+    share_cases = share_kernel_checks()
     for arch in (ARCH, NEMO):
         reduced_reference_check(arch)
         reduced_continuous_check(arch)
@@ -3773,11 +4205,14 @@ def main():
         cfg, params)
     # Phase 11, chai-llama-7b: the int8 KV cache on phases 6 and 8's traffic.
     cfg8 = cfg.replace(kv_cache_dtype="int8")
-    i8_launches, i8_mains = int8_path(cfg8, params, cont_summary,
-                                      "int8_continuous")
+    i8_launches, i8_mains, i8_summary = int8_path(
+        cfg8, params, cont_summary, "int8_continuous")
     i8_mha_launches = int8_mha_path(cfg8, params, "int8_mha_continuous")
     i8_prefix_launches, i8_relay, i8_emit, i8_prefix = prefix_path(
         cfg8, params, tag="int8_prefix")
+    # Phase 12: share_values (CHAI-QKV), bf16 and int8.
+    share_launches, share_mains = share_path(cfg, params, cont_summary,
+                                             i8_summary)
     # The engines of phases 5-8 sit in reference cycles (their wrapped
     # hooks); collect them so chai-llama-7b's weights are really freed.
     del params
@@ -3791,8 +4226,9 @@ def main():
     nemo_prefix_launches, nemo_relay, nemo_emit, nemo_prefix = prefix_path(
         ncfg, nparams, tag="nemotron_prefix")
     # Phase 11, nemotron-4-15b: the int8 KV cache on phase 6's traffic.
-    n8_launches, n8_mains = int8_path(ncfg.replace(kv_cache_dtype="int8"),
-                                      nparams, nemo_summary, "int8_nemotron")
+    n8_launches, n8_mains, _ = int8_path(
+        ncfg.replace(kv_cache_dtype="int8"), nparams, nemo_summary,
+        "int8_nemotron")
     del nparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -3830,7 +4266,7 @@ def main():
                "continuous_paged_chunked": chunked_launches,
                **prefix_launches, **nemo_launches, **nemo_mha_launches,
                **nemo_prefix_launches, **i8_launches, **i8_mha_launches,
-               **i8_prefix_launches, **n8_launches,
+               **i8_prefix_launches, **n8_launches, **share_launches,
                "pipeline_lane": lane_launches}
     mains = {"chai_fused_decode": (
                  dense_main, "cohort",
@@ -3888,12 +4324,18 @@ def main():
                                 + [i8_prefix])}
     for name, main_info in int8_mains.items():
         mains[f"{name}[int8]"] = main_info
+    # The share_values modes: one row each, on its share path (phase 12).
+    for name, (main_case, path, cases) in share_mains.items():
+        mains[f"{name}[share]"] = (main_case, path,
+                                   share_cases[name] + cases)
     kernel_rows = dict(KERNEL_ROWS, **{f"{name}[int8]": KERNEL_ROWS[name]
-                                       for name in int8_mains})
+                                       for name in int8_mains},
+                       **{f"{name}[share]": KERNEL_ROWS[name]
+                          for name in share_mains})
     rows = []
     for name, info in kernel_rows.items():
         main_case, path, cases = mains[name]
-        base = name.removesuffix("[int8]")
+        base = name.split("[")[0]
         # A finalized bf16 output is held at one bf16 step; its error
         # stands in its own case.
         held = [c for c in cases if c.get("tolerance", "2e-5") == "2e-5"]
@@ -3910,7 +4352,8 @@ def main():
         if not rows[-1]["launches"]:
             raise AssertionError(f"{name}: no launch on its path {path}")
     for row in rows:
-        if row["name"] in REWRITTEN or row["name"].endswith("[int8]"):
+        if row["name"] in REWRITTEN or row["name"].endswith(("[int8]",
+                                                             "[share]")):
             log(f"{row['name']} (main path {row['launches']} launches): "
                 f"device {row['device_ms']} ms, back to back "
                 f"{row['ms']:.4f} ms, single call "

@@ -37,9 +37,17 @@ addressed by the same block tables): one scale a row (``quant_rows``).
 Every move of codes (slot insert, compaction, page copy) moves their
 scales with them; nothing is requantized.
 
+``share_values`` (CHAI-QKV, MHA): V is clustered like K. The cohort and
+unified layouts hold ``vg_chai`` (nG, B, k_max, S, hd) (the cohort in
+place of ``vg``); the paged layout keeps clustered V pages in the ``cp``
+pool, addressed by ``bt_vc``, and compaction frees the slot's dense V
+pages too. As in the reference, clustered V carries no scales under int8:
+compaction moves the dense V codes as they are and a decode step writes
+its rows by a plain cast (``plain_int8``); the kernels read them as
+values.
+
 The reference's functions return new state trees; these update the state
-tensors IN PLACE and return the same dict. ``share_values`` (CHAI-QKV) is
-not ported.
+tensors IN PLACE and return the same dict.
 """
 from __future__ import annotations
 
@@ -79,10 +87,13 @@ def dequant_rows(q, scale):
     return q.float() * scale[..., None]
 
 
-def _check(cfg: ModelConfig):
-    if cfg.chai.share_values:
-        raise NotImplementedError("share_values (CHAI-QKV) is not ported "
-                                  "yet: ROADMAP Queue 1 #3")
+def plain_int8(x):
+    """``x.astype(int8)`` as the reference's XLA convert gives it:
+    truncation toward zero, saturated to [-128, 127], NaN to 0 (a torch
+    cast wraps out-of-range values instead). The share_values clustered V
+    rows enter an int8 cache this way, without a scale."""
+    return torch.nan_to_num(x.float(), nan=0.0).clamp(-128, 127).to(
+        torch.int8)
 
 
 def _chai_on(cfg: ModelConfig, chai: bool) -> bool:
@@ -96,19 +107,25 @@ def _chai_on(cfg: ModelConfig, chai: bool) -> bool:
 def init_chai_state(cfg: ModelConfig, batch: int, max_seq: int, device):
     """Zero decode state in the clustered layout (MHA + CHAI archs):
     ``kg_chai`` (nG, B, k_max, S, hd) in place of ``kg`` (and, int8,
-    ``kg_chai_scale`` (nG, B, k_max, S) in place of ``kg_scale``)."""
-    _check(cfg)
+    ``kg_chai_scale`` (nG, B, k_max, S) in place of ``kg_scale``); under
+    ``share_values`` also ``vg_chai`` of the same shape in place of
+    ``vg`` (int8: ``vg_scale`` stays, as in the reference)."""
     state = init_decode_state(cfg, batch, max_seq, device)
     if not (cfg.is_mha and cfg.chai.enabled):
         return state
     k_max, _ = chai_widths(cfg)
     ng, b, _, s, hd = state.pop("kg").shape
-    state["kg_chai"] = torch.zeros((ng, b, k_max, s, hd),
-                                   dtype=state["vg"].dtype, device=device)
+    dt = state["vg"].dtype
+    state["kg_chai"] = torch.zeros((ng, b, k_max, s, hd), dtype=dt,
+                                   device=device)
     if state.pop("kg_scale", None) is not None:
         state["kg_chai_scale"] = torch.zeros((ng, b, k_max, s),
                                              dtype=torch.float32,
                                              device=device)
+    if cfg.chai.share_values:
+        del state["vg"]
+        state["vg_chai"] = torch.zeros((ng, b, k_max, s, hd), dtype=dt,
+                                       device=device)
     return state
 
 
@@ -135,8 +152,9 @@ def compact_kv(state, chai_ctx, cfg: ModelConfig):
 
     state["kg"]: (nG, B, H, S, hd); ctx reps: (nA, B, k) or (nA, k).
     Returns a new state dict with ``kg_chai`` (nG, B, k, S, hd) and no
-    ``kg`` (int8: ``kg_chai_scale`` gathered from ``kg_scale`` alike)."""
-    _check(cfg)
+    ``kg`` (int8: ``kg_chai_scale`` gathered from ``kg_scale`` alike);
+    under ``share_values`` also ``vg_chai`` gathered from ``vg`` (int8
+    codes moved as they are) and no ``vg``."""
     if not (cfg.is_mha and cfg.chai.enabled):
         return state
     reps = chai_ctx["reps"].long()
@@ -152,6 +170,8 @@ def compact_kv(state, chai_ctx, cfg: ModelConfig):
     new_state["kg_chai"] = kg[li, bi, reps]
     if "kg_scale" in state:
         new_state["kg_chai_scale"] = state["kg_scale"][li, bi, reps]
+    if cfg.chai.share_values:
+        new_state["vg_chai"] = new_state.pop("vg")[li, bi, reps]
     return new_state
 
 
@@ -159,7 +179,6 @@ def kv_cache_bytes(cfg: ModelConfig, batch: int, seq: int, *,
                    chai: bool = False):
     """Analytic steady-state KV-cache size in bytes (paper Fig 11); int8:
     1 + 4 / hd bytes an element (a code, and a row's fp32 scale)."""
-    _check(cfg)
     if cfg.n_attn_layers == 0:
         return 0
     if kv_int8(cfg):
@@ -169,8 +188,10 @@ def kv_cache_bytes(cfg: ModelConfig, batch: int, seq: int, *,
     k_max, _ = chai_widths(cfg)
     k_rows = (k_max if (chai and cfg.is_mha and cfg.chai.enabled)
               else cfg.n_kv_heads)
-    per_layer = int(batch * (k_rows + cfg.n_kv_heads) * seq * cfg.head_dim
-                    * esize)
+    # the reference's rule: share_values clusters V whenever chai is asked
+    v_rows = (k_max if (chai and cfg.is_mha and cfg.chai.share_values)
+              else cfg.n_kv_heads)
+    per_layer = int(batch * (k_rows + v_rows) * seq * cfg.head_dim * esize)
     return per_layer * cfg.n_global_layers
 
 
@@ -188,8 +209,8 @@ def unified_state_shapes(cfg: ModelConfig, batch: int, max_seq: int, *,
     """{name: (shape, dtype)} of the continuous engine's unified state:
     the dense decode state plus ``phase`` (B,) and, with CHAI,
     ``chai_scores`` and the clustered ``kg_chai`` (nG, B, k_max, S, hd)
-    (int8: and its ``kg_chai_scale`` (nG, B, k_max, S))."""
-    _check(cfg)
+    (int8: and its ``kg_chai_scale`` (nG, B, k_max, S); ``share_values``:
+    and ``vg_chai`` of ``kg_chai``'s shape)."""
     shapes = dict(decode_state_shapes(cfg, batch, max_seq))
     shapes["phase"] = ((batch,), torch.int32)
     if not _chai_on(cfg, chai):
@@ -201,6 +222,8 @@ def unified_state_shapes(cfg: ModelConfig, batch: int, max_seq: int, *,
         shapes["kg_chai"] = ((ng, b, k_max, s, hd), dt)
         if kv_int8(cfg):
             shapes["kg_chai_scale"] = ((ng, b, k_max, s), torch.float32)
+        if cfg.chai.share_values:
+            shapes["vg_chai"] = ((ng, b, k_max, s, hd), dt)
     return shapes
 
 
@@ -233,9 +256,9 @@ def insert_slot(state, mini, slot, *, phase=PHASE_WARMUP):
 
 def compact_kv_slot(state, slot_ctx, cfg: ModelConfig, slot):
     """Per-slot compaction (unified layout): gather ONE slot's
-    representative K rows from the dense cache into the clustered cache
-    and advance that slot's phase to STEADY. ``slot_ctx``: batch-free
-    membership (reps (nA, k))."""
+    representative K rows (``share_values``: and V rows) from the dense
+    cache into the clustered cache and advance that slot's phase to
+    STEADY. ``slot_ctx``: batch-free membership (reps (nA, k))."""
     if cfg.is_mha and cfg.chai.enabled and "kg_chai" in state:
         reps = slot_ctx["reps"].long()                    # (nA, k)
         kg = state["kg"]
@@ -245,6 +268,8 @@ def compact_kv_slot(state, slot_ctx, cfg: ModelConfig, slot):
         if "kg_chai_scale" in state:
             state["kg_chai_scale"][:, slot] = state["kg_scale"][li, slot,
                                                                 reps]
+        if cfg.chai.share_values:
+            state["vg_chai"][:, slot] = state["vg"][li, slot, reps]
     state["phase"][slot] = PHASE_STEADY
     return state
 
@@ -266,7 +291,7 @@ def unified_kv_bytes(cfg: ModelConfig, batch: int, seq: int, *,
                    * torch.empty((), dtype=dt).element_size()
                    for k, (shape, dt) in shapes.items()
                    if k in ("kg", "vg", "kg_scale", "vg_scale", "kg_chai",
-                            "kg_chai_scale")))
+                            "kg_chai_scale", "vg_chai")))
 
 
 # ---------------------------------------------------------------------------
@@ -375,10 +400,10 @@ def paged_state_shapes(cfg: ModelConfig, batch: int, max_seq: int, *,
     pool ``kvp`` (nG, dense_pages, KV, page, hd) plus per-slot block
     tables ``bt_kg``/``bt_vg`` (B, max_seq / page); MHA+CHAI archs add
     the clustered pool ``cp`` (nG, chai_pages, k_max, page, hd) with table
-    ``bt_kc``. Under int8 each pool has a scale pool, ``kvp_scale`` /
+    ``bt_kc`` (and ``bt_vc``, its clustered V pages, under
+    ``share_values``). Under int8 each pool has a scale pool, ``kvp_scale`` /
     ``cp_scale``, of its shape without the last axis. ``pos``/``phase``/
     ``chai_scores`` are the unified layout's."""
-    _check(cfg)
     assert max_seq % page_size == 0, (max_seq, page_size)
     shapes = dict(decode_state_shapes(cfg, batch, max_seq))
     shapes["phase"] = ((batch,), torch.int32)
@@ -407,6 +432,8 @@ def paged_state_shapes(cfg: ModelConfig, batch: int, max_seq: int, *,
             shapes["cp_scale"] = ((ng, chai_pages, k_max, page_size),
                                   torch.float32)
         shapes["bt_kc"] = bt
+        if cfg.chai.share_values:
+            shapes["bt_vc"] = bt
     return shapes
 
 
@@ -462,27 +489,38 @@ def insert_slot_paged(state, mini, slot, kg_pages, vg_pages, *,
 
 
 def compact_kv_slot_paged(state, slot_ctx, cfg: ModelConfig, slot,
-                          kc_pages):
+                          kc_pages, vc_pages=None):
     """Paged per-slot compaction: gather slot ``slot``'s representative K
     rows (and int8 scales) out of its dense pages into the clustered pages
-    ``kc_pages``
-    ((P,) int32, null-padded), record them in ``bt_kc`` and null the
-    dense K block-table row; the engine then hands the dense K pages back
-    to the ``PagePool``. V stays in the dense pool until retire."""
+    ``kc_pages`` ((P,) int32, null-padded), record them in ``bt_kc`` and
+    null the dense K block-table row; the engine then hands the dense K
+    pages back to the ``PagePool``. V stays in the dense pool until
+    retire, except under ``share_values``: the rep V rows go to the
+    clustered pages ``vc_pages`` (``kc_pages`` when None, as in the
+    reference), int8 codes moved without their scales, into ``bt_vc``,
+    and the dense V table row is nulled too."""
     if cfg.is_mha and cfg.chai.enabled and "cp" in state:
         reps = slot_ctx["reps"].long()                       # (nA, k)
         kvp = state["kvp"]
-        bt_row = state["bt_kg"][slot].long()                 # (P,)
         li = torch.arange(kvp.shape[0], device=kvp.device)[:, None, None]
-        # (nG, P, k, page, hd); null-padded table entries gather page 0
-        # and land on page 0 of the clustered pool (never read valid).
-        g = kvp[li, bt_row[None, :, None], reps[:, None, :]]
-        state["cp"][:, kc_pages.long()] = g
+
+        def gather(pool, bt_key):
+            # (nG, P, k, page[, hd]); null-padded table entries gather page
+            # 0 and land on page 0 of the clustered pool (never read valid).
+            bt_row = state[bt_key][slot].long()              # (P,)
+            return pool[li, bt_row[None, :, None], reps[:, None, :]]
+
+        state["cp"][:, kc_pages.long()] = gather(kvp, "bt_kg")
         if "cp_scale" in state:
-            state["cp_scale"][:, kc_pages.long()] = state["kvp_scale"][
-                li, bt_row[None, :, None], reps[:, None, :]]
+            state["cp_scale"][:, kc_pages.long()] = gather(
+                state["kvp_scale"], "bt_kg")
         state["bt_kg"][slot] = NULL_PAGE
         state["bt_kc"][slot] = kc_pages
+        if cfg.chai.share_values:
+            vd_pages = kc_pages if vc_pages is None else vc_pages
+            state["cp"][:, vd_pages.long()] = gather(kvp, "bt_vg")
+            state["bt_vc"][slot] = vd_pages
+            state["bt_vg"][slot] = NULL_PAGE
     state["phase"][slot] = PHASE_STEADY
     return state
 
@@ -499,14 +537,15 @@ def copy_pool_page(state, src, dst, *, kind):
 
 
 def restore_slot_snapshot(state, slot, bt_kg_row, bt_vg_row, bt_kc_row,
-                          pos):
+                          pos, bt_vc_row=None):
     """Prefix-cache snapshot resume: point slot ``slot``'s block tables at
-    the snapshot's (shared or copied) pages, set ``pos`` to its
-    STEADY-entry position, zero the slot's clustering features and enter
-    STEADY directly, skipping PREFILL, WARMUP and CLUSTER."""
+    the snapshot's (shared or copied) pages (``bt_vc_row``: its clustered
+    V pages, under ``share_values``), set ``pos`` to its STEADY-entry
+    position, zero the slot's clustering features and enter STEADY
+    directly, skipping PREFILL, WARMUP and CLUSTER."""
     for key, row in (("bt_kg", bt_kg_row), ("bt_vg", bt_vg_row),
-                     ("bt_kc", bt_kc_row)):
-        if key in state:
+                     ("bt_kc", bt_kc_row), ("bt_vc", bt_vc_row)):
+        if key in state and row is not None:
             state[key][slot] = row
     state["pos"][slot] = pos
     if "chai_scores" in state:
@@ -519,7 +558,7 @@ def reset_slot_paged(state, slot):
     """Paged retire: phase -> FREE, rewind ``pos``, null every block-table
     row (the engine frees the physical pages host-side)."""
     reset_slot(state, slot)
-    for key in ("bt_kg", "bt_vg", "bt_kc"):
+    for key in ("bt_kg", "bt_vg", "bt_kc", "bt_vc"):
         if key in state:
             state[key][slot] = NULL_PAGE
     return state
@@ -529,7 +568,6 @@ def paged_page_bytes(cfg: ModelConfig, page_size: int, *, kind: str):
     """Bytes of ONE page (``page_size`` tokens x all global layers):
     kind="dense": ``n_kv_heads`` rows; kind="chai": ``k_max`` rows. int8:
     a byte a code plus a row's 4-byte scale, hd + 4 bytes a row."""
-    _check(cfg)
     if cfg.n_global_layers == 0:
         return 0
     rows = cfg.n_kv_heads if kind == "dense" else chai_widths(cfg)[0]

@@ -25,6 +25,15 @@ rows are written as ``quant_rows`` codes and scales, and the fused kernels
 (and the relay pass) read the codes with their scale tensors: the K scale
 multiplies the score after the dot, the V scale the V row before A.V.
 
+``share_values`` (CHAI-QKV, the paper's Table 4 ablation; MHA only): V
+is clustered like K. Only the reps' V rows are projected and written
+(dense ``vg_chai``, or the ``cp`` pool through ``bt_vc``), by a plain
+cast into an int8 cache, without scales (the reference's rule), and the
+fused kernels run in their share mode: one accumulator row per rep,
+broadcast to the member heads after the division. The relay pass then
+routes acc row j * R + i to query row j * R + i and V row reps[i], and
+reads the prefix V codes without scales.
+
 GQA (``_chai_gqa_decode``): representatives are chosen within each KV
 group (``r_max`` per group, ctx ``cluster_of``/``reps``), the K/V caches
 stay per group (dense ``kg``/``vg``, or the dense pool ``kvp`` read
@@ -33,8 +42,8 @@ fused kernels run with ``reps_per_group = r_max``; the saving is compute
 only.
 
 Ported: the MHA and GQA branches, dense and paged, float and int8 caches,
-with the mixed-phase ``write_mask``, and the relay decode for both,
-without ``share_values``. Local layers raise ``NotImplementedError``.
+with the mixed-phase ``write_mask``, the relay decode for both, and
+``share_values`` on MHA. Local layers raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -71,9 +80,6 @@ def chai_decode_attention(xn, p, cfg, state, gi, ai, chai_ctx, *,
     mixed-phase step runs this path alongside the MHA path). ``relay``:
     the relay decode's group-batched tensors (paged layout; see
     ``_relay_prefix_state``)."""
-    if cfg.chai.share_values:
-        raise NotImplementedError("share_values CHAI decode is not ported "
-                                  "yet: ROADMAP Queue 1 #3")
     if not cfg.is_mha:
         return _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx,
                                 write_mask, decode_ts=decode_ts, relay=relay)
@@ -93,10 +99,12 @@ def _roll_bt(bt, shift):
     return torch.gather(bt, 1, idx)
 
 
-def _relay_prefix_state(relay, gi, ai, q_rep, ts):
+def _relay_prefix_state(relay, gi, ai, q_rep, ts, *, use_v_scale=True):
     """One group-batched prefix pass for this layer, scattered back to
-    batch rows as an unnormalized (m (B, R), l (B, R), acc (B, H, hd))
-    state.
+    batch rows as an unnormalized (m (B, R), l (B, R), acc (B, rows, hd))
+    state (rows: the heads; the reps under share_values, whose maps give
+    R acc rows a member). ``use_v_scale=False``: the int8 prefix V codes
+    are read without scales (share_values, as the reference does).
 
     ``relay`` (built by the engine on the host, tensors on the device):
       k / v              (nG, G, KV, Sp, hd)  packed copies of each
@@ -122,7 +130,8 @@ def _relay_prefix_state(relay, gi, ai, q_rep, ts):
         qg, relay["k"][gi], relay["v"][gi], relay["k_row"][ai],
         relay["a_row"][ai], relay["v_row"][ai], relay["plen"],
         k_scale=layer_slice(relay, "k_scale", gi),
-        v_scale=layer_slice(relay, "v_scale", gi), ts=ts)
+        v_scale=layer_slice(relay, "v_scale", gi) if use_v_scale else None,
+        ts=ts)
     gid, midx = relay["gid"].long(), relay["midx"].long()
     ing = relay["in_group"]
     h = acc.shape[1] // nmax
@@ -136,7 +145,7 @@ def _relay_prefix_state(relay, gi, ai, q_rep, ts):
 
 def _relay_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, relay, gi,
                   ai, ts, reps_per_group=1, k_scale_pool=None,
-                  v_scale_pool=None):
+                  v_scale_pool=None, share_values=False):
     """One layer's relay decode over the paged pools: the suffix-only
     fused pass in the state mode (rolled tables and the shifted ``pos``
     drop the prefix pages from this launch), the group pass over the
@@ -147,10 +156,13 @@ def _relay_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, relay, gi,
         q_rep, k_pool, _roll_bt(bt_k, shift), v_pool, _roll_bt(bt_v, shift),
         h2c, pos - relay["len"], k_scale_pool=k_scale_pool,
         v_scale_pool=v_scale_pool, reps_per_group=reps_per_group,
-        emit_state=True)
-    prefix = _relay_prefix_state(relay, gi, ai, q_rep, ts)
+        share_values=share_values, emit_state=True)
+    prefix = _relay_prefix_state(relay, gi, ai, q_rep, ts,
+                                 use_v_scale=not share_values)
     return kops.finalize_decode_state(
-        kops.merge_decode_states(suffix, prefix, h2c), h2c)
+        kops.merge_decode_states(suffix, prefix, h2c,
+                                 share_values=share_values),
+        h2c, share_values=share_values)
 
 
 def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
@@ -159,6 +171,7 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
     h = cfg.n_heads
     pos = state["pos"]
     reps, h2c = chai_ctx["reps"][ai], chai_ctx["h2c"][ai]
+    share = cfg.chai.share_values
 
     if reps.ndim == 2:
         # Per-request membership: project all heads, gather activations.
@@ -174,39 +187,52 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
     q_rep = _rope1(q_rep, pos, cfg.rope_theta)
     k_rep = _rope1(k_rep, pos, cfg.rope_theta)
 
-    v_new = torch.einsum("bd,dhe->bhe", xn, p["wv"])
+    # V: per head, or the reps' rows only under share_values (CHAI-QKV).
+    if not share:
+        v_new = torch.einsum("bd,dhe->bhe", xn, p["wv"])
+    elif reps.ndim == 2:
+        v_new = _gather_heads(torch.einsum("bd,dhe->bhe", xn, p["wv"]), reps)
+    else:
+        v_new = torch.einsum("bd,dke->bke", xn, p["wv"][:, ri])
     gather_idx = h2c if h2c.ndim == 2 else h2c.expand(b, h)
     if "cp" in state:
         # Paged: the pools are read in place by the kernel, no densifying.
         cp = state["cp"][gi]                      # (nP, k, page, hd)
-        vp = state["kvp"][gi]                     # (nP, H, page, hd)
         csc = layer_slice(state, "cp_scale", gi)  # int8: (nP, k, page)
-        vsp = layer_slice(state, "kvp_scale", gi)
         page = cp.shape[2]
         pk, row = paged_token_coords(state["bt_kc"], pos, page)
         _paged_write_rows(cp, pk, row, k_rep, write_mask, csc)
-        pv, vrow = paged_token_coords(state["bt_vg"], pos, page)
+        if share:       # clustered V pages in the same pool, scale-less
+            vp, vsp, bt_v = cp, None, state["bt_vc"]
+        else:
+            vp = state["kvp"][gi]                 # (nP, H, page, hd)
+            vsp = layer_slice(state, "kvp_scale", gi)
+            bt_v = state["bt_vg"]
+        pv, vrow = paged_token_coords(bt_v, pos, page)
         _paged_write_rows(vp, pv, vrow, v_new, write_mask, vsp)
         if relay is None:
             out = kops.paged_chai_decode_attention(
-                q_rep, cp, state["bt_kc"], vp, state["bt_vg"], gather_idx,
-                pos, k_scale_pool=csc, v_scale_pool=vsp)
+                q_rep, cp, state["bt_kc"], vp, bt_v, gather_idx, pos,
+                k_scale_pool=csc, v_scale_pool=vsp, share_values=share)
         else:
-            out = _relay_decode(q_rep, cp, state["bt_kc"], vp,
-                                state["bt_vg"], gather_idx, pos, relay, gi,
-                                ai, decode_ts, k_scale_pool=csc,
-                                v_scale_pool=vsp)
+            out = _relay_decode(q_rep, cp, state["bt_kc"], vp, bt_v,
+                                gather_idx, pos, relay, gi, ai, decode_ts,
+                                k_scale_pool=csc, v_scale_pool=vsp,
+                                share_values=share)
         return out.to(xn.dtype)
 
     kc = state["kg_chai"][gi]                     # (B, k, S, hd)
-    vc = state["vg"][gi]                          # (B, H, S, hd)
     ksc = layer_slice(state, "kg_chai_scale", gi)
-    vsc = layer_slice(state, "vg_scale", gi)
+    if share:                                     # (B, k, S, hd), scale-less
+        vc, vsc = state["vg_chai"][gi], None
+    else:
+        vc = state["vg"][gi]                      # (B, H, S, hd)
+        vsc = layer_slice(state, "vg_scale", gi)
     _dense_write_rows(kc, pos, k_rep, write_mask, ksc)
     _dense_write_rows(vc, pos, v_new, write_mask, vsc)
     out = kops.chai_decode_attention(
         q_rep, kc, vc, gather_idx, pos, k_scale=ksc, v_scale=vsc,
-        ts=ck.fused_tile_size(decode_ts, kc.shape[2]))
+        share_values=share, ts=ck.fused_tile_size(decode_ts, kc.shape[2]))
     return out.to(xn.dtype)
 
 

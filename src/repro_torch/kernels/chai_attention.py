@@ -23,6 +23,12 @@ the unnormalized online-softmax state (m (B, R), l (B, R), acc (B, H,
 hd)), the suffix pass of the relay decode, which ``kernels.ops`` merges
 with ``relay_prefix_decode``'s state and finalizes in torch.
 
+Both take ``share_values`` (CHAI-QKV, MHA only): V is clustered like K
+(KVv == R); each unit accumulates its rep's one row, which the finalized
+mode divides and writes to every member head, and the state mode emits
+as (B, R, hd). Under int8 its V codes may come without scales and are
+read as values (the reference's clustered V).
+
 ``relay_prefix_decode`` launches ``csrc/relay_prefix_decode.cu`` (the port
 of the Pallas ``relay_prefix_decode``): one pass per relay group over a
 packed shared prefix, the member slots' rep queries stacked on one row
@@ -153,12 +159,14 @@ def block_smem_bytes(kq: int, hd: int, n_map: int, n_cap: int) -> int:
 
 
 def decode_launch_config(b: int, k_rows: int, n_tiles: int, hd: int,
-                         n_map: int, reps_per_group: int = 1) -> DecodeLaunch:
+                         n_map: int, reps_per_group: int = 1,
+                         share_values: bool = False) -> DecodeLaunch:
     """The launch of one fused decode call: the split plan from (b,
     k_rows, n_tiles), and the block's shared memory for ``reps_per_group``
-    queries per block and an ``n_map``-entry member map (H heads)."""
+    queries per block and an ``n_map``-entry member map (H heads).
+    ``share_values``: one accumulator row a unit (its rep's)."""
     n_split, per = split_plan(b, k_rows, n_tiles)
-    n_cap = max(1, min(n_map, _SLICE))
+    n_cap = 1 if share_values else max(1, min(n_map, _SLICE))
     return DecodeLaunch(n_split, per, n_cap, block_smem_bytes(
         _query_bucket(reps_per_group), hd, n_map, n_cap))
 
@@ -232,23 +240,25 @@ def relay_units(k_row, a_row, v_row):
             for kr, ar, vrow in zip(k_row, a_row, v_row)]
 
 
-def dense_launch_config(q_rep, k_cache, h2c, *, reps_per_group=1, ts=512):
+def dense_launch_config(q_rep, k_cache, h2c, *, reps_per_group=1, ts=512,
+                        share_values=False):
     """(the launch, the S-tile) of ``chai_fused_decode`` on these tensors
     (their shapes only: any device, ``meta`` too)."""
     s = k_cache.shape[2]
     ts = fused_tile_size(ts, s)
     return decode_launch_config(q_rep.shape[0], k_cache.shape[1], s // ts,
                                 q_rep.shape[2], h2c.shape[-1],
-                                reps_per_group), ts
+                                reps_per_group, share_values), ts
 
 
-def paged_launch_config(q_rep, k_pool, bt_k, h2c, *, reps_per_group=1):
+def paged_launch_config(q_rep, k_pool, bt_k, h2c, *, reps_per_group=1,
+                        share_values=False):
     """The launch of ``paged_chai_fused_decode`` on these tensors (their
     shapes only); the tile is the page. Equal to the dense call's at
     S == P * page and ts == page."""
     return decode_launch_config(q_rep.shape[0], k_pool.shape[1],
                                 bt_k.shape[1], q_rep.shape[2],
-                                h2c.shape[-1], reps_per_group)
+                                h2c.shape[-1], reps_per_group, share_values)
 
 
 def _launcher(name, n_ptrs, n_ints):
@@ -260,34 +270,37 @@ def _launcher(name, n_ptrs, n_ints):
     return fn
 
 
-def _refuse_unported(name, share_values, softcap):
-    for flag, what, item in ((share_values, "share_values", 3),
-                             (bool(softcap), "softcap", 14)):
-        if flag:
-            raise NotImplementedError(f"{name}: {what} is not ported to "
-                                      f"CUDA yet: ROADMAP Queue 1 #{item}")
+def _refuse_unported(name, softcap):
+    if softcap:
+        raise NotImplementedError(f"{name}: softcap is not ported to CUDA "
+                                  "yet: ROADMAP Queue 1 #14")
 
 
-def _check_scales(name, k, v, k_scale, v_scale):
+def _check_scales(name, k, v, k_scale, v_scale, *, raw_v=False):
     """The int8 mode: K and V are int8 together, each with an fp32 scale
     tensor of its own shape without the last axis (one scale a row); float
-    K/V take no scales. Shapes only, so it runs on any device."""
+    K/V take no scales. ``raw_v``: int8 V may also come without scales,
+    its codes then read as values (the share_values clustered V, which
+    the reference writes by a plain cast and reads scale-less). Shapes
+    only, so it runs on any device."""
     int8 = k.dtype == torch.int8
+    v_ok = (v_scale is None) != int8 or (raw_v and int8)
     if ((v.dtype == torch.int8) != int8 or (k_scale is None) == int8
-            or (v_scale is None) == int8):
+            or not v_ok):
         raise ValueError(f"{name}: K and V are int8 together, each with its "
                          f"scales, or float without; got K {k.dtype}, V "
                          f"{v.dtype}, k_scale {k_scale is not None}, v_scale "
                          f"{v_scale is not None}")
     if int8 and (k_scale.shape != k.shape[:-1]
-                 or v_scale.shape != v.shape[:-1]
                  or k_scale.dtype != torch.float32
-                 or v_scale.dtype != torch.float32):
+                 or (v_scale is not None
+                     and (v_scale.shape != v.shape[:-1]
+                          or v_scale.dtype != torch.float32))):
         raise ValueError(f"{name}: scales must be fp32 of K's and V's shapes "
                          f"without the last axis; got {tuple(k_scale.shape)}"
                          f" {k_scale.dtype} for K {tuple(k.shape)}, "
-                         f"{tuple(v_scale.shape)} {v_scale.dtype} for V "
-                         f"{tuple(v.shape)}")
+                         f"{None if v_scale is None else tuple(v_scale.shape)}"
+                         f" for V {tuple(v.shape)}")
 
 
 def _check_block(name, hd, reps_per_group, cfg):
@@ -305,7 +318,18 @@ def _check_block(name, hd, reps_per_group, cfg):
                          "of shared memory, above the block limit")
 
 
-def _check_common(name, q_rep, k, v, h2c, reps_per_group):
+def _check_share(name, q_rep, v, reps_per_group):
+    """The share mode: MHA only (the reference asserts it) and V clustered
+    like K (KVv == R). Shapes only, so it runs on any device."""
+    if reps_per_group > 1:
+        raise ValueError(f"{name}: share_values (clustered V) is an MHA-only "
+                         f"ablation; got reps_per_group={reps_per_group}")
+    if v.shape[1] != q_rep.shape[1]:
+        raise ValueError(f"{name}: share_values reads one V row per rep; got "
+                         f"KVv={v.shape[1]} for R={q_rep.shape[1]}")
+
+
+def _check_common(name, q_rep, k, v, h2c, reps_per_group, share_values):
     """Device, dtype and width checks both wrappers share; returns
     (b, R, hd, H, h2c as (B, H))."""
     if q_rep.device.type != "cuda":
@@ -318,7 +342,8 @@ def _check_common(name, q_rep, k, v, h2c, reps_per_group):
     if k.dtype != v.dtype or k.dtype not in _KV_DTYPES:
         raise TypeError(f"K/V must share one dtype of fp32/bf16/int8; got "
                         f"{k.dtype}, {v.dtype}")
-    if k.shape[1] * reps_per_group != r_total or h_total % v.shape[1]:
+    if k.shape[1] * reps_per_group != r_total or (
+            not share_values and h_total % v.shape[1]):
         raise ValueError(f"R={r_total} must be KVk={k.shape[1]} x "
                          f"reps_per_group={reps_per_group} and KVv="
                          f"{v.shape[1]} must divide H={h_total}")
@@ -337,10 +362,12 @@ def _small(t, dev):
     return t.to(device=dev, dtype=torch.int32).contiguous()
 
 
-def _outputs(b, r_total, h_total, hd, dev, emit_state):
+def _outputs(b, r_total, h_total, hd, dev, emit_state, acc_rows):
     """The decode kernels' outputs: (B, H, hd) fp32, and with
-    ``emit_state`` the (B, R) m and l as well (else None)."""
-    out = torch.empty((b, h_total, hd), dtype=torch.float32, device=dev)
+    ``emit_state`` the (B, R) m and l as well (else None) and acc as
+    (B, acc_rows, hd) (the heads, or the reps under share_values)."""
+    out = torch.empty((b, acc_rows if emit_state else h_total, hd),
+                      dtype=torch.float32, device=dev)
     if not emit_state:
         return out, None, None
     return (out,) + tuple(torch.empty((b, r_total), dtype=torch.float32,
@@ -356,7 +383,8 @@ _COUNTERS: dict = {}
 def split_scratch(n_split, b, r_total, h_total, hd, units, dev, stream, *,
                   one_split=False):
     """(mp, lp, accp, counter) of a split launch: the partial m and l
-    (B, n_split, R) and the raw partial acc (B, n_split, H, hd), fp32, in
+    (B, n_split, R) and the raw partial acc (B, n_split, H, hd) (H: the
+    acc rows; the reps under share_values), fp32, in
     one ``torch.empty`` (the kernel reads no slot it has not written),
     and the unit counters; all None when the call is not split, unless
     ``one_split`` (the relay kernel merges one split like many). The flash
@@ -401,19 +429,27 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     into ``split_plan`` ranges merged inside the launch. Returns (B, H,
     hd) fp32 from ONE kernel launch, or with ``emit_state`` the
     unnormalized (m (B, R), l (B, R), acc (B, H, hd)) fp32 state.
+    ``share_values`` (MHA, reps_per_group 1): v_cache (B, R, S, hd) is the
+    clustered V, rep j reading V row j; int8 V may come without v_scale
+    (codes read as values); the state's acc is (B, R, hd).
     """
-    _refuse_unported("chai_fused_decode", share_values, softcap)
-    _check_scales("chai_fused_decode", k_cache, v_cache, k_scale, v_scale)
+    _refuse_unported("chai_fused_decode", softcap)
+    _check_scales("chai_fused_decode", k_cache, v_cache, k_scale, v_scale,
+                  raw_v=share_values)
+    if share_values:
+        _check_share("chai_fused_decode", q_rep, v_cache, reps_per_group)
     s = k_cache.shape[2]
     b, r_total, hd, h_total, h2c = _check_common(
-        "chai_fused_decode", q_rep, k_cache, v_cache, h2c, reps_per_group)
+        "chai_fused_decode", q_rep, k_cache, v_cache, h2c, reps_per_group,
+        share_values)
     kv_k, kv_v = k_cache.shape[1], v_cache.shape[1]
     if (k_cache.shape[0] != b or k_cache.shape[3] != hd
             or v_cache.shape != (b, kv_v, s, hd)):
         raise ValueError(f"shape mismatch: q {tuple(q_rep.shape)}, "
                          f"k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
     cfg, ts = dense_launch_config(q_rep, k_cache, h2c,
-                                  reps_per_group=reps_per_group, ts=ts)
+                                  reps_per_group=reps_per_group, ts=ts,
+                                  share_values=share_values)
     _check_block("chai_fused_decode", hd, reps_per_group, cfg)
     dev = q_rep.device
     q = q_rep.float().contiguous()
@@ -423,19 +459,21 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     ks, vs = (None if t is None else t.contiguous()
               for t in (k_scale, v_scale))
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
-    out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state)
-    fn = _launcher("chai_fused_decode", 14, 16)
+    rows = r_total if share_values else h_total
+    out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state, rows)
+    fn = _launcher("chai_fused_decode", 14, 17)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch = split_scratch(cfg.n_split, b, r_total, h_total, hd,
+        scratch = split_scratch(cfg.n_split, b, r_total, rows, hd,
                                 b * kv_k, dev, stream)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks),
                  _ptr(vs), h2c_i.data_ptr(),
                  pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),
                  *(_ptr(t) for t in scratch), b, r_total, h_total, kv_k,
                  kv_v, s, hd, ts, decode_step_size(ts), reps_per_group,
-                 h_total // kv_v, int(window), cfg.n_split,
-                 cfg.tiles_per_split, cfg.n_cap, _KV_DTYPES[k.dtype], stream)
+                 1 if share_values else h_total // kv_v, int(window),
+                 cfg.n_split, cfg.tiles_per_split, cfg.n_cap,
+                 int(share_values), _KV_DTYPES[k.dtype], stream)
     if err:
         raise RuntimeError(f"chai_fused_decode launch failed: CUDA error "
                            f"{err}")
@@ -462,16 +500,21 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     two are bitwise equal. The pools are layer slices of the engine's
     state and are read in place: they must be contiguous already (a copy
     would move the whole pool every call). Returns (B, H, hd) fp32 from
-    ONE kernel launch, or the ``emit_state`` triple.
+    ONE kernel launch, or the ``emit_state`` triple. ``share_values``:
+    v_pool is the clustered pool (KVv == R; the engine's ``cp`` through
+    ``bt_vc``), as in the dense call.
     """
-    _refuse_unported("paged_chai_fused_decode", share_values, softcap)
+    _refuse_unported("paged_chai_fused_decode", softcap)
     _check_scales("paged_chai_fused_decode", k_pool, v_pool, k_scale_pool,
-                  v_scale_pool)
+                  v_scale_pool, raw_v=share_values)
+    if share_values:
+        _check_share("paged_chai_fused_decode", q_rep, v_pool,
+                     reps_per_group)
     n_pages = bt_k.shape[1]
     page = k_pool.shape[2]
     b, r_total, hd, h_total, h2c = _check_common(
         "paged_chai_fused_decode", q_rep, k_pool, v_pool, h2c,
-        reps_per_group)
+        reps_per_group, share_values)
     kv_k, kv_v = k_pool.shape[1], v_pool.shape[1]
     if (k_pool.shape[3] != hd or v_pool.shape[2:] != (page, hd)
             or bt_k.shape != (b, n_pages) or bt_v.shape != (b, n_pages)):
@@ -480,7 +523,8 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
                          f"{tuple(v_pool.shape)}, bt_k {tuple(bt_k.shape)}, "
                          f"bt_v {tuple(bt_v.shape)}")
     cfg = paged_launch_config(q_rep, k_pool, bt_k, h2c,
-                              reps_per_group=reps_per_group)
+                              reps_per_group=reps_per_group,
+                              share_values=share_values)
     _check_block("paged_chai_fused_decode", hd, reps_per_group, cfg)
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
                     ("k_scale_pool", k_scale_pool),
@@ -493,11 +537,12 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     q = q_rep.float().contiguous()
     bt_k_i, bt_v_i = _small(bt_k, dev), _small(bt_v, dev)
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
-    out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state)
-    fn = _launcher("paged_chai_fused_decode", 16, 16)
+    rows = r_total if share_values else h_total
+    out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state, rows)
+    fn = _launcher("paged_chai_fused_decode", 16, 17)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch = split_scratch(cfg.n_split, b, r_total, h_total, hd,
+        scratch = split_scratch(cfg.n_split, b, r_total, rows, hd,
                                 b * kv_k, dev, stream)
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  _ptr(k_scale_pool), _ptr(v_scale_pool),
@@ -505,9 +550,9 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
                  pos_i.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),
                  *(_ptr(t) for t in scratch), b, r_total, h_total, kv_k,
                  kv_v, n_pages, page, hd, decode_step_size(page),
-                 reps_per_group, h_total // kv_v, int(window), cfg.n_split,
-                 cfg.tiles_per_split, cfg.n_cap, _KV_DTYPES[k_pool.dtype],
-                 stream)
+                 reps_per_group, 1 if share_values else h_total // kv_v,
+                 int(window), cfg.n_split, cfg.tiles_per_split, cfg.n_cap,
+                 int(share_values), _KV_DTYPES[k_pool.dtype], stream)
     if err:
         raise RuntimeError(f"paged_chai_fused_decode launch failed: CUDA "
                            f"error {err}")
@@ -524,7 +569,8 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
     prefix, fp32 or bf16, one dtype, or int8 with their scale planes
     k_scale (G, KV, Sp) and v_scale (G, VR, Sp) (the score blocks scale
     each score after the dot, the sum blocks each V row before the
-    weighted sum); k_row: (G, NR) query row -> K row;
+    weighted sum; without v_scale the V codes are summed as values, the
+    share_values relay's scale-less V); k_row: (G, NR) query row -> K row;
     a_row: (G, A) acc row -> query row; v_row: (G, A) acc row -> V row;
     plen: (G,) valid prefix lengths (positions >= plen masked). ``ts``:
     the S-tile (0: Sp; the whole prefix when it does not divide Sp). Any
@@ -535,7 +581,7 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
     Returns (m (G, NR), l (G, NR), acc (G, A, hd)) fp32, unnormalized, from
     ONE kernel launch.
     """
-    _check_scales("relay_prefix_decode", k, v, k_scale, v_scale)
+    _check_scales("relay_prefix_decode", k, v, k_scale, v_scale, raw_v=True)
     if q.device.type != "cuda":
         raise ValueError(f"relay_prefix_decode launches a CUDA kernel; got "
                          f"tensors on {q.device}")

@@ -58,6 +58,18 @@
 // load carries 8 codes (8 bytes), as many values as a bf16 load, so the
 // AV items and their reduce buffer keep their shape and any hd % 8 == 0
 // works.
+// Without V scales (``vs`` null: the share mode's clustered V, which the
+// reference writes by a plain cast and reads scale-less) the V codes are
+// read as values; K keeps its scales.
+//
+// The share mode (``Members::share``, the CHAI-QKV ablation: V clustered
+// like K, one V row per rep, rpg == 1): the unit's one accumulator row is
+// its rep's, reading V row ``unit``, whatever heads it has; the state mode
+// writes it as acc row ``unit`` (the (B, R, hd) state), and the finalized
+// mode divides it by the rep's l once and writes the same row to every
+// member head (h2c[b, h] == unit), as the Pallas _fin does after the
+// division. A rep with no member head still has its acc row in the state
+// mode, and writes nothing finalized.
 //
 // Splits are merged inside the launch. With n_split > 1 every block writes
 // its partial m, l (per rep) and raw acc (per member head) to fp32
@@ -305,11 +317,18 @@ __device__ inline Smem carve(float* base, int kq, int hd, int n_map,
 // The accumulator rows of a unit: entry e of ``map`` (n entries) is a
 // member iff map[e] / rpg == unit; it serves query map[e] - unit * rpg,
 // its acc row is e and it reads V row ``v_rows[e]``, or e / v_rep when
-// v_rows is null.
+// v_rows is null. ``share``: the members are output rows only, and the
+// unit has one acc row, ``unit``, reading V row ``unit`` (rpg == 1).
 struct Members {
   const int* map;
   const int* v_rows;
   int n, rpg, unit, v_rep;
+  bool share;
+  __device__ int acc_count(int n_mem) const { return share ? 1 : n_mem; }
+  // the acc row (state and split scratch) of accumulator i of the unit
+  __device__ int acc_row(const Smem& sm, int i) const {
+    return share ? unit : sm.mem_a[i];
+  }
 };
 
 // Where a unit writes: acc row a at out + a * hd; the state mode's m and
@@ -476,7 +495,7 @@ __device__ void decode_range(Tiles& tiles, const Smem& sm, int nq, int k_row,
             raw[u] = live ? Vec16<T>::load(tiles.v_pos(vr, idx) + d)
                           : Vec16<T>::zero();
             if constexpr (kIsInt8<T>)
-              vs[u] = live ? tiles.v_scale(vr, idx) : 0.f;
+              vs[u] = live && tiles.vs ? tiles.v_scale(vr, idx) : 0.f;
           }
 #pragma unroll
           for (int u = 0; u < kBatch; ++u) {
@@ -484,8 +503,9 @@ __device__ void decode_range(Tiles& tiles, const Smem& sm, int nq, int k_row,
               float vv[kVec];
               Vec16<T>::unpack(raw[u], vv);
               if constexpr (kIsInt8<T>) {   // dequantize before A.V
+                if (tiles.vs)
 #pragma unroll
-                for (int x = 0; x < kVec; ++x) vv[x] *= vs[u];
+                  for (int x = 0; x < kVec; ++x) vv[x] *= vs[u];
               }
               const float wi = w[i0 + u];
 #pragma unroll
@@ -538,9 +558,9 @@ __device__ void decode_range(Tiles& tiles, const Smem& sm, int nq, int k_row,
 // The last block of a unit: combine the n_split partials in split order
 // and write the unit's result (see the header comment).
 template <bool kEmit>
-__device__ void merge_splits(const Smem& sm, int nq, int n_mem, int n_split,
-                             int hd, const Partials& part,
-                             const Outputs& o) {
+__device__ void merge_splits(const Smem& sm, int nq, const Members& mem,
+                             int n_mem, int n_split, int hd,
+                             const Partials& part, const Outputs& o) {
   const int tid = threadIdx.x;
   for (int j = tid; j < nq; j += kThreads) {
     float m = -1e30f;
@@ -568,9 +588,11 @@ __device__ void merge_splits(const Smem& sm, int nq, int n_mem, int n_split,
   }
   __syncthreads();
   const int g4 = hd / 4;
-  for (int e = tid; e < n_mem * g4; e += kThreads) {
+  // share, finalized: the rep row goes to sm.acc, then to every member
+  const bool spread = mem.share && !kEmit;
+  for (int e = tid; e < mem.acc_count(n_mem) * g4; e += kThreads) {
     const int mi = e / g4, d = (e - mi * g4) * 4;
-    const int a = sm.mem_a[mi];
+    const int a = mem.acc_row(sm, mi);
     const float* c = sm.cmb + sm.mem_q[mi] * kMaxSplit;
     const float* src = part.acc + static_cast<size_t>(a) * hd + d;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -603,8 +625,17 @@ __device__ void merge_splits(const Smem& sm, int nq, int n_mem, int n_split,
       acc.z = acc.z / den;
       acc.w = acc.w / den;
     }
-    *reinterpret_cast<float4*>(o.out + static_cast<size_t>(a) * hd + d) =
-        acc;
+    *reinterpret_cast<float4*>(
+        spread ? sm.acc + d : o.out + static_cast<size_t>(a) * hd + d) = acc;
+  }
+  if (spread) {
+    __syncthreads();
+    for (int e = tid; e < n_mem * g4; e += kThreads) {
+      const int mi = e / g4, d = (e - mi * g4) * 4;
+      *reinterpret_cast<float4*>(o.out + static_cast<size_t>(sm.mem_a[mi]) *
+                                             hd + d) =
+          *reinterpret_cast<const float4*>(sm.acc + d);
+    }
   }
 }
 
@@ -644,12 +675,20 @@ __device__ void unit_block(Tiles& tiles, float* smem, const float* q, int nq,
       if (qi >= 0) {
         const int at = n + __popc(hit & ((1u << lane) - 1u));
         sm.mem_a[at] = e;
-        sm.mem_q[at] = qi;
-        sm.mem_v[at] = mem.v_rows ? mem.v_rows[e] : e / mem.v_rep;
+        if (!mem.share) {
+          sm.mem_q[at] = qi;
+          sm.mem_v[at] = mem.v_rows ? mem.v_rows[e] : e / mem.v_rep;
+        }
       }
       n += __popc(hit);
     }
-    if (lane == 0) *sm.n_mem = n;
+    if (lane == 0) {
+      *sm.n_mem = n;
+      if (mem.share) {   // the one acc row: the rep's query, its V row
+        sm.mem_q[0] = 0;
+        sm.mem_v[0] = mem.unit;
+      }
+    }
   } else if (warp == 1) {
     if (first <= last) {
       const int c0 = (first / plan.step) * plan.step;
@@ -664,10 +703,11 @@ __device__ void unit_block(Tiles& tiles, float* smem, const float* q, int nq,
   __syncthreads();
   const int n_mem = *sm.n_mem;
   if (!kEmit && n_mem == 0) return;   // no member: nothing to compute
-  const int n_slices = max(1, (n_mem + n_cap - 1) / n_cap);
+  const int n_acc = mem.acc_count(n_mem);
+  const int n_slices = max(1, (n_acc + n_cap - 1) / n_cap);
   if (slice >= n_slices) return;
 
-  const int mb0 = slice * n_cap, nmb = min(n_cap, n_mem - mb0);
+  const int mb0 = slice * n_cap, nmb = min(n_cap, n_acc - mb0);
   decode_range<T, kQ>(tiles, sm, nq, k_row, mb0, nmb, first, last,
                       plan.step, hd, scale);
   if (plan.n_split == 1) {
@@ -677,10 +717,18 @@ __device__ void unit_block(Tiles& tiles, float* smem, const float* q, int nq,
         o.l[j] = sm.l[j];
       }
     }
+    if (mem.share && !kEmit) {   // the rep row to every member head
+      const float den = fmaxf(sm.l[0], 1e-37f);
+      for (int e = tid; e < n_mem * hd; e += kThreads) {
+        const int mi = e / hd, d = e - mi * hd;
+        o.out[static_cast<size_t>(sm.mem_a[mi]) * hd + d] = sm.acc[d] / den;
+      }
+      return;
+    }
     for (int e = tid; e < nmb * hd; e += kThreads) {
       const int mi = e / hd, d = e - mi * hd;
       const float x = sm.acc[e];
-      o.out[static_cast<size_t>(sm.mem_a[mb0 + mi]) * hd + d] =
+      o.out[static_cast<size_t>(mem.acc_row(sm, mb0 + mi)) * hd + d] =
           kEmit ? x : x / fmaxf(sm.l[sm.mem_q[mb0 + mi]], 1e-37f);
     }
     return;
@@ -696,7 +744,8 @@ __device__ void unit_block(Tiles& tiles, float* smem, const float* q, int nq,
     for (int e = tid; e < nmb * hd; e += kThreads) {
       const int mi = e / hd, d = e - mi * hd;
       part.acc[s * part.acc_stride +
-               static_cast<size_t>(sm.mem_a[mb0 + mi]) * hd + d] = sm.acc[e];
+               static_cast<size_t>(mem.acc_row(sm, mb0 + mi)) * hd + d] =
+          sm.acc[e];
     }
   }
   // the ticket: every thread's partial writes are fenced before thread 0
@@ -714,7 +763,7 @@ __device__ void unit_block(Tiles& tiles, float* smem, const float* q, int nq,
   }
   __syncthreads();
   if (!*sm.flag) return;
-  merge_splits<kEmit>(sm, nq, n_mem, plan.n_split, hd, part, o);
+  merge_splits<kEmit>(sm, nq, mem, n_mem, plan.n_split, hd, part, o);
 }
 
 // Raise the kernel's dynamic shared memory limit when it needs more than

@@ -30,6 +30,13 @@
 // 8-byte loads of codes and one fp32 scale per row and position (hd + 4
 // bytes a row where bf16 moves 2 hd), the K scale on the score after the
 // dot and the V scale on the V row before A.V, as the Pallas tile does.
+//
+// The share mode (share_values, CHAI-QKV: the Pallas kernel's
+// ``share_values``): V is clustered like K, one row per rep, and each
+// unit keeps one accumulator row, its rep's; the finalized rows go to the
+// member heads after the division, the state mode emits (B, R, hd). Under
+// int8 its V codes come without scales and are read as values (the
+// reference writes them by a plain cast and reads them scale-less).
 
 #include "chai_decode_tiles.cuh"
 
@@ -52,6 +59,7 @@ struct Args {
   float* lp;
   float* accp;
   int* counter;
+  int share;   // share_values: V rows are the R reps' (kv_v == R, rpg 1)
   int R, H, kv_k, kv_v, S, hd, rpg, v_rep, window, n_cap;
   Plan plan;
   float scale;
@@ -70,17 +78,20 @@ chai_fused_decode_kernel(const Args a) {
   DenseTiles<T> tiles{k + kb * a.hd, v + vb * a.hd, a.ks ? a.ks + kb : nullptr,
                       a.vs ? a.vs + vb : nullptr, a.S, a.hd};
   const Members mem{a.h2c + static_cast<size_t>(b) * a.H, nullptr, a.H,
-                    a.rpg, g, a.v_rep};
+                    a.rpg, g, a.v_rep, a.share != 0};
+  // acc rows of a batch row: the heads, or the reps under share_values
+  const int rows = a.share ? a.R : a.H;
   const size_t rep0 = static_cast<size_t>(b) * a.R + g * a.rpg;
-  const Outputs o{a.out + static_cast<size_t>(b) * a.H * a.hd,
+  const Outputs o{a.out + static_cast<size_t>(b) * (kEmit ? rows : a.H) *
+                              a.hd,
                   kEmit ? a.m + rep0 : nullptr, kEmit ? a.l + rep0 : nullptr};
   const int ns = a.plan.n_split;
   const size_t part0 = static_cast<size_t>(b) * ns * a.R + g * a.rpg;
   const Partials part{
       a.mp ? a.mp + part0 : nullptr, a.lp ? a.lp + part0 : nullptr,
-      a.accp ? a.accp + static_cast<size_t>(b) * ns * a.H * a.hd : nullptr,
-      a.R, static_cast<size_t>(a.H) * a.hd, a.counter ? a.counter + u
-                                                      : nullptr};
+      a.accp ? a.accp + static_cast<size_t>(b) * ns * rows * a.hd : nullptr,
+      a.R, static_cast<size_t>(rows) * a.hd, a.counter ? a.counter + u
+                                                       : nullptr};
   unit_block<T, kQ, kEmit>(tiles, reinterpret_cast<float*>(smem_raw),
                            a.q + rep0 * a.hd, a.rpg, g, mem, a.plan, s, z,
                            a.pos[b], a.window, a.hd, a.n_cap, a.scale, o,
@@ -100,7 +111,8 @@ struct Launch {
                     : chai_fused_decode_kernel<T, kQ, false>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int n_slices = (a.H + a.n_cap - 1) / a.n_cap;
+    // share_values: one accumulator row a unit, one slice
+    const int n_slices = a.share ? 1 : (a.H + a.n_cap - 1) / a.n_cap;
     dim3 grid(n_slices, a.plan.n_split, B * a.kv_k);
     kern<<<grid, kThreads, smem, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
@@ -122,22 +134,25 @@ struct Launch {
 // leaves the counters at zero again); with n_split == 1 they may be null.
 // A block serves n_cap (1..8) member heads of its unit. With m and l null, out
 // is the finalized output; otherwise the state mode writes the
-// unnormalized acc to out and each rep's m and l (emit_state). Returns the
-// launch's cudaError_t (0 on success); does not synchronise.
+// unnormalized acc to out and each rep's m and l (emit_state). share != 0
+// (share_values): kv_v == R and rpg == 1, rep j reads V row j, int8 V may
+// come without vs (its codes read as values), and the state mode's out
+// and accp hold R acc rows, (B, R, hd) and (B, n_split, R, hd). Returns
+// the launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int chai_fused_decode_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* h2c, const void* pos, void* out, void* m,
     void* l, void* mp, void* lp, void* accp, void* counter, int B, int R,
     int H, int kv_k, int kv_v, int S, int hd, int ts, int step, int rpg,
-    int v_rep, int window, int n_split, int tps, int n_cap, int kv_type,
-    void* stream) {
+    int v_rep, int window, int n_split, int tps, int n_cap, int share,
+    int kv_type, void* stream) {
   const Args a{static_cast<const float*>(q), k, v,
                static_cast<const float*>(ks), static_cast<const float*>(vs),
                static_cast<const int*>(h2c), static_cast<const int*>(pos),
                static_cast<float*>(out), static_cast<float*>(m),
                static_cast<float*>(l), static_cast<float*>(mp),
                static_cast<float*>(lp), static_cast<float*>(accp),
-               static_cast<int*>(counter), R, H, kv_k, kv_v, S, hd, rpg,
+               static_cast<int*>(counter), share, R, H, kv_k, kv_v, S, hd, rpg,
                v_rep, window, n_cap,
                Plan{n_split, tps, S / ts, ts, step}, inv_sqrt_hd(hd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

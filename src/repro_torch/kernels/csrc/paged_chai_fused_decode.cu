@@ -23,7 +23,9 @@
 // read in-bounds pages only; their outputs are discarded by the caller.
 // The int8 mode reads the K and V scale pools (nP, rows, page) through the
 // same staged table entries (chai_decode_tiles.cuh: PagedTiles), so it
-// stays bitwise equal to the dense kernel's int8 mode too.
+// stays bitwise equal to the dense kernel's int8 mode too. The share mode
+// (share_values) reads V from the clustered pool through its own table
+// (the engine's ``bt_vc``), as the dense kernel's share mode does.
 
 #include "chai_decode_tiles.cuh"
 
@@ -48,6 +50,7 @@ struct Args {
   float* lp;
   float* accp;
   int* counter;
+  int share;   // share_values: V rows are the R reps' (kv_v == R, rpg 1)
   int R, H, kv_k, kv_v, P, page, hd, rpg, v_rep, window, n_cap;
   Plan plan;
   float scale;
@@ -67,17 +70,20 @@ paged_chai_fused_decode_kernel(const Args a) {
                       (a.page & (a.page - 1)) ? -1 : __ffs(a.page) - 1,
                       nullptr, 0};
   const Members mem{a.h2c + static_cast<size_t>(b) * a.H, nullptr, a.H,
-                    a.rpg, g, a.v_rep};
+                    a.rpg, g, a.v_rep, a.share != 0};
+  // acc rows of a batch row: the heads, or the reps under share_values
+  const int rows = a.share ? a.R : a.H;
   const size_t rep0 = static_cast<size_t>(b) * a.R + g * a.rpg;
-  const Outputs o{a.out + static_cast<size_t>(b) * a.H * a.hd,
+  const Outputs o{a.out + static_cast<size_t>(b) * (kEmit ? rows : a.H) *
+                              a.hd,
                   kEmit ? a.m + rep0 : nullptr, kEmit ? a.l + rep0 : nullptr};
   const int ns = a.plan.n_split;
   const size_t part0 = static_cast<size_t>(b) * ns * a.R + g * a.rpg;
   const Partials part{
       a.mp ? a.mp + part0 : nullptr, a.lp ? a.lp + part0 : nullptr,
-      a.accp ? a.accp + static_cast<size_t>(b) * ns * a.H * a.hd : nullptr,
-      a.R, static_cast<size_t>(a.H) * a.hd, a.counter ? a.counter + u
-                                                      : nullptr};
+      a.accp ? a.accp + static_cast<size_t>(b) * ns * rows * a.hd : nullptr,
+      a.R, static_cast<size_t>(rows) * a.hd, a.counter ? a.counter + u
+                                                       : nullptr};
   unit_block<T, kQ, kEmit>(tiles, reinterpret_cast<float*>(smem_raw),
                            a.q + rep0 * a.hd, a.rpg, g, mem, a.plan, s, z,
                            a.pos[b], a.window, a.hd, a.n_cap, a.scale, o,
@@ -97,7 +103,8 @@ struct Launch {
                     : paged_chai_fused_decode_kernel<T, kQ, false>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int n_slices = (a.H + a.n_cap - 1) / a.n_cap;
+    // share_values: one accumulator row a unit, one slice
+    const int n_slices = a.share ? 1 : (a.H + a.n_cap - 1) / a.n_cap;
     dim3 grid(n_slices, a.plan.n_split, B * a.kv_k);
     kern<<<grid, kThreads, smem, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
@@ -114,7 +121,8 @@ struct Launch {
 // bt_k, bt_v: (B, P) int32 page ids into their pools; h2c: (B, H) int32
 // with values in [0, R); pos: (B,) int32; out: (B, H, hd) fp32; m, l:
 // (B, R) fp32, or both null (finalized output; otherwise the state mode,
-// as in chai_fused_decode_launch). The split plan (n_split ranges of
+// as in chai_fused_decode_launch; ``share`` as there, v_pool then the
+// clustered pool read through bt_v). The split plan (n_split ranges of
 // ``tps`` pages), ``step`` (a divisor of the page, <= 128), the scratch
 // and n_cap as in chai_fused_decode_launch. All contiguous and 16-byte
 // aligned; hd % 8 == 0, hd <= 256. Returns the launch's cudaError_t (0 on
@@ -125,8 +133,8 @@ extern "C" int paged_chai_fused_decode_launch(
     const void* bt_v, const void* h2c, const void* pos, void* out, void* m,
     void* l, void* mp, void* lp, void* accp, void* counter, int B, int R,
     int H, int kv_k, int kv_v, int P, int page, int hd, int step, int rpg,
-    int v_rep, int window, int n_split, int tps, int n_cap, int kv_type,
-    void* stream) {
+    int v_rep, int window, int n_split, int tps, int n_cap, int share,
+    int kv_type, void* stream) {
   const Args a{static_cast<const float*>(q), k_pool, v_pool,
                static_cast<const float*>(ks_pool),
                static_cast<const float*>(vs_pool),
@@ -135,7 +143,7 @@ extern "C" int paged_chai_fused_decode_launch(
                static_cast<float*>(out), static_cast<float*>(m),
                static_cast<float*>(l), static_cast<float*>(mp),
                static_cast<float*>(lp), static_cast<float*>(accp),
-               static_cast<int*>(counter), R, H, kv_k, kv_v, P, page, hd,
+               static_cast<int*>(counter), share, R, H, kv_k, kv_v, P, page, hd,
                rpg, v_rep, window, n_cap,
                Plan{n_split, tps, P, page, step}, inv_sqrt_hd(hd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

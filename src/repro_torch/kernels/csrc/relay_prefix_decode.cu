@@ -72,7 +72,9 @@
 // and vs (G, VR, Sp)): the score blocks multiply each position's dot by
 // its K row's scale before 1/sqrt(hd), and the sum blocks dequantize each
 // V row (codes times the row's scale) before weighting it, as the Pallas
-// kernel does; a load carries 8 codes.
+// kernel does; a load carries 8 codes. Without V scales (vs null: the
+// share_values relay, whose V codes the reference reads scale-less) the
+// sum blocks weight the codes themselves; K keeps its scales.
 
 #include "chai_decode_tiles.cuh"
 
@@ -464,9 +466,11 @@ __device__ void sum_block(const Args& a, const Smem& sm, int g, int s,
             float vv[kVec];
             Vec16<T>::unpack(raw[b], vv);
             if constexpr (kIsInt8<T>) {   // dequantize before the sum
-              const float vsc = vscale[c0 + p];
+              if (vscale) {
+                const float vsc = vscale[c0 + p];
 #pragma unroll
-              for (int x = 0; x < kVec; ++x) vv[x] *= vsc;
+                for (int x = 0; x < kVec; ++x) vv[x] *= vsc;
+              }
             }
 #pragma unroll
             for (int mi = 0; mi < kSlice; ++mi) {
@@ -605,7 +609,8 @@ relay_prefix_decode_kernel(const Args a) {
 
 // q: (G, NR, hd) fp32; k: (G, KV, Sp, hd); v: (G, VR, Sp, hd), both fp32
 // (kv_type == 0), bf16 (kv_type == 1) or int8 codes (kv_type == 2, with
-// ks: (G, KV, Sp) and vs: (G, VR, Sp) fp32 row scales; else both null);
+// ks: (G, KV, Sp) and vs: (G, VR, Sp) fp32 row scales, vs may be null:
+// V codes read as values; float K/V: both null);
 // k_row: (G, NR) int32 in [0, KV);
 // a_row: (G, A) int32 in [0, NR); v_row: (G, A) int32 in [0, VR); plen:
 // (G,) int32 in [0, Sp]; m, l: (G, NR) fp32; acc: (G, A, hd) fp32. All

@@ -59,8 +59,10 @@ def chai_decode_attention(q_rep, k_cache, v_cache, h2c, pos, *,
     """q_rep: (B, R, hd); k_cache: (B, KVk, S, hd) (clustered for MHA:
     KVk == R); v_cache: (B, KVv, S, hd); h2c: (B, H) or (H,); pos: (B,).
     int8 K/V come with their scales k_scale (B, KVk, S) and v_scale (B,
-    KVv, S). Returns (B, H, hd) fp32, or with ``emit_state`` the
-    unnormalized (m (B, R), l (B, R), acc (B, H, hd)) fp32 triple."""
+    KVv, S). ``share_values``: v_cache is the clustered V (KVv == R; int8
+    codes with or without scales). Returns (B, H, hd) fp32, or with
+    ``emit_state`` the unnormalized (m (B, R), l (B, R), acc (B, H, hd))
+    fp32 triple (acc (B, R, hd) under ``share_values``)."""
     if q_rep.device.type == "cpu":
         return ref.chai_fused_decode_ref(
             q_rep, k_cache, v_cache, h2c, pos, k_scale=k_scale,
@@ -82,7 +84,8 @@ def paged_chai_decode_attention(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos,
     v_pool: (nP, KVv, page, hd) per-head V pages; bt_k/bt_v: (B, P)
     block tables; h2c: (B, H) or (H,); pos: (B,); int8 pools with their
     scale pools k_scale_pool (nP, KVk, page) and v_scale_pool (nP, KVv,
-    page). Returns (B, H, hd) fp32, or the ``emit_state`` triple."""
+    page). ``share_values``: v_pool is the clustered pool read through
+    bt_v. Returns (B, H, hd) fp32, or the ``emit_state`` triple."""
     if q_rep.device.type == "cpu":
         return ref.paged_chai_fused_decode_ref(
             q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos,
@@ -102,7 +105,8 @@ def relay_prefix_attention(q, k, v, k_row, a_row, v_row, plen, *,
     slots' rep queries stacked along one row axis, so the prefix is read
     once per group, not once per slot. q: (G, NR, hd); k: (G, KV, Sp,
     hd); v: (G, VR, Sp, hd) (int8 with their scales k_scale (G, KV, Sp)
-    and v_scale (G, VR, Sp)); k_row (G, NR), a_row/v_row (G, A) int
+    and v_scale (G, VR, Sp), or without v_scale: V codes read as values);
+    k_row (G, NR), a_row/v_row (G, A) int
     routing maps; plen (G,). Returns the (m (G, NR), l (G, NR), acc (G,
     A, hd)) fp32 state; ``ts`` is the kernel's S-tile (0: Sp)."""
     if q.device.type == "cpu":
@@ -121,11 +125,12 @@ def _gather_rows(x, h2c):
     return torch.gather(x, 1, h2c.long())
 
 
-def merge_decode_states(s1, s2, h2c):
+def merge_decode_states(s1, s2, h2c, *, share_values=False):
     """Online-softmax combine of two decode-state triples (m (B, R), l
-    (B, R), acc (B, H, hd)): a slot's suffix pass and its group's prefix
-    pass. The per-rep rescale reaches the member heads' acc rows through
-    ``h2c``. An empty side (m = NEG_INF, l = 0, acc = 0) is the exact
+    (B, R), acc (B, rows, hd)): a slot's suffix pass and its group's
+    prefix pass. The acc rows are the heads, and the per-rep rescale
+    reaches them through ``h2c``; under ``share_values`` they are the reps
+    themselves. An empty side (m = NEG_INF, l = 0, acc = 0) is the exact
     identity: the other side's m is clamped >= -1e30, so its rescale is
     exp(0) == 1 and the empty side's is exp(-2e38 - m) == 0."""
     m1, l1, acc1 = s1
@@ -133,16 +138,24 @@ def merge_decode_states(s1, s2, h2c):
     m = torch.maximum(m1, m2)
     c1 = torch.exp(m1 - m)
     c2 = torch.exp(m2 - m)
+    a1, a2 = ((c1, c2) if share_values
+              else (_gather_rows(c1, h2c), _gather_rows(c2, h2c)))
     return (m, l1 * c1 + l2 * c2,
-            acc1 * _gather_rows(c1, h2c)[..., None]
-            + acc2 * _gather_rows(c2, h2c)[..., None])
+            acc1 * a1[..., None] + acc2 * a2[..., None])
 
 
-def finalize_decode_state(state, h2c):
+def finalize_decode_state(state, h2c, *, share_values=False):
     """Normalize a decode-state triple to (B, H, hd) fp32: acc over the
     member head's rep l, the same IEEE division the kernels' finalized
-    mode does, so it is bitwise equal to it."""
+    mode does, so it is bitwise equal to it. ``share_values``: each rep
+    row over its l, then gathered to the member heads (the kernels'
+    order)."""
     _, l, acc = state
+    if share_values:
+        if h2c.ndim == 1:
+            h2c = h2c.expand(acc.shape[0], h2c.shape[0])
+        return _gather_head_rows(acc / torch.clamp(l, min=1e-37)[..., None],
+                                 h2c)
     return acc / torch.clamp(_gather_rows(l, h2c), min=1e-37)[..., None]
 
 

@@ -188,10 +188,13 @@ def make_paged_suffix_prefill(cfg: ModelConfig, max_seq: int):
 
 def make_snapshot_restore(cfg: ModelConfig):
     """CHAI snapshot resume: alias the snapshot's clustered K and dense V
-    pages into the slot's block tables and enter STEADY directly."""
-    def restore(state, slot, bt_kg_row, bt_vg_row, bt_kc_row, pos):
+    pages (``share_values``: clustered V pages, ``bt_vc_row``) into the
+    slot's block tables and enter STEADY directly."""
+    def restore(state, slot, bt_kg_row, bt_vg_row, bt_kc_row, pos,
+                bt_vc_row=None):
         return chai_cache.restore_slot_snapshot(state, slot, bt_kg_row,
-                                                bt_vg_row, bt_kc_row, pos)
+                                                bt_vg_row, bt_kc_row, pos,
+                                                bt_vc_row)
 
     return restore
 
@@ -224,14 +227,15 @@ def make_relay_step(cfg: ModelConfig, *, decode_ts=0):
 def make_paged_slot_cluster(cfg: ModelConfig, identify_fn):
     """Paged CLUSTER transition: membership, the ctx scatter, and the
     slot's representative K rows gathered from its dense pages into the
-    clustered pages ``kc_pages`` with the dense K table row nulled; the
-    engine frees those dense pages right after."""
-    def cluster_slot(state, ctx, slot, kc_pages):
+    clustered pages ``kc_pages`` with the dense K table row nulled
+    (``share_values``: its V rows into ``vc_pages`` too, the dense V row
+    nulled); the engine frees those dense pages right after."""
+    def cluster_slot(state, ctx, slot, kc_pages, vc_pages=None):
         slot_ctx = clustering.identify_membership_slot(
             state["chai_scores"][:, slot].clone(), cfg, identify_fn)
         ctx = clustering.update_ctx_slot(ctx, slot_ctx, slot)
         return chai_cache.compact_kv_slot_paged(state, slot_ctx, cfg, slot,
-                                                kc_pages), ctx
+                                                kc_pages, vc_pages), ctx
 
     return cluster_slot
 

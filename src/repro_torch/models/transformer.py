@@ -51,6 +51,10 @@ def check_supported(cfg: ModelConfig):
         raise NotImplementedError("attention logit softcap is not ported yet")
     if cfg.qk_norm:
         raise NotImplementedError("qk_norm is not ported yet")
+    if cfg.chai.share_values and not cfg.is_mha:
+        raise ValueError(f"{cfg.name}: share_values (clustered V, CHAI-QKV) "
+                         "is an MHA-only ablation; the reference's kernels "
+                         "assert reps_per_group == 1 under it")
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +325,16 @@ def paged_token_coords(bt, pos, page):
     return bt[ar, logical].long(), pos.long() % page
 
 
+def _cache_rows(new, dtype):
+    """Rows in the cache's dtype: a float row into an int8 cache without
+    scales (the share_values clustered V) takes the reference's plain
+    cast, ``core.cache.plain_int8``."""
+    if dtype == torch.int8 and new.dtype != torch.int8:
+        from repro_torch.core.cache import plain_int8
+        return plain_int8(new)
+    return new.to(dtype)
+
+
 def _paged_write_rows(pool, page_idx, row, new, write_mask, scale=None):
     """Commit one token's rows into pool pages, in place. pool: (nP, rows,
     page, hd); page_idx/row: (B,); new: (B, rows, hd). With ``scale`` (the
@@ -333,8 +347,8 @@ def _paged_write_rows(pool, page_idx, row, new, write_mask, scale=None):
         new, sc = quant_rows(new)
         scale[page_idx, :, row] = _masked_rows(write_mask, sc,
                                                scale[page_idx, :, row])
-    pool[page_idx, :, row] = _masked_rows(write_mask, new.to(pool.dtype),
-                                          pool[page_idx, :, row])
+    pool[page_idx, :, row] = _masked_rows(
+        write_mask, _cache_rows(new, pool.dtype), pool[page_idx, :, row])
 
 
 def _dense_write_rows(cache, pos, new, write_mask, scale=None):
@@ -347,7 +361,7 @@ def _dense_write_rows(cache, pos, new, write_mask, scale=None):
         from repro_torch.core.cache import quant_rows
         new, sc = quant_rows(new)
         scale[ar, :, pl] = _masked_rows(write_mask, sc, scale[ar, :, pl])
-    cache[ar, :, pl] = _masked_rows(write_mask, new.to(cache.dtype),
+    cache[ar, :, pl] = _masked_rows(write_mask, _cache_rows(new, cache.dtype),
                                     cache[ar, :, pl])
 
 

@@ -240,8 +240,11 @@ class EngineCore(CohortSchedulerMixin):
             self.dense_pool = chai_cache.PagePool(
                 ecfg.num_pages or (2 * b * p_slot + 1), ecfg.page_size)
             if self.chai_clustered:
+                # share_values: clustered K and V pages, one pool
+                share = 2 if cfg.chai.share_values else 1
                 self.chai_pool = chai_cache.PagePool(
-                    ecfg.num_chai_pages or (b * p_slot + 1), ecfg.page_size)
+                    ecfg.num_chai_pages or (share * b * p_slot + 1),
+                    ecfg.page_size)
         # Shared-prefix KV reuse (paged layout only).
         self.prefix_cache = None
         if ecfg.kv_offload:
@@ -505,7 +508,17 @@ class EngineCore(CohortSchedulerMixin):
         return min(n, self._slot_pages_max)
 
     def _chai_pages_per(self, n: int) -> int:
-        return n if self.chai_clustered else 0
+        """Clustered pages of a request of ``n`` logical pages: its K, and
+        under share_values its V too."""
+        if not self.chai_clustered:
+            return 0
+        return n * (2 if self.cfg.chai.share_values else 1)
+
+    def _alloc_chai(self, pages: dict, n: int):
+        """Reserve ``n`` clustered K pages (and V pages, share_values)."""
+        pages["kc"] = self.chai_pool.alloc(n)
+        if self.cfg.chai.share_values:
+            pages["vc"] = self.chai_pool.alloc(n)
 
     def _alloc_pages(self, n: int) -> dict:
         """Allocate a cold request's ``n`` dense K and V pages and reserve
@@ -514,12 +527,12 @@ class EngineCore(CohortSchedulerMixin):
         pages = {"kg": self.dense_pool.alloc(n),
                  "vg": self.dense_pool.alloc(n)}
         if self.chai_clustered:
-            pages["kc"] = self.chai_pool.alloc(n)
+            self._alloc_chai(pages, n)
         return pages
 
     def _free_pages(self, pages: dict):
         for key, pool in (("kg", self.dense_pool), ("vg", self.dense_pool),
-                          ("kc", self.chai_pool)):
+                          ("kc", self.chai_pool), ("vc", self.chai_pool)):
             if key in pages:
                 pool.free(pages.pop(key))
 
@@ -595,7 +608,7 @@ class EngineCore(CohortSchedulerMixin):
         self.dense_pool.incref(vg_alias)
         pages = {"kg": kg_alias + kg_fresh, "vg": vg_alias + vg_fresh}
         if self.chai_clustered:
-            pages["kc"] = self.chai_pool.alloc(n)
+            self._alloc_chai(pages, n)
         null = [chai_cache.NULL_PAGE] * n_m
         return {"kind": "prefix", "pages": pages, "locked": matched,
                 "prefix_len": n_m * self.ecfg.page_size,
@@ -605,24 +618,28 @@ class EngineCore(CohortSchedulerMixin):
     def _plan_snapshot(self, req, snap):
         """Resume from a CHAI snapshot: share its full pages, copy its
         partial tail page (copy-on-write), allocate headroom for the rest
-        of the generation, and enter STEADY directly."""
+        of the generation, and enter STEADY directly. Under share_values
+        the V pages are clustered ones too (no dense page at all)."""
         cache = self.prefix_cache
+        share = self.cfg.chai.share_values
         n = self._pages_for(req)
         p_full, rem = divmod(snap.pos, self.ecfg.page_size)
         cache.lock([snap])
-        if not self._pool_space(n - p_full, n - p_full):
+        if not self._pool_space(0 if share else n - p_full,
+                                self._chai_pages_per(n - p_full)):
             cache.unlock([snap])
             return None
         copies = []     # (pool kind, src physical page, dst physical page)
-        vg_fresh = self.dense_pool.alloc(n - p_full)
-        self.dense_pool.incref(snap.vg_pages[:p_full])
-        kc_fresh = self.chai_pool.alloc(n - p_full)
-        self.chai_pool.incref(snap.kc_pages[:p_full])
-        pages = {"vg": snap.vg_pages[:p_full] + vg_fresh,
-                 "kc": snap.kc_pages[:p_full] + kc_fresh}
-        if rem:
-            copies.append(("dense", snap.vg_pages[p_full], vg_fresh[0]))
-            copies.append(("chai", snap.kc_pages[p_full], kc_fresh[0]))
+        pages = {}
+        for key, kind, pool, held in (
+                ("kc", "chai", self.chai_pool, snap.kc_pages),
+                ("vc", "chai", self.chai_pool, snap.vc_pages) if share
+                else ("vg", "dense", self.dense_pool, snap.vg_pages)):
+            fresh = pool.alloc(n - p_full)
+            pool.incref(held[:p_full])
+            pages[key] = held[:p_full] + fresh
+            if rem:
+                copies.append((kind, held[p_full], fresh[0]))
         return {"kind": "snapshot", "snapshot": snap, "pages": pages,
                 "locked": [snap], "copies": copies}
 
@@ -646,40 +663,42 @@ class EngineCore(CohortSchedulerMixin):
 
     def _capture_snapshot(self, slot, req, pages):
         """Capture the slot's STEADY-entry state (membership, clustered K
-        pages, dense V pages, warmup tokens) keyed by its full prompt. Full
-        pages are shared (incref); the partial tail page, which the running
-        slot keeps writing, is copied. Skipped when the pools cannot spare
-        the copies."""
+        pages, dense V pages or, under share_values, clustered V pages,
+        warmup tokens) keyed by its full prompt. Full pages are shared
+        (incref); the partial tail page, which the running slot keeps
+        writing, is copied. Skipped when the pools cannot spare the
+        copies."""
         cache = self.prefix_cache
         key = tuple(int(t) for t in req.prompt)
         if cache.snapshot_for(key) is not None:
             return
+        share = self.cfg.chai.share_values
         warm = self.cfg.chai.warmup_tokens
         pos_steady = len(req.prompt) + warm
         p_full, rem = divmod(pos_steady, self.ecfg.page_size)
         n_copy = 1 if rem else 0
-        if not self._pool_space(n_copy, n_copy):
+        if not self._pool_space(0 if share else n_copy,
+                                self._chai_pages_per(n_copy)):
             return
-        vg_pages = list(pages["vg"][:p_full])
-        kc_pages = list(pages["kc"][:p_full])
-        self.dense_pool.incref(vg_pages)
-        self.chai_pool.incref(kc_pages)
-        if rem:
-            for kind, pool, src, dst_list in (
-                    ("dense", self.dense_pool, pages["vg"][p_full],
-                     vg_pages),
-                    ("chai", self.chai_pool, pages["kc"][p_full],
-                     kc_pages)):
+        held = {"vg": [], "kc": [], "vc": []}
+        for name, kind, pool in (
+                ("kc", "chai", self.chai_pool),
+                ("vc", "chai", self.chai_pool) if share
+                else ("vg", "dense", self.dense_pool)):
+            held[name] = list(pages[name][:p_full])
+            pool.incref(held[name])
+            if rem:
                 [dst] = pool.alloc(1)
-                self._dev_state = self._copy_page[kind](self._dev_state,
-                                                        src, dst)
-                dst_list.append(dst)
+                self._dev_state = self._copy_page[kind](
+                    self._dev_state, pages[name][p_full], dst)
+                held[name].append(dst)
         slot_ctx = {k: np.array(v[:, slot].cpu())      # a copy: the ctx
                     for k, v in self._dev_ctx.items()}   # is updated in place
         cache.add_snapshot(ChaiSnapshot(
             prompt=key, pos=pos_steady,
             tokens=list(req.generated[:warm + 1]), ctx=slot_ctx,
-            vg_pages=vg_pages, kc_pages=kc_pages))
+            vg_pages=held["vg"], kc_pages=held["kc"],
+            vc_pages=held["vc"]))
 
     def _record_kv_bytes(self):
         bytes_now = self.kv_bytes()
@@ -775,8 +794,9 @@ class EngineCore(CohortSchedulerMixin):
                                                         src, dst)
             self._dev_state = self._restore_snapshot(
                 self._dev_state, i, self._page_vec([]),
-                self._page_vec(pages["vg"]), self._page_vec(pages["kc"]),
-                snap.pos)
+                self._page_vec(pages.get("vg", [])),
+                self._page_vec(pages["kc"]), snap.pos,
+                self._page_vec(pages.get("vc", [])))
             clustering.update_ctx_slot(
                 self._dev_ctx, {k: torch.from_numpy(v).to(self.device)
                                 for k, v in snap.ctx.items()}, i)
@@ -895,8 +915,9 @@ class EngineCore(CohortSchedulerMixin):
 
     def _cluster_transitions(self, active):
         """CLUSTER + compact the slots whose warmup just completed; paged:
-        the slot's dense K pages return to the pool here, after the prefix
-        cache (when on) captured the slot's CHAI snapshot."""
+        the slot's dense K pages (and, under share_values, its dense V
+        pages) return to the pool here, after the prefix cache (when on)
+        captured the slot's CHAI snapshot."""
         if not self.chai_on:
             return
         warm = self.cfg.chai.warmup_tokens
@@ -909,7 +930,8 @@ class EngineCore(CohortSchedulerMixin):
             if self.paged:
                 self._dev_state, self._dev_ctx = self._cluster_fn()(
                     self._dev_state, self._dev_ctx, i,
-                    self._page_vec(self._slot_pages[i].get("kc", [])))
+                    self._page_vec(self._slot_pages[i].get("kc", [])),
+                    self._page_vec(self._slot_pages[i].get("vc", [])))
                 self._ctx_version += 1
                 if (self.prefix_cache is not None and self.chai_clustered
                         and self._slot_req[i].sampling.greedy):
@@ -917,6 +939,8 @@ class EngineCore(CohortSchedulerMixin):
                                            self._slot_pages[i])
                 if self.chai_clustered:
                     self.dense_pool.free(self._slot_pages[i].pop("kg"))
+                    if self.cfg.chai.share_values:
+                        self.dense_pool.free(self._slot_pages[i].pop("vg"))
                 self._record_kv_bytes()
             else:
                 self._dev_state, self._dev_ctx = self._cluster_fn()(
@@ -1048,7 +1072,10 @@ class EngineCore(CohortSchedulerMixin):
         version, membership). Member j of a group owns query rows
         [j*R, (j+1)*R) and acc rows [j*H, (j+1)*H). MHA (R = k_max reps):
         query row j*R + i reads the chain's dense K row reps[i]; head h
-        reads query row j*R + h2c[h] and V row h. GQA (R = KV * r reps,
+        reads query row j*R + h2c[h] and V row h; under share_values the
+        member owns acc rows [j*R, (j+1)*R) instead, acc row j*R + i
+        reading query row j*R + i and the dense V row reps[i] (the h2c
+        broadcast then happens at the finalize). GQA (R = KV * r reps,
         r per KV group): query row j*R + g*r + i reads its group's K row
         g; head h of group g reads query row j*R + g*r + cluster_of[g,
         h % qpk] and V row g. Padded member entries keep index 0: their
@@ -1059,11 +1086,18 @@ class EngineCore(CohortSchedulerMixin):
                 and self._relay_rows_cache[0] == key):
             return self._relay_rows_cache[1]
         ctx = self._ctx_host()
-        if self.cfg.is_mha:
+        if self.cfg.is_mha and self.cfg.chai.share_values:
+            k_rows = v_rows = ctx["reps"]             # (nA, B, R)
+            n_a, b, r = k_rows.shape
+            h = r                                     # acc rows: the reps
+            a_rows = np.broadcast_to(np.arange(r, dtype=np.int32),
+                                     (n_a, b, r))
+        elif self.cfg.is_mha:
             k_rows, a_rows = ctx["reps"], ctx["h2c"]  # (nA, B, R), (nA, B, H)
-            n_a, _, r = k_rows.shape
+            n_a, b, r = k_rows.shape
             h = a_rows.shape[-1]
-            v_rows = np.arange(h, dtype=np.int32)
+            v_rows = np.broadcast_to(np.arange(h, dtype=np.int32),
+                                     (n_a, b, h))
         else:
             # reps (nA, B, KV, r), cluster_of (nA, B, KV, qpk)
             cluster_of = ctx["cluster_of"]
@@ -1073,7 +1107,7 @@ class EngineCore(CohortSchedulerMixin):
             group = np.arange(n_kv, dtype=np.int32)
             k_rows = np.broadcast_to(np.repeat(group, r_g), (n_a, b, r))
             a_rows = (group[:, None] * r_g + cluster_of).reshape(n_a, b, h)
-            v_rows = np.repeat(group, qpk)
+            v_rows = np.broadcast_to(np.repeat(group, qpk), (n_a, b, h))
         n_g = len(groups)
         k_row = np.zeros((n_a, n_g, nmax * r), np.int32)
         a_row = np.zeros((n_a, n_g, nmax * h), np.int32)
@@ -1082,7 +1116,7 @@ class EngineCore(CohortSchedulerMixin):
             for j, slot in enumerate(grp["members"]):
                 k_row[:, g, j * r:(j + 1) * r] = k_rows[:, slot]
                 a_row[:, g, j * h:(j + 1) * h] = j * r + a_rows[:, slot]
-                v_row[:, g, j * h:(j + 1) * h] = v_rows
+                v_row[:, g, j * h:(j + 1) * h] = v_rows[:, slot]
         maps = {name: torch.from_numpy(x).to(self.device)
                 for name, x in (("k_row", k_row), ("a_row", a_row),
                                 ("v_row", v_row))}

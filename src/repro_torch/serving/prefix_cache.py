@@ -87,8 +87,10 @@ class ChaiSnapshot:
     pos: int
     tokens: List[int]
     ctx: Dict[str, np.ndarray]
-    vg_pages: List[int]            # dense pool
+    vg_pages: List[int]            # dense pool ([] under share_values)
     kc_pages: List[int]            # clustered pool
+    vc_pages: List[int] = dataclasses.field(default_factory=list)
+    # ^ clustered pool: the clustered V pages (share_values only)
     locks: int = 0
     evicted: bool = False
 
@@ -154,7 +156,7 @@ class PrefixCache:
             stack.extend(node.children.values())
         for snap in self._snapshots.values():
             dense += len(snap.vg_pages)
-            chai += len(snap.kc_pages)
+            chai += len(snap.kc_pages) + len(snap.vc_pages)
         return dense, chai
 
     # -- dense block index -------------------------------------------------
@@ -245,6 +247,8 @@ class PrefixCache:
                 self.dense_pool.free(entry.vg_pages)
             if entry.kc_pages:
                 self.chai_pool.free(entry.kc_pages)
+            if entry.vc_pages:
+                self.chai_pool.free(entry.vc_pages)
         else:
             self.dense_pool.free([entry.kg_page])
             self.dense_pool.free([entry.vg_page])
@@ -269,15 +273,18 @@ class PrefixCache:
 
     def _evict_one(self, want_dense=True, want_chai=True) -> bool:
         """Drop the least recently used evictable entry that holds pages
-        of a wanted pool (nodes hold dense pages only). Returns False when
-        nothing evictable matches."""
+        of a wanted pool (nodes hold dense pages only). The pool targeting
+        matters under share_values: its snapshots hold no dense page, and
+        dropping one for dense pressure would free nothing wanted. Returns
+        False when nothing evictable matches."""
         victim = None
         for entry in self._lru.values():
             if isinstance(entry, BlockNode):
                 holds = want_dense
             else:
                 holds = ((want_dense and bool(entry.vg_pages))
-                         or (want_chai and bool(entry.kc_pages)))
+                         or (want_chai and bool(entry.kc_pages
+                                                or entry.vc_pages)))
             if holds:
                 victim = entry
                 break

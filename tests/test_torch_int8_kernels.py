@@ -24,8 +24,9 @@ the reference's structs; ``compact_kv``, ``compact_kv_slot`` and
 scales); the insert and page-copy steps carrying scales; the KV-bytes
 accounting equal to the reference's (1 + 4 / hd bytes an element; a bf16
 model at hd 128 pays 132 / 256 of its page bytes). The wrappers refuse
-int8 K/V without their scales, and ``share_values`` with int8 still
-raises naming ROADMAP Queue 1 #3.
+int8 K/V without their scales; ``share_values`` with int8 has the
+reference's state shapes (``test_share_values_with_int8_still_raises``,
+the name it had while the flag was refused).
 """
 import numpy as np
 import pytest
@@ -240,7 +241,10 @@ def _meta(*shape, dtype=torch.float32):
 def test_int8_wrappers_refuse_unpaired_scales(kw):
     """K and V are int8 together, each with fp32 scales of its shape
     without the last axis; the check comes before the device check, so it
-    holds on ``meta`` tensors, and nothing launches."""
+    holds on ``meta`` tensors, and nothing launches. The relay kernel alone
+    takes int8 V without its scales (the share_values relay reads V codes
+    as values, as the reference does): "one_scale" reaches its device
+    check."""
     k = _meta(2, 5, 64, 16, dtype=kw["k_dt"])
     v = _meta(2, 8, 64, 16, dtype=kw["v_dt"])
     ks = _meta(2, 5, 64) if kw.get("ks") else None
@@ -251,7 +255,10 @@ def test_int8_wrappers_refuse_unpaired_scales(kw):
     before = dict(tck.LAUNCHES)
     with pytest.raises(ValueError, match="scale"):
         tck.chai_fused_decode(*args, k_scale=ks, v_scale=vs)
-    with pytest.raises(ValueError, match="scale"):
+    relay_refuses = not (kw.get("ks") and not kw.get("vs")
+                         and kw["v_dt"] == torch.int8)
+    with pytest.raises(ValueError,
+                       match="scale" if relay_refuses else "CUDA"):
         tck.relay_prefix_decode(
             _meta(2, 5, 16), k, v, _meta(2, 5, dtype=torch.int32),
             _meta(2, 8, dtype=torch.int32), _meta(2, 8, dtype=torch.int32),
@@ -450,13 +457,27 @@ def test_int8_kv_bytes_match_reference(arch):
 
 
 def test_share_values_with_int8_still_raises():
-    _, tcfg = _cfgs("chai-llama-7b")
+    """``share_values`` under int8 is ported: its state shapes on every
+    layout equal the reference's (the clustered V ``vg_chai`` in int8
+    codes with no scale tensor of its own; ``bt_vc`` on the paged
+    layout)."""
+    jcfg, tcfg = _cfgs("chai-llama-7b")
+    jcfg = jcfg.with_chai(share_values=True)
     tcfg = tcfg.with_chai(share_values=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 #3"):
-        tcache.unified_state_shapes(tcfg, 2, 64)
-    with pytest.raises(NotImplementedError, match="Queue 1 #3"):
-        tcache.paged_state_shapes(tcfg, 2, 64, page_size=PAGE,
-                                  dense_pages=5, chai_pages=3)
+    b, s = 2, 64
+    want = _shapes_of_structs(jcache.unified_state_structs(jcfg, b, s)[0])
+    assert _shapes_of_table(tcache.unified_state_shapes(tcfg, b, s)) == want
+    assert want["vg_chai"][1] == "int8" and "vg_chai_scale" not in want
+    kw = dict(page_size=PAGE, dense_pages=5, chai_pages=3)
+    want = _shapes_of_structs(jcache.paged_state_structs(jcfg, b, s,
+                                                         **kw)[0])
+    assert _shapes_of_table(tcache.paged_state_shapes(tcfg, b, s,
+                                                      **kw)) == want
+    assert "bt_vc" in want
+    want = _shapes_of_structs(jcache.chai_state_structs(jcfg, b, s)[0])
+    got = tcache.init_chai_state(tcfg, b, s, "cpu")
+    assert {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+            for k, v in got.items()} == want
 
 
 def test_quant_rows_bitwise_matches_reference(rng):

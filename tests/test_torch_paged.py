@@ -305,21 +305,23 @@ def test_paged_kernel_path_refuses_unported_flags(flag):
     """A non-CPU tensor goes to the kernel, which raises on what it does
     not carry — never to the plain version. The int8 scale pools are
     ported (flag3, flag4: int8 pools with their scale pools, finalized
-    and state mode): they pass the refusal and reach the device check."""
+    and state mode) and so is ``share_values`` (flag2: the clustered V
+    pool, R rows): they pass the refusal and reach the device check."""
     meta = dict(device="meta")
     int8 = "k_scale_pool" in flag
+    share = flag.get("share_values", False)
     kv_dt = dict(dtype=torch.int8) if int8 else {}
     args = (torch.empty(2, 5, 16, **meta),
             torch.empty(9, 5, PAGE, 16, **kv_dt, **meta),
             torch.empty(2, 4, dtype=torch.int32, **meta),
-            torch.empty(9, 8, PAGE, 16, **kv_dt, **meta),
+            torch.empty(9, 5 if share else 8, PAGE, 16, **kv_dt, **meta),
             torch.empty(2, 4, dtype=torch.int32, **meta),
             torch.empty(2, 8, dtype=torch.int32, **meta),
             torch.empty(2, dtype=torch.int32, **meta))
     flag = {n: (torch.empty(9, 5 if n == "k_scale_pool" else 8, PAGE, **meta)
                 if v == "scale" else v) for n, v in flag.items()}
     before = dict(tck.LAUNCHES)
-    if int8:
+    if int8 or share:
         with pytest.raises(ValueError, match="CUDA"):
             tops.paged_chai_decode_attention(*args, **flag)
     else:
