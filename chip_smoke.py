@@ -109,11 +109,43 @@ result line):
    scale-less int8 V); the fused pair held on each run's first
    all-STEADY layer-0 tensors and the relay kernel on the first relay
    step's;
-13. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
+13. local-attention rings and the softcap, after chai-llama-7b and
+   nemotron-4-15b are freed: full-width gemma2-9b (42 layers alternating
+   local and global, 16 heads over 8 KV heads, head_dim 224, window
+   4096, softcaps 50 / 30; bf16, random weights from a seed) through the
+   cohort on phase 5's traffic and the continuous engine on phase 6's,
+   paged then dense, each followed by its MHA baseline: the layout's
+   fused kernel launched in its softcap mode 21 times a step with a
+   STEADY slot (the global layers) and nothing else, the local layers
+   decoding eagerly over their rings; the baselines launch nothing (the
+   flash decode kernels have no softcap; every layer eager); paged ==
+   dense tokens; ``kv_bytes()`` on the reference's formula with the
+   rings; empty pools; the fused pair held at 2e-5 on the first
+   all-STEADY step's layer-0 global tensors. Then full-width
+   h2o-danube-1.8b (24 local layers, 32 heads over 8, head_dim 80) in a
+   max_seq of 8192 with a 5000-token prompt (its ring wraps; the
+   cohort's bucket is 8192): the cohort, then the continuous engine on
+   the unified layout (no global layer, nothing paged), greedy tokens of
+   the two schedulers held equal on margin-checked steps;
+14. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
    each of the four int8 modes, its launches those of its phase-11 path,
-   and a ``[share]`` row for each of the three share modes, its launches
-   those of its phase-12 path), the card's name and power limit, and,
-   last, ``{"ok": true, "device": {...}}``.
+   a ``[share]`` row for each of the three share modes, its launches
+   those of its phase-12 path, and a ``[softcap]`` row for each of the
+   two softcap modes, its launches those of its gemma2 path in phase
+   13), the card's name and power limit, and, last, ``{"ok": true,
+   "device": {...}}``.
+
+Phase 3 also holds the softcap mode of ``chai_fused_decode`` and
+``paged_chai_fused_decode`` (``softcap_kernel_checks``) in every other
+mode, at hd 128 (chai-llama-7b's MHA and nemotron's GQA shapes) and hd
+224 (gemma2's: its GQA shape, 16 heads over 8 groups of 2 reps, and an
+MHA one): bf16 at cap 50 with several splits, a WARMUP-like row, fp32 at
+cap 5, int8 K/V with scales, share_values bf16 and int8, GQA bf16 and
+int8, and one gemma2 row of S = 65,536; each at 2e-5 against its plain
+version (the state too), paged == dense, two launches and emit + empty
+merge + finalize ``torch.equal``, the capped output unequal to the
+uncapped one, with its times and bound (the uncapped mode beside on the
+two bf16 split cases).
 
 Phase 3 also holds the int8 modes of ``chai_fused_decode``,
 ``paged_chai_fused_decode``, ``relay_prefix_decode`` and
@@ -458,7 +490,8 @@ def _row_bytes(k, hd, scaled=True):
         4 if k.dtype == torch.int8 and scaled else 0)
 
 
-def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=(), share=False):
+def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=(), share=False,
+                       softcap=False):
     """Least time for the work these inputs need: K rows of reps that
     have members and every head's V row, positions 0..pos, read once
     (``k``/``v`` give the element size and the V row count: a dense cache
@@ -466,7 +499,9 @@ def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=(), share=False):
     pos and the block ``tables`` read and the (B, H, hd) fp32 output
     written once; the QK and AV multiply-adds in fp32. ``share``
     (share_values): the V rows are the reps' (those with members, as the
-    K rows), int8 V codes without scales, and AV runs once per rep."""
+    K rows), int8 V codes without scales, and AV runs once per rep.
+    ``softcap``: three more fp32 operations a score (a division, a tanh
+    counted as one, a product)."""
     b, _, hd = q.shape
     h = h2c.shape[1]
     row = _row_bytes(k, hd)
@@ -481,6 +516,8 @@ def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=(), share=False):
         n_bytes += k_rows * n * row + (reps if share else v.shape[1]) * n \
             * v_row
         flops += 2 * (reps + (reps if share else h)) * n * hd
+        if softcap:
+            flops += 3 * reps * n
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -578,13 +615,13 @@ def to_pages(gen, x, n_extra=7, scale=None):
 
 def paged_decode_case(q, k_pool, bt_k, v_pool, bt_v, h2c, pos, *, rpg,
                       k_scale_pool=None, v_scale_pool=None,
-                      share_values=False):
+                      share_values=False, softcap=0.0):
     """Paged kernel vs its plain version and, bitwise, vs the dense
     kernel on the densified pools (and int8 scale pools) at tile = page;
     returns (max_abs_err, ms, plain_ms)."""
     args = (q, k_pool, bt_k, v_pool, bt_v, h2c, pos)
     pools = dict(k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool,
-                 share_values=share_values)
+                 share_values=share_values, softcap=softcap)
     out = ck.paged_chai_fused_decode(*args, reps_per_group=rpg, **pools)
     torch.cuda.synchronize()
     want = kref.paged_chai_fused_decode_ref(*args, reps_per_group=rpg,
@@ -601,7 +638,8 @@ def paged_decode_case(q, k_pool, bt_k, v_pool, bt_v, h2c, pos, *, rpg,
     dense = ck.chai_fused_decode(
         q, kref.gather_pages_ref(k_pool, bt_k),
         kref.gather_pages_ref(v_pool, bt_v), h2c, pos, reps_per_group=rpg,
-        ts=k_pool.shape[2], share_values=share_values, **scales)
+        ts=k_pool.shape[2], share_values=share_values, softcap=softcap,
+        **scales)
     torch.cuda.synchronize()
     if not torch.equal(out, dense):
         raise AssertionError("paged kernel differs from the dense kernel "
@@ -1182,7 +1220,8 @@ def _bitwise(name, got, want):
 
 
 def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
-                    k_scale=None, v_scale=None, profile=False, share=False):
+                    k_scale=None, v_scale=None, profile=False, share=False,
+                    softcap=0.0):
     """Both fused kernels on one input, the same K/V also on shuffled
     pool pages (rows ``null_k_rows`` with an all-null K table, as a
     WARMUP row of a mixed step): each against the plain version (2e-5),
@@ -1194,7 +1233,10 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
     time (a ``torch.profiler`` trace) and single-call time. ``share``:
     the share_values mode (v: the clustered V, (B, R, S, hd); int8 V
     codes come without ``v_scale``; a null row's V table is all null too,
-    as a WARMUP row's ``bt_vc``). Returns {kernel: record}."""
+    as a WARMUP row's ``bt_vc``). ``softcap``: the softcap mode, and then
+    also each kernel's state (emit_state) against the plain version's (m,
+    l and the finalized rows), and the capped output unequal to the same
+    launch's without the cap. Returns {kernel: record}."""
     k_pool, bt_k, *ks_pool = to_pages(gen, k, scale=k_scale)
     v_pool, bt_v, *vs_pool = to_pages(gen, v, scale=v_scale)
     ks_pool, vs_pool = (x[0] if x else None for x in (ks_pool, vs_pool))
@@ -1210,18 +1252,22 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
                 if t is not None}
     paged_sc = dict(k_scale_pool=ks_pool, v_scale_pool=vs_pool)
     mode = dict(share_values=True) if share else {}
+    capkw = dict(softcap=softcap) if softcap else {}
     pa = (q, k_pool, bt_k, v_pool, bt_v, h2c, pos)
     calls = {
-        "chai_fused_decode": lambda emit=False: ck.chai_fused_decode(
-            q, kd, vd, h2c, pos, reps_per_group=rpg, ts=PAGE,
-            emit_state=emit, **dense_sc, **mode),
-        "paged_chai_fused_decode": lambda emit=False: (
+        "chai_fused_decode": lambda emit=False, cap=capkw: (
+            ck.chai_fused_decode(q, kd, vd, h2c, pos, reps_per_group=rpg,
+                                 ts=PAGE, emit_state=emit, **dense_sc,
+                                 **mode, **cap)),
+        "paged_chai_fused_decode": lambda emit=False, cap=capkw: (
             ck.paged_chai_fused_decode(*pa, reps_per_group=rpg,
-                                       emit_state=emit, **paged_sc, **mode))}
+                                       emit_state=emit, **paged_sc, **mode,
+                                       **cap))}
     want = kref.paged_chai_fused_decode_ref(*pa, reps_per_group=rpg,
-                                            **paged_sc, **mode)
+                                            **paged_sc, **mode, **capkw)
     plain = lambda: kref.chai_fused_decode_ref(  # noqa: E731
-        q, kd, vd, h2c, pos, reps_per_group=rpg, **dense_sc, **mode)
+        q, kd, vd, h2c, pos, reps_per_group=rpg, **dense_sc, **mode,
+        **capkw)
     acc_rows = q.shape[1] if share else h2c.shape[1]
     outs, states = {}, {}
     for name, call in calls.items():
@@ -1243,8 +1289,21 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
     if share:
         _hold(_share_per_l(states["chai_fused_decode"]),
               _share_per_l(kref.chai_fused_decode_ref(
-                  q, kd, vd, h2c, pos, emit_state=True, **dense_sc,
-                  **mode)))
+                  q, kd, vd, h2c, pos, reps_per_group=rpg, emit_state=True,
+                  **dense_sc, **mode, **capkw)))
+    elif softcap:
+        want_st = kref.chai_fused_decode_ref(
+            q, kd, vd, h2c, pos, reps_per_group=rpg, emit_state=True,
+            **dense_sc, **capkw)
+        for name, st in states.items():
+            _hold((st[0], st[1], kops.finalize_decode_state(st, h2c)),
+                  (want_st[0], want_st[1],
+                   kops.finalize_decode_state(want_st, h2c)))
+    if softcap:
+        for name, call in calls.items():
+            if torch.equal(call(cap={}), outs[name]):
+                raise AssertionError(f"{tag} {name}: the softcap changed no "
+                                     "output bit")
     cfg, _ = ck.dense_launch_config(q, kd, h2c, reps_per_group=rpg, ts=PAGE,
                                     share_values=share)
     lib_smem = build.load("chai_fused_decode").chai_decode_smem_bytes(
@@ -1259,11 +1318,12 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
         kk, vv, tables = ((kd, vd, ()) if name == "chai_fused_decode"
                           else (k_pool, v_pool, (bt_k, bt_v)))
         bound, by = fused_decode_bound(q, kk, vv, h2c, pos, rpg,
-                                       tables=tables, share=share)
+                                       tables=tables, share=share,
+                                       softcap=bool(softcap))
         recs[name] = dict(
             case=tag, q=list(q.shape), k=list(k.shape), v=list(v.shape),
             dtype=str(k.dtype), page=PAGE, rpg=rpg, pos=pos.tolist(),
-            share_values=share,
+            share_values=share, softcap=softcap,
             n_split=cfg.n_split, tiles_per_split=cfg.tiles_per_split,
             smem_bytes=cfg.smem_bytes,
             max_abs_err=_hold(outs[name], want), ms=time_ms(call),
@@ -1648,6 +1708,99 @@ def share_kernel_checks():
             f"{rec['single_call_ms']:.4f} ms (K-only "
             f"{rec['konly_single_call_ms']:.4f}), bound "
             f"{rec['bound_ms']:.4f} ms (K-only {rec['konly_bound_ms']:.4f})")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------ phase 3: the softcap mode ----
+GEMMA = "gemma2-9b"            # local + global layers, softcaps, hd 224
+DANUBE = "h2o-danube-1.8b"     # all local, window 4096, hd 80
+
+
+def softcap_kernel_checks():
+    """The softcap mode of the fused pair in every other mode, at hd 128
+    (chai-llama-7b's MHA shape, 32 heads over k_max = 25 reps, and
+    nemotron's GQA, 48 over 8 groups of 5 reps) and at hd 224 (gemma2's:
+    MHA over 16 heads and 12 reps, and its GQA, 16 heads over 8 groups of
+    2 reps): bf16 with several splits (gemma2's cap 50), a WARMUP-like
+    row, fp32 at a live cap of 5, int8 K/V with scales, share_values
+    bf16 and int8 (raw V codes), GQA bf16 and int8, and at hd 224 one row
+    of S = 65,536. Each through ``fused_pair_case(softcap=...)``: both
+    kernels at 2e-5 against the plain version, the state too, paged ==
+    dense, two launches and emit + identity merge + finalize
+    ``torch.equal``, capped unequal to uncapped; the two bf16 main shapes
+    also uncapped beside (device, back-to-back and single times, bound).
+    Returns {kernel: [records]}."""
+    gen = torch.Generator("cuda").manual_seed(12)
+    dev = "cuda"
+    out = {"chai_fused_decode": [], "paged_chai_fused_decode": []}
+    shapes = {128: dict(mha=dict(h=32, kv=get_config(ARCH).k_max, rpg=1),
+                        gqa=dict(h=48, kv=8, rpg=5)),
+              224: dict(mha=dict(h=16, kv=12, rpg=1),
+                        gqa=dict(h=16, kv=8, rpg=2))}
+    grid = []
+    for hd in (128, 224):
+        grid += [
+            (hd, "mha", "bf16_splits", 4, MAX_SEQ, torch.bfloat16, 50.0,
+             dict(beside=True, pos=(1023, 1000, 900, 885))),
+            (hd, "mha", "bf16_warmup_row", 4, MAX_SEQ, torch.bfloat16, 50.0,
+             dict(warm=True)),
+            (hd, "mha", "fp32_cap5", 4, MAX_SEQ, torch.float32, 5.0, {}),
+            (hd, "mha", "int8", 4, MAX_SEQ, "int8", 5.0, {}),
+            (hd, "mha", "share_bf16", 4, MAX_SEQ, torch.bfloat16, 50.0,
+             dict(share=True, warm=True)),
+            (hd, "mha", "share_int8", 4, MAX_SEQ, "int8", 5.0,
+             dict(share=True)),
+            (hd, "gqa", "bf16", 4, MAX_SEQ, torch.bfloat16, 50.0,
+             dict(beside=hd == 224)),
+            (hd, "gqa", "int8", 4, MAX_SEQ, "int8", 5.0, {})]
+    grid.append((224, "gqa", "bf16_long_65536", 1, 65536, torch.bfloat16,
+                 50.0, dict(pos=(65535,))))
+    for hd, kind, name, b, s, dtype, cap, opt in grid:
+        tag = f"softcap_hd{hd}_{kind}_{name}"
+        kw = shapes[hd][kind]
+        int8 = dtype == "int8"
+        q, k, v, h2c, p = synthetic_case(
+            gen, b=b, s=s, hd=hd, empty_rep=7 if kw["rpg"] == 1 else None,
+            dtype=torch.float32 if int8 else dtype, **kw)
+        if "pos" in opt:
+            p = torch.tensor(opt["pos"], dtype=torch.int32, device=dev)
+        if opt.get("warm"):
+            h2c[1] = 0
+        # scores of a few units: a live cap of 5 bends them hard, gemma2's
+        # 50 a little; the inputs are scaled up so 50 is live too
+        q = q * 4
+        scales = {}
+        if opt.get("share"):
+            v = (torch.randint(-127, 128, (b, kw["kv"], s, hd), generator=gen,
+                               device=dev, dtype=torch.int8) if int8
+                 else torch.randn(b, kw["kv"], s, hd, generator=gen,
+                                  device=dev).to(dtype))
+        if int8:
+            k, ks, _ = _quantized(k)
+            scales["k_scale"] = ks
+            if not opt.get("share"):
+                v, vs, _ = _quantized(v)
+                scales["v_scale"] = vs
+        recs = fused_pair_case(
+            tag, q, k, v, h2c, p, rpg=kw["rpg"], gen=gen,
+            null_k_rows=(1,) if opt.get("warm") else (), profile=True,
+            share=bool(opt.get("share")), softcap=cap, **scales)
+        if opt.get("beside"):
+            plain = fused_pair_case(f"{tag}_uncapped_beside", q, k, v, h2c,
+                                    p, rpg=kw["rpg"], gen=gen, profile=True,
+                                    **scales)
+            for name_k in recs:
+                _beside(recs[name_k], plain[name_k], "uncapped")
+        for name_k, rec in recs.items():
+            out[name_k].append(rec)
+            log(f"{name_k} {tag} [softcap {cap}]: device {rec['device_ms']}"
+                f" ms (uncapped {rec.get('uncapped_device_ms')}), back to "
+                f"back {rec['ms']:.4f} ms, single call "
+                f"{rec['single_call_ms']:.4f} ms, bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max_abs_err "
+                f"{rec['max_abs_err']:.3e}")
         del q, k, v
         torch.cuda.empty_cache()
     return out
@@ -2530,15 +2683,17 @@ class _Capture:
     keeps a copy of a decode op's inputs (layer 0 of the step) the first
     time ``when()`` names a step kind, under (op, kind), with the value
     ``note()`` gives; every call goes on to the real dispatch. ``modes``
-    counts the calls by (op, share_values)."""
+    counts the calls by (op, share_values), ``caps`` by (op, softcap)."""
 
     def __init__(self, when=lambda: "first", note=lambda: None):
-        self.first, self.modes = {}, {}
+        self.first, self.modes, self.caps = {}, {}, {}
         self.when, self.note = when, note
 
     def _keep(self, op, tensors, kw):
         mode = (op, bool(kw.get("share_values")))
         self.modes[mode] = self.modes.get(mode, 0) + 1
+        cap = (op, float(kw.get("softcap", 0.0)))
+        self.caps[cap] = self.caps.get(cap, 0) + 1
         kind = self.when()
         if kind is not None and (op, kind) not in self.first:
             self.first[op, kind] = dict(
@@ -2596,11 +2751,14 @@ def _check_logits(eng, vocab):
     eng._argmax = checked_argmax
 
 
-def serve(cfg, params, use_chai):
-    """Serve the cohort path's requests; returns (engine, requests sorted
-    by uid, wall seconds, {phase: seconds})."""
+def serve(cfg, params, use_chai, prompts=PROMPT_LENS, max_seq=MAX_SEQ,
+          hook=None):
+    """Serve the cohort path's requests (``prompts``: their lengths, each
+    with MAX_NEW new tokens; ``hook(engine)`` runs before they are
+    submitted); returns (engine, requests sorted by uid, wall seconds,
+    {phase: seconds})."""
     eng = ServingEngine(cfg, params, EngineConfig(
-        batch_slots=SLOTS, max_seq=MAX_SEQ, scheduler="cohort",
+        batch_slots=SLOTS, max_seq=max_seq, scheduler="cohort",
         use_chai=use_chai, page_size=PAGE))
     phases = {}
     for attr, phase in (("_prefill", "prefill"), ("_mha_step", "mha_decode"),
@@ -2609,8 +2767,10 @@ def serve(cfg, params, use_chai):
         if hasattr(eng, attr):
             setattr(eng, attr, _timed(getattr(eng, attr), phase, phases))
     _check_logits(eng, cfg.vocab_size)
+    if hook is not None:
+        hook(eng)
     rng = np.random.default_rng(0)
-    for i, n in enumerate(PROMPT_LENS):
+    for i, n in enumerate(prompts):
         eng.submit(rng.integers(0, cfg.vocab_size, size=n),
                    max_new_tokens=MAX_NEW, uid=i)
     torch.cuda.synchronize()
@@ -2796,7 +2956,8 @@ def _record_margins(eng):
 
 
 def serve_continuous(cfg, params, layout, chunk=0, membership=None,
-                     use_chai=True):
+                     use_chai=True, traffic=(CONT_PROMPT_LENS, CONT_MAX_NEW),
+                     max_seq=MAX_SEQ):
     """Serve the continuous path's requests on one KV layout (``chunk``:
     with chunked prefill), with the launches counted over the run, each
     step kind and each ``step()`` timed, the KV bytes read around every
@@ -2804,12 +2965,13 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
     all-STEADY and mixed steps, the prefill ops' at the first chunk of
     each start position, the top-2 margin behind every greedy token and
     each request's WARMUP buffer and membership. ``membership`` ({uid:
-    (buffer, ctx, _)}, another run's): cluster each request through it,
-    noting whether its own membership was the same. ``use_chai=False``:
+    (buffer, ctx, _)}, another run's): cluster each request it names
+    through it, noting whether its own membership was the same. ``use_chai=False``:
     the MHA baseline, every decode step an "mha_step", the flash decode
-    ops' layer-0 inputs kept at the first step of each occupancy."""
+    ops' layer-0 inputs kept at the first step of each occupancy.
+    ``traffic``: (prompt lengths, new tokens) of the requests."""
     eng = ServingEngine(cfg, params, EngineConfig(
-        batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+        batch_slots=SLOTS, max_seq=max_seq, page_size=PAGE,
         kv_layout=layout, prefill_chunk_tokens=chunk, use_chai=use_chai))
     times, calls = {}, {}
     for attr, phase in (("_slot_prefill", "prefill"),
@@ -2827,7 +2989,7 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
         i = int(np.flatnonzero(eng._phases == chai_cache.PHASE_CLUSTER)[0])
         uid = eng._slot_req[i].uid
         out = own(sc)        # run either way: both runs pay for K-Means
-        if membership is not None:
+        if membership is not None and uid in membership:
             forced = membership[uid][1]
             same = all(torch.equal(out[k], forced[k]) for k in out)
             out = forced
@@ -2887,7 +3049,7 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
         (lambda: chunk_start[0]) if use_chai else
         (lambda: int((eng._phases != chai_cache.PHASE_FREE).sum())))
     rng = np.random.default_rng(0)
-    for i, (n, m) in enumerate(zip(CONT_PROMPT_LENS, CONT_MAX_NEW)):
+    for i, (n, m) in enumerate(zip(*traffic)):
         eng.submit(rng.integers(0, cfg.vocab_size, size=n),
                    max_new_tokens=m, uid=i)
     chai_core.kops, tfm.kops = cap, pcap
@@ -2904,6 +3066,7 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
     return dict(eng=eng, done=sorted(done, key=lambda r: r.uid), wall=wall,
                 times=times, calls=calls, transitions=transitions,
                 launches=launches, capture=cap.first, modes=cap.modes,
+                caps=cap.caps, traffic=traffic,
                 prefill=pcap.first, margins=margins, idents=idents,
                 step_s=step_s,
                 in_flight=in_flight, kv_history=eng.kv_bytes_history,
@@ -2927,7 +3090,7 @@ def _check_served(cfg, run, label):
     """Token counts, vocabulary, and both step kinds ran."""
     done, calls = run["done"], run["calls"]
     counts = [len(r.generated) for r in done]
-    if (counts != list(CONT_MAX_NEW)
+    if (counts != list(run["traffic"][1])
             or any(r.finish_reason != FINISH_LENGTH for r in done)):
         raise AssertionError(f"{label}: token counts {counts}")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
@@ -2952,8 +3115,8 @@ def _log_served(run, label):
     eng, done, calls = run["eng"], run["done"], run["calls"]
     n_tok = sum(len(r.generated) for r in done)
     per_call = {k: 1e3 * run["times"][k] / calls[k] for k in calls}
-    log(f"{label}: served {len(done)} requests (prompts {CONT_PROMPT_LENS}, "
-        f"new {CONT_MAX_NEW}) in {run['wall']:.3f} s: "
+    log(f"{label}: served {len(done)} requests (prompts {run['traffic'][0]}, "
+        f"new {run['traffic'][1]}) in {run['wall']:.3f} s: "
         f"{n_tok / run['wall']:.1f} tok/s, TTFT "
         f"{[round(r.ttft, 4) for r in done]} s (mean "
         f"{statistics.mean(r.ttft for r in done):.4f}), decode steps "
@@ -4166,6 +4329,329 @@ def pipeline_lane(inputs):
     return lane, records
 
 
+# ----------------------------------------------------------- phase 13 ----
+# h2o-danube-1.8b: a max_seq and prompts such that one prompt (5000) is
+# longer than the 4096-token window (its ring wraps in the prefill) and
+# the cohort's power-of-two bucket (8192) exceeds that prompt. The first
+# four requests are the cohort's; all six go through the continuous
+# engine (its 4 slots then run mixed steps).
+DANUBE_MAX_SEQ = 8192
+DANUBE_PROMPTS = (5000, 1200, 3000, 700)
+DANUBE_CONT = ((5000, 1200, 3000, 700, 4500, 300), (32, 48) * 3)
+
+
+def _check_caps(cfg, caps, label):
+    """Every fused decode call in the config's softcap mode."""
+    want = float(cfg.attn_logit_softcap)
+    if any(cap != want for (op, cap) in caps if op != "relay"):
+        raise AssertionError(f"{label}: fused calls by (op, softcap) {caps}, "
+                             f"expected softcap={want}")
+
+
+def serve_local(cfg, params, use_chai, prompts, max_seq, idents=None):
+    """``serve`` with each cohort row's top-2 margin behind every greedy
+    token recorded ({row (= uid): [margins]}) and, with ``idents`` (a
+    dict), each request's membership kept (uid: its row of the ctx).
+    Returns (engine, done, wall, phases, margins)."""
+    margins = {}
+
+    def hook(eng):
+        argmax = eng._argmax
+
+        def rec(logits):
+            top2 = logits.float().topk(2, dim=-1).values
+            for i, gap in enumerate((top2[:, 0] - top2[:, 1]).tolist()):
+                margins.setdefault(i, []).append(gap)
+            return argmax(logits)
+        eng._argmax = rec
+        if idents is not None and hasattr(eng, "_identify"):
+            own = eng._identify
+
+            def identify(sc):
+                out = own(sc)
+                for i in range(len(prompts)):
+                    idents[i] = {k: v[:, i:i + 1].clone()
+                                 for k, v in out.items()}
+                return out
+            eng._identify = identify
+    eng, done, wall, phases = serve(cfg, params, use_chai, prompts, max_seq,
+                                    hook)
+    return eng, done, wall, phases, margins
+
+
+def local_cohort(cfg, params, label, prompts=PROMPT_LENS, max_seq=MAX_SEQ):
+    """The cohort on a local-layer model (phase 5's traffic, or
+    ``prompts``), CHAI then CHAI off: the CHAI run launches
+    ``chai_fused_decode`` once per global layer and STEADY step, every
+    call in the config's softcap mode, and nothing else (local layers
+    decode eagerly over their rings); WARMUP takes the eager attention on
+    every layer. The MHA baseline launches nothing: every layer of every
+    step takes the eager attention (the flash decode kernels have no
+    softcap and no ring). Returns ({path: launches}, the CHAI run's
+    summary with its tokens, margins and membership)."""
+    cap = _Capture()
+    idents = {}
+    chai_core.kops = cap
+    try:
+        _reset_launches()
+        EAGER["calls"] = 0
+        eng, done, wall, phases, margins = serve_local(
+            cfg, params, True, prompts, max_seq, idents)
+        launches = _launches()
+        chai_eager = EAGER["calls"]
+    finally:
+        chai_core.kops = kops
+    counts = [len(r.generated) for r in done]
+    if counts != [MAX_NEW] * len(prompts) or not all(
+            0 <= t < cfg.vocab_size for r in done for t in r.generated):
+        raise AssertionError(f"{label}: token counts {counts}")
+    warm = cfg.chai.warmup_tokens
+    want = {name: 0 for name in launches}
+    if cfg.n_global_layers:
+        want["chai_fused_decode"] = ((MAX_NEW - 1 - warm)
+                                     * cfg.n_global_layers)
+    if launches != want or chai_eager != warm * cfg.n_layers:
+        raise AssertionError(f"{label}: launches {launches}, expected {want};"
+                             f" eager calls {chai_eager}, expected "
+                             f"{warm * cfg.n_layers}")
+    _check_caps(cfg, cap.caps, label)
+    n_tok = sum(counts)
+    log(f"{label}: served {len(done)} requests (prompts {prompts}, bucket "
+        f"{eng._prompt_bucket(max(prompts), max_seq)}, {MAX_NEW} new tokens "
+        f"each) in {wall:.3f} s: {n_tok / wall:.1f} tok/s, TTFT "
+        f"{[round(r.ttft, 4) for r in done]} s, decode steps "
+        f"{eng.steps_executed}, launches {launches} (calls by (op, softcap) "
+        f"{cap.caps}), eager attention calls {chai_eager} (WARMUP)")
+    log(f"{label} CHAI run by phase (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in phases.items()))
+    _reset_launches()
+    EAGER["calls"] = 0
+    m_eng, _, m_wall, m_phases, _ = serve_local(cfg, params, False, prompts,
+                                                max_seq)
+    m_launches = _launches()
+    steps = m_eng.steps_executed
+    if any(m_launches.values()) or EAGER["calls"] != cfg.n_layers * steps:
+        raise AssertionError(f"{label} MHA baseline: launches {m_launches}, "
+                             f"eager calls {EAGER['calls']}, expected "
+                             f"{cfg.n_layers * steps}")
+    log(f"{label} MHA baseline: {steps} decode steps, no launch, "
+        f"{EAGER['calls']} eager attention calls (every layer: the flash "
+        f"decode kernels take no softcap and no ring); "
+        f"{n_tok / m_wall:.1f} tok/s in {m_wall:.3f} s (CHAI run "
+        f"{n_tok / wall:.1f} tok/s in {wall:.3f} s); by phase "
+        + ", ".join(f"{k} {v:.4f}" for k, v in m_phases.items()))
+    summary = dict(wall_s=wall, tok_s=n_tok / wall,
+                   ttft_mean_s=statistics.mean(r.ttft for r in done),
+                   phase_s=phases, mha_wall_s=m_wall,
+                   mha_tok_s=n_tok / m_wall,
+                   tokens={r.uid: r.generated for r in done},
+                   margins=margins, membership=idents)
+    return {label: launches, f"{label}_mha": m_launches}, summary
+
+
+def _check_local_kv_bytes(cfg, run, layout):
+    """``kv_bytes()`` at every record of a paged run: its dense pages in
+    use times a page's bytes plus every slot's rings (the reference's
+    ``paged_kv_bytes``: nG x KV x page x hd x 2 B a page, 2 x nL x slots
+    x KV x min(window, max_seq) x hd x 2 B of rings); the unified
+    layout's: the dense rectangles and the rings."""
+    eng, hd, kv = run["eng"], cfg.head_dim, cfg.n_kv_heads
+    ring = (2 * cfg.n_local_layers * SLOTS * kv
+            * min(cfg.window_size, eng.ecfg.max_seq) * hd * 2)
+    if layout == "paged":
+        page_bytes = cfg.n_global_layers * kv * PAGE * hd * 2
+        bad = [h for h in eng.kv_bytes_history
+               if h["kv_bytes"] != h["dense_pages"] * page_bytes + ring]
+        if bad or not eng.kv_bytes_history:
+            raise AssertionError(f"{cfg.name} paged: kv_bytes records off "
+                                 f"the formula: {bad[:3]}")
+        log(f"{cfg.name} paged kv_bytes = pages x {page_bytes:,} B + rings "
+            f"{ring:,} B on all {len(eng.kv_bytes_history)} records; peak "
+            f"{eng.kv_bytes_peak():,}, capacity {eng.kv_bytes_capacity():,}")
+    else:
+        dense = (2 * cfg.n_global_layers * SLOTS * kv * eng.ecfg.max_seq * hd
+                 * 2)
+        if eng.kv_bytes() != dense + ring:
+            raise AssertionError(f"{cfg.name} dense: kv_bytes "
+                                 f"{eng.kv_bytes():,} != {dense + ring:,}")
+        log(f"{cfg.name} unified layout kv_bytes {eng.kv_bytes():,} = "
+            f"rectangles {dense:,} + rings {ring:,}")
+
+
+def gemma2_path(cfg, params):
+    """Full-width gemma2-9b (phase 13): the cohort on phase 5's traffic
+    and the continuous engine on phase 6's, paged then dense, each CHAI
+    run followed by its MHA baseline. The fused kernels run in the
+    softcap mode on the 21 global layers only: each CHAI run launches its
+    layout's kernel 21 times a step with a STEADY slot and nothing else;
+    paged == dense tokens; ``kv_bytes()`` on the formula with the rings;
+    KV bytes unchanged at CLUSTER (GQA); empty pools; and both kernels
+    held at 2e-5 against their plain versions on the first all-STEADY
+    step's layer-0 global tensors (the model's layer 1), with device,
+    back-to-back and single times and the bound. Returns ({path:
+    launches}, {kernel: main case}, {path: summary})."""
+    _, r_max = clustering.chai_widths(cfg)
+    ng = cfg.n_global_layers
+    launches, cohort_sum = local_cohort(cfg, params, "gemma2_cohort")
+    runs = {}
+    for layout in ("paged", "dense"):
+        label = f"gemma2 {layout}"
+        run = serve_continuous(cfg, params, layout)
+        calls = run["calls"]
+        _check_served(cfg, run, label)
+        _check_caps(cfg, run["caps"], label)
+        own, op = (("paged_chai_fused_decode", "paged") if layout == "paged"
+                   else ("chai_fused_decode", "dense"))
+        want = {name: 0 for name in run["launches"]}
+        want[own] = ng * (calls["mixed_step"] + calls["steady_step"])
+        if run["launches"] != want:
+            raise AssertionError(f"{label}: launches {run['launches']}, "
+                                 f"expected {want} ({ng} a step with a "
+                                 "STEADY slot)")
+        rpg = run["capture"][op, "steady"]["kw"].get("reps_per_group")
+        if rpg != r_max:
+            raise AssertionError(f"{label}: reps_per_group {rpg}")
+        _log_served(run, label)
+        log(f"{label}: fused calls by (op, softcap) {run['caps']}")
+        _check_local_kv_bytes(cfg, run, layout)
+        if layout == "paged":
+            _check_gqa_kv_bytes(run, label)
+        run.pop("eng")
+        run.pop("prefill")
+        runs[layout] = run
+        launches[f"gemma2_continuous_{layout}"] = run["launches"]
+        torch.cuda.empty_cache()
+        EAGER["calls"] = 0
+        m_run = serve_continuous(cfg, params, layout, use_chai=False)
+        m_calls = m_run["calls"].get("mha_step", 0)
+        if (any(m_run["launches"].values())
+                or EAGER["calls"] != cfg.n_layers * m_calls or not m_calls):
+            raise AssertionError(f"{label} MHA baseline: launches "
+                                 f"{m_run['launches']}, eager calls "
+                                 f"{EAGER['calls']}")
+        if m_run["eng"].paged and m_run["eng"].dense_pool.pages_in_use:
+            raise AssertionError(f"{label} MHA baseline: pages left in use")
+        _log_served(m_run, f"{label} MHA baseline")
+        log(f"{label} MHA baseline: no launch, {EAGER['calls']} eager "
+            "attention calls (every layer of every step)")
+        m_run.pop("eng")
+        m_run.pop("prefill")
+        runs[f"mha_{layout}"] = m_run
+        launches[f"gemma2_mha_{layout}"] = m_run["launches"]
+        torch.cuda.empty_cache()
+    for kind in ("", "mha_"):
+        if ([r.generated for r in runs[f"{kind}paged"]["done"]]
+                != [r.generated for r in runs[f"{kind}dense"]["done"]]):
+            raise AssertionError(f"gemma2 {kind or 'chai '}: paged and dense "
+                                 "gave different greedy tokens")
+    pc = runs["paged"]["capture"]["paged", "steady"]
+    dc = runs["dense"]["capture"]["dense", "steady"]
+    cap = float(cfg.attn_logit_softcap)
+    live = pc["note"] != chai_cache.PHASE_FREE
+    pa = (pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
+          pc["h2c"], pc["pos"])
+    da = (dc["q"], dc["k"], dc["v"], dc["h2c"], dc["pos"])
+    ts = dc["kw"]["ts"]
+    calls = {"paged_chai_fused_decode": lambda: ck.paged_chai_fused_decode(
+                 *pa, reps_per_group=r_max, softcap=cap),
+             "chai_fused_decode": lambda: ck.chai_fused_decode(
+                 *da, reps_per_group=r_max, ts=ts, softcap=cap)}
+    p_out, d_out = (call() for call in calls.values())
+    torch.cuda.synchronize()
+    if not torch.equal(p_out[live], d_out[live]):
+        raise AssertionError("gemma2: paged vs dense kernel on the first "
+                             "all-STEADY step differ")
+    cases = {}
+    for name, call in calls.items():
+        if name == "paged_chai_fused_decode":
+            err, ms, plain_ms = paged_decode_case(*pa, rpg=r_max,
+                                                  softcap=cap)
+            q, kk, vv, tables = pc["q"], pc["k_pool"], pc["v_pool"], (
+                pc["bt_k"], pc["bt_v"])
+            h2c, pos = pc["h2c"], pc["pos"]
+        else:
+            err, ms, plain_ms = fused_decode_case(*da, rpg=r_max, ts=ts,
+                                                  softcap=cap)
+            q, kk, vv, tables = dc["q"], dc["k"], dc["v"], ()
+            h2c, pos = dc["h2c"], dc["pos"]
+        bound, by = fused_decode_bound(q, kk, vv, h2c, pos, r_max,
+                                       tables=tables, softcap=True)
+        c = cases[name] = dict(
+            case=f"gemma2_{'paged' if tables else 'dense'}_first_steady_"
+                 "layer0", q=list(q.shape), k=list(kk.shape),
+            dtype=str(kk.dtype), rpg=r_max, softcap=cap, pos=pos.tolist(),
+            max_abs_err=err, ms=ms, single_call_ms=single_call_ms(call),
+            device_ms=device_ms(call, f"{name}_kernel"), plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, bitwise_equal_dense=True)
+        log(f"{name} gemma2 first all-STEADY step, layer 0 global (hd "
+            f"{cfg.head_dim}, reps_per_group {r_max}, softcap {cap}): q "
+            f"{tuple(q.shape)} pos {c['pos']}: device {c['device_ms']} ms, "
+            f"back to back {ms:.4f} ms, single call "
+            f"{c['single_call_ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), max_abs_err {err:.3e}")
+    summaries = {k: _run_summary(v) for k, v in runs.items()}
+    summaries["cohort"] = {k: v for k, v in cohort_sum.items()
+                           if k not in ("membership", "margins")}
+    return launches, cases, summaries
+
+
+def danube_path(cfg, params):
+    """Full-width h2o-danube-1.8b (phase 13; every layer local, window
+    4096): the cohort on DANUBE_PROMPTS in a max_seq of 8192 (bucket 8192
+    > the 5000-token prompt > the window), then the default continuous
+    engine (kv_layout "paged", which for a model without global layers
+    is the unified layout, as in the reference) on DANUBE_CONT, each
+    request the cohort served clustered through the cohort's membership.
+    No kernel launches (no global layer). The two schedulers' greedy
+    tokens are held equal up to each request's first divergence, which
+    must sit on a cohort top-2 margin <= CHUNK_MARGIN. Returns ({path:
+    launches}, {scheduler: summary})."""
+    if not max(DANUBE_PROMPTS) > cfg.window_size:
+        raise AssertionError("no prompt passes the window")
+    launches, cohort = local_cohort(cfg, params, "danube_cohort",
+                                    DANUBE_PROMPTS, DANUBE_MAX_SEQ)
+    membership = {uid: (None, ctx, True)
+                  for uid, ctx in cohort["membership"].items()}
+    run = serve_continuous(cfg, params, "paged", traffic=DANUBE_CONT,
+                           max_seq=DANUBE_MAX_SEQ, membership=membership)
+    if run["eng"].paged:
+        raise AssertionError("danube: a paged layout without global layers")
+    _check_served(cfg, run, "danube continuous")
+    if any(run["launches"].values()):
+        raise AssertionError(f"danube continuous: launches {run['launches']}")
+    _log_served(run, "danube continuous (unified layout)")
+    _check_local_kv_bytes(cfg, run, "dense")
+    held = compared = 0
+    parted = []
+    for r in run["done"]:
+        if r.uid not in cohort["tokens"]:
+            continue
+        want, gaps = cohort["tokens"][r.uid], cohort["margins"][r.uid]
+        for k, (got, tok) in enumerate(zip(r.generated, want)):
+            compared += 1
+            if got != tok:
+                if gaps[k] > CHUNK_MARGIN:
+                    raise AssertionError(
+                        f"danube uid {r.uid} token {k}: continuous {got} != "
+                        f"cohort {tok} at margin {gaps[k]:.4f}")
+                parted.append((r.uid, k, round(gaps[k], 5)))
+                break
+            held += gaps[k] > CHUNK_MARGIN
+    if held < compared // 2:
+        raise AssertionError(f"danube: only {held} of {compared} tokens held")
+    same = {uid: v[2] for uid, v in run["idents"].items()}
+    log(f"danube cohort vs continuous: {held} of {compared} tokens compared "
+        f"held on margins > {CHUNK_MARGIN}; first divergences (uid, token, "
+        f"margin) {parted}; each request's own continuous membership equal "
+        f"to the cohort's: {same}")
+    launches["danube_continuous"] = run["launches"]
+    summary = _run_summary(run)
+    run.pop("eng")
+    return launches, {"cohort": {k: v for k, v in cohort.items()
+                                 if k not in ("membership", "margins")},
+                      "continuous": summary}
+
+
 def densified(t):
     """A paged capture's logical K/V views (the engine's own gather)."""
     return (chai_cache.gather_pages(t["k_pool"], t["bt_k"]),
@@ -4186,6 +4672,7 @@ def main():
     decode_cases = flash_decode_checks()
     int8_cases = int8_kernel_checks()
     share_cases = share_kernel_checks()
+    softcap_cases = softcap_kernel_checks()
     for arch in (ARCH, NEMO):
         reduced_reference_check(arch)
         reduced_continuous_check(arch)
@@ -4261,13 +4748,25 @@ def main():
         rpg=r_max, mask_row=False,
         pages=(nemo_pc["k_pool"], nemo_pc["bt_k"],
                nemo_pc["v_pool"].repeat_interleave(qpk, 1), nemo_pc["bt_v"]))
+    # Phase 13: local-attention rings and the softcap, gemma2-9b, then
+    # h2o-danube-1.8b.
+    gcfg, gparams = init_full_model(GEMMA)
+    g_launches, g_cases, _ = gemma2_path(gcfg, gparams)
+    del gparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    dcfg, dparams = init_full_model(DANUBE)
+    d_launches, _ = danube_path(dcfg, dparams)
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
     by_path = {"cohort": cohort_launches, "mha_cohort": cohort_mha,
                **cont_launches, **mha_launches,
                "continuous_paged_chunked": chunked_launches,
                **prefix_launches, **nemo_launches, **nemo_mha_launches,
                **nemo_prefix_launches, **i8_launches, **i8_mha_launches,
                **i8_prefix_launches, **n8_launches, **share_launches,
-               "pipeline_lane": lane_launches}
+               **g_launches, **d_launches, "pipeline_lane": lane_launches}
     mains = {"chai_fused_decode": (
                  dense_main, "cohort",
                  dense_cases + emit_cases["chai_fused_decode"]
@@ -4328,10 +4827,18 @@ def main():
     for name, (main_case, path, cases) in share_mains.items():
         mains[f"{name}[share]"] = (main_case, path,
                                    share_cases[name] + cases)
+    # The softcap modes: one row each, on its gemma2 path (phase 13).
+    for name, path in (("chai_fused_decode", "gemma2_continuous_dense"),
+                       ("paged_chai_fused_decode",
+                        "gemma2_continuous_paged")):
+        mains[f"{name}[softcap]"] = (g_cases[name], path,
+                                     softcap_cases[name] + [g_cases[name]])
     kernel_rows = dict(KERNEL_ROWS, **{f"{name}[int8]": KERNEL_ROWS[name]
                                        for name in int8_mains},
                        **{f"{name}[share]": KERNEL_ROWS[name]
-                          for name in share_mains})
+                          for name in share_mains},
+                       **{f"{name}[softcap]": KERNEL_ROWS[name]
+                          for name in g_cases})
     rows = []
     for name, info in kernel_rows.items():
         main_case, path, cases = mains[name]
@@ -4352,8 +4859,8 @@ def main():
         if not rows[-1]["launches"]:
             raise AssertionError(f"{name}: no launch on its path {path}")
     for row in rows:
-        if row["name"] in REWRITTEN or row["name"].endswith(("[int8]",
-                                                             "[share]")):
+        if row["name"] in REWRITTEN or row["name"].endswith(
+                ("[int8]", "[share]", "[softcap]")):
             log(f"{row['name']} (main path {row['launches']} launches): "
                 f"device {row['device_ms']} ms, back to back "
                 f"{row['ms']:.4f} ms, single call "

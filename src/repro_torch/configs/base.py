@@ -106,6 +106,10 @@ class ModelConfig:
         return sum(1 for t in self.layer_types if t == ATTN_GLOBAL)
 
     @property
+    def n_local_layers(self):
+        return sum(1 for t in self.layer_types if t == ATTN_LOCAL)
+
+    @property
     def n_rec_layers(self):
         return sum(1 for t in self.layer_types if t == RGLRU)
 
@@ -151,8 +155,9 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self):
-        """Parameter count of the dense global-attention models the port
-        serves (embeddings counted once per table)."""
+        """Parameter count of the dense attention models the port serves
+        (local and global layers alike; embeddings counted once per
+        table)."""
         c = self
         n = c.vocab_size * c.d_model * (1 if c.tie_embeddings else 2)
         attn = (c.d_model * c.n_heads * c.head_dim
@@ -218,4 +223,6 @@ def get_config(name: str) -> ModelConfig:
 
 def _ensure_loaded():
     from repro_torch.configs import chai_llama_7b  # noqa: F401
+    from repro_torch.configs import gemma2_9b  # noqa: F401
+    from repro_torch.configs import h2o_danube_1_8b  # noqa: F401
     from repro_torch.configs import nemotron_4_15b  # noqa: F401

@@ -46,6 +46,11 @@ compaction moves the dense V codes as they are and a decode step writes
 its rows by a plain cast (``plain_int8``); the kernels read them as
 values.
 
+Local layers (gemma2, h2o-danube) keep rings ``kl``/``vl`` (nL, B, KV,
+min(window, S), hd) in the model dtype in every layout: per slot and
+never paged, as in the reference; a slot insert carries them with the
+rest of the slot's state, and every byte count includes them.
+
 The reference's functions return new state trees; these update the state
 tensors IN PLACE and return the same dict.
 """
@@ -57,7 +62,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.clustering import chai_widths
 from repro_torch.models.transformer import (decode_state_shapes,
                                             init_decode_state, kv_int8,
-                                            model_dtype, zeros_state)
+                                            model_dtype, ring_width,
+                                            zeros_state)
 
 # Per-slot lifecycle phases (paper Fig 10). PREFILL and CLUSTER are
 # transient (they happen inside one host call); the device ``phase``
@@ -132,12 +138,15 @@ def init_chai_state(cfg: ModelConfig, batch: int, max_seq: int, device):
 def add_score_buffer(state, cfg: ModelConfig, batch: int):
     """Attach the warmup score buffer (nA, B, H, Wf), Wf = min(feature
     window, S): probabilities of the first Wf positions, summed over the
-    WARMUP steps (masked positions add exactly 0)."""
-    wf = min(cfg.chai.feature_window, int(state["kg"].shape[3]))
+    WARMUP steps (masked positions add exactly 0). S is the global
+    cache's length, or, without global layers, the ring's (the
+    reference's rule)."""
+    cache = state["kg"] if "kg" in state else state["kl"]
+    wf = min(cfg.chai.feature_window, int(cache.shape[3]))
     state = dict(state)
     state["chai_scores"] = torch.zeros(
         (cfg.n_attn_layers, batch, cfg.n_heads, wf), dtype=torch.float32,
-        device=state["kg"].device)
+        device=cache.device)
     return state
 
 
@@ -178,7 +187,9 @@ def compact_kv(state, chai_ctx, cfg: ModelConfig):
 def kv_cache_bytes(cfg: ModelConfig, batch: int, seq: int, *,
                    chai: bool = False):
     """Analytic steady-state KV-cache size in bytes (paper Fig 11); int8:
-    1 + 4 / hd bytes an element (a code, and a row's fp32 scale)."""
+    1 + 4 / hd bytes an element (a code, and a row's fp32 scale). A local
+    layer holds its ring, 2 KV rows of min(window, seq) positions (the
+    reference's ``attn_local`` term)."""
     if cfg.n_attn_layers == 0:
         return 0
     if kv_int8(cfg):
@@ -192,7 +203,9 @@ def kv_cache_bytes(cfg: ModelConfig, batch: int, seq: int, *,
     v_rows = (k_max if (chai and cfg.is_mha and cfg.chai.share_values)
               else cfg.n_kv_heads)
     per_layer = int(batch * (k_rows + v_rows) * seq * cfg.head_dim * esize)
-    return per_layer * cfg.n_global_layers
+    ring = int(batch * 2 * cfg.n_kv_heads * ring_width(cfg, seq)
+               * cfg.head_dim * esize)
+    return per_layer * cfg.n_global_layers + ring * cfg.n_local_layers
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +213,8 @@ def kv_cache_bytes(cfg: ModelConfig, batch: int, seq: int, *,
 # ---------------------------------------------------------------------------
 
 def _score_shape(cfg: ModelConfig, batch: int, max_seq: int):
+    """The slot layouts' score buffer: Wf = min(feature window, max_seq)
+    whatever the layers (a ring narrower than Wf fills its first slots)."""
     wf = min(cfg.chai.feature_window, max_seq)
     return ((cfg.n_attn_layers, batch, cfg.n_heads, wf), torch.float32)
 
@@ -284,14 +299,14 @@ def reset_slot(state, slot):
 def unified_kv_bytes(cfg: ModelConfig, batch: int, seq: int, *,
                      chai: bool = True):
     """Resident KV bytes of the unified layout: dense AND clustered
-    rectangles (and their int8 scales) stay allocated, summed from the
-    layout's own shapes."""
+    rectangles (and their int8 scales) stay allocated, and the local
+    rings, summed from the layout's own shapes."""
     shapes = unified_state_shapes(cfg, batch, seq, chai=chai)
     return int(sum(torch.Size(shape).numel()
                    * torch.empty((), dtype=dt).element_size()
                    for k, (shape, dt) in shapes.items()
-                   if k in ("kg", "vg", "kg_scale", "vg_scale", "kg_chai",
-                            "kg_chai_scale", "vg_chai")))
+                   if k in ("kg", "vg", "kg_scale", "vg_scale", "kl", "vl",
+                            "kg_chai", "kg_chai_scale", "vg_chai")))
 
 
 # ---------------------------------------------------------------------------
@@ -579,9 +594,17 @@ def paged_page_bytes(cfg: ModelConfig, page_size: int, *, kind: str):
 
 
 def paged_kv_bytes(cfg: ModelConfig, page_size: int, dense_in_use: int,
-                   chai_in_use: int = 0):
+                   chai_in_use: int = 0, *, batch: int = 0,
+                   max_seq: int = 0):
     """ALLOCATED KV bytes of the paged layout: pages in use times page
-    bytes. It falls when a slot's dense K pages are freed at compaction,
-    unlike the unified layout's constant dense + clustered residency."""
-    return int(dense_in_use * paged_page_bytes(cfg, page_size, kind="dense")
-               + chai_in_use * paged_page_bytes(cfg, page_size, kind="chai"))
+    bytes, plus the local rings of ``batch`` slots (never paged; their
+    width from ``max_seq``). It falls when a slot's dense K pages are
+    freed at compaction, unlike the unified layout's constant dense +
+    clustered residency."""
+    total = (dense_in_use * paged_page_bytes(cfg, page_size, kind="dense")
+             + chai_in_use * paged_page_bytes(cfg, page_size, kind="chai"))
+    if batch and cfg.n_local_layers:
+        esize = torch.empty((), dtype=model_dtype(cfg)).element_size()
+        total += (2 * cfg.n_local_layers * batch * cfg.n_kv_heads
+                  * ring_width(cfg, max_seq) * cfg.head_dim * esize)
+    return int(total)

@@ -41,23 +41,37 @@ through ``bt_kg``/``bt_vg``: GQA has no clustered pool), and the same
 fused kernels run with ``reps_per_group = r_max``; the saving is compute
 only.
 
+Local layers (gemma2's even layers, every layer of h2o-danube): a GQA
+local layer writes the token's K/V rows into its ring (``kl``/``vl``,
+slot ``pos % w``) and computes the clustered attention eagerly over the
+ring, positions from ``ring_positions`` and the window applied, as the
+reference's jnp branch does (no kernel covers a ring); an MHA local
+layer takes the plain decode, as in the reference. The attention-logit
+softcap (``cfg.attn_logit_softcap``) caps every score: in the fused
+kernels' softcap mode on the global layers, in the eager math on the
+local ones.
+
 Ported: the MHA and GQA branches, dense and paged, float and int8 caches,
-with the mixed-phase ``write_mask``, the relay decode for both, and
-``share_values`` on MHA. Local layers raise ``NotImplementedError``.
+with the mixed-phase ``write_mask``, the relay decode for both,
+``share_values`` on MHA, local layers and the softcap.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels import chai_attention as ck
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, softcap
 from repro_torch.models.transformer import (_dense_global_write,
                                             _dense_write_rows,
+                                            _local_write,
                                             _paged_global_write,
-                                            _paged_write_rows, layer_slice,
-                                            paged_token_coords)
+                                            _paged_write_rows,
+                                            _plain_decode_attention,
+                                            layer_slice, paged_token_coords)
 
 
 def _rope1(x, pos, theta):
@@ -71,10 +85,11 @@ def _gather_heads(x, idx):
         *idx.shape, x.shape[-1]))
 
 
-def chai_decode_attention(xn, p, cfg, state, gi, ai, chai_ctx, *,
+def chai_decode_attention(xn, p, cfg, state, gi, ai, chai_ctx, *, li=None,
                           write_mask=None, decode_ts=0, relay=None):
     """xn: (B, d) normed hidden; ``gi``/``ai``: the layer's global-cache
-    and attention-layer index. Returns (B, H, hd) in xn's dtype; writes
+    and attention-layer index, ``li`` its local-ring index (a local
+    layer; ``gi`` is then None). Returns (B, H, hd) in xn's dtype; writes
     the token's clustered K rows and per-head V rows into the state
     (only for slots in ``write_mask`` (B,) bool, when given: the
     mixed-phase step runs this path alongside the MHA path). ``relay``:
@@ -82,7 +97,13 @@ def chai_decode_attention(xn, p, cfg, state, gi, ai, chai_ctx, *,
     ``_relay_prefix_state``)."""
     if not cfg.is_mha:
         return _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx,
-                                write_mask, decode_ts=decode_ts, relay=relay)
+                                write_mask, li=li, decode_ts=decode_ts,
+                                relay=relay)
+    if li is not None:
+        # an MHA arch with a local layer: the plain decode, as in the
+        # reference (no served arch has one)
+        return _plain_decode_attention(xn, p, cfg, state, gi, ai, li,
+                                       write_mask=write_mask)
     return _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask,
                             decode_ts=decode_ts, relay=relay)
 
@@ -168,6 +189,7 @@ def _relay_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, relay, gi,
 def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
                      *, decode_ts=0, relay=None):
     b = xn.shape[0]
+    cap = cfg.attn_logit_softcap
     h = cfg.n_heads
     pos = state["pos"]
     reps, h2c = chai_ctx["reps"][ai], chai_ctx["h2c"][ai]
@@ -213,7 +235,8 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
         if relay is None:
             out = kops.paged_chai_decode_attention(
                 q_rep, cp, state["bt_kc"], vp, bt_v, gather_idx, pos,
-                k_scale_pool=csc, v_scale_pool=vsp, share_values=share)
+                k_scale_pool=csc, v_scale_pool=vsp, share_values=share,
+                softcap=cap)
         else:
             out = _relay_decode(q_rep, cp, state["bt_kc"], vp, bt_v,
                                 gather_idx, pos, relay, gi, ai, decode_ts,
@@ -232,18 +255,45 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
     _dense_write_rows(vc, pos, v_new, write_mask, vsc)
     out = kops.chai_decode_attention(
         q_rep, kc, vc, gather_idx, pos, k_scale=ksc, v_scale=vsc,
-        share_values=share, ts=ck.fused_tile_size(decode_ts, kc.shape[2]))
+        share_values=share, ts=ck.fused_tile_size(decode_ts, kc.shape[2]),
+        softcap=cap)
     return out.to(xn.dtype)
 
 
+def _local_gqa_attention(q_rep, kc, vc, kv_pos, pos, cluster_of, cfg):
+    """The clustered attention of a GQA local layer over its ring, in
+    torch (the reference's jnp branch: no kernel covers a ring). q_rep:
+    (B, KV, r, hd); kc/vc: (B, KV, w, hd); kv_pos: (B, w) ring positions;
+    cluster_of: (B, KV, qpk). Scores scaled, softcapped, masked outside
+    0 <= kv_pos <= pos and pos - kv_pos < window; softmax per rep; head
+    (g, i) takes rep cluster_of[b, g, i]'s weights over its group's V.
+    Returns (B, H, hd) fp32."""
+    b, n_kv, _, hd = q_rep.shape
+    sc = torch.einsum("bkre,bkse->bkrs", q_rep.float(),
+                      kc.float()) * (1.0 / math.sqrt(hd))
+    sc = softcap(sc, cfg.attn_logit_softcap)
+    valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])
+    valid &= (pos[:, None] - kv_pos) < cfg.window_size
+    sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
+    a = torch.softmax(sc, dim=-1)                          # (B, KV, r, w)
+    a_full = torch.gather(a, 2, cluster_of.long()[..., None].expand(
+        *cluster_of.shape, a.shape[-1]))                   # (B, KV, qpk, w)
+    out = torch.einsum("bkgs,bksd->bkgd", a_full, vc.float())
+    return out.reshape(b, -1, hd)
+
+
 def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
-                     *, decode_ts=0, relay=None):
+                     *, li=None, decode_ts=0, relay=None):
     """GQA clustered decode with per-request membership: each KV group's
     representative queries (``reps`` (B, KV, r)), flattened to rep rows
     g * r + j, attend the group's own K; head h of group g reads rep row
     g * r + cluster_of[b, g, h % qpk] and its group's V. The token's K/V
     rows are written per group (dense rectangles, or the dense pool's
-    pages). One fused launch with ``reps_per_group = r``.
+    pages). One fused launch with ``reps_per_group = r`` (and the
+    softcap mode under ``attn_logit_softcap``).
+
+    A local layer (``li``): the rows go to the layer's ring and the
+    clustered attention runs eagerly over it (``_local_gqa_attention``).
 
     ``relay`` (paged): ``_relay_decode`` as for MHA, the group pass
     routed by the engine's GQA maps."""
@@ -263,6 +313,14 @@ def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
     k_new = _rope1(torch.einsum("bd,dke->bke", xn, p["wk"]), pos,
                    cfg.rope_theta)
     v_new = torch.einsum("bd,dke->bke", xn, p["wv"])
+    cap = cfg.attn_logit_softcap
+    if li is not None:
+        # Local: the ring (never quantized, never paged), eager attention.
+        kc, vc, kv_pos = _local_write(state, li, k_new, v_new, pos,
+                                      write_mask)
+        out = _local_gqa_attention(q_flat.reshape(b, n_kv, r, hd), kc, vc,
+                                   kv_pos, pos, cluster_of, cfg)
+        return out.to(xn.dtype)
     if "kvp" in state:
         # Paged: K and V pages of one dense pool (and, int8, of its scale
         # pool), read in place.
@@ -272,7 +330,7 @@ def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
             out = kops.paged_chai_decode_attention(
                 q_flat, pool, state["bt_kg"], pool, state["bt_vg"],
                 h2c_flat, pos, k_scale_pool=spool, v_scale_pool=spool,
-                reps_per_group=r)
+                reps_per_group=r, softcap=cap)
         else:
             out = _relay_decode(q_flat, pool, state["bt_kg"], pool,
                                 state["bt_vg"], h2c_flat, pos, relay, gi, ai,
@@ -283,5 +341,6 @@ def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
                                            write_mask)   # (B, KV, S, hd)
     out = kops.chai_decode_attention(
         q_flat, kc, vc, h2c_flat, pos, k_scale=ksc, v_scale=vsc,
-        reps_per_group=r, ts=ck.fused_tile_size(decode_ts, kc.shape[2]))
+        reps_per_group=r, ts=ck.fused_tile_size(decode_ts, kc.shape[2]),
+        softcap=cap)
     return out.to(xn.dtype)

@@ -23,6 +23,10 @@ the unnormalized online-softmax state (m (B, R), l (B, R), acc (B, H,
 hd)), the suffix pass of the relay decode, which ``kernels.ops`` merges
 with ``relay_prefix_decode``'s state and finalizes in torch.
 
+Both take ``softcap`` (gemma2's tanh attention-logit cap; 0 = off): the
+shared score step caps each scaled score, cap * tanh(score / cap), before
+the mask, in every other mode.
+
 Both take ``share_values`` (CHAI-QKV, MHA only): V is clustered like K
 (KVv == R); each unit accumulates its rep's one row, which the finalized
 mode divides and writes to every member head, and the state mode emits
@@ -261,19 +265,15 @@ def paged_launch_config(q_rep, k_pool, bt_k, h2c, *, reps_per_group=1,
                                 h2c.shape[-1], reps_per_group, share_values)
 
 
-def _launcher(name, n_ptrs, n_ints):
+def _launcher(name, n_ptrs, n_ints, n_floats=0):
+    """A launcher's ctypes function: ``n_ptrs`` pointers, ``n_ints`` ints,
+    ``n_floats`` floats, then the stream."""
     from repro_torch.kernels import build
     fn = getattr(build.load(name), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
-
-
-def _refuse_unported(name, softcap):
-    if softcap:
-        raise NotImplementedError(f"{name}: softcap is not ported to CUDA "
-                                  "yet: ROADMAP Queue 1 #14")
 
 
 def _check_scales(name, k, v, k_scale, v_scale, *, raw_v=False):
@@ -432,8 +432,10 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     ``share_values`` (MHA, reps_per_group 1): v_cache (B, R, S, hd) is the
     clustered V, rep j reading V row j; int8 V may come without v_scale
     (codes read as values); the state's acc is (B, R, hd).
+    ``softcap`` (gemma2's ``attn_logit_softcap``; 0 = off): every score,
+    once scaled, becomes softcap * tanh(score / softcap) before the mask,
+    in any of the modes above.
     """
-    _refuse_unported("chai_fused_decode", softcap)
     _check_scales("chai_fused_decode", k_cache, v_cache, k_scale, v_scale,
                   raw_v=share_values)
     if share_values:
@@ -461,7 +463,7 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
     rows = r_total if share_values else h_total
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state, rows)
-    fn = _launcher("chai_fused_decode", 14, 17)
+    fn = _launcher("chai_fused_decode", 14, 17, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch = split_scratch(cfg.n_split, b, r_total, rows, hd,
@@ -473,7 +475,8 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
                  kv_v, s, hd, ts, decode_step_size(ts), reps_per_group,
                  1 if share_values else h_total // kv_v, int(window),
                  cfg.n_split, cfg.tiles_per_split, cfg.n_cap,
-                 int(share_values), _KV_DTYPES[k.dtype], stream)
+                 int(share_values), _KV_DTYPES[k.dtype], float(softcap),
+                 stream)
     if err:
         raise RuntimeError(f"chai_fused_decode launch failed: CUDA error "
                            f"{err}")
@@ -502,9 +505,8 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     would move the whole pool every call). Returns (B, H, hd) fp32 from
     ONE kernel launch, or the ``emit_state`` triple. ``share_values``:
     v_pool is the clustered pool (KVv == R; the engine's ``cp`` through
-    ``bt_vc``), as in the dense call.
+    ``bt_vc``), as in the dense call; ``softcap`` as in the dense call.
     """
-    _refuse_unported("paged_chai_fused_decode", softcap)
     _check_scales("paged_chai_fused_decode", k_pool, v_pool, k_scale_pool,
                   v_scale_pool, raw_v=share_values)
     if share_values:
@@ -539,7 +541,7 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
     rows = r_total if share_values else h_total
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state, rows)
-    fn = _launcher("paged_chai_fused_decode", 16, 17)
+    fn = _launcher("paged_chai_fused_decode", 16, 17, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch = split_scratch(cfg.n_split, b, r_total, rows, hd,
@@ -552,7 +554,8 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
                  kv_v, n_pages, page, hd, decode_step_size(page),
                  reps_per_group, 1 if share_values else h_total // kv_v,
                  int(window), cfg.n_split, cfg.tiles_per_split, cfg.n_cap,
-                 int(share_values), _KV_DTYPES[k_pool.dtype], stream)
+                 int(share_values), _KV_DTYPES[k_pool.dtype],
+                 float(softcap), stream)
     if err:
         raise RuntimeError(f"paged_chai_fused_decode launch failed: CUDA "
                            f"error {err}")

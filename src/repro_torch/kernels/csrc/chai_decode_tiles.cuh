@@ -26,8 +26,8 @@
 // tile or a page). Per chunk:
 //   1. scores: thread i reads the K row of chunk position i with 16-byte
 //      loads and dots it with every query of the block; scale 1/sqrt(hd),
-//      masked to -2e38 outside idx <= pos (and pos - idx < window when
-//      window > 0);
+//      then, with a softcap (cap != 0), cap * tanhf(sc / cap); masked to
+//      -2e38 outside idx <= pos (and pos - idx < window when window > 0);
 //   2. online softmax, one warp per query, the chunk's steps in order:
 //      m_new = max(m, max(step), -1e30), alpha = exp(m - m_new), p =
 //      exp(sc - m_new), l = l * alpha + sum(p) (the recurrence of the
@@ -61,6 +61,12 @@
 // Without V scales (``vs`` null: the share mode's clustered V, which the
 // reference writes by a plain cast and reads scale-less) the V codes are
 // read as values; K keeps its scales.
+//
+// The softcap mode (gemma2's tanh attention-logit cap, ``cap`` != 0): each
+// live score, once scaled (int8: after the K scale, then 1/sqrt(hd), the
+// Pallas tile's order), becomes cap * tanhf(sc / cap) before the mask;
+// tanhf and the division are the exact (non-fast-math) forms. cap == 0
+// leaves the score as it is: one uniform branch, every other mode alike.
 //
 // The share mode (``Members::share``, the CHAI-QKV ablation: V clustered
 // like K, one V row per rep, rpg == 1): the unit's one accumulator row is
@@ -371,7 +377,7 @@ __device__ __forceinline__ int chunk_positions(int c0, int last, int step) {
 template <typename T, int kQ, typename Tiles>
 __device__ void decode_range(Tiles& tiles, const Smem& sm, int nq, int k_row,
                              int mb0, int nmb, int first, int last, int step,
-                             int hd, float scale) {
+                             int hd, float scale, float cap) {
   constexpr int kQW = (kQ + kWarps - 1) / kWarps;  // queries per warp
   constexpr int kVec = Vec16<T>::n;
   using Raw = typename Vec16<T>::Raw;
@@ -415,17 +421,16 @@ __device__ void decode_range(Tiles& tiles, const Smem& sm, int nq, int k_row,
               dot[j] += sm.q[j * hd + d + u] * kv[u];
         }
       }
-      if constexpr (kIsInt8<T>) {   // the K scale after the dot
-        const float ks = valid ? tiles.k_scale(k_row, idx) : 0.f;
+      // int8: the K scale after the dot, then 1/sqrt(hd)
+      float ks = 1.f;
+      if constexpr (kIsInt8<T>) ks = valid ? tiles.k_scale(k_row, idx) : 0.f;
 #pragma unroll
-        for (int j = 0; j < kQ; ++j)
-          if (j < nq)
-            sm.sc[j * kChunk + i] = valid ? dot[j] * ks * scale : kNegInf;
-      } else {
-#pragma unroll
-        for (int j = 0; j < kQ; ++j)
-          if (j < nq)
-            sm.sc[j * kChunk + i] = valid ? dot[j] * scale : kNegInf;
+      for (int j = 0; j < kQ; ++j) {
+        if (j < nq) {
+          float x = kIsInt8<T> ? dot[j] * ks * scale : dot[j] * scale;
+          if (cap != 0.f) x = cap * tanhf(x / cap);   // the softcap mode
+          sm.sc[j * kChunk + i] = valid ? x : kNegInf;
+        }
       }
     }
     __syncthreads();
@@ -642,7 +647,7 @@ __device__ void merge_splits(const Smem& sm, int nq, const Members& mem,
 // One block of a unit: member slice ``slice`` of split ``s`` of K row
 // ``k_row``, for the nq queries at ``q`` (nq rows of hd fp32) and the
 // members ``mem`` names, positions 0..pos (pos - window + 1..pos with a
-// window). A slice is n_cap members of the unit's list (slice 0 also owns
+// window), scores softcapped at ``cap`` (0: off). A slice is n_cap members of the unit's list (slice 0 also owns
 // the queries' m and l); a slice past the unit's members returns at once.
 // ``smem`` is the dynamic shared memory (block_smem_bytes(kQ, hd, mem.n,
 // n_cap) bytes).
@@ -650,7 +655,7 @@ template <typename T, int kQ, bool kEmit, typename Tiles>
 __device__ void unit_block(Tiles& tiles, float* smem, const float* q, int nq,
                            int k_row, const Members& mem, const Plan& plan,
                            int s, int slice, int pos, int window, int hd,
-                           int n_cap, float scale, const Outputs& o,
+                           int n_cap, float scale, float cap, const Outputs& o,
                            const Partials& part) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const Smem sm = carve(smem, kQ, hd, mem.n, n_cap);
@@ -709,7 +714,7 @@ __device__ void unit_block(Tiles& tiles, float* smem, const float* q, int nq,
 
   const int mb0 = slice * n_cap, nmb = min(n_cap, n_acc - mb0);
   decode_range<T, kQ>(tiles, sm, nq, k_row, mb0, nmb, first, last,
-                      plan.step, hd, scale);
+                      plan.step, hd, scale, cap);
   if (plan.n_split == 1) {
     if (kEmit && slice == 0) {
       for (int j = tid; j < nq; j += kThreads) {

@@ -37,6 +37,12 @@
 // member heads after the division, the state mode emits (B, R, hd). Under
 // int8 its V codes come without scales and are read as values (the
 // reference writes them by a plain cast and reads them scale-less).
+//
+// The softcap mode (gemma2's ``attn_logit_softcap``, the Pallas kernel's
+// ``softcap``): a runtime ``cap``; each score, once scaled, becomes
+// cap * tanhf(score / cap) before the validity mask, in the shared score
+// step of chai_decode_tiles.cuh, so it composes with fp32/bf16, int8,
+// share, the state mode and MHA/GQA alike.
 
 #include "chai_decode_tiles.cuh"
 
@@ -63,6 +69,7 @@ struct Args {
   int R, H, kv_k, kv_v, S, hd, rpg, v_rep, window, n_cap;
   Plan plan;
   float scale;
+  float cap;   // the softcap mode: cap * tanh(score / cap); 0 = off
 };
 
 template <typename T, int kQ, bool kEmit>
@@ -94,8 +101,8 @@ chai_fused_decode_kernel(const Args a) {
                                                        : nullptr};
   unit_block<T, kQ, kEmit>(tiles, reinterpret_cast<float*>(smem_raw),
                            a.q + rep0 * a.hd, a.rpg, g, mem, a.plan, s, z,
-                           a.pos[b], a.window, a.hd, a.n_cap, a.scale, o,
-                           part);
+                           a.pos[b], a.window, a.hd, a.n_cap, a.scale, a.cap,
+                           o, part);
 }
 
 template <typename T>
@@ -138,14 +145,16 @@ struct Launch {
 // (share_values): kv_v == R and rpg == 1, rep j reads V row j, int8 V may
 // come without vs (its codes read as values), and the state mode's out
 // and accp hold R acc rows, (B, R, hd) and (B, n_split, R, hd). Returns
-// the launch's cudaError_t (0 on success); does not synchronise.
+// the launch's cudaError_t (0 on success); does not synchronise. ``cap``
+// != 0: the softcap mode, every score cap * tanh(score / cap) before the
+// mask (composes with every other mode).
 extern "C" int chai_fused_decode_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* h2c, const void* pos, void* out, void* m,
     void* l, void* mp, void* lp, void* accp, void* counter, int B, int R,
     int H, int kv_k, int kv_v, int S, int hd, int ts, int step, int rpg,
     int v_rep, int window, int n_split, int tps, int n_cap, int share,
-    int kv_type, void* stream) {
+    int kv_type, float cap, void* stream) {
   const Args a{static_cast<const float*>(q), k, v,
                static_cast<const float*>(ks), static_cast<const float*>(vs),
                static_cast<const int*>(h2c), static_cast<const int*>(pos),
@@ -154,7 +163,7 @@ extern "C" int chai_fused_decode_launch(
                static_cast<float*>(lp), static_cast<float*>(accp),
                static_cast<int*>(counter), share, R, H, kv_k, kv_v, S, hd, rpg,
                v_rep, window, n_cap,
-               Plan{n_split, tps, S / ts, ts, step}, inv_sqrt_hd(hd)};
+               Plan{n_split, tps, S / ts, ts, step}, inv_sqrt_hd(hd), cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_type == 2) return with_queries(rpg, Launch<int8_t>{a, B, st});
   if (kv_type == 1) return with_queries(rpg, Launch<__nv_bfloat16>{a, B, st});

@@ -25,7 +25,8 @@
 // same staged table entries (chai_decode_tiles.cuh: PagedTiles), so it
 // stays bitwise equal to the dense kernel's int8 mode too. The share mode
 // (share_values) reads V from the clustered pool through its own table
-// (the engine's ``bt_vc``), as the dense kernel's share mode does.
+// (the engine's ``bt_vc``), as the dense kernel's share mode does, and the
+// softcap mode (``cap``) is the dense kernel's too.
 
 #include "chai_decode_tiles.cuh"
 
@@ -54,6 +55,7 @@ struct Args {
   int R, H, kv_k, kv_v, P, page, hd, rpg, v_rep, window, n_cap;
   Plan plan;
   float scale;
+  float cap;   // the softcap mode: cap * tanh(score / cap); 0 = off
 };
 
 template <typename T, int kQ, bool kEmit>
@@ -86,8 +88,8 @@ paged_chai_fused_decode_kernel(const Args a) {
                                                        : nullptr};
   unit_block<T, kQ, kEmit>(tiles, reinterpret_cast<float*>(smem_raw),
                            a.q + rep0 * a.hd, a.rpg, g, mem, a.plan, s, z,
-                           a.pos[b], a.window, a.hd, a.n_cap, a.scale, o,
-                           part);
+                           a.pos[b], a.window, a.hd, a.n_cap, a.scale, a.cap,
+                           o, part);
 }
 
 template <typename T>
@@ -125,7 +127,8 @@ struct Launch {
 // clustered pool read through bt_v). The split plan (n_split ranges of
 // ``tps`` pages), ``step`` (a divisor of the page, <= 128), the scratch
 // and n_cap as in chai_fused_decode_launch. All contiguous and 16-byte
-// aligned; hd % 8 == 0, hd <= 256. Returns the launch's cudaError_t (0 on
+// aligned; hd % 8 == 0, hd <= 256; ``cap`` (the softcap mode, 0 = off) as
+// in chai_fused_decode_launch. Returns the launch's cudaError_t (0 on
 // success); does not synchronise.
 extern "C" int paged_chai_fused_decode_launch(
     const void* q, const void* k_pool, const void* v_pool,
@@ -134,7 +137,7 @@ extern "C" int paged_chai_fused_decode_launch(
     void* l, void* mp, void* lp, void* accp, void* counter, int B, int R,
     int H, int kv_k, int kv_v, int P, int page, int hd, int step, int rpg,
     int v_rep, int window, int n_split, int tps, int n_cap, int share,
-    int kv_type, void* stream) {
+    int kv_type, float cap, void* stream) {
   const Args a{static_cast<const float*>(q), k_pool, v_pool,
                static_cast<const float*>(ks_pool),
                static_cast<const float*>(vs_pool),
@@ -145,7 +148,7 @@ extern "C" int paged_chai_fused_decode_launch(
                static_cast<float*>(lp), static_cast<float*>(accp),
                static_cast<int*>(counter), share, R, H, kv_k, kv_v, P, page, hd,
                rpg, v_rep, window, n_cap,
-               Plan{n_split, tps, P, page, step}, inv_sqrt_hd(hd)};
+               Plan{n_split, tps, P, page, step}, inv_sqrt_hd(hd), cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_type == 2) return with_queries(rpg, Launch<int8_t>{a, B, st});
   if (kv_type == 1) return with_queries(rpg, Launch<__nv_bfloat16>{a, B, st});

@@ -5,7 +5,9 @@ made from a seed, and reports wall time, tokens/s, TTFT and KV bytes.
 The default engine is the reference's: the continuous scheduler on the
 paged KV layout (``--scheduler cohort`` and ``--kv-layout dense`` choose
 the others). Full width by default (chai-llama-7b in bf16 needs a GPU
-with ~20 GB free); ``--reduced`` serves the CPU-sized config.
+with ~20 GB free; ``--arch`` also takes nemotron-4-15b (GQA), gemma2-9b
+(local and global layers, softcaps) and h2o-danube-1.8b (all local));
+``--reduced`` serves the CPU-sized config.
 """
 from __future__ import annotations
 
@@ -23,7 +25,9 @@ from repro_torch.serving.engine import EngineConfig, ServingEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="chai-llama-7b")
+    ap.add_argument("--arch", default="chai-llama-7b",
+                    choices=("chai-llama-7b", "nemotron-4-15b", "gemma2-9b",
+                             "h2o-danube-1.8b"))
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)

@@ -1,10 +1,13 @@
-"""Attention primitives for the dense global-attention path.
+"""Attention primitives of the global and local (sliding-window) layers.
 
 Full-sequence attention streams K/V in chunks with a running-softmax
-carry, the same arithmetic as the reference's ``attention_fullseq``. The
+carry, the same arithmetic as the reference's ``attention_fullseq``
+(with the window of a local layer and the gemma2 logit softcap). The
 prefill path writes every row of the bucket (padding included); decode
 masks by ``pos``, so ``valid_len`` never reaches this module.
-CHAI's clustered decode lives in ``repro_torch.core.chai_attention``.
+``ring_positions`` names the absolute position each slot of a local
+layer's ring cache holds. CHAI's clustered decode lives in
+``repro_torch.core.chai_attention``.
 """
 from __future__ import annotations
 
@@ -58,6 +61,17 @@ def attention_fullseq(q, k, v, q_positions, kv_positions, *,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-37)
     return out.reshape(b, tq, h, hd).to(q.dtype)
+
+
+def ring_positions(pos, size):
+    """Absolute position stored in each slot of a ring buffer of ``size``
+    (the reference's ``ring_positions``, batched): slot s holds the latest
+    t < pos with t % size == s, or -1 if there is none yet. pos: int
+    tensor (...,) -> (..., size) int32."""
+    slots = torch.arange(size, dtype=torch.int32, device=pos.device)
+    p = pos.to(torch.int32)[..., None]
+    last = p - 1 - torch.remainder(p - 1 - slots, size)
+    return torch.where(last >= 0, last, -1).to(torch.int32)
 
 
 def project_qkv(x, p, cfg, positions):

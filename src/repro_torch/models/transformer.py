@@ -1,11 +1,18 @@
-"""Decoder stack for dense global-attention models (the port's first slice).
+"""Decoder stack for dense attention models: global and local layers.
 
 Parameters keep the reference's layer-stacked layout (``param_table``):
 one tensor per leaf with the layer index first, so weights cross between
 the packages leaf by leaf (``repro_torch.weights``). A Python loop over
-layers replaces the reference's ``lax.scan``/``lax.switch``; only the
-global-attention mixer and the dense FFN are ported, and any other layer
-kind raises ``NotImplementedError``.
+layers replaces the reference's ``lax.scan``/``lax.switch``; the global
+and the local (sliding-window) attention mixers and the dense FFN are
+ported, and any other layer kind (RG-LRU, RWKV, MoE) raises
+``NotImplementedError``.
+
+Global layers keep a dense cache (``kg``/``vg``, or the engine's paged
+pool); local layers keep a ring of the last ``min(window, max_seq)``
+positions (``kl``/``vl``, slot ``pos % w``), always in the model dtype and
+never paged, as in the reference. The attention-logit softcap (gemma2)
+caps every score, global and local; ``final_logit_softcap`` the logits.
 
 Two entry points: ``forward_fullseq`` (prefill) and ``decode_step`` (one
 token against the decode state). Unlike the reference, whose arrays are
@@ -20,7 +27,8 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN_GLOBAL, FFN_DENSE, ModelConfig
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, FFN_DENSE,
+                                      ModelConfig)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp
@@ -36,10 +44,10 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig):
     """Raise on what this slice of the port does not carry."""
-    if any(t != ATTN_GLOBAL for t in cfg.layer_types):
+    if any(t not in (ATTN_GLOBAL, ATTN_LOCAL) for t in cfg.layer_types):
         raise NotImplementedError(
-            f"{cfg.name}: only global-attention layers are ported "
-            "(local, RG-LRU and RWKV layers come with a later slice)")
+            f"{cfg.name}: only global and local attention layers are ported "
+            "(RG-LRU and RWKV layers come with a later slice)")
     if any(t != FFN_DENSE for t in cfg.ffn_types):
         raise NotImplementedError(f"{cfg.name}: MoE FFN is not ported yet")
     if cfg.frontend != "none":
@@ -47,8 +55,11 @@ def check_supported(cfg: ModelConfig):
     if cfg.kv_cache_dtype not in ("", "int8"):
         raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: the cache "
                          "is the model dtype ('') or 'int8'")
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError("attention logit softcap is not ported yet")
+    if cfg.kv_cache_dtype == "int8" and cfg.n_local_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the int8 KV cache with local-attention layers is "
+            "not ported yet (the reference keeps the rings in the model "
+            "dtype): ROADMAP Queue 1 #14")
     if cfg.qk_norm:
         raise NotImplementedError("qk_norm is not ported yet")
     if cfg.chai.share_values and not cfg.is_mha:
@@ -113,11 +124,21 @@ def init_params(cfg: ModelConfig, generator=None, device=None):
 
 
 def layer_plan(cfg: ModelConfig):
-    """Per-layer routing for the all-global dense models this slice
-    serves: layer i is attention layer i, global layer i and dense FFN i."""
+    """Per-layer routing (the reference's ``layer_plan``, attention
+    subset): ``attn`` the attention-layer index of each layer, ``global``
+    / ``local`` its index among the global / local layers (None for a
+    layer of the other kind), ``dense`` its dense-FFN index."""
     check_supported(cfg)
-    ids = list(range(cfg.n_layers))
-    return {"attn": ids, "global": ids, "dense": ids}
+    plan = {"attn": [], "global": [], "local": [], "dense": []}
+    n_glob = n_loc = 0
+    for i, kind in enumerate(cfg.layer_types):
+        plan["attn"].append(i)
+        plan["dense"].append(i)
+        plan["global"].append(n_glob if kind == ATTN_GLOBAL else None)
+        plan["local"].append(n_loc if kind == ATTN_LOCAL else None)
+        n_glob += kind == ATTN_GLOBAL
+        n_loc += kind == ATTN_LOCAL
+    return plan
 
 
 def _layer(group, i):
@@ -133,21 +154,35 @@ def kv_int8(cfg: ModelConfig) -> bool:
     return cfg.kv_cache_dtype == "int8"
 
 
+def ring_width(cfg: ModelConfig, max_seq: int) -> int:
+    """Slots of a local layer's ring cache: min(window, max_seq)."""
+    return min(cfg.window_size, max_seq)
+
+
 def decode_state_shapes(cfg: ModelConfig, batch: int, max_seq: int):
-    """{name: (shape, dtype)} of the decode state: ``pos`` (B,) int32 and
-    the global caches ``kg``/``vg`` (nG, B, KV, S, hd) in the model dtype,
-    or, under int8, int8 codes with the rows' fp32 scales ``kg_scale``/
-    ``vg_scale`` (nG, B, KV, S) (the reference's ``decode_state_structs``,
-    global-attention subset)."""
+    """{name: (shape, dtype)} of the decode state: ``pos`` (B,) int32; with
+    global layers their caches ``kg``/``vg`` (nG, B, KV, S, hd) in the
+    model dtype, or, under int8, int8 codes with the rows' fp32 scales
+    ``kg_scale``/``vg_scale`` (nG, B, KV, S); with local layers their
+    rings ``kl``/``vl`` (nL, B, KV, min(window, S), hd), always in the
+    model dtype (the reference's ``decode_state_structs``, attention
+    subset)."""
     check_supported(cfg)
-    shape = (cfg.n_global_layers, batch, cfg.n_kv_heads, max_seq,
-             cfg.head_dim)
-    dt = torch.int8 if kv_int8(cfg) else model_dtype(cfg)
-    shapes = {"pos": ((batch,), torch.int32), "kg": (shape, dt),
-              "vg": (shape, dt)}
-    if kv_int8(cfg):
-        shapes["kg_scale"] = (shape[:-1], torch.float32)
-        shapes["vg_scale"] = (shape[:-1], torch.float32)
+    shapes = {"pos": ((batch,), torch.int32)}
+    if cfg.n_global_layers:
+        shape = (cfg.n_global_layers, batch, cfg.n_kv_heads, max_seq,
+                 cfg.head_dim)
+        dt = torch.int8 if kv_int8(cfg) else model_dtype(cfg)
+        shapes["kg"] = (shape, dt)
+        shapes["vg"] = (shape, dt)
+        if kv_int8(cfg):
+            shapes["kg_scale"] = (shape[:-1], torch.float32)
+            shapes["vg_scale"] = (shape[:-1], torch.float32)
+    if cfg.n_local_layers:
+        ring = (cfg.n_local_layers, batch, cfg.n_kv_heads,
+                ring_width(cfg, max_seq), cfg.head_dim)
+        shapes["kl"] = (ring, model_dtype(cfg))
+        shapes["vl"] = (ring, model_dtype(cfg))
     return shapes
 
 
@@ -158,8 +193,8 @@ def zeros_state(shapes, device):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, device):
-    """{"pos": (B,) int32, "kg"/"vg": (nG, B, KV, S, hd) model dtype (int8
-    codes plus ``kg_scale``/``vg_scale`` under int8)}."""
+    """Zeros of ``decode_state_shapes``: ``pos``, the global caches
+    ``kg``/``vg`` (and int8 scales) and the local rings ``kl``/``vl``."""
     return zeros_state(decode_state_shapes(cfg, batch, max_seq), device)
 
 
@@ -202,6 +237,33 @@ def _prefill_write(state, gi, pos_idx, k, v):
         state[name][gi].index_copy_(2, pos_idx, x.to(state[name].dtype))
 
 
+def _ring_write(state, li, k, v, positions, vl):
+    """Write a prefill's K/V (B, T, KV, hd) into layer ``li``'s rings
+    (B, KV, w, hd), in place (the reference's local cache write). Without
+    ``vl`` (exact-length prefill) the last min(T, w) rows land at slots
+    ``positions % w``. With ``vl`` ((B,) real lengths of a right-padded
+    bucket, positions 0..T-1) the ring is rebuilt: slot s takes the row of
+    the latest REAL position p < vl with p % w == s, and a slot with no
+    such p keeps its old row."""
+    kc, vc = state["kl"][li], state["vl"][li]
+    w, t = kc.shape[2], k.shape[1]
+    if vl is None:
+        n = min(t, w)
+        slots = torch.remainder(positions[-n:].long(), w)
+        for cache, x in ((kc, k), (vc, v)):
+            cache[:, :, slots] = x[:, -n:].transpose(1, 2).to(cache.dtype)
+        return
+    s_arr = torch.arange(w, device=k.device)
+    p_s = s_arr[None, :] + w * torch.div(vl[:, None] - 1 - s_arr[None, :],
+                                         w, rounding_mode="floor")
+    keep = (p_s >= 0)[:, None, :, None]                     # (B, 1, w, 1)
+    idx = p_s.clamp(0, t - 1)[:, :, None, None]
+    for cache, x in ((kc, k), (vc, v)):
+        rows = torch.gather(x, 1, idx.expand(-1, -1, *x.shape[2:]))
+        cache.copy_(torch.where(keep, rows.transpose(1, 2).to(cache.dtype),
+                                cache))
+
+
 def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
                     positions=None, logits_slice=None, valid_len=None,
                     prefix_len=None, prefix_kv=None):
@@ -211,8 +273,10 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
     position's logits; with ``valid_len`` ((B,) or scalar: bucketed
     prefill, tokens at index >= valid_len are right-padding) that is the
     last REAL token's, and ``pos`` starts at ``valid_len``. Padding rows
-    are written to the cache too: decode masks them by ``pos`` and
-    overwrites them as the sequence advances.
+    are written to the global caches too: decode masks them by ``pos`` and
+    overwrites them as the sequence advances. A local layer attends a
+    window of ``cfg.window_size`` positions and writes its ring
+    (``_ring_write``: the last real positions, never the padded tail).
 
     Under int8 the cache write stores ``quant_rows`` codes and scales.
 
@@ -236,28 +300,38 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
         positions = torch.arange(t, dtype=torch.int32, device=h.device)
         if plen is not None:
             positions = positions + plen[0]
+    if prefix_kv is not None and cfg.attn_logit_softcap:
+        raise NotImplementedError(
+            f"{cfg.name}: the prefill kernels' softcap is not ported yet "
+            "(ROADMAP Queue 2): no chunked or prefix-cache prefill with an "
+            "attention-logit softcap")
     pos_idx = positions.long()
+    vl = None
+    if valid_len is not None:
+        vl = torch.as_tensor(valid_len, dtype=torch.int64, device=h.device)
+        vl = vl.expand(b) if vl.ndim == 0 else vl
 
     for i in range(cfg.n_layers):
         p = _layer(params["attn"], plan["attn"][i])
-        gi = plan["global"][i]
+        gi, li = plan["global"][i], plan["local"][i]
         xn = rms_norm(h, p["ln"], cfg.norm_eps)
         q, k, v = attn_mod.project_qkv(xn, p, cfg, positions)
-        if prefix_kv is not None:
+        if prefix_kv is not None and li is None:
             y = _prefix_attention(q, k, v, prefix_kv, gi, plen)
         else:
-            y = attn_mod.attention_fullseq(q, k, v, positions, positions)
+            y = attn_mod.attention_fullseq(
+                q, k, v, positions, positions,
+                window=cfg.window_size if li is not None else 0,
+                attn_softcap=cfg.attn_logit_softcap)
         h = h + attn_mod.output_proj(y, p)
-        if state is not None:
+        if state is not None and li is not None:
+            _ring_write(state, li, k, v, positions, vl)
+        elif state is not None:
             _prefill_write(state, gi, pos_idx, k, v)
         pf = _layer(params["ffn"], plan["dense"][i])
         h = h + mlp.dense_ffn(rms_norm(h, pf["ln"], cfg.norm_eps), pf, cfg)
 
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
-    vl = None
-    if valid_len is not None:
-        vl = torch.as_tensor(valid_len, dtype=torch.int64, device=h.device)
-        vl = vl.expand(b) if vl.ndim == 0 else vl
     if logits_slice == "last":
         if vl is None:
             h = h[:, -1:]
@@ -399,6 +473,19 @@ def _dense_global_write(state, gi, k, v, pos, write_mask):
     return kc, vc, ksc, vsc
 
 
+def _local_write(state, li, k, v, pos, write_mask):
+    """Local-layer decode write: commit one token's K/V rows at ring slot
+    ``pos % w`` of layer ``li``'s rings (B, KV, w, hd), in place. Returns
+    the rings and the absolute position each slot holds after the write
+    (``ring_positions(pos + 1, w)``, (B, w))."""
+    kc, vc = state["kl"][li], state["vl"][li]
+    w = kc.shape[2]
+    slot = torch.remainder(pos.long(), w)
+    _dense_write_rows(kc, slot, k, write_mask)
+    _dense_write_rows(vc, slot, v, write_mask)
+    return kc, vc, attn_mod.ring_positions(pos + 1, w)
+
+
 def _global_views(state, gi):
     """Dense logical views (B, KV, S, hd) of layer ``gi``'s global K and V:
     the dense caches, or the paged pool gathered through the block tables;
@@ -421,56 +508,74 @@ def _global_views(state, gi):
     return kc, vc
 
 
-def _plain_decode_attention(xn, p, cfg, state, gi, ai, write_mask=None,
-                            decode_ts=0):
+def _plain_decode_attention(xn, p, cfg, state, gi, ai, li=None,
+                            write_mask=None, decode_ts=0):
     """MHA/GQA decode for one token. xn: (B, d). Returns (B, H, hd).
 
-    Writes the token's K/V rows at ``pos`` (dense ``kg``/``vg``, or the
-    paged pool ``kvp`` through ``bt_kg``/``bt_vg``) and, during CHAI
-    WARMUP (a ``chai_scores`` buffer in the state), adds this step's
-    attention probabilities over the first ``feature_window`` positions
-    to the layer's clustering features (paper §3.3). ``write_mask`` (B,)
+    A global layer (``gi``) writes the token's K/V rows at ``pos`` (dense
+    ``kg``/``vg``, or the paged pool ``kvp`` through ``bt_kg``/``bt_vg``);
+    a local layer (``li`` given) at ring slot ``pos % w`` of ``kl``/``vl``
+    and attends the ring's positions inside the window. During CHAI
+    WARMUP (a ``chai_scores`` buffer in the state) this step's attention
+    probabilities over the first ``feature_window`` positions (a local
+    layer: over the first ring SLOTS, in slot order, zero-padded when the
+    ring is narrower than the buffer, as the reference does) are added to
+    the layer's clustering features (paper §3.3). ``write_mask`` (B,)
     bool: rows and features are committed only for masked slots (the
     mixed-phase step runs this path alongside the CHAI path).
 
     Without a ``chai_scores`` buffer (the MHA baseline: CHAI off) no
-    probabilities are needed, and the attention is the flash decode op:
-    over the paged pool in place (``kops.paged_decode_attention``, no
-    densifying gather), or over the dense cache with ``decode_ts`` (the
-    engine's page size) as its tile, so the two layouts round alike. An
-    int8 cache is read as the reference reads it: the rows are
-    dequantized into a dense fp32 view (paged: gathered first), and the
-    flash decode op runs over that view on both layouts (the flash decode
-    kernels, like the Pallas ones, have no scale mode)."""
+    probabilities are needed, and a global layer's attention is the flash
+    decode op: over the paged pool in place
+    (``kops.paged_decode_attention``, no densifying gather), or over the
+    dense cache with ``decode_ts`` (the engine's page size) as its tile,
+    so the two layouts round alike. An int8 cache is read as the
+    reference reads it: the rows are dequantized into a dense fp32 view
+    (paged: gathered first), and the flash decode op runs over that view
+    on both layouts. The flash decode kernels, like the Pallas ones, have
+    no scale mode, no softcap and no ring: with ``attn_logit_softcap`` a
+    global layer, and a local layer always, takes the eager attention
+    (``_decode_attention_batched``), the reference's decode math."""
     b = xn.shape[0]
     pos = state["pos"]
     q, k, v = attn_mod.project_qkv(xn[:, None], p, cfg, pos[:, None])
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
-    if "kvp" in state:
-        pool, spool = _paged_global_write(state, gi, k, v, pos, write_mask)
+    cap = cfg.attn_logit_softcap
+    if li is not None:
+        kc, vc, kv_pos = _local_write(state, li, k, v, pos, write_mask)
+        window = cfg.window_size
     else:
-        kc, vc, spool, _ = _dense_global_write(state, gi, k, v, pos,
-                                               write_mask)
-    if "chai_scores" not in state and spool is None:
         if "kvp" in state:
-            y = kops.paged_decode_attention(q, pool, state["bt_kg"],
-                                            state["bt_vg"], pos)
+            pool, spool = _paged_global_write(state, gi, k, v, pos,
+                                              write_mask)
         else:
-            y = kops.flash_decode_attention(q, kc, vc, pos, ts=decode_ts)
-        return y.to(q.dtype)
-    kc, vc = _global_views(state, gi)
-    if "chai_scores" not in state:
-        return kops.flash_decode_attention(q, kc, vc, pos,
-                                           ts=decode_ts).to(q.dtype)
-    s = kc.shape[2]
-    kv_pos = torch.arange(s, dtype=torch.int32, device=xn.device).expand(b, s)
-    y, probs = _decode_attention_batched(q, kc, vc, kv_pos, pos, 0,
-                                         cfg.attn_logit_softcap)
-    wf = state["chai_scores"].shape[-1]
-    pw = probs.reshape(b, -1, s)[:, :, :wf]
-    if write_mask is not None:   # steady slots: features stay frozen
-        pw = pw * write_mask[:, None, None]
-    state["chai_scores"][ai] += pw
+            kc, vc, spool, _ = _dense_global_write(state, gi, k, v, pos,
+                                                   write_mask)
+        flash = "chai_scores" not in state and not cap
+        if flash and spool is None:
+            if "kvp" in state:
+                y = kops.paged_decode_attention(q, pool, state["bt_kg"],
+                                                state["bt_vg"], pos)
+            else:
+                y = kops.flash_decode_attention(q, kc, vc, pos, ts=decode_ts)
+            return y.to(q.dtype)
+        kc, vc = _global_views(state, gi)
+        if flash:
+            return kops.flash_decode_attention(q, kc, vc, pos,
+                                               ts=decode_ts).to(q.dtype)
+        s = kc.shape[2]
+        kv_pos = torch.arange(s, dtype=torch.int32,
+                              device=xn.device).expand(b, s)
+        window = 0
+    y, probs = _decode_attention_batched(q, kc, vc, kv_pos, pos, window, cap)
+    if "chai_scores" in state:
+        wf = state["chai_scores"].shape[-1]
+        pw = probs.reshape(b, -1, probs.shape[-1])[:, :, :wf]
+        if pw.shape[-1] < wf:    # a ring narrower than the feature window
+            pw = torch.nn.functional.pad(pw, (0, wf - pw.shape[-1]))
+        if write_mask is not None:   # steady slots: features stay frozen
+            pw = pw * write_mask[:, None, None]
+        state["chai_scores"][ai] += pw
     return y
 
 
@@ -494,7 +599,9 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
 
     ``relay`` (the relay shared-prefix decode, paged layout): the engine's
     dict of group-batched tensors, passed to every CHAI layer (see
-    ``repro_torch.core.chai_attention``)."""
+    ``repro_torch.core.chai_attention``).
+
+    A local layer reads and writes its ring (``li``), on every path."""
     from repro_torch.core import chai_attention as chai_mod
     plan = layer_plan(cfg)
     h = embed_lookup(params["embed"]["tok"], tokens).to(model_dtype(cfg))
@@ -503,23 +610,24 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
         from repro_torch.core.cache import PHASE_STEADY
         steady = state["phase"] >= PHASE_STEADY                # (B,)
     for i in range(cfg.n_layers):
-        ai, gi = plan["attn"][i], plan["global"][i]
+        ai, gi, li = plan["attn"][i], plan["global"][i], plan["local"][i]
         p = _layer(params["attn"], ai)
         xn = rms_norm(h, p["ln"], cfg.norm_eps)
         if steady is not None:
-            y_m = _plain_decode_attention(xn, p, cfg, state, gi, ai,
+            y_m = _plain_decode_attention(xn, p, cfg, state, gi, ai, li,
                                           write_mask=~steady,
                                           decode_ts=decode_ts)
             y_c = chai_mod.chai_decode_attention(
-                xn, p, cfg, state, gi, ai, chai_ctx, write_mask=steady,
-                decode_ts=decode_ts, relay=relay)
+                xn, p, cfg, state, gi, ai, chai_ctx, li=li,
+                write_mask=steady, decode_ts=decode_ts, relay=relay)
             y = torch.where(steady[:, None, None], y_c, y_m)
         elif chai_ctx is not None:
             y = chai_mod.chai_decode_attention(xn, p, cfg, state, gi, ai,
-                                               chai_ctx, decode_ts=decode_ts,
+                                               chai_ctx, li=li,
+                                               decode_ts=decode_ts,
                                                relay=relay)
         else:
-            y = _plain_decode_attention(xn, p, cfg, state, gi, ai,
+            y = _plain_decode_attention(xn, p, cfg, state, gi, ai, li,
                                         decode_ts=decode_ts)
         h = h + torch.einsum("bhe,hed->bd", y, p["wo"])
         pf = _layer(params["ffn"], plan["dense"][i])

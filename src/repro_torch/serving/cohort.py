@@ -4,7 +4,9 @@ Requests admitted together move through the CHAI phase machine together:
 one bucketed prefill, then lockstep WARMUP (MHA decode collecting
 clustering features) -> CLUSTER (K-Means membership) -> COMPACT (K-cache
 gather to representative rows) -> STEADY (clustered decode), with the
-cohort-deadline straggler re-dispatch of the reference.
+cohort-deadline straggler re-dispatch of the reference. The bucketed
+prefill passes each row's true length, so a local layer's ring holds the
+row's last real positions, never its padding.
 """
 from __future__ import annotations
 

@@ -71,6 +71,17 @@ With ``use_chai=False`` (the MHA baseline) every decode step runs the
 flash decode kernels: ``paged_decode`` on the paged pool in place,
 ``flash_decode`` on the dense layouts (either scheduler).
 
+Local-attention models (``gemma2-9b``, local and global layers
+alternating, with tanh softcaps; ``h2o-danube-1.8b``, all local) run
+both schedulers and both layouts, the MHA baseline included. Their
+rings are per slot and never paged, so a model without global layers
+runs ``kv_layout="paged"`` on the unified layout, as the reference does;
+chunked prefill and the prefix cache refuse them (a ring cannot be
+rebuilt from a suffix). The fused kernels run their softcap mode on the
+global layers; with CHAI off, a local layer, and a global layer of a
+softcap model, decodes eagerly (the flash decode kernels have neither a
+ring nor a softcap, in the reference as here).
+
 This port decodes greedily. Not ported yet, and refused with
 ``NotImplementedError``: sampling with temperature > 0, stop strings,
 ``priority`` (preemption), ``kv_offload`` (KV tiers); not there yet:
@@ -1221,14 +1232,16 @@ class EngineCore(CohortSchedulerMixin):
         """KV-cache bytes. With explicit ``chai=``: the paper's analytic
         steady-state size (Fig 11 A/B comparisons). With no argument on
         the continuous scheduler: this engine's actual footprint, the
-        allocated-page bytes right now (paged; falls at each CLUSTER
-        transition) or the unified layout's constant residency (dense)."""
+        allocated-page bytes right now plus the local rings (paged; falls
+        at each CLUSTER transition) or the unified layout's constant
+        residency (dense)."""
         if chai is None and self.ecfg.scheduler == "continuous":
             if self.paged:
                 return chai_cache.paged_kv_bytes(
                     self.cfg, self.ecfg.page_size,
                     self.dense_pool.pages_in_use,
-                    self.chai_pool.pages_in_use if self.chai_pool else 0)
+                    self.chai_pool.pages_in_use if self.chai_pool else 0,
+                    batch=self.ecfg.batch_slots, max_seq=self.ecfg.max_seq)
             return chai_cache.unified_kv_bytes(
                 self.cfg, self.ecfg.batch_slots, self.ecfg.max_seq,
                 chai=self.chai_on)
@@ -1249,7 +1262,8 @@ class EngineCore(CohortSchedulerMixin):
             return self.kv_bytes()
         return chai_cache.paged_kv_bytes(
             self.cfg, self.ecfg.page_size, self.dense_pool.capacity,
-            self.chai_pool.capacity if self.chai_pool else 0)
+            self.chai_pool.capacity if self.chai_pool else 0,
+            batch=self.ecfg.batch_slots, max_seq=self.ecfg.max_seq)
 
 
 class ServingEngine(EngineCore):

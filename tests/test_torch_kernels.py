@@ -101,10 +101,11 @@ def test_tile_size_rule_matches_reference():
                  id="flag4")])
 def test_kernel_path_refuses_unported_flags(flag):
     """A non-CPU tensor goes to the kernel, which raises on what it does
-    not carry — never to the plain version. The int8 scales are ported
-    (flag3, flag4: int8 K/V with their scales, finalized and state mode)
-    and so is ``share_values`` (flag2: V clustered like K, R rows): they
-    pass the refusal and reach the device check."""
+    not carry — never to the plain version. Every flag is ported now: the
+    int8 scales (flag3, flag4: int8 K/V with their scales, finalized and
+    state mode), ``share_values`` (flag2: V clustered like K, R rows) and
+    the softcap (flag0): each passes the wrapper and reaches the device
+    check, which raises on a non-CUDA tensor."""
     meta = dict(device="meta")
     int8 = "k_scale" in flag
     share = flag.get("share_values", False)
@@ -117,12 +118,9 @@ def test_kernel_path_refuses_unported_flags(flag):
     flag = {n: (torch.empty(2, 5 if n == "k_scale" else 8, 64, **meta)
                 if v == "scale" else v) for n, v in flag.items()}
     before = dict(tck.LAUNCHES)
-    if int8 or share:
-        with pytest.raises(ValueError, match="CUDA"):
-            tops.chai_decode_attention(*args, **flag)
-    else:
-        with pytest.raises(NotImplementedError):
-            tops.chai_decode_attention(*args, **flag)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.chai_decode_attention(*args, **flag)
+    if not (int8 or share):
         with pytest.raises(ValueError, match="CUDA"):
             tops.chai_decode_attention(*args)
     assert tck.LAUNCHES == before

@@ -303,10 +303,11 @@ def test_paged_op_bitwise_equals_dense_op(rng, name):
                       emit_state=True), id="flag4")])
 def test_paged_kernel_path_refuses_unported_flags(flag):
     """A non-CPU tensor goes to the kernel, which raises on what it does
-    not carry — never to the plain version. The int8 scale pools are
-    ported (flag3, flag4: int8 pools with their scale pools, finalized
-    and state mode) and so is ``share_values`` (flag2: the clustered V
-    pool, R rows): they pass the refusal and reach the device check."""
+    not carry — never to the plain version. Every flag is ported now: the
+    int8 scale pools (flag3, flag4: int8 pools with their scale pools,
+    finalized and state mode), ``share_values`` (flag2: the clustered V
+    pool, R rows) and the softcap (flag0): each passes the wrapper and
+    reaches the device check, which raises on a non-CUDA tensor."""
     meta = dict(device="meta")
     int8 = "k_scale_pool" in flag
     share = flag.get("share_values", False)
@@ -321,12 +322,9 @@ def test_paged_kernel_path_refuses_unported_flags(flag):
     flag = {n: (torch.empty(9, 5 if n == "k_scale_pool" else 8, PAGE, **meta)
                 if v == "scale" else v) for n, v in flag.items()}
     before = dict(tck.LAUNCHES)
-    if int8 or share:
-        with pytest.raises(ValueError, match="CUDA"):
-            tops.paged_chai_decode_attention(*args, **flag)
-    else:
-        with pytest.raises(NotImplementedError):
-            tops.paged_chai_decode_attention(*args, **flag)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.paged_chai_decode_attention(*args, **flag)
+    if not (int8 or share):
         with pytest.raises(ValueError, match="CUDA"):
             tops.paged_chai_decode_attention(*args)
     assert tck.LAUNCHES == before

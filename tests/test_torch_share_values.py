@@ -217,8 +217,8 @@ def _meta(*shape, dtype=torch.float32):
 
 
 def test_share_wrappers_checks_on_meta():
-    """The share mode passes the refusal (only ``softcap`` is refused) and
-    reaches the CUDA check, int8 V without scales included; V rows other
+    """The share mode passes the wrappers' checks and reaches the CUDA
+    check, int8 V without scales and the softcap included; V rows other
     than R, reps_per_group > 1, and int8 V without scales outside the
     share mode raise first. Nothing launches."""
     i8, i32 = torch.int8, torch.int32
@@ -238,7 +238,7 @@ def test_share_wrappers_checks_on_meta():
                 emit_state=emit)
     with pytest.raises(ValueError, match="scale"):
         tck.chai_fused_decode(q, k, v, h2c, pos, k_scale=_meta(2, 5, 64))
-    with pytest.raises(NotImplementedError, match="softcap"):
+    with pytest.raises(ValueError, match="CUDA"):
         tck.chai_fused_decode(q, k, v, h2c, pos, k_scale=_meta(2, 5, 64),
                               share_values=True, softcap=30.0)
     with pytest.raises(ValueError, match="one V row per rep"):
