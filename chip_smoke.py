@@ -127,13 +127,49 @@ result line):
    cohort's bucket is 8192): the cohort, then the continuous engine on
    the unified layout (no global layer, nothing paged), greedy tokens of
    the two schedulers held equal on margin-checked steps;
-14. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
+14. the int8 KV cache with local layers: gemma2-9b on
+   ``kv_cache_dtype="int8"`` on phase 13's weights (int8 global caches
+   and pools with their scales, bf16 rings): phase 13's traffic on the
+   cohort and the continuous engine, paged then dense, each with its MHA
+   baseline; the fused pair launched as often as in the bf16 run, every
+   call on int8 codes in the softcap mode; paged == dense tokens;
+   ``kv_bytes()`` on the reference's formula; step times and memory
+   beside the bf16 run's. gemma2's model-level suffix prefill
+   (``forward_fullseq(prefix_len, prefix_kv)``), bf16 and int8 pages: 21
+   launches of each prefill kernel in the softcap mode, greedy tokens
+   held against the plain route on margins. h2o-danube-1.8b on int8
+   (nothing quantized): its tokens equal its bf16 tokens;
+15. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
    each of the four int8 modes, its launches those of its phase-11 path,
    a ``[share]`` row for each of the three share modes, its launches
-   those of its phase-12 path, and a ``[softcap]`` row for each of the
-   two softcap modes, its launches those of its gemma2 path in phase
-   13), the card's name and power limit, and, last, ``{"ok": true,
-   "device": {...}}``.
+   those of its phase-12 path, a ``[softcap]`` row for each of the two
+   softcap modes of the fused pair, its launches those of its gemma2
+   path in phase 13, an ``[int8+softcap]`` row for each of them on
+   phase 14's paths, and the rows of the prefill pair's and the relay's
+   modes: ``flash_prefill[softcap]``, ``paged_prefix_attend[softcap]``
+   and ``[int8+softcap]`` on gemma2's suffix prefill, and
+   ``flash_prefill[window]`` and ``relay_prefix_decode[softcap]``, which
+   no path of the reference reaches: their launches are counted by mode
+   (``kernels.chai_attention.MODE_LAUNCHES``) over every run of the
+   process and must be 0), the card's name and power limit, and, last,
+   ``{"ok": true, "device": {...}}``.
+
+Phase 3 also holds the modes of the prefill pair and the relay kernel
+(``prefill_mode_checks``), every case on queries of std 4 under gemma2's
+cap of 50, each at 2e-5 against its plain version: ``flash_prefill``
+capped, windowed and both at hd 128 and 224, bf16 and fp32, finalized
+and as the state, T = 128 at offset 384 over S = 512 (the window of 128
+skips four 64-key tiles), and rows that see no key inside a window of 32
+as the exact merge identity; ``paged_prefix_attend`` capped over bf16,
+fp32 and int8 pools at hd 128 and 224; ``relay_prefix_decode`` capped on
+MHA, GQA and share_values maps, bf16 and int8 (the share maps' raw int8
+V codes held over l and over their range of 127); two launches, softcap
+0 and an unreachable window ``torch.equal`` to the plain launch; the
+capped output unequal to the uncapped one; and gemma2's suffix prefill
+in one global layer at full width (``gemma2_suffix_prefill_check``:
+``paged_prefix_attend`` over 256 paged positions merged with
+``flash_prefill`` over a 128-token suffix, against the eager attention
+over all 384, bf16 and int8 pages).
 
 Phase 3 also holds the softcap mode of ``chai_fused_decode`` and
 ``paged_chai_fused_decode`` (``softcap_kernel_checks``) in every other
@@ -714,31 +750,49 @@ def _hold(got, want, tol=TOL):
     return _max_err(got, want)
 
 
-def flash_prefill_bound(q, k, offset, emit_state):
-    """Least time for ``flash_prefill``'s work: q, k and v read once, the
+def _visible_pairs(t, s, offset, window=0):
+    """(query, key) pairs a causal prefill computes: query offset + i sees
+    keys 0..offset + i below S, only the last ``window`` of them when
+    window > 0."""
+    n = 0
+    for i in range(t):
+        hi = min(s, offset + i + 1)
+        n += max(0, hi - (max(0, offset + i - window + 1) if window else 0))
+    return n
+
+
+def flash_prefill_bound(q, k, offset, emit_state, window=0, softcap=False):
+    """Least time for ``flash_prefill``'s work: q read once, the K and V
+    rows some query sees read once (all of them without a window), the
     output (q's dtype) or the fp32 state written once; the QK and PV
-    multiply-adds of the causal pairs (query offset + t sees keys
-    0..offset + t) at the inputs' peak rate (bf16 tensor cores, or fp32)."""
+    multiply-adds of the visible pairs (query offset + t sees keys
+    0..offset + t, the last ``window`` of them with a window) at the
+    inputs' peak rate (bf16 tensor cores, or fp32), and with ``softcap``
+    three fp32 operations a visible score (a division, a tanh counted as
+    one, a product) on the CUDA cores."""
     b, t, h, hd = q.shape
-    s = k.shape[1]
+    s, kv = k.shape[1], k.shape[2]
     es = q.element_size()
-    n_bytes = (q.numel() + 2 * k.numel()) * es + 4
+    k_first = max(0, offset - window + 1) if window else 0
+    k_rows = max(0, min(s, offset + t) - k_first)
+    n_bytes = (q.numel() + 2 * b * k_rows * kv * hd) * es + 4
     n_bytes += (2 * b * h * t + b * h * t * hd) * 4 if emit_state else (
         q.numel() * es)
-    pairs = sum(min(s, offset + i + 1) for i in range(t))
-    flops = 4 * b * h * hd * pairs
+    pairs = _visible_pairs(t, s, offset, window)
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = (4 * b * h * hd * pairs / peak
+             + (3 * b * h * pairs / FP32_FLOPS if softcap else 0)) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def prefix_bound(q, pool, bt_k, plen):
+def prefix_bound(q, pool, bt_k, plen, softcap=False):
     """Least time for ``paged_prefix_attend``'s work: q, the K and V rows
     of the positions < plen (an int8 pool's with their scales,
     ``_row_bytes``) and the table entries of their pages read once, the
     fp32 state written once; 4 * hd flops per (query, head, position) at
-    the queries' peak rate."""
+    the queries' peak rate, and with ``softcap`` three fp32 operations a
+    score on the CUDA cores."""
     b, t, h, hd = q.shape
     kv, page = pool.shape[1], pool.shape[2]
     es, row = q.element_size(), _row_bytes(pool, hd)
@@ -749,61 +803,78 @@ def prefix_bound(q, pool, bt_k, plen):
     flops = sum(4 * h * hd * t * n for n in lens)
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = (flops / peak + (sum(3 * h * t * n for n in lens) / FP32_FLOPS
+                             if softcap else 0)) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_case(q, k, v, *, offset=0, emit_state=True, library=False):
+def flash_case(q, k, v, *, offset=0, emit_state=True, library=False,
+               window=0, softcap=0.0):
     """``flash_prefill`` against its plain version on one input (2e-5,
-    or one bf16 step for a finalized bf16 output); returns the case's
-    record with its times and bound. ``library``: also time PyTorch's
-    ``scaled_dot_product_attention(is_causal=True)`` (``enable_gqa`` when
-    KV < H) beside the finalized mode on the same (offset 0, T == S)
-    inputs."""
-    got = fk.flash_prefill(q, k, v, offset=offset, emit_state=emit_state)
+    or one bf16 step for a finalized bf16 output), in the ``window`` and
+    ``softcap`` modes when set; returns the case's record with its times
+    and bound. ``library``: also time PyTorch's
+    ``scaled_dot_product_attention`` (causal, or with the band mask of
+    the window; ``enable_gqa`` when KV < H) beside the finalized mode on
+    the same inputs, whose every row must see a key (SDPA has no tanh
+    softcap: a softcap case has no library call)."""
+    mode = dict(offset=offset, window=window, softcap=softcap)
+    got = fk.flash_prefill(q, k, v, emit_state=emit_state, **mode)
     torch.cuda.synchronize()
     if emit_state:
-        want, tol = kref.flash_prefill_state_ref(q, k, v, offset=offset), TOL
+        want, tol = kref.flash_prefill_state_ref(q, k, v, **mode), TOL
     else:
         if got.dtype != q.dtype:
             raise AssertionError(f"finalized output in {got.dtype}")
-        want = kref.flash_prefill_ref(q, k, v, offset=offset)
+        want = kref.flash_prefill_ref(q, k, v, **mode)
         tol = TOL if q.dtype == torch.float32 else BF16_OUT_TOL
     err = _hold(got, want, tol)
-    ms = time_ms(lambda: fk.flash_prefill(q, k, v, offset=offset,
-                                          emit_state=emit_state))
+    call = lambda: fk.flash_prefill(  # noqa: E731
+        q, k, v, emit_state=emit_state, **mode)
+    ms = time_ms(call)
     plain = (kref.flash_prefill_state_ref if emit_state
              else kref.flash_prefill_ref)
-    plain_ms = time_ms(lambda: plain(q, k, v, offset=offset))
-    bound, by = flash_prefill_bound(q, k, offset, emit_state)
+    plain_ms = time_ms(lambda: plain(q, k, v, **mode))
+    bound, by = flash_prefill_bound(q, k, offset, emit_state, window,
+                                    bool(softcap))
     rec = dict(q=list(q.shape), k=list(k.shape), dtype=str(q.dtype),
                offset=offset, emit_state=emit_state, max_abs_err=err,
                tolerance="2e-5" if tol is TOL else "one bf16 step",
                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-    if library:
+    if window or softcap:
+        rec.update(window=window, softcap=softcap)
+    if library and not softcap:
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         gqa = k.shape[2] != q.shape[2]
+        t, s = q.shape[1], k.shape[1]
+        qp = offset + torch.arange(t, device=q.device)[:, None]
+        kp = torch.arange(s, device=q.device)[None, :]
+        band = (kp <= qp) & (qp - kp < window) if window else None
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True, enable_gqa=gqa)
+                qh, kh, vh, attn_mask=band, is_causal=band is None,
+                enable_gqa=gqa)
         lib = sdpa().transpose(1, 2)
-        fin = fk.flash_prefill(q, k, v)
+        fin = fk.flash_prefill(q, k, v, **mode)
         rec["library_ms"] = time_ms(sdpa)
         rec["library_device_ms"] = library_device_ms(sdpa)
-        rec["device_ms"] = device_ms(
-            lambda: fk.flash_prefill(q, k, v, offset=offset,
-                                     emit_state=emit_state),
-            "flash_prefill_kernel")
-        rec["finalized_ms"] = time_ms(lambda: fk.flash_prefill(q, k, v))
+        rec["finalized_ms"] = time_ms(lambda: fk.flash_prefill(q, k, v,
+                                                               **mode))
         rec["library_vs_kernel_max_abs_diff"] = _max_err(lib, fin)
+    if library:
+        rec["device_ms"] = device_ms(call, "flash_prefill_kernel")
+        rec["single_call_ms"] = single_call_ms(call)
     return rec
 
 
-def prefix_case(q, pool, bt_k, bt_v, plen, **scale_pools):
-    """``paged_prefix_attend`` against its plain version (2e-5); rows with
-    plen == 0 must hold the merge identity exactly (``scale_pools``: an
-    int8 pool's k_scale_pool and v_scale_pool). Returns the record."""
+def prefix_case(q, pool, bt_k, bt_v, plen, softcap=0.0, **scale_pools):
+    """``paged_prefix_attend`` against its plain version (2e-5), capped at
+    ``softcap`` when set; rows with plen == 0 must hold the merge
+    identity exactly (``scale_pools``: an int8 pool's k_scale_pool and
+    v_scale_pool). Returns the record."""
+    if softcap:
+        scale_pools = dict(scale_pools, softcap=softcap)
     got = fk.paged_prefix_attend(q, pool, bt_k, bt_v, plen, **scale_pools)
     torch.cuda.synchronize()
     want = kref.paged_prefix_attend_ref(q, pool, bt_k, bt_v, plen,
@@ -820,7 +891,7 @@ def prefix_case(q, pool, bt_k, bt_v, plen, **scale_pools):
                                                 **scale_pools))
     plain_ms = time_ms(lambda: kref.paged_prefix_attend_ref(
         q, pool, bt_k, bt_v, plen, **scale_pools))
-    bound, by = prefix_bound(q, pool, bt_k, plen)
+    bound, by = prefix_bound(q, pool, bt_k, plen, bool(softcap))
     return dict(q=list(q.shape), pool=list(pool.shape), dtype=str(q.dtype),
                 pool_dtype=str(pool.dtype),
                 plen=plen.tolist(), identity_rows=int(empty.sum()),
@@ -835,6 +906,9 @@ def _log_case(name, case):
         + f"max_abs_err {case['max_abs_err']:.3e} kernel {case['ms']:.4f} "
         f"ms plain {case['plain_ms']:.4f} ms bound {case['bound_ms']:.4f} ms"
         f" ({case['bound_by']})"
+        + (f" device {case['device_ms']} ms against the plain mode's "
+           f"{case['plain_mode_device_ms']} ms"
+           if "plain_mode_device_ms" in case else "")
         + (f" library {case['library_ms']:.4f} ms, device "
            f"{case['library_device_ms']} ms (kernel finalized "
            f"{case['finalized_ms']:.4f} ms; kernel device "
@@ -998,14 +1072,16 @@ def emit_state_checks():
     return cases
 
 
-def relay_bound(q, k, k_row, a_row, v_row, plen, v_scaled=True):
+def relay_bound(q, k, k_row, a_row, v_row, plen, v_scaled=True,
+                softcap=False):
     """Least time for ``relay_prefix_decode``'s work: per group the K rows
     its query rows name and the V rows its acc rows name, positions <
     plen, read once (``kops.relay_prefix_hbm_bytes_estimate`` over the
     distinct rows; an int8 view's rows with their fp32 scales, the V
     rows' only when ``v_scaled``: the share_values relay reads none); q,
     the maps and plen read and the fp32 state (m, l and acc) written once;
-    the QK and AV multiply-adds in fp32."""
+    the QK and AV multiply-adds in fp32, and with ``softcap`` three fp32
+    operations a score."""
     g, nr, hd = q.shape
     a = a_row.shape[1]
     n_bytes = (q.numel() + k_row.numel() + a_row.numel() + v_row.numel()
@@ -1020,7 +1096,7 @@ def relay_bound(q, k, k_row, a_row, v_row, plen, v_scaled=True):
         n_bytes += kops.relay_prefix_hbm_bytes_estimate(
             0, len(set(v_row[i].tolist())), n, hd,
             cache_bytes=k.element_size(), int8_scales=int8 and v_scaled)
-        flops += 2 * (nr + a) * n * hd
+        flops += 2 * (nr + a) * n * hd + (3 * nr * n if softcap else 0)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1068,16 +1144,20 @@ def _share_per_l(state):
 
 
 def relay_case(q, k, v, k_row, a_row, v_row, plen, ts, *, per_l=False,
-               k_scale=None, v_scale=None):
+               v_unit=1.0, k_scale=None, v_scale=None, softcap=0.0):
     """``relay_prefix_decode`` against its plain version (2e-5) and
     launched twice with equal bits; returns the case's record with its
     plan, rows streamed, times and bound. ``per_l``: hold each acc row
     over its l (and record the raw acc's error): over tens of thousands of
     positions the raw acc and l are sums of that many terms of up to 1,
-    which two summation orders round apart by ~1e-7 of l. ``k_scale``/
-    ``v_scale``: an int8 view's scale planes."""
+    which two summation orders round apart by ~1e-7 of l; ``v_unit``: and
+    over the V values' range (raw int8 codes: 127), so that 2e-5 is of the
+    range as it is of a unit V's. ``k_scale``/``v_scale``: an int8 view's
+    scale planes; ``softcap``: the mode."""
     args = (q, k, v, k_row, a_row, v_row, plen)
     sc = dict(k_scale=k_scale, v_scale=v_scale)
+    if softcap:
+        sc["softcap"] = softcap
     got = ck.relay_prefix_decode(*args, ts=ts, **sc)
     again = ck.relay_prefix_decode(*args, ts=ts, **sc)
     torch.cuda.synchronize()
@@ -1086,16 +1166,21 @@ def relay_case(q, k, v, k_row, a_row, v_row, plen, ts, *, per_l=False,
     if per_l:
         raw_err = _max_err(got, want)
         got, want = _per_l(got, a_row), _per_l(want, a_row)
+        per_l_err = _max_err(got, want)
+        got, want = ((m, l, acc / v_unit) for m, l, acc in (got, want))
     err = _hold(got, want)
     bound, by = relay_bound(q, k, k_row, a_row, v_row, plen,
-                            v_scaled=v_scale is not None)
+                            v_scaled=v_scale is not None,
+                            softcap=bool(softcap))
     lib_smem = build.load("relay_prefix_decode").relay_smem_bytes()
     plan = relay_plan(q, k, v, k_row, a_row, v_row, ts)
     if lib_smem != plan["smem_bytes"]:
         raise AssertionError(f"relay: the kernel's block takes {lib_smem} B "
                              "of shared memory, the host's mirror says "
                              f"{plan['smem_bytes']}")
-    extra = dict(held="acc / l", raw_max_abs_err=raw_err) if per_l else {}
+    extra = dict(held="acc / l" + (f" / {v_unit:g}" if v_unit != 1 else ""),
+                 raw_max_abs_err=raw_err,
+                 per_l_max_abs_err=per_l_err) if per_l else {}
     call = lambda: ck.relay_prefix_decode(*args, ts=ts, **sc)  # noqa: E731
     return dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
                 a=a_row.shape[1], dtype=str(k.dtype), ts=ts,
@@ -1113,7 +1198,8 @@ def _log_relay(case):
     log(f"relay_prefix_decode {case['case']}: q {tuple(case['q'])} k "
         f"{tuple(case['k'])} A {case['a']} plen {case['plen']}: max_abs_err"
         f" {case['max_abs_err']:.3e}"
-        + (f" ({case['held']}; raw state {case['raw_max_abs_err']:.3e})"
+        + (f" ({case['held']}; acc / l {case['per_l_max_abs_err']:.3e};"
+           f" raw state {case['raw_max_abs_err']:.3e})"
            if "held" in case else "")
         + f", two launches bitwise; plan {p['score_units']} score units "
         f"in {p['q_slots']} slots and {p['sum_units']} sum units in "
@@ -1806,6 +1892,344 @@ def softcap_kernel_checks():
     return out
 
 
+# ------------------------- phase 3: the prefill and relay kernels' modes ----
+GEMMA_CAP = 50.0               # gemma2-9b's attention-logit softcap
+# The mode checks' scores: queries scaled by 4 (scores of a few units,
+# bent by gemma2's cap of 50), in every dtype.
+MODE_Q = 4.0
+GEMMA_HEADS = (16, 8, 224)     # gemma2-9b's query heads, KV heads, head dim
+
+
+def _state_identity_rows(name, state, rows):
+    """Rows ``rows`` (a bool mask over the query axis) of a head-major
+    state must be the exact merge identity (m = -2e38, l = 0, acc = 0)."""
+    m, l, acc = (x[:, :, rows] for x in state)
+    if not ((m == kref.NEG_INF).all() and (l == 0).all()
+            and (acc == 0).all()):
+        raise AssertionError(f"{name}: a row that sees no key is not the "
+                             "merge identity")
+
+
+def prefill_mode_checks():
+    """The softcap and window modes of ``flash_prefill`` and the softcap of
+    ``paged_prefix_attend`` and ``relay_prefix_decode``, each at 2e-5
+    against its plain version (a finalized bf16 output at one bf16 step),
+    at hd 128 (32 heads) and hd 224 (gemma2's 16 heads over 8), bf16 and
+    fp32: ``flash_prefill`` T = 128 at offset 384 over S = 512, capped at
+    gemma2's 50, in a window of 128 (the first four 64-key tiles lie
+    outside every row's window) and both, finalized and as state; rows
+    past S + window - 1 (T = 64 at offset 150 over S = 160, window 32)
+    the exact merge identity (finalized: zeros); ``paged_prefix_attend``
+    at plen 0/200/384 (hd 128) and 256 (hd 224), bf16, fp32 and int8;
+    the relay kernel on MHA, GQA and share_values maps, bf16 and int8.
+    Bitwise: every case launched twice ``torch.equal``; capped unequal to
+    uncapped; softcap 0 and a window wider than every row's reach equal
+    the plain launch. The window's main case is timed beside SDPA with the
+    band mask. Returns {row name: [records]}."""
+    gen = torch.Generator("cuda").manual_seed(23)
+    dev = "cuda"
+    out = {"flash_prefill[softcap]": [], "flash_prefill[window]": [],
+           "paged_prefix_attend[softcap]": [],
+           "paged_prefix_attend[int8+softcap]": [],
+           "relay_prefix_decode[softcap]": []}
+
+    def rand(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    heads = {128: (32, 32), 224: GEMMA_HEADS[:2]}
+    for hd in (128, 224):
+        h, kv = heads[hd]
+        for dtype in (torch.bfloat16, torch.float32):
+            # queries scaled up so that a cap of 50 bends the scores
+            qs, cap = MODE_Q, GEMMA_CAP
+            q = rand(1, 128, h, hd, dtype=dtype, scale=qs)
+            k, v = (rand(1, 512, kv, hd, dtype=dtype) for _ in range(2))
+            for mode, kw in (("softcap", dict(softcap=cap)),
+                             ("window", dict(window=128)),
+                             ("window_softcap", dict(window=128,
+                                                     softcap=cap))):
+                for emit in (True, False):
+                    main = (hd == 128 and dtype == torch.bfloat16 and emit
+                            and mode == "window")
+                    rec = dict(case=f"hd{hd}_{str(dtype)[6:]}_{mode}_"
+                                    f"offset384_{'state' if emit else 'fin'}",
+                               **flash_case(q, k, v, offset=384,
+                                            emit_state=emit, library=main,
+                                            **kw))
+                    call = lambda kw=kw, emit=emit: fk.flash_prefill(  # noqa
+                        q, k, v, offset=384, emit_state=emit, **kw)
+                    _bitwise(f"flash_prefill {rec['case']}: two launches",
+                             call(), call())
+                    plain = fk.flash_prefill(q, k, v, offset=384,
+                                             emit_state=emit)
+                    if _max_err(call(), plain) < 1e-3:
+                        raise AssertionError(f"flash_prefill {rec['case']}: "
+                                             "the mode changes nothing")
+                    rec["repeat_bitwise"] = True
+                    if emit and dtype == torch.bfloat16:
+                        # the mode's device time beside the plain mode's
+                        rec["device_ms"] = device_ms(call,
+                                                     "flash_prefill_kernel")
+                        rec["plain_mode_device_ms"] = device_ms(
+                            lambda: fk.flash_prefill(q, k, v, offset=384,
+                                                     emit_state=True),
+                            "flash_prefill_kernel")
+                    if main:
+                        out["flash_prefill[window]"].insert(0, rec)
+                    else:
+                        out["flash_prefill[" + mode.split("_")[0]
+                            + "]"].append(rec)
+                    _log_case("flash_prefill", rec)
+            for emit in (True, False):
+                plain = fk.flash_prefill(q, k, v, offset=384,
+                                         emit_state=emit)
+                _bitwise("flash_prefill: softcap 0 and a window past every "
+                         "row's reach against the plain launch", plain,
+                         fk.flash_prefill(q, k, v, offset=384, softcap=0.0,
+                                          window=4096, emit_state=emit))
+            # rows 191 .. 213 see no key inside their window of 32
+            q2 = rand(2, 64, h, hd, dtype=dtype, scale=qs)
+            k2, v2 = (rand(2, 160, kv, hd, dtype=dtype) for _ in range(2))
+            empty = torch.arange(150, 214, device=dev) >= 191
+            for kw in (dict(window=32), dict(window=32, softcap=cap)):
+                for emit in (True, False):
+                    rec = dict(case=f"hd{hd}_{str(dtype)[6:]}_empty_rows_"
+                                    f"{'softcap_' if 'softcap' in kw else ''}"
+                                    f"{'state' if emit else 'fin'}",
+                               **flash_case(q2, k2, v2, offset=150,
+                                            emit_state=emit, **kw))
+                    got = fk.flash_prefill(q2, k2, v2, offset=150,
+                                           emit_state=emit, **kw)
+                    if emit:
+                        _state_identity_rows("flash_prefill", got, empty)
+                        _state_identity_rows(
+                            "flash_prefill_state_ref",
+                            kref.flash_prefill_state_ref(
+                                q2, k2, v2, offset=150, **kw), empty)
+                    elif got[:, empty].any():
+                        raise AssertionError("flash_prefill: a row that "
+                                             "sees no key is not zeros")
+                    rec["identity_rows"] = int(empty.sum())
+                    out["flash_prefill[window]"].append(rec)
+                    _log_case("flash_prefill", rec)
+            del q, k, v, q2, k2, v2
+    # paged_prefix_attend: bf16 and fp32 pools, and int8 with scale pools
+    n_pool, p_slot = 2 * SLOTS * MAX_SEQ // PAGE + 1, MAX_SEQ // PAGE
+    for hd, b, plens in ((128, 3, (0, 200, 384)), (224, 1, (256,))):
+        h, kv = heads[hd]
+        for kind in ("bf16", "fp32", "int8"):
+            base = torch.randn(n_pool, kv, PAGE, hd, generator=gen,
+                               device=dev)
+            sc = {}
+            if kind == "int8":
+                pool, spool, _ = _quantized(base)
+                sc = dict(k_scale_pool=spool, v_scale_pool=spool)
+            else:
+                pool = base.to(torch.bfloat16 if kind == "bf16"
+                               else torch.float32)
+            ids = (torch.randperm(n_pool - 1, generator=gen, device=dev)
+                   + 1).to(torch.int32)
+            bt_k = ids[:b * p_slot].reshape(b, p_slot)
+            bt_v = ids[b * p_slot:2 * b * p_slot].reshape(b, p_slot)
+            plen = torch.tensor(plens, dtype=torch.int32, device=dev)
+            qdt = torch.float32 if kind == "fp32" else torch.bfloat16
+            qs, cap = MODE_Q, GEMMA_CAP
+            q = rand(b, 128, h, hd, scale=qs, dtype=qdt)
+            args = (q, pool, bt_k, bt_v, plen)
+            rec = dict(case=f"hd{hd}_{kind}_plen{'_'.join(map(str, plens))}"
+                            f"_cap{cap:g}",
+                       **prefix_case(*args, softcap=cap, **sc))
+            call = lambda a=args, s_=sc, c_=cap: (  # noqa: E731
+                fk.paged_prefix_attend(*a, softcap=c_, **s_))
+            _bitwise(f"paged_prefix_attend {rec['case']}: two launches",
+                     call(), call())
+            uncapped = fk.paged_prefix_attend(*args, **sc)
+            _bitwise(f"paged_prefix_attend {rec['case']}: softcap 0",
+                     uncapped, fk.paged_prefix_attend(*args, softcap=0.0,
+                                                      **sc))
+            if _max_err(call(), uncapped) < 1e-3:
+                raise AssertionError(f"paged_prefix_attend {rec['case']}: "
+                                     "the cap changes nothing")
+            rec.update(repeat_bitwise=True, device_ms=device_ms(
+                call, "paged_prefix_attend_kernel"),
+                single_call_ms=single_call_ms(call),
+                plain_mode_device_ms=device_ms(
+                    lambda a=args, s_=sc: fk.paged_prefix_attend(*a, **s_),
+                    "paged_prefix_attend_kernel"))
+            out["paged_prefix_attend[int8+softcap]" if kind == "int8"
+                else "paged_prefix_attend[softcap]"].append(rec)
+            _log_case("paged_prefix_attend", rec)
+            del pool, base
+            torch.cuda.empty_cache()
+    # relay_prefix_decode: llama's MHA maps, nemotron's GQA maps, the
+    # share_values maps (int8 V codes without scales), bf16 and int8
+    hd, nmax = 128, 4
+    for tag, maps, members, plen, kind in (
+            ("mha_g2_bf16", "mha", (4, 3), (200, 256), "bf16"),
+            ("mha_g2_int8", "mha", (4, 3), (200, 256), "int8"),
+            ("gqa_g2_bf16", "gqa", (4, 3), (256, 180), "bf16"),
+            ("gqa_g2_int8", "gqa", (4, 3), (256, 180), "int8"),
+            ("share_g2_bf16", "share", (4, 3), (200, 256), "bf16"),
+            ("share_g2_int8", "share", (4, 3), (200, 256), "int8")):
+        if maps == "share":
+            r, h = get_config(ARCH).k_max, 32
+            k_row, a_row, v_row = share_relay_maps(gen, members, nmax, r, h)
+            kv = vr = h
+        else:
+            k_row, a_row, v_row, r, kv, vr = relay_maps(
+                gen, members, nmax, gqa=maps == "gqa")
+        g, sp = len(members), 256
+        plen_t = torch.tensor(plen, dtype=torch.int32, device=dev)
+        # raw int8 V codes (share_values, up to 127): held over l and over
+        # 127 (``relay_case``'s ``v_unit``): at these scores an fp32 score's
+        # last bits move acc / l by ~127 x 1e-6, past 2e-5 of one code for
+        # any two summation orders (PERF.md, open questions)
+        raw_v = maps == "share" and kind == "int8"
+        qs, cap = MODE_Q, GEMMA_CAP
+        q = torch.randn(g, nmax * r, hd, generator=gen, device=dev) * qs
+        k = torch.randn(g, kv, sp, hd, generator=gen, device=dev)
+        v = torch.randn(g, vr, sp, hd, generator=gen, device=dev)
+        for i, n in enumerate(plen):      # the engine's views: zero tail
+            k[i, :, n:] = 0
+            v[i, :, n:] = 0
+        sc = {}
+        if kind == "int8":
+            k, sc["k_scale"], _ = _quantized(k)
+            if maps == "share":
+                v = torch.randint(-127, 128, v.shape, generator=gen,
+                                  device=dev, dtype=torch.int8)
+            else:
+                v, sc["v_scale"], _ = _quantized(v)
+        else:
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        args = (q, k, v, k_row, a_row, v_row, plen_t)
+        rec = dict(case=f"relay_{tag}_cap{cap:g}",
+                   **relay_case(*args, PAGE, per_l=raw_v,
+                                v_unit=127.0 if raw_v else 1.0,
+                                softcap=cap, **sc))
+        call = lambda a=args, s_=sc, c_=cap: (  # noqa: E731
+            ck.relay_prefix_decode(*a, ts=PAGE, softcap=c_, **s_))
+        uncapped = ck.relay_prefix_decode(*args, ts=PAGE, **sc)
+        _bitwise(f"relay_prefix_decode {tag}: softcap 0", uncapped,
+                 ck.relay_prefix_decode(*args, ts=PAGE, softcap=0.0, **sc))
+        if _max_err(call()[0], uncapped[0]) < 1e-3:
+            raise AssertionError(f"relay_prefix_decode {tag}: the cap "
+                                 "changes nothing")
+        rec["single_call_ms"] = single_call_ms(call)
+        rec["plain_mode_device_ms"] = device_ms(
+            lambda a=args, s_=sc: ck.relay_prefix_decode(*a, ts=PAGE, **s_),
+            "relay_prefix_decode_kernel")
+        out["relay_prefix_decode[softcap]"].append(rec)
+        _log_relay(rec)
+        del q, k, v
+    return out
+
+
+def gemma2_suffix_prefill_check():
+    """gemma2-9b's suffix prefill in one global layer at full width (16
+    heads over 8 of hd 224, cap 50, bf16): a 256-token prefix in shuffled
+    pages and a 128-token suffix; ``paged_prefix_attend`` over the pages
+    and ``flash_prefill`` (``emit_state``) over the suffix, merged and
+    finalized, held at 2e-5 against the eager ``attention_fullseq`` with
+    the softcap over all 384 positions (in fp32 on the same bf16
+    values). Then the same with the prefix pages in int8 (codes and
+    scales; the eager attention over the dequantized prefix). Returns
+    {"flash_prefill": case, "paged_prefix_attend": case,
+    "paged_prefix_attend_int8": case}."""
+    from repro_torch.models import attention as attn_mod
+    gen = torch.Generator("cuda").manual_seed(29)
+    dev = "cuda"
+    h, kv, hd = GEMMA_HEADS
+    plen, t = 256, 128
+    n_pages = plen // PAGE
+    q = (torch.randn(1, t, h, hd, generator=gen, device=dev) * 4).to(
+        torch.bfloat16)
+    k, v = (torch.randn(1, plen + t, kv, hd, generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    n_pool = 2 * n_pages + 5
+    ids = (torch.randperm(n_pool - 1, generator=gen, device=dev) + 1).to(
+        torch.int32)
+    bt_k, bt_v = ids[:n_pages][None], ids[n_pages:2 * n_pages][None]
+    plen_t = torch.tensor([plen], dtype=torch.int32, device=dev)
+    positions = torch.arange(plen + t, device=dev)
+    cases = {}
+    for kind in ("bf16", "int8"):
+        sc = {}
+        if kind == "int8":
+            kq, ksc, _ = _quantized(k[0, :plen].float())
+            vq, vsc, _ = _quantized(v[0, :plen].float())
+            src = ((bt_k, kq, ksc), (bt_v, vq, vsc))
+            # the prefix the pages hold
+            kp = chai_cache.dequant_rows(kq, ksc)[None]
+            vp = chai_cache.dequant_rows(vq, vsc)[None]
+            pool = torch.zeros(n_pool, kv, PAGE, hd, dtype=torch.int8,
+                               device=dev)
+            spool = torch.zeros(n_pool, kv, PAGE, device=dev)
+            sc = dict(k_scale_pool=spool, v_scale_pool=spool)
+        else:
+            src = ((bt_k, k[0, :plen], None), (bt_v, v[0, :plen], None))
+            kp, vp = k[:, :plen], v[:, :plen]
+            pool = torch.zeros(n_pool, kv, PAGE, hd, dtype=torch.bfloat16,
+                               device=dev)
+        for bt, rows, scales in src:         # rows (plen, KV, hd)
+            for j in range(n_pages):
+                sl = slice(j * PAGE, (j + 1) * PAGE)
+                pool[bt[0, j]] = rows[sl].transpose(0, 1)
+                if scales is not None:
+                    spool[bt[0, j]] = scales[sl].transpose(0, 1)
+        ks_, vs_ = k[:, plen:], v[:, plen:]
+        st_p = fk.paged_prefix_attend(q, pool, bt_k, bt_v, plen_t,
+                                      softcap=GEMMA_CAP, **sc)
+        st_s = fk.flash_prefill(q, ks_, vs_, softcap=GEMMA_CAP,
+                                emit_state=True)
+        got = kops.finalize_prefill_state(kops.merge_prefill_states(st_s,
+                                                                    st_p))
+        torch.cuda.synchronize()
+        kf = torch.cat([kp.float(), ks_.float()], 1)
+        vf = torch.cat([vp.float(), vs_.float()], 1)
+        want = attn_mod.attention_fullseq(q.float(), kf, vf,
+                                          positions[plen:], positions,
+                                          attn_softcap=GEMMA_CAP)
+        err = _hold(got, want)
+        rec = dict(case=f"gemma2_suffix_prefill_{kind}_prefix{plen}_"
+                        f"suffix{t}", q=list(q.shape), heads=[h, kv],
+                   softcap=GEMMA_CAP, max_abs_err=err,
+                   held_against="eager attention_fullseq over 384 "
+                                "positions (fp32)")
+        log(f"gemma2 suffix prefill ({kind} prefix pages, hd {hd}, cap "
+            f"{GEMMA_CAP:g}): paged_prefix_attend + flash_prefill merged "
+            f"against the eager attention over {plen + t} positions: "
+            f"max_abs_err {err:.3e}")
+        pargs = (q, pool, bt_k, bt_v, plen_t)
+        pcase = dict(case=f"gemma2_layer_{kind}_plen{plen}",
+                     **prefix_case(*pargs, softcap=GEMMA_CAP, **sc))
+        pcall = lambda a=pargs, s_=sc: fk.paged_prefix_attend(  # noqa
+            *a, softcap=GEMMA_CAP, **s_)
+        pcase.update(device_ms=device_ms(pcall, "paged_prefix_attend_"
+                                         "kernel"),
+                     plain_mode_device_ms=device_ms(
+                         lambda a=pargs, s_=sc: fk.paged_prefix_attend(
+                             *a, **s_), "paged_prefix_attend_kernel"),
+                     single_call_ms=single_call_ms(pcall), layer_check=rec)
+        _log_case("paged_prefix_attend", pcase)
+        cases["paged_prefix_attend" + ("_int8" if kind == "int8"
+                                       else "")] = pcase
+        if kind == "bf16":
+            fcase = dict(case=f"gemma2_layer_suffix{t}_state",
+                         **flash_case(q, ks_, vs_, emit_state=True,
+                                      library=True, softcap=GEMMA_CAP),
+                         plain_mode_device_ms=device_ms(
+                             lambda: fk.flash_prefill(q, ks_, vs_,
+                                                      emit_state=True),
+                             "flash_prefill_kernel"),
+                         layer_check=rec)
+            _log_case("flash_prefill", fcase)
+            cases["flash_prefill"] = fcase
+        del pool
+    return cases
+
+
 # ------------------------------------------- phase 3: the pipeline ----
 PIPE_KERNELS = ("chai_qk", "chai_qk_i8", "paged_chai_qk", "row_softmax",
                 "chai_av", "paged_chai_av")
@@ -2351,15 +2775,45 @@ def reduced_reference_check(arch=ARCH):
         f"diff {worst:.3e} over prefill + 5 WARMUP + 3 STEADY steps")
 
 
+# The launches by mode (``kernels.chai_attention.MODE_LAUNCHES``) of every
+# run of the process that a _reset_launches() opens and a _launches()
+# reads: one entry a run, filed at its first read.
+MODE_RUNS = []
+_RUN = {"open": False}
+
+
 def _reset_launches():
     for counts in (ck.LAUNCHES, fk.LAUNCHES):
         for name in counts:
             counts[name] = 0
+    ck.MODE_LAUNCHES.clear()
+    _RUN["open"] = True
 
 
 def _launches():
-    """Every kernel's launch count since the last reset."""
+    """Every kernel's launch count since the last reset; the first read
+    after a reset files the run's launches by mode in MODE_RUNS."""
+    if _RUN["open"]:
+        MODE_RUNS.append(dict(ck.MODE_LAUNCHES))
+        _RUN["open"] = False
     return {**ck.LAUNCHES, **fk.LAUNCHES}
+
+
+# Rows whose mode the wrapper cannot see: the relay's share shape is in
+# its routing maps only, so its launches are not counted by mode.
+MODE_BLIND = ("relay_prefix_decode[share]",)
+
+
+def mode_launches(row, runs=None):
+    """Launches of the kernel mode ``row`` ("<kernel>[<mode>+...]") over
+    ``runs`` (default every filed run): every launch that ran at least
+    that row's modes."""
+    base, _, modes = row.partition("[")
+    want = set(modes.rstrip("]").split("+"))
+    return sum(n for run in (MODE_RUNS if runs is None else runs)
+               for key, n in run.items()
+               if key.partition("[")[0] == base
+               and want <= set(key.partition("[")[2].rstrip("]").split("+")))
 
 
 def _reduced_model(arch=ARCH):
@@ -2683,10 +3137,11 @@ class _Capture:
     keeps a copy of a decode op's inputs (layer 0 of the step) the first
     time ``when()`` names a step kind, under (op, kind), with the value
     ``note()`` gives; every call goes on to the real dispatch. ``modes``
-    counts the calls by (op, share_values), ``caps`` by (op, softcap)."""
+    counts the calls by (op, share_values), ``caps`` by (op, softcap),
+    ``dtypes`` by (op, K dtype)."""
 
     def __init__(self, when=lambda: "first", note=lambda: None):
-        self.first, self.modes, self.caps = {}, {}, {}
+        self.first, self.modes, self.caps, self.dtypes = {}, {}, {}, {}
         self.when, self.note = when, note
 
     def _keep(self, op, tensors, kw):
@@ -2694,6 +3149,9 @@ class _Capture:
         self.modes[mode] = self.modes.get(mode, 0) + 1
         cap = (op, float(kw.get("softcap", 0.0)))
         self.caps[cap] = self.caps.get(cap, 0) + 1
+        k = tensors.get("k", tensors.get("k_pool"))
+        dt = (op, str(k.dtype).replace("torch.", ""))
+        self.dtypes[dt] = self.dtypes.get(dt, 0) + 1
         kind = self.when()
         if kind is not None and (op, kind) not in self.first:
             self.first[op, kind] = dict(
@@ -2903,7 +3361,7 @@ class _TransformerCapture:
     def paged_prefix_attention(self, q, kv_pool, bt_k, bt_v, plen, **kw):
         self._keep("paged_prefix_attend", dict(
             q=q, pool=kv_pool, bt_k=bt_k, bt_v=bt_v, plen=plen,
-            **{k: v for k, v in kw.items() if v is not None}))
+            **{k: v for k, v in kw.items() if torch.is_tensor(v)}))
         return kops.paged_prefix_attention(q, kv_pool, bt_k, bt_v, plen,
                                            **kw)
 
@@ -3066,7 +3524,7 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
     return dict(eng=eng, done=sorted(done, key=lambda r: r.uid), wall=wall,
                 times=times, calls=calls, transitions=transitions,
                 launches=launches, capture=cap.first, modes=cap.modes,
-                caps=cap.caps, traffic=traffic,
+                caps=cap.caps, dtypes=cap.dtypes, traffic=traffic,
                 prefill=pcap.first, margins=margins, idents=idents,
                 step_s=step_s,
                 in_flight=in_flight, kv_history=eng.kv_bytes_history,
@@ -3899,18 +4357,22 @@ def int8_path(cfg8, params, bf16, label):
 def first_steady_cases(label, pc, dc):
     """Both fused kernels held against their plain versions on the layer-0
     tensors of a run's first all-STEADY step (``pc``/``dc``: the paged and
-    dense runs' captures, in whatever mode they ran: int8 scales and
-    share_values as captured), the paged one bitwise against the dense
+    dense runs' captures, in whatever mode they ran: int8 scales,
+    share_values and the softcap as captured), the paged one bitwise
+    against the dense
     kernel at page = tile, each timed there (device, back to back, single)
     beside its bound. Returns {kernel: case}."""
     rpg = pc["kw"].get("reps_per_group", 1)
     share = bool(pc["kw"].get("share_values"))
     pa = (pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
           pc["h2c"], pc["pos"])
+    cap = float(pc["kw"].get("softcap", 0.0))
     psc = {k: pc["kw"][k] for k in ("k_scale_pool", "v_scale_pool",
-                                    "share_values") if k in pc["kw"]}
+                                    "share_values", "softcap")
+           if k in pc["kw"]}
     da = (dc["q"], dc["k"], dc["v"], dc["h2c"], dc["pos"])
-    dsc = {k: dc["kw"][k] for k in ("k_scale", "v_scale", "share_values")
+    dsc = {k: dc["kw"][k] for k in ("k_scale", "v_scale", "share_values",
+                                    "softcap")
            if dc["kw"].get(k) is not None}
     cases = {}
     for kernel, case_fn, args, tables, kk, vv, sc, extra in (
@@ -3920,7 +4382,8 @@ def first_steady_cases(label, pc, dc):
              dc["v"], dsc, dict(ts=dc["kw"]["ts"]))):
         err, ms, plain_ms = case_fn(*args, rpg=rpg, **sc, **extra)
         bound, by = fused_decode_bound(args[0], kk, vv, args[-2], args[-1],
-                                       rpg, tables=tables, share=share)
+                                       rpg, tables=tables, share=share,
+                                       softcap=bool(cap))
         fn = getattr(ck, kernel)
         call = lambda fn=fn, a=args, kw=dict(  # noqa: E731
             reps_per_group=rpg, **sc, **extra): fn(*a, **kw)
@@ -3928,7 +4391,8 @@ def first_steady_cases(label, pc, dc):
             case=f"{label}_{'paged' if tables else 'dense'}_first_steady"
                  "_layer0", q=list(args[0].shape), k=list(kk.shape),
             v=list(vv.shape), dtype=str(kk.dtype), rpg=rpg,
-            share_values=share, pos=args[-1].tolist(), max_abs_err=err,
+            share_values=share, softcap=cap, pos=args[-1].tolist(),
+            max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             single_call_ms=single_call_ms(call),
             device_ms=device_ms(call, f"{kernel}_kernel"))
@@ -4340,12 +4804,20 @@ DANUBE_PROMPTS = (5000, 1200, 3000, 700)
 DANUBE_CONT = ((5000, 1200, 3000, 700, 4500, 300), (32, 48) * 3)
 
 
-def _check_caps(cfg, caps, label):
-    """Every fused decode call in the config's softcap mode."""
+def _check_caps(cfg, caps, label, dtypes=None):
+    """Every fused decode call in the config's softcap mode and, with
+    ``dtypes`` (calls by (op, K dtype)), on the config's cache dtype:
+    int8 codes under ``kv_cache_dtype="int8"`` (the int8 x softcap mode),
+    else the model dtype."""
     want = float(cfg.attn_logit_softcap)
     if any(cap != want for (op, cap) in caps if op != "relay"):
         raise AssertionError(f"{label}: fused calls by (op, softcap) {caps}, "
                              f"expected softcap={want}")
+    dt = "int8" if tfm.kv_int8(cfg) else cfg.dtype
+    if dtypes is not None and any(d != dt for (op, d) in dtypes
+                                  if op != "relay"):
+        raise AssertionError(f"{label}: fused calls by (op, K dtype) "
+                             f"{dtypes}, expected {dt}")
 
 
 def serve_local(cfg, params, use_chai, prompts, max_seq, idents=None):
@@ -4414,14 +4886,15 @@ def local_cohort(cfg, params, label, prompts=PROMPT_LENS, max_seq=MAX_SEQ):
         raise AssertionError(f"{label}: launches {launches}, expected {want};"
                              f" eager calls {chai_eager}, expected "
                              f"{warm * cfg.n_layers}")
-    _check_caps(cfg, cap.caps, label)
+    _check_caps(cfg, cap.caps, label, cap.dtypes)
     n_tok = sum(counts)
     log(f"{label}: served {len(done)} requests (prompts {prompts}, bucket "
         f"{eng._prompt_bucket(max(prompts), max_seq)}, {MAX_NEW} new tokens "
         f"each) in {wall:.3f} s: {n_tok / wall:.1f} tok/s, TTFT "
         f"{[round(r.ttft, 4) for r in done]} s, decode steps "
         f"{eng.steps_executed}, launches {launches} (calls by (op, softcap) "
-        f"{cap.caps}), eager attention calls {chai_eager} (WARMUP)")
+        f"{cap.caps}, by (op, K dtype) {cap.dtypes}), eager attention calls "
+        f"{chai_eager} (WARMUP)")
     log(f"{label} CHAI run by phase (s): " + ", ".join(
         f"{k} {v:.4f}" for k, v in phases.items()))
     _reset_launches()
@@ -4452,14 +4925,16 @@ def local_cohort(cfg, params, label, prompts=PROMPT_LENS, max_seq=MAX_SEQ):
 def _check_local_kv_bytes(cfg, run, layout):
     """``kv_bytes()`` at every record of a paged run: its dense pages in
     use times a page's bytes plus every slot's rings (the reference's
-    ``paged_kv_bytes``: nG x KV x page x hd x 2 B a page, 2 x nL x slots
-    x KV x min(window, max_seq) x hd x 2 B of rings); the unified
-    layout's: the dense rectangles and the rings."""
+    ``paged_kv_bytes``: nG x KV x page x row bytes a page, a row hd x 2 B
+    in bf16, or hd codes and a 4 B scale under int8; 2 x nL x slots x KV
+    x min(window, max_seq) x hd x 2 B of bf16 rings, never quantized);
+    the unified layout's: the dense rectangles and the rings."""
     eng, hd, kv = run["eng"], cfg.head_dim, cfg.n_kv_heads
     ring = (2 * cfg.n_local_layers * SLOTS * kv
             * min(cfg.window_size, eng.ecfg.max_seq) * hd * 2)
+    row = hd + 4 if tfm.kv_int8(cfg) else hd * 2
     if layout == "paged":
-        page_bytes = cfg.n_global_layers * kv * PAGE * hd * 2
+        page_bytes = cfg.n_global_layers * kv * PAGE * row
         bad = [h for h in eng.kv_bytes_history
                if h["kv_bytes"] != h["dense_pages"] * page_bytes + ring]
         if bad or not eng.kv_bytes_history:
@@ -4469,8 +4944,7 @@ def _check_local_kv_bytes(cfg, run, layout):
             f"{ring:,} B on all {len(eng.kv_bytes_history)} records; peak "
             f"{eng.kv_bytes_peak():,}, capacity {eng.kv_bytes_capacity():,}")
     else:
-        dense = (2 * cfg.n_global_layers * SLOTS * kv * eng.ecfg.max_seq * hd
-                 * 2)
+        dense = 2 * cfg.n_global_layers * SLOTS * kv * eng.ecfg.max_seq * row
         if eng.kv_bytes() != dense + ring:
             raise AssertionError(f"{cfg.name} dense: kv_bytes "
                                  f"{eng.kv_bytes():,} != {dense + ring:,}")
@@ -4478,121 +4952,258 @@ def _check_local_kv_bytes(cfg, run, layout):
             f"rectangles {dense:,} + rings {ring:,}")
 
 
-def gemma2_path(cfg, params):
-    """Full-width gemma2-9b (phase 13): the cohort on phase 5's traffic
-    and the continuous engine on phase 6's, paged then dense, each CHAI
-    run followed by its MHA baseline. The fused kernels run in the
-    softcap mode on the 21 global layers only: each CHAI run launches its
-    layout's kernel 21 times a step with a STEADY slot and nothing else;
-    paged == dense tokens; ``kv_bytes()`` on the formula with the rings;
-    KV bytes unchanged at CLUSTER (GQA); empty pools; and both kernels
-    held at 2e-5 against their plain versions on the first all-STEADY
-    step's layer-0 global tensors (the model's layer 1), with device,
-    back-to-back and single times and the bound. Returns ({path:
+def gemma2_path(cfg, params, label="gemma2"):
+    """Full-width gemma2-9b (phase 13; phase 14 under int8): the cohort
+    on phase 5's traffic and the continuous engine on phase 6's, paged
+    then dense, each CHAI run followed by its MHA baseline. The fused
+    kernels run in the softcap mode (under int8: the int8 x softcap mode,
+    on int8 codes and scales) on the 21 global layers only: each CHAI run
+    launches its layout's kernel 21 times a step with a STEADY slot and
+    nothing else; paged == dense tokens; ``kv_bytes()`` on the formula
+    with the rings; KV bytes unchanged at CLUSTER (GQA); empty pools; and
+    both kernels held at 2e-5 against their plain versions on the first
+    all-STEADY step's layer-0 global tensors (the model's layer 1), with
+    device, back-to-back and single times and the bound. Returns ({path:
     launches}, {kernel: main case}, {path: summary})."""
     _, r_max = clustering.chai_widths(cfg)
     ng = cfg.n_global_layers
-    launches, cohort_sum = local_cohort(cfg, params, "gemma2_cohort")
+    launches, cohort_sum = local_cohort(cfg, params, f"{label}_cohort")
     runs = {}
     for layout in ("paged", "dense"):
-        label = f"gemma2 {layout}"
+        name = f"{label} {layout}"
         run = serve_continuous(cfg, params, layout)
         calls = run["calls"]
-        _check_served(cfg, run, label)
-        _check_caps(cfg, run["caps"], label)
+        _check_served(cfg, run, name)
+        _check_caps(cfg, run["caps"], name, run["dtypes"])
         own, op = (("paged_chai_fused_decode", "paged") if layout == "paged"
                    else ("chai_fused_decode", "dense"))
-        want = {name: 0 for name in run["launches"]}
+        want = {k: 0 for k in run["launches"]}
         want[own] = ng * (calls["mixed_step"] + calls["steady_step"])
         if run["launches"] != want:
-            raise AssertionError(f"{label}: launches {run['launches']}, "
+            raise AssertionError(f"{name}: launches {run['launches']}, "
                                  f"expected {want} ({ng} a step with a "
                                  "STEADY slot)")
         rpg = run["capture"][op, "steady"]["kw"].get("reps_per_group")
         if rpg != r_max:
-            raise AssertionError(f"{label}: reps_per_group {rpg}")
-        _log_served(run, label)
-        log(f"{label}: fused calls by (op, softcap) {run['caps']}")
+            raise AssertionError(f"{name}: reps_per_group {rpg}")
+        _log_served(run, name)
+        log(f"{name}: fused calls by (op, softcap) {run['caps']}, by (op, "
+            f"K dtype) {run['dtypes']}")
         _check_local_kv_bytes(cfg, run, layout)
         if layout == "paged":
-            _check_gqa_kv_bytes(run, label)
+            _check_gqa_kv_bytes(run, name)
         run.pop("eng")
         run.pop("prefill")
         runs[layout] = run
-        launches[f"gemma2_continuous_{layout}"] = run["launches"]
+        launches[f"{label}_continuous_{layout}"] = run["launches"]
         torch.cuda.empty_cache()
         EAGER["calls"] = 0
         m_run = serve_continuous(cfg, params, layout, use_chai=False)
         m_calls = m_run["calls"].get("mha_step", 0)
         if (any(m_run["launches"].values())
                 or EAGER["calls"] != cfg.n_layers * m_calls or not m_calls):
-            raise AssertionError(f"{label} MHA baseline: launches "
+            raise AssertionError(f"{name} MHA baseline: launches "
                                  f"{m_run['launches']}, eager calls "
                                  f"{EAGER['calls']}")
         if m_run["eng"].paged and m_run["eng"].dense_pool.pages_in_use:
-            raise AssertionError(f"{label} MHA baseline: pages left in use")
-        _log_served(m_run, f"{label} MHA baseline")
-        log(f"{label} MHA baseline: no launch, {EAGER['calls']} eager "
+            raise AssertionError(f"{name} MHA baseline: pages left in use")
+        _log_served(m_run, f"{name} MHA baseline")
+        log(f"{name} MHA baseline: no launch, {EAGER['calls']} eager "
             "attention calls (every layer of every step)")
         m_run.pop("eng")
         m_run.pop("prefill")
         runs[f"mha_{layout}"] = m_run
-        launches[f"gemma2_mha_{layout}"] = m_run["launches"]
+        launches[f"{label}_mha_{layout}"] = m_run["launches"]
         torch.cuda.empty_cache()
     for kind in ("", "mha_"):
         if ([r.generated for r in runs[f"{kind}paged"]["done"]]
                 != [r.generated for r in runs[f"{kind}dense"]["done"]]):
-            raise AssertionError(f"gemma2 {kind or 'chai '}: paged and dense "
-                                 "gave different greedy tokens")
+            raise AssertionError(f"{label} {kind or 'chai '}: paged and "
+                                 "dense gave different greedy tokens")
     pc = runs["paged"]["capture"]["paged", "steady"]
     dc = runs["dense"]["capture"]["dense", "steady"]
-    cap = float(cfg.attn_logit_softcap)
     live = pc["note"] != chai_cache.PHASE_FREE
-    pa = (pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
-          pc["h2c"], pc["pos"])
-    da = (dc["q"], dc["k"], dc["v"], dc["h2c"], dc["pos"])
-    ts = dc["kw"]["ts"]
-    calls = {"paged_chai_fused_decode": lambda: ck.paged_chai_fused_decode(
-                 *pa, reps_per_group=r_max, softcap=cap),
-             "chai_fused_decode": lambda: ck.chai_fused_decode(
-                 *da, reps_per_group=r_max, ts=ts, softcap=cap)}
-    p_out, d_out = (call() for call in calls.values())
+    p_out = ck.paged_chai_fused_decode(
+        pc["q"], pc["k_pool"], pc["bt_k"], pc["v_pool"], pc["bt_v"],
+        pc["h2c"], pc["pos"], **pc["kw"])
+    d_out = ck.chai_fused_decode(dc["q"], dc["k"], dc["v"], dc["h2c"],
+                                 dc["pos"], **dc["kw"])
     torch.cuda.synchronize()
     if not torch.equal(p_out[live], d_out[live]):
-        raise AssertionError("gemma2: paged vs dense kernel on the first "
+        raise AssertionError(f"{label}: paged vs dense kernel on the first "
                              "all-STEADY step differ")
-    cases = {}
-    for name, call in calls.items():
-        if name == "paged_chai_fused_decode":
-            err, ms, plain_ms = paged_decode_case(*pa, rpg=r_max,
-                                                  softcap=cap)
-            q, kk, vv, tables = pc["q"], pc["k_pool"], pc["v_pool"], (
-                pc["bt_k"], pc["bt_v"])
-            h2c, pos = pc["h2c"], pc["pos"]
-        else:
-            err, ms, plain_ms = fused_decode_case(*da, rpg=r_max, ts=ts,
-                                                  softcap=cap)
-            q, kk, vv, tables = dc["q"], dc["k"], dc["v"], ()
-            h2c, pos = dc["h2c"], dc["pos"]
-        bound, by = fused_decode_bound(q, kk, vv, h2c, pos, r_max,
-                                       tables=tables, softcap=True)
-        c = cases[name] = dict(
-            case=f"gemma2_{'paged' if tables else 'dense'}_first_steady_"
-                 "layer0", q=list(q.shape), k=list(kk.shape),
-            dtype=str(kk.dtype), rpg=r_max, softcap=cap, pos=pos.tolist(),
-            max_abs_err=err, ms=ms, single_call_ms=single_call_ms(call),
-            device_ms=device_ms(call, f"{name}_kernel"), plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, bitwise_equal_dense=True)
-        log(f"{name} gemma2 first all-STEADY step, layer 0 global (hd "
-            f"{cfg.head_dim}, reps_per_group {r_max}, softcap {cap}): q "
-            f"{tuple(q.shape)} pos {c['pos']}: device {c['device_ms']} ms, "
-            f"back to back {ms:.4f} ms, single call "
-            f"{c['single_call_ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({by}), max_abs_err {err:.3e}")
+    cases = first_steady_cases(label, pc, dc)
     summaries = {k: _run_summary(v) for k, v in runs.items()}
     summaries["cohort"] = {k: v for k, v in cohort_sum.items()
                            if k not in ("membership", "margins")}
     return launches, cases, summaries
+
+
+def gemma2_int8_path(cfg8, params, bf16_launches, bf16_sums):
+    """Phase 14: gemma2-9b with ``kv_cache_dtype="int8"`` on phase 13's
+    weights and traffic (``gemma2_path``): the same number of fused-pair
+    launches as the bf16 run of phase 13 on every path (``bf16_launches``),
+    all in the int8 x softcap mode; wall, tok/s, step ms and the device
+    memory peak logged beside the bf16 run's (``bf16_sums``). Returns
+    ``gemma2_path``'s triple."""
+    launches, cases, sums = gemma2_path(cfg8, params, label="gemma2_int8")
+    for path, counts in launches.items():
+        twin = bf16_launches[path.replace("gemma2_int8", "gemma2")]
+        if counts != twin:
+            raise AssertionError(f"{path}: launches {counts} against the "
+                                 f"bf16 run's {twin}")
+    for key, mine in sums.items():
+        theirs = bf16_sums[key]
+        log(f"gemma2 int8 {key} against bf16: wall {mine['wall_s']:.3f} s "
+            f"({theirs['wall_s']:.3f}), {mine['tok_s']:.1f} tok/s "
+            f"({theirs['tok_s']:.1f}), TTFT mean {mine['ttft_mean_s']:.4f} "
+            f"s ({theirs['ttft_mean_s']:.4f})"
+            + (f", step ms {mine['step_ms']} ({theirs['step_ms']}), device "
+               f"memory peak above the run's start "
+               f"{mine['device_peak_run']:,} B "
+               f"({theirs['device_peak_run']:,})" if "step_ms" in mine
+               else f", MHA baseline {mine['mha_tok_s']:.1f} tok/s "
+                    f"({theirs['mha_tok_s']:.1f})"))
+    return launches, cases, sums
+
+
+class _PrefillModes:
+    """Stands in for ``kernels.ops`` inside ``models.transformer`` and
+    counts the prefill ops' calls by (op, softcap, pool dtype); with
+    ``plain`` each call takes the op's plain version instead of its
+    kernel (on the same CUDA tensors)."""
+
+    def __init__(self, plain=False):
+        self.calls, self.plain = {}, plain
+
+    def _count(self, op, cap, dtype):
+        key = (op, float(cap), str(dtype).replace("torch.", ""))
+        self.calls[key] = self.calls.get(key, 0) + 1
+
+    def paged_prefix_attention(self, q, kv_pool, bt_k, bt_v, plen, **kw):
+        self._count("paged_prefix_attend", kw.get("softcap", 0.0),
+                    kv_pool.dtype)
+        if self.plain:
+            return kref.paged_prefix_attend_ref(q, kv_pool, bt_k, bt_v,
+                                                plen, **kw)
+        return kops.paged_prefix_attention(q, kv_pool, bt_k, bt_v, plen,
+                                           **kw)
+
+    def flash_prefill_attention(self, q, k, v, offset=0, **kw):
+        self._count("flash_prefill", kw.get("softcap", 0.0), k.dtype)
+        if self.plain:
+            emit = kw.pop("emit_state", False)
+            fn = (kref.flash_prefill_state_ref if emit
+                  else kref.flash_prefill_ref)
+            return fn(q, k, v, offset=offset, **kw)
+        return kops.flash_prefill_attention(q, k, v, offset, **kw)
+
+    merge_prefill_states = staticmethod(kops.merge_prefill_states)
+    finalize_prefill_state = staticmethod(kops.finalize_prefill_state)
+
+
+def gemma2_suffix_prefill_path(cfg, params, label):
+    """gemma2-9b's model-level suffix prefill at full depth and width
+    (``models.transformer.forward_fullseq(prefix_len, prefix_kv)``, the
+    reference's suffix prefill; the engines refuse the prefix cache on a
+    local arch, as the reference's do): a 256-token prefix prefilled into
+    a dense state (eager attention, no launch), its global K/V (under
+    int8: codes and scales) moved to shuffled pool pages, then a
+    128-token suffix over them. Every global layer merges
+    ``paged_prefix_attend`` over the pages with ``flash_prefill`` over
+    the suffix, both in the softcap mode (the pool int8 under int8): 21
+    launches of each and nothing else. The logits are finite and hold
+    the plain route's (the same call with every prefill op on its plain
+    version) greedy token on every position whose plain top-2 margin
+    exceeds CHUNK_MARGIN (bf16 activations round apart between the two
+    routes). Returns ({path: launches}, a summary)."""
+    int8 = tfm.kv_int8(cfg)
+    plen, t = SYS_LEN, CHUNK
+    ng, kv, hd = cfg.n_global_layers, cfg.n_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, plen + t))).cuda()
+    st = tfm.init_decode_state(cfg, 1, plen + t, "cuda")
+    _reset_launches()
+    _, st = tfm.forward_fullseq(params, cfg, toks[:, :plen], state=st)
+    if any(_launches().values()):
+        raise AssertionError(f"{label}: the prefix prefill launched "
+                             f"{_launches()}")
+    n_pages = plen // PAGE
+    n_pool = 2 * n_pages + 1
+    gen = torch.Generator("cuda").manual_seed(31)
+    ids = (torch.randperm(n_pool - 1, generator=gen, device="cuda")
+           + 1).to(torch.int32)
+    bt_k, bt_v = ids[:n_pages][None], ids[n_pages:2 * n_pages][None]
+    pool = torch.zeros((ng, n_pool, kv, PAGE, hd), dtype=st["kg"].dtype,
+                       device="cuda")
+    prefix = {"pool": pool, "bt_k": bt_k, "bt_v": bt_v}
+    if int8:
+        prefix["scale"] = torch.zeros((ng, n_pool, kv, PAGE), device="cuda")
+    for name, bt in (("kg", bt_k), ("vg", bt_v)):
+        x = st[name][:, 0, :, :plen].reshape(ng, kv, n_pages, PAGE, hd)
+        pool[:, bt[0].long()] = x.permute(0, 2, 1, 3, 4)
+        if int8:
+            sc = st[name + "_scale"][:, 0, :, :plen].reshape(
+                ng, kv, n_pages, PAGE)
+            prefix["scale"][:, bt[0].long()] = sc.permute(0, 2, 1, 3)
+    del st
+    out = {}
+    for route in ("kernels", "plain"):
+        modes = _PrefillModes(plain=route == "plain")
+        st = tfm.init_decode_state(cfg, 1, plen + t, "cuda")
+        tfm.kops = modes
+        try:
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, st = tfm.forward_fullseq(params, cfg, toks[:, plen:],
+                                             state=st, prefix_len=plen,
+                                             prefix_kv=prefix)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+        finally:
+            tfm.kops = kops
+        out[route] = (logits.float(), launches, modes.calls, wall,
+                      int(st["pos"][0]))
+        del st
+    logits, launches, calls, wall, pos = out["kernels"]
+    plain, _, plain_calls, plain_wall, _ = out["plain"]
+    want = {k: 0 for k in launches}
+    want["flash_prefill"] = want["paged_prefix_attend"] = ng
+    dt = "int8" if int8 else cfg.dtype
+    want_calls = {("flash_prefill", cfg.attn_logit_softcap, cfg.dtype): ng,
+                  ("paged_prefix_attend", cfg.attn_logit_softcap, dt): ng}
+    if (launches != want or calls != want_calls or plain_calls != want_calls
+            or pos != plen + t):
+        raise AssertionError(f"{label}: launches {launches} (expected "
+                             f"{want}), calls {calls} (expected "
+                             f"{want_calls}), pos {pos}")
+    if (logits.shape != (1, t, cfg.vocab_size)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: logits {tuple(logits.shape)} not "
+                             "finite or misshapen")
+    top2 = plain[0].topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    sure = margin > CHUNK_MARGIN
+    same = logits[0].argmax(-1) == plain[0].argmax(-1)
+    if not same[sure].all():
+        raise AssertionError(f"{label}: the kernels' greedy token differs "
+                             "from the plain route's at a margin > "
+                             f"{CHUNK_MARGIN}")
+    diff = float((logits - plain).abs().max())
+    log(f"{label}: forward_fullseq over a {plen}-token prefix in pages "
+        f"({dt}) and a {t}-token suffix: launches {launches}, prefill op "
+        f"calls by (op, softcap, dtype) {calls}; {wall * 1e3:.2f} ms "
+        f"(plain route {plain_wall * 1e3:.2f} ms); greedy tokens equal to "
+        f"the plain route's on {int(same.sum())} of {t} positions, all "
+        f"{int(sure.sum())} with a margin > {CHUNK_MARGIN}; logits max abs "
+        f"diff {diff:.3e}")
+    return {label: launches}, dict(wall_ms=wall * 1e3,
+                                   plain_wall_ms=plain_wall * 1e3,
+                                   same_greedy=int(same.sum()),
+                                   positions=t, logits_max_abs_diff=diff)
 
 
 def danube_path(cfg, params):
@@ -4652,6 +5263,27 @@ def danube_path(cfg, params):
                       "continuous": summary}
 
 
+def danube_int8_path(cfg, params, bf16_cohort):
+    """Phase 14: h2o-danube-1.8b with ``kv_cache_dtype="int8"`` on phase
+    13's weights and cohort traffic. It has no global layer, so nothing
+    is quantized (its rings stay bf16) and nothing launches: its greedy
+    tokens equal the bf16 cohort's (``bf16_cohort``) exactly. Returns
+    {path: launches}."""
+    cfg8 = cfg.replace(kv_cache_dtype="int8")
+    shapes = tfm.decode_state_shapes(cfg8, 1, DANUBE_MAX_SEQ)
+    if any(dt == torch.int8 for _, dt in shapes.values()):
+        raise AssertionError(f"danube int8: quantized state {shapes}")
+    launches, cohort = local_cohort(cfg8, params, "danube_int8_cohort",
+                                    DANUBE_PROMPTS, DANUBE_MAX_SEQ)
+    if cohort["tokens"] != bf16_cohort["tokens"]:
+        raise AssertionError("danube int8: greedy tokens differ from the "
+                             "bf16 cohort's")
+    log(f"danube int8 cohort: greedy tokens equal to the bf16 cohort's on "
+        f"all {sum(map(len, cohort['tokens'].values()))}; "
+        f"{cohort['tok_s']:.1f} tok/s (bf16 {bf16_cohort['tok_s']:.1f})")
+    return launches
+
+
 def densified(t):
     """A paged capture's logical K/V views (the engine's own gather)."""
     return (chai_cache.gather_pages(t["k_pool"], t["bt_k"]),
@@ -4673,6 +5305,8 @@ def main():
     int8_cases = int8_kernel_checks()
     share_cases = share_kernel_checks()
     softcap_cases = softcap_kernel_checks()
+    mode_cases = prefill_mode_checks()
+    g_layer = gemma2_suffix_prefill_check()
     for arch in (ARCH, NEMO):
         reduced_reference_check(arch)
         reduced_continuous_check(arch)
@@ -4751,12 +5385,21 @@ def main():
     # Phase 13: local-attention rings and the softcap, gemma2-9b, then
     # h2o-danube-1.8b.
     gcfg, gparams = init_full_model(GEMMA)
-    g_launches, g_cases, _ = gemma2_path(gcfg, gparams)
+    g_launches, g_cases, g_sums = gemma2_path(gcfg, gparams)
+    sp_launches, _ = gemma2_suffix_prefill_path(gcfg, gparams,
+                                                "gemma2_suffix_prefill")
+    # Phase 14: gemma2-9b on the int8 KV cache, on phase 13's weights.
+    gcfg8 = gcfg.replace(kv_cache_dtype="int8")
+    g8_launches, g8_cases, _ = gemma2_int8_path(gcfg8, gparams, g_launches,
+                                                g_sums)
+    sp8_launches, _ = gemma2_suffix_prefill_path(
+        gcfg8, gparams, "gemma2_int8_suffix_prefill")
     del gparams
     gc.collect()
     torch.cuda.empty_cache()
     dcfg, dparams = init_full_model(DANUBE)
-    d_launches, _ = danube_path(dcfg, dparams)
+    d_launches, d_sums = danube_path(dcfg, dparams)
+    d8_launches = danube_int8_path(dcfg, dparams, d_sums["cohort"])
     del dparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -4766,7 +5409,9 @@ def main():
                **prefix_launches, **nemo_launches, **nemo_mha_launches,
                **nemo_prefix_launches, **i8_launches, **i8_mha_launches,
                **i8_prefix_launches, **n8_launches, **share_launches,
-               **g_launches, **d_launches, "pipeline_lane": lane_launches}
+               **g_launches, **d_launches, **sp_launches, **g8_launches,
+               **sp8_launches, **d8_launches,
+               "pipeline_lane": lane_launches}
     mains = {"chai_fused_decode": (
                  dense_main, "cohort",
                  dense_cases + emit_cases["chai_fused_decode"]
@@ -4833,12 +5478,39 @@ def main():
                         "gemma2_continuous_paged")):
         mains[f"{name}[softcap]"] = (g_cases[name], path,
                                      softcap_cases[name] + [g_cases[name]])
-    kernel_rows = dict(KERNEL_ROWS, **{f"{name}[int8]": KERNEL_ROWS[name]
-                                       for name in int8_mains},
-                       **{f"{name}[share]": KERNEL_ROWS[name]
-                          for name in share_mains},
-                       **{f"{name}[softcap]": KERNEL_ROWS[name]
-                          for name in g_cases})
+    # Phase 14: the int8 x softcap mode of the fused pair on gemma2 int8.
+    for name, path in (("chai_fused_decode", "gemma2_int8_continuous_dense"),
+                       ("paged_chai_fused_decode",
+                        "gemma2_int8_continuous_paged")):
+        mains[f"{name}[int8+softcap]"] = (
+            g8_cases[name], path,
+            [c for c in softcap_cases[name] if "int8" in c["case"]]
+            + [g8_cases[name]])
+    # The modes of the prefill pair and the relay: the softcap on gemma2's
+    # model-level suffix prefill (phases 13 and 14; the main cases are
+    # gemma2's full-width layer check of phase 3); the window of
+    # flash_prefill and the softcap of the relay on no path (the
+    # reference reaches neither): their launches are counted by mode over
+    # every run of the process, and must be 0.
+    mains.update({
+        "flash_prefill[softcap]": (
+            g_layer["flash_prefill"], "gemma2_suffix_prefill",
+            mode_cases["flash_prefill[softcap]"] + [g_layer["flash_prefill"]]),
+        "flash_prefill[window]": (mode_cases["flash_prefill[window]"][0],
+                                  None, mode_cases["flash_prefill[window]"]),
+        "paged_prefix_attend[softcap]": (
+            g_layer["paged_prefix_attend"], "gemma2_suffix_prefill",
+            mode_cases["paged_prefix_attend[softcap]"]
+            + [g_layer["paged_prefix_attend"]]),
+        "paged_prefix_attend[int8+softcap]": (
+            g_layer["paged_prefix_attend_int8"],
+            "gemma2_int8_suffix_prefill",
+            mode_cases["paged_prefix_attend[int8+softcap]"]
+            + [g_layer["paged_prefix_attend_int8"]]),
+        "relay_prefix_decode[softcap]": (
+            mode_cases["relay_prefix_decode[softcap]"][0], None,
+            mode_cases["relay_prefix_decode[softcap]"])})
+    kernel_rows = {name: KERNEL_ROWS[name.split("[")[0]] for name in mains}
     rows = []
     for name, info in kernel_rows.items():
         main_case, path, cases = mains[name]
@@ -4847,8 +5519,13 @@ def main():
         # stands in its own case.
         held = [c for c in cases if c.get("tolerance", "2e-5") == "2e-5"]
         rows.append(dict(
-            name=name, **info, launches=by_path[path][base],
+            name=name, **info, path=path,
+            # a mode no serving path reaches: its launches by mode over
+            # every run, held at 0 below
+            launches=by_path[path][base] if path else mode_launches(name),
             launches_by_path={p: c[base] for p, c in by_path.items()},
+            **({"mode_launches_all_runs": mode_launches(name)}
+               if "[" in name and name not in MODE_BLIND else {}),
             max_abs_err=max(c["max_abs_err"] for c in held),
             ms=main_case["ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
@@ -4856,11 +5533,14 @@ def main():
             library_device_ms=main_case.get("library_device_ms"),
             single_call_ms=main_case["single_call_ms"],
             device_ms=main_case["device_ms"], cases=cases))
-        if not rows[-1]["launches"]:
+        if path is not None and not rows[-1]["launches"]:
             raise AssertionError(f"{name}: no launch on its path {path}")
+        if path is None and rows[-1]["launches"]:
+            raise AssertionError(f"{name}: {rows[-1]['launches']} launches "
+                                 "in the runs of this process, though no "
+                                 "path of the reference reaches the mode")
     for row in rows:
-        if row["name"] in REWRITTEN or row["name"].endswith(
-                ("[int8]", "[share]", "[softcap]")):
+        if row["name"] in REWRITTEN or "[" in row["name"]:
             log(f"{row['name']} (main path {row['launches']} launches): "
                 f"device {row['device_ms']} ms, back to back "
                 f"{row['ms']:.4f} ms, single call "

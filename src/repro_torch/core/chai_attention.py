@@ -51,6 +51,13 @@ softcap (``cfg.attn_logit_softcap``) caps every score: in the fused
 kernels' softcap mode on the global layers, in the eager math on the
 local ones.
 
+The relay decode passes the cap to both of its passes, as the
+reference does; the engine refuses the prefix cache on a local arch
+(gemma2, the one softcapped arch), so no served path reaches it yet.
+
+Under int8 a local layer's ring stays in the model dtype (the reference:
+"local rings are never quantized"); only the global caches hold codes.
+
 Ported: the MHA and GQA branches, dense and paged, float and int8 caches,
 with the mixed-phase ``write_mask``, the relay decode for both,
 ``share_values`` on MHA, local layers and the softcap.
@@ -120,12 +127,14 @@ def _roll_bt(bt, shift):
     return torch.gather(bt, 1, idx)
 
 
-def _relay_prefix_state(relay, gi, ai, q_rep, ts, *, use_v_scale=True):
+def _relay_prefix_state(relay, gi, ai, q_rep, ts, *, use_v_scale=True,
+                        cap=0.0):
     """One group-batched prefix pass for this layer, scattered back to
     batch rows as an unnormalized (m (B, R), l (B, R), acc (B, rows, hd))
     state (rows: the heads; the reps under share_values, whose maps give
     R acc rows a member). ``use_v_scale=False``: the int8 prefix V codes
     are read without scales (share_values, as the reference does).
+    ``cap``: the config's attention-logit softcap, as on the suffix pass.
 
     ``relay`` (built by the engine on the host, tensors on the device):
       k / v              (nG, G, KV, Sp, hd)  packed copies of each
@@ -152,7 +161,7 @@ def _relay_prefix_state(relay, gi, ai, q_rep, ts, *, use_v_scale=True):
         relay["a_row"][ai], relay["v_row"][ai], relay["plen"],
         k_scale=layer_slice(relay, "k_scale", gi),
         v_scale=layer_slice(relay, "v_scale", gi) if use_v_scale else None,
-        ts=ts)
+        ts=ts, softcap=cap)
     gid, midx = relay["gid"].long(), relay["midx"].long()
     ing = relay["in_group"]
     h = acc.shape[1] // nmax
@@ -166,20 +175,21 @@ def _relay_prefix_state(relay, gi, ai, q_rep, ts, *, use_v_scale=True):
 
 def _relay_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, relay, gi,
                   ai, ts, reps_per_group=1, k_scale_pool=None,
-                  v_scale_pool=None, share_values=False):
+                  v_scale_pool=None, share_values=False, cap=0.0):
     """One layer's relay decode over the paged pools: the suffix-only
     fused pass in the state mode (rolled tables and the shifted ``pos``
     drop the prefix pages from this launch), the group pass over the
     packed prefix (``_relay_prefix_state``), merged and normalized per
-    slot. Returns (B, H, hd) fp32."""
+    slot; both passes cap their scores at ``cap`` (0: off), as the
+    reference's do. Returns (B, H, hd) fp32."""
     shift = relay["len"] // k_pool.shape[2]
     suffix = kops.paged_chai_decode_attention(
         q_rep, k_pool, _roll_bt(bt_k, shift), v_pool, _roll_bt(bt_v, shift),
         h2c, pos - relay["len"], k_scale_pool=k_scale_pool,
         v_scale_pool=v_scale_pool, reps_per_group=reps_per_group,
-        share_values=share_values, emit_state=True)
+        share_values=share_values, softcap=cap, emit_state=True)
     prefix = _relay_prefix_state(relay, gi, ai, q_rep, ts,
-                                 use_v_scale=not share_values)
+                                 use_v_scale=not share_values, cap=cap)
     return kops.finalize_decode_state(
         kops.merge_decode_states(suffix, prefix, h2c,
                                  share_values=share_values),
@@ -241,7 +251,7 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
             out = _relay_decode(q_rep, cp, state["bt_kc"], vp, bt_v,
                                 gather_idx, pos, relay, gi, ai, decode_ts,
                                 k_scale_pool=csc, v_scale_pool=vsp,
-                                share_values=share)
+                                share_values=share, cap=cap)
         return out.to(xn.dtype)
 
     kc = state["kg_chai"][gi]                     # (B, k, S, hd)
@@ -335,7 +345,8 @@ def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
             out = _relay_decode(q_flat, pool, state["bt_kg"], pool,
                                 state["bt_vg"], h2c_flat, pos, relay, gi, ai,
                                 decode_ts, reps_per_group=r,
-                                k_scale_pool=spool, v_scale_pool=spool)
+                                k_scale_pool=spool, v_scale_pool=spool,
+                                cap=cap)
         return out.to(xn.dtype)
     kc, vc, ksc, vsc = _dense_global_write(state, gi, k_new, v_new, pos,
                                            write_mask)   # (B, KV, S, hd)

@@ -55,7 +55,9 @@ summed over every position). ``kernels.ops.chai_three_kernel_decode``
 and ``paged_chai_three_kernel_decode`` drive them.
 
 ``LAUNCHES`` counts each kernel's launches, one per successful launch,
-so a run can show that its main path went through the kernel.
+so a run can show that its main path went through the kernel;
+``MODE_LAUNCHES`` counts the same launches of the fused pair, the relay
+and the prefill pair by the modes each ran (``count_launch``).
 """
 from __future__ import annotations
 
@@ -68,6 +70,10 @@ LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0,
             "relay_prefix_decode": 0, "chai_qk": 0, "chai_qk_i8": 0,
             "row_softmax": 0, "chai_av": 0, "paged_chai_qk": 0,
             "paged_chai_av": 0}
+# "<kernel>[<modes>]" -> launches, the modes a launch ran joined by "+" in
+# the order of _MODES; a launch in no mode is counted in LAUNCHES only.
+MODE_LAUNCHES: dict = {}
+_MODES = ("int8", "share", "softcap", "window")
 
 # K/V element types of the fused pair and the relay kernel (the launchers'
 # kv_type); the pipeline's kernels take the two float types only.
@@ -407,6 +413,16 @@ def split_scratch(n_split, b, r_total, h_total, hd, units, dev, stream, *,
     return m, l, acc, counter
 
 
+def count_launch(counts, name, **modes):
+    """One successful launch of ``name``: one in ``counts`` (its module's
+    LAUNCHES) and one in MODE_LAUNCHES under the ``modes`` that are set."""
+    counts[name] += 1
+    tag = "+".join(m for m in _MODES if modes.get(m))
+    if tag:
+        key = f"{name}[{tag}]"
+        MODE_LAUNCHES[key] = MODE_LAUNCHES.get(key, 0) + 1
+
+
 def _ptr(t):
     """A tensor's address, or a null pointer for None."""
     return None if t is None else t.data_ptr()
@@ -480,7 +496,8 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     if err:
         raise RuntimeError(f"chai_fused_decode launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["chai_fused_decode"] += 1
+    count_launch(LAUNCHES, "chai_fused_decode", int8=k.dtype == torch.int8,
+                 share=share_values, softcap=softcap, window=int(window) > 0)
     return (m, l, out) if emit_state else out
 
 
@@ -559,12 +576,14 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     if err:
         raise RuntimeError(f"paged_chai_fused_decode launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["paged_chai_fused_decode"] += 1
+    count_launch(LAUNCHES, "paged_chai_fused_decode",
+                 int8=k_pool.dtype == torch.int8, share=share_values,
+                 softcap=softcap, window=int(window) > 0)
     return (m, l, out) if emit_state else out
 
 
 def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
-                        v_scale=None, ts=0):
+                        v_scale=None, ts=0, softcap=0.0):
     """One pass per relay group over its packed shared prefix, on the GPU.
 
     q: (G, NR, hd) member rep queries stacked per group (any float dtype;
@@ -575,7 +594,9 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
     weighted sum; without v_scale the V codes are summed as values, the
     share_values relay's scale-less V); k_row: (G, NR) query row -> K row;
     a_row: (G, A) acc row -> query row; v_row: (G, A) acc row -> V row;
-    plen: (G,) valid prefix lengths (positions >= plen masked). ``ts``:
+    plen: (G,) valid prefix lengths (positions >= plen masked).
+    ``softcap`` != 0: each scaled score (int8: after the K scale) becomes
+    softcap * tanh(score / softcap). ``ts``:
     the S-tile (0: Sp; the whole prefix when it does not divide Sp). Any
     Sp, NR and A: the kernel streams Sp with shared memory fixed in all
     three, cut into ``split_plan`` ranges merged inside the launch; at
@@ -622,7 +643,7 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
     l = torch.empty((g, nr), dtype=torch.float32, device=dev)
     acc = torch.empty((g, a_total, hd), dtype=torch.float32, device=dev)
     scores = torch.empty((g, nr, sp), dtype=torch.float32, device=dev)
-    fn = _launcher("relay_prefix_decode", 17, 13)
+    fn = _launcher("relay_prefix_decode", 17, 13, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         mp, lp, accp, counter = split_scratch(
@@ -635,11 +656,12 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
                  accp.data_ptr(), scores.data_ptr(), counter.data_ptr(), g,
                  nr, a_total, kv, vr, sp, hd, ts, cfg.n_split,
                  cfg.tiles_per_split, cfg.q_slots, cfg.v_slots,
-                 _KV_DTYPES[kc.dtype], stream)
+                 _KV_DTYPES[kc.dtype], float(softcap), stream)
     if err:
         raise RuntimeError(f"relay_prefix_decode launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["relay_prefix_decode"] += 1
+    count_launch(LAUNCHES, "relay_prefix_decode",
+                 int8=kc.dtype == torch.int8, softcap=softcap)
     return m, l, acc
 
 

@@ -9,6 +9,20 @@
 // acc (B, H, T, hd) in fp32, which the chunked prefill merges with
 // paged_prefix_attend's state over the earlier chunks.
 //
+// The Pallas kernel's two modes: a sliding ``window`` (> 0: key k is
+// visible to the query at position p iff p - window < k <= p) and the
+// ``softcap`` (gemma2's attention-logit cap: each scaled score becomes
+// cap * tanh(score / cap) before the mask; flash_tiles.cuh: attend_tile).
+// With a window the block's key loop starts at the first tile that holds
+// a key inside its first row's window (the Pallas kernel's window skip),
+// and a warp skips a tile wholly before its own first row's window, so
+// tiles outside every window are never read. A row whose window holds no
+// key (positions past S + window - 1) writes the exact merge identity.
+// The modes run in their own instance of the kernel (kModes): the plain
+// instance has neither the window's arithmetic nor the cap's branch, and
+// runs as fast as before they were added (tools/prefill_ab.py timed the
+// plain mode 1.31x slower with both compiled into one instance).
+//
 // What bounds it: at a chunk of T = 128 queries the work is small (q, k, v
 // and the output are ~1 MB each in bf16 at 32 heads of 128), so the least
 // time is the bytes over device memory; the first port, which did every
@@ -47,23 +61,29 @@ struct DenseRows {                 // k, v: (B, S, KV, hd)
   }
 };
 
-struct CausalMask {                // absolute positions: key <= query
+template <bool kWindow>
+struct CausalMask {                // absolute positions: key <= query,
   int q_first;                     // position of the warp's row 0
   int k0;                          // position of the tile's key 0
+  int window;                      // kWindow: query - key < window if > 0
   __device__ bool operator()(int r, int j) const {
-    return k0 + j <= q_first + r;
+    const int d = q_first + r - (k0 + j);
+    if constexpr (kWindow) return d >= 0 && (window <= 0 || d < window);
+    return d >= 0;
   }
 };
 
-template <typename T, int HD>
+template <typename T, int HD, bool kModes>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ offset,
                      T* __restrict__ out, float* __restrict__ m_out,
                      float* __restrict__ l_out, float* __restrict__ acc_out,
-                     int n_q, int S, int H, int KV, float scale) {
+                     int n_q, int S, int H, int KV, int window, float scale,
+                     float cap) {
   using L = Layout<T, HD>;
   constexpr int kTs = L::kTs;
+  if constexpr (!kModes) window = 0;   // the plain instance: no window
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* ks = qs + kBlockRows * L::kStride;    // kStages x kKeyGroups K tiles
@@ -78,28 +98,33 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }, tid, kThreads);
   // The block's last real query sits at off + min(q0 + rows, n_q) - 1: key
   // tiles past it are masked for every row and would leave the state
-  // bitwise unchanged.
+  // bitwise unchanged. With a window, so are the tiles before t_first,
+  // which holds the first key of the block's first row's window; the loop
+  // runs over tiles t_first .. t_end - 1, u = t - t_first counting from 0.
   const int q_last = off + min(q0 + kBlockRows, n_q) - 1;
-  const int n_tiles =
+  const int t_end =
       q_last < 0 ? 0 : min((S + kTs - 1) / kTs, q_last / kTs + 1);
+  const int t_first =
+      window > 0 ? max(0, off + q0 - window + 1) / kTs : 0;
+  const int n_tiles = max(0, t_end - t_first);
   const int n_rounds = (n_tiles + kKeyGroups - 1) / kKeyGroups;
   const DenseRows<T> rows{k, v,
                           (static_cast<size_t>(b) * S * KV + kvh) * HD,
                           KV * HD};
-  // tile t of round r = t / kKeyGroups sits in buffer slot
-  // (r % kStages) * kKeyGroups + t % kKeyGroups
-  auto slot = [&](int t) {
-    return ((t / kKeyGroups) % kStages * kKeyGroups + t % kKeyGroups) *
+  // loop tile u of round r = u / kKeyGroups sits in buffer slot
+  // (r % kStages) * kKeyGroups + u % kKeyGroups
+  auto slot = [&](int u) {
+    return ((u / kKeyGroups) % kStages * kKeyGroups + u % kKeyGroups) *
            kTs * L::kStride;
   };
   auto stage_round = [&](int r) {
-    for (int t = r * kKeyGroups; t < min(n_tiles, (r + 1) * kKeyGroups);
-         ++t) {
-      const int k0 = t * kTs, n_keys = min(kTs, S - k0);
-      stage_rows<T, HD>(ks + slot(t), kTs, n_keys,
+    for (int u = r * kKeyGroups; u < min(n_tiles, (r + 1) * kKeyGroups);
+         ++u) {
+      const int k0 = (t_first + u) * kTs, n_keys = min(kTs, S - k0);
+      stage_rows<T, HD>(ks + slot(u), kTs, n_keys,
                         [&](int j) { return rows.krow(k0 + j); }, tid,
                         kThreads);
-      stage_rows<T, HD>(vs + slot(t), kTs, n_keys,
+      stage_rows<T, HD>(vs + slot(u), kTs, n_keys,
                         [&](int j) { return rows.vrow(k0 + j); }, tid,
                         kThreads);
     }
@@ -109,6 +134,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the warp's rows: sequence rows r0 .. r0 + 15, positions off + r0 ..
   const int r0 = q0 + wq * kRows;
   const int w_last = off + min(r0 + kRows, n_q) - 1;
+  // the first key of the warp's first row's window (0 without a window)
+  const int w_first = window > 0 ? off + r0 - window + 1 : 0;
   const bool w_live = r0 < n_q;
   State<HD> st;
   st.init();
@@ -121,11 +148,12 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int t = r * kKeyGroups + kg, k0 = t * kTs;
-    if (t < n_tiles && w_live && k0 <= w_last)
-      attend_tile<T, HD>(qs + wq * kRows * L::kStride, ks + slot(t),
-                         vs + slot(t), min(kTs, S - k0),
-                         CausalMask{off + r0, k0}, scale, st);
+    const int u = r * kKeyGroups + kg, k0 = (t_first + u) * kTs;
+    if (u < n_tiles && w_live && k0 <= w_last && k0 + kTs > w_first)
+      attend_tile<T, HD, false, kModes>(
+          qs + wq * kRows * L::kStride, ks + slot(u), vs + slot(u),
+          min(kTs, S - k0), CausalMask<kModes>{off + r0, k0, window}, scale,
+          cap, st);
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -137,11 +165,13 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* offset,
            void* out, void* m_out, void* l_out, void* acc_out, int B,
-           int n_q, int S, int H, int KV, int hd, cudaStream_t stream) {
+           int n_q, int S, int H, int KV, int hd, int window, float cap,
+           cudaStream_t stream) {
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
     constexpr size_t smem = Layout<T, HD>::kBytes;
-    auto kern = flash_prefill_kernel<T, HD>;
+    auto kern = window > 0 || cap != 0.f ? flash_prefill_kernel<T, HD, true>
+                                         : flash_prefill_kernel<T, HD, false>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((n_q + kBlockRows - 1) / kBlockRows, H, B);
@@ -150,7 +180,7 @@ int launch(const void* q, const void* k, const void* v, const void* offset,
         static_cast<const T*>(v), static_cast<const int*>(offset),
         static_cast<T*>(out), static_cast<float*>(m_out),
         static_cast<float*>(l_out), static_cast<float*>(acc_out), n_q, S,
-        H, KV, inv_sqrt_hd(HD));
+        H, KV, window, inv_sqrt_hd(HD), cap);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -162,19 +192,21 @@ int launch(const void* q, const void* k, const void* v, const void* offset,
 // emit_state == 0: out (B, n_q, H, hd) in the input dtype, m_out, l_out and
 // acc_out unused; emit_state == 1: m_out, l_out (B, H, n_q) and acc_out
 // (B, H, n_q, hd) fp32, out unused. H % KV == 0, hd a power of two from
-// 8 to 256 (else cudaErrorInvalidValue), every tensor 16-byte aligned.
+// 8 to 256 or 224 (else cudaErrorInvalidValue), every tensor 16-byte
+// aligned. window > 0: the sliding window (0: none); cap != 0: the softcap.
 // Returns the launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, const void* offset,
                                     void* out, void* m_out, void* l_out,
                                     void* acc_out, int B, int n_q, int S,
-                                    int H, int KV, int hd, int emit_state,
-                                    int bf16, void* stream) {
+                                    int H, int KV, int hd, int window,
+                                    int emit_state, int bf16, float cap,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (emit_state) out = nullptr;
   if (bf16)
     return launch<__nv_bfloat16>(q, k, v, offset, out, m_out, l_out, acc_out,
-                                 B, n_q, S, H, KV, hd, st);
+                                 B, n_q, S, H, KV, hd, window, cap, st);
   return launch<float>(q, k, v, offset, out, m_out, l_out, acc_out, B, n_q,
-                       S, H, KV, hd, st);
+                       S, H, KV, hd, window, cap, st);
 }

@@ -19,10 +19,16 @@
 // 8n + 2c + 1 of every 8-column slice n.
 //
 // Arithmetic per tile, as the TPU tile body: scores q.k * 1/sqrt(hd),
+// then, in the softcap mode (gemma2's attention-logit cap, a runtime
+// ``cap`` != 0), cap * tanhf(score / cap) (exact tanhf and division; one
+// uniform branch, cap == 0 leaves every other mode's bits as they were),
 // masked positions -2e38, m_new = max(m, max(tile), -1e30), alpha =
 // exp(m - m_new), p = exp(sc - m_new), l = l * alpha + sum(p), acc = acc *
-// alpha + p.V. A row that sees no tile keeps m = -2e38, l = 0, acc = 0,
-// the exact identity of the state merge.
+// alpha + p.V. A masked score sits 2e38 below the clamped max, so it adds
+// exactly 0 whatever the tile. A row that sees no visible key (no tile,
+// or only masked ones: a sliding window past every key) ends with l = 0
+// and acc = 0, and store_rows writes its m as -2e38: the exact identity
+// of the state merge.
 //
 // Precision. The reference computes in fp32 and keeps p in fp32 before
 // the p.V dot; the card check holds the state at 2e-5. Rounding p to bf16
@@ -36,8 +42,14 @@
 //   keys where the bf16 pieces take three k = 16 ones, and V's fragments
 //   from scalar loads: slower on the card.)
 // - fp32 inputs: both products as 3xTF32, a_hi.b_hi + a_hi.b_lo +
-//   a_lo.b_hi, with tf32(x) clearing the low 13 mantissa bits (what the
-//   tensor core ignores).
+//   a_lo.b_hi, with tf32(x) x rounded to nearest at 10 mantissa bits, its
+//   low 13 bits zero (what the tensor core ignores); each k-step of
+//   Q.K^T is summed there from zeros and added to the score in fp32. Both
+//   answer states that the card held outside 2e-5 at scores of std 4:
+//   carried through the tensor core's own accumulator, the scores drifted
+//   (an fp32 state to 4.5e-5 at hd 128, 2.5e-5 at hd 224), and split by
+//   truncation, hi + lo missed x by up to 2^-20 |x|, twice the score
+//   error of an fp32 product (rounded: 2^-22).
 // tests/test_torch_prefill_precision.py emulates these roundings on the
 // CPU. The tensor core truncates its own sums, so each tile's p.V is
 // summed there from zeros and added to acc in fp32 on the CUDA cores: acc
@@ -52,9 +64,11 @@
 // shuffle moves p between lanes.
 //
 // The head dim HD is a template parameter (a power of two from 8 to 256,
-// chosen at launch by with_head_dim). bf16 rows shorter than the mma's k
-// of 16 are staged zero-padded to 16. The wrappers require 16-byte
-// aligned tensors.
+// or 224, gemma2-9b's 3584 / 16; chosen at launch by with_head_dim): 224
+// is 14 k-steps of 16 for bf16 Q.K^T and 28 column slices of 8, and
+// takes the 32-key (bf16) or 16-key (fp32) tiles of rows over 256 bytes.
+// bf16 rows shorter than the mma's k of 16 are staged zero-padded to 16.
+// The wrappers require 16-byte aligned tensors.
 
 #pragma once
 
@@ -88,6 +102,7 @@ int with_head_dim(int hd, F&& f) {
     case 32: return f(std::integral_constant<int, 32>());
     case 64: return f(std::integral_constant<int, 64>());
     case 128: return f(std::integral_constant<int, 128>());
+    case 224: return f(std::integral_constant<int, 224>());
     case 256: return f(std::integral_constant<int, 256>());
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -96,7 +111,7 @@ int with_head_dim(int hd, F&& f) {
 // The staged row layout of element type T at head dim HD.
 template <typename T, int HD>
 struct Layout {
-  static_assert(HD >= 8 && HD <= 256 && (HD & (HD - 1)) == 0, "head dim");
+  static_assert(HD == 8 || (HD % 16 == 0 && HD <= 256), "head dim");
   static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   static constexpr int kVec = 16 / sizeof(T);               // T per copy
   static constexpr int kDim = (kBf16 && HD < 16) ? 16 : HD;  // staged width
@@ -179,12 +194,18 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// x rounded to tf32: to nearest at 10 mantissa bits (ties away from zero),
+// the low 13 bits cleared.
+__device__ __forceinline__ uint32_t tf32_rn(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
 // x = hi + lo + O(2^-22 x): hi = tf32(x), lo = tf32(x - hi); x - hi is
 // exact in fp32.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+  hi = tf32_rn(x);
+  lo = tf32_rn(x - __uint_as_float(hi));
 }
 
 // (x, y) = hi + mid + lo, each a packed bf16 pair (x in the low half):
@@ -289,16 +310,19 @@ struct State {
 
 // One online-softmax update of a warp's 16 rows with the staged tile of
 // n_keys keys. qs: the warp's 16 staged query rows; ks, vs: the tile's K
-// and V rows; ``valid(r, j)`` masks (warp row r, tile key j). kScaled (an
+// and V rows; ``valid(r, j)`` masks (warp row r, tile key j); with kCap,
+// ``cap`` != 0 caps each scaled score (the softcap mode; an instance
+// without kCap has no such step at all). kScaled (an
 // int8 cache, its codes staged as T: exact for |c| <= 127): ksc, vsc hold
 // the tile keys' K and V row scales (zero past n_keys); the score is
 // (q . codes) * ksc[j] * scale, and p * vsc[j] (the V row's dequantization
 // moved onto p) enters p.V, split into its pieces after that product.
-template <typename T, int HD, bool kScaled = false, typename Mask>
+template <typename T, int HD, bool kScaled = false, bool kCap = true,
+          typename Mask>
 __device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
                                             const T* vs, int n_keys,
                                             const Mask& valid, float scale,
-                                            State<HD>& st,
+                                            float cap, State<HD>& st,
                                             const float* ksc = nullptr,
                                             const float* vsc = nullptr) {
   using L = Layout<T, HD>;
@@ -326,6 +350,9 @@ __device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
       }
     }
   } else {
+    // The tensor core truncates its own sums: each k-step's three
+    // products are summed there from zeros and added to the score in fp32
+    // on the CUDA cores (the p.V rule below).
 #pragma unroll 4
     for (int kk = 0; kk < HD; kk += 8) {
       const T* qr = qs + g * L::kStride + kk + c;
@@ -340,9 +367,12 @@ __device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
         uint32_t bh0, bl0, bh1, bl1;
         split_tf32(to_f32(kr[0]), bh0, bl0);
         split_tf32(to_f32(kr[4]), bh1, bl1);
-        mma_tf32(s[n], al, bh0, bh1);
-        mma_tf32(s[n], ah, bl0, bl1);
-        mma_tf32(s[n], ah, bh0, bh1);
+        float z[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(z, al, bh0, bh1);
+        mma_tf32(z, ah, bl0, bl1);
+        mma_tf32(z, ah, bh0, bh1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += z[e];
       }
     }
   }
@@ -361,6 +391,9 @@ __device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
           x = s[n][e] * ksc[j] * scale;
         } else {
           x = s[n][e] * scale;
+        }
+        if constexpr (kCap) {                       // the softcap mode
+          if (cap != 0.f) x = cap * tanhf(x / cap);
         }
       }
       s[n][e] = x;
@@ -536,7 +569,9 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
 // Write a warp's rows (t = r0 + row < n_q, r0 its first row in the
 // sequence) of (b, h). With ``out``: the finalized acc / max(l, 1e-37)
 // into out (B, n_q, H, HD); else the head-major state m, l (B, H, n_q)
-// and acc (B, H, n_q, HD).
+// and acc (B, H, n_q, HD), a row with l == 0 (no visible key: every
+// visible key adds exp(0) = 1 at its max) as the exact merge identity,
+// m = -2e38, whichever tiles it went through.
 template <typename T, int HD>
 __device__ void store_rows(const State<HD>& st, int b, int h, int r0,
                            int n_q, int H, T* out, float* m_out,
@@ -549,7 +584,7 @@ __device__ void store_rows(const State<HD>& st, int b, int h, int r0,
     if (t >= n_q) continue;
     if (out == nullptr) {
       if (c == 0) {
-        m_out[bh * n_q + t] = st.m[i];
+        m_out[bh * n_q + t] = st.l[i] > 0.f ? st.m[i] : kNegInf;
         l_out[bh * n_q + t] = st.l[i];
       }
       float* row = acc_out + (bh * n_q + t) * HD + 2 * c;

@@ -32,6 +32,10 @@
 // after the dot and the V scale the probability before p.V, so the tensor
 // cores see the codes themselves; p * vs is split into its bf16 pieces
 // (or tf32 halves) after that product (flash_tiles.cuh: attend_tile).
+//
+// The softcap mode (gemma2's attention-logit cap, ``cap`` != 0): each
+// scaled score (int8: after the K scale, then 1/sqrt(hd), the Pallas
+// kernel's order) becomes cap * tanh(score / cap) in the shared tile step.
 
 #include "flash_tiles.cuh"
 
@@ -74,7 +78,7 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
                            float* __restrict__ m_out,
                            float* __restrict__ l_out,
                            float* __restrict__ acc_out, int n_q, int H,
-                           int KV, int P, int page, float scale) {
+                           int KV, int P, int page, float scale, float cap) {
   using L = Layout<T, HD>;
   constexpr int kTs = L::kTs;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -152,7 +156,7 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
     if (t < n_tiles && w_live)
       attend_tile<T, HD, kI8>(qs + wq * kRows * L::kStride, ks + slot(t),
                               vs + slot(t), min(kTs, n_keys - t * kTs),
-                              AllVisible{}, scale, st,
+                              AllVisible{}, scale, cap, st,
                               ksc + tile_slot(t) * kTs,
                               vsc + tile_slot(t) * kTs);
     __syncthreads();
@@ -167,7 +171,7 @@ template <typename T, bool kI8>
 int launch(const void* q, const void* pool, const void* ks_pool,
            const void* vs_pool, const void* bt_k, const void* bt_v,
            const void* plen, void* m_out, void* l_out, void* acc_out, int B,
-           int n_q, int H, int KV, int P, int page, int hd,
+           int n_q, int H, int KV, int P, int page, int hd, float cap,
            cudaStream_t stream) {
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
@@ -185,7 +189,7 @@ int launch(const void* q, const void* pool, const void* ks_pool,
         static_cast<const int*>(bt_k), static_cast<const int*>(bt_v),
         static_cast<const int*>(plen), static_cast<float*>(m_out),
         static_cast<float*>(l_out), static_cast<float*>(acc_out), n_q, H,
-        KV, P, page, inv_sqrt_hd(HD));
+        KV, P, page, inv_sqrt_hd(HD), cap);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -198,18 +202,19 @@ int launch(const void* q, const void* pool, const void* ks_pool,
 // type; bt_k, bt_v: (B, P) int32 page ids into the pool; plen:
 // (B,) int32 cached positions; m_out, l_out: (B, H, n_q) and acc_out:
 // (B, H, n_q, hd) fp32. All contiguous and 16-byte aligned; H % KV == 0,
-// hd a power of two from 8 to 256 (else cudaErrorInvalidValue). Returns
-// the launch's cudaError_t (0 on success); does not synchronise.
+// hd a power of two from 8 to 256 or 224 (else cudaErrorInvalidValue);
+// cap != 0: the softcap. Returns the launch's cudaError_t (0 on success);
+// does not synchronise.
 extern "C" int paged_prefix_attend_launch(
     const void* q, const void* pool, const void* ks_pool, const void* vs_pool,
     const void* bt_k, const void* bt_v, const void* plen, void* m_out,
     void* l_out, void* acc_out, int B, int n_q, int H, int KV, int P,
-    int page, int hd, int bf16, int i8, void* stream) {
+    int page, int hd, int bf16, int i8, float cap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto go = [&](auto t, auto i8_c) {
     return launch<decltype(t), decltype(i8_c)::value>(
         q, pool, ks_pool, vs_pool, bt_k, bt_v, plen, m_out, l_out, acc_out,
-        B, n_q, H, KV, P, page, hd, st);
+        B, n_q, H, KV, P, page, hd, cap, st);
   };
   if (bf16)
     return i8 ? go(__nv_bfloat16(), std::true_type())

@@ -75,6 +75,14 @@
 // kernel does; a load carries 8 codes. Without V scales (vs null: the
 // share_values relay, whose V codes the reference reads scale-less) the
 // sum blocks weight the codes themselves; K keeps its scales.
+//
+// The softcap mode (gemma2's attention-logit cap, ``cap`` != 0): the score
+// blocks cap each scaled score (int8: after the K scale, then
+// 1/sqrt(hd)), cap * tanhf(score / cap) (the exact forms), before it is
+// written to the scores scratch, as the Pallas kernel caps before its
+// plen mask; positions >= plen are never scored. The split maxima, the
+// sums and the ordered merge only ever see capped scores. cap == 0 leaves
+// the score as it is: one uniform branch.
 
 #include "chai_decode_tiles.cuh"
 
@@ -106,6 +114,7 @@ struct Args {
   int* counter;     // dispatch, done (G, ns) x 2, tickets (G, slots) x 2
   int G, NR, A, KV, VR, Sp, hd, ts, tps, n_split, q_slots, v_slots;
   float scale;
+  float cap;        // the softcap mode: cap * tanh(score / cap); 0 = off
 };
 
 // Shared memory: floats (the score block's queries, or the sum block's
@@ -261,12 +270,13 @@ __device__ inline Range split_range(const Args& a, int g, int s) {
 // One chunk's scores of a K row for the block's nq queries (sm.big, kQ
 // rows of hd, zero past nq): thread i takes position c0 + i, row loads of
 // the K row dotted with every query, scaled (int8: by the row's scale
-// ``kscale[c0 + i]`` first); into sm.chunk (query j at j * kChunk) and
-// into the scores scratch ``out`` (query j's row at sm.rows[j] * Sp).
+// ``kscale[c0 + i]`` first), capped when cap != 0; into sm.chunk (query j
+// at j * kChunk) and into the scores scratch ``out`` (query j's row at
+// sm.rows[j] * Sp).
 template <typename T, int kQ>
 __device__ void score_chunk(const T* krow, const float* kscale,
                             const Smem& sm, int nq, int c0, int n, int hd,
-                            int sp, float scale, float* out) {
+                            int sp, float scale, float cap, float* out) {
   constexpr int kVec = Vec16<T>::n;
   for (int i = threadIdx.x; i < n; i += kThreads) {
     float dot[kQ];
@@ -287,7 +297,8 @@ __device__ void score_chunk(const T* krow, const float* kscale,
 #pragma unroll
     for (int j = 0; j < kQ; ++j) {
       if (j < nq) {
-        const float x = kIsInt8<T> ? dot[j] * ks * scale : dot[j] * scale;
+        float x = kIsInt8<T> ? dot[j] * ks * scale : dot[j] * scale;
+        if (cap != 0.f) x = cap * tanhf(x / cap);   // the softcap mode
         sm.chunk[j * kChunk + i] = x;
         out[static_cast<size_t>(sm.rows[j]) * sp + c0 + i] = x;
       }
@@ -336,16 +347,16 @@ __device__ void score_block(const Args& a, const Smem& sm, int g, int s,
     __syncthreads();
     if (nq <= 1)
       score_chunk<T, 1>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
-                        out);
+                        a.cap, out);
     else if (nq <= 2)
       score_chunk<T, 2>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
-                        out);
+                        a.cap, out);
     else if (nq <= 4)
       score_chunk<T, 4>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
-                        out);
+                        a.cap, out);
     else
       score_chunk<T, kMaxQ>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
-                            out);
+                            a.cap, out);
     __syncthreads();
 #pragma unroll
     for (int u = 0; u < kQW; ++u) {
@@ -620,15 +631,16 @@ relay_prefix_decode_kernel(const Args a) {
 // least the group's query slices of 8 per K row and acc slices of 8 per V
 // row. The scratch: mp, lp (G, n_split, NR), accp (G, n_split, A, hd) and
 // sc (G, NR, Sp) fp32, and counter (1 + 2 G n_split + G (q_slots +
-// v_slots)) int32, all zero (the launch leaves them at zero again).
-// Returns the launch's cudaError_t (0 on success); does not synchronise.
+// v_slots)) int32, all zero (the launch leaves them at zero again). cap
+// != 0: the softcap mode. Returns the launch's cudaError_t (0 on success);
+// does not synchronise.
 extern "C" int relay_prefix_decode_launch(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* k_row, const void* a_row, const void* v_row,
     const void* plen, void* m, void* l, void* acc, void* mp, void* lp,
     void* accp, void* sc, void* counter, int G, int NR, int A, int KV,
     int VR, int Sp, int hd, int ts, int n_split, int tps, int q_slots,
-    int v_slots, int kv_type, void* stream) {
+    int v_slots, int kv_type, float cap, void* stream) {
   const Args a{static_cast<const float*>(q), k, v,
                static_cast<const float*>(ks), static_cast<const float*>(vs),
                static_cast<const int*>(k_row), static_cast<const int*>(a_row),
@@ -638,7 +650,7 @@ extern "C" int relay_prefix_decode_launch(
                static_cast<float*>(lp), static_cast<float*>(accp),
                static_cast<float*>(sc), static_cast<int*>(counter), G, NR, A,
                KV, VR, Sp, hd, ts, tps, n_split, q_slots, v_slots,
-               inv_sqrt_hd(hd)};
+               inv_sqrt_hd(hd), cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(G * n_split * (q_slots + v_slots));
   auto run = [&](auto kern) {

@@ -21,23 +21,23 @@ baseline (CHAI off) decodes through them. Both share the block body of
 
 The wrappers take CUDA tensors only; the CPU path is the plain version in
 ``kernels.ref``, chosen by ``kernels.ops``. ``LAUNCHES`` counts each
-kernel's launches, one per successful launch.
+kernel's launches, one per successful launch, and the prefill pair's are
+counted by mode in ``chai_attention.MODE_LAUNCHES`` too.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import chai_attention as ck
-from repro_torch.kernels.chai_attention import fused_tile_size
+from repro_torch.kernels.chai_attention import _launcher, fused_tile_size
 
 LAUNCHES = {"flash_prefill": 0, "paged_prefix_attend": 0,
             "flash_decode": 0, "paged_decode": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (8, 16, 32, 64, 128, 256)     # flash_tiles.cuh: with_head_dim
+_HEAD_DIMS = (8, 16, 32, 64, 128, 224, 256)  # flash_tiles.cuh: with_head_dim
 _DECODE_MAX_HD = 256     # decode_tiles.cuh: kMaxHd
 # Query heads of one KV group a decode block serves: at most 2
 # (decode_tiles.cuh: with_heads). Timed on the card for nemotron-4-15b's
@@ -49,24 +49,6 @@ _DECODE_CHUNK = 64       # decode_tiles.cuh: kChunk
 _DECODE_THREADS = 128    # decode_tiles.cuh: kThreads
 _DECODE_RED_VEC = 8      # decode_tiles.cuh: kRedVec
 _DECODE_MAX_SPLIT = 64   # decode_tiles.cuh: kMaxSplit (split_plan's cap)
-
-
-def _launcher(name, n_ptrs, n_ints):
-    from repro_torch.kernels import build
-    fn = getattr(build.load(name), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _refuse_unported(name, window=0, softcap=0.0):
-    for flag, what in ((bool(window), "window (local attention: ROADMAP "
-                        "Queue 1 #14, rest of the arch zoo)"),
-                       (bool(softcap), "softcap (ROADMAP Queue 1 #14, rest "
-                        "of the arch zoo)")):
-        if flag:
-            raise NotImplementedError(f"{name}: {what} is not ported yet")
 
 
 def _check_heads(name, q, kv_heads, hd):
@@ -108,11 +90,15 @@ def flash_prefill(q, k, v, *, offset=0, window=0, softcap=0.0,
     q: (B, T, H, hd); k/v: (B, S, KV, hd) (time-major, as projected),
     one dtype of fp32/bf16; H % KV == 0 (GQA: head h reads KV head
     h // (H // KV)). ``offset``: an int or a one-element integer tensor
-    (read on the device; no host sync). Returns (B, T, H, hd) in q's
-    dtype, or with ``emit_state`` the head-major triple (m (B, H, T),
-    l (B, H, T), acc (B, H, T, hd)) fp32, from ONE kernel launch.
+    (read on the device; no host sync). ``window`` > 0: key k is visible
+    to the query at p only when p - k < window (tiles outside every
+    row's window are skipped); ``softcap`` != 0: each scaled score
+    becomes softcap * tanh(score / softcap) before the mask. Returns
+    (B, T, H, hd) in q's dtype, or with ``emit_state`` the head-major
+    triple (m (B, H, T), l (B, H, T), acc (B, H, T, hd)) fp32, from ONE
+    kernel launch; a row that sees no key holds the merge identity (m =
+    -2e38, l = 0, acc = 0; finalized: zeros).
     """
-    _refuse_unported("flash_prefill", window=window, softcap=softcap)
     b, t, h, hd = q.shape
     _check_heads("flash_prefill", q, k.shape[2], hd)
     if (k.dtype != q.dtype or v.dtype != q.dtype or k.ndim != 4
@@ -137,15 +123,16 @@ def flash_prefill(q, k, v, *, offset=0, window=0, softcap=0.0,
     else:
         out = torch.empty((b, t, h, hd), dtype=q.dtype, device=dev)
         ptrs = (out.data_ptr(), None, None, None)
-    fn = _launcher("flash_prefill", 8, 8)
+    fn = _launcher("flash_prefill", 8, 9, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(),
-                 *ptrs, b, t, s, h, kv, hd, int(emit_state),
-                 _DTYPES[q.dtype], stream)
+                 *ptrs, b, t, s, h, kv, hd, max(int(window), 0),
+                 int(emit_state), _DTYPES[q.dtype], float(softcap), stream)
     if err:
         raise RuntimeError(f"flash_prefill launch failed: CUDA error {err}")
-    LAUNCHES["flash_prefill"] += 1
+    ck.count_launch(LAUNCHES, "flash_prefill", softcap=softcap,
+                    window=int(window) > 0)
     return (m, l, acc) if emit_state else out
 
 
@@ -161,12 +148,12 @@ def paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, *, k_scale_pool=None,
     with its fp32 scale pools k_scale_pool and v_scale_pool (nP, KV,
     page) (the engine passes one scale pool as both), read through the
     same tables: the K scale multiplies the score after the dot, the V
-    scale the probability before p.V. Returns the head-major triple
-    (m (B, H, T), l (B, H, T), acc (B, H, T, hd)) fp32 from ONE kernel
-    launch; a row with plen == 0 holds the merge identity (m = -2e38,
-    l = 0, acc = 0) and reads no page.
+    scale the probability before p.V. ``softcap`` != 0: each scaled score
+    (int8: after the K scale) becomes softcap * tanh(score / softcap).
+    Returns the head-major triple (m (B, H, T), l (B, H, T), acc (B, H,
+    T, hd)) fp32 from ONE kernel launch; a row with plen == 0 holds the
+    merge identity (m = -2e38, l = 0, acc = 0) and reads no page.
     """
-    _refuse_unported("paged_prefix_attend", softcap=softcap)
     ck._check_scales("paged_prefix_attend", kv_pool, kv_pool, k_scale_pool,
                      v_scale_pool)
     int8 = kv_pool.dtype == torch.int8
@@ -192,18 +179,19 @@ def paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, *, k_scale_pool=None,
     tables = [x.to(device=dev, dtype=torch.int32).contiguous()
               for x in (bt_k, bt_v, plen)]
     m, l, acc = _state(b, h, t, hd, dev)
-    fn = _launcher("paged_prefix_attend", 10, 9)
+    fn = _launcher("paged_prefix_attend", 10, 9, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), kv_pool.data_ptr(), ck._ptr(k_scale_pool),
                  ck._ptr(v_scale_pool), *(x.data_ptr() for x in tables),
                  m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, t, h,
                  kv_pool.shape[1], n_pages, kv_pool.shape[2], hd,
-                 _DTYPES[q.dtype], int(int8), stream)
+                 _DTYPES[q.dtype], int(int8), float(softcap), stream)
     if err:
         raise RuntimeError(f"paged_prefix_attend launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["paged_prefix_attend"] += 1
+    ck.count_launch(LAUNCHES, "paged_prefix_attend", int8=int8,
+                    softcap=softcap)
     return m, l, acc
 
 

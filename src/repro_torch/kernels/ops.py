@@ -100,21 +100,23 @@ def paged_chai_decode_attention(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos,
 
 
 def relay_prefix_attention(q, k, v, k_row, a_row, v_row, plen, *,
-                           k_scale=None, v_scale=None, ts=0):
+                           k_scale=None, v_scale=None, ts=0, softcap=0.0):
     """One pass per relay group over its packed shared prefix: the member
     slots' rep queries stacked along one row axis, so the prefix is read
     once per group, not once per slot. q: (G, NR, hd); k: (G, KV, Sp,
     hd); v: (G, VR, Sp, hd) (int8 with their scales k_scale (G, KV, Sp)
     and v_scale (G, VR, Sp), or without v_scale: V codes read as values);
     k_row (G, NR), a_row/v_row (G, A) int
-    routing maps; plen (G,). Returns the (m (G, NR), l (G, NR), acc (G,
-    A, hd)) fp32 state; ``ts`` is the kernel's S-tile (0: Sp)."""
+    routing maps; plen (G,); ``softcap`` != 0 caps every scaled score.
+    Returns the (m (G, NR), l (G, NR), acc (G, A, hd)) fp32 state; ``ts``
+    is the kernel's S-tile (0: Sp)."""
     if q.device.type == "cpu":
         return ref.relay_prefix_decode_ref(q, k, v, k_row, a_row, v_row,
                                            plen, k_scale=k_scale,
-                                           v_scale=v_scale)
+                                           v_scale=v_scale, softcap=softcap)
     return ck.relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen,
-                                  k_scale=k_scale, v_scale=v_scale, ts=ts)
+                                  k_scale=k_scale, v_scale=v_scale, ts=ts,
+                                  softcap=softcap)
 
 
 def _gather_rows(x, h2c):
@@ -159,32 +161,36 @@ def finalize_decode_state(state, h2c, *, share_values=False):
     return acc / torch.clamp(_gather_rows(l, h2c), min=1e-37)[..., None]
 
 
-def flash_prefill_attention(q, k, v, offset=0, *, emit_state=False):
-    """Causal attention of queries at ``offset + t`` over keys 0..S-1.
-    q: (B, T, H, hd); k/v: (B, S, KV, hd). Returns (B, T, H, hd) in q's
-    dtype, or with ``emit_state`` the head-major (m, l, acc) fp32 triple
-    that ``merge_prefill_states`` combines."""
+def flash_prefill_attention(q, k, v, offset=0, *, window=0, softcap=0.0,
+                            emit_state=False):
+    """Causal attention of queries at ``offset + t`` over keys 0..S-1
+    (inside a sliding ``window`` when > 0; scores capped at ``softcap``
+    when != 0). q: (B, T, H, hd); k/v: (B, S, KV, hd). Returns (B, T, H,
+    hd) in q's dtype, or with ``emit_state`` the head-major (m, l, acc)
+    fp32 triple that ``merge_prefill_states`` combines."""
+    kw = dict(offset=offset, window=window, softcap=softcap)
     if q.device.type == "cpu":
         if emit_state:
-            return ref.flash_prefill_state_ref(q, k, v, offset=offset)
-        return ref.flash_prefill_ref(q, k, v, offset=offset).to(q.dtype)
-    return fk.flash_prefill(q, k, v, offset=offset, emit_state=emit_state)
+            return ref.flash_prefill_state_ref(q, k, v, **kw)
+        return ref.flash_prefill_ref(q, k, v, **kw).to(q.dtype)
+    return fk.flash_prefill(q, k, v, emit_state=emit_state, **kw)
 
 
 def paged_prefix_attention(q, kv_pool, bt_k, bt_v, plen, *,
-                           k_scale_pool=None, v_scale_pool=None):
+                           k_scale_pool=None, v_scale_pool=None,
+                           softcap=0.0):
     """Queries (B, T, H, hd) over the cached positions < plen (B,) of one
     layer's page pool (nP, KV, page, hd), read through the block tables
     bt_k/bt_v (B, P), with no causal mask; an int8 pool with its scale
-    pools (nP, KV, page). Returns the head-major (m, l, acc) fp32 triple;
-    a row with plen == 0 is the merge identity."""
+    pools (nP, KV, page); scores capped at ``softcap`` when != 0. Returns
+    the head-major (m, l, acc) fp32 triple; a row with plen == 0 is the
+    merge identity."""
+    kw = dict(k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool,
+              softcap=softcap)
     if q.device.type == "cpu":
         return ref.paged_prefix_attend_ref(q, kv_pool, bt_k, bt_v, plen,
-                                           k_scale_pool=k_scale_pool,
-                                           v_scale_pool=v_scale_pool)
-    return fk.paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen,
-                                  k_scale_pool=k_scale_pool,
-                                  v_scale_pool=v_scale_pool)
+                                           **kw)
+    return fk.paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, **kw)
 
 
 def merge_prefill_states(s1, s2):

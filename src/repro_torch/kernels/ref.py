@@ -29,8 +29,13 @@ from which the tests build the kernels' split-S algorithm.
 
 The prefill kernels' plain versions: ``flash_prefill_ref`` (finalized
 causal attention, the reference's whole-row softmax oracle) and
-``flash_prefill_state_ref`` (its ``emit_state`` form), and
-``paged_prefix_attend_ref`` (the chunk's queries over cached pages). The
+``flash_prefill_state_ref`` (its ``emit_state`` form), both with the
+sliding ``window``, and ``paged_prefix_attend_ref`` (the chunk's queries
+over cached pages). The ``softcap`` of every kernel caps the scaled
+score, after an int8 K scale and before the mask, as the Pallas kernels
+do. A prefill row that sees no key (a window past every key) is the
+exact merge identity (m = NEG_INF, l = 0, acc = 0), finalized to zeros,
+as the CUDA kernels write it. The
 int8 modes (``k_scale``/``v_scale`` of the fused pair and the relay pass,
 ``k_scale_pool``/``v_scale_pool`` of the prefix pass) dequantize K and V
 first, as the reference's oracles do; the kernels scale the score after
@@ -226,15 +231,15 @@ def _dequant(x, scale):
 
 
 def relay_prefix_decode_ref(q, k, v, k_row, a_row, v_row, plen, *,
-                            k_scale=None, v_scale=None):
+                            k_scale=None, v_scale=None, softcap=0.0):
     """Plain version of ``relay_prefix_decode``: row gathers, then the
     masked softmax state in one shot. q: (G, NR, hd); k: (G, KV, Sp, hd);
     v: (G, VR, Sp, hd); k_row: (G, NR) query row -> K row; a_row/v_row:
     (G, A) acc row -> query row / V row; plen: (G,), positions >= plen
     masked (no causal mask). int8 K/V take their scales k_scale (G, KV,
     Sp) and v_scale (G, VR, Sp), dequantized first as the reference's
-    oracle does. Returns (m (G, NR), l (G, NR), acc (G, A, hd)) fp32, m
-    clamped at >= -1e30."""
+    oracle does; ``softcap`` caps the scaled scores. Returns (m (G, NR),
+    l (G, NR), acc (G, A, hd)) fp32, m clamped at >= -1e30."""
     hd = q.shape[-1]
     sp = k.shape[2]
 
@@ -243,8 +248,8 @@ def relay_prefix_decode_ref(q, k, v, k_row, a_row, v_row, plen, *,
             *idx.shape, sp, hd))
 
     k, v = _dequant(k, k_scale), _dequant(v, v_scale)
-    sc = torch.einsum("gre,grse->grs", q.float(),
-                      rows(k, k_row)) / math.sqrt(hd)
+    sc = _softcap(torch.einsum("gre,grse->grs", q.float(),
+                               rows(k, k_row)) / math.sqrt(hd), softcap)
     idx = torch.arange(sp, device=q.device)
     plen = plen.to(device=q.device).long()
     sc = torch.where(idx[None, None, :] < plen[:, None, None], sc, NEG_INF)
@@ -302,53 +307,64 @@ def paged_decode_ref(q, kv_pool, bt_k, bt_v, pos, *, window=0):
                             window=window)
 
 
-def _causal_scores(q, k, offset):
-    """Head-major scaled scores of causal attention, masked to NEG_INF:
-    q (B, T, H, hd) at positions offset + t (an int or a one-element
-    tensor); k (B, S, KV, hd) at 0..S-1. Returns (sc (B, H, T, S) fp32,
-    k's GQA repeat factor)."""
+def _causal_scores(q, k, offset, window=0, softcap=0.0):
+    """Head-major scaled (and softcapped) scores of causal attention,
+    masked to NEG_INF: q (B, T, H, hd) at positions offset + t (an int or
+    a one-element tensor); k (B, S, KV, hd) at 0..S-1, key k visible to
+    query p iff k <= p (and p - k < window when window > 0). Returns (sc
+    (B, H, T, S) fp32, k's GQA repeat factor, live (T,): the rows that
+    see a key)."""
     b, t, h, hd = q.shape
     s, n_kv = k.shape[1], k.shape[2]
     qpk = h // n_kv
     qh = q.float().transpose(1, 2)                          # (B, H, T, hd)
     kh = k.float().transpose(1, 2).repeat_interleave(qpk, 1)
-    sc = torch.einsum("bhtd,bhsd->bhts", qh, kh) / math.sqrt(hd)
+    sc = _softcap(torch.einsum("bhtd,bhsd->bhts", qh, kh) / math.sqrt(hd),
+                  softcap)
     off = torch.as_tensor(offset, device=q.device).reshape(()).long()
     qp = off + torch.arange(t, device=q.device)
     kp = torch.arange(s, device=q.device)
-    return torch.where(kp[None, :] <= qp[:, None], sc, NEG_INF), qpk
+    valid = kp[None, :] <= qp[:, None]
+    if window:
+        valid &= (qp[:, None] - kp[None, :]) < window
+    return torch.where(valid, sc, NEG_INF), qpk, valid.any(-1)
 
 
-def flash_prefill_ref(q, k, v, *, offset=0):
-    """Causal attention, queries at offset..offset+T-1 over keys 0..S-1.
-    q: (B, T, H, hd); k/v: (B, S, KV, hd). Returns (B, T, H, hd) fp32."""
-    sc, qpk = _causal_scores(q, k, offset)
+def flash_prefill_ref(q, k, v, *, offset=0, window=0, softcap=0.0):
+    """Causal attention, queries at offset..offset+T-1 over keys 0..S-1
+    (inside the ``window`` when > 0, scores capped at ``softcap`` when
+    != 0). q: (B, T, H, hd); k/v: (B, S, KV, hd). Returns (B, T, H, hd)
+    fp32; a row that sees no key is zeros."""
+    sc, qpk, live = _causal_scores(q, k, offset, window, softcap)
     vh = v.float().transpose(1, 2).repeat_interleave(qpk, 1)
-    out = torch.einsum("bhts,bhsd->bhtd", torch.softmax(sc, dim=-1), vh)
+    a = torch.where(live[:, None], torch.softmax(sc, dim=-1), 0.0)
+    out = torch.einsum("bhts,bhsd->bhtd", a, vh)
     return out.transpose(1, 2)
 
 
-def flash_prefill_state_ref(q, k, v, *, offset=0):
+def flash_prefill_state_ref(q, k, v, *, offset=0, window=0, softcap=0.0):
     """``flash_prefill_ref`` unfinalized: the head-major triple
-    (m (B, H, T), l (B, H, T), acc (B, H, T, hd)) fp32. Every row is
-    computed (key 0 is visible to every query), so m is clamped at
-    >= -1e30 everywhere."""
-    sc, qpk = _causal_scores(q, k, offset)
+    (m (B, H, T), l (B, H, T), acc (B, H, T, hd)) fp32, m clamped at
+    >= -1e30 on every row that sees a key; a row that sees none (only
+    with a window) is the merge identity (NEG_INF, 0, 0)."""
+    sc, qpk, live = _causal_scores(q, k, offset, window, softcap)
     vh = v.float().transpose(1, 2).repeat_interleave(qpk, 1)
-    m = torch.clamp(sc.amax(-1), min=-1e30)
-    p = torch.exp(sc - m[..., None])
+    m = torch.where(live, torch.clamp(sc.amax(-1), min=-1e30), NEG_INF)
+    p = torch.where(live[:, None], torch.exp(sc - m[..., None]), 0.0)
     return m, p.sum(-1), torch.einsum("bhts,bhsd->bhtd", p, vh)
 
 
 def paged_prefix_attend_ref(q, kv_pool, bt_k, bt_v, plen, *,
-                            k_scale_pool=None, v_scale_pool=None):
+                            k_scale_pool=None, v_scale_pool=None,
+                            softcap=0.0):
     """Plain version of ``paged_prefix_attend``: densify the pool through
     the block tables, then the non-causal softmax state over positions
     < plen. q: (B, T, H, hd); kv_pool: (nP, KV, page, hd); bt_k/bt_v:
     (B, P); plen: (B,). An int8 pool takes its scale pools (nP, KV, page),
     gathered through the same tables and applied first, as the
-    reference's oracle does. Returns the head-major (m, l, acc) fp32
-    triple; rows with plen == 0 hold the merge identity (NEG_INF, 0, 0)."""
+    reference's oracle does; ``softcap`` caps the scaled scores. Returns
+    the head-major (m, l, acc) fp32 triple; rows with plen == 0 hold the
+    merge identity (NEG_INF, 0, 0)."""
     h, hd = q.shape[2:]
 
     def view(bt, spool):                                  # (B, KV, S, hd)
@@ -360,7 +376,8 @@ def paged_prefix_attend_ref(q, kv_pool, bt_k, bt_v, plen, *,
     kf = kf.repeat_interleave(qpk, 1)                     # (B, H, S, hd)
     vf = vf.repeat_interleave(qpk, 1)
     qh = q.float().transpose(1, 2)                        # (B, H, T, hd)
-    sc = torch.einsum("bhtd,bhsd->bhts", qh, kf) / math.sqrt(hd)
+    sc = _softcap(torch.einsum("bhtd,bhsd->bhts", qh, kf) / math.sqrt(hd),
+                  softcap)
     idx = torch.arange(kf.shape[2], device=q.device)
     plen = plen.to(device=q.device).long()
     sc = torch.where(idx[None, None, None, :] < plen[:, None, None, None],

@@ -55,11 +55,6 @@ def check_supported(cfg: ModelConfig):
     if cfg.kv_cache_dtype not in ("", "int8"):
         raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: the cache "
                          "is the model dtype ('') or 'int8'")
-    if cfg.kv_cache_dtype == "int8" and cfg.n_local_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the int8 KV cache with local-attention layers is "
-            "not ported yet (the reference keeps the rings in the model "
-            "dtype): ROADMAP Queue 1 #14")
     if cfg.qk_norm:
         raise NotImplementedError("qk_norm is not ported yet")
     if cfg.chai.share_values and not cfg.is_mha:
@@ -207,19 +202,21 @@ def _unembed_w(params, cfg):
             else params["unembed"]["w"])
 
 
-def _prefix_attention(q, k, v, prefix_kv, gi, plen):
+def _prefix_attention(q, k, v, prefix_kv, gi, plen, cap):
     """A chunk's attention over the cached prefix and itself, two passes
     merged by online-softmax state: the non-causal paged pass over the
     positions < plen that earlier chunks wrote (``prefix_kv``'s pool,
     layer ``gi``, read through its block tables) and the causal pass over
-    the chunk's own K/V at relative offset 0. plen == 0 (a first chunk)
-    leaves the paged state at the exact merge identity."""
+    the chunk's own K/V at relative offset 0, both with the attention
+    softcap ``cap`` (0: off). plen == 0 (a first chunk) leaves the paged
+    state at the exact merge identity."""
     spool = layer_slice(prefix_kv, "scale", gi)
     st_p = kops.paged_prefix_attention(q, prefix_kv["pool"][gi],
                                        prefix_kv["bt_k"], prefix_kv["bt_v"],
                                        plen, k_scale_pool=spool,
-                                       v_scale_pool=spool)
-    st_s = kops.flash_prefill_attention(q, k, v, emit_state=True)
+                                       v_scale_pool=spool, softcap=cap)
+    st_s = kops.flash_prefill_attention(q, k, v, softcap=cap,
+                                        emit_state=True)
     return kops.finalize_prefill_state(kops.merge_prefill_states(st_s, st_p),
                                        dtype=q.dtype)
 
@@ -300,11 +297,6 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
         positions = torch.arange(t, dtype=torch.int32, device=h.device)
         if plen is not None:
             positions = positions + plen[0]
-    if prefix_kv is not None and cfg.attn_logit_softcap:
-        raise NotImplementedError(
-            f"{cfg.name}: the prefill kernels' softcap is not ported yet "
-            "(ROADMAP Queue 2): no chunked or prefix-cache prefill with an "
-            "attention-logit softcap")
     pos_idx = positions.long()
     vl = None
     if valid_len is not None:
@@ -317,7 +309,8 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
         xn = rms_norm(h, p["ln"], cfg.norm_eps)
         q, k, v = attn_mod.project_qkv(xn, p, cfg, positions)
         if prefix_kv is not None and li is None:
-            y = _prefix_attention(q, k, v, prefix_kv, gi, plen)
+            y = _prefix_attention(q, k, v, prefix_kv, gi, plen,
+                                  cfg.attn_logit_softcap)
         else:
             y = attn_mod.attention_fullseq(
                 q, k, v, positions, positions,

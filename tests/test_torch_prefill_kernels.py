@@ -186,16 +186,15 @@ def _int8_pools_call(q):
 
 
 @pytest.mark.parametrize("call,err,match", [
-    (lambda q: tfk.flash_prefill(q, q, q, window=8), NotImplementedError,
-     "ROADMAP"),
-    (lambda q: tfk.flash_prefill(q, q, q, softcap=30.0), NotImplementedError,
-     "ROADMAP"),
+    (lambda q: tfk.flash_prefill(q, q, q, window=8), ValueError, "CUDA"),
+    (lambda q: tfk.flash_prefill(q, q, q, softcap=30.0), ValueError, "CUDA"),
     (_int8_pools_call, ValueError, "CUDA"),
 ], ids=["window", "softcap", "int8_scale_pools"])
 def test_unported_options_raise_naming_roadmap(call, err, match):
-    """window and softcap are not ported and raise naming their ROADMAP
-    item. The int8 scale pools are ported: they pass the refusal and reach
-    the device check (meta tensors), launching nothing."""
+    """No option of the Pallas kernels is left unported, so none raises a
+    refusal naming a ROADMAP item: the window, the softcap and the int8
+    scale pools each reach the device check (CPU tensors), launching
+    nothing."""
     q = torch.zeros((1, 4, 2, 8))
     before = dict(tfk.LAUNCHES)
     with pytest.raises(err, match=match):

@@ -9,7 +9,8 @@ that the state holds the card check's 2e-5 against the fp32 reference:
   fp32); p.V as p1.V + p2.V + p3.V with p1 = bf16(p), p2 = bf16(p - p1),
   p3 = bf16(p - p1 - p2) (bf16 V is exact);
 * fp32 inputs: 3xTF32 on both products, a_hi.b_hi + a_hi.b_lo + a_lo.b_hi
-  with tf32(x) the low 13 mantissa bits cleared and lo = tf32(x - hi).
+  with tf32(x) x rounded to nearest at 10 mantissa bits (the low 13 bits
+  cleared) and lo = tf32(x - hi).
 
 The emulation below repeats the kernel's tile loop (online softmax over
 key tiles of the kernel's size, each tile's p.V summed apart and added to
@@ -41,9 +42,11 @@ B, T, H, KV, HD = 1, 64, 4, 2, 32
 
 
 def tf32(x):
-    """x with the low 13 mantissa bits cleared (what a tensor core reads
-    of an fp32 operand)."""
-    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    """x rounded to nearest at 10 mantissa bits, ties away from zero, its
+    low 13 bits cleared (what a tensor core reads of an fp32 operand), as
+    the kernel's ``tf32_rn``."""
+    bits = x.contiguous().view(torch.int32) + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
 
 
 def bf16(x):

@@ -17,8 +17,10 @@ mode (``chip_smoke.py`` phase 3 holds the two at 2e-5).
   capped unequal to uncapped.
 * One GQA decode layer of reduced gemma2-9b (cap 5) through
   ``core.chai_attention.chai_decode_attention``, a global layer (the
-  fused op, dense and paged) and a local one (the ring), against the
-  reference's at 1e-5, the written cache rows too.
+  fused op, dense and paged, and paged with a relay group: the suffix
+  pass and the relay pass over the packed prefix both capped, their
+  states merged) and a local one (the ring), against the reference's at
+  1e-5, the written cache rows too.
 """
 import numpy as np
 import pytest
@@ -167,12 +169,44 @@ def test_softcap_state_plain_matches_pallas(rng, mode):
 
 
 # --------------------------------------------------- the decode layer ----
-@pytest.mark.parametrize("layer", ["global_dense", "global_paged", "local"])
+def _relay(rng, ctx, ai, tcfg, b, hd):
+    """A relay dict (the engine's layout) with both slots in one group
+    over a one-page (16-position) packed prefix: query row j * KV * r +
+    g * r + i (member j's rep i of group g) reads K row g; acc row
+    j * H + h reads query row j * KV * r + (h // qpk) * r +
+    cluster_of[h] and V row h // qpk, in both attention layers."""
+    n_kv, qpk, r = tcfg.n_kv_heads, tcfg.q_per_kv, ctx["reps"].shape[-1]
+    h = n_kv * qpk
+    k_row = np.tile(np.repeat(np.arange(n_kv), r), b)
+    heads = np.arange(h)
+    a_row = np.stack([np.concatenate([
+        j * n_kv * r + (heads // qpk) * r
+        + ctx["cluster_of"][layer, j].reshape(h) for j in range(b)])
+        for layer in range(2)])
+    v_row = np.tile(heads // qpk, b)
+    rows = lambda x: np.tile(x.astype(np.int32)[None, None], (2, 1, 1))
+    return {"k": rng.normal(size=(1, 1, n_kv, PAGE, hd)).astype(np.float32),
+            "v": rng.normal(size=(1, 1, n_kv, PAGE, hd)).astype(np.float32),
+            "plen": np.array([PAGE], np.int32),
+            "members": np.arange(b, dtype=np.int32)[None],
+            "k_row": rows(k_row), "a_row": a_row[:, None].astype(np.int32),
+            "v_row": rows(v_row), "gid": np.zeros(b, np.int32),
+            "midx": np.arange(b, dtype=np.int32),
+            "len": np.full(b, PAGE, np.int32),
+            "in_group": np.ones(b, bool)}
+
+
+@pytest.mark.parametrize("layer", ["global_dense", "global_paged",
+                                   "global_paged_relay", "local"])
 def test_softcapped_gqa_layer_matches_reference(rng, layer):
     """One GQA CHAI decode layer of reduced gemma2-9b at cap 5, per-request
     membership, on the same state, weights and hidden rows as
     ``repro.core.chai_attention``: the output at 1e-5 and the written
-    cache rows equal (the local layer's ring slot ``pos % w`` too)."""
+    cache rows equal (the local layer's ring slot ``pos % w`` too). With
+    a relay group the slots' first page is the group's packed prefix:
+    the relay pass's state, capped, merges with the capped suffix pass's
+    (the engine refuses the prefix cache on gemma2, as the reference's
+    does; the layer carries the cap all the same)."""
     red = dict(n_layers=2, window=8)
     jcfg = jreduced(jget_config("gemma2-9b"), **red).replace(
         attn_logit_softcap=5.0)
@@ -190,7 +224,8 @@ def test_softcapped_gqa_layer_matches_reference(rng, layer):
     cluster_of = rng.integers(0, r, size=(2, b, n_kv, qpk))
     ctx = {"reps": reps.astype(np.int32),
            "cluster_of": cluster_of.astype(np.int32)}
-    if layer == "global_paged":
+    paged = layer.startswith("global_paged")
+    if paged:
         structs = jcache.paged_state_structs(jcfg, b, s, page_size=PAGE,
                                              dense_pages=9)[0]
     else:
@@ -199,22 +234,29 @@ def test_softcapped_gqa_layer_matches_reference(rng, layer):
           if v.dtype == jnp.float32 else np.zeros(v.shape, v.dtype)
           for k, v in structs.items()}
     st["pos"] = np.array([s - 3, 11], np.int32)
-    if layer == "global_paged":
+    if paged:
         st["bt_kg"] = np.array([[1, 2], [3, 0]], np.int32)
         st["bt_vg"] = np.array([[4, 5], [6, 0]], np.int32)
+    relay = None
+    if layer == "global_paged_relay":
+        st["pos"] = np.array([s - 3, 20], np.int32)
+        st["bt_kg"][1, 1], st["bt_vg"][1, 1] = 7, 8
+        relay = _relay(rng, ctx, ai, tcfg, b, tcfg.head_dim)
     xn = (rng.normal(size=(b, tcfg.d_model)) * 3).astype(np.float32)
     idxs = ({"global": 0, "local": 0, "attn": ai})
     jout, jst = jchai.chai_decode_attention(
         _j(xn), {k: _j(v) for k, v in p_np.items()}, jcfg,
         {k: _j(v) for k, v in st.items()}, idxs,
         {k: _j(v) for k, v in ctx.items()}, local=layer == "local",
-        decode_ts=PAGE)
+        decode_ts=PAGE,
+        relay=None if relay is None else {k: _j(v) for k, v in relay.items()})
     tst = {k: _t(v) for k, v in st.items()}
     tout = tchai.chai_decode_attention(
         _t(xn), {k: _t(v) for k, v in p_np.items()}, tcfg, tst,
         None if layer == "local" else 0, ai,
         {k: _t(v) for k, v in ctx.items()},
-        li=0 if layer == "local" else None, decode_ts=PAGE)
+        li=0 if layer == "local" else None, decode_ts=PAGE,
+        relay=None if relay is None else {k: _t(v) for k, v in relay.items()})
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
     for key in ("kl", "vl", "kg", "vg", "kvp"):
         if key in tst:
