@@ -80,10 +80,13 @@ result line):
    the reference lane's shape (b=4, h=8, r=5, s=256, hd=32, ts=64; also
    with int8 K through ``chai_qk_i8``, the fused side then its plain
    version) and on the layer-0 inputs of the first STEADY step of phases
-   5, 6 and 9; each kernel's device time, back-to-back and single-call
+   5, 6 and 9, and, on a run of its own, of phase 12's share_values
+   int8 dense run (int8 K with scales, the clustered V's raw codes: the
+   pipeline's ``chai_av`` on int8 codes against the fused kernel's share
+   + int8 mode); each kernel's device time, back-to-back and single-call
    times, and ``decode_hbm_bytes_estimate`` of both; then the six
    pipeline kernels against their plain versions at the main path's and
-   nemotron's shapes;
+   nemotron's shapes, and the AV pair on the share int8 input;
 11. the int8 KV cache (``cfg.replace(kv_cache_dtype="int8")``) at full
    width and depth: chai-llama-7b after phase 8 on phase 6's traffic,
    paged then dense (launches of the layout's own fused kernel only, in
@@ -218,7 +221,11 @@ Phase 3 also holds the six pipeline kernels (``chai_qk``, ``chai_qk_i8``,
 the full-width shapes: fp32 and bf16, MHA and GQA, a window, a row at
 pos 2, shuffled pages with the null page 0 past pos, int8 K from the
 port's ``quant_rows``, masked scores ``torch.equal`` to -2e38 and a fully
-masked row's softmax all zeros; phase 4 also runs reduced nemotron (2 KV
+masked row's softmax all zeros; the AV pair also on V's raw int8 codes
+(held over their range of 127), each AV launch twice bitwise, paged ==
+dense ``torch.equal`` at ts = page, a yardstick (``torch.gather`` +
+``torch.matmul``, two calls) timed beside it, and both AV kernels at S =
+65,536 (B 1, bf16 and int8); phase 4 also runs reduced nemotron (2 KV
 groups of 6 heads, head_dim 8) cuda against cpu.
 
 Phase 3 also holds ``relay_prefix_decode`` on synthetic groups (G = 2,
@@ -2319,6 +2326,98 @@ def pipe_case(name, call, plain, bound, *, library=None, profile=False):
     return rec, got
 
 
+# The AV pair's int8 V: raw codes to +-127 (``plain_int8`` of V x 40,
+# the share_values clustered V's cast, saturated), held over the codes'
+# range: out / 127 at 2e-5, the raw error recorded beside it.
+AV_CODES = 40.0
+AV_RANGE = 127.0
+AV_ROWS = ("chai_av", "paged_chai_av", "chai_av[int8]", "paged_chai_av[int8]")
+YARDSTICK = ("torch.gather of the A rows the heads name (A cast to V's "
+             "dtype beforehand) + torch.matmul over V: two calls, never on "
+             "the path; not a library call of the function (none computes "
+             "the h2c gather)")
+_FLUSH = {}
+
+
+def l2_flush():
+    """Read 256 MB, 5x the H100's 50 MB L2, so the next call finds its
+    inputs in device memory only. A read leaves no dirty lines, whose
+    write-back would slow the next call."""
+    buf = _FLUSH.get("buf")
+    if buf is None:
+        buf = _FLUSH["buf"] = torch.ones(256 << 20, dtype=torch.uint8,
+                                         device="cuda")
+    buf.sum(dtype=torch.int32)
+
+
+def cold_device_ms(fn, kernel):
+    """``device_ms`` of ``kernel`` with the L2 flushed before every call
+    (the flush's own kernel is not counted)."""
+    return device_ms(lambda: (l2_flush(), fn()), kernel)
+
+
+def av_yardstick(a, v, h2c):
+    """The AV yardstick (``YARDSTICK``) on these inputs, or None for int8
+    V (no float matmul reads int8 codes)."""
+    if v.dtype == torch.int8:
+        return None
+    b, h = v.shape[:2]
+    idx = (h2c.expand(b, h) if h2c.ndim == 1 else h2c).long()
+    idx = idx[..., None].expand(b, h, a.shape[-1])
+    a_v = a.to(v.dtype)
+    return lambda: torch.matmul(torch.gather(a_v, 1, idx)[:, :, None, :], v)
+
+
+def av_case(name, call, plain, bound, *, int8=False, dense=None, yard=None,
+            profile=False, cold=False):
+    """One AV kernel against its plain version (2e-5; int8 V over its
+    codes' range, out / 127, the raw error recorded), launched twice
+    (``torch.equal``) and, with ``dense`` (``chai_av``'s output on the
+    same logical V at ts == page), ``torch.equal`` to it; the yardstick
+    timed beside it. ``profile``: single-call and profiled device times,
+    the yardstick's device time; ``cold``: the device time with the L2
+    flushed before every call. Returns (its record, its output)."""
+    got = call()
+    torch.cuda.synchronize()
+    want = plain()
+    raw = _max_err(got, want)
+    err = (_hold(got / AV_RANGE, want / AV_RANGE) if int8
+           else _hold(got, want))
+    _bitwise(f"{name} launched twice", call(), got)
+    rec = dict(max_abs_err=err, raw_max_abs_err=raw, repeat_bitwise=True)
+    if int8:
+        rec["held"] = f"out / {AV_RANGE:g}"
+    if dense is not None:
+        _bitwise(f"{name} against chai_av at ts = page", got, dense)
+        rec["bitwise_equal_dense"] = True
+    rec.update(ms=time_ms(call), plain_ms=time_ms(plain), bound_ms=bound[0],
+               bound_by=bound[1], library_ms=None)
+    if yard is not None:
+        rec.update(yardstick=YARDSTICK, yardstick_ms=time_ms(yard))
+    if profile:
+        rec.update(single_call_ms=single_call_ms(call),
+                   device_ms=device_ms(call, PIPE_FUNCS[name]))
+        if yard is not None:
+            rec["yardstick_device_ms"] = library_device_ms(yard)
+    if cold:
+        rec["cold_device_ms"] = cold_device_ms(call, PIPE_FUNCS[name])
+    return rec, got
+
+
+def _log_av(name, rec):
+    held = f", held {rec['held']}" if "held" in rec else ""
+    log(f"{name} {rec['case']}: max_abs_err {rec['max_abs_err']:.3e} (raw "
+        f"{rec['raw_max_abs_err']:.3e}{held}); device {rec.get('device_ms')} "
+        f"ms, L2 cold {rec.get('cold_device_ms')} ms, back to back "
+        f"{rec['ms']:.4f} ms, "
+        f"single call {rec.get('single_call_ms')}; bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); plain "
+        f"{rec['plain_ms']:.4f} ms; yardstick {rec.get('yardstick_ms')} ms "
+        f"(device {rec.get('yardstick_device_ms')})"
+        + ("; paged == dense bitwise" if rec.get("bitwise_equal_dense")
+           else ""))
+
+
 def null_past_pos(bt, pos):
     """Block tables as the engine holds them: entries past a row's last
     live page name the null page 0."""
@@ -2329,18 +2428,21 @@ def null_past_pos(bt, pos):
 
 
 def pipeline_stage_cases(tag, q, k, v, h2c, pos, *, rpg, window=0,
-                         pages=None, h2c_flat=None,
+                         pages=None, h2c_flat=None, int8_v=False,
                          mask_row=True, profile=False):
     """The six pipeline kernels on one decode input, each against its
     plain version. ``k``/``v``: dense (B, KV, S, hd) / (B, H, S, hd), and
     with ``pages`` = (k_pool, bt_k, v_pool, bt_v) holding the same logical
-    K/V the paged kernels run on the pools too (paged QK bitwise equal to
-    dense QK); the int8 QK on K from ``quant_rows``. ``mask_row``: a
-    second softmax launch with row 1's scores masked everywhere, which
-    must give zeros. ``h2c_flat`` ((H,)): the AV kernels once more with a
-    batch-shared h2c. ``profile``: single-call and profiled device times
-    too. Returns {kernel: [records]}."""
-    out = {n: [] for n in PIPE_KERNELS}
+    K/V the paged kernels run on the pools too (paged QK and paged AV
+    bitwise equal to the dense kernels); the int8 QK on K from
+    ``quant_rows``. ``mask_row``: a second softmax launch with row 1's
+    scores masked everywhere, which must give zeros. ``h2c_flat`` ((H,)):
+    the AV kernels once more with a batch-shared h2c. ``int8_v``: the AV
+    kernels once more on V's raw int8 codes (``AV_CODES``; rows
+    ``*_av[int8]``). Every AV launch is repeated (bitwise) and timed
+    beside the yardstick. ``profile``: single-call, profiled and L2-cold
+    device times too. Returns {row: [records]}."""
+    out = {n: [] for n in PIPE_KERNELS + AV_ROWS[2:]}
     s = k.shape[2]
 
     def add(name, rec, **extra):
@@ -2384,14 +2486,19 @@ def pipeline_stage_cases(tag, q, k, v, h2c, pos, *, rpg, window=0,
             raise AssertionError("row_softmax: a fully masked row is not "
                                  "zeros")
         add("row_softmax", rec, masked_row=1)
-    for idx, label in ((h2c, "h2c_BH"), (h2c_flat, "h2c_H")):
-        if idx is None:
-            continue
-        rec, _ = pipe_case(
-            "chai_av", lambda: ck.chai_av(a, v, idx, ts=PAGE),
-            lambda: kref.chai_av_ref(a, v, idx), av_bound(a, v, idx),
-            profile=profile and label == "h2c_BH")
-        add("chai_av", rec, h2c=label)
+    v8 = chai_cache.plain_int8(v.float() * AV_CODES) if int8_v else None
+    dense_av = {}
+    for vv, row in ((v, "chai_av"), (v8, "chai_av[int8]")):
+        for idx, label in ((h2c, "h2c_BH"), (h2c_flat, "h2c_H")):
+            if idx is None or vv is None:
+                continue
+            first = profile and label == "h2c_BH"
+            rec, dense_av[vv.dtype, label] = av_case(
+                "chai_av", lambda: ck.chai_av(a, vv, idx, ts=PAGE),
+                lambda: kref.chai_av_ref(a, vv, idx), av_bound(a, vv, idx),
+                int8=vv.dtype == torch.int8, yard=av_yardstick(a, vv, idx),
+                profile=first, cold=first)
+            add(row, rec, h2c=label, v_dtype=str(vv.dtype))
     if pages is None:
         return out
     k_pool, bt_k, v_pool, bt_v = pages
@@ -2406,16 +2513,24 @@ def pipeline_stage_cases(tag, q, k, v, h2c, pos, *, rpg, window=0,
                              "same logical K")
     add("paged_chai_qk", rec, k_pool=list(k_pool.shape),
         bitwise_equal_dense=True)
-    for idx, label in ((h2c, "h2c_BH"), (h2c_flat, "h2c_H")):
-        if idx is None:
-            continue
-        rec, _ = pipe_case(
-            "paged_chai_av",
-            lambda: ck.paged_chai_av(a, v_pool, bt_v, idx),
-            lambda: kref.paged_chai_av_ref(a, v_pool, bt_v, idx),
-            av_bound(a, v_pool, idx, tables=(bt_v,)),
-            profile=profile and label == "h2c_BH")
-        add("paged_chai_av", rec, v_pool=list(v_pool.shape), h2c=label)
+    v_pool8 = (chai_cache.plain_int8(v_pool.float() * AV_CODES) if int8_v
+               else None)
+    for pool, vv, row in ((v_pool, v, "paged_chai_av"),
+                          (v_pool8, v8, "paged_chai_av[int8]")):
+        for idx, label in ((h2c, "h2c_BH"), (h2c_flat, "h2c_H")):
+            if idx is None or pool is None:
+                continue
+            first = profile and label == "h2c_BH"
+            rec, _ = av_case(
+                "paged_chai_av",
+                lambda: ck.paged_chai_av(a, pool, bt_v, idx),
+                lambda: kref.paged_chai_av_ref(a, pool, bt_v, idx),
+                av_bound(a, pool, idx, tables=(bt_v,)),
+                int8=pool.dtype == torch.int8,
+                dense=dense_av[pool.dtype, label],
+                yard=av_yardstick(a, vv, idx), profile=first, cold=first)
+            add(row, rec, v_pool=list(pool.shape), h2c=label,
+                v_dtype=str(pool.dtype))
     return out
 
 
@@ -2426,10 +2541,12 @@ def pipeline_kernel_checks():
     of 5 reps of 6 heads, nemotron-4-15b's r_max, bf16); int8 K from the
     port's ``quant_rows``; row 0 at pos 2; shuffled pages with the null
     page 0 past each row's pos; row 1's scores masked everywhere before
-    the softmax; h2c (B, H) and (H,)."""
+    the softmax; h2c (B, H) and (H,); the AV pair also on V's raw int8
+    codes (all but the windowed case), then at S = 65,536
+    (``long_av_checks``)."""
     gen = torch.Generator("cuda").manual_seed(6)
     k_max = get_config(ARCH).k_max
-    cases = {n: [] for n in PIPE_KERNELS}
+    cases = {n: [] for n in PIPE_KERNELS + AV_ROWS[2:]}
     for tag, kw, window in (
             ("mha_fp32", dict(b=4, h=32, kv=k_max, rpg=1,
                               dtype=torch.float32, empty_rep=7), 0),
@@ -2451,10 +2568,53 @@ def pipeline_kernel_checks():
         got = pipeline_stage_cases(tag, q, k, v, h2c, pos, rpg=kw["rpg"],
                                    window=window, pages=pages,
                                    h2c_flat=h2c[2] if tag == "mha_fp32"
-                                   else None)
-        for name in PIPE_KERNELS:
+                                   else None, int8_v=not window)
+        for name in got:
             cases[name] += got[name]
+    for name, got in long_av_checks().items():
+        cases[name] += got
     return cases
+
+
+def long_av_checks():
+    """chai_av and paged_chai_av at S = 65,536, B = 1, H = 32, hd 128
+    (chai-llama-7b's heads over k_max = 25 A rows), bf16 V and its raw
+    int8 codes: each against its plain version, launched twice, paged ==
+    dense bitwise at ts = page, device times (V alone is 537 MB in bf16,
+    268 MB in int8: L2 cold by size) beside the bound and the yardstick.
+    Returns {row: [records]}."""
+    gen = torch.Generator("cuda").manual_seed(24)
+    b, h, r, s, hd = 1, 32, get_config(ARCH).k_max, 65536, 128
+    a = torch.softmax(2 * torch.randn(b, r, s, generator=gen, device="cuda"),
+                      -1)
+    h2c = torch.randint(0, r, (b, h), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    v = torch.randn(b, h, s, hd, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    out = {n: [] for n in AV_ROWS}
+    for vv, mode in ((v, ""), (None, "[int8]")):
+        if vv is None:
+            vv = chai_cache.plain_int8(v.float() * AV_CODES)
+        int8 = vv.dtype == torch.int8
+        pool, bt = to_pages(gen, vv, n_extra=1)
+        rec, dense = av_case(
+            "chai_av", lambda: ck.chai_av(a, vv, h2c, ts=PAGE),
+            lambda: kref.chai_av_ref(a, vv, h2c), av_bound(a, vv, h2c),
+            int8=int8, yard=av_yardstick(a, vv, h2c), profile=True)
+        prec, _ = av_case(
+            "paged_chai_av", lambda: ck.paged_chai_av(a, pool, bt, h2c),
+            lambda: kref.paged_chai_av_ref(a, pool, bt, h2c),
+            av_bound(a, pool, h2c, tables=(bt,)), int8=int8, dense=dense,
+            yard=av_yardstick(a, vv, h2c), profile=True)
+        for name, rc in (("chai_av", rec), ("paged_chai_av", prec)):
+            rc = dict(case=f"long_s65536{mode}", a=list(a.shape),
+                      v=list(vv.shape), v_dtype=str(vv.dtype), **rc)
+            rc["cold_device_ms"] = rc["device_ms"]   # cold by size
+            out[name + mode].append(rc)
+            _log_av(name + mode, rc)
+        del pool, dense
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------- phase 3: the flash decode pair ----
@@ -4489,7 +4649,8 @@ def share_continuous(cfg_s, params, konly, label):
     (``_check_share_kv_bytes`` against ``konly``, the K-only run's
     summaries); tok/s, TTFT and step ms beside the K-only run's; both
     fused kernels held on the first all-STEADY step's layer-0 tensors.
-    Returns ({path: launches}, {kernel: case}, the KV-bytes record)."""
+    Returns ({path: launches}, {kernel: case}, the KV-bytes record, the
+    dense run's capture of that step)."""
     runs, launches, kv = {}, {}, None
     for layout in ("paged", "dense"):
         name = f"{label}_{layout}"
@@ -4540,7 +4701,7 @@ def share_continuous(cfg_s, params, konly, label):
             and pc["v_pool"].shape[1] == dc["v"].shape[1] == cfg_s.k_max):
         raise AssertionError(f"{label}: the captured calls are not in the "
                              "share mode")
-    return launches, first_steady_cases(label, pc, dc), kv
+    return launches, first_steady_cases(label, pc, dc), kv, dc
 
 
 def share_path(cfg, params, konly, konly8):
@@ -4551,7 +4712,8 @@ def share_path(cfg, params, konly, konly8):
     paged then dense, bf16 (``konly``: phase 6's summaries) and int8
     (``konly8``: phase 11's); phase 8's prefix traffic, relay off then on,
     bf16 and int8. Returns ({path: launches}, {row: (main case, path,
-    cases)} for the three ``[share]`` rows' path cases)."""
+    cases)} for the three ``[share]`` rows' path cases, the int8 dense
+    run's capture of its first all-STEADY step (phase 10's share lane))."""
     cfg_s = cfg.with_chai(share_values=True)
     cap = _Capture()
     chai_core.kops = cap
@@ -4595,11 +4757,11 @@ def share_path(cfg, params, konly, konly8):
         f"bytes {kc:,} against K-only CHAI {kk:,} ({kc / kk:.4f})")
     del eng
     launches = {"share_cohort": cohort}
-    cont, cont_cases, kv = share_continuous(cfg_s, params, konly,
+    cont, cont_cases, kv, _ = share_continuous(cfg_s, params, konly,
                                             "share_continuous")
     cfg_s8 = cfg_s.replace(kv_cache_dtype="int8")
-    cont8, cont8_cases, kv8 = share_continuous(cfg_s8, params, konly8,
-                                               "share_int8_continuous")
+    cont8, cont8_cases, kv8, cap8 = share_continuous(
+        cfg_s8, params, konly8, "share_int8_continuous")
     pre, relay_main, emit_main, prefix_main = prefix_path(
         cfg_s, params, tag="share_prefix")
     pre8, relay8, emit8, prefix8 = prefix_path(cfg_s8, params,
@@ -4619,7 +4781,7 @@ def share_path(cfg, params, konly, konly8):
              cont8_cases["paged_chai_fused_decode"], emit_main, emit8]),
         "relay_prefix_decode": (relay_main, "share_prefix_relay",
                                 [relay_main, relay8])}
-    return launches, mains
+    return launches, mains, cap8
 
 
 # ----------------------------------------------------------- phase 10 ----
@@ -4642,9 +4804,14 @@ def reference_lane_input(seed=0):
 
 def lane_calls(kind, t, rpg, int8):
     """(pipeline call, fused call, the fused kernel's name) on one lane
-    input. int8 K (the port's ``quant_rows`` of the input's K): the
-    pipeline runs ``chai_qk_i8``; the fused CUDA kernel does not take int8
-    yet, so the fused side is its plain version on the card."""
+    input. A share_values capture (phase 12, int8: K codes with their
+    scales, the clustered V's raw codes) runs both sides on its own
+    tensors and scales: the pipeline's AV on int8 codes, the fused
+    kernel's share mode. Otherwise int8 K (the port's ``quant_rows`` of
+    the input's K) with float V: the pipeline runs ``chai_qk_i8``; the
+    fused CUDA kernel refuses int8 K beside float V (a mode the Pallas
+    kernel accepts and no path of the reference reaches), so the fused
+    side is its plain version on the card."""
     if kind == "paged":
         args = (t["q"], t["k_pool"], t["bt_k"], t["v_pool"], t["bt_v"],
                 t["h2c"], t["pos"])
@@ -4655,6 +4822,13 @@ def lane_calls(kind, t, rpg, int8):
                 "paged_chai_fused_decode")
     ts = t["kw"]["ts"]
     args = (t["q"], t["k"], t["v"], t["h2c"], t["pos"])
+    if t["kw"].get("share_values"):
+        kw = dict(k_scale=t["kw"].get("k_scale"),
+                  v_scale=t["kw"].get("v_scale"), share_values=True,
+                  reps_per_group=rpg, ts=ts)
+        return (lambda: kops.chai_three_kernel_decode(*args, **kw),
+                lambda: ck.chai_fused_decode(*args, **kw),
+                "chai_fused_decode")
     if not int8:
         return (lambda: kops.chai_three_kernel_decode(
                     *args, reps_per_group=rpg, ts=ts),
@@ -4722,6 +4896,7 @@ def pipeline_lane(inputs):
         for name in lane:
             lane[name] += n_pipe[name] + n_fused[name]
         err = _hold(out_p, out_f, dict(atol=1e-4, rtol=1e-4))
+        share = bool(t["kw"].get("share_values"))
         b, r, hd = t["q"].shape
         h = t["h2c"].shape[-1]
         if kind == "paged":
@@ -4736,6 +4911,7 @@ def pipeline_lane(inputs):
                                "av_kernel")}
         rec = dict(
             case=label, kind=kind, q=list(t["q"].shape), rpg=rpg, int8=int8,
+            share_values=share,
             dtype=str((t["k_pool"] if kind == "paged" else t["k"]).dtype),
             pos=t["pos"].tolist(),
             launches_pipeline={k: v for k, v in n_pipe.items() if v},
@@ -4751,9 +4927,11 @@ def pipeline_lane(inputs):
                              if fused_name else None),
             hbm_bytes_estimate={
                 "pipeline": kops.decode_hbm_bytes_estimate(
-                    b, h, r, s, hd, cache_bytes=cache, fused=False),
+                    b, h, r, s, hd, cache_bytes=cache, share_values=share,
+                    fused=False),
                 "fused": kops.decode_hbm_bytes_estimate(
-                    b, h, r, s, hd, cache_bytes=cache, fused=True)})
+                    b, h, r, s, hd, cache_bytes=cache, share_values=share,
+                    fused=True)})
         if fused_name:
             h2c = t["h2c"]
             if h2c.ndim == 1:
@@ -4762,7 +4940,7 @@ def pipeline_lane(inputs):
                   else (t["k"], t["v"]))
             tables = (t["bt_k"], t["bt_v"]) if kind == "paged" else ()
             bound, _ = fused_decode_bound(t["q"], *kv, h2c, t["pos"], rpg,
-                                          tables=tables)
+                                          tables=tables, share=share)
             rec.update(fused_bound_ms=bound)
             if rec["fused_device_ms"]:
                 rec.update(
@@ -4791,6 +4969,40 @@ def pipeline_lane(inputs):
             f"{rec['fused_device_ms']}; HBM bytes estimate "
             f"{rec['hbm_bytes_estimate']}")
     return lane, records
+
+
+def share_int8_av_cases(t):
+    """The AV pair on the share_values int8 lane's input (phase 12's int8
+    dense run, first all-STEADY step, layer 0), as the pipeline driver
+    runs it: A from ``chai_qk_i8`` and ``row_softmax`` over the captured
+    K codes and scales, V the captured clustered codes (R rows, no
+    scales), h2c the identity (AV per rep row). ``chai_av`` at ts = PAGE
+    and ``paged_chai_av`` on pages holding the same V, each against its
+    plain version (over the codes' range), twice and paged == dense
+    bitwise, with profiled, single-call and L2-cold device times. Returns
+    {kernel: case}."""
+    q, k, v, pos = t["q"], t["k"], t["v"], t["pos"]
+    a = ck.row_softmax(ck.chai_qk_i8(q, k, t["kw"]["k_scale"], pos,
+                                     ts=PAGE))
+    idx = torch.arange(a.shape[1], dtype=torch.int32, device=a.device)
+    pool, bt = to_pages(torch.Generator("cuda").manual_seed(12), v)
+    extra = dict(a=list(a.shape), v=list(v.shape), v_dtype=str(v.dtype),
+                 pos=pos.tolist())
+    rec, dense = av_case(
+        "chai_av", lambda: ck.chai_av(a, v, idx, ts=PAGE),
+        lambda: kref.chai_av_ref(a, v, idx), av_bound(a, v, idx), int8=True,
+        profile=True, cold=True)
+    prec, _ = av_case(
+        "paged_chai_av", lambda: ck.paged_chai_av(a, pool, bt, idx),
+        lambda: kref.paged_chai_av_ref(a, pool, bt, idx),
+        av_bound(a, pool, idx, tables=(bt,)), int8=True, dense=dense,
+        profile=True, cold=True)
+    out = {}
+    for name, r in (("chai_av", rec), ("paged_chai_av", prec)):
+        out[name] = dict(case="share_int8_dense_first_steady_layer0",
+                         **extra, **r)
+        _log_av(f"{name}[int8]", out[name])
+    return out
 
 
 # ----------------------------------------------------------- phase 13 ----
@@ -5332,8 +5544,8 @@ def main():
     i8_prefix_launches, i8_relay, i8_emit, i8_prefix = prefix_path(
         cfg8, params, tag="int8_prefix")
     # Phase 12: share_values (CHAI-QKV), bf16 and int8.
-    share_launches, share_mains = share_path(cfg, params, cont_summary,
-                                             i8_summary)
+    share_launches, share_mains, share8_cap = share_path(
+        cfg, params, cont_summary, i8_summary)
     # The engines of phases 5-8 sit in reference cycles (their wrapped
     # hooks); collect them so chai-llama-7b's weights are really freed.
     del params
@@ -5366,6 +5578,13 @@ def main():
          False),
         ("nemotron_paged_first_steady_layer0", "paged", nemo_pc, r_max,
          False)])
+    # The share_values int8 lane on its own run: the pipeline's AV reads
+    # raw int8 codes (``chai_av[int8]``), the fused kernel's share + int8
+    # mode beside it.
+    lane8_launches, _ = pipeline_lane([
+        ("share_int8_dense_first_steady_layer0", "dense", share8_cap, 1,
+         True)])
+    av8_mains = share_int8_av_cases(share8_cap)
     # The six pipeline kernels at the continuous main path's shapes (its
     # first all-STEADY step, layer 0) and at nemotron's.
     k, v = densified(cont_cap)
@@ -5411,7 +5630,8 @@ def main():
                **i8_prefix_launches, **n8_launches, **share_launches,
                **g_launches, **d_launches, **sp_launches, **g8_launches,
                **sp8_launches, **d8_launches,
-               "pipeline_lane": lane_launches}
+               "pipeline_lane": lane_launches,
+               "pipeline_lane_share_int8": lane8_launches}
     mains = {"chai_fused_decode": (
                  dense_main, "cohort",
                  dense_cases + emit_cases["chai_fused_decode"]
@@ -5448,6 +5668,16 @@ def main():
         mains[name] = (pipe_mains[name][0], "pipeline_lane",
                        pipe_cases[name] + pipe_mains[name]
                        + nemo_stage[name])
+    # The AV pair's int8 V: chai_av on the share_values int8 lane; the
+    # paged pipeline has no int8 K stage, so no path reaches paged_chai_av
+    # on int8 codes (its launches by mode over every run must be 0).
+    mains["chai_av[int8]"] = (av8_mains["chai_av"],
+                              "pipeline_lane_share_int8",
+                              pipe_cases["chai_av[int8]"]
+                              + [av8_mains["chai_av"]])
+    mains["paged_chai_av[int8]"] = (av8_mains["paged_chai_av"], None,
+                                    pipe_cases["paged_chai_av[int8]"]
+                                    + [av8_mains["paged_chai_av"]])
     # The int8 modes: one row each, on its int8 serving path (phase 11).
     int8_mains = {
         "chai_fused_decode": (
@@ -5540,7 +5770,8 @@ def main():
                                  "in the runs of this process, though no "
                                  "path of the reference reaches the mode")
     for row in rows:
-        if row["name"] in REWRITTEN or "[" in row["name"]:
+        if (row["name"] in REWRITTEN + AV_ROWS[:2]
+                or "[" in row["name"]):
             log(f"{row['name']} (main path {row['launches']} launches): "
                 f"device {row['device_ms']} ms, back to back "
                 f"{row['ms']:.4f} ms, single call "

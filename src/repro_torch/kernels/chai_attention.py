@@ -51,13 +51,16 @@ fused kernels' baseline): ``chai_qk``, ``chai_qk_i8`` and
 (B, R, S) fp32, exactly NEG_INF where masked); ``row_softmax`` launches
 ``csrc/row_softmax.cu``; ``chai_av`` and ``paged_chai_av`` launch
 ``csrc/chai_av.cu`` (head h reads A row h2c[b, h] and its own V rows,
-summed over every position). ``kernels.ops.chai_three_kernel_decode``
-and ``paged_chai_three_kernel_decode`` drive them.
+fp32, bf16 or int8 codes read as values, summed over every position;
+each (b, h) cut into the splits of ``av_launch_config`` and merged in
+order inside the launch). ``kernels.ops.chai_three_kernel_decode`` and
+``paged_chai_three_kernel_decode`` drive them.
 
 ``LAUNCHES`` counts each kernel's launches, one per successful launch,
 so a run can show that its main path went through the kernel;
-``MODE_LAUNCHES`` counts the same launches of the fused pair, the relay
-and the prefill pair by the modes each ran (``count_launch``).
+``MODE_LAUNCHES`` counts the same launches of the fused pair, the relay,
+the prefill pair and the AV pair by the modes each ran
+(``count_launch``).
 """
 from __future__ import annotations
 
@@ -75,8 +78,10 @@ LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0,
 MODE_LAUNCHES: dict = {}
 _MODES = ("int8", "share", "softcap", "window")
 
-# K/V element types of the fused pair and the relay kernel (the launchers'
-# kv_type); the pipeline's kernels take the two float types only.
+# K/V element types of the launchers' kv_type: the fused pair, the relay
+# kernel and the AV pair take all three (the AV pair's int8 V is raw codes,
+# read as values); the QK kernels take the float types (``_FLOAT_KV``) and
+# ``chai_qk_i8`` int8 K.
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _FLOAT_KV = (torch.float32, torch.bfloat16)
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
@@ -386,6 +391,18 @@ def _outputs(b, r_total, h_total, hd, dev, emit_state, acc_rows):
 _COUNTERS: dict = {}
 
 
+def _unit_counter(units, dev, stream):
+    """The (device, stream)'s ticket counters, at least ``units`` of
+    them (a larger set is allocated, zeroed, when the kept one is
+    short)."""
+    key = (dev.index, stream)
+    counter = _COUNTERS.get(key)
+    if counter is None or counter.numel() < units:
+        counter = torch.zeros(units, dtype=torch.int32, device=dev)
+        _COUNTERS[key] = counter
+    return counter
+
+
 def split_scratch(n_split, b, r_total, h_total, hd, units, dev, stream, *,
                   one_split=False):
     """(mp, lp, accp, counter) of a split launch: the partial m and l
@@ -399,11 +416,7 @@ def split_scratch(n_split, b, r_total, h_total, hd, units, dev, stream, *,
     order, and each leaves them at zero)."""
     if n_split == 1 and not one_split:
         return None, None, None, None
-    key = (dev.index, stream)
-    counter = _COUNTERS.get(key)
-    if counter is None or counter.numel() < units:
-        counter = torch.zeros(units, dtype=torch.int32, device=dev)
-        _COUNTERS[key] = counter
+    counter = _unit_counter(units, dev, stream)
     ns = n_split
     buf = torch.empty(b * ns * (h_total * hd + 2 * r_total),
                       dtype=torch.float32, device=dev)
@@ -705,10 +718,10 @@ def _qk_inputs(name, q_rep, k, pos, reps_per_group, dtypes, s):
             torch.empty((b, r_total, s), dtype=torch.float32, device=dev))
 
 
-def _launched(name, err):
+def _launched(name, err, **modes):
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name, **modes)
 
 
 def chai_qk(q_rep, k_cache, pos, *, reps_per_group=1, window=0, ts=512):
@@ -813,6 +826,48 @@ def row_softmax(scores):
     return out
 
 
+class AvLaunch(NamedTuple):
+    """How a ``chai_av`` / ``paged_chai_av`` call is cut: each (b, h)
+    unit's S into ``n_split`` ranges of ``tiles_per_split`` whole tiles
+    (the last may be shorter), ``vec`` V elements a thread loads at once,
+    and the fp32 ``scratch_floats`` of the split partials (0 when not
+    split). The kernel cuts a row wider than 128 loads into column
+    groups itself."""
+    n_split: int
+    tiles_per_split: int
+    vec: int
+    scratch_floats: int
+
+
+def av_launch_config(b: int, h: int, n_tiles: int, hd: int,
+                     elem_bytes: int) -> AvLaunch:
+    """The launch of one AV call on ``b`` batch rows of ``h`` heads,
+    ``n_tiles`` tiles of S each (dense: S / ts; paged: the pages) and
+    rows of ``hd`` elements of ``elem_bytes``: ``split_plan`` over the
+    b * h units (at least one split), so the dense and the paged call at
+    equal shapes cut alike, and the widest load of 16, 8, 4 or 2 bytes
+    whose element count divides hd (at least two elements: hd is even).
+    It reads no layout and no ``pos``."""
+    n_split, per = split_plan(b, h, n_tiles)
+    n_split = max(n_split, 1)
+    vec = 16 // elem_bytes
+    while vec > 2 and hd % vec:
+        vec //= 2
+    return AvLaunch(n_split, per, vec,
+                    b * h * n_split * hd if n_split > 1 else 0)
+
+
+def av_scratch(cfg: AvLaunch, units: int, dev, stream):
+    """(partials, counter) of an AV launch: ``cfg.scratch_floats`` fp32
+    in one ``torch.empty`` (the kernel reads no slot it has not written)
+    and the (device, stream)'s ticket counters, ``units`` of them; both
+    None when the call is not split."""
+    if cfg.n_split == 1:
+        return None, None
+    return (torch.empty(cfg.scratch_floats, dtype=torch.float32, device=dev),
+            _unit_counter(units, dev, stream))
+
+
 def _av_inputs(name, a, v, h2c, h):
     """Checks shared by the AV wrappers; returns (b, R, a fp32, h2c as a
     (B, H) int32 tensor, the (B, H, hd) output)."""
@@ -822,8 +877,9 @@ def _av_inputs(name, a, v, h2c, h):
     if a.dtype != torch.float32 or a.ndim != 3:
         raise TypeError(f"{name}: A must be (B, R, S) fp32; got "
                         f"{tuple(a.shape)} {a.dtype}")
-    if v.dtype not in _FLOAT_KV:
-        raise TypeError(f"{name}: V must be fp32 or bf16; got {v.dtype}")
+    if v.dtype not in _KV_DTYPES:
+        raise TypeError(f"{name}: V must be fp32, bf16 or int8 codes; got "
+                        f"{v.dtype}")
     b, r_total = a.shape[:2]
     if h2c.ndim == 1:
         h2c = h2c.expand(b, h2c.shape[0])
@@ -831,7 +887,9 @@ def _av_inputs(name, a, v, h2c, h):
         raise ValueError(f"{name}: h2c {tuple(h2c.shape)} for (B, H) = "
                          f"({b}, {h})")
     hd = v.shape[3]
-    _check_rows(name, v, hd)
+    if hd % 2:
+        raise ValueError(f"{name}: head_dim {hd} must be even (loads of at "
+                         "least two elements)")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=a.device)
     return b, r_total, a.contiguous(), _small(h2c, a.device), out
 
@@ -840,11 +898,14 @@ def chai_av(a, v_cache, h2c, *, ts=512):
     """Broadcast-and-accumulate over a dense V cache, on the GPU.
 
     a: (B, R, S) fp32 normalized clustered scores; v_cache: (B, H, S, hd)
-    fp32 or bf16, one V row per head; h2c: (B, H) or (H,), head -> A row.
-    Returns (B, H, hd) fp32: out[b, h] = sum over every s of
-    a[b, h2c[b, h], s] * v[b, h, s] (no pos cut: A is zero past pos
-    because the softmax made it so). ``ts`` must divide S, as in the
-    Pallas wrapper. ONE launch."""
+    fp32 or bf16, or int8 codes read as their values (no scale: the
+    share_values pipeline's clustered V), one V row per head; h2c: (B, H)
+    or (H,), head -> A row. Returns (B, H, hd) fp32: out[b, h] = sum over
+    every s of a[b, h2c[b, h], s] * v[b, h, s] (no pos cut: A is zero
+    past pos because the softmax made it so). ``ts`` must divide S, as in
+    the Pallas wrapper; it is the tile of the split plan
+    (``av_launch_config``), so at ts == page this call and
+    ``paged_chai_av`` are bitwise equal. ONE launch."""
     v = v_cache.contiguous()
     b_v, h, s, hd = v.shape
     _tile_check("chai_av", ts, s)
@@ -852,21 +913,27 @@ def chai_av(a, v_cache, h2c, *, ts=512):
     if b_v != b or af.shape[2] != s:
         raise ValueError(f"chai_av: A {tuple(a.shape)} against V "
                          f"{tuple(v.shape)}")
-    fn = _launcher("chai_av", 4, 6)
+    ts = fused_tile_size(ts, s)
+    cfg = av_launch_config(b, h, s // ts, hd, v.element_size())
+    if v.data_ptr() % (cfg.vec * v.element_size()):
+        v = v.clone()               # a fresh allocation is aligned
+    fn = _launcher("chai_av", 6, 10)
     with torch.cuda.device(af.device):
         stream = torch.cuda.current_stream(af.device).cuda_stream
+        scratch, counter = av_scratch(cfg, b * h, af.device, stream)
         err = fn(af.data_ptr(), v.data_ptr(), h2c_i.data_ptr(),
-                 out.data_ptr(), b, r_total, h, s, hd, _KV_DTYPES[v.dtype],
-                 stream)
-    _launched("chai_av", err)
+                 out.data_ptr(), _ptr(scratch), _ptr(counter), b, r_total,
+                 h, s, hd, ts, cfg.n_split, cfg.tiles_per_split, cfg.vec,
+                 _KV_DTYPES[v.dtype], stream)
+    _launched("chai_av", err, int8=v.dtype == torch.int8)
     return out
 
 
 def paged_chai_av(a, v_pool, bt_v, h2c):
-    """``chai_av`` over a V page pool (nP, H, page, hd), fp32 or bf16,
-    read in place through bt_v (B, P): head h's position s is row s %
-    page of page bt_v[b, s // page]. a: (B, R, P * page). Returns (B, H,
-    hd) fp32. ONE launch."""
+    """``chai_av`` over a V page pool (nP, H, page, hd), fp32, bf16 or
+    int8 codes, read in place through bt_v (B, P): head h's position s is
+    row s % page of page bt_v[b, s // page]; the tile is the page. a: (B,
+    R, P * page). Returns (B, H, hd) fp32. ONE launch."""
     if not v_pool.is_contiguous():
         raise ValueError("paged_chai_av: v_pool must be contiguous (pools "
                          "are read in place, never copied)")
@@ -878,12 +945,21 @@ def paged_chai_av(a, v_pool, bt_v, h2c):
                          f"{tuple(bt_v.shape)})")
     b, r_total, af, h2c_i, out = _av_inputs("paged_chai_av", a, v_pool, h2c,
                                             h)
+    hd = v_pool.shape[3]
+    cfg = av_launch_config(b, h, n_pages, hd, v_pool.element_size())
+    if v_pool.data_ptr() % (cfg.vec * v_pool.element_size()):
+        raise ValueError(f"paged_chai_av: v_pool must be aligned to "
+                         f"{cfg.vec * v_pool.element_size()} bytes (its "
+                         "loads; pools are read in place, never copied)")
     bt_i = _small(bt_v, af.device)
-    fn = _launcher("paged_chai_av", 5, 7)
+    fn = _launcher("paged_chai_av", 7, 10)
     with torch.cuda.device(af.device):
         stream = torch.cuda.current_stream(af.device).cuda_stream
+        scratch, counter = av_scratch(cfg, b * h, af.device, stream)
         err = fn(af.data_ptr(), v_pool.data_ptr(), bt_i.data_ptr(),
-                 h2c_i.data_ptr(), out.data_ptr(), b, r_total, h, n_pages,
-                 page, v_pool.shape[3], _KV_DTYPES[v_pool.dtype], stream)
-    _launched("paged_chai_av", err)
+                 h2c_i.data_ptr(), out.data_ptr(), _ptr(scratch),
+                 _ptr(counter), b, r_total, h, n_pages, page, hd,
+                 cfg.n_split, cfg.tiles_per_split, cfg.vec,
+                 _KV_DTYPES[v_pool.dtype], stream)
+    _launched("paged_chai_av", err, int8=v_pool.dtype == torch.int8)
     return out

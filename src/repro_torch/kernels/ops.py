@@ -239,8 +239,9 @@ def chai_three_kernel_decode(q_rep, k_cache, v_cache, h2c, pos, *,
     (B, H, hd) fp32.
 
     ``k_scale`` (int8 K): the QK stage is ``chai_qk_i8``. ``v_scale``:
-    int8 V is dequantized outside the kernels (the pipeline's AV kernels
-    have no int8 mode; the fused decode kernels read int8 V themselves).
+    int8 V is dequantized outside the kernels, as the reference does; int8
+    V without scales (the share_values clustered V's raw codes) goes to
+    the AV kernel as it is, its codes read as values.
     ``share_values``: AV per rep row (identity h2c), then a gather of the
     member heads. GQA (V rows a divisor of H): the per-group V is
     expanded to per-head rows by a copy before AV."""

@@ -6,16 +6,20 @@ kernel in interpret mode, on the same numpy inputs: raw scores of
 ``chai_qk_ref`` / ``chai_qk_i8_ref`` / ``paged_chai_qk_ref`` at atol =
 rtol = 1e-5 with the masked entries exactly ``NEG_INF`` (-2e38) in both,
 ``row_softmax_ref`` (a fully masked row gives zeros), ``chai_av_ref`` /
-``paged_chai_av_ref`` (h2c (B, H) and (H,)) at 2e-5; MHA, GQA, window,
-int8 and paged (shuffled pages, null page 0 in the tables past pos).
+``paged_chai_av_ref`` (h2c (B, H) and (H,); fp32, bf16 and int8 V codes
+read as values) at 2e-5; MHA, GQA, window, int8 and paged (shuffled
+pages, null page 0 in the tables past pos). The AV kernels' split plan
+(``av_launch_config``: every tile once and in order, dense == paged,
+its scratch, its load width) and their split-and-merge in torch against
+the Pallas ``chai_av``.
 
 Driver level: ``ops.chai_three_kernel_decode`` and
 ``ops.paged_chai_three_kernel_decode`` against the reference's
 ``ref.chai_three_kernel_decode`` / ``paged_chai_three_kernel_decode``
 (k_scale, v_scale, share_values, GQA, window) at 2e-5; the lane's three
 estimators equal to the reference's; ``quant_rows`` / ``dequant_rows``
-bit-equal to the reference's; the CUDA wrappers refuse CPU tensors and
-the Pallas wrappers' shape assertions.
+bit-equal to the reference's; the CUDA wrappers refuse CPU tensors (the
+AV pair's int8 V too) and keep the Pallas wrappers' shape assertions.
 """
 import numpy as np
 import pytest
@@ -200,6 +204,125 @@ def test_paged_chai_av_ref_matches_pallas(rng, shared_h2c):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _codes(rng, shape, kind):
+    """int8 V codes to +-127: the share_values clustered V's scale-less
+    codes (``plain_int8`` of values up to 160, saturated) or
+    ``quant_rows`` codes of normal rows."""
+    x = _t(_normal(rng, shape) * 60)
+    if kind == "plain":
+        return tcache.plain_int8(x).numpy()
+    return tcache.quant_rows(x)[0].numpy()
+
+
+@pytest.mark.parametrize("shared_h2c", [False, True],
+                         ids=["h2c_BH", "h2c_H"])
+@pytest.mark.parametrize("kind", ["plain", "quant"])
+def test_chai_av_ref_matches_pallas_int8_codes(rng, kind, shared_h2c):
+    """int8 V read as its values, with no scale (the Pallas body's cast),
+    under softmax-normalized A rows; at 2e-5, the rtol term carrying the
+    codes' range."""
+    b, h, r, s, hd, ts = 2, 8, 3, 32, 16, 8
+    a = np.asarray(tref.row_softmax_ref(_t(_normal(rng, (b, r, s)) * 2)))
+    v = _codes(rng, (b, h, s, hd), kind)
+    assert np.abs(v).max() >= 120
+    h2c = rng.integers(0, r, size=(h,) if shared_h2c else (b, h))
+    h2c = h2c.astype(np.int32)
+    want = jck.chai_av(_j(a), _j(v), _j(h2c), ts=ts, interpret=True)
+    got = tref.chai_av_ref(_t(a), _t(v), _t(h2c))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("shared_h2c", [False, True],
+                         ids=["h2c_BH", "h2c_H"])
+def test_paged_chai_av_ref_matches_pallas_int8_codes(rng, shared_h2c):
+    """The paged AV over an int8 pool of raw codes, the null page 0 past
+    pos in the tables and A nonzero there (no pos cut)."""
+    b, h, r, n_pages, page, hd = 2, 8, 3, 4, 8, 16
+    n_pool = b * n_pages + 1
+    a = np.asarray(tref.row_softmax_ref(
+        _t(_normal(rng, (b, r, n_pages * page)))))
+    v_pool = _codes(rng, (n_pool, h, page, hd), "plain")
+    bt_v = _tables(rng, b, n_pages, n_pool, [2 * page, n_pages * page - 1],
+                   page)
+    h2c = rng.integers(0, r, size=(h,) if shared_h2c else (b, h))
+    h2c = h2c.astype(np.int32)
+    want = jck.paged_chai_av(_j(a), _j(v_pool), _j(bt_v), _j(h2c),
+                             interpret=True)
+    got = tref.paged_chai_av_ref(_t(a), _t(v_pool), _t(bt_v), _t(h2c))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ------------------------------------------------------ AV split plan ----
+def _av_split_sum(a, v, h2c, ts, cfg):
+    """The AV kernels' algorithm in torch: each split's partial row over
+    its whole tiles of ts positions, the partials added in split order."""
+    out = 0
+    for t0, t1 in tck.split_ranges(a.shape[0], v.shape[1], v.shape[2] // ts):
+        sl = slice(t0 * ts, t1 * ts)
+        out = out + tref.chai_av_ref(a[:, :, sl], v[:, :, sl], h2c)
+    assert len(tck.split_ranges(a.shape[0], v.shape[1],
+                                v.shape[2] // ts)) == cfg.n_split
+    return out
+
+
+@pytest.mark.parametrize("b,h,n_tiles,hd,elem", [
+    (4, 32, 64, 128, 2),           # phase 3 / layer 0: S 1024 at page 16
+    (1, 32, 4096, 128, 2),         # S = 65,536
+    (4, 32, 64, 128, 1),           # int8 codes
+    (2, 8, 3, 16, 4),              # fewer tiles than one split's minimum
+    (4, 600, 10, 80, 4),           # more units than the target: one split
+])
+def test_av_launch_config_covers_tiles_once_in_order(b, h, n_tiles, hd,
+                                                     elem):
+    """Tiles [0, n_tiles) once and in order; the dense call (S / ts
+    tiles) and the paged call (the pages) at equal shapes get one plan;
+    the scratch is what ``av_scratch`` allocates (on ``meta``)."""
+    cfg = tck.av_launch_config(b, h, n_tiles, hd, elem)
+    s = n_tiles * 16                       # dense: S / ts at ts == page
+    assert cfg == tck.av_launch_config(
+        b, h, s // tck.fused_tile_size(16, s), hd, elem)
+    ranges = tck.split_ranges(b, h, n_tiles)
+    assert len(ranges) == cfg.n_split
+    covered = [t for t0, t1 in ranges for t in range(t0, t1)]
+    assert covered == list(range(n_tiles))
+    assert all(t1 - t0 == cfg.tiles_per_split for t0, t1 in ranges[:-1])
+    assert cfg.vec * elem == 16
+    scratch, counter = tck.av_scratch(cfg, b * h, torch.device("meta"), -1)
+    if cfg.n_split == 1:
+        assert scratch is None and counter is None and not cfg.scratch_floats
+    else:
+        assert (scratch.numel() == cfg.scratch_floats
+                == b * h * cfg.n_split * hd)
+        assert counter.numel() >= b * h
+    if (b, h, n_tiles) == (4, 32, 64):
+        assert b * h * cfg.n_split >= 4 * 132
+
+
+@pytest.mark.parametrize("hd,elem,vec", [
+    (128, 4, 4), (80, 2, 8), (224, 1, 16), (18, 4, 2), (18, 1, 2),
+    (12, 1, 4), (20, 2, 4), (1100, 4, 4)])
+def test_av_launch_config_load_width(hd, elem, vec):
+    """The widest load of 16, 8, 4 or 2 bytes whose element count divides
+    the row, at least two elements."""
+    assert tck.av_launch_config(2, 4, 8, hd, elem).vec == vec
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_av_split_algorithm_matches_pallas(rng, dtype):
+    """The kernels' split-and-merge over ``av_launch_config``'s plan,
+    in torch, against the Pallas ``chai_av`` (interpret mode) at 2e-5."""
+    b, h, r, s, hd, ts = 1, 4, 2, 256, 16, 8
+    cfg = tck.av_launch_config(b, h, s // ts, hd, 1 if dtype == "int8" else 4)
+    assert cfg.n_split > 1
+    a = np.asarray(tref.row_softmax_ref(_t(_normal(rng, (b, r, s)))))
+    v = (_codes(rng, (b, h, s, hd), "plain") if dtype == "int8"
+         else _normal(rng, (b, h, s, hd)))
+    h2c = rng.integers(0, r, size=(b, h)).astype(np.int32)
+    want = jck.chai_av(_j(a), _j(v), _j(h2c), ts=ts, interpret=True)
+    got = _av_split_sum(_t(a), _t(v), _t(h2c), ts, cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 # --------------------------------------------------------- drivers -------
 def _dense_case(rng, *, mode, int8, b=2, s=64, hd=16):
     """One decode problem per mode (MHA, MHA + share_values, GQA), the
@@ -332,7 +455,9 @@ def test_cuda_wrappers_refuse_cpu_tensors(rng):
         lambda: tck.paged_chai_qk(q, pool, bt, pos),
         lambda: tck.row_softmax(a),
         lambda: tck.chai_av(a, k, h2c, ts=8),
-        lambda: tck.paged_chai_av(a, pool, bt, h2c)]
+        lambda: tck.paged_chai_av(a, pool, bt, h2c),
+        lambda: tck.chai_av(a, k.to(torch.int8), h2c, ts=8),
+        lambda: tck.paged_chai_av(a, pool.to(torch.int8), bt, h2c)]
     before = dict(tck.LAUNCHES)
     for call in calls:
         with pytest.raises(ValueError, match="CUDA kernel"):
