@@ -150,9 +150,12 @@ result line):
    path in phase 13, an ``[int8+softcap]`` row for each of them on
    phase 14's paths, and the rows of the prefill pair's and the relay's
    modes: ``flash_prefill[softcap]``, ``paged_prefix_attend[softcap]``
-   and ``[int8+softcap]`` on gemma2's suffix prefill, and
-   ``flash_prefill[window]`` and ``relay_prefix_decode[softcap]``, which
-   no path of the reference reaches: their launches are counted by mode
+   and ``[int8+softcap]`` on gemma2's suffix prefill, the AV pair's raw
+   int8 V (``chai_av[int8]`` on phase 10's share int8 lane), and
+   ``flash_prefill[window]``, ``relay_prefix_decode[softcap]``,
+   ``paged_chai_av[int8]`` and the QK pair's raw int8 K
+   (``chai_qk[int8]``, ``paged_chai_qk[int8]``), which no path of the
+   reference reaches: their launches are counted by mode
    (``kernels.chai_attention.MODE_LAUNCHES``) over every run of the
    process and must be 0), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
@@ -221,12 +224,15 @@ Phase 3 also holds the six pipeline kernels (``chai_qk``, ``chai_qk_i8``,
 the full-width shapes: fp32 and bf16, MHA and GQA, a window, a row at
 pos 2, shuffled pages with the null page 0 past pos, int8 K from the
 port's ``quant_rows``, masked scores ``torch.equal`` to -2e38 and a fully
-masked row's softmax all zeros; the AV pair also on V's raw int8 codes
-(held over their range of 127), each AV launch twice bitwise, paged ==
-dense ``torch.equal`` at ts = page, a yardstick (``torch.gather`` +
-``torch.matmul``, two calls) timed beside it, and both AV kernels at S =
-65,536 (B 1, bf16 and int8); phase 4 also runs reduced nemotron (2 KV
-groups of 6 heads, head_dim 8) cuda against cpu.
+masked row's softmax all zeros; the QK pair also on K's raw int8 codes
+and the AV pair on V's (held over their range of 127), each QK and AV
+launch twice bitwise, paged == dense ``torch.equal`` at ts = page, a
+yardstick timed beside it (QK: the K rows gathered + ``torch.matmul`` +
+``masked_fill``; AV: ``torch.gather`` + ``torch.matmul``), the three QK
+kernels at S = 65,536 (B 1, 25 reps, bf16, int8 with scales and raw
+int8 codes) and both AV kernels there (bf16 and int8), ``row_softmax``
+and ``torch.softmax`` timed in turns on the device; phase 4 also runs
+reduced nemotron (2 KV groups of 6 heads, head_dim 8) cuda against cpu.
 
 Phase 3 also holds ``relay_prefix_decode`` on synthetic groups (G = 2,
 4 and 3 members of 25 reps, plen 200 and 256, bf16 and fp32; GQA maps
@@ -277,6 +283,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2299,43 +2306,51 @@ def av_bound(a, v, h2c, *, tables=()):
 
 
 def pipe_case(name, call, plain, bound, *, library=None, profile=False):
-    """One pipeline kernel against its plain version (2e-5; a QK kernel's
-    masked entries ``torch.equal`` to -2e38 where the plain version has
-    them, and nowhere else); returns (its record, the kernel's output).
-    ``profile``: also its single-call and profiled device times."""
+    """``row_softmax`` against its plain version (2e-5), timed beside the
+    library call (``torch.softmax``); returns (its record, the kernel's
+    output). ``profile``: also its single-call and profiled device times,
+    and the kernel's and the library's device times taken in turns in
+    this process (kernel, library, three times each:
+    ``device_ms_in_turns``)."""
     got = call()
     torch.cuda.synchronize()
     want = plain()
-    err = _hold(got, want)
-    if name in ("chai_qk", "chai_qk_i8", "paged_chai_qk"):
-        masked = want == kref.NEG_INF
-        if not torch.equal(got == kref.NEG_INF, masked):
-            raise AssertionError(f"{name}: masked entries differ from the "
-                                 "plain version's")
-        n_masked = int(masked.sum())
-    rec = dict(max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain),
-               bound_ms=bound[0], bound_by=bound[1],
+    rec = dict(max_abs_err=_hold(got, want), ms=time_ms(call),
+               plain_ms=time_ms(plain), bound_ms=bound[0],
+               bound_by=bound[1],
                library_ms=time_ms(library) if library else None)
     if library and profile:
         rec["library_device_ms"] = library_device_ms(library)
-    if name in ("chai_qk", "chai_qk_i8", "paged_chai_qk"):
-        rec["masked_entries"] = n_masked
+        turns = [(device_ms(call, PIPE_FUNCS[name]),
+                  library_device_ms(library)) for _ in range(3)]
+        rec["device_ms_in_turns"] = dict(
+            kernel=[k for k, _ in turns], library=[x for _, x in turns])
     if profile:
         rec["single_call_ms"] = single_call_ms(call)
         rec["device_ms"] = device_ms(call, PIPE_FUNCS[name])
     return rec, got
 
 
-# The AV pair's int8 V: raw codes to +-127 (``plain_int8`` of V x 40,
-# the share_values clustered V's cast, saturated), held over the codes'
-# range: out / 127 at 2e-5, the raw error recorded beside it.
-AV_CODES = 40.0
-AV_RANGE = 127.0
+# The pipeline's raw int8 codes, the QK pair's K and the AV pair's V:
+# ``plain_int8`` of the float tensor x 40 (the share_values clustered
+# V's cast, saturated at +-127), held over the codes' range: out / 127
+# at 2e-5, the raw error recorded beside it.
+CODE_SCALE = 40.0
+CODE_RANGE = 127.0
+QK_KERNELS = ("chai_qk", "chai_qk_i8", "paged_chai_qk")
+QK_ROWS = ("chai_qk[int8]", "paged_chai_qk[int8]")
 AV_ROWS = ("chai_av", "paged_chai_av", "chai_av[int8]", "paged_chai_av[int8]")
-YARDSTICK = ("torch.gather of the A rows the heads name (A cast to V's "
-             "dtype beforehand) + torch.matmul over V: two calls, never on "
-             "the path; not a library call of the function (none computes "
-             "the h2c gather)")
+YARDSTICK = {
+    "qk": ("index_select of the K rows the reps read (a pool first "
+           "gathered through its table) + torch.matmul with the queries in "
+           "K's dtype (bf16 for int8 codes) + the row scales and 1/sqrt(hd) "
+           "+ masked_fill: five calls, never on the path; not a library "
+           "call of the function (none takes the rep -> K row map and the "
+           "-2e38 mask)"),
+    "av": ("torch.gather of the A rows the heads name (A cast to V's "
+           "dtype beforehand) + torch.matmul over V: two calls, never on "
+           "the path; not a library call of the function (none computes "
+           "the h2c gather)")}
 _FLUSH = {}
 
 
@@ -2356,9 +2371,39 @@ def cold_device_ms(fn, kernel):
     return device_ms(lambda: (l2_flush(), fn()), kernel)
 
 
+def qk_yardstick(q, k, pos, *, reps_per_group=1, window=0, k_scale=None,
+                 bt=None):
+    """The QK yardstick (``YARDSTICK["qk"]``) on these inputs: K dense
+    (B, KV, S, hd), or a pool (nP, KV, page, hd) read through ``bt``."""
+    b, r, hd = q.shape
+    rows = torch.arange(r, device=q.device) // reps_per_group
+    dt = torch.bfloat16 if k.dtype == torch.int8 else k.dtype
+    qd = q.to(dt)[..., None]
+    s = k.shape[2] if bt is None else bt.shape[1] * k.shape[2]
+    idx = torch.arange(s, device=q.device)
+    p = pos.long()[:, None]
+    mask = idx[None] > p
+    if window:
+        mask |= p - idx[None] >= window
+    mask = mask[:, None, :]
+    ks = None if k_scale is None else k_scale.index_select(1, rows)
+    scale = 1.0 / math.sqrt(hd)
+
+    def call():
+        if bt is None:
+            kr = k.index_select(1, rows)
+        else:
+            kr = k[bt.long()].index_select(2, rows).movedim(1, 2).reshape(
+                b, r, s, hd)
+        sc = torch.matmul(kr.to(dt), qd)[..., 0].float()
+        sc = (sc * ks if ks is not None else sc) * scale
+        return sc.masked_fill_(mask, kref.NEG_INF)
+    return call
+
+
 def av_yardstick(a, v, h2c):
-    """The AV yardstick (``YARDSTICK``) on these inputs, or None for int8
-    V (no float matmul reads int8 codes)."""
+    """The AV yardstick (``YARDSTICK["av"]``) on these inputs, or None for
+    int8 V (no float matmul reads int8 codes)."""
     if v.dtype == torch.int8:
         return None
     b, h = v.shape[:2]
@@ -2368,32 +2413,43 @@ def av_yardstick(a, v, h2c):
     return lambda: torch.matmul(torch.gather(a_v, 1, idx)[:, :, None, :], v)
 
 
-def av_case(name, call, plain, bound, *, int8=False, dense=None, yard=None,
-            profile=False, cold=False):
-    """One AV kernel against its plain version (2e-5; int8 V over its
-    codes' range, out / 127, the raw error recorded), launched twice
-    (``torch.equal``) and, with ``dense`` (``chai_av``'s output on the
-    same logical V at ts == page), ``torch.equal`` to it; the yardstick
-    timed beside it. ``profile``: single-call and profiled device times,
-    the yardstick's device time; ``cold``: the device time with the L2
+def stage_case(name, call, plain, bound, *, codes=False, dense=None,
+               yard=None, profile=False, cold=False):
+    """One QK or AV kernel against its plain version (2e-5; raw int8
+    codes over their range, out / 127, the raw error recorded; a QK
+    kernel's masked entries ``torch.equal`` to -2e38 where the plain
+    version has them and nowhere else), launched twice (``torch.equal``)
+    and, with ``dense`` (the dense kernel's output on the same logical
+    K or V at ts == page), ``torch.equal`` to it; the yardstick timed
+    beside it. ``profile``: single-call and profiled device times, the
+    yardstick's device time; ``cold``: the device time with the L2
     flushed before every call. Returns (its record, its output)."""
     got = call()
     torch.cuda.synchronize()
     want = plain()
+    rec = {}
+    if name in QK_KERNELS:
+        masked = want == kref.NEG_INF
+        if not torch.equal(got == kref.NEG_INF, masked):
+            raise AssertionError(f"{name}: masked entries differ from the "
+                                 "plain version's")
+        rec["masked_entries"] = int(masked.sum())
     raw = _max_err(got, want)
-    err = (_hold(got / AV_RANGE, want / AV_RANGE) if int8
+    err = (_hold(got / CODE_RANGE, want / CODE_RANGE) if codes
            else _hold(got, want))
     _bitwise(f"{name} launched twice", call(), got)
-    rec = dict(max_abs_err=err, raw_max_abs_err=raw, repeat_bitwise=True)
-    if int8:
-        rec["held"] = f"out / {AV_RANGE:g}"
+    rec.update(max_abs_err=err, raw_max_abs_err=raw, repeat_bitwise=True)
+    if codes:
+        rec["held"] = f"out / {CODE_RANGE:g}"
     if dense is not None:
-        _bitwise(f"{name} against chai_av at ts = page", got, dense)
+        _bitwise(f"{name} against the dense kernel at ts = page", got,
+                 dense)
         rec["bitwise_equal_dense"] = True
     rec.update(ms=time_ms(call), plain_ms=time_ms(plain), bound_ms=bound[0],
                bound_by=bound[1], library_ms=None)
     if yard is not None:
-        rec.update(yardstick=YARDSTICK, yardstick_ms=time_ms(yard))
+        rec.update(yardstick=YARDSTICK["qk" if name in QK_KERNELS else "av"],
+                   yardstick_ms=time_ms(yard))
     if profile:
         rec.update(single_call_ms=single_call_ms(call),
                    device_ms=device_ms(call, PIPE_FUNCS[name]))
@@ -2404,7 +2460,7 @@ def av_case(name, call, plain, bound, *, int8=False, dense=None, yard=None,
     return rec, got
 
 
-def _log_av(name, rec):
+def _log_stage(name, rec):
     held = f", held {rec['held']}" if "held" in rec else ""
     log(f"{name} {rec['case']}: max_abs_err {rec['max_abs_err']:.3e} (raw "
         f"{rec['raw_max_abs_err']:.3e}{held}); device {rec.get('device_ms')} "
@@ -2434,15 +2490,16 @@ def pipeline_stage_cases(tag, q, k, v, h2c, pos, *, rpg, window=0,
     plain version. ``k``/``v``: dense (B, KV, S, hd) / (B, H, S, hd), and
     with ``pages`` = (k_pool, bt_k, v_pool, bt_v) holding the same logical
     K/V the paged kernels run on the pools too (paged QK and paged AV
-    bitwise equal to the dense kernels); the int8 QK on K from
-    ``quant_rows``. ``mask_row``: a second softmax launch with row 1's
-    scores masked everywhere, which must give zeros. ``h2c_flat`` ((H,)):
-    the AV kernels once more with a batch-shared h2c. ``int8_v``: the AV
-    kernels once more on V's raw int8 codes (``AV_CODES``; rows
-    ``*_av[int8]``). Every AV launch is repeated (bitwise) and timed
-    beside the yardstick. ``profile``: single-call, profiled and L2-cold
-    device times too. Returns {row: [records]}."""
-    out = {n: [] for n in PIPE_KERNELS + AV_ROWS[2:]}
+    bitwise equal to the dense kernels); ``chai_qk_i8`` on K from
+    ``quant_rows``, and ``chai_qk`` / ``paged_chai_qk`` once more on K's
+    raw int8 codes (``CODE_SCALE``; rows ``*_qk[int8]``). ``mask_row``: a
+    second softmax launch with row 1's scores masked everywhere, which
+    must give zeros. ``h2c_flat`` ((H,)): the AV kernels once more with a
+    batch-shared h2c. ``int8_v``: the AV kernels once more on V's raw
+    int8 codes (rows ``*_av[int8]``). Every QK and AV launch is repeated
+    (bitwise) and timed beside its yardstick. ``profile``: single-call,
+    profiled and L2-cold device times too. Returns {row: [records]}."""
+    out = {n: [] for n in PIPE_KERNELS + QK_ROWS + AV_ROWS[2:]}
     s = k.shape[2]
 
     def add(name, rec, **extra):
@@ -2455,20 +2512,31 @@ def pipeline_stage_cases(tag, q, k, v, h2c, pos, *, rpg, window=0,
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
             + (f" library {rec['library_ms']:.4f} ms"
                if rec["library_ms"] is not None else "")
+            + (f" yardstick {rec['yardstick_ms']:.4f} ms"
+               if "yardstick_ms" in rec else "")
+            + (f" device {rec['device_ms']}" if "device_ms" in rec else "")
             + (f" masked {rec['masked_entries']}" if "masked_entries" in rec
                else ""))
 
     kw = dict(reps_per_group=rpg, window=window)
-    rec, sc = pipe_case(
-        "chai_qk", lambda: ck.chai_qk(q, k, pos, ts=PAGE, **kw),
-        lambda: kref.chai_qk_ref(q, k, pos, **kw),
-        qk_bound(q, k, pos, s, window=window), profile=profile)
-    add("chai_qk", rec)
+    k8 = chai_cache.plain_int8(k.float() * CODE_SCALE)
+    dense_qk = {}
+    for kk, row in ((k, "chai_qk"), (k8, "chai_qk[int8]")):
+        rec, dense_qk[kk.dtype] = stage_case(
+            "chai_qk", lambda: ck.chai_qk(q, kk, pos, ts=PAGE, **kw),
+            lambda: kref.chai_qk_ref(q, kk, pos, **kw),
+            qk_bound(q, kk, pos, s, window=window),
+            codes=kk.dtype == torch.int8, yard=qk_yardstick(q, kk, pos, **kw),
+            profile=profile, cold=profile)
+        add(row, rec, k_dtype=str(kk.dtype))
+    sc = dense_qk[k.dtype]
     kq, ks = chai_cache.quant_rows(k)
-    rec, _ = pipe_case(
+    rec, _ = stage_case(
         "chai_qk_i8", lambda: ck.chai_qk_i8(q, kq, ks, pos, ts=PAGE, **kw),
         lambda: kref.chai_qk_i8_ref(q, kq, ks, pos, **kw),
-        qk_bound(q, kq, pos, s, window=window, k_scale=ks), profile=profile)
+        qk_bound(q, kq, pos, s, window=window, k_scale=ks),
+        yard=qk_yardstick(q, kq, pos, k_scale=ks, **kw), profile=profile,
+        cold=profile)
     add("chai_qk_i8", rec)
     rec, a = pipe_case(
         "row_softmax", lambda: ck.row_softmax(sc),
@@ -2486,34 +2554,35 @@ def pipeline_stage_cases(tag, q, k, v, h2c, pos, *, rpg, window=0,
             raise AssertionError("row_softmax: a fully masked row is not "
                                  "zeros")
         add("row_softmax", rec, masked_row=1)
-    v8 = chai_cache.plain_int8(v.float() * AV_CODES) if int8_v else None
+    v8 = chai_cache.plain_int8(v.float() * CODE_SCALE) if int8_v else None
     dense_av = {}
     for vv, row in ((v, "chai_av"), (v8, "chai_av[int8]")):
         for idx, label in ((h2c, "h2c_BH"), (h2c_flat, "h2c_H")):
             if idx is None or vv is None:
                 continue
             first = profile and label == "h2c_BH"
-            rec, dense_av[vv.dtype, label] = av_case(
+            rec, dense_av[vv.dtype, label] = stage_case(
                 "chai_av", lambda: ck.chai_av(a, vv, idx, ts=PAGE),
                 lambda: kref.chai_av_ref(a, vv, idx), av_bound(a, vv, idx),
-                int8=vv.dtype == torch.int8, yard=av_yardstick(a, vv, idx),
+                codes=vv.dtype == torch.int8, yard=av_yardstick(a, vv, idx),
                 profile=first, cold=first)
             add(row, rec, h2c=label, v_dtype=str(vv.dtype))
     if pages is None:
         return out
     k_pool, bt_k, v_pool, bt_v = pages
-    rec, psc = pipe_case(
-        "paged_chai_qk",
-        lambda: ck.paged_chai_qk(q, k_pool, bt_k, pos, **kw),
-        lambda: kref.paged_chai_qk_ref(q, k_pool, bt_k, pos, **kw),
-        qk_bound(q, k_pool, pos, s, window=window, tables=(bt_k,)),
-        profile=profile)
-    if not torch.equal(psc, sc):
-        raise AssertionError("paged_chai_qk differs from chai_qk on the "
-                             "same logical K")
-    add("paged_chai_qk", rec, k_pool=list(k_pool.shape),
-        bitwise_equal_dense=True)
-    v_pool8 = (chai_cache.plain_int8(v_pool.float() * AV_CODES) if int8_v
+    for pool, row in ((k_pool, "paged_chai_qk"),
+                      (chai_cache.plain_int8(k_pool.float() * CODE_SCALE),
+                       "paged_chai_qk[int8]")):
+        rec, _ = stage_case(
+            "paged_chai_qk",
+            lambda: ck.paged_chai_qk(q, pool, bt_k, pos, **kw),
+            lambda: kref.paged_chai_qk_ref(q, pool, bt_k, pos, **kw),
+            qk_bound(q, pool, pos, s, window=window, tables=(bt_k,)),
+            codes=pool.dtype == torch.int8, dense=dense_qk[pool.dtype],
+            yard=qk_yardstick(q, pool, pos, bt=bt_k, **kw), profile=profile,
+            cold=profile)
+        add(row, rec, k_pool=list(pool.shape), k_dtype=str(pool.dtype))
+    v_pool8 = (chai_cache.plain_int8(v_pool.float() * CODE_SCALE) if int8_v
                else None)
     for pool, vv, row in ((v_pool, v, "paged_chai_av"),
                           (v_pool8, v8, "paged_chai_av[int8]")):
@@ -2521,12 +2590,12 @@ def pipeline_stage_cases(tag, q, k, v, h2c, pos, *, rpg, window=0,
             if idx is None or pool is None:
                 continue
             first = profile and label == "h2c_BH"
-            rec, _ = av_case(
+            rec, _ = stage_case(
                 "paged_chai_av",
                 lambda: ck.paged_chai_av(a, pool, bt_v, idx),
                 lambda: kref.paged_chai_av_ref(a, pool, bt_v, idx),
                 av_bound(a, pool, idx, tables=(bt_v,)),
-                int8=pool.dtype == torch.int8,
+                codes=pool.dtype == torch.int8,
                 dense=dense_av[pool.dtype, label],
                 yard=av_yardstick(a, vv, idx), profile=first, cold=first)
             add(row, rec, v_pool=list(pool.shape), h2c=label,
@@ -2539,14 +2608,16 @@ def pipeline_kernel_checks():
     shapes (B = 4, S = 1024, hd = 128): MHA (R = k_max = 25 reps of 32
     heads, fp32 and bf16, and with a window of 200) and GQA (8 KV groups
     of 5 reps of 6 heads, nemotron-4-15b's r_max, bf16); int8 K from the
-    port's ``quant_rows``; row 0 at pos 2; shuffled pages with the null
-    page 0 past each row's pos; row 1's scores masked everywhere before
-    the softmax; h2c (B, H) and (H,); the AV pair also on V's raw int8
-    codes (all but the windowed case), then at S = 65,536
-    (``long_av_checks``)."""
+    port's ``quant_rows``; the QK pair also on K's raw int8 codes; row 0
+    at pos 2; shuffled pages with the null page 0 past each row's pos;
+    row 1's scores masked everywhere before the softmax; h2c (B, H) and
+    (H,); the AV pair also on V's raw int8 codes (all but the windowed
+    case); the bf16 MHA and GQA cases with device times (profiled, single
+    call, L2 cold). Then the QK and AV pairs at S = 65,536
+    (``long_qk_checks``, ``long_av_checks``)."""
     gen = torch.Generator("cuda").manual_seed(6)
     k_max = get_config(ARCH).k_max
-    cases = {n: [] for n in PIPE_KERNELS + AV_ROWS[2:]}
+    cases = {n: [] for n in PIPE_KERNELS + QK_ROWS + AV_ROWS[2:]}
     for tag, kw, window in (
             ("mha_fp32", dict(b=4, h=32, kv=k_max, rpg=1,
                               dtype=torch.float32, empty_rep=7), 0),
@@ -2568,12 +2639,68 @@ def pipeline_kernel_checks():
         got = pipeline_stage_cases(tag, q, k, v, h2c, pos, rpg=kw["rpg"],
                                    window=window, pages=pages,
                                    h2c_flat=h2c[2] if tag == "mha_fp32"
-                                   else None, int8_v=not window)
+                                   else None, int8_v=not window,
+                                   profile=tag in ("mha_bf16", "gqa_bf16"))
         for name in got:
             cases[name] += got[name]
-    for name, got in long_av_checks().items():
-        cases[name] += got
+    for long in (long_qk_checks(), long_av_checks()):
+        for name, got in long.items():
+            cases[name] += got
     return cases
+
+
+def long_qk_checks():
+    """chai_qk, paged_chai_qk and chai_qk_i8 at S = 65,536, B = 1, R = 25
+    (chai-llama-7b's k_max reps, MHA), hd 128, pos S - 1 (every position
+    valid): bf16 K, its int8 codes with row scales (``quant_rows``;
+    ``chai_qk_i8``) and its raw int8 codes (``CODE_SCALE``; rows
+    ``*_qk[int8]``). Each against its plain version, launched twice,
+    paged == dense bitwise, device times (K is 419 MB in bf16, 210 MB in
+    int8: L2 cold by size) beside the bound and the yardstick. Returns
+    {row: [records]}."""
+    gen = torch.Generator("cuda").manual_seed(25)
+    b, r, s, hd = 1, get_config(ARCH).k_max, 65536, 128
+    q = torch.randn(b, r, hd, generator=gen, device="cuda")
+    k = torch.randn(b, r, s, hd, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
+    out = {n: [] for n in QK_KERNELS + QK_ROWS}
+
+    def add(name, rec, kk):
+        rec = dict(case="long_s65536", q=list(q.shape), k=list(kk.shape),
+                   k_dtype=str(kk.dtype), pos=pos.tolist(), **rec)
+        rec["cold_device_ms"] = rec["device_ms"]      # cold by size
+        out[name].append(rec)
+        _log_stage(name, rec)
+
+    kq, ks = chai_cache.quant_rows(k)
+    rec, _ = stage_case(
+        "chai_qk_i8", lambda: ck.chai_qk_i8(q, kq, ks, pos, ts=PAGE),
+        lambda: kref.chai_qk_i8_ref(q, kq, ks, pos),
+        qk_bound(q, kq, pos, s, k_scale=ks),
+        yard=qk_yardstick(q, kq, pos, k_scale=ks), profile=True)
+    add("chai_qk_i8", rec, kq)
+    del kq, ks
+    for kk, mode in ((k, ""), (None, "[int8]")):
+        if kk is None:
+            kk = chai_cache.plain_int8(k.float() * CODE_SCALE)
+        codes = kk.dtype == torch.int8
+        pool, bt = to_pages(gen, kk, n_extra=1)
+        rec, dense = stage_case(
+            "chai_qk", lambda: ck.chai_qk(q, kk, pos, ts=PAGE),
+            lambda: kref.chai_qk_ref(q, kk, pos), qk_bound(q, kk, pos, s),
+            codes=codes, yard=qk_yardstick(q, kk, pos), profile=True)
+        add("chai_qk" + mode, rec, kk)
+        rec, _ = stage_case(
+            "paged_chai_qk", lambda: ck.paged_chai_qk(q, pool, bt, pos),
+            lambda: kref.paged_chai_qk_ref(q, pool, bt, pos),
+            qk_bound(q, pool, pos, s, tables=(bt,)), codes=codes,
+            dense=dense, yard=qk_yardstick(q, pool, pos, bt=bt),
+            profile=True)
+        add("paged_chai_qk" + mode, rec, pool)
+        del pool, dense
+        torch.cuda.empty_cache()
+    return out
 
 
 def long_av_checks():
@@ -2594,24 +2721,24 @@ def long_av_checks():
     out = {n: [] for n in AV_ROWS}
     for vv, mode in ((v, ""), (None, "[int8]")):
         if vv is None:
-            vv = chai_cache.plain_int8(v.float() * AV_CODES)
+            vv = chai_cache.plain_int8(v.float() * CODE_SCALE)
         int8 = vv.dtype == torch.int8
         pool, bt = to_pages(gen, vv, n_extra=1)
-        rec, dense = av_case(
+        rec, dense = stage_case(
             "chai_av", lambda: ck.chai_av(a, vv, h2c, ts=PAGE),
             lambda: kref.chai_av_ref(a, vv, h2c), av_bound(a, vv, h2c),
-            int8=int8, yard=av_yardstick(a, vv, h2c), profile=True)
-        prec, _ = av_case(
+            codes=int8, yard=av_yardstick(a, vv, h2c), profile=True)
+        prec, _ = stage_case(
             "paged_chai_av", lambda: ck.paged_chai_av(a, pool, bt, h2c),
             lambda: kref.paged_chai_av_ref(a, pool, bt, h2c),
-            av_bound(a, pool, h2c, tables=(bt,)), int8=int8, dense=dense,
+            av_bound(a, pool, h2c, tables=(bt,)), codes=int8, dense=dense,
             yard=av_yardstick(a, vv, h2c), profile=True)
         for name, rc in (("chai_av", rec), ("paged_chai_av", prec)):
             rc = dict(case=f"long_s65536{mode}", a=list(a.shape),
                       v=list(vv.shape), v_dtype=str(vv.dtype), **rc)
             rc["cold_device_ms"] = rc["device_ms"]   # cold by size
             out[name + mode].append(rc)
-            _log_av(name + mode, rc)
+            _log_stage(name + mode, rc)
         del pool, dense
         torch.cuda.empty_cache()
     return out
@@ -4988,20 +5115,20 @@ def share_int8_av_cases(t):
     pool, bt = to_pages(torch.Generator("cuda").manual_seed(12), v)
     extra = dict(a=list(a.shape), v=list(v.shape), v_dtype=str(v.dtype),
                  pos=pos.tolist())
-    rec, dense = av_case(
+    rec, dense = stage_case(
         "chai_av", lambda: ck.chai_av(a, v, idx, ts=PAGE),
-        lambda: kref.chai_av_ref(a, v, idx), av_bound(a, v, idx), int8=True,
+        lambda: kref.chai_av_ref(a, v, idx), av_bound(a, v, idx), codes=True,
         profile=True, cold=True)
-    prec, _ = av_case(
+    prec, _ = stage_case(
         "paged_chai_av", lambda: ck.paged_chai_av(a, pool, bt, idx),
         lambda: kref.paged_chai_av_ref(a, pool, bt, idx),
-        av_bound(a, pool, idx, tables=(bt,)), int8=True, dense=dense,
+        av_bound(a, pool, idx, tables=(bt,)), codes=True, dense=dense,
         profile=True, cold=True)
     out = {}
     for name, r in (("chai_av", rec), ("paged_chai_av", prec)):
         out[name] = dict(case="share_int8_dense_first_steady_layer0",
                          **extra, **r)
-        _log_av(f"{name}[int8]", out[name])
+        _log_stage(f"{name}[int8]", out[name])
     return out
 
 
@@ -5598,7 +5725,7 @@ def main():
     nemo_stage = pipeline_stage_cases(
         "nemotron_paged_first_steady_layer0", nemo_pc["q"], k,
         v.repeat_interleave(qpk, 1), nemo_pc["h2c"], nemo_pc["pos"],
-        rpg=r_max, mask_row=False,
+        rpg=r_max, mask_row=False, profile=True,
         pages=(nemo_pc["k_pool"], nemo_pc["bt_k"],
                nemo_pc["v_pool"].repeat_interleave(qpk, 1), nemo_pc["bt_v"]))
     # Phase 13: local-attention rings and the softcap, gemma2-9b, then
@@ -5678,6 +5805,12 @@ def main():
     mains["paged_chai_av[int8]"] = (av8_mains["paged_chai_av"], None,
                                     pipe_cases["paged_chai_av[int8]"]
                                     + [av8_mains["paged_chai_av"]])
+    # The QK pair's raw int8 K: no path of the reference reaches it (its
+    # int8 pipeline runs chai_qk_i8 with scales), so its launches by mode
+    # over every run must be 0; the main case is the continuous capture's.
+    for name in QK_ROWS:
+        mains[name] = (pipe_mains[name][0], None,
+                       pipe_cases[name] + pipe_mains[name] + nemo_stage[name])
     # The int8 modes: one row each, on its int8 serving path (phase 11).
     int8_mains = {
         "chai_fused_decode": (
@@ -5770,7 +5903,7 @@ def main():
                                  "in the runs of this process, though no "
                                  "path of the reference reaches the mode")
     for row in rows:
-        if (row["name"] in REWRITTEN + AV_ROWS[:2]
+        if (row["name"] in REWRITTEN + QK_KERNELS + AV_ROWS[:2]
                 or "[" in row["name"]):
             log(f"{row['name']} (main path {row['launches']} launches): "
                 f"device {row['device_ms']} ms, back to back "

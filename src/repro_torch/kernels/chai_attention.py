@@ -48,7 +48,10 @@ pair.
 The three-kernel pipeline (the reference's retired decode, kept as the
 fused kernels' baseline): ``chai_qk``, ``chai_qk_i8`` and
 ``paged_chai_qk`` launch ``csrc/chai_qk.cu`` (raw masked rep scores
-(B, R, S) fp32, exactly NEG_INF where masked); ``row_softmax`` launches
+(B, R, S) fp32, exactly NEG_INF where masked; K fp32, bf16, int8 codes
+read as values, or int8 with row scales in ``chai_qk_i8``; each block a
+chunk of positions of one K row for all its reps, cut by
+``qk_launch_config``); ``row_softmax`` launches
 ``csrc/row_softmax.cu``; ``chai_av`` and ``paged_chai_av`` launch
 ``csrc/chai_av.cu`` (head h reads A row h2c[b, h] and its own V rows,
 fp32, bf16 or int8 codes read as values, summed over every position;
@@ -59,7 +62,8 @@ order inside the launch). ``kernels.ops.chai_three_kernel_decode`` and
 ``LAUNCHES`` counts each kernel's launches, one per successful launch,
 so a run can show that its main path went through the kernel;
 ``MODE_LAUNCHES`` counts the same launches of the fused pair, the relay,
-the prefill pair and the AV pair by the modes each ran
+the prefill pair and the pipeline's QK and AV pairs by the modes each
+ran
 (``count_launch``).
 """
 from __future__ import annotations
@@ -78,12 +82,11 @@ LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0,
 MODE_LAUNCHES: dict = {}
 _MODES = ("int8", "share", "softcap", "window")
 
-# K/V element types of the launchers' kv_type: the fused pair, the relay
-# kernel and the AV pair take all three (the AV pair's int8 V is raw codes,
-# read as values); the QK kernels take the float types (``_FLOAT_KV``) and
-# ``chai_qk_i8`` int8 K.
+# K/V element types of the launchers' kv_type. int8 comes with row scales
+# in the fused pair, the relay kernel and ``chai_qk_i8``; ``chai_qk``,
+# ``paged_chai_qk`` and the AV pair read int8 codes without scales as
+# their values (the Pallas bodies cast whatever K or V they are given).
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_FLOAT_KV = (torch.float32, torch.bfloat16)
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 
 # chai_decode_tiles.cuh: the block body's constants
@@ -690,18 +693,74 @@ def _tile_check(name, ts, s):
         raise ValueError(f"{name}: S={s} is not a multiple of ts={ts}")
 
 
-def _check_rows(name, x, hd):
-    """Even head dim and two-element alignment (the paired loads)."""
-    if hd % 2:
-        raise ValueError(f"{name}: head_dim {hd} must be even (paired "
-                         "loads)")
-    if x.data_ptr() % (2 * x.element_size()):
-        raise ValueError(f"{name}: K/V must be aligned to two elements")
+class QkLaunch(NamedTuple):
+    """How a QK call (``chai_qk``, ``chai_qk_i8``, ``paged_chai_qk``) is
+    cut: a block takes ``positions`` consecutive positions of one K row of
+    one batch row, for ``reps`` of the K row's reps (all of them in
+    ``slices`` blocks); ``lanes`` threads read a row, with loads of
+    ``vec`` elements, and each thread loads ``rows`` positions before it
+    adds, ``rounds`` times (positions = 128 / lanes * rows * rounds);
+    ``n_chunks`` chunks of ``positions`` cover S."""
+    positions: int
+    rows: int
+    rounds: int
+    lanes: int
+    reps: int
+    vec: int
+    slices: int
+    n_chunks: int
+
+
+# chai_qk.cu: kRows (positions a thread loads before it adds) and
+# kMaxReps (reps a block serves). The plan halves the rows a thread takes
+# while the grid holds fewer than QK_FILL_BLOCKS blocks (four a SM of the
+# H100's 132), then gives a block more rounds while the grid keeps at
+# least QK_TARGET_BLOCKS, up to QK_MAX_POSITIONS positions a block.
+QK_ROWS = 4
+QK_MAX_REPS = 8
+QK_MAX_POSITIONS = 512
+QK_FILL_BLOCKS = 4 * 132
+QK_TARGET_BLOCKS = 8 * 132
+
+
+def load_width(hd: int, elem_bytes: int) -> int:
+    """Elements of one row load: the widest load of 16, 8, 4 or 2 bytes
+    whose element count divides hd (at least two elements: hd is even)."""
+    vec = 16 // elem_bytes
+    while vec > 2 and hd % vec:
+        vec //= 2
+    return vec
+
+
+def qk_launch_config(b: int, r: int, kv: int, s: int, hd: int,
+                     elem_bytes: int) -> QkLaunch:
+    """The launch of one QK call on ``b`` batch rows of ``r`` reps over
+    ``kv`` K rows (r // kv reps a row), S = ``s`` positions and rows of
+    ``hd`` elements of ``elem_bytes``: the lanes of a row are the power
+    of two at or above its loads, at most 32 (a wider row takes further
+    passes); the reps of a K row are cut into the fewest slices of at
+    most ``QK_MAX_REPS``. It reads no layout and no ``pos``, so the dense
+    and the paged call at equal shapes cut alike."""
+    vec = load_width(hd, elem_bytes)
+    lanes = min(32, 1 << (hd // vec - 1).bit_length())
+    rpg = r // kv
+    slices = -(-rpg // QK_MAX_REPS)
+    units = b * kv * slices
+    groups = _THREADS // lanes
+    rows = min(QK_ROWS, QK_MAX_POSITIONS // groups)
+    while rows > 1 and units * -(-s // (groups * rows)) < QK_FILL_BLOCKS:
+        rows //= 2
+    per_round = groups * rows
+    rounds = max(1, min(QK_MAX_POSITIONS // per_round,
+                        units * -(-s // per_round) // QK_TARGET_BLOCKS))
+    positions = per_round * rounds
+    return QkLaunch(positions, rows, rounds, lanes,
+                    -(-rpg // slices), vec, slices, -(-s // positions))
 
 
 def _qk_inputs(name, q_rep, k, pos, reps_per_group, dtypes, s):
     """Checks shared by the QK wrappers; returns (b, R, hd, q fp32, pos
-    int32, the (B, R, S) fp32 output)."""
+    int32, the (B, R, S) fp32 output, the launch's plan)."""
     if q_rep.device.type != "cuda" or k.device != q_rep.device:
         raise ValueError(f"{name} launches a CUDA kernel; got q on "
                          f"{q_rep.device} and K on {k.device}")
@@ -712,10 +771,26 @@ def _qk_inputs(name, q_rep, k, pos, reps_per_group, dtypes, s):
         raise ValueError(f"{name}: q {tuple(q_rep.shape)} against K "
                          f"{tuple(k.shape)} with reps_per_group="
                          f"{reps_per_group}")
-    _check_rows(name, k, hd)
+    if hd % 2:
+        raise ValueError(f"{name}: head_dim {hd} must be even (loads of at "
+                         "least two elements)")
     dev = q_rep.device
+    cfg = qk_launch_config(b, r_total, k.shape[1], s, hd, k.element_size())
     return (b, r_total, hd, q_rep.float().contiguous(), _small(pos, dev),
-            torch.empty((b, r_total, s), dtype=torch.float32, device=dev))
+            torch.empty((b, r_total, s), dtype=torch.float32, device=dev),
+            cfg)
+
+
+def _qk_plan_args(cfg: QkLaunch):
+    """The launchers' plan arguments, in their order."""
+    return (cfg.vec, cfg.lanes, cfg.rows, cfg.positions, cfg.reps,
+            cfg.slices)
+
+
+def _aligned(k, cfg):
+    """``k`` itself when its address suits the plan's loads, else a copy
+    (a fresh allocation is aligned)."""
+    return k if k.data_ptr() % (cfg.vec * k.element_size()) == 0 else k.clone()
 
 
 def _launched(name, err, **modes):
@@ -728,25 +803,29 @@ def chai_qk(q_rep, k_cache, pos, *, reps_per_group=1, window=0, ts=512):
     """Raw masked clustered scores over a dense cache, on the GPU.
 
     q_rep: (B, R, hd) (any float dtype; read as fp32); k_cache: (B, KV,
-    S, hd) fp32 or bf16 with KV * reps_per_group == R (rep j reads K row
-    j // reps_per_group); pos: (B,). Returns (B, R, S) fp32:
+    S, hd) fp32 or bf16, or int8 codes read as their values (no scale,
+    the Pallas body's cast), with KV * reps_per_group == R (rep j reads K
+    row j // reps_per_group); pos: (B,). Returns (B, R, S) fp32:
     dot(q, k) * (1 / sqrt(hd)), exactly NEG_INF (-2e38) where s > pos or
     (window > 0 and pos - s >= window). ``ts`` must divide S, as in the
-    Pallas wrapper. ONE launch."""
+    Pallas wrapper; the kernel cuts S by ``qk_launch_config``. ONE
+    launch."""
     k = k_cache.contiguous()
     s = k.shape[2]
     _tile_check("chai_qk", ts, s)
-    b, r_total, hd, q, pos_i, out = _qk_inputs(
-        "chai_qk", q_rep, k, pos, reps_per_group, _FLOAT_KV, s)
+    b, r_total, hd, q, pos_i, out, cfg = _qk_inputs(
+        "chai_qk", q_rep, k, pos, reps_per_group, tuple(_KV_DTYPES), s)
     if k.shape[0] != b:
         raise ValueError(f"chai_qk: K batch {k.shape[0]} != {b}")
-    fn = _launcher("chai_qk", 4, 8)
+    k = _aligned(k, cfg)
+    fn = _launcher("chai_qk", 4, 14)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), pos_i.data_ptr(),
                  out.data_ptr(), b, r_total, k.shape[1], s, hd,
-                 reps_per_group, int(window), _KV_DTYPES[k.dtype], stream)
-    _launched("chai_qk", err)
+                 reps_per_group, int(window), _KV_DTYPES[k.dtype],
+                 *_qk_plan_args(cfg), stream)
+    _launched("chai_qk", err, int8=k.dtype == torch.int8)
     return out
 
 
@@ -759,7 +838,7 @@ def chai_qk_i8(q_rep, k_cache_i8, k_scale, pos, *, reps_per_group=1,
     k = k_cache_i8.contiguous()
     s = k.shape[2]
     _tile_check("chai_qk_i8", ts, s)
-    b, r_total, hd, q, pos_i, out = _qk_inputs(
+    b, r_total, hd, q, pos_i, out, cfg = _qk_inputs(
         "chai_qk_i8", q_rep, k, pos, reps_per_group, (torch.int8,), s)
     if k.shape[0] != b or k_scale.shape != k.shape[:3]:
         raise ValueError(f"chai_qk_i8: K {tuple(k.shape)}, k_scale "
@@ -767,40 +846,47 @@ def chai_qk_i8(q_rep, k_cache_i8, k_scale, pos, *, reps_per_group=1,
     if k_scale.dtype != torch.float32 or k_scale.device != k.device:
         raise TypeError(f"chai_qk_i8: k_scale must be fp32 on {k.device}; "
                         f"got {k_scale.dtype} on {k_scale.device}")
+    k = _aligned(k, cfg)
     ks = k_scale.contiguous()
-    fn = _launcher("chai_qk_i8", 5, 7)
+    fn = _launcher("chai_qk_i8", 5, 13)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), ks.data_ptr(), pos_i.data_ptr(),
                  out.data_ptr(), b, r_total, k.shape[1], s, hd,
-                 reps_per_group, int(window), stream)
+                 reps_per_group, int(window), *_qk_plan_args(cfg), stream)
     _launched("chai_qk_i8", err)
     return out
 
 
 def paged_chai_qk(q_rep, k_pool, bt, pos, *, reps_per_group=1, window=0):
-    """``chai_qk`` over a K page pool (nP, KV, page, hd), fp32 or bf16,
-    read in place through the block table bt (B, P): position s of row b
-    is row s % page of page bt[b, s // page]. Returns (B, R, P * page)
-    fp32. ONE launch."""
+    """``chai_qk`` over a K page pool (nP, KV, page, hd), fp32, bf16 or
+    int8 codes read as values, read in place through the block table bt
+    (B, P): position s of row b is row s % page of page bt[b, s // page].
+    Returns (B, R, P * page) fp32, bitwise equal to ``chai_qk`` on the
+    same logical K (the same plan and order). ONE launch."""
     if not k_pool.is_contiguous():
         raise ValueError("paged_chai_qk: k_pool must be contiguous (pools "
                          "are read in place, never copied)")
     n_pages, page = bt.shape[1], k_pool.shape[2]
-    b, r_total, hd, q, pos_i, out = _qk_inputs(
-        "paged_chai_qk", q_rep, k_pool, pos, reps_per_group, _FLOAT_KV,
-        n_pages * page)
+    b, r_total, hd, q, pos_i, out, cfg = _qk_inputs(
+        "paged_chai_qk", q_rep, k_pool, pos, reps_per_group,
+        tuple(_KV_DTYPES), n_pages * page)
     if bt.shape != (b, n_pages):
         raise ValueError(f"paged_chai_qk: bt {tuple(bt.shape)} for batch {b}")
+    if k_pool.data_ptr() % (cfg.vec * k_pool.element_size()):
+        raise ValueError(f"paged_chai_qk: k_pool must be aligned to "
+                         f"{cfg.vec * k_pool.element_size()} bytes (its "
+                         "loads; pools are read in place, never copied)")
     bt_i = _small(bt, q.device)
-    fn = _launcher("paged_chai_qk", 5, 9)
+    fn = _launcher("paged_chai_qk", 5, 15)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), bt_i.data_ptr(),
                  pos_i.data_ptr(), out.data_ptr(), b, r_total,
                  k_pool.shape[1], n_pages, page, hd, reps_per_group,
-                 int(window), _KV_DTYPES[k_pool.dtype], stream)
-    _launched("paged_chai_qk", err)
+                 int(window), _KV_DTYPES[k_pool.dtype], *_qk_plan_args(cfg),
+                 stream)
+    _launched("paged_chai_qk", err, int8=k_pool.dtype == torch.int8)
     return out
 
 
@@ -850,9 +936,7 @@ def av_launch_config(b: int, h: int, n_tiles: int, hd: int,
     It reads no layout and no ``pos``."""
     n_split, per = split_plan(b, h, n_tiles)
     n_split = max(n_split, 1)
-    vec = 16 // elem_bytes
-    while vec > 2 and hd % vec:
-        vec //= 2
+    vec = load_width(hd, elem_bytes)
     return AvLaunch(n_split, per, vec,
                     b * h * n_split * hd if n_split > 1 else 0)
 

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports jax, jaxlib or the reference package, and no
-entry point silently runs on the CPU."""
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and no measurement harness under ``tools/`` imports
+jax, jaxlib or the reference package, and no entry point silently runs
+on the CPU."""
 import ast
 from pathlib import Path
 
@@ -13,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "tools").glob("*.py"))
 
 
 def _imported_roots(path):
@@ -28,6 +30,7 @@ def _imported_roots(path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "chip_smoke.py" in names
+    assert "tools/qk_ab.py" in names
     for mod in ("chai_attention", "flash_attention"):
         assert f"src/repro_torch/kernels/{mod}.py" in names
     assert "src/repro_torch/configs/nemotron_4_15b.py" in names
@@ -36,6 +39,7 @@ def test_port_files_exist():
                  "chai_decode_tiles.cuh", "flash_prefill.cu",
                  "paged_prefix_attend.cu", "flash_tiles.cuh",
                  "relay_prefix_decode.cu", "chai_qk.cu", "row_softmax.cu",
+                 "row_loads.cuh",
                  "chai_av.cu", "flash_decode.cu", "paged_decode.cu",
                  "decode_tiles.cuh"):
         assert (csrc / name).exists(), name

@@ -8,7 +8,12 @@ rtol = 1e-5 with the masked entries exactly ``NEG_INF`` (-2e38) in both,
 ``row_softmax_ref`` (a fully masked row gives zeros), ``chai_av_ref`` /
 ``paged_chai_av_ref`` (h2c (B, H) and (H,); fp32, bf16 and int8 V codes
 read as values) at 2e-5; MHA, GQA, window, int8 and paged (shuffled
-pages, null page 0 in the tables past pos). The AV kernels' split plan
+pages, null page 0 in the tables past pos), and the QK pair on raw int8
+codes read as values (the Pallas bodies' cast). The QK kernels' launch
+plan (``qk_launch_config``: every (batch row, K row, position) once,
+every rep served) and their summation order in torch (per-load fma
+partials, lane sums, the shuffle tree) against the Pallas ``chai_qk`` /
+``chai_qk_i8``. The AV kernels' split plan
 (``av_launch_config``: every tile once and in order, dense == paged,
 its scratch, its load width) and their split-and-merge in torch against
 the Pallas ``chai_av``.
@@ -19,7 +24,8 @@ Driver level: ``ops.chai_three_kernel_decode`` and
 (k_scale, v_scale, share_values, GQA, window) at 2e-5; the lane's three
 estimators equal to the reference's; ``quant_rows`` / ``dequant_rows``
 bit-equal to the reference's; the CUDA wrappers refuse CPU tensors (the
-AV pair's int8 V too) and keep the Pallas wrappers' shape assertions.
+QK and AV pairs' int8 codes too) and keep the Pallas wrappers' shape
+assertions.
 """
 import numpy as np
 import pytest
@@ -53,14 +59,15 @@ def _normal(rng, shape):
     return rng.normal(size=shape).astype(np.float32)
 
 
-def _hold_scores(got, want):
+def _hold_scores(got, want, value_range=1.0):
     """Raw scores: masked entries exactly NEG_INF in both, the rest at
-    1e-5."""
+    1e-5 (over ``value_range``: raw int8 codes are held over theirs)."""
     got, want = got.numpy(), np.asarray(want)
     assert got.shape == want.shape and got.dtype == np.float32
     masked = want == np.float32(NEG_INF)
     assert np.array_equal(got == np.float32(NEG_INF), masked)
-    np.testing.assert_allclose(got[~masked], want[~masked], **SCORE_TOL)
+    np.testing.assert_allclose(got[~masked] / value_range,
+                               want[~masked] / value_range, **SCORE_TOL)
     return masked
 
 
@@ -146,6 +153,180 @@ def test_paged_chai_qk_ref_matches_pallas(rng, b, kv, rpg, n_pages, page,
     got = tref.paged_chai_qk_ref(_t(q), _t(k_pool), _t(bt), _t(pos),
                                  reps_per_group=rpg)
     _hold_scores(got, want)
+
+
+def _plain_codes(rng, shape):
+    """int8 codes to +-127, the scale-less cast (``plain_int8``) of
+    values up to ~240, saturated."""
+    codes = tcache.plain_int8(_t(_normal(rng, shape) * 60)).numpy()
+    assert np.abs(codes).max() == 127
+    return codes
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_chai_qk_ref_matches_pallas_int8_codes(rng, paged):
+    """int8 K without scales, read as its values by the Pallas QK bodies
+    (``k_ref[...].astype(float32)``); GQA with a window, the null page 0
+    past pos in the tables."""
+    b, kv, rpg, n_pages, page, hd, window = 2, 2, 3, 4, 8, 16, 20
+    q = _normal(rng, (b, kv * rpg, hd))
+    pos = np.array([page + 2, n_pages * page - 1], np.int32)
+    kw = dict(reps_per_group=rpg, window=window)
+    if paged:
+        n_pool = b * n_pages + 1
+        k_pool = _plain_codes(rng, (n_pool, kv, page, hd))
+        bt = _tables(rng, b, n_pages, n_pool, pos, page)
+        want = jck.paged_chai_qk(_j(q), _j(k_pool), _j(bt), _j(pos),
+                                 interpret=True, **kw)
+        got = tref.paged_chai_qk_ref(_t(q), _t(k_pool), _t(bt), _t(pos),
+                                     **kw)
+    else:
+        k = _plain_codes(rng, (b, kv, n_pages * page, hd))
+        want = jck.chai_qk(_j(q), _j(k), _j(pos), ts=page, interpret=True,
+                           **kw)
+        got = tref.chai_qk_ref(_t(q), _t(k), _t(pos), **kw)
+    masked = _hold_scores(got, want)
+    assert masked.any() and not masked.all()
+
+
+# ------------------------------------------------------- QK launch plan ----
+def _qk_blocks(cfg, b, kv):
+    """The kernel's blocks, as chai_qk.cu numbers them: (chunk, batch
+    row, K row, rep slice) of each block index."""
+    blk = np.arange(b * kv * cfg.slices * cfg.n_chunks)
+    chunk, unit = blk % cfg.n_chunks, blk // cfg.n_chunks
+    return (chunk, unit // cfg.slices // kv, unit // cfg.slices % kv,
+            unit % cfg.slices)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128, 224, 256])
+@pytest.mark.parametrize("elem", [4, 2, 1], ids=["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("rpg", [1, 5, 12])
+def test_qk_launch_config_covers_each_position_once(rpg, elem, hd):
+    """Every (batch row, K row, position) in one block and one thread's
+    rows, every rep of a K row in one block (at most ``QK_MAX_REPS``),
+    every element of a row in one lane's loads, for S from 16 to 65,536;
+    the dense and the paged call cut alike (the plan reads S only), and
+    the lane's layer-0 shapes and S = 65,536 give the grid at least
+    ``QK_FILL_BLOCKS`` blocks."""
+    b, kv = 3, 2
+    for s in (16, 48, 1024, 4096, 65536):
+        cfg = tck.qk_launch_config(b, kv * rpg, kv, s, hd, elem)
+        # a block's threads: group g of 128 / lanes, row u of rows, in
+        # each round
+        groups = tck._THREADS // cfg.lanes
+        per_round = groups * cfg.rows
+        assert groups * cfg.lanes == tck._THREADS
+        assert 1 <= cfg.rows <= tck.QK_ROWS and cfg.positions % 4 == 0
+        assert cfg.positions == per_round * cfg.rounds
+        assert cfg.positions <= max(tck.QK_MAX_POSITIONS, per_round)
+        offs = (np.arange(0, cfg.positions, per_round)[:, None, None]
+                + np.arange(groups)[None, :, None]
+                + groups * np.arange(cfg.rows)[None, None, :]).ravel()
+        assert np.array_equal(np.sort(offs), np.arange(cfg.positions))
+        # chunks: c0 = chunk * positions covers [0, S) once, clipped at S
+        assert (cfg.n_chunks - 1) * cfg.positions < s
+        assert cfg.n_chunks * cfg.positions >= s
+        chunk, bb, kr, z = _qk_blocks(cfg, b, kv)
+        seen = np.zeros((b, kv, cfg.slices, cfg.n_chunks), np.int64)
+        np.add.at(seen, (bb, kr, z, chunk), 1)
+        assert (seen == 1).all()
+        # reps: slice z of K row kr serves reps [z * rpg // n, (z + 1) *
+        # rpg // n), the slices partition the row's reps
+        bounds = [z_ * rpg // cfg.slices for z_ in range(cfg.slices + 1)]
+        sizes = np.diff(bounds)
+        assert bounds[-1] == rpg and (sizes >= 1).all()
+        assert sizes.max() == cfg.reps <= tck.QK_MAX_REPS
+        # a row's loads: lane l takes loads l, l + lanes, ... of hd / vec
+        assert cfg.vec >= 2 and cfg.vec * elem <= 16 and hd % cfg.vec == 0
+        cols = hd // cfg.vec
+        assert cfg.lanes & (cfg.lanes - 1) == 0 and cfg.lanes <= 32
+        assert cfg.lanes >= cols or cfg.lanes == 32
+        assert cols > cfg.lanes // 2
+        passes = -(-cols // cfg.lanes)
+        loads = (np.arange(cfg.lanes)[:, None]
+                 + cfg.lanes * np.arange(passes)[None, :]).ravel()
+        assert np.array_equal(np.sort(loads[loads < cols]), np.arange(cols))
+        assert b * kv * cfg.slices * cfg.n_chunks < 2 ** 31
+        # paged: S = P * page gives the same plan
+        assert cfg == tck.qk_launch_config(b, kv * rpg, kv, (s // 16) * 16,
+                                           hd, elem)
+    for bb_, kv_, s_ in ((4, 25, 1024), (4, 8, 1024), (1, 25, 65536)):
+        if rpg == 1 or kv_ == 8:
+            cfg = tck.qk_launch_config(bb_, kv_ * rpg, kv_, s_, hd, elem)
+            assert (bb_ * kv_ * cfg.slices * cfg.n_chunks
+                    >= tck.QK_FILL_BLOCKS)
+
+
+def _qk_body_order(q, k, pos, *, reps_per_group=1, window=0, k_scale=None):
+    """chai_qk.cu's arithmetic in torch, in its order: each load's partial
+    (a fused multiply-add chain from zero over its elements; fma taken
+    as one rounding of the float64 sum), each lane's loads added in load
+    order, then the lane group's shuffle tree (offsets lanes / 2 .. 1);
+    the row scale and 1 / sqrt(hd) after the dot, and the mask."""
+    b, r, hd = q.shape
+    s = k.shape[2]
+    cfg = tck.qk_launch_config(b, r, k.shape[1], s, hd, k.element_size())
+    cols, lanes = hd // cfg.vec, cfg.lanes
+    rows = torch.arange(r) // reps_per_group
+    prod = (k[:, rows].double() * q.double()[:, :, None, :]).reshape(
+        b, r, s, cols, cfg.vec)
+    part = torch.zeros(b, r, s, cols)
+    for e in range(cfg.vec):
+        part = (part.double() + prod[..., e]).float()
+    passes = -(-cols // lanes)
+    pieces = torch.zeros(b, r, s, passes * lanes)
+    pieces[..., :cols] = part
+    acc = torch.zeros(b, r, s, lanes)
+    for t in range(passes):
+        acc = acc + pieces[..., t * lanes:(t + 1) * lanes]
+    m = lanes // 2
+    while m:
+        acc = acc[..., :m] + acc[..., m:2 * m]
+        m //= 2
+    sc = acc[..., 0]
+    if k_scale is not None:
+        sc = sc * k_scale[:, rows]
+    sc = sc * torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32)
+    mask = tref.chai_qk_ref(q, k.float(), pos, reps_per_group=reps_per_group,
+                            window=window) == NEG_INF
+    return torch.where(mask, torch.tensor(NEG_INF), sc)
+
+
+@pytest.mark.parametrize("mode", ["mha", "gqa_window"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8_scaled",
+                                   "int8_codes"])
+def test_qk_body_order_matches_pallas(rng, dtype, mode):
+    """The QK body's summation order (``_qk_body_order``) against the
+    Pallas ``chai_qk`` (``chai_qk_i8`` with scales) in interpret mode at
+    1e-5, masked entries exactly NEG_INF: MHA at hd 80 (idle lanes in a
+    bf16 group of 16), GQA 5 reps a K row at hd 256 (two passes of fp32
+    loads) with a window; raw int8 codes held over their range."""
+    b, kv, rpg, s, hd, ts, window = ((2, 3, 1, 48, 80, 16, 0) if mode == "mha"
+                                     else (2, 2, 5, 64, 256, 16, 24))
+    q = _normal(rng, (b, kv * rpg, hd))
+    pos = np.array([5, s - 1], np.int32)
+    kw = dict(reps_per_group=rpg, window=window)
+    scale = 1.0
+    if dtype == "int8_scaled":
+        kq, ks = tcache.quant_rows(_t(_normal(rng, (b, kv, s, hd))))
+        want = jck.chai_qk_i8(_j(q), _j(kq.numpy()), _j(ks.numpy()), _j(pos),
+                              ts=ts, interpret=True, **kw)
+        got = _qk_body_order(_t(q), kq, _t(pos), k_scale=ks, **kw)
+    else:
+        if dtype == "int8_codes":
+            k_np, scale = _plain_codes(rng, (b, kv, s, hd)), 127.0
+            k_t = _t(k_np)
+        else:
+            k_j = _j(_normal(rng, (b, kv, s, hd))).astype(dtype)
+            k_np = np.array(k_j)
+            k_t = (torch.from_numpy(k_np.view(np.uint16)).view(torch.bfloat16)
+                   if dtype == "bfloat16" else _t(k_np))
+        want = jck.chai_qk(_j(q), _j(k_np) if dtype != "bfloat16" else k_j,
+                           _j(pos), ts=ts, interpret=True, **kw)
+        got = _qk_body_order(_t(q), k_t, _t(pos), **kw)
+    masked = _hold_scores(got, want, value_range=scale)
+    assert masked.any() and not masked.all()
 
 
 # -------------------------------------------------------- softmax --------
@@ -453,6 +634,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(rng):
         lambda: tck.chai_qk_i8(q, k.to(torch.int8), torch.ones(1, 2, 16),
                                pos, ts=8),
         lambda: tck.paged_chai_qk(q, pool, bt, pos),
+        lambda: tck.chai_qk(q, k.to(torch.int8), pos, ts=8),
+        lambda: tck.paged_chai_qk(q, pool.to(torch.int8), bt, pos),
         lambda: tck.row_softmax(a),
         lambda: tck.chai_av(a, k, h2c, ts=8),
         lambda: tck.paged_chai_av(a, pool, bt, h2c),
