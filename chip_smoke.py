@@ -231,8 +231,26 @@ yardstick timed beside it (QK: the K rows gathered + ``torch.matmul`` +
 ``masked_fill``; AV: ``torch.gather`` + ``torch.matmul``), the three QK
 kernels at S = 65,536 (B 1, 25 reps, bf16, int8 with scales and raw
 int8 codes) and both AV kernels there (bf16 and int8), ``row_softmax``
-and ``torch.softmax`` timed in turns on the device; phase 4 also runs
-reduced nemotron (2 KV groups of 6 heads, head_dim 8) cuda against cpu.
+and ``torch.softmax`` timed in turns on the device, and ``row_softmax``
+at S = 65,536 (one thread block cluster a row, read once) and 131,072
+(streamed, read twice), held raw and scaled by S (the mean entry is
+1 / S), a row masked everywhere giving zeros, beside
+``torch.softmax`` in turns; phase 4 also runs reduced nemotron (2 KV
+groups of 6 heads, head_dim 8) cuda against cpu.
+
+Phase 3 also holds every K/V pairing the Pallas wrappers take beyond the
+serving paths' (``kv_pairing_checks``: K and V each fp32, bf16 or int8,
+each with or without its row scales) in the fused pair (MHA, GQA, share
+and softcap cases, one of S = 65,536), the relay kernel and the prefix
+pass, against their plain versions at 2e-5 (raw int8 V over 127), paged
+== dense and launch == launch bitwise; each pairing on the general body
+(``ck.kv_body``) has its row ("<kernel>[kv=<K>/<V>]"), with 0 launches
+on every serving path (held: any launch by a "kv=" mode in a serving
+run fails the script); the fused pair's int8 K with scales beside raw
+int8 V runs the int8 body and its cases join the "[int8]" rows. Phase
+10's int8 lanes run the fused kernel on int8 K beside float V (rows
+``chai_fused_decode[kv=i8s/f32]`` and ``[kv=i8s/bf16]``, path
+``pipeline_lane``).
 
 Phase 3 also holds ``relay_prefix_decode`` on synthetic groups (G = 2,
 4 and 3 members of 25 reps, plen 200 and 256, bf16 and fp32; GQA maps
@@ -432,9 +450,11 @@ def environment():
 # ------------------------------------------------------------ phase 2 ----
 def build_kernels():
     t0 = time.time()
-    outputs = build.build_all(extra_flags=("-Xptxas", "-v"))
+    seconds = {}
+    outputs = build.build_all(extra_flags=("-Xptxas", "-v"), seconds=seconds)
     log(f"built {sorted(outputs) or 'nothing (up to date)'} in "
-        f"{time.time() - t0:.3f} s")
+        f"{time.time() - t0:.3f} s; each source's seconds, all started "
+        f"together: { {n: round(t, 1) for n, t in seconds.items()} }")
     for name, out in outputs.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -540,8 +560,14 @@ def _row_bytes(k, hd, scaled=True):
         4 if k.dtype == torch.int8 and scaled else 0)
 
 
+def _side_bytes(k, hd, scaled):
+    """Bytes of one row of a side of a K/V pairing at one position: its
+    elements, and 4 B of row scale when it has one, whatever its type."""
+    return hd * k.element_size() + (4 if scaled else 0)
+
+
 def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=(), share=False,
-                       softcap=False):
+                       softcap=False, k_scaled=None, v_scaled=None):
     """Least time for the work these inputs need: K rows of reps that
     have members and every head's V row, positions 0..pos, read once
     (``k``/``v`` give the element size and the V row count: a dense cache
@@ -551,11 +577,14 @@ def fused_decode_bound(q, k, v, h2c, pos, rpg, tables=(), share=False,
     (share_values): the V rows are the reps' (those with members, as the
     K rows), int8 V codes without scales, and AV runs once per rep.
     ``softcap``: three more fp32 operations a score (a division, a tanh
-    counted as one, a product)."""
+    counted as one, a product). ``k_scaled``/``v_scaled``: whether each
+    side has row scales (a K/V pairing; None: the int8 cache's rule)."""
     b, _, hd = q.shape
     h = h2c.shape[1]
-    row = _row_bytes(k, hd)
-    v_row = _row_bytes(v, hd, scaled=not share)
+    row = (_row_bytes(k, hd) if k_scaled is None
+           else _side_bytes(k, hd, k_scaled))
+    v_row = (_row_bytes(v, hd, scaled=not share) if v_scaled is None
+             else _side_bytes(v, hd, v_scaled))
     n_bytes = (q.numel() + h2c.numel() + pos.numel() + b * h * hd
                + sum(t.numel() for t in tables)) * 4
     flops = 0
@@ -800,18 +829,19 @@ def flash_prefill_bound(q, k, offset, emit_state, window=0, softcap=False):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def prefix_bound(q, pool, bt_k, plen, softcap=False):
+def prefix_bound(q, pool, bt_k, plen, scaled, softcap=False):
     """Least time for ``paged_prefix_attend``'s work: q, the K and V rows
-    of the positions < plen (an int8 pool's with their scales,
-    ``_row_bytes``) and the table entries of their pages read once, the
-    fp32 state written once; 4 * hd flops per (query, head, position) at
-    the queries' peak rate, and with ``softcap`` three fp32 operations a
-    score on the CUDA cores."""
+    of the positions < plen (with their scales where ``scaled``, (K's,
+    V's), says, ``_side_bytes``) and the table entries of their pages
+    read once, the fp32 state written once; 4 * hd flops per (query,
+    head, position) at the queries' peak rate, and with ``softcap`` three
+    fp32 operations a score on the CUDA cores."""
     b, t, h, hd = q.shape
     kv, page = pool.shape[1], pool.shape[2]
-    es, row = q.element_size(), _row_bytes(pool, hd)
+    es = q.element_size()
+    rows = sum(_side_bytes(pool, hd, x) for x in scaled)
     lens = [min(int(n), bt_k.shape[1] * page) for n in plen.tolist()]
-    n_bytes = (q.numel() * es + sum(2 * n * kv * row for n in lens)
+    n_bytes = (q.numel() * es + sum(n * kv * rows for n in lens)
                + sum(2 * 4 * -(-n // page) for n in lens) + 4 * b
                + (2 * b * h * t + b * h * t * hd) * 4)
     flops = sum(4 * h * hd * t * n for n in lens)
@@ -882,18 +912,27 @@ def flash_case(q, k, v, *, offset=0, emit_state=True, library=False,
     return rec
 
 
-def prefix_case(q, pool, bt_k, bt_v, plen, softcap=0.0, **scale_pools):
+def prefix_case(q, pool, bt_k, bt_v, plen, softcap=0.0, v_unit=1.0,
+                **scale_pools):
     """``paged_prefix_attend`` against its plain version (2e-5), capped at
     ``softcap`` when set; rows with plen == 0 must hold the merge
-    identity exactly (``scale_pools``: an int8 pool's k_scale_pool and
-    v_scale_pool). Returns the record."""
+    identity exactly (``scale_pools``: the pool's k_scale_pool and
+    v_scale_pool, each optional). ``v_unit``: acc held over V's range (a
+    raw int8 V side: 127), the raw error recorded beside it. Returns the
+    record."""
     if softcap:
         scale_pools = dict(scale_pools, softcap=softcap)
     got = fk.paged_prefix_attend(q, pool, bt_k, bt_v, plen, **scale_pools)
     torch.cuda.synchronize()
     want = kref.paged_prefix_attend_ref(q, pool, bt_k, bt_v, plen,
                                         **scale_pools)
-    err = _hold(got, want)
+    extra = {}
+    if v_unit != 1:
+        extra = dict(held=f"acc / {v_unit:g}", raw_max_abs_err=_max_err(
+            got, want))
+        err = _hold(*(((m, l, acc / v_unit) for m, l, acc in (got, want))))
+    else:
+        err = _hold(got, want)
     empty = plen == 0
     if empty.any():
         m, l, acc = (x[empty] for x in got)
@@ -905,12 +944,14 @@ def prefix_case(q, pool, bt_k, bt_v, plen, softcap=0.0, **scale_pools):
                                                 **scale_pools))
     plain_ms = time_ms(lambda: kref.paged_prefix_attend_ref(
         q, pool, bt_k, bt_v, plen, **scale_pools))
-    bound, by = prefix_bound(q, pool, bt_k, plen, bool(softcap))
+    bound, by = prefix_bound(q, pool, bt_k, plen, tuple(
+        scale_pools.get(f"{x}_scale_pool") is not None for x in "kv"),
+        bool(softcap))
     return dict(q=list(q.shape), pool=list(pool.shape), dtype=str(q.dtype),
                 pool_dtype=str(pool.dtype),
                 plen=plen.tolist(), identity_rows=int(empty.sum()),
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by)
+                max_abs_err=err, **extra, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
 
 
 def _log_case(name, case):
@@ -1086,16 +1127,16 @@ def emit_state_checks():
     return cases
 
 
-def relay_bound(q, k, k_row, a_row, v_row, plen, v_scaled=True,
+def relay_bound(q, k, v, k_row, a_row, v_row, plen, k_scaled, v_scaled,
                 softcap=False):
     """Least time for ``relay_prefix_decode``'s work: per group the K rows
     its query rows name and the V rows its acc rows name, positions <
     plen, read once (``kops.relay_prefix_hbm_bytes_estimate`` over the
-    distinct rows; an int8 view's rows with their fp32 scales, the V
-    rows' only when ``v_scaled``: the share_values relay reads none); q,
-    the maps and plen read and the fp32 state (m, l and acc) written once;
-    the QK and AV multiply-adds in fp32, and with ``softcap`` three fp32
-    operations a score."""
+    distinct rows, each side's with its fp32 row scales where
+    ``k_scaled`` / ``v_scaled`` say: the share_values relay's int8 V has
+    none); q, the maps and plen read and the fp32 state (m, l and acc)
+    written once; the QK and AV multiply-adds in fp32, and with
+    ``softcap`` three fp32 operations a score."""
     g, nr, hd = q.shape
     a = a_row.shape[1]
     n_bytes = (q.numel() + k_row.numel() + a_row.numel() + v_row.numel()
@@ -1103,13 +1144,12 @@ def relay_bound(q, k, k_row, a_row, v_row, plen, v_scaled=True,
     flops = 0
     for i in range(g):
         n = int(plen[i])
-        int8 = k.dtype == torch.int8
         n_bytes += kops.relay_prefix_hbm_bytes_estimate(
             len(set(k_row[i].tolist())), 0, n, hd,
-            cache_bytes=k.element_size(), int8_scales=int8)
+            cache_bytes=k.element_size(), int8_scales=k_scaled)
         n_bytes += kops.relay_prefix_hbm_bytes_estimate(
             0, len(set(v_row[i].tolist())), n, hd,
-            cache_bytes=k.element_size(), int8_scales=int8 and v_scaled)
+            cache_bytes=v.element_size(), int8_scales=v_scaled)
         flops += 2 * (nr + a) * n * hd + (3 * nr * n if softcap else 0)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
@@ -1183,8 +1223,8 @@ def relay_case(q, k, v, k_row, a_row, v_row, plen, ts, *, per_l=False,
         per_l_err = _max_err(got, want)
         got, want = ((m, l, acc / v_unit) for m, l, acc in (got, want))
     err = _hold(got, want)
-    bound, by = relay_bound(q, k, k_row, a_row, v_row, plen,
-                            v_scaled=v_scale is not None,
+    bound, by = relay_bound(q, k, v, k_row, a_row, v_row, plen,
+                            k_scale is not None, v_scale is not None,
                             softcap=bool(softcap))
     lib_smem = build.load("relay_prefix_decode").relay_smem_bytes()
     plan = relay_plan(q, k, v, k_row, a_row, v_row, ts)
@@ -1321,7 +1361,7 @@ def _bitwise(name, got, want):
 
 def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
                     k_scale=None, v_scale=None, profile=False, share=False,
-                    softcap=0.0):
+                    softcap=0.0, v_unit=1.0):
     """Both fused kernels on one input, the same K/V also on shuffled
     pool pages (rows ``null_k_rows`` with an all-null K table, as a
     WARMUP row of a mixed step): each against the plain version (2e-5),
@@ -1336,7 +1376,9 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
     as a WARMUP row's ``bt_vc``). ``softcap``: the softcap mode, and then
     also each kernel's state (emit_state) against the plain version's (m,
     l and the finalized rows), and the capped output unequal to the same
-    launch's without the cap. Returns {kernel: record}."""
+    launch's without the cap. ``v_unit``: the output held over V's range
+    (raw int8 V codes: 127), the raw error recorded beside it. Returns
+    {kernel: record}."""
     k_pool, bt_k, *ks_pool = to_pages(gen, k, scale=k_scale)
     v_pool, bt_v, *vs_pool = to_pages(gen, v, scale=v_scale)
     ks_pool, vs_pool = (x[0] if x else None for x in (ks_pool, vs_pool))
@@ -1404,10 +1446,11 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
             if torch.equal(call(cap={}), outs[name]):
                 raise AssertionError(f"{tag} {name}: the softcap changed no "
                                      "output bit")
+    general = ck.kv_body(k, k_scale, v, v_scale) == ck.KV_GENERAL
     cfg, _ = ck.dense_launch_config(q, kd, h2c, reps_per_group=rpg, ts=PAGE,
-                                    share_values=share)
+                                    share_values=share, general=general)
     lib_smem = build.load("chai_fused_decode").chai_decode_smem_bytes(
-        rpg, q.shape[2], h2c.shape[1], cfg.n_cap)
+        rpg, q.shape[2], h2c.shape[1], cfg.n_cap, int(general))
     if lib_smem != cfg.smem_bytes:
         raise AssertionError(f"{tag}: the kernel's block takes {lib_smem} B "
                              "of shared memory, the host's mirror says "
@@ -1417,16 +1460,21 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
     for name, call in calls.items():
         kk, vv, tables = ((kd, vd, ()) if name == "chai_fused_decode"
                           else (k_pool, v_pool, (bt_k, bt_v)))
-        bound, by = fused_decode_bound(q, kk, vv, h2c, pos, rpg,
-                                       tables=tables, share=share,
-                                       softcap=bool(softcap))
+        bound, by = fused_decode_bound(
+            q, kk, vv, h2c, pos, rpg, tables=tables, share=share,
+            softcap=bool(softcap), k_scaled=k_scale is not None,
+            v_scaled=v_scale is not None)
         recs[name] = dict(
             case=tag, q=list(q.shape), k=list(k.shape), v=list(v.shape),
             dtype=str(k.dtype), page=PAGE, rpg=rpg, pos=pos.tolist(),
             share_values=share, softcap=softcap,
             n_split=cfg.n_split, tiles_per_split=cfg.tiles_per_split,
             smem_bytes=cfg.smem_bytes,
-            max_abs_err=_hold(outs[name], want), ms=time_ms(call),
+            max_abs_err=_hold(outs[name] / v_unit, want / v_unit),
+            **({"held": f"out / {v_unit:g}",
+                "raw_max_abs_err": _max_err(outs[name], want)}
+               if v_unit != 1 else {}),
+            ms=time_ms(call),
             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             bitwise_equal_dense=True, repeat_bitwise=True,
             identity_merge_finalize_equal=True)
@@ -1659,6 +1707,191 @@ def int8_kernel_checks():
             f"{rec['bf16_device_ms']}), bound {rec['bound_ms']:.4f} ms (bf16 "
             f"{rec['bf16_bound_ms']:.4f}), two launches bitwise")
         del pool, spool, poolb
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------ phase 3: the K/V pairings ----
+# Each side of a K/V pairing: fp32, bf16 or raw int8 codes, each with
+# ("s") or without its fp32 row scales; the names of ``ck.kv_modes``.
+KV_SIDES = ("f32", "bf16", "i8", "f32s", "bf16s", "i8s")
+# The pairings the serving paths run, held by the checks above; every
+# other pairing counts its launches by mode as "<kernel>[kv=<K>/<V>]", but
+# int8 K with scales beside raw int8 V on the fused pair, which runs its
+# int8 body (``ck.kv_body``) and counts as "<kernel>[int8]".
+KV_PATHS = (("f32", "f32"), ("bf16", "bf16"), ("i8s", "i8s"))
+KV_PAIRS = tuple((a, b) for a in KV_SIDES for b in KV_SIDES
+                 if (a, b) not in KV_PATHS)
+# Pairings also run in the share and the softcap mode of the fused pair.
+KV_SHARE = (("bf16", "i8"), ("i8s", "bf16"), ("i8", "i8"), ("f32s", "f32"),
+            ("bf16", "bf16s"), ("f32", "i8s"))
+KV_SOFTCAP = (("i8s", "bf16"), ("bf16", "i8"), ("f32", "bf16s"))
+
+
+def kv_side(x, kind, gen):
+    """One side of a K/V pairing made from the fp32 rows ``x``: fp32 or
+    bf16 rows; raw int8 codes, ``plain_int8(x * CODE_SCALE)`` (read as
+    values); with "s", fp32 row scales beside them (``quant_rows`` codes
+    for int8; scales in [0.5, 1.5) for float rows). Returns (rows, scales
+    or None)."""
+    base, scaled = kind.rstrip("s"), kind.endswith("s")
+    if base == "i8":
+        if scaled:
+            return chai_cache.quant_rows(x)
+        return chai_cache.plain_int8(x * CODE_SCALE), None
+    rows = x.to(torch.float32 if base == "f32" else torch.bfloat16)
+    if not scaled:
+        return rows, None
+    return rows, torch.rand(x.shape[:-1], generator=gen,
+                            device=x.device) + 0.5
+
+
+def _kv_query(q, k_kind):
+    """The queries beside raw int8 K codes (x CODE_SCALE) scaled down by
+    CODE_SCALE, so that the scores keep a float K's range."""
+    return q / CODE_SCALE if k_kind == "i8" else q
+
+
+def _kv_unit(v_kind):
+    """Raw int8 V codes: outputs held over the codes' range."""
+    return CODE_RANGE if v_kind == "i8" else 1.0
+
+
+def kv_pairing_checks():
+    """Every K/V pairing the Pallas wrappers take beside the three the
+    serving paths run (``KV_PAIRS``: K and V each fp32, bf16 or int8,
+    each with or without its row scales; raw int8 K beside queries over
+    ``CODE_SCALE``, raw int8 V held over ``CODE_RANGE``), each against its
+    plain version at 2e-5 at full width (hd 128, page 16):
+
+    * the fused pair (``fused_pair_case``: shuffled pages with the null
+      page 0, paged == dense ``torch.equal`` at page = tile, two launches
+      ``torch.equal``, emit + identity merge + finalize == finalized): MHA
+      (chai-llama-7b's 32 heads over k_max = 25 reps, a WARMUP-like row;
+      profiled) and GQA (nemotron's 48 heads over 8 KV groups, 5 reps a
+      group); ``KV_SHARE`` in the share mode and ``KV_SOFTCAP`` under a
+      cap of 30; int8 K with scales beside bf16 V at S = 65,536 (B 1);
+    * ``relay_prefix_decode`` (but on int8 K with scales beside raw int8
+      V, the share relay's own pairing): MHA groups of 4 and 3 members
+      (the fourth slot of group 1 padded) at plen 200 and 256 over Sp =
+      256, launched twice ``torch.equal``; raw int8 V held over l and
+      over 127;
+    * ``paged_prefix_attend``: each pool (fp32, bf16 beside queries of its
+      type; int8 beside bf16 queries) with each of its scale pools or
+      none, rows at plen 0, 200 and 384 on shuffled pages; two launches
+      ``torch.equal``.
+    Returns {row name: [records]}, the row of each pairing's body:
+    "<kernel>[kv=<K>/<V>]" on the general body, "<kernel>[int8]" for the
+    fused pair's int8 K with scales beside raw int8 V (the int8 body)."""
+    gen = torch.Generator("cuda").manual_seed(11)
+    dev = "cuda"
+    k_max = get_config(ARCH).k_max
+    mha = dict(h=32, kv=k_max, rpg=1, hd=128, dtype=torch.float32,
+               empty_rep=7)
+    gqa = dict(h=48, kv=8, rpg=5, hd=128, dtype=torch.float32,
+               empty_rep=None)
+    out = {}
+
+    def add(kernel, pair, rec, mode=None):
+        mode = mode or f"kv={pair[0]}/{pair[1]}"
+        out.setdefault(f"{kernel}[{mode}]", []).append(rec)
+
+    def fused(pair, tag, kw, b, s, *, warm=False, profile=False, **mode):
+        q, k, v, h2c, p = synthetic_case(gen, b=b, s=s, **kw)
+        if s > MAX_SEQ:                   # a long row: every position live
+            p = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+        if warm:
+            h2c[1] = 0
+        if mode.get("share"):             # V clustered like K: R rows
+            v = torch.randn(b, k.shape[1], s, kw["hd"], generator=gen,
+                            device=dev)
+        kk, ks = kv_side(k, pair[0], gen)
+        vv, vs = kv_side(v, pair[1], gen)
+        del k, v
+        recs = fused_pair_case(
+            f"kv_{pair[0]}_{pair[1]}_{tag}", _kv_query(q, pair[0]), kk, vv,
+            h2c, p, rpg=kw["rpg"], gen=gen, null_k_rows=(1,) if warm else (),
+            k_scale=ks, v_scale=vs, profile=profile,
+            v_unit=_kv_unit(pair[1]), **mode)
+        body = ck.kv_body(kk, ks, vv, vs)
+        for name, rec in recs.items():
+            rec["pairing"] = "/".join(pair)
+            add(name, pair, rec,
+                "int8" if body == ck.KV_INT8 else None)
+        torch.cuda.empty_cache()
+
+    for pair in KV_PAIRS:
+        fused(pair, "mha", mha, 4, MAX_SEQ, warm=True, profile=True)
+        fused(pair, "nemotron_gqa", gqa, 4, MAX_SEQ)
+    for pair in KV_SHARE:
+        fused(pair, "share", mha, 4, MAX_SEQ, warm=True, share=True)
+    for pair in KV_SOFTCAP:
+        fused(pair, "softcap30", mha, 4, MAX_SEQ, softcap=30.0)
+    fused(("i8s", "bf16"), "long_65536_mha", mha, 1, 65536, profile=True)
+
+    hd, nmax, sp = 128, 4, 256
+    k_row, a_row, v_row, r, kv, vr = relay_maps(gen, (4, 3), nmax,
+                                                gqa=False)
+    plen = (200, 256)
+    plen_t = torch.tensor(plen, dtype=torch.int32, device=dev)
+    # int8 K with scales beside raw int8 V is the share relay's own
+    for pair in (p for p in KV_PAIRS if p != ("i8s", "i8")):
+        q = torch.randn(2, nmax * r, hd, generator=gen, device=dev)
+        k = torch.randn(2, kv, sp, hd, generator=gen, device=dev)
+        v = torch.randn(2, vr, sp, hd, generator=gen, device=dev)
+        for i, n in enumerate(plen):      # the engine's views: zero tail
+            k[i, :, n:] = 0
+            v[i, :, n:] = 0
+        kk, ks = kv_side(k, pair[0], gen)
+        vv, vs = kv_side(v, pair[1], gen)
+        qq, unit = _kv_query(q, pair[0]), _kv_unit(pair[1])
+        rec = dict(case=f"kv_{pair[0]}_{pair[1]}_g2_padded_slot",
+                   pairing="/".join(pair),
+                   **relay_case(qq, kk, vv, k_row, a_row, v_row, plen_t,
+                                PAGE, per_l=unit != 1, v_unit=unit,
+                                k_scale=ks, v_scale=vs))
+        rec["single_call_ms"] = single_call_ms(
+            lambda: ck.relay_prefix_decode(qq, kk, vv, k_row, a_row, v_row,
+                                           plen_t, ts=PAGE, k_scale=ks,
+                                           v_scale=vs), reps=5)
+        add("relay_prefix_decode", pair, rec)
+        _log_relay(rec)
+
+    b, h, pkv, p_slot = 3, 32, 32, MAX_SEQ // PAGE
+    n_pool = 2 * b * p_slot + 1
+    ids = (torch.randperm(n_pool - 1, generator=gen, device=dev)
+           + 1).to(torch.int32)
+    bt_k = ids[:b * p_slot].reshape(b, p_slot)
+    bt_v = ids[b * p_slot:2 * b * p_slot].reshape(b, p_slot)
+    plen_p = torch.tensor((0, 200, 384), dtype=torch.int32, device=dev)
+    for base in ("f32", "bf16", "i8"):
+        x = torch.randn(n_pool, pkv, PAGE, hd, generator=gen, device=dev)
+        q = torch.randn(b, 128, h, hd, generator=gen, device=dev)
+        for k_s, v_s in ((False, False), (True, False), (False, True),
+                         (True, True)):
+            pair = (base + "s" * k_s, base + "s" * v_s)
+            if pair in KV_PATHS:
+                continue
+            pool, spool = kv_side(x, base + ("s" if k_s or v_s else ""),
+                                  gen)
+            sc = dict(k_scale_pool=spool if k_s else None,
+                      v_scale_pool=spool if v_s else None)
+            qq = _kv_query(q, pair[0]).to(
+                torch.float32 if base == "f32" else torch.bfloat16)
+            args = (qq, pool, bt_k, bt_v, plen_p)
+            _bitwise(f"paged_prefix_attend kv {pair}: two launches",
+                     fk.paged_prefix_attend(*args, **sc),
+                     fk.paged_prefix_attend(*args, **sc))
+            rec = dict(case=f"kv_{pair[0]}_{pair[1]}_rows_0_200_384",
+                       pairing="/".join(pair),
+                       **prefix_case(*args, v_unit=_kv_unit(pair[1]), **sc),
+                       repeat_bitwise=True)
+            call = lambda a_=args, kw_=sc: fk.paged_prefix_attend(  # noqa
+                *a_, **kw_)
+            rec["device_ms"] = device_ms(call, "paged_prefix_attend_kernel")
+            rec["single_call_ms"] = single_call_ms(call)
+            add("paged_prefix_attend", pair, rec)
+            _log_case("paged_prefix_attend", rec)
         torch.cuda.empty_cache()
     return out
 
@@ -2613,8 +2846,9 @@ def pipeline_kernel_checks():
     row 1's scores masked everywhere before the softmax; h2c (B, H) and
     (H,); the AV pair also on V's raw int8 codes (all but the windowed
     case); the bf16 MHA and GQA cases with device times (profiled, single
-    call, L2 cold). Then the QK and AV pairs at S = 65,536
-    (``long_qk_checks``, ``long_av_checks``)."""
+    call, L2 cold). Then the QK and AV pairs and ``row_softmax`` at S =
+    65,536 (``long_qk_checks``, ``long_av_checks``,
+    ``long_softmax_checks``)."""
     gen = torch.Generator("cuda").manual_seed(6)
     k_max = get_config(ARCH).k_max
     cases = {n: [] for n in PIPE_KERNELS + QK_ROWS + AV_ROWS[2:]}
@@ -2643,10 +2877,53 @@ def pipeline_kernel_checks():
                                    profile=tag in ("mha_bf16", "gqa_bf16"))
         for name in got:
             cases[name] += got[name]
-    for long in (long_qk_checks(), long_av_checks()):
+    for long in (long_qk_checks(), long_av_checks(),
+                 long_softmax_checks()):
         for name, got in long.items():
             cases[name] += got
     return cases
+
+
+def long_softmax_checks():
+    """``row_softmax`` on the QK pair's long rows (B 1, 25 reps, S =
+    65,536: one cluster of 8 blocks a row, read once) and on rows twice
+    as long (S = 131,072: streamed, read twice): scores of std 2, row 1
+    masked from position 40,000 on and row 2 masked everywhere (zeros);
+    against its plain version (2e-5), and again scaled by S (y * S at
+    2e-5: the mean entry is 1 / S, below the plain tolerance, so an entry
+    the kernel got wrong would pass unscaled), launched twice
+    ``torch.equal``, its
+    device time taken in turns beside ``torch.softmax`` (three each) with
+    its bound. Returns {"row_softmax": [records]}."""
+    gen = torch.Generator("cuda").manual_seed(13)
+    recs = []
+    for tag, s in (("long_65536", 65536), ("streamed_131072", 131072)):
+        sc = 2 * torch.randn(1, 25, s, generator=gen, device="cuda")
+        sc[0, 1, 40000:] = kref.NEG_INF
+        sc[0, 2] = kref.NEG_INF
+        rec, got = pipe_case(
+            "row_softmax", lambda: ck.row_softmax(sc),
+            lambda: kref.row_softmax_ref(sc), softmax_bound(sc),
+            library=lambda: torch.softmax(sc, -1), profile=True)
+        _bitwise(f"row_softmax {tag}: two launches", ck.row_softmax(sc), got)
+        scaled_err = _hold(got * s, kref.row_softmax_ref(sc) * s)
+        if got[0, 2].any():
+            raise AssertionError(f"row_softmax {tag}: a fully masked row is "
+                                 "not zeros")
+        plan = ck.softmax_launch_config(25, s)
+        rec.update(case=tag, scores=list(sc.shape), masked_row=2,
+                   repeat_bitwise=True, plan=plan._asdict(),
+                   max_abs_err_times_s=scaled_err)
+        log(f"row_softmax {tag}: plan {plan._asdict()}; max_abs_err "
+            f"{rec['max_abs_err']:.3e}, times S {scaled_err:.3e}, two "
+            f"launches bitwise; device "
+            f"{rec['device_ms']} ms (bound {rec['bound_ms']:.4f} ms), in "
+            f"turns kernel {rec['device_ms_in_turns']['kernel']} against "
+            f"torch.softmax {rec['device_ms_in_turns']['library']} ms")
+        recs.append(rec)
+        del sc, got
+        torch.cuda.empty_cache()
+    return {"row_softmax": recs}
 
 
 def long_qk_checks():
@@ -4935,10 +5212,10 @@ def lane_calls(kind, t, rpg, int8):
     scales, the clustered V's raw codes) runs both sides on its own
     tensors and scales: the pipeline's AV on int8 codes, the fused
     kernel's share mode. Otherwise int8 K (the port's ``quant_rows`` of
-    the input's K) with float V: the pipeline runs ``chai_qk_i8``; the
-    fused CUDA kernel refuses int8 K beside float V (a mode the Pallas
-    kernel accepts and no path of the reference reaches), so the fused
-    side is its plain version on the card."""
+    the input's K) with float V: the pipeline runs ``chai_qk_i8``, the
+    fused kernel its int8 K beside float V pairing (a mode the Pallas
+    kernel accepts and no path of the reference reaches; counted as
+    ``chai_fused_decode[kv=i8s/<V>]``)."""
     if kind == "paged":
         args = (t["q"], t["k_pool"], t["bt_k"], t["v_pool"], t["bt_v"],
                 t["h2c"], t["pos"])
@@ -4966,9 +5243,9 @@ def lane_calls(kind, t, rpg, int8):
     args = (t["q"], kq, t["v"], t["h2c"], t["pos"])
     return (lambda: kops.chai_three_kernel_decode(
                 *args, k_scale=ks, reps_per_group=rpg, ts=ts),
-            lambda: kref.chai_fused_decode_ref(*args, k_scale=ks,
-                                               reps_per_group=rpg),
-            None)
+            lambda: ck.chai_fused_decode(*args, k_scale=ks,
+                                         reps_per_group=rpg, ts=ts),
+            "chai_fused_decode")
 
 
 def device_profile(fn, reps=20, tries=3):
@@ -5066,8 +5343,13 @@ def pipeline_lane(inputs):
             kv = ((t["k_pool"], t["v_pool"]) if kind == "paged"
                   else (t["k"], t["v"]))
             tables = (t["bt_k"], t["bt_v"]) if kind == "paged" else ()
+            flags = {}
+            if int8 and not share:   # int8 K codes with scales, float V
+                kv = (chai_cache.quant_rows(t["k"])[0], t["v"])
+                flags = dict(k_scaled=True, v_scaled=False)
             bound, _ = fused_decode_bound(t["q"], *kv, h2c, t["pos"], rpg,
-                                          tables=tables, share=share)
+                                          tables=tables, share=share,
+                                          **flags)
             rec.update(fused_bound_ms=bound)
             if rec["fused_device_ms"]:
                 rec.update(
@@ -5642,6 +5924,7 @@ def main():
     pipe_cases = pipeline_kernel_checks()
     decode_cases = flash_decode_checks()
     int8_cases = int8_kernel_checks()
+    kv_cases = kv_pairing_checks()
     share_cases = share_kernel_checks()
     softcap_cases = softcap_kernel_checks()
     mode_cases = prefill_mode_checks()
@@ -5694,6 +5977,7 @@ def main():
     torch.cuda.empty_cache()
     _, r_max = clustering.chai_widths(ncfg)
     ref_in = reference_lane_input()
+    lane_runs = len(MODE_RUNS)        # the lanes' runs: not serving paths
     lane_launches, _ = pipeline_lane([
         ("reference_lane_shape", "dense", ref_in, 1, False),
         ("reference_lane_shape_int8", "dense", ref_in, 1, True),
@@ -5711,6 +5995,7 @@ def main():
     lane8_launches, _ = pipeline_lane([
         ("share_int8_dense_first_steady_layer0", "dense", share8_cap, 1,
          True)])
+    lane_runs = range(lane_runs, len(MODE_RUNS))
     av8_mains = share_int8_av_cases(share8_cap)
     # The six pipeline kernels at the continuous main path's shapes (its
     # first all-STEADY step, layer 0) and at nemotron's.
@@ -5873,6 +6158,23 @@ def main():
         "relay_prefix_decode[softcap]": (
             mode_cases["relay_prefix_decode[softcap]"][0], None,
             mode_cases["relay_prefix_decode[softcap]"])})
+    # The K/V pairings no serving path runs: one row each, launches by mode
+    # over every run; int8 K with scales beside float V is phase 10's int8
+    # lanes' fused side (fp32 V on the reference's lane shape, bf16 on the
+    # cohort capture), one launch each.
+    for name, cases in kv_cases.items():
+        if "[kv=" not in name:    # the int8 body's: cases join its row
+            mains[name][2].extend(cases)
+            continue
+        lane = name in ("chai_fused_decode[kv=i8s/f32]",
+                        "chai_fused_decode[kv=i8s/bf16]")
+        mains[name] = (cases[0], "pipeline_lane" if lane else None, cases)
+    serving = [run for i, run in enumerate(MODE_RUNS) if i not in lane_runs]
+    kv_served = {key: n for run in serving for key, n in run.items()
+                 if "kv=" in key and n}
+    if kv_served:
+        raise AssertionError(f"K/V pairings launched on serving paths: "
+                             f"{kv_served}")
     kernel_rows = {name: KERNEL_ROWS[name.split("[")[0]] for name in mains}
     rows = []
     for name, info in kernel_rows.items():
@@ -5884,8 +6186,11 @@ def main():
         rows.append(dict(
             name=name, **info, path=path,
             # a mode no serving path reaches: its launches by mode over
-            # every run, held at 0 below
-            launches=by_path[path][base] if path else mode_launches(name),
+            # every run, held at 0 below (a K/V pairing's: by mode, 0 on
+            # every serving path, held above)
+            launches=(mode_launches(name) if "[kv=" in name
+                      else by_path[path][base] if path
+                      else mode_launches(name)),
             launches_by_path={p: c[base] for p, c in by_path.items()},
             **({"mode_launches_all_runs": mode_launches(name)}
                if "[" in name and name not in MODE_BLIND else {}),

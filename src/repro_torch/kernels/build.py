@@ -20,6 +20,8 @@ import ctypes
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -76,11 +78,22 @@ def _finish(name, proc, tmp):
     return out
 
 
-def build_all(names=KERNELS, extra_flags=()):
+def build_all(names=KERNELS, extra_flags=(), seconds=None):
     """Compile every stale kernel, one nvcc per source, all started
-    together. Returns {name: compiler output} for the ones it built."""
+    together. Returns {name: compiler output} for the ones it built; a
+    ``seconds`` dict given receives each one's time from the start of all
+    to its own end."""
+    t0 = time.monotonic()
     jobs = {n: _start(n, extra_flags) for n in names if _stale(n)}
-    return {n: _finish(n, proc, tmp) for n, (proc, tmp) in jobs.items()}
+
+    def finish(name):
+        out = _finish(name, *jobs[name])
+        if seconds is not None:
+            seconds[name] = time.monotonic() - t0
+        return out
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        outs = dict(zip(jobs, pool.map(finish, jobs)))
+    return outs
 
 
 def load(name) -> ctypes.CDLL:

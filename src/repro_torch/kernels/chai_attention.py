@@ -30,8 +30,18 @@ the mask, in every other mode.
 Both take ``share_values`` (CHAI-QKV, MHA only): V is clustered like K
 (KVv == R); each unit accumulates its rep's one row, which the finalized
 mode divides and writes to every member head, and the state mode emits
-as (B, R, hd). Under int8 its V codes may come without scales and are
-read as values (the reference's clustered V).
+as (B, R, hd). Under int8 its V codes come without scales and are read
+as values (the reference's clustered V).
+
+K and V are read each on its own, as the Pallas bodies read them: the
+fused pair, the relay kernel and ``flash_attention.paged_prefix_attend``
+take each side fp32, bf16 or int8, each with or without its fp32 row
+scales (``_check_scales``); a side without scales is read as values, a
+scale beside float rows multiplies them. ``kv_body`` decides once which
+kernel body a pairing takes and the wrapper passes it to the launcher:
+the serving paths' pairings (one dtype, K scaled iff int8) keep their
+bodies; every other pairing runs a general body and counts its launches
+by mode as "<kernel>[kv=<K>/<V>]" (``kv_modes``, from the same body).
 
 ``relay_prefix_decode`` launches ``csrc/relay_prefix_decode.cu`` (the port
 of the Pallas ``relay_prefix_decode``): one pass per relay group over a
@@ -52,7 +62,9 @@ fused kernels' baseline): ``chai_qk``, ``chai_qk_i8`` and
 read as values, or int8 with row scales in ``chai_qk_i8``; each block a
 chunk of positions of one K row for all its reps, cut by
 ``qk_launch_config``); ``row_softmax`` launches
-``csrc/row_softmax.cu``; ``chai_av`` and ``paged_chai_av`` launch
+``csrc/row_softmax.cu`` (each row read once into registers by a warp, a
+block or a thread block cluster, cut by ``softmax_launch_config``);
+``chai_av`` and ``paged_chai_av`` launch
 ``csrc/chai_av.cu`` (head h reads A row h2c[b, h] and its own V rows,
 fp32, bf16 or int8 codes read as values, summed over every position;
 each (b, h) cut into the splits of ``av_launch_config`` and merged in
@@ -79,14 +91,19 @@ LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0,
             "paged_chai_av": 0}
 # "<kernel>[<modes>]" -> launches, the modes a launch ran joined by "+" in
 # the order of _MODES; a launch in no mode is counted in LAUNCHES only.
+# "kv" names a K/V pairing that no serving path runs ("kv=<K>/<V>", see
+# ``kv_modes``).
 MODE_LAUNCHES: dict = {}
-_MODES = ("int8", "share", "softcap", "window")
+_MODES = ("kv", "int8", "share", "softcap", "window")
 
-# K/V element types of the launchers' kv_type. int8 comes with row scales
-# in the fused pair, the relay kernel and ``chai_qk_i8``; ``chai_qk``,
-# ``paged_chai_qk`` and the AV pair read int8 codes without scales as
-# their values (the Pallas bodies cast whatever K or V they are given).
+# K/V element types of the launchers' k_type / v_type (and kv_type). The
+# Pallas bodies cast whatever K or V they are given to fp32 and apply each
+# row scale only when it is passed, so every wrapper takes each side on
+# its own: fp32, bf16 or int8, with or without its fp32 row scales (int8
+# codes without scales are read as their values). ``chai_qk_i8`` takes
+# int8 K with its scales.
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_KV_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "i8"}
 _SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 
 # chai_decode_tiles.cuh: the block body's constants
@@ -160,8 +177,33 @@ def split_ranges(b: int, k_rows: int, n_tiles: int):
     return [(s * per, min(n_tiles, (s + 1) * per)) for s in range(n_split)]
 
 
-def _query_bucket(nq: int) -> int:
-    return next(k for k in (1, 2, 4, _MAX_Q) if nq <= k)
+def _query_bucket(nq: int, general: bool = False) -> int:
+    """The block's query count kQ for ``nq`` queries: 1, 2, 4 or 8; the
+    general body's always 8 (its loops skip the queries past ``nq``)."""
+    return _MAX_Q if general else next(k for k in (1, 2, 4, _MAX_Q)
+                                       if nq <= k)
+
+
+# The kernel body a K/V pairing takes (``kv_body``), passed to the
+# launchers of the fused pair, the relay kernel and the prefix pass.
+KV_FLOAT, KV_INT8, KV_GENERAL = 0, 1, 2
+
+
+def kv_body(k, k_scale, v, v_scale, *, int8_raw_v=True) -> int:
+    """The kernel body a call's K/V pairing takes, decided here once:
+    ``KV_FLOAT`` for K and V of one float dtype without scales,
+    ``KV_INT8`` for int8 K and V with K's scales and V's (or, where
+    ``int8_raw_v``, without: the int8 bodies of the fused pair and the
+    relay read raw V codes, the prefix pass's needs both scales). These
+    are the serving paths' pairings, whose bodies fix each scale step by
+    the type. Every other pairing takes ``KV_GENERAL``, whose body tests
+    each scale at run time."""
+    if k.dtype == v.dtype != torch.int8 and k_scale is None is v_scale:
+        return KV_FLOAT
+    if (k.dtype == v.dtype == torch.int8 and k_scale is not None
+            and (v_scale is not None or int8_raw_v)):
+        return KV_INT8
+    return KV_GENERAL
 
 
 def block_smem_bytes(kq: int, hd: int, n_map: int, n_cap: int) -> int:
@@ -178,15 +220,17 @@ def block_smem_bytes(kq: int, hd: int, n_map: int, n_cap: int) -> int:
 
 def decode_launch_config(b: int, k_rows: int, n_tiles: int, hd: int,
                          n_map: int, reps_per_group: int = 1,
-                         share_values: bool = False) -> DecodeLaunch:
+                         share_values: bool = False,
+                         general: bool = False) -> DecodeLaunch:
     """The launch of one fused decode call: the split plan from (b,
     k_rows, n_tiles), and the block's shared memory for ``reps_per_group``
     queries per block and an ``n_map``-entry member map (H heads).
-    ``share_values``: one accumulator row a unit (its rep's)."""
+    ``share_values``: one accumulator row a unit (its rep's); ``general``:
+    the general body's query bucket (``kv_body``)."""
     n_split, per = split_plan(b, k_rows, n_tiles)
     n_cap = 1 if share_values else max(1, min(n_map, _SLICE))
     return DecodeLaunch(n_split, per, n_cap, block_smem_bytes(
-        _query_bucket(reps_per_group), hd, n_map, n_cap))
+        _query_bucket(reps_per_group, general), hd, n_map, n_cap))
 
 
 class RelayLaunch(NamedTuple):
@@ -259,24 +303,25 @@ def relay_units(k_row, a_row, v_row):
 
 
 def dense_launch_config(q_rep, k_cache, h2c, *, reps_per_group=1, ts=512,
-                        share_values=False):
+                        share_values=False, general=False):
     """(the launch, the S-tile) of ``chai_fused_decode`` on these tensors
     (their shapes only: any device, ``meta`` too)."""
     s = k_cache.shape[2]
     ts = fused_tile_size(ts, s)
     return decode_launch_config(q_rep.shape[0], k_cache.shape[1], s // ts,
                                 q_rep.shape[2], h2c.shape[-1],
-                                reps_per_group, share_values), ts
+                                reps_per_group, share_values, general), ts
 
 
 def paged_launch_config(q_rep, k_pool, bt_k, h2c, *, reps_per_group=1,
-                        share_values=False):
+                        share_values=False, general=False):
     """The launch of ``paged_chai_fused_decode`` on these tensors (their
     shapes only); the tile is the page. Equal to the dense call's at
     S == P * page and ts == page."""
     return decode_launch_config(q_rep.shape[0], k_pool.shape[1],
                                 bt_k.shape[1], q_rep.shape[2],
-                                h2c.shape[-1], reps_per_group, share_values)
+                                h2c.shape[-1], reps_per_group, share_values,
+                                general)
 
 
 def _launcher(name, n_ptrs, n_ints, n_floats=0):
@@ -290,31 +335,37 @@ def _launcher(name, n_ptrs, n_ints, n_floats=0):
     return fn
 
 
-def _check_scales(name, k, v, k_scale, v_scale, *, raw_v=False):
-    """The int8 mode: K and V are int8 together, each with an fp32 scale
-    tensor of its own shape without the last axis (one scale a row); float
-    K/V take no scales. ``raw_v``: int8 V may also come without scales,
-    its codes then read as values (the share_values clustered V, which
-    the reference writes by a plain cast and reads scale-less). Shapes
+def _check_scales(name, k, v, k_scale, v_scale):
+    """Each side on its own, as the Pallas bodies read it: K and V are
+    each fp32, bf16 or int8, and each scale is optional; a scale, where
+    given, is fp32 of its side's shape without the last axis (one scale a
+    row) on its side's device. A missing scale reads the side as values
+    (int8 codes too); a scale beside float rows multiplies them. Shapes
     only, so it runs on any device."""
-    int8 = k.dtype == torch.int8
-    v_ok = (v_scale is None) != int8 or (raw_v and int8)
-    if ((v.dtype == torch.int8) != int8 or (k_scale is None) == int8
-            or not v_ok):
-        raise ValueError(f"{name}: K and V are int8 together, each with its "
-                         f"scales, or float without; got K {k.dtype}, V "
-                         f"{v.dtype}, k_scale {k_scale is not None}, v_scale "
-                         f"{v_scale is not None}")
-    if int8 and (k_scale.shape != k.shape[:-1]
-                 or k_scale.dtype != torch.float32
-                 or (v_scale is not None
-                     and (v_scale.shape != v.shape[:-1]
-                          or v_scale.dtype != torch.float32))):
-        raise ValueError(f"{name}: scales must be fp32 of K's and V's shapes "
-                         f"without the last axis; got {tuple(k_scale.shape)}"
-                         f" {k_scale.dtype} for K {tuple(k.shape)}, "
-                         f"{None if v_scale is None else tuple(v_scale.shape)}"
-                         f" for V {tuple(v.shape)}")
+    for side, x, sc in (("K", k, k_scale), ("V", v, v_scale)):
+        if x.dtype not in _KV_DTYPES:
+            raise TypeError(f"{name}: {side} must be fp32, bf16 or int8; got "
+                            f"{x.dtype}")
+        if sc is not None and (sc.shape != x.shape[:-1]
+                               or sc.dtype != torch.float32
+                               or sc.device != x.device):
+            raise ValueError(f"{name}: {side}'s scale must be fp32 of its "
+                             f"shape without the last axis on its device; "
+                             f"got {tuple(sc.shape)} {sc.dtype} on "
+                             f"{sc.device} for {side} {tuple(x.shape)} on "
+                             f"{x.device}")
+
+
+def kv_modes(body, k, k_scale, v, v_scale):
+    """The modes a launch on ``body`` (``kv_body``) counts for its K/V
+    pairing: none on ``KV_FLOAT``; ``int8`` on ``KV_INT8``; on
+    ``KV_GENERAL`` ``kv`` = "<K>/<V>", each side its dtype (f32, bf16,
+    i8) with "s" when scaled (a pairing no serving path runs)."""
+    if body != KV_GENERAL:
+        return dict(int8=body == KV_INT8)
+    return dict(kv="/".join(_KV_NAMES[x.dtype] + ("s" if sc is not None
+                                                  else "")
+                            for x, sc in ((k, k_scale), (v, v_scale))))
 
 
 def _check_block(name, hd, reps_per_group, cfg):
@@ -353,9 +404,6 @@ def _check_common(name, q_rep, k, v, h2c, reps_per_group, share_values):
     if h2c.ndim == 1:
         h2c = h2c.expand(b, h2c.shape[0])
     h_total = h2c.shape[1]
-    if k.dtype != v.dtype or k.dtype not in _KV_DTYPES:
-        raise TypeError(f"K/V must share one dtype of fp32/bf16/int8; got "
-                        f"{k.dtype}, {v.dtype}")
     if k.shape[1] * reps_per_group != r_total or (
             not share_values and h_total % v.shape[1]):
         raise ValueError(f"R={r_total} must be KVk={k.shape[1]} x "
@@ -431,9 +479,11 @@ def split_scratch(n_split, b, r_total, h_total, hd, units, dev, stream, *,
 
 def count_launch(counts, name, **modes):
     """One successful launch of ``name``: one in ``counts`` (its module's
-    LAUNCHES) and one in MODE_LAUNCHES under the ``modes`` that are set."""
+    LAUNCHES) and one in MODE_LAUNCHES under the ``modes`` that are set
+    ("kv=<pairing>" for the ``kv`` mode)."""
     counts[name] += 1
-    tag = "+".join(m for m in _MODES if modes.get(m))
+    tag = "+".join(f"kv={modes[m]}" if m == "kv" else m for m in _MODES
+                   if modes.get(m))
     if tag:
         key = f"{name}[{tag}]"
         MODE_LAUNCHES[key] = MODE_LAUNCHES.get(key, 0) + 1
@@ -454,22 +504,23 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     clustered cache: KVk == R); v_cache: (B, KVv, S, hd), per-head
     (KVv == H) or per-group (H % KVv == 0); K/V fp32 or bf16, one dtype;
     h2c: (B, H) or (H,) head -> rep row, values in [0, R); pos: (B,).
-    The int8 mode: K/V int8 codes with their fp32 row scales k_scale
-    (B, KVk, S) and v_scale (B, KVv, S); the K scale multiplies the score
-    after the dot, the V scale the V row before A.V (the Pallas tile's
-    order). Any S: the kernel streams it with fixed shared memory, cut
+    K and V each fp32, bf16 or int8, each with or without its fp32 row
+    scales k_scale (B, KVk, S) / v_scale (B, KVv, S), as the Pallas
+    wrapper takes them: the K scale multiplies the score after the dot,
+    the V scale the V row before A.V (the Pallas tile's order); a side
+    without scales is read as values (int8 codes too). The int8 KV cache
+    passes int8 K and V with both scales. Any S: the kernel streams it with fixed shared memory, cut
     into ``split_plan`` ranges merged inside the launch. Returns (B, H,
     hd) fp32 from ONE kernel launch, or with ``emit_state`` the
     unnormalized (m (B, R), l (B, R), acc (B, H, hd)) fp32 state.
     ``share_values`` (MHA, reps_per_group 1): v_cache (B, R, S, hd) is the
-    clustered V, rep j reading V row j; int8 V may come without v_scale
-    (codes read as values); the state's acc is (B, R, hd).
+    clustered V, rep j reading V row j (under int8, codes without
+    v_scale); the state's acc is (B, R, hd).
     ``softcap`` (gemma2's ``attn_logit_softcap``; 0 = off): every score,
     once scaled, becomes softcap * tanh(score / softcap) before the mask,
     in any of the modes above.
     """
-    _check_scales("chai_fused_decode", k_cache, v_cache, k_scale, v_scale,
-                  raw_v=share_values)
+    _check_scales("chai_fused_decode", k_cache, v_cache, k_scale, v_scale)
     if share_values:
         _check_share("chai_fused_decode", q_rep, v_cache, reps_per_group)
     s = k_cache.shape[2]
@@ -481,9 +532,10 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
             or v_cache.shape != (b, kv_v, s, hd)):
         raise ValueError(f"shape mismatch: q {tuple(q_rep.shape)}, "
                          f"k {tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
-    cfg, ts = dense_launch_config(q_rep, k_cache, h2c,
-                                  reps_per_group=reps_per_group, ts=ts,
-                                  share_values=share_values)
+    body = kv_body(k_cache, k_scale, v_cache, v_scale)
+    cfg, ts = dense_launch_config(
+        q_rep, k_cache, h2c, reps_per_group=reps_per_group, ts=ts,
+        share_values=share_values, general=body == KV_GENERAL)
     _check_block("chai_fused_decode", hd, reps_per_group, cfg)
     dev = q_rep.device
     q = q_rep.float().contiguous()
@@ -495,7 +547,7 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
     rows = r_total if share_values else h_total
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state, rows)
-    fn = _launcher("chai_fused_decode", 14, 17, 1)
+    fn = _launcher("chai_fused_decode", 14, 19, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch = split_scratch(cfg.n_split, b, r_total, rows, hd,
@@ -507,12 +559,13 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
                  kv_v, s, hd, ts, decode_step_size(ts), reps_per_group,
                  1 if share_values else h_total // kv_v, int(window),
                  cfg.n_split, cfg.tiles_per_split, cfg.n_cap,
-                 int(share_values), _KV_DTYPES[k.dtype], float(softcap),
-                 stream)
+                 int(share_values), _KV_DTYPES[k.dtype], _KV_DTYPES[v.dtype],
+                 body, float(softcap), stream)
     if err:
         raise RuntimeError(f"chai_fused_decode launch failed: CUDA error "
                            f"{err}")
-    count_launch(LAUNCHES, "chai_fused_decode", int8=k.dtype == torch.int8,
+    count_launch(LAUNCHES, "chai_fused_decode",
+                 **kv_modes(body, k, ks, v, vs),
                  share=share_values, softcap=softcap, window=int(window) > 0)
     return (m, l, out) if emit_state else out
 
@@ -529,9 +582,10 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     k_max); v_pool: (nPv, KVv, page, hd), the dense per-head pool;
     bt_k/bt_v: (B, P) block tables into their own pools (tile t of row b
     is page bt[b, t]; the tile size is the page); h2c: (B, H) or (H,);
-    pos: (B,). K/V fp32 or bf16, one dtype, or int8 with their scale
-    pools k_scale_pool (nPk, KVk, page) and v_scale_pool (nPv, KVv, page),
-    read through the same tables (the dense call's int8 mode). Any P: the
+    pos: (B,). K and V each fp32, bf16 or int8, each with or without its
+    scale pool k_scale_pool (nPk, KVk, page) / v_scale_pool (nPv, KVv,
+    page), read through the same tables (the dense call's pairings). Any
+    P: the
     split plan is the dense call's at equal shapes, so at page == ts the
     two are bitwise equal. The pools are layer slices of the engine's
     state and are read in place: they must be contiguous already (a copy
@@ -541,7 +595,7 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     ``bt_vc``), as in the dense call; ``softcap`` as in the dense call.
     """
     _check_scales("paged_chai_fused_decode", k_pool, v_pool, k_scale_pool,
-                  v_scale_pool, raw_v=share_values)
+                  v_scale_pool)
     if share_values:
         _check_share("paged_chai_fused_decode", q_rep, v_pool,
                      reps_per_group)
@@ -557,9 +611,10 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
                          f"{tuple(k_pool.shape)}, v_pool "
                          f"{tuple(v_pool.shape)}, bt_k {tuple(bt_k.shape)}, "
                          f"bt_v {tuple(bt_v.shape)}")
-    cfg = paged_launch_config(q_rep, k_pool, bt_k, h2c,
-                              reps_per_group=reps_per_group,
-                              share_values=share_values)
+    body = kv_body(k_pool, k_scale_pool, v_pool, v_scale_pool)
+    cfg = paged_launch_config(
+        q_rep, k_pool, bt_k, h2c, reps_per_group=reps_per_group,
+        share_values=share_values, general=body == KV_GENERAL)
     _check_block("paged_chai_fused_decode", hd, reps_per_group, cfg)
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
                     ("k_scale_pool", k_scale_pool),
@@ -574,7 +629,7 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
     rows = r_total if share_values else h_total
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state, rows)
-    fn = _launcher("paged_chai_fused_decode", 16, 17, 1)
+    fn = _launcher("paged_chai_fused_decode", 16, 19, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch = split_scratch(cfg.n_split, b, r_total, rows, hd,
@@ -588,13 +643,14 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
                  reps_per_group, 1 if share_values else h_total // kv_v,
                  int(window), cfg.n_split, cfg.tiles_per_split, cfg.n_cap,
                  int(share_values), _KV_DTYPES[k_pool.dtype],
-                 float(softcap), stream)
+                 _KV_DTYPES[v_pool.dtype], body, float(softcap), stream)
     if err:
         raise RuntimeError(f"paged_chai_fused_decode launch failed: CUDA "
                            f"error {err}")
     count_launch(LAUNCHES, "paged_chai_fused_decode",
-                 int8=k_pool.dtype == torch.int8, share=share_values,
-                 softcap=softcap, window=int(window) > 0)
+                 **kv_modes(body, k_pool, k_scale_pool, v_pool,
+                            v_scale_pool),
+                 share=share_values, softcap=softcap, window=int(window) > 0)
     return (m, l, out) if emit_state else out
 
 
@@ -604,11 +660,11 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
 
     q: (G, NR, hd) member rep queries stacked per group (any float dtype;
     read as fp32); k: (G, KV, Sp, hd) and v: (G, VR, Sp, hd) the packed
-    prefix, fp32 or bf16, one dtype, or int8 with their scale planes
-    k_scale (G, KV, Sp) and v_scale (G, VR, Sp) (the score blocks scale
-    each score after the dot, the sum blocks each V row before the
-    weighted sum; without v_scale the V codes are summed as values, the
-    share_values relay's scale-less V); k_row: (G, NR) query row -> K row;
+    prefix, each fp32, bf16 or int8, each with or without its scale plane
+    k_scale (G, KV, Sp) / v_scale (G, VR, Sp) (the score blocks scale each
+    score after the dot, the sum blocks each V row before the weighted
+    sum; a side without scales is read as values, as the share_values
+    relay's int8 V is); k_row: (G, NR) query row -> K row;
     a_row: (G, A) acc row -> query row; v_row: (G, A) acc row -> V row;
     plen: (G,) valid prefix lengths (positions >= plen masked).
     ``softcap`` != 0: each scaled score (int8: after the K scale) becomes
@@ -621,16 +677,13 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
     Returns (m (G, NR), l (G, NR), acc (G, A, hd)) fp32, unnormalized, from
     ONE kernel launch.
     """
-    _check_scales("relay_prefix_decode", k, v, k_scale, v_scale, raw_v=True)
+    _check_scales("relay_prefix_decode", k, v, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"relay_prefix_decode launches a CUDA kernel; got "
                          f"tensors on {q.device}")
     g, nr, hd = q.shape
     kv, sp = k.shape[1], k.shape[2]
     vr, a_total = v.shape[1], a_row.shape[1]
-    if k.dtype != v.dtype or k.dtype not in _KV_DTYPES:
-        raise TypeError(f"K/V must share one dtype of fp32/bf16/int8; got "
-                        f"{k.dtype}, {v.dtype}")
     if (k.shape != (g, kv, sp, hd) or v.shape != (g, vr, sp, hd)
             or k_row.shape != (g, nr) or a_row.shape != (g, a_total)
             or v_row.shape != (g, a_total) or plen.shape != (g,)):
@@ -654,12 +707,13 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
     _check_aligned("relay_prefix_decode", k=kc, v=vc)
     ks, vs = (None if t is None else t.contiguous()
               for t in (k_scale, v_scale))
+    body = kv_body(kc, ks, vc, vs)
     maps = [_small(t, dev) for t in (k_row, a_row, v_row, plen)]
     m = torch.empty((g, nr), dtype=torch.float32, device=dev)
     l = torch.empty((g, nr), dtype=torch.float32, device=dev)
     acc = torch.empty((g, a_total, hd), dtype=torch.float32, device=dev)
     scores = torch.empty((g, nr, sp), dtype=torch.float32, device=dev)
-    fn = _launcher("relay_prefix_decode", 17, 13, 1)
+    fn = _launcher("relay_prefix_decode", 17, 15, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         mp, lp, accp, counter = split_scratch(
@@ -672,12 +726,13 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
                  accp.data_ptr(), scores.data_ptr(), counter.data_ptr(), g,
                  nr, a_total, kv, vr, sp, hd, ts, cfg.n_split,
                  cfg.tiles_per_split, cfg.q_slots, cfg.v_slots,
-                 _KV_DTYPES[kc.dtype], float(softcap), stream)
+                 _KV_DTYPES[kc.dtype], _KV_DTYPES[vc.dtype], body,
+                 float(softcap), stream)
     if err:
         raise RuntimeError(f"relay_prefix_decode launch failed: CUDA error "
                            f"{err}")
     count_launch(LAUNCHES, "relay_prefix_decode",
-                 int8=kc.dtype == torch.int8, softcap=softcap)
+                 **kv_modes(body, kc, ks, vc, vs), softcap=softcap)
     return m, l, acc
 
 
@@ -787,10 +842,11 @@ def _qk_plan_args(cfg: QkLaunch):
             cfg.slices)
 
 
-def _aligned(k, cfg):
-    """``k`` itself when its address suits the plan's loads, else a copy
-    (a fresh allocation is aligned)."""
-    return k if k.data_ptr() % (cfg.vec * k.element_size()) == 0 else k.clone()
+def _aligned(t, vec):
+    """``t`` itself when its address suits loads of ``vec`` elements, else
+    a copy (a fresh allocation is aligned): a contiguous view may start
+    anywhere in its storage."""
+    return t if t.data_ptr() % (vec * t.element_size()) == 0 else t.clone()
 
 
 def _launched(name, err, **modes):
@@ -817,7 +873,7 @@ def chai_qk(q_rep, k_cache, pos, *, reps_per_group=1, window=0, ts=512):
         "chai_qk", q_rep, k, pos, reps_per_group, tuple(_KV_DTYPES), s)
     if k.shape[0] != b:
         raise ValueError(f"chai_qk: K batch {k.shape[0]} != {b}")
-    k = _aligned(k, cfg)
+    k = _aligned(k, cfg.vec)
     fn = _launcher("chai_qk", 4, 14)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -846,7 +902,7 @@ def chai_qk_i8(q_rep, k_cache_i8, k_scale, pos, *, reps_per_group=1,
     if k_scale.dtype != torch.float32 or k_scale.device != k.device:
         raise TypeError(f"chai_qk_i8: k_scale must be fp32 on {k.device}; "
                         f"got {k_scale.dtype} on {k_scale.device}")
-    k = _aligned(k, cfg)
+    k = _aligned(k, cfg.vec)
     ks = k_scale.contiguous()
     fn = _launcher("chai_qk_i8", 5, 13)
     with torch.cuda.device(q.device):
@@ -890,24 +946,102 @@ def paged_chai_qk(q_rep, k_pool, bt, pos, *, reps_per_group=1, window=0):
     return out
 
 
+class SoftmaxLaunch(NamedTuple):
+    """How a ``row_softmax`` call is cut: each row of S floats is
+    ``n_vec`` loads of ``vw`` floats (16-byte loads when S % 4 == 0), held
+    ``vecs`` loads a thread by ``team`` threads of each of ``cluster``
+    blocks (a thread block cluster when > 1), ``rows_per_block`` rows a
+    block (cluster 1); ``chunks`` passes of the threads' loads cover the
+    row (1: the row is held in registers and read once; more: it is read
+    twice); ``blocks`` in the grid; ``smem_bytes`` of static shared
+    memory a block."""
+    vw: int
+    n_vec: int
+    vecs: int
+    team: int
+    rows_per_block: int
+    cluster: int
+    chunks: int
+    blocks: int
+    smem_bytes: int
+
+
+# row_softmax.cu: kMaxThreads (a block's threads), the loads a thread
+# holds at most (the kernel's largest kV), the largest cluster (the
+# portable size) and the static shared memory (an (m, l) pair per warp and
+# the block's). A row one block can hold at SOFTMAX_BLOCK_VECS loads a
+# thread takes the fewest warps that do (measured on the H100 at 100 rows
+# of 1024: 2-4 loads a thread ran in 0.0019 ms, 8 in 0.0020, 1 in 0.0021;
+# tools/softmax_ab.py); a longer one a cluster of blocks of
+# SOFTMAX_THREADS at up to SOFTMAX_MAX_VECS loads. The plan spreads a
+# short grid over more blocks of a row's cluster until it holds
+# SOFTMAX_FILL blocks (two a SM of the H100's 132), and packs several rows
+# into a block only while the grid keeps that many.
+SOFTMAX_THREADS = 256
+SOFTMAX_BLOCK_VECS = 4
+SOFTMAX_MAX_VECS = 8
+SOFTMAX_MAX_CLUSTER = 8
+SOFTMAX_SMEM = (SOFTMAX_THREADS // 32 + 1) * 8
+SOFTMAX_FILL = 2 * 132
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def softmax_launch_config(rows: int, s: int) -> SoftmaxLaunch:
+    """The launch of one ``row_softmax`` call on ``rows`` rows of ``s``
+    floats: the fewest threads that hold a row at ``SOFTMAX_BLOCK_VECS``
+    loads each, in whole warps of one block (a power of two up to 256);
+    a longer row takes a cluster of blocks of 256 (at least 2, at most 8
+    at ``SOFTMAX_MAX_VECS`` loads a thread, more while the grid is short
+    of ``SOFTMAX_FILL`` blocks); each thread then holds the fewest loads
+    (a power of two) that cover the row, and a row longer than 8 blocks
+    of 256 threads of 8 loads (S > 65,536 at 16-byte loads, 16,384 at
+    4-byte ones) is streamed in chunks of that size."""
+    vw = 4 if s % 4 == 0 else 1
+    n_vec = -(-s // vw)
+    need = -(-n_vec // SOFTMAX_BLOCK_VECS)
+    if need <= SOFTMAX_THREADS:
+        team, cluster = 32 * _pow2_at_least(-(-need // 32)), 1
+    else:
+        team = SOFTMAX_THREADS
+        cluster = min(SOFTMAX_MAX_CLUSTER,
+                      max(2, -(-n_vec // (team * SOFTMAX_MAX_VECS))))
+        while cluster < SOFTMAX_MAX_CLUSTER and rows * cluster < SOFTMAX_FILL:
+            cluster += 1
+    threads = team * cluster
+    vecs = min(SOFTMAX_MAX_VECS, _pow2_at_least(-(-n_vec // threads)))
+    chunks = -(-n_vec // (threads * vecs))
+    per_block = 1 if cluster > 1 else max(
+        1, min(SOFTMAX_THREADS // team, rows // SOFTMAX_FILL))
+    blocks = rows * cluster if cluster > 1 else -(-rows // per_block)
+    return SoftmaxLaunch(vw, n_vec, vecs, team, per_block, cluster, chunks,
+                         blocks, SOFTMAX_SMEM)
+
+
 def row_softmax(scores):
     """Masked softmax of each (b, rep) row of raw scores (B, R, S) fp32,
     on the GPU: p = exp(x - max(max(x), -1e30)), p / max(sum(p), 1e-37);
-    a row masked everywhere gives zeros. Returns (B, R, S) fp32. ONE
-    launch."""
+    a row masked everywhere gives zeros. Each row is read once from device
+    memory and written once (twice read past 65,536 entries), cut by
+    ``softmax_launch_config``. Returns (B, R, S) fp32. ONE launch."""
     if scores.device.type != "cuda":
         raise ValueError(f"row_softmax launches a CUDA kernel; got tensors "
                          f"on {scores.device}")
     if scores.dtype != torch.float32 or scores.ndim != 3:
         raise TypeError(f"row_softmax: scores must be (B, R, S) fp32; got "
                         f"{tuple(scores.shape)} {scores.dtype}")
-    x = scores.contiguous()
-    b, r, s = x.shape
+    b, r, s = scores.shape
+    cfg = softmax_launch_config(b * r, s)
+    x = _aligned(scores.contiguous(), cfg.vw)
     out = torch.empty_like(x)
-    fn = _launcher("row_softmax", 2, 2)
+    fn = _launcher("row_softmax", 2, 8)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), b * r, s, stream)
+        err = fn(x.data_ptr(), out.data_ptr(), b * r, s, cfg.vw, cfg.vecs,
+                 cfg.team, cfg.rows_per_block, cfg.cluster, cfg.chunks,
+                 stream)
     _launched("row_softmax", err)
     return out
 

@@ -48,19 +48,33 @@
 // step factors, n_cap accumulator rows, the member list and the chunk's
 // block-table entries. Nothing grows with S.
 //
-// The int8 mode (T = int8_t): K and V rows are int8 codes, each row with
-// one fp32 scale in a scale tensor of the cache's shape without the last
-// axis, reached through the same tile locator (``k_scale``/``v_scale``),
-// so the dense and paged kernels stay bitwise equal. As the Pallas tile
-// (repro/kernels/chai_attention.py: _fused_tile) does it, the K scale
-// multiplies the score after the dot, sc = (q . codes) * ks * 1/sqrt(hd),
-// and the V scale dequantizes the V row before A.V, v = codes * vs. A
-// load carries 8 codes (8 bytes), as many values as a bf16 load, so the
-// AV items and their reduce buffer keep their shape and any hd % 8 == 0
-// works.
-// Without V scales (``vs`` null: the share mode's clustered V, which the
-// reference writes by a plain cast and reads scale-less) the V codes are
-// read as values; K keeps its scales.
+// K and V are read each on its own, as the Pallas tile (repro/kernels/
+// chai_attention.py: _fused_tile) casts each to fp32 and applies each
+// scale only when it is passed: the body takes a K element type TK and a
+// V element type TV, each fp32, bf16 or int8, and a scale tensor of each
+// side's shape without the last axis (one fp32 scale a row and position)
+// that may be null. The tile locator reaches both (``k_scale``/
+// ``v_scale``), so the dense and paged kernels stay bitwise equal. With a
+// K scale (``ks`` set) it multiplies the score after the dot, sc = (q .
+// k) * ks * 1/sqrt(hd); with a V scale (``vs`` set) it dequantizes the V
+// row before A.V, v = v * vs. A null scale reads the codes (or floats) as
+// values, whatever the type. The K and V steps are separate phases of a
+// chunk, so their loads may differ in width: a load carries 4 fp32, 8
+// bf16 or 8 int8 codes (8 bytes), the AV items take V's width and their
+// reduce buffer holds 8 floats an item, the widest, so any hd % 8 == 0
+// works for every pairing and the shared memory does not depend on it.
+// The host decides the body (kernels/chai_attention.py: kv_body) and
+// passes it to the launcher. The pairings the serving paths run (K and V
+// of one type, K scaled iff int8: the float caches, and the int8 cache
+// with V scaled or, in the share mode, not) take the body with each scale
+// step fixed by the type (kGeneral false: the int8 type scales K, and V
+// where ``vs`` is set; a float type scales neither), the code they had
+// before K and V were split, so their registers and times stay as they
+// were. Every other pairing takes the general body (kGeneral), in which
+// each side's scale is a run-time null test and so is the state mode
+// (``emit``: the outputs' m set), at kQ = 8 only (``kGeneralQ``; its
+// loops skip the queries past nq): 9 instances a kernel beside the
+// served 24.
 //
 // The softcap mode (gemma2's tanh attention-logit cap, ``cap`` != 0): each
 // live score, once scaled (int8: after the K scale, then 1/sqrt(hd), the
@@ -192,20 +206,21 @@ template <typename T>
 constexpr bool kIsInt8 = std::is_same<T, int8_t>::value;
 
 // A dense cache (rows, S, hd) of one batch row: position idx of row r at
-// (r * S + idx) * hd; int8 rows' scales (rows, S) at ks / vs.
-template <typename T>
+// (r * S + idx) * hd; the rows' scales (rows, S) at ks / vs, each null
+// when its side has none.
+template <typename TK, typename TV>
 struct DenseTiles {
-  const T* k;
-  const T* v;
+  const TK* k;
+  const TV* v;
   const float* ks;
   const float* vs;
   int s, hd;
   __device__ void locate(int, const int*) {}
   __device__ void fill(int, int, int*, int, int) const {}
-  __device__ const T* k_pos(int row, int idx) const {
+  __device__ const TK* k_pos(int row, int idx) const {
     return k + (static_cast<size_t>(row) * s + idx) * hd;
   }
-  __device__ const T* v_pos(int row, int idx) const {
+  __device__ const TV* v_pos(int row, int idx) const {
     return v + (static_cast<size_t>(row) * s + idx) * hd;
   }
   __device__ float k_scale(int row, int idx) const {
@@ -222,12 +237,12 @@ struct DenseTiles {
 // touches into shared memory (``tab``: K entries, then V entries at
 // + kTab; threads t0, t0 + stride, ... each load some) and ``locate``
 // points every thread at them, so a position's address is one
-// shared-memory read away. int8 rows' scale pools (nP, rows, page) at
-// ks / vs, read through the same entries.
-template <typename T>
+// shared-memory read away. The scale pools (nP, rows, page) at ks / vs,
+// each null when its side has none, read through the same entries.
+template <typename TK, typename TV>
 struct PagedTiles {
-  const T* k;
-  const T* v;
+  const TK* k;
+  const TV* v;
   const float* ks;
   const float* vs;
   const int* bt_k;
@@ -251,16 +266,17 @@ struct PagedTiles {
       tab_s[kTab + t] = bt_v[first_t + t];
     }
   }
+  template <typename T>
   __device__ const T* at(const T* pool, int rows, int pid, int row,
                          int idx, int t) const {
     return pool + ((static_cast<size_t>(pid) * rows + row) * page +
                    (idx - t * page)) * static_cast<size_t>(hd);
   }
-  __device__ const T* k_pos(int row, int idx) const {
+  __device__ const TK* k_pos(int row, int idx) const {
     const int t = tile_of(idx);
     return at(k, kv_k, tab[t - t_base], row, idx, t);
   }
-  __device__ const T* v_pos(int row, int idx) const {
+  __device__ const TV* v_pos(int row, int idx) const {
     const int t = tile_of(idx);
     return at(v, kv_v, tab[kTab + t - t_base], row, idx, t);
   }
@@ -374,13 +390,18 @@ __device__ __forceinline__ int chunk_positions(int c0, int last, int step) {
 // [mb0, mb0 + nmb) of the list (in sm.acc, row i for member mb0 + i),
 // from the empty state. The first chunk's block-table entries are in
 // sm.tab already (unit_block stages them). Ends with a barrier.
-template <typename T, int kQ, typename Tiles>
+template <typename TK, typename TV, int kQ, bool kGeneral, typename Tiles>
 __device__ void decode_range(Tiles& tiles, const Smem& sm, int nq, int k_row,
                              int mb0, int nmb, int first, int last, int step,
                              int hd, float scale, float cap) {
   constexpr int kQW = (kQ + kWarps - 1) / kWarps;  // queries per warp
-  constexpr int kVec = Vec16<T>::n;
-  using Raw = typename Vec16<T>::Raw;
+  constexpr int kKVec = Vec16<TK>::n;              // K elements a load
+  constexpr int kVec = Vec16<TV>::n;               // V elements a load
+  using Raw = typename Vec16<TV>::Raw;
+  // a K scale: a run-time test in the general body, else the int8 type's
+  const bool k_scaled = kGeneral ? tiles.ks != nullptr : kIsInt8<TK>;
+  // V scales loaded with the rows (then applied where vs is set)
+  constexpr bool kVScales = kGeneral || kIsInt8<TV>;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   float m_w[kQW], l_w[kQW];
 #pragma unroll
@@ -409,25 +430,29 @@ __device__ void decode_range(Tiles& tiles, const Smem& sm, int nq, int k_row,
 #pragma unroll
       for (int j = 0; j < kQ; ++j) dot[j] = 0.f;
       if (valid) {
-        const T* kr = tiles.k_pos(k_row, idx);
+        const TK* kr = tiles.k_pos(k_row, idx);
 #pragma unroll kKUnroll
-        for (int d = 0; d < hd; d += kVec) {
-          float kv[kVec];
-          Vec16<T>::unpack(Vec16<T>::load(kr + d), kv);
+        for (int d = 0; d < hd; d += kKVec) {
+          float kv[kKVec];
+          Vec16<TK>::unpack(Vec16<TK>::load(kr + d), kv);
 #pragma unroll
           for (int j = 0; j < kQ; ++j)
 #pragma unroll
-            for (int u = 0; u < kVec; ++u)
+            for (int u = 0; u < kKVec; ++u)
               dot[j] += sm.q[j * hd + d + u] * kv[u];
         }
       }
-      // int8: the K scale after the dot, then 1/sqrt(hd)
+      // a K scale after the dot, then 1/sqrt(hd)
       float ks = 1.f;
-      if constexpr (kIsInt8<T>) ks = valid ? tiles.k_scale(k_row, idx) : 0.f;
+      if constexpr (kGeneral) {
+        if (k_scaled && valid) ks = tiles.k_scale(k_row, idx);
+      } else if constexpr (kIsInt8<TK>) {
+        ks = valid ? tiles.k_scale(k_row, idx) : 0.f;
+      }
 #pragma unroll
       for (int j = 0; j < kQ; ++j) {
         if (j < nq) {
-          float x = kIsInt8<T> ? dot[j] * ks * scale : dot[j] * scale;
+          float x = k_scaled ? dot[j] * ks * scale : dot[j] * scale;
           if (cap != 0.f) x = cap * tanhf(x / cap);   // the softcap mode
           sm.sc[j * kChunk + i] = valid ? x : kNegInf;
         }
@@ -492,22 +517,22 @@ __device__ void decode_range(Tiles& tiles, const Smem& sm, int nq, int k_row,
         const int i1 = min(n, (sl + 1) * per);
         for (int i0 = sl * per; i0 < i1; i0 += kBatch) {
           Raw raw[kBatch];
-          float vs[kIsInt8<T> ? kBatch : 1];
+          float vs[kVScales ? kBatch : 1];
 #pragma unroll
           for (int u = 0; u < kBatch; ++u) {
             const int idx = c0 + i0 + u;
             const bool live = i0 + u < i1 && idx >= first && idx <= last;
-            raw[u] = live ? Vec16<T>::load(tiles.v_pos(vr, idx) + d)
-                          : Vec16<T>::zero();
-            if constexpr (kIsInt8<T>)
+            raw[u] = live ? Vec16<TV>::load(tiles.v_pos(vr, idx) + d)
+                          : Vec16<TV>::zero();
+            if constexpr (kVScales)
               vs[u] = live && tiles.vs ? tiles.v_scale(vr, idx) : 0.f;
           }
 #pragma unroll
           for (int u = 0; u < kBatch; ++u) {
             if (i0 + u < i1) {
               float vv[kVec];
-              Vec16<T>::unpack(raw[u], vv);
-              if constexpr (kIsInt8<T>) {   // dequantize before A.V
+              Vec16<TV>::unpack(raw[u], vv);
+              if constexpr (kVScales) {   // dequantize before A.V
                 if (tiles.vs)
 #pragma unroll
                   for (int x = 0; x < kVec; ++x) vv[x] *= vs[u];
@@ -651,13 +676,16 @@ __device__ void merge_splits(const Smem& sm, int nq, const Members& mem,
 // the queries' m and l); a slice past the unit's members returns at once.
 // ``smem`` is the dynamic shared memory (block_smem_bytes(kQ, hd, mem.n,
 // n_cap) bytes).
-template <typename T, int kQ, bool kEmit, typename Tiles>
+template <typename TK, typename TV, int kQ, bool kEmit, bool kGeneral,
+          typename Tiles>
 __device__ void unit_block(Tiles& tiles, float* smem, const float* q, int nq,
                            int k_row, const Members& mem, const Plan& plan,
                            int s, int slice, int pos, int window, int hd,
                            int n_cap, float scale, float cap, const Outputs& o,
                            const Partials& part) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the state mode: fixed by kEmit, or (the general body) by o.m
+  const bool emit = kGeneral ? o.m != nullptr : kEmit;
   const Smem sm = carve(smem, kQ, hd, mem.n, n_cap);
   const int lo = window > 0 ? max(0, pos - window + 1) : 0;
   const int hi = min(pos, plan.n_tiles * plan.ts - 1);
@@ -707,22 +735,22 @@ __device__ void unit_block(Tiles& tiles, float* smem, const float* q, int nq,
   }
   __syncthreads();
   const int n_mem = *sm.n_mem;
-  if (!kEmit && n_mem == 0) return;   // no member: nothing to compute
+  if (!emit && n_mem == 0) return;   // no member: nothing to compute
   const int n_acc = mem.acc_count(n_mem);
   const int n_slices = max(1, (n_acc + n_cap - 1) / n_cap);
   if (slice >= n_slices) return;
 
   const int mb0 = slice * n_cap, nmb = min(n_cap, n_acc - mb0);
-  decode_range<T, kQ>(tiles, sm, nq, k_row, mb0, nmb, first, last,
-                      plan.step, hd, scale, cap);
+  decode_range<TK, TV, kQ, kGeneral>(tiles, sm, nq, k_row, mb0, nmb, first,
+                                     last, plan.step, hd, scale, cap);
   if (plan.n_split == 1) {
-    if (kEmit && slice == 0) {
+    if (emit && slice == 0) {
       for (int j = tid; j < nq; j += kThreads) {
         o.m[j] = fmaxf(sm.m[j], -1e30f);
         o.l[j] = sm.l[j];
       }
     }
-    if (mem.share && !kEmit) {   // the rep row to every member head
+    if (mem.share && !emit) {   // the rep row to every member head
       const float den = fmaxf(sm.l[0], 1e-37f);
       for (int e = tid; e < n_mem * hd; e += kThreads) {
         const int mi = e / hd, d = e - mi * hd;
@@ -734,7 +762,7 @@ __device__ void unit_block(Tiles& tiles, float* smem, const float* q, int nq,
       const int mi = e / hd, d = e - mi * hd;
       const float x = sm.acc[e];
       o.out[static_cast<size_t>(mem.acc_row(sm, mb0 + mi)) * hd + d] =
-          kEmit ? x : x / fmaxf(sm.l[sm.mem_q[mb0 + mi]], 1e-37f);
+          emit ? x : x / fmaxf(sm.l[sm.mem_q[mb0 + mi]], 1e-37f);
     }
     return;
   }
@@ -768,7 +796,10 @@ __device__ void unit_block(Tiles& tiles, float* smem, const float* q, int nq,
   }
   __syncthreads();
   if (!*sm.flag) return;
-  merge_splits<kEmit>(sm, nq, mem, n_mem, plan.n_split, hd, part, o);
+  if (emit)
+    merge_splits<true>(sm, nq, mem, n_mem, plan.n_split, hd, part, o);
+  else
+    merge_splits<false>(sm, nq, mem, n_mem, plan.n_split, hd, part, o);
 }
 
 // Raise the kernel's dynamic shared memory limit when it needs more than
@@ -794,6 +825,30 @@ int with_queries(int nq, const Launch& launch) {
   if (nq <= 4) return launch.template run<4>();
   return launch.template run<8>();
 }
+
+// Call f(TK(), TV()) with the element types of K and V: 0 fp32, 1 bf16,
+// 2 int8 (kernels/chai_attention.py: _KV_DTYPES). Returns f's result.
+template <typename F>
+int with_elem(int type, const F& f) {
+  if (type == 2) return f(int8_t());
+  if (type == 1) return f(__nv_bfloat16());
+  return f(0.f);
+}
+
+template <typename F>
+int with_kv_types(int k_type, int v_type, const F& f) {
+  return with_elem(k_type, [&](auto tk) {
+    return with_elem(v_type, [&](auto tv) { return f(tk, tv); });
+  });
+}
+
+// The launchers' ``body`` (kernels/chai_attention.py: kv_body): the
+// serving paths' float and int8 pairings, whose bodies fix each scale
+// step by the type, or the general body.
+constexpr int kBodyGeneral = 2;
+
+// The general body's one query count: its loops skip the queries past nq.
+constexpr int kGeneralQ = kMaxQ;
 
 inline int query_bucket(int nq) {
   return nq <= 1 ? 1 : nq <= 2 ? 2 : nq <= 4 ? 4 : 8;

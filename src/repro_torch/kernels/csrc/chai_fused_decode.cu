@@ -26,10 +26,18 @@
 // round trips (positions, member list, K, V, the merge's reads), so at
 // the main path's sizes the time is that chain, not the bytes.
 //
-// The int8 mode (an int8 KV cache): the block body's int8_t instance reads
-// 8-byte loads of codes and one fp32 scale per row and position (hd + 4
-// bytes a row where bf16 moves 2 hd), the K scale on the score after the
-// dot and the V scale on the V row before A.V, as the Pallas tile does.
+// K and V each on its own (the Pallas tile casts each and applies each
+// scale only when passed): the pairings the serving paths run keep their
+// own body (one element type; K scaled iff int8), and every other pair of
+// K and V element types (fp32, bf16, int8) takes the general body, in
+// which each side's row scales are a run-time null test
+// (chai_decode_tiles.cuh: kGeneral). The int8 mode (an
+// int8 KV cache) is the int8 instance with both scales: 8-byte loads of
+// codes and one fp32 scale per
+// row and position (hd + 4 bytes a row where bf16 moves 2 hd), the K
+// scale on the score after the dot and the V scale on the V row before
+// A.V, as the Pallas tile does. A null scale reads the codes as values; a
+// scale beside float rows multiplies them the same way.
 //
 // The share mode (share_values, CHAI-QKV: the Pallas kernel's
 // ``share_values``): V is clustered like K, one row per rep, and each
@@ -54,8 +62,8 @@ struct Args {
   const float* q;
   const void* k;
   const void* v;
-  const float* ks;   // int8: (B, kv_k, S) scales of K's rows, else null
-  const float* vs;   // int8: (B, kv_v, S) scales of V's rows, else null
+  const float* ks;   // (B, kv_k, S) scales of K's rows, or null
+  const float* vs;   // (B, kv_v, S) scales of V's rows, or null
   const int* h2c;
   const int* pos;
   float* out;
@@ -72,26 +80,29 @@ struct Args {
   float cap;   // the softcap mode: cap * tanh(score / cap); 0 = off
 };
 
-template <typename T, int kQ, bool kEmit>
+template <typename TK, typename TV, int kQ, bool kEmit, bool kGeneral>
 __global__ void __launch_bounds__(kThreads)
 chai_fused_decode_kernel(const Args a) {
   extern __shared__ float4 smem_raw[];
   const int z = blockIdx.x, s = blockIdx.y, u = blockIdx.z;
   const int b = u / a.kv_k, g = u - b * a.kv_k;
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const TK* k = static_cast<const TK*>(a.k);
+  const TV* v = static_cast<const TV*>(a.v);
   const size_t kb = static_cast<size_t>(b) * a.kv_k * a.S;
   const size_t vb = static_cast<size_t>(b) * a.kv_v * a.S;
-  DenseTiles<T> tiles{k + kb * a.hd, v + vb * a.hd, a.ks ? a.ks + kb : nullptr,
-                      a.vs ? a.vs + vb : nullptr, a.S, a.hd};
+  DenseTiles<TK, TV> tiles{k + kb * a.hd, v + vb * a.hd,
+                           a.ks ? a.ks + kb : nullptr,
+                           a.vs ? a.vs + vb : nullptr, a.S, a.hd};
   const Members mem{a.h2c + static_cast<size_t>(b) * a.H, nullptr, a.H,
                     a.rpg, g, a.v_rep, a.share != 0};
   // acc rows of a batch row: the heads, or the reps under share_values
   const int rows = a.share ? a.R : a.H;
   const size_t rep0 = static_cast<size_t>(b) * a.R + g * a.rpg;
-  const Outputs o{a.out + static_cast<size_t>(b) * (kEmit ? rows : a.H) *
+  // the state mode: fixed by kEmit, or (the general body) by a.m
+  const bool emit = kGeneral ? a.m != nullptr : kEmit;
+  const Outputs o{a.out + static_cast<size_t>(b) * (emit ? rows : a.H) *
                               a.hd,
-                  kEmit ? a.m + rep0 : nullptr, kEmit ? a.l + rep0 : nullptr};
+                  emit ? a.m + rep0 : nullptr, emit ? a.l + rep0 : nullptr};
   const int ns = a.plan.n_split;
   const size_t part0 = static_cast<size_t>(b) * ns * a.R + g * a.rpg;
   const Partials part{
@@ -99,13 +110,13 @@ chai_fused_decode_kernel(const Args a) {
       a.accp ? a.accp + static_cast<size_t>(b) * ns * rows * a.hd : nullptr,
       a.R, static_cast<size_t>(rows) * a.hd, a.counter ? a.counter + u
                                                        : nullptr};
-  unit_block<T, kQ, kEmit>(tiles, reinterpret_cast<float*>(smem_raw),
-                           a.q + rep0 * a.hd, a.rpg, g, mem, a.plan, s, z,
-                           a.pos[b], a.window, a.hd, a.n_cap, a.scale, a.cap,
-                           o, part);
+  unit_block<TK, TV, kQ, kEmit, kGeneral>(
+      tiles, reinterpret_cast<float*>(smem_raw), a.q + rep0 * a.hd, a.rpg, g,
+      mem, a.plan, s, z, a.pos[b], a.window, a.hd, a.n_cap, a.scale, a.cap, o,
+      part);
 }
 
-template <typename T>
+template <typename TK, typename TV, bool kGeneral>
 struct Launch {
   Args a;
   int B;
@@ -113,9 +124,14 @@ struct Launch {
   template <int kQ>
   int run() const {
     const size_t smem = block_smem_bytes(kQ, a.hd, a.H, a.n_cap);
-    // m and l null: the finalized mode; else the state mode
-    auto kern = a.m ? chai_fused_decode_kernel<T, kQ, true>
-                    : chai_fused_decode_kernel<T, kQ, false>;
+    // m and l null: the finalized mode; else the state mode (a run-time
+    // test in the general body, which has one instance for both)
+    void (*kern)(const Args) = nullptr;
+    if constexpr (kGeneral)
+      kern = chai_fused_decode_kernel<TK, TV, kQ, false, true>;
+    else
+      kern = a.m ? chai_fused_decode_kernel<TK, TV, kQ, true, false>
+                 : chai_fused_decode_kernel<TK, TV, kQ, false, false>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     // share_values: one accumulator row a unit, one slice
@@ -128,10 +144,14 @@ struct Launch {
 
 }  // namespace
 
-// q: (B, R, hd) fp32; k: (B, kv_k, S, hd); v: (B, kv_v, S, hd), both fp32
-// (kv_type == 0), bf16 (kv_type == 1) or int8 codes (kv_type == 2, with
-// ks: (B, kv_k, S) and vs: (B, kv_v, S) fp32 row scales; else both
-// null); h2c: (B, H) int32 with values in
+// q: (B, R, hd) fp32; k: (B, kv_k, S, hd) and v: (B, kv_v, S, hd), each
+// fp32 (type 0), bf16 (1) or int8 codes (2) by k_type / v_type; ks:
+// (B, kv_k, S) and vs: (B, kv_v, S) fp32 row scales, each null or not
+// whatever the types (null: the rows read as values); ``body``
+// (kernels/chai_attention.py: kv_body): 2 the general body, else the
+// serving paths' body of k_type (v_type == k_type, ks set iff int8, vs
+// null beside float rows); h2c: (B, H) int32
+// with values in
 // [0, R); pos: (B,) int32; out: (B, H, hd) fp32; m, l: (B, R) fp32, or
 // both null. All contiguous and 16-byte aligned; hd % 8 == 0, hd <= 256;
 // R == kv_k * rpg with rpg <= 8; S % ts == 0; ``step`` (<= 128) divides
@@ -142,8 +162,8 @@ struct Launch {
 // A block serves n_cap (1..8) member heads of its unit. With m and l null, out
 // is the finalized output; otherwise the state mode writes the
 // unnormalized acc to out and each rep's m and l (emit_state). share != 0
-// (share_values): kv_v == R and rpg == 1, rep j reads V row j, int8 V may
-// come without vs (its codes read as values), and the state mode's out
+// (share_values): kv_v == R and rpg == 1, rep j reads V row j, and the
+// state mode's out
 // and accp hold R acc rows, (B, R, hd) and (B, n_split, R, hd). Returns
 // the launch's cudaError_t (0 on success); does not synchronise. ``cap``
 // != 0: the softcap mode, every score cap * tanh(score / cap) before the
@@ -154,7 +174,7 @@ extern "C" int chai_fused_decode_launch(
     void* l, void* mp, void* lp, void* accp, void* counter, int B, int R,
     int H, int kv_k, int kv_v, int S, int hd, int ts, int step, int rpg,
     int v_rep, int window, int n_split, int tps, int n_cap, int share,
-    int kv_type, float cap, void* stream) {
+    int k_type, int v_type, int body, float cap, void* stream) {
   const Args a{static_cast<const float*>(q), k, v,
                static_cast<const float*>(ks), static_cast<const float*>(vs),
                static_cast<const int*>(h2c), static_cast<const int*>(pos),
@@ -165,15 +185,22 @@ extern "C" int chai_fused_decode_launch(
                v_rep, window, n_cap,
                Plan{n_split, tps, S / ts, ts, step}, inv_sqrt_hd(hd), cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_type == 2) return with_queries(rpg, Launch<int8_t>{a, B, st});
-  if (kv_type == 1) return with_queries(rpg, Launch<__nv_bfloat16>{a, B, st});
-  return with_queries(rpg, Launch<float>{a, B, st});
+  if (body != kBodyGeneral)   // one type for K and V
+    return with_elem(k_type, [&](auto t) {
+      using T = decltype(t);
+      return with_queries(rpg, Launch<T, T, false>{a, B, st});
+    });
+  return with_kv_types(k_type, v_type, [&](auto tk, auto tv) {
+    return Launch<decltype(tk), decltype(tv), true>{a, B, st}
+        .template run<kGeneralQ>();
+  });
 }
 
 // The dynamic shared memory of one block in bytes, for a check that the
 // host's mirror (kernels/chai_attention.py) agrees.
-extern "C" int chai_decode_smem_bytes(int rpg, int hd, int n_map,
-                                      int n_cap) {
-  return static_cast<int>(block_smem_bytes(query_bucket(rpg), hd, n_map,
-                                           n_cap));
+// ``general``: the general body's (a pairing the serving paths do not run).
+extern "C" int chai_decode_smem_bytes(int rpg, int hd, int n_map, int n_cap,
+                                      int general) {
+  return static_cast<int>(block_smem_bytes(
+      general ? kGeneralQ : query_bucket(rpg), hd, n_map, n_cap));
 }

@@ -21,9 +21,10 @@
 // allocated or the null page 0, so the mixed step's rows that are not
 // STEADY (a WARMUP row's K table is all null page 0; a FREE row has pos 0)
 // read in-bounds pages only; their outputs are discarded by the caller.
-// The int8 mode reads the K and V scale pools (nP, rows, page) through the
-// same staged table entries (chai_decode_tiles.cuh: PagedTiles), so it
-// stays bitwise equal to the dense kernel's int8 mode too. The share mode
+// The K and V scale pools (nP, rows, page), each optional as in the dense
+// kernel, are read through the same staged table entries
+// (chai_decode_tiles.cuh: PagedTiles), so every K/V pairing (the int8
+// mode among them) stays bitwise equal to the dense kernel's. The share mode
 // (share_values) reads V from the clustered pool through its own table
 // (the engine's ``bt_vc``), as the dense kernel's share mode does, and the
 // softcap mode (``cap``) is the dense kernel's too.
@@ -38,8 +39,8 @@ struct Args {
   const float* q;
   const void* k_pool;
   const void* v_pool;
-  const float* ks_pool;   // int8: (nPk, kv_k, page) scales, else null
-  const float* vs_pool;   // int8: (nPv, kv_v, page) scales, else null
+  const float* ks_pool;   // (nPk, kv_k, page) scales of K, or null
+  const float* vs_pool;   // (nPv, kv_v, page) scales of V, or null
   const int* bt_k;
   const int* bt_v;
   const int* h2c;
@@ -58,27 +59,29 @@ struct Args {
   float cap;   // the softcap mode: cap * tanh(score / cap); 0 = off
 };
 
-template <typename T, int kQ, bool kEmit>
+template <typename TK, typename TV, int kQ, bool kEmit, bool kGeneral>
 __global__ void __launch_bounds__(kThreads)
 paged_chai_fused_decode_kernel(const Args a) {
   extern __shared__ float4 smem_raw[];
   const int z = blockIdx.x, s = blockIdx.y, u = blockIdx.z;
   const int b = u / a.kv_k, g = u - b * a.kv_k;
-  PagedTiles<T> tiles{static_cast<const T*>(a.k_pool),
-                      static_cast<const T*>(a.v_pool), a.ks_pool, a.vs_pool,
-                      a.bt_k + static_cast<size_t>(b) * a.P,
-                      a.bt_v + static_cast<size_t>(b) * a.P,
-                      a.kv_k, a.kv_v, a.page, a.hd,
-                      (a.page & (a.page - 1)) ? -1 : __ffs(a.page) - 1,
-                      nullptr, 0};
+  PagedTiles<TK, TV> tiles{static_cast<const TK*>(a.k_pool),
+                           static_cast<const TV*>(a.v_pool), a.ks_pool,
+                           a.vs_pool, a.bt_k + static_cast<size_t>(b) * a.P,
+                           a.bt_v + static_cast<size_t>(b) * a.P,
+                           a.kv_k, a.kv_v, a.page, a.hd,
+                           (a.page & (a.page - 1)) ? -1 : __ffs(a.page) - 1,
+                           nullptr, 0};
   const Members mem{a.h2c + static_cast<size_t>(b) * a.H, nullptr, a.H,
                     a.rpg, g, a.v_rep, a.share != 0};
   // acc rows of a batch row: the heads, or the reps under share_values
   const int rows = a.share ? a.R : a.H;
   const size_t rep0 = static_cast<size_t>(b) * a.R + g * a.rpg;
-  const Outputs o{a.out + static_cast<size_t>(b) * (kEmit ? rows : a.H) *
+  // the state mode: fixed by kEmit, or (the general body) by a.m
+  const bool emit = kGeneral ? a.m != nullptr : kEmit;
+  const Outputs o{a.out + static_cast<size_t>(b) * (emit ? rows : a.H) *
                               a.hd,
-                  kEmit ? a.m + rep0 : nullptr, kEmit ? a.l + rep0 : nullptr};
+                  emit ? a.m + rep0 : nullptr, emit ? a.l + rep0 : nullptr};
   const int ns = a.plan.n_split;
   const size_t part0 = static_cast<size_t>(b) * ns * a.R + g * a.rpg;
   const Partials part{
@@ -86,13 +89,13 @@ paged_chai_fused_decode_kernel(const Args a) {
       a.accp ? a.accp + static_cast<size_t>(b) * ns * rows * a.hd : nullptr,
       a.R, static_cast<size_t>(rows) * a.hd, a.counter ? a.counter + u
                                                        : nullptr};
-  unit_block<T, kQ, kEmit>(tiles, reinterpret_cast<float*>(smem_raw),
-                           a.q + rep0 * a.hd, a.rpg, g, mem, a.plan, s, z,
-                           a.pos[b], a.window, a.hd, a.n_cap, a.scale, a.cap,
-                           o, part);
+  unit_block<TK, TV, kQ, kEmit, kGeneral>(
+      tiles, reinterpret_cast<float*>(smem_raw), a.q + rep0 * a.hd, a.rpg, g,
+      mem, a.plan, s, z, a.pos[b], a.window, a.hd, a.n_cap, a.scale, a.cap, o,
+      part);
 }
 
-template <typename T>
+template <typename TK, typename TV, bool kGeneral>
 struct Launch {
   Args a;
   int B;
@@ -100,9 +103,14 @@ struct Launch {
   template <int kQ>
   int run() const {
     const size_t smem = block_smem_bytes(kQ, a.hd, a.H, a.n_cap);
-    // m and l null: the finalized mode; else the state mode
-    auto kern = a.m ? paged_chai_fused_decode_kernel<T, kQ, true>
-                    : paged_chai_fused_decode_kernel<T, kQ, false>;
+    // m and l null: the finalized mode; else the state mode (a run-time
+    // test in the general body, which has one instance for both)
+    void (*kern)(const Args) = nullptr;
+    if constexpr (kGeneral)
+      kern = paged_chai_fused_decode_kernel<TK, TV, kQ, false, true>;
+    else
+      kern = a.m ? paged_chai_fused_decode_kernel<TK, TV, kQ, true, false>
+                 : paged_chai_fused_decode_kernel<TK, TV, kQ, false, false>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     // share_values: one accumulator row a unit, one slice
@@ -115,11 +123,11 @@ struct Launch {
 
 }  // namespace
 
-// q: (B, R, hd) fp32; k_pool: (nPk, kv_k, page, hd); v_pool:
-// (nPv, kv_v, page, hd), both fp32 (kv_type == 0), bf16 (kv_type == 1) or
-// int8 codes (kv_type == 2, with ks_pool: (nPk, kv_k, page) and vs_pool:
-// (nPv, kv_v, page) fp32 row scales read through the same tables; else
-// both null);
+// q: (B, R, hd) fp32; k_pool: (nPk, kv_k, page, hd) and v_pool:
+// (nPv, kv_v, page, hd), each fp32 (type 0), bf16 (1) or int8 codes (2) by
+// k_type / v_type; ks_pool: (nPk, kv_k, page) and vs_pool: (nPv, kv_v,
+// page) fp32 row scales read through the same tables, each null or not
+// whatever the types; ``body`` as in chai_fused_decode_launch;
 // bt_k, bt_v: (B, P) int32 page ids into their pools; h2c: (B, H) int32
 // with values in [0, R); pos: (B,) int32; out: (B, H, hd) fp32; m, l:
 // (B, R) fp32, or both null (finalized output; otherwise the state mode,
@@ -137,7 +145,7 @@ extern "C" int paged_chai_fused_decode_launch(
     void* l, void* mp, void* lp, void* accp, void* counter, int B, int R,
     int H, int kv_k, int kv_v, int P, int page, int hd, int step, int rpg,
     int v_rep, int window, int n_split, int tps, int n_cap, int share,
-    int kv_type, float cap, void* stream) {
+    int k_type, int v_type, int body, float cap, void* stream) {
   const Args a{static_cast<const float*>(q), k_pool, v_pool,
                static_cast<const float*>(ks_pool),
                static_cast<const float*>(vs_pool),
@@ -150,7 +158,13 @@ extern "C" int paged_chai_fused_decode_launch(
                rpg, v_rep, window, n_cap,
                Plan{n_split, tps, P, page, step}, inv_sqrt_hd(hd), cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_type == 2) return with_queries(rpg, Launch<int8_t>{a, B, st});
-  if (kv_type == 1) return with_queries(rpg, Launch<__nv_bfloat16>{a, B, st});
-  return with_queries(rpg, Launch<float>{a, B, st});
+  if (body != kBodyGeneral)   // one type for K and V
+    return with_elem(k_type, [&](auto t) {
+      using T = decltype(t);
+      return with_queries(rpg, Launch<T, T, false>{a, B, st});
+    });
+  return with_kv_types(k_type, v_type, [&](auto tk, auto tv) {
+    return Launch<decltype(tk), decltype(tv), true>{a, B, st}
+        .template run<kGeneralQ>();
+  });
 }

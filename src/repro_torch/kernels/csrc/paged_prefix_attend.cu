@@ -32,6 +32,14 @@
 // after the dot and the V scale the probability before p.V, so the tensor
 // cores see the codes themselves; p * vs is split into its bf16 pieces
 // (or tf32 halves) after that product (flash_tiles.cuh: attend_tile).
+// The two scale pools are independent, as the Pallas kernel reads them.
+// The pairings the serving paths run keep their instances as they were
+// (kPool 0: a pool in the queries' type without scales; kPool 1: an int8
+// pool with both); every other pairing takes the general instance (kPool
+// 2): an int8 pool (staged as in kPool 1) or one in the queries' type
+// (staged by cp.async as in kPool 0), chosen at run time, with each scale
+// pool or none: a null one stages scale 1 for every key (its side read as
+// values).
 //
 // The softcap mode (gemma2's attention-logit cap, ``cap`` != 0): each
 // scaled score (int8: after the K scale, then 1/sqrt(hd), the Pallas
@@ -43,10 +51,10 @@ namespace {
 
 using namespace flash;
 
-template <typename P>
+template <typename P, bool kOptional>
 struct PagedRows {                 // pool (nP, KV, page, hd)
   const P* pool;
-  const float* ks;                 // int8: scale pools (nP, KV, page)
+  const float* ks;                 // scale pools (nP, KV, page), or null
   const float* vs;
   const int* bt_k;                 // the batch row's P entries
   const int* bt_v;
@@ -58,15 +66,24 @@ struct PagedRows {                 // pool (nP, KV, page, hd)
   }
   __device__ const P* krow(int j) const { return pool + at(bt_k, j) * hd; }
   __device__ const P* vrow(int j) const { return pool + at(bt_v, j) * hd; }
-  __device__ float kscale(int j) const { return ks[at(bt_k, j)]; }
-  __device__ float vscale(int j) const { return vs[at(bt_v, j)]; }
+  // kOptional: a side without scales reads as scale 1
+  __device__ float kscale(int j) const {
+    if constexpr (kOptional) return ks ? ks[at(bt_k, j)] : 1.f;
+    return ks[at(bt_k, j)];
+  }
+  __device__ float vscale(int j) const {
+    if constexpr (kOptional) return vs ? vs[at(bt_v, j)] : 1.f;
+    return vs[at(bt_v, j)];
+  }
 };
 
 struct AllVisible {                // positions past plen never enter a tile
   __device__ bool operator()(int, int) const { return true; }
 };
 
-template <typename T, int HD, bool kI8>
+// kPool: 0 a pool in T without scales; 1 int8 codes with both scales; 2
+// either pool (int8 when pool_i8), each scale optional.
+template <typename T, int HD, int kPool>
 __global__ void __launch_bounds__(kThreads)
 paged_prefix_attend_kernel(const T* __restrict__ q,
                            const void* __restrict__ pool,
@@ -78,14 +95,16 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
                            float* __restrict__ m_out,
                            float* __restrict__ l_out,
                            float* __restrict__ acc_out, int n_q, int H,
-                           int KV, int P, int page, float scale, float cap) {
+                           int KV, int P, int page, float scale, float cap,
+                           int pool_i8) {
   using L = Layout<T, HD>;
   constexpr int kTs = L::kTs;
+  constexpr bool kI8 = kPool == 1, kScaled = kPool != 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
   T* ks = qs + kBlockRows * L::kStride;    // kStages x kKeyGroups K tiles
   T* vs = ks + kStages * kKeyGroups * kTs * L::kStride;   // and V tiles
-  // int8: the tiles' K and V scales, kTs floats each per tile slot
+  // scaled: the tiles' K and V scales, kTs floats each per tile slot
   float* ksc = reinterpret_cast<float*>(vs + kStages * kKeyGroups * kTs *
                                                  L::kStride);
   float* vsc = ksc + kStages * kKeyGroups * kTs;
@@ -98,10 +117,17 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
   const int n_tiles = (n_keys + kTs - 1) / kTs;
   const int n_rounds = (n_tiles + kKeyGroups - 1) / kKeyGroups;
   using Pool = typename std::conditional<kI8, int8_t, T>::type;
-  const PagedRows<Pool> rows{static_cast<const Pool*>(pool), ks_pool,
-                             vs_pool, bt_k + static_cast<size_t>(b) * P,
-                             bt_v + static_cast<size_t>(b) * P, KV,
-                             h / (H / KV), page, HD};
+  const PagedRows<Pool, false> rows{static_cast<const Pool*>(pool), ks_pool,
+                                    vs_pool, bt_k + static_cast<size_t>(b) * P,
+                                    bt_v + static_cast<size_t>(b) * P, KV,
+                                    h / (H / KV), page, HD};
+  // the general instance's two views of the pool
+  const PagedRows<T, true> rows_t{static_cast<const T*>(pool), ks_pool,
+                                  vs_pool, rows.bt_k, rows.bt_v, KV, rows.kvh,
+                                  page, HD};
+  const PagedRows<int8_t, true> rows_i8{static_cast<const int8_t*>(pool),
+                                        ks_pool, vs_pool, rows.bt_k,
+                                        rows.bt_v, KV, rows.kvh, page, HD};
   if (n_tiles > 0) {
     stage_rows<T, HD>(qs, kBlockRows, n_q - q0, [&](int r) {
       return q + ((static_cast<size_t>(b) * n_q + q0 + r) * H + h) * HD;
@@ -117,7 +143,30 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
     for (int t = r * kKeyGroups; t < min(n_tiles, (r + 1) * kKeyGroups);
          ++t) {
       const int k0 = t * kTs, n = min(kTs, n_keys - k0);
-      if constexpr (kI8) {
+      if constexpr (kPool == 2) {
+        const int sc0 = tile_slot(t) * kTs;
+        if (pool_i8) {
+          stage_codes<T, HD>(
+              ks + slot(t), ksc + sc0, kTs, n,
+              [&](int j) { return rows_i8.krow(k0 + j); },
+              [&](int j) { return rows_i8.kscale(k0 + j); }, tid, kThreads);
+          stage_codes<T, HD>(
+              vs + slot(t), vsc + sc0, kTs, n,
+              [&](int j) { return rows_i8.vrow(k0 + j); },
+              [&](int j) { return rows_i8.vscale(k0 + j); }, tid, kThreads);
+        } else {
+          stage_rows<T, HD>(ks + slot(t), kTs, n,
+                            [&](int j) { return rows_t.krow(k0 + j); }, tid,
+                            kThreads);
+          stage_rows<T, HD>(vs + slot(t), kTs, n,
+                            [&](int j) { return rows_t.vrow(k0 + j); }, tid,
+                            kThreads);
+          for (int j = tid; j < kTs; j += kThreads) {
+            ksc[sc0 + j] = j < n ? rows_t.kscale(k0 + j) : 0.f;
+            vsc[sc0 + j] = j < n ? rows_t.vscale(k0 + j) : 0.f;
+          }
+        }
+      } else if constexpr (kI8) {
         const int sc0 = tile_slot(t) * kTs;
         stage_codes<T, HD>(
             ks + slot(t), ksc + sc0, kTs, n,
@@ -154,7 +203,7 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
     __syncthreads();
     const int t = r * kKeyGroups + kg;
     if (t < n_tiles && w_live)
-      attend_tile<T, HD, kI8>(qs + wq * kRows * L::kStride, ks + slot(t),
+      attend_tile<T, HD, kScaled>(qs + wq * kRows * L::kStride, ks + slot(t),
                               vs + slot(t), min(kTs, n_keys - t * kTs),
                               AllVisible{}, scale, cap, st,
                               ksc + tile_slot(t) * kTs,
@@ -167,19 +216,19 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
     store_rows<T, HD>(st, b, h, r0, n_q, H, nullptr, m_out, l_out, acc_out);
 }
 
-template <typename T, bool kI8>
+template <typename T, int kPool>
 int launch(const void* q, const void* pool, const void* ks_pool,
            const void* vs_pool, const void* bt_k, const void* bt_v,
            const void* plen, void* m_out, void* l_out, void* acc_out, int B,
            int n_q, int H, int KV, int P, int page, int hd, float cap,
-           cudaStream_t stream) {
+           int pool_i8, cudaStream_t stream) {
   return with_head_dim(hd, [&](auto hd_c) {
     constexpr int HD = decltype(hd_c)::value;
     using L = Layout<T, HD>;
-    // int8: the tiles' scales after the tiles (a key's K and V scale)
+    // scaled: the tiles' scales after the tiles (a key's K and V scale)
     constexpr size_t smem =
-        L::kBytes + (kI8 ? 2 * kStages * kKeyGroups * L::kTs * 4 : 0);
-    auto kern = paged_prefix_attend_kernel<T, HD, kI8>;
+        L::kBytes + (kPool ? 2 * kStages * kKeyGroups * L::kTs * 4 : 0);
+    auto kern = paged_prefix_attend_kernel<T, HD, kPool>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((n_q + kBlockRows - 1) / kBlockRows, H, B);
@@ -189,35 +238,42 @@ int launch(const void* q, const void* pool, const void* ks_pool,
         static_cast<const int*>(bt_k), static_cast<const int*>(bt_v),
         static_cast<const int*>(plen), static_cast<float*>(m_out),
         static_cast<float*>(l_out), static_cast<float*>(acc_out), n_q, H,
-        KV, P, page, inv_sqrt_hd(HD), cap);
+        KV, P, page, inv_sqrt_hd(HD), cap, pool_i8);
     return static_cast<int>(cudaGetLastError());
   });
 }
 
 }  // namespace
 
-// q: (B, n_q, H, hd); pool: (nP, KV, page, hd), both fp32 (bf16 == 0) or
-// bf16 (bf16 == 1), or an int8 pool (i8 == 1) with its fp32 scale pools
-// ks_pool, vs_pool (nP, KV, page) (else both null) beside a q of either
-// type; bt_k, bt_v: (B, P) int32 page ids into the pool; plen:
-// (B,) int32 cached positions; m_out, l_out: (B, H, n_q) and acc_out:
-// (B, H, n_q, hd) fp32. All contiguous and 16-byte aligned; H % KV == 0,
-// hd a power of two from 8 to 256 or 224 (else cudaErrorInvalidValue);
-// cap != 0: the softcap. Returns the launch's cudaError_t (0 on success);
-// does not synchronise.
+// q: (B, n_q, H, hd); pool: (nP, KV, page, hd), both fp32 (bf16 == 0) or bf16
+// (bf16 == 1), or an int8 pool (i8 == 1) beside a q of either type; ks_pool,
+// vs_pool (nP, KV, page) fp32 scale pools, each null or not (a null one reads
+// its side as values); ``kind`` (kernels/chai_attention.py: kv_body, with
+// raw int8 V a general pairing): 0 a pool in q's type without scales, 1
+// an int8 pool with both scale pools, 2 any other pairing (kPool); bt_k,
+// bt_v: (B, P) int32 page ids into the pool; plen:
+// (B,) int32 cached positions; m_out, l_out: (B, H, n_q) and acc_out: (B, H,
+// n_q, hd) fp32. All contiguous and 16-byte aligned; H % KV == 0, hd a power
+// of two from 8 to 256 or 224 (else cudaErrorInvalidValue); cap != 0: the
+// softcap. Returns the launch's cudaError_t (0 on success); does not
+// synchronise.
 extern "C" int paged_prefix_attend_launch(
     const void* q, const void* pool, const void* ks_pool, const void* vs_pool,
     const void* bt_k, const void* bt_v, const void* plen, void* m_out,
     void* l_out, void* acc_out, int B, int n_q, int H, int KV, int P,
-    int page, int hd, int bf16, int i8, float cap, void* stream) {
+    int page, int hd, int bf16, int i8, int kind, float cap,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto t, auto i8_c) {
-    return launch<decltype(t), decltype(i8_c)::value>(
-        q, pool, ks_pool, vs_pool, bt_k, bt_v, plen, m_out, l_out, acc_out,
-        B, n_q, H, KV, P, page, hd, cap, st);
+  auto go = [&](auto t) {
+    using T = decltype(t);
+    auto run = [&](auto kind_c) {
+      return launch<T, decltype(kind_c)::value>(
+          q, pool, ks_pool, vs_pool, bt_k, bt_v, plen, m_out, l_out, acc_out,
+          B, n_q, H, KV, P, page, hd, cap, i8, st);
+    };
+    if (kind == 1) return run(std::integral_constant<int, 1>());
+    if (kind == 2) return run(std::integral_constant<int, 2>());
+    return run(std::integral_constant<int, 0>());
   };
-  if (bf16)
-    return i8 ? go(__nv_bfloat16(), std::true_type())
-              : go(__nv_bfloat16(), std::false_type());
-  return i8 ? go(0.f, std::true_type()) : go(0.f, std::false_type());
+  return bf16 ? go(__nv_bfloat16()) : go(0.f);
 }

@@ -68,13 +68,21 @@
 // in every map: their rows read in-bounds rows and compute values the
 // caller's scatter discards.
 //
-// The int8 mode (packed int8 codes with their scale planes ks (G, KV, Sp)
-// and vs (G, VR, Sp)): the score blocks multiply each position's dot by
-// its K row's scale before 1/sqrt(hd), and the sum blocks dequantize each
-// V row (codes times the row's scale) before weighting it, as the Pallas
-// kernel does; a load carries 8 codes. Without V scales (vs null: the
-// share_values relay, whose V codes the reference reads scale-less) the
-// sum blocks weight the codes themselves; K keeps its scales.
+// K and V each on its own, as the Pallas kernel casts each and applies
+// each scale only when passed: the score blocks read K and the sum blocks
+// V, each of its own element type (fp32, bf16, int8) and with its scale
+// plane (ks (G, KV, Sp), vs (G, VR, Sp)) or none. The pairings the
+// serving paths run (one type; K scaled iff int8; V scaled, or not, under
+// int8) keep the blocks whose scale steps the type fixes, as they were
+// before K and V were split; every other pair of types takes the general
+// blocks (kGeneral), where each scale is a run-time null test
+// (the launcher's ``body``). With ks the score blocks multiply
+// each position's dot by its K row's scale before 1/sqrt(hd); with vs the
+// sum blocks dequantize each V row (the row times its scale) before
+// weighting it, as the Pallas kernel does. A null scale reads the rows
+// (int8 codes too) as values. The int8 mode is int8 K and V with both
+// scales (a load carries 8 codes); the share_values relay's V is int8
+// codes without scales.
 //
 // The softcap mode (gemma2's attention-logit cap, ``cap`` != 0): the score
 // blocks cap each scaled score (int8: after the K scale, then
@@ -98,8 +106,8 @@ struct Args {
   const float* q;
   const void* k;
   const void* v;
-  const float* ks;  // int8: (G, KV, Sp) K row scales, else null
-  const float* vs;  // int8: (G, VR, Sp) V row scales, else null
+  const float* ks;  // (G, KV, Sp) K row scales, or null
+  const float* vs;  // (G, VR, Sp) V row scales, or null
   const int* k_row;
   const int* a_row;
   const int* v_row;
@@ -269,11 +277,12 @@ __device__ inline Range split_range(const Args& a, int g, int s) {
 
 // One chunk's scores of a K row for the block's nq queries (sm.big, kQ
 // rows of hd, zero past nq): thread i takes position c0 + i, row loads of
-// the K row dotted with every query, scaled (int8: by the row's scale
-// ``kscale[c0 + i]`` first), capped when cap != 0; into sm.chunk (query j
+// the K row dotted with every query, scaled (by the row's scale
+// ``kscale[c0 + i]`` first when kscale is set), capped when cap != 0;
+// into sm.chunk (query j
 // at j * kChunk) and into the scores scratch ``out`` (query j's row at
 // sm.rows[j] * Sp).
-template <typename T, int kQ>
+template <typename T, int kQ, bool kGeneral>
 __device__ void score_chunk(const T* krow, const float* kscale,
                             const Smem& sm, int nq, int c0, int n, int hd,
                             int sp, float scale, float cap, float* out) {
@@ -292,12 +301,14 @@ __device__ void score_chunk(const T* krow, const float* kscale,
 #pragma unroll
         for (int u = 0; u < kVec; ++u) dot[j] += sm.big[j * hd + d + u] * kv[u];
     }
+    // a K scale: a run-time test in the general blocks, else int8's
+    const bool k_scaled = kGeneral ? kscale != nullptr : kIsInt8<T>;
     float ks = 1.f;
-    if constexpr (kIsInt8<T>) ks = kscale[c0 + i];
+    if (k_scaled) ks = kscale[c0 + i];
 #pragma unroll
     for (int j = 0; j < kQ; ++j) {
       if (j < nq) {
-        float x = kIsInt8<T> ? dot[j] * ks * scale : dot[j] * scale;
+        float x = k_scaled ? dot[j] * ks * scale : dot[j] * scale;
         if (cap != 0.f) x = cap * tanhf(x / cap);   // the softcap mode
         sm.chunk[j * kChunk + i] = x;
         out[static_cast<size_t>(sm.rows[j]) * sp + c0 + i] = x;
@@ -307,7 +318,7 @@ __device__ void score_chunk(const T* krow, const float* kscale,
 }
 
 // A score block: slice t of group g's K rows over split s.
-template <typename T>
+template <typename T, bool kGeneral>
 __device__ void score_block(const Args& a, const Smem& sm, int g, int s,
                             int t) {
   constexpr int kQW = kMaxQ / kWarps;   // queries per warp
@@ -346,17 +357,17 @@ __device__ void score_block(const Args& a, const Smem& sm, int g, int s,
     const int n = min(kChunk, r.last - c0 + 1);
     __syncthreads();
     if (nq <= 1)
-      score_chunk<T, 1>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
-                        a.cap, out);
+      score_chunk<T, 1, kGeneral>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp,
+                                  a.scale, a.cap, out);
     else if (nq <= 2)
-      score_chunk<T, 2>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
-                        a.cap, out);
+      score_chunk<T, 2, kGeneral>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp,
+                                  a.scale, a.cap, out);
     else if (nq <= 4)
-      score_chunk<T, 4>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
-                        a.cap, out);
+      score_chunk<T, 4, kGeneral>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp,
+                                  a.scale, a.cap, out);
     else
-      score_chunk<T, kMaxQ>(krow, kscale, sm, nq, c0, n, a.hd, a.Sp, a.scale,
-                            a.cap, out);
+      score_chunk<T, kMaxQ, kGeneral>(krow, kscale, sm, nq, c0, n, a.hd,
+                                      a.Sp, a.scale, a.cap, out);
     __syncthreads();
 #pragma unroll
     for (int u = 0; u < kQW; ++u) {
@@ -413,7 +424,7 @@ __device__ void score_block(const Args& a, const Smem& sm, int g, int s,
 }
 
 // A sum block: slice u of group g's V rows over split s.
-template <typename T>
+template <typename T, bool kGeneral>
 __device__ void sum_block(const Args& a, const Smem& sm, int g, int s,
                           int u) {
   constexpr int kVec = Vec16<T>::n;
@@ -476,7 +487,9 @@ __device__ void sum_block(const Args& a, const Smem& sm, int g, int s,
           if (p < n) {
             float vv[kVec];
             Vec16<T>::unpack(raw[b], vv);
-            if constexpr (kIsInt8<T>) {   // dequantize before the sum
+            // dequantize before the sum: V scales are read by the int8
+            // type's blocks and the general ones, where vs is set
+            if constexpr (kGeneral || kIsInt8<T>) {
               if (vscale) {
                 const float vsc = vscale[c0 + p];
 #pragma unroll
@@ -591,7 +604,7 @@ __device__ void sum_block(const Args& a, const Smem& sm, int g, int s,
   }
 }
 
-template <typename T>
+template <typename TK, typename TV, bool kGeneral>
 __global__ void __launch_bounds__(kThreads)
 relay_prefix_decode_kernel(const Args a) {
   extern __shared__ float4 smem_raw[];
@@ -608,20 +621,21 @@ relay_prefix_decode_kernel(const Args a) {
   const int per_q = a.n_split * a.q_slots;
   if (id < a.G * per_q) {
     const int g = id / per_q, rest = id - g * per_q;
-    score_block<T>(a, sm, g, rest / a.q_slots, rest % a.q_slots);
+    score_block<TK, kGeneral>(a, sm, g, rest / a.q_slots, rest % a.q_slots);
   } else {
     const int per_v = a.n_split * a.v_slots, j = id - a.G * per_q;
     const int g = j / per_v, rest = j - g * per_v;
-    sum_block<T>(a, sm, g, rest / a.v_slots, rest % a.v_slots);
+    sum_block<TV, kGeneral>(a, sm, g, rest / a.v_slots, rest % a.v_slots);
   }
 }
 
 }  // namespace
 
-// q: (G, NR, hd) fp32; k: (G, KV, Sp, hd); v: (G, VR, Sp, hd), both fp32
-// (kv_type == 0), bf16 (kv_type == 1) or int8 codes (kv_type == 2, with
-// ks: (G, KV, Sp) and vs: (G, VR, Sp) fp32 row scales, vs may be null:
-// V codes read as values; float K/V: both null);
+// q: (G, NR, hd) fp32; k: (G, KV, Sp, hd) and v: (G, VR, Sp, hd), each
+// fp32 (type 0), bf16 (1) or int8 codes (2) by k_type / v_type; ks:
+// (G, KV, Sp) and vs: (G, VR, Sp) fp32 row scales, each null or not
+// whatever the types (null: the rows read as values); ``body`` as in
+// chai_fused_decode_launch;
 // k_row: (G, NR) int32 in [0, KV);
 // a_row: (G, A) int32 in [0, NR); v_row: (G, A) int32 in [0, VR); plen:
 // (G,) int32 in [0, Sp]; m, l: (G, NR) fp32; acc: (G, A, hd) fp32. All
@@ -640,7 +654,8 @@ extern "C" int relay_prefix_decode_launch(
     const void* plen, void* m, void* l, void* acc, void* mp, void* lp,
     void* accp, void* sc, void* counter, int G, int NR, int A, int KV,
     int VR, int Sp, int hd, int ts, int n_split, int tps, int q_slots,
-    int v_slots, int kv_type, float cap, void* stream) {
+    int v_slots, int k_type, int v_type, int body, float cap,
+    void* stream) {
   const Args a{static_cast<const float*>(q), k, v,
                static_cast<const float*>(ks), static_cast<const float*>(vs),
                static_cast<const int*>(k_row), static_cast<const int*>(a_row),
@@ -659,9 +674,14 @@ extern "C" int relay_prefix_decode_launch(
     kern<<<grid, kThreads, kSmemBytes, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   };
-  if (kv_type == 2) return run(relay_prefix_decode_kernel<int8_t>);
-  if (kv_type == 1) return run(relay_prefix_decode_kernel<__nv_bfloat16>);
-  return run(relay_prefix_decode_kernel<float>);
+  if (body != kBodyGeneral)   // one type for K and V
+    return with_elem(k_type, [&](auto t) {
+      using T = decltype(t);
+      return run(relay_prefix_decode_kernel<T, T, false>);
+    });
+  return with_kv_types(k_type, v_type, [&](auto tk, auto tv) {
+    return run(relay_prefix_decode_kernel<decltype(tk), decltype(tv), true>);
+  });
 }
 
 // The dynamic shared memory of one block in bytes, for a check that the

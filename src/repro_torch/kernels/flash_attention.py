@@ -144,12 +144,15 @@ def paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, *, k_scale_pool=None,
     q's dtype (fp32/bf16), read in place: it must be contiguous already
     (a copy would move the whole pool every call); bt_k/bt_v: (B, P)
     block tables (K and V are distinct pages of the one pool); plen:
-    (B,) cached positions (cut at P * page). The int8 mode: an int8 pool
-    with its fp32 scale pools k_scale_pool and v_scale_pool (nP, KV,
-    page) (the engine passes one scale pool as both), read through the
-    same tables: the K scale multiplies the score after the dot, the V
-    scale the probability before p.V. ``softcap`` != 0: each scaled score
-    (int8: after the K scale) becomes softcap * tanh(score / softcap).
+    (B,) cached positions (cut at P * page). The pool may also be int8
+    codes beside a q of either dtype. Each side takes its fp32 scale pool
+    or none, as the Pallas wrapper does: k_scale_pool and v_scale_pool
+    (nP, KV, page), read through the same tables (the int8 mode: an int8
+    pool with both; the engine passes one scale pool as both); the K
+    scale multiplies the score after the dot, the V scale the probability
+    before p.V, and a side without one is read as values (int8 codes
+    too). ``softcap`` != 0: each scaled score (after the K scale) becomes
+    softcap * tanh(score / softcap).
     Returns the head-major triple (m (B, H, T), l (B, H, T), acc (B, H,
     T, hd)) fp32 from ONE kernel launch; a row with plen == 0 holds the
     merge identity (m = -2e38, l = 0, acc = 0) and reads no page.
@@ -178,20 +181,25 @@ def paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, *, k_scale_pool=None,
     _check_aligned("paged_prefix_attend", q=q, kv_pool=kv_pool)
     tables = [x.to(device=dev, dtype=torch.int32).contiguous()
               for x in (bt_k, bt_v, plen)]
+    # the serving paths' pools keep their instances (kPool 0 and 1); the
+    # int8 one reads both scale pools, so raw int8 V is a general pairing
+    body = ck.kv_body(kv_pool, k_scale_pool, kv_pool, v_scale_pool,
+                      int8_raw_v=False)
     m, l, acc = _state(b, h, t, hd, dev)
-    fn = _launcher("paged_prefix_attend", 10, 9, 1)
+    fn = _launcher("paged_prefix_attend", 10, 10, 1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), kv_pool.data_ptr(), ck._ptr(k_scale_pool),
                  ck._ptr(v_scale_pool), *(x.data_ptr() for x in tables),
                  m.data_ptr(), l.data_ptr(), acc.data_ptr(), b, t, h,
                  kv_pool.shape[1], n_pages, kv_pool.shape[2], hd,
-                 _DTYPES[q.dtype], int(int8), float(softcap), stream)
+                 _DTYPES[q.dtype], int(int8), body, float(softcap), stream)
     if err:
         raise RuntimeError(f"paged_prefix_attend launch failed: CUDA error "
                            f"{err}")
-    ck.count_launch(LAUNCHES, "paged_prefix_attend", int8=int8,
-                    softcap=softcap)
+    ck.count_launch(LAUNCHES, "paged_prefix_attend",
+                    **ck.kv_modes(body, kv_pool, k_scale_pool, kv_pool,
+                                  v_scale_pool), softcap=softcap)
     return m, l, acc
 
 

@@ -58,9 +58,10 @@ def chai_decode_attention(q_rep, k_cache, v_cache, h2c, pos, *,
                           emit_state=False):
     """q_rep: (B, R, hd); k_cache: (B, KVk, S, hd) (clustered for MHA:
     KVk == R); v_cache: (B, KVv, S, hd); h2c: (B, H) or (H,); pos: (B,).
-    int8 K/V come with their scales k_scale (B, KVk, S) and v_scale (B,
-    KVv, S). ``share_values``: v_cache is the clustered V (KVv == R; int8
-    codes with or without scales). Returns (B, H, hd) fp32, or with
+    K and V each fp32, bf16 or int8, each with or without its row scales
+    k_scale (B, KVk, S) / v_scale (B, KVv, S) (the int8 cache passes
+    both; a side without scales is read as values). ``share_values``:
+    v_cache is the clustered V (KVv == R). Returns (B, H, hd) fp32, or with
     ``emit_state`` the unnormalized (m (B, R), l (B, R), acc (B, H, hd))
     fp32 triple (acc (B, R, hd) under ``share_values``)."""
     if q_rep.device.type == "cpu":
@@ -82,9 +83,10 @@ def paged_chai_decode_attention(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos,
     """The decode op over the engine's paged layout. q_rep: (B, R, hd);
     k_pool: (nP, KVk, page, hd) clustered pages (MHA: KVk == k_max);
     v_pool: (nP, KVv, page, hd) per-head V pages; bt_k/bt_v: (B, P)
-    block tables; h2c: (B, H) or (H,); pos: (B,); int8 pools with their
-    scale pools k_scale_pool (nP, KVk, page) and v_scale_pool (nP, KVv,
-    page). ``share_values``: v_pool is the clustered pool read through
+    block tables; h2c: (B, H) or (H,); pos: (B,); each pool fp32, bf16 or
+    int8, each with or without its scale pool k_scale_pool (nP, KVk,
+    page) / v_scale_pool (nP, KVv, page). ``share_values``: v_pool is the
+    clustered pool read through
     bt_v. Returns (B, H, hd) fp32, or the ``emit_state`` triple."""
     if q_rep.device.type == "cpu":
         return ref.paged_chai_fused_decode_ref(
@@ -104,8 +106,9 @@ def relay_prefix_attention(q, k, v, k_row, a_row, v_row, plen, *,
     """One pass per relay group over its packed shared prefix: the member
     slots' rep queries stacked along one row axis, so the prefix is read
     once per group, not once per slot. q: (G, NR, hd); k: (G, KV, Sp,
-    hd); v: (G, VR, Sp, hd) (int8 with their scales k_scale (G, KV, Sp)
-    and v_scale (G, VR, Sp), or without v_scale: V codes read as values);
+    hd); v: (G, VR, Sp, hd), each fp32, bf16 or int8, each with or
+    without its scales k_scale (G, KV, Sp) / v_scale (G, VR, Sp) (a side
+    without scales is read as values);
     k_row (G, NR), a_row/v_row (G, A) int
     routing maps; plen (G,); ``softcap`` != 0 caps every scaled score.
     Returns the (m (G, NR), l (G, NR), acc (G, A, hd)) fp32 state; ``ts``
@@ -181,8 +184,9 @@ def paged_prefix_attention(q, kv_pool, bt_k, bt_v, plen, *,
                            softcap=0.0):
     """Queries (B, T, H, hd) over the cached positions < plen (B,) of one
     layer's page pool (nP, KV, page, hd), read through the block tables
-    bt_k/bt_v (B, P), with no causal mask; an int8 pool with its scale
-    pools (nP, KV, page); scores capped at ``softcap`` when != 0. Returns
+    bt_k/bt_v (B, P), with no causal mask; the pool in q's dtype or int8,
+    each side with its scale pool (nP, KV, page) or none; scores capped
+    at ``softcap`` when != 0. Returns
     the head-major (m, l, acc) fp32 triple; a row with plen == 0 is the
     merge identity."""
     kw = dict(k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool,

@@ -23,8 +23,9 @@ the reference's structs; ``compact_kv``, ``compact_kv_slot`` and
 ``compact_kv_slot_paged`` bitwise against the reference (codes and
 scales); the insert and page-copy steps carrying scales; the KV-bytes
 accounting equal to the reference's (1 + 4 / hd bytes an element; a bf16
-model at hd 128 pays 132 / 256 of its page bytes). The wrappers refuse
-int8 K/V without their scales; ``share_values`` with int8 has the
+model at hd 128 pays 132 / 256 of its page bytes). The wrappers take K
+and V each with or without its scales, as the Pallas wrappers do (a scale
+of the wrong shape is refused); ``share_values`` with int8 has the
 reference's state shapes (``test_share_values_with_int8_still_raises``,
 the name it had while the flag was refused).
 """
@@ -239,12 +240,11 @@ def _meta(*shape, dtype=torch.float32):
 ], ids=["no_scales", "one_scale", "mixed_dtype", "float_scaled",
         "scale_shape"])
 def test_int8_wrappers_refuse_unpaired_scales(kw):
-    """K and V are int8 together, each with fp32 scales of its shape
-    without the last axis; the check comes before the device check, so it
-    holds on ``meta`` tensors, and nothing launches. The relay kernel alone
-    takes int8 V without its scales (the share_values relay reads V codes
-    as values, as the reference does): "one_scale" reaches its device
-    check."""
+    """K and V are each read on their own, as the Pallas bodies read them:
+    int8 without scales, with one side's scale, int8 K beside bf16 V and
+    scales beside bf16 rows all pass the wrappers' checks and reach the
+    device check (``meta`` tensors: nothing launches); a scale whose shape
+    is not its side's without the last axis is still refused before it."""
     k = _meta(2, 5, 64, 16, dtype=kw["k_dt"])
     v = _meta(2, 8, 64, 16, dtype=kw["v_dt"])
     ks = _meta(2, 5, 64) if kw.get("ks") else None
@@ -253,12 +253,10 @@ def test_int8_wrappers_refuse_unpaired_scales(kw):
     args = (_meta(2, 5, 16), k, v, _meta(2, 8, dtype=torch.int32),
             _meta(2, dtype=torch.int32))
     before = dict(tck.LAUNCHES)
-    with pytest.raises(ValueError, match="scale"):
+    match = "scale" if kw.get("bad") else "CUDA"
+    with pytest.raises(ValueError, match=match):
         tck.chai_fused_decode(*args, k_scale=ks, v_scale=vs)
-    relay_refuses = not (kw.get("ks") and not kw.get("vs")
-                         and kw["v_dt"] == torch.int8)
-    with pytest.raises(ValueError,
-                       match="scale" if relay_refuses else "CUDA"):
+    with pytest.raises(ValueError, match=match):
         tck.relay_prefix_decode(
             _meta(2, 5, 16), k, v, _meta(2, 5, dtype=torch.int32),
             _meta(2, 8, dtype=torch.int32), _meta(2, 8, dtype=torch.int32),
@@ -297,11 +295,18 @@ def test_int8_modes_reach_the_device_check():
             _meta(1, 2, dtype=torch.int32), _meta(1, 2, dtype=torch.int32),
             _meta(1, dtype=torch.int32), k_scale_pool=_meta(5, 2, PAGE),
             v_scale_pool=_meta(5, 2, PAGE))
-    with pytest.raises(ValueError, match="scale"):
+    # an int8 pool without scales reads its codes as values (the Pallas
+    # kernel's cast), and a scale pool of the wrong shape is refused
+    with pytest.raises(ValueError, match="CUDA"):
         tfk.paged_prefix_attend(
             _meta(1, 8, 4, 16), _meta(5, 2, PAGE, 16, dtype=i8),
             _meta(1, 2, dtype=torch.int32), _meta(1, 2, dtype=torch.int32),
             _meta(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="scale"):
+        tfk.paged_prefix_attend(
+            _meta(1, 8, 4, 16), _meta(5, 2, PAGE, 16, dtype=i8),
+            _meta(1, 2, dtype=torch.int32), _meta(1, 2, dtype=torch.int32),
+            _meta(1, dtype=torch.int32), v_scale_pool=_meta(5, 2, 8))
     assert (dict(tck.LAUNCHES), dict(tfk.LAUNCHES)) == before
 
 

@@ -5,7 +5,10 @@ Stage level: each plain version (``kernels/ref.py``) against its Pallas
 kernel in interpret mode, on the same numpy inputs: raw scores of
 ``chai_qk_ref`` / ``chai_qk_i8_ref`` / ``paged_chai_qk_ref`` at atol =
 rtol = 1e-5 with the masked entries exactly ``NEG_INF`` (-2e38) in both,
-``row_softmax_ref`` (a fully masked row gives zeros), ``chai_av_ref`` /
+``row_softmax_ref`` (a fully masked row gives zeros) and
+``softmax_launch_config`` (every entry read once, clusters and blocks
+within their limits; the kernel's arithmetic in its plan order against
+the Pallas ``row_softmax``), ``chai_av_ref`` /
 ``paged_chai_av_ref`` (h2c (B, H) and (H,); fp32, bf16 and int8 V codes
 read as values) at 2e-5; MHA, GQA, window, int8 and paged (shuffled
 pages, null page 0 in the tables past pos), and the QK pair on raw int8
@@ -344,6 +347,146 @@ def test_row_softmax_ref_matches_pallas_with_masked_row(rng):
     assert torch.equal(got[0], torch.zeros(r, s))
     assert np.all(np.asarray(want)[0] == 0)
     torch.testing.assert_close(got[1:].sum(-1), torch.ones(b - 1, r))
+
+
+def _softmax_threads(cfg, rows, s):
+    """The (row, element) pairs each launch of ``row_softmax.cu`` reads
+    under plan ``cfg``, as its indexing gives them: [(row, elements) per
+    (block, thread, chunk, load)] flattened into two int64 arrays, and
+    each thread's (row, place g among the row's threads)."""
+    threads = cfg.team * (1 if cfg.cluster > 1 else cfg.rows_per_block)
+    bx, tid = np.divmod(np.arange(cfg.blocks * threads), threads)
+    if cfg.cluster > 1:
+        row, g = bx // cfg.cluster, (bx % cfg.cluster) * cfg.team + tid
+    else:
+        row, g = bx * cfg.rows_per_block + tid // cfg.team, tid % cfg.team
+    tt = cfg.team * cfg.cluster
+    loads = np.arange(cfg.chunks * cfg.vecs)
+    vi = loads[None, :] * tt + g[:, None]             # (threads, loads)
+    live = (row[:, None] < rows) & (vi < cfg.n_vec)
+    elem = vi[..., None] * cfg.vw + np.arange(cfg.vw)
+    r = np.broadcast_to(row[:, None, None], elem.shape)
+    keep = np.broadcast_to(live[..., None], elem.shape)
+    return r[keep], elem[keep], row, g
+
+
+@pytest.mark.parametrize("rows,s", [
+    (1, 3), (3, 16), (100, 1024), (160, 1024), (4, 77), (1000, 2048),
+    (25, 8192), (400, 8192), (2, 16384), (25, 65536), (3, 65537),
+    (2, 131072)])
+def test_row_softmax_launch_config_covers_each_entry_once(rows, s):
+    """``softmax_launch_config``: every (row, position) read by exactly
+    one thread's load, none past the row; 16-byte loads only where S % 4
+    == 0; teams of whole warps in one block of at most 256 threads; a
+    cluster of at most 8 blocks (the portable size) whose blocks take one
+    row; at most 8 loads a thread; one read (the row held in registers)
+    up to S = 65,536 at 16-byte loads, two reads past it; the static
+    shared memory within the block limit."""
+    cfg = tck.softmax_launch_config(rows, s)
+    r, e, row, g = _softmax_threads(cfg, rows, s)
+    assert e.max() < s and r.max() < rows
+    counts = np.bincount(r * s + e, minlength=rows * s)
+    assert counts.min() == 1 and counts.max() == 1
+    assert cfg.vw == (4 if s % 4 == 0 else 1)
+    assert cfg.team % 32 == 0 and cfg.vecs in (1, 2, 4, 8)
+    assert cfg.team * cfg.rows_per_block <= tck.SOFTMAX_THREADS
+    assert 1 <= cfg.cluster <= tck.SOFTMAX_MAX_CLUSTER
+    if cfg.cluster > 1:
+        assert cfg.rows_per_block == 1 and cfg.blocks % cfg.cluster == 0
+    capacity = (tck.SOFTMAX_MAX_CLUSTER * tck.SOFTMAX_THREADS
+                * tck.SOFTMAX_MAX_VECS)     # loads a cluster holds
+    assert (cfg.chunks == 1) == (cfg.n_vec <= capacity)
+    assert cfg.smem_bytes <= tck._SMEM_LIMIT
+    assert set(np.unique(row[row < rows])) == set(range(rows))
+
+
+def _softmax_in_plan_order(x, cfg):
+    """``row_softmax.cu``'s arithmetic in torch on the plan's threads:
+    each thread's (m_t, l_t) over its loads (chunk by chunk, merged
+    online), the warp's max and its rescaled sum, the team's warps and
+    the cluster's blocks merged in order, then y = exp(x - m_t) exp(m_t -
+    m) / l (one read) or exp(x - m) / l (two), the quotient as a
+    reciprocal and one correction (exact in fp64 here)."""
+    b, rr, s = x.shape
+    rows = b * rr
+    xf = x.reshape(rows, s)
+    tt = cfg.team * cfg.cluster
+    xp = torch.full((rows, cfg.chunks * cfg.vecs * tt * cfg.vw),
+                    tref.NEG_INF)
+    xp[:, :s] = xf
+    # (row, thread g, load i, element) of load vi = i * tt + g
+    vals = xp.reshape(rows, cfg.chunks * cfg.vecs, tt, cfg.vw).transpose(
+        1, 2)                                   # (rows, tt, loads, vw)
+    vals = vals.reshape(rows, tt, cfg.chunks, cfg.vecs * cfg.vw)
+
+    def merge(m1, l1, m2, l2):
+        m = torch.maximum(m1, m2)
+        return m, l1 * torch.exp(m1 - m) + l2 * torch.exp(m2 - m)
+    m_t = torch.full((rows, tt), -1e30)
+    l_t = torch.zeros(rows, tt)
+    for c in range(cfg.chunks):
+        mc = torch.clamp(vals[:, :, c].amax(-1), min=-1e30)
+        lc = torch.exp(vals[:, :, c] - mc[..., None]).sum(-1)
+        m_t, l_t = merge(m_t, l_t, mc, lc)
+    warps = m_t.reshape(rows, tt // 32, 32)
+    mw = warps.amax(-1)
+    lw = (l_t.reshape(rows, tt // 32, 32)
+          * torch.exp(warps - mw[..., None])).sum(-1)
+    m, l = mw[:, 0], lw[:, 0]
+    for w in range(1, tt // 32):
+        m, l = merge(m, l, mw[:, w], lw[:, w])
+    l = torch.clamp(l, min=1e-37)
+    if cfg.chunks == 1:
+        p = torch.exp(vals[:, :, 0] - m_t[..., None]) * torch.exp(
+            m_t - m[:, None])[..., None]
+    else:
+        p = torch.exp(vals - m[:, None, None, None])
+    rcp = (1.0 / l.double()).float()
+    q0 = p * rcp.reshape(rows, *([1] * (p.ndim - 1)))
+    e = p.double() - l.double().reshape(rows, *([1] * (p.ndim - 1))) * \
+        q0.double()
+    y = (q0.double() + e * rcp.double().reshape(
+        rows, *([1] * (p.ndim - 1)))).float()
+    y = y.reshape(rows, tt, cfg.chunks * cfg.vecs, cfg.vw).transpose(1, 2)
+    return y.reshape(rows, -1)[:, :s].reshape(b, rr, s)
+
+
+@pytest.mark.parametrize("shape", [(4, 25, 1024), (1, 3, 8192),
+                                   (1, 2, 65536), (1, 2, 131072),
+                                   (2, 3, 77)])
+def test_row_softmax_plan_order_matches_pallas(rng, shape):
+    """The kernel's arithmetic in plan order (per-thread (m, l), pairs
+    merged by warp, block and cluster rank; the quotient by a reciprocal
+    and one correction) against the Pallas ``row_softmax`` in interpret
+    mode at 2e-5, with row 1 masked everywhere (zeros) and row 0 masked
+    past a third of S. The outputs are held scaled by S: the mean entry
+    is 1 / S, below the tolerance at long S, so a wrong entry would pass
+    unscaled."""
+    b, r, s = shape
+    sc = (_normal(rng, shape) * 2).astype(np.float32)
+    sc[0, 0, s // 3:] = tref.NEG_INF
+    sc[0, 1] = tref.NEG_INF
+    want = np.asarray(jck.row_softmax(_j(sc), interpret=True))
+    got = _softmax_in_plan_order(_t(sc), tck.softmax_launch_config(b * r, s))
+    np.testing.assert_allclose(got.numpy() * s, want * s, **TOL)
+    assert not got[0, 1].any()
+
+
+@pytest.mark.parametrize("s,offset,copied", [(4096, 1, True),
+                                             (4096, 4, False),
+                                             (4095, 1, False)])
+def test_row_softmax_input_alignment(s, offset, copied):
+    """``row_softmax``'s input under its plan's loads: a contiguous view
+    that starts off a 16-byte boundary is copied before the kernel's
+    16-byte loads (vw 4) read it; an aligned view, or one that 4-byte
+    loads read (vw 1, S % 4 != 0), is read in place."""
+    base = torch.arange(s + 8, dtype=torch.float32)
+    x = base[offset:offset + s].view(1, 1, s)
+    cfg = tck.softmax_launch_config(1, s)
+    got = tck._aligned(x, cfg.vw)
+    assert (got.data_ptr() != x.data_ptr()) == copied
+    assert got.data_ptr() % (cfg.vw * 4) == 0
+    assert torch.equal(got, x)
 
 
 # ------------------------------------------------------------- AV --------

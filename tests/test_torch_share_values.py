@@ -218,9 +218,10 @@ def _meta(*shape, dtype=torch.float32):
 
 def test_share_wrappers_checks_on_meta():
     """The share mode passes the wrappers' checks and reaches the CUDA
-    check, int8 V without scales and the softcap included; V rows other
-    than R, reps_per_group > 1, and int8 V without scales outside the
-    share mode raise first. Nothing launches."""
+    check, int8 V without scales and the softcap included, and so does
+    int8 V without scales outside the share mode (the Pallas tile reads
+    any V without scales as values); V rows other than R and
+    reps_per_group > 1 raise first. Nothing launches."""
     i8, i32 = torch.int8, torch.int32
     q, h2c, pos = _meta(2, 5, 16), _meta(2, 8, dtype=i32), _meta(2,
                                                                dtype=i32)
@@ -236,7 +237,7 @@ def test_share_wrappers_checks_on_meta():
                 _meta(9, 5, PAGE, 16, dtype=i8), _meta(2, 4, dtype=i32),
                 h2c, pos, k_scale_pool=_meta(9, 5, PAGE), share_values=True,
                 emit_state=emit)
-    with pytest.raises(ValueError, match="scale"):
+    with pytest.raises(ValueError, match="CUDA"):
         tck.chai_fused_decode(q, k, v, h2c, pos, k_scale=_meta(2, 5, 64))
     with pytest.raises(ValueError, match="CUDA"):
         tck.chai_fused_decode(q, k, v, h2c, pos, k_scale=_meta(2, 5, 64),

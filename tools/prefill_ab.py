@@ -26,23 +26,20 @@ tree are compared: bf16 cases must be bitwise equal between the trees
 writes ``DIR/prefill_ab.json`` (default ``build/prefill_ab``, which
 ``.gitignore`` lists) with each tree's nvcc logs and outputs beside it,
 and prints a summary; the last line is the JSON summary. Needs a CUDA
-card and ``nvcc``.
+card and ``nvcc``. The runner, the profiler and the ``ptxas`` parse are
+``tools/_ab.py``'s.
 """
 from __future__ import annotations
 
-import argparse
-import json
-import os
 import re
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-OUT_DIR = ROOT / "build" / "prefill_ab"
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import _ab  # noqa: E402
+from _ab import PAGE  # noqa: E402
+
 KERNELS = ("flash_prefill", "paged_prefix_attend")
-PAGE = 16
 
 
 def _cases(torch, fk, kref):
@@ -93,82 +90,30 @@ def _cases(torch, fk, kref):
     return out
 
 
-def _device_ms(torch, fn, kernel, reps=50):
-    """Device time per launch of ``kernel`` over ``reps`` calls, from a
-    ``torch.profiler`` trace (as ``chip_smoke.device_ms``); None when the
-    trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    pat = re.compile(rf"\b{kernel}\b")
-    for _ in range(3):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if pat.search(e.key)]
-        count = sum(e.count for e in hits)
-        total = sum(e.device_time_total for e in hits)
-        if count and total:
-            return total / count / 1e3
-    return None
-
-
-def _ptxas(text):
-    """Registers, stack and spill bytes of each kernel instance in a
-    ``ptxas -v`` log: {"<kernel> <type> hd<HD> <bool args>": {...}}, the
-    bool template arguments as 0/1 in their order (flash_prefill: the
-    modes instance; paged_prefix_attend: int8)."""
-    out, entry = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            mangled = m.group(1)
-            name = re.search(r"(flash_prefill|paged_prefix_attend)_kernel",
-                             mangled)
-            hd = re.search(r"Li(\d+)E", mangled)
-            typ = "bf16" if "bfloat16" in mangled else "fp32"
-            flags = "".join(re.findall(r"Lb([01])E", mangled))
-            entry = (f"{name.group(0) if name else mangled} {typ} "
-                     f"hd{hd.group(1) if hd else '?'} {flags}").strip()
-            out[entry] = {}
-            continue
-        if entry is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            out[entry].update(stack=int(m.group(1)),
-                              spill_stores=int(m.group(2)),
-                              spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[entry]["registers"] = int(m.group(1))
-    return out
+def _instance(mangled):
+    """"<type> hd<HD> <bool args>" of a prefill instance, the bool
+    template arguments as 0/1 in their order (flash_prefill: the modes
+    instance; paged_prefix_attend: int8)."""
+    hd = re.search(r"Li(\d+)E", mangled)
+    typ = "bf16" if "bfloat16" in mangled else "fp32"
+    flags = "".join(re.findall(r"Lb([01])E", mangled))
+    return f"{typ} hd{hd.group(1) if hd else '?'} {flags}".strip()
 
 
 def measure(tree, label, out_dir):
     """One tree, in this process: build with ptxas -v, time every case,
     save the outputs under ``out_dir``; returns the record."""
-    sys.path.insert(0, str(Path(tree) / "src"))
+    build = _ab.open_tree(tree)
     import torch
-    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ref as kref
-    if not str(Path(build.__file__).resolve()).startswith(
-            str(Path(tree).resolve())):
-        raise RuntimeError(f"imported {build.__file__}, not {tree}'s")
-    resources = {}
+    resources, seconds = ({}, {})
     if label.endswith("_1"):      # the tree's first run builds, verbose
-        jobs = {n: build._start(n, ("-Xptxas", "-v")) for n in KERNELS}
-        out_dir.mkdir(parents=True, exist_ok=True)
-        for n, job in jobs.items():
-            log = build._finish(n, *job)
-            (out_dir / f"{label}_{n}_nvcc.log").write_text(log)
-            resources.update(_ptxas(log))
+        resources, seconds = _ab.build_verbose(build, KERNELS, _instance,
+                                               out_dir, label)
     torch.backends.cuda.matmul.allow_tf32 = False
     rec = {"tree": str(tree), "label": label, "resources": resources,
-           "cases": {}}
+           "build_seconds": seconds, "cases": {}}
     outs = {}
     for name, (call, plain, kernel) in _cases(torch, fk, kref).items():
         got = call()
@@ -180,78 +125,30 @@ def measure(tree, label, out_dir):
         ratio = max(float(((g - w).abs() / (2e-5 + 2e-5 * w.abs())).max())
                     for g, w in pairs)
         outs[name] = [t.cpu() for t in got]
-        rec["cases"][name] = dict(max_abs_err=err, tol_ratio=ratio,
-                                  device_ms=_device_ms(torch, call, kernel))
+        rec["cases"][name] = dict(
+            max_abs_err=err, tol_ratio=ratio,
+            device_ms=_ab.device_ms(torch, call, rf"\b{kernel}\b",
+                                    reps=50))
     out_dir.mkdir(parents=True, exist_ok=True)
     torch.save(outs, out_dir / f"{label}.pt")
     return rec
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", help="root of the other tree to compare")
-    ap.add_argument("--measure", help="(internal) measure this tree")
-    ap.add_argument("--label", default="run")
-    ap.add_argument("--out", default=str(OUT_DIR),
-                    help="directory of the results (default %(default)s)")
-    args = ap.parse_args()
-    out_dir = Path(args.out).resolve()
-    if args.measure:
-        print(json.dumps(measure(args.measure, args.label, out_dir)))
-        return
-    if not args.other:
-        ap.error("--other is required")
+def summarize(runs, out_dir):
+    """The two trees' first outputs compared (bitwise, max difference)
+    and each case's median device time a tree."""
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("prefill_ab: no CUDA card")
-    other = Path(args.other).resolve()
-    runs = []
-    for tree, label in ((other, "other_1"), (ROOT, "this_1"),
-                        (ROOT, "this_2"), (other, "other_2")):
-        env = dict(os.environ, PYTHONPATH=str(Path(tree) / "src"))
-        proc = subprocess.run(
-            [sys.executable, __file__, "--measure", str(tree), "--label",
-             label, "--out", str(out_dir)], env=env, capture_output=True,
-            text=True, check=False)
-        if proc.returncode:
-            raise SystemExit(f"prefill_ab: {label} failed:\n{proc.stderr}")
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     a = torch.load(out_dir / "other_1.pt")
     b = torch.load(out_dir / "this_1.pt")
-    same = {}
-    for name in a:
-        diff = max(float((x.float() - y.float()).abs().max())
-                   for x, y in zip(a[name], b[name]))
-        same[name] = dict(bitwise=all(torch.equal(x, y)
-                                      for x, y in zip(a[name], b[name])),
-                          max_abs_diff=diff)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=False).stdout.strip()
-    summary = {"card": smi, "runs": runs, "other_vs_this": same,
-               "device_ms_median": {
-                   side: {name: statistics.median(
-                       [r["cases"][name]["device_ms"] for r in runs
-                        if r["label"].startswith(side)
-                        and r["cases"][name]["device_ms"] is not None]
-                       or [float("nan")])
-                       for name in runs[0]["cases"]}
-                   for side in ("other", "this")}}
-    (out_dir / "prefill_ab.json").write_text(json.dumps(summary, indent=1))
-    print(smi)
-    for r in runs:
-        print(r["label"], json.dumps({n: c["device_ms"]
-                                      for n, c in r["cases"].items()}))
-    for side in ("other", "this"):
-        print(side, "resources", json.dumps(
-            next(r for r in runs if r["label"] == f"{side}_1")["resources"]))
-        print(side, "max_abs_err, tol_ratio", json.dumps(
-            {n: (c["max_abs_err"], c["tol_ratio"]) for n, c in
-             next(r for r in runs if r["label"] == f"{side}_1")[
-                 "cases"].items()}))
-    print("other vs this", json.dumps(same))
-    print(json.dumps(summary["device_ms_median"]))
+    same = {name: dict(
+        bitwise=all(torch.equal(x, y) for x, y in zip(a[name], b[name])),
+        max_abs_diff=max(float((x.float() - y.float()).abs().max())
+                         for x, y in zip(a[name], b[name])))
+        for name in a}
+    return {"other_vs_this": same, "device_ms_median": {
+        side: _ab.medians(runs, side, ("device_ms",))
+        for side in ("other", "this")}}
 
 
 if __name__ == "__main__":
-    main()
+    _ab.ab_main(__file__, __doc__, measure, summarize)

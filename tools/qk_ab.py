@@ -27,23 +27,19 @@ shows as a difference between the two runs of one tree.
 
 writes ``DIR/qk_ab.json`` (default ``build/qk_ab``, which ``.gitignore``
 lists) and prints a summary; the last line is the JSON of the median
-device times. Needs a CUDA card and ``nvcc``.
+device times. Needs a CUDA card and ``nvcc``. The runner, the profiler
+and the ``ptxas`` parse are ``tools/_ab.py``'s.
 """
 from __future__ import annotations
 
-import argparse
-import json
-import os
 import re
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from av_ab import PAGE, ROOT  # noqa: E402
+import _ab  # noqa: E402
+from _ab import PAGE  # noqa: E402
 
-OUT_DIR = ROOT / "build" / "qk_ab"
 KEYS = ("dense_device_ms", "paged_device_ms", "dense_cold_device_ms",
         "paged_cold_device_ms")
 
@@ -98,80 +94,32 @@ def _cases(torch, ck, kref, cache):
     return out
 
 
-def _device_ms(torch, fn, reps=20, flush=None):
-    """Device time per launch of ``qk_kernel`` over ``reps`` calls of
-    ``fn`` (``flush`` before each), from a ``torch.profiler`` trace; None
-    when the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    pat = re.compile(r"\bqk_kernel\b")
-    for _ in range(3):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if flush is not None:
-                    flush()
-                fn()
-            torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if pat.search(e.key)]
-        count = sum(e.count for e in hits)
-        total = sum(e.device_time_total for e in hits)
-        if count and total:
-            return total / count / 1e3
-    return None
+def _instance(mangled):
+    """"<element type> vec<load elements> reps<reps> <layout>" of a
+    ``chai_qk.cu`` instance; ``vec?`` / ``reps?`` where the instance has
+    no such template parameter (this tree's instances have no reps
+    parameter, the parent's neither)."""
+    ints = re.findall(r"Li(\d+)E", mangled)
+    return (f"{_ab.elem_type(mangled)} vec{ints[0] if ints else '?'} "
+            f"reps{ints[1] if len(ints) > 1 else '?'} "
+            f"{'paged' if 'Paged' in mangled else 'dense'}")
 
 
-def _ptxas(text):
-    """{"<element type> vec<load elements> reps<reps> <layout>":
-    {registers, spill_stores, spill_loads}} from a ``ptxas -v`` log of
-    ``chai_qk.cu``; ``vec?`` / ``reps?`` where the instance has no such
-    template parameter (this tree's instances have no reps parameter,
-    the parent's neither)."""
-    out, entry = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            mangled = m.group(1)
-            typ = ("bf16" if "bfloat16" in mangled else
-                   "int8" if re.search(r"kernelIa", mangled) else "fp32")
-            ints = re.findall(r"Li(\d+)E", mangled)
-            lay = "paged" if "Paged" in mangled else "dense"
-            entry = (f"{typ} vec{ints[0] if ints else '?'} "
-                     f"reps{ints[1] if len(ints) > 1 else '?'} {lay}")
-            out[entry] = {}
-            continue
-        if entry is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            out[entry].update(spill_stores=int(m.group(1)),
-                              spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[entry]["registers"] = int(m.group(1))
-    return out
-
-
-def measure(tree, label):
+def measure(tree, label, out_dir):
     """One tree, in this process: build with ptxas -v, check and time
     every case; returns the record."""
-    sys.path.insert(0, str(Path(tree) / "src"))
+    build = _ab.open_tree(tree)
     import torch
     from repro_torch.core import cache
-    from repro_torch.kernels import build
     from repro_torch.kernels import chai_attention as ck
     from repro_torch.kernels import ref as kref
-    if not str(Path(build.__file__).resolve()).startswith(
-            str(Path(tree).resolve())):
-        raise RuntimeError(f"imported {build.__file__}, not {tree}'s")
-    resources = {}
+    resources, seconds = ({}, {})
     if label.endswith("_1"):      # the tree's first run builds, verbose
-        resources = _ptxas(build._finish(
-            "chai_qk", *build._start("chai_qk", ("-Xptxas", "-v"))))
+        resources, seconds = _ab.build_verbose(build, ("chai_qk",),
+                                               _instance)
     flush_buf = torch.ones(256 << 20, dtype=torch.uint8, device="cuda")
     rec = {"tree": str(tree), "label": label, "resources": resources,
-           "cases": {}}
+           "build_seconds": seconds, "cases": {}}
     for name, (dense, paged, plain) in _cases(torch, ck, kref,
                                               cache).items():
         try:
@@ -191,74 +139,23 @@ def measure(tree, label):
         for side, fn in (("dense", dense), ("paged", paged)):
             if fn is None:
                 continue
-            case[f"{side}_device_ms"] = _device_ms(torch, fn)
+            case[f"{side}_device_ms"] = _ab.device_ms(torch, fn,
+                                                      r"\bqk_kernel\b")
             case[f"{side}_cold_device_ms"] = (
                 case[f"{side}_device_ms"] if name.startswith("s65536")
-                else _device_ms(torch, fn, flush=lambda: flush_buf.sum(
-                    dtype=torch.int32)))
+                else _ab.device_ms(torch, fn, r"\bqk_kernel\b",
+                                   flush=lambda: flush_buf.sum(
+                                       dtype=torch.int32)))
         rec["cases"][name] = case
         del got, want, masked
         torch.cuda.empty_cache()
     return rec
 
 
-def run_tree(tree, label):
-    """``measure`` of one tree in a process of its own; returns its
-    record."""
-    env = dict(os.environ, PYTHONPATH=str(Path(tree) / "src"))
-    proc = subprocess.run(
-        [sys.executable, __file__, "--measure", str(tree), "--label", label],
-        env=env, capture_output=True, text=True, check=False)
-    if proc.returncode:
-        raise SystemExit(f"qk_ab: {label} failed:\n{proc.stderr}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
-
-
-def medians(runs, side):
-    """{case: {key: median over the runs of ``side``}}."""
-    mine = [r for r in runs if r["label"].startswith(side)]
-    return {name: {k: statistics.median(v) for k in KEYS
-                   if (v := [r["cases"][name][k] for r in mine
-                             if r["cases"][name].get(k)])}
-            for name in mine[0]["cases"]}
-
-
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", help="root of the other tree to compare")
-    ap.add_argument("--measure", help="(internal) measure this tree")
-    ap.add_argument("--label", default="run")
-    ap.add_argument("--out", default=str(OUT_DIR),
-                    help="directory of the results (default %(default)s)")
-    args = ap.parse_args()
-    if args.measure:
-        print(json.dumps(measure(args.measure, args.label)))
-        return
-    if not args.other:
-        ap.error("--other is required")
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("qk_ab: no CUDA card")
-    other = Path(args.other).resolve()
-    runs = [run_tree(tree, label)
-            for tree, label in ((other, "other_1"), (ROOT, "this_1"),
-                                (ROOT, "this_2"), (other, "other_2"))]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=False).stdout.strip()
-    meds = {side: medians(runs, side) for side in ("other", "this")}
-    out_dir = Path(args.out).resolve()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "qk_ab.json").write_text(json.dumps(
-        {"card": smi, "runs": runs, "device_ms_median": meds}, indent=1))
-    print(smi)
-    for r in runs:
-        print(r["label"], json.dumps(r["cases"]))
-    for side in ("other", "this"):
-        print(side, "resources", json.dumps(
-            next(r for r in runs if r["label"] == f"{side}_1")["resources"]))
-    print(json.dumps(meds))
+def summarize(runs, out_dir):
+    return {side: _ab.medians(runs, side, KEYS)
+            for side in ("other", "this")}
 
 
 if __name__ == "__main__":
-    main()
+    _ab.ab_main(__file__, __doc__, measure, summarize)
