@@ -142,7 +142,30 @@ result line):
    launches of each prefill kernel in the softcap mode, greedy tokens
    held against the plain route on margins. h2o-danube-1.8b on int8
    (nothing quantized): its tokens equal its bf16 tokens;
-15. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
+15. the front door (``serving.api``) on chai-llama-7b after phase 12, on
+   phase 6's engine settings with the prefix cache: ``LLM.generate`` of
+   phase 6's first four prompts, two greedy and two seeded (temperature
+   0.8, top-k 50, top-p 0.95), the fused kernel its only launch; the same
+   tokens from ``EngineCore.add_request`` / ``step``, from a second
+   ``LLM``, on the dense layout and on the cohort; stop strings with the
+   space-joined-ids detokenizer ending at ``scan_finish``'s first match;
+   a stream's first chunk (host time) then its abort, both pools empty
+   after a clear; a 3-turn ``Session`` whose later turns alias cached
+   pages; tok/s and the median step time, all greedy against all seeded
+   in turns; the sampler on one step's logits, the card's picks equal to
+   the CPU's on a copy, its device time against ``argmax``'s, and its
+   host time piece by piece. On nemotron-4-15b after phase 11, the seeded
+   ``generate`` repeated by a second ``LLM`` and on the dense layout;
+16. the paper's offline phase and policies on chai-llama-7b after phase
+   15: ``launch.offline_clustering.offline_phase`` on 16 calibration
+   sequences of 24 tokens (32 elbow-selected counts and mean |off-diagonal|
+   correlations; the CPU's counts on a copy of the features equal, or
+   parted only where a gain lies within 1e-6 of ``plateau_tol``), and
+   ``core.policy.apply_policy`` for the seven policies on layer-0 q, k, v
+   of a 512-token prefill in fp32, the card's outputs at 2e-5 of the
+   CPU's, ``score_flops`` and memberships exact (a two-head tie held
+   through the CPU's membership);
+17. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
    each of the four int8 modes, its launches those of its phase-11 path,
    a ``[share]`` row for each of the three share modes, its launches
    those of its phase-12 path, a ``[softcap]`` row for each of the two
@@ -323,11 +346,15 @@ from repro_torch.kernels import chai_attention as ck  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
-from repro_torch.launch import steps  # noqa: E402
+from repro_torch.core import policy  # noqa: E402
+from repro_torch.launch import offline_clustering, steps  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving import sampling as sampling_mod  # noqa: E402
+from repro_torch.serving.api import LLM, Session  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
-    EngineConfig, ServingEngine)
-from repro_torch.serving.sampling import FINISH_LENGTH  # noqa: E402
+    EngineConfig, EngineCore, ServingEngine)
+from repro_torch.serving.sampling import (  # noqa: E402
+    FINISH_LENGTH, SamplingParams)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -5911,6 +5938,522 @@ def densified(t):
             chai_cache.gather_pages(t["v_pool"], t["bt_v"]))
 
 
+# ----------------------------------------------------------- phase 15 ----
+# The front door's traffic: the first four of phase 6's prompts, two
+# greedy and two seeded (FRONT_SEEDS), FRONT_NEW tokens each; the rate
+# runs serve the same prompts all greedy or all seeded, FRONT_RATE_NEW
+# tokens each, in the turns FRONT_TURNS (a drift of the host clock falls
+# on both kinds alike).
+FRONT_NEW = 16
+FRONT_RATE_NEW = 128
+FRONT_TURNS = ("greedy", "seeded", "seeded", "greedy", "greedy", "seeded")
+FRONT_SEEDS = (100, 101)
+SEEDED = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def detok(ids):
+    """The space-joined-ids detokenizer."""
+    return " ".join(map(str, ids))
+
+
+def front_ecfg(**kw):
+    return EngineConfig(**{**dict(batch_slots=SLOTS, max_seq=MAX_SEQ,
+                                  page_size=PAGE, prefix_cache=True), **kw})
+
+
+def front_traffic(cfg, new=FRONT_NEW, seeds=(None, None) + FRONT_SEEDS):
+    """(prompts, SamplingParams): phase 6's first four prompts; a None
+    seed is a greedy request."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in CONT_PROMPT_LENS[:4]]
+    sps = [SamplingParams(max_new_tokens=new) if s is None else
+           SamplingParams(seed=s, max_new_tokens=new, **SEEDED)
+           for s in seeds]
+    return prompts, sps
+
+
+def _pools_empty(core, label):
+    used = (core.dense_pool.pages_in_use,
+            core.chai_pool.pages_in_use if core.chai_pool else 0)
+    if used != (0, 0):
+        raise AssertionError(f"{label}: pages in use {used}")
+
+
+def _front_tokens(cfg, params, prompts, sps, **kw):
+    """The traffic's tokens through a ServingEngine (``kw``:
+    EngineConfig), in uid order."""
+    eng = ServingEngine(cfg, params, EngineConfig(
+        batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE, **kw))
+    for i, (p, sp) in enumerate(zip(prompts, sps)):
+        eng.submit(p, max_new_tokens=sp.max_new_tokens, uid=i, sampling=sp)
+    done = sorted(eng.run(), key=lambda r: r.uid)
+    if eng.paged:
+        _pools_empty(eng, f"{cfg.name} {kw}")
+    return [r.generated for r in done]
+
+
+def _check_outputs(cfg, outs, new, label):
+    """Every output ``new`` tokens long, finished on length, in the
+    vocabulary."""
+    got = [(len(o.token_ids), o.finish_reason) for o in outs]
+    if (got != [(new, FINISH_LENGTH)] * len(outs)
+            or not all(0 <= t < cfg.vocab_size
+                       for o in outs for t in o.token_ids)):
+        raise AssertionError(f"{label}: outputs {got}")
+
+
+def front_door_path(cfg, params):
+    """Phase 15 on chai-llama-7b: the front door (``serving.api``) on phase
+    6's weights and engine settings. Returns ({path: launches}, the
+    sampler's timing record)."""
+    prompts, sps = front_traffic(cfg)
+    llm = LLM(cfg, params, front_ecfg())
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    outs = llm.generate(prompts, sps)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launches()
+    _check_outputs(cfg, outs, FRONT_NEW, "LLM.generate")
+    want = {name: 0 for name in launches}
+    want["paged_chai_fused_decode"] = launches["paged_chai_fused_decode"]
+    if launches != want or not want["paged_chai_fused_decode"] \
+            or want["paged_chai_fused_decode"] % cfg.n_layers:
+        raise AssertionError(f"front door launches {launches}")
+    toks = [o.token_ids for o in outs]
+    log(f"front door: LLM.generate of 4 requests (prompts "
+        f"{CONT_PROMPT_LENS[:4]}, 2 greedy, 2 seeded {SEEDED} seeds "
+        f"{FRONT_SEEDS}, {FRONT_NEW} new tokens each) in {wall:.3f} s, "
+        f"launches {launches}")
+    # EngineCore.add_request / step on the same requests
+    core = EngineCore(cfg, params, front_ecfg())
+    reqs = [core.add_request(p, sp) for p, sp in zip(prompts, sps)]
+    while core.has_work():
+        core.step()
+    if [r.generated for r in reqs] != toks:
+        raise AssertionError("LLM.generate and EngineCore.step differ")
+    del core, reqs
+    # a second LLM on the same weights (with the detokenizer, for the stop
+    # strings below)
+    llm2 = LLM(cfg, params, front_ecfg(), detokenizer=detok)
+    if [o.token_ids for o in llm2.generate(prompts, sps)] != toks:
+        raise AssertionError("a second LLM did not repeat the tokens")
+    for kw in (dict(kv_layout="dense"), dict(scheduler="cohort")):
+        if _front_tokens(cfg, params, prompts, sps, **kw) != toks:
+            raise AssertionError(f"{kw}: tokens differ from the paged run's")
+    log(f"front door: EngineCore.step, a second LLM, the dense layout and "
+        f"the cohort repeat all {sum(map(len, toks))} tokens (greedy and "
+        f"seeded); seeded tokens {toks[2:]}")
+    # stop strings: the first match of the unstopped tokens
+    base = toks[0]
+    for lo in (3, 8):
+        stop = detok(base[lo:lo + 2])
+        sp = SamplingParams(max_new_tokens=FRONT_NEW, stop=(stop,))
+        out = llm2.generate(prompts[0], sp)[0]
+        if ((out.token_ids, out.finish_reason)
+                != sampling_mod.scan_finish(base, sp, FRONT_NEW, detok)
+                or out.finish_reason != "stop" or out.text
+                != detok(out.token_ids)):
+            raise AssertionError(f"stop {stop!r}: {out.token_ids} "
+                                 f"{out.finish_reason}")
+        log(f"front door: stop string {stop!r} (tokens {lo}, {lo + 1} of "
+            f"the unstopped run) ends after {len(out.token_ids)} tokens, "
+            f"scan_finish's first match")
+    llm2.core.prefix_cache.clear()
+    _pools_empty(llm2.core, "stop strings")
+    del llm2
+    # a stream: first chunk at admission, then abort
+    rng = np.random.default_rng(15)
+    t0 = time.time()
+    it = llm.stream(rng.integers(0, cfg.vocab_size, size=256),
+                    SamplingParams(seed=7, max_new_tokens=64, **SEEDED))
+    first = next(it)
+    t_first = time.time() - t0
+    if first.finished or not first.token_ids or not llm.abort(first.uid):
+        raise AssertionError(f"stream first chunk {first}")
+    tail = list(it)
+    if [(c.token_ids, c.finished, c.finish_reason) for c in tail] != \
+            [([], True, "aborted")]:
+        raise AssertionError(f"aborted stream's tail {tail}")
+    llm.core.prefix_cache.clear()
+    _pools_empty(llm.core, "stream abort")
+    log(f"front door: stream of a 256-token prompt: first chunk "
+        f"{first.token_ids} at {t_first:.4f} s host time (admission), "
+        f"aborted after it: one empty 'aborted' chunk, both pools at 0 "
+        f"pages after clearing the prefix cache")
+    # a 3-turn session over the prefix cache
+    ses = Session(llm, SamplingParams(max_new_tokens=8))
+    turns = []
+    for n in (64, 16, 16):
+        out = ses.send(rng.integers(0, cfg.vocab_size, size=n))
+        turns.append((len(out.prompt_token_ids), out.cached_tokens,
+                      out.prefill_tokens))
+    if not all(c > 0 and f < p for p, c, f in turns[1:]):
+        raise AssertionError(f"session turns (prompt, cached, prefilled) "
+                             f"{turns}")
+    llm.core.prefix_cache.clear()
+    _pools_empty(llm.core, "session")
+    log(f"front door: 3-turn Session (prompt, cached, prefilled): {turns}")
+    rates, sample = front_rates(cfg, llm)
+    del llm
+    return {"front_door_paged": launches}, {"rates": rates, **sample}
+
+
+class _Split(list):
+    """The decode steps' records of ``_step_split``, and the garbage
+    collections since the last ``clear``."""
+    collections = 0
+
+    def clear(self):
+        super().clear()
+        self.collections = 0
+
+
+def _step_split(core):
+    """Split each decode step of ``core`` into its forward (the dispatch of
+    the batched decode) and its pick (argmax or the sampler): host time
+    (perf_counter) and device span (between CUDA events) of each, and the
+    step's wall. Returns (the records, a dict a step; a function that
+    unwraps the engine)."""
+    split, cur = _Split(), {}
+    names = ("step", "_dispatch_decode", "_argmax", "_sampler")
+    saved = {n: vars(core)[n] for n in names if n in vars(core)}
+    step, dispatch = core.step, core._dispatch_decode
+    argmax, sampler = core._argmax, core._sampler
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        cur[name] = (time.perf_counter(), ev)
+
+    def timed_dispatch(*args):
+        cur.pop("end", None)        # a prefill's pick came before
+        mark("fwd")
+        out = dispatch(*args)
+        mark("pick")
+        return out
+
+    def timed(pick):
+        def inner(*args):
+            out = pick(*args)
+            mark("end")
+            return out
+        return inner
+
+    def timed_step():
+        cur.clear()
+        t0 = time.perf_counter()
+        out = step()
+        if "fwd" in cur and "end" in cur:   # a decode ran, tokens read
+            (t_f, e_f), (t_p, e_p), (t_e, e_e) = (
+                cur[k] for k in ("fwd", "pick", "end"))
+            split.append(dict(
+                step=1e3 * (time.perf_counter() - t0),
+                fwd_host=1e3 * (t_p - t_f), pick_host=1e3 * (t_e - t_p),
+                fwd_device=e_f.elapsed_time(e_p),
+                pick_device=e_p.elapsed_time(e_e)))
+        return out
+
+    def on_gc(phase, info):
+        if phase == "stop":
+            split.collections += 1
+
+    def unwrap():
+        gc.callbacks.remove(on_gc)
+        for n in names:
+            vars(core).pop(n, None)
+        vars(core).update(saved)
+
+    core.step, core._dispatch_decode = timed_step, timed_dispatch
+    core._argmax, core._sampler = timed(argmax), timed(sampler)
+    gc.callbacks.append(on_gc)
+    return split, unwrap
+
+
+def _host_ms(fn, reps=50):
+    """Median host time (ms) of one call of ``fn``, each call started on
+    an idle card: the time the host spends before it can go on."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(times)
+
+
+def _op_counts(fn):
+    """(top-level torch ops, CUDA kernels and copies) of one call of
+    ``fn``, from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.events()
+    return (sum(e.device_type.name == "CPU" and e.cpu_parent is None
+                and e.name.startswith("aten::") for e in ev),
+            sum(e.device_type.name == "CUDA" for e in ev))
+
+
+def sampler_host(fresh, logits, args):
+    """Where the host time of one sampler call goes (``_host_ms`` each):
+    the rows' noise (``gumbel_noise``), the pinned knob buffer with that
+    noise (``host_knobs``), the copy's enqueue, the batched argmax, and
+    the whole call, alone and with its device work finished; the rest of
+    the call is the enqueue of the candidates, the pick and the
+    scatter."""
+    dev = logits.device
+    cap = min(256, logits.shape[-1])
+    temps, _, _, seed, count = args
+    rows = np.flatnonzero(np.asarray(temps, np.float32) > 0.0)
+    _, host = steps.host_knobs(*args, cap, pin=True)
+    out = {"noise": _host_ms(lambda: steps.gumbel_noise(
+               np.asarray(seed)[rows], np.asarray(count)[rows], cap)),
+           "host_knobs": _host_ms(lambda: steps.host_knobs(*args, cap,
+                                                           pin=True)),
+           "copy": _host_ms(lambda: host.to(dev, non_blocking=True)),
+           "argmax": _host_ms(lambda: torch.argmax(logits, dim=-1)),
+           "call": _host_ms(lambda: fresh(logits, *args)),
+           "call_synced": _host_ms(lambda: (fresh(logits, *args),
+                                            torch.cuda.synchronize()))}
+    out["candidates_pick_enqueue"] = (out["call"] - out["host_knobs"]
+                                      - out["copy"] - out["argmax"])
+    out["ops"], out["kernels"] = _op_counts(lambda: fresh(logits, *args))
+    return out
+
+
+def front_rates(cfg, llm):
+    """tok/s and the median decode step of the traffic all greedy against
+    all seeded (FRONT_RATE_NEW tokens a request, in the turns FRONT_TURNS,
+    the prefix cache cleared before each run), each step split into its
+    forward and its pick (``_step_split``); then the sampler on one
+    all-seeded step's logits: the card's picks against the CPU's on a
+    copy, its device time against argmax's, and where its host time
+    goes."""
+    prompts, _ = front_traffic(cfg)
+    grid = {"greedy": (None,) * 4,
+            "seeded": tuple(FRONT_SEEDS[0] + i for i in range(4))}
+    rates = {k: [] for k in grid}
+    runs = {k: [] for k in grid}
+    caught = {"calls": 0}
+    sampler = llm.core._sampler
+
+    def catch(logits, *args):
+        # the 8th batched call: every slot samples, all past WARMUP
+        if logits.shape[0] == SLOTS and "logits" not in caught:
+            caught["calls"] += 1
+            if caught["calls"] == 8 and np.all(np.asarray(args[0]) > 0):
+                caught["logits"] = logits.clone()
+                caught["args"] = [np.array(a) for a in args]
+        return sampler(logits, *args)
+
+    llm.core._sampler = catch
+    split, unwrap = _step_split(llm.core)
+    for kind in FRONT_TURNS:
+        _, sps = front_traffic(cfg, FRONT_RATE_NEW, grid[kind])
+        llm.core.prefix_cache.clear()
+        split.clear()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        outs = llm.generate(prompts, sps)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        _check_outputs(cfg, outs, FRONT_RATE_NEW, f"tok/s {kind}")
+        rates[kind].append(4 * FRONT_RATE_NEW / wall)
+        runs[kind].append({key: statistics.median(r[key] for r in split)
+                           for key in split[0]})
+        runs[kind][-1]["gc"] = split.collections
+    unwrap()
+    llm.core._sampler = sampler
+    llm.core.prefix_cache.clear()
+    step_ms = {k: [r["step"] for r in v] for k, v in runs.items()}
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    spread = max(max(v) - min(v) for v in step_ms.values())
+    diff = med["seeded"] - med["greedy"]
+    log(f"front door, 4 requests of {FRONT_RATE_NEW} new tokens, turns "
+        f"{FRONT_TURNS}: tok/s {rates}; each run's medians over its decode "
+        f"steps (ms; host: perf_counter, device: the span between CUDA "
+        f"events) and its garbage collections: {runs}; seeded - greedy "
+        f"median step {diff:.4f} ms, against the widest spread of one "
+        f"kind's runs {spread:.4f} ms: "
+        + ("outside" if abs(diff) > spread else "within") + " the spread")
+    logits, args = caught["logits"], caught["args"]
+    fresh = steps.make_sampler()
+    card = fresh(logits, *args).cpu()
+    cpu = fresh(logits.cpu(), *args)
+    top = logits.float().topk(min(257, logits.shape[-1]), dim=-1).values
+    ties = int((top[:, 1:] == top[:, :-1]).sum())
+    if not torch.equal(card, cpu):
+        raise AssertionError(f"card picks {card.tolist()} against the "
+                             f"CPU's {cpu.tolist()}")
+    sample_ms = library_device_ms(lambda: fresh(logits, *args))
+    argmax_ms = library_device_ms(lambda: torch.argmax(logits, dim=-1))
+    sample_b2b = time_ms(lambda: fresh(logits, *args))
+    argmax_b2b = time_ms(lambda: torch.argmax(logits, dim=-1))
+    host = sampler_host(fresh, logits, args)
+    # the step waits for its tokens, so the sampler's host time, less the
+    # argmax it replaces, is what a sampled step adds where the host is
+    # the slower side
+    extra = host["call_synced"] - host["argmax"]
+    log(f"a sampled step's extra host time, measured by the call: "
+        f"{extra:.4f} ms, {100 * extra / med['greedy']:.2f}% of the greedy "
+        f"runs' median step")
+    log(f"sampler on one all-seeded step's logits {tuple(logits.shape)} "
+        f"(knobs {[a.tolist() for a in args]}; {ties} exact ties between "
+        f"neighbours in the rows' top 257): card picks {card.tolist()} == "
+        f"CPU picks; device ms per step: sampler {sample_ms} (every kernel "
+        f"and copy of one call, torch.profiler), argmax {argmax_ms}; b2b "
+        f"ms sampler {sample_b2b:.4f}, argmax {argmax_b2b:.4f}; host ms "
+        f"of one call (median of 50, each from an idle card) "
+        f"{ {k: round(v, 4) for k, v in host.items()} }")
+    return rates, {"runs": runs, "step_diff_ms": diff,
+                   "step_spread_ms": spread, "sampled_extra_ms": extra,
+                   "sampler_device_ms": sample_ms,
+                   "argmax_device_ms": argmax_ms,
+                   "sampler_b2b_ms": sample_b2b,
+                   "argmax_b2b_ms": argmax_b2b, "sampler_host_ms": host}
+
+
+def front_door_gqa(cfg, params):
+    """Phase 15 on nemotron-4-15b: the seeded generate repeats itself on a
+    second LLM, and the dense layout gives the same tokens."""
+    prompts, sps = front_traffic(cfg)
+    runs = []
+    for _ in range(2):
+        llm = LLM(cfg, params, front_ecfg())
+        _reset_launches()
+        outs = llm.generate(prompts, sps)
+        launches = _launches()
+        _check_outputs(cfg, outs, FRONT_NEW, f"{cfg.name} generate")
+        llm.core.prefix_cache.clear()
+        _pools_empty(llm.core, f"{cfg.name} generate")
+        runs.append([o.token_ids for o in outs])
+        del llm
+    dense = _front_tokens(cfg, params, prompts, sps, kv_layout="dense")
+    if not runs[0] == runs[1] == dense:
+        raise AssertionError(f"{cfg.name}: repeat / dense tokens differ")
+    if not launches["paged_chai_fused_decode"]:
+        raise AssertionError(f"{cfg.name} front door launches {launches}")
+    log(f"front door {cfg.name}: a second LLM and the dense layout repeat "
+        f"all {sum(map(len, dense))} tokens; seeded {dense[2:]}; launches "
+        f"{launches}")
+    return {"nemotron_front_door_paged": launches}
+
+
+# ----------------------------------------------------------- phase 16 ----
+POLICY_T = 512
+
+
+def offline_path(cfg, params):
+    """Phase 16: the offline phase on the entry's calibration batch (16
+    sequences of 24 tokens); the card's cluster counts against the CPU's
+    on a copy of the same features."""
+    n, seq_len = offline_clustering.N_SAMPLES, offline_clustering.SEQ_LEN
+    batches = offline_clustering.calibration_tokens(cfg.vocab_size, seq_len,
+                                                    n)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = offline_clustering.offline_phase(
+        params, cfg, batches, device=params["embed"]["tok"].device)
+    wall = time.time() - t0
+    t0 = time.time()
+    cpu = offline_clustering.elbow_analysis(out["features"].cpu())
+    cpu_wall = time.time() - t0
+    if len(out["counts"]) != cfg.n_attn_layers or not np.isfinite(
+            out["curves"]).all():
+        raise AssertionError(f"offline counts {out['counts']}")
+    tol = 0.05
+    for li, (a, b) in enumerate(zip(out["counts"], cpu["counts"])):
+        if a == b:
+            continue
+        gains = [np.diff(-c) / max(c[0] - c[-1], 1e-12)
+                 for c in (out["curves"][li], cpu["curves"][li])]
+        near = min(abs(g - tol).min() for g in gains)
+        log(f"offline layer {li}: card k {a}, CPU k {b}; the gain nearest "
+            f"plateau_tol {tol} lies {near:.3e} from it")
+        if near > 1e-6:
+            raise AssertionError(f"offline layer {li}: counts {a} / {b}")
+    log(f"offline phase ({n} sequences of {seq_len} "
+        f"tokens, features {tuple(out['features'].shape)}): {wall:.3f} s on "
+        f"the card (elbow on the CPU copy {cpu_wall:.3f} s); cluster counts "
+        f"{out['counts']} (CPU {cpu['counts']}; the config's frozen "
+        f"{list(cfg.chai_cluster_counts())}); mean |offdiag| "
+        f"{[round(x, 4) for x in out['offdiag']]}")
+    return out
+
+
+def policy_path(cfg, params):
+    """Phase 16: the seven policies on layer-0 q, k, v of a 512-token
+    prefill (fp32), the card's outputs against the CPU's."""
+    dev = params["embed"]["tok"].device
+    rng = np.random.default_rng(16)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         size=(1, POLICY_T))).to(dev)
+    p = tfm._layer(params["attn"], tfm.layer_plan(cfg)["attn"][0])
+    with torch.no_grad():
+        x = tfm.embed_lookup(params["embed"]["tok"], toks).to(
+            tfm.model_dtype(cfg))
+        xn = tfm.rms_norm(x, p["ln"], cfg.norm_eps)
+        qkv = [t.float() for t in tfm.attn_mod.project_qkv(
+            xn, p, cfg, torch.arange(POLICY_T, device=dev))]
+    cpu_qkv = [t.cpu() for t in qkv]
+    h = cfg.n_heads
+    mha = None
+    rows = []
+    for name in ("mha", "chai", "chai-qkv", "chai-static", "random",
+                 "dejavu", "spatten"):
+        kw = {}
+        if name == "chai-static":
+            kw = dict(h2c_static=static["h2c"][0], reps_static=static[
+                "reps"][0])
+        t0 = time.time()
+        card = policy.apply_policy(name, *qkv, **{
+            k: v.to(dev) for k, v in kw.items()})
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.time() - t0)
+        cpu = policy.apply_policy(name, *cpu_qkv, **kw)
+        if float(card.score_flops) != float(cpu.score_flops):
+            raise AssertionError(f"{name}: score flops")
+        out = card.out.cpu()
+        for key in ("pruned", "kept_tokens", "h2c"):
+            if key in cpu.info and not torch.equal(card.info[key].cpu(),
+                                                   cpu.info[key]):
+                raise AssertionError(f"{name}: {key} differs")
+        if "reps" in cpu.info:
+            creps, reps = card.info["reps"].cpu(), cpu.info["reps"]
+            h2c = cpu.info["h2c"]
+            for bi, ci in zip(*torch.nonzero(creps != reps, as_tuple=True)):
+                members = set(torch.nonzero(h2c[bi] == ci)[:, 0].tolist())
+                if members != {int(creps[bi, ci]), int(reps[bi, ci])}:
+                    raise AssertionError(f"{name}: reps differ")
+            if not torch.equal(creps, reps):
+                # a two-head tie: chai held through the CPU's membership;
+                # chai-qkv has no static form, so its output is not held
+                log(f"{name}: a two-head tie, reps {creps.tolist()} on the "
+                    f"card, {reps.tolist()} on the CPU")
+                out = (policy.apply_policy(
+                    "chai-static", *qkv, h2c_static=h2c[0].to(dev),
+                    reps_static=reps[0].to(dev)).out.cpu()
+                    if name == "chai" else cpu.out)
+        torch.testing.assert_close(out, cpu.out, **TOL)
+        if name == "chai":
+            static = cpu.info
+        mha = cpu.out if mha is None else mha
+        dev_mha = float((cpu.out - mha).abs().max())
+        rows.append((name, float(cpu.score_flops), dev_mha, ms,
+                     float((out - cpu.out).abs().max())))
+    log(f"policies on layer-0 q/k/v of a {POLICY_T}-token prefill "
+        f"({h} heads, hd {cfg.head_dim}, fp32, TF32 off; n_clusters "
+        f"{max(1, h // 2)}): (policy, score_flops, max |out - mha|, card "
+        f"ms, max |card - CPU|): {rows}")
+
+
 def main():
     environment()
     build_kernels()
@@ -5956,6 +6499,11 @@ def main():
     # Phase 12: share_values (CHAI-QKV), bf16 and int8.
     share_launches, share_mains, share8_cap = share_path(
         cfg, params, cont_summary, i8_summary)
+    # Phase 15, chai-llama-7b: the front door; phase 16: the offline phase
+    # and the policies.
+    front_launches, _ = front_door_path(cfg, params)
+    offline_path(cfg, params)
+    policy_path(cfg, params)
     # The engines of phases 5-8 sit in reference cycles (their wrapped
     # hooks); collect them so chai-llama-7b's weights are really freed.
     del params
@@ -5972,6 +6520,8 @@ def main():
     n8_launches, n8_mains, _ = int8_path(
         ncfg.replace(kv_cache_dtype="int8"), nparams, nemo_summary,
         "int8_nemotron")
+    # Phase 15, nemotron-4-15b: the seeded front door.
+    nemo_front_launches = front_door_gqa(ncfg, nparams)
     del nparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -6041,7 +6591,8 @@ def main():
                **nemo_prefix_launches, **i8_launches, **i8_mha_launches,
                **i8_prefix_launches, **n8_launches, **share_launches,
                **g_launches, **d_launches, **sp_launches, **g8_launches,
-               **sp8_launches, **d8_launches,
+               **sp8_launches, **d8_launches, **front_launches,
+               **nemo_front_launches,
                "pipeline_lane": lane_launches,
                "pipeline_lane_share_int8": lane8_launches}
     mains = {"chai_fused_decode": (

@@ -4,11 +4,15 @@ Cohort: whole-cohort prefill, decode, compact. Continuous: the mixed-phase
 decode step and the per-slot prefill / cluster / reset transitions, on
 the unified (``kv_layout="dense"``) and the paged layout; on the paged
 layout also the prefix cache's suffix prefill, snapshot restore and page
-copy, and the relay decode step. Plain callables
-(the reference wraps the same functions in ``jax.jit`` and donates the
-state; here the state tensors are updated in place).
+copy, and the relay decode step. Both schedulers: the seeded top-k /
+top-p sampler. Plain callables (the reference wraps the same functions
+in ``jax.jit`` and donates the state; here the state tensors are updated
+in place).
 """
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache as chai_cache
@@ -42,6 +46,114 @@ def make_serve_step(cfg: ModelConfig, *, chai=False, decode_ts=0):
                                decode_ts=decode_ts)
 
     return serve_step
+
+
+def _top_ids(x, cap):
+    """ids (N, cap) of the ``cap`` largest entries of fp32 ``x`` (N, V) in
+    descending order, an exact tie to the lower id (``lax.top_k``'s
+    order), the same on every device: the top-k of one int64 key a
+    token, its value's order-preserving int32 image over its id."""
+    bits = x.contiguous().view(torch.int32)
+    ordered = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).long()
+    ids = torch.arange(x.shape[-1], device=x.device)
+    key = (ordered << 32) | (x.shape[-1] - 1 - ids)
+    return torch.topk(key, cap, dim=-1, sorted=True).indices
+
+
+def sample_candidates(logits, temperature, top_k, top_p, top_k_cap=256):
+    """The candidate set of sampling rows, the reference's order.
+
+    ``logits`` (N, V); ``temperature``, ``top_k`` (0 = widest support) and
+    ``top_p`` (N,) tensors on the logits' device. Returns (ids (N, cap)
+    int64, masked (N, cap) fp32): the ``min(top_k_cap, V)`` largest scaled
+    logits in descending order (ties to the lower id), and their
+    log-probabilities normalized against the FULL row, -inf outside the
+    top-k / nucleus keep (top-p after top-k, rank 0 always kept)."""
+    lg = logits.float()
+    cap = min(top_k_cap, lg.shape[-1])
+    scaled = lg / temperature.float().clamp_min(1e-6)[:, None]
+    ids = _top_ids(scaled, cap)
+    logp = (torch.gather(scaled, -1, ids)
+            - torch.logsumexp(scaled, dim=-1, keepdim=True))
+    probs = torch.exp(logp)
+    cum = torch.cumsum(probs, dim=-1)
+    ranks = torch.arange(cap, device=lg.device)
+    keep = ranks[None, :] < torch.where(top_k > 0, top_k, cap)[:, None]
+    keep &= (cum - probs) < top_p.float()[:, None]
+    keep[:, 0] = True
+    return ids, torch.where(keep, logp, -torch.inf)
+
+
+def gumbel_noise(seed, count, cap):
+    """(N, cap) fp32 Gumbel noise made on the host: row n from a Philox
+    generator keyed by ``seed[n] * 2**32 + count[n]`` (injective for a
+    uint32 seed; torch's CPU generator keeps only 32 bits of its seed), so
+    token ``count`` of a request depends only on (seed, count, logits),
+    never on its slot, step or device."""
+    u = np.empty((len(seed), cap), np.float64)
+    for n, (s, c) in enumerate(zip(seed, count)):
+        key = (int(s) << 32) | int(c)
+        u[n] = np.random.Generator(np.random.Philox(key=key)).random(cap)
+    u = np.maximum(u, np.finfo(np.float64).tiny)
+    return torch.from_numpy(-np.log(-np.log(u))).float()
+
+
+def host_knobs(temperature, top_k, top_p, seed, count, cap, pin=False):
+    """The sampling rows and their one host buffer: (rows, (n, cap + 4)
+    fp32), each row's ``gumbel_noise``, then its temperature, top_k, top_p
+    and its row index; pinned when ``pin``, so the copy to the card is
+    queued behind the step without waiting for it."""
+    temps = np.asarray(temperature, np.float32)
+    rows = np.flatnonzero(temps > 0.0)
+    host = torch.empty((len(rows), cap + 4), dtype=torch.float32,
+                       pin_memory=pin)
+    if len(rows):
+        host[:, :cap] = gumbel_noise(np.asarray(seed)[rows],
+                                     np.asarray(count)[rows], cap)
+        host[:, cap:] = torch.from_numpy(np.stack([
+            temps[rows], np.asarray(top_k, np.float32)[rows],
+            np.asarray(top_p, np.float32)[rows],
+            rows.astype(np.float32)], axis=1))
+    return rows, host
+
+
+def make_sampler(top_k_cap: int = 256):
+    """Batched per-slot token sampler shared by both schedulers.
+
+    ``sample(logits, temperature, top_k, top_p, seed, count)``: ``logits``
+    (B, V) on the device; the per-row knobs are host sequences (numpy
+    arrays): ``temperature`` (0 = greedy), ``top_k``, ``top_p``, ``seed``
+    (uint32) and ``count``, the tokens the row's request has sampled so
+    far. Returns (B,) int64 token ids on the logits' device.
+
+    Rows with ``temperature == 0`` take ``argmax`` of the raw logits, bit
+    for bit the engines' greedy pick. An all-greedy batch is that argmax
+    alone; otherwise only the sampling rows run ``sample_candidates`` and
+    a categorical draw (argmax of the masked log-probs plus
+    ``gumbel_noise``, copied to the device with the rows' knobs in one
+    transfer from ``host_knobs``), scattered over the batched argmax. The
+    reference draws from ``jax.random``; seeded runs here are
+    reproducible within the port, and on any device for the same logits:
+    the candidates' order breaks exact ties by id (``_top_ids``), where
+    ``torch.topk`` of the values would order them differently on the CPU
+    and on CUDA."""
+    def sample(logits, temperature, top_k, top_p, seed, count):
+        tok = torch.argmax(logits, dim=-1)
+        if not np.any(np.asarray(temperature, np.float32) > 0.0):
+            return tok
+        cap = min(top_k_cap, logits.shape[-1])
+        _, host = host_knobs(temperature, top_k, top_p, seed, count, cap,
+                             pin=logits.is_cuda)
+        buf = host.to(logits.device, non_blocking=True)
+        idx = buf[:, cap + 3].long()
+        ids, masked = sample_candidates(logits[idx], buf[:, cap],
+                                        buf[:, cap + 1].long(),
+                                        buf[:, cap + 2], cap)
+        pick = torch.argmax(masked + buf[:, :cap], dim=-1, keepdim=True)
+        tok[idx] = torch.gather(ids, -1, pick)[:, 0]
+        return tok
+
+    return sample
 
 
 def make_compact_step(cfg: ModelConfig):

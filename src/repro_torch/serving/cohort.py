@@ -6,7 +6,10 @@ clustering features) -> CLUSTER (K-Means membership) -> COMPACT (K-cache
 gather to representative rows) -> STEADY (clustered decode), with the
 cohort-deadline straggler re-dispatch of the reference. The bucketed
 prefill passes each row's true length, so a local layer's ring holds the
-row's last real positions, never its padding.
+row's last real positions, never its padding. Every row samples with its
+request's ``SamplingParams`` through the engine's sampler, token n of a
+row keyed by (seed, n) as on the continuous scheduler, so a seeded
+request gives the same tokens on both.
 """
 from __future__ import annotations
 
@@ -44,11 +47,12 @@ class CohortSchedulerMixin:
                 self.redispatched += len(cohort)
                 for r in cohort:
                     trunc, reason = sampling_mod.scan_finish(
-                        r.generated, r.sampling, r.max_new_tokens)
+                        r.generated, r.sampling, r.max_new_tokens,
+                        self.detokenizer)
                     if reason:
                         r.generated, r.finish_reason = trunc, reason
                         r.t_done = time.time()
-                        self.done.append(r)
+                        self._done(r)
                     else:
                         self.queue.append(r)
         return self.done
@@ -70,13 +74,30 @@ class CohortSchedulerMixin:
     def _run_cohort(self, cohort):
         cfg, ecfg = self.cfg, self.ecfg
         deadline = time.time() + ecfg.cohort_deadline_s
-        # A re-dispatched request decodes afresh from its prompt.
+        b = ecfg.batch_slots
+        all_greedy = all(r.sampling.greedy for r in cohort)
+        vecs = sampling_mod.knob_vectors(b)     # idle rows: greedy
+        for i, r in enumerate(cohort):
+            sampling_mod.set_knobs(vecs, i, r.sampling)
+
+        def sample(logits, n):
+            # n: tokens every row has sampled so far (lockstep), so each
+            # draw is the continuous scheduler's for the same request.
+            if all_greedy:
+                return self._argmax(logits)
+            return self._sampler(logits, vecs["temperature"],
+                                 vecs["top_k"], vecs["top_p"],
+                                 vecs["seed"], np.full((b,), n, np.int64))
+
+        # A re-dispatched request decodes afresh from its prompt, and its
+        # sampler counts restart with it, so a seeded request reproduces
+        # its first run.
         for r in cohort:
             r.generated = []
         tokens, lens = self._pad_prompts(cohort)
         logits, state = self._prefill(
             self.params, {"tokens": tokens, "true_lens": lens})
-        next_tok = self._argmax(logits)
+        next_tok = sample(logits, 0)
         self._record(cohort, next_tok)
         t_first = time.time()
         for r in cohort:
@@ -94,7 +115,7 @@ class CohortSchedulerMixin:
                 raise TimeoutError
             logits, state = self._mha_step(
                 self.params, {"tokens": next_tok}, state)
-            next_tok = self._argmax(logits)
+            next_tok = sample(logits, step)
             self._record(cohort, next_tok)
             self.steps_executed += 1
             step += 1
@@ -116,7 +137,7 @@ class CohortSchedulerMixin:
             else:
                 logits, state = self._mha_step(
                     self.params, {"tokens": next_tok}, state)
-            next_tok = self._argmax(logits)
+            next_tok = sample(logits, step)
             self._record(cohort, next_tok)
             self.steps_executed += 1
             step += 1
@@ -126,11 +147,12 @@ class CohortSchedulerMixin:
             # lockstep rows decode to the cohort's max; stops/budgets are
             # applied by the front-scan the reference uses
             trunc, reason = sampling_mod.scan_finish(
-                r.generated, r.sampling, r.max_new_tokens)
+                r.generated, r.sampling, r.max_new_tokens,
+                self.detokenizer)
             r.generated = trunc
             r.finish_reason = reason or sampling_mod.FINISH_LENGTH
             r.t_done = t_done
-            self.done.append(r)
+            self._done(r)
 
     @staticmethod
     def _argmax(logits):

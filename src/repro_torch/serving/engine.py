@@ -82,17 +82,24 @@ global layers; with CHAI off, a local layer, and a global layer of a
 softcap model, decodes eagerly (the flash decode kernels have neither a
 ring nor a softcap, in the reference as here).
 
-This port decodes greedily. Not ported yet, and refused with
-``NotImplementedError``: sampling with temperature > 0, stop strings,
-``priority`` (preemption), ``kv_offload`` (KV tiers); not there yet:
-fault injection and auditing, telemetry.
+Each request carries its ``SamplingParams``: greedy (``temperature == 0``,
+the raw-logits argmax) or a seeded top-k / top-p draw
+(``launch.steps.make_sampler``) keyed by (seed, tokens sampled so far),
+so a seeded request gives the same tokens on either scheduler and
+layout. Stop token ids and, with ``EngineCore(detokenizer=...)``, stop
+strings finish a request at their first match. ``serving.api`` is the
+front door over ``EngineCore`` (``LLM``, ``stream``, ``Session``).
+
+Not ported yet, and refused with ``NotImplementedError``: ``priority``
+(preemption), ``kv_offload`` (KV tiers); not there yet: fault injection
+and auditing, telemetry.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -161,8 +168,7 @@ class EngineConfig:
     batch_slots: int = 4               # slot-pool / cohort size (static)
     max_seq: int = 256                 # KV capacity per slot (static)
     # Default SamplingParams for requests submitted without one: greedy
-    # (temperature 0), or temperature 1.0 with greedy=False, which is not
-    # ported yet and is refused at submission.
+    # (temperature 0), or temperature 1.0 with greedy=False.
     greedy: bool = True
     scheduler: str = "continuous"      # "continuous" | "cohort"
     cohort_deadline_s: float = 120.0   # cohort straggler re-dispatch
@@ -207,13 +213,16 @@ class EngineCore(CohortSchedulerMixin):
     """Device-state owner + one-iteration scheduler (``step()``).
 
     ``device``: where the engine runs; ``None`` means CUDA, and a missing
-    GPU raises. ``params`` must already live there."""
+    GPU raises. ``params`` must already live there. ``detokenizer``:
+    optional ``List[int] -> str`` that ``SamplingParams.stop`` strings are
+    matched against."""
 
     _HISTORY_MAX = 1 << 16
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *,
-                 device=None):
+                 detokenizer: Optional[Callable] = None, device=None):
         self.device = resolve_device(device)
+        self.detokenizer = detokenizer
         if ecfg.scheduler not in ("continuous", "cohort"):
             raise ValueError(f"unknown scheduler {ecfg.scheduler!r}")
         if ecfg.kv_layout not in ("paged", "dense"):
@@ -261,7 +270,7 @@ class EngineCore(CohortSchedulerMixin):
         if ecfg.kv_offload:
             raise NotImplementedError(
                 "kv_offload (host-memory KV tiers) is not ported yet: "
-                "ROADMAP Queue 1, hierarchical KV tiers")
+                "ROADMAP Queue 1, #13 hierarchical KV tiers")
         if ecfg.prefix_cache:
             if not self.paged:
                 raise ValueError("prefix_cache requires the paged KV "
@@ -308,6 +317,10 @@ class EngineCore(CohortSchedulerMixin):
         self._next_tok_dev = None
         self._tok_dirty = True
         self._phases = np.full((b,), chai_cache.PHASE_FREE, np.int32)
+        # Per-slot SamplingParams on the host (FREE slots sample greedily;
+        # their tokens are never recorded).
+        self._samp_host = sampling_mod.knob_vectors(b)
+        self._sampler = steps_mod.make_sampler()
         # decode_ts = page_size pins the dense fused decode's tile to the
         # paged kernel's page, so every layout and scheduler performs
         # bit-identical attention arithmetic.
@@ -355,23 +368,19 @@ class EngineCore(CohortSchedulerMixin):
                     *, max_new_tokens: Optional[int] = None, uid=None,
                     arrival_delay: float = 0.0,
                     priority: int = 0) -> Request:
-        """Enqueue a greedy request. ``max_new_tokens`` (when given)
-        overrides ``sampling.max_new_tokens``; ``arrival_delay`` (seconds
-        from now) models open-loop arrivals. Default uids come from a
-        monotonic engine counter."""
+        """Enqueue a request with its ``SamplingParams``. ``max_new_tokens``
+        (when given) overrides ``sampling.max_new_tokens``;
+        ``arrival_delay`` (seconds from now) models open-loop arrivals.
+        Default uids come from a monotonic engine counter. Stop strings
+        need the engine's detokenizer (``ValueError`` without one)."""
         sp = sampling if sampling is not None else self.default_sampling()
         if priority != 0:
             raise NotImplementedError(
                 "priority (preemption) is not ported yet: ROADMAP Queue 1, "
-                "chunked prefill and preemption")
-        if not sp.greedy:
-            raise NotImplementedError(
-                "sampling with temperature > 0 is not ported yet: ROADMAP "
-                "Queue 1, front-end API and sampling")
-        if sp.stop:
-            raise NotImplementedError(
-                "stop strings need a detokenizer, which is not ported yet: "
-                "ROADMAP Queue 1, front-end API and sampling")
+                "#9 preemption and the async front door")
+        if sp.stop and self.detokenizer is None:
+            raise ValueError("SamplingParams.stop strings need an engine "
+                             "detokenizer (EngineCore(detokenizer=...))")
         max_new = (max_new_tokens if max_new_tokens is not None
                    else sp.max_new_tokens)
         if len(prompt) + max_new > self.ecfg.max_seq:
@@ -391,9 +400,19 @@ class EngineCore(CohortSchedulerMixin):
         return req
 
     def _done(self, req: Request):
+        """Finalize a request: move it to ``done`` and drop its abort
+        lookup entry, so a long-lived core holds nothing per request
+        served but ``done``, which ``reap_done()`` empties."""
         self.done.append(req)
         if self._requests.get(req.uid) is req:
             del self._requests[req.uid]
+
+    def reap_done(self) -> List[Request]:
+        """Return and clear the finished-request list (the ``LLM`` front
+        door calls it after collecting its outputs; ``ServingEngine.run``
+        lets ``done`` accumulate)."""
+        out, self.done = self.done, []
+        return out
 
     def abort(self, uid) -> bool:
         """Cancel a request: a queued one is dropped before touching the
@@ -423,6 +442,11 @@ class EngineCore(CohortSchedulerMixin):
 
     def has_work(self) -> bool:
         return bool(self.queue) or self.has_active
+
+    def next_arrival(self) -> Optional[float]:
+        """Earliest queued arrival time (a caller sleeps until it when
+        ``step()`` makes no progress), or None with the queue empty."""
+        return self.queue[0].t_arrival if self.queue else None
 
     def step(self) -> List[StepOutput]:
         """Run exactly ONE scheduler iteration: forward one chunk of every
@@ -507,9 +531,19 @@ class EngineCore(CohortSchedulerMixin):
             self._cluster_slot = maker(self.cfg, self._identify)
         return self._cluster_slot
 
+    def _sample_first(self, logits, req: Request) -> int:
+        """A request's first token from its prefill logits (count 0, the
+        draw the cohort scheduler makes for its row)."""
+        sp = req.sampling
+        if sp.greedy:
+            return int(self._argmax(logits)[0])
+        return int(self._sampler(logits, [sp.temperature], [sp.top_k],
+                                 [sp.top_p], [np.uint32(sp.seed)], [0])[0])
+
     def _finish_of(self, req: Request) -> str:
         return sampling_mod.finish_reason(req.generated, req.sampling,
-                                          req.max_new_tokens)
+                                          req.max_new_tokens,
+                                          self.detokenizer)
 
     # -- paged-pool bookkeeping (host side) --------------------------------
     def _pages_for(self, req) -> int:
@@ -659,7 +693,7 @@ class EngineCore(CohortSchedulerMixin):
         no slot, no pages, no device work."""
         toks, reason = sampling_mod.scan_finish(
             snap.tokens[:req.max_new_tokens], req.sampling,
-            req.max_new_tokens)
+            req.max_new_tokens, self.detokenizer)
         req.generated = toks
         req.finish_reason = reason or sampling_mod.FINISH_LENGTH
         req.cache_hit = "replay"
@@ -781,8 +815,10 @@ class EngineCore(CohortSchedulerMixin):
                 req.t_first_token = time.time()
             req.slot, req.admit_step = i, self.steps_executed
             self._slot_req[i] = req
+            sampling_mod.set_knobs(self._samp_host, i, req.sampling)
             trunc, reason = sampling_mod.scan_finish(
-                req.generated, req.sampling, req.max_new_tokens)
+                req.generated, req.sampling, req.max_new_tokens,
+                self.detokenizer)
             if reason:
                 req.generated = trunc
                 self._retire_slot(i, reason)
@@ -912,13 +948,13 @@ class EngineCore(CohortSchedulerMixin):
     def _finish_prefill(self, i: int, req: Request, logits):
         """Prefill completed (monolithic, or a chunked prefill's final
         chunk): index the prompt into the prefix cache, enter WARMUP and
-        take the first token."""
+        sample the first token."""
         if self.prefix_cache is not None:
             self.prefix_cache.insert(req.prompt, self._slot_pages[i]["kg"],
                                      self._slot_pages[i]["vg"])
         self._phases[i] = chai_cache.PHASE_WARMUP
         self._slot_count[i] = 1
-        tok = int(self._argmax(logits)[0])
+        tok = self._sample_first(logits, req)
         req.generated.append(tok)
         req.t_first_token = time.time()
         self._next_tok[i] = tok
@@ -961,7 +997,9 @@ class EngineCore(CohortSchedulerMixin):
 
     def _decode(self, active) -> List[StepOutput]:
         """One batched decode step on the cheapest step that covers the
-        phase mix, then one greedy pick per slot."""
+        phase mix, then one pick per slot: the bare argmax when no slot
+        samples, else the sampler, each sampling row drawing its token
+        number ``len(req.generated)``."""
         outs: List[StepOutput] = []
         if self._tok_dirty:
             self._next_tok_dev = torch.from_numpy(self._next_tok).to(
@@ -971,7 +1009,16 @@ class EngineCore(CohortSchedulerMixin):
         relay = self._build_relay(active) if self.relay_decode else None
         logits, self._dev_state = self._dispatch_decode(
             {"tokens": self._next_tok_dev}, relay, occupied)
-        tok_dev = self._argmax(logits)
+        temps = self._samp_host["temperature"]
+        if not temps.any():
+            tok_dev = self._argmax(logits)
+        else:
+            counts = np.zeros((self.ecfg.batch_slots,), np.int64)
+            for i in active:
+                counts[i] = len(self._slot_req[i].generated)
+            h = self._samp_host
+            tok_dev = self._sampler(logits, temps, h["top_k"], h["top_p"],
+                                    h["seed"], counts)
         self._next_tok_dev = tok_dev
         toks = tok_dev.cpu().numpy()
         self._next_tok[:] = toks
@@ -1027,6 +1074,7 @@ class EngineCore(CohortSchedulerMixin):
             if self._slot_locked[i]:
                 self.prefix_cache.unlock(self._slot_locked[i])
                 self._slot_locked[i] = []
+        self._samp_host["temperature"][i] = 0.0     # FREE slots: greedy
 
     def _index_retired(self, req: Request, pages: dict):
         """Retire-time radix insertion of the slot's FULL sequence (prompt

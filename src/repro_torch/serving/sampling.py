@@ -2,14 +2,17 @@
 
 ``SamplingParams`` is the knob set a request carries through the engine,
 field for field the reference's. Greedy decode (``temperature == 0``) is
-``argmax`` over the fp32 logits. The batched sampler for
-``temperature > 0`` and stop strings are not ported yet; the engine
-refuses such requests with ``NotImplementedError``.
+``argmax`` over the fp32 logits; ``temperature > 0`` draws through the
+batched seeded top-k / top-p sampler (``launch.steps.make_sampler``).
+Stop strings are matched against the engine's detokenizer, and
+``scan_finish`` truncates a token list at its first finish condition.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 FINISH_LENGTH = "length"      # max_new_tokens reached
 FINISH_STOP = "stop"          # stop token id or stop string matched
@@ -28,7 +31,8 @@ class SamplingParams:
     top_p        nucleus sampling: keep the smallest prefix of the
                  descending-probability vocab whose mass reaches top_p
                  (1.0 = off). Applied after top_k.
-    seed         per-request PRNG seed for the (not yet ported) sampler.
+    seed         per-request sampler seed (uint32): token n of the request
+                 draws from (seed, n) only.
     stop_token_ids  finish ("stop") when the last sampled token is one
                  of these; the stop token is kept in the output.
     stop         stop strings, matched against the engine detokenizer's
@@ -63,6 +67,22 @@ class SamplingParams:
     @property
     def greedy(self) -> bool:
         return self.temperature == 0
+
+
+def knob_vectors(n: int) -> dict:
+    """The sampler's per-row knobs (host arrays) for ``n`` greedy rows."""
+    return {"temperature": np.zeros((n,), np.float32),
+            "top_k": np.zeros((n,), np.int32),
+            "top_p": np.ones((n,), np.float32),
+            "seed": np.zeros((n,), np.uint32)}
+
+
+def set_knobs(knobs: dict, row: int, params: SamplingParams):
+    """Row ``row`` of ``knob_vectors`` samples with ``params``."""
+    knobs["temperature"][row] = params.temperature
+    knobs["top_k"][row] = params.top_k
+    knobs["top_p"][row] = params.top_p
+    knobs["seed"][row] = np.uint32(params.seed)
 
 
 # Extra trailing tokens decoded beyond the longest stop string: slack for

@@ -33,6 +33,10 @@ def test_port_files_exist():
     assert "tools/qk_ab.py" in names
     for mod in ("chai_attention", "flash_attention"):
         assert f"src/repro_torch/kernels/{mod}.py" in names
+    for mod in ("serving/api", "launch/api_stream",
+                "launch/offline_clustering", "core/correlation",
+                "core/elbow", "core/policy"):
+        assert f"src/repro_torch/{mod}.py" in names
     assert "src/repro_torch/configs/nemotron_4_15b.py" in names
     csrc = ROOT / "src/repro_torch/kernels/csrc"
     for name in ("chai_fused_decode.cu", "paged_chai_fused_decode.cu",
@@ -74,8 +78,9 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
     instead of falling back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.configs.base import get_config, reduced
-    from repro_torch.launch import serve
+    from repro_torch.launch import api_stream, offline_clustering, serve
     from repro_torch.models.transformer import init_params
+    from repro_torch.serving.api import LLM
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.weights import params_from_numpy
     cfg = reduced(get_config("chai-llama-7b"), n_layers=1)
@@ -89,12 +94,18 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
         params_from_numpy({"embed": {"tok": [[0.0]]}})
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--reduced", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLM(cfg, params)
+    for main in (api_stream.main, offline_clustering.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--reduced"])
 
 
 def test_continuous_scheduler_names_the_next_slice():
     """The default ``EngineConfig()`` is the continuous scheduler on the
-    paged layout, and it runs; the settings of later slices raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    paged layout, and it runs, seeded sampling too; the settings of later
+    slices (priority, kv_offload) raise ``NotImplementedError`` naming
+    their ROADMAP item."""
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -104,8 +115,11 @@ def test_continuous_scheduler_names_the_next_slice():
     eng = ServingEngine(cfg, params, EngineConfig(), device="cpu")
     assert eng.ecfg.scheduler == "continuous" and eng.paged
     eng.submit([1, 2, 3], max_new_tokens=2)
-    assert [len(r.generated) for r in eng.run()] == [2]
-    for kw in (dict(sampling=SamplingParams(temperature=1.0)),
-               dict(priority=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            eng.add_request([1, 2, 3], max_new_tokens=2, **kw)
+    eng.submit([1, 2, 3], max_new_tokens=2,
+               sampling=SamplingParams(temperature=1.0, seed=4))
+    assert [len(r.generated) for r in eng.run()] == [2, 2]
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        eng.add_request([1, 2, 3], max_new_tokens=2, priority=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        ServingEngine(cfg, params, EngineConfig(kv_offload=True),
+                      device="cpu")
