@@ -165,7 +165,32 @@ result line):
    of a 512-token prefill in fp32, the card's outputs at 2e-5 of the
    CPU's, ``score_flops`` and memberships exact (a two-head tie held
    through the CPU's membership);
-17. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
+17. the failure model (``serving.faults``, ``serving.invariants``,
+   ``serving.soak``) on chai-llama-7b after phase 16, on phase 6's engine
+   settings: (a) the soak, ``build_workload(0, 12)`` at page 16 with
+   every priority 0 and one more duplicate of its family prompt at step
+   41, prefix cache and relay on, ``audit_level="deep"``, clean and
+   twice under a plan arming ``pool.alloc`` (transient and error),
+   ``snapshot.restore``, ``relay.residency``, ``kernel.prefill``,
+   ``kernel.cluster`` and ``step.logits``: every request typed-terminal,
+   a clean deep audit after every step, no leak, every arm fired and
+   fired alike in both faulted runs, the untouched completed requests'
+   tokens the clean run's (a divergence only on a clean top-2 margin <=
+   ``CHUNK_MARGIN``), the clean run through CLUSTER transitions, relay
+   steps, a snapshot restore and all four serving kernels; (b) phase 6's
+   paged traffic with ``kernel.decode`` armed at decode step 8 and
+   ``decode_heal_steps=8``: one fallback, one heal, 0
+   ``paged_chai_fused_decode`` launches on each of the 9 degraded steps
+   (the plain versions run) and one a layer on every CHAI step on the
+   kernels, greedy tokens held against phase 6's on margins, the
+   degraded step's ms beside the kernels'; (c) phase 6's paged traffic
+   at ``audit_level`` off, basic and deep in turns, twice each: median
+   ``step()`` ms, the host ms of one ``audit`` call, and the
+   device-to-host copies of one all-STEADY decode step of a bare engine
+   (``torch.profiler``; one expected at off and basic); (d)
+   ``LLM(faults=...)``: a stream quarantined by NaN logits ends on an
+   ``"error"`` chunk, the other stream's tokens a clean ``LLM``'s;
+18. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
    each of the four int8 modes, its launches those of its phase-11 path,
    a ``[share]`` row for each of the three share modes, its launches
    those of its phase-12 path, a ``[softcap]`` row for each of the two
@@ -349,10 +374,13 @@ from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.core import policy  # noqa: E402
 from repro_torch.launch import offline_clustering, steps  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving import invariants as invariants_mod  # noqa: E402
 from repro_torch.serving import sampling as sampling_mod  # noqa: E402
+from repro_torch.serving import soak as soak_mod  # noqa: E402
 from repro_torch.serving.api import LLM, Session  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     EngineConfig, EngineCore, ServingEngine)
+from repro_torch.serving.faults import FaultInjector, FaultSpec  # noqa: E402
 from repro_torch.serving.sampling import (  # noqa: E402
     FINISH_LENGTH, SamplingParams)
 
@@ -4006,7 +4034,7 @@ def _record_margins(eng):
 
 def serve_continuous(cfg, params, layout, chunk=0, membership=None,
                      use_chai=True, traffic=(CONT_PROMPT_LENS, CONT_MAX_NEW),
-                     max_seq=MAX_SEQ):
+                     max_seq=MAX_SEQ, faults=None, **ecfg_kw):
     """Serve the continuous path's requests on one KV layout (``chunk``:
     with chunked prefill), with the launches counted over the run, each
     step kind and each ``step()`` timed, the KV bytes read around every
@@ -4018,10 +4046,16 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
     through it, noting whether its own membership was the same. ``use_chai=False``:
     the MHA baseline, every decode step an "mha_step", the flash decode
     ops' layer-0 inputs kept at the first step of each occupancy.
-    ``traffic``: (prompt lengths, new tokens) of the requests."""
+    ``traffic``: (prompt lengths, new tokens) of the requests. ``faults``:
+    the engine's ``FaultInjector`` (its degraded steps timed as
+    "degraded_<kind>"); ``ecfg_kw``: more ``EngineConfig`` settings. Each
+    ``step()`` is recorded in ``per_step`` (its
+    ``paged_chai_fused_decode`` launches, whether it decoded and ran
+    degraded, its kernel-path CHAI steps)."""
     eng = ServingEngine(cfg, params, EngineConfig(
         batch_slots=SLOTS, max_seq=max_seq, page_size=PAGE,
-        kv_layout=layout, prefill_chunk_tokens=chunk, use_chai=use_chai))
+        kv_layout=layout, prefill_chunk_tokens=chunk, use_chai=use_chai,
+        **ecfg_kw), faults=faults)
     times, calls = {}, {}
     for attr, phase in (("_slot_prefill", "prefill"),
                         ("_chunk_prefill", "chunk"),
@@ -4032,6 +4066,13 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
         if hasattr(eng, attr):
             setattr(eng, attr, _timed(getattr(eng, attr), phase, times,
                                       calls))
+    if faults is not None:
+        plain = eng._plain_decode_steps()
+        for key, phase in (("mha", "degraded_warmup_step"),
+                           ("mixed", "degraded_mixed_step"),
+                           ("chai", "degraded_steady_step")):
+            if key in plain:
+                plain[key] = _timed(plain[key], phase, times, calls)
     idents, own = {}, getattr(eng, "_identify", None)
 
     def identify(sc):
@@ -4069,17 +4110,26 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
             chunk_start[0] = args[3]          # prefix_len: the chunk start
             return chunk_fn(*args)
         eng._chunk_prefill = noted_chunk
-    step, step_s = eng.step, []
+    step, step_s, per_step = eng.step, [], []
     in_flight = {"mixed": 0, "no_decode": 0}
 
     def timed_step():
         mixed0 = calls.get("mixed_step", 0)
-        n0 = eng.steps_executed
+        chai0 = mixed0 + calls.get("steady_step", 0)
+        n0, fb0 = eng.steps_executed, eng.decode_fallbacks
+        degraded0 = eng.degraded_decode
+        fused0 = ck.LAUNCHES["paged_chai_fused_decode"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = step()
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        per_step.append(dict(
+            fused=ck.LAUNCHES["paged_chai_fused_decode"] - fused0,
+            decoded=eng.steps_executed > n0,
+            degraded=degraded0 or eng.decode_fallbacks > fb0,
+            chai_steps=calls.get("mixed_step", 0)
+            + calls.get("steady_step", 0) - chai0))
         if any(st is not None for st in eng._slot_prefill_state):
             in_flight["mixed"] += calls.get("mixed_step", 0) > mixed0
             in_flight["no_decode"] += eng.steps_executed == n0
@@ -4117,7 +4167,7 @@ def serve_continuous(cfg, params, layout, chunk=0, membership=None,
                 launches=launches, capture=cap.first, modes=cap.modes,
                 caps=cap.caps, dtypes=cap.dtypes, traffic=traffic,
                 prefill=pcap.first, margins=margins, idents=idents,
-                step_s=step_s,
+                step_s=step_s, per_step=per_step,
                 in_flight=in_flight, kv_history=eng.kv_bytes_history,
                 device_start=start,
                 device_peak=torch.cuda.max_memory_allocated())
@@ -4389,7 +4439,7 @@ def mha_baseline_path(cfg, params, chai, label):
 
 
 # ------------------------------------------------------------ phase 7 ----
-def _hold_tokens(run, mono):
+def _hold_tokens(run, mono, label="chunked"):
     """Each request's greedy tokens against the monolithic run's, up to
     its first divergence, which must sit on a monolithic top-2 margin <=
     CHUNK_MARGIN. Returns (tokens held, tokens compared, divergences)."""
@@ -4402,7 +4452,7 @@ def _hold_tokens(run, mono):
             if got != tok:
                 if gaps[k] > CHUNK_MARGIN:
                     raise AssertionError(
-                        f"chunked uid {r.uid} token {k}: {got} != {tok} at "
+                        f"{label} uid {r.uid} token {k}: {got} != {tok} at "
                         f"monolithic margin {gaps[k]:.4f} > {CHUNK_MARGIN}")
                 parted.append((r.uid, k, round(gaps[k], 5)))
                 break
@@ -5945,7 +5995,7 @@ def densified(t):
 # tokens each, in the turns FRONT_TURNS (a drift of the host clock falls
 # on both kinds alike).
 FRONT_NEW = 16
-FRONT_RATE_NEW = 128
+FRONT_RATE_NEW = 64
 FRONT_TURNS = ("greedy", "seeded", "seeded", "greedy", "greedy", "seeded")
 FRONT_SEEDS = (100, 101)
 SEEDED = dict(temperature=0.8, top_k=50, top_p=0.95)
@@ -6454,6 +6504,348 @@ def policy_path(cfg, params):
         f"ms, max |card - CPU|): {rows}")
 
 
+# ----------------------------------------------------------- phase 17 ----
+# The failure model on chai-llama-7b (phase 6's engine settings). The
+# soak's workload: ``build_workload(0, SOAK_REQUESTS)`` at page 16 and the
+# model's vocabulary, every priority 0 (preemption is not ported yet), and
+# one request more: the duplicated family prompt again at step
+# SOAK_DUP_STEP, once its CHAI snapshot exists, so a snapshot restore
+# takes place (in the 12 the second duplicate is admitted in the step
+# whose CLUSTER transition captures the first one's). SOAK_PLAN arms every
+# site the port serves but kernel.decode (phase 17b's), each uid pin on a
+# request that reaches its site.
+SOAK_REQUESTS = 12
+SOAK_DUP_STEP = 41
+SOAK_DUP_NEW = 8
+SOAK_PLAN = (dict(site="pool.alloc", mode="transient"),
+             dict(site="pool.alloc", mode="error", uid=5),
+             dict(site="snapshot.restore"),
+             dict(site="relay.residency"),
+             dict(site="kernel.prefill", uid=1),
+             dict(site="kernel.cluster", uid=4),
+             dict(site="step.logits", mode="nan", uid=2))
+SOAK_TERMINAL = ("length", "stop", "aborted", "error")
+# Phase 17b: phase 6's traffic with kernel.decode armed at decode step
+# DEGRADE_AT (every slot STEADY by then), healing after HEAL_STEPS clean
+# steps. Phase 17c: phase 6's traffic at each audit level in turns.
+DEGRADE_AT = 8
+HEAL_STEPS = 8
+AUDIT_TURNS = ("off", "basic", "deep") * 2
+
+
+def soak_workload(cfg):
+    wl = soak_mod.build_workload(0, SOAK_REQUESTS, page_size=PAGE,
+                                 vocab=cfg.vocab_size)
+    for w in wl:
+        w["priority"] = 0
+    dup = next(w["prompt"] for w in wl
+               if sum(v["prompt"] == w["prompt"] for v in wl) > 1)
+    wl.append(dict(step=SOAK_DUP_STEP, prompt=list(dup),
+                   max_new=SOAK_DUP_NEW, priority=0, abort_at=None))
+    return wl
+
+
+class _SoakCore(EngineCore):
+    """The soak's engine (``serving.soak`` builds it), its greedy margins
+    recorded (``_record_margins``), each one built kept in ``built``."""
+    built = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.margins = _record_margins(self)
+        _SoakCore.built.append(self)
+
+
+def _soak_run(cfg, params, wl, plan):
+    """One ``run_soak`` of ``wl`` under ``plan`` (None: fault-free), deep
+    audit after every step; returns (report, launches, engine, wall s)."""
+    ecfg = EngineConfig(batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+                        prefix_cache=True, relay_decode=True,
+                        audit_level="deep")
+    faults = (None if plan is None else
+              FaultInjector([FaultSpec(**a) for a in plan]))
+    _SoakCore.built.clear()
+    soak_mod.EngineCore = _SoakCore
+    try:
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rep = soak_mod.run_soak(cfg, params, ecfg, faults=faults,
+                                workload=[dict(w) for w in wl])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _launches()
+    finally:
+        soak_mod.EngineCore = EngineCore
+    core, = _SoakCore.built
+    label = "clean" if plan is None else "faulted"
+    fs = rep["fault_stats"]
+    finishes = {u: r["finish"] for u, r in rep["requests"].items()}
+    if (rep["unfinished"] or rep["leaks"]
+            or not set(finishes.values()) <= set(SOAK_TERMINAL)
+            or len(finishes) != len(wl)):
+        raise AssertionError(f"soak {label}: finishes {finishes}, "
+                             f"unfinished {rep['unfinished']}, leaks "
+                             f"{rep['leaks']}")
+    if fs["audit_steps"] != rep["steps"]:
+        raise AssertionError(f"soak {label}: {fs['audit_steps']} deep "
+                             f"audits over {rep['steps']} steps")
+    if any(r["finish"] == "error" and not r["error"]
+           for r in rep["requests"].values()):
+        raise AssertionError(f"soak {label}: an error without a message")
+    return rep, launches, core, wall
+
+
+def _hold_soak(clean, faulted, margins):
+    """The parity set of ``run_soak_pair`` (completed requests no firing
+    names) held against the clean run's tokens: equal up to a first
+    divergence that sits on a clean top-2 margin <= CHUNK_MARGIN (bf16
+    rounding: a relay group dissolved, a prefix hit where the clean run
+    restored a snapshot). Returns (uids held, tokens compared,
+    divergences)."""
+    touched = soak_mod.affected_uids(faulted)
+    done = ("length", "stop")
+    uids = [u for u, r in faulted["requests"].items()
+            if u not in touched and r["finish"] in done
+            and clean["requests"][u]["finish"] in done]
+    compared, parted = 0, []
+    for u in uids:
+        got, want = (faulted["requests"][u]["tokens"],
+                     clean["requests"][u]["tokens"])
+        gaps = margins.get(u, [])
+        off = len(want) - len(gaps)      # tokens a snapshot supplied
+        for k, (a, b) in enumerate(zip(got, want)):
+            compared += 1
+            if a != b:
+                gap = gaps[k - off] if k >= off else None
+                if gap is None or gap > CHUNK_MARGIN:
+                    raise AssertionError(
+                        f"soak uid {u} token {k}: {a} != {b} at clean "
+                        f"margin {gap}")
+                parted.append((u, k, round(gap, 5)))
+                break
+        else:
+            if len(got) != len(want):
+                raise AssertionError(f"soak uid {u}: {len(got)} tokens, "
+                                     f"clean {len(want)}")
+    if not uids:
+        raise AssertionError("soak: empty parity set")
+    return uids, compared, parted
+
+
+def soak_path(cfg, params):
+    """Phase 17a: the soak, clean and twice under SOAK_PLAN. Returns
+    {path: launches}."""
+    wl = soak_workload(cfg)
+    clean, c_launches, c_core, c_wall = _soak_run(cfg, params, wl, None)
+    if not (c_core.cluster_transitions and c_core.relay_steps
+            and clean["prefix_stats"]["snapshot_hits"]):
+        raise AssertionError(
+            f"soak clean: {c_core.cluster_transitions} CLUSTER "
+            f"transitions, {c_core.relay_steps} relay steps, prefix stats "
+            f"{clean['prefix_stats']}")
+    for name in ("paged_chai_fused_decode", "relay_prefix_decode",
+                 "flash_prefill", "paged_prefix_attend"):
+        if not c_launches[name]:
+            raise AssertionError(f"soak clean: no {name} launch "
+                                 f"{c_launches}")
+    runs = [_soak_run(cfg, params, wl, SOAK_PLAN) for _ in range(2)]
+    (faulted, f_launches, f_core, f_wall), (again, _, _, a_wall) = runs
+    fired = faulted["fault_stats"]["injector"]["fired"]
+    if again["fault_stats"]["injector"]["fired"] != fired:
+        raise AssertionError("soak: the two faulted runs fired differently")
+    if {f["site"] for f in fired} != {a["site"] for a in SOAK_PLAN}:
+        raise AssertionError(f"soak: arms fired {fired}")
+    fs = faulted["fault_stats"]
+    if fs["relay_dissolved"] != 1 or fs["quarantined"] < 4:
+        raise AssertionError(f"soak faulted: fault stats {fs}")
+    uids, compared, parted = _hold_soak(clean, faulted, c_core.margins)
+    same = again["requests"] == faulted["requests"]
+    finishes = {}
+    for r in faulted["requests"].values():
+        finishes[r["finish"]] = finishes.get(r["finish"], 0) + 1
+    log(f"soak ({len(wl)} requests, deep audit every step): clean "
+        f"{clean['steps']} steps in {c_wall:.3f} s, "
+        f"{c_core.cluster_transitions} CLUSTER transitions, "
+        f"{c_core.relay_steps} relay steps, snapshot hits "
+        f"{clean['prefix_stats']['snapshot_hits']}, launches {c_launches}")
+    log(f"soak faulted: {faulted['steps']} steps in {f_wall:.3f} s (again "
+        f"{a_wall:.3f} s), finishes {finishes}, fault stats "
+        f"{ {k: v for k, v in fs.items() if k != 'injector'} }, fired "
+        f"{[(f['site'], f['step'], f['uid']) for f in fired]}; the second "
+        f"faulted run fired identically, its requests "
+        f"{'identical' if same else 'NOT identical'}; parity uids {uids}: "
+        f"{compared} tokens compared, divergences on margins {parted}; "
+        f"launches {f_launches}")
+    return {"fault_soak_clean": c_launches, "fault_soak_faulted": f_launches}
+
+
+def degraded_path(cfg, params, mono):
+    """Phase 17b: phase 6's paged traffic with ``kernel.decode`` armed at
+    decode step DEGRADE_AT and ``decode_heal_steps=HEAL_STEPS``,
+    clustering through phase 6's memberships. Returns {path: launches}."""
+    inj = FaultInjector([FaultSpec("kernel.decode", step=DEGRADE_AT)])
+    run = serve_continuous(cfg, params, "paged", faults=inj,
+                           membership=mono["membership"],
+                           decode_heal_steps=HEAL_STEPS)
+    eng = run["eng"]
+    fs = eng.fault_stats()
+    if ((fs["decode_fallbacks"], fs["decode_heals"], fs["degraded_decode"])
+            != (1, 1, False)):
+        raise AssertionError(f"degraded: fault stats {fs}")
+    steps = [st for st in run["per_step"] if st["decoded"]]
+    degraded = [k for k, st in enumerate(steps) if st["degraded"]]
+    if (degraded != list(range(DEGRADE_AT, DEGRADE_AT + HEAL_STEPS + 1))
+            or any(steps[k]["fused"] for k in degraded)):
+        raise AssertionError(f"degraded steps {degraded}: launches "
+                             f"{[steps[k]['fused'] for k in degraded]}")
+    kernel_steps = [st for st in steps if not st["degraded"]]
+    healed = [st for st in steps[degraded[-1] + 1:] if st["chai_steps"]]
+    if (not healed or any(st["fused"] != cfg.n_layers * st["chai_steps"]
+                          for st in kernel_steps)):
+        raise AssertionError("degraded: kernel-path steps' launches "
+                             f"{[(st['fused'], st['chai_steps']) for st in kernel_steps]}")
+    _check_served(cfg, run, "degraded")
+    held, compared, parted = _hold_tokens(run, mono, label="degraded")
+    times, calls = run["times"], run["calls"]
+    per_call = {k: 1e3 * times[k] / calls[k] for k in calls}
+    nan = float("nan")
+    idx = [i for i, st in enumerate(run["per_step"]) if st["decoded"]]
+    wall = {kind: statistics.median(1e3 * run["step_s"][idx[k]]
+                                    for k in picks)
+            for kind, picks in (
+                ("degraded", degraded),
+                ("kernels", [k for k, st in enumerate(steps)
+                             if not st["degraded"] and st["chai_steps"]]))}
+    log(f"degraded decode: fault at decode step {DEGRADE_AT}, "
+        f"{len(degraded)} degraded steps (0 paged_chai_fused_decode "
+        f"launches each), then {len(healed)} healed CHAI steps at "
+        f"{cfg.n_layers} launches each; fault stats "
+        f"{ {k: v for k, v in fs.items() if k != 'injector'} }; ms per "
+        f"step call (device synchronized): degraded STEADY "
+        f"{per_call.get('degraded_steady_step', nan):.2f} against the "
+        f"kernels' STEADY {per_call.get('steady_step', nan):.2f} (mixed: "
+        f"degraded {per_call.get('degraded_mixed_step', nan):.2f}, kernels "
+        f"{per_call.get('mixed_step', nan):.2f}; calls {calls}); median "
+        f"step() wall: degraded {wall['degraded']:.2f} ms, the kernels' "
+        f"CHAI steps {wall['kernels']:.2f} ms; greedy tokens against phase 6's: {held} held on margins > "
+        f"{CHUNK_MARGIN} of {compared} compared, divergences {parted}; "
+        f"launches {run['launches']}")
+    return {"fault_degraded_paged": run["launches"]}
+
+
+def _profiled_copies(fn):
+    """``fn()`` under ``torch.profiler``; returns (the device-to-host
+    copies in its trace, the number of device events in it)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if str(e.device_type).endswith("CUDA")]
+    return sum("DtoH" in e.name for e in events), len(events)
+
+
+def _decode_step_copies(cfg, params, level):
+    """Device-to-host copies in one all-STEADY decode step of a bare
+    engine (no wrapper of this script) at ``audit_level``."""
+    core = EngineCore(cfg, params, EngineConfig(
+        batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+        audit_level=level))
+    rng = np.random.default_rng(0)
+    for n in CONT_PROMPT_LENS[:SLOTS]:
+        core.add_request(rng.integers(0, cfg.vocab_size, size=n),
+                         SamplingParams(max_new_tokens=16))
+    while core.steps_executed < cfg.chai.warmup_tokens + 2:
+        core.step()
+    n0 = core.steps_executed
+    copies, n_events = _profiled_copies(core.step)
+    if core.steps_executed != n0 + 1 or not (
+            core._phases == chai_cache.PHASE_STEADY).all():
+        raise AssertionError("the profiled step was no all-STEADY decode")
+    for uid in range(SLOTS):
+        core.abort(uid)
+    return copies, n_events
+
+
+def audit_cost_path(cfg, params):
+    """Phase 17c: phase 6's paged traffic at audit_level off, basic and
+    deep in turns (AUDIT_TURNS); the median step() wall of each run, the
+    host time of each ``audit`` call, and the device-to-host copies of one
+    decode step at each level. Returns {path: launches}."""
+    audit = invariants_mod.audit
+    step_ms = {lvl: [] for lvl in AUDIT_TURNS}
+    audit_ms = {lvl: [] for lvl in AUDIT_TURNS}
+    by_path = {}
+    for lvl in AUDIT_TURNS:
+        host = []
+
+        def timed_audit(core, deep=False):
+            t0 = time.perf_counter()
+            out = audit(core, deep=deep)
+            host.append(1e3 * (time.perf_counter() - t0))
+            return out
+        invariants_mod.audit = timed_audit
+        try:
+            run = serve_continuous(cfg, params, "paged", audit_level=lvl)
+        finally:
+            invariants_mod.audit = audit
+        _check_served(cfg, run, f"audit {lvl}")
+        eng = run["eng"]
+        if eng.audit_steps != (0 if lvl == "off" else len(run["step_s"])) \
+                or len(host) != eng.audit_steps:
+            raise AssertionError(f"audit {lvl}: {eng.audit_steps} audits, "
+                                 f"{len(run['step_s'])} steps")
+        step_ms[lvl].append(1e3 * statistics.median(run["step_s"]))
+        audit_ms[lvl].append(statistics.median(host) if host else 0.0)
+        by_path.setdefault(f"fault_audit_{lvl}", run["launches"])
+        del eng
+        run.clear()
+    copies = {lvl: _decode_step_copies(cfg, params, lvl)
+              for lvl in ("off", "basic", "deep")}
+    log(f"audit cost (phase 6's paged traffic, turns {AUDIT_TURNS}): median "
+        f"step() ms " + ", ".join(
+            f"{lvl} {[round(x, 3) for x in v]}" for lvl, v in step_ms.items())
+        + "; median host ms of one audit call: " + ", ".join(
+            f"{lvl} {[round(x, 4) for x in v]}" for lvl, v in audit_ms.items()
+            if lvl != "off")
+        + "; device-to-host copies in one all-STEADY decode step "
+        "(torch.profiler; copies / device events): " + ", ".join(
+            f"{lvl} {c[0]} / {c[1]}" for lvl, c in copies.items()))
+    return by_path, copies
+
+
+def front_door_faults(cfg, params):
+    """Phase 17d: ``LLM(faults=...)`` with NaN logits armed on uid 1: its
+    stream ends in a terminal chunk with finish_reason "error"; the other
+    stream's tokens equal a clean LLM's. Returns {path: launches}."""
+    prompts, sps = front_traffic(cfg, seeds=(None, None))
+    prompts = prompts[:2]
+    want = [o.token_ids for o in LLM(cfg, params, front_ecfg()).generate(
+        prompts, sps)]
+    llm = LLM(cfg, params, front_ecfg(), faults=FaultInjector(
+        [FaultSpec("step.logits", mode="nan", uid=1)]))
+    _reset_launches()
+    streams = [llm.stream(p, sp) for p, sp in zip(prompts, sps)]
+    chunks = [[next(s)] for s in streams]
+    for s, got in zip(streams, chunks):
+        got.extend(s)
+    launches = _launches()
+    ends = [(c[-1].finished, c[-1].finish_reason) for c in chunks]
+    toks = [t for c in chunks[0] for t in c.token_ids]
+    if (ends != [(True, FINISH_LENGTH), (True, "error")] or toks != want[0]
+            or llm.core.fault_stats()["quarantined"] != 1):
+        raise AssertionError(f"front door faults: ends {ends}, tokens "
+                             f"{toks} against {want[0]}")
+    llm.core.prefix_cache.clear()
+    _pools_empty(llm.core, "front door faults")
+    log(f"front door faults: stream uid 1 quarantined by NaN logits, its "
+        f"last chunk {chunks[1][-1]}; stream uid 0's {len(toks)} tokens "
+        f"equal a clean LLM's; launches {launches}")
+    return {"fault_front_door": launches}
+
+
 def main():
     environment()
     build_kernels()
@@ -6504,6 +6896,12 @@ def main():
     front_launches, _ = front_door_path(cfg, params)
     offline_path(cfg, params)
     policy_path(cfg, params)
+    # Phase 17, chai-llama-7b: the failure model.
+    fault_launches = soak_path(cfg, params)
+    fault_launches.update(degraded_path(cfg, params, mono))
+    audit_launches, _ = audit_cost_path(cfg, params)
+    fault_launches.update(audit_launches)
+    fault_launches.update(front_door_faults(cfg, params))
     # The engines of phases 5-8 sit in reference cycles (their wrapped
     # hooks); collect them so chai-llama-7b's weights are really freed.
     del params
@@ -6592,7 +6990,7 @@ def main():
                **i8_prefix_launches, **n8_launches, **share_launches,
                **g_launches, **d_launches, **sp_launches, **g8_launches,
                **sp8_launches, **d8_launches, **front_launches,
-               **nemo_front_launches,
+               **nemo_front_launches, **fault_launches,
                "pipeline_lane": lane_launches,
                "pipeline_lane_share_int8": lane8_launches}
     mains = {"chai_fused_decode": (

@@ -58,6 +58,10 @@ reference does; the engine refuses the prefix cache on a local arch
 Under int8 a local layer's ring stays in the model dtype (the reference:
 "local rings are never quantized"); only the global caches hold codes.
 
+``plain`` (the engine's degraded decode, never with ``relay``): the
+fused op's plain version (``kernels.ref``) runs on the state's device in
+place of the CUDA kernel.
+
 Ported: the MHA and GQA branches, dense and paged, float and int8 caches,
 with the mixed-phase ``write_mask``, the relay decode for both,
 ``share_values`` on MHA, local layers and the softcap.
@@ -70,6 +74,7 @@ import torch
 
 from repro_torch.kernels import chai_attention as ck
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import apply_rope, softcap
 from repro_torch.models.transformer import (_dense_global_write,
@@ -92,8 +97,23 @@ def _gather_heads(x, idx):
         *idx.shape, x.shape[-1]))
 
 
+def _fused(*args, plain, ts, **kw):
+    """The dense fused decode op, or with ``plain`` its plain version."""
+    if plain:
+        return ref.chai_fused_decode_ref(*args, **kw)
+    return kops.chai_decode_attention(*args, ts=ts, **kw)
+
+
+def _paged_fused(*args, plain, **kw):
+    """The paged fused decode op, or with ``plain`` its plain version."""
+    if plain:
+        return ref.paged_chai_fused_decode_ref(*args, **kw)
+    return kops.paged_chai_decode_attention(*args, **kw)
+
+
 def chai_decode_attention(xn, p, cfg, state, gi, ai, chai_ctx, *, li=None,
-                          write_mask=None, decode_ts=0, relay=None):
+                          write_mask=None, decode_ts=0, relay=None,
+                          plain=False):
     """xn: (B, d) normed hidden; ``gi``/``ai``: the layer's global-cache
     and attention-layer index, ``li`` its local-ring index (a local
     layer; ``gi`` is then None). Returns (B, H, hd) in xn's dtype; writes
@@ -101,18 +121,19 @@ def chai_decode_attention(xn, p, cfg, state, gi, ai, chai_ctx, *, li=None,
     (only for slots in ``write_mask`` (B,) bool, when given: the
     mixed-phase step runs this path alongside the MHA path). ``relay``:
     the relay decode's group-batched tensors (paged layout; see
-    ``_relay_prefix_state``)."""
+    ``_relay_prefix_state``). ``plain``: the fused op's plain version in
+    place of its kernel."""
     if not cfg.is_mha:
         return _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx,
                                 write_mask, li=li, decode_ts=decode_ts,
-                                relay=relay)
+                                relay=relay, plain=plain)
     if li is not None:
         # an MHA arch with a local layer: the plain decode, as in the
         # reference (no served arch has one)
         return _plain_decode_attention(xn, p, cfg, state, gi, ai, li,
                                        write_mask=write_mask)
     return _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask,
-                            decode_ts=decode_ts, relay=relay)
+                            decode_ts=decode_ts, relay=relay, plain=plain)
 
 
 def _roll_bt(bt, shift):
@@ -197,7 +218,7 @@ def _relay_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, relay, gi,
 
 
 def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
-                     *, decode_ts=0, relay=None):
+                     *, decode_ts=0, relay=None, plain=False):
     b = xn.shape[0]
     cap = cfg.attn_logit_softcap
     h = cfg.n_heads
@@ -243,10 +264,10 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
         pv, vrow = paged_token_coords(bt_v, pos, page)
         _paged_write_rows(vp, pv, vrow, v_new, write_mask, vsp)
         if relay is None:
-            out = kops.paged_chai_decode_attention(
+            out = _paged_fused(
                 q_rep, cp, state["bt_kc"], vp, bt_v, gather_idx, pos,
                 k_scale_pool=csc, v_scale_pool=vsp, share_values=share,
-                softcap=cap)
+                softcap=cap, plain=plain)
         else:
             out = _relay_decode(q_rep, cp, state["bt_kc"], vp, bt_v,
                                 gather_idx, pos, relay, gi, ai, decode_ts,
@@ -263,10 +284,10 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
         vsc = layer_slice(state, "vg_scale", gi)
     _dense_write_rows(kc, pos, k_rep, write_mask, ksc)
     _dense_write_rows(vc, pos, v_new, write_mask, vsc)
-    out = kops.chai_decode_attention(
+    out = _fused(
         q_rep, kc, vc, gather_idx, pos, k_scale=ksc, v_scale=vsc,
         share_values=share, ts=ck.fused_tile_size(decode_ts, kc.shape[2]),
-        softcap=cap)
+        softcap=cap, plain=plain)
     return out.to(xn.dtype)
 
 
@@ -293,7 +314,7 @@ def _local_gqa_attention(q_rep, kc, vc, kv_pos, pos, cluster_of, cfg):
 
 
 def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
-                     *, li=None, decode_ts=0, relay=None):
+                     *, li=None, decode_ts=0, relay=None, plain=False):
     """GQA clustered decode with per-request membership: each KV group's
     representative queries (``reps`` (B, KV, r)), flattened to rep rows
     g * r + j, attend the group's own K; head h of group g reads rep row
@@ -337,10 +358,10 @@ def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
         pool, spool = _paged_global_write(state, gi, k_new, v_new, pos,
                                           write_mask)
         if relay is None:
-            out = kops.paged_chai_decode_attention(
+            out = _paged_fused(
                 q_flat, pool, state["bt_kg"], pool, state["bt_vg"],
                 h2c_flat, pos, k_scale_pool=spool, v_scale_pool=spool,
-                reps_per_group=r, softcap=cap)
+                reps_per_group=r, softcap=cap, plain=plain)
         else:
             out = _relay_decode(q_flat, pool, state["bt_kg"], pool,
                                 state["bt_vg"], h2c_flat, pos, relay, gi, ai,
@@ -350,8 +371,8 @@ def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
         return out.to(xn.dtype)
     kc, vc, ksc, vsc = _dense_global_write(state, gi, k_new, v_new, pos,
                                            write_mask)   # (B, KV, S, hd)
-    out = kops.chai_decode_attention(
+    out = _fused(
         q_flat, kc, vc, h2c_flat, pos, k_scale=ksc, v_scale=vsc,
         reps_per_group=r, ts=ck.fused_tile_size(decode_ts, kc.shape[2]),
-        softcap=cap)
+        softcap=cap, plain=plain)
     return out.to(xn.dtype)

@@ -36,14 +36,17 @@ def make_serve_prefill(cfg: ModelConfig, batch: int, max_seq: int):
     return serve_prefill
 
 
-def make_serve_step(cfg: ModelConfig, *, chai=False, decode_ts=0):
+def make_serve_step(cfg: ModelConfig, *, chai=False, decode_ts=0,
+                    plain=False):
     """One decode step; with ``chai`` the attention is clustered.
     ``decode_ts``: S-tile size of the fused CHAI decode kernel (the engine
-    passes its page size so every layout rounds the same)."""
+    passes its page size so every layout rounds the same). ``plain``: the
+    engine's degraded decode, every decode attention on its kernel's
+    plain version (``models.transformer.decode_step``)."""
     def serve_step(params, batch_inputs, state, chai_ctx=None):
         return tfm.decode_step(params, cfg, batch_inputs["tokens"], state,
                                chai_ctx=chai_ctx if chai else None,
-                               decode_ts=decode_ts)
+                               decode_ts=decode_ts, plain=plain)
 
     return serve_step
 
@@ -166,14 +169,15 @@ def make_compact_step(cfg: ModelConfig):
 # Continuous batching (slot-level) steps
 # ---------------------------------------------------------------------------
 
-def make_mixed_step(cfg: ModelConfig, *, decode_ts=0):
+def make_mixed_step(cfg: ModelConfig, *, decode_ts=0, plain=False):
     """Mixed-phase decode step: each slot takes the MHA path (WARMUP) or
     the CHAI path (STEADY) by ``state["phase"]``; both paths run on the
-    whole batch and the output is selected per slot."""
+    whole batch and the output is selected per slot. ``plain``: as for
+    ``make_serve_step``."""
     def mixed_step(params, batch_inputs, state, chai_ctx):
         return tfm.decode_step(params, cfg, batch_inputs["tokens"], state,
                                chai_ctx=chai_ctx, mixed_phase=True,
-                               decode_ts=decode_ts)
+                               decode_ts=decode_ts, plain=plain)
 
     return mixed_step
 

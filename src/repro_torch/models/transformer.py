@@ -30,6 +30,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, FFN_DENSE,
                                       ModelConfig)
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp
 from repro_torch.models.layers import embed_lookup, rms_norm, softcap, unembed
@@ -502,7 +503,7 @@ def _global_views(state, gi):
 
 
 def _plain_decode_attention(xn, p, cfg, state, gi, ai, li=None,
-                            write_mask=None, decode_ts=0):
+                            write_mask=None, decode_ts=0, plain=False):
     """MHA/GQA decode for one token. xn: (B, d). Returns (B, H, hd).
 
     A global layer (``gi``) writes the token's K/V rows at ``pos`` (dense
@@ -528,7 +529,9 @@ def _plain_decode_attention(xn, p, cfg, state, gi, ai, li=None,
     on both layouts. The flash decode kernels, like the Pallas ones, have
     no scale mode, no softcap and no ring: with ``attn_logit_softcap`` a
     global layer, and a local layer always, takes the eager attention
-    (``_decode_attention_batched``), the reference's decode math."""
+    (``_decode_attention_batched``), the reference's decode math.
+    ``plain``: the flash decode op's plain version (``kernels.ref``) on
+    the state's device, in place of the op (the degraded decode)."""
     b = xn.shape[0]
     pos = state["pos"]
     q, k, v = attn_mod.project_qkv(xn[:, None], p, cfg, pos[:, None])
@@ -547,15 +550,16 @@ def _plain_decode_attention(xn, p, cfg, state, gi, ai, li=None,
         flash = "chai_scores" not in state and not cap
         if flash and spool is None:
             if "kvp" in state:
-                y = kops.paged_decode_attention(q, pool, state["bt_kg"],
-                                                state["bt_vg"], pos)
+                y = (kref.paged_decode_ref if plain
+                     else kops.paged_decode_attention)(
+                    q, pool, state["bt_kg"], state["bt_vg"], pos)
             else:
-                y = kops.flash_decode_attention(q, kc, vc, pos, ts=decode_ts)
+                y = _flash_decode(q, kc, vc, pos, decode_ts, plain)
             return y.to(q.dtype)
         kc, vc = _global_views(state, gi)
         if flash:
-            return kops.flash_decode_attention(q, kc, vc, pos,
-                                               ts=decode_ts).to(q.dtype)
+            return _flash_decode(q, kc, vc, pos, decode_ts,
+                                 plain).to(q.dtype)
         s = kc.shape[2]
         kv_pos = torch.arange(s, dtype=torch.int32,
                               device=xn.device).expand(b, s)
@@ -572,8 +576,14 @@ def _plain_decode_attention(xn, p, cfg, state, gi, ai, li=None,
     return y
 
 
+def _flash_decode(q, kc, vc, pos, ts, plain):
+    if plain:
+        return kref.flash_decode_ref(q, kc, vc, pos)
+    return kops.flash_decode_attention(q, kc, vc, pos, ts=ts)
+
+
 def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
-                mixed_phase=False, decode_ts=0, relay=None):
+                mixed_phase=False, decode_ts=0, relay=None, plain=False):
     """One decode step. tokens: (B,) int. Returns (logits (B, V) fp32,
     state) with ``pos`` advanced by one.
 
@@ -594,7 +604,13 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
     dict of group-batched tensors, passed to every CHAI layer (see
     ``repro_torch.core.chai_attention``).
 
+    ``plain`` (the engine's degraded decode; no ``relay``): every decode
+    attention that launches a CUDA kernel otherwise (the fused pair, the
+    flash decode pair) calls that kernel's plain version
+    (``kernels.ref``) on the state's device instead.
+
     A local layer reads and writes its ring (``li``), on every path."""
+    assert not (plain and relay is not None), "no plain relay step"
     from repro_torch.core import chai_attention as chai_mod
     plan = layer_plan(cfg)
     h = embed_lookup(params["embed"]["tok"], tokens).to(model_dtype(cfg))
@@ -609,19 +625,20 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
         if steady is not None:
             y_m = _plain_decode_attention(xn, p, cfg, state, gi, ai, li,
                                           write_mask=~steady,
-                                          decode_ts=decode_ts)
+                                          decode_ts=decode_ts, plain=plain)
             y_c = chai_mod.chai_decode_attention(
                 xn, p, cfg, state, gi, ai, chai_ctx, li=li,
-                write_mask=steady, decode_ts=decode_ts, relay=relay)
+                write_mask=steady, decode_ts=decode_ts, relay=relay,
+                plain=plain)
             y = torch.where(steady[:, None, None], y_c, y_m)
         elif chai_ctx is not None:
             y = chai_mod.chai_decode_attention(xn, p, cfg, state, gi, ai,
                                                chai_ctx, li=li,
                                                decode_ts=decode_ts,
-                                               relay=relay)
+                                               relay=relay, plain=plain)
         else:
             y = _plain_decode_attention(xn, p, cfg, state, gi, ai, li,
-                                        decode_ts=decode_ts)
+                                        decode_ts=decode_ts, plain=plain)
         h = h + torch.einsum("bhe,hed->bd", y, p["wo"])
         pf = _layer(params["ffn"], plan["dense"][i])
         xf = rms_norm(h, pf["ln"], cfg.norm_eps)

@@ -58,16 +58,13 @@ class LLM:
     ``detokenizer``: optional ``List[int] -> str``; enables
     ``SamplingParams.stop`` strings and fills ``RequestOutput.text``.
     Extra keyword arguments build the ``EngineConfig`` when ``ecfg`` is not
-    given. ``device``: where the core runs (``None`` = CUDA; ``params``
-    must live there)."""
+    given. ``faults``: a ``serving.faults.FaultInjector`` threaded through
+    the core's injection sites. ``device``: where the core runs (``None``
+    = CUDA; ``params`` must live there)."""
 
     def __init__(self, cfg, params, ecfg: Optional[EngineConfig] = None, *,
                  detokenizer: Optional[Callable] = None, faults=None,
                  device=None, **ecfg_kw):
-        if faults is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet: ROADMAP Queue 1, #11 "
-                "the failure model")
         if ecfg is None:
             ecfg = EngineConfig(**ecfg_kw)
         elif ecfg_kw:
@@ -78,7 +75,7 @@ class LLM:
                              "scheduler only (use ServingEngine for the "
                              "cohort path)")
         self.core = EngineCore(cfg, params, ecfg, detokenizer=detokenizer,
-                               device=device)
+                               faults=faults, device=device)
         self.detokenizer = detokenizer
 
     # -- driving -----------------------------------------------------------
@@ -133,7 +130,9 @@ class LLM:
         ``StepOutput`` per engine step that emitted tokens for THIS request
         (the admission chunk carries the first token; the final chunk has
         ``finished=True``; after an ``abort(uid)`` between chunks it is an
-        empty terminal chunk with ``finish_reason="aborted"``).
+        empty terminal chunk with ``finish_reason="aborted"``, and after a
+        quarantine a terminal chunk with ``finish_reason="error"``, the
+        reason on ``Request.error``).
 
         The request is submitted when iteration begins (first
         ``__next__``), and abandoning the iterator (break, close, garbage

@@ -90,9 +90,24 @@ layout. Stop token ids and, with ``EngineCore(detokenizer=...)``, stop
 strings finish a request at their first match. ``serving.api`` is the
 front door over ``EngineCore`` (``LLM``, ``stream``, ``Session``).
 
+Failures are typed (``serving.faults``). A request-isolatable failure
+(an injected fault at a named site, non-finite logits) QUARANTINES its
+request: ``finish_reason="error"`` with ``Request.error`` set, its pages
+returned refcount-exactly, the rest of the batch decoding on. Every
+continuous ``step()`` ends in an invariant audit (``serving.invariants``;
+``EngineConfig.audit_level``) that raises ``EngineFault`` on corrupt
+engine state. A seeded ``FaultInjector`` (``EngineCore(faults=...)``)
+drives the sites. An injected ``kernel.decode`` fault, raised before any
+launch, retries the step on the plain versions of the decode kernels
+(``kernels.ref``, on the engine's device) and keeps the engine there
+(``degraded_decode``) until ``decode_heal_steps`` clean steps have passed;
+any other exception in the decode propagates, since after a real CUDA
+error the context is unusable and the step may already have written K/V
+in place.
+
 Not ported yet, and refused with ``NotImplementedError``: ``priority``
-(preemption), ``kv_offload`` (KV tiers); not there yet: fault injection
-and auditing, telemetry.
+(preemption), ``kv_offload`` (KV tiers) and the fault sites of those two
+paths; not there yet: telemetry.
 """
 from __future__ import annotations
 
@@ -109,8 +124,14 @@ from repro_torch.configs.base import ATTN_GLOBAL, ModelConfig
 from repro_torch.core import cache as chai_cache
 from repro_torch.core import clustering
 from repro_torch.launch import steps as steps_mod
+from repro_torch.serving import invariants as invariants_mod
 from repro_torch.serving import sampling as sampling_mod
 from repro_torch.serving.cohort import CohortSchedulerMixin
+from repro_torch.serving.faults import (UNPORTED_SITES, CapacityError,
+                                        EngineFault, FaultInjector,
+                                        InjectedFault, QuarantineError,
+                                        RequestError, SnapshotRestoreError,
+                                        ValidationError)
 from repro_torch.serving.prefix_cache import BlockNode, ChaiSnapshot, \
     PrefixCache
 from repro_torch.serving.sampling import SamplingParams
@@ -126,7 +147,7 @@ class Request:                         # abort() membership-test Requests
     # -- filled by the engine --
     generated: Optional[List[int]] = None
     finish_reason: str = ""            # "" while in flight; "length" |
-    #                                    "stop" | "aborted" when done
+    #                                    "stop" | "aborted" | "error"
     t_enqueue: float = 0.0
     t_arrival: float = 0.0             # earliest admission time
     t_first_token: float = 0.0         # first token on the host
@@ -138,6 +159,9 @@ class Request:                         # abort() membership-test Requests
     cache_hit: str = ""                # "" | "prefix" | "snapshot" | "replay"
     cached_tokens: int = 0             # prompt tokens served from cache
     prefill_tokens: int = -1           # tokens actually forwarded (prefill)
+    # -- failure taxonomy --
+    error: str = ""                    # quarantine message when
+    #                                    finish_reason == "error"
 
     @property
     def finished(self) -> bool:
@@ -207,6 +231,20 @@ class EngineConfig:
     # the finalize. Slots outside a group decode bitwise as without it.
     relay_decode: bool = False
     relay_min_group: int = 2           # smallest group worth a prefix pass
+    # -- runtime self-checks (serving/invariants.py) --
+    # "basic" (default): cheap host-side checks after every continuous
+    # step() (pool conservation, refcount accounting, phase legality,
+    # cache lock / residency consistency). "deep": also read the device
+    # block tables and phase vector (one transfer) and check them against
+    # the host bookkeeping. "off": no auditing. A failed audit raises
+    # EngineFault.
+    audit_level: str = "basic"         # "off" | "basic" | "deep"
+    # -- degraded-decode healing --
+    # After an injected kernel.decode fault flips ``degraded_decode`` the
+    # engine decodes on the kernels' plain versions; with N > 0 it returns
+    # to the kernels after N consecutive clean decode steps (each return
+    # counts in ``decode_heals``). 0 = never.
+    decode_heal_steps: int = 0
 
 
 class EngineCore(CohortSchedulerMixin):
@@ -220,9 +258,21 @@ class EngineCore(CohortSchedulerMixin):
     _HISTORY_MAX = 1 << 16
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *,
-                 detokenizer: Optional[Callable] = None, device=None):
+                 detokenizer: Optional[Callable] = None,
+                 faults: Optional[FaultInjector] = None, device=None):
         self.device = resolve_device(device)
         self.detokenizer = detokenizer
+        if ecfg.audit_level not in ("off", "basic", "deep"):
+            raise ValueError(f"audit_level must be off|basic|deep, got "
+                             f"{ecfg.audit_level!r}")
+        if ecfg.decode_heal_steps < 0:
+            raise ValueError("decode_heal_steps must be >= 0, got "
+                             f"{ecfg.decode_heal_steps}")
+        for spec in (faults.specs if faults is not None else ()):
+            if spec.site in UNPORTED_SITES:
+                raise NotImplementedError(
+                    f"fault site {spec.site!r} is not ported yet: ROADMAP "
+                    f"Queue 1, {UNPORTED_SITES[spec.site]}")
         if ecfg.scheduler not in ("continuous", "cohort"):
             raise ValueError(f"unknown scheduler {ecfg.scheduler!r}")
         if ecfg.kv_layout not in ("paged", "dense"):
@@ -233,6 +283,20 @@ class EngineCore(CohortSchedulerMixin):
             raise ValueError(f"params live on {params['embed']['tok'].device}"
                              f", the engine on {self.device}")
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
+        # -- fault containment / robustness --
+        self.faults = faults           # None = no injection site active
+        self.quarantined = 0           # requests typed-failed ("error")
+        self.audit_steps = 0           # step()s that ran the auditor
+        self.degraded_decode = False   # decode on the plain versions now
+        self.decode_fallbacks = 0      # injected decode faults survived
+        self.decode_heals = 0          # degraded -> kernel reverts
+        self._heal_clean = 0           # consecutive clean degraded steps
+        self._decode_fault_hit = False  # kernel.decode fired this step
+        self.relay_dissolved = 0       # relay groups dissolved by fault
+        self.swap_checksum_failures = 0      # preemption swap-in (#9)
+        self.offload_checksum_failures = 0   # KV-tier promotion (#13)
+        self._plain_steps = None       # degraded decode steps, built lazily
+        self._fault_blocked = False    # last plan blocked by injection
         self.queue: deque = deque()
         self.done: List[Request] = []
         self.redispatched = 0
@@ -371,22 +435,24 @@ class EngineCore(CohortSchedulerMixin):
         """Enqueue a request with its ``SamplingParams``. ``max_new_tokens``
         (when given) overrides ``sampling.max_new_tokens``;
         ``arrival_delay`` (seconds from now) models open-loop arrivals.
-        Default uids come from a monotonic engine counter. Stop strings
-        need the engine's detokenizer (``ValueError`` without one)."""
+        Default uids come from a monotonic engine counter. A request
+        beyond ``max_seq``, or with stop strings on an engine without a
+        detokenizer, raises ``ValidationError`` (a ``ValueError``)."""
         sp = sampling if sampling is not None else self.default_sampling()
         if priority != 0:
             raise NotImplementedError(
                 "priority (preemption) is not ported yet: ROADMAP Queue 1, "
                 "#9 preemption and the async front door")
-        if sp.stop and self.detokenizer is None:
-            raise ValueError("SamplingParams.stop strings need an engine "
-                             "detokenizer (EngineCore(detokenizer=...))")
         max_new = (max_new_tokens if max_new_tokens is not None
                    else sp.max_new_tokens)
         if len(prompt) + max_new > self.ecfg.max_seq:
-            raise ValueError(
+            raise ValidationError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new}) "
-                f"exceeds max_seq ({self.ecfg.max_seq})")
+                f"exceeds max_seq ({self.ecfg.max_seq})", uid=uid)
+        if sp.stop and self.detokenizer is None:
+            raise ValidationError(
+                "SamplingParams.stop strings need an engine detokenizer "
+                "(EngineCore(detokenizer=...))", uid=uid)
         if uid is None:
             uid = self._uid_counter
         self._uid_counter = max(self._uid_counter, int(uid) + 1)
@@ -456,12 +522,29 @@ class EngineCore(CohortSchedulerMixin):
         hit a finish condition. Returns one ``StepOutput`` per request that
         emitted tokens; ``[]`` when there is no admissible work. With the
         engine idle and the queue head beyond the pools' capacity, raises
-        ``MemoryError``."""
+        ``CapacityError`` (a ``MemoryError``, carrying the uid).
+        Request-isolatable failures never raise: the request is
+        quarantined (a typed ``StepOutput`` with ``finish_reason="error"``)
+        and the batch keeps running. ``EngineConfig.audit_level`` gates an
+        invariant audit after the iteration; a violation raises
+        ``EngineFault``."""
         if self.ecfg.scheduler != "continuous":
             raise RuntimeError("step() drives the continuous scheduler; "
                                "cohort engines run via run()")
+        outs = self._step_inner()
+        if self.ecfg.audit_level != "off":
+            self.audit_steps += 1
+            vio = invariants_mod.audit(
+                self, deep=self.ecfg.audit_level == "deep")
+            if vio:
+                raise EngineFault(f"invariant audit failed at step "
+                                  f"{self.steps_executed}", violations=vio)
+        return outs
+
+    def _step_inner(self) -> List[StepOutput]:
         outs: List[StepOutput] = []
         self._ensure_dev_state()
+        self._fault_blocked = False
         self._advance_prefills(outs)
         drained = False
         while True:
@@ -475,6 +558,8 @@ class EngineCore(CohortSchedulerMixin):
                 return outs        # only mid-prefill slots: progress made
             if not (self.queue and blocked):
                 return outs        # idle, or waiting on future arrivals
+            if self._fault_blocked:
+                return outs        # injected transient: retry next step
             # The plan failed with the engine idle: drain the prefix cache
             # and retry once; only if even an empty cache cannot cover the
             # request is it impossible.
@@ -486,14 +571,57 @@ class EngineCore(CohortSchedulerMixin):
                 continue
             head = self.queue[0]
             n = self._pages_for(head)
-            raise MemoryError(
+            raise CapacityError(
                 f"request uid={head.uid} needs {2 * n} dense and "
                 f"{self._chai_pages_per(n)} clustered pages; pool "
                 f"capacities {self.dense_pool.capacity} and "
-                f"{self.chai_pool.capacity if self.chai_pool else 0}")
-        self._cluster_transitions(active)
-        outs.extend(self._decode(active))
+                f"{self.chai_pool.capacity if self.chai_pool else 0}",
+                uid=head.uid)
+        self._cluster_transitions(active, outs)
+        # A kernel.cluster quarantine may have retired slots mid-list.
+        active = [i for i in active if self._slot_req[i] is not None]
+        if active:
+            outs.extend(self._decode(active))
         return outs
+
+    # -- fault injection / quarantine ---------------------------------------
+    def _fault(self, site: str, uid: int = -1):
+        """Consult the fault injector at a named site; None when no
+        injector is armed or nothing fires."""
+        if self.faults is None:
+            return None
+        return self.faults.fire(site, step=self.steps_executed, uid=uid)
+
+    def _quarantine_queued(self, req: Request, err: RequestError,
+                           outs: List[StepOutput]):
+        """Typed-fail a request that is still queued (or was just popped):
+        no device state to unwind; record the error and finish it."""
+        if req in self.queue:
+            self.queue.remove(req)
+        req.finish_reason = sampling_mod.FINISH_ERROR
+        req.error = str(err)
+        req.t_done = time.time()
+        req.retire_step = self.steps_executed
+        self.quarantined += 1
+        self._done(req)
+        outs.append(StepOutput(req.uid, [], True,
+                               sampling_mod.FINISH_ERROR))
+
+    def _abort_admission(self, i: int, req: Request, gen0: int,
+                         hit0: tuple):
+        """Unwind a failed ``_admit_to_slot``: free the plan's pages and
+        locks refcount-exactly, reset the slot on the device, and rewind
+        the request's progress records to their pre-admission values."""
+        self._slot_prefill_state[i] = None
+        self._phases[i] = chai_cache.PHASE_FREE
+        self._slot_count[i] = 0
+        self._dev_state = self._reset_slot(self._dev_state, i)
+        self._free_pages(self._slot_pages[i])
+        if self._slot_locked[i]:
+            self.prefix_cache.unlock(self._slot_locked[i])
+            self._slot_locked[i] = []
+        req.generated = req.generated[:gen0]
+        req.cache_hit, req.cached_tokens, req.prefill_tokens = hit0
 
     # -- prefill helpers ----------------------------------------------------
     @staticmethod
@@ -617,9 +745,18 @@ class EngineCore(CohortSchedulerMixin):
         "prefix" (the longest cached block prefix aliased, the suffix
         prefilled), "snapshot" (full prompt cached with a CHAI snapshot:
         STEADY directly). A snapshot that covers the whole budget is
-        replayed by ``_admit`` before planning."""
+        replayed by ``_admit`` before planning. The ``pool.alloc`` site
+        blocks the plan (``transient``) or raises ``QuarantineError``."""
         if not self.paged:
             return {"kind": "cold", "pages": {}, "locked": []}
+        spec = self._fault("pool.alloc", uid=req.uid)
+        if spec is not None:
+            if spec.mode == "error":
+                raise QuarantineError(
+                    f"injected allocator failure for uid={req.uid}",
+                    uid=req.uid)
+            self._fault_blocked = True
+            return None     # transient: the plan retries next step
         cache = self.prefix_cache
         snap = self._eligible_snapshot(req)
         if snap is not None:
@@ -805,12 +942,31 @@ class EngineCore(CohortSchedulerMixin):
                           if self._slot_req[i] is None]
             if not free_slots:
                 break
-            plan = self._plan_admission(head)
+            try:
+                plan = self._plan_admission(head)
+            except RequestError as err:
+                self._quarantine_queued(head, err, outs)
+                continue
             if plan is None:          # FIFO holds until pages free up
                 return True
             i = free_slots[0]
             req = self.queue.popleft()
-            self._admit_to_slot(i, req, plan)
+            gen0 = len(req.generated)
+            hit0 = (req.cache_hit, req.cached_tokens, req.prefill_tokens)
+            try:
+                self._admit_to_slot(i, req, plan)
+            except SnapshotRestoreError:
+                # Recoverable: unwind the admission, drop the snapshot and
+                # re-plan the request (cold or by prefix) at once; greedy
+                # tokens are unchanged, the snapshot being a shortcut.
+                self._abort_admission(i, req, gen0, hit0)
+                self.prefix_cache.drop_snapshot(plan["snapshot"])
+                self.queue.appendleft(req)
+                continue
+            except RequestError as err:
+                self._abort_admission(i, req, gen0, hit0)
+                self._quarantine_queued(req, err, outs)
+                continue
             if req.generated and not req.t_first_token:
                 req.t_first_token = time.time()
             req.slot, req.admit_step = i, self.steps_executed
@@ -830,12 +986,20 @@ class EngineCore(CohortSchedulerMixin):
         return False
 
     def _admit_to_slot(self, i: int, req: Request, plan: dict):
-        """Place ``req`` into free slot ``i`` according to ``plan``."""
+        """Place ``req`` into free slot ``i`` according to ``plan``. The
+        ``snapshot.restore`` site raises ``SnapshotRestoreError`` before
+        the restore touches the device, ``kernel.prefill``
+        ``QuarantineError`` once the slot entered PREFILL; ``_admit``
+        unwinds either."""
         self._slot_pages[i] = plan["pages"]
         self._slot_locked[i] = plan["locked"]
         pages = plan["pages"]
         if plan["kind"] == "snapshot":
             snap = plan["snapshot"]
+            if self._fault("snapshot.restore", uid=req.uid) is not None:
+                raise SnapshotRestoreError(
+                    f"injected snapshot-restore failure for uid={req.uid}",
+                    uid=req.uid)
             for kind, src, dst in plan["copies"]:
                 self._dev_state = self._copy_page[kind](self._dev_state,
                                                         src, dst)
@@ -860,6 +1024,10 @@ class EngineCore(CohortSchedulerMixin):
             self._tok_dirty = True
             return
         self._phases[i] = chai_cache.PHASE_PREFILL
+        if self._fault("kernel.prefill", uid=req.uid) is not None:
+            raise QuarantineError(
+                f"injected prefill-kernel failure for uid={req.uid}",
+                uid=req.uid)
         prompt, pre = req.prompt, 0
         if plan["kind"] == "prefix":
             pre = plan["prefix_len"]
@@ -960,17 +1128,28 @@ class EngineCore(CohortSchedulerMixin):
         self._next_tok[i] = tok
         self._tok_dirty = True
 
-    def _cluster_transitions(self, active):
+    def _cluster_transitions(self, active, outs: List[StepOutput]):
         """CLUSTER + compact the slots whose warmup just completed; paged:
         the slot's dense K pages (and, under share_values, its dense V
         pages) return to the pool here, after the prefix cache (when on)
-        captured the slot's CHAI snapshot."""
+        captured the slot's CHAI snapshot. An injected ``kernel.cluster``
+        fault quarantines the transitioning request before clustering
+        mutates the pools (``outs`` receives its typed StepOutput)."""
         if not self.chai_on:
             return
         warm = self.cfg.chai.warmup_tokens
         for i in active:
             if not (self._slot_count[i] == warm + 1
                     and self._phases[i] == chai_cache.PHASE_WARMUP):
+                continue
+            req = self._slot_req[i]
+            if self._fault("kernel.cluster", uid=req.uid) is not None:
+                self._retire_slot(
+                    i, sampling_mod.FINISH_ERROR, index=False,
+                    error=f"injected cluster-transition failure for "
+                          f"uid={req.uid}")
+                outs.append(StepOutput(req.uid, [], True,
+                                       sampling_mod.FINISH_ERROR))
                 continue
             self._phases[i] = chai_cache.PHASE_CLUSTER
             self.cluster_transitions += 1
@@ -999,16 +1178,50 @@ class EngineCore(CohortSchedulerMixin):
         """One batched decode step on the cheapest step that covers the
         phase mix, then one pick per slot: the bare argmax when no slot
         samples, else the sampler, each sampling row drawing its token
-        number ``len(req.generated)``."""
+        number ``len(req.generated)``. Each row's finite flag (the NaN/Inf
+        guard: a non-finite row quarantines its slot, the other rows'
+        tokens untouched) comes back with the tokens, in the step's one
+        device-to-host copy.
+
+        An injected ``kernel.decode`` fault (``InjectedFault``, raised
+        before any launch) retries the step on the plain steps and leaves
+        the engine degraded; any other exception propagates: a real CUDA
+        error leaves the context unusable, and the step writes K/V into
+        the pools in place before it attends."""
         outs: List[StepOutput] = []
         if self._tok_dirty:
             self._next_tok_dev = torch.from_numpy(self._next_tok).to(
                 self.device)
             self._tok_dirty = False
+        inputs = {"tokens": self._next_tok_dev}
         occupied = self._phases[self._phases != chai_cache.PHASE_FREE]
         relay = self._build_relay(active) if self.relay_decode else None
-        logits, self._dev_state = self._dispatch_decode(
-            {"tokens": self._next_tok_dev}, relay, occupied)
+        self._decode_fault_hit = False
+        try:
+            logits, state = self._dispatch_decode(inputs, relay, occupied)
+        except InjectedFault as err:
+            self.degraded_decode = True
+            self.decode_fallbacks += 1
+            self._heal_clean = 0
+            try:
+                logits, state = self._dispatch_decode(inputs, None, occupied)
+            except Exception as err2:
+                raise EngineFault(
+                    "decode failed on the kernels AND on their plain "
+                    f"versions: {err2!r} (original failure: {err!r})"
+                ) from err2
+        else:
+            if self.degraded_decode and self.ecfg.decode_heal_steps > 0:
+                self._maybe_heal()
+        self._dev_state = state
+        if self.faults is not None:
+            poison = [i for i in active
+                      if self._fault("step.logits",
+                                     uid=self._slot_req[i].uid) is not None]
+            if poison:
+                logits = logits.clone()
+                logits[poison] = float("nan")
+        finite = torch.isfinite(torch.amax(logits, dim=-1))
         temps = self._samp_host["temperature"]
         if not temps.any():
             tok_dev = self._argmax(logits)
@@ -1020,11 +1233,22 @@ class EngineCore(CohortSchedulerMixin):
             tok_dev = self._sampler(logits, temps, h["top_k"], h["top_p"],
                                     h["seed"], counts)
         self._next_tok_dev = tok_dev
-        toks = tok_dev.cpu().numpy()
+        host = torch.stack([tok_dev, finite.to(tok_dev.dtype)]).cpu().numpy()
+        toks, finite = host[0], host[1] != 0
         self._next_tok[:] = toks
         self.steps_executed += 1
         for i in active:
             r = self._slot_req[i]
+            if not finite[i]:
+                # The row's token is garbage: quarantine the request; rows
+                # are independent, so the other slots' picks stand.
+                self._retire_slot(
+                    i, sampling_mod.FINISH_ERROR, index=False,
+                    error=f"non-finite logits for uid={r.uid} at step "
+                          f"{self.steps_executed - 1}")
+                outs.append(StepOutput(r.uid, [], True,
+                                       sampling_mod.FINISH_ERROR))
+                continue
             r.generated.append(int(toks[i]))
             self._slot_count[i] += 1
             reason = self._finish_of(r)
@@ -1039,26 +1263,83 @@ class EngineCore(CohortSchedulerMixin):
     def _dispatch_decode(self, inputs, relay, occupied):
         """The relay step when relay groups formed; else all-CHAI when
         every occupied slot is STEADY, all-MHA when every one is WARMUP
-        (or CHAI is off), else the mixed-phase step."""
+        (or CHAI is off), else the mixed-phase step. The ``kernel.decode``
+        site raises ``InjectedFault`` first, before any launch (while
+        degraded a firing arm only restarts the heal count);
+        ``degraded_decode`` runs the plain steps
+        (``_plain_decode_steps``)."""
         state = self._dev_state
+        if self._fault("kernel.decode") is not None:
+            self._decode_fault_hit = True
+            if not self.degraded_decode:
+                raise InjectedFault("kernel.decode")
         if relay is not None:
             self.relay_steps += 1
             return self._relay_step(self.params, inputs, state,
                                     self._dev_ctx, relay)
+        if self.degraded_decode:
+            steps = self._plain_decode_steps()
+            mha, chai, mixed = steps["mha"], steps.get("chai"), \
+                steps.get("mixed")
+        else:
+            mha = self._mha_step
+            chai = self._chai_step if self.chai_on else None
+            mixed = self._mixed_step if self.chai_on else None
         if not self.chai_on:
-            return self._mha_step(self.params, inputs, state)
+            return mha(self.params, inputs, state)
         if (occupied == chai_cache.PHASE_STEADY).all():
-            return self._chai_step(self.params, inputs, state, self._dev_ctx)
+            return chai(self.params, inputs, state, self._dev_ctx)
         if (occupied == chai_cache.PHASE_WARMUP).all():
-            return self._mha_step(self.params, inputs, state)
-        return self._mixed_step(self.params, inputs, state, self._dev_ctx)
+            return mha(self.params, inputs, state)
+        return mixed(self.params, inputs, state, self._dev_ctx)
 
-    def _retire_slot(self, i: int, reason: str):
+    def _maybe_heal(self):
+        """Degraded-decode healing: after ``decode_heal_steps``
+        consecutive clean decode steps (the ``kernel.decode`` arm stayed
+        quiet), return to the kernels. A firing arm, even one the
+        degraded path masks, restarts the count."""
+        if self._decode_fault_hit:
+            self._heal_clean = 0
+            return
+        self._heal_clean += 1
+        if self._heal_clean < self.ecfg.decode_heal_steps:
+            return
+        self.degraded_decode = False
+        self.decode_heals += 1
+        self._heal_clean = 0
+
+    def _plain_decode_steps(self):
+        """The degraded decode steps, built on the first injected decode
+        fault: the same step makers with ``plain=True``, so every decode
+        attention that launches a CUDA kernel on the clean step runs that
+        kernel's plain version (``kernels.ref``) on the engine's device
+        instead (the relay is skipped: ``_build_relay`` returns None while
+        degraded)."""
+        if self._plain_steps is None:
+            cfg, ts = self.cfg, self.ecfg.page_size
+            steps = {"mha": steps_mod.make_serve_step(
+                cfg, chai=False, decode_ts=ts, plain=True)}
+            if self.chai_on:
+                steps["chai"] = steps_mod.make_serve_step(
+                    cfg, chai=True, decode_ts=ts, plain=True)
+                steps["mixed"] = steps_mod.make_mixed_step(
+                    cfg, decode_ts=ts, plain=True)
+            self._plain_steps = steps
+        return self._plain_steps
+
+    def _retire_slot(self, i: int, reason: str, *, error: str = "",
+                     index: bool = True):
         """Retire or abort slot ``i``: finalize the request, reset the slot
-        on the device and return every page it held to the pools."""
+        on the device and return every page it held to the pools. A
+        quarantine passes ``error`` (recorded on the Request) and
+        ``index=False``: a damaged sequence never seeds the prefix
+        cache."""
         r = self._slot_req[i]
         r.generated = r.generated[:r.max_new_tokens]
         r.finish_reason = reason
+        r.error = error
+        if error:
+            self.quarantined += 1
         r.t_done = time.time()
         r.retire_step = self.steps_executed
         self._done(r)
@@ -1066,7 +1347,7 @@ class EngineCore(CohortSchedulerMixin):
         self._slot_prefill_state[i] = None
         self._phases[i] = chai_cache.PHASE_FREE
         self._slot_count[i] = 0
-        if self.prefix_cache is not None:
+        if index and self.prefix_cache is not None:
             self._index_retired(r, self._slot_pages[i])
         self._dev_state = self._reset_slot(self._dev_state, i)
         if self.paged:          # block tables are nulled; pages go back
@@ -1192,7 +1473,11 @@ class EngineCore(CohortSchedulerMixin):
         step consumes (None: the plain dispatch): the groups' packed
         prefix copies stacked (zero tail to the longest), the routing
         maps, and per-slot scatter coordinates; a slot outside a group has
-        ``in_group=False`` and ``len=0``."""
+        ``in_group=False`` and ``len=0``. None while the decode is
+        degraded (the plain steps attend the whole block tables), and when
+        the ``relay.residency`` site dissolves the groups formed."""
+        if self.degraded_decode:
+            return None
         min_g = max(1, self.ecfg.relay_min_group)
         chains = {}
         for i in active:
@@ -1226,6 +1511,12 @@ class EngineCore(CohortSchedulerMixin):
         groups = [g for g in by_node.values()
                   if len(g["members"]) >= min_g]
         if not groups:
+            return None
+        if self._fault("relay.residency") is not None:
+            # Dissolve the groups formed this step to the per-request
+            # decode path: grouped and ungrouped decode give the same
+            # tokens, so dissolving is always safe.
+            self.relay_dissolved += 1
             return None
         ps = self.ecfg.page_size
         b = self.ecfg.batch_slots
@@ -1264,6 +1555,22 @@ class EngineCore(CohortSchedulerMixin):
         return relay
 
     # -- metrics ------------------------------------------------------------
+    def fault_stats(self):
+        """Robustness counters and the injector's replayable plan and
+        firing log (None without an injector). The swap and offload
+        checksum counters stay 0 until preemption (#9) and the KV tiers
+        (#13) are ported."""
+        return {"quarantined": self.quarantined,
+                "audit_steps": self.audit_steps,
+                "degraded_decode": self.degraded_decode,
+                "decode_fallbacks": self.decode_fallbacks,
+                "decode_heals": self.decode_heals,
+                "relay_dissolved": self.relay_dissolved,
+                "swap_checksum_failures": self.swap_checksum_failures,
+                "offload_checksum_failures": self.offload_checksum_failures,
+                "injector": (self.faults.report()
+                             if self.faults is not None else None)}
+
     def prefix_stats(self):
         """Prefix-cache counters and current residency (empty when the
         cache is off)."""

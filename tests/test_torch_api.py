@@ -34,6 +34,7 @@ from repro_torch.configs.base import get_config, reduced
 from repro_torch.core import cache as tcache
 from repro_torch.serving import (LLM, EngineConfig, EngineCore,
                                  SamplingParams, ServingEngine, Session)
+from repro_torch.serving.faults import FaultInjector, FaultSpec
 from repro_torch.serving.sampling import scan_finish
 from repro_torch.weights import params_from_numpy
 
@@ -346,8 +347,13 @@ def test_uids_stay_monotonic_and_front_door_refusals(models):
     assert {r.uid for r in llm.core.reap_done()} == {50, 51}
     assert llm.core.done == []
     _, tcfg, _, tparams = models
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, #11"):
-        LLM(tcfg, tparams, faults=object(), device="cpu")
+    faulted = LLM(tcfg, tparams, EngineConfig(**ECFG), device="cpu",
+                  faults=FaultInjector([FaultSpec("pool.alloc",
+                                                  mode="transient")]))
+    out = faulted.generate(rng.integers(0, 64, size=8),
+                           SamplingParams(max_new_tokens=2))[0]
+    assert out.finish_reason == "length" and len(out.token_ids) == 2
+    assert [f["site"] for f in faulted.core.faults.fired] == ["pool.alloc"]
     with pytest.raises(ValueError, match="continuous"):
         LLM(tcfg, tparams, scheduler="cohort", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, #9"):

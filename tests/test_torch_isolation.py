@@ -35,7 +35,8 @@ def test_port_files_exist():
         assert f"src/repro_torch/kernels/{mod}.py" in names
     for mod in ("serving/api", "launch/api_stream",
                 "launch/offline_clustering", "core/correlation",
-                "core/elbow", "core/policy"):
+                "core/elbow", "core/policy", "serving/faults",
+                "serving/invariants", "serving/soak"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "src/repro_torch/configs/nemotron_4_15b.py" in names
     csrc = ROOT / "src/repro_torch/kernels/csrc"
