@@ -88,15 +88,16 @@ result line):
    pipeline kernels against their plain versions at the main path's and
    nemotron's shapes, and the AV pair on the share int8 input;
 11. the int8 KV cache (``cfg.replace(kv_cache_dtype="int8")``) at full
-   width and depth: chai-llama-7b after phase 8 on phase 6's traffic,
+   width: chai-llama-7b after phase 8 on phase 6's traffic,
    paged then dense (launches of the layout's own fused kernel only, in
    its int8 mode; paged == dense tokens; ``kv_bytes()`` at the first
    all-STEADY step exactly 132/256 of the bf16 run's; tok/s, TTFT, step
    ms and device memory peak beside the bf16 run's; greedy agreement
-   with it, information only), each then the MHA baseline on the int8
-   cache (``flash_decode`` over the dequantized view on both layouts),
-   then phase 8's prefix traffic, relay off then on (the int8 modes of
-   ``paged_prefix_attend`` and ``relay_prefix_decode``); nemotron-4-15b
+   with it, information only), then, on the first ``SIDE_DEPTH`` layers,
+   the MHA baseline on the int8 cache (``flash_decode`` over the
+   dequantized view on both layouts) and phase 8's prefix traffic, relay
+   off then on (the int8 modes of ``paged_prefix_attend`` and
+   ``relay_prefix_decode``); nemotron-4-15b
    after phase 9, phase 6's traffic, paged then dense; the fused pair
    held against its plain version on each run's first all-STEADY layer-0
    int8 tensors;
@@ -107,8 +108,9 @@ result line):
    share mode; paged == dense tokens; ``kv_bytes()`` falling at every
    CLUSTER by exactly the slot's dense K and V pages, and at the first
    all-STEADY step exactly 50/57 of the K-only run's, phase 6's for bf16
-   and phase 11's for int8; empty pools), then phase 8's prefix traffic,
-   relay off then on, bf16 and int8 (the share shape of the relay maps,
+   and phase 11's for int8; empty pools), then phase 8's prefix traffic
+   on the first ``SIDE_DEPTH`` layers, relay off then on, bf16 and int8
+   (the share shape of the relay maps,
    scale-less int8 V); the fused pair held on each run's first
    all-STEADY layer-0 tensors and the relay kernel on the first relay
    step's;
@@ -184,13 +186,44 @@ result line):
    (the plain versions run) and one a layer on every CHAI step on the
    kernels, greedy tokens held against phase 6's on margins, the
    degraded step's ms beside the kernels'; (c) phase 6's paged traffic
-   at ``audit_level`` off, basic and deep in turns, twice each: median
+   at ``audit_level`` off, basic and deep in turns, once each: median
    ``step()`` ms, the host ms of one ``audit`` call, and the
    device-to-host copies of one all-STEADY decode step of a bare engine
    (``torch.profiler``; one expected at off and basic); (d)
    ``LLM(faults=...)``: a stream quarantined by NaN logits ends on an
    ``"error"`` chunk, the other stream's tokens a clean ``LLM``'s;
-18. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
+18. telemetry on chai-llama-7b after phase 17: one all-STEADY decode
+   step of a bare engine profiled at telemetry "trace" against phase
+   17c's at "off" (the same device kernels and counts, one device-to-host
+   copy each); phase 6's paged traffic at "off", "basic" and "trace" in
+   turns, clustering through phase 6's memberships, launches equal to
+   phase 6's; the run at "trace" checked span by span (each decoding step one
+   ``cluster``, ``relay.form``, ``decode.dispatch``, ``sample``,
+   ``retire``, ``step`` and ``audit`` span and at least one ``admit``,
+   contiguous step ordinals, the Chrome trace read back by
+   ``from_chrome_trace``), its metrics against ground truth (tokens
+   served, 8 requests finished, 8 TTFT observations, the CLUSTER
+   transitions), its Prometheus text parsed back, its tokens held against
+   phase 6's on margins; the median ``step()`` ms of every run beside
+   the interquartile range of its steps, and one ``tel.span`` enter/exit
+   pair's host µs;
+19. the KV tiers on chai-llama-7b: three families of prompts sharing a
+   256-token prefix (``tier_waves``), a wave a family and then the first
+   family again with a repeat of its first prompt (a snapshot hit), on
+   the continuous paged engine with the prefix cache and a deep audit
+   after every step: a roomy run (nothing evicted), then
+   ``kv_offload=True`` with a dense pool of 110 pages (the third wave
+   demotes, the fourth promotes; every promoted page ``torch.equal`` to
+   the page before its demotion, plans and tokens equal to the roomy
+   run's, ``flash_prefill`` and ``paged_prefix_attend`` launched once a
+   layer per suffix prefill), the same under a corrupt ``offload.out``
+   arm (checksum failures caught at promotion, nothing promoted or
+   quarantined), and with a host pool of 12 pages (the int4 rung used, a
+   compressed hit dropped and re-planned); every pool empty after a
+   clear; demotion and promotion ms of a page of each pool (CUDA events
+   around the copies, the CRC on the host clock) beside a 256 MB pinned
+   host <-> device copy, the host link;
+20. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
    each of the four int8 modes, its launches those of its phase-11 path,
    a ``[share]`` row for each of the three share modes, its launches
    those of its phase-12 path, a ``[softcap]`` row for each of the two
@@ -374,7 +407,9 @@ from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.core import policy  # noqa: E402
 from repro_torch.launch import offline_clustering, steps  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving import exporters  # noqa: E402
 from repro_torch.serving import invariants as invariants_mod  # noqa: E402
+from repro_torch.serving import kv_tiers as kv_tiers_mod  # noqa: E402
 from repro_torch.serving import sampling as sampling_mod  # noqa: E402
 from repro_torch.serving import soak as soak_mod  # noqa: E402
 from repro_torch.serving.api import LLM, Session  # noqa: E402
@@ -383,6 +418,7 @@ from repro_torch.serving.engine import (  # noqa: E402
 from repro_torch.serving.faults import FaultInjector, FaultSpec  # noqa: E402
 from repro_torch.serving.sampling import (  # noqa: E402
     FINISH_LENGTH, SamplingParams)
+from repro_torch.serving.telemetry import make_telemetry  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -415,6 +451,19 @@ CHUNK_MARGIN = 0.1
 SYS_LEN = 256
 SUFFIX_LENS = (32, 64, 96, 128, 48, 80, 112, 144)
 SUFFIX_NEW = (32, 48) * 4
+# Side paths run the first SIDE_DEPTH layers of the full-width model
+# (``cut_depth``): on chai-llama-7b the int8 and share_values continuous
+# and prefix runs and the int8 MHA baseline (phases 11 and 12, held
+# against K-only runs of the same depth, ``side_konly``), the sampler's
+# rate turns (15), the soak and the audit-cost runs (17a, 17c); on
+# gemma2-9b the MHA baselines (13, 14). Their checks hold per layer
+# (launches n_layers a step; byte ratios, tokens and schedules inside one
+# depth), the kernels see the full-width shapes, and the full-depth runs
+# are the main paths': the launch counts of phases 5-9 and 13 stand. The
+# serving engines are host-bound (about 3000 launches a decode step), and
+# hosts differ by 1.6x in speed: the cut keeps the script inside its time
+# limit on the slowest.
+SIDE_DEPTH = 8
 KERNEL_ROWS = {
     "chai_fused_decode": dict(
         route="cuda",
@@ -476,8 +525,12 @@ def count_eager_decode():
     tfm._decode_attention_batched = counted
 
 
+_T0 = time.time()
+
+
 def log(msg):
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One log line, stamped with the seconds since the script started."""
+    print(f"[chip_smoke {time.time() - _T0:7.1f}s] {msg}", flush=True)
 
 
 def smi_line():
@@ -3874,6 +3927,34 @@ def init_full_model(arch=ARCH):
     return cfg, params
 
 
+def side_konly(cfg, params):
+    """Phase 6's traffic on the first SIDE_DEPTH layers, paged then
+    dense: the K-only CHAI runs that phases 11 and 12's cut runs are held
+    against. Returns {layout: _run_summary}."""
+    out = {}
+    for layout in ("paged", "dense"):
+        run = serve_continuous(cfg, params, layout)
+        _check_served(cfg, run, f"side_continuous_{layout}")
+        out[layout] = _run_summary(run)
+        log(f"side K-only run, {cfg.n_layers} layers, {layout}: "
+            f"{out[layout]['tok_s']:.1f} tok/s, launches {run['launches']}")
+        run.clear()
+        torch.cuda.empty_cache()
+    return out
+
+
+def cut_depth(cfg, params, n=SIDE_DEPTH):
+    """The first ``n`` layers of ``cfg`` and ``params``: the stacked
+    per-layer weights are sliced (views), every width is kept."""
+    counts = tuple(cfg.chai.cluster_counts[:n])
+    cut = cfg.replace(n_layers=n, layer_types=cfg.layer_types[:n],
+                      ffn_types=cfg.ffn_types[:n]).with_chai(
+                          cluster_counts=counts)
+    return cut, {g: ({k: w[:n] for k, w in grp.items()}
+                     if g in ("attn", "ffn") else grp)
+                 for g, grp in params.items()}
+
+
 def main_path(cfg, params):
     """The cohort path (phase 5)."""
     cap = _Capture()
@@ -5191,9 +5272,10 @@ def share_path(cfg, params, konly, konly8):
     (launches of ``chai_fused_decode`` in the share mode only, the kernel
     held on the first STEADY step's layer-0 tensors); phase 6's traffic,
     paged then dense, bf16 (``konly``: phase 6's summaries) and int8
-    (``konly8``: phase 11's); phase 8's prefix traffic, relay off then on,
-    bf16 and int8. Returns ({path: launches}, {row: (main case, path,
-    cases)} for the three ``[share]`` rows' path cases, the int8 dense
+    (``konly8``: phase 11's); phase 8's prefix traffic on the first
+    ``SIDE_DEPTH`` layers, relay off then on, bf16 and int8. Returns
+    ({path: launches}, {row: (main case, path, cases)} for the three
+    ``[share]`` rows' path cases, the int8 dense
     run's capture of its first all-STEADY step (phase 10's share lane))."""
     cfg_s = cfg.with_chai(share_values=True)
     cap = _Capture()
@@ -5238,14 +5320,14 @@ def share_path(cfg, params, konly, konly8):
         f"bytes {kc:,} against K-only CHAI {kk:,} ({kc / kk:.4f})")
     del eng
     launches = {"share_cohort": cohort}
-    cont, cont_cases, kv, _ = share_continuous(cfg_s, params, konly,
-                                            "share_continuous")
+    cont, cont_cases, kv, _ = share_continuous(*cut_depth(cfg_s, params),
+                                            konly, "share_continuous")
     cfg_s8 = cfg_s.replace(kv_cache_dtype="int8")
     cont8, cont8_cases, kv8, cap8 = share_continuous(
-        cfg_s8, params, konly8, "share_int8_continuous")
+        *cut_depth(cfg_s8, params), konly8, "share_int8_continuous")
     pre, relay_main, emit_main, prefix_main = prefix_path(
-        cfg_s, params, tag="share_prefix")
-    pre8, relay8, emit8, prefix8 = prefix_path(cfg_s8, params,
+        *cut_depth(cfg_s, params), tag="share_prefix")
+    pre8, relay8, emit8, prefix8 = prefix_path(*cut_depth(cfg_s8, params),
                                                tag="share_int8_prefix")
     for part in (cont, cont8, pre, pre8):
         launches.update(part)
@@ -5653,7 +5735,8 @@ def _check_local_kv_bytes(cfg, run, layout):
 def gemma2_path(cfg, params, label="gemma2"):
     """Full-width gemma2-9b (phase 13; phase 14 under int8): the cohort
     on phase 5's traffic and the continuous engine on phase 6's, paged
-    then dense, each CHAI run followed by its MHA baseline. The fused
+    then dense, each CHAI run followed by its MHA baseline (on the first
+    SIDE_DEPTH layers). The fused
     kernels run in the softcap mode (under int8: the int8 x softcap mode,
     on int8 codes and scales) on the 21 global layers only: each CHAI run
     launches its layout's kernel 21 times a step with a STEADY slot and
@@ -5696,10 +5779,12 @@ def gemma2_path(cfg, params, label="gemma2"):
         launches[f"{label}_continuous_{layout}"] = run["launches"]
         torch.cuda.empty_cache()
         EAGER["calls"] = 0
-        m_run = serve_continuous(cfg, params, layout, use_chai=False)
+        m_cfg, m_params = cut_depth(cfg, params)
+        m_run = serve_continuous(m_cfg, m_params, layout, use_chai=False)
         m_calls = m_run["calls"].get("mha_step", 0)
         if (any(m_run["launches"].values())
-                or EAGER["calls"] != cfg.n_layers * m_calls or not m_calls):
+                or EAGER["calls"] != m_cfg.n_layers * m_calls
+                or not m_calls):
             raise AssertionError(f"{name} MHA baseline: launches "
                                  f"{m_run['launches']}, eager calls "
                                  f"{EAGER['calls']}")
@@ -5995,7 +6080,7 @@ def densified(t):
 # tokens each, in the turns FRONT_TURNS (a drift of the host clock falls
 # on both kinds alike).
 FRONT_NEW = 16
-FRONT_RATE_NEW = 64
+FRONT_RATE_NEW = 32
 FRONT_TURNS = ("greedy", "seeded", "seeded", "greedy", "greedy", "seeded")
 FRONT_SEEDS = (100, 101)
 SEEDED = dict(temperature=0.8, top_k=50, top_p=0.95)
@@ -6146,7 +6231,10 @@ def front_door_path(cfg, params):
     llm.core.prefix_cache.clear()
     _pools_empty(llm.core, "session")
     log(f"front door: 3-turn Session (prompt, cached, prefilled): {turns}")
-    rates, sample = front_rates(cfg, llm)
+    del llm
+    side_cfg, side_params = cut_depth(cfg, params)
+    llm = LLM(side_cfg, side_params, front_ecfg())
+    rates, sample = front_rates(side_cfg, llm)
     del llm
     return {"front_door_paged": launches}, {"rates": rates, **sample}
 
@@ -6530,7 +6618,7 @@ SOAK_TERMINAL = ("length", "stop", "aborted", "error")
 # steps. Phase 17c: phase 6's traffic at each audit level in turns.
 DEGRADE_AT = 8
 HEAL_STEPS = 8
-AUDIT_TURNS = ("off", "basic", "deep") * 2
+AUDIT_TURNS = ("off", "basic", "deep")
 
 
 def soak_workload(cfg):
@@ -6635,7 +6723,8 @@ def _hold_soak(clean, faulted, margins):
 
 def soak_path(cfg, params):
     """Phase 17a: the soak, clean and twice under SOAK_PLAN. Returns
-    {path: launches}."""
+    {path: launches}. On the first SIDE_DEPTH layers."""
+    cfg, params = cut_depth(cfg, params)
     wl = soak_workload(cfg)
     clean, c_launches, c_core, c_wall = _soak_run(cfg, params, wl, None)
     if not (c_core.cluster_transitions and c_core.relay_steps
@@ -6734,46 +6823,88 @@ def degraded_path(cfg, params, mono):
     return {"fault_degraded_paged": run["launches"]}
 
 
-def _profiled_copies(fn):
+# The host sleep between the profiler's window and the profiled call: the
+# last one that gave a whole trace (``_decode_step_copies`` doubles it
+# after a trace that is not, up to PROFILE_TRIES decode steps).
+PROFILE_EDGE_S = [0.5]
+PROFILE_TRIES = 6
+
+
+def _profiled_copies(fn, edge_s):
     """``fn()`` under ``torch.profiler``; returns (the device-to-host
-    copies in its trace, the number of device events in it)."""
+    copies in its trace, the number of device events in it, the device
+    events counted by name), or None when the trace cannot be shown
+    whole. The profiler drops the device records it dates outside its
+    window, and its dating drifts: on the H100 the first 25 to 40
+    kernels of a decode step went missing late in a run, and a whole trace
+    needed 0.5 to 2 s of margin. So ``fn()`` runs between two spin kernels
+    (``torch.cuda._sleep``, left out of the counts), each ``edge_s`` of
+    host sleep from the window's edge; the trace is whole only if both
+    spin kernels are in it, since ``fn()``'s device work runs between
+    them in stream order."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(edge_s)
+        torch.cuda._sleep(1000)
         fn()
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if str(e.device_type).endswith("CUDA")]
-    return sum("DtoH" in e.name for e in events), len(events)
+        time.sleep(edge_s)
+    device = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    events = [e for e in device if "spin_kernel" not in e.name]
+    if len(device) - len(events) != 2:
+        return None
+    names = {}
+    for e in events:
+        names[e.name] = names.get(e.name, 0) + 1
+    return sum("DtoH" in e.name for e in events), len(events), names
 
 
-def _decode_step_copies(cfg, params, level):
+def _decode_step_copies(cfg, params, level, telemetry="off"):
     """Device-to-host copies in one all-STEADY decode step of a bare
-    engine (no wrapper of this script) at ``audit_level``."""
+    engine (no wrapper of this script) at ``audit_level`` and
+    ``telemetry``. A step whose trace is not whole (``_profiled_copies``)
+    is followed by the next all-STEADY step, with twice the sleep at the
+    window's edges, up to PROFILE_TRIES steps; the edge that gave a whole
+    trace is where the next profile starts."""
     core = EngineCore(cfg, params, EngineConfig(
         batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
-        audit_level=level))
+        audit_level=level, telemetry=telemetry))
     rng = np.random.default_rng(0)
     for n in CONT_PROMPT_LENS[:SLOTS]:
         core.add_request(rng.integers(0, cfg.vocab_size, size=n),
                          SamplingParams(max_new_tokens=16))
     while core.steps_executed < cfg.chai.warmup_tokens + 2:
         core.step()
-    n0 = core.steps_executed
-    copies, n_events = _profiled_copies(core.step)
-    if core.steps_executed != n0 + 1 or not (
-            core._phases == chai_cache.PHASE_STEADY).all():
-        raise AssertionError("the profiled step was no all-STEADY decode")
+    got = None
+    for k in range(PROFILE_TRIES):
+        n0 = core.steps_executed
+        got = _profiled_copies(core.step, PROFILE_EDGE_S[0])
+        if core.steps_executed != n0 + 1 or not (
+                core._phases == chai_cache.PHASE_STEADY).all():
+            raise AssertionError("the profiled step was no all-STEADY decode")
+        if got is not None:
+            break
+        log(f"profile of decode step {n0} (audit {level}, telemetry "
+            f"{telemetry}) at {PROFILE_EDGE_S[0]} s from the window's "
+            "edges lost a bracketing spin kernel; profiling the next")
+        PROFILE_EDGE_S[0] *= 2
+    if got is None:
+        raise AssertionError(f"no whole profile of a decode step in "
+                             f"{PROFILE_TRIES} tries")
     for uid in range(SLOTS):
         core.abort(uid)
-    return copies, n_events
+    return got
 
 
 def audit_cost_path(cfg, params):
-    """Phase 17c: phase 6's paged traffic at audit_level off, basic and
-    deep in turns (AUDIT_TURNS); the median step() wall of each run, the
-    host time of each ``audit`` call, and the device-to-host copies of one
-    decode step at each level. Returns {path: launches}."""
+    """Phase 17c: phase 6's paged traffic on the first SIDE_DEPTH layers
+    at audit_level off, basic and deep in turns (AUDIT_TURNS); the median
+    step() wall of each run, the host time of each ``audit`` call, and the
+    device-to-host copies of one decode step of the whole model at each
+    level. Returns {path: launches}."""
     audit = invariants_mod.audit
     step_ms = {lvl: [] for lvl in AUDIT_TURNS}
     audit_ms = {lvl: [] for lvl in AUDIT_TURNS}
@@ -6788,7 +6919,8 @@ def audit_cost_path(cfg, params):
             return out
         invariants_mod.audit = timed_audit
         try:
-            run = serve_continuous(cfg, params, "paged", audit_level=lvl)
+            run = serve_continuous(*cut_depth(cfg, params), "paged",
+                                   audit_level=lvl)
         finally:
             invariants_mod.audit = audit
         _check_served(cfg, run, f"audit {lvl}")
@@ -6846,6 +6978,448 @@ def front_door_faults(cfg, params):
     return {"fault_front_door": launches}
 
 
+# ----------------------------------------------------------- phase 18 ----
+# Telemetry on chai-llama-7b (phase 6's engine settings and traffic): one
+# all-STEADY decode step of a bare engine profiled at "trace" against
+# phase 17c's at audit basic (telemetry off); then phase 6's paged run at
+# the three tiers in turns (TEL_TURNS), each clustering through phase 6's
+# memberships, the one at "trace" checked span by span. A tier's spread:
+# the interquartile range of its run's step() walls.
+TEL_TURNS = ("off", "basic", "trace")
+TEL_STAGES = ("cluster", "relay.form", "decode.dispatch", "sample",
+              "retire", "step", "audit")
+SPAN_PAIRS = 20000
+
+
+def _span_host_us():
+    """Host microseconds of one ``tel.span`` enter / exit pair at trace."""
+    tel = make_telemetry("trace")
+    tel.max_spans = SPAN_PAIRS
+    t0 = time.perf_counter()
+    for k in range(SPAN_PAIRS):
+        with tel.span("x", step=k):
+            pass
+    return 1e6 * (time.perf_counter() - t0) / SPAN_PAIRS
+
+
+def _check_trace_run(cfg, run):
+    """Phase 18's checks on a run at "trace": the Chrome trace round trip,
+    the spans of every step, the metric ground truths."""
+    eng, done = run["eng"], run["done"]
+    spans = eng.tel.spans
+    evs = exporters.from_chrome_trace(json.dumps(eng.step_trace()))
+    if [e["name"] for e in evs] != [sp["name"] for sp in spans] \
+            or eng.tel.spans_dropped:
+        raise AssertionError("telemetry: the Chrome trace does not "
+                             "round-trip the spans")
+    by_step = {}
+    for sp in spans:
+        by_step.setdefault(sp["step"], []).append(sp["name"])
+    decoding = {k: v for k, v in by_step.items() if "decode.dispatch" in v}
+    bad = {k: v for k, v in decoding.items()
+           if v.count("admit") < 1
+           or any(v.count(stage) != 1 for stage in TEL_STAGES)}
+    steps = sorted(by_step)
+    if (bad or len(decoding) != eng.steps_executed
+            or steps != list(range(steps[0], steps[0] + len(steps)))
+            or len(steps) != len(run["step_s"])):
+        raise AssertionError(f"telemetry spans: {len(decoding)} decoding "
+                             f"steps of {eng.steps_executed}, ordinals "
+                             f"{steps[:3]}..{steps[-3:]}, bad {bad}")
+    snap = eng.metrics()
+
+    def counter(name, **labels):
+        return sum(s["value"] for s in snap["counters"][name]["series"]
+                   if all(s["labels"].get(k) == v for k, v in labels.items()))
+    served = sum(len(r.generated) for r in done)
+    ttft = snap["histograms"]["request_ttft_seconds"]["series"][0]["count"]
+    truths = dict(tokens=(counter("tokens_generated_total"), served),
+                  finished=(counter("requests_finished_total",
+                                    reason=FINISH_LENGTH), len(done)),
+                  ttft_count=(ttft, len(done)),
+                  clusters=(counter("cluster_transitions_total"),
+                            eng.cluster_transitions))
+    if any(a != b for a, b in truths.values()) or len(done) != 8:
+        raise AssertionError(f"telemetry ground truths {truths}")
+    parsed = exporters.parse_prometheus(eng.metrics_text())
+    return dict(spans=len(spans), steps=len(steps),
+                decoding_steps=len(decoding),
+                prometheus_samples=len(parsed["samples"]),
+                chai_clusters=[s["value"] for s in
+                               snap["gauges"]["chai_clusters"]["series"]],
+                truths=truths)
+
+
+def telemetry_path(cfg, params, mono, off_launches, off_copies):
+    """Phase 18. ``off_launches``: phase 6's paged run's launches;
+    ``off_copies``: phase 17c's profile of a decode step at audit basic,
+    telemetry off. Returns ({path: launches}, the phase's record)."""
+    copies = {"off": off_copies,
+              "trace": _decode_step_copies(cfg, params, "basic",
+                                           telemetry="trace")}
+    if copies["off"][2] != copies["trace"][2] or any(
+            c[0] != 1 for c in copies.values()):
+        off, tr = copies["off"][2], copies["trace"][2]
+        raise AssertionError(
+            "telemetry: one all-STEADY decode step's device work differs at "
+            f"off and trace: {copies['off'][:2]} against "
+            f"{copies['trace'][:2]}; events by name, trace less off: "
+            + str({k: tr.get(k, 0) - off.get(k, 0) for k in set(off) | set(tr)
+                   if tr.get(k, 0) != off.get(k, 0)}))
+    step_ms, spread = {}, {}
+    rec = None
+    for tier in TEL_TURNS:
+        run = serve_continuous(cfg, params, "paged",
+                               membership=mono["membership"], telemetry=tier)
+        _check_served(cfg, run, f"telemetry {tier}")
+        if run["launches"] != off_launches:
+            raise AssertionError(f"telemetry {tier}: launches "
+                                 f"{run['launches']} against the off run's "
+                                 f"{off_launches}")
+        if tier == "trace" and rec is None:
+            rec = _check_trace_run(cfg, run)
+            held, compared, parted = _hold_tokens(run, mono,
+                                                  label="telemetry")
+            launches = run["launches"]
+        walls = [1e3 * t for t in run["step_s"]]
+        step_ms[tier] = statistics.median(walls)
+        q1, _, q3 = statistics.quantiles(walls, n=4)
+        spread[tier] = q3 - q1
+        run.clear()
+    span_us = _span_host_us()
+    diff = step_ms["trace"] - step_ms["off"]
+    widest = max(spread.values())
+    rec.update(copies={t: c[:2] for t, c in copies.items()},
+               device_kernels=len(copies["off"][2]), step_ms=step_ms,
+               step_iqr_ms=spread, span_us=span_us, trace_minus_off_ms=diff,
+               largest_tier_spread_ms=widest,
+               tokens=dict(held=held, compared=compared, parted=parted))
+    log(f"telemetry (phase 6's paged traffic): one all-STEADY decode step "
+        f"of a bare engine (audit basic): device-to-host copies / device "
+        f"events off {copies['off'][:2]}, trace {copies['trace'][:2]}, the "
+        f"same {len(copies['off'][2])} device kernel names and counts; a "
+        f"run at trace: {rec['spans']} spans over {rec['steps']} steps "
+        f"({rec['decoding_steps']} decoding, each with one "
+        f"{'/'.join(TEL_STAGES)} and >= 1 admit), Chrome trace round-trips, "
+        f"{rec['prometheus_samples']} Prometheus samples parse back, ground "
+        f"truths {rec['truths']}, chai_clusters {rec['chai_clusters']}, "
+        f"launches = the off run's {launches}; tokens against phase 6's: "
+        f"{held} held on margins > {CHUNK_MARGIN} of {compared} compared, "
+        f"divergences {parted}")
+    log(f"telemetry host cost, turns {TEL_TURNS}: median step() ms "
+        + ", ".join(f"{t} {step_ms[t]:.3f} (IQR {spread[t]:.3f})"
+                    for t in TEL_TURNS)
+        + f"; trace - off {diff:.3f} ms against the widest tier's IQR "
+        f"{widest:.3f} ms ("
+        + ("unresolved" if abs(diff) <= widest else "resolved")
+        + f"); one tel.span enter/exit pair {span_us:.3f} us on the host")
+    return {"telemetry_trace": launches}, rec
+
+
+# ----------------------------------------------------------- phase 19 ----
+# The KV tiers on chai-llama-7b: families of prompts sharing a
+# SYS_LEN-token prefix (phase 8's system-prompt shape) with private
+# suffixes, one family a wave, each wave drained before the next; the
+# dense pool holds about two families' cached pages, so the third wave
+# demotes the first family's blocks and snapshots to the host, and the
+# last wave hits them again (new suffixes on the first prefix, and the
+# first family's first prompt again: a CHAI snapshot hit).
+TIER_SUFFIXES = ((32, 64), (48, 96), (40, 80), (56, 112))
+TIER_NEW = 32
+TIER_DENSE_PAGES = 111         # usable pages of the dense pool: 110
+TIER_HOST_PAGES = 256          # per kind; a dense page is 4 MiB at bf16
+TIER_SMALL_HOST = 12           # too few for the demoted set: int4 rung
+TIER_COMP_PAGES = 192
+TIER_COPY_PAGES = 16
+LINK_BYTES = 256 << 20
+
+
+def tier_waves(cfg):
+    """[[(uid, prompt), ...], ...]: the phase's waves."""
+    rng = np.random.default_rng(19)
+    prefixes = [rng.integers(0, cfg.vocab_size, size=SYS_LEN).tolist()
+                for _ in range(3)]
+    waves, uid = [], 0
+    for fam, lens in zip((0, 1, 2, 0), TIER_SUFFIXES):
+        wave = []
+        for n in lens:
+            wave.append((uid, prefixes[fam]
+                         + rng.integers(0, cfg.vocab_size, size=n).tolist()))
+            uid += 1
+        waves.append(wave)
+    waves[-1].append((uid, list(waves[0][0][1])))    # a snapshot hit
+    return waves
+
+
+def _watch_tier_pages(eng):
+    """Clone each demoted entry's device pages before its demotion and
+    check at its promotion that the new pages hold the same bits; returns
+    the (pool key, planes equal) list of promoted pages and the (tier,
+    promoted) list of promotion attempts."""
+    before, checked = {}, []
+    demote, promote = eng._demote_entry, eng._promote_entry
+    planes = {"dense": ("kvp", "kvp_scale"), "chai": ("cp", "cp_scale")}
+
+    def read(pages_by_pk):
+        st = eng._dev_state
+        return {pk: [{k: st[k][:, p].clone()
+                      for k in planes[kv_tiers_mod.POOL_OF[pk]] if k in st}
+                     for p in pages] for pk, pages in pages_by_pk.items()}
+
+    def watched_demote(entry):
+        held = read(eng._entry_device_pages(entry))
+        ok = demote(entry)
+        if ok:
+            before[id(entry)] = held
+        return ok
+
+    def watched_promote(entry, **kw):
+        tier = entry.tier
+        ok = promote(entry, **kw)
+        attempts.append((tier, ok))
+        if ok:
+            now = read(eng._entry_device_pages(entry))
+            want = before.pop(id(entry))
+            for pk in now:
+                for a, b in zip(now[pk], want[pk]):
+                    checked.append((pk, all(torch.equal(a[k], b[k])
+                                            for k in a)))
+        return ok
+
+    attempts = []
+    eng.prefix_cache.demote_hook = watched_demote
+    eng._promote_entry = watched_promote
+    return checked, attempts
+
+
+def serve_tiers(cfg, params, waves, faults=None, **ecfg_kw):
+    """Serve the waves on a continuous paged engine with the prefix cache,
+    each drained before the next, deep audit after every step; returns
+    the run (engine, requests by uid, launches, step walls, pages
+    checked at promotion)."""
+    eng = ServingEngine(cfg, params, EngineConfig(
+        batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+        prefix_cache=True, audit_level="deep", **ecfg_kw), faults=faults)
+    checked, attempts = (_watch_tier_pages(eng) if eng.ecfg.kv_offload
+                         else ([], []))
+    step, step_s = eng.step, []
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+    eng.step = timed_step
+    _reset_launches()
+    t0 = time.time()
+    for wave in waves:
+        for uid, prompt in wave:
+            eng.submit(prompt, max_new_tokens=TIER_NEW, uid=uid)
+        eng.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _launches()
+    reqs = {r.uid: r for r in eng.done}
+    if (sorted(reqs) != [u for w in waves for u, _ in w]
+            or any(r.finish_reason != FINISH_LENGTH
+                   or len(r.generated) != TIER_NEW for r in reqs.values())):
+        raise AssertionError(f"tiers: finishes "
+                             f"{[(u, r.finish_reason) for u, r in reqs.items()]}")
+    n_prefix = sum(r.cache_hit == "prefix" for r in reqs.values())
+    want = cfg.n_layers * n_prefix
+    if (launches["flash_prefill"] != want
+            or launches["paged_prefix_attend"] != want):
+        raise AssertionError(f"tiers: {n_prefix} suffix prefills, "
+                             f"launches {launches}")
+    return dict(eng=eng, reqs=reqs, launches=launches, wall=wall,
+                step_s=step_s, checked=checked, attempts=attempts)
+
+
+def _plans(run):
+    return {u: (r.cache_hit, r.cached_tokens, r.prefill_tokens)
+            for u, r in run["reqs"].items()}
+
+
+def _empty_after_clear(eng, label):
+    """``clear()`` demotes or drops every hot entry; dropping the demoted
+    ones then must leave the device and the host pools empty."""
+    cache = eng.prefix_cache
+    cache.clear()
+    for lru in eng.tiers._lru.values():
+        for e in list(lru.values()):
+            cache.drop_demoted(e)
+    left = {"dense": eng.dense_pool.pages_in_use,
+            "chai": eng.chai_pool.pages_in_use,
+            **{f"{t}/{k}": n for (t, k), n in eng.tiers.tier_pages().items()}}
+    if any(left.values()) or invariants_mod.audit_leaks(eng):
+        raise AssertionError(f"{label}: pools after a clear {left}")
+
+
+def _event_ms(fn, reps=1):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def page_copy_times(eng):
+    """Demotion and promotion of TIER_COPY_PAGES pages of each pool
+    through the engine's own page read and write (CUDA events around the
+    copies; the CRC on the host clock), beside a LINK_BYTES pinned
+    host <-> device copy, which measures the host link."""
+    out = {}
+    host = torch.empty(LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(LINK_BYTES, dtype=torch.uint8, device="cuda")
+    h2d = statistics.median(_event_ms(
+        lambda: dev.copy_(host, non_blocking=True))[0] for _ in range(5))
+    d2h = statistics.median(_event_ms(
+        lambda: host.copy_(dev, non_blocking=True))[0] for _ in range(5))
+    del host, dev
+    out["link"] = dict(bytes=LINK_BYTES, h2d_ms=h2d, d2h_ms=d2h,
+                       h2d_gb_s=LINK_BYTES / h2d / 1e6,
+                       d2h_gb_s=LINK_BYTES / d2h / 1e6)
+    st, take = eng._dev_state, eng.tiers.slabs.take
+    pages = list(range(1, TIER_COPY_PAGES + 1))
+    for kind in eng._fetch_page:
+        fetch, put = eng._fetch_page[kind], eng._put_page[kind]
+        fetch(st, pages[0], take)                       # warm the slabs
+        torch.cuda.synchronize()
+        down, payloads = _event_ms(lambda: [fetch(st, p, take)
+                                            for p in pages])
+        t0 = time.perf_counter()
+        for pl in payloads:
+            kv_tiers_mod.payload_crc({"kg": [pl]})
+        crc = 1e3 * (time.perf_counter() - t0) / len(pages)
+        up, _ = _event_ms(lambda: [put(st, p, pl)
+                                   for p, pl in zip(pages, payloads)])
+        nbytes = sum(v.numel() * v.element_size()
+                     for v in payloads[0].values())
+        down, up = down / len(pages), up / len(pages)
+        out[kind] = dict(page_bytes=nbytes, demote_copy_ms=down,
+                         crc_host_ms=crc, promote_copy_ms=up,
+                         demote_gb_s=nbytes / down / 1e6,
+                         promote_gb_s=nbytes / up / 1e6,
+                         demote_share_of_d2h=(nbytes / down)
+                         / (LINK_BYTES / d2h),
+                         promote_share_of_h2d=(nbytes / up)
+                         / (LINK_BYTES / h2d))
+        for pl in payloads:
+            for v in pl.values():
+                eng.tiers.slabs.give(v)
+    return out
+
+
+def kv_tiers_path(cfg, params):
+    """Phase 19. Returns ({path: launches}, the phase's record)."""
+    waves = tier_waves(cfg)
+    roomy = serve_tiers(cfg, params, waves)             # nothing demotes
+    if roomy["eng"].prefix_stats()["evicted_blocks"]:
+        raise AssertionError("tiers: the roomy run evicted")
+    _empty_after_clear(roomy["eng"], "tiers roomy")
+    base_plans = _plans(roomy)
+    tokens = {u: r.generated for u, r in roomy["reqs"].items()}
+    roomy.clear()
+    run = serve_tiers(cfg, params, waves, kv_offload=True,
+                      num_pages=TIER_DENSE_PAGES, host_pages=TIER_HOST_PAGES)
+    eng = run["eng"]
+    st, ts = eng.prefix_stats(), eng.tier_stats()
+    checked = run["checked"]
+    if not (st["demoted_blocks"] and st["promoted_blocks"]
+            and st["demoted_snapshots"] and st["promoted_snapshots"]
+            and st["evicted_blocks"] == st["evicted_snapshots"] == 0):
+        raise AssertionError(f"tiers: prefix stats {st}")
+    if not checked or not all(ok for _, ok in checked):
+        raise AssertionError(f"tiers: promoted pages {checked}")
+    if _plans(run) != base_plans:
+        raise AssertionError(f"tiers: plans {_plans(run)} against the "
+                             f"roomy run's {base_plans}")
+    differ = [u for u, r in run["reqs"].items() if r.generated != tokens[u]]
+    if differ:
+        raise AssertionError(f"tiers: tokens of {differ} differ from the "
+                             "roomy run's")
+    copies = page_copy_times(eng)
+    pinned = eng.tiers.slabs.slab_bytes
+    _empty_after_clear(eng, "tiers offload")
+    rec = dict(prefix_stats=st, tier_stats=ts, pages_checked=len(checked),
+               plans=base_plans, wall=run["wall"],
+               median_step_ms=1e3 * statistics.median(run["step_s"]),
+               pinned_slab_bytes=pinned, copies=copies)
+    launches = {"tiers_offload": run["launches"]}
+    run.clear()
+    # the corrupt offload.out arm: caught at promotion, re-planned cold
+    bad = serve_tiers(cfg, params, waves, kv_offload=True,
+                      num_pages=TIER_DENSE_PAGES, host_pages=TIER_HOST_PAGES,
+                      faults=FaultInjector([FaultSpec(
+                          "offload.out", mode="corrupt", count=-1)]))
+    beng = bad["eng"]
+    bst, bfs = beng.prefix_stats(), beng.fault_stats()
+    if not (bfs["offload_checksum_failures"] > 0 and bfs["quarantined"] == 0
+            and bst["promoted_blocks"] == bst["promoted_snapshots"] == 0):
+        raise AssertionError(f"tiers corrupt: {bst}, "
+                             f"{ {k: v for k, v in bfs.items() if k != 'injector'} }")
+    rec["corrupt"] = dict(checksum_failures=bfs["offload_checksum_failures"],
+                          fired=len(bfs["injector"]["fired"]),
+                          plans=_plans(bad))
+    _empty_after_clear(beng, "tiers corrupt")
+    launches["tiers_corrupt"] = bad["launches"]
+    bad.clear()
+    # a host pool too small for the demoted set: the int4 rung
+    small = serve_tiers(cfg, params, waves, kv_offload=True,
+                        num_pages=TIER_DENSE_PAGES, host_pages=TIER_SMALL_HOST,
+                        compressed_pages=TIER_COMP_PAGES)
+    sts = small["eng"].tier_stats()
+    tr = sts["transitions"]
+    comp_hits = small["attempts"].count((kv_tiers_mod.TIER_COMP, False))
+    if not (tr.get("host->compressed/dense", 0) and comp_hits
+            and not tr.get("compressed->hot/dense", 0)):
+        raise AssertionError(f"tiers small host: transitions {tr}, "
+                             f"promotion attempts {small['attempts']}")
+    rec["small_host"] = dict(transitions=tr, plans=_plans(small),
+                             compressed_hits=comp_hits,
+                             tier_bytes=sts["tier_bytes"])
+    _empty_after_clear(small["eng"], "tiers small host")
+    launches["tiers_small_host"] = small["launches"]
+    small.clear()
+    log(f"KV tiers ({sum(len(w) for w in waves)} requests in {len(waves)} "
+        f"waves over 3 families of a {SYS_LEN}-token prefix; dense pool "
+        f"{TIER_DENSE_PAGES - 1} pages, host {TIER_HOST_PAGES} a kind; deep "
+        f"audit every step): {rec['wall']:.3f} s, median step "
+        f"{rec['median_step_ms']:.2f} ms; prefix stats {st}; transitions "
+        f"{ts['transitions']}; prefetch hits {ts['prefetch_hits']}, misses "
+        f"{ts['prefetch_misses']}; {len(checked)} promoted pages torch.equal "
+        f"to their pages before demotion; plans and tokens = the roomy "
+        f"run's {base_plans}; pinned slabs {pinned:,} B; launches "
+        f"{launches['tiers_offload']}")
+    log(f"KV tiers corrupt offload.out: {rec['corrupt']['fired']} arms "
+        f"fired, {rec['corrupt']['checksum_failures']} checksum failures at "
+        f"promotion, nothing promoted or quarantined, plans "
+        f"{rec['corrupt']['plans']}; host pool of {TIER_SMALL_HOST}: "
+        f"transitions {tr}, {comp_hits} compressed hits dropped and "
+        f"re-planned, plans {rec['small_host']['plans']}")
+    for kind in copies:
+        if kind == "link":
+            continue
+        c = copies[kind]
+        log(f"KV tiers page copies ({kind}, {c['page_bytes']:,} B a page, "
+            f"{TIER_COPY_PAGES} pages): demotion {c['demote_copy_ms']:.4f} "
+            f"ms a page ({c['demote_gb_s']:.2f} GB/s, "
+            f"{100 * c['demote_share_of_d2h']:.1f}% of the link's D2H), "
+            f"host CRC {c['crc_host_ms']:.4f} ms, promotion "
+            f"{c['promote_copy_ms']:.4f} ms ({c['promote_gb_s']:.2f} GB/s, "
+            f"{100 * c['promote_share_of_h2d']:.1f}% of the link's H2D)")
+    link = copies["link"]
+    log(f"host link ({LINK_BYTES:,} B pinned, median of 5): H2D "
+        f"{link['h2d_ms']:.3f} ms ({link['h2d_gb_s']:.2f} GB/s), D2H "
+        f"{link['d2h_ms']:.3f} ms ({link['d2h_gb_s']:.2f} GB/s)")
+    return launches, rec
+
+
 def main():
     environment()
     build_kernels()
@@ -6883,14 +7457,16 @@ def main():
         cfg, params)
     # Phase 11, chai-llama-7b: the int8 KV cache on phases 6 and 8's traffic.
     cfg8 = cfg.replace(kv_cache_dtype="int8")
+    side_summary = side_konly(*cut_depth(cfg, params))
     i8_launches, i8_mains, i8_summary = int8_path(
-        cfg8, params, cont_summary, "int8_continuous")
-    i8_mha_launches = int8_mha_path(cfg8, params, "int8_mha_continuous")
+        *cut_depth(cfg8, params), side_summary, "int8_continuous")
+    i8_mha_launches = int8_mha_path(*cut_depth(cfg8, params),
+                                    "int8_mha_continuous")
     i8_prefix_launches, i8_relay, i8_emit, i8_prefix = prefix_path(
-        cfg8, params, tag="int8_prefix")
+        *cut_depth(cfg8, params), tag="int8_prefix")
     # Phase 12: share_values (CHAI-QKV), bf16 and int8.
     share_launches, share_mains, share8_cap = share_path(
-        cfg, params, cont_summary, i8_summary)
+        cfg, params, side_summary, i8_summary)
     # Phase 15, chai-llama-7b: the front door; phase 16: the offline phase
     # and the policies.
     front_launches, _ = front_door_path(cfg, params)
@@ -6899,9 +7475,14 @@ def main():
     # Phase 17, chai-llama-7b: the failure model.
     fault_launches = soak_path(cfg, params)
     fault_launches.update(degraded_path(cfg, params, mono))
-    audit_launches, _ = audit_cost_path(cfg, params)
+    audit_launches, audit_copies = audit_cost_path(cfg, params)
     fault_launches.update(audit_launches)
     fault_launches.update(front_door_faults(cfg, params))
+    # Phase 18, chai-llama-7b: telemetry; phase 19: the KV tiers.
+    tel_launches, _ = telemetry_path(cfg, params, mono,
+                                     cont_launches["continuous_paged"],
+                                     audit_copies["basic"])
+    tier_launches, _ = kv_tiers_path(cfg, params)
     # The engines of phases 5-8 sit in reference cycles (their wrapped
     # hooks); collect them so chai-llama-7b's weights are really freed.
     del params
@@ -6990,7 +7571,8 @@ def main():
                **i8_prefix_launches, **n8_launches, **share_launches,
                **g_launches, **d_launches, **sp_launches, **g8_launches,
                **sp8_launches, **d8_launches, **front_launches,
-               **nemo_front_launches, **fault_launches,
+               **nemo_front_launches, **fault_launches, **tel_launches,
+               **tier_launches,
                "pipeline_lane": lane_launches,
                "pipeline_lane_share_int8": lane8_launches}
     mains = {"chai_fused_decode": (

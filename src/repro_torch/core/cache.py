@@ -102,6 +102,51 @@ def plain_int8(x):
         torch.int8)
 
 
+# -- int4 row quantization (the compressed KV tier) --------------------------
+#
+# Under host pressure the KV tiers (serving/kv_tiers.py) re-code demoted
+# radix pages to int4: the symmetric per-row scheme of ``quant_rows`` with
+# the extreme +-7 and two codes packed per byte. They run on host payloads
+# (CPU tensors); codes, scales and packed bytes equal the reference's numpy
+# versions bit for bit (``torch.round`` rounds half to even, as ``np.rint``).
+
+def quant_rows_int4(x):
+    """Symmetric int4 over the last axis. x: (..., hd) -> (int8 codes in
+    [-7, 7] same shape, fp32 scale (...))."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1), min=1e-6) / 7.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -7, 7)
+    return q.to(torch.int8), scale
+
+
+def dequant_rows_int4(q, scale):
+    return q.to(torch.int8).float() * scale.float()[..., None]
+
+
+def pack_int4(q):
+    """Pack int4 codes (int8 values in [-8, 7]) two per byte along the
+    last axis; an odd length is zero-padded. (..., n) int8 -> (...,
+    ceil(n / 2)) uint8, the low nibble the even index."""
+    q = q.to(torch.int8)
+    if q.shape[-1] % 2:
+        q = torch.cat([q, q.new_zeros(q.shape[:-1] + (1,))], dim=-1)
+    lo = (q[..., 0::2] & 0x0F).to(torch.uint8)
+    hi = (q[..., 1::2] & 0x0F).to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_int4(packed, n):
+    """Inverse of ``pack_int4``: (..., ceil(n / 2)) uint8 -> (..., n) int8
+    codes, each nibble sign-extended."""
+    p = packed.to(torch.uint8)
+    lo = (p & 0x0F).to(torch.int8)
+    hi = ((p >> 4) & 0x0F).to(torch.int8)
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    return torch.stack([lo, hi], dim=-1).reshape(
+        p.shape[:-1] + (2 * p.shape[-1],))[..., :n]
+
+
 def _chai_on(cfg: ModelConfig, chai: bool) -> bool:
     return chai and cfg.chai.enabled and cfg.k_max > 0
 

@@ -4,10 +4,10 @@ Cohort: whole-cohort prefill, decode, compact. Continuous: the mixed-phase
 decode step and the per-slot prefill / cluster / reset transitions, on
 the unified (``kv_layout="dense"``) and the paged layout; on the paged
 layout also the prefix cache's suffix prefill, snapshot restore and page
-copy, and the relay decode step. Both schedulers: the seeded top-k /
-top-p sampler. Plain callables (the reference wraps the same functions
-in ``jax.jit`` and donates the state; here the state tensors are updated
-in place).
+copy, the KV tiers' page fetch and put, and the relay decode step. Both
+schedulers: the seeded top-k / top-p sampler. Plain callables (the
+reference wraps the same functions in ``jax.jit`` and donates the state;
+here the state tensors are updated in place).
 """
 from __future__ import annotations
 
@@ -321,6 +321,58 @@ def make_page_copy(cfg: ModelConfig, kind: str):
         return chai_cache.copy_pool_page(state, src, dst, kind=kind)
 
     return copy
+
+
+def _page_planes(kind: str):
+    """(payload key, state key) of the planes of one pool page: the codes
+    or values, and under int8 their scales."""
+    return ((("data", "kvp"), ("scale", "kvp_scale")) if kind == "dense"
+            else (("data", "cp"), ("scale", "cp_scale")))
+
+
+def make_page_fetch(cfg: ModelConfig, kind: str):
+    """Read ONE physical page of a pool (``kind``: dense|chai) across
+    every global layer out to host memory: the KV tiers' demotion read.
+    ``fetch(state, page, take)`` returns the payload ``{"data": (nG, rows,
+    page, hd)[, "scale": (nG, rows, page)]}`` in host buffers from
+    ``take(shape, dtype)``. Each plane is gathered from its strided pool
+    slice into one contiguous device buffer and copied with ONE
+    non-blocking copy; on CUDA the caller records an event after its last
+    fetch and synchronizes it before reading the host bytes."""
+    planes = _page_planes(kind)
+
+    def fetch(state, page, take):
+        out = {}
+        for name, key in planes:
+            if key not in state:
+                continue
+            staged = state[key][:, int(page)].contiguous()
+            host = take(tuple(staged.shape), staged.dtype)
+            host.copy_(staged, non_blocking=True)
+            out[name] = host
+        return out
+
+    return fetch
+
+
+def make_page_put(cfg: ModelConfig, kind: str):
+    """Write a host payload back into ONE physical page: the tier
+    promotion, the exact inverse of ``make_page_fetch``. Each plane goes
+    to the device in one (non-blocking, from pinned memory) copy and then
+    into the page's strided slice of the pool in one device copy, on the
+    current stream, so it is ordered before the next step's reads."""
+    planes = _page_planes(kind)
+
+    def put(state, page, payload):
+        for name, key in planes:
+            if key not in state:
+                continue
+            pool = state[key]
+            dev = payload[name].to(pool.device, non_blocking=True)
+            pool[:, int(page)].copy_(dev.to(pool.dtype))
+        return state
+
+    return put
 
 
 def make_relay_step(cfg: ModelConfig, *, decode_ts=0):

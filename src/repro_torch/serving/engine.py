@@ -105,9 +105,29 @@ any other exception in the decode propagates, since after a real CUDA
 error the context is unusable and the step may already have written K/V
 in place.
 
+Telemetry (``EngineConfig.telemetry``, ``serving.telemetry``): at "basic"
+a metrics registry (request flow, TTFT / ITL / queue / latency
+histograms, faults, the CHAI gauges and counters, the relay and KV-tier
+counters, the KV occupancy gauges) and per-request lifecycle timelines;
+at "trace" also a span for each stage of every ``step()`` (``step``,
+``admit``, ``cluster``, ``relay.form``, ``decode.dispatch``, ``sample``,
+``retire``, ``audit``), exported as a Chrome trace (``step_trace()``),
+the registry as Prometheus text (``metrics_text()``). Every hook sits
+behind ``tel.enabled``: at "off" (the default) a step runs the same torch
+ops and device work as without telemetry, and the decode step keeps its
+one device-to-host copy at every tier. Spans are on the host clock.
+
+KV tiers (``EngineConfig.kv_offload``, paged layout, ``serving.kv_tiers``):
+under device pool pressure an unlocked prefix-cache entry DEMOTES to a
+host page (pinned memory on CUDA, CRC-stamped) instead of dropping; under
+host pressure a radix block re-codes to int4, and the ladder ends in a
+drop. A hit on a demoted entry PROMOTES it into fresh device pages, bit
+for bit, before the plan aliases it; a checksum mismatch, an injected
+``offload.in`` fault or (with ``lossy_promote=False``) a compressed entry
+drops the entry and the request re-plans cold.
+
 Not ported yet, and refused with ``NotImplementedError``: ``priority``
-(preemption), ``kv_offload`` (KV tiers) and the fault sites of those two
-paths; not there yet: telemetry.
+(preemption) and the fault sites of that path (``swap.*``).
 """
 from __future__ import annotations
 
@@ -124,8 +144,12 @@ from repro_torch.configs.base import ATTN_GLOBAL, ModelConfig
 from repro_torch.core import cache as chai_cache
 from repro_torch.core import clustering
 from repro_torch.launch import steps as steps_mod
+from repro_torch.serving import exporters as exporters_mod
+from repro_torch.serving import faults as faults_mod
 from repro_torch.serving import invariants as invariants_mod
+from repro_torch.serving import kv_tiers as kv_tiers_mod
 from repro_torch.serving import sampling as sampling_mod
+from repro_torch.serving import telemetry as telemetry_mod
 from repro_torch.serving.cohort import CohortSchedulerMixin
 from repro_torch.serving.faults import (UNPORTED_SITES, CapacityError,
                                         EngineFault, FaultInjector,
@@ -220,8 +244,6 @@ class EngineConfig:
     # + clustered pages) and enters STEADY directly. Cached pages are
     # refcounted, copy-on-write, LRU-evicted under pressure.
     prefix_cache: bool = False
-    # Host-memory KV tiers for evicted cache entries: not ported yet.
-    kv_offload: bool = False
     # -- shared-prefix relay decode (prefix_cache + paged + CHAI) --
     # STEADY slots admitted through the same radix chain group on their
     # deepest shared node with >= relay_min_group members; each decode
@@ -239,12 +261,52 @@ class EngineConfig:
     # the host bookkeeping. "off": no auditing. A failed audit raises
     # EngineFault.
     audit_level: str = "basic"         # "off" | "basic" | "deep"
+    # -- telemetry (serving/telemetry.py) --
+    # "off" (default): NullTelemetry; every hook is a no-op behind an
+    # ``enabled`` guard and a step runs the same torch ops as without
+    # telemetry. "basic": the metrics registry (counters, gauges,
+    # histograms) and per-request lifecycle timelines (TTFT / ITL / queue
+    # time). "trace": also a span for every step() stage, exportable as a
+    # Chrome trace (``step_trace()``).
+    telemetry: str = "off"             # "off" | "basic" | "trace"
     # -- degraded-decode healing --
     # After an injected kernel.decode fault flips ``degraded_decode`` the
     # engine decodes on the kernels' plain versions; with N > 0 it returns
     # to the kernels after N consecutive clean decode steps (each return
     # counts in ``decode_heals``). 0 = never.
     decode_heal_steps: int = 0
+    # -- hierarchical KV tiers (serving/kv_tiers.py; paged layout) --
+    # kv_offload turns prefix-cache eviction into DEMOTION: under device
+    # pool pressure an unlocked radix leaf or CHAI snapshot moves to host
+    # pages instead of dropping (the LRU ladder walks hot -> host ->
+    # compressed int4 -> gone), and a hit on a demoted entry promotes it
+    # into fresh device pages (bitwise: greedy tokens as with no pressure).
+    # On CUDA the host pages live in pinned memory, allocated in slabs on
+    # the first demotion.
+    kv_offload: bool = False
+    # Host / compressed pool sizes in usable pages PER KIND (the dense and
+    # the clustered pool each get this many). 0 = auto: the host pool
+    # covers 2x the device pool, the int4 pool matches the host pool. Only
+    # radix blocks ride the compressed rung (snapshots replay bitwise).
+    host_pages: int = 0
+    compressed_pages: int = 0
+    # Admission-time prefetch: add_request queues the promotion of the
+    # demoted entries the request will hit; step() promotes a few of them
+    # ahead of the admission (a synchronous promotion at plan time stays
+    # the fallback).
+    tier_prefetch: bool = True
+    # A hit on an int4-compressed entry: False (default) drops the entry
+    # and re-plans cold (still exact: the prefill recomputes); True
+    # promotes the dequantized approximation.
+    lossy_promote: bool = False
+
+
+#: planner sentinel: a demoted entry was dropped mid-plan (a failed
+#: promotion, a compressed hit): the tree changed, plan again.
+_REPLAN = object()
+
+
+_DEGRADED_HELP = "1 while decode runs the kernels' plain versions"
 
 
 class EngineCore(CohortSchedulerMixin):
@@ -268,6 +330,8 @@ class EngineCore(CohortSchedulerMixin):
         if ecfg.decode_heal_steps < 0:
             raise ValueError("decode_heal_steps must be >= 0, got "
                              f"{ecfg.decode_heal_steps}")
+        # the tier's validation happens inside make_telemetry
+        self.tel = telemetry_mod.make_telemetry(ecfg.telemetry)
         for spec in (faults.specs if faults is not None else ()):
             if spec.site in UNPORTED_SITES:
                 raise NotImplementedError(
@@ -294,13 +358,17 @@ class EngineCore(CohortSchedulerMixin):
         self._decode_fault_hit = False  # kernel.decode fired this step
         self.relay_dissolved = 0       # relay groups dissolved by fault
         self.swap_checksum_failures = 0      # preemption swap-in (#9)
-        self.offload_checksum_failures = 0   # KV-tier promotion (#13)
+        self.offload_checksum_failures = 0   # corrupted promotions caught
+        self.prefetch_hits = 0         # demoted hit found already promoted
+        self.prefetch_misses = 0       # demoted hit promoted at plan time
         self._plain_steps = None       # degraded decode steps, built lazily
         self._fault_blocked = False    # last plan blocked by injection
         self.queue: deque = deque()
         self.done: List[Request] = []
         self.redispatched = 0
         self.steps_executed = 0          # batched decode steps
+        self._step_calls = 0             # every _step_inner entry (spans)
+        self._span_step = -1             # step ordinal current spans carry
         self._uid_counter = 0            # monotonic: uids never collide
         b, s = ecfg.batch_slots, ecfg.max_seq
         self.chai_on = ecfg.use_chai and cfg.chai.enabled and cfg.k_max > 0
@@ -331,10 +399,6 @@ class EngineCore(CohortSchedulerMixin):
                     ecfg.page_size)
         # Shared-prefix KV reuse (paged layout only).
         self.prefix_cache = None
-        if ecfg.kv_offload:
-            raise NotImplementedError(
-                "kv_offload (host-memory KV tiers) is not ported yet: "
-                "ROADMAP Queue 1, #13 hierarchical KV tiers")
         if ecfg.prefix_cache:
             if not self.paged:
                 raise ValueError("prefix_cache requires the paged KV "
@@ -345,6 +409,35 @@ class EngineCore(CohortSchedulerMixin):
                     f"(got {cfg.name!r} with local/recurrent layers)")
             self.prefix_cache = PrefixCache(self.dense_pool, self.chai_pool,
                                             ecfg.page_size)
+        # Hierarchical KV tiers: a TierManager on every paged engine (its
+        # pools hold nothing, and pin nothing, until a demotion); demotion
+        # needs ecfg.kv_offload.
+        self.tiers = None
+        self._prefetch_q: deque = deque()
+        self._prefetch_ids: set = set()
+        if ecfg.kv_offload and not self.paged:
+            raise ValueError("kv_offload requires the paged KV layout "
+                             "on the continuous scheduler")
+        if self.paged:
+            host_d = ecfg.host_pages or 2 * self.dense_pool.capacity
+            host_c = 0
+            if self.chai_pool is not None:
+                host_c = ecfg.host_pages or 2 * self.chai_pool.capacity
+            self.tiers = kv_tiers_mod.TierManager(
+                ecfg.page_size,
+                host_pages={"dense": host_d, "chai": host_c},
+                # Only radix blocks compress, and blocks hold dense pages
+                # only: the clustered kind never rides the int4 rung.
+                comp_pages={"dense": ecfg.compressed_pages or host_d,
+                            "chai": 0},
+                on_transition=self._tel_tier_transition,
+                pin=self.device.type == "cuda")
+            if self.prefix_cache is not None:
+                self.prefix_cache.tiers = self.tiers
+                self.tiers.drop_hook = self.prefix_cache.drop_demoted
+                self.tiers.droppable_hook = self.prefix_cache._droppable
+                if ecfg.kv_offload:
+                    self.prefix_cache.demote_hook = self._demote_entry
         self.relay_decode = False
         if ecfg.relay_decode:
             if not (self.paged and self.chai_on and ecfg.prefix_cache):
@@ -401,6 +494,12 @@ class EngineCore(CohortSchedulerMixin):
             self._restore_snapshot = steps_mod.make_snapshot_restore(cfg)
             self._copy_page = {kind: steps_mod.make_page_copy(cfg, kind)
                                for kind in ("dense", "chai")}
+            # the tiers' one-page demotion read and promotion write
+            kinds = ("dense", "chai") if self.chai_clustered else ("dense",)
+            self._fetch_page = {k: steps_mod.make_page_fetch(cfg, k)
+                                for k in kinds}
+            self._put_page = {k: steps_mod.make_page_put(cfg, k)
+                              for k in kinds}
         else:
             self._slot_prefill = steps_mod.make_slot_prefill(cfg, s)
             self._reset_slot = steps_mod.make_slot_reset(cfg)
@@ -463,6 +562,20 @@ class EngineCore(CohortSchedulerMixin):
         req.generated = []
         self.queue.append(req)
         self._requests[uid] = req
+        if (self.paged and self.ecfg.kv_offload and self.ecfg.tier_prefetch
+                and self.prefix_cache is not None):
+            # Admission-time prefetch: queue the demoted entries this
+            # prompt will hit for promotion ahead of the planning step.
+            self._queue_prefetch(req)
+        if self.tel.enabled:
+            self.tel.counter("requests_submitted_total",
+                             help="Requests enqueued via add_request")
+            self.tel.gauge("engine_queue_depth", len(self.queue),
+                           help="Requests waiting in the arrival queue")
+            self.tel.event(req.uid, "enqueue", t=req.t_enqueue,
+                           prompt_tokens=int(len(req.prompt)),
+                           max_new_tokens=int(max_new),
+                           priority=int(priority))
         return req
 
     def _done(self, req: Request):
@@ -472,6 +585,8 @@ class EngineCore(CohortSchedulerMixin):
         self.done.append(req)
         if self._requests.get(req.uid) is req:
             del self._requests[req.uid]
+        if self.tel.enabled:
+            self._tel_finish(req)
 
     def reap_done(self) -> List[Request]:
         """Return and clear the finished-request list (the ``LLM`` front
@@ -531,24 +646,45 @@ class EngineCore(CohortSchedulerMixin):
         if self.ecfg.scheduler != "continuous":
             raise RuntimeError("step() drives the continuous scheduler; "
                                "cohort engines run via run()")
-        outs = self._step_inner()
+        tel = self.tel
+        if tel.enabled:
+            t0 = time.perf_counter()
+        with tel.span("step", step=self._step_calls):
+            outs = self._step_inner()
         if self.ecfg.audit_level != "off":
             self.audit_steps += 1
-            vio = invariants_mod.audit(
-                self, deep=self.ecfg.audit_level == "deep")
+            with tel.span("audit", step=self._span_step):
+                vio = invariants_mod.audit(
+                    self, deep=self.ecfg.audit_level == "deep")
             if vio:
                 raise EngineFault(f"invariant audit failed at step "
                                   f"{self.steps_executed}", violations=vio)
+        if tel.enabled:
+            tel.observe("engine_step_seconds", time.perf_counter() - t0,
+                        help="Wall time of one step() iteration")
+            tel.counter("engine_steps_total",
+                        help="step() iterations executed")
+            tel.gauge("engine_queue_depth", len(self.queue),
+                      help="Requests waiting in the arrival queue")
+            tel.gauge("engine_active_slots",
+                      sum(1 for r in self._slot_req if r is not None),
+                      help="Batch slots holding a live request")
         return outs
 
     def _step_inner(self) -> List[StepOutput]:
         outs: List[StepOutput] = []
         self._ensure_dev_state()
+        if self._prefetch_q:
+            self._drain_prefetch()
         self._fault_blocked = False
+        tel = self.tel
+        self._span_step = self._step_calls
+        self._step_calls += 1
         self._advance_prefills(outs)
         drained = False
         while True:
-            blocked = self._admit(outs)
+            with tel.span("admit", step=self._span_step):
+                blocked = self._admit(outs)
             active = [i for i in range(self.ecfg.batch_slots)
                       if self._slot_req[i] is not None
                       and self._phases[i] != chai_cache.PHASE_PREFILL]
@@ -577,7 +713,8 @@ class EngineCore(CohortSchedulerMixin):
                 f"capacities {self.dense_pool.capacity} and "
                 f"{self.chai_pool.capacity if self.chai_pool else 0}",
                 uid=head.uid)
-        self._cluster_transitions(active, outs)
+        with tel.span("cluster", step=self._span_step):
+            self._cluster_transitions(active, outs)
         # A kernel.cluster quarantine may have retired slots mid-list.
         active = [i for i in active if self._slot_req[i] is not None]
         if active:
@@ -590,7 +727,12 @@ class EngineCore(CohortSchedulerMixin):
         injector is armed or nothing fires."""
         if self.faults is None:
             return None
-        return self.faults.fire(site, step=self.steps_executed, uid=uid)
+        spec = self.faults.fire(site, step=self.steps_executed, uid=uid)
+        if spec is not None and self.tel.enabled:
+            self.tel.counter("faults_injected_total", site=site,
+                             mode=spec.mode,
+                             help="Injected faults that fired, by site")
+        return spec
 
     def _quarantine_queued(self, req: Request, err: RequestError,
                            outs: List[StepOutput]):
@@ -603,6 +745,8 @@ class EngineCore(CohortSchedulerMixin):
         req.t_done = time.time()
         req.retire_step = self.steps_executed
         self.quarantined += 1
+        if self.tel.enabled:
+            self.tel.event(req.uid, "quarantine", reason=str(err))
         self._done(req)
         outs.append(StepOutput(req.uid, [], True,
                                sampling_mod.FINISH_ERROR))
@@ -622,6 +766,135 @@ class EngineCore(CohortSchedulerMixin):
             self._slot_locked[i] = []
         req.generated = req.generated[:gen0]
         req.cache_hit, req.cached_tokens, req.prefill_tokens = hit0
+
+    # -- telemetry hooks (every caller guards on self.tel.enabled) ---------
+    def _tel_admit(self, i: int, req: Request, plan: dict):
+        """Admission succeeded: labeled admit counter, queue-wait
+        histogram, cache-hit token counters, timeline event."""
+        tel = self.tel
+        kind = plan["kind"]
+        tel.counter("requests_admitted_total", kind=kind,
+                    help="Slot admissions by plan kind")
+        tel.observe("request_queue_seconds",
+                    max(0.0, time.time() - req.t_enqueue),
+                    help="Enqueue-to-admission wait")
+        tel.event(req.uid, "admit", slot=i, kind=kind,
+                  step=self.steps_executed,
+                  cached_tokens=int(req.cached_tokens))
+        if req.cache_hit == "prefix":
+            tel.counter("prefix_hit_tokens_total", req.cached_tokens,
+                        help="Prompt tokens served from the radix cache")
+        elif req.cache_hit == "snapshot":
+            tel.counter("snapshot_hit_tokens_total", req.cached_tokens,
+                        help="Prompt tokens served from CHAI snapshots")
+            # A snapshot admission lands in STEADY with its warmup tokens
+            # emitted: its first token happened here.
+            if req.generated and req.t_first_token:
+                tel.event(req.uid, "first_token", t=req.t_first_token)
+                tel.observe("request_ttft_seconds",
+                            max(0.0, req.t_first_token - req.t_enqueue),
+                            help="Enqueue-to-first-token latency")
+                tel.counter("tokens_generated_total", len(req.generated),
+                            help="Generated tokens emitted")
+                tel.token(req.uid, n=len(req.generated),
+                          t=req.t_first_token)
+
+    def _tel_finish(self, req: Request):
+        """A request reached a terminal state (retire, abort, quarantine,
+        replay): reason-labeled counter, latency histogram, timeline
+        seal."""
+        tel = self.tel
+        reason = req.finish_reason or "unknown"
+        tel.counter("requests_finished_total", reason=reason,
+                    help="Requests finished, by finish_reason")
+        if req.error:
+            tel.counter("requests_quarantined_total",
+                        help="Requests typed-failed and quarantined")
+        if req.t_done and req.t_enqueue:
+            tel.observe("request_latency_seconds",
+                        max(0.0, req.t_done - req.t_enqueue),
+                        help="Enqueue-to-completion latency")
+        data = {"reason": reason,
+                "tokens": len(req.generated or ()),
+                "preemptions": 0}               # until #9
+        if req.error:
+            data["error"] = req.error
+        if req.cache_hit:
+            data["cache_hit"] = req.cache_hit
+        tel.event(req.uid, "finish", t=req.t_done or None, **data)
+        tel.finish(req.uid)
+
+    def _tel_clusters(self, i: int):
+        """Per-layer cluster-count gauges from slot ``i``'s membership,
+        copied to the host here: once per CLUSTER transition, never on a
+        decode step."""
+        help_ = ("Clusters per attention layer at the latest CLUSTER "
+                 "transition")
+        if "h2c" in self._dev_ctx:                  # MHA: (nA, H)
+            h2c = self._dev_ctx["h2c"][:, i].cpu().numpy()
+            for layer in range(h2c.shape[0]):
+                self.tel.gauge("chai_clusters", len(np.unique(h2c[layer])),
+                               layer=layer, help=help_)
+        elif "cluster_of" in self._dev_ctx:         # GQA: (nA, KV, qpk)
+            co = self._dev_ctx["cluster_of"][:, i].cpu().numpy()
+            for layer in range(co.shape[0]):
+                n = sum(int(len(np.unique(co[layer, g])))
+                        for g in range(co.shape[1]))
+                self.tel.gauge("chai_clusters", n, layer=layer, help=help_)
+
+    def _refresh_gauges(self):
+        """Point-in-time gauges recomputed at scrape time."""
+        tel = self.tel
+        tel.gauge("engine_queue_depth", len(self.queue),
+                  help="Requests waiting in the arrival queue")
+        tel.gauge("engine_active_slots",
+                  sum(1 for r in self._slot_req if r is not None),
+                  help="Batch slots holding a live request")
+        tel.gauge("engine_degraded_decode", int(self.degraded_decode),
+                  help=_DEGRADED_HELP)
+        if self.paged:
+            tel.gauge("kv_bytes_allocated", self.kv_bytes(),
+                      help="Allocated KV bytes right now")
+            tel.gauge("dense_pages_in_use", self.dense_pool.pages_in_use,
+                      help="Dense-pool pages in use")
+            if self.chai_pool is not None:
+                tel.gauge("chai_pages_in_use",
+                          self.chai_pool.pages_in_use,
+                          help="Clustered-pool pages in use")
+            if self.tiers is not None:
+                help_tier = "KV pages resident per tier and pool kind"
+                tel.gauge("kv_tier_pages", self.dense_pool.pages_in_use,
+                          tier="hot", kind="dense", help=help_tier)
+                if self.chai_pool is not None:
+                    tel.gauge("kv_tier_pages",
+                              self.chai_pool.pages_in_use,
+                              tier="hot", kind="chai", help=help_tier)
+                for (tier, kind), n in self.tiers.tier_pages().items():
+                    tel.gauge("kv_tier_pages", n, tier=tier, kind=kind,
+                              help=help_tier)
+
+    def metrics(self):
+        """JSON-ready metrics snapshot (the point-in-time gauges refreshed
+        first); None at telemetry "off"."""
+        if not self.tel.enabled:
+            return None
+        self._refresh_gauges()
+        return self.tel.snapshot()
+
+    def metrics_text(self):
+        """Prometheus text exposition of ``metrics()`` (None at "off")."""
+        snap = self.metrics()
+        return None if snap is None else exporters_mod.to_prometheus(snap)
+
+    def request_timeline(self, uid):
+        """One request's lifecycle timeline (events and the derived TTFT /
+        ITL / queue summary); None when unknown or at "off"."""
+        return self.tel.timeline(uid)
+
+    def step_trace(self):
+        """Chrome-trace JSON object of the recorded step spans (empty below
+        the "trace" tier)."""
+        return exporters_mod.to_chrome_trace(self.tel.spans)
 
     # -- prefill helpers ----------------------------------------------------
     @staticmethod
@@ -760,10 +1033,18 @@ class EngineCore(CohortSchedulerMixin):
         cache = self.prefix_cache
         snap = self._eligible_snapshot(req)
         if snap is not None:
-            return self._plan_snapshot(req, snap)
+            plan = self._plan_snapshot(req, snap)
+            if plan is _REPLAN:
+                # A demoted snapshot failed promotion and was dropped: plan
+                # again (bounded: each re-plan removed a cache entry).
+                return self._plan_admission(req)
+            return plan
         matched = cache.match(req.prompt) if cache is not None else []
         if matched:
-            return self._plan_prefix(req, matched)
+            plan = self._plan_prefix(req, matched)
+            if plan is _REPLAN:
+                return self._plan_admission(req)
+            return plan
         n = self._pages_for(req)
         if not self._pool_space(2 * n, self._chai_pages_per(n)):
             return None        # even LRU eviction cannot cover it yet
@@ -779,9 +1060,22 @@ class EngineCore(CohortSchedulerMixin):
         matched = matched[:n_m]
         chai_n = self._chai_pages_per(n)
         cache.lock(matched)     # pin before eviction can run
-        if not self._pool_space(2 * (n - n_m), chai_n):
+        demoted = [m for m in matched if m.tier != kv_tiers_mod.TIER_HOT]
+        for m in matched:
+            if m.prefetched:
+                m.prefetched = False
+                self._count_prefetch(hit=True)
+        # Each promoted node needs 2 fresh dense pages on top of the
+        # suffix's.
+        if not self._pool_space(2 * (n - n_m) + 2 * len(demoted), chai_n):
             cache.unlock(matched)
             return None
+        for m in demoted:
+            if self.ecfg.tier_prefetch and self.ecfg.kv_offload:
+                self._count_prefetch(hit=False)
+            if not self._promote_entry(m, uid=req.uid):
+                cache.unlock(matched)   # dropped entries stay dropped
+                return _REPLAN
         kg_fresh = self.dense_pool.alloc(n - n_m)
         vg_fresh = self.dense_pool.alloc(n - n_m)
         kg_alias = [m.kg_page for m in matched]
@@ -807,10 +1101,24 @@ class EngineCore(CohortSchedulerMixin):
         n = self._pages_for(req)
         p_full, rem = divmod(snap.pos, self.ecfg.page_size)
         cache.lock([snap])
-        if not self._pool_space(0 if share else n - p_full,
-                                self._chai_pages_per(n - p_full)):
+        if snap.prefetched:
+            snap.prefetched = False
+            self._count_prefetch(hit=True)
+        extra_d = extra_c = 0
+        if snap.tier != kv_tiers_mod.TIER_HOT:
+            extra_d = len(snap.tier_pages.get("vg", ()))
+            extra_c = (len(snap.tier_pages.get("kc", ()))
+                       + len(snap.tier_pages.get("vc", ())))
+        if not self._pool_space((0 if share else n - p_full) + extra_d,
+                                self._chai_pages_per(n - p_full) + extra_c):
             cache.unlock([snap])
             return None
+        if snap.tier != kv_tiers_mod.TIER_HOT:
+            if self.ecfg.tier_prefetch and self.ecfg.kv_offload:
+                self._count_prefetch(hit=False)
+            if not self._promote_entry(snap, uid=req.uid):
+                cache.unlock([snap])    # dropped: re-plan cold
+                return _REPLAN
         copies = []     # (pool kind, src physical page, dst physical page)
         pages = {}
         for key, kind, pool, held in (
@@ -841,6 +1149,22 @@ class EngineCore(CohortSchedulerMixin):
         req.admit_step = req.retire_step = self.steps_executed
         self.prefix_cache.stats["snapshot_hits"] += 1
         self.prefix_cache.stats["tokens_reused"] += len(req.prompt)
+        if self.tel.enabled:
+            tel = self.tel
+            tel.counter("requests_admitted_total", kind="replay",
+                        help="Slot admissions by plan kind")
+            tel.counter("snapshot_hit_tokens_total", len(req.prompt),
+                        help="Prompt tokens served from CHAI snapshots")
+            tel.event(req.uid, "admit", kind="replay", slot=-1,
+                      step=self.steps_executed,
+                      cached_tokens=int(req.cached_tokens))
+            tel.event(req.uid, "first_token", t=req.t_first_token)
+            tel.observe("request_ttft_seconds",
+                        max(0.0, req.t_first_token - req.t_enqueue),
+                        help="Enqueue-to-first-token latency")
+            tel.counter("tokens_generated_total", len(toks),
+                        help="Generated tokens emitted")
+            tel.token(req.uid, n=len(toks), t=req.t_first_token)
         self._done(req)
 
     def _capture_snapshot(self, slot, req, pages):
@@ -885,10 +1209,20 @@ class EngineCore(CohortSchedulerMixin):
     def _record_kv_bytes(self):
         bytes_now = self.kv_bytes()
         self._kv_peak = max(self._kv_peak, bytes_now)
+        if self.tel.enabled:
+            self.tel.gauge("kv_bytes_allocated", bytes_now,
+                           help="Allocated KV bytes right now")
+            self.tel.gauge("dense_pages_in_use",
+                           self.dense_pool.pages_in_use,
+                           help="Dense-pool pages in use")
+            if self.chai_pool is not None:
+                self.tel.gauge("chai_pages_in_use",
+                               self.chai_pool.pages_in_use,
+                               help="Clustered-pool pages in use")
         if len(self.kv_bytes_history) >= self._HISTORY_MAX:
             return
         phases = self._phases
-        self.kv_bytes_history.append({
+        rec = {
             "step": self.steps_executed,
             "kv_bytes": bytes_now,
             "dense_pages": self.dense_pool.pages_in_use,
@@ -896,7 +1230,195 @@ class EngineCore(CohortSchedulerMixin):
                            if self.chai_pool else 0),
             "n_warmup": int((phases == chai_cache.PHASE_WARMUP).sum()),
             "n_steady": int((phases == chai_cache.PHASE_STEADY).sum()),
-        })
+        }
+        if self.tiers is not None:
+            tb = self.tiers.tier_bytes()
+            rec["host_bytes"] = tb.get(kv_tiers_mod.TIER_HOST, 0)
+            rec["compressed_bytes"] = tb.get(kv_tiers_mod.TIER_COMP, 0)
+        self.kv_bytes_history.append(rec)
+
+    # -- KV tier ops (demote / promote / prefetch) -------------------------
+    def _tel_tier_transition(self, frm: str, to: str, kind: str, n: int):
+        """TierManager transition callback -> Prometheus counter."""
+        if self.tel.enabled:
+            self.tel.counter("tier_transitions_total", n,
+                             help="KV page transitions between tiers",
+                             **{"from": frm, "to": to})
+
+    def _count_prefetch(self, hit: bool):
+        if hit:
+            self.prefetch_hits += 1
+            if self.tel.enabled:
+                self.tel.counter(
+                    "prefetch_hits_total",
+                    help="Demoted entries promoted before the planner "
+                         "needed them")
+        else:
+            self.prefetch_misses += 1
+            if self.tel.enabled:
+                self.tel.counter(
+                    "prefetch_misses_total",
+                    help="Demoted entries promoted synchronously at plan "
+                         "time")
+
+    @staticmethod
+    def _entry_device_pages(entry) -> dict:
+        """Device pages an entry owns, by pool key (kg/vg/kc/vc)."""
+        if isinstance(entry, BlockNode):
+            return {"kg": [entry.kg_page], "vg": [entry.vg_page]}
+        return {pk: list(pages) for pk, pages in (
+            ("vg", entry.vg_pages), ("kc", entry.kc_pages),
+            ("vc", entry.vc_pages)) if pages}
+
+    def _demote_entry(self, entry) -> bool:
+        """Move an unlocked prefix-cache entry's device pages to the host
+        tier; ``PrefixCache._evict_one`` calls it under device pool
+        pressure (the victim already off its LRU). False: the cache drops
+        the entry instead. The pages land on the host (one gather and one
+        non-blocking copy a page, then one event synchronized before the
+        CRC reads them) BEFORE the device references are released, so a
+        False return never loses data."""
+        if self.tiers is None or self._dev_state is None:
+            return False
+        spec = self._fault("offload.out")
+        if spec is not None and spec.mode != "corrupt":
+            return False  # demotion declined: a plain drop
+        refs = self._entry_device_pages(entry)
+        need = {}
+        for pk, pages in refs.items():
+            kind = kv_tiers_mod.POOL_OF[pk]
+            need[kind] = need.get(kind, 0) + len(pages)
+        if not self.tiers.make_room(need):
+            return False
+        if any(kv_tiers_mod.POOL_OF[pk] not in self._fetch_page
+               for pk in refs):
+            return False
+        take = self.tiers.slabs.take
+        payloads = {pk: [self._fetch_page[kv_tiers_mod.POOL_OF[pk]](
+                        self._dev_state, p, take) for p in pages]
+                    for pk, pages in refs.items()}
+        if self.device.type == "cuda":
+            landed = torch.cuda.Event()
+            landed.record()
+            landed.synchronize()
+        self.tiers.store_entry(entry, payloads)
+        if spec is not None:
+            # Damage the stored host copy AFTER the CRC stamp, so that
+            # promotion catches it; the damaged bytes go back into the
+            # host pages' own buffers.
+            tree = {pk: {str(j): dict(p) for j, p in enumerate(pl)}
+                    for pk, pl in payloads.items()}
+            faults_mod.corrupt_arrays(tree, seed=self.faults.seed)
+            for pk, pl in payloads.items():
+                for j, p in enumerate(pl):
+                    for key, buf in p.items():
+                        buf.copy_(tree[pk][str(j)][key])
+        # The host copy is safe: release the device references.
+        for pk, pages in refs.items():
+            kind = kv_tiers_mod.POOL_OF[pk]
+            pool = self.dense_pool if kind == "dense" else self.chai_pool
+            pool.free(pages)
+            self.tiers.record("hot", "host", kind, len(pages))
+        if isinstance(entry, ChaiSnapshot):  # page ids now live in
+            entry.vg_pages = []              # entry.tier_pages
+            entry.kc_pages = []
+            entry.vc_pages = []
+        return True
+
+    def _promote_entry(self, entry, *, uid: int = -1) -> bool:
+        """Bring a demoted entry back into fresh device pages (the caller
+        checked the pools' headroom first). Each page goes to the device
+        in one copy and into its pool slice in one more, on the engine's
+        stream. False, with the entry DROPPED, on a checksum mismatch, an
+        injected ``offload.in`` fault, or a compressed entry while
+        ``lossy_promote`` is off: the caller re-plans the request cold."""
+        cache = self.prefix_cache
+        t0 = time.perf_counter()
+        frm = entry.tier
+        if frm == kv_tiers_mod.TIER_COMP and not self.ecfg.lossy_promote:
+            cache.drop_demoted(entry)
+            return False
+        failed = self._fault("offload.in", uid) is not None
+        if not failed and not self.tiers.verify_entry(entry):
+            self.offload_checksum_failures += 1
+            failed = True
+        if failed:
+            cache.drop_demoted(entry)
+            return False
+        payloads = self.tiers.fetch_entry(entry)
+        new_pages = {}
+        for pk, pl in payloads.items():
+            kind = kv_tiers_mod.POOL_OF[pk]
+            pool = self.dense_pool if kind == "dense" else self.chai_pool
+            pages = pool.alloc(len(pl))
+            for p, payload in zip(pages, pl):
+                self._dev_state = self._put_page[kind](self._dev_state, p,
+                                                       payload)
+            new_pages[pk] = pages
+        self.tiers.release_entry(entry)
+        if isinstance(entry, BlockNode):
+            entry.kg_page = new_pages["kg"][0]
+            entry.vg_page = new_pages["vg"][0]
+            cache.stats["promoted_blocks"] += 1
+        else:
+            entry.vg_pages = new_pages.get("vg", [])
+            entry.kc_pages = new_pages.get("kc", [])
+            entry.vc_pages = new_pages.get("vc", [])
+            cache.stats["promoted_snapshots"] += 1
+        entry.tier = kv_tiers_mod.TIER_HOT
+        entry.tier_crc = 0
+        for pk, pages in new_pages.items():
+            self.tiers.record(frm, "hot", kv_tiers_mod.POOL_OF[pk],
+                              len(pages))
+        cache._lru_file(entry)  # a no-op while the entry is locked
+        if self.tel.enabled:
+            self.tel.observe("promote_wait_seconds",
+                             time.perf_counter() - t0,
+                             help="Host->device promotion latency")
+        return True
+
+    def _queue_prefetch(self, req: Request):
+        """At enqueue, look up the demoted prefix-cache entries this prompt
+        will hit and queue them for promotion ahead of the planning step
+        (``_drain_prefetch``)."""
+        cache = self.prefix_cache
+        snap = self._eligible_snapshot(req)
+        if snap is not None and snap.tier != kv_tiers_mod.TIER_HOT:
+            targets = [snap]
+        else:
+            targets = [m for m in cache.match(req.prompt)
+                       if m.tier != kv_tiers_mod.TIER_HOT]
+        for e in targets:
+            if id(e) in self._prefetch_ids or e.prefetched:
+                continue
+            self._prefetch_ids.add(id(e))
+            self._prefetch_q.append(e)
+
+    def _drain_prefetch(self, budget: int = 4):
+        """Promote up to ``budget`` queued entries into free device pages.
+        Never evicts to make room: with the pools full the queue waits
+        (the planners' synchronous promotion still covers the hit)."""
+        while self._prefetch_q and budget > 0:
+            e = self._prefetch_q.popleft()
+            self._prefetch_ids.discard(id(e))
+            if (e.tier == kv_tiers_mod.TIER_HOT
+                    or getattr(e, "evicted", False) or e.locks):
+                continue
+            if (e.tier == kv_tiers_mod.TIER_COMP
+                    and not self.ecfg.lossy_promote):
+                continue
+            counts = self.tiers._entry_page_counts(e)
+            dense_need = counts.get("dense", 0)
+            chai_need = counts.get("chai", 0)
+            if (self.dense_pool.free_pages < dense_need
+                    or (chai_need and self.chai_pool.free_pages
+                        < chai_need)):
+                self._prefetch_q.appendleft(e)
+                self._prefetch_ids.add(id(e))
+                return
+            if self._promote_entry(e):
+                e.prefetched = True
+            budget -= 1
 
     def _ensure_dev_state(self):
         """Continuous-scheduler device state, built once and kept across
@@ -972,6 +1494,8 @@ class EngineCore(CohortSchedulerMixin):
             req.slot, req.admit_step = i, self.steps_executed
             self._slot_req[i] = req
             sampling_mod.set_knobs(self._samp_host, i, req.sampling)
+            if self.tel.enabled:
+                self._tel_admit(i, req, plan)
             trunc, reason = sampling_mod.scan_finish(
                 req.generated, req.sampling, req.max_new_tokens,
                 self.detokenizer)
@@ -1022,12 +1546,16 @@ class EngineCore(CohortSchedulerMixin):
             self.prefix_cache.stats["tokens_reused"] += len(req.prompt)
             self._next_tok[i] = snap.tokens[-1]
             self._tok_dirty = True
+            if self.tel.enabled:
+                self.tel.event(req.uid, "phase", phase="STEADY", slot=i)
             return
         self._phases[i] = chai_cache.PHASE_PREFILL
         if self._fault("kernel.prefill", uid=req.uid) is not None:
             raise QuarantineError(
                 f"injected prefill-kernel failure for uid={req.uid}",
                 uid=req.uid)
+        if self.tel.enabled:
+            self.tel.event(req.uid, "phase", phase="PREFILL", slot=i)
         prompt, pre = req.prompt, 0
         if plan["kind"] == "prefix":
             pre = plan["prefix_len"]
@@ -1124,9 +1652,25 @@ class EngineCore(CohortSchedulerMixin):
         self._slot_count[i] = 1
         tok = self._sample_first(logits, req)
         req.generated.append(tok)
-        req.t_first_token = time.time()
+        first = not req.t_first_token
+        if first:
+            req.t_first_token = time.time()
         self._next_tok[i] = tok
         self._tok_dirty = True
+        if self.tel.enabled:
+            tel = self.tel
+            tel.event(req.uid, "phase", phase="WARMUP", slot=i)
+            if req.prefill_tokens > 0:
+                tel.counter("prefill_tokens_total", req.prefill_tokens,
+                            help="Prompt tokens actually forwarded")
+            if first:
+                tel.event(req.uid, "first_token", t=req.t_first_token)
+                tel.observe("request_ttft_seconds",
+                            max(0.0, req.t_first_token - req.t_enqueue),
+                            help="Enqueue-to-first-token latency")
+            tel.counter("tokens_generated_total",
+                        help="Generated tokens emitted")
+            tel.token(req.uid, t=req.t_first_token if first else None)
 
     def _cluster_transitions(self, active, outs: List[StepOutput]):
         """CLUSTER + compact the slots whose warmup just completed; paged:
@@ -1153,6 +1697,11 @@ class EngineCore(CohortSchedulerMixin):
                 continue
             self._phases[i] = chai_cache.PHASE_CLUSTER
             self.cluster_transitions += 1
+            if self.tel.enabled:
+                self.tel.counter("cluster_transitions_total",
+                                 help="WARMUP->CLUSTER->STEADY "
+                                      "transitions executed")
+                self.tel.event(req.uid, "phase", phase="CLUSTER", slot=i)
             if self.paged:
                 self._dev_state, self._dev_ctx = self._cluster_fn()(
                     self._dev_state, self._dev_ctx, i,
@@ -1164,15 +1713,25 @@ class EngineCore(CohortSchedulerMixin):
                     self._capture_snapshot(i, self._slot_req[i],
                                            self._slot_pages[i])
                 if self.chai_clustered:
+                    freed = len(self._slot_pages[i]["kg"])
                     self.dense_pool.free(self._slot_pages[i].pop("kg"))
                     if self.cfg.chai.share_values:
+                        freed += len(self._slot_pages[i]["vg"])
                         self.dense_pool.free(self._slot_pages[i].pop("vg"))
+                    if self.tel.enabled:
+                        self.tel.counter(
+                            "chai_dense_pages_freed_total", freed,
+                            help="Dense pages freed at compaction (the "
+                                 "paper's KV saving, realized)")
                 self._record_kv_bytes()
             else:
                 self._dev_state, self._dev_ctx = self._cluster_fn()(
                     self._dev_state, self._dev_ctx, i)
                 self._ctx_version += 1
             self._phases[i] = chai_cache.PHASE_STEADY
+            if self.tel.enabled:
+                self.tel.event(req.uid, "phase", phase="STEADY", slot=i)
+                self._tel_clusters(i)
 
     def _decode(self, active) -> List[StepOutput]:
         """One batched decode step on the cheapest step that covers the
@@ -1189,22 +1748,36 @@ class EngineCore(CohortSchedulerMixin):
         error leaves the context unusable, and the step writes K/V into
         the pools in place before it attends."""
         outs: List[StepOutput] = []
+        tel = self.tel
+        step_no = self._span_step
         if self._tok_dirty:
             self._next_tok_dev = torch.from_numpy(self._next_tok).to(
                 self.device)
             self._tok_dirty = False
         inputs = {"tokens": self._next_tok_dev}
         occupied = self._phases[self._phases != chai_cache.PHASE_FREE]
-        relay = self._build_relay(active) if self.relay_decode else None
+        with tel.span("relay.form", step=step_no):
+            relay = self._build_relay(active) if self.relay_decode else None
         self._decode_fault_hit = False
         try:
-            logits, state = self._dispatch_decode(inputs, relay, occupied)
+            with tel.span("decode.dispatch", step=step_no,
+                          degraded=self.degraded_decode):
+                logits, state = self._dispatch_decode(inputs, relay,
+                                                      occupied)
         except InjectedFault as err:
             self.degraded_decode = True
             self.decode_fallbacks += 1
             self._heal_clean = 0
+            if tel.enabled:
+                tel.counter("decode_fallbacks_total",
+                            help="Injected decode faults survived on the "
+                                 "kernels' plain versions")
+                tel.gauge("engine_degraded_decode", 1, help=_DEGRADED_HELP)
             try:
-                logits, state = self._dispatch_decode(inputs, None, occupied)
+                with tel.span("decode.dispatch", step=step_no,
+                              degraded=True, retry=True):
+                    logits, state = self._dispatch_decode(inputs, None,
+                                                          occupied)
             except Exception as err2:
                 raise EngineFault(
                     "decode failed on the kernels AND on their plain "
@@ -1221,6 +1794,8 @@ class EngineCore(CohortSchedulerMixin):
             if poison:
                 logits = logits.clone()
                 logits[poison] = float("nan")
+        sample_cm = tel.span("sample", step=step_no)
+        sample_cm.__enter__()
         finite = torch.isfinite(torch.amax(logits, dim=-1))
         temps = self._samp_host["temperature"]
         if not temps.any():
@@ -1236,7 +1811,10 @@ class EngineCore(CohortSchedulerMixin):
         host = torch.stack([tok_dev, finite.to(tok_dev.dtype)]).cpu().numpy()
         toks, finite = host[0], host[1] != 0
         self._next_tok[:] = toks
+        sample_cm.__exit__(None, None, None)
         self.steps_executed += 1
+        retire_cm = tel.span("retire", step=step_no)
+        retire_cm.__enter__()
         for i in active:
             r = self._slot_req[i]
             if not finite[i]:
@@ -1251,11 +1829,16 @@ class EngineCore(CohortSchedulerMixin):
                 continue
             r.generated.append(int(toks[i]))
             self._slot_count[i] += 1
+            if tel.enabled:
+                tel.counter("tokens_generated_total",
+                            help="Generated tokens emitted")
+                tel.token(r.uid)
             reason = self._finish_of(r)
             if reason:
                 self._retire_slot(i, reason)
             outs.append(StepOutput(r.uid, [int(toks[i])], bool(reason),
                                    reason))
+        retire_cm.__exit__(None, None, None)
         if self.paged:
             self._record_kv_bytes()
         return outs
@@ -1307,6 +1890,12 @@ class EngineCore(CohortSchedulerMixin):
         self.degraded_decode = False
         self.decode_heals += 1
         self._heal_clean = 0
+        if self.tel.enabled:
+            self.tel.counter("decode_heals_total",
+                             help="Degraded decode returned to the "
+                                  "kernels")
+            self.tel.gauge("engine_degraded_decode", 0,
+                           help=_DEGRADED_HELP)
 
     def _plain_decode_steps(self):
         """The degraded decode steps, built on the first injected decode
@@ -1340,6 +1929,8 @@ class EngineCore(CohortSchedulerMixin):
         r.error = error
         if error:
             self.quarantined += 1
+            if self.tel.enabled:
+                self.tel.event(r.uid, "quarantine", reason=error)
         r.t_done = time.time()
         r.retire_step = self.steps_executed
         self._done(r)
@@ -1517,6 +2108,10 @@ class EngineCore(CohortSchedulerMixin):
             # decode path: grouped and ungrouped decode give the same
             # tokens, so dissolving is always safe.
             self.relay_dissolved += 1
+            if self.tel.enabled:
+                self.tel.counter("relay_dissolved_total",
+                                 help="Relay groups dissolved by an "
+                                      "injected residency fault")
             return None
         ps = self.ecfg.page_size
         b = self.ecfg.batch_slots
@@ -1552,14 +2147,21 @@ class EngineCore(CohortSchedulerMixin):
                                       ("gid", gid), ("midx", midx),
                                       ("len", plen_b), ("in_group", ing))})
         self.relay_grouped_slots += int(ing.sum())
+        if self.tel.enabled:
+            self.tel.counter("relay_groups_formed_total", len(groups),
+                             help="Shared-prefix relay groups formed")
+            self.tel.counter("relay_grouped_slots_total", int(ing.sum()),
+                             help="Slot-steps decoded through a relay "
+                                  "group")
         return relay
 
     # -- metrics ------------------------------------------------------------
     def fault_stats(self):
         """Robustness counters and the injector's replayable plan and
-        firing log (None without an injector). The swap and offload
-        checksum counters stay 0 until preemption (#9) and the KV tiers
-        (#13) are ported."""
+        firing log (None without an injector). ``offload_checksum_failures``
+        counts demoted entries whose host copy failed its CRC at
+        promotion; ``swap_checksum_failures`` stays 0 until preemption
+        (#9) is ported."""
         return {"quarantined": self.quarantined,
                 "audit_steps": self.audit_steps,
                 "degraded_decode": self.degraded_decode,
@@ -1570,6 +2172,18 @@ class EngineCore(CohortSchedulerMixin):
                 "offload_checksum_failures": self.offload_checksum_failures,
                 "injector": (self.faults.report()
                              if self.faults is not None else None)}
+
+    def tier_stats(self):
+        """KV-tier counters: per-tier residency, transition totals and the
+        prefetch hits and misses (None without tiers: the dense
+        layout)."""
+        if self.tiers is None:
+            return None
+        out = self.tiers.stats()
+        out["prefetch_hits"] = self.prefetch_hits
+        out["prefetch_misses"] = self.prefetch_misses
+        out["offload_checksum_failures"] = self.offload_checksum_failures
+        return out
 
     def prefix_stats(self):
         """Prefix-cache counters and current residency (empty when the

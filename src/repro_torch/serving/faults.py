@@ -48,10 +48,17 @@ Injection sites (where the engine consults the injector):
                           the pools; others keep decoding.
 ``step.logits``           per-slot logits poisoning (NaN): the NaN/Inf
                           guard quarantines the slot, others are untouched.
+``offload.out``           KV-tier demotion (``_demote_entry``): mode
+                          ``corrupt`` damages the host copy after its CRC
+                          stamp (promotion catches it, drops the entry and
+                          re-plans the request cold); any other mode
+                          declines the demotion (the victim drops).
+``offload.in``            KV-tier promotion (``_promote_entry``): the entry
+                          drops and the request re-plans cold.
 ``swap.corrupt``,         preemption swap-out / swap-in (ROADMAP Queue 1,
-``swap.in``               #9) and KV-tier demotion / promotion (#13): not
-``offload.out``,          ported yet; ``EngineCore`` refuses a plan with an
-``offload.in``            arm at one of them (``UNPORTED_SITES``).
+``swap.in``               #9): not ported yet; ``EngineCore`` refuses a
+                          plan with an arm at one of them
+                          (``UNPORTED_SITES``).
 ========================  ==================================================
 
 ``checksum_arrays`` and ``corrupt_arrays`` take numpy arrays and torch
@@ -137,8 +144,6 @@ SITES = frozenset({
 UNPORTED_SITES = {
     "swap.corrupt": "#9 preemption and the async front door",
     "swap.in": "#9 preemption and the async front door",
-    "offload.out": "#13 hierarchical KV tiers",
-    "offload.in": "#13 hierarchical KV tiers",
 }
 
 #: spec modes with meaning at their sites (see module docstring)

@@ -32,16 +32,18 @@ The invariants, spelled out:
   mirrors its host page list exactly, the tail is the null sink, and
   every mapped page has a live refcount (no freed page reachable by a
   write).
+* **Tier conservation**: each host / compressed ``HostPagePool``
+  satisfies the same conservation law as the device pools, every
+  referenced host page carries a stored payload (and no payload outlives
+  its page), and the outstanding tier references are exactly those of
+  the demoted prefix-cache entries.
 * **NaN/Inf logits** are guarded separately on the decode path
   (``EngineCore._decode``) where the logits are in hand; the offending
   slot is quarantined rather than failing the audit.
 
-Not ported yet: the host / compressed KV-tier conservation checks
-(the JAX package's ``_tier_held`` and ``_audit_tiers``), which wait for
-the tiers themselves (ROADMAP Queue 1, #13).
-
 ``audit_leaks(core)`` is the idle-engine gate: every page reference must
-be explained by the prefix cache and no cache entry may still be locked.
+be explained by the prefix cache and no cache entry may still be locked;
+its ``audit`` covers the tier pools, so an orphaned host page fails it.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import cache as chai_cache
+from repro_torch.serving import kv_tiers as kv_tiers_mod
 from repro_torch.serving.prefix_cache import BlockNode
 
 _TABLES = (("kg", "bt_kg"), ("vg", "bt_vg"), ("kc", "bt_kc"),
@@ -100,6 +103,66 @@ def _audit_refs(core, out: List[str]):
         if refs != held:
             out.append(f"{name}: {refs} outstanding references but "
                        f"slots+cache account for {held}")
+
+
+def _tier_held(core):
+    """Host / compressed page references explained by the demoted
+    prefix-cache entries, keyed ``(tier, kind)`` (swapped-out requests
+    hold none until preemption is ported, #9)."""
+    held = {}
+
+    def add(tier, pages_by_pk):
+        for pk, pages in pages_by_pk.items():
+            key = (tier, kv_tiers_mod.POOL_OF[pk])
+            held[key] = held.get(key, 0) + len(pages)
+
+    cache = core.prefix_cache
+    demoted = (kv_tiers_mod.TIER_HOST, kv_tiers_mod.TIER_COMP)
+    if cache is not None:
+        stack = [cache.root]
+        while stack:
+            node = stack.pop()
+            for c in node.children.values():
+                stack.append(c)
+                if c.tier in demoted:
+                    add(c.tier, c.tier_pages)
+        for snap in cache._snapshots.values():
+            if snap.tier in demoted:
+                add(snap.tier, snap.tier_pages)
+    return held
+
+
+def _audit_tiers(core, out: List[str]):
+    """Host / compressed pool conservation, payload / refcount agreement,
+    and the cross-tier reference accounting."""
+    tiers = getattr(core, "tiers", None)
+    if tiers is None:
+        return
+    tier_of = {"host": kv_tiers_mod.TIER_HOST,
+               "compressed": kv_tiers_mod.TIER_COMP}
+    held = _tier_held(core)
+    for tname, by_kind in (("host", tiers.host),
+                           ("compressed", tiers.comp)):
+        for kind, pool in by_kind.items():
+            if pool is None:
+                continue
+            name = f"{tname}_pool[{kind}]"
+            _audit_pool(name, pool, out)
+            live, stored = set(pool._rc), set(pool._data)
+            orphans = sorted(stored - live)
+            if orphans:
+                out.append(f"{name}: orphaned payloads for pages "
+                           f"{orphans}")
+            missing = sorted(live - stored)
+            if missing:
+                out.append(f"{name}: referenced pages with no payload "
+                           f"{missing}")
+            refs = int(sum(pool._rc.values()))
+            want = held.get((tier_of[tname], kind), 0)
+            if refs != want:
+                out.append(f"{name}: {refs} outstanding references but "
+                           f"demoted entries + swapped-out requests "
+                           f"account for {want}")
 
 
 def _audit_phases(core, out: List[str]):
@@ -219,6 +282,7 @@ def audit(core, *, deep: bool = False) -> List[str]:
         if core.chai_pool is not None:
             _audit_pool("chai_pool", core.chai_pool, out)
         _audit_refs(core, out)
+        _audit_tiers(core, out)
     _audit_phases(core, out)
     _audit_locks(core, out)
     if deep and core.paged:
@@ -229,7 +293,8 @@ def audit(core, *, deep: bool = False) -> List[str]:
 def audit_leaks(core) -> List[str]:
     """Leak gate for an IDLE engine (no active slots, empty queue): every
     outstanding page reference must be a prefix-cache reference and no
-    cache entry may still be locked."""
+    cache entry may still be locked. The tier pools are covered by the
+    ``audit`` below: every host page must belong to a demoted entry."""
     out = audit(core)
     if core.has_active or core.queue:
         return out          # not idle: conservation checks only

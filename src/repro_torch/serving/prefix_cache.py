@@ -36,8 +36,14 @@ pages by prompt content:
   retires. Evicting a node's last child files the parent (at the MRU
   end: an ``OrderedDict`` cannot insert mid-order).
 
-The reference's KV tiers (demotion to host memory instead of dropping)
-are not ported: the engine refuses ``kv_offload``.
+* **KV tiers** (``serving.kv_tiers``, ``EngineConfig(kv_offload=True)``).
+  Eviction becomes demotion: the engine's ``demote_hook`` copies an
+  unlocked entry's pages to the host pool and releases its device pages,
+  and the entry keeps its place (a radix slot or a snapshot key) with
+  ``tier`` naming where its payload lives. Demoted entries sit in the
+  tier manager's LRUs, not in this one; a hit on one promotes it back
+  into fresh device pages. ``drop_demoted`` is the structural drop (the
+  ladder's "gone" rung, and a failed promotion), ``_droppable`` its guard.
 """
 from __future__ import annotations
 
@@ -68,10 +74,28 @@ class BlockNode:
     # groups over it stop forming (the slots keep their own references).
     resident: Optional[tuple] = None
     evicted: bool = False
+    # KV tiers: ``tier`` says where the block's payload lives. "hot":
+    # ``kg_page``/``vg_page`` are live device pages; a demoted node keeps
+    # its place in the tree (still matchable) with its payload in host or
+    # compressed pages (``tier_pages``, CRC-stamped at demotion), and its
+    # device page ids are stale until promotion rewrites them.
+    tier: str = "hot"
+    tier_pages: Dict[str, list] = dataclasses.field(default_factory=dict)
+    tier_crc: int = 0
+    prefetched: bool = False
+    compressible: bool = True   # int4 rung allowed (a hit re-plans cold)
 
     @property
     def is_leaf(self):
         return not self.children
+
+    @property
+    def hot_leaf(self):
+        """No hot children: the node holds the deepest device pages on its
+        path, so evicting or demoting it strands nothing (demoted children
+        stay in the tree, so ``is_leaf`` would keep the ancestors of
+        demoted leaves out of the eviction order)."""
+        return not any(c.tier == "hot" for c in self.children.values())
 
 
 @dataclasses.dataclass
@@ -93,6 +117,13 @@ class ChaiSnapshot:
     # ^ clustered pool: the clustered V pages (share_values only)
     locks: int = 0
     evicted: bool = False
+    # KV tiers: snapshots ride the host tier only; their replay is bitwise,
+    # so the lossy int4 rung is off-limits.
+    tier: str = "hot"
+    tier_pages: Dict[str, list] = dataclasses.field(default_factory=dict)
+    tier_crc: int = 0
+    prefetched: bool = False
+    compressible: bool = False
 
 
 class PrefixCache:
@@ -113,19 +144,35 @@ class PrefixCache:
         self.stats = {"partial_hits": 0, "misses": 0,
                       "snapshot_hits": 0, "tokens_reused": 0,
                       "tokens_prefilled": 0, "inserted_blocks": 0,
-                      "evicted_blocks": 0, "evicted_snapshots": 0}
+                      "evicted_blocks": 0, "evicted_snapshots": 0,
+                      "demoted_blocks": 0, "demoted_snapshots": 0,
+                      "promoted_blocks": 0, "promoted_snapshots": 0}
+        # KV tiers, wired by the engine: ``tiers`` owns the host and
+        # compressed pools and the demoted entries' LRUs; ``demote_hook``
+        # (the engine's ``_demote_entry``) turns eviction into demotion
+        # under ``kv_offload``.
+        self.tiers = None
+        self.demote_hook = None
 
     # -- bookkeeping -------------------------------------------------------
     def _touch(self, entry):
         if id(entry) in self._lru:
             self._lru.move_to_end(id(entry))
+        elif self.tiers is not None and entry.tier != "hot":
+            self.tiers.touch(entry)     # demoted: recency lives tier-side
 
     def _lru_file(self, entry):
         """(Re-)file an entry at the MRU end if it is evictable: unlocked,
-        not dropped, and a snapshot or a leaf node."""
+        not dropped, and a snapshot or a node with no hot child. A demoted
+        entry files in its tier's LRU instead: this one holds hot entries
+        only."""
         if entry.locks or entry.evicted:
             return
-        if isinstance(entry, BlockNode) and not entry.is_leaf:
+        if entry.tier != "hot":
+            if self.tiers is not None:
+                self.tiers.unpin(entry)
+            return
+        if isinstance(entry, BlockNode) and not entry.hot_leaf:
             return
         self._lru[id(entry)] = entry
         self._lru.move_to_end(id(entry))
@@ -147,14 +194,20 @@ class PrefixCache:
         return len(self._snapshots)
 
     def held_pages(self):
-        """(dense, chai) page references the cache holds."""
+        """(dense, chai) DEVICE page references the cache holds. Demoted
+        entries hold none: their payloads live in tier pages, which the
+        tier pools account for."""
         dense = chai = 0
         stack = [self.root]
         while stack:
             node = stack.pop()
-            dense += 2 * len(node.children)          # kg + vg each
-            stack.extend(node.children.values())
+            for c in node.children.values():
+                if c.tier == "hot":
+                    dense += 2                       # kg + vg
+                stack.append(c)
         for snap in self._snapshots.values():
+            if snap.tier != "hot":
+                continue
             dense += len(snap.vg_pages)
             chai += len(snap.kc_pages) + len(snap.vc_pages)
         return dense, chai
@@ -232,6 +285,8 @@ class PrefixCache:
         for e in entries:
             e.locks += 1
             self._lru_drop(e)           # pinned: never a victim
+            if self.tiers is not None and e.tier != "hot":
+                self.tiers.pin(e)       # ...in any tier
 
     def unlock(self, entries):
         for e in entries:
@@ -240,9 +295,18 @@ class PrefixCache:
             if e.locks == 0:
                 self._lru_file(e)       # evictable again (if leaf/snap)
 
-    # -- eviction ----------------------------------------------------------
+    # -- eviction and the tier ladder --------------------------------------
     def _release_entry_pages(self, entry):
+        """Return an entry's pages wherever they live: the device pools for
+        a hot entry (recording hot -> gone when a tier manager is wired),
+        tier storage otherwise."""
+        if entry.tier != "hot":
+            self.tiers.discard_entry(entry)     # records -> gone itself
+            entry.tier = "gone"
+            return
         if isinstance(entry, ChaiSnapshot):
+            dense, chai = len(entry.vg_pages), (len(entry.kc_pages)
+                                                + len(entry.vc_pages))
             if entry.vg_pages:
                 self.dense_pool.free(entry.vg_pages)
             if entry.kc_pages:
@@ -250,33 +314,69 @@ class PrefixCache:
             if entry.vc_pages:
                 self.chai_pool.free(entry.vc_pages)
         else:
+            dense, chai = 2, 0
             self.dense_pool.free([entry.kg_page])
             self.dense_pool.free([entry.vg_page])
+        if self.tiers is not None:
+            self.tiers.record("hot", "gone", "dense", dense)
+            self.tiers.record("hot", "gone", "chai", chai)
 
-    def _drop_node(self, node: BlockNode):
-        """Drop a node and its subtree from the tree, returning their page
-        references, and file the parent if it became a leaf."""
-        parent = node.parent
-        parent.children.pop(node.key, None)
-        stack = [node]
+    def _droppable(self, entry) -> bool:
+        """True when a structural drop of ``entry`` (a node: its whole
+        subtree) strands no lock: the tier manager's drop guard."""
+        if isinstance(entry, ChaiSnapshot):
+            return not entry.locks
+        stack = [entry]
         while stack:
-            n = stack.pop()
-            stack.extend(n.children.values())
-            n.children = {}
-            n.evicted = True
-            n.resident = None
-            self._lru_drop(n)
-            self._release_entry_pages(n)
+            node = stack.pop()
+            if node.locks:
+                return False
+            stack.extend(node.children.values())
+        return True
+
+    def drop_demoted(self, entry):
+        """Drop an entry from the cache whatever its tier or locks: the
+        ladder's last rung ("gone") and the recovery of a failed promotion
+        (the request re-plans cold). A node takes its subtree with it. A
+        locked entry is tolerated: its lock holder is the plan dropping
+        it, and ``evicted`` keeps its ``unlock`` from filing a ghost."""
+        if isinstance(entry, ChaiSnapshot):
+            if self._snapshots.get(entry.prompt) is not entry:
+                return
+            self._lru_drop(entry)
+            del self._snapshots[entry.prompt]
+            entry.evicted = True
+            self._release_entry_pages(entry)
+            self.stats["evicted_snapshots"] += 1
+            return
+        if entry.evicted:
+            return
+        parent = entry.parent
+        parent.children.pop(entry.key, None)
+        stack = [entry]
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            node.children = {}
+            node.evicted = True
+            node.resident = None
+            self._lru_drop(node)
+            if self.tiers is not None:
+                self.tiers.unfile(node)
+            self._release_entry_pages(node)
             self.stats["evicted_blocks"] += 1
-        if parent is not self.root and parent.is_leaf:
+        if (parent is not self.root and parent.hot_leaf
+                and parent.tier == "hot"):
             self._lru_file(parent)
 
     def _evict_one(self, want_dense=True, want_chai=True) -> bool:
-        """Drop the least recently used evictable entry that holds pages
+        """Evict the least recently used evictable entry that holds pages
         of a wanted pool (nodes hold dense pages only). The pool targeting
         matters under share_values: its snapshots hold no dense page, and
-        dropping one for dense pressure would free nothing wanted. Returns
-        False when nothing evictable matches."""
+        dropping one for dense pressure would free nothing wanted. With a
+        ``demote_hook`` the victim demotes (keeping its place in the
+        cache) unless the hook declines, and then drops. Returns False
+        when nothing evictable matches."""
         victim = None
         for entry in self._lru.values():
             if isinstance(entry, BlockNode):
@@ -291,13 +391,25 @@ class PrefixCache:
         if victim is None:
             return False
         self._lru_drop(victim)
+        if (self.demote_hook is not None and victim.tier == "hot"
+                and self.demote_hook(victim)):
+            if isinstance(victim, ChaiSnapshot):
+                self.stats["demoted_snapshots"] += 1
+            else:
+                self.stats["demoted_blocks"] += 1
+                parent = victim.parent
+                if parent is not self.root and parent.tier == "hot":
+                    self._lru_file(parent)  # no hot child now: evictable
+            return True
         if isinstance(victim, ChaiSnapshot):
             del self._snapshots[victim.prompt]
             victim.evicted = True
             self._release_entry_pages(victim)
             self.stats["evicted_snapshots"] += 1
         else:
-            self._drop_node(victim)
+            # the subtree's drop releases any demoted descendant's tier
+            # pages too and files the parent if it became evictable
+            self.drop_demoted(victim)
         return True
 
     def evict_until(self, dense_free: int = 0, chai_free: int = 0) -> bool:

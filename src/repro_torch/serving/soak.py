@@ -18,8 +18,10 @@ must survive at once:
 ``run_soak`` returns a JSON-ready report: per-request outcomes (every
 request must end completed or typed-failed), the pool counters, the
 idle-engine leak audit, and the engine's fault stats including the
-injector's replayable firing log. The preemption fields stay 0 until #9;
-the telemetry section is absent until telemetry is ported (#12).
+injector's replayable firing log, and, when the engine's telemetry is on,
+a ``"telemetry"`` section (the metrics snapshot, the Chrome trace and the
+request timelines; wall-clock-dependent, so no parity check reads it).
+The preemption fields stay 0 until #9.
 
 ``run_soak_pair`` runs the SAME workload fault-free and under a plan and
 computes the token-parity set: completed requests not named by any
@@ -123,7 +125,7 @@ def run_soak(cfg, params, ecfg: EngineConfig, *,
                 else None,
                 "chai": core.chai_pool.counters() if core.chai_pool
                 else None}
-    return {
+    report = {
         "workload_seed": seed,
         "steps": step_no,
         "requests": {
@@ -141,6 +143,15 @@ def run_soak(cfg, params, ecfg: EngineConfig, *,
         "prefix_stats": core.prefix_stats(),
         "preemptions": 0,                           # until #9
     }
+    if core.tel.enabled:
+        # Wall-clock-dependent, so a section of its own: the replay and
+        # parity comparisons read only "requests" and the injector log.
+        report["telemetry"] = {
+            "metrics": core.metrics(),
+            "chrome_trace": core.step_trace(),
+            "timelines": core.tel.timelines(),
+        }
+    return report
 
 
 def affected_uids(report: dict) -> set:

@@ -503,12 +503,19 @@ def test_real_decode_exception_propagates():
                                        ("offload.out", "#13"),
                                        ("offload.in", "#13")])
 def test_unported_sites_are_refused(site, item):
-    """A plan arming a site of an unported path (preemption, the KV tiers)
-    is refused at ``EngineCore`` construction, naming the ROADMAP item;
-    ``FaultSpec`` itself accepts the site, as the reference's does."""
+    """A plan arming a site of an unported path (preemption, #9) is
+    refused at ``EngineCore`` construction, naming the ROADMAP item;
+    ``FaultSpec`` itself accepts the site, as the reference's does. The
+    KV tiers' sites (#13, ported) are served: the engine takes the plan."""
     _, tcfg, _, tparams = _model()
     inj = FaultInjector([FaultSpec("pool.alloc", mode="transient"),
                          FaultSpec(site)])
+    if site.startswith("offload."):
+        core = EngineCore(tcfg, tparams, EngineConfig(
+            **ECFG, prefix_cache=True, kv_offload=True), faults=inj,
+            device="cpu")
+        assert core.faults is inj and core.tiers is not None
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1, {item}"):
         EngineCore(tcfg, tparams, EngineConfig(**ECFG), faults=inj,
@@ -634,3 +641,88 @@ def test_llm_stream_quarantine_ends_typed():
     assert [t for c in chunks[1] for t in c.token_ids] == want[1].token_ids
     assert llm.core.fault_stats()["quarantined"] == 1
     assert invariants.audit_leaks(llm.core) == []
+
+
+# ---------------------------------------------------------------------------
+# KV-tier offload faults (the reference's three, in lockstep)
+# ---------------------------------------------------------------------------
+OFFLOAD = dict(batch_slots=1, prefix_cache=True, kv_offload=True,
+               num_pages=12, host_pages=64, tier_prefetch=False)
+
+
+def _family_workload(rng):
+    """The reference's: prefix-family prompts, then extensions of two of
+    them whose matches run through demoted suffix leaves."""
+    prefix = rng.integers(1, 64, size=16).tolist()
+    base = [prefix + rng.integers(1, 64, size=8).tolist()
+            for _ in range(4)]
+    ext = [p + rng.integers(1, 64, size=8).tolist() for p in base[:2]]
+    return base + ext
+
+
+def _offload_run(plan, workload):
+    """The workload one request at a time through the reference's and the
+    port's cores under ``plan``; every finish, token, ``fault_stats()``,
+    ``tier_stats()`` and ``prefix_stats()`` held equal."""
+    cores = _cores(plan, **OFFLOAD)
+    jreqs, treqs = [], []
+    for p in workload:
+        j, t = _submit(cores, [p])
+        for core in cores:
+            _drain(core)
+        jreqs += j
+        treqs += t
+    _hold(cores, jreqs, treqs)
+    jcore, tcore = cores
+    assert tcore.tier_stats() == jcore.tier_stats()
+    assert tcore.prefix_stats() == jcore.prefix_stats()
+    assert all(r.finish_reason == "length" for r in treqs)
+    return cores, treqs
+
+
+def test_offload_corruption_is_caught_at_promotion_and_replanned():
+    """``offload.out`` mode="corrupt" damages the host copy after its CRC
+    stamp; promotion catches the mismatch, drops only that entry and
+    re-plans cold: nothing quarantined, no promotion, the tokens of a
+    fault-free run, and the reference's counters."""
+    workload = _family_workload(np.random.default_rng(20))
+    (_, core), treqs = _offload_run(
+        [dict(site="offload.out", mode="corrupt", count=-1)], workload)
+    assert any(f["site"] == "offload.out" for f in core.faults.fired)
+    assert core.tier_stats()["offload_checksum_failures"] > 0
+    st = core.prefix_stats()
+    assert st["promoted_blocks"] == 0 and st["promoted_snapshots"] == 0
+    assert core.fault_stats()["quarantined"] == 0
+    clean = _clean(core, *[[p] for p in workload],
+                   batch_slots=1, prefix_cache=True)
+    assert [r.generated for r in treqs] == [r.generated for r in clean]
+
+
+def test_offload_out_noncorrupt_mode_declines_demotion():
+    """Any other ``offload.out`` mode declines the demotion: the victim
+    drops, nothing reaches the host tier. The dropped entries re-plan with
+    less of their prefix cached, so the tokens are held against the
+    reference's under the same plan (its own test's comparison with an
+    unpressured run fails since the seed: cached != cold, ROADMAP
+    "Reference caveats")."""
+    workload = _family_workload(np.random.default_rng(21))
+    (_, core), _ = _offload_run(
+        [dict(site="offload.out", mode="error", count=-1)], workload)
+    st = core.prefix_stats()
+    assert st["demoted_blocks"] == 0 and st["demoted_snapshots"] == 0
+    assert st["evicted_blocks"] + st["evicted_snapshots"] > 0
+    assert core.tiers.tier_pages() == {
+        k: 0 for k in core.tiers.tier_pages()}
+
+
+def test_offload_in_fault_at_promotion_replans_cold():
+    """An injected ``offload.in`` failure at promotion drops the entry and
+    re-plans cold: tokens of a fault-free run, nothing quarantined."""
+    workload = _family_workload(np.random.default_rng(22))
+    (_, core), treqs = _offload_run([dict(site="offload.in", count=1)],
+                                    workload)
+    assert [f["site"] for f in core.faults.fired] == ["offload.in"]
+    assert core.fault_stats()["quarantined"] == 0
+    clean = _clean(core, *[[p] for p in workload],
+                   batch_slots=1, prefix_cache=True)
+    assert [r.generated for r in treqs] == [r.generated for r in clean]

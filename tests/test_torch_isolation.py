@@ -36,7 +36,9 @@ def test_port_files_exist():
     for mod in ("serving/api", "launch/api_stream",
                 "launch/offline_clustering", "core/correlation",
                 "core/elbow", "core/policy", "serving/faults",
-                "serving/invariants", "serving/soak"):
+                "serving/invariants", "serving/soak",
+                "serving/telemetry", "serving/exporters",
+                "serving/kv_tiers"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "src/repro_torch/configs/nemotron_4_15b.py" in names
     csrc = ROOT / "src/repro_torch/kernels/csrc"
@@ -104,9 +106,9 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
 
 def test_continuous_scheduler_names_the_next_slice():
     """The default ``EngineConfig()`` is the continuous scheduler on the
-    paged layout, and it runs, seeded sampling too; the settings of later
-    slices (priority, kv_offload) raise ``NotImplementedError`` naming
-    their ROADMAP item."""
+    paged layout, and it runs, seeded sampling too; the setting of a later
+    slice (priority) raises ``NotImplementedError`` naming its ROADMAP
+    item, and ``kv_offload`` (#13, ported) serves."""
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -121,6 +123,8 @@ def test_continuous_scheduler_names_the_next_slice():
     assert [len(r.generated) for r in eng.run()] == [2, 2]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         eng.add_request([1, 2, 3], max_new_tokens=2, priority=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ServingEngine(cfg, params, EngineConfig(kv_offload=True),
-                      device="cpu")
+    tiered = ServingEngine(cfg, params, EngineConfig(kv_offload=True),
+                           device="cpu")
+    assert tiered.tiers is not None
+    tiered.submit([1, 2, 3], max_new_tokens=2)
+    assert [len(r.generated) for r in tiered.run()] == [2]

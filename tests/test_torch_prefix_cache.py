@@ -464,7 +464,8 @@ def test_prefix_engine_relay_matches_reference(lockstep):
     (dict(kv_layout="dense"), ValueError),
     (dict(prefix_cache=False, relay_decode=True), ValueError),
     (dict(use_chai=False, relay_decode=True), ValueError),
-    (dict(kv_offload=True), NotImplementedError)],
+    (dict(kv_layout="dense", prefix_cache=False, kv_offload=True),
+     ValueError)],
     ids=["dense_layout", "relay_without_cache", "relay_without_chai",
          "kv_offload"])
 def test_refused_settings(models, kw, err):
