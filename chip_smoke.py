@@ -169,9 +169,10 @@ result line):
    through the CPU's membership);
 17. the failure model (``serving.faults``, ``serving.invariants``,
    ``serving.soak``) on chai-llama-7b after phase 16, on phase 6's engine
-   settings: (a) the soak, ``build_workload(0, 12)`` at page 16 with
-   every priority 0 and one more duplicate of its family prompt at step
-   41, prefix cache and relay on, ``audit_level="deep"``, clean and
+   settings: (a) the soak, ``build_workload(0, 12)`` at page 16 with its
+   priority-1 arrivals and one more duplicate of its family prompt at
+   step 41, on 2 slots (the clean run preempts twice), prefix cache and
+   relay on, ``audit_level="deep"``, clean and
    twice under a plan arming ``pool.alloc`` (transient and error),
    ``snapshot.restore``, ``relay.residency``, ``kernel.prefill``,
    ``kernel.cluster`` and ``step.logits``: every request typed-terminal,
@@ -223,7 +224,30 @@ result line):
    clear; demotion and promotion ms of a page of each pool (CUDA events
    around the copies, the CRC on the host clock) beside a 256 MB pinned
    host <-> device copy, the host link;
-20. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
+20. priority preemption, the async front door and the HTTP server on
+   chai-llama-7b after phase 19: (a) the continuous paged engine with 2
+   slots and pools just above one request's need (a 160-token prompt and
+   16 new tokens: 11 pages each of K and V), a priority-0 request
+   decoding 8 steps into STEADY and a priority-5 arrival preempting it;
+   again with the victim in WARMUP (2 steps), in PREFILL (the first 64-token
+   chunk of a chunked prefill; it saves nothing and prefills again) and
+   on the MHA baseline (``use_chai=False``): the victim's and the
+   preemptor's tokens equal to each alone, bit for bit, one preemption,
+   ``paged_chai_fused_decode`` (``paged_decode`` on the baseline)
+   launched once a layer on every decode step of the victim's return,
+   the pools and the host tier back at their base, no checksum failure;
+   the STEADY slot's swap piece by piece a page (the gather, the copy to
+   pinned host pages, the host CRC, the upload, the scatter; CUDA events,
+   the CRC on the host clock) and the engine's own swap-out and swap-in
+   walls; (b) the same with ``swap.corrupt`` and then ``swap.in`` armed:
+   the victim alone quarantined, the preemptor's tokens untouched; (c)
+   ``AsyncLLM``: 16 concurrent streams on phase 6's engine settings, 4
+   aborted after their first chunk, the survivors equal to the
+   synchronous ``LLM``'s tokens, every page back; then
+   ``launch.serve_http.selftest`` on loopback ports the OS picks, its
+   engine built on the same weights (200 / SSE / 400 / 408 / 429 / 500 /
+   503, the metrics and timeline routes);
+21. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
    each of the four int8 modes, its launches those of its phase-11 path,
    a ``[share]`` row for each of the three share modes, its launches
    those of its phase-12 path, a ``[softcap]`` row for each of the two
@@ -380,6 +404,7 @@ back-to-back and single-call times, bound and the library's device time.
 """
 from __future__ import annotations
 
+import asyncio
 import gc
 import json
 import math
@@ -405,14 +430,17 @@ from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.core import policy  # noqa: E402
-from repro_torch.launch import offline_clustering, steps  # noqa: E402
+from repro_torch.launch import (  # noqa: E402
+    offline_clustering, serve_http, steps)
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import exporters  # noqa: E402
+from repro_torch.serving import faults as faults_mod  # noqa: E402
 from repro_torch.serving import invariants as invariants_mod  # noqa: E402
 from repro_torch.serving import kv_tiers as kv_tiers_mod  # noqa: E402
 from repro_torch.serving import sampling as sampling_mod  # noqa: E402
 from repro_torch.serving import soak as soak_mod  # noqa: E402
 from repro_torch.serving.api import LLM, Session  # noqa: E402
+from repro_torch.serving.async_api import AsyncLLM  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     EngineConfig, EngineCore, ServingEngine)
 from repro_torch.serving.faults import FaultInjector, FaultSpec  # noqa: E402
@@ -6595,14 +6623,17 @@ def policy_path(cfg, params):
 # ----------------------------------------------------------- phase 17 ----
 # The failure model on chai-llama-7b (phase 6's engine settings). The
 # soak's workload: ``build_workload(0, SOAK_REQUESTS)`` at page 16 and the
-# model's vocabulary, every priority 0 (preemption is not ported yet), and
-# one request more: the duplicated family prompt again at step
-# SOAK_DUP_STEP, once its CHAI snapshot exists, so a snapshot restore
-# takes place (in the 12 the second duplicate is admitted in the step
-# whose CLUSTER transition captures the first one's). SOAK_PLAN arms every
-# site the port serves but kernel.decode (phase 17b's), each uid pin on a
-# request that reaches its site.
+# model's vocabulary, with its priority-1 arrivals, and one request more:
+# the duplicated family prompt again at step SOAK_DUP_STEP, once its CHAI
+# snapshot exists, so a snapshot restore takes place (in the 12 the
+# second duplicate is admitted in the step whose CLUSTER transition
+# captures the first one's). The soak's engine has SOAK_SLOTS slots, so
+# the priority-1 arrivals find them full and preempt (twice in the clean
+# run; the schedule depends on token counts only). SOAK_PLAN arms every
+# site the port serves but kernel.decode (phase 17b's) and the swap sites
+# (phase 20b's), each uid pin on a request that reaches its site.
 SOAK_REQUESTS = 12
+SOAK_SLOTS = 2
 SOAK_DUP_STEP = 41
 SOAK_DUP_NEW = 8
 SOAK_PLAN = (dict(site="pool.alloc", mode="transient"),
@@ -6624,8 +6655,6 @@ AUDIT_TURNS = ("off", "basic", "deep")
 def soak_workload(cfg):
     wl = soak_mod.build_workload(0, SOAK_REQUESTS, page_size=PAGE,
                                  vocab=cfg.vocab_size)
-    for w in wl:
-        w["priority"] = 0
     dup = next(w["prompt"] for w in wl
                if sum(v["prompt"] == w["prompt"] for v in wl) > 1)
     wl.append(dict(step=SOAK_DUP_STEP, prompt=list(dup),
@@ -6647,8 +6676,8 @@ class _SoakCore(EngineCore):
 def _soak_run(cfg, params, wl, plan):
     """One ``run_soak`` of ``wl`` under ``plan`` (None: fault-free), deep
     audit after every step; returns (report, launches, engine, wall s)."""
-    ecfg = EngineConfig(batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
-                        prefix_cache=True, relay_decode=True,
+    ecfg = EngineConfig(batch_slots=SOAK_SLOTS, max_seq=MAX_SEQ,
+                        page_size=PAGE, prefix_cache=True, relay_decode=True,
                         audit_level="deep")
     faults = (None if plan is None else
               FaultInjector([FaultSpec(**a) for a in plan]))
@@ -6728,10 +6757,12 @@ def soak_path(cfg, params):
     wl = soak_workload(cfg)
     clean, c_launches, c_core, c_wall = _soak_run(cfg, params, wl, None)
     if not (c_core.cluster_transitions and c_core.relay_steps
-            and clean["prefix_stats"]["snapshot_hits"]):
+            and clean["prefix_stats"]["snapshot_hits"]
+            and clean["preemptions"]):
         raise AssertionError(
             f"soak clean: {c_core.cluster_transitions} CLUSTER "
-            f"transitions, {c_core.relay_steps} relay steps, prefix stats "
+            f"transitions, {c_core.relay_steps} relay steps, "
+            f"{clean['preemptions']} preemptions, prefix stats "
             f"{clean['prefix_stats']}")
     for name in ("paged_chai_fused_decode", "relay_prefix_decode",
                  "flash_prefill", "paged_prefix_attend"):
@@ -6756,7 +6787,8 @@ def soak_path(cfg, params):
     log(f"soak ({len(wl)} requests, deep audit every step): clean "
         f"{clean['steps']} steps in {c_wall:.3f} s, "
         f"{c_core.cluster_transitions} CLUSTER transitions, "
-        f"{c_core.relay_steps} relay steps, snapshot hits "
+        f"{c_core.relay_steps} relay steps, {clean['preemptions']} "
+        f"preemptions, snapshot hits "
         f"{clean['prefix_stats']['snapshot_hits']}, launches {c_launches}")
     log(f"soak faulted: {faulted['steps']} steps in {f_wall:.3f} s (again "
         f"{a_wall:.3f} s), finishes {finishes}, fault stats "
@@ -7420,6 +7452,328 @@ def kv_tiers_path(cfg, params):
     return launches, rec
 
 
+# ----------------------------------------------------------- phase 20 ----
+# Priority preemption on full-width chai-llama-7b (phase 6's weights), the
+# continuous paged engine with 2 slots and pools just above one request's
+# need (``tests/test_slo_serving.py``'s shape): a request of
+# PREEMPT_PROMPT + PREEMPT_NEW tokens takes PREEMPT_PAGES pages of each of
+# K and V; the dense pool holds 2 * PREEMPT_PAGES + 1 usable pages, the
+# clustered one PREEMPT_PAGES + 1, so a second request never fits beside
+# a first and a priority-5 arrival preempts it. The victim runs
+# PREEMPT_STEADY_AT steps (STEADY: warmup 5), PREEMPT_WARMUP_AT (WARMUP) or
+# one chunk of PREEMPT_CHUNK tokens (PREFILL) before the arrival.
+PREEMPT_PROMPT = 160
+PREEMPT_NEW = 16
+PREEMPT_PAGES = -(-(PREEMPT_PROMPT + PREEMPT_NEW) // PAGE)
+PREEMPT_STEADY_AT = 8
+PREEMPT_WARMUP_AT = 2
+PREEMPT_CHUNK = 64
+SWAP_REPS = 5
+ASYNC_STREAMS = 16             # 4 of them aborted after their first chunk
+ASYNC_PROMPT = 32
+ASYNC_NEW = 8
+
+
+def preempt_ecfg(**kw):
+    chai = {} if kw.get("use_chai") is False else {
+        "num_chai_pages": PREEMPT_PAGES + 2}
+    return EngineConfig(batch_slots=2, max_seq=MAX_SEQ, page_size=PAGE,
+                        num_pages=2 * PREEMPT_PAGES + 2, audit_level="deep",
+                        **chai, **kw)
+
+
+def _pool_state(core):
+    return (core.dense_pool.counters(),
+            core.chai_pool.counters() if core.chai_pool else None,
+            dict(core.tiers.tier_pages()))
+
+
+def _alone(cfg, params, prompt, **kw):
+    """A request's tokens alone on a fresh preemption engine."""
+    core = EngineCore(cfg, params, preempt_ecfg(**kw))
+    req = core.add_request(prompt, SamplingParams(max_new_tokens=PREEMPT_NEW))
+    while core.has_work():
+        core.step()
+    return list(req.generated)
+
+
+def swap_page_times(core, i):
+    """Slot ``i``'s swap piece by piece on the engine's own functions and
+    host buffers (SWAP_REPS times, medians; CUDA events around the device
+    work, the host clock around the CRC): the gather
+    (``save_slot_paged``), the non-blocking copies of every page into the
+    pinned host buffers, the CRC over the columns and pages, the upload
+    into staging buffers and the scatter (``load_slot_paged``), which
+    writes the same bytes back. Returns ms a page and the bytes."""
+    pages = core._slot_pages[i]
+    keys = ("kg", "vg", "kc", "vc")
+    ids = [core._page_ids(pages.get(k, ())) for k in keys]
+    vecs = [core._page_vec(pages.get(k, [])) for k in keys]
+    n = sum(len(pages.get(k, ())) for k in keys)
+    slabs = core.tiers.slabs
+    st = core._dev_state
+    acc = {k: [] for k in ("gather", "copy", "crc", "upload", "scatter")}
+    nbytes = 0
+    for _ in range(SWAP_REPS):
+        torch.cuda.synchronize()
+        ms, (cols, pools) = _event_ms(lambda: core._swap_out(st, i, *ids))
+        acc["gather"].append(ms)
+        planes = {k: v.movedim(1, 0).contiguous() for k, v in pools.items()
+                  if v.shape[1]}
+        torch.cuda.synchronize()
+        ms, host = _event_ms(lambda: {
+            k: [slabs.take(tuple(x.shape[1:]), x.dtype).copy_(
+                x[j], non_blocking=True) for j in range(x.shape[0])]
+            for k, x in planes.items()})
+        acc["copy"].append(ms)
+        cols_host = {k: v.cpu() for k, v in cols.items()}
+        t0 = time.perf_counter()
+        faults_mod.checksum_arrays({"cols": cols_host, "pools": {
+            k: {str(j): {"data": b} for j, b in enumerate(bufs)}
+            for k, bufs in host.items()}})
+        acc["crc"].append(1e3 * (time.perf_counter() - t0))
+        nbytes = sum(b.numel() * b.element_size()
+                     for bufs in host.values() for b in bufs)
+
+        def upload():
+            dev = {}
+            for k, bufs in host.items():
+                d = torch.empty((len(bufs),) + tuple(bufs[0].shape),
+                                dtype=bufs[0].dtype, device="cuda")
+                for j, b in enumerate(bufs):
+                    d[j].copy_(b, non_blocking=True)
+                dev[k] = d.movedim(0, 1)
+            return dev
+        ms, dev = _event_ms(upload)
+        acc["upload"].append(ms)
+        ms, _ = _event_ms(lambda: core._swap_in(st, i, cols, dev, *ids,
+                                                *vecs))
+        acc["scatter"].append(ms)
+        for bufs in host.values():
+            for b in bufs:
+                slabs.give(b)
+    out = {f"{k}_ms_a_page": statistics.median(v) / n
+           for k, v in acc.items()}
+    out.update(pages=n, page_bytes=nbytes // n, slot_bytes=nbytes)
+    return out
+
+
+def preempt_run(cfg, params, prompts, at, label, want, faults=None,
+                kernel="paged_chai_fused_decode", timed=False, **kw):
+    """The victim (priority 0) alone for ``at`` steps (a chunked one:
+    until it is mid-PREFILL), then the preemptor (priority 5), drained,
+    the launches counted over the run and per step. Held: tokens equal to
+    ``want`` (each request alone) unless ``faults`` quarantine the victim;
+    one preemption; ``kernel`` launched once a layer on every decode step
+    of the victim's return in its kernel phase (STEADY, or any with CHAI
+    off); the pools and host tier back at their base. ``timed``: the swap
+    timed piece by piece before the arrival, and the engine's own swap-out
+    and swap-in on the host clock. Returns the run's record."""
+    core = EngineCore(cfg, params, preempt_ecfg(**kw), faults=faults)
+    _check_logits(core, cfg.vocab_size)
+    lk = ck.LAUNCHES if kernel in ck.LAUNCHES else fk.LAUNCHES
+    base = _pool_state(core)
+    sp = SamplingParams(max_new_tokens=PREEMPT_NEW)
+    walls = {}
+    for name in ("_swap_out_slot", "_swap_in_slot"):
+        fn = getattr(core, name)
+
+        def wall(*a, _fn=fn, _n=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                walls.setdefault(_n, []).append(
+                    1e3 * (time.perf_counter() - t0))
+        setattr(core, name, wall)
+    steps_rec = []
+    _reset_launches()
+    t0 = time.time()
+    victim = core.add_request(prompts[0], sp, priority=0)
+
+    def step():
+        n0, k0 = core.steps_executed, lk[kernel]
+        core.step()
+        back = victim.preemptions > 0 and victim in core._slot_req
+        steps_rec.append(dict(
+            decoded=core.steps_executed > n0, launches=lk[kernel] - k0,
+            victim_back=back,
+            victim_phase=int(core._phases[victim.slot]) if back else None))
+    for _ in range(at):
+        step()
+    swap = swap_page_times(core, victim.slot) if timed else None
+    preemptor = core.add_request(prompts[1], sp, priority=5)
+    while core.has_work():
+        step()
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    launches = _launches()
+    core.reap_done()
+    if core.preemptions != 1 or victim.preemptions != 1:
+        raise AssertionError(f"{label}: {core.preemptions} preemptions")
+    if list(preemptor.generated) != want[1]:
+        raise AssertionError(f"{label}: preemptor tokens "
+                             f"{preemptor.generated} != alone {want[1]}")
+    fs = core.fault_stats()
+    if faults is None:
+        if list(victim.generated) != want[0]:
+            raise AssertionError(f"{label}: victim tokens "
+                                 f"{victim.generated} != alone {want[0]}")
+        if fs["swap_checksum_failures"] or fs["quarantined"]:
+            raise AssertionError(f"{label}: fault stats {fs}")
+        kphase = (chai_cache.PHASE_STEADY if kw.get("use_chai", True)
+                  else None)
+        back = [r for r in steps_rec if r["victim_back"] and r["decoded"]
+                and (kphase is None or r["victim_phase"] == kphase)]
+        if not back or any(r["launches"] != cfg.n_layers for r in back):
+            raise AssertionError(f"{label}: {kernel} launches on the "
+                                 f"victim's return {back}")
+    if _pool_state(core) != base:
+        raise AssertionError(f"{label}: pools {_pool_state(core)} against "
+                             f"their base {base}")
+    rec = dict(victim=list(victim.generated), finish=victim.finish_reason,
+               error=victim.error, preemptor=list(preemptor.generated),
+               launches=launches, wall_s=wall_s, fault_stats={
+                   k: v for k, v in fs.items() if k != "injector"},
+               fired=[(f["site"], f["uid"]) for f in
+                      (fs["injector"] or {"fired": []})["fired"]],
+               return_steps=sum(r["victim_back"] and r["decoded"]
+                                for r in steps_rec),
+               swap=swap, swap_walls_ms=walls)
+    log(f"preemption {label}: {wall_s:.3f} s, victim "
+        f"{victim.finish_reason} ({len(victim.generated)} tokens"
+        f"{', ' + victim.error if victim.error else ''}), preemptor "
+        f"{len(preemptor.generated)} tokens, {rec['return_steps']} decode "
+        f"steps after the victim's return; fault stats "
+        f"{rec['fault_stats']}, fired {rec['fired']}; engine swap walls "
+        f"{ {k: [round(x, 3) for x in v] for k, v in walls.items()} } ms; "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    return rec
+
+
+def preemption_path(cfg, params):
+    """Phase 20a and 20b. Returns ({path: launches}, the record)."""
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, cfg.vocab_size, size=PREEMPT_PROMPT)
+               for _ in range(2)]
+    want = [_alone(cfg, params, p) for p in prompts]
+    runs = {}
+    runs["steady"] = preempt_run(cfg, params, prompts, PREEMPT_STEADY_AT,
+                                 "steady victim", want, timed=True)
+    runs["warmup"] = preempt_run(cfg, params, prompts, PREEMPT_WARMUP_AT,
+                                 "warmup victim", want)
+    want_c = [_alone(cfg, params, p, prefill_chunk_tokens=PREEMPT_CHUNK)
+              for p in prompts]
+    runs["prefill"] = preempt_run(cfg, params, prompts, 1, "prefill victim",
+                                  want_c, prefill_chunk_tokens=PREEMPT_CHUNK)
+    want_m = [_alone(cfg, params, p, use_chai=False) for p in prompts]
+    runs["mha"] = preempt_run(cfg, params, prompts, PREEMPT_STEADY_AT,
+                              "MHA baseline victim", want_m,
+                              kernel="paged_decode", use_chai=False)
+    for site, word in (("swap.corrupt", "checksum mismatch"),
+                       ("swap.in", "swap-in failure")):
+        r = preempt_run(cfg, params, prompts, PREEMPT_STEADY_AT,
+                        f"{site} armed", want, faults=FaultInjector(
+                            [FaultSpec(site, mode="corrupt" if site ==
+                                       "swap.corrupt" else "error")]))
+        fs = r["fault_stats"]
+        if (r["finish"] != "error" or word not in r["error"]
+                or fs["quarantined"] != 1 or r["fired"] != [(site, 0)]
+                or fs["swap_checksum_failures"]
+                != int(site == "swap.corrupt")):
+            raise AssertionError(f"{site}: {r}")
+        runs[site] = r
+    sw = runs["steady"]["swap"]
+    log(f"preemption swap of a STEADY slot ({sw['pages']} pages, "
+        f"{sw['slot_bytes']:,} B; medians of {SWAP_REPS}): per page gather "
+        f"{sw['gather_ms_a_page']:.4f} ms, copy to pinned host "
+        f"{sw['copy_ms_a_page']:.4f} ms, host CRC "
+        f"{sw['crc_ms_a_page']:.4f} ms, upload "
+        f"{sw['upload_ms_a_page']:.4f} ms, scatter "
+        f"{sw['scatter_ms_a_page']:.4f} ms")
+    launches = {f"preempt_{k.replace('.', '_')}": r["launches"]
+                for k, r in runs.items()}
+    return launches, {k: {kk: vv for kk, vv in r.items() if kk != "launches"}
+                      for k, r in runs.items()}
+
+
+def async_path(cfg, params):
+    """Phase 20c: ASYNC_STREAMS concurrent ``AsyncLLM`` streams on phase
+    6's engine settings, ASYNC_ABORTS of them aborted after their first
+    chunk; the survivors equal the synchronous ``LLM``'s tokens, every
+    page back. Then the HTTP server's ``selftest`` on loopback ports the
+    OS picks, its engine built on the same weights. Returns ({path:
+    launches}, the record)."""
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, size=ASYNC_PROMPT)
+               for _ in range(ASYNC_STREAMS)]
+    sp = SamplingParams(max_new_tokens=ASYNC_NEW)
+    ecfg = EngineConfig(batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE)
+    sync = LLM(cfg, params, ecfg)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = [o.token_ids for o in sync.generate(prompts, sp)]
+    sync_ms = 1e3 * (time.time() - t0) / sync.core.steps_executed
+    aborted = {i for i in range(ASYNC_STREAMS) if i % 4 == 3}
+
+    async def stream(llm, i):
+        chunks = []
+        async for c in llm.stream(prompts[i], sp):
+            chunks.append(c)
+            if i in aborted and len(chunks) == 1:
+                if not await llm.abort(c.uid):
+                    raise AssertionError(f"async: abort of stream {i}")
+        toks = [t for c in chunks for t in c.token_ids]
+        last = chunks[-1]
+        if i in aborted:
+            if (last.finish_reason != "aborted" or last.token_ids
+                    or len(toks) >= ASYNC_NEW):
+                raise AssertionError(f"async: aborted stream {i} {chunks}")
+        elif toks != want[i]:
+            raise AssertionError(f"async: stream {i} {toks} != {want[i]}")
+        return toks
+
+    async def run():
+        async with AsyncLLM(cfg, params, ecfg) as llm:
+            base = _pool_state(llm.core)
+            t0 = time.time()
+            await asyncio.gather(*[stream(llm, i)
+                                   for i in range(ASYNC_STREAMS)])
+            wall = time.time() - t0
+            if llm.core.has_work() or _pool_state(llm.core) != base:
+                raise AssertionError(f"async: pools {_pool_state(llm.core)}")
+            return wall, llm.core.steps_executed
+
+    _reset_launches()
+    wall, steps_n = asyncio.run(run())
+    launches = {"async_streams": _launches()}
+    http = serve_http.AsyncLLM(cfg, params, serve_http.demo_ecfg(),
+                               detokenizer=serve_http.detok)
+    _reset_launches()
+    t0 = time.time()
+    seen = asyncio.run(serve_http.selftest(http))
+    http_wall = time.time() - t0
+    launches["http_selftest"] = _launches()
+    rec = dict(streams=ASYNC_STREAMS, aborted=len(aborted), wall_s=wall,
+               steps=steps_n, step_ms=1e3 * wall / steps_n,
+               sync_step_ms=sync_ms, http_wall_s=http_wall, http=seen)
+    log(f"AsyncLLM: {ASYNC_STREAMS} streams ({len(aborted)} aborted after "
+        f"their first chunk) in {wall:.3f} s over {steps_n} decode steps "
+        f"({rec['step_ms']:.2f} ms a step; the synchronous LLM's run "
+        f"{sync_ms:.2f} ms a step), the survivors = the synchronous LLM's "
+        f"tokens, every page back; "
+        f"launches { {k: v for k, v in launches['async_streams'].items() if v} }")
+    log(f"HTTP selftest (serve_http, full-width weights): {http_wall:.3f} s, "
+        f"200 / SSE / 400 / 408 ({seen['timeout_tokens']} tokens before "
+        f"the timeout) / 429 / 500 / 503, {seen['metric_samples']} metric "
+        f"samples, stats {seen['stats']}; launches "
+        f"{ {k: v for k, v in launches['http_selftest'].items() if v} }")
+    return launches, rec
+
+
+
 def main():
     environment()
     build_kernels()
@@ -7483,6 +7837,10 @@ def main():
                                      cont_launches["continuous_paged"],
                                      audit_copies["basic"])
     tier_launches, _ = kv_tiers_path(cfg, params)
+    # Phase 20, chai-llama-7b: priority preemption, the async front door
+    # and the HTTP server.
+    preempt_launches, _ = preemption_path(cfg, params)
+    async_launches, _ = async_path(cfg, params)
     # The engines of phases 5-8 sit in reference cycles (their wrapped
     # hooks); collect them so chai-llama-7b's weights are really freed.
     del params
@@ -7572,7 +7930,7 @@ def main():
                **g_launches, **d_launches, **sp_launches, **g8_launches,
                **sp8_launches, **d8_launches, **front_launches,
                **nemo_front_launches, **fault_launches, **tel_launches,
-               **tier_launches,
+               **tier_launches, **preempt_launches, **async_launches,
                "pipeline_lane": lane_launches,
                "pipeline_lane_share_int8": lane8_launches}
     mains = {"chai_fused_decode": (

@@ -28,7 +28,9 @@ Three layouts, one phase machine (PREFILL -> WARMUP -> CLUSTER -> STEADY):
    returns those pages to the pool (``paged_kv_bytes`` falls). The prefix
    cache shares pages between slots through the refcounts, copies a page
    it must not share (``copy_pool_page``) and resumes a slot from a CHAI
-   snapshot (``restore_slot_snapshot``).
+   snapshot (``restore_slot_snapshot``). Preemption swaps a slot's
+   columns and page contents out (``save_slot_paged``) and back into
+   fresh pages (``load_slot_paged``).
 
 Under ``kv_cache_dtype="int8"`` every K/V rectangle and pool holds int8
 codes beside a mirror-shaped fp32 scale tensor with the last axis dropped
@@ -611,6 +613,91 @@ def restore_slot_snapshot(state, slot, bt_kg_row, bt_vg_row, bt_kc_row,
     if "chai_scores" in state:
         state["chai_scores"][:, slot] = 0
     state["phase"][slot] = PHASE_STEADY
+    return state
+
+
+_PAGED_POOL_KEYS = ("kvp", "kvp_scale", "cp", "cp_scale")
+
+
+def _slot_index(t, slot):
+    return torch.tensor([int(slot)], dtype=torch.long, device=t.device)
+
+
+def save_slot_paged(state, slot, kg_pages, vg_pages, kc_pages, vc_pages):
+    """Preemption swap-out: gather slot ``slot``'s whole per-slot state,
+    every per-slot column (``pos``, ``phase``, ``chai_scores``, local
+    rings, ...) and the CONTENTS of its pool pages, so the engine can free
+    the physical pages and later restore the slot bit for bit
+    (``load_slot_paged``). A resume by recompute could not be exact: CHAI
+    decode approximates full attention, so the K/V rows a re-prefill
+    writes for generated tokens are not the rows the decode wrote.
+
+    Page vectors are int tensors of physical page ids: the null-padded
+    (P,) maps, or only the pages the slot holds; a pool kind the slot does
+    not hold passes nulls (or nothing) and round-trips null-sink rows.
+    Returns ``(cols, pools)``: each column with the batch axis kept at
+    size 1 (axis 0 of 1-D entries, axis 1 of the rest), and each pool's
+    pages (nG, len(pages), ...) with their int8 scales under
+    ``<kind>_scale``. Both are copies."""
+    cols = {}
+    for k, v in state.items():
+        if k in _PAGED_POOL_KEYS or k.startswith("bt_"):
+            continue
+        cols[k] = v.index_select(0 if v.ndim == 1 else 1,
+                                 _slot_index(v, slot))
+    pools = {}
+
+    def gather(kind, key, pages):
+        pages = pages.long()
+        pools[kind] = state[key].index_select(1, pages)
+        if key + "_scale" in state:
+            pools[kind + "_scale"] = state[key + "_scale"].index_select(
+                1, pages)
+
+    if "kvp" in state:
+        gather("kg", "kvp", kg_pages)
+        gather("vg", "kvp", vg_pages)
+    if "cp" in state:
+        gather("kc", "cp", kc_pages)
+        if "bt_vc" in state:
+            gather("vc", "cp", vc_pages)
+    return cols, pools
+
+
+def load_slot_paged(state, slot, cols, pools, kg_pages, vg_pages, kc_pages,
+                    vc_pages, bt_kg_row, bt_vg_row, bt_kc_row, bt_vc_row):
+    """Preemption swap-in, the inverse of ``save_slot_paged`` onto freshly
+    allocated pages: the columns are written back verbatim, the saved page
+    contents land at the new physical ids (``*_pages``, in the order they
+    were saved) and the block tables are rebuilt from the new logical ->
+    physical rows (null-padded ``(P,)``; a padded page vector's tail lands
+    in the null sink, as every paged write does). A pool kind missing from
+    ``pools`` (a kind the slot held no page of) writes no page, only its
+    table row."""
+    for k, v in cols.items():
+        dst = state[k]
+        dst.index_copy_(0 if dst.ndim == 1 else 1, _slot_index(dst, slot),
+                        v.to(device=dst.device, dtype=dst.dtype,
+                             non_blocking=True))
+
+    def scatter(kind, key, pages):
+        pages = pages.long()
+        for name, dst in ((kind, key), (kind + "_scale", key + "_scale")):
+            if name in pools and dst in state:
+                state[dst].index_copy_(1, pages,
+                                       pools[name].to(state[dst].dtype))
+
+    if "kvp" in state:
+        scatter("kg", "kvp", kg_pages)
+        scatter("vg", "kvp", vg_pages)
+        state["bt_kg"][slot] = bt_kg_row
+        state["bt_vg"][slot] = bt_vg_row
+    if "cp" in state:
+        scatter("kc", "cp", kc_pages)
+        state["bt_kc"][slot] = bt_kc_row
+        if "bt_vc" in state:
+            scatter("vc", "cp", vc_pages)
+            state["bt_vc"][slot] = bt_vc_row
     return state
 
 

@@ -4,10 +4,10 @@ Cohort: whole-cohort prefill, decode, compact. Continuous: the mixed-phase
 decode step and the per-slot prefill / cluster / reset transitions, on
 the unified (``kv_layout="dense"``) and the paged layout; on the paged
 layout also the prefix cache's suffix prefill, snapshot restore and page
-copy, the KV tiers' page fetch and put, and the relay decode step. Both
-schedulers: the seeded top-k / top-p sampler. Plain callables (the
-reference wraps the same functions in ``jax.jit`` and donates the state;
-here the state tensors are updated in place).
+copy, the KV tiers' page fetch and put, the preemption slot swap, and the
+relay decode step. Both schedulers: the seeded top-k / top-p sampler.
+Plain callables (the reference wraps the same functions in ``jax.jit`` and
+donates the state; here the state tensors are updated in place).
 """
 from __future__ import annotations
 
@@ -300,6 +300,28 @@ def make_paged_suffix_prefill(cfg: ModelConfig, max_seq: int):
         return logits[:, 0], state
 
     return suffix_prefill
+
+
+def make_slot_swap(cfg: ModelConfig):
+    """Preemption KV swap (out, in): a preempted slot's per-slot state and
+    page CONTENTS move out (to the host, by the engine) so its physical
+    pages can be reclaimed, and move back verbatim into fresh pages at
+    resume. A resume by recompute could not give the same tokens: CHAI
+    decode approximates full attention, so a re-prefill writes other K/V
+    rows for the generated tokens than the decode wrote (and a new
+    identification could change the membership). Swapping the rows
+    themselves makes the resume bitwise."""
+    def swap_out(state, slot, kg_pages, vg_pages, kc_pages, vc_pages):
+        return chai_cache.save_slot_paged(state, slot, kg_pages, vg_pages,
+                                          kc_pages, vc_pages)
+
+    def swap_in(state, slot, cols, pools, kg_pages, vg_pages, kc_pages,
+                vc_pages, bt_kg_row, bt_vg_row, bt_kc_row, bt_vc_row):
+        return chai_cache.load_slot_paged(
+            state, slot, cols, pools, kg_pages, vg_pages, kc_pages,
+            vc_pages, bt_kg_row, bt_vg_row, bt_kc_row, bt_vc_row)
+
+    return swap_out, swap_in
 
 
 def make_snapshot_restore(cfg: ModelConfig):

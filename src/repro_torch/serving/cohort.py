@@ -31,11 +31,15 @@ class CohortSchedulerMixin:
                 time.sleep(max(1e-4,
                                self.queue[0].t_arrival - time.time()))
                 continue
-            # FIFO: the first batch_slots arrived requests form the
-            # cohort; the overflow goes back to the queue in order.
+            # Priority classes pick the cohort (a lockstep cohort cannot
+            # preempt mid-flight as the continuous core does, so the class
+            # counts at formation): over the whole arrived run, highest
+            # ``priority`` first, FIFO within a class (a stable sort); the
+            # overflow goes back to the queue in that order.
             arrived = []
             while self.queue and self.queue[0].t_arrival <= time.time():
                 arrived.append(self.queue.popleft())
+            arrived.sort(key=lambda r: -r.priority)
             cohort = arrived[:self.ecfg.batch_slots]
             for r in reversed(arrived[self.ecfg.batch_slots:]):
                 self.queue.appendleft(r)

@@ -126,8 +126,19 @@ for bit, before the plan aliases it; a checksum mismatch, an injected
 ``offload.in`` fault or (with ``lossy_promote=False``) a compressed entry
 drops the entry and the request re-plans cold.
 
-Not ported yet, and refused with ``NotImplementedError``: ``priority``
-(preemption) and the fault sites of that path (``swap.*``).
+Priority preemption (``EngineConfig.preemption``, paged layout): when the
+arrived queue head strictly outranks a running request (``priority``) and
+no slot or no pages can take it, the lowest-priority running slot (the
+latest admitted among equals) is PREEMPTED: its per-slot columns and the
+contents of its pages are copied to host pages of the tier manager
+(CRC-stamped), its device pages are freed, and the request goes back to
+the queue right behind the head. Its re-admission swaps everything back
+into fresh pages and continues the SAME decode chain, bit for bit (the
+same kernels as an uninterrupted run; a seeded request draws token n
+from (seed, n) as always). A victim still in PREFILL saves nothing and
+prefills again. A corrupted host copy (a CRC mismatch at swap-in) or an
+injected ``swap.in`` / ``offload.in`` fault quarantines the victim before
+its swap-in touches the device.
 """
 from __future__ import annotations
 
@@ -151,10 +162,10 @@ from repro_torch.serving import kv_tiers as kv_tiers_mod
 from repro_torch.serving import sampling as sampling_mod
 from repro_torch.serving import telemetry as telemetry_mod
 from repro_torch.serving.cohort import CohortSchedulerMixin
-from repro_torch.serving.faults import (UNPORTED_SITES, CapacityError,
-                                        EngineFault, FaultInjector,
-                                        InjectedFault, QuarantineError,
-                                        RequestError, SnapshotRestoreError,
+from repro_torch.serving.faults import (CapacityError, EngineFault,
+                                        FaultInjector, InjectedFault,
+                                        QuarantineError, RequestError,
+                                        SnapshotRestoreError,
                                         ValidationError)
 from repro_torch.serving.prefix_cache import BlockNode, ChaiSnapshot, \
     PrefixCache
@@ -176,6 +187,7 @@ class Request:                         # abort() membership-test Requests
     t_arrival: float = 0.0             # earliest admission time
     t_first_token: float = 0.0         # first token on the host
     t_done: float = 0.0
+    priority: int = 0                  # preemption class: higher outranks
     slot: int = -1                     # continuous: slot the request ran in
     admit_step: int = -1               # continuous: engine step at admission
     retire_step: int = -1              # continuous: engine step at retire
@@ -186,6 +198,13 @@ class Request:                         # abort() membership-test Requests
     # -- failure taxonomy --
     error: str = ""                    # quarantine message when
     #                                    finish_reason == "error"
+    # -- preemption --
+    preemptions: int = 0               # times this request lost its slot
+    # The swapped-out slot (phase, token count, per-slot columns, CHAI
+    # membership, the host tier's page ids and the CRC) its next admission
+    # swaps back in; None for fresh and mid-PREFILL-evicted requests.
+    resume_state: Optional[dict] = dataclasses.field(default=None,
+                                                     repr=False)
 
     @property
     def finished(self) -> bool:
@@ -253,6 +272,14 @@ class EngineConfig:
     # the finalize. Slots outside a group decode bitwise as without it.
     relay_decode: bool = False
     relay_min_group: int = 2           # smallest group worth a prefix pass
+    # -- priority preemption (paged layout) --
+    # When the arrived queue head outranks a running request and the
+    # pools or the slots cannot take it, the lowest-priority running slot
+    # is swapped out to host pages (its KV and per-slot state) and
+    # re-queued behind the head; its re-admission swaps it back in and
+    # continues the same decode chain. Equal priorities never preempt.
+    # False: FIFO admission, whatever the priorities.
+    preemption: bool = True
     # -- runtime self-checks (serving/invariants.py) --
     # "basic" (default): cheap host-side checks after every continuous
     # step() (pool conservation, refcount accounting, phase legality,
@@ -308,6 +335,12 @@ _REPLAN = object()
 
 _DEGRADED_HELP = "1 while decode runs the kernels' plain versions"
 
+_PHASE_NAMES = {chai_cache.PHASE_FREE: "FREE",
+                chai_cache.PHASE_PREFILL: "PREFILL",
+                chai_cache.PHASE_WARMUP: "WARMUP",
+                chai_cache.PHASE_CLUSTER: "CLUSTER",
+                chai_cache.PHASE_STEADY: "STEADY"}
+
 
 class EngineCore(CohortSchedulerMixin):
     """Device-state owner + one-iteration scheduler (``step()``).
@@ -332,11 +365,6 @@ class EngineCore(CohortSchedulerMixin):
                              f"{ecfg.decode_heal_steps}")
         # the tier's validation happens inside make_telemetry
         self.tel = telemetry_mod.make_telemetry(ecfg.telemetry)
-        for spec in (faults.specs if faults is not None else ()):
-            if spec.site in UNPORTED_SITES:
-                raise NotImplementedError(
-                    f"fault site {spec.site!r} is not ported yet: ROADMAP "
-                    f"Queue 1, {UNPORTED_SITES[spec.site]}")
         if ecfg.scheduler not in ("continuous", "cohort"):
             raise ValueError(f"unknown scheduler {ecfg.scheduler!r}")
         if ecfg.kv_layout not in ("paged", "dense"):
@@ -357,7 +385,7 @@ class EngineCore(CohortSchedulerMixin):
         self._heal_clean = 0           # consecutive clean degraded steps
         self._decode_fault_hit = False  # kernel.decode fired this step
         self.relay_dissolved = 0       # relay groups dissolved by fault
-        self.swap_checksum_failures = 0      # preemption swap-in (#9)
+        self.swap_checksum_failures = 0      # corrupted swap-ins caught
         self.offload_checksum_failures = 0   # corrupted promotions caught
         self.prefetch_hits = 0         # demoted hit found already promoted
         self.prefetch_misses = 0       # demoted hit promoted at plan time
@@ -366,6 +394,7 @@ class EngineCore(CohortSchedulerMixin):
         self.queue: deque = deque()
         self.done: List[Request] = []
         self.redispatched = 0
+        self.preemptions = 0             # slots reclaimed for priority
         self.steps_executed = 0          # batched decode steps
         self._step_calls = 0             # every _step_inner entry (spans)
         self._span_step = -1             # step ordinal current spans carry
@@ -500,6 +529,7 @@ class EngineCore(CohortSchedulerMixin):
                                 for k in kinds}
             self._put_page = {k: steps_mod.make_page_put(cfg, k)
                               for k in kinds}
+            self._swap_out, self._swap_in = steps_mod.make_slot_swap(cfg)
         else:
             self._slot_prefill = steps_mod.make_slot_prefill(cfg, s)
             self._reset_slot = steps_mod.make_slot_reset(cfg)
@@ -534,14 +564,13 @@ class EngineCore(CohortSchedulerMixin):
         """Enqueue a request with its ``SamplingParams``. ``max_new_tokens``
         (when given) overrides ``sampling.max_new_tokens``;
         ``arrival_delay`` (seconds from now) models open-loop arrivals.
-        Default uids come from a monotonic engine counter. A request
-        beyond ``max_seq``, or with stop strings on an engine without a
+        ``priority``: the preemption class; under page or slot pressure a
+        strictly higher-priority arrival may reclaim a running
+        lower-priority slot (``EngineConfig.preemption``). Default uids
+        come from a monotonic engine counter. A request beyond
+        ``max_seq``, or with stop strings on an engine without a
         detokenizer, raises ``ValidationError`` (a ``ValueError``)."""
         sp = sampling if sampling is not None else self.default_sampling()
-        if priority != 0:
-            raise NotImplementedError(
-                "priority (preemption) is not ported yet: ROADMAP Queue 1, "
-                "#9 preemption and the async front door")
         max_new = (max_new_tokens if max_new_tokens is not None
                    else sp.max_new_tokens)
         if len(prompt) + max_new > self.ecfg.max_seq:
@@ -556,7 +585,8 @@ class EngineCore(CohortSchedulerMixin):
             uid = self._uid_counter
         self._uid_counter = max(self._uid_counter, int(uid) + 1)
         req = Request(uid=uid, prompt=np.asarray(prompt, np.int32),
-                      max_new_tokens=max_new, sampling=sp)
+                      max_new_tokens=max_new, sampling=sp,
+                      priority=int(priority))
         req.t_enqueue = time.time()
         req.t_arrival = req.t_enqueue + arrival_delay
         req.generated = []
@@ -606,6 +636,7 @@ class EngineCore(CohortSchedulerMixin):
             return False
         if req in self.queue:
             self.queue.remove(req)
+            self._free_resume(req)      # a swapped-out victim's host pages
             req.finish_reason = sampling_mod.FINISH_ABORT
             req.t_done = time.time()
             req.retire_step = self.steps_executed
@@ -740,6 +771,7 @@ class EngineCore(CohortSchedulerMixin):
         no device state to unwind; record the error and finish it."""
         if req in self.queue:
             self.queue.remove(req)
+        self._free_resume(req)      # a swapped-out victim's host pages
         req.finish_reason = sampling_mod.FINISH_ERROR
         req.error = str(err)
         req.t_done = time.time()
@@ -768,18 +800,19 @@ class EngineCore(CohortSchedulerMixin):
         req.cache_hit, req.cached_tokens, req.prefill_tokens = hit0
 
     # -- telemetry hooks (every caller guards on self.tel.enabled) ---------
-    def _tel_admit(self, i: int, req: Request, plan: dict):
-        """Admission succeeded: labeled admit counter, queue-wait
-        histogram, cache-hit token counters, timeline event."""
+    def _tel_admit(self, i: int, req: Request, plan: dict, resumed: bool):
+        """Admission succeeded: labeled admit counter (kind "swap" for a
+        preempted request's return), queue-wait histogram, cache-hit token
+        counters, timeline event ("resume" for a return)."""
         tel = self.tel
-        kind = plan["kind"]
+        kind = "swap" if resumed else plan["kind"]
         tel.counter("requests_admitted_total", kind=kind,
                     help="Slot admissions by plan kind")
         tel.observe("request_queue_seconds",
                     max(0.0, time.time() - req.t_enqueue),
                     help="Enqueue-to-admission wait")
-        tel.event(req.uid, "admit", slot=i, kind=kind,
-                  step=self.steps_executed,
+        tel.event(req.uid, "resume" if resumed else "admit", slot=i,
+                  kind=kind, step=self.steps_executed,
                   cached_tokens=int(req.cached_tokens))
         if req.cache_hit == "prefix":
             tel.counter("prefix_hit_tokens_total", req.cached_tokens,
@@ -816,7 +849,7 @@ class EngineCore(CohortSchedulerMixin):
                         help="Enqueue-to-completion latency")
         data = {"reason": reason,
                 "tokens": len(req.generated or ()),
-                "preemptions": 0}               # until #9
+                "preemptions": int(req.preemptions)}
         if req.error:
             data["error"] = req.error
         if req.cache_hit:
@@ -988,6 +1021,11 @@ class EngineCore(CohortSchedulerMixin):
         vec[:len(pages)] = pages
         return torch.from_numpy(vec).to(self.device)
 
+    def _page_ids(self, pages):
+        """(len(pages),) int64 device vector of a page list, unpadded."""
+        return torch.tensor(list(pages), dtype=torch.long,
+                            device=self.device)
+
     # -- prefix-cache admission planning (host side) -----------------------
     def _eligible_snapshot(self, req):
         """The CHAI snapshot of ``req``'s full prompt, if the snapshot fast
@@ -1017,9 +1055,11 @@ class EngineCore(CohortSchedulerMixin):
         pools cannot cover the request yet. Kinds: "cold" (no reuse),
         "prefix" (the longest cached block prefix aliased, the suffix
         prefilled), "snapshot" (full prompt cached with a CHAI snapshot:
-        STEADY directly). A snapshot that covers the whole budget is
-        replayed by ``_admit`` before planning. The ``pool.alloc`` site
-        blocks the plan (``transient``) or raises ``QuarantineError``."""
+        STEADY directly), "swap" (a preempted request: fresh pages for
+        what its slot held, restored bit for bit, no prefill). A snapshot
+        that covers the whole budget is replayed by ``_admit`` before
+        planning. The ``pool.alloc`` site blocks the plan (``transient``)
+        or raises ``QuarantineError``."""
         if not self.paged:
             return {"kind": "cold", "pages": {}, "locked": []}
         spec = self._fault("pool.alloc", uid=req.uid)
@@ -1030,6 +1070,8 @@ class EngineCore(CohortSchedulerMixin):
                     uid=req.uid)
             self._fault_blocked = True
             return None     # transient: the plan retries next step
+        if req.resume_state is not None:
+            return self._plan_swap_in(req)
         cache = self.prefix_cache
         snap = self._eligible_snapshot(req)
         if snap is not None:
@@ -1049,6 +1091,23 @@ class EngineCore(CohortSchedulerMixin):
         if not self._pool_space(2 * n, self._chai_pages_per(n)):
             return None        # even LRU eviction cannot cover it yet
         return {"kind": "cold", "pages": self._alloc_pages(n), "locked": []}
+
+    def _plan_swap_in(self, req):
+        """Fresh pages matching what the preempted slot held, kind by kind
+        (a clustered STEADY victim holds no dense K page); the swap-in
+        restores the saved contents into them. Never more pages than the
+        request's first admission, so a request admitted once can always
+        be planned again."""
+        want = req.resume_state["npages"]
+        if not self._pool_space(want["kg"] + want["vg"],
+                                want["kc"] + want["vc"]):
+            return None
+        pages = {}
+        for key, pool in (("kg", self.dense_pool), ("vg", self.dense_pool),
+                          ("kc", self.chai_pool), ("vc", self.chai_pool)):
+            if want[key]:
+                pages[key] = pool.alloc(want[key])
+        return {"kind": "swap", "pages": pages, "locked": []}
 
     def _plan_prefix(self, req, matched):
         """Alias the ``matched`` block pages; allocate fresh pages for the
@@ -1420,6 +1479,18 @@ class EngineCore(CohortSchedulerMixin):
                 e.prefetched = True
             budget -= 1
 
+    def _free_resume(self, req: Request):
+        """Release the host pages of a preempted request's swapped-out
+        slot (its abort or quarantine while it waits in the queue)."""
+        rs = req.resume_state
+        if not rs or not rs.get("tier_pages"):
+            return
+        for pk, pages in rs["tier_pages"].items():
+            kind = kv_tiers_mod.POOL_OF[pk]
+            self.tiers.free_pages(kind, pages)
+            self.tiers.record("host", "gone", kind, len(pages))
+        rs["tier_pages"] = {}
+
     def _ensure_dev_state(self):
         """Continuous-scheduler device state, built once and kept across
         ``step()``/``run()`` calls (retired slots rewind ``pos``, so stale
@@ -1446,9 +1517,14 @@ class EngineCore(CohortSchedulerMixin):
     def _admit(self, outs: List[StepOutput]) -> bool:
         """Fill free slots from the arrived FIFO prefix while the page
         budget covers prompt + generation headroom (prefix-cache hits
-        alias shared pages and need fewer). Returns True when the queue
-        head had arrived but the pools could not cover it yet."""
+        alias shared pages and need fewer). When the head outranks a
+        running request and no slot, or no page budget, can take it, the
+        lowest-priority slot is preempted and the plan retried. A
+        preempted request's return emits no StepOutput (its tokens were
+        emitted before). Returns True when the queue head had arrived but
+        could not be planned."""
         now = time.time()
+        blocked = False
         while self.queue and self.queue[0].t_arrival <= now:
             head = self.queue[0]
             snap = self._eligible_snapshot(head)
@@ -1462,17 +1538,23 @@ class EngineCore(CohortSchedulerMixin):
                 continue
             free_slots = [i for i in range(self.ecfg.batch_slots)
                           if self._slot_req[i] is None]
-            if not free_slots:
+            if not free_slots and not self._try_preempt(head):
                 break
+            if not free_slots:        # a preemption just freed a slot
+                continue
             try:
                 plan = self._plan_admission(head)
             except RequestError as err:
                 self._quarantine_queued(head, err, outs)
                 continue
             if plan is None:          # FIFO holds until pages free up
-                return True
+                if not self._fault_blocked and self._try_preempt(head):
+                    continue          # pages reclaimed: retry the plan
+                blocked = True
+                break
             i = free_slots[0]
             req = self.queue.popleft()
+            resumed = bool(req.generated)
             gen0 = len(req.generated)
             hit0 = (req.cache_hit, req.cached_tokens, req.prefill_tokens)
             try:
@@ -1495,7 +1577,9 @@ class EngineCore(CohortSchedulerMixin):
             self._slot_req[i] = req
             sampling_mod.set_knobs(self._samp_host, i, req.sampling)
             if self.tel.enabled:
-                self._tel_admit(i, req, plan)
+                self._tel_admit(i, req, plan, resumed)
+            if resumed:
+                continue    # its tokens so far were emitted and checked
             trunc, reason = sampling_mod.scan_finish(
                 req.generated, req.sampling, req.max_new_tokens,
                 self.detokenizer)
@@ -1507,17 +1591,21 @@ class EngineCore(CohortSchedulerMixin):
                 # StepOutput comes with its final chunk.
                 outs.append(StepOutput(req.uid, list(req.generated),
                                        bool(reason), reason))
-        return False
+        return blocked
 
     def _admit_to_slot(self, i: int, req: Request, plan: dict):
         """Place ``req`` into free slot ``i`` according to ``plan``. The
         ``snapshot.restore`` site raises ``SnapshotRestoreError`` before
         the restore touches the device, ``kernel.prefill``
-        ``QuarantineError`` once the slot entered PREFILL; ``_admit``
-        unwinds either."""
+        ``QuarantineError`` once the slot entered PREFILL, and a swap-in
+        ``QuarantineError`` before it touches the device; ``_admit``
+        unwinds each."""
         self._slot_pages[i] = plan["pages"]
         self._slot_locked[i] = plan["locked"]
         pages = plan["pages"]
+        if plan["kind"] == "swap":
+            self._swap_in_slot(i, req)
+            return
         if plan["kind"] == "snapshot":
             snap = plan["snapshot"]
             if self._fault("snapshot.restore", uid=req.uid) is not None:
@@ -1671,6 +1759,199 @@ class EngineCore(CohortSchedulerMixin):
             tel.counter("tokens_generated_total",
                         help="Generated tokens emitted")
             tel.token(req.uid, t=req.t_first_token if first else None)
+
+    # -- priority preemption -----------------------------------------------
+    def _try_preempt(self, head: Request) -> bool:
+        """Reclaim the running slot of lowest priority that ``head``
+        strictly outranks (ties never preempt; among equals the latest
+        admission loses, the least progress thrown away). False when there
+        is none, or when the host tier cannot make room for its pages; True
+        once the slot was preempted (the caller retries its plan)."""
+        if not (self.ecfg.preemption and self.paged):
+            return False
+        victims = [i for i in range(self.ecfg.batch_slots)
+                   if self._slot_req[i] is not None
+                   and self._slot_req[i].priority < head.priority]
+        if not victims:
+            return False
+        i = min(victims, key=lambda j: (self._slot_req[j].priority,
+                                        -self._slot_req[j].admit_step))
+        if self._phases[i] != chai_cache.PHASE_PREFILL:
+            pages = self._slot_pages[i]
+            need = {}
+            for kind, keys in (("dense", ("kg", "vg")),
+                               ("chai", ("kc", "vc"))):
+                n = sum(len(pages.get(k, ())) for k in keys)
+                if n:
+                    need[kind] = n
+            if need and not self.tiers.make_room(need):
+                return False
+        self._preempt_slot(i)
+        return True
+
+    def _preempt_slot(self, i: int):
+        """Evict slot ``i`` WITHOUT finishing its request: swap its state
+        out to host pages (``_swap_out_slot``; its tokens stay on the
+        Request), index its pages into the prefix cache (when on), free
+        every page refcount-exactly as a retire does, and re-queue the
+        request right behind the queue head. A victim still in PREFILL has
+        no decode state worth saving: it prefills again (a chunked one
+        from its first chunk)."""
+        r = self._slot_req[i]
+        phase = int(self._phases[i])
+        if phase != chai_cache.PHASE_PREFILL:
+            with self.tel.span("preempt.swap", step=self._span_step,
+                               slot=i):
+                r.resume_state = self._swap_out_slot(i, r, phase)
+            if self.prefix_cache is not None:
+                self._index_retired(r, self._slot_pages[i])
+        r.preemptions += 1
+        self.preemptions += 1
+        self._slot_prefill_state[i] = None
+        self._slot_req[i] = None
+        self._phases[i] = chai_cache.PHASE_FREE
+        self._slot_count[i] = 0
+        self._dev_state = self._reset_slot(self._dev_state, i)
+        self._free_pages(self._slot_pages[i])
+        if self._slot_locked[i]:
+            self.prefix_cache.unlock(self._slot_locked[i])
+            self._slot_locked[i] = []
+        self._samp_host["temperature"][i] = 0.0     # FREE slots: greedy
+        self.queue.insert(min(1, len(self.queue)), r)
+        if self.tel.enabled:
+            self.tel.counter("preemptions_total",
+                             help="Slots reclaimed for a higher-priority "
+                                  "arrival")
+            self.tel.event(r.uid, "preempt", slot=i,
+                           phase=_PHASE_NAMES.get(phase, str(phase)),
+                           step=self.steps_executed)
+
+    def _swap_out_slot(self, i: int, r: Request, phase: int) -> dict:
+        """Copy slot ``i``'s per-slot columns, CHAI membership and page
+        contents to the host: one gather a pool plane
+        (``steps.make_slot_swap``), one non-blocking copy a page into the
+        tier manager's host buffers (pinned on CUDA), then ONE event
+        synchronized before the CRC reads them. All of it is queued before
+        the caller frees the device pages, which the next admission may
+        write at once. Returns the resume payload: phase, token count,
+        columns, membership, page counts, the CRC over columns and pages
+        (the ``swap.corrupt`` site damages the host copy after it) and the
+        host page ids."""
+        pages = self._slot_pages[i]
+        keys = ("kg", "vg", "kc", "vc")
+        npages = {k: len(pages.get(k, ())) for k in keys}
+        cols, pools = self._swap_out(
+            self._dev_state, i, *[self._page_ids(pages.get(k, ()))
+                                  for k in keys])
+        take = self.tiers.slabs.take
+        payloads = {}
+        for k in keys:
+            if not npages[k]:
+                continue
+            planes = {name: pools[key].movedim(1, 0).contiguous()
+                      for name, key in (("data", k), ("scale", k + "_scale"))
+                      if key in pools}           # (pages, nG, rows, ...)
+            payloads[k] = []
+            for j in range(npages[k]):
+                page = {}
+                for name, dev in planes.items():
+                    host = take(tuple(dev.shape[1:]), dev.dtype)
+                    host.copy_(dev[j], non_blocking=True)
+                    page[name] = host
+                payloads[k].append(page)
+        cols = {k: v.to("cpu", non_blocking=True) for k, v in cols.items()}
+        ctx = ({k: v[:, i].to("cpu", non_blocking=True, copy=True)
+                for k, v in self._dev_ctx.items()} if self.chai_on else None)
+        if self.device.type == "cuda":
+            landed = torch.cuda.Event()
+            landed.record()
+            landed.synchronize()
+        tree = {k: {str(j): p for j, p in enumerate(pl)}
+                for k, pl in payloads.items()}
+        crc = faults_mod.checksum_arrays({"cols": cols, "pools": tree})
+        if self._fault("swap.corrupt", uid=r.uid) is not None:
+            # Damage the host copy AFTER the stamp, so the swap-in catches
+            # it; the damaged bytes go back into the host buffers.
+            damaged = {k: {j: dict(p) for j, p in pl.items()}
+                       for k, pl in tree.items()}
+            faults_mod.corrupt_arrays(damaged, seed=self.faults.seed)
+            for k, pl in tree.items():
+                for j, p in pl.items():
+                    for name, buf in p.items():
+                        buf.copy_(damaged[k][j][name])
+        tier_pages = {}
+        for k, pl in payloads.items():
+            kind = kv_tiers_mod.POOL_OF[k]
+            tier_pages[k] = self.tiers.store_pages(kind, pl)
+            self.tiers.record("hot", "host", kind, len(pl))
+        return {"phase": phase, "count": self._slot_count[i], "cols": cols,
+                "ctx": ctx, "npages": npages, "crc": crc,
+                "tier_pages": tier_pages}
+
+    def _swap_in_slot(self, i: int, req: Request):
+        """Resume a preempted request in slot ``i``, whose fresh pages the
+        plan allocated: check the host copy's CRC, upload the columns and
+        the page contents (one non-blocking copy a page into one staging
+        buffer a plane, then one scatter a plane), rebuild the block
+        tables, restore the CHAI membership (a new ctx version, so no
+        stale host view serves the slot) and the sampler's knobs (set by
+        ``_admit``). The slot decodes on the state it was evicted with,
+        bit for bit. The ``swap.in`` and ``offload.in`` sites and a CRC
+        mismatch raise ``QuarantineError`` before the device is touched;
+        the request's host pages are then freed by the quarantine."""
+        resume = req.resume_state
+        if self._fault("swap.in", uid=req.uid) is not None:
+            raise QuarantineError(
+                f"injected swap-in failure for uid={req.uid}", uid=req.uid)
+        if self._fault("offload.in", uid=req.uid) is not None:
+            raise QuarantineError(
+                f"injected host-tier fetch failure for uid={req.uid}",
+                uid=req.uid)
+        payloads = {k: self.tiers.fetch_pages(kv_tiers_mod.POOL_OF[k], pg)
+                    for k, pg in resume["tier_pages"].items()}
+        tree = {k: {str(j): p for j, p in enumerate(pl)}
+                for k, pl in payloads.items()}
+        if faults_mod.checksum_arrays(
+                {"cols": resume["cols"], "pools": tree}) != resume["crc"]:
+            self.swap_checksum_failures += 1
+            raise QuarantineError(
+                f"swap-in checksum mismatch for uid={req.uid}: the "
+                "host-side resume payload was corrupted while swapped "
+                "out", uid=req.uid)
+        pools = {}
+        for k, pl in payloads.items():
+            for name, key in (("data", k), ("scale", k + "_scale")):
+                if name not in pl[0]:
+                    continue
+                dev = torch.empty((len(pl),) + tuple(pl[0][name].shape),
+                                  dtype=pl[0][name].dtype, device=self.device)
+                for j, p in enumerate(pl):
+                    dev[j].copy_(p[name], non_blocking=True)
+                pools[key] = dev.movedim(0, 1)     # (nG, pages, rows, ...)
+        pages = self._slot_pages[i]
+        keys = ("kg", "vg", "kc", "vc")
+        self._dev_state = self._swap_in(
+            self._dev_state, i, resume["cols"], pools,
+            *[self._page_ids(pages.get(k, ())) for k in keys],
+            *[self._page_vec(pages.get(k, [])) for k in keys])
+        # The uploads are queued: the host pages may go (a later write
+        # into their buffers is ordered after them, kv_tiers.free_pages).
+        for k, pg in resume["tier_pages"].items():
+            kind = kv_tiers_mod.POOL_OF[k]
+            self.tiers.free_pages(kind, pg)
+            self.tiers.record("host", "hot", kind, len(pg))
+        resume["tier_pages"] = {}
+        req.resume_state = None
+        if self.chai_on:
+            clustering.update_ctx_slot(
+                self._dev_ctx, {k: v.to(self.device, non_blocking=True)
+                                for k, v in resume["ctx"].items()}, i)
+            self._ctx_version += 1
+        self._phases[i] = resume["phase"]
+        self._slot_count[i] = resume["count"]
+        self._next_tok[i] = req.generated[-1]
+        self._tok_dirty = True
+        self._record_kv_bytes()
 
     def _cluster_transitions(self, active, outs: List[StepOutput]):
         """CLUSTER + compact the slots whose warmup just completed; paged:
@@ -2160,8 +2441,8 @@ class EngineCore(CohortSchedulerMixin):
         """Robustness counters and the injector's replayable plan and
         firing log (None without an injector). ``offload_checksum_failures``
         counts demoted entries whose host copy failed its CRC at
-        promotion; ``swap_checksum_failures`` stays 0 until preemption
-        (#9) is ported."""
+        promotion, ``swap_checksum_failures`` preempted requests whose
+        host copy failed its CRC at swap-in."""
         return {"quarantined": self.quarantined,
                 "audit_steps": self.audit_steps,
                 "degraded_decode": self.degraded_decode,

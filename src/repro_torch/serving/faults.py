@@ -54,11 +54,16 @@ Injection sites (where the engine consults the injector):
                           re-plans the request cold); any other mode
                           declines the demotion (the victim drops).
 ``offload.in``            KV-tier promotion (``_promote_entry``): the entry
-                          drops and the request re-plans cold.
-``swap.corrupt``,         preemption swap-out / swap-in (ROADMAP Queue 1,
-``swap.in``               #9): not ported yet; ``EngineCore`` refuses a
-                          plan with an arm at one of them
-                          (``UNPORTED_SITES``).
+                          drops and the request re-plans cold; at a
+                          preemption swap-in the victim is quarantined, as
+                          at ``swap.in``.
+``swap.corrupt``          preemption swap-out (``_swap_out_slot``): damages
+                          the host copy of the victim's slot after its CRC
+                          stamp; the swap-in catches the mismatch and
+                          quarantines the victim before any device write.
+``swap.in``               preemption swap-in (``_swap_in_slot``): fails the
+                          resume; the victim is quarantined, its host
+                          pages released.
 ========================  ==================================================
 
 ``checksum_arrays`` and ``corrupt_arrays`` take numpy arrays and torch
@@ -138,13 +143,6 @@ SITES = frozenset({
     "relay.residency", "kernel.decode", "kernel.prefill", "kernel.cluster",
     "step.logits", "offload.out", "offload.in",
 })
-
-#: sites whose engine path is not ported yet, with the ROADMAP item that
-#: ports it; ``EngineCore`` refuses a plan that arms one
-UNPORTED_SITES = {
-    "swap.corrupt": "#9 preemption and the async front door",
-    "swap.in": "#9 preemption and the async front door",
-}
 
 #: spec modes with meaning at their sites (see module docstring)
 MODES = frozenset({"error", "transient", "corrupt", "nan"})

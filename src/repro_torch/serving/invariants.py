@@ -107,8 +107,8 @@ def _audit_refs(core, out: List[str]):
 
 def _tier_held(core):
     """Host / compressed page references explained by the demoted
-    prefix-cache entries, keyed ``(tier, kind)`` (swapped-out requests
-    hold none until preemption is ported, #9)."""
+    prefix-cache entries and the swapped-out (queued) requests, keyed
+    ``(tier, kind)``."""
     held = {}
 
     def add(tier, pages_by_pk):
@@ -129,6 +129,10 @@ def _tier_held(core):
         for snap in cache._snapshots.values():
             if snap.tier in demoted:
                 add(snap.tier, snap.tier_pages)
+    for req in core.queue:
+        rs = req.resume_state
+        if rs and rs.get("tier_pages"):
+            add(kv_tiers_mod.TIER_HOST, rs["tier_pages"])
     return held
 
 

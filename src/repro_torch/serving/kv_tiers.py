@@ -268,11 +268,24 @@ class TierManager:
     def unpin(self, entry):
         self.file(entry)
 
-    # -- page-level ops ----------------------------------------------------
+    # -- page-level ops (preemption payloads, no cache entry) --------------
     def store_pages(self, kind: str, payloads: List[dict]) -> List[int]:
         pool = self.host[kind]
         assert pool is not None, f"no host pool for kind {kind!r}"
         return [pool.store(p) for p in payloads]
+
+    def fetch_pages(self, kind: str, pages) -> List[dict]:
+        pool = self.host[kind]
+        return [pool.fetch(p) for p in pages]
+
+    def free_pages(self, kind: str, pages):
+        """Release host pages; a page's buffers go back to the slabs with
+        its last reference. On CUDA a copy still queued from them stays
+        ordered before any later write into them: every write comes from
+        a copy on the same stream, or from the host after an event that
+        follows it."""
+        if pages:
+            self.host[kind].free(pages)
 
     # -- entry-level ops ---------------------------------------------------
     def store_entry(self, entry, payloads: Dict[str, List[dict]]):

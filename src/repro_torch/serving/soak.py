@@ -9,9 +9,8 @@ must survive at once:
 * shared-prefix families (radix hits; relay groups when ``relay_decode``)
   and exact-duplicate greedy prompts (CHAI snapshot capture, restore and
   host-side replay),
-* priority-1 arrivals (preemption, ROADMAP Queue 1, #9: until it is
-  ported, callers pass the workload with every ``priority`` set to 0;
-  the engine refuses priority 1),
+* priority-1 arrivals into a full slot pool (preemption: the KV swap-out
+  and swap-in, the ``swap.corrupt`` / ``swap.in`` fault sites),
 * scripted aborts mid-flight,
 * an optional ``FaultInjector`` plan threaded through every engine site.
 
@@ -21,7 +20,6 @@ idle-engine leak audit, and the engine's fault stats including the
 injector's replayable firing log, and, when the engine's telemetry is on,
 a ``"telemetry"`` section (the metrics snapshot, the Chrome trace and the
 request timelines; wall-clock-dependent, so no parity check reads it).
-The preemption fields stay 0 until #9.
 
 ``run_soak_pair`` runs the SAME workload fault-free and under a plan and
 computes the token-parity set: completed requests not named by any
@@ -132,7 +130,7 @@ def run_soak(cfg, params, ecfg: EngineConfig, *,
             int(uid): {"finish": r.finish_reason,
                        "tokens": [int(t) for t in r.generated],
                        "error": r.error,
-                       "preemptions": 0,            # until #9
+                       "preemptions": r.preemptions,
                        "cache_hit": r.cache_hit}
             for uid, r in sorted(tracked.items())},
         "unfinished": [int(u) for u, r in tracked.items()
@@ -141,7 +139,7 @@ def run_soak(cfg, params, ecfg: EngineConfig, *,
         "leaks": invariants_mod.audit_leaks(core),
         "fault_stats": core.fault_stats(),
         "prefix_stats": core.prefix_stats(),
-        "preemptions": 0,                           # until #9
+        "preemptions": core.preemptions,
     }
     if core.tel.enabled:
         # Wall-clock-dependent, so a section of its own: the replay and

@@ -356,5 +356,5 @@ def test_uids_stay_monotonic_and_front_door_refusals(models):
     assert [f["site"] for f in faulted.core.faults.fired] == ["pool.alloc"]
     with pytest.raises(ValueError, match="continuous"):
         LLM(tcfg, tparams, scheduler="cohort", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, #9"):
-        llm.generate(rng.integers(0, 64, size=8), priority=1)
+    out = llm.generate(rng.integers(0, 64, size=8), priority=1)[0]
+    assert out.request.priority == 1 and out.finish_reason == "length"

@@ -359,23 +359,22 @@ def test_exhausted_pool_queues_then_raises_when_impossible(models):
     dict(greedy_default_off=True),
 ], ids=["temperature", "stop_strings", "priority", "greedy_false"])
 def test_unported_settings_raise(models, kw):
-    """``priority`` (preemption, ROADMAP #9) is still refused at
-    submission. Sampling with temperature > 0, stop strings (with the
-    engine's detokenizer) and ``greedy=False`` serve since the front door
-    and the sampler were ported, and return every page."""
+    """Settings the port once refused now serve and return every page:
+    sampling with temperature > 0, stop strings (with the engine's
+    detokenizer) and ``greedy=False`` since the front door and the sampler
+    were ported, and a ``priority`` since preemption was (alone in the
+    engine it preempts nothing)."""
     _, tcfg, _, tparams, prompts = models
     greedy = not kw.pop("greedy_default_off", False)
     eng = ServingEngine(tcfg, tparams, EngineConfig(
         batch_slots=SLOTS, max_seq=S, greedy=greedy),
         detokenizer=lambda ids: " ".join(map(str, ids)), device="cpu")
-    if "priority" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.add_request(prompts[0], max_new_tokens=4, **kw)
-        assert not eng.queue
-        return
     req = eng.add_request(prompts[0], max_new_tokens=4, **kw)
-    assert req.sampling.greedy == bool(req.sampling.stop)
+    assert req.priority == kw.get("priority", 0)
+    assert req.sampling.greedy == (bool(req.sampling.stop)
+                                   or "priority" in kw)
     done = eng.run()
     assert done == [req] and len(req.generated) == 4
     assert req.finish_reason == "length"
     assert eng.dense_pool.pages_in_use == eng.chai_pool.pages_in_use == 0
+    assert eng.preemptions == req.preemptions == 0

@@ -4,9 +4,8 @@ JAX package's, on the CPU.
 ``tests/test_fault_soak.py``'s setting (a reduced fp32 chai-llama-7b, 2
 layers, d 32, vocab 128, warmup 3; 3 slots, page 8, the prefix cache and
 relay decode on, ``audit_level="deep"``) and its 24-request workload of
-seed 3 (shared-prefix families, snapshot duplicates, scripted aborts),
-with every ``priority`` set to 0 (preemption is not ported yet, ROADMAP
-Queue 1, #9), on the same weights. The plan arms every site the port
+seed 3 (shared-prefix families, snapshot duplicates, priority-1 arrivals
+that preempt, scripted aborts), on the same weights. The plan arms every site the port
 serves but ``kernel.decode``: an allocator failure (transient and error),
 a failed snapshot restore, a relay-residency fault, a prefill and a
 CLUSTER failure, NaN logits.
@@ -60,10 +59,7 @@ PLAN = [
 
 
 def _workload(build):
-    wl = build(3, 24, page_size=8, vocab=128)
-    for w in wl:
-        w["priority"] = 0
-    return wl
+    return build(3, 24, page_size=8, vocab=128)
 
 
 def _record_reference(monkeypatch):
@@ -128,6 +124,7 @@ def test_fault_soak_matches_reference(monkeypatch):
     wl = _workload(soak.build_workload)
     assert wl == _workload(jsoak.build_workload)
     assert any(w["abort_at"] is not None for w in wl)
+    assert any(w["priority"] == 1 for w in wl)
 
     held = _record_reference(monkeypatch)
     jfaulted = jsoak.run_soak(
@@ -161,6 +158,7 @@ def test_fault_soak_matches_reference(monkeypatch):
     for key in ("steps", "unfinished", "leaks", "fault_stats",
                 "preemptions"):
         assert faulted[key] == jfaulted[key], key
+    assert faulted["preemptions"] >= 1 and clean["preemptions"] >= 1
     # the prefix stats count the KV tiers' demotions and promotions too,
     # all 0 here (no kv_offload)
     assert faulted["prefix_stats"] == jfaulted["prefix_stats"]

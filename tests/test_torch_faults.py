@@ -14,7 +14,8 @@ differs at most by a two-head tie, ROADMAP "Two-head cluster ties"), the
 
 Port only: healing, a real exception in the decode propagating (the one
 deliberate divergence: only an injected ``kernel.decode`` fault degrades
-the decode), the refused sites of unported paths, and the deep audit
+the decode), every site served (the swap sites firing at a preemption),
+and the deep audit
 clean after every step of each engine path (paged, dense, chunked, prefix
 with relay, int8, reduced nemotron-4-15b).
 """
@@ -503,23 +504,40 @@ def test_real_decode_exception_propagates():
                                        ("offload.out", "#13"),
                                        ("offload.in", "#13")])
 def test_unported_sites_are_refused(site, item):
-    """A plan arming a site of an unported path (preemption, #9) is
-    refused at ``EngineCore`` construction, naming the ROADMAP item;
-    ``FaultSpec`` itself accepts the site, as the reference's does. The
-    KV tiers' sites (#13, ported) are served: the engine takes the plan."""
+    """No site is refused any more: the KV tiers' sites (#13) and, since
+    preemption (#9) was ported, the swap sites are served. The engine
+    takes a plan arming any of them, and a swap arm fires at its site when
+    a priority-1 arrival preempts a running request (``swap.corrupt`` at
+    the swap-out, ``swap.in`` at the swap-in), quarantining the victim
+    alone."""
     _, tcfg, _, tparams = _model()
     inj = FaultInjector([FaultSpec("pool.alloc", mode="transient"),
-                         FaultSpec(site)])
+                         FaultSpec(site, mode="corrupt"
+                                   if site == "swap.corrupt" else "error")])
     if site.startswith("offload."):
         core = EngineCore(tcfg, tparams, EngineConfig(
             **ECFG, prefix_cache=True, kv_offload=True), faults=inj,
             device="cpu")
         assert core.faults is inj and core.tiers is not None
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1, {item}"):
-        EngineCore(tcfg, tparams, EngineConfig(**ECFG), faults=inj,
-                   device="cpu")
+    core = EngineCore(tcfg, tparams, EngineConfig(**{**ECFG,
+                                                     "batch_slots": 1}),
+                      faults=inj, device="cpu")
+    rng = np.random.default_rng(4)
+    victim = core.add_request(rng.integers(1, 64, size=12).tolist(),
+                              SamplingParams(max_new_tokens=12))
+    for _ in range(4):
+        core.step()
+    preemptor = core.add_request(rng.integers(1, 64, size=6).tolist(),
+                                 SamplingParams(max_new_tokens=4),
+                                 priority=1)
+    _drain(core)
+    assert [f["site"] for f in core.faults.fired] == ["pool.alloc", site]
+    assert core.preemptions == 1
+    assert preemptor.finish_reason == "length"
+    assert victim.finish_reason == FINISH_ERROR
+    assert core.fault_stats()["swap_checksum_failures"] == int(
+        site == "swap.corrupt")
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,8 @@ def test_port_files_exist():
                 "core/elbow", "core/policy", "serving/faults",
                 "serving/invariants", "serving/soak",
                 "serving/telemetry", "serving/exporters",
-                "serving/kv_tiers"):
+                "serving/kv_tiers", "serving/async_api",
+                "launch/serve_http"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "src/repro_torch/configs/nemotron_4_15b.py" in names
     csrc = ROOT / "src/repro_torch/kernels/csrc"
@@ -81,9 +82,11 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
     instead of falling back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.configs.base import get_config, reduced
-    from repro_torch.launch import api_stream, offline_clustering, serve
+    from repro_torch.launch import (api_stream, offline_clustering, serve,
+                                    serve_http)
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.api import LLM
+    from repro_torch.serving.async_api import AsyncLLM
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.weights import params_from_numpy
     cfg = reduced(get_config("chai-llama-7b"), n_layers=1)
@@ -99,16 +102,18 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
         serve.main(["--reduced", "--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         LLM(cfg, params)
-    for main in (api_stream.main, offline_clustering.main):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AsyncLLM(cfg, params)
+    for main in (api_stream.main, offline_clustering.main, serve_http.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["--reduced"])
 
 
 def test_continuous_scheduler_names_the_next_slice():
     """The default ``EngineConfig()`` is the continuous scheduler on the
-    paged layout, and it runs, seeded sampling too; the setting of a later
-    slice (priority) raises ``NotImplementedError`` naming its ROADMAP
-    item, and ``kv_offload`` (#13, ported) serves."""
+    paged layout, and it runs, seeded sampling too; ``priority`` (#9,
+    ported) and ``kv_offload`` (#13, ported) serve: no setting of the
+    engine is refused any more."""
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -121,8 +126,9 @@ def test_continuous_scheduler_names_the_next_slice():
     eng.submit([1, 2, 3], max_new_tokens=2,
                sampling=SamplingParams(temperature=1.0, seed=4))
     assert [len(r.generated) for r in eng.run()] == [2, 2]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        eng.add_request([1, 2, 3], max_new_tokens=2, priority=2)
+    hi = eng.add_request([1, 2, 3], max_new_tokens=2, priority=2)
+    assert [r.uid for r in eng.run()][-1] == hi.uid
+    assert hi.priority == 2 and len(hi.generated) == 2
     tiered = ServingEngine(cfg, params, EngineConfig(kv_offload=True),
                            device="cpu")
     assert tiered.tiers is not None

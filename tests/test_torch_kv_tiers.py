@@ -13,8 +13,8 @@ tokens, ``tier_stats()`` and ``prefix_stats()`` equal, every promoted page
 ``torch.equal`` to the page demoted, and the tokens equal to an all-device
 run's (no pressure, no offload) at the same memberships.
 
-``test_preemption_swaps_through_host_pool`` waits for preemption (ROADMAP
-Queue 1, #9).
+The reference's ``test_preemption_swaps_through_host_pool`` is held in
+``tests/test_torch_preemption.py``.
 """
 import numpy as np
 import pytest

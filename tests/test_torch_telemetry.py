@@ -16,8 +16,8 @@ out), and the Prometheus samples; decode healing, the ``kernel.prefill``
 and ``kernel.cluster`` quarantines with their timeline events, and the
 soak report's telemetry section.
 
-The reference's preemption and ``AsyncLLM`` telemetry wait for ROADMAP
-Queue 1, #9.
+The preemption's telemetry is held in ``tests/test_torch_preemption.py``
+and ``AsyncLLM``'s accessors in ``tests/test_torch_async.py``.
 """
 import json
 
@@ -26,7 +26,9 @@ import pytest
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.serving import exporters as jexporters
+from repro.serving import soak as jsoak
 from repro.serving import telemetry as jtelemetry
+from repro.serving.engine import EngineConfig as JEngineConfig
 from repro_torch.serving import exporters, soak
 from repro_torch.serving.engine import EngineConfig, EngineCore
 from repro_torch.serving.sampling import SamplingParams
@@ -545,11 +547,13 @@ def test_kernel_fault_quarantine_on_timeline(site, uid, word):
 
 
 def test_soak_report_carries_telemetry_section():
-    _, tcfg, _, tparams = _model()
+    """The soak report's telemetry section at "trace", on the workload
+    with its priority-1 arrival; the schedule (steps, each request's
+    finish and preemptions) is the reference's ``run_soak``'s."""
+    jcfg, tcfg, jparams, tparams = _model()
     ecfg = {**ECFG, "batch_slots": 3, "prefix_cache": True}
     wl = soak.build_workload(3, 8, page_size=8, vocab=64)
-    for w in wl:
-        w["priority"] = 0                   # preemption waits for #9
+    assert any(w["priority"] == 1 for w in wl)
     report = soak.run_soak(tcfg, tparams, EngineConfig(**ecfg,
                                                        telemetry="trace"),
                            workload=[dict(w) for w in wl], device="cpu")
@@ -564,3 +568,11 @@ def test_soak_report_carries_telemetry_section():
     assert "telemetry" not in off
     assert off["requests"] == report["requests"]
     assert off["steps"] == report["steps"]
+    ref = jsoak.run_soak(jcfg, jparams, JEngineConfig(**ecfg),
+                         workload=[dict(w) for w in wl])
+    for key in ("steps", "preemptions", "unfinished", "leaks"):
+        assert off[key] == ref[key], key
+    assert {u: (r["finish"], r["preemptions"], len(r["tokens"]))
+            for u, r in off["requests"].items()} == \
+        {u: (r["finish"], r["preemptions"], len(r["tokens"]))
+         for u, r in ref["requests"].items()}
