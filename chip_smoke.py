@@ -66,8 +66,9 @@ result line):
    the KV bytes unchanged at every CLUSTER transition (GQA keeps its
    dense pages until retirement), empty pools, and both fused kernels
    held against their plain versions on the layer-0 GQA tensors of the
-   first all-STEADY step; then nemotron's MHA baseline as in phase 6, and
-   phase 8's prefix traffic with relay off then on (every request a
+   first all-STEADY step; then, on its first ``SIDE_DEPTH`` layers,
+   nemotron's MHA baseline as in phase 6 and phase 8's prefix traffic
+   with relay off then on (every request a
    ``"prefix"`` hit: a GQA model takes no CHAI snapshot; relay launches,
    relay tokens held against plain ones on margins, no page left after a
    clear);
@@ -115,19 +116,21 @@ result line):
    all-STEADY layer-0 tensors and the relay kernel on the first relay
    step's;
 13. local-attention rings and the softcap, after chai-llama-7b and
-   nemotron-4-15b are freed: full-width gemma2-9b (42 layers alternating
-   local and global, 16 heads over 8 KV heads, head_dim 224, window
-   4096, softcaps 50 / 30; bf16, random weights from a seed) through the
+   nemotron-4-15b are freed: gemma2-9b at full width on its first
+   ``SIDE_DEPTH`` of 42 layers (alternating local and global, 16 heads
+   over 8 KV heads, head_dim 224, window 4096, softcaps 50 / 30; bf16,
+   random weights from a seed, made at that depth) through the
    cohort on phase 5's traffic and the continuous engine on phase 6's,
    paged then dense, each followed by its MHA baseline: the layout's
-   fused kernel launched in its softcap mode 21 times a step with a
-   STEADY slot (the global layers) and nothing else, the local layers
+   fused kernel launched in its softcap mode once a global layer a step
+   with a STEADY slot and nothing else, the local layers
    decoding eagerly over their rings; the baselines launch nothing (the
    flash decode kernels have no softcap; every layer eager); paged ==
    dense tokens; ``kv_bytes()`` on the reference's formula with the
    rings; empty pools; the fused pair held at 2e-5 on the first
-   all-STEADY step's layer-0 global tensors. Then full-width
-   h2o-danube-1.8b (24 local layers, 32 heads over 8, head_dim 80) in a
+   all-STEADY step's layer-0 global tensors. Then h2o-danube-1.8b at
+   full width on its first ``SIDE_DEPTH`` of 24 local layers (32 heads
+   over 8, head_dim 80; its weights made at that depth) in a
    max_seq of 8192 with a 5000-token prompt (its ring wraps; the
    cohort's bucket is 8192): the cohort, then the continuous engine on
    the unified layout (no global layer, nothing paged), greedy tokens of
@@ -140,8 +143,9 @@ result line):
    call on int8 codes in the softcap mode; paged == dense tokens;
    ``kv_bytes()`` on the reference's formula; step times and memory
    beside the bf16 run's. gemma2's model-level suffix prefill
-   (``forward_fullseq(prefix_len, prefix_kv)``), bf16 and int8 pages: 21
-   launches of each prefill kernel in the softcap mode, greedy tokens
+   (``forward_fullseq(prefix_len, prefix_kv)``), bf16 and int8 pages: a
+   launch of each prefill kernel a global layer in the softcap mode,
+   greedy tokens
    held against the plain route on margins. h2o-danube-1.8b on int8
    (nothing quantized): its tokens equal its bf16 tokens;
 15. the front door (``serving.api``) on chai-llama-7b after phase 12, on
@@ -217,10 +221,11 @@ result line):
    demotes, the fourth promotes; every promoted page ``torch.equal`` to
    the page before its demotion, plans and tokens equal to the roomy
    run's, ``flash_prefill`` and ``paged_prefix_attend`` launched once a
-   layer per suffix prefill), the same under a corrupt ``offload.out``
-   arm (checksum failures caught at promotion, nothing promoted or
-   quarantined), and with a host pool of 12 pages (the int4 rung used, a
-   compressed hit dropped and re-planned); every pool empty after a
+   layer per suffix prefill), then, on the first ``SIDE_DEPTH`` layers,
+   the same under a corrupt ``offload.out`` arm (checksum failures
+   caught at promotion, nothing promoted or quarantined), and with a
+   host pool of 12 pages (the int4 rung used, a compressed hit dropped
+   and re-planned); every pool empty after a
    clear; demotion and promotion ms of a page of each pool (CUDA events
    around the copies, the CRC on the host clock) beside a 256 MB pinned
    host <-> device copy, the host link;
@@ -247,7 +252,33 @@ result line):
    ``launch.serve_http.selftest`` on loopback ports the OS picks, its
    engine built on the same weights (200 / SSE / 400 / 408 / 429 / 500 /
    503, the metrics and timeline routes);
-21. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
+21. the attention archs of ROADMAP #14 part B, after every earlier
+   model is freed: (a) full-width gemma3-4b at full depth (34 layers, 5
+   global: 5, 11, 17, 23, 29; window 1024; 8 heads over 4 KV groups,
+   head_dim 320, qk_norm; bf16, random weights from a seed) through
+   phase 13's path (``gemma2_path``) with its MHA baselines at full
+   depth: the cohort, then the continuous engine paged and dense, CHAI
+   then the MHA baseline; the fused pair launched 5 times a step with a
+   STEADY slot, the flash decode pair 5 times an MHA-baseline step, all
+   in their wide-head mode, the local layers eager; paged == dense
+   tokens; KV bytes unchanged at CLUSTER (GQA); the four kernels held at
+   2e-5 on the first all-STEADY (first full) step's first global layer.
+   (b) full-width deepseek-moe-16b at full depth (28 layers, MHA 16
+   heads, hd 128; the dense FFN then 27 MoE layers of 64 experts top-6
+   and 2 shared; 32.8 GB in bf16) on the continuous paged engine, CHAI
+   then the MHA baseline (``moe_serving_path``): launches 28 a step, KV
+   bytes falling at every CLUSTER, pools empty; then
+   ``moe_step_profile``: an all-STEADY and a mixed decode step between
+   CUDA events with every FFN call timed (the MoE FFN's share of the
+   step, the capacity form against its expert weights' bytes), and the
+   device-to-host copies of the next step of each kind. (c)
+   qwen3-moe-30b-a3b, internvl2-76b and musicgen-large on their first
+   ``SIDE_DEPTH`` layers at full widths, their weights made at the cut
+   config directly (``init_full_model(arch, n_layers)``: internvl2 is
+   141 GB in bf16, and qwen3's expert stacks would be staged in fp32),
+   through ``moe_serving_path``: launches n_layers a step, every pick's
+   logits finite, pools empty;
+22. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
    each of the four int8 modes, its launches those of its phase-11 path,
    a ``[share]`` row for each of the three share modes, its launches
    those of its phase-12 path, a ``[softcap]`` row for each of the two
@@ -262,8 +293,33 @@ result line):
    (``chai_qk[int8]``, ``paged_chai_qk[int8]``), which no path of the
    reference reaches: their launches are counted by mode
    (``kernels.chai_attention.MODE_LAUNCHES``) over every run of the
-   process and must be 0), the card's name and power limit, and, last,
+   process and must be 0), a ``[wide]`` row for each of the four decode
+   kernels at head dim 320, its launches those of its gemma3-4b path in
+   phase 21a, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
+
+Phase 3 also holds the wide head (``wide_head_checks``): the fused pair
+on its wide-head libraries (``build.VARIANTS``: the sources built again
+with the head dim fixed at 320) and the flash decode pair on its kWideHd
+instance, at gemma3-4b's layout (8 heads over 4 KV groups, 2 reps a
+group, bf16, page 16): several splits with a partial last one, a
+WARMUP-like row, a row of S = 65,536, and gemma3's full-width decode;
+each at 2e-5 against its plain version, paged == dense and two launches
+bitwise, a poisoned null page and poisoned positions past pos changing
+no bit, SDPA timed beside ``flash_decode`` with the backend it picks at
+head dim 320 named from its kernels; every such launch counted in the
+``wide`` mode; then the hd-128 rows of the four kernels on
+chai-llama-7b's shapes, timed in the same run. Phase 4 also runs the
+five archs of phase 21 reduced, cuda against cpu
+(``reduced_arch_checks``: the teacher-forced reference check, the
+continuous engine paged and dense, and forward and decode on float
+embeddings for the two frontend archs).
+
+Side paths (``SIDE_DEPTH``): phase 11's nemotron-4-15b int8 pair runs on
+the first SIDE_DEPTH layers against a K-only pair of that depth, and
+phase 14's gemma2-9b int8 CHAI runs on the first SIDE_DEPTH layers, their
+launches held against phase 13's per global layer; each logs its
+seconds.
 
 Phase 3 also holds the modes of the prefill pair and the relay kernel
 (``prefill_mode_checks``), every case on queries of std 4 under gemma2's
@@ -484,7 +540,11 @@ SUFFIX_NEW = (32, 48) * 4
 # and prefix runs and the int8 MHA baseline (phases 11 and 12, held
 # against K-only runs of the same depth, ``side_konly``), the sampler's
 # rate turns (15), the soak and the audit-cost runs (17a, 17c); on
-# gemma2-9b the MHA baselines (13, 14). Their checks hold per layer
+# gemma2-9b, every run of phases 13 and 14; nemotron-4-15b's MHA baseline,
+# prefix and relay runs (9) and int8 pair (11), h2o-danube-1.8b (13,
+# 14), the KV tiers' corrupt-arm and small-host runs (19), and the side
+# archs of phase 21c (gemma2's, danube's and their weights made at the
+# cut depth). Their checks hold per layer
 # (launches n_layers a step; byte ratios, tokens and schedules inside one
 # depth), the kernels see the full-width shapes, and the full-depth runs
 # are the main paths': the launch counts of phases 5-9 and 13 stand. The
@@ -1585,7 +1645,9 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
     general = ck.kv_body(k, k_scale, v, v_scale) == ck.KV_GENERAL
     cfg, _ = ck.dense_launch_config(q, kd, h2c, reps_per_group=rpg, ts=PAGE,
                                     share_values=share, general=general)
-    lib_smem = build.load("chai_fused_decode").chai_decode_smem_bytes(
+    lib = ("chai_fused_decode_wide" if q.shape[2] == ck.WIDE_HD
+           else "chai_fused_decode")
+    lib_smem = build.load(lib).chai_decode_smem_bytes(
         rpg, q.shape[2], h2c.shape[1], cfg.n_cap, int(general))
     if lib_smem != cfg.smem_bytes:
         raise AssertionError(f"{tag}: the kernel's block takes {lib_smem} B "
@@ -3302,9 +3364,9 @@ def flash_decode_pair(tag, q, k, v, pos, *, window=0, page=PAGE,
         q, k, v, pos, window=window, ts=page), d_out)
     _bitwise(f"{tag} paged_decode: two launches", fk.paged_decode(
         q, pool, bt_k, bt_v, pos, window=window), p_out)
-    cfg = fk.flash_decode_launch_config(b, q.shape[1], kv, n)
+    cfg = fk.flash_decode_launch_config(b, q.shape[1], kv, n, hd)
     lib_smem = build.load("flash_decode").flash_decode_smem_bytes(
-        cfg.heads_per_block)
+        cfg.heads_per_block, hd)
     if lib_smem != cfg.smem_bytes:
         raise AssertionError(f"{tag}: the flash decode block takes "
                              f"{lib_smem} B of shared memory, the host's "
@@ -3408,6 +3470,172 @@ def flash_decode_checks():
     return cases
 
 
+# ------------------------------------------ phase 3: the wide head ----
+GEMMA3 = "gemma3-4b"           # qk_norm, 5 local : 1 global, hd 320
+WIDE_ROWS = ("chai_fused_decode[wide]", "paged_chai_fused_decode[wide]",
+             "flash_decode[wide]", "paged_decode[wide]")
+
+
+def sdpa_backend(fn):
+    """The kernels one SDPA call runs (``device_profile``) and the backend
+    their names tell: flash, memory-efficient (cutlass), cuDNN, or the
+    math path (matmul and softmax kernels)."""
+    names = sorted(device_profile(fn, reps=3))
+    low = " ".join(names).lower()
+    backend = ("flash" if "flash" in low else
+               "cudnn" if "cudnn" in low else
+               "efficient" if ("fmha" in low or "efficient" in low
+                               or "cutlass" in low) else "math")
+    return backend, names
+
+
+def _poisoned_fused(tag, q, k, v, h2c, pos, rpg, gen):
+    """Positions past pos and the null page 0 poisoned with 999: the dense
+    and paged fused kernels' outputs keep every bit (tables past each
+    row's last live page name page 0, as the engine holds them)."""
+    k_pool, bt_k = to_pages(gen, k)
+    v_pool, bt_v = to_pages(gen, v)
+    bt_k, bt_v = null_past_pos(bt_k, pos), null_past_pos(bt_v, pos)
+    kw = dict(reps_per_group=rpg)
+    ref_p = ck.paged_chai_fused_decode(q, k_pool, bt_k, v_pool, bt_v, h2c,
+                                       pos, **kw)
+    ref_d = ck.chai_fused_decode(q, k, v, h2c, pos, ts=PAGE, **kw)
+    k_pool[0], v_pool[0] = 999.0, 999.0
+    past = (torch.arange(k.shape[2], device="cuda")[None, :]
+            > pos.long()[:, None])[:, None, :, None]
+    kp, vp = k.masked_fill(past, 999.0), v.masked_fill(past, 999.0)
+    got_p = ck.paged_chai_fused_decode(q, k_pool, bt_k, v_pool, bt_v, h2c,
+                                       pos, **kw)
+    got_d = ck.chai_fused_decode(q, kp, vp, h2c, pos, ts=PAGE, **kw)
+    torch.cuda.synchronize()
+    _bitwise(f"{tag}: paged, poisoned null page", got_p, ref_p)
+    _bitwise(f"{tag}: dense, poisoned positions past pos", got_d, ref_d)
+    _bitwise(f"{tag}: paged vs dense", ref_p, ref_d)
+    log(f"{tag}: null page 0 and positions past pos poisoned with 999: "
+        "outputs bitwise unchanged, paged == dense")
+
+
+def wide_head_checks():
+    """The four decode kernels gemma3-4b's global layers reach at head dim
+    320 (the fused pair's wide-head libraries, the flash decode pair's
+    kWideHd instance), on gemma3's layer layout (8 query heads over 4 KV
+    groups, 2 reps a group; bf16, page 16), each at 2e-5 against its plain
+    version: the fused pair through ``fused_pair_case`` (several splits
+    with a partial last one, a WARMUP-like row with an all-null K table,
+    one row of S = 65,536; paged == dense at page = tile, two launches and
+    emit + empty merge + finalize bitwise; device, back-to-back and single
+    times; the block's shared memory against the host's mirror), a null
+    page and positions past pos poisoned with no bit changed; the flash
+    pair through ``flash_decode_pair`` (gemma3's full-width decode at S
+    1024 and a row of S = 65,536; paged == dense bitwise; SDPA timed
+    beside ``flash_decode``, its backend named from its kernels), poisoned
+    likewise. Then the hd-128 rows of the same four kernels on
+    chai-llama-7b's shapes, timed in the same run. Every launch of a
+    head-dim-320 case counts in the ``wide`` mode, and no hd-128 launch
+    does. Returns ({wide row: [cases]}, {kernel: [hd-128 cases]})."""
+    gen = torch.Generator("cuda").manual_seed(31)
+    cfg = get_config(GEMMA3)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    _, rpg = clustering.chai_widths(cfg)
+    if hd != ck.WIDE_HD or rpg != 2:
+        raise AssertionError(f"{GEMMA3}: head_dim {hd}, r_max {rpg}")
+    wide = {row: [] for row in WIDE_ROWS}
+    narrow = {row.split("[")[0]: [] for row in WIDE_ROWS}
+    for tag, b, s, pos, warm in (
+            ("gemma3_splits_partial_last", 4, MAX_SEQ,
+             (1023, 1000, 700, 385), False),
+            ("gemma3_warmup_row", 4, MAX_SEQ, None, True),
+            ("gemma3_long_65536", 1, 65536, (65535,), False)):
+        q, k, v, h2c, p = synthetic_case(gen, b=b, h=h, kv=kv, rpg=rpg, s=s,
+                                         hd=hd, dtype=torch.bfloat16,
+                                         empty_rep=None)
+        if pos is not None:
+            p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        if warm:
+            h2c[1] = 0
+        before = dict(ck.MODE_LAUNCHES)
+        recs = fused_pair_case(f"wide_{tag}", q, k, v, h2c, p, rpg=rpg,
+                               gen=gen, null_k_rows=(1,) if warm else (),
+                               profile=True)
+        for name in ("chai_fused_decode", "paged_chai_fused_decode"):
+            n_wide = (ck.MODE_LAUNCHES.get(f"{name}[wide]", 0)
+                      - before.get(f"{name}[wide]", 0))
+            if not n_wide:
+                raise AssertionError(f"{tag} {name}: no launch counted in "
+                                     "the wide mode")
+            wide[f"{name}[wide]"].append(recs[name])
+        if not warm:
+            _poisoned_fused(f"wide_{tag}", q, k, v, h2c, p, rpg, gen)
+        del q, k, v
+        torch.cuda.empty_cache()
+    for tag, b, s, pos in (("gemma3_full_width", 4, MAX_SEQ, None),
+                           ("gemma3_long_65536", 1, 65536, (65535,))):
+        q = torch.randn(b, h, hd, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k = torch.randn(b, kv, s, hd, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        v = torch.randn(b, kv, s, hd, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        p = (torch.randint(300, s, (b,), generator=gen, device="cuda",
+                           dtype=torch.int32) if pos is None
+             else torch.tensor(pos, dtype=torch.int32, device="cuda"))
+        got, (pool, bt_k, bt_v) = flash_decode_pair(
+            f"wide_{tag}_bf16", q, k, v, p, library=True, profile=True,
+            gen=gen)
+        backend, names = sdpa_backend(sdpa_call(q, k, v, p))
+        for name in ("flash_decode", "paged_decode"):
+            got[name].update(library_backend=backend,
+                             library_kernels=names)
+            wide[f"{name}[wide]"].append(got[name])
+        log(f"wide_{tag}: SDPA at head dim {hd} runs the {backend} backend"
+            f" (its flash backend stops at head dim 256): kernels {names}")
+        ref_p = fk.paged_decode(q, pool, bt_k, bt_v, p)
+        ref_d = fk.flash_decode(q, k, v, p, ts=PAGE)
+        pool[0] = 999.0
+        past = (torch.arange(s, device="cuda")[None, :]
+                > p.long()[:, None])[:, None, :, None]
+        kp, vp = k.masked_fill(past, 999.0), v.masked_fill(past, 999.0)
+        torch.cuda.synchronize()
+        _bitwise(f"wide_{tag}: paged_decode, poisoned null page",
+                 fk.paged_decode(q, pool, bt_k, bt_v, p), ref_p)
+        _bitwise(f"wide_{tag}: flash_decode, poisoned positions past pos",
+                 fk.flash_decode(q, kp, vp, p, ts=PAGE), ref_d)
+        log(f"wide_{tag}: null page 0 and positions past pos poisoned with "
+            "999: outputs bitwise unchanged")
+        del q, k, v, kp, vp, pool
+        torch.cuda.empty_cache()
+    # the hd-128 rows in the same run: chai-llama-7b's full-width shapes
+    full = get_config(ARCH)
+    before = dict(ck.MODE_LAUNCHES)
+    q, k, v, h2c, p = synthetic_case(gen, b=4, h=32, kv=full.k_max, rpg=1,
+                                     s=MAX_SEQ, hd=128,
+                                     dtype=torch.bfloat16, empty_rep=7)
+    recs = fused_pair_case("narrow_llama_hd128", q, k, v, h2c, p, rpg=1,
+                           gen=gen, profile=True)
+    for name, rec in recs.items():
+        narrow[name].append(rec)
+    q, k, v = (torch.randn(shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for shape in ((4, 32, 128), (4, 32, MAX_SEQ, 128),
+                             (4, 32, MAX_SEQ, 128)))
+    got, _ = flash_decode_pair("narrow_llama_hd128_bf16", q, k, v, p,
+                               library=True, profile=True, gen=gen)
+    for name, rec in got.items():
+        narrow[name].append(rec)
+    if any("wide" in key and n != before.get(key, 0)
+           for key, n in ck.MODE_LAUNCHES.items()):
+        raise AssertionError("an hd-128 launch counted in the wide mode")
+    for row, cases in wide.items():
+        c, n = cases[0], narrow[row.split("[")[0]][0]
+        log(f"{row} beside hd 128, same run: device {c.get('device_ms')}"
+            f" ms against {n.get('device_ms')} ms, back to back "
+            f"{c['ms']:.4f} against {n['ms']:.4f} ms, single call "
+            f"{c.get('single_call_ms')} against "
+            f"{n.get('single_call_ms')} ms; bound {c['bound_ms']:.4f} "
+            f"against {n['bound_ms']:.4f} ms")
+    return wide, narrow
+
+
 # ------------------------------------------------------------ phase 4 ----
 def reduced_cfg(arch=ARCH):
     """The reduced model of phase 4: 2 layers, fp32. nemotron-4-15b at 12
@@ -3469,7 +3697,7 @@ def reduced_reference_check(arch=ARCH):
         hold(lg, lc)
         nxt = lc.argmax(-1)
     launched = ck.LAUNCHES["chai_fused_decode"] - before
-    if launched != 3 * cfg.n_layers:
+    if launched != 3 * cfg.n_global_layers:
         raise AssertionError(f"reduced STEADY launched {launched} kernels")
     log(f"reduced {cfg.name} (2 layers, fp32) cuda vs cpu: logits max abs "
         f"diff {worst:.3e} over prefill + 5 WARMUP + 3 STEADY steps")
@@ -3514,6 +3742,56 @@ def mode_launches(row, runs=None):
                for key, n in run.items()
                if key.partition("[")[0] == base
                and want <= set(key.partition("[")[2].rstrip("]").split("+")))
+
+
+NEW_ARCHS = (GEMMA3, "deepseek-moe-16b", "qwen3-moe-30b-a3b",
+             "internvl2-76b", "musicgen-large")
+
+
+def reduced_embeddings_check(arch):
+    """A frontend arch's float embeddings on the card against the CPU:
+    ``forward_fullseq`` on (B, T, d) embeddings through the adapter, a
+    prefill into a decode state, then ``decode_step`` with (B, d)
+    embeddings, logits at 1e-4."""
+    cfg, params_cpu, params_gpu = _reduced_model(arch)
+    gen = torch.Generator().manual_seed(3)
+    emb = torch.randn(2, 12, cfg.d_model, generator=gen)
+    steps_emb = torch.randn(3, 2, cfg.d_model, generator=gen)
+    worst = 0.0
+    for dev, params in (("cpu", params_cpu), ("cuda", params_gpu)):
+        lf, _ = tfm.forward_fullseq(params, cfg, emb.to(dev))
+        st = tfm.init_decode_state(cfg, 2, 32, dev)
+        lp, st = tfm.forward_fullseq(params, cfg, emb.to(dev), state=st,
+                                     logits_slice="last")
+        ld = []
+        for e in steps_emb:
+            lg, st = tfm.decode_step(params, cfg, None, st,
+                                     embeddings=e.to(dev))
+            ld.append(lg)
+        out = [lf, lp] + ld
+        if dev == "cpu":
+            want = out
+            continue
+        for g, c in zip(out, want):
+            torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=1e-4)
+            worst = max(worst, float((g.cpu() - c).abs().max()))
+    log(f"reduced {cfg.name} ({cfg.frontend} frontend) embeddings cuda vs "
+        f"cpu: forward, prefill and 3 decode steps through the adapter, "
+        f"logits max abs diff {worst:.3e}")
+
+
+def reduced_arch_checks():
+    """Phase 4 for the archs of ROADMAP #14 part B (gemma3-4b with
+    qk_norm and local layers, the MoE archs, the frontend archs), reduced
+    (2 layers, fp32) on the card against the CPU: the teacher-forced
+    reference check (prefill, WARMUP, STEADY through the fused kernel on
+    the global layers), the continuous engine paged and dense, and for
+    the frontend archs forward and decode on embeddings."""
+    for arch in NEW_ARCHS:
+        reduced_reference_check(arch)
+        reduced_continuous_check(arch)
+        if get_config(arch).frontend != "none":
+            reduced_embeddings_check(arch)
 
 
 def _reduced_model(arch=ARCH):
@@ -3938,8 +4216,15 @@ def serve(cfg, params, use_chai, prompts=PROMPT_LENS, max_seq=MAX_SEQ,
     return eng, sorted(done, key=lambda r: r.uid), time.time() - t0, phases
 
 
-def init_full_model(arch=ARCH):
+def init_full_model(arch=ARCH, n_layers=None):
+    """The arch's seeded weights on the card at full width; with
+    ``n_layers``, made at the cut config directly (``cut_config``): the
+    weights of a model larger than the card (internvl2-76b, 141 GB in
+    bf16), or whose fp32 staging of a leaf would not fit beside the rest
+    (qwen3-moe-30b-a3b's expert stacks), are never made whole."""
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cut_config(cfg, n_layers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -3971,15 +4256,27 @@ def side_konly(cfg, params):
     return out
 
 
-def cut_depth(cfg, params, n=SIDE_DEPTH):
-    """The first ``n`` layers of ``cfg`` and ``params``: the stacked
-    per-layer weights are sliced (views), every width is kept."""
-    counts = tuple(cfg.chai.cluster_counts[:n])
+def cut_config(cfg, n=SIDE_DEPTH):
+    """The first ``n`` layers of ``cfg``, every width kept; the cluster
+    counts, where the config gives them, those of its first attention
+    layers."""
     cut = cfg.replace(n_layers=n, layer_types=cfg.layer_types[:n],
-                      ffn_types=cfg.ffn_types[:n]).with_chai(
-                          cluster_counts=counts)
-    return cut, {g: ({k: w[:n] for k, w in grp.items()}
-                     if g in ("attn", "ffn") else grp)
+                      ffn_types=cfg.ffn_types[:n])
+    return cut.with_chai(
+        cluster_counts=tuple(cfg.chai.cluster_counts[:cut.n_attn_layers]))
+
+
+def cut_depth(cfg, params, n=SIDE_DEPTH):
+    """The first ``n`` layers of ``cfg`` and ``params``: each stacked
+    group is sliced (views) to its own family's layers among the first
+    ``n`` (the layer plan's counters: ``attn`` over the attention layers,
+    the dense ``ffn`` group over the dense-FFN layers, ``moe`` over the
+    MoE layers), every width is kept."""
+    cut = cut_config(cfg, n)
+    keep = {"attn": cut.n_attn_layers, "ffn": cut.n_dense_ffn,
+            "moe": cut.n_moe_ffn}
+    return cut, {g: ({k: w[:keep[g]] for k, w in grp.items()}
+                     if g in keep else grp)
                  for g, grp in params.items()}
 
 
@@ -4346,7 +4643,7 @@ def _check_kv_bytes(run, label):
     hist = eng.kv_bytes_history
     falls = [(before, hist[idx]["kv_bytes"])
              for before, idx, _ in run["transitions"]]
-    if (len(falls) != len(CONT_PROMPT_LENS)
+    if (len(falls) != len(run["traffic"][0])
             or not all(after < before for before, after in falls)):
         raise AssertionError(f"{label}: KV bytes around CLUSTER: {falls}")
     if eng.dense_pool.pages_in_use or eng.chai_pool.pages_in_use:
@@ -4907,7 +5204,7 @@ def _check_gqa_kv_bytes(run, label):
     hist = eng.kv_bytes_history
     around = [(before, hist[idx]["kv_bytes"])
               for before, idx, _ in run["transitions"]]
-    if (len(around) != len(CONT_PROMPT_LENS)
+    if (len(around) != len(run["traffic"][0])
             or any(after != before for before, after in around)):
         raise AssertionError(f"{label}: KV bytes around CLUSTER: {around}")
     if eng.chai_pool is not None or eng.dense_pool.pages_in_use:
@@ -5659,16 +5956,49 @@ def serve_local(cfg, params, use_chai, prompts, max_seq, idents=None):
     return eng, done, wall, phases, margins
 
 
+def local_mha_want(cfg, layout, steps, launched):
+    """The launches and eager decode-attention calls of ``steps`` MHA
+    baseline decode steps of a model with local layers: the global layers
+    take the layout's flash decode kernel (``flash_decode`` on the dense
+    and cohort layouts, ``paged_decode`` on the paged one) unless the
+    config caps its scores (the flash decode kernels have no softcap, as
+    the Pallas ones), every other layer the eager attention over its ring.
+    ``launched``: the run's counts (their keys). Returns (launches,
+    eager calls)."""
+    flash = bool(cfg.n_global_layers) and not cfg.attn_logit_softcap
+    want = {name: 0 for name in launched}
+    if flash:
+        want["paged_decode" if layout == "paged" else "flash_decode"] = (
+            cfg.n_global_layers * steps)
+    return want, (cfg.n_local_layers if flash else cfg.n_layers) * steps
+
+
+def _check_wide(cfg, launches, label, run=-1):
+    """On a head dim of 320 every launch of a decode kernel the run made
+    counts in the ``wide`` mode (the run's launches by mode, filed in
+    MODE_RUNS at index ``run``); on any other head dim none does."""
+    modes = MODE_RUNS[run]
+    wide = {k.split("[")[0]: n for k, n in modes.items() if "wide" in k}
+    want = ({k: n for k, n in launches.items() if n and "decode" in k
+             and k != "relay_prefix_decode"}
+            if cfg.head_dim == ck.WIDE_HD else {})
+    if wide != want:
+        raise AssertionError(f"{label}: launches in the wide mode {wide}, "
+                             f"expected {want}")
+
+
 def local_cohort(cfg, params, label, prompts=PROMPT_LENS, max_seq=MAX_SEQ):
     """The cohort on a local-layer model (phase 5's traffic, or
     ``prompts``), CHAI then CHAI off: the CHAI run launches
     ``chai_fused_decode`` once per global layer and STEADY step, every
     call in the config's softcap mode, and nothing else (local layers
     decode eagerly over their rings); WARMUP takes the eager attention on
-    every layer. The MHA baseline launches nothing: every layer of every
-    step takes the eager attention (the flash decode kernels have no
-    softcap and no ring). Returns ({path: launches}, the CHAI run's
-    summary with its tokens, margins and membership)."""
+    every layer. The MHA baseline (``local_mha_want``) launches
+    ``flash_decode`` once per global layer and step unless the config
+    caps its scores, and runs every other layer eagerly (the flash
+    decode kernels have no softcap and no ring). Returns ({path:
+    launches}, the CHAI run's summary with its tokens, margins and
+    membership)."""
     cap = _Capture()
     idents = {}
     chai_core.kops = cap
@@ -5695,6 +6025,7 @@ def local_cohort(cfg, params, label, prompts=PROMPT_LENS, max_seq=MAX_SEQ):
                              f" eager calls {chai_eager}, expected "
                              f"{warm * cfg.n_layers}")
     _check_caps(cfg, cap.caps, label, cap.dtypes)
+    _check_wide(cfg, launches, label)
     n_tok = sum(counts)
     log(f"{label}: served {len(done)} requests (prompts {prompts}, bucket "
         f"{eng._prompt_bucket(max(prompts), max_seq)}, {MAX_NEW} new tokens "
@@ -5711,13 +6042,17 @@ def local_cohort(cfg, params, label, prompts=PROMPT_LENS, max_seq=MAX_SEQ):
                                                 max_seq)
     m_launches = _launches()
     steps = m_eng.steps_executed
-    if any(m_launches.values()) or EAGER["calls"] != cfg.n_layers * steps:
+    m_want, m_eager = local_mha_want(cfg, "cohort", steps, m_launches)
+    if m_launches != m_want or EAGER["calls"] != m_eager:
         raise AssertionError(f"{label} MHA baseline: launches {m_launches}, "
-                             f"eager calls {EAGER['calls']}, expected "
-                             f"{cfg.n_layers * steps}")
-    log(f"{label} MHA baseline: {steps} decode steps, no launch, "
-        f"{EAGER['calls']} eager attention calls (every layer: the flash "
-        f"decode kernels take no softcap and no ring); "
+                             f"expected {m_want}; eager calls "
+                             f"{EAGER['calls']}, expected {m_eager}")
+    _check_wide(cfg, m_launches, f"{label} MHA baseline")
+    log(f"{label} MHA baseline: {steps} decode steps, launches "
+        f"{ {k: n for k, n in m_launches.items() if n} }, "
+        f"{EAGER['calls']} eager attention calls (the local layers, and "
+        f"the global ones under a softcap: the flash decode kernels take "
+        f"no softcap and no ring); "
         f"{n_tok / m_wall:.1f} tok/s in {m_wall:.3f} s (CHAI run "
         f"{n_tok / wall:.1f} tok/s in {wall:.3f} s); by phase "
         + ", ".join(f"{k} {v:.4f}" for k, v in m_phases.items()))
@@ -5760,19 +6095,25 @@ def _check_local_kv_bytes(cfg, run, layout):
             f"rectangles {dense:,} + rings {ring:,}")
 
 
-def gemma2_path(cfg, params, label="gemma2"):
-    """Full-width gemma2-9b (phase 13; phase 14 under int8): the cohort
-    on phase 5's traffic and the continuous engine on phase 6's, paged
-    then dense, each CHAI run followed by its MHA baseline (on the first
-    SIDE_DEPTH layers). The fused
-    kernels run in the softcap mode (under int8: the int8 x softcap mode,
-    on int8 codes and scales) on the 21 global layers only: each CHAI run
-    launches its layout's kernel 21 times a step with a STEADY slot and
-    nothing else; paged == dense tokens; ``kv_bytes()`` on the formula
-    with the rings; KV bytes unchanged at CLUSTER (GQA); empty pools; and
-    both kernels held at 2e-5 against their plain versions on the first
-    all-STEADY step's layer-0 global tensors (the model's layer 1), with
-    device, back-to-back and single times and the bound. Returns ({path:
+def gemma2_path(cfg, params, label="gemma2", mha_depth=SIDE_DEPTH,
+                traffic=(CONT_PROMPT_LENS, CONT_MAX_NEW)):
+    """A full-width model with local and global layers: gemma2-9b (phase
+    13; phase 14 under int8) or gemma3-4b (phase 21a): the cohort on
+    phase 5's traffic and the continuous engine on phase 6's, paged then
+    dense, each CHAI run followed by its MHA baseline (on the first
+    ``mha_depth`` layers; None: every layer); ``traffic``: the continuous
+    runs' (prompt lengths, new tokens). The fused kernels run on
+    the global layers only (gemma2's in the softcap mode, under int8
+    the int8 x softcap mode; gemma3's 5 at head dim 320, their wide-head
+    mode): each CHAI run launches its layout's kernel once per global
+    layer a step with a STEADY slot and nothing else; the MHA baselines
+    as ``local_mha_want`` says; paged == dense tokens; ``kv_bytes()`` on
+    the formula with the rings; KV bytes unchanged at CLUSTER (GQA);
+    empty pools; and both kernels held at 2e-5 against their plain
+    versions on the first all-STEADY step's layer-0 global tensors, with
+    device, back-to-back and single times and the bound; where the
+    baselines launch the flash decode pair, both held likewise on the
+    first full decode step's first global layer. Returns ({path:
     launches}, {kernel: main case}, {path: summary})."""
     _, r_max = clustering.chai_widths(cfg)
     ng = cfg.n_global_layers
@@ -5780,7 +6121,7 @@ def gemma2_path(cfg, params, label="gemma2"):
     runs = {}
     for layout in ("paged", "dense"):
         name = f"{label} {layout}"
-        run = serve_continuous(cfg, params, layout)
+        run = serve_continuous(cfg, params, layout, traffic=traffic)
         calls = run["calls"]
         _check_served(cfg, run, name)
         _check_caps(cfg, run["caps"], name, run["dtypes"])
@@ -5792,6 +6133,7 @@ def gemma2_path(cfg, params, label="gemma2"):
             raise AssertionError(f"{name}: launches {run['launches']}, "
                                  f"expected {want} ({ng} a step with a "
                                  "STEADY slot)")
+        _check_wide(cfg, run["launches"], name)
         rpg = run["capture"][op, "steady"]["kw"].get("reps_per_group")
         if rpg != r_max:
             raise AssertionError(f"{name}: reps_per_group {rpg}")
@@ -5807,22 +6149,27 @@ def gemma2_path(cfg, params, label="gemma2"):
         launches[f"{label}_continuous_{layout}"] = run["launches"]
         torch.cuda.empty_cache()
         EAGER["calls"] = 0
-        m_cfg, m_params = cut_depth(cfg, params)
-        m_run = serve_continuous(m_cfg, m_params, layout, use_chai=False)
+        m_cfg, m_params = ((cfg, params) if mha_depth is None
+                           else cut_depth(cfg, params, mha_depth))
+        m_run = serve_continuous(m_cfg, m_params, layout, use_chai=False,
+                                 traffic=traffic)
         m_calls = m_run["calls"].get("mha_step", 0)
-        if (any(m_run["launches"].values())
-                or EAGER["calls"] != m_cfg.n_layers * m_calls
+        m_want, m_eager = local_mha_want(m_cfg, layout, m_calls,
+                                         m_run["launches"])
+        if (m_run["launches"] != m_want or EAGER["calls"] != m_eager
                 or not m_calls):
             raise AssertionError(f"{name} MHA baseline: launches "
-                                 f"{m_run['launches']}, eager calls "
-                                 f"{EAGER['calls']}")
+                                 f"{m_run['launches']}, expected {m_want}; "
+                                 f"eager calls {EAGER['calls']}, expected "
+                                 f"{m_eager}")
+        _check_wide(m_cfg, m_run["launches"], f"{name} MHA baseline")
         if m_run["eng"].paged and m_run["eng"].dense_pool.pages_in_use:
             raise AssertionError(f"{name} MHA baseline: pages left in use")
         _log_served(m_run, f"{name} MHA baseline")
-        log(f"{name} MHA baseline: no launch, {EAGER['calls']} eager "
-            "attention calls (every layer of every step)")
+        log(f"{name} MHA baseline ({m_cfg.n_layers} layers): launches "
+            f"{ {k: n for k, n in m_run['launches'].items() if n} }, "
+            f"{EAGER['calls']} eager attention calls")
         m_run.pop("eng")
-        m_run.pop("prefill")
         runs[f"mha_{layout}"] = m_run
         launches[f"{label}_mha_{layout}"] = m_run["launches"]
         torch.cuda.empty_cache()
@@ -5844,6 +6191,21 @@ def gemma2_path(cfg, params, label="gemma2"):
         raise AssertionError(f"{label}: paged vs dense kernel on the first "
                              "all-STEADY step differ")
     cases = first_steady_cases(label, pc, dc)
+    mp = runs["mha_paged"].pop("prefill").get(("paged_decode", SLOTS))
+    md = runs["mha_dense"].pop("prefill").get(("flash_decode", SLOTS))
+    if md is not None:
+        pa = (mp["q"], mp["pool"], mp["bt_k"], mp["bt_v"], mp["pos"])
+        da = (md["q"], md["k"], md["v"], md["pos"])
+        ts = int(md["ts"])
+        for name, args, kw in (("flash_decode", da,
+                                dict(ts=ts, library=True)),
+                               ("paged_decode", pa, {})):
+            rec, _ = flash_decode_case(name, args, profile=True, **kw)
+            cases[name] = dict(case=f"{label}_mha_first_full_step_global",
+                               **rec)
+            _log_flash_decode(name, cases[name])
+        _bitwise(f"{label}: paged_decode vs flash_decode on the first full "
+                 "step", fk.paged_decode(*pa), fk.flash_decode(*da, ts=ts))
     summaries = {k: _run_summary(v) for k, v in runs.items()}
     summaries["cohort"] = {k: v for k, v in cohort_sum.items()
                            if k not in ("membership", "margins")}
@@ -5922,8 +6284,9 @@ def gemma2_suffix_prefill_path(cfg, params, label):
     int8: codes and scales) moved to shuffled pool pages, then a
     128-token suffix over them. Every global layer merges
     ``paged_prefix_attend`` over the pages with ``flash_prefill`` over
-    the suffix, both in the softcap mode (the pool int8 under int8): 21
-    launches of each and nothing else. The logits are finite and hold
+    the suffix, both in the softcap mode (the pool int8 under int8): a
+    launch of each a global layer and nothing else. The logits are
+    finite and hold
     the plain route's (the same call with every prefill op on its plain
     version) greedy token on every position whose plain top-2 margin
     exceeds CHUNK_MARGIN (bf16 activations round apart between the two
@@ -7385,7 +7748,7 @@ def kv_tiers_path(cfg, params):
     launches = {"tiers_offload": run["launches"]}
     run.clear()
     # the corrupt offload.out arm: caught at promotion, re-planned cold
-    bad = serve_tiers(cfg, params, waves, kv_offload=True,
+    bad = serve_tiers(*cut_depth(cfg, params), waves, kv_offload=True,
                       num_pages=TIER_DENSE_PAGES, host_pages=TIER_HOST_PAGES,
                       faults=FaultInjector([FaultSpec(
                           "offload.out", mode="corrupt", count=-1)]))
@@ -7402,7 +7765,7 @@ def kv_tiers_path(cfg, params):
     launches["tiers_corrupt"] = bad["launches"]
     bad.clear()
     # a host pool too small for the demoted set: the int4 rung
-    small = serve_tiers(cfg, params, waves, kv_offload=True,
+    small = serve_tiers(*cut_depth(cfg, params), waves, kv_offload=True,
                         num_pages=TIER_DENSE_PAGES, host_pages=TIER_SMALL_HOST,
                         compressed_pages=TIER_COMP_PAGES)
     sts = small["eng"].tier_stats()
@@ -7774,6 +8137,274 @@ def async_path(cfg, params):
 
 
 
+# ----------------------------------------------------------- phase 21 ----
+DEEPSEEK = "deepseek-moe-16b"   # MHA 16 heads, hd 128; dense FFN then 27 MoE
+# Phase 21's continuous traffic: phase 6's first six prompts, 24 or 32 new
+# tokens each; on 4 slots it still has mixed and all-STEADY steps, a
+# CLUSTER a request and admissions after retirements, in about half of
+# phase 6's decode steps (the script's time limit).
+ZOO_TRAFFIC = (CONT_PROMPT_LENS[:6], (24, 32) * 3)
+SIDE_ARCHS = ("qwen3-moe-30b-a3b", "internvl2-76b", "musicgen-large")
+
+
+def _free():
+    """Collect the engines of earlier runs and release the card's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gemma3_path():
+    """Phase 21a: full-width gemma3-4b (34 layers, 5 of them global: 5,
+    11, 17, 23, 29; window 1024; 8 heads over 4 KV groups, head_dim 320,
+    qk_norm; bf16, random weights from a seed) through ``gemma2_path`` with
+    every MHA baseline at full depth: the cohort (phase 5's traffic) and
+    the continuous engine on ZOO_TRAFFIC, paged then dense, CHAI then the
+    MHA baseline. The fused pair
+    in its wide-head mode 5 times a step with a STEADY slot, the flash
+    decode pair in its wide mode 5 times an MHA-baseline step, the local
+    layers eager; paged == dense tokens; KV bytes unchanged at CLUSTER
+    (GQA keeps its dense pages, as the reference does); empty pools.
+    Returns ``gemma2_path``'s triple."""
+    cfg, params = init_full_model(GEMMA3)
+    ids = tuple(i for i, t in enumerate(cfg.layer_types)
+                if t == "attn_global")
+    if (cfg.n_layers, ids, cfg.window_size, cfg.head_dim) != (
+            34, (5, 11, 17, 23, 29), 1024, ck.WIDE_HD):
+        raise AssertionError(f"{GEMMA3}: layers {cfg.n_layers}, global "
+                             f"{ids}, window {cfg.window_size}, head_dim "
+                             f"{cfg.head_dim}")
+    t0 = time.time()
+    out = gemma2_path(cfg, params, label="gemma3", mha_depth=None,
+                      traffic=ZOO_TRAFFIC)
+    log(f"phase 21a (gemma3-4b, {cfg.n_layers} layers): "
+        f"{time.time() - t0:.1f} s")
+    del params
+    _free()
+    return out
+
+
+class _FfnTimer:
+    """Stands in for ``models.transformer._ffn``: while ``on``, CUDA events
+    around each call, kept by kind (``dense`` or ``moe``, from the layer
+    plan) with the form the MoE call took."""
+
+    def __init__(self):
+        self.inner, self.on, self.events = tfm._ffn, False, []
+
+    def __call__(self, h, params, cfg, plan, i, moe_impl):
+        if not self.on:
+            return self.inner(h, params, cfg, plan, i, moe_impl)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.inner(h, params, cfg, plan, i, moe_impl)
+        b.record()
+        kind = "dense" if plan["moe"][i] is None else f"moe_{moe_impl}"
+        self.events.append((kind, a, b))
+        return out
+
+
+def _timed_step(core, timer):
+    """One ``core.step()`` between CUDA events, its FFN calls timed
+    (``timer``). Returns (step ms, {FFN kind: [ms a call]})."""
+    timer.events.clear()
+    timer.on = True
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    n0 = core.steps_executed
+    a.record()
+    try:
+        core.step()
+    finally:
+        timer.on = False
+    b.record()
+    b.synchronize()
+    if core.steps_executed != n0 + 1:
+        raise AssertionError("the timed step decoded nothing")
+    by_kind = {}
+    for kind, x, y in timer.events:
+        by_kind.setdefault(kind, []).append(x.elapsed_time(y))
+    return a.elapsed_time(b), by_kind
+
+
+def _step_copies(core, kind):
+    """(device-to-host copies, device events) of the next decode step of
+    ``core``, of ``kind`` ("steady": every occupied slot STEADY; "mixed":
+    WARMUP and STEADY slots), from a whole ``torch.profiler`` trace: a
+    step whose trace is not whole is followed by the next, with twice
+    the sleep at the window's edges, up to PROFILE_TRIES steps, as
+    ``_decode_step_copies`` does."""
+    for _ in range(PROFILE_TRIES):
+        n0 = core.steps_executed
+        got = _profiled_copies(core.step, PROFILE_EDGE_S[0])
+        phases = set(core._phases[core._phases
+                                  != chai_cache.PHASE_FREE].tolist())
+        want = ({chai_cache.PHASE_STEADY} if kind == "steady" else
+                {chai_cache.PHASE_WARMUP, chai_cache.PHASE_STEADY})
+        if core.steps_executed != n0 + 1 or phases != want:
+            raise AssertionError(f"the profiled step was no {kind} decode "
+                                 f"step: phases {phases}")
+        if got is not None:
+            return got[0], got[1]
+        PROFILE_EDGE_S[0] *= 2
+    raise AssertionError(f"no whole profile of a {kind} decode step in "
+                         f"{PROFILE_TRIES} tries")
+
+
+def moe_step_profile(cfg, params):
+    """Phase 21b's decode-step breakdown on a bare continuous paged
+    engine, 3 requests in STEADY: one all-STEADY step (its MoE layers in
+    the capacity form, the CHAI step's) and, after a fourth request is
+    admitted, one mixed step (the ragged form), each between CUDA events
+    with every FFN call timed: the MoE FFN's share of the step; then the
+    device-to-host copies of the next step of each kind, counted as phase
+    17c counts them (``_profiled_copies``). The capacity buffer reads
+    every expert's weights a call: their bytes over the card's rate are
+    logged beside the measured MoE call. Returns a summary dict."""
+    core = EngineCore(cfg, params, EngineConfig(
+        batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE))
+    rng = np.random.default_rng(0)
+    for n in CONT_PROMPT_LENS[:SLOTS - 1]:
+        core.add_request(rng.integers(0, cfg.vocab_size, size=n),
+                         SamplingParams(max_new_tokens=40))
+    for _ in range(40):
+        live = core._phases[:SLOTS - 1]
+        if (live == chai_cache.PHASE_STEADY).all():
+            break
+        core.step()
+    else:
+        raise AssertionError("the requests never reached STEADY")
+    timer = _FfnTimer()
+    tfm._ffn = timer
+    out = {}
+    try:
+        for kind in ("steady", "mixed"):
+            if kind == "mixed":
+                core.add_request(rng.integers(0, cfg.vocab_size, size=96),
+                                 SamplingParams(max_new_tokens=16))
+                core.step()             # admission, prefill, a mixed step
+                phases = set(core._phases.tolist())
+                if not {chai_cache.PHASE_WARMUP,
+                        chai_cache.PHASE_STEADY} <= phases:
+                    raise AssertionError(f"no mixed step: phases {phases}")
+            step_ms, ffn = _timed_step(core, timer)
+            copies, n_events = _step_copies(core, kind)
+            moe_ms = sum(sum(v) for k, v in ffn.items() if k != "dense")
+            out[kind] = dict(
+                step_ms=step_ms, ffn_ms={k: sum(v) for k, v in ffn.items()},
+                moe_layer_ms=statistics.mean(
+                    x for k, v in ffn.items() if k != "dense" for x in v),
+                moe_share=moe_ms / step_ms, copies=copies,
+                device_events=n_events)
+            log(f"{cfg.name} {kind} decode step: {step_ms:.2f} ms between "
+                f"events; FFN calls by kind (ms, sum): "
+                f"{ {k: round(sum(v), 3) for k, v in ffn.items()} }; the "
+                f"MoE FFN {moe_ms:.2f} ms = {100 * moe_ms / step_ms:.1f}% of "
+                f"the step ({out[kind]['moe_layer_ms']:.3f} ms a MoE layer);"
+                f" the next {kind} step: {copies} device-to-host copies, "
+                f"{n_events} device events")
+    finally:
+        tfm._ffn = timer.inner
+        for r in list(core._slot_req):
+            if r is not None:
+                core.abort(r.uid)
+    every = (3 * cfg.d_model * cfg.moe_d_ff * cfg.n_experts
+             * tfm.model_dtype(cfg).itemsize)
+    log(f"{cfg.name}: the capacity form reads every expert's weights a "
+        f"call, {every:,} B a MoE layer = "
+        f"{every / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s, against "
+        f"{out['steady']['moe_layer_ms']:.3f} ms measured a MoE layer of "
+        "the all-STEADY step")
+    out["expert_bytes_a_layer"] = every
+    return out
+
+
+def moe_serving_path(cfg, params, label):
+    """Phases 21b and 21c: the continuous paged engine on ZOO_TRAFFIC,
+    CHAI then the MHA baseline: the CHAI run launches
+    ``paged_chai_fused_decode`` n_layers times a mixed or all-STEADY step
+    and nothing else; the baseline ``paged_decode`` n_layers times a step
+    and nothing else, the eager decode attention never; every pick's
+    logits finite and of the vocabulary's width (``_check_logits``); KV
+    bytes falling at every CLUSTER on an MHA model (its K pages go to the
+    clustered pool), unchanged on a GQA one; the pools empty after each
+    run. Returns ({path: launches}, {run: _run_summary})."""
+    t0 = time.time()
+    run = serve_continuous(cfg, params, "paged", traffic=ZOO_TRAFFIC)
+    calls = run["calls"]
+    _check_served(cfg, run, label)
+    want = {k: 0 for k in run["launches"]}
+    want["paged_chai_fused_decode"] = cfg.n_layers * (
+        calls["mixed_step"] + calls["steady_step"])
+    if run["launches"] != want:
+        raise AssertionError(f"{label}: launches {run['launches']}, "
+                             f"expected {want}")
+    _check_wide(cfg, run["launches"], label)
+    _log_served(run, label)
+    (_check_kv_bytes if cfg.is_mha else _check_gqa_kv_bytes)(run, label)
+    chai = _run_summary(run)
+    launches = {label: run["launches"]}
+    run.clear()
+    _free()
+    EAGER["calls"] = 0
+    m_run = serve_continuous(cfg, params, "paged", use_chai=False,
+                             traffic=ZOO_TRAFFIC)
+    m_calls = m_run["calls"].get("mha_step", 0)
+    m_want = {k: 0 for k in m_run["launches"]}
+    m_want["paged_decode"] = cfg.n_layers * m_calls
+    if (m_run["launches"] != m_want or EAGER["calls"] or not m_calls
+            or m_run["eng"].dense_pool.pages_in_use
+            or m_run["eng"].chai_pool is not None):
+        raise AssertionError(f"{label} MHA baseline: launches "
+                             f"{m_run['launches']}, expected {m_want}; eager "
+                             f"calls {EAGER['calls']}; pages in use "
+                             f"{m_run['eng'].dense_pool.pages_in_use}")
+    _log_served(m_run, f"{label} MHA baseline")
+    mha = _run_summary(m_run)
+    launches[f"{label}_mha"] = m_run["launches"]
+    m_run.clear()
+    _free()
+    log(f"{label} ({cfg.n_layers} layers): CHAI {chai['tok_s']:.1f} tok/s "
+        f"(wall {chai['wall_s']:.3f} s, TTFT mean "
+        f"{chai['ttft_mean_s']:.4f} s, step ms {chai['step_ms']}), MHA "
+        f"baseline {mha['tok_s']:.1f} tok/s (wall {mha['wall_s']:.3f} s, "
+        f"step ms {mha['step_ms']}); both runs {time.time() - t0:.1f} s")
+    return launches, dict(chai=chai, mha=mha)
+
+
+def moe_paths():
+    """Phase 21b: full-width deepseek-moe-16b at full depth (28 layers;
+    32.8 GB in bf16: every earlier model freed first) through
+    ``moe_serving_path`` and ``moe_step_profile``. Phase 21c:
+    qwen3-moe-30b-a3b, internvl2-76b and musicgen-large at SIDE_DEPTH,
+    full widths, their weights made at the cut config directly, each
+    through ``moe_serving_path``. Returns ({path: launches}, {arch:
+    summaries})."""
+    launches, sums = {}, {}
+    t0 = time.time()
+    cfg, params = init_full_model(DEEPSEEK)
+    if (cfg.n_layers, cfg.n_dense_ffn, cfg.n_moe_ffn, cfg.n_heads,
+            cfg.head_dim) != (28, 1, 27, 16, 128) or not cfg.is_mha:
+        raise AssertionError(f"{DEEPSEEK}: {cfg}")
+    got, sums[DEEPSEEK] = moe_serving_path(cfg, params, "deepseek")
+    launches.update(got)
+    sums[DEEPSEEK]["step_profile"] = moe_step_profile(cfg, params)
+    del params
+    _free()
+    log(f"phase 21b ({DEEPSEEK}): {time.time() - t0:.1f} s")
+    for arch in SIDE_ARCHS:
+        t0 = time.time()
+        cfg, params = init_full_model(arch, n_layers=SIDE_DEPTH)
+        tag = arch.split("-")[0]
+        got, sums[arch] = moe_serving_path(cfg, params, f"{tag}_side")
+        launches.update(got)
+        del params
+        _free()
+        log(f"phase 21c ({arch}, {SIDE_DEPTH} layers): "
+            f"{time.time() - t0:.1f} s")
+    return launches, sums
+
+
 def main():
     environment()
     build_kernels()
@@ -7792,12 +8423,14 @@ def main():
     softcap_cases = softcap_kernel_checks()
     mode_cases = prefill_mode_checks()
     g_layer = gemma2_suffix_prefill_check()
+    wide_cases, narrow_cases = wide_head_checks()
     for arch in (ARCH, NEMO):
         reduced_reference_check(arch)
         reduced_continuous_check(arch)
         reduced_mha_check(arch)
         reduced_prefix_relay_check(arch)
     reduced_chunked_check()
+    reduced_arch_checks()
     cfg, params = init_full_model()
     cohort_launches, dense_main, cohort_cap, cohort_mha = main_path(cfg,
                                                                     params)
@@ -7848,15 +8481,21 @@ def main():
     torch.cuda.empty_cache()
     ncfg, nparams = init_full_model(NEMO)
     (nemo_launches, nemo_cases, nemo_dc, nemo_pc,
-     nemo_summary) = nemotron_path(ncfg, nparams)
+     _) = nemotron_path(ncfg, nparams)
+    # nemotron's side paths on its first SIDE_DEPTH layers: the K-only
+    # pair they are held against, the MHA baseline, the prefix traffic
+    # with relay off and on (phase 9), the int8 pair (phase 11).
+    t0 = time.time()
+    nemo_side = side_konly(*cut_depth(ncfg, nparams))
     nemo_mha_launches, nemo_mha = mha_baseline_path(
-        ncfg, nparams, nemo_summary, "nemotron_mha")
+        *cut_depth(ncfg, nparams), nemo_side, "nemotron_mha")
     nemo_prefix_launches, nemo_relay, nemo_emit, nemo_prefix = prefix_path(
-        ncfg, nparams, tag="nemotron_prefix")
-    # Phase 11, nemotron-4-15b: the int8 KV cache on phase 6's traffic.
+        *cut_depth(ncfg, nparams), tag="nemotron_prefix")
     n8_launches, n8_mains, _ = int8_path(
-        ncfg.replace(kv_cache_dtype="int8"), nparams, nemo_summary,
+        *cut_depth(ncfg.replace(kv_cache_dtype="int8"), nparams), nemo_side,
         "int8_nemotron")
+    log(f"nemotron's side paths on {SIDE_DEPTH} layers (K-only pair, MHA "
+        f"baseline, prefix and relay, int8 pair): {time.time() - t0:.1f} s")
     # Phase 15, nemotron-4-15b: the seeded front door.
     nemo_front_launches = front_door_gqa(ncfg, nparams)
     del nparams
@@ -7900,9 +8539,11 @@ def main():
         rpg=r_max, mask_row=False, profile=True,
         pages=(nemo_pc["k_pool"], nemo_pc["bt_k"],
                nemo_pc["v_pool"].repeat_interleave(qpk, 1), nemo_pc["bt_v"]))
-    # Phase 13: local-attention rings and the softcap, gemma2-9b, then
-    # h2o-danube-1.8b.
-    gcfg, gparams = init_full_model(GEMMA)
+    # Phases 13 and 14: local-attention rings and the softcap, on
+    # gemma2-9b's first SIDE_DEPTH layers (4 local, 4 global), its weights
+    # made at that depth, then h2o-danube-1.8b's.
+    t0 = time.time()
+    gcfg, gparams = init_full_model(GEMMA, n_layers=SIDE_DEPTH)
     g_launches, g_cases, g_sums = gemma2_path(gcfg, gparams)
     sp_launches, _ = gemma2_suffix_prefill_path(gcfg, gparams,
                                                 "gemma2_suffix_prefill")
@@ -7912,15 +8553,20 @@ def main():
                                                 g_sums)
     sp8_launches, _ = gemma2_suffix_prefill_path(
         gcfg8, gparams, "gemma2_int8_suffix_prefill")
+    log(f"phases 13-14 (gemma2-9b, {gcfg.n_layers} layers): "
+        f"{time.time() - t0:.1f} s")
     del gparams
     gc.collect()
     torch.cuda.empty_cache()
-    dcfg, dparams = init_full_model(DANUBE)
+    dcfg, dparams = init_full_model(DANUBE, n_layers=SIDE_DEPTH)
     d_launches, d_sums = danube_path(dcfg, dparams)
     d8_launches = danube_int8_path(dcfg, dparams, d_sums["cohort"])
     del dparams
     gc.collect()
     torch.cuda.empty_cache()
+    # Phase 21: the attention archs of ROADMAP #14 part B.
+    g3_launches, g3_cases, _ = gemma3_path()
+    moe_launches, _ = moe_paths()
     by_path = {"cohort": cohort_launches, "mha_cohort": cohort_mha,
                **cont_launches, **mha_launches,
                "continuous_paged_chunked": chunked_launches,
@@ -7931,6 +8577,7 @@ def main():
                **sp8_launches, **d8_launches, **front_launches,
                **nemo_front_launches, **fault_launches, **tel_launches,
                **tier_launches, **preempt_launches, **async_launches,
+               **g3_launches, **moe_launches,
                "pipeline_lane": lane_launches,
                "pipeline_lane_share_int8": lane8_launches}
     mains = {"chai_fused_decode": (
@@ -7965,6 +8612,19 @@ def main():
                  "continuous_paged_chunked",
                  prefix_cases + path_cases["paged_prefix_attend"]
                  + [prefix_main, nemo_prefix])}
+    # The hd-128 rows of the fused and flash decode pairs, timed beside the
+    # wide head in phase 3.
+    for name, cases in narrow_cases.items():
+        mains[name][2].extend(cases)
+    # The wide head (head_dim 320): one row each, on gemma3-4b's paths
+    # (phase 21a).
+    for name, path in (("chai_fused_decode", "gemma3_continuous_dense"),
+                       ("paged_chai_fused_decode", "gemma3_continuous_paged"),
+                       ("flash_decode", "gemma3_mha_dense"),
+                       ("paged_decode", "gemma3_mha_paged")):
+        mains[f"{name}[wide]"] = (g3_cases[name], path,
+                                  wide_cases[f"{name}[wide]"]
+                                  + [g3_cases[name]])
     for name in PIPE_KERNELS:
         mains[name] = (pipe_mains[name][0], "pipeline_lane",
                        pipe_cases[name] + pipe_mains[name]

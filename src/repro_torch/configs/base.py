@@ -114,6 +114,18 @@ class ModelConfig:
         return sum(1 for t in self.layer_types if t == RGLRU)
 
     @property
+    def n_rwkv_layers(self):
+        return sum(1 for t in self.layer_types if t == RWKV)
+
+    @property
+    def n_dense_ffn(self):
+        return sum(1 for t in self.ffn_types if t == FFN_DENSE)
+
+    @property
+    def n_moe_ffn(self):
+        return sum(1 for t in self.ffn_types if t == FFN_MOE)
+
+    @property
     def q_per_kv(self):
         return self.n_heads // max(self.n_kv_heads, 1)
 
@@ -155,16 +167,40 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self):
-        """Parameter count of the dense attention models the port serves
-        (local and global layers alike; embeddings counted once per
-        table)."""
+        """Analytic parameter count N, the reference's: embeddings once per
+        table; per layer its mixer (attention; RG-LRU or RWKV by the
+        reference's formulas), its FFN (dense, or the routed experts,
+        the shared experts and the router) and two norms. Like the
+        reference's it leaves out the ``q_norm`` / ``k_norm`` scales and
+        the frontend adapter."""
         c = self
         n = c.vocab_size * c.d_model * (1 if c.tie_embeddings else 2)
         attn = (c.d_model * c.n_heads * c.head_dim
                 + 2 * c.d_model * c.n_kv_heads * c.head_dim
                 + c.n_heads * c.head_dim * c.d_model)
-        ffn = (3 if c.gated_mlp else 2) * c.d_model * c.d_ff
-        return n + c.n_layers * (attn + ffn + 2 * c.d_model)
+        dense_ffn = (3 if c.gated_mlp else 2) * c.d_model * c.d_ff
+        moe_ffn = ((c.n_experts + c.n_shared_experts) * 3 * c.d_model
+                   * c.moe_d_ff + c.d_model * c.n_experts)
+        w = c.rnn_width
+        rg = (2 * c.d_model * w + w * c.d_model + c.conv_width * w + 4 * w
+              if c.n_rec_layers else 0)
+        rwkv = (6 * c.d_model * c.d_model + 2 * c.d_model * c.d_ff
+                if self.n_rwkv_layers else 0)
+        for lt, ft in zip(c.layer_types, c.ffn_types):
+            n += {RGLRU: rg, RWKV: rwkv}.get(lt, attn)
+            if lt != RWKV:   # rwkv counts its channel mix as its FFN
+                n += dense_ffn if ft == FFN_DENSE else moe_ffn
+            n += 2 * c.d_model
+        return n
+
+    def active_param_count(self):
+        """Parameters a token reads (MoE: the routed top-k and the shared
+        experts only), the reference's count."""
+        full = self.param_count()
+        if self.n_moe_ffn == 0:
+            return full
+        per = 3 * self.d_model * self.moe_d_ff * self.n_moe_ffn
+        return full - self.n_experts * per + self.top_k * per
 
 
 def reduced(cfg: ModelConfig, *, n_layers=None, d_model=64, n_heads=None,
@@ -221,8 +257,13 @@ def get_config(name: str) -> ModelConfig:
     return _REGISTRY[name]
 
 
+def list_configs():
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
 def _ensure_loaded():
-    from repro_torch.configs import chai_llama_7b  # noqa: F401
-    from repro_torch.configs import gemma2_9b  # noqa: F401
-    from repro_torch.configs import h2o_danube_1_8b  # noqa: F401
-    from repro_torch.configs import nemotron_4_15b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        chai_llama_7b, deepseek_moe_16b, gemma2_9b, gemma3_4b,
+        h2o_danube_1_8b, internvl2_76b, musicgen_large, nemotron_4_15b,
+        qwen3_moe_30b_a3b)

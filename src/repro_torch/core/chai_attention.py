@@ -62,9 +62,15 @@ Under int8 a local layer's ring stays in the model dtype (the reference:
 fused op's plain version (``kernels.ref``) runs on the state's device in
 place of the CUDA kernel.
 
+``qk_norm`` (gemma3, qwen3): q and k are RMS-normed per head over
+head_dim wherever a branch projects them, before RoPE, as in the
+reference. The norm is per head, so normalizing before the gather of
+representative heads (batched membership) equals normalizing after it
+(shared membership).
+
 Ported: the MHA and GQA branches, dense and paged, float and int8 caches,
 with the mixed-phase ``write_mask``, the relay decode for both,
-``share_values`` on MHA, local layers and the softcap.
+``share_values`` on MHA, local layers, the softcap and ``qk_norm``.
 """
 from __future__ import annotations
 
@@ -76,6 +82,7 @@ from repro_torch.kernels import chai_attention as ck
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.attention import qk_norm
 from repro_torch.models.layers import apply_rope, softcap
 from repro_torch.models.transformer import (_dense_global_write,
                                             _dense_write_rows,
@@ -230,6 +237,7 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
         # Per-request membership: project all heads, gather activations.
         q = torch.einsum("bd,dhe->bhe", xn, p["wq"])
         k = torch.einsum("bd,dhe->bhe", xn, p["wk"])
+        q, k = qk_norm(q, k, p, cfg)
         q_rep, k_rep = _gather_heads(q, reps), _gather_heads(k, reps)
     else:
         # Shared membership: gather weight rows (skips pruned projections —
@@ -237,6 +245,7 @@ def _chai_mha_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
         ri = reps.long()
         q_rep = torch.einsum("bd,dke->bke", xn, p["wq"][:, ri])
         k_rep = torch.einsum("bd,dke->bke", xn, p["wk"][:, ri])
+        q_rep, k_rep = qk_norm(q_rep, k_rep, p, cfg)
     q_rep = _rope1(q_rep, pos, cfg.rope_theta)
     k_rep = _rope1(k_rep, pos, cfg.rope_theta)
 
@@ -334,6 +343,7 @@ def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
     reps, cluster_of = chai_ctx["reps"][ai], chai_ctx["cluster_of"][ai]
     r = reps.shape[-1]
     q = torch.einsum("bd,dhe->bhe", xn, p["wq"]).reshape(b, n_kv, qpk, hd)
+    q, _ = qk_norm(q, None, p, cfg)
     q_rep = torch.gather(q, 2, reps.long()[..., None].expand(b, n_kv, r, hd))
     q_flat = _rope1(q_rep.reshape(b, n_kv * r, hd), pos, cfg.rope_theta)
     h2c_flat = (torch.arange(n_kv, dtype=torch.int32,
@@ -341,8 +351,9 @@ def _chai_gqa_decode(xn, p, cfg, state, gi, ai, chai_ctx, write_mask=None,
                 + cluster_of).reshape(b, h)
 
     # K/V: the per-group projections, unchanged (no K saving for GQA).
-    k_new = _rope1(torch.einsum("bd,dke->bke", xn, p["wk"]), pos,
-                   cfg.rope_theta)
+    _, k_new = qk_norm(None, torch.einsum("bd,dke->bke", xn, p["wk"]), p,
+                       cfg)
+    k_new = _rope1(k_new, pos, cfg.rope_theta)
     v_new = torch.einsum("bd,dke->bke", xn, p["wv"])
     cap = cfg.attn_logit_softcap
     if li is not None:

@@ -9,6 +9,9 @@ bodies) and is compiled on first use with
          -Xcompiler -fPIC -o build/kernels/lib<name>.so csrc/<name>.cu
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
+A variant (``VARIANTS``) is a kernel's source built again with extra
+compile definitions into a library of its own: the wide-head fused
+decode pair, ``lib<kernel>_wide.so``, with the head dim fixed at 320.
 A library newer than its source and than every header in ``csrc/`` (the
 tile steps the decode, relay, prefill and flash decode kernels include)
 is reused. A missing ``nvcc`` or a failed build raises: nothing falls
@@ -32,6 +35,13 @@ KERNELS = ("chai_fused_decode", "paged_chai_fused_decode", "flash_prefill",
 # Kernels whose launcher lives in another kernel's source.
 SOURCE_OF = {"chai_qk_i8": "chai_qk", "paged_chai_qk": "chai_qk",
              "paged_chai_av": "chai_av"}
+# Libraries built from a kernel's source with extra compile definitions:
+# {library: (source, flags)}. The fused decode pair's wide-head
+# instances (gemma3-4b's head_dim 320) get libraries of their own, so the
+# instances of head dims up to 256 keep their code and build in parallel.
+VARIANTS = {f"{k}_wide": (k, ("-DCHAI_FIXED_HD=320",))
+            for k in ("chai_fused_decode", "paged_chai_fused_decode")}
+LIBRARIES = KERNELS + tuple(VARIANTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -47,7 +57,8 @@ def nvcc_path() -> str:
 
 
 def _paths(name):
-    return CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
+    source = VARIANTS.get(name, (name,))[0]
+    return CSRC / f"{source}.cu", BUILD_DIR / f"lib{name}.so"
 
 
 def _stale(name) -> bool:
@@ -63,7 +74,9 @@ def _start(name, extra_flags=()):
     src, lib = _paths(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(src)]
+    defs = VARIANTS[name][1] if name in VARIANTS else ()
+    cmd = [nvcc_path(), *NVCC_FLAGS, *defs, *extra_flags, "-o", str(tmp),
+           str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp
@@ -78,8 +91,8 @@ def _finish(name, proc, tmp):
     return out
 
 
-def build_all(names=KERNELS, extra_flags=(), seconds=None):
-    """Compile every stale kernel, one nvcc per source, all started
+def build_all(names=LIBRARIES, extra_flags=(), seconds=None):
+    """Compile every stale library, one nvcc per library, all started
     together. Returns {name: compiler output} for the ones it built; a
     ``seconds`` dict given receives each one's time from the start of all
     to its own end."""
@@ -97,8 +110,8 @@ def build_all(names=KERNELS, extra_flags=(), seconds=None):
 
 
 def load(name) -> ctypes.CDLL:
-    """The shared library that holds kernel ``name``'s launcher, built
-    first if missing or stale."""
+    """The shared library that holds kernel ``name``'s launcher (or the
+    variant library ``name``), built first if missing or stale."""
     name = SOURCE_OF.get(name, name)
     lib = _LIBS.get(name)
     if lib is None:

@@ -92,9 +92,11 @@ LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0,
 # "<kernel>[<modes>]" -> launches, the modes a launch ran joined by "+" in
 # the order of _MODES; a launch in no mode is counted in LAUNCHES only.
 # "kv" names a K/V pairing that no serving path runs ("kv=<K>/<V>", see
-# ``kv_modes``).
+# ``kv_modes``); "wide" a launch of a wide-head instance (head_dim 320:
+# the fused pair's ``_wide`` libraries, the flash decode pair's kWideHd
+# instance).
 MODE_LAUNCHES: dict = {}
-_MODES = ("kv", "int8", "share", "softcap", "window")
+_MODES = ("kv", "int8", "share", "softcap", "window", "wide")
 
 # K/V element types of the launchers' k_type / v_type (and kv_type). The
 # Pallas bodies cast whatever K or V they are given to fp32 and apply each
@@ -111,6 +113,9 @@ _CHUNK = 128            # kChunk: positions per chunk, the longest step
 _THREADS = 128          # kThreads
 _MAX_Q = 8              # kMaxQ: rep queries of one K row (reps_per_group)
 _MAX_HD = 256           # kMaxHd
+# kWideHd: the head_dim of the fused pair's wide-head libraries
+# (build.VARIANTS; gemma3-4b's 2560 / 8)
+WIDE_HD = 320
 _MAX_SPLIT = 64         # kMaxSplit
 _SLICE = 8              # kSlice: members (accumulator rows) of a block
 _RED_VEC = 8            # kRedVec
@@ -324,11 +329,12 @@ def paged_launch_config(q_rep, k_pool, bt_k, h2c, *, reps_per_group=1,
                                 general)
 
 
-def _launcher(name, n_ptrs, n_ints, n_floats=0):
+def _launcher(name, n_ptrs, n_ints, n_floats=0, lib=None):
     """A launcher's ctypes function: ``n_ptrs`` pointers, ``n_ints`` ints,
-    ``n_floats`` floats, then the stream."""
+    ``n_floats`` floats, then the stream; from library ``lib`` (a variant
+    of ``name``'s source, ``build.VARIANTS``) when given."""
     from repro_torch.kernels import build
-    fn = getattr(build.load(name), f"{name}_launch")
+    fn = getattr(build.load(lib or name), f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -368,13 +374,22 @@ def kv_modes(body, k, k_scale, v, v_scale):
                             for x, sc in ((k, k_scale), (v, v_scale))))
 
 
-def _check_block(name, hd, reps_per_group, cfg):
+def _check_block(name, hd, reps_per_group, cfg, body=None):
     """The block body's limits: 16-byte row loads, at most ``_MAX_Q``
     queries a block, and a block's shared memory (fixed in S; it grows
-    with the member map only)."""
-    if hd % 8 or not 0 < hd <= _MAX_HD:
+    with the member map only). ``body`` (the fused pair's ``kv_body``):
+    head_dim ``WIDE_HD`` is taken too, on the wide-head libraries, which
+    hold the serving pairings' bodies only; without it (the relay) the
+    head dim is at most ``_MAX_HD``."""
+    wide = body is not None and hd == WIDE_HD
+    if hd % 8 or not (0 < hd <= _MAX_HD or wide):
         raise ValueError(f"{name}: head_dim {hd} must be a multiple of 8 "
-                         f"and at most {_MAX_HD} (16-byte row loads)")
+                         f"and at most {_MAX_HD} (16-byte row loads)"
+                         + (f", or {WIDE_HD}" if body is not None else ""))
+    if wide and body == KV_GENERAL:
+        raise ValueError(f"{name}: head_dim {WIDE_HD} runs the serving "
+                         "paths' K/V pairings (one float type, or int8 with "
+                         "its K scales), not a general pairing")
     if not 0 < reps_per_group <= _MAX_Q:
         raise ValueError(f"{name}: reps_per_group {reps_per_group} must be "
                          f"1..{_MAX_Q}")
@@ -519,6 +534,9 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     ``softcap`` (gemma2's ``attn_logit_softcap``; 0 = off): every score,
     once scaled, becomes softcap * tanh(score / softcap) before the mask,
     in any of the modes above.
+    head_dim: a multiple of 8 up to 256, or ``WIDE_HD`` (320, gemma3-4b)
+    on the wide-head library (``build.VARIANTS``; the serving pairings
+    only), counted in the ``wide`` mode.
     """
     _check_scales("chai_fused_decode", k_cache, v_cache, k_scale, v_scale)
     if share_values:
@@ -536,7 +554,8 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     cfg, ts = dense_launch_config(
         q_rep, k_cache, h2c, reps_per_group=reps_per_group, ts=ts,
         share_values=share_values, general=body == KV_GENERAL)
-    _check_block("chai_fused_decode", hd, reps_per_group, cfg)
+    _check_block("chai_fused_decode", hd, reps_per_group, cfg, body)
+    wide = hd == WIDE_HD
     dev = q_rep.device
     q = q_rep.float().contiguous()
     k = k_cache.contiguous()
@@ -547,7 +566,8 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
     rows = r_total if share_values else h_total
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state, rows)
-    fn = _launcher("chai_fused_decode", 14, 19, 1)
+    fn = _launcher("chai_fused_decode", 14, 19, 1,
+                   lib="chai_fused_decode_wide" if wide else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch = split_scratch(cfg.n_split, b, r_total, rows, hd,
@@ -566,7 +586,8 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
                            f"{err}")
     count_launch(LAUNCHES, "chai_fused_decode",
                  **kv_modes(body, k, ks, v, vs),
-                 share=share_values, softcap=softcap, window=int(window) > 0)
+                 share=share_values, softcap=softcap, window=int(window) > 0,
+                 wide=wide)
     return (m, l, out) if emit_state else out
 
 
@@ -592,7 +613,8 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     would move the whole pool every call). Returns (B, H, hd) fp32 from
     ONE kernel launch, or the ``emit_state`` triple. ``share_values``:
     v_pool is the clustered pool (KVv == R; the engine's ``cp`` through
-    ``bt_vc``), as in the dense call; ``softcap`` as in the dense call.
+    ``bt_vc``), as in the dense call; ``softcap`` and head_dim 320 (the
+    wide-head library) as in the dense call.
     """
     _check_scales("paged_chai_fused_decode", k_pool, v_pool, k_scale_pool,
                   v_scale_pool)
@@ -615,7 +637,8 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     cfg = paged_launch_config(
         q_rep, k_pool, bt_k, h2c, reps_per_group=reps_per_group,
         share_values=share_values, general=body == KV_GENERAL)
-    _check_block("paged_chai_fused_decode", hd, reps_per_group, cfg)
+    _check_block("paged_chai_fused_decode", hd, reps_per_group, cfg, body)
+    wide = hd == WIDE_HD
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
                     ("k_scale_pool", k_scale_pool),
                     ("v_scale_pool", v_scale_pool)):
@@ -629,7 +652,8 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     h2c_i, pos_i = _small(h2c, dev), _small(pos, dev)
     rows = r_total if share_values else h_total
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state, rows)
-    fn = _launcher("paged_chai_fused_decode", 16, 19, 1)
+    fn = _launcher("paged_chai_fused_decode", 16, 19, 1,
+                   lib="paged_chai_fused_decode_wide" if wide else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch = split_scratch(cfg.n_split, b, r_total, rows, hd,
@@ -650,7 +674,8 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     count_launch(LAUNCHES, "paged_chai_fused_decode",
                  **kv_modes(body, k_pool, k_scale_pool, v_pool,
                             v_scale_pool),
-                 share=share_values, softcap=softcap, window=int(window) > 0)
+                 share=share_values, softcap=softcap, window=int(window) > 0,
+                 wide=wide)
     return (m, l, out) if emit_state else out
 
 

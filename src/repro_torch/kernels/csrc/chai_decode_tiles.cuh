@@ -104,6 +104,19 @@
 // run to run. With n_split == 1 a block writes its state directly (the
 // same values the merge of one split gives).
 //
+// The wide head (gemma3-4b's global layers: head_dim 2560 / 8 = 320).
+// Nothing in this body is sized by the head dim at compile time: the
+// queries, the accumulator rows and the merge take hd from the call, in
+// dynamic shared memory (block_smem_bytes: 35.2 KB at hd 320, kQ = 8,
+// n_cap = 8 and an 8-head map, 19.9 KB at gemma3's kQ = 2, under the 48
+// KB default; ``allow_smem`` opts in past it),
+// and the K and AV loops run hd / (elements a load) steps. The head dims
+// up to kMaxHd run the kernels' own libraries; hd 320 runs the wide-head
+// libraries (the fused pair's sources built again with -DCHAI_FIXED_HD=
+// 320, kernels/build.py: VARIANTS), the same kernels with hd fixed at
+// kWideHd at compile time, so their loops have constant trip counts and
+// the hd-128 instances keep their code and resources.
+//
 // Before the first chunk three jobs share one memory round trip: warp 0
 // builds the member list, warp 1 stages the chunk's block-table entries
 // (paged), warps 2-3 load the queries.
@@ -132,6 +145,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 128;       // positions per chunk; a step is <= kChunk
 constexpr int kMaxQ = 8;          // rep queries of one K row (reps_per_group)
 constexpr int kMaxHd = 256;       // head_dim: a multiple of 8, at most 256
+constexpr int kWideHd = 320;      // the wide-head libraries' fixed head_dim
 constexpr int kMaxSplit = 64;     // S splits of one unit
 constexpr int kSlice = 8;         // members (accumulator rows) of a block
 constexpr int kBatch = 8;         // V rows loaded ahead by one AV thread

@@ -48,6 +48,16 @@
 // Shared memory is fixed (the block's queries, one chunk of scores, the
 // AV partials and the merge factors: 11 KB at 2 heads), so no sequence
 // length is too long.
+//
+// The widest head a block takes is a template constant, kHdMax: it sizes
+// the block's query rows in shared memory and each thread's accumulator
+// slots (kItems = ceil(kH * kHdMax / kThreads)). The kernels instantiate
+// two: kMaxHd (256) for every head_dim up to 256, the code and resources
+// every llama, nemotron and gemma2 launch keeps, and kWideHd (320), the
+// wide-head instance gemma3-4b's global layers take (head_dim 2560 / 8);
+// the launchers pick it for head_dim > 256. At 320 a bf16 row is 40 loads
+// of 16 bytes, so the AV step runs 3 position slices of 40 threads (the
+// last 8 threads idle) where 256 runs 4 of 32.
 
 #pragma once
 
@@ -64,6 +74,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;      // positions per chunk (two threads each)
 constexpr int kMaxHd = 256;     // head_dim: a multiple of 8, at most 256
+constexpr int kWideHd = 320;    // the wide-head instance's widest head
 constexpr int kRedVec = 8;      // floats of one AV partial (16 B of bf16)
 constexpr int kMaxSplit = 64;   // S splits of one unit (split_plan's cap)
 
@@ -141,9 +152,9 @@ struct PagedRows {
 
 // The block's shared memory (static; mirrored by
 // ``decode_block_smem_bytes`` in kernels/flash_attention.py).
-template <int kH>
+template <int kH, int kHdMax>
 struct BlockSmem {
-  float q[kH * kMaxHd];
+  float q[kH * kHdMax];
   float sc[kH * kChunk];
   float red[kH * kThreads * kRedVec];
   float cmb[kH * kMaxSplit];
@@ -171,18 +182,19 @@ struct Partials {
   int* counter;
 };
 
-// The block: queries q (nh rows of hd, fp32 or bf16 by ``q_bf16``),
-// positions of split s of ``plan`` up to pos, output rows out (nh, hd)
-// fp32.
-template <typename T, int kH, typename Rows>
+// The block: queries q (nh rows of hd <= kHdMax, fp32 or bf16 by
+// ``q_bf16``), positions of split s of ``plan`` up to pos, output rows out
+// (nh, hd) fp32.
+template <typename T, int kH, int kHdMax, typename Rows>
 __device__ void decode_block(const Rows& rows, const void* q, int q_bf16,
                              int pos, const Plan& plan, int s, int window,
                              int nh, int hd, float scale,
                              const Partials& part, float* out) {
   constexpr int kHW = (kH + kWarps - 1) / kWarps;   // heads per warp
   constexpr int kVec = Vec16<T>::n;
-  constexpr int kItems = kH * kMaxHd / kThreads;     // acc slots a thread
-  __shared__ BlockSmem<kH> sm;
+  // acc slots a thread
+  constexpr int kItems = (kH * kHdMax + kThreads - 1) / kThreads;
+  __shared__ BlockSmem<kH, kHdMax> sm;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   for (int e = tid; e < kH * hd; e += kThreads) {
@@ -404,12 +416,19 @@ inline float inv_sqrt_hd(int hd) {
   return static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
 }
 
-// Launch ``Launch::run<kH>()`` with kH = hb heads a block, 1 or 2 (else
-// cudaErrorInvalidValue). Returns the launch's cudaError_t.
+// Launch ``Launch::run<kH, kHdMax>()`` with kH = hb heads a block, 1 or 2,
+// and the instance of head dim hd: kMaxHd up to 256, kWideHd up to 320
+// (else cudaErrorInvalidValue). Returns the launch's cudaError_t.
 template <typename Launch>
-int with_heads(int hb, const Launch& launch) {
-  if (hb == 1) return launch.template run<1>();
-  if (hb == 2) return launch.template run<2>();
+int with_heads(int hb, int hd, const Launch& launch) {
+  if (hd > kWideHd) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd > kMaxHd) {
+    if (hb == 1) return launch.template run<1, kWideHd>();
+    if (hb == 2) return launch.template run<2, kWideHd>();
+  } else {
+    if (hb == 1) return launch.template run<1, kMaxHd>();
+    if (hb == 2) return launch.template run<2, kMaxHd>();
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -41,7 +41,7 @@ struct Args {
   float scale;
 };
 
-template <typename T, int kH>
+template <typename T, int kH, int kHdMax>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const Args a) {
   const int b = blockIdx.z, s = blockIdx.y, qpk = a.H / a.KV;
@@ -60,8 +60,9 @@ flash_decode_kernel(const Args a) {
       a.accp ? a.accp + p0 * a.hd : nullptr, a.H,
       a.counter ? a.counter + static_cast<size_t>(b) * gridDim.x + blockIdx.x
                 : nullptr};
-  decode_block<T, kH>(rows, qb, a.q_bf16, a.pos[b], a.plan, s, a.window, nh,
-                      a.hd, a.scale, part, a.out + qo);
+  decode_block<T, kH, kHdMax>(rows, qb, a.q_bf16, a.pos[b], a.plan, s,
+                              a.window, nh, a.hd, a.scale, part,
+                              a.out + qo);
 }
 
 template <typename T>
@@ -69,20 +70,21 @@ struct Launch {
   Args a;
   int B;
   cudaStream_t stream;
-  template <int kH>
+  template <int kH, int kHdMax>
   int run() const {
     dim3 grid(a.KV * a.n_hb, a.plan.n_split, B);
-    flash_decode_kernel<T, kH><<<grid, kThreads, 0, stream>>>(a);
+    flash_decode_kernel<T, kH, kHdMax><<<grid, kThreads, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
 // The static shared memory of the kernel serving hb heads a block.
 struct SmemOf {
-  template <int kH>
+  template <int kH, int kHdMax>
   int run() const {
     cudaFuncAttributes attr;
-    if (cudaFuncGetAttributes(&attr, flash_decode_kernel<__nv_bfloat16, kH>)
+    if (cudaFuncGetAttributes(&attr,
+                              flash_decode_kernel<__nv_bfloat16, kH, kHdMax>)
         != cudaSuccess)
       return -1;
     return static_cast<int>(attr.sharedSizeBytes);
@@ -93,7 +95,8 @@ struct SmemOf {
 
 // q: (B, H, hd) fp32 (q_bf16 == 0) or bf16; k, v: (B, KV, S, hd), fp32
 // (kv_bf16 == 0) or bf16; pos: (B,) int32; out: (B, H, hd) fp32. All
-// contiguous and 16-byte aligned; H % KV == 0; hd % 8 == 0, hd <= 256;
+// contiguous and 16-byte aligned; H % KV == 0; hd % 8 == 0, hd <= 320 (the
+// instance of kHdMax 256 up to 256, the wide one of 320 above);
 // the tile ts divides S. Head h reads KV row h / (H / KV); each
 // block serves hb (1 or 2) heads of one group, n_hb blocks per group. The
 // split plan: n_split (<= 64) ranges of ``tps`` tiles; with n_split > 1
@@ -117,13 +120,14 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                q_bf16, Plan{n_split, tps, S / ts, ts},
                inv_sqrt_hd(hd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_bf16) return with_heads(hb, Launch<__nv_bfloat16>{a, B, st});
-  return with_heads(hb, Launch<float>{a, B, st});
+  if (kv_bf16) return with_heads(hb, hd, Launch<__nv_bfloat16>{a, B, st});
+  return with_heads(hb, hd, Launch<float>{a, B, st});
 }
 
-// The static shared memory of one block serving hb heads, in bytes (-1 on
-// error), for a check that the host's mirror
-// (kernels/flash_attention.py: decode_block_smem_bytes) agrees.
-extern "C" int flash_decode_smem_bytes(int hb) {
-  return with_heads(hb, SmemOf{});
+// The static shared memory of one block serving hb heads of head dim hd
+// (the instance that head dim takes), in bytes (-1 on error), for a check
+// that the host's mirror (kernels/flash_attention.py:
+// decode_block_smem_bytes) agrees.
+extern "C" int flash_decode_smem_bytes(int hb, int hd) {
+  return with_heads(hb, hd, SmemOf{});
 }

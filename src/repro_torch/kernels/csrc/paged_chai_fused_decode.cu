@@ -31,9 +31,28 @@
 
 #include "chai_decode_tiles.cuh"
 
+// The head dim of this library's instances: 0, the call's (any multiple
+// of 8 up to kMaxHd), or fixed at compile time at kWideHd (320): the
+// wide-head library is this source built again with
+// -DCHAI_FIXED_HD=320 (kernels/build.py: VARIANTS), so the two share every
+// line and the head dims up to 256 keep their own library and instances.
+// The wide library's launcher takes hd == 320 and the serving paths' K/V
+// pairings only (one float type, or int8 with its scales).
+#ifndef CHAI_FIXED_HD
+#define CHAI_FIXED_HD 0
+#endif
+
 namespace {
 
 using namespace chai;
+
+constexpr int kFixedHd = CHAI_FIXED_HD;
+static_assert(kFixedHd == 0 || kFixedHd == kWideHd,
+              "the wide-head instance is kWideHd");
+// The kernel's head dim: the call's (a.hd), or kFixedHd. An expression,
+// not a variable, so that at kFixedHd 0 the compiler sees the kernel of
+// head dims up to 256 exactly as it was: every use reads the parameter.
+#define CHAI_HD (kFixedHd ? kFixedHd : a.hd)
 
 struct Args {
   const float* q;
@@ -69,7 +88,7 @@ paged_chai_fused_decode_kernel(const Args a) {
                            static_cast<const TV*>(a.v_pool), a.ks_pool,
                            a.vs_pool, a.bt_k + static_cast<size_t>(b) * a.P,
                            a.bt_v + static_cast<size_t>(b) * a.P,
-                           a.kv_k, a.kv_v, a.page, a.hd,
+                           a.kv_k, a.kv_v, a.page, CHAI_HD,
                            (a.page & (a.page - 1)) ? -1 : __ffs(a.page) - 1,
                            nullptr, 0};
   const Members mem{a.h2c + static_cast<size_t>(b) * a.H, nullptr, a.H,
@@ -80,19 +99,20 @@ paged_chai_fused_decode_kernel(const Args a) {
   // the state mode: fixed by kEmit, or (the general body) by a.m
   const bool emit = kGeneral ? a.m != nullptr : kEmit;
   const Outputs o{a.out + static_cast<size_t>(b) * (emit ? rows : a.H) *
-                              a.hd,
+                              CHAI_HD,
                   emit ? a.m + rep0 : nullptr, emit ? a.l + rep0 : nullptr};
   const int ns = a.plan.n_split;
   const size_t part0 = static_cast<size_t>(b) * ns * a.R + g * a.rpg;
   const Partials part{
       a.mp ? a.mp + part0 : nullptr, a.lp ? a.lp + part0 : nullptr,
-      a.accp ? a.accp + static_cast<size_t>(b) * ns * rows * a.hd : nullptr,
-      a.R, static_cast<size_t>(rows) * a.hd, a.counter ? a.counter + u
-                                                       : nullptr};
+      a.accp ? a.accp + static_cast<size_t>(b) * ns * rows * CHAI_HD
+             : nullptr,
+      a.R, static_cast<size_t>(rows) * CHAI_HD,
+      a.counter ? a.counter + u : nullptr};
   unit_block<TK, TV, kQ, kEmit, kGeneral>(
-      tiles, reinterpret_cast<float*>(smem_raw), a.q + rep0 * a.hd, a.rpg, g,
-      mem, a.plan, s, z, a.pos[b], a.window, a.hd, a.n_cap, a.scale, a.cap, o,
-      part);
+      tiles, reinterpret_cast<float*>(smem_raw), a.q + rep0 * CHAI_HD,
+      a.rpg, g, mem, a.plan, s, z, a.pos[b], a.window, CHAI_HD, a.n_cap,
+      a.scale, a.cap, o, part);
 }
 
 template <typename TK, typename TV, bool kGeneral>
@@ -135,7 +155,8 @@ struct Launch {
 // clustered pool read through bt_v). The split plan (n_split ranges of
 // ``tps`` pages), ``step`` (a divisor of the page, <= 128), the scratch
 // and n_cap as in chai_fused_decode_launch. All contiguous and 16-byte
-// aligned; hd % 8 == 0, hd <= 256; ``cap`` (the softcap mode, 0 = off) as
+// aligned; hd % 8 == 0, hd <= 256 (the wide-head library: hd == 320,
+// the serving pairings only); ``cap`` (the softcap mode, 0 = off) as
 // in chai_fused_decode_launch. Returns the launch's cudaError_t (0 on
 // success); does not synchronise.
 extern "C" int paged_chai_fused_decode_launch(
@@ -158,13 +179,20 @@ extern "C" int paged_chai_fused_decode_launch(
                rpg, v_rep, window, n_cap,
                Plan{n_split, tps, P, page, step}, inv_sqrt_hd(hd), cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kFixedHd ? hd != kFixedHd : hd > kMaxHd)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (body != kBodyGeneral)   // one type for K and V
     return with_elem(k_type, [&](auto t) {
       using T = decltype(t);
       return with_queries(rpg, Launch<T, T, false>{a, B, st});
     });
+#if CHAI_FIXED_HD == 0
   return with_kv_types(k_type, v_type, [&](auto tk, auto tv) {
     return Launch<decltype(tk), decltype(tv), true>{a, B, st}
         .template run<kGeneralQ>();
   });
+#else
+  // the wide head serves the serving paths' pairings only
+  return static_cast<int>(cudaErrorInvalidValue);
+#endif
 }

@@ -43,7 +43,7 @@ struct Args {
   float scale;
 };
 
-template <typename T, int kH>
+template <typename T, int kH, int kHdMax>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const Args a) {
   const int b = blockIdx.z, s = blockIdx.y, qpk = a.H / a.KV;
@@ -63,8 +63,9 @@ paged_decode_kernel(const Args a) {
       a.accp ? a.accp + p0 * a.hd : nullptr, a.H,
       a.counter ? a.counter + static_cast<size_t>(b) * gridDim.x + blockIdx.x
                 : nullptr};
-  decode_block<T, kH>(rows, qb, a.q_bf16, a.pos[b], a.plan, s, a.window, nh,
-                      a.hd, a.scale, part, a.out + qo);
+  decode_block<T, kH, kHdMax>(rows, qb, a.q_bf16, a.pos[b], a.plan, s,
+                              a.window, nh, a.hd, a.scale, part,
+                              a.out + qo);
 }
 
 template <typename T>
@@ -72,10 +73,10 @@ struct Launch {
   Args a;
   int B;
   cudaStream_t stream;
-  template <int kH>
+  template <int kH, int kHdMax>
   int run() const {
     dim3 grid(a.KV * a.n_hb, a.plan.n_split, B);
-    paged_decode_kernel<T, kH><<<grid, kThreads, 0, stream>>>(a);
+    paged_decode_kernel<T, kH, kHdMax><<<grid, kThreads, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -85,7 +86,8 @@ struct Launch {
 // q: (B, H, hd) fp32 (q_bf16 == 0) or bf16; pool: (nP, KV, page, hd),
 // fp32 (kv_bf16 == 0) or bf16; bt_k, bt_v: (B, P) int32 page ids into the
 // pool; pos: (B,) int32; out: (B, H, hd) fp32. All contiguous and 16-byte
-// aligned; H % KV == 0; hd % 8 == 0, hd <= 256. Head h reads
+// aligned; H % KV == 0; hd % 8 == 0, hd <= 320 (the
+// instance of kHdMax 256 up to 256, the wide one of 320 above). Head h reads
 // KV row h / (H / KV); each block serves hb (1 or 2) heads of one group.
 // The split plan (n_split ranges of ``tps`` pages) and its scratch are
 // flash_decode_launch's. window > 0 masks positions idx <= pos - window.
@@ -107,6 +109,6 @@ extern "C" int paged_decode_launch(const void* q, const void* pool,
                n_hb, q_bf16, Plan{n_split, tps, P, page},
                inv_sqrt_hd(hd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_bf16) return with_heads(hb, Launch<__nv_bfloat16>{a, B, st});
-  return with_heads(hb, Launch<float>{a, B, st});
+  if (kv_bf16) return with_heads(hb, hd, Launch<__nv_bfloat16>{a, B, st});
+  return with_heads(hb, hd, Launch<float>{a, B, st});
 }

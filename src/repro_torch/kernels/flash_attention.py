@@ -19,10 +19,16 @@ same over one shared K/V page pool read through block tables. The MHA
 baseline (CHAI off) decodes through them. Both share the block body of
 ``csrc/decode_tiles.cuh``, so at ts == page they are bitwise equal.
 
+The decode pair takes head dims up to 256 on the block body's instance
+of kMaxHd and head_dim 320 (gemma3-4b) on its wide-head instance
+(kWideHd), whose shared memory and accumulator slots are sized for 320;
+the launchers pick it by the head dim.
+
 The wrappers take CUDA tensors only; the CPU path is the plain version in
 ``kernels.ref``, chosen by ``kernels.ops``. ``LAUNCHES`` counts each
-kernel's launches, one per successful launch, and the prefill pair's are
-counted by mode in ``chai_attention.MODE_LAUNCHES`` too.
+kernel's launches, one per successful launch, and every launch is
+counted by mode in ``chai_attention.MODE_LAUNCHES`` too (the decode
+pair's wide-head launches under "wide").
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ LAUNCHES = {"flash_prefill": 0, "paged_prefix_attend": 0,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128, 224, 256)  # flash_tiles.cuh: with_head_dim
 _DECODE_MAX_HD = 256     # decode_tiles.cuh: kMaxHd
+_DECODE_WIDE_HD = 320    # decode_tiles.cuh: kWideHd, the wide instance
 # Query heads of one KV group a decode block serves: at most 2
 # (decode_tiles.cuh: with_heads). Timed on the card for nemotron-4-15b's
 # 6-head groups at 1 to 6 heads a block, 2 was the fastest: a block's chain
@@ -214,30 +221,34 @@ class FlashDecodeLaunch(NamedTuple):
     smem_bytes: int
 
 
-def decode_block_smem_bytes(heads_per_block: int) -> int:
-    """``sizeof(BlockSmem<kH>)`` of ``csrc/decode_tiles.cuh``: the
-    block's queries, a chunk of scores per head, the AV partials, the
-    merge factors and m, l, alpha per head (fp32), and a flag. No term
-    depends on the sequence length."""
+def decode_block_smem_bytes(heads_per_block: int, hd: int = 0) -> int:
+    """``sizeof(BlockSmem<kH, kHdMax>)`` of ``csrc/decode_tiles.cuh`` for
+    the instance head dim ``hd`` takes (kMaxHd up to 256, kWideHd above;
+    0: the kMaxHd one): the block's queries, a chunk of scores per head,
+    the AV partials, the merge factors and m, l, alpha per head (fp32),
+    and a flag. No term depends on the sequence length."""
     kh = 1 if heads_per_block == 1 else _DECODE_HEADS
-    floats = (kh * _DECODE_MAX_HD + kh * _DECODE_CHUNK
+    widest = _DECODE_WIDE_HD if hd > _DECODE_MAX_HD else _DECODE_MAX_HD
+    floats = (kh * widest + kh * _DECODE_CHUNK
               + kh * _DECODE_THREADS * _DECODE_RED_VEC
               + kh * _DECODE_MAX_SPLIT + 3 * kh)
     return floats * 4 + 4
 
 
-def flash_decode_launch_config(b: int, h: int, kv: int,
-                               n_tiles: int) -> FlashDecodeLaunch:
+def flash_decode_launch_config(b: int, h: int, kv: int, n_tiles: int,
+                               hd: int = 0) -> FlashDecodeLaunch:
     """The launch of a flash decode call with ``b`` batch rows, ``h``
     query heads over ``kv`` KV groups and ``n_tiles`` tiles per row (the
-    dense call's S / ts, the paged call's pages): blocks of up to two
-    heads of a group, and ``chai_attention.split_plan`` over the units
-    (b, group, head slice). It reads shapes only, never ``pos`` or the
-    layout, so the dense and the paged call at equal shapes cut alike."""
+    dense call's S / ts, the paged call's pages), at head dim ``hd`` (0:
+    any up to 256): blocks of up to two heads of a group, and
+    ``chai_attention.split_plan`` over the units (b, group, head slice).
+    It reads shapes only, never ``pos`` or the layout, so the dense and
+    the paged call at equal shapes cut alike."""
     qpk = h // kv
     hb = min(qpk, _DECODE_HEADS)
     n_split, per = ck.split_plan(b, kv * -(-qpk // hb), n_tiles)
-    return FlashDecodeLaunch(n_split, per, hb, decode_block_smem_bytes(hb))
+    return FlashDecodeLaunch(n_split, per, hb,
+                             decode_block_smem_bytes(hb, hd))
 
 
 def dense_decode_config(q, k_cache, ts=0):
@@ -246,7 +257,8 @@ def dense_decode_config(q, k_cache, ts=0):
     s = k_cache.shape[2]
     tile = fused_tile_size(ts, s)
     return flash_decode_launch_config(q.shape[0], q.shape[1],
-                                      k_cache.shape[1], s // tile), tile
+                                      k_cache.shape[1], s // tile,
+                                      q.shape[2]), tile
 
 
 def paged_decode_config(q, kv_pool, bt_k):
@@ -254,12 +266,17 @@ def paged_decode_config(q, kv_pool, bt_k):
     only); the tile is the page. Equal to the dense call's at S == P *
     page and ts == page."""
     return flash_decode_launch_config(q.shape[0], q.shape[1],
-                                      kv_pool.shape[1], bt_k.shape[-1])
+                                      kv_pool.shape[1], bt_k.shape[-1],
+                                      q.shape[2])
 
 
 def _check_decode(name, q, kv_heads, hd, pos):
     """Checks both decode wrappers share; returns q's type flag."""
     b, h = q.shape[:2]
+    if hd % 8 or not 0 < hd <= _DECODE_WIDE_HD:
+        raise ValueError(f"{name}: head_dim {hd} must be a multiple of 8 "
+                         f"and at most {_DECODE_WIDE_HD} (16-byte row loads; "
+                         f"the wide instance above {_DECODE_MAX_HD})")
     if q.device.type != "cuda":
         raise ValueError(f"{name} launches a CUDA kernel; got tensors on "
                          f"{q.device}")
@@ -268,9 +285,6 @@ def _check_decode(name, q, kv_heads, hd, pos):
     if q.ndim != 3 or kv_heads == 0 or h % kv_heads:
         raise ValueError(f"{name}: q must be (B, H, hd) with KV={kv_heads} "
                          f"dividing H; got {tuple(q.shape)}")
-    if hd % 8 or not 0 < hd <= _DECODE_MAX_HD:
-        raise ValueError(f"{name}: head_dim {hd} must be a multiple of 8 "
-                         f"and at most {_DECODE_MAX_HD} (16-byte row loads)")
     if pos.shape != (b,):
         raise ValueError(f"{name}: pos must be (B={b},); got "
                          f"{tuple(pos.shape)}")
@@ -325,7 +339,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, window=0, ts=0):
                  _DTYPES[k_cache.dtype], stream)
     if err:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
-    LAUNCHES["flash_decode"] += 1
+    ck.count_launch(LAUNCHES, "flash_decode", wide=hd > _DECODE_MAX_HD)
     return out
 
 
@@ -373,5 +387,5 @@ def paged_decode(q, kv_pool, bt_k, bt_v, pos, *, window=0):
                  stream)
     if err:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
-    LAUNCHES["paged_decode"] += 1
+    ck.count_launch(LAUNCHES, "paged_decode", wide=hd > _DECODE_MAX_HD)
     return out

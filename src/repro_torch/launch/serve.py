@@ -6,8 +6,12 @@ The default engine is the reference's: the continuous scheduler on the
 paged KV layout (``--scheduler cohort`` and ``--kv-layout dense`` choose
 the others). Full width by default (chai-llama-7b in bf16 needs a GPU
 with ~20 GB free; ``--arch`` also takes nemotron-4-15b (GQA), gemma2-9b
-(local and global layers, softcaps) and h2o-danube-1.8b (all local));
-``--reduced`` serves the CPU-sized config.
+(local and global layers, softcaps), h2o-danube-1.8b (all local),
+gemma3-4b (local and global layers, qk_norm, head dim 320),
+deepseek-moe-16b and qwen3-moe-30b-a3b (MoE FFN; qwen3 needs ~61 GB),
+internvl2-76b (141 GB in bf16: ``--reduced`` only on one card) and
+musicgen-large (frontend archs, served on tokens)); ``--reduced`` serves
+the CPU-sized config.
 """
 from __future__ import annotations
 
@@ -27,7 +31,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="chai-llama-7b",
                     choices=("chai-llama-7b", "nemotron-4-15b", "gemma2-9b",
-                             "h2o-danube-1.8b"))
+                             "h2o-danube-1.8b", "gemma3-4b",
+                             "deepseek-moe-16b", "qwen3-moe-30b-a3b",
+                             "internvl2-76b", "musicgen-large"))
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)

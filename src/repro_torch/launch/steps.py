@@ -8,6 +8,14 @@ copy, the KV tiers' page fetch and put, the preemption slot swap, and the
 relay decode step. Both schedulers: the seeded top-k / top-p sampler.
 Plain callables (the reference wraps the same functions in ``jax.jit`` and
 donates the state; here the state tensors are updated in place).
+
+Each maker that forwards the model takes ``moe_impl`` with the
+reference's default for its kind: "capacity" for the prefills and the
+batched decode step (``make_serve_step``), "ragged" for the mixed and
+relay steps. Under capacity drops the two give different tokens, so the
+engines stay in lockstep with the reference only on the same choice per
+step kind. The decode makers pass ``batch_inputs["embeddings"]`` (a
+frontend stub's (B, d) rows) on where given, as the reference's do.
 """
 from __future__ import annotations
 
@@ -20,33 +28,44 @@ from repro_torch.core import clustering
 from repro_torch.models import transformer as tfm
 
 
-def make_serve_prefill(cfg: ModelConfig, batch: int, max_seq: int):
+def make_serve_prefill(cfg: ModelConfig, batch: int, max_seq: int, *,
+                       moe_impl="capacity"):
     """Whole-cohort prefill into a fresh dense decode state.
     ``batch_inputs["true_lens"]`` ((B,) int), when given, marks each row's
     real prompt length in a right-padded bucket (last-real logits,
-    per-example ``pos``)."""
+    per-example ``pos``). ``batch_inputs["embeddings"]`` ((B, T, d)
+    float) stands for the tokens on a frontend arch."""
     def serve_prefill(params, batch_inputs):
-        tokens = batch_inputs["tokens"]
+        tokens = batch_inputs.get("tokens", batch_inputs.get("embeddings"))
         state = tfm.init_decode_state(cfg, batch, max_seq, tokens.device)
         logits, state = tfm.forward_fullseq(
             params, cfg, tokens, state=state, logits_slice="last",
-            valid_len=batch_inputs.get("true_lens"))
+            valid_len=batch_inputs.get("true_lens"), moe_impl=moe_impl)
         return logits[:, 0], state
 
     return serve_prefill
 
 
+def _decode_inputs(batch_inputs):
+    """(tokens, embeddings) of a decode step's inputs: the embeddings
+    (B, d) of a frontend stub where given (tokens then None)."""
+    emb = batch_inputs.get("embeddings")
+    return (None if emb is not None else batch_inputs["tokens"]), emb
+
+
 def make_serve_step(cfg: ModelConfig, *, chai=False, decode_ts=0,
-                    plain=False):
+                    plain=False, moe_impl="capacity"):
     """One decode step; with ``chai`` the attention is clustered.
     ``decode_ts``: S-tile size of the fused CHAI decode kernel (the engine
     passes its page size so every layout rounds the same). ``plain``: the
     engine's degraded decode, every decode attention on its kernel's
     plain version (``models.transformer.decode_step``)."""
     def serve_step(params, batch_inputs, state, chai_ctx=None):
-        return tfm.decode_step(params, cfg, batch_inputs["tokens"], state,
+        tokens, emb = _decode_inputs(batch_inputs)
+        return tfm.decode_step(params, cfg, tokens, state,
                                chai_ctx=chai_ctx if chai else None,
-                               decode_ts=decode_ts, plain=plain)
+                               decode_ts=decode_ts, plain=plain,
+                               embeddings=emb, moe_impl=moe_impl)
 
     return serve_step
 
@@ -169,35 +188,40 @@ def make_compact_step(cfg: ModelConfig):
 # Continuous batching (slot-level) steps
 # ---------------------------------------------------------------------------
 
-def make_mixed_step(cfg: ModelConfig, *, decode_ts=0, plain=False):
+def make_mixed_step(cfg: ModelConfig, *, decode_ts=0, plain=False,
+                    moe_impl="ragged"):
     """Mixed-phase decode step: each slot takes the MHA path (WARMUP) or
     the CHAI path (STEADY) by ``state["phase"]``; both paths run on the
     whole batch and the output is selected per slot. ``plain``: as for
     ``make_serve_step``."""
     def mixed_step(params, batch_inputs, state, chai_ctx):
-        return tfm.decode_step(params, cfg, batch_inputs["tokens"], state,
+        tokens, emb = _decode_inputs(batch_inputs)
+        return tfm.decode_step(params, cfg, tokens, state,
                                chai_ctx=chai_ctx, mixed_phase=True,
-                               decode_ts=decode_ts, plain=plain)
+                               decode_ts=decode_ts, plain=plain,
+                               embeddings=emb, moe_impl=moe_impl)
 
     return mixed_step
 
 
-def _slot_forward(params, cfg, max_seq, tokens, true_len):
+def _slot_forward(params, cfg, max_seq, tokens, true_len, moe_impl):
     """Batch=1 prefill of a right-padded prompt bucket into a fresh dense
     mini state; padding rows beyond ``true_len`` are masked out of the
     logits and the decode ``pos``."""
     mini = tfm.init_decode_state(cfg, 1, max_seq, tokens.device)
     logits, mini = tfm.forward_fullseq(params, cfg, tokens, state=mini,
                                        logits_slice="last",
-                                       valid_len=true_len)
+                                       valid_len=true_len, moe_impl=moe_impl)
     return logits[:, 0], mini
 
 
-def make_slot_prefill(cfg: ModelConfig, max_seq: int):
+def make_slot_prefill(cfg: ModelConfig, max_seq: int, *,
+                      moe_impl="capacity"):
     """Prefill ONE request and insert it into batch slot ``slot`` of a
     unified decode state (the slot enters WARMUP)."""
     def slot_prefill(params, tokens, true_len, state, slot):
-        logits, mini = _slot_forward(params, cfg, max_seq, tokens, true_len)
+        logits, mini = _slot_forward(params, cfg, max_seq, tokens, true_len,
+                                     moe_impl)
         return logits, chai_cache.insert_slot(state, mini, slot)
 
     return slot_prefill
@@ -228,13 +252,15 @@ def make_slot_reset(cfg: ModelConfig):
 # Paged KV layout (continuous batching over block-table page pools)
 # ---------------------------------------------------------------------------
 
-def make_paged_slot_prefill(cfg: ModelConfig, max_seq: int):
+def make_paged_slot_prefill(cfg: ModelConfig, max_seq: int, *,
+                            moe_impl="capacity"):
     """Paged ``make_slot_prefill``: the batch=1 forward fills a dense mini
     state, which is then scattered into the slot's freshly allocated
     pages (``kg_pages``/``vg_pages``: (P,) int32, null-padded)."""
     def slot_prefill(params, tokens, true_len, state, slot, kg_pages,
                      vg_pages):
-        logits, mini = _slot_forward(params, cfg, max_seq, tokens, true_len)
+        logits, mini = _slot_forward(params, cfg, max_seq, tokens, true_len,
+                                     moe_impl)
         return logits, chai_cache.insert_slot_paged(state, mini, slot,
                                                     kg_pages, vg_pages)
 
@@ -250,7 +276,8 @@ def _paged_prefix_kv(state, bt_kg_row, bt_vg_row):
             "bt_k": bt_kg_row[None], "bt_v": bt_vg_row[None]}
 
 
-def make_paged_chunk_prefill(cfg: ModelConfig, max_seq: int):
+def make_paged_chunk_prefill(cfg: ModelConfig, max_seq: int, *,
+                             moe_impl="capacity"):
     """Chunked prefill: forward ONE page-aligned chunk of a long prompt,
     treating every position the slot has already prefilled (earlier
     chunks, or pages the prefix cache aliased) as the cached prefix: the
@@ -265,7 +292,8 @@ def make_paged_chunk_prefill(cfg: ModelConfig, max_seq: int):
     at ``pos`` lands in the first page of the next chunk, which that
     chunk's whole-page scatter overwrites, and ``insert_slot_paged``
     re-anchors ``pos`` and zeroes the clustering features every chunk)."""
-    suffix_prefill = make_paged_suffix_prefill(cfg, max_seq)
+    suffix_prefill = make_paged_suffix_prefill(cfg, max_seq,
+                                               moe_impl=moe_impl)
 
     def chunk_prefill(params, tokens, true_len, prefix_len, state, slot,
                       kg_scatter, vg_scatter, bt_kg_row, bt_vg_row, phase):
@@ -278,7 +306,8 @@ def make_paged_chunk_prefill(cfg: ModelConfig, max_seq: int):
     return chunk_prefill
 
 
-def make_paged_suffix_prefill(cfg: ModelConfig, max_seq: int):
+def make_paged_suffix_prefill(cfg: ModelConfig, max_seq: int, *,
+                              moe_impl="capacity"):
     """Prefix-cache prefill: forward ONLY the uncached suffix of a prompt
     whose first ``prefix_len`` tokens (whole pages) already live in shared
     pages aliased into the slot's block tables. ``bt_kg_row``/
@@ -293,7 +322,8 @@ def make_paged_suffix_prefill(cfg: ModelConfig, max_seq: int):
         logits, mini = tfm.forward_fullseq(
             params, cfg, tokens, state=mini, logits_slice="last",
             valid_len=true_len, prefix_len=prefix_len,
-            prefix_kv=_paged_prefix_kv(state, bt_kg_row, bt_vg_row))
+            prefix_kv=_paged_prefix_kv(state, bt_kg_row, bt_vg_row),
+            moe_impl=moe_impl)
         state = chai_cache.insert_slot_paged(
             state, mini, slot, kg_scatter, vg_scatter, bt_kg_row=bt_kg_row,
             bt_vg_row=bt_vg_row)
@@ -397,7 +427,7 @@ def make_page_put(cfg: ModelConfig, kind: str):
     return put
 
 
-def make_relay_step(cfg: ModelConfig, *, decode_ts=0):
+def make_relay_step(cfg: ModelConfig, *, decode_ts=0, moe_impl="ragged"):
     """Shared-prefix relay decode step: the mixed-phase step plus a
     ``relay`` dict of group-batched tensors (packed prefix K/V, routing
     maps, membership) the engine builds on the host. Grouped STEADY slots
@@ -407,9 +437,11 @@ def make_relay_step(cfg: ModelConfig, *, decode_ts=0):
     mixed-phase: a relay batch may hold WARMUP slots, which never
     group."""
     def relay_step(params, batch_inputs, state, chai_ctx, relay):
-        return tfm.decode_step(params, cfg, batch_inputs["tokens"], state,
+        tokens, emb = _decode_inputs(batch_inputs)
+        return tfm.decode_step(params, cfg, tokens, state,
                                chai_ctx=chai_ctx, mixed_phase=True,
-                               decode_ts=decode_ts, relay=relay)
+                               decode_ts=decode_ts, relay=relay,
+                               embeddings=emb, moe_impl=moe_impl)
 
     return relay_step
 

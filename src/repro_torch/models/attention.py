@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import apply_rope, softcap
+from repro_torch.models.layers import apply_rope, rms_norm, softcap
 
 NEG_INF = -2.0e38
 
@@ -76,15 +76,31 @@ def ring_positions(pos, size):
 
 def project_qkv(x, p, cfg, positions):
     """x: (B, T, d) -> rotary-encoded q (B, T, H, hd), k/v (B, T, KV, hd).
-    ``p`` is one layer's attention parameters."""
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm is not ported yet")
+    ``p`` is one layer's attention parameters. With ``cfg.qk_norm``
+    (gemma3, qwen3) q and k are RMS-normed over head_dim by ``q_norm`` /
+    ``k_norm`` after the projection and before RoPE, as the reference
+    does."""
     q = torch.einsum("btd,dhe->bthe", x, p["wq"])
     k = torch.einsum("btd,dke->btke", x, p["wk"])
     v = torch.einsum("btd,dke->btke", x, p["wv"])
+    q, k = qk_norm(q, k, p, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def qk_norm(q, k, p, cfg):
+    """The per-head RMSNorm of q and k (``q_norm`` / ``k_norm`` over the
+    last axis, head_dim) under ``cfg.qk_norm``; else q and k as they are.
+    Either may be None. Per head, so it commutes with any gather of
+    heads."""
+    if not cfg.qk_norm:
+        return q, k
+    if q is not None:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if k is not None:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k
 
 
 def output_proj(attn_out, p):

@@ -1,12 +1,18 @@
-"""Decoder stack for dense attention models: global and local layers.
+"""Decoder stack for the attention archs: global and local layers, dense
+and MoE FFNs, the frontend adapter.
 
 Parameters keep the reference's layer-stacked layout (``param_table``):
-one tensor per leaf with the layer index first, so weights cross between
-the packages leaf by leaf (``repro_torch.weights``). A Python loop over
-layers replaces the reference's ``lax.scan``/``lax.switch``; the global
-and the local (sliding-window) attention mixers and the dense FFN are
-ported, and any other layer kind (RG-LRU, RWKV, MoE) raises
-``NotImplementedError``.
+one stack per layer family, with the layer index first on every leaf
+(``attn``, the dense ``ffn`` over the dense-FFN layers only, ``moe`` over
+the MoE layers, ``frontend.adapter``), so weights cross between the
+packages leaf by leaf (``repro_torch.weights``). A Python loop over
+layers replaces the reference's ``lax.scan``/``lax.switch``, with the
+reference's per-family indices (``layer_plan``). Ported: the global and
+the local (sliding-window) attention mixers with ``qk_norm``, the dense
+FFN, the MoE FFN (``models.moe``: ``moe_impl`` "ragged" or "capacity",
+the reference's defaults per entry point) and the linear adapter over
+precomputed frontend embeddings (``models.frontends``). RG-LRU and RWKV
+layers raise ``NotImplementedError`` (ROADMAP #14 part B).
 
 Global layers keep a dense cache (``kg``/``vg``, or the engine's paged
 pool); local layers keep a ring of the last ``min(window, max_seq)``
@@ -27,12 +33,12 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, FFN_DENSE,
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, FFN_MOE,
                                       ModelConfig)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import mlp
+from repro_torch.models import frontends, mlp, moe
 from repro_torch.models.layers import embed_lookup, rms_norm, softcap, unembed
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -44,20 +50,19 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise on what this slice of the port does not carry."""
+    """Raise on what the port does not carry yet: RG-LRU and RWKV layers
+    (recurrentgemma-9b, rwkv6-1.6b), whose recurrent decode state comes
+    with ROADMAP #14 part B. Every attention arch is served. Also checks
+    the two settings the reference asserts (the cache dtype, share_values
+    on MHA only)."""
     if any(t not in (ATTN_GLOBAL, ATTN_LOCAL) for t in cfg.layer_types):
         raise NotImplementedError(
-            f"{cfg.name}: only global and local attention layers are ported "
-            "(RG-LRU and RWKV layers come with a later slice)")
-    if any(t != FFN_DENSE for t in cfg.ffn_types):
-        raise NotImplementedError(f"{cfg.name}: MoE FFN is not ported yet")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: frontends are not ported yet")
+            f"{cfg.name}: RG-LRU and RWKV layers are not ported yet "
+            "(ROADMAP #14 part B: their recurrent decode state); global "
+            "and local attention layers are")
     if cfg.kv_cache_dtype not in ("", "int8"):
         raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: the cache "
                          "is the model dtype ('') or 'int8'")
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm is not ported yet")
     if cfg.chai.share_values and not cfg.is_mha:
         raise ValueError(f"{cfg.name}: share_values (clustered V, CHAI-QKV) "
                          "is an MHA-only ablation; the reference's kernels "
@@ -70,30 +75,57 @@ def check_supported(cfg: ModelConfig):
 
 def param_table(cfg: ModelConfig):
     """{group: {name: (shape, init_scale)}} — the reference's table for the
-    embed / unembed / final_norm / attn / ffn groups."""
+    embed / frontend / unembed / final_norm / attn / ffn / moe groups:
+    ``attn`` over the attention layers (with ``q_norm`` / ``k_norm``
+    (nA, hd) under qk_norm), ``ffn`` over the dense-FFN layers only,
+    ``moe`` over the MoE layers (router, experts, shared experts),
+    ``frontend.adapter`` (d, d) on a frontend arch. A group with no layer
+    is absent."""
     check_supported(cfg)
     d, hd = cfg.d_model, cfg.head_dim
-    h, kv, n = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    n_a, n_d, n_m = cfg.n_attn_layers, cfg.n_dense_ffn, cfg.n_moe_ffn
     t: Dict[str, Dict[str, tuple]] = {}
     t["embed"] = {"tok": ((cfg.vocab_size, d), 0.02)}
+    if cfg.frontend != "none":
+        t["frontend"] = {"adapter": ((d, d), d ** -0.5)}
     if not cfg.tie_embeddings:
         t["unembed"] = {"w": ((d, cfg.vocab_size), d ** -0.5)}
     t["final_norm"] = {"scale": ((d,), 0.0)}
     t["attn"] = {
-        "ln": ((n, d), 0.0),
-        "wq": ((n, d, h, hd), d ** -0.5),
-        "wk": ((n, d, kv, hd), d ** -0.5),
-        "wv": ((n, d, kv, hd), d ** -0.5),
-        "wo": ((n, h, hd, d), (h * hd) ** -0.5),
+        "ln": ((n_a, d), 0.0),
+        "wq": ((n_a, d, h, hd), d ** -0.5),
+        "wk": ((n_a, d, kv, hd), d ** -0.5),
+        "wv": ((n_a, d, kv, hd), d ** -0.5),
+        "wo": ((n_a, h, hd, d), (h * hd) ** -0.5),
     }
-    g = {
-        "ln": ((n, d), 0.0),
-        "w_up": ((n, d, cfg.d_ff), d ** -0.5),
-        "w_down": ((n, cfg.d_ff, d), cfg.d_ff ** -0.5),
-    }
-    if cfg.gated_mlp:
-        g["w_gate"] = ((n, d, cfg.d_ff), d ** -0.5)
-    t["ffn"] = g
+    if cfg.qk_norm:
+        t["attn"]["q_norm"] = ((n_a, hd), 0.0)
+        t["attn"]["k_norm"] = ((n_a, hd), 0.0)
+    if n_d:
+        g = {
+            "ln": ((n_d, d), 0.0),
+            "w_up": ((n_d, d, cfg.d_ff), d ** -0.5),
+            "w_down": ((n_d, cfg.d_ff, d), cfg.d_ff ** -0.5),
+        }
+        if cfg.gated_mlp:
+            g["w_gate"] = ((n_d, d, cfg.d_ff), d ** -0.5)
+        t["ffn"] = g
+    if n_m:
+        fe, e = cfg.moe_d_ff, cfg.n_experts
+        g = {
+            "ln": ((n_m, d), 0.0),
+            "router": ((n_m, d, e), d ** -0.5),
+            "w_gate": ((n_m, e, d, fe), d ** -0.5),
+            "w_up": ((n_m, e, d, fe), d ** -0.5),
+            "w_down": ((n_m, e, fe, d), fe ** -0.5),
+        }
+        if cfg.n_shared_experts:
+            sf = cfg.n_shared_experts * fe
+            g["shared_gate"] = ((n_m, d, sf), d ** -0.5)
+            g["shared_up"] = ((n_m, d, sf), d ** -0.5)
+            g["shared_down"] = ((n_m, sf, d), sf ** -0.5)
+        t["moe"] = g
     return t
 
 
@@ -120,20 +152,21 @@ def init_params(cfg: ModelConfig, generator=None, device=None):
 
 
 def layer_plan(cfg: ModelConfig):
-    """Per-layer routing (the reference's ``layer_plan``, attention
-    subset): ``attn`` the attention-layer index of each layer, ``global``
-    / ``local`` its index among the global / local layers (None for a
-    layer of the other kind), ``dense`` its dense-FFN index."""
+    """Per-layer routing (the reference's ``layer_plan``, attention archs),
+    one counter a family: ``attn`` the attention-layer index of each
+    layer, ``global`` / ``local`` its index among the global / local
+    layers, ``dense`` / ``moe`` its index among the dense-FFN / MoE
+    layers (None for a layer of the other kind)."""
     check_supported(cfg)
-    plan = {"attn": [], "global": [], "local": [], "dense": []}
-    n_glob = n_loc = 0
-    for i, kind in enumerate(cfg.layer_types):
-        plan["attn"].append(i)
-        plan["dense"].append(i)
-        plan["global"].append(n_glob if kind == ATTN_GLOBAL else None)
-        plan["local"].append(n_loc if kind == ATTN_LOCAL else None)
-        n_glob += kind == ATTN_GLOBAL
-        n_loc += kind == ATTN_LOCAL
+    plan = {"attn": [], "global": [], "local": [], "dense": [], "moe": []}
+    count = dict.fromkeys(plan, 0)
+    for i, (lt, ft) in enumerate(zip(cfg.layer_types, cfg.ffn_types)):
+        kinds = {"attn": True, "global": lt == ATTN_GLOBAL,
+                 "local": lt == ATTN_LOCAL, "dense": ft != FFN_MOE,
+                 "moe": ft == FFN_MOE}
+        for key, on in kinds.items():
+            plan[key].append(count[key] if on else None)
+            count[key] += on
     return plan
 
 
@@ -262,10 +295,52 @@ def _ring_write(state, li, k, v, positions, vl):
                                 cache))
 
 
+MOE_IMPLS = ("ragged", "capacity")
+
+
+def _embed(params, cfg, tokens, embeddings=None):
+    """The residual stream's input in the model dtype: the embedding rows
+    of ``tokens``, or float ``embeddings`` (precomputed frontend
+    outputs, (..., d)) through the adapter."""
+    dt = model_dtype(cfg)
+    if embeddings is not None:
+        return frontends.adapt(embeddings.to(dt)[:, None],
+                               params["frontend"])[:, 0]
+    if tokens.is_floating_point():
+        return frontends.adapt(tokens.to(dt), params["frontend"])
+    return embed_lookup(params["embed"]["tok"], tokens).to(dt)
+
+
+def _ffn(h, params, cfg, plan, i, moe_impl):
+    """Layer ``i``'s FFN sublayer on h (B, T, d), residual included: the
+    dense FFN, or the MoE FFN by ``moe_impl``."""
+    mi = plan["moe"][i]
+    if mi is None:
+        pf = _layer(params["ffn"], plan["dense"][i])
+        return h + mlp.dense_ffn(rms_norm(h, pf["ln"], cfg.norm_eps), pf,
+                                 cfg)
+    pm = _layer(params["moe"], mi)
+    xn = rms_norm(h, pm["ln"], cfg.norm_eps)
+    if moe_impl == "ragged":
+        return h + moe.moe_ffn_ragged(xn, pm, cfg)
+    return h + moe.moe_ffn(xn, pm, cfg)
+
+
+def _check_moe_impl(moe_impl):
+    if moe_impl not in MOE_IMPLS:
+        raise ValueError(f"moe_impl {moe_impl!r}: the port runs 'ragged' or "
+                         "'capacity' (expert parallelism, 'ep', waits for "
+                         "the sharding tooling, ROADMAP #16)")
+
+
 def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
                     positions=None, logits_slice=None, valid_len=None,
-                    prefix_len=None, prefix_kv=None):
-    """tokens: (B, T) int. ``state``: decode state to fill (prefill) or None.
+                    prefix_len=None, prefix_kv=None, moe_impl=None):
+    """tokens: (B, T) int, or float embeddings (B, T, d) of a frontend
+    stub, which enter through the adapter. ``state``: decode state to
+    fill (prefill) or None. ``moe_impl`` (MoE layers): "ragged" or
+    "capacity"; None takes the reference's default, "ragged" with a
+    ``state`` and "capacity" without.
 
     Returns (logits, state). ``logits_slice="last"`` computes only the last
     position's logits; with ``valid_len`` ((B,) or scalar: bucketed
@@ -287,8 +362,10 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
     at those positions, and ``pos`` starts at ``prefix_len + valid_len``.
     """
     plan = layer_plan(cfg)
-    dt = model_dtype(cfg)
-    h = embed_lookup(params["embed"]["tok"], tokens).to(dt)
+    if moe_impl is None:
+        moe_impl = "capacity" if state is None else "ragged"
+    _check_moe_impl(moe_impl)
+    h = _embed(params, cfg, tokens)
     b, t = h.shape[0], h.shape[1]
     plen = None
     if prefix_len is not None:
@@ -322,8 +399,7 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
             _ring_write(state, li, k, v, positions, vl)
         elif state is not None:
             _prefill_write(state, gi, pos_idx, k, v)
-        pf = _layer(params["ffn"], plan["dense"][i])
-        h = h + mlp.dense_ffn(rms_norm(h, pf["ln"], cfg.norm_eps), pf, cfg)
+        h = _ffn(h, params, cfg, plan, i, moe_impl)
 
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     if logits_slice == "last":
@@ -583,9 +659,13 @@ def _flash_decode(q, kc, vc, pos, ts, plain):
 
 
 def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
-                mixed_phase=False, decode_ts=0, relay=None, plain=False):
-    """One decode step. tokens: (B,) int. Returns (logits (B, V) fp32,
-    state) with ``pos`` advanced by one.
+                mixed_phase=False, decode_ts=0, relay=None, plain=False,
+                embeddings=None, moe_impl="ragged"):
+    """One decode step. tokens: (B,) int, or ``embeddings`` (B, d) of a
+    frontend stub through the adapter (tokens then unused). Returns
+    (logits (B, V) fp32, state) with ``pos`` advanced by one.
+    ``moe_impl``: the MoE layers' "ragged" (the reference's default here)
+    or "capacity" form.
 
     ``chai_ctx`` (membership, see ``repro_torch.core.clustering``) routes
     every attention layer through Clustered Head Attention over the
@@ -613,7 +693,8 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
     assert not (plain and relay is not None), "no plain relay step"
     from repro_torch.core import chai_attention as chai_mod
     plan = layer_plan(cfg)
-    h = embed_lookup(params["embed"]["tok"], tokens).to(model_dtype(cfg))
+    _check_moe_impl(moe_impl)
+    h = _embed(params, cfg, tokens, embeddings)
     steady = None
     if chai_ctx is not None and mixed_phase:
         from repro_torch.core.cache import PHASE_STEADY
@@ -640,9 +721,7 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
             y = _plain_decode_attention(xn, p, cfg, state, gi, ai, li,
                                         decode_ts=decode_ts, plain=plain)
         h = h + torch.einsum("bhe,hed->bd", y, p["wo"])
-        pf = _layer(params["ffn"], plan["dense"][i])
-        xf = rms_norm(h, pf["ln"], cfg.norm_eps)
-        h = h + mlp.dense_ffn(xf[:, None], pf, cfg)[:, 0]
+        h = _ffn(h[:, None], params, cfg, plan, i, moe_impl)[:, 0]
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(h, _unembed_w(params, cfg), cfg.final_logit_softcap)
     state["pos"] = state["pos"] + 1

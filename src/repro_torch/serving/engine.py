@@ -155,6 +155,7 @@ from repro_torch.configs.base import ATTN_GLOBAL, ModelConfig
 from repro_torch.core import cache as chai_cache
 from repro_torch.core import clustering
 from repro_torch.launch import steps as steps_mod
+from repro_torch.models.transformer import check_supported
 from repro_torch.serving import exporters as exporters_mod
 from repro_torch.serving import faults as faults_mod
 from repro_torch.serving import invariants as invariants_mod
@@ -355,6 +356,7 @@ class EngineCore(CohortSchedulerMixin):
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *,
                  detokenizer: Optional[Callable] = None,
                  faults: Optional[FaultInjector] = None, device=None):
+        check_supported(cfg)       # RG-LRU / RWKV: ROADMAP #14 part B
         self.device = resolve_device(device)
         self.detokenizer = detokenizer
         if ecfg.audit_level not in ("off", "basic", "deep"):
