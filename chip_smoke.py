@@ -278,7 +278,32 @@ result line):
    141 GB in bf16, and qwen3's expert stacks would be staged in fp32),
    through ``moe_serving_path``: launches n_layers a step, every pick's
    logits finite, pools empty;
-22. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
+22. the recurrent archs of ROADMAP #14 part B, after every earlier model
+   is freed (``recurrent_paths``), none of whose paths runs a TPU kernel:
+   full-width recurrentgemma-9b at full depth (38 layers: 26 RG-LRU and
+   12 local MQA layers, window 2048, no global layer; 10.45 B
+   parameters, 20.9 GB in bf16) and rwkv6-1.6b at full depth (24 RWKV
+   layers, 3.17 GB), bf16, random weights from a seed, each through
+   ``recurrent_path``: the cohort on phase 5's traffic (recurrentgemma
+   CHAI then the MHA baseline, rwkv the baseline), then the continuous
+   engine on ``ZOO_TRAFFIC`` asked for the paged layout and running the
+   unified one (no global layer): recurrentgemma CHAI twice and the MHA
+   baseline, rwkv the baseline twice (its engine refuses
+   ``use_chai=True``); the repeat equal bit for bit (tokens and every
+   top-2 margin); every logit finite; each of the 13 kernels' counters 0
+   over every run; the eager decode attention once an attention layer a
+   baseline step; ``kv_bytes()`` the rings only; one device-to-host copy
+   a decode step (``torch.profiler``); the first recurrent layer's
+   prefill at the longest prompt's bucket (512) and its decode step of 4
+   rows by CUDA events; and the recurrent state on the card
+   (``recurrent_state_check``: a 64-token prompt, its own bucket, and 16
+   greedy decode steps against one ``forward_fullseq`` over the prompt
+   and the generated tokens, in fp32 on the same weights logits within
+   ``STATE_F32_TOL`` and greedy tokens equal on margin-checked steps, in
+   bf16 the max and mean logit differences bounded); wall, tok/s, TTFT,
+   decode step ms by kind and the device memory peak above each run's
+   start logged;
+23. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
    each of the four int8 modes, its launches those of its phase-11 path,
    a ``[share]`` row for each of the three share modes, its launches
    those of its phase-12 path, a ``[softcap]`` row for each of the two
@@ -310,10 +335,12 @@ no bit, SDPA timed beside ``flash_decode`` with the backend it picks at
 head dim 320 named from its kernels; every such launch counted in the
 ``wide`` mode; then the hd-128 rows of the four kernels on
 chai-llama-7b's shapes, timed in the same run. Phase 4 also runs the
-five archs of phase 21 reduced, cuda against cpu
-(``reduced_arch_checks``: the teacher-forced reference check, the
-continuous engine paged and dense, and forward and decode on float
-embeddings for the two frontend archs).
+five archs of phase 21 and the two of phase 22 reduced, cuda against cpu
+(``reduced_arch_checks``: the teacher-forced reference check, rwkv's as
+plain decode steps with every state leaf held; the continuous engine
+paged and dense, rwkv without CHAI, the recurrent archs on the unified
+layout with no launch; and forward and decode on float embeddings for
+the two frontend archs).
 
 Side paths (``SIDE_DEPTH``): phase 11's nemotron-4-15b int8 pair runs on
 the first SIDE_DEPTH layers against a K-only pair of that depth, and
@@ -488,6 +515,7 @@ from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.core import policy  # noqa: E402
 from repro_torch.launch import (  # noqa: E402
     offline_clustering, serve_http, steps)
+from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import exporters  # noqa: E402
 from repro_torch.serving import faults as faults_mod  # noqa: E402
@@ -3648,8 +3676,12 @@ def reduced_cfg(arch=ARCH):
 def reduced_reference_check(arch=ARCH):
     """The reduced model on the card (kernel path) against the same model
     on the CPU (plain path), teacher-forced: prefill, 5 WARMUP steps,
-    membership from the CPU buffer used on both, 3 STEADY steps."""
+    membership from the CPU buffer used on both, 3 STEADY steps. An arch
+    without CHAI (rwkv6-1.6b: no attention layer) takes 8 plain decode
+    steps after the prefill instead."""
     cfg = reduced_cfg(arch)
+    if not chai_applies(cfg):
+        return reduced_plain_check(cfg)
     b, s = 3, 64
     params_cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0),
                                  "cpu")
@@ -3703,6 +3735,51 @@ def reduced_reference_check(arch=ARCH):
         f"diff {worst:.3e} over prefill + 5 WARMUP + 3 STEADY steps")
 
 
+def chai_applies(cfg):
+    """CHAI runs on the config: it is enabled and has attention layers
+    (rwkv6-1.6b has none, and its engines run with ``use_chai=False``)."""
+    return cfg.chai.enabled and cfg.n_attn_layers > 0
+
+
+def reduced_plain_check(cfg):
+    """``reduced_reference_check`` for an arch without CHAI: the bucketed
+    prefill (rows of 32, 19 and 5 real tokens in a bucket of 32) and 8
+    plain decode steps, teacher-forced, the card against the CPU at 1e-4,
+    every recurrent state leaf at 1e-4 after the last step; no kernel
+    launched."""
+    b, s = 3, 64
+    params_cpu = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+    params_gpu = {g: {n: t.cuda() for n, t in grp.items()}
+                  for g, grp in params_cpu.items()}
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, 32)))
+    lens = torch.tensor([32, 19, 5])
+    prefill = steps.make_serve_prefill(cfg, b, s)
+    step = steps.make_serve_step(cfg, chai=False, decode_ts=PAGE)
+    _reset_launches()
+    lc, sc = prefill(params_cpu, {"tokens": toks, "true_lens": lens})
+    lg, sg = prefill(params_gpu, {"tokens": toks.cuda(),
+                                  "true_lens": lens.cuda()})
+    worst = [float((lg.cpu() - lc).abs().max())]
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    nxt = lc.argmax(-1)
+    for _ in range(8):
+        lc, sc = step(params_cpu, {"tokens": nxt}, sc)
+        lg, sg = step(params_gpu, {"tokens": nxt.cuda()}, sg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        worst.append(float((lg.cpu() - lc).abs().max()))
+        nxt = lc.argmax(-1)
+    for key in sc:
+        torch.testing.assert_close(sg[key].cpu(), sc[key], atol=1e-4,
+                                   rtol=1e-4)
+    if any(_launches().values()):
+        raise AssertionError(f"reduced {cfg.name}: kernels launched")
+    log(f"reduced {cfg.name} (2 layers, fp32, no CHAI) cuda vs cpu: logits "
+        f"max abs diff {max(worst):.3e} over a bucketed prefill + 8 decode "
+        f"steps; state leaves {sorted(sc)} held at 1e-4; no launch")
+
+
 # The launches by mode (``kernels.chai_attention.MODE_LAUNCHES``) of every
 # run of the process that a _reset_launches() opens and a _launches()
 # reads: one entry a run, filed at its first read.
@@ -3744,8 +3821,10 @@ def mode_launches(row, runs=None):
                and want <= set(key.partition("[")[2].rstrip("]").split("+")))
 
 
+RG = "recurrentgemma-9b"         # 26 RG-LRU + 12 local MQA layers
+RWKV = "rwkv6-1.6b"             # 24 RWKV layers, no attention
 NEW_ARCHS = (GEMMA3, "deepseek-moe-16b", "qwen3-moe-30b-a3b",
-             "internvl2-76b", "musicgen-large")
+             "internvl2-76b", "musicgen-large", RG, RWKV)
 
 
 def reduced_embeddings_check(arch):
@@ -3782,11 +3861,15 @@ def reduced_embeddings_check(arch):
 
 def reduced_arch_checks():
     """Phase 4 for the archs of ROADMAP #14 part B (gemma3-4b with
-    qk_norm and local layers, the MoE archs, the frontend archs), reduced
-    (2 layers, fp32) on the card against the CPU: the teacher-forced
-    reference check (prefill, WARMUP, STEADY through the fused kernel on
-    the global layers), the continuous engine paged and dense, and for
-    the frontend archs forward and decode on embeddings."""
+    qk_norm and local layers, the MoE archs, the frontend archs, and the
+    recurrent archs: recurrentgemma-9b with an RG-LRU and a local layer,
+    rwkv6-1.6b with two RWKV layers), reduced (2 layers, fp32) on the card
+    against the CPU: the teacher-forced reference check (prefill, WARMUP,
+    STEADY through the fused kernel on the global layers; rwkv: plain
+    decode steps), the continuous engine paged and dense (rwkv without
+    CHAI; neither recurrent arch has a global layer, so both run the
+    unified layout and launch nothing), and for the frontend archs
+    forward and decode on embeddings."""
     for arch in NEW_ARCHS:
         reduced_reference_check(arch)
         reduced_continuous_check(arch)
@@ -3885,25 +3968,34 @@ def reduced_continuous_check(arch=ARCH):
     to it), so the two devices decode the same clustered attention;
     logits of every live row are held at 1e-4 until the first greedy
     token that differs, which must sit on a cpu top-2 margin <= 1e-3.
-    The two cuda layouts must give identical tokens."""
+    The two cuda layouts must give identical tokens. An arch without
+    CHAI (``chai_applies``) serves with ``use_chai=False``; an arch
+    without a global layer launches no kernel."""
     cfg, params_cpu, params_gpu = _reduced_model(arch)
+    chai = chai_applies(cfg)
     rng = np.random.default_rng(1)
     budgets = (12, 7, 10, 4, 9)
     prompts = [rng.integers(0, cfg.vocab_size, size=n)
                for n in (11, 6, 17, 9, 14)]
     cpu_done, cpu_calls, cpu_idents = _reduced_serve(
-        cfg, params_cpu, "cpu", prompts, budgets, max_seq=64)
+        cfg, params_cpu, "cpu", prompts, budgets, max_seq=64, use_chai=chai)
     gpu = {}
     for layout in ("paged", "dense"):
         _reset_launches()
         gpu[layout] = _reduced_serve(
             cfg, params_gpu, "cuda", prompts, budgets,
-            _forced_identify(cpu_idents), max_seq=64, kv_layout=layout)
+            _forced_identify(cpu_idents), max_seq=64, kv_layout=layout,
+            use_chai=chai)
         launched = _launches()
         own, other = (("paged_chai_fused_decode", "chai_fused_decode")
                       if layout == "paged" else
                       ("chai_fused_decode", "paged_chai_fused_decode"))
-        if (not launched[own] or launched[other]
+        if not cfg.n_global_layers:
+            if any(launched.values()):
+                raise AssertionError(f"reduced continuous {layout}: "
+                                     f"launches {launched} without a "
+                                     "global layer")
+        elif (not launched[own] or launched[other]
                 or launched["flash_prefill"]
                 or launched["paged_prefix_attend"]):
             raise AssertionError(f"reduced continuous {layout}: launches "
@@ -4592,7 +4684,8 @@ def _memory_start():
 
 
 def _check_served(cfg, run, label):
-    """Token counts, vocabulary, and both step kinds ran."""
+    """Token counts, vocabulary, and both CHAI step kinds ran (an MHA
+    baseline run: only baseline steps)."""
     done, calls = run["done"], run["calls"]
     counts = [len(r.generated) for r in done]
     if (counts != list(run["traffic"][1])
@@ -4600,7 +4693,10 @@ def _check_served(cfg, run, label):
         raise AssertionError(f"{label}: token counts {counts}")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
         raise AssertionError("token id out of vocabulary")
-    if not (calls.get("mixed_step") and calls.get("steady_step")):
+    if "mha_step" in calls:
+        if set(calls) - {"prefill", "mha_step"}:
+            raise AssertionError(f"{label}: step kinds {calls}")
+    elif not (calls.get("mixed_step") and calls.get("steady_step")):
         raise AssertionError(f"{label}: step kinds {calls}")
     if [len(run["margins"][r.uid]) for r in done] != counts:
         raise AssertionError(f"{label}: margins not recorded per token")
@@ -5962,15 +6058,16 @@ def local_mha_want(cfg, layout, steps, launched):
     take the layout's flash decode kernel (``flash_decode`` on the dense
     and cohort layouts, ``paged_decode`` on the paged one) unless the
     config caps its scores (the flash decode kernels have no softcap, as
-    the Pallas ones), every other layer the eager attention over its ring.
-    ``launched``: the run's counts (their keys). Returns (launches,
-    eager calls)."""
+    the Pallas ones), every other attention layer the eager attention over
+    its ring (a recurrent layer calls neither). ``launched``: the run's
+    counts (their keys). Returns (launches, eager calls)."""
     flash = bool(cfg.n_global_layers) and not cfg.attn_logit_softcap
     want = {name: 0 for name in launched}
     if flash:
         want["paged_decode" if layout == "paged" else "flash_decode"] = (
             cfg.n_global_layers * steps)
-    return want, (cfg.n_local_layers if flash else cfg.n_layers) * steps
+    return want, (cfg.n_local_layers if flash
+                  else cfg.n_attn_layers) * steps
 
 
 def _check_wide(cfg, launches, label, run=-1):
@@ -5993,7 +6090,7 @@ def local_cohort(cfg, params, label, prompts=PROMPT_LENS, max_seq=MAX_SEQ):
     ``chai_fused_decode`` once per global layer and STEADY step, every
     call in the config's softcap mode, and nothing else (local layers
     decode eagerly over their rings); WARMUP takes the eager attention on
-    every layer. The MHA baseline (``local_mha_want``) launches
+    every attention layer. The MHA baseline (``local_mha_want``) launches
     ``flash_decode`` once per global layer and step unless the config
     caps its scores, and runs every other layer eagerly (the flash
     decode kernels have no softcap and no ring). Returns ({path:
@@ -6020,10 +6117,10 @@ def local_cohort(cfg, params, label, prompts=PROMPT_LENS, max_seq=MAX_SEQ):
     if cfg.n_global_layers:
         want["chai_fused_decode"] = ((MAX_NEW - 1 - warm)
                                      * cfg.n_global_layers)
-    if launches != want or chai_eager != warm * cfg.n_layers:
+    if launches != want or chai_eager != warm * cfg.n_attn_layers:
         raise AssertionError(f"{label}: launches {launches}, expected {want};"
                              f" eager calls {chai_eager}, expected "
-                             f"{warm * cfg.n_layers}")
+                             f"{warm * cfg.n_attn_layers}")
     _check_caps(cfg, cap.caps, label, cap.dtypes)
     _check_wide(cfg, launches, label)
     n_tok = sum(counts)
@@ -8230,7 +8327,8 @@ def _timed_step(core, timer):
 def _step_copies(core, kind):
     """(device-to-host copies, device events) of the next decode step of
     ``core``, of ``kind`` ("steady": every occupied slot STEADY; "mixed":
-    WARMUP and STEADY slots), from a whole ``torch.profiler`` trace: a
+    WARMUP and STEADY slots; "warmup": every occupied slot WARMUP, as
+    without CHAI), from a whole ``torch.profiler`` trace: a
     step whose trace is not whole is followed by the next, with twice
     the sleep at the window's edges, up to PROFILE_TRIES steps, as
     ``_decode_step_copies`` does."""
@@ -8239,8 +8337,10 @@ def _step_copies(core, kind):
         got = _profiled_copies(core.step, PROFILE_EDGE_S[0])
         phases = set(core._phases[core._phases
                                   != chai_cache.PHASE_FREE].tolist())
-        want = ({chai_cache.PHASE_STEADY} if kind == "steady" else
-                {chai_cache.PHASE_WARMUP, chai_cache.PHASE_STEADY})
+        want = {"steady": {chai_cache.PHASE_STEADY},
+                "warmup": {chai_cache.PHASE_WARMUP},
+                "mixed": {chai_cache.PHASE_WARMUP,
+                          chai_cache.PHASE_STEADY}}[kind]
         if core.steps_executed != n0 + 1 or phases != want:
             raise AssertionError(f"the profiled step was no {kind} decode "
                                  f"step: phases {phases}")
@@ -8402,6 +8502,316 @@ def moe_paths():
         _free()
         log(f"phase 21c ({arch}, {SIDE_DEPTH} layers): "
             f"{time.time() - t0:.1f} s")
+    return launches, sums
+
+
+# ----------------------------------------------------------- phase 22 ----
+# The recurrent state on the card: a prompt of STATE_PROMPT tokens, its
+# own bucket (no padding reaches the recurrence), then STATE_NEW greedy
+# decode steps, against one forward over the prompt and the generated
+# tokens, in fp32 on the model's weights (each leaf cast up) and in the
+# model's bf16. The two sides round at different places (the RG-LRU scan
+# against its step, the RWKV chunk against its step, a whole-prompt
+# attention against a decode one, products of other shapes). In fp32
+# (TF32 off) they part in the last bits: the logits (std ~1) are held at
+# STATE_F32_TOL and the greedy token wherever the forward's top-2 margin
+# exceeds STATE_F32_MARGIN. In bf16 the recurrent state is stored in the
+# model dtype after every decode step but carried in fp32 through a
+# prefill, as in the reference, so the sides drift apart step by step:
+# a first run on the H100 measured a max |diff| of 0.38 (recurrentgemma)
+# and 1.10 (rwkv), a mean of 0.053 and 0.131, and greedy tokens parting
+# at margins up to 0.16; a decode that lost its state would part by the
+# difference of two unrelated N(0, 1) logits, a mean of 1.13. So bf16 is
+# held at STATE_BF16_MAX and STATE_BF16_MEAN, its greedy agreement
+# logged.
+STATE_PROMPT = 64
+STATE_NEW = 16
+STATE_F32_TOL = 1e-3
+STATE_F32_MARGIN = 2e-3
+STATE_BF16_MAX = 2.0
+STATE_BF16_MEAN = 0.25
+
+
+def recurrent_state_rows(cfg, params):
+    """(engine rows, forward rows, generated tokens): STATE_PROMPT tokens
+    served alone by the continuous engine with ``use_chai=False`` (CHAI's
+    clustered attention is not the forward's), STATE_NEW + 1 new tokens,
+    the logits of the prefill and of each decode step (fp32, (STATE_NEW +
+    1, V)); and the same positions' logits from one ``forward_fullseq``
+    over the prompt and the first STATE_NEW generated tokens, right-padded
+    to a multiple of the RWKV chunk (the forward is causal: the padding
+    moves no compared position). No kernel may launch."""
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab_size, size=STATE_PROMPT)
+    eng = ServingEngine(cfg, params, EngineConfig(
+        batch_slots=1, max_seq=MAX_SEQ, page_size=PAGE, use_chai=False))
+    if eng._prompt_bucket(STATE_PROMPT, MAX_SEQ) != STATE_PROMPT:
+        raise AssertionError(f"{cfg.name}: the state check's prompt is "
+                             "padded")
+    rows, argmax = [], eng._argmax
+
+    def rec(logits):
+        rows.append(logits[0].float().clone())
+        return argmax(logits)
+    eng._argmax = rec
+    eng.submit(prompt, max_new_tokens=STATE_NEW + 1, uid=0)
+    _reset_launches()
+    gen = eng.run()[0].generated
+    seq = list(prompt) + gen[:STATE_NEW]
+    t = -(-len(seq) // rwkv_mod.CHUNK) * rwkv_mod.CHUNK
+    toks = torch.zeros((1, t), dtype=torch.long, device="cuda")
+    toks[0, :len(seq)] = torch.tensor(seq, device="cuda")
+    logits, _ = tfm.forward_fullseq(params, cfg, toks)
+    if any(_launches().values()):
+        raise AssertionError(f"{cfg.name} state check: launches "
+                             f"{_launches()}")
+    want = logits[0, STATE_PROMPT - 1:STATE_PROMPT + STATE_NEW].float()
+    return torch.stack(rows), want, gen
+
+
+def recurrent_state_check(cfg, params, label):
+    """The recurrent state of one request on the card
+    (``recurrent_state_rows``), in the model's bf16 and in fp32 on the same
+    weights (each leaf cast up): every logit finite; fp32: the engine's
+    logits within STATE_F32_TOL of the forward's and the greedy token equal
+    on every step whose top-2 margin exceeds STATE_F32_MARGIN; bf16: the
+    max and the mean |diff| within STATE_BF16_MAX and STATE_BF16_MEAN.
+    Returns {dtype: summary}."""
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        if dtype == cfg.dtype:
+            c, p = cfg, params
+        else:
+            c = cfg.replace(dtype=dtype)
+            p = {g: {n: t.to(getattr(torch, dtype)) for n, t in grp.items()}
+                 for g, grp in params.items()}
+        got, want, _ = recurrent_state_rows(c, p)
+        del p
+        _free()
+        f32 = dtype == "float32"
+        atol = STATE_F32_TOL if f32 else STATE_BF16_MAX
+        margin = STATE_F32_MARGIN if f32 else math.inf
+        diff = (got - want).abs()
+        row_err = diff.amax(-1)
+        top2 = want.topk(2, dim=-1).values
+        gaps = top2[:, 0] - top2[:, 1]
+        same = got.argmax(-1) == want.argmax(-1)
+        checked = gaps > margin
+        err = float(diff.max())
+        rec = dict(max_abs=err, mean_abs=float(diff.mean()),
+                   row_max_abs=[round(x, 6) for x in row_err.tolist()],
+                   margins=[round(x, 6) for x in gaps.tolist()],
+                   equal=int(same.sum()), checked=int(checked.sum()),
+                   rows=len(got), logit_std=float(want.std()))
+        out[dtype] = rec
+        log(f"{label} recurrent state on the card, {dtype}: a "
+            f"{STATE_PROMPT}-token prompt (its own bucket) + {STATE_NEW} "
+            f"greedy decode steps against one forward: logits max abs diff "
+            f"{err:.5f} (limit {atol}), mean {rec['mean_abs']:.6f}"
+            f"{'' if f32 else f' (limit {STATE_BF16_MEAN})'}, the "
+            f"forward's logit std {rec['logit_std']:.4f}; per row max "
+            f"{rec['row_max_abs']}; top-2 margins {rec['margins']}; greedy "
+            f"equal on {rec['equal']} of {len(got)}, {rec['checked']} "
+            f"margin-checked (> {margin})")
+        if (not torch.isfinite(got).all() or not torch.isfinite(want).all()
+                or err > atol or not same[checked].all()
+                or (not f32 and rec["mean_abs"] > STATE_BF16_MEAN)):
+            raise AssertionError(f"{label} state check, {dtype}: logits max "
+                                 f"abs diff {err:.5f} (limit {atol}), mean "
+                                 f"{rec['mean_abs']:.5f}; greedy "
+                                 f"equal {same.tolist()} where margins "
+                                 f"{gaps.tolist()} (checked above {margin})")
+    return out
+
+
+def recurrent_step_copies(cfg, params, chai):
+    """(device-to-host copies, device events) of one decode step of a bare
+    continuous engine with SLOTS - 1 requests decoding: all STEADY with
+    CHAI, all WARMUP (the phase a slot keeps without CHAI) otherwise
+    (``_step_copies``)."""
+    core = EngineCore(cfg, params, EngineConfig(
+        batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE, use_chai=chai))
+    rng = np.random.default_rng(0)
+    for n in CONT_PROMPT_LENS[:SLOTS - 1]:
+        core.add_request(rng.integers(0, cfg.vocab_size, size=n),
+                         SamplingParams(max_new_tokens=40))
+    want = chai_cache.PHASE_STEADY if chai else chai_cache.PHASE_WARMUP
+    try:
+        for _ in range(40):
+            if (core._phases[:SLOTS - 1] == want).all():
+                break
+            core.step()
+        else:
+            raise AssertionError(f"{cfg.name}: the requests never reached "
+                                 f"phase {want}")
+        return _step_copies(core, "steady" if chai else "warmup")
+    finally:
+        for r in list(core._slot_req):
+            if r is not None:
+                core.abort(r.uid)
+
+
+def recurrent_layer_ms(cfg, params, t):
+    """CUDA-event times (``time_ms``: 20 calls back to back) of the first
+    recurrent layer's mixer: its prefill over a batch-1 bucket of ``t``
+    tokens (RG-LRU: the conv and the doubling scan, ceil(log2 t) rounds;
+    RWKV: the time mix's loop over t / 32 chunks), and its decode step
+    over SLOTS rows. No kernel launched. Returns {kind: ms}."""
+    plan = tfm.layer_plan(cfg)
+    i = next(j for j in range(cfg.n_layers) if plan["attn"][j] is None)
+    gen = torch.Generator("cuda").manual_seed(2)
+    dt = tfm.model_dtype(cfg)
+    x = torch.randn((1, t, cfg.d_model), generator=gen, device="cuda").to(dt)
+    x1 = torch.randn((SLOTS, cfg.d_model), generator=gen,
+                     device="cuda").to(dt)
+    st1 = tfm.init_decode_state(cfg, 1, MAX_SEQ, "cuda")
+    st4 = tfm.init_decode_state(cfg, SLOTS, MAX_SEQ, "cuda")
+    _reset_launches()
+    out = {"prefill_ms": time_ms(lambda: tfm._recurrent_mixer(
+               x, params, cfg, plan, i, st1)),
+           "decode_ms": time_ms(lambda: tfm._recurrent_mixer(
+               x1, params, cfg, plan, i, st4, step=True))}
+    if any(_launches().values()):
+        raise AssertionError(f"{cfg.name} layer timing launched kernels")
+    kind = "RG-LRU" if plan["rec"][i] is not None else "RWKV time-mix"
+    log(f"{cfg.name} layer {i} ({kind}) by CUDA events: prefill of a "
+        f"{t}-token bucket {out['prefill_ms']:.4f} ms, a decode step of "
+        f"{SLOTS} rows {out['decode_ms']:.4f} ms")
+    return out
+
+
+def recurrent_path(arch):
+    """Phase 22 for one recurrent arch at full width and full depth, its
+    weights from ``init_full_model``: the cohort on phase 5's traffic
+    (CHAI then the MHA baseline through ``local_cohort`` where CHAI
+    applies, the baseline alone on rwkv), then the continuous engine on
+    ZOO_TRAFFIC with ``kv_layout="paged"`` (the default), which runs the
+    unified dense layout without global layers: CHAI twice (the repeat
+    bit for bit: tokens and every top-2 margin) and the MHA baseline
+    where CHAI applies, the baseline twice on rwkv, whose engine refuses
+    ``use_chai=True``. Every logit finite; no kernel launched by any run;
+    the eager decode attention once an attention layer a baseline step;
+    ``kv_bytes()`` the rings only. Then the device-to-host copies of one
+    decode step, the first recurrent layer's prefill and decode times,
+    and ``recurrent_state_check``. Returns ({path: launches},
+    summary)."""
+    t0 = time.time()
+    cfg, params = init_full_model(arch)
+    chai = chai_applies(cfg)
+    tag = "rg" if arch == RG else "rwkv"
+    if arch == RG:
+        if (cfg.n_layers, cfg.n_rec_layers, cfg.n_local_layers,
+                cfg.n_global_layers, cfg.n_kv_heads) != (38, 26, 12, 0, 1):
+            raise AssertionError(f"{arch}: {cfg}")
+    elif (cfg.n_layers, cfg.n_rwkv_layers, cfg.n_attn_layers) != (24, 24, 0):
+        raise AssertionError(f"{arch}: {cfg}")
+    launches, out = {}, {}
+    start = _memory_start()
+    if chai:
+        got, cohort = local_cohort(cfg, params, f"{tag}_cohort")
+        launches.update(got)
+        cohort = {k: v for k, v in cohort.items()
+                  if k not in ("membership", "margins", "tokens")}
+    else:
+        _reset_launches()
+        eng, done, wall, phases, _ = serve_local(cfg, params, False,
+                                                 PROMPT_LENS, MAX_SEQ)
+        launches[f"{tag}_cohort_mha"] = _launches()
+        counts = [len(r.generated) for r in done]
+        if counts != [MAX_NEW] * len(PROMPT_LENS):
+            raise AssertionError(f"{tag} cohort: token counts {counts}")
+        n_tok = sum(counts)
+        cohort = dict(mha_wall_s=wall, mha_tok_s=n_tok / wall,
+                      ttft_mean_s=statistics.mean(r.ttft for r in done),
+                      phase_s=phases,
+                      mha_step_ms=1e3 * phases["mha_decode"]
+                      / eng.steps_executed)
+        busy = {k: n for k, n in launches[f"{tag}_cohort_mha"].items() if n}
+        log(f"{tag} cohort (no CHAI): {n_tok / wall:.1f} tok/s in "
+            f"{wall:.3f} s, {eng.steps_executed} decode steps, launches "
+            f"{busy}; by phase " + ", ".join(f"{k} {v:.4f}"
+                                             for k, v in phases.items()))
+        del eng
+    cohort["device_peak_run"] = torch.cuda.max_memory_allocated() - start
+    out["cohort"] = cohort
+    if not chai:
+        try:
+            ServingEngine(cfg, params, EngineConfig(
+                batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE))
+        except ValueError as e:
+            if "CHAI needs attention layers" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{arch}: use_chai=True served without "
+                                 "attention layers")
+    runs = {}
+    names = (("chai", True), ("chai_repeat", True), ("mha", False)) if chai \
+        else (("mha", False), ("mha_repeat", False))
+    for name, use in names:
+        label = f"{tag} continuous {name}"
+        EAGER["calls"] = 0
+        run = serve_continuous(cfg, params, "paged", use_chai=use,
+                               traffic=ZOO_TRAFFIC)
+        if run["eng"].paged:
+            raise AssertionError(f"{label}: a paged layout without global "
+                                 "layers")
+        _check_served(cfg, run, label)
+        if use:
+            want = {k: 0 for k in run["launches"]}
+        else:
+            want, eager = local_mha_want(cfg, "paged",
+                                         run["calls"].get("mha_step", 0),
+                                         run["launches"])
+            if EAGER["calls"] != eager:
+                raise AssertionError(f"{label}: eager calls "
+                                     f"{EAGER['calls']}, expected {eager}")
+        if run["launches"] != want:
+            raise AssertionError(f"{label}: launches {run['launches']}")
+        _log_served(run, label)
+        _check_local_kv_bytes(cfg, run, "dense")
+        launches[f"{tag}_continuous_{name}"] = run["launches"]
+        runs[name] = dict(summary=_run_summary(run), margins=run["margins"])
+        run.clear()
+        _free()
+    first, again = names[0][0], names[1][0]
+    if (runs[first]["summary"]["tokens"] != runs[again]["summary"]["tokens"]
+            or runs[first]["margins"] != runs[again]["margins"]):
+        raise AssertionError(f"{tag}: the repeated continuous run differs")
+    log(f"{tag} continuous {first}: the repeat gave the same tokens and "
+        f"the same top-2 margins, bit for bit")
+    out.update({name: r["summary"] for name, r in runs.items()})
+    copies, n_events = recurrent_step_copies(cfg, params, chai)
+    if copies != 1:
+        raise AssertionError(f"{tag}: {copies} device-to-host copies in a "
+                             "decode step, expected 1 (the tokens)")
+    log(f"{tag} decode step ({'all STEADY' if chai else 'no CHAI'}): "
+        f"{copies} device-to-host copy, {n_events} device events")
+    out["step_copies"], out["step_events"] = copies, n_events
+    bucket = ServingEngine._prompt_bucket(max(ZOO_TRAFFIC[0]), MAX_SEQ)
+    out["layer_ms"] = recurrent_layer_ms(cfg, params, bucket)
+    out["state_check"] = recurrent_state_check(cfg, params, tag)
+    del params
+    _free()
+    out["seconds"] = time.time() - t0
+    log(f"phase 22 ({arch}, {cfg.n_layers} layers): {out['seconds']:.1f} s")
+    return launches, out
+
+
+def recurrent_paths():
+    """Phase 22: recurrentgemma-9b (10.45 B parameters, 20.9 GB in bf16)
+    then rwkv6-1.6b, each through ``recurrent_path`` after every earlier
+    model is freed; no kernel launched over any of their runs. Returns
+    ({path: launches}, {arch: summary})."""
+    launches, sums = {}, {}
+    for arch in (RG, RWKV):
+        got, sums[arch] = recurrent_path(arch)
+        launches.update(got)
+    busy = {p: {k: n for k, n in c.items() if n} for p, c in launches.items()
+            if any(c.values())}
+    if busy:
+        raise AssertionError(f"phase 22 launched kernels: {busy}")
+    log(f"phase 22: none of the 13 kernels launched over "
+        f"{len(launches)} runs: {sorted(launches)}")
     return launches, sums
 
 
@@ -8567,6 +8977,8 @@ def main():
     # Phase 21: the attention archs of ROADMAP #14 part B.
     g3_launches, g3_cases, _ = gemma3_path()
     moe_launches, _ = moe_paths()
+    # Phase 22: the recurrent archs (RG-LRU, RWKV), no kernel on any path.
+    rec_launches, _ = recurrent_paths()
     by_path = {"cohort": cohort_launches, "mha_cohort": cohort_mha,
                **cont_launches, **mha_launches,
                "continuous_paged_chunked": chunked_launches,
@@ -8577,7 +8989,7 @@ def main():
                **sp8_launches, **d8_launches, **front_launches,
                **nemo_front_launches, **fault_launches, **tel_launches,
                **tier_launches, **preempt_launches, **async_launches,
-               **g3_launches, **moe_launches,
+               **g3_launches, **moe_launches, **rec_launches,
                "pipeline_lane": lane_launches,
                "pipeline_lane_share_int8": lane8_launches}
     mains = {"chai_fused_decode": (

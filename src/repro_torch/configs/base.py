@@ -118,6 +118,10 @@ class ModelConfig:
         return sum(1 for t in self.layer_types if t == RWKV)
 
     @property
+    def n_rwkv_heads(self):
+        return self.d_model // self.rwkv_head_dim
+
+    @property
     def n_dense_ffn(self):
         return sum(1 for t in self.ffn_types if t == FFN_DENSE)
 
@@ -266,4 +270,4 @@ def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401
         chai_llama_7b, deepseek_moe_16b, gemma2_9b, gemma3_4b,
         h2o_danube_1_8b, internvl2_76b, musicgen_large, nemotron_4_15b,
-        qwen3_moe_30b_a3b)
+        qwen3_moe_30b_a3b, recurrentgemma_9b, rwkv6_1_6b)

@@ -10,8 +10,9 @@ with ~20 GB free; ``--arch`` also takes nemotron-4-15b (GQA), gemma2-9b
 gemma3-4b (local and global layers, qk_norm, head dim 320),
 deepseek-moe-16b and qwen3-moe-30b-a3b (MoE FFN; qwen3 needs ~61 GB),
 internvl2-76b (141 GB in bf16: ``--reduced`` only on one card) and
-musicgen-large (frontend archs, served on tokens)); ``--reduced`` serves
-the CPU-sized config.
+musicgen-large (frontend archs, served on tokens), recurrentgemma-9b
+(RG-LRU and local layers, ~21 GB) and rwkv6-1.6b (RWKV layers, no
+attention: ``--no-chai``)); ``--reduced`` serves the CPU-sized config.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import get_config, reduced
+from repro_torch.configs.base import get_config, list_configs, reduced
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 
@@ -30,10 +31,7 @@ from repro_torch.serving.engine import EngineConfig, ServingEngine
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="chai-llama-7b",
-                    choices=("chai-llama-7b", "nemotron-4-15b", "gemma2-9b",
-                             "h2o-danube-1.8b", "gemma3-4b",
-                             "deepseek-moe-16b", "qwen3-moe-30b-a3b",
-                             "internvl2-76b", "musicgen-large"))
+                    choices=list_configs())
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
@@ -81,8 +79,9 @@ def main(argv=None):
           f"lat_mean={np.mean([r.latency for r in done]) * 1e3:.1f}ms "
           f"redispatched={eng.redispatched}")
     kc, km = eng.kv_bytes(chai=True), eng.kv_bytes(chai=False)
+    saving = f"{100 * (1 - kc / km):.1f}%" if km else "n/a (no KV cache)"
     print(f"[serve] kv_bytes (analytic, at capacity) chai={kc:,} mha={km:,} "
-          f"saving={100 * (1 - kc / max(km, 1)):.1f}%")
+          f"saving={saving}")
     if eng.paged:
         print(f"[serve] paged kv_bytes peak={eng.kv_bytes_peak():,} "
               f"capacity={eng.kv_bytes_capacity():,}")

@@ -1,24 +1,33 @@
-"""Decoder stack for the attention archs: global and local layers, dense
-and MoE FFNs, the frontend adapter.
+"""Decoder stack for every arch: global, local, RG-LRU and RWKV mixers,
+dense, MoE and channel-mix FFNs, the frontend adapter.
 
 Parameters keep the reference's layer-stacked layout (``param_table``):
 one stack per layer family, with the layer index first on every leaf
-(``attn``, the dense ``ffn`` over the dense-FFN layers only, ``moe`` over
-the MoE layers, ``frontend.adapter``), so weights cross between the
-packages leaf by leaf (``repro_torch.weights``). A Python loop over
+(``attn`` over the attention layers, the dense ``ffn`` over the
+dense-FFN layers that are not RWKV, ``moe`` over the MoE layers,
+``rglru`` over the RG-LRU layers, ``rwkv`` (time mix and channel mix)
+over the RWKV layers, ``frontend.adapter``), so weights cross between
+the packages leaf by leaf (``repro_torch.weights``). A Python loop over
 layers replaces the reference's ``lax.scan``/``lax.switch``, with the
-reference's per-family indices (``layer_plan``). Ported: the global and
-the local (sliding-window) attention mixers with ``qk_norm``, the dense
-FFN, the MoE FFN (``models.moe``: ``moe_impl`` "ragged" or "capacity",
-the reference's defaults per entry point) and the linear adapter over
-precomputed frontend embeddings (``models.frontends``). RG-LRU and RWKV
-layers raise ``NotImplementedError`` (ROADMAP #14 part B).
+reference's per-family indices (``layer_plan``). The mixers: the global
+and the local (sliding-window) attention with ``qk_norm``, the RG-LRU
+block (``models.rglru``) and the RWKV-6 time mix (``models.rwkv``); the
+FFNs: the dense FFN, the MoE FFN (``models.moe``: ``moe_impl`` "ragged"
+or "capacity", the reference's defaults per entry point) and, on an
+RWKV layer, the RWKV channel mix; the linear adapter over precomputed
+frontend embeddings (``models.frontends``).
 
 Global layers keep a dense cache (``kg``/``vg``, or the engine's paged
 pool); local layers keep a ring of the last ``min(window, max_seq)``
 positions (``kl``/``vl``, slot ``pos % w``), always in the model dtype and
 never paged, as in the reference. The attention-logit softcap (gemma2)
 caps every score, global and local; ``final_logit_softcap`` the logits.
+Recurrent layers keep their state in the model dtype: ``rg_h`` /
+``rg_conv`` (RG-LRU), ``rwkv_wkv`` / ``rwkv_shift`` / ``rwkv_cshift``
+(RWKV). A bucketed prefill (``valid_len``) runs its padding through the
+recurrence as the reference does, so the recurrent state after it is the
+padded sequence's (the reference's caveat, kept for lockstep); decode
+advances every slot's recurrent state, FREE slots included.
 
 Two entry points: ``forward_fullseq`` (prefill) and ``decode_step`` (one
 token against the decode state). Unlike the reference, whose arrays are
@@ -33,12 +42,12 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, FFN_MOE,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, FFN_DENSE,
+                                      FFN_MOE, RGLRU, RWKV, ModelConfig)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import frontends, mlp, moe
+from repro_torch.models import frontends, mlp, moe, rglru, rwkv
 from repro_torch.models.layers import embed_lookup, rms_norm, softcap, unembed
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -50,16 +59,8 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise on what the port does not carry yet: RG-LRU and RWKV layers
-    (recurrentgemma-9b, rwkv6-1.6b), whose recurrent decode state comes
-    with ROADMAP #14 part B. Every attention arch is served. Also checks
-    the two settings the reference asserts (the cache dtype, share_values
-    on MHA only)."""
-    if any(t not in (ATTN_GLOBAL, ATTN_LOCAL) for t in cfg.layer_types):
-        raise NotImplementedError(
-            f"{cfg.name}: RG-LRU and RWKV layers are not ported yet "
-            "(ROADMAP #14 part B: their recurrent decode state); global "
-            "and local attention layers are")
+    """Check the two settings the reference asserts: the cache dtype, and
+    share_values on MHA only."""
     if cfg.kv_cache_dtype not in ("", "int8"):
         raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: the cache "
                          "is the model dtype ('') or 'int8'")
@@ -74,17 +75,22 @@ def check_supported(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def param_table(cfg: ModelConfig):
-    """{group: {name: (shape, init_scale)}} — the reference's table for the
-    embed / frontend / unembed / final_norm / attn / ffn / moe groups:
+    """{group: {name: (shape, init_scale)}} — the reference's table:
     ``attn`` over the attention layers (with ``q_norm`` / ``k_norm``
-    (nA, hd) under qk_norm), ``ffn`` over the dense-FFN layers only,
-    ``moe`` over the MoE layers (router, experts, shared experts),
-    ``frontend.adapter`` (d, d) on a frontend arch. A group with no layer
-    is absent."""
+    (nA, hd) under qk_norm), ``ffn`` over the dense-FFN layers that are
+    not RWKV (an RWKV layer's FFN is its channel mix), ``moe`` over the
+    MoE layers (router, experts, shared experts), ``rglru`` over the
+    RG-LRU layers, ``rwkv`` over the RWKV layers (time mix, its norms and
+    the channel mix ``cmu`` / ``c_k`` / ``c_v`` / ``c_r``),
+    ``frontend.adapter`` (d, d) on a frontend arch, and the embed /
+    unembed / final_norm groups. A group with no layer is absent."""
     check_supported(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    n_a, n_d, n_m = cfg.n_attn_layers, cfg.n_dense_ffn, cfg.n_moe_ffn
+    n_a, n_m = cfg.n_attn_layers, cfg.n_moe_ffn
+    n_r, n_w = cfg.n_rec_layers, cfg.n_rwkv_layers
+    n_d = sum(1 for lt, ft in zip(cfg.layer_types, cfg.ffn_types)
+              if ft == FFN_DENSE and lt != RWKV)
     t: Dict[str, Dict[str, tuple]] = {}
     t["embed"] = {"tok": ((cfg.vocab_size, d), 0.02)}
     if cfg.frontend != "none":
@@ -92,16 +98,17 @@ def param_table(cfg: ModelConfig):
     if not cfg.tie_embeddings:
         t["unembed"] = {"w": ((d, cfg.vocab_size), d ** -0.5)}
     t["final_norm"] = {"scale": ((d,), 0.0)}
-    t["attn"] = {
-        "ln": ((n_a, d), 0.0),
-        "wq": ((n_a, d, h, hd), d ** -0.5),
-        "wk": ((n_a, d, kv, hd), d ** -0.5),
-        "wv": ((n_a, d, kv, hd), d ** -0.5),
-        "wo": ((n_a, h, hd, d), (h * hd) ** -0.5),
-    }
-    if cfg.qk_norm:
-        t["attn"]["q_norm"] = ((n_a, hd), 0.0)
-        t["attn"]["k_norm"] = ((n_a, hd), 0.0)
+    if n_a:
+        t["attn"] = {
+            "ln": ((n_a, d), 0.0),
+            "wq": ((n_a, d, h, hd), d ** -0.5),
+            "wk": ((n_a, d, kv, hd), d ** -0.5),
+            "wv": ((n_a, d, kv, hd), d ** -0.5),
+            "wo": ((n_a, h, hd, d), (h * hd) ** -0.5),
+        }
+        if cfg.qk_norm:
+            t["attn"]["q_norm"] = ((n_a, hd), 0.0)
+            t["attn"]["k_norm"] = ((n_a, hd), 0.0)
     if n_d:
         g = {
             "ln": ((n_d, d), 0.0),
@@ -126,6 +133,40 @@ def param_table(cfg: ModelConfig):
             g["shared_up"] = ((n_m, d, sf), d ** -0.5)
             g["shared_down"] = ((n_m, sf, d), sf ** -0.5)
         t["moe"] = g
+    if n_r:
+        rw, cw = cfg.rnn_width, cfg.conv_width
+        t["rglru"] = {
+            "ln": ((n_r, d), 0.0),
+            "w_x": ((n_r, d, rw), d ** -0.5),
+            "w_gate": ((n_r, d, rw), d ** -0.5),
+            "conv_w": ((n_r, cw, rw), cw ** -0.5),
+            "conv_b": ((n_r, rw), 0.0),
+            "w_a": ((n_r, rw, rw), rw ** -0.5),
+            "w_i": ((n_r, rw, rw), rw ** -0.5),
+            "log_lambda": ((n_r, rw), 0.5),
+            "w_out": ((n_r, rw, d), rw ** -0.5),
+        }
+    if n_w:
+        lora = 64
+        t["rwkv"] = {
+            "ln1": ((n_w, d), 0.0),
+            "ln2": ((n_w, d), 0.0),
+            "mu": ((n_w, 5, d), 0.3),
+            "w_r": ((n_w, d, d), d ** -0.5),
+            "w_k": ((n_w, d, d), d ** -0.5),
+            "w_v": ((n_w, d, d), d ** -0.5),
+            "w_g": ((n_w, d, d), d ** -0.5),
+            "w_decay_a": ((n_w, d, lora), d ** -0.5),
+            "w_decay_b": ((n_w, lora, d), 0.01),
+            "decay_base": ((n_w, d), 0.5),
+            "u": ((n_w, cfg.n_rwkv_heads, cfg.rwkv_head_dim), 0.5),
+            "w_o": ((n_w, d, d), d ** -0.5),
+            "ln_x": ((n_w, d), 0.0),
+            "cmu": ((n_w, 2, d), 0.3),
+            "c_k": ((n_w, d, cfg.d_ff), d ** -0.5),
+            "c_v": ((n_w, cfg.d_ff, d), cfg.d_ff ** -0.5),
+            "c_r": ((n_w, d, d), d ** -0.5),
+        }
     return t
 
 
@@ -152,18 +193,22 @@ def init_params(cfg: ModelConfig, generator=None, device=None):
 
 
 def layer_plan(cfg: ModelConfig):
-    """Per-layer routing (the reference's ``layer_plan``, attention archs),
-    one counter a family: ``attn`` the attention-layer index of each
-    layer, ``global`` / ``local`` its index among the global / local
-    layers, ``dense`` / ``moe`` its index among the dense-FFN / MoE
-    layers (None for a layer of the other kind)."""
+    """Per-layer routing (the reference's ``layer_plan``), one counter a
+    family, None for a layer outside it: ``attn`` the layer's index among
+    the attention layers, ``global`` / ``local`` among the global / local
+    ones, ``rec`` among the RG-LRU layers, ``rwkv`` among the RWKV layers;
+    ``dense`` / ``moe`` its index among the dense-FFN / MoE layers. An
+    RWKV layer's FFN is its channel mix (``rwkv``), never dense or MoE."""
     check_supported(cfg)
-    plan = {"attn": [], "global": [], "local": [], "dense": [], "moe": []}
+    plan = {"attn": [], "global": [], "local": [], "rec": [], "rwkv": [],
+            "dense": [], "moe": []}
     count = dict.fromkeys(plan, 0)
     for i, (lt, ft) in enumerate(zip(cfg.layer_types, cfg.ffn_types)):
-        kinds = {"attn": True, "global": lt == ATTN_GLOBAL,
-                 "local": lt == ATTN_LOCAL, "dense": ft != FFN_MOE,
-                 "moe": ft == FFN_MOE}
+        kinds = {"attn": lt in (ATTN_GLOBAL, ATTN_LOCAL),
+                 "global": lt == ATTN_GLOBAL, "local": lt == ATTN_LOCAL,
+                 "rec": lt == RGLRU, "rwkv": lt == RWKV,
+                 "dense": lt != RWKV and ft != FFN_MOE,
+                 "moe": lt != RWKV and ft == FFN_MOE}
         for key, on in kinds.items():
             plan[key].append(count[key] if on else None)
             count[key] += on
@@ -194,8 +239,10 @@ def decode_state_shapes(cfg: ModelConfig, batch: int, max_seq: int):
     model dtype, or, under int8, int8 codes with the rows' fp32 scales
     ``kg_scale``/``vg_scale`` (nG, B, KV, S); with local layers their
     rings ``kl``/``vl`` (nL, B, KV, min(window, S), hd), always in the
-    model dtype (the reference's ``decode_state_structs``, attention
-    subset)."""
+    model dtype; with RG-LRU layers ``rg_h`` (nR, B, rnn) and ``rg_conv``
+    (nR, B, cw-1, rnn); with RWKV layers ``rwkv_wkv`` (nW, B, H, hd, hd),
+    ``rwkv_shift`` and ``rwkv_cshift`` (nW, B, d); the recurrent state in
+    the model dtype (the reference's ``decode_state_structs``)."""
     check_supported(cfg)
     shapes = {"pos": ((batch,), torch.int32)}
     if cfg.n_global_layers:
@@ -212,6 +259,16 @@ def decode_state_shapes(cfg: ModelConfig, batch: int, max_seq: int):
                 ring_width(cfg, max_seq), cfg.head_dim)
         shapes["kl"] = (ring, model_dtype(cfg))
         shapes["vl"] = (ring, model_dtype(cfg))
+    dt = model_dtype(cfg)
+    if cfg.n_rec_layers:
+        n_r, rw = cfg.n_rec_layers, cfg.rnn_width
+        shapes["rg_h"] = ((n_r, batch, rw), dt)
+        shapes["rg_conv"] = ((n_r, batch, cfg.conv_width - 1, rw), dt)
+    if cfg.n_rwkv_layers:
+        n_w, nh, rhd = cfg.n_rwkv_layers, cfg.n_rwkv_heads, cfg.rwkv_head_dim
+        shapes["rwkv_wkv"] = ((n_w, batch, nh, rhd, rhd), dt)
+        shapes["rwkv_shift"] = ((n_w, batch, cfg.d_model), dt)
+        shapes["rwkv_cshift"] = ((n_w, batch, cfg.d_model), dt)
     return shapes
 
 
@@ -223,7 +280,8 @@ def zeros_state(shapes, device):
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, device):
     """Zeros of ``decode_state_shapes``: ``pos``, the global caches
-    ``kg``/``vg`` (and int8 scales) and the local rings ``kl``/``vl``."""
+    ``kg``/``vg`` (and int8 scales), the local rings ``kl``/``vl`` and the
+    recurrent state."""
     return zeros_state(decode_state_shapes(cfg, batch, max_seq), device)
 
 
@@ -326,11 +384,89 @@ def _ffn(h, params, cfg, plan, i, moe_impl):
     return h + moe.moe_ffn(xn, pm, cfg)
 
 
+def _recurrent_mixer(h, params, cfg, plan, i, state, step=False):
+    """Layer ``i``'s RG-LRU or RWKV time-mix mixer on h, residual
+    included: the full sequence (B, T, d), or with ``step`` one decode
+    token (B, d). With a ``state`` the layer starts from its recurrent
+    state and writes the new one back in place, in the state's dtype;
+    without one (a forward with no decode state) it starts from zeros."""
+    ri = plan["rec"][i]
+    if ri is not None:
+        p = _layer(params["rglru"], ri)
+        xn = rms_norm(h, p["ln"], cfg.norm_eps)
+        if step:
+            y, (h1, tail) = rglru.rglru_decode(
+                xn, p, cfg, state["rg_h"][ri], state["rg_conv"][ri])
+        elif state is None:
+            return h + rglru.rglru_fullseq(xn, p, cfg)[0]
+        else:
+            y, (h1, tail) = rglru.rglru_fullseq(
+                xn, p, cfg, h0=state["rg_h"][ri],
+                conv_tail=state["rg_conv"][ri])
+        state["rg_h"][ri] = h1
+        state["rg_conv"][ri] = tail
+        return h + y
+    wi = plan["rwkv"][i]
+    p = _layer(params["rwkv"], wi)
+    xn = rms_norm(h, p["ln1"], cfg.norm_eps)
+    if state is None:
+        b, hd = h.shape[0], cfg.rwkv_head_dim
+        st = {"shift": h.new_zeros((b, cfg.d_model)),
+              "wkv": h.new_zeros((b, cfg.n_rwkv_heads, hd, hd))}
+    else:
+        st = {"shift": state["rwkv_shift"][wi], "wkv": state["rwkv_wkv"][wi]}
+    mix = rwkv.rwkv_time_mix_decode if step else rwkv.rwkv_time_mix_fullseq
+    y, st1 = mix(xn, p, cfg, st)
+    if state is not None:
+        state["rwkv_shift"][wi] = st1["shift"]
+        state["rwkv_wkv"][wi] = st1["wkv"]
+    return h + y
+
+
+def _channel_mix(h, params, cfg, wi, state, step=False):
+    """RWKV layer ``wi``'s channel mix (its FFN) on h, residual included,
+    over the full sequence or, with ``step``, one token; with a ``state``
+    from and into its ``rwkv_cshift`` row."""
+    p = _layer(params["rwkv"], wi)
+    xn = rms_norm(h, p["ln2"], cfg.norm_eps)
+    last = (h.new_zeros((h.shape[0], cfg.d_model)) if state is None
+            else state["rwkv_cshift"][wi])
+    mix = (rwkv.rwkv_channel_mix_decode if step
+           else rwkv.rwkv_channel_mix_fullseq)
+    y, last1 = mix(xn, p, last)
+    if state is not None:
+        state["rwkv_cshift"][wi] = last1
+    return h + y
+
+
 def _check_moe_impl(moe_impl):
     if moe_impl not in MOE_IMPLS:
         raise ValueError(f"moe_impl {moe_impl!r}: the port runs 'ragged' or "
                          "'capacity' (expert parallelism, 'ep', waits for "
                          "the sharding tooling, ROADMAP #16)")
+
+
+def _attention_fullseq(h, params, cfg, plan, i, state, positions, pos_idx,
+                       vl, plen, prefix_kv):
+    """Attention layer ``i`` over h (B, T, d), residual included, writing
+    its K/V into the state's cache (global) or ring (local)."""
+    p = _layer(params["attn"], plan["attn"][i])
+    gi, li = plan["global"][i], plan["local"][i]
+    xn = rms_norm(h, p["ln"], cfg.norm_eps)
+    q, k, v = attn_mod.project_qkv(xn, p, cfg, positions)
+    if prefix_kv is not None and li is None:
+        y = _prefix_attention(q, k, v, prefix_kv, gi, plen,
+                              cfg.attn_logit_softcap)
+    else:
+        y = attn_mod.attention_fullseq(
+            q, k, v, positions, positions,
+            window=cfg.window_size if li is not None else 0,
+            attn_softcap=cfg.attn_logit_softcap)
+    if state is not None and li is not None:
+        _ring_write(state, li, k, v, positions, vl)
+    elif state is not None:
+        _prefill_write(state, gi, pos_idx, k, v)
+    return h + attn_mod.output_proj(y, p)
 
 
 def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
@@ -350,6 +486,9 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
     overwrites them as the sequence advances. A local layer attends a
     window of ``cfg.window_size`` positions and writes its ring
     (``_ring_write``: the last real positions, never the padded tail).
+    RG-LRU and RWKV layers run over the whole bucket, padding included,
+    and their state after the call is the padded sequence's, as in the
+    reference (which masks nothing there either).
 
     Under int8 the cache write stores ``quant_rows`` codes and scales.
 
@@ -382,24 +521,15 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
         vl = vl.expand(b) if vl.ndim == 0 else vl
 
     for i in range(cfg.n_layers):
-        p = _layer(params["attn"], plan["attn"][i])
-        gi, li = plan["global"][i], plan["local"][i]
-        xn = rms_norm(h, p["ln"], cfg.norm_eps)
-        q, k, v = attn_mod.project_qkv(xn, p, cfg, positions)
-        if prefix_kv is not None and li is None:
-            y = _prefix_attention(q, k, v, prefix_kv, gi, plen,
-                                  cfg.attn_logit_softcap)
+        if plan["attn"][i] is None:
+            h = _recurrent_mixer(h, params, cfg, plan, i, state)
         else:
-            y = attn_mod.attention_fullseq(
-                q, k, v, positions, positions,
-                window=cfg.window_size if li is not None else 0,
-                attn_softcap=cfg.attn_logit_softcap)
-        h = h + attn_mod.output_proj(y, p)
-        if state is not None and li is not None:
-            _ring_write(state, li, k, v, positions, vl)
-        elif state is not None:
-            _prefill_write(state, gi, pos_idx, k, v)
-        h = _ffn(h, params, cfg, plan, i, moe_impl)
+            h = _attention_fullseq(h, params, cfg, plan, i, state,
+                                   positions, pos_idx, vl, plen, prefix_kv)
+        if plan["rwkv"][i] is not None:
+            h = _channel_mix(h, params, cfg, plan["rwkv"][i], state)
+        else:
+            h = _ffn(h, params, cfg, plan, i, moe_impl)
 
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     if logits_slice == "last":
@@ -658,6 +788,34 @@ def _flash_decode(q, kc, vc, pos, ts, plain):
     return kops.flash_decode_attention(q, kc, vc, pos, ts=ts)
 
 
+def _attention_decode(h, params, cfg, plan, i, state, chai_ctx, steady,
+                      decode_ts, relay, plain):
+    """Attention layer ``i`` for one decode token h (B, d), residual
+    included: the MHA path, the CHAI path, or both selected per slot by
+    ``steady`` (the mixed-phase step)."""
+    from repro_torch.core import chai_attention as chai_mod
+    ai, gi, li = plan["attn"][i], plan["global"][i], plan["local"][i]
+    p = _layer(params["attn"], ai)
+    xn = rms_norm(h, p["ln"], cfg.norm_eps)
+    if steady is not None:
+        y_m = _plain_decode_attention(xn, p, cfg, state, gi, ai, li,
+                                      write_mask=~steady,
+                                      decode_ts=decode_ts, plain=plain)
+        y_c = chai_mod.chai_decode_attention(
+            xn, p, cfg, state, gi, ai, chai_ctx, li=li, write_mask=steady,
+            decode_ts=decode_ts, relay=relay, plain=plain)
+        y = torch.where(steady[:, None, None], y_c, y_m)
+    elif chai_ctx is not None:
+        y = chai_mod.chai_decode_attention(xn, p, cfg, state, gi, ai,
+                                           chai_ctx, li=li,
+                                           decode_ts=decode_ts, relay=relay,
+                                           plain=plain)
+    else:
+        y = _plain_decode_attention(xn, p, cfg, state, gi, ai, li,
+                                    decode_ts=decode_ts, plain=plain)
+    return h + torch.einsum("bhe,hed->bd", y, p["wo"])
+
+
 def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
                 mixed_phase=False, decode_ts=0, relay=None, plain=False,
                 embeddings=None, moe_impl="ragged"):
@@ -689,9 +847,11 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
     flash decode pair) calls that kernel's plain version
     (``kernels.ref``) on the state's device instead.
 
-    A local layer reads and writes its ring (``li``), on every path."""
+    A local layer reads and writes its ring (``li``), on every path. An
+    RG-LRU or RWKV layer advances its recurrent state for every slot, a
+    FREE one included, with no write mask, as the reference's does
+    (``insert_slot`` overwrites a slot's state at admission)."""
     assert not (plain and relay is not None), "no plain relay step"
-    from repro_torch.core import chai_attention as chai_mod
     plan = layer_plan(cfg)
     _check_moe_impl(moe_impl)
     h = _embed(params, cfg, tokens, embeddings)
@@ -700,28 +860,16 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
         from repro_torch.core.cache import PHASE_STEADY
         steady = state["phase"] >= PHASE_STEADY                # (B,)
     for i in range(cfg.n_layers):
-        ai, gi, li = plan["attn"][i], plan["global"][i], plan["local"][i]
-        p = _layer(params["attn"], ai)
-        xn = rms_norm(h, p["ln"], cfg.norm_eps)
-        if steady is not None:
-            y_m = _plain_decode_attention(xn, p, cfg, state, gi, ai, li,
-                                          write_mask=~steady,
-                                          decode_ts=decode_ts, plain=plain)
-            y_c = chai_mod.chai_decode_attention(
-                xn, p, cfg, state, gi, ai, chai_ctx, li=li,
-                write_mask=steady, decode_ts=decode_ts, relay=relay,
-                plain=plain)
-            y = torch.where(steady[:, None, None], y_c, y_m)
-        elif chai_ctx is not None:
-            y = chai_mod.chai_decode_attention(xn, p, cfg, state, gi, ai,
-                                               chai_ctx, li=li,
-                                               decode_ts=decode_ts,
-                                               relay=relay, plain=plain)
+        if plan["attn"][i] is None:
+            h = _recurrent_mixer(h, params, cfg, plan, i, state, step=True)
         else:
-            y = _plain_decode_attention(xn, p, cfg, state, gi, ai, li,
-                                        decode_ts=decode_ts, plain=plain)
-        h = h + torch.einsum("bhe,hed->bd", y, p["wo"])
-        h = _ffn(h[:, None], params, cfg, plan, i, moe_impl)[:, 0]
+            h = _attention_decode(h, params, cfg, plan, i, state, chai_ctx,
+                                  steady, decode_ts, relay, plain)
+        if plan["rwkv"][i] is not None:
+            h = _channel_mix(h, params, cfg, plan["rwkv"][i], state,
+                             step=True)
+        else:
+            h = _ffn(h[:, None], params, cfg, plan, i, moe_impl)[:, 0]
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(h, _unembed_w(params, cfg), cfg.final_logit_softcap)
     state["pos"] = state["pos"] + 1

@@ -356,7 +356,7 @@ class EngineCore(CohortSchedulerMixin):
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *,
                  detokenizer: Optional[Callable] = None,
                  faults: Optional[FaultInjector] = None, device=None):
-        check_supported(cfg)       # RG-LRU / RWKV: ROADMAP #14 part B
+        check_supported(cfg)       # the cache dtype, share_values
         self.device = resolve_device(device)
         self.detokenizer = detokenizer
         if ecfg.audit_level not in ("off", "basic", "deep"):

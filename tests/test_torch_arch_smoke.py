@@ -8,17 +8,16 @@
   and lies within the reference test's +-50% of the nominal size, the
   CHAI cluster counts fall with depth, and a MoE config reads fewer
   parameters a token than it holds.
-* recurrentgemma-9b and rwkv6-1.6b (RG-LRU and RWKV layers) are refused,
-  naming ROADMAP #14 part B: the port keeps no config for them yet, so
-  the refusal is built from the reference's reduced configs, field for
-  field.
+* The recurrent archs, recurrentgemma-9b (RG-LRU and local layers) and
+  rwkv6-1.6b (RWKV layers): their decode state has the reference's
+  leaves, shapes and dtypes at full width, and a prefill followed by a
+  decode step continues the sequence (the step's logits are those of one
+  forward over the longer prompt).
 * ``params_from_numpy`` carries the new groups (``attn.q_norm`` /
   ``k_norm``, the ``moe`` group with its shared experts, the dense
-  ``ffn`` group over the dense-FFN layers only, ``frontend.adapter``) leaf
-  by leaf, bf16 bits included.
+  ``ffn`` group over the dense-FFN layers only, ``frontend.adapter``,
+  ``rglru``, ``rwkv``) leaf by leaf, bf16 bits included.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -28,20 +27,20 @@ import torch
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import reduced as jreduced
 from repro.models import transformer as jtfm
-from repro_torch.configs.base import (CHAIConfig, ModelConfig, get_config,
-                                      list_configs, reduced)
+from repro_torch.configs.base import get_config, list_configs, reduced
 from repro_torch.models import transformer as ttfm
-from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.weights import params_from_numpy
 
 PORTED = list_configs()
 NEW = ("gemma3-4b", "deepseek-moe-16b", "qwen3-moe-30b-a3b", "internvl2-76b",
-       "musicgen-large")
+       "musicgen-large", "recurrentgemma-9b", "rwkv6-1.6b")
+RECURRENT = ("recurrentgemma-9b", "rwkv6-1.6b")
 # the reference test's nominal sizes (tests/test_arch_smoke.py)
 NOMINAL = {"nemotron-4-15b": 15e9, "gemma2-9b": 9e9, "gemma3-4b": 4e9,
            "h2o-danube-1.8b": 1.8e9, "qwen3-moe-30b-a3b": 30e9,
            "deepseek-moe-16b": 16e9, "musicgen-large": 3.3e9,
-           "internvl2-76b": 76e9, "chai-llama-7b": 7e9}
+           "internvl2-76b": 76e9, "chai-llama-7b": 7e9,
+           "recurrentgemma-9b": 9e9, "rwkv6-1.6b": 1.6e9}
 
 
 def _reduced(arch):
@@ -100,31 +99,50 @@ def test_all_full_configs_construct():
         assert counts == jcfg.chai_cluster_counts()
         assert len(counts) == cfg.n_attn_layers
         assert all(1 <= k <= cfg.n_heads for k in counts)
-        assert counts[-1] <= counts[0]
+        if cfg.n_attn_layers:
+            assert counts[-1] <= counts[0]
         if cfg.family == "moe":
             assert cfg.active_param_count() < cfg.param_count()
             assert cfg.n_moe_ffn + cfg.n_dense_ffn == cfg.n_layers
     assert get_config("gemma3-4b").head_dim == 320
     assert get_config("deepseek-moe-16b").n_dense_ffn == 1
     assert get_config("qwen3-moe-30b-a3b").n_dense_ffn == 0
+    rg, rw = get_config("recurrentgemma-9b"), get_config("rwkv6-1.6b")
+    assert (rg.n_attn_layers, rg.n_rec_layers, rg.n_global_layers) == (12, 26,
+                                                                       0)
+    assert (rw.n_attn_layers, rw.n_rwkv_layers, rw.chai.enabled) == (0, 24,
+                                                                     False)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
-def test_recurrent_archs_are_refused(arch):
-    jcfg = jreduced(jget_config(arch))
-    fields = {f.name: getattr(jcfg, f.name)
-              for f in dataclasses.fields(ModelConfig) if f.name != "chai"}
-    cfg = ModelConfig(**fields, chai=CHAIConfig(**dataclasses.asdict(
-        jcfg.chai)))
-    assert any(t in ("rglru", "rwkv") for t in cfg.layer_types)
-    for call in (lambda: ttfm.check_supported(cfg),
-                 lambda: ttfm.param_table(cfg),
-                 lambda: ttfm.init_decode_state(cfg, 1, 16, "cpu"),
-                 lambda: ServingEngine(cfg, {}, EngineConfig(batch_slots=1,
-                                                             max_seq=16),
-                                       device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP #14 part B"):
-            call()
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_state_matches_reference(arch):
+    """The decode state at full width, bf16: the reference's leaves,
+    shapes and dtypes (the recurrent state in the model dtype), nothing
+    allocated."""
+    want = jtfm.decode_state_structs(jget_config(arch), 4, 1024)[0]
+    got = ttfm.decode_state_shapes(get_config(arch), 4, 1024)
+    assert {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()} == {
+        k: (tuple(shape), str(dt).replace("torch.", ""))
+        for k, (shape, dt) in got.items()}
+    assert any(k.startswith(("rg_", "rwkv_")) for k in got)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_prefill_then_decode_continues(arch):
+    """A prefill of 15 tokens into a decode state, then a decode step on
+    the 16th: the step's logits equal the last position's of one forward
+    over all 16, and ``pos`` is 16."""
+    cfg = _reduced(arch)
+    params = ttfm.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 16)))
+    whole, _ = ttfm.forward_fullseq(params, cfg, toks)
+    state = ttfm.init_decode_state(cfg, 2, 32, "cpu")
+    _, state = ttfm.forward_fullseq(params, cfg, toks[:, :15], state=state,
+                                    logits_slice="last")
+    logits, state = ttfm.decode_step(params, cfg, toks[:, 15], state)
+    torch.testing.assert_close(logits, whole[:, -1], atol=1e-4, rtol=1e-4)
+    assert state["pos"].tolist() == [16, 16]
 
 
 @pytest.mark.parametrize("arch", NEW)

@@ -39,11 +39,13 @@ def test_port_files_exist():
                 "serving/invariants", "serving/soak",
                 "serving/telemetry", "serving/exporters",
                 "serving/kv_tiers", "serving/async_api",
-                "launch/serve_http", "models/moe", "models/frontends"):
+                "launch/serve_http", "models/moe", "models/frontends",
+                "models/rglru", "models/rwkv"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "src/repro_torch/configs/nemotron_4_15b.py" in names
     for cfg in ("gemma3_4b", "deepseek_moe_16b", "qwen3_moe_30b_a3b",
-                "internvl2_76b", "musicgen_large"):
+                "internvl2_76b", "musicgen_large", "recurrentgemma_9b",
+                "rwkv6_1_6b"):
         assert f"src/repro_torch/configs/{cfg}.py" in names
     csrc = ROOT / "src/repro_torch/kernels/csrc"
     for name in ("chai_fused_decode.cu", "paged_chai_fused_decode.cu",
