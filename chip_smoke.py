@@ -200,20 +200,21 @@ result line):
 18. telemetry on chai-llama-7b after phase 17: one all-STEADY decode
    step of a bare engine profiled at telemetry "trace" against phase
    17c's at "off" (the same device kernels and counts, one device-to-host
-   copy each); phase 6's paged traffic at "off", "basic" and "trace" in
-   turns, clustering through phase 6's memberships, launches equal to
-   phase 6's; the run at "trace" checked span by span (each decoding step one
+   copy each); phase 6's paged traffic on the first ``SIDE_DEPTH``
+   layers at "off", "basic" and "trace" in turns, clustering through the
+   off turn's memberships, launches equal to its; the run at "trace"
+   checked span by span (each decoding step one
    ``cluster``, ``relay.form``, ``decode.dispatch``, ``sample``,
    ``retire``, ``step`` and ``audit`` span and at least one ``admit``,
    contiguous step ordinals, the Chrome trace read back by
    ``from_chrome_trace``), its metrics against ground truth (tokens
    served, 8 requests finished, 8 TTFT observations, the CLUSTER
    transitions), its Prometheus text parsed back, its tokens held against
-   phase 6's on margins; the median ``step()`` ms of every run beside
+   the off turn's on margins; the median ``step()`` ms of every run beside
    the interquartile range of its steps, and one ``tel.span`` enter/exit
    pair's host µs;
-19. the KV tiers on chai-llama-7b: three families of prompts sharing a
-   256-token prefix (``tier_waves``), a wave a family and then the first
+19. the KV tiers on chai-llama-7b's first ``SIDE_DEPTH`` layers: three
+   families of prompts sharing a 256-token prefix (``tier_waves``), a wave a family and then the first
    family again with a repeat of its first prompt (a snapshot hit), on
    the continuous paged engine with the prefix cache and a deep audit
    after every step: a roomy run (nothing evicted), then
@@ -221,8 +222,8 @@ result line):
    demotes, the fourth promotes; every promoted page ``torch.equal`` to
    the page before its demotion, plans and tokens equal to the roomy
    run's, ``flash_prefill`` and ``paged_prefix_attend`` launched once a
-   layer per suffix prefill), then, on the first ``SIDE_DEPTH`` layers,
-   the same under a corrupt ``offload.out`` arm (checksum failures
+   layer per suffix prefill), then the same under a corrupt
+   ``offload.out`` arm (checksum failures
    caught at promotion, nothing promoted or quarantined), and with a
    host pool of 12 pages (the int4 rung used, a compressed hit dropped
    and re-planned); every pool empty after a
@@ -230,7 +231,8 @@ result line):
    around the copies, the CRC on the host clock) beside a 256 MB pinned
    host <-> device copy, the host link;
 20. priority preemption, the async front door and the HTTP server on
-   chai-llama-7b after phase 19: (a) the continuous paged engine with 2
+   chai-llama-7b after phase 19: (a) on its first ``SIDE_DEPTH`` layers,
+   the continuous paged engine with 2
    slots and pools just above one request's need (a 160-token prompt and
    16 new tokens: 11 pages each of K and V), a priority-0 request
    decoding 8 steps into STEADY and a priority-5 arrival preempting it;
@@ -303,7 +305,23 @@ result line):
    bf16 the max and mean logit differences bounded); wall, tok/s, TTFT,
    decode step ms by kind and the device memory peak above each run's
    start logged;
-23. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
+23. the training stack of ROADMAP #15 (``training_paths``; run after
+   phase 4, on a card that holds nothing else), none of whose training
+   runs launches a TPU kernel: (a) full-width chai-llama-7b at SIDE_DEPTH layers (bf16,
+   remat, 8 x 128 tokens of the port's pipeline): the fused train step
+   against two microbatches on one batch, then 20 steps with the loss
+   falling by more than 0.3, the step split into forward + backward and
+   the optimizer by CUDA events, tokens/s, the FLOP share of the bf16
+   peak and the device memory peak; (b) at 2 layers through ``Trainer``:
+   10 steps straight against 5, a save, a fresh trainer's restore and 5
+   more (final loss at rtol 1e-5, every leaf's max abs difference, GB
+   written, seconds to save and restore); (c) that checkpoint restored
+   and served on ``ZOO_TRAFFIC`` by the continuous paged engine, the
+   tokens equal to the in-memory params' and the fused pair launching,
+   then the tiny model of ``tests/test_system.py`` trained on the card
+   for 60 steps, its offline elbow, and served on 32 prompts: CHAI's greedy agreement with
+   MHA above 0.7, and CHAI at least round-robin membership less 0.05;
+24. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
    each of the four int8 modes, its launches those of its phase-11 path,
    a ``[share]`` row for each of the three share modes, its launches
    those of its phase-12 path, a ``[softcap]`` row for each of the two
@@ -491,10 +509,13 @@ import asyncio
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -503,6 +524,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.checkpoint.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.core import cache as chai_cache  # noqa: E402
 from repro_torch.core import chai_attention as chai_core  # noqa: E402
@@ -513,10 +535,13 @@ from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.core import policy  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    DataConfig, SyntheticPipeline, calibration_batches)
 from repro_torch.launch import (  # noqa: E402
     offline_clustering, serve_http, steps)
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serving import exporters  # noqa: E402
 from repro_torch.serving import faults as faults_mod  # noqa: E402
 from repro_torch.serving import invariants as invariants_mod  # noqa: E402
@@ -531,6 +556,8 @@ from repro_torch.serving.faults import FaultInjector, FaultSpec  # noqa: E402
 from repro_torch.serving.sampling import (  # noqa: E402
     FINISH_LENGTH, SamplingParams)
 from repro_torch.serving.telemetry import make_telemetry  # noqa: E402
+from repro_torch.train import train_step as train_step_mod  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -570,8 +597,8 @@ SUFFIX_NEW = (32, 48) * 4
 # rate turns (15), the soak and the audit-cost runs (17a, 17c); on
 # gemma2-9b, every run of phases 13 and 14; nemotron-4-15b's MHA baseline,
 # prefix and relay runs (9) and int8 pair (11), h2o-danube-1.8b (13,
-# 14), the KV tiers' corrupt-arm and small-host runs (19), and the side
-# archs of phase 21c (gemma2's, danube's and their weights made at the
+# 14), the telemetry tier turns (18), every KV-tier run (19), the
+# preemption runs (20a-b), and the side archs of phase 21c (gemma2's, danube's and their weights made at the
 # cut depth). Their checks hold per layer
 # (launches n_layers a step; byte ratios, tokens and schedules inside one
 # depth), the kernels see the full-width shapes, and the full-depth runs
@@ -6978,11 +7005,11 @@ POLICY_T = 512
 
 def offline_path(cfg, params):
     """Phase 16: the offline phase on the entry's calibration batch (16
-    sequences of 24 tokens); the card's cluster counts against the CPU's
+    sequences of 24 tokens of the reference's corpus,
+    ``calibration_batches``); the card's cluster counts against the CPU's
     on a copy of the same features."""
     n, seq_len = offline_clustering.N_SAMPLES, offline_clustering.SEQ_LEN
-    batches = offline_clustering.calibration_tokens(cfg.vocab_size, seq_len,
-                                                    n)
+    batches = list(calibration_batches(cfg.vocab_size, seq_len, n))
     torch.cuda.synchronize()
     t0 = time.time()
     out = offline_clustering.offline_phase(
@@ -7395,7 +7422,7 @@ def audit_cost_path(cfg, params):
     """Phase 17c: phase 6's paged traffic on the first SIDE_DEPTH layers
     at audit_level off, basic and deep in turns (AUDIT_TURNS); the median
     step() wall of each run, the host time of each ``audit`` call, and the
-    device-to-host copies of one decode step of the whole model at each
+    device-to-host copies of one decode step of those layers at each
     level. Returns {path: launches}."""
     audit = invariants_mod.audit
     step_ms = {lvl: [] for lvl in AUDIT_TURNS}
@@ -7426,7 +7453,7 @@ def audit_cost_path(cfg, params):
         by_path.setdefault(f"fault_audit_{lvl}", run["launches"])
         del eng
         run.clear()
-    copies = {lvl: _decode_step_copies(cfg, params, lvl)
+    copies = {lvl: _decode_step_copies(*cut_depth(cfg, params), lvl)
               for lvl in ("off", "basic", "deep")}
     log(f"audit cost (phase 6's paged traffic, turns {AUDIT_TURNS}): median "
         f"step() ms " + ", ".join(
@@ -7542,12 +7569,17 @@ def _check_trace_run(cfg, run):
                 truths=truths)
 
 
-def telemetry_path(cfg, params, mono, off_launches, off_copies):
-    """Phase 18. ``off_launches``: phase 6's paged run's launches;
-    ``off_copies``: phase 17c's profile of a decode step at audit basic,
-    telemetry off. Returns ({path: launches}, the phase's record)."""
+def telemetry_path(cfg, params, off_copies):
+    """Phase 18, on the first SIDE_DEPTH layers. ``off_copies``: phase
+    17c's profile of a decode step at audit basic, telemetry off. The
+    tier turns run phase 6's paged traffic: the first
+    turn (off) is the reference of the others, whose requests cluster
+    through its memberships; their launches equal its, and the trace
+    turn's tokens are held against its. Returns ({path: launches}, the
+    phase's record)."""
+    side_cfg, side_params = cut_depth(cfg, params)
     copies = {"off": off_copies,
-              "trace": _decode_step_copies(cfg, params, "basic",
+              "trace": _decode_step_copies(side_cfg, side_params, "basic",
                                            telemetry="trace")}
     if copies["off"][2] != copies["trace"][2] or any(
             c[0] != 1 for c in copies.values()):
@@ -7559,18 +7591,23 @@ def telemetry_path(cfg, params, mono, off_launches, off_copies):
             + str({k: tr.get(k, 0) - off.get(k, 0) for k in set(off) | set(tr)
                    if tr.get(k, 0) != off.get(k, 0)}))
     step_ms, spread = {}, {}
-    rec = None
+    rec = off = None
     for tier in TEL_TURNS:
-        run = serve_continuous(cfg, params, "paged",
-                               membership=mono["membership"], telemetry=tier)
-        _check_served(cfg, run, f"telemetry {tier}")
-        if run["launches"] != off_launches:
+        run = serve_continuous(
+            side_cfg, side_params, "paged", telemetry=tier,
+            membership=off["membership"] if off else None)
+        _check_served(side_cfg, run, f"telemetry {tier}")
+        if off is None:
+            off = dict(tokens={r.uid: r.generated for r in run["done"]},
+                       margins=run["margins"], membership=run["idents"],
+                       launches=run["launches"])
+        if run["launches"] != off["launches"]:
             raise AssertionError(f"telemetry {tier}: launches "
                                  f"{run['launches']} against the off run's "
-                                 f"{off_launches}")
+                                 f"{off['launches']}")
         if tier == "trace" and rec is None:
-            rec = _check_trace_run(cfg, run)
-            held, compared, parted = _hold_tokens(run, mono,
+            rec = _check_trace_run(side_cfg, run)
+            held, compared, parted = _hold_tokens(run, off,
                                                   label="telemetry")
             launches = run["launches"]
         walls = [1e3 * t for t in run["step_s"]]
@@ -7595,9 +7632,9 @@ def telemetry_path(cfg, params, mono, off_launches, off_copies):
         f"{'/'.join(TEL_STAGES)} and >= 1 admit), Chrome trace round-trips, "
         f"{rec['prometheus_samples']} Prometheus samples parse back, ground "
         f"truths {rec['truths']}, chai_clusters {rec['chai_clusters']}, "
-        f"launches = the off run's {launches}; tokens against phase 6's: "
-        f"{held} held on margins > {CHUNK_MARGIN} of {compared} compared, "
-        f"divergences {parted}")
+        f"launches = the off run's {launches}; tokens against the off "
+        f"run's ({side_cfg.n_layers} layers): {held} held on margins > "
+        f"{CHUNK_MARGIN} of {compared} compared, divergences {parted}")
     log(f"telemetry host cost, turns {TEL_TURNS}: median step() ms "
         + ", ".join(f"{t} {step_ms[t]:.3f} (IQR {spread[t]:.3f})"
                     for t in TEL_TURNS)
@@ -7619,7 +7656,7 @@ def telemetry_path(cfg, params, mono, off_launches, off_copies):
 TIER_SUFFIXES = ((32, 64), (48, 96), (40, 80), (56, 112))
 TIER_NEW = 32
 TIER_DENSE_PAGES = 111         # usable pages of the dense pool: 110
-TIER_HOST_PAGES = 256          # per kind; a dense page is 4 MiB at bf16
+TIER_HOST_PAGES = 256          # per kind; a dense page is 1 MiB at bf16
 TIER_SMALL_HOST = 12           # too few for the demoted set: int4 rung
 TIER_COMP_PAGES = 192
 TIER_COPY_PAGES = 16
@@ -7808,7 +7845,10 @@ def page_copy_times(eng):
 
 
 def kv_tiers_path(cfg, params):
-    """Phase 19. Returns ({path: launches}, the phase's record)."""
+    """Phase 19, every run on the first SIDE_DEPTH layers (a page holds
+    each global layer's rows: 1 MiB at bf16). Returns ({path: launches},
+    the phase's record)."""
+    cfg, params = cut_depth(cfg, params)
     waves = tier_waves(cfg)
     roomy = serve_tiers(cfg, params, waves)             # nothing demotes
     if roomy["eng"].prefix_stats()["evicted_blocks"]:
@@ -7845,7 +7885,7 @@ def kv_tiers_path(cfg, params):
     launches = {"tiers_offload": run["launches"]}
     run.clear()
     # the corrupt offload.out arm: caught at promotion, re-planned cold
-    bad = serve_tiers(*cut_depth(cfg, params), waves, kv_offload=True,
+    bad = serve_tiers(cfg, params, waves, kv_offload=True,
                       num_pages=TIER_DENSE_PAGES, host_pages=TIER_HOST_PAGES,
                       faults=FaultInjector([FaultSpec(
                           "offload.out", mode="corrupt", count=-1)]))
@@ -7862,7 +7902,7 @@ def kv_tiers_path(cfg, params):
     launches["tiers_corrupt"] = bad["launches"]
     bad.clear()
     # a host pool too small for the demoted set: the int4 rung
-    small = serve_tiers(*cut_depth(cfg, params), waves, kv_offload=True,
+    small = serve_tiers(cfg, params, waves, kv_offload=True,
                         num_pages=TIER_DENSE_PAGES, host_pages=TIER_SMALL_HOST,
                         compressed_pages=TIER_COMP_PAGES)
     sts = small["eng"].tier_stats()
@@ -8114,7 +8154,9 @@ def preempt_run(cfg, params, prompts, at, label, want, faults=None,
 
 
 def preemption_path(cfg, params):
-    """Phase 20a and 20b. Returns ({path: launches}, the record)."""
+    """Phase 20a and 20b, every run on the first SIDE_DEPTH layers.
+    Returns ({path: launches}, the record)."""
+    cfg, params = cut_depth(cfg, params)
     rng = np.random.default_rng(20)
     prompts = [rng.integers(0, cfg.vocab_size, size=PREEMPT_PROMPT)
                for _ in range(2)]
@@ -8288,13 +8330,13 @@ class _FfnTimer:
     def __init__(self):
         self.inner, self.on, self.events = tfm._ffn, False, []
 
-    def __call__(self, h, params, cfg, plan, i, moe_impl):
+    def __call__(self, h, params, cfg, plan, i, moe_impl, aux=None):
         if not self.on:
-            return self.inner(h, params, cfg, plan, i, moe_impl)
+            return self.inner(h, params, cfg, plan, i, moe_impl, aux)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = self.inner(h, params, cfg, plan, i, moe_impl)
+        out = self.inner(h, params, cfg, plan, i, moe_impl, aux)
         b.record()
         kind = "dense" if plan["moe"][i] is None else f"moe_{moe_impl}"
         self.events.append((kind, a, b))
@@ -8815,6 +8857,393 @@ def recurrent_paths():
     return launches, sums
 
 
+# ----------------------------------------------------------- phase 23 ----
+# The training stack (ROADMAP #15). No TPU kernel is on the training path:
+# the reference trains through its jnp attention and no Pallas kernel has
+# a backward, so the port's backward is autograd over its torch ops and
+# the 13 kernels' counters stay 0 over every training run. 23c serves the
+# trained weights through the kernels.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 20
+# The trainer's default schedule for TRAIN_STEPS steps.
+TRAIN_LR = dict(total=TRAIN_STEPS, warmup=max(2, TRAIN_STEPS // 10))
+# Fused against two microbatches, bf16: the losses are means over other
+# groupings of the same tokens; each leaf's first moment (0.1 x its
+# clipped gradient) sums bf16 gradients of half batches, held at this
+# share of the leaf's largest entry (bf16 keeps 8 bits).
+MICRO_LOSS_RTOL, MICRO_MOMENT_TOL = 5e-3, 3e-2
+RESUME_DEPTH, RESUME_STEPS = 2, 10
+# The tiny model of tests/test_system.py, trained on the card, and the
+# prompts its accuracy check serves. The test serves 4 prompts of 16 new
+# tokens; a request's agreement with MHA is near 1 or near 0.4 (once a
+# token parts, the greedy continuations part), so one representative tie
+# in a two-head cluster (ROADMAP "Two-head cluster ties") moves the
+# 4-prompt share by 0.09. The check holds 32 prompts (512 tokens) and
+# logs the first 4's share beside it.
+TINY_KW = dict(n_layers=2, d_model=64, n_heads=8, d_ff=128, vocab=128)
+TINY_PROMPTS = 32
+
+
+def _kernels_idle(launches, label):
+    busy = {k: n for k, n in launches.items() if n}
+    if busy:
+        raise AssertionError(f"{label}: kernels launched: {busy}")
+
+
+def train_flops(cfg, tokens, seq):
+    """Matmul FLOPs of one forward over ``tokens`` tokens in sequences of
+    ``seq``: two a multiply-add of the q/k/v/o projections, the FFN, the
+    unembed, and attention's two products over every (query, key) pair
+    (the port's full-sequence attention computes the masked half too)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    proj = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    ffn = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    attn = 2 * seq * cfg.n_heads * hd
+    return 2 * tokens * (cfg.n_layers * (proj + ffn + attn)
+                         + d * cfg.vocab_size)
+
+
+def _event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def train_step_path(smi):
+    """Phase 23a: full-width chai-llama-7b at SIDE_DEPTH layers (bf16,
+    remat) on TRAIN_BATCH x TRAIN_SEQ tokens of the port's pipeline. The
+    fused step against two microbatches on batch 0; then TRAIN_STEPS
+    fused steps, the loss falling by more than 0.3; per step the device
+    time of forward + backward and of the optimizer (CUDA events around
+    ``adamw.update``), the host wall, the device memory peak. No kernel
+    launches. Returns a summary."""
+    t0 = time.time()
+    cfg, params = init_full_model(ARCH, n_layers=SIDE_DEPTH)
+    if ((cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size, cfg.n_layers,
+         cfg.dtype) != (4096, 32, 11008, 32000, SIDE_DEPTH, "bfloat16")):
+        raise AssertionError(f"phase 23a config {cfg}")
+    n_params = sum(t.numel() for t in adamw.tree_leaves(params))
+    pipe = SyntheticPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH))
+    fused = steps.make_train_step(cfg, remat=True, lr_kw=TRAIN_LR)
+    micro = train_step_mod.make_microbatched_train_step(
+        cfg, n_micro=2, remat=True, lr_kw=TRAIN_LR)
+    opt = adamw.init(params)
+    batch = pipe.global_batch_tensor(0, "cuda")
+    _reset_launches()
+    p1, o1, m1 = fused(params, opt, batch)
+    m_fused = o1.m
+    del p1, o1
+    p2, o2, m2 = micro(params, opt, batch)
+    worst = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+                for a, b in zip(adamw.tree_leaves(m_fused),
+                                adamw.tree_leaves(o2.m)))
+    d_loss = abs(float(m1["loss"]) - float(m2["loss"])) / float(m1["loss"])
+    lr_same = m1["lr"].cpu().numpy().tobytes() == m2["lr"].cpu().numpy(
+        ).tobytes()
+    if (d_loss > MICRO_LOSS_RTOL or worst > MICRO_MOMENT_TOL or not lr_same
+            or int(o2.step) != 1):
+        raise AssertionError(
+            f"phase 23a fused vs microbatched: loss {float(m1['loss'])} / "
+            f"{float(m2['loss'])}, first moments {worst:.3e} of a leaf's "
+            f"largest, lr equal {lr_same}")
+    log(f"phase 23a fused vs 2 microbatches, batch 0: loss "
+        f"{float(m1['loss']):.6f} / {float(m2['loss']):.6f} (rel "
+        f"{d_loss:.2e}, limit {MICRO_LOSS_RTOL}), grad norm "
+        f"{float(m1['grad_norm']):.6f} / {float(m2['grad_norm']):.6f}, "
+        f"first moments within {worst:.3e} of each leaf's largest (limit "
+        f"{MICRO_MOMENT_TOL}), lr bitwise equal")
+    del p2, o2, m_fused
+    _free()
+    marks, update = [], adamw.update
+
+    def timed_update(*args, **kw):
+        e1 = _event()
+        out = update(*args, **kw)
+        marks.append((e1, _event()))
+        return out
+    adamw.update = timed_update
+    losses, walls, starts = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i in range(TRAIN_STEPS):
+            batch = pipe.global_batch_tensor(i, "cuda")
+            w0 = time.perf_counter()
+            starts.append(_event())
+            params, opt, m = fused(params, opt, batch)
+            losses.append(float(m["loss"]))
+            walls.append(time.perf_counter() - w0)
+    finally:
+        adamw.update = update
+    torch.cuda.synchronize()
+    launches = _launches()
+    _kernels_idle(launches, "phase 23a")
+    peak = torch.cuda.max_memory_allocated()
+    fb = [s.elapsed_time(e1) for s, (e1, _) in zip(starts, marks)]
+    up = [e1.elapsed_time(e2) for e1, e2 in marks]
+    step = statistics.median(a + b for a, b in zip(fb[2:], up[2:]))
+    if (not all(math.isfinite(x) for x in losses)
+            or losses[-1] > losses[0] - 0.3 or int(opt.step) != TRAIN_STEPS):
+        raise AssertionError(f"phase 23a losses {losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fwd = train_flops(cfg, tokens, TRAIN_SEQ)
+    out = dict(n_params=n_params, losses=losses,
+               step_ms=step, fwd_bwd_ms=statistics.median(fb[2:]),
+               optimizer_ms=statistics.median(up[2:]),
+               wall_ms=1e3 * statistics.median(walls[2:]),
+               tokens_s=tokens / (step / 1e3), peak_bytes=peak,
+               model_flop_share=3 * fwd / (step / 1e3) / BF16_FLOPS,
+               remat_flop_share=4 * fwd / (step / 1e3) / BF16_FLOPS,
+               state_bytes=n_params * (2 + 4 + 4))
+    log(f"phase 23a ({smi}): {cfg.name}, {cfg.n_layers} layers at full "
+        f"width, {n_params / 1e9:.3f} B params (bf16 weights, fp32 "
+        f"moments: {out['state_bytes'] / 1e9:.2f} GB), {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, remat; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {TRAIN_STEPS} steps ({losses})")
+    log(f"phase 23a ({smi}): median of steps 3-{TRAIN_STEPS}: step "
+        f"{step:.2f} ms on the device (forward + backward "
+        f"{out['fwd_bwd_ms']:.2f}, optimizer {out['optimizer_ms']:.2f}: "
+        f"{100 * out['optimizer_ms'] / step:.1f}%), host wall "
+        f"{out['wall_ms']:.2f} ms; {out['tokens_s']:.0f} tokens/s; model "
+        f"FLOP/s {3 * fwd / (step / 1e3) / 1e12:.1f} T "
+        f"({100 * out['model_flop_share']:.2f}% of {BF16_FLOPS / 1e12:.0f} "
+        f"T; {100 * out['remat_flop_share']:.2f}% counting the remat "
+        f"recompute); device memory peak {peak:,} B; steps "
+        f"{[round(a + b, 2) for a, b in zip(fb, up)]} ms; "
+        f"{time.time() - t0:.1f} s")
+    del params, opt
+    _free()
+    return {"train_step": launches}, out
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def resume_path(smi, root):
+    """Phase 23b: chai-llama-7b at full width and RESUME_DEPTH layers
+    through ``Trainer`` (bf16, remat; the pipeline's batches): 10 steps
+    straight (the trainer's step, no save) against ``run`` for 5 steps
+    and its save, and a fresh ``Trainer`` whose ``run`` restores it and
+    runs 5 more. The final losses at rtol 1e-5 and every
+    leaf's max abs difference; GB written, seconds to save and to
+    restore. Returns (cfg, the resumed run's final params, its checkpoint
+    directory, summary)."""
+    t0 = time.time()
+    cfg = cut_config(get_config(ARCH), RESUME_DEPTH)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    kw = dict(total_steps=RESUME_STEPS, log_every=1000, keep=1)
+    saves, restores = [], []
+
+    def trainer(name, every):
+        tr = Trainer(cfg, data, TrainerConfig(
+            ckpt_every=every, ckpt_dir=os.path.join(root, name), **kw))
+        save, restore = tr.ckpt.save, tr.ckpt.restore
+
+        def timed_save(*a, **k):
+            w0 = time.perf_counter()
+            out = save(*a, **k)
+            saves.append((time.perf_counter() - w0, _dir_bytes(out)))
+            return out
+
+        def timed_restore(*a, **k):
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            out = restore(*a, **k)
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - w0)
+            return out
+        tr.ckpt.save, tr.ckpt.restore = timed_save, timed_restore
+        return tr
+
+    _reset_launches()
+    tr = trainer("a", 1000)
+    straight = tr.init_state()
+    for step in range(RESUME_STEPS):   # the trainer's step, no save
+        straight, m_straight = tr._one_step(
+            straight, tr.pipe.global_batch_tensor(step, "cuda"))
+    del straight["opt"], tr
+    _free()
+    trainer("b", RESUME_STEPS // 2).run(max_steps=RESUME_STEPS // 2)
+    _free()
+    resumed, m_resumed = trainer("b", RESUME_STEPS // 2).run()
+    _kernels_idle(_launches(), "phase 23b")
+    a, b = float(m_straight["loss"]), float(m_resumed["loss"])
+    diffs = {f"{g}/{n}": float((t.float() - resumed["params"][g][n].float()
+                                ).abs().max())
+             for g, grp in straight["params"].items()
+             for n, t in grp.items()}
+    if abs(a - b) > 1e-5 * abs(a) or len(restores) != 1 or len(saves) != 2:
+        raise AssertionError(f"phase 23b: final loss straight {a}, resumed "
+                             f"{b}; saves {len(saves)}, restores "
+                             f"{len(restores)}")
+    gb = saves[-1][1] / 1e9
+    out = dict(loss_straight=a, loss_resumed=b, leaf_max_abs_diff=diffs,
+               save_gb=gb, save_s=[s for s, _ in saves],
+               restore_s=restores[0], deterministic_algorithms=False)
+    log(f"phase 23b ({smi}): {cfg.name} {cfg.n_layers} layers at full "
+        f"width, {RESUME_STEPS} steps straight: final loss {a:.6f}; 5 + "
+        f"save + restore + 5: {b:.6f}; every leaf's max abs difference (torch "
+        f"deterministic algorithms off): {diffs}")
+    log(f"phase 23b ({smi}): a save {gb:.3f} GB (params and AdamW state), "
+        f"saves {[round(s, 3) for s, _ in saves]} s "
+        f"({gb / statistics.median(s for s, _ in saves):.3f} GB/s, fsync "
+        f"included), the restore {restores[0]:.3f} s "
+        f"({gb / restores[0]:.3f} GB/s, to the card, a warm read); "
+        f"{time.time() - t0:.1f} s")
+    del straight
+    _free()
+    return cfg, resumed["params"], os.path.join(root, "b"), out
+
+
+def train_serve_path(smi, cfg, params, ckpt_dir):
+    """Phase 23c, first half: 23b's last checkpoint restored (its params)
+    and served by the continuous paged engine on ZOO_TRAFFIC, against the
+    in-memory params on the same traffic: the restored weights bit for
+    bit, the same tokens, ``paged_chai_fused_decode`` n_layers times a
+    mixed or all-STEADY step. Returns {path: launches}."""
+    mgr = CheckpointManager(ckpt_dir)
+    step = mgr.latest_step()
+    restored, extra = mgr.restore(step, {"params": params})
+    restored = restored["params"]
+    if (step != RESUME_STEPS or extra != {"data_batch": RESUME_STEPS}
+            or not all(torch.equal(x, y) for x, y in zip(
+                adamw.tree_leaves(params), adamw.tree_leaves(restored)))):
+        raise AssertionError(f"phase 23c: restored step {step}, {extra}")
+    launches, toks = {}, {}
+    for name, p in (("restored", restored), ("memory", params)):
+        run = serve_continuous(cfg, p, "paged", traffic=ZOO_TRAFFIC)
+        _check_served(cfg, run, f"trained_{name}")
+        calls = run["calls"]
+        want = {k: 0 for k in run["launches"]}
+        want["paged_chai_fused_decode"] = cfg.n_layers * (
+            calls["mixed_step"] + calls["steady_step"])
+        if run["launches"] != want:
+            raise AssertionError(f"phase 23c {name}: launches "
+                                 f"{run['launches']}, expected {want}")
+        _log_served(run, f"trained ({name} params)")
+        launches[f"trained_served_{name}"] = run["launches"]
+        toks[name] = [r.generated for r in run["done"]]
+        run.clear()
+        _free()
+    if toks["restored"] != toks["memory"]:
+        raise AssertionError("phase 23c: restored and in-memory tokens differ")
+    log(f"phase 23c ({smi}): the checkpoint of step {step} served on "
+        f"ZOO_TRAFFIC gave the in-memory params' tokens "
+        f"({sum(map(len, toks['memory']))} tokens); fused pair launches "
+        f"{launches['trained_served_restored']['paged_chai_fused_decode']}")
+    return launches
+
+
+def _served_tiny(cfg, params, pipe, use_chai, identify=None):
+    eng = ServingEngine(cfg, params, EngineConfig(
+        batch_slots=2, max_seq=128, use_chai=use_chai))
+    if identify is not None:
+        eng._identify = identify
+    for i in range(TINY_PROMPTS):
+        eng.submit(pipe.batch(100 + i)["tokens"][0, :24], max_new_tokens=16,
+                   uid=i)
+    _reset_launches()
+    done = eng.run()
+    return {r.uid: r.generated for r in done}, _launches()
+
+
+def trained_tiny_path(smi, root):
+    """Phase 23c, second half: the tiny model of ``tests/test_system.py``
+    trained on the card for 60 steps, the offline elbow run on its
+    activations (``calibration_batches``), then TINY_PROMPTS prompts
+    served by the continuous paged engine: MHA (``paged_decode``), CHAI at k 6 and 4 (the fused pair)
+    and round-robin membership at k 4 (``clustering.shared_ctx``); CHAI's
+    greedy agreement with MHA above 0.7, and CHAI at k 4 at least
+    round-robin's less 0.05 (the paper's Fig 1 baseline). Returns
+    ({path: launches}, summary)."""
+    t0 = time.time()
+    cfg = reduced(get_config(ARCH), **TINY_KW).replace(dtype="float32")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=8)
+    tr = Trainer(cfg, data, TrainerConfig(
+        total_steps=60, ckpt_every=1000, log_every=1000,
+        ckpt_dir=os.path.join(root, "tiny"),
+        lr_kw=dict(peak=3e-3, warmup=6, total=60)))
+    state, metrics = tr.run()
+    loss = float(metrics["loss"])
+    params, pipe = state["params"], tr.pipe
+    elbow = offline_clustering.offline_phase(
+        params, cfg, calibration_batches(cfg.vocab_size, 32, 8),
+        device="cuda")
+    if (len(elbow["counts"]) != cfg.n_attn_layers
+            or not all(1 <= k <= cfg.n_heads for k in elbow["counts"])):
+        raise AssertionError(f"phase 23c elbow counts {elbow['counts']}")
+    mha, l_mha = _served_tiny(cfg, params, pipe, False)
+    runs, launches = {}, {"tiny_trained_mha": l_mha}
+    for k in (6, 4):
+        cfg_k = cfg.with_chai(enabled=True, cluster_counts=(k, k))
+        runs[k], launches[f"tiny_trained_chai_k{k}"] = _served_tiny(
+            cfg_k, params, pipe, True)
+    rand = clustering.shared_ctx(cfg_k, device="cuda")
+    rr, launches["tiny_trained_round_robin_k4"] = _served_tiny(
+        cfg_k, params, pipe, True,
+        identify=lambda sc: {n: v[:, None] for n, v in rand.items()})
+
+    def agree(gen, n=TINY_PROMPTS):
+        return float(np.mean([np.mean(np.asarray(mha[u])
+                                      == np.asarray(gen[u]))
+                              for u in range(n)]))
+    out = dict(loss=loss, elbow_counts=elbow["counts"],
+               elbow_offdiag=elbow["offdiag"],
+               chai6=agree(runs[6]), chai4=agree(runs[4]),
+               round_robin4=agree(rr), chai6_first4=agree(runs[6], 4),
+               chai4_first4=agree(runs[4], 4),
+               round_robin4_first4=agree(rr, 4))
+    if (loss >= 4.0 or out["chai6"] <= 0.7
+            or out["chai4"] < out["round_robin4"] - 0.05
+            or not l_mha["paged_decode"] or l_mha["paged_chai_fused_decode"]
+            or not all(launches[f"tiny_trained_chai_k{k}"][
+                "paged_chai_fused_decode"] for k in (6, 4))):
+        raise AssertionError(f"phase 23c tiny: {out}, launches {launches}")
+    log(f"phase 23c ({smi}): the tiny model ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads, fp32) trained on the card "
+        f"for 60 steps, loss {loss:.4f}; the offline elbow on 8 "
+        f"calibration sequences of 32 tokens: cluster counts "
+        f"{elbow['counts']}, mean |offdiag| "
+        f"{[round(x, 4) for x in elbow['offdiag']]}; greedy agreement with "
+        f"MHA over "
+        f"{TINY_PROMPTS} prompts x 16 tokens (the first 4 prompts): CHAI "
+        f"k 6 {out['chai6']:.4f} ({out['chai6_first4']:.4f}), CHAI k 4 "
+        f"{out['chai4']:.4f} ({out['chai4_first4']:.4f}), round-robin k "
+        f"4 {out['round_robin4']:.4f} ({out['round_robin4_first4']:.4f}); "
+        f"launches {launches}; {time.time() - t0:.1f} s")
+    return launches, out
+
+
+def training_paths():
+    """Phase 23: the training stack (23a ``train_step_path``, 23b ``resume_path``, 23c
+    ``train_serve_path`` and ``trained_tiny_path``), its checkpoints under
+    a temporary directory removed at the end. Returns ({path: launches},
+    summary)."""
+    _free()
+    t0 = time.time()
+    smi = smi_line()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt.")
+    try:
+        log(f"phase 23: free disk under {root}: "
+            f"{shutil.disk_usage(root).free / 1e9:.1f} GB; device memory "
+            f"allocated at the start {torch.cuda.memory_allocated():,} B")
+        launches, sums = train_step_path(smi)
+        cfg, params, ckpt_dir, sums["resume"] = resume_path(smi, root)
+        launches.update(train_serve_path(smi, cfg, params, ckpt_dir))
+        del params
+        _free()
+        got, sums["tiny"] = trained_tiny_path(smi, root)
+        launches.update(got)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 23: {time.time() - t0:.1f} s")
+    return launches, sums
+
+
 def main():
     environment()
     build_kernels()
@@ -8841,6 +9270,11 @@ def main():
         reduced_prefix_relay_check(arch)
     reduced_chunked_check()
     reduced_arch_checks()
+    # Phase 23: the training stack, no kernel on its path; the trained
+    # weights served through the kernels. It runs here, on a card that
+    # holds nothing else: from phase 20 on, 13.5 GB of chai-llama-7b's
+    # weights stay allocated to the end of the script.
+    train_launches, _ = training_paths()
     cfg, params = init_full_model()
     cohort_launches, dense_main, cohort_cap, cohort_mha = main_path(cfg,
                                                                     params)
@@ -8876,9 +9310,7 @@ def main():
     fault_launches.update(audit_launches)
     fault_launches.update(front_door_faults(cfg, params))
     # Phase 18, chai-llama-7b: telemetry; phase 19: the KV tiers.
-    tel_launches, _ = telemetry_path(cfg, params, mono,
-                                     cont_launches["continuous_paged"],
-                                     audit_copies["basic"])
+    tel_launches, _ = telemetry_path(cfg, params, audit_copies["basic"])
     tier_launches, _ = kv_tiers_path(cfg, params)
     # Phase 20, chai-llama-7b: priority preemption, the async front door
     # and the HTTP server.
@@ -8990,6 +9422,7 @@ def main():
                **nemo_front_launches, **fault_launches, **tel_launches,
                **tier_launches, **preempt_launches, **async_launches,
                **g3_launches, **moe_launches, **rec_launches,
+               **train_launches,
                "pipeline_lane": lane_launches,
                "pipeline_lane_share_int8": lane8_launches}
     mains = {"chai_fused_decode": (

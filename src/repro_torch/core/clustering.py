@@ -85,6 +85,24 @@ def identify_membership_slot(scores, cfg: ModelConfig, identify_fn=None):
     return {k: v[:, 0] for k, v in fn(scores[:, None]).items()}
 
 
+def shared_ctx(cfg: ModelConfig, device=None):
+    """A membership made without observing activations (the reference's
+    ``shared_ctx``; the paper's round-robin baseline): heads go to
+    clusters round-robin, every cluster non-empty, each cluster's first
+    member its representative. Batch-free: MHA h2c (nA, H), reps (nA,
+    k_max); GQA cluster_of (nA, KV, qpk), reps (nA, KV, r_max)."""
+    k_max, r_max = chai_widths(cfg)
+    na = cfg.n_attn_layers
+    ar = lambda n: torch.arange(n, dtype=torch.int32,  # noqa: E731
+                                device=device)
+    if cfg.is_mha:
+        return {"h2c": (ar(cfg.n_heads) % k_max).repeat(na, 1),
+                "reps": ar(k_max).repeat(na, 1)}
+    return {"cluster_of": (ar(cfg.q_per_kv) % r_max).repeat(
+                na, cfg.n_kv_heads, 1),
+            "reps": ar(r_max).repeat(na, cfg.n_kv_heads, 1)}
+
+
 def init_batched_ctx(cfg: ModelConfig, batch: int, device):
     """All-zero per-request membership buffers (MHA: h2c (nA, B, H), reps
     (nA, B, k_max); GQA: cluster_of (nA, B, KV, qpk), reps (nA, B, KV,

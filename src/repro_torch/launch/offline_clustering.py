@@ -8,8 +8,10 @@ prefill, then ``cfg.chai.warmup_tokens`` MHA decode steps accumulating the
 score buffer, as serving's WARMUP does), sweeps K-Means k = 1..H per
 layer, and prints each layer's error curve, the elbow-selected cluster
 counts beside the config's frozen ones, and each layer's mean absolute
-off-diagonal head correlation. Random weights from a seed; calibration
-tokens from a numpy seed (``offline_phase`` takes any token batches).
+off-diagonal head correlation. Random weights from a seed; the
+calibration corpus is the reference's: ``data.pipeline.
+calibration_batches``, the Markov stream under its own seed
+(``offline_phase`` takes any token batches).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.core import cache as chai_cache
 from repro_torch.core.clustering import standardize
 from repro_torch.core.correlation import head_correlation, mean_abs_offdiag
 from repro_torch.core.elbow import elbow_curve, select_k
+from repro_torch.data.pipeline import calibration_batches
 from repro_torch.models import transformer as tfm
 
 
@@ -74,13 +77,6 @@ def offline_phase(params, cfg, batches, *, max_seq=64, plateau_tol=0.05,
     return {"features": feats, **elbow_analysis(feats, plateau_tol)}
 
 
-def calibration_tokens(vocab, seq_len, n_samples, batch=8, seed=0):
-    """Calibration token batches from a numpy seed."""
-    rng = np.random.default_rng(seed)
-    toks = rng.integers(0, vocab, size=(n_samples, seq_len))
-    return [toks[i:i + batch] for i in range(0, n_samples, batch)]
-
-
 # The model and the calibration batch the entry runs.
 ARCH, N_SAMPLES, SEQ_LEN = "chai-llama-7b", 16, 24
 
@@ -101,7 +97,7 @@ def main(argv=None):
     print(f"[offline] {cfg.name}: {cfg.n_layers} layers, {cfg.n_heads} "
           f"heads; {N_SAMPLES} calibration sequences of {SEQ_LEN} "
           f"tokens on {device}")
-    out = offline_phase(params, cfg, calibration_tokens(
+    out = offline_phase(params, cfg, calibration_batches(
         cfg.vocab_size, SEQ_LEN, N_SAMPLES), device=device)
     print(f"{'layer':>6} {'k':>4} {'offdiag':>8}   error curve (k = 1..H)")
     for li, (k, off, curve) in enumerate(zip(out["counts"], out["offdiag"],

@@ -1,4 +1,8 @@
-"""Step functions the engines drive.
+"""Step functions the engines and the trainer drive.
+
+Training: ``cross_entropy``, ``make_loss_fn`` (the CE plus the MoE
+auxiliary losses at ``LB_COEF`` / ``Z_COEF``) and ``make_train_step``
+(autograd over the training forward, then ``optim.adamw.update``).
 
 Cohort: whole-cohort prefill, decode, compact. Continuous: the mixed-phase
 decode step and the per-slot prefill / cluster / reset transitions, on
@@ -26,6 +30,73 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache as chai_cache
 from repro_torch.core import clustering
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import adamw
+
+LB_COEF = 0.01
+Z_COEF = 1e-3
+
+
+def cross_entropy(logits, labels):
+    """logits (B, T, V) fp32; labels (B, T) int -> mean loss."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def make_loss_fn(cfg: ModelConfig, *, remat=True, moe_impl="capacity"):
+    """loss_fn(params, batch) -> (loss, {"ce", "load_balance",
+    "router_z"}); ``batch["tokens"]`` (B, T) int or, on a frontend arch,
+    ``batch["embeddings"]`` (B, T, d) float, and ``batch["labels"]``."""
+    def loss_fn(params, batch):
+        inputs = batch.get("tokens", batch.get("embeddings"))
+        logits, _, aux = tfm.forward_fullseq(params, cfg, inputs,
+                                             remat=remat, moe_impl=moe_impl,
+                                             return_aux=True)
+        ce = cross_entropy(logits, batch["labels"])
+        loss = ce + LB_COEF * aux["load_balance"] + Z_COEF * aux["router_z"]
+        return loss, {"ce": ce, **aux}
+    return loss_fn
+
+
+def value_and_grad(loss_fn, params, batch):
+    """((loss, metrics) detached, grads): autograd of ``loss_fn`` at
+    ``params`` (nested dicts of tensors, left untouched). A leaf the loss
+    does not reach (the token table under float embeddings) gets zeros,
+    as ``jax.grad`` gives it; every gradient has its parameter's dtype."""
+    leaves = adamw.tree_map(lambda p: p.detach().requires_grad_(), params)
+    flat = adamw.tree_leaves(leaves)
+    loss, metrics = loss_fn(leaves, batch)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(flat, grads))
+    grads = adamw.tree_map(lambda _: next(it), leaves)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), grads
+
+
+def make_train_step(cfg: ModelConfig, *, remat=True, moe_impl="capacity",
+                    lr_kw=None, grad_dtype=None, grad_shardings=None):
+    """train_step(params, opt_state, batch) -> (params', opt_state',
+    metrics): the loss and its gradients, cast to ``grad_dtype`` (e.g.
+    "bfloat16") when given, then one AdamW step at ``cosine_lr(step,
+    **lr_kw)`` (the update's default schedule without ``lr_kw``).
+    ``grad_shardings`` pins the gradients to a ZeRO layout in the
+    reference; it needs a device mesh (ROADMAP #16)."""
+    if grad_shardings is not None:
+        raise ValueError("grad_shardings needs a device mesh: the sharding "
+                         "tooling waits for ROADMAP #16")
+    loss_fn = make_loss_fn(cfg, remat=remat, moe_impl=moe_impl)
+    lr_kw = lr_kw or {}
+
+    def train_step(params, opt_state, batch):
+        (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+        if grad_dtype is not None:
+            dt = getattr(torch, str(grad_dtype))
+            grads = adamw.tree_map(lambda g: g.to(dt), grads)
+        lr = adamw.cosine_lr(opt_state.step, **lr_kw) if lr_kw else None
+        params, opt_state, om = adamw.update(grads, opt_state, params, lr=lr)
+        return params, opt_state, {"loss": loss, **metrics, **om}
+
+    return train_step
 
 
 def make_serve_prefill(cfg: ModelConfig, batch: int, max_seq: int, *,

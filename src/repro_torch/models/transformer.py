@@ -29,10 +29,12 @@ recurrence as the reference does, so the recurrent state after it is the
 padded sequence's (the reference's caveat, kept for lockstep); decode
 advances every slot's recurrent state, FREE slots included.
 
-Two entry points: ``forward_fullseq`` (prefill) and ``decode_step`` (one
-token against the decode state). Unlike the reference, whose arrays are
-immutable, the decode state's caches are updated IN PLACE (the state dict
-passed in is the state returned), which saves a cache copy per layer.
+Two entry points: ``forward_fullseq`` (prefill, and the training
+forward with the MoE auxiliary losses and per-layer remat) and
+``decode_step`` (one token against the decode state). Unlike the
+reference, whose arrays are immutable, the decode state's caches are
+updated IN PLACE (the state dict passed in is the state returned), which
+saves a cache copy per layer.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, FFN_DENSE,
@@ -369,19 +372,25 @@ def _embed(params, cfg, tokens, embeddings=None):
     return embed_lookup(params["embed"]["tok"], tokens).to(dt)
 
 
-def _ffn(h, params, cfg, plan, i, moe_impl):
+def _ffn(h, params, cfg, plan, i, moe_impl, aux=None):
     """Layer ``i``'s FFN sublayer on h (B, T, d), residual included: the
-    dense FFN, or the MoE FFN by ``moe_impl``."""
+    dense FFN, or the MoE FFN by ``moe_impl``. Returns (h, aux): ``aux``,
+    the running {"load_balance", "router_z"} sums or None, gains a
+    capacity MoE layer's auxiliary losses, as in the reference's training
+    forward (the ragged form and the dense FFN add none)."""
     mi = plan["moe"][i]
     if mi is None:
         pf = _layer(params["ffn"], plan["dense"][i])
         return h + mlp.dense_ffn(rms_norm(h, pf["ln"], cfg.norm_eps), pf,
-                                 cfg)
+                                 cfg), aux
     pm = _layer(params["moe"], mi)
     xn = rms_norm(h, pm["ln"], cfg.norm_eps)
     if moe_impl == "ragged":
-        return h + moe.moe_ffn_ragged(xn, pm, cfg)
-    return h + moe.moe_ffn(xn, pm, cfg)
+        return h + moe.moe_ffn_ragged(xn, pm, cfg), aux
+    if aux is None:
+        return h + moe.moe_ffn(xn, pm, cfg), None
+    y, a = moe.moe_ffn(xn, pm, cfg, return_aux=True)
+    return h + y, {k: aux[k] + a[k] for k in aux}
 
 
 def _recurrent_mixer(h, params, cfg, plan, i, state, step=False):
@@ -471,7 +480,8 @@ def _attention_fullseq(h, params, cfg, plan, i, state, positions, pos_idx,
 
 def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
                     positions=None, logits_slice=None, valid_len=None,
-                    prefix_len=None, prefix_kv=None, moe_impl=None):
+                    prefix_len=None, prefix_kv=None, moe_impl=None,
+                    remat=False, return_aux=False):
     """tokens: (B, T) int, or float embeddings (B, T, d) of a frontend
     stub, which enter through the adapter. ``state``: decode state to
     fill (prefill) or None. ``moe_impl`` (MoE layers): "ragged" or
@@ -499,7 +509,16 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
     sit at absolute positions ``prefix_len + arange(T)``, attend over the
     cached pages and themselves (``_prefix_attention``), write the cache
     at those positions, and ``pos`` starts at ``prefix_len + valid_len``.
+
+    The training forward (no ``state``): ``return_aux`` returns (logits,
+    None, aux) with aux the MoE auxiliary losses {"load_balance",
+    "router_z"} summed over the capacity MoE layers (fp32 zeros without
+    one), and ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
+    its layer body): gradients equal, activation memory one layer's.
     """
+    if remat and state is not None:
+        raise ValueError("remat is for the training forward (state=None)")
     plan = layer_plan(cfg)
     if moe_impl is None:
         moe_impl = "capacity" if state is None else "ragged"
@@ -520,16 +539,25 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
         vl = torch.as_tensor(valid_len, dtype=torch.int64, device=h.device)
         vl = vl.expand(b) if vl.ndim == 0 else vl
 
-    for i in range(cfg.n_layers):
+    aux = None
+    if return_aux:
+        aux = {k: torch.zeros((), dtype=torch.float32, device=h.device)
+               for k in ("load_balance", "router_z")}
+
+    def layer(i, h, aux):
         if plan["attn"][i] is None:
             h = _recurrent_mixer(h, params, cfg, plan, i, state)
         else:
             h = _attention_fullseq(h, params, cfg, plan, i, state,
                                    positions, pos_idx, vl, plen, prefix_kv)
         if plan["rwkv"][i] is not None:
-            h = _channel_mix(h, params, cfg, plan["rwkv"][i], state)
-        else:
-            h = _ffn(h, params, cfg, plan, i, moe_impl)
+            return _channel_mix(h, params, cfg, plan["rwkv"][i], state), aux
+        return _ffn(h, params, cfg, plan, i, moe_impl, aux)
+
+    for i in range(cfg.n_layers):
+        h, aux = (torch.utils.checkpoint.checkpoint(layer, i, h, aux,
+                                                    use_reentrant=False)
+                  if remat else layer(i, h, aux))
 
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     if logits_slice == "last":
@@ -543,6 +571,8 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
         if plen is not None:
             fill = fill + plen
         state["pos"] = fill.to(torch.int32)
+    if return_aux:
+        return logits, state, aux
     return logits, state
 
 
@@ -869,7 +899,7 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
             h = _channel_mix(h, params, cfg, plan["rwkv"][i], state,
                              step=True)
         else:
-            h = _ffn(h[:, None], params, cfg, plan, i, moe_impl)[:, 0]
+            h = _ffn(h[:, None], params, cfg, plan, i, moe_impl)[0][:, 0]
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(h, _unembed_w(params, cfg), cfg.final_logit_softcap)
     state["pos"] = state["pos"] + 1

@@ -130,6 +130,24 @@ def calibration():
                 counts=[jelbow.select_k(c, ks) for c in curves])
 
 
+def test_offline_entry_reads_the_reference_corpus(calibration):
+    """The port's entry draws its calibration batches from the port's
+    ``calibration_batches``: the reference's corpus bit for bit, and
+    through the offline phase the reference's features and counts."""
+    from repro_torch.data.pipeline import calibration_batches as tcal
+    c = calibration
+    batches = list(tcal(c["tcfg"].vocab_size, 24, n_samples=16))
+    assert len(batches) == len(c["batches"])
+    for a, b in zip(batches, c["batches"]):
+        np.testing.assert_array_equal(a, b)
+    assert "calibration_tokens" not in vars(toffline)
+    out = toffline.offline_phase(c["tparams"], c["tcfg"], batches,
+                                 device="cpu")
+    np.testing.assert_allclose(out["features"].numpy(), c["feats"],
+                               atol=1e-6, rtol=1e-5)
+    assert out["counts"] == c["counts"]
+
+
 def test_offline_phase_matches_reference(calibration):
     c = calibration
     out = toffline.offline_phase(c["tparams"], c["tcfg"], c["batches"],

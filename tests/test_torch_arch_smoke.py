@@ -3,7 +3,8 @@
 
 * Every arch the port registers, reduced, fp32, the port's seeded
   ``init_params``: a forward pass (float embeddings on a frontend arch)
-  and one decode step, shapes and finite values.
+  and one decode step, shapes and finite values; one train step, its
+  loss and grad norm finite and some leaf moved.
 * Every full config constructs: ``param_count`` equals the reference's
   and lies within the reference test's +-50% of the nominal size, the
   CHAI cluster counts fall with depth, and a MoE config reads fewer
@@ -28,7 +29,9 @@ from repro.configs.base import get_config as jget_config
 from repro.configs.base import reduced as jreduced
 from repro.models import transformer as jtfm
 from repro_torch.configs.base import get_config, list_configs, reduced
+from repro_torch.launch import steps as tsteps
 from repro_torch.models import transformer as ttfm
+from repro_torch.optim import adamw as tadamw
 from repro_torch.weights import params_from_numpy
 
 PORTED = list_configs()
@@ -66,6 +69,32 @@ def test_forward_shapes_and_finite(arch):
     logits, _ = ttfm.forward_fullseq(params, cfg, x)
     assert logits.shape == (b, t, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all()), arch
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_train_step_no_nans(arch):
+    """One train step (the fused ``make_train_step``, no remat) of the
+    reduced fp32 arch from the port's seeded weights: the loss and the
+    grad norm finite, the optimizer at step 1, some leaf moved."""
+    cfg = _reduced(arch)
+    params = ttfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    b, t = 2, 16
+    batch = {"labels": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (b, t)))}
+    if cfg.frontend != "none":
+        batch["embeddings"] = torch.from_numpy(
+            rng.normal(size=(b, t, cfg.d_model)).astype(np.float32))
+    else:
+        batch["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                        (b, t)))
+    step = tsteps.make_train_step(cfg, remat=False)
+    params2, opt2, metrics = step(params, tadamw.init(params), batch)
+    assert np.isfinite(float(metrics["loss"])), arch
+    assert np.isfinite(float(metrics["grad_norm"])), arch
+    assert int(opt2.step) == 1
+    assert any(not torch.allclose(a, b_) for a, b_ in zip(
+        tadamw.tree_leaves(params), tadamw.tree_leaves(params2))), arch
 
 
 @pytest.mark.parametrize("arch", PORTED)

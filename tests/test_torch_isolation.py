@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch/``, not
 ``chip_smoke.py`` and no measurement harness under ``tools/`` imports
-jax, jaxlib or the reference package, and no entry point silently runs
-on the CPU."""
+jax, jaxlib, ml_dtypes or the reference package, and no entry point
+silently runs on the CPU."""
 import ast
 from pathlib import Path
 
@@ -9,7 +9,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _port_files():
@@ -40,7 +40,10 @@ def test_port_files_exist():
                 "serving/telemetry", "serving/exporters",
                 "serving/kv_tiers", "serving/async_api",
                 "launch/serve_http", "models/moe", "models/frontends",
-                "models/rglru", "models/rwkv"):
+                "models/rglru", "models/rwkv", "optim/adamw",
+                "optim/compression", "data/pipeline",
+                "checkpoint/checkpoint", "train/train_step",
+                "train/trainer", "launch/train"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "src/repro_torch/configs/nemotron_4_15b.py" in names
     for cfg in ("gemma3_4b", "deepseek_moe_16b", "qwen3_moe_30b_a3b",
@@ -82,7 +85,7 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_entry_points_refuse_a_missing_gpu(monkeypatch):
+def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
     """``device=None`` means CUDA; without a GPU every entry point raises
     instead of falling back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -112,6 +115,21 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
     for main in (api_stream.main, offline_clustering.main, serve_http.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["--reduced"])
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.launch import train
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+    data = DataConfig(vocab_size=16, seq_len=4, global_batch=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, data, TrainerConfig(ckpt_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticPipeline(data).global_batch_tensor(0)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"a": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mgr.restore(1, {"a": torch.zeros(2)})
 
 
 def test_continuous_scheduler_names_the_next_slice():
