@@ -314,14 +314,40 @@ result line):
    the optimizer by CUDA events, tokens/s, the FLOP share of the bf16
    peak and the device memory peak; (b) at 2 layers through ``Trainer``:
    10 steps straight against 5, a save, a fresh trainer's restore and 5
-   more (final loss at rtol 1e-5, every leaf's max abs difference, GB
-   written, seconds to save and restore); (c) that checkpoint restored
+   more, whose final save is skipped (final loss at rtol 1e-5, every
+   leaf's max abs difference, GB written, seconds to save and restore);
+   (c) that checkpoint (step 5) restored
    and served on ``ZOO_TRAFFIC`` by the continuous paged engine, the
    tokens equal to the in-memory params' and the fused pair launching,
    then the tiny model of ``tests/test_system.py`` trained on the card
    for 60 steps, its offline elbow, and served on 32 prompts: CHAI's greedy agreement with
    MHA above 0.7, and CHAI at least round-robin membership less 0.05;
-24. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
+24. the sharding tooling of ROADMAP #16 (``sharding_paths``; right after
+   phase 23, on an empty card, its own weights at SIDE_DEPTH freed at its
+   end) on a 1x1 (data, model) CUDA mesh over a world-1 NCCL group,
+   destroyed at the phase's end: (a) full-width chai-llama-7b, 8 layers,
+   4 prompts prefilled into max_seq 1024, WARMUP and CLUSTER through the
+   plain steps, then SHARD_STEADY STEADY steps twice from copies of that
+   state, through the dry-run's ``decode_chai`` step with every input a
+   DTensor placed by the rules (path ``sharded_decode_chai``, the fused
+   kernel through ``local_map``) and through the plain step: logits
+   bitwise equal, chai_fused_decode 8 times a step; the same for
+   ``decode_mha`` from the prefill state (``flash_decode``, path
+   ``sharded_decode_mha``); median step ms both ways and the collectives
+   ``CommDebugMode`` counts a step (0 on a 1x1 mesh); (b) phase 23a's
+   model: 3 steps through ``Trainer(mesh=...)`` and 3 with
+   ``grad_shardings=zero_shardings(...)``, parameters and moments bitwise
+   the unsharded trainer's, and each run's memory peak above the bytes
+   allocated at its start within SHARD_PEAK_MARGIN of the plain run's
+   (the plain run's final state, which the sharded runs are compared
+   with, stays allocated beside them); (c) the int8 cross-pod step (2 layers) on a
+   (1, 1, 1) (pod, data, model) mesh against the same step with
+   ``compressed_psum`` on the size-1 group, bitwise; (d) ``moe_ffn_ep``
+   on deepseek-moe-16b's first MoE layer at full width (64 experts, d
+   2048, fp32, x (4, 128, 2048)), its ``all_to_all`` over the size-1
+   NCCL group, against ``moe_ffn`` at 1e-5; the torch and NCCL versions
+   and the card's name and power limit logged;
+25. a ``kernels`` JSON line (the thirteen kernels, a ``[int8]`` row for
    each of the four int8 modes, its launches those of its phase-11 path,
    a ``[share]`` row for each of the three share modes, its launches
    those of its phase-12 path, a ``[softcap]`` row for each of the two
@@ -517,6 +543,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -721,19 +748,38 @@ REWRITTEN = ("flash_prefill", "paged_prefix_attend", "flash_decode",
              "paged_decode")
 
 
+_SASS = {}
+
+
 def tensor_core_counts():
     """Log the tensor-core instructions in each rewritten kernel's SASS
     (``cuobjdump -sass`` of the built library): HMMA for ``mma.sync``,
-    HGMMA for ``wgmma``. For the record, not a gate."""
+    HGMMA for ``wgmma``. For the record, not a gate. The disassemblies
+    run together in a thread beside phase 3 (host work, ~20 s one after
+    another); ``sass_counts_done`` waits for them."""
+    import threading
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    for name in REWRITTEN:
-        sass = subprocess.run(
+
+    def run():
+        procs = {name: subprocess.Popen(
             [str(tool), "-sass", str(build.BUILD_DIR / f"lib{name}.so")],
-            capture_output=True, text=True).stdout.splitlines()
-        counts = {op: sum(f" {op}." in ln or f" {op} " in ln for ln in sass)
-                  for op in ("HMMA", "HGMMA")}
-        log(f"{name}: SASS tensor-core instructions {counts} "
-            f"({len(sass)} SASS lines)")
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+            for name in REWRITTEN}
+        for name, proc in procs.items():
+            sass = proc.communicate()[0].splitlines()
+            counts = {op: sum(f" {op}." in ln or f" {op} " in ln
+                              for ln in sass) for op in ("HMMA", "HGMMA")}
+            log(f"{name}: SASS tensor-core instructions {counts} "
+                f"({len(sass)} SASS lines)")
+    _SASS["thread"] = threading.Thread(target=run, daemon=True)
+    _SASS["thread"].start()
+
+
+def sass_counts_done():
+    """Wait for ``tensor_core_counts``' disassemblies."""
+    thread = _SASS.pop("thread", None)
+    if thread is not None:
+        thread.join()
 
 
 # ------------------------------------------------------------ phase 3 ----
@@ -7182,6 +7228,10 @@ def _soak_run(cfg, params, wl, plan):
     finally:
         soak_mod.EngineCore = EngineCore
     core, = _SoakCore.built
+    # The registry is the class's: left filled, it held the last run's
+    # engine, and with it chai-llama-7b's weights, to the end of the
+    # script (a walk of ``gc.get_referrers`` found it).
+    _SoakCore.built.clear()
     label = "clean" if plan is None else "faulted"
     fs = rep["fault_stats"]
     finishes = {u: r["finish"] for u, r in rep["requests"].items()}
@@ -9027,10 +9077,10 @@ def resume_path(smi, root):
     through ``Trainer`` (bf16, remat; the pipeline's batches): 10 steps
     straight (the trainer's step, no save) against ``run`` for 5 steps
     and its save, and a fresh ``Trainer`` whose ``run`` restores it and
-    runs 5 more. The final losses at rtol 1e-5 and every
-    leaf's max abs difference; GB written, seconds to save and to
-    restore. Returns (cfg, the resumed run's final params, its checkpoint
-    directory, summary)."""
+    runs 5 more (its final save skipped). The final losses at rtol 1e-5
+    and every leaf's max abs difference; GB written, seconds to save and
+    to restore. Returns (cfg, the params the step-5 checkpoint holds,
+    its checkpoint directory, summary)."""
     t0 = time.time()
     cfg = cut_config(get_config(ARCH), RESUME_DEPTH)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
@@ -9067,16 +9117,24 @@ def resume_path(smi, root):
             straight, tr.pipe.global_batch_tensor(step, "cuda"))
     del straight["opt"], tr
     _free()
-    trainer("b", RESUME_STEPS // 2).run(max_steps=RESUME_STEPS // 2)
+    first, _ = trainer("b", RESUME_STEPS // 2).run(
+        max_steps=RESUME_STEPS // 2)
+    saved = first["params"]        # what the step-5 checkpoint holds
+    del first
     _free()
-    resumed, m_resumed = trainer("b", RESUME_STEPS // 2).run()
+    resumer = trainer("b", RESUME_STEPS // 2)
+    # the resumed run's own final save is not timed or served (the
+    # script's time limit; phase 23c serves the step-5 checkpoint)
+    resumer.ckpt.save = lambda *a, **k: None
+    resumed, m_resumed = resumer.run()
+    del resumer
     _kernels_idle(_launches(), "phase 23b")
     a, b = float(m_straight["loss"]), float(m_resumed["loss"])
     diffs = {f"{g}/{n}": float((t.float() - resumed["params"][g][n].float()
                                 ).abs().max())
              for g, grp in straight["params"].items()
              for n, t in grp.items()}
-    if abs(a - b) > 1e-5 * abs(a) or len(restores) != 1 or len(saves) != 2:
+    if abs(a - b) > 1e-5 * abs(a) or len(restores) != 1 or len(saves) != 1:
         raise AssertionError(f"phase 23b: final loss straight {a}, resumed "
                              f"{b}; saves {len(saves)}, restores "
                              f"{len(restores)}")
@@ -9089,19 +9147,20 @@ def resume_path(smi, root):
         f"save + restore + 5: {b:.6f}; every leaf's max abs difference (torch "
         f"deterministic algorithms off): {diffs}")
     log(f"phase 23b ({smi}): a save {gb:.3f} GB (params and AdamW state), "
-        f"saves {[round(s, 3) for s, _ in saves]} s "
+        f"the save {[round(s, 3) for s, _ in saves]} s "
         f"({gb / statistics.median(s for s, _ in saves):.3f} GB/s, fsync "
         f"included), the restore {restores[0]:.3f} s "
         f"({gb / restores[0]:.3f} GB/s, to the card, a warm read); "
         f"{time.time() - t0:.1f} s")
-    del straight
+    del straight, resumed
     _free()
-    return cfg, resumed["params"], os.path.join(root, "b"), out
+    return cfg, saved, os.path.join(root, "b"), out
 
 
 def train_serve_path(smi, cfg, params, ckpt_dir):
-    """Phase 23c, first half: 23b's last checkpoint restored (its params)
-    and served by the continuous paged engine on ZOO_TRAFFIC, against the
+    """Phase 23c, first half: 23b's checkpoint (step 5) restored (its
+    params) and served by the continuous paged engine on ZOO_TRAFFIC,
+    against the
     in-memory params on the same traffic: the restored weights bit for
     bit, the same tokens, ``paged_chai_fused_decode`` n_layers times a
     mixed or all-STEADY step. Returns {path: launches}."""
@@ -9109,7 +9168,8 @@ def train_serve_path(smi, cfg, params, ckpt_dir):
     step = mgr.latest_step()
     restored, extra = mgr.restore(step, {"params": params})
     restored = restored["params"]
-    if (step != RESUME_STEPS or extra != {"data_batch": RESUME_STEPS}
+    half = RESUME_STEPS // 2
+    if (step != half or extra != {"data_batch": half}
             or not all(torch.equal(x, y) for x, y in zip(
                 adamw.tree_leaves(params), adamw.tree_leaves(restored)))):
         raise AssertionError(f"phase 23c: restored step {step}, {extra}")
@@ -9244,6 +9304,360 @@ def training_paths():
     return launches, sums
 
 
+# ----------------------------------------------------------- phase 24 ----
+# The sharding tooling (ROADMAP #16) on a 1x1 mesh: the same ops on the
+# same card, so the sharded and plain runs are held bitwise.
+SHARD_PROMPT, SHARD_STEADY, SHARD_TRAIN_STEPS = 64, 16, 3
+EP_SHAPE = (4, 128)          # moe_ffn_ep's x: (B, T) tokens of d 2048
+EP_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_perf_features.py
+# 24b: a 1x1 mesh places every tensor as the plain trainer does, so its
+# step holds the same buffers; 5% covers DTensor's own small tensors and
+# the allocator's rounding
+SHARD_PEAK_MARGIN = 0.05
+
+
+def _placed(tree, structs_fn, mesh):
+    """``tree`` as DTensors placed by the rules on ``mesh``, from the
+    (structs, logical) pair ``structs_fn`` gives."""
+    from repro_torch.sharding import rules
+    structs, logical = structs_fn
+    return rules.place_tree(tree, rules.tree_shardings(structs, logical,
+                                                       mesh))
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _tree_equal(a, b):
+    la, lb = adamw.tree_leaves(a), adamw.tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(_local(x), _local(y)) for x, y in zip(la, lb))
+
+
+def _decode_pair(step, params, dparams, state, dstate, ctx, dctx, tok,
+                 mesh, kernel, want, label):
+    """SHARD_STEADY greedy steps of ``step`` plain, then on the DTensor
+    inputs; logits bitwise equal step by step, ``kernel`` launched
+    ``want`` times over the run, sharded and plain. Returns (launches of
+    the sharded run, {ms plain, ms sharded, collectives a step})."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.sharding import rules
+    tok_sh = rules.sharding_for((SLOTS,), ("batch",), mesh)
+
+    def run(p, st, c, sharded):
+        t, logits, ms, comm = tok.clone(), [], [], []
+        for _ in range(SHARD_STEADY):
+            inp = {"tokens": rules.place(t, tok_sh) if sharded else t}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if sharded:
+                with implicit_replication(), CommDebugMode() as cm:
+                    lg, st = step(p, inp, st, c)
+                comm.append(cm.get_total_counts())
+            else:
+                lg, st = step(p, inp, st, c)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            lg = _local(lg)
+            logits.append(lg.clone())
+            t = lg.argmax(-1).to(tok.dtype)
+        return logits, ms, comm
+
+    _reset_launches()
+    plain, ms_p, _ = run(params, state, ctx, False)
+    plain_launches = _launches()
+    _reset_launches()
+    shard, ms_s, comm = run(dparams, dstate, dctx, True)
+    launches = _launches()
+    same = all(torch.equal(a, b) for a, b in zip(plain, shard))
+    busy = {k: v for k, v in launches.items() if v}
+    if (not same or busy != {kernel: want}
+            or plain_launches[kernel] != want or any(comm)):
+        bad = [i for i, (a, b) in enumerate(zip(plain, shard))
+               if not torch.equal(a, b)]
+        raise AssertionError(f"phase 24a {label}: logits differ at steps "
+                             f"{bad}, launches {busy} (want {kernel} "
+                             f"{want}), collectives {comm}")
+    rec = dict(ms_plain=statistics.median(ms_p[1:]),
+               ms_sharded=statistics.median(ms_s[1:]),
+               collectives=max(comm))
+    log(f"phase 24a {label}: {SHARD_STEADY} steps, logits bitwise equal "
+        f"sharded / plain, {kernel} {want} launches on the sharded run; "
+        f"median step {rec['ms_sharded']:.2f} ms sharded against "
+        f"{rec['ms_plain']:.2f} ms plain (DTensor's host cost "
+        f"{rec['ms_sharded'] - rec['ms_plain']:.2f} ms a step); "
+        f"collectives a step (CommDebugMode) {max(comm)}")
+    return launches, rec
+
+
+def sharded_decode_path(mesh, smi):
+    """Phase 24a (see the module docstring). Returns ({path: launches},
+    records)."""
+    from repro_torch.sharding import rules
+    t0 = time.time()
+    cfg, params = init_full_model(ARCH, n_layers=SIDE_DEPTH)
+    want = SHARD_STEADY * cfg.n_global_layers
+    rng = np.random.default_rng(24)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SLOTS, SHARD_PROMPT))).cuda()
+    logits, state = steps.make_serve_prefill(cfg, SLOTS, MAX_SEQ)(
+        params, {"tokens": prompts})
+    tok = logits.argmax(-1).to(prompts.dtype)
+    mha = steps.make_serve_step(cfg, chai=False)
+    chai = steps.make_serve_step(cfg, chai=True)
+    dparams = _placed(params, tfm.param_structs(cfg), mesh)
+
+    def copy(st):
+        return {k: v.clone() for k, v in st.items()}
+    sstruct = tfm.decode_state_structs(cfg, SLOTS, MAX_SEQ)
+    out, recs = {}, {}
+    out["sharded_decode_mha"], recs["mha"] = _decode_pair(
+        mha, params, dparams, copy(state),
+        _placed(copy(state), sstruct, mesh), None, None, tok, mesh,
+        "flash_decode", want, "decode_mha")
+    # WARMUP and CLUSTER through the plain steps, then STEADY both ways.
+    st = chai_cache.add_score_buffer(copy(state), cfg, SLOTS)
+    for _ in range(cfg.chai.warmup_tokens):
+        logits, st = mha(params, {"tokens": tok}, st)
+        tok = logits.argmax(-1).to(prompts.dtype)
+    st, scores = chai_cache.pop_score_buffer(st)
+    ctx = clustering.identify_membership(scores, cfg)
+    st = chai_cache.compact_kv(st, ctx, cfg)
+    cstruct = chai_cache.chai_state_structs(cfg, SLOTS, MAX_SEQ)
+    dctx = _placed(ctx, clustering.ctx_structs(cfg, batch=SLOTS), mesh)
+    out["sharded_decode_chai"], recs["chai"] = _decode_pair(
+        chai, params, dparams, copy(st), _placed(copy(st), cstruct, mesh),
+        ctx, dctx, tok, mesh, "chai_fused_decode", want, "decode_chai")
+    placements = {str(v.placements) for v in dparams["attn"].values()}
+    log(f"phase 24a ({smi}): {cfg.name} {cfg.n_layers} layers at full "
+        f"width, {SLOTS} x {SHARD_PROMPT}-token prompts, max_seq "
+        f"{MAX_SEQ}; parameters placed {placements}; "
+        f"{time.time() - t0:.1f} s")
+    del params, dparams, state, st
+    _free()
+    return out, recs
+
+
+def sharded_train_path(mesh, pmesh, smi, root):
+    """Phase 24b and 24c (see the module docstring). Returns a record."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    import torch.distributed as dist
+    from repro_torch.optim import compression
+    from repro_torch.sharding import rules
+    t0 = time.time()
+    cfg = cut_config(get_config(ARCH), SIDE_DEPTH)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, lr_kw=TRAIN_LR,
+                         ckpt_dir=os.path.join(root, "ckpt24"))
+
+    def steps_of(tr, fn=None):
+        """(final state, step ms, memory peak above the bytes allocated
+        before its state was made)."""
+        _free()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st, ms = tr.init_state(), []
+        torch.cuda.synchronize()
+        for i in range(SHARD_TRAIN_STEPS):
+            batch = tr.pipe.global_batch_array(i, tr._batch_sharding(),
+                                               "cuda")
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            if fn is None:
+                st, m = tr._one_step(st, batch)
+            else:
+                with implicit_replication():
+                    p, o, m = fn(st["params"], st["opt"], batch)
+                st = {"params": p, "opt": o}
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - w0))
+        return st, ms, torch.cuda.max_memory_allocated() - start
+
+    plain = Trainer(cfg, data, tcfg, device="cuda")
+    ref, ms_p, peak_p = steps_of(plain)
+    sharded = Trainer(cfg, data, tcfg, mesh=mesh)
+    got, ms_s, peak_s = steps_of(sharded)
+    same_t = _tree_equal(ref["params"], got["params"]) and _tree_equal(
+        ref["opt"].m, got["opt"].m) and _tree_equal(ref["opt"].v,
+                                                    got["opt"].v)
+    del got
+    _free()
+    pshapes, plog = tfm.param_structs(cfg)
+    zero = steps.make_train_step(cfg, lr_kw=TRAIN_LR,
+                                 grad_shardings=rules.zero_shardings(
+                                     pshapes, plog, mesh))
+    got, ms_z, peak_z = steps_of(sharded, zero)
+    ref_bytes = sum(t.numel() * t.element_size() for t in (
+        adamw.tree_leaves(ref["params"]) + adamw.tree_leaves(ref["opt"].m)
+        + adamw.tree_leaves(ref["opt"].v)))
+    same_z = _tree_equal(ref["params"], got["params"]) and _tree_equal(
+        ref["opt"].m, got["opt"].m) and _tree_equal(ref["opt"].v,
+                                                    got["opt"].v)
+    del got, ref
+    _free()
+    if not (same_t and same_z):
+        raise AssertionError(f"phase 24b: Trainer(mesh) bitwise {same_t}, "
+                             f"ZeRO step bitwise {same_z}")
+    if max(peak_s, peak_z) > peak_p * (1 + SHARD_PEAK_MARGIN):
+        raise AssertionError(
+            f"phase 24b: memory peak above the run's start: mesh {peak_s:,} "
+            f"B, ZeRO {peak_z:,} B, more than {SHARD_PEAK_MARGIN:.0%} above "
+            f"the plain trainer's {peak_p:,} B")
+    rec = dict(ms_plain=ms_p, ms_trainer_mesh=ms_s, ms_zero=ms_z,
+               peak_plain=peak_p, peak_mesh=peak_s, peak_zero=peak_z)
+    log(f"phase 24b ({smi}): {cfg.name} {cfg.n_layers} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {SHARD_TRAIN_STEPS} steps: "
+        f"Trainer(mesh) and the ZeRO step bitwise equal to the plain "
+        f"trainer (params, both moments); step ms plain "
+        f"{[round(x, 2) for x in ms_p]}, Trainer(mesh) "
+        f"{[round(x, 2) for x in ms_s]}, ZeRO {[round(x, 2) for x in ms_z]}; "
+        f"memory peak above each run's start plain {peak_p:,} B, mesh "
+        f"{peak_s:,} B, ZeRO {peak_z:,} B (held within "
+        f"{SHARD_PEAK_MARGIN:.0%}; the plain run's final state, "
+        f"{ref_bytes:,} B, stays allocated beside the sharded runs)")
+    # 24c: the int8 cross-pod step on the (1, 1, 1) pod mesh against the
+    # same step with compressed_psum on the size-1 group, on 23b's
+    # RESUME_DEPTH layers (both steps' state, residuals and moments held
+    # at once).
+    cfg = cut_config(get_config(ARCH), RESUME_DEPTH)
+    pshapes, plog = tfm.param_structs(cfg)
+    params = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    pipe = SyntheticPipeline(data)
+    batch = pipe.global_batch_tensor(0, "cuda")
+    loss_fn = steps.make_loss_fn(cfg)
+    (loss, _), grads = steps.value_and_grad(loss_fn, params, batch)
+    res0 = compression.compress_residual_init(params)
+    g, r_ref = compression.compressed_psum(grads, res0, dist.group.WORLD)
+    del grads
+    p_ref, o_ref, _ = adamw.update(g, adamw.init(params), params,
+                                   lr=adamw.cosine_lr(0, **TRAIN_LR))
+    del g
+    cstep = train_step_mod.make_compressed_train_step(cfg, pmesh,
+                                                      lr_kw=TRAIN_LR)
+    dp = _placed(params, (pshapes, plog), pmesh)
+    bsh = rules.sharding_for(tuple(batch["tokens"].shape),
+                             ("batch", None), pmesh)
+    dbatch = {k: rules.place(v, bsh) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    with implicit_replication():
+        p3, o3, r3, m3 = cstep(dp, adamw.init(dp),
+                               compression.compress_residual_init(dp),
+                               dbatch)
+    torch.cuda.synchronize()
+    ms_c = 1e3 * (time.perf_counter() - w0)
+    same_c = (_tree_equal(p_ref, p3) and _tree_equal(o_ref.m, o3.m)
+              and _tree_equal(o_ref.v, o3.v) and _tree_equal(r_ref, r3)
+              and torch.equal(_local(m3["loss"]), loss))
+    if not same_c:
+        raise AssertionError("phase 24c: the cross-pod step differs from "
+                             "compressed_psum on the size-1 group")
+    rec["ms_compressed"] = ms_c
+    log(f"phase 24c ({smi}): {cfg.name} {cfg.n_layers} layers, the int8 "
+        f"cross-pod step on a (1, 1, 1) "
+        f"(pod, data, model) mesh bitwise equal to compressed_psum on the "
+        f"size-1 group (params, moments, residual, loss "
+        f"{float(loss):.6f}); {ms_c:.2f} ms; {time.time() - t0:.1f} s")
+    del params, dp, p3, o3, r3, p_ref, o_ref, r_ref, res0
+    _free()
+    return rec
+
+
+def moe_ep_check(mesh, smi):
+    """Phase 24d (see the module docstring). Returns a record."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import moe
+    from repro_torch.sharding.context import sharding_ctx
+    cfg = get_config(DEEPSEEK)
+    gen = torch.Generator("cuda").manual_seed(24)
+    p = {n: torch.randn(shape[1:], generator=gen, device="cuda") * scale
+         for n, (shape, _, scale) in tfm.param_table(cfg)["moe"].items()
+         if n != "ln"}
+    x = torch.randn((*EP_SHAPE, cfg.d_model), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_ref, a_ref = moe.moe_ffn(x, p, cfg, return_aux=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with sharding_ctx(mesh, batch_axes=("data",)) as ctx, \
+            implicit_replication():
+        y, aux = moe.moe_ffn_ep(x, p, cfg, ctx, return_aux=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    err = float((_local(y) - y_ref).abs().max())
+    aux_err = max(abs(float(_local(aux[k])) - float(a_ref[k]))
+                  for k in a_ref)
+    torch.testing.assert_close(_local(y), y_ref, **EP_TOL)
+    for k in a_ref:
+        torch.testing.assert_close(_local(aux[k]), a_ref[k], **EP_TOL)
+    rec = dict(max_abs_err=err, aux_err=aux_err,
+               ms_capacity=1e3 * (t1 - t0), ms_ep=1e3 * (t2 - t1))
+    log(f"phase 24d ({smi}): moe_ffn_ep on {DEEPSEEK}'s MoE layer at full "
+        f"width ({cfg.n_experts} experts, d {cfg.d_model}, fp32, x "
+        f"{(*EP_SHAPE, cfg.d_model)}), all_to_all over the size-1 NCCL "
+        f"group: max abs err {err:.3e} against moe_ffn (held at "
+        f"{EP_TOL}), aux {aux_err:.3e}; {rec['ms_ep']:.2f} ms (first call) "
+        f"against the capacity form's {rec['ms_capacity']:.2f} ms")
+    del p, x, y, y_ref
+    _free()
+    return rec
+
+
+def sharding_paths():
+    """Phase 24: the sharding tooling (ROADMAP #16) on 1x1 and (1, 1, 1)
+    CUDA meshes over a world-1 NCCL group (see the module docstring).
+    Returns ({path: launches}, record)."""
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.time()
+    smi = smi_line()
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"))
+    pmesh = mesh_mod.make_mesh((1, 1, 1), ("pod", "data", "model"))
+    log(f"phase 24 ({smi}): torch {torch.__version__}, NCCL "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}, meshes {mesh} "
+        f"and {pmesh} over a world-1 NCCL group")
+    os.makedirs("build", exist_ok=True)
+    root = tempfile.mkdtemp(prefix="phase24.", dir="build")
+    try:
+        launches, dec = sharded_decode_path(mesh, smi)
+        train = sharded_train_path(mesh, pmesh, smi, root)
+        ep = moe_ep_check(mesh, smi)
+    finally:
+        mesh_mod.destroy()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 24: {time.time() - t0:.1f} s; device memory allocated at "
+        f"its end {torch.cuda.memory_allocated():,} B")
+    return launches, dict(decode=dec, train=train, ep=ep)
+
+
+# After chai-llama-7b's ``del``: allocated bytes at most this far above
+# those before its weights were made (the kernels' and NCCL's small
+# buffers; its weights alone are 13.48 GB).
+RELEASE_MARGIN = 1 << 30
+
+
+def _check_release(leaf, base, label):
+    """Gate after a model's ``del``: ``leaf`` (a weak reference to one of
+    its weights) dead, and the device memory allocated within
+    RELEASE_MARGIN of ``base``, the bytes allocated before the model was
+    made. On a failure, ``gc.get_referrers`` walked up from the live leaf
+    names what holds it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc = torch.cuda.memory_allocated()
+    log(f"{label}: device memory allocated {alloc:,} B, {base:,} B before "
+        f"the weights were made; weights freed: {leaf() is None}")
+    if leaf() is not None or alloc > base + RELEASE_MARGIN:
+        raise AssertionError(
+            f"{label}: weights still held (weak reference alive: "
+            f"{leaf() is not None}; allocated {alloc:,} B against {base:,} "
+            f"B + {RELEASE_MARGIN:,}); walk gc.get_referrers up from one "
+            "of them to find the holder")
+
+
 def main():
     environment()
     build_kernels()
@@ -9263,6 +9677,7 @@ def main():
     mode_cases = prefill_mode_checks()
     g_layer = gemma2_suffix_prefill_check()
     wide_cases, narrow_cases = wide_head_checks()
+    sass_counts_done()
     for arch in (ARCH, NEMO):
         reduced_reference_check(arch)
         reduced_continuous_check(arch)
@@ -9275,6 +9690,9 @@ def main():
     # holds nothing else: from phase 20 on, 13.5 GB of chai-llama-7b's
     # weights stay allocated to the end of the script.
     train_launches, _ = training_paths()
+    # Phase 24: the sharding tooling, on an empty card.
+    shard_launches, _ = sharding_paths()
+    base = torch.cuda.memory_allocated()
     cfg, params = init_full_model()
     cohort_launches, dense_main, cohort_cap, cohort_mha = main_path(cfg,
                                                                     params)
@@ -9318,9 +9736,9 @@ def main():
     async_launches, _ = async_path(cfg, params)
     # The engines of phases 5-8 sit in reference cycles (their wrapped
     # hooks); collect them so chai-llama-7b's weights are really freed.
+    held = weakref.ref(params["embed"]["tok"])
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    _check_release(held, base, "after phase 20, chai-llama-7b's del")
     ncfg, nparams = init_full_model(NEMO)
     (nemo_launches, nemo_cases, nemo_dc, nemo_pc,
      _) = nemotron_path(ncfg, nparams)
@@ -9422,7 +9840,7 @@ def main():
                **nemo_front_launches, **fault_launches, **tel_launches,
                **tier_launches, **preempt_launches, **async_launches,
                **g3_launches, **moe_launches, **rec_launches,
-               **train_launches,
+               **train_launches, **shard_launches,
                "pipeline_lane": lane_launches,
                "pipeline_lane_share_int8": lane8_launches}
     mains = {"chai_fused_decode": (

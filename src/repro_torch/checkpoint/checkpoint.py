@@ -15,9 +15,15 @@ restores in the other.
     the target's dtype and placed on ``device``.
 
 bf16 leaves cross as their uint16 bits under the manifest dtype
-"bfloat16" (numpy has no bfloat16 without ``ml_dtypes``). Restoring
-onto a sharded mesh (the reference's ``shardings``) waits for ROADMAP
-#16.
+"bfloat16" (numpy has no bfloat16 without ``ml_dtypes``).
+
+On a mesh: a DTensor leaf is saved whole (``full_tensor``, a gather
+every rank joins), and in a world of several processes only rank 0
+writes, the others waiting at a barrier. ``restore(shardings=...)`` (a
+tree of ``sharding.rules.Sharding`` matching the target) places each
+leaf as the DTensor its sharding names, each rank keeping its block of
+the same file: the on-disk format does not change with the mesh, so a
+checkpoint restores onto any mesh (elastic scaling).
 """
 from __future__ import annotations
 
@@ -68,6 +74,13 @@ def _fname(leaf_path: str) -> str:
     return leaf_path.replace("/", "__") + ".bin"
 
 
+def _whole(leaf):
+    """A DTensor leaf gathered whole on its device (a collective every
+    rank of its mesh joins); any other leaf as it is."""
+    from repro_torch.sharding.local import is_dtensor
+    return leaf.full_tensor() if is_dtensor(leaf) else leaf
+
+
 def _to_numpy(leaf):
     """(host array of the leaf's bytes, manifest dtype string)."""
     t = torch.as_tensor(leaf).detach()
@@ -83,6 +96,43 @@ def _read_leaf(path, dtype: str, shape):
     a = np.fromfile(path, dtype=np.uint16 if bf16 else dtype).reshape(shape)
     t = torch.from_numpy(a)
     return t.view(torch.bfloat16) if bf16 else t
+
+
+def _sharding_leaves(tree, shardings):
+    """The ``Sharding`` leaves of ``shardings``, in ``tree``'s leaf order
+    (a ``Sharding`` is a NamedTuple: a leaf here, not a subtree)."""
+    from repro_torch.sharding.rules import Sharding
+    if tree is None:
+        return []
+    if isinstance(shardings, Sharding):
+        return [shardings] * len(_leaf_paths(tree))
+    if isinstance(tree, dict):
+        if set(tree) != set(shardings):
+            raise KeyError(f"shardings keys {sorted(shardings)} != target "
+                           f"keys {sorted(tree)}")
+        return [s for k in sorted(tree)
+                for s in _sharding_leaves(tree[k], shardings[k])]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [s for f in tree._fields
+                for s in _sharding_leaves(getattr(tree, f),
+                                          getattr(shardings, f))]
+    if isinstance(tree, (list, tuple)):
+        return [s for x, y in zip(tree, shardings)
+                for s in _sharding_leaves(x, y)]
+    raise ValueError(f"no Sharding for leaf of shape "
+                     f"{tuple(getattr(tree, 'shape', ()))}")
+
+
+def _writer() -> bool:
+    """This process writes checkpoints: rank 0, or the only process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier():
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 class CheckpointManager:
@@ -110,13 +160,22 @@ class CheckpointManager:
         """Atomic save of ``tree`` at ``step``. ``extra``: JSON metadata
         (data-pipeline index, ...)."""
         final = os.path.join(self.directory, str(step))
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        tmp = tempfile.mkdtemp(prefix=f"{step}.tmp.", dir=self.directory)
+        writer = _writer()
+        tmp = None
+        if writer:
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            tmp = tempfile.mkdtemp(prefix=f"{step}.tmp.", dir=self.directory)
         try:
             manifest = {"step": step, "extra": extra or {}, "leaves": {}}
+            # one leaf at a time: every rank joins a DTensor leaf's gather
+            # (collective), only the writer copies it to the host
             for path, leaf in _leaf_paths(tree):
+                leaf = _whole(leaf)
+                if not writer:
+                    continue
                 arr, dtype = _to_numpy(leaf)
+                del leaf
                 fn = _fname(path)
                 with open(os.path.join(tmp, fn), "wb") as f:
                     f.write(memoryview(np.ascontiguousarray(arr)).cast("B"))
@@ -124,16 +183,20 @@ class CheckpointManager:
                     os.fsync(f.fileno())
                 manifest["leaves"][path] = {
                     "file": fn, "shape": list(arr.shape), "dtype": dtype}
-            mpath = os.path.join(tmp, "manifest.json")
-            with open(mpath, "w") as f:
-                json.dump(manifest, f, indent=1)
-                f.flush()
-                os.fsync(f.fileno())
-            os.rename(tmp, final)          # atomic publish
+            if writer:
+                mpath = os.path.join(tmp, "manifest.json")
+                with open(mpath, "w") as f:
+                    json.dump(manifest, f, indent=1)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.rename(tmp, final)          # atomic publish
         except BaseException:
-            shutil.rmtree(tmp, ignore_errors=True)
+            if tmp is not None:
+                shutil.rmtree(tmp, ignore_errors=True)
             raise
-        self._gc()
+        if writer:
+            self._gc()
+        _barrier()
         return final
 
     def _gc(self):
@@ -152,16 +215,19 @@ class CheckpointManager:
                 shardings: Any = None, strict: bool = True):
         """Restore into the structure of ``target_tree`` (shapes checked,
         each leaf cast to the target leaf's dtype) on ``device`` (None:
-        CUDA). Returns (tree, extra)."""
-        if shardings is not None:
-            raise ValueError("restoring onto shardings needs a device mesh: "
-                             "the sharding tooling waits for ROADMAP #16")
+        CUDA). ``shardings``: a tree of ``sharding.rules.Sharding`` of
+        the target's structure; each leaf is placed as the DTensor its
+        sharding names (on its mesh's device type). Returns (tree,
+        extra)."""
         dev = resolve_device(device)
         d = os.path.join(self.directory, str(step))
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
+        leaves = _leaf_paths(target_tree)
+        sh = ([None] * len(leaves) if shardings is None
+              else _sharding_leaves(target_tree, shardings))
         out = []
-        for path, ref in _leaf_paths(target_tree):
+        for (path, ref), lsh in zip(leaves, sh):
             meta = manifest["leaves"].get(path)
             if meta is None:
                 if strict:
@@ -176,7 +242,12 @@ class CheckpointManager:
                     f"leaf {path}: checkpoint shape {tuple(t.shape)} != "
                     f"{want}")
             dt = ref.dtype if torch.is_tensor(ref) else t.dtype
-            out.append(t.to(device=dev, dtype=dt))
+            if lsh is None:
+                out.append(t.to(device=dev, dtype=dt))
+            else:
+                from repro_torch.sharding.rules import place
+                out.append(place(t.to(device=lsh.mesh.device_type,
+                                      dtype=dt), lsh))
         return _rebuild(target_tree, iter(out)), manifest["extra"]
 
     def restore_latest(self, target_tree, **kw):

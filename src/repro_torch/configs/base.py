@@ -207,6 +207,24 @@ class ModelConfig:
         return full - self.n_experts * per + self.top_k * per
 
 
+# ----------------------------------------------------------------------
+# Shapes assigned to the LM-transformer pool (the dry-run's cells).
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 def reduced(cfg: ModelConfig, *, n_layers=None, d_model=64, n_heads=None,
             d_ff=128, vocab=256, window=16, n_experts=8, top_k=2,
             moe_d_ff=32, rnn_width=64, dtype="float32") -> ModelConfig:

@@ -157,6 +157,34 @@ def _chai_on(cfg: ModelConfig, chai: bool) -> bool:
 # Cohort layout
 # ---------------------------------------------------------------------------
 
+def chai_state_structs(cfg: ModelConfig, batch: int, max_seq: int):
+    """(tree of ``Struct``, tree of ``Ax``) of ``init_chai_state``'s
+    state (the plain decode state on a GQA arch or with CHAI off), with
+    the reference's logical names: the clustered rows on ``clusters``."""
+    from repro_torch.models.transformer import decode_state_structs
+    from repro_torch.sharding.rules import Ax, Struct
+    shapes, logical = decode_state_structs(cfg, batch, max_seq)
+    if not (cfg.is_mha and cfg.chai.enabled):
+        return shapes, logical
+    k_max, _ = chai_widths(cfg)
+    dt = shapes["kg"].dtype
+    ng, b, _, s, hd = shapes["kg"].shape
+    rows = Ax("layers", "batch", "clusters", "seq", "head_dim")
+    shapes, logical = dict(shapes), dict(logical)
+    del shapes["kg"], logical["kg"]
+    shapes["kg_chai"] = Struct((ng, b, k_max, s, hd), dt)
+    logical["kg_chai"] = rows
+    if "kg_scale" in shapes:
+        del shapes["kg_scale"], logical["kg_scale"]
+        shapes["kg_chai_scale"] = Struct((ng, b, k_max, s), torch.float32)
+        logical["kg_chai_scale"] = Ax("layers", "batch", "clusters", "seq")
+    if cfg.chai.share_values:
+        del shapes["vg"], logical["vg"]
+        shapes["vg_chai"] = Struct((ng, b, k_max, s, hd), dt)
+        logical["vg_chai"] = rows
+    return shapes, logical
+
+
 def init_chai_state(cfg: ModelConfig, batch: int, max_seq: int, device):
     """Zero decode state in the clustered layout (MHA + CHAI archs):
     ``kg_chai`` (nG, B, k_max, S, hd) in place of ``kg`` (and, int8,

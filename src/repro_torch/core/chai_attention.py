@@ -84,6 +84,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.attention import qk_norm
 from repro_torch.models.layers import apply_rope, softcap
+from repro_torch.sharding.local import batch_local
 from repro_torch.models.transformer import (_dense_global_write,
                                             _dense_write_rows,
                                             _local_write,
@@ -105,10 +106,13 @@ def _gather_heads(x, idx):
 
 
 def _fused(*args, plain, ts, **kw):
-    """The dense fused decode op, or with ``plain`` its plain version."""
+    """The dense fused decode op, or with ``plain`` its plain version; on
+    DTensors through ``sharding.local.batch_local`` (the batch split as
+    the cache's, every other axis replicated)."""
     if plain:
-        return ref.chai_fused_decode_ref(*args, **kw)
-    return kops.chai_decode_attention(*args, ts=ts, **kw)
+        return batch_local(ref.chai_fused_decode_ref, args[1], *args, **kw)
+    return batch_local(kops.chai_decode_attention, args[1], *args, ts=ts,
+                       **kw)
 
 
 def _paged_fused(*args, plain, **kw):

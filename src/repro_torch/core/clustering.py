@@ -103,6 +103,28 @@ def shared_ctx(cfg: ModelConfig, device=None):
             "reps": ar(r_max).repeat(na, cfg.n_kv_heads, 1)}
 
 
+def ctx_structs(cfg: ModelConfig, batch: int = 0):
+    """(tree of ``Struct``, tree of ``Ax``) of a chai ctx: the shared
+    ctx (``shared_ctx``) with ``batch`` 0, else the batched one
+    (``init_batched_ctx``), with the reference's logical names."""
+    from repro_torch.sharding.rules import Ax, Struct
+    k_max, r_max = chai_widths(cfg)
+    na = cfg.n_attn_layers
+    bdims = (batch,) if batch else ()
+    bax = ("batch",) if batch else ()
+    i32 = torch.int32
+    if cfg.is_mha:
+        return ({"h2c": Struct((na, *bdims, cfg.n_heads), i32),
+                 "reps": Struct((na, *bdims, k_max), i32)},
+                {"h2c": Ax("layers", *bax, None),
+                 "reps": Ax("layers", *bax, "clusters")})
+    qpk = cfg.q_per_kv
+    return ({"cluster_of": Struct((na, *bdims, cfg.n_kv_heads, qpk), i32),
+             "reps": Struct((na, *bdims, cfg.n_kv_heads, r_max), i32)},
+            {"cluster_of": Ax("layers", *bax, "kv_heads", None),
+             "reps": Ax("layers", *bax, "kv_heads", None)})
+
+
 def init_batched_ctx(cfg: ModelConfig, batch: int, device):
     """All-zero per-request membership buffers (MHA: h2c (nA, B, H), reps
     (nA, B, k_max); GQA: cluster_of (nA, B, KV, qpk), reps (nA, B, KV,

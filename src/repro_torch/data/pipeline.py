@@ -9,8 +9,10 @@ Zipfian n-gram Markov streams:
     i)``, so a restarted trainer resumes mid-stream from the step counter
     alone (no iterator state in checkpoints).
   * **Shard-aware**: ``batch(i, host_id, n_hosts)`` makes one host's
-    slice of the global batch. Feeding a multi-process job from its
-    slices waits for the sharding tooling (ROADMAP #16);
+    slice of the global batch. ``global_batch_array`` places batch ``i``
+    on a mesh: in a world of one process the whole batch, split as the
+    sharding says; in a world of several, each rank makes only its own
+    slice and the slices become one DTensor split on the batch.
     ``global_batch_tensor`` makes the whole batch on one device.
   * **Learnable**: per-stream transition tables with Zipfian fan-out
     give a small model a loss floor far below uniform.
@@ -90,6 +92,44 @@ class SyntheticPipeline:
         dev = resolve_device(device)
         return {k: torch.from_numpy(v.astype(np.int64)).to(dev)
                 for k, v in self.batch(index).items()}
+
+    def global_batch_array(self, index: int, sharding=None, device=None):
+        """Global batch ``index`` as int64 tensors: with ``sharding`` (a
+        {"tokens", "labels"} dict of ``sharding.rules.Sharding``) as
+        DTensors, else as ``global_batch_tensor`` on ``device``.
+
+        In a world of several processes each rank makes only its block:
+        ``batch(index, host_id=b, n_hosts=n)``, where n is the number of
+        blocks the sharding splits the batch into and b this rank's block
+        (its coordinates on the batch's mesh dims, the first the major
+        one). On a mesh of data-parallel ranks only (a model axis of 1),
+        b is the rank and n the world; ranks that hold the same block
+        (model-axis replicas) make the same rows. The reference feeds a
+        process's slice the same way
+        (``make_array_from_process_local_data``)."""
+        import torch.distributed as dist
+        if sharding is None:
+            return self.global_batch_tensor(index, device)
+        sh = sharding["tokens"]
+        mesh = sh.mesh
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            from torch.distributed.tensor import DTensor
+            coord = mesh.get_coordinate()
+            host, n = 0, 1
+            for j, p in enumerate(sh.placements):
+                if p.is_shard(0):
+                    host = host * mesh.size(j) + coord[j]
+                    n *= mesh.size(j)
+            local = self.batch(index, host_id=host, n_hosts=n)
+            dev = mesh.device_type
+            return {k: DTensor.from_local(
+                torch.from_numpy(v.astype(np.int64)).to(dev), mesh,
+                sharding[k].placements, run_check=False)
+                for k, v in local.items()}
+        from repro_torch.sharding.rules import place
+        return {k: place(torch.from_numpy(v.astype(np.int64)).to(
+            mesh.device_type), sharding[k])
+            for k, v in self.batch(index).items()}
 
     def __iter__(self) -> Iterator[dict]:
         i = 0

@@ -20,7 +20,13 @@ analytic side of that comparison, ``relay_prefix_hbm_bytes_estimate``
 the relay pass's bytes. A tensor on the CPU takes the plain
 version (``kernels.ref``); any other device goes to the CUDA kernel,
 which launches or raises. There is no fallback from a kernel to its
-plain version.
+plain version. Under a cost-counting trace (``launch/roofline``'s
+``cost_mode``, the dry-run's), the decode kernels it reaches
+(``flash_decode_attention``, ``chai_decode_attention``) answer ``meta``
+tensors as a custom op's fake implementation does: empty outputs of the
+kernel's shapes, counted as one opaque call (``_opaque_call``).
+Outside such a trace a ``meta`` tensor goes to the kernel, which
+refuses its device.
 """
 from __future__ import annotations
 
@@ -31,6 +37,31 @@ from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ref
 
 
+def _cost_counter(t):
+    """The active cost-counting dispatch mode (one with an
+    ``opaque_call`` method: ``launch/roofline.cost_mode``'s) when ``t``
+    is a ``meta`` tensor traced under one; else None."""
+    if t.device.type != "meta":
+        return None
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    return next((m for m in _get_current_dispatch_mode_stack()
+                 if hasattr(m, "opaque_call")), None)
+
+
+def _opaque_call(counter, name, plain, flops, *args, **kwargs):
+    """A kernel's call on ``meta`` tensors under ``counter`` (a shape
+    trace: no data, no launch): its outputs as empty ``meta`` tensors,
+    shaped by its plain version run with every dispatch mode off, and
+    counted as XLA counts a custom call: each operand read once, each
+    output written once, ``flops`` (from the shapes: the cache's whole
+    length, since a shape trace reads no positions)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        out = plain(*args, **kwargs)
+    counter.opaque_call(name, (args, kwargs), out, flops)
+    return out
+
+
 def flash_decode_attention(q, k_cache, v_cache, pos, *, window=0, ts=0):
     """Decode attention of one query token per head over a dense cache.
     q: (B, H, hd); k_cache/v_cache: (B, KV, S, hd), head h reading KV row
@@ -39,6 +70,14 @@ def flash_decode_attention(q, k_cache, v_cache, pos, *, window=0, ts=0):
     alike). Returns (B, H, hd) fp32."""
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k_cache, v_cache, pos, window=window)
+    counter = _cost_counter(q)
+    if counter is not None:
+        b, h, hd = q.shape
+        s = k_cache.shape[2]
+        s = min(s, window) if window else s
+        return _opaque_call(counter, "flash_decode", ref.flash_decode_ref,
+                            4.0 * b * h * s * hd, q, k_cache, v_cache, pos,
+                            window=window)
     return fk.flash_decode(q, k_cache, v_cache, pos, window=window, ts=ts)
 
 
@@ -70,6 +109,17 @@ def chai_decode_attention(q_rep, k_cache, v_cache, h2c, pos, *,
             v_scale=v_scale, reps_per_group=reps_per_group,
             share_values=share_values, window=window, softcap=softcap,
             emit_state=emit_state)
+    counter = _cost_counter(q_rep)
+    if counter is not None:
+        b, r, hd = q_rep.shape
+        flops = decode_flop_estimate(b, h2c.shape[-1], r, k_cache.shape[2],
+                                     hd, share_values=share_values,
+                                     window=window)
+        return _opaque_call(
+            counter, "chai_fused_decode", ref.chai_fused_decode_ref, flops, q_rep,
+            k_cache, v_cache, h2c, pos, k_scale=k_scale, v_scale=v_scale,
+            reps_per_group=reps_per_group, share_values=share_values,
+            window=window, softcap=softcap, emit_state=emit_state)
     return ck.chai_fused_decode(
         q_rep, k_cache, v_cache, h2c, pos, k_scale=k_scale, v_scale=v_scale,
         reps_per_group=reps_per_group, share_values=share_values,

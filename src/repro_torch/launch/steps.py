@@ -31,15 +31,26 @@ from repro_torch.core import cache as chai_cache
 from repro_torch.core import clustering
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
+from repro_torch.sharding.local import is_dtensor
 
 LB_COEF = 0.01
 Z_COEF = 1e-3
 
 
 def cross_entropy(logits, labels):
-    """logits (B, T, V) fp32; labels (B, T) int -> mean loss."""
+    """logits (B, T, V) fp32; labels (B, T) int -> mean loss. On a
+    DTensor the gold logit is picked by a mask against the vocab ids
+    (where the vocab is split, each rank its own columns, then a sum over
+    ranks): DTensor's ``gather`` over a split dim leaves a masked partial
+    value its redistribution cannot reduce on 3-D logits, and gathering
+    the whole vocab first would move every logit."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        ids = torch.arange(logits.shape[-1], device=labels.device)
+        hit = labels[..., None].long() == ids
+        gold = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.mean(logz - gold)
 
 
@@ -79,11 +90,15 @@ def make_train_step(cfg: ModelConfig, *, remat=True, moe_impl="capacity",
     metrics): the loss and its gradients, cast to ``grad_dtype`` (e.g.
     "bfloat16") when given, then one AdamW step at ``cosine_lr(step,
     **lr_kw)`` (the update's default schedule without ``lr_kw``).
-    ``grad_shardings`` pins the gradients to a ZeRO layout in the
-    reference; it needs a device mesh (ROADMAP #16)."""
-    if grad_shardings is not None:
-        raise ValueError("grad_shardings needs a device mesh: the sharding "
-                         "tooling waits for ROADMAP #16")
+
+    On DTensor parameters (a mesh) the step is the sharded one: the
+    gradients take their parameters' placements from autograd, and
+    ``grad_shardings`` (a tree of ``sharding.rules.Sharding``, e.g.
+    ``zero_shardings``) redistributes them before the update, the
+    reference's ZeRO constraint: the gradient sum over the data axes
+    becomes a reduce-scatter onto the moments' shards. The new
+    parameters and moments are redistributed back to the placements
+    they came in with (the reference's jit out_shardings)."""
     loss_fn = make_loss_fn(cfg, remat=remat, moe_impl=moe_impl)
     lr_kw = lr_kw or {}
 
@@ -92,23 +107,58 @@ def make_train_step(cfg: ModelConfig, *, remat=True, moe_impl="capacity",
         if grad_dtype is not None:
             dt = getattr(torch, str(grad_dtype))
             grads = adamw.tree_map(lambda g: g.to(dt), grads)
+        if grad_shardings is not None:
+            grads = adamw.tree_map(_redistribute, grads, grad_shardings)
         lr = adamw.cosine_lr(opt_state.step, **lr_kw) if lr_kw else None
-        params, opt_state, om = adamw.update(grads, opt_state, params, lr=lr)
-        return params, opt_state, {"loss": loss, **metrics, **om}
+        new_p, new_s, om = adamw.update(grads, opt_state, params, lr=lr)
+        new_p = adamw.tree_map(_like, new_p, params)
+        new_s = adamw.AdamWState(step=new_s.step,
+                                 m=adamw.tree_map(_like, new_s.m,
+                                                  opt_state.m),
+                                 v=adamw.tree_map(_like, new_s.v,
+                                                  opt_state.v))
+        return new_p, new_s, {"loss": loss, **metrics, **om}
 
     return train_step
 
 
+def _redistribute(t, sharding):
+    """A DTensor moved to a ``sharding.rules.Sharding``'s placements; a
+    plain tensor as it is (no mesh)."""
+    from repro_torch.sharding.local import is_dtensor
+    if not is_dtensor(t):
+        return t
+    return t.redistribute(sharding.mesh, sharding.placements)
+
+
+def _like(new, old):
+    """``new`` with ``old``'s placements (DTensors), else as it is."""
+    from repro_torch.sharding.local import is_dtensor
+    if is_dtensor(new) and is_dtensor(old) and (
+            new.placements != old.placements):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
 def make_serve_prefill(cfg: ModelConfig, batch: int, max_seq: int, *,
-                       moe_impl="capacity"):
+                       moe_impl="capacity", state_shardings=None):
     """Whole-cohort prefill into a fresh dense decode state.
     ``batch_inputs["true_lens"]`` ((B,) int), when given, marks each row's
     real prompt length in a right-padded bucket (last-real logits,
     per-example ``pos``). ``batch_inputs["embeddings"]`` ((B, T, d)
-    float) stands for the tokens on a frontend arch."""
+    float) stands for the tokens on a frontend arch.
+    ``state_shardings`` (a mesh): the fresh state is made as DTensors
+    placed by them (the tree of ``decode_state_structs``' shardings)."""
     def serve_prefill(params, batch_inputs):
         tokens = batch_inputs.get("tokens", batch_inputs.get("embeddings"))
-        state = tfm.init_decode_state(cfg, batch, max_seq, tokens.device)
+        if state_shardings is None:
+            state = tfm.init_decode_state(cfg, batch, max_seq,
+                                          tokens.device)
+        else:
+            from repro_torch.sharding.rules import zeros_tree
+            structs, _ = tfm.decode_state_structs(cfg, batch, max_seq)
+            state = zeros_tree(structs, state_shardings,
+                               device=tokens.device)
         logits, state = tfm.forward_fullseq(
             params, cfg, tokens, state=state, logits_slice="last",
             valid_len=batch_inputs.get("true_lens"), moe_impl=moe_impl)

@@ -35,12 +35,10 @@ def attention_fullseq(q, k, v, q_positions, kv_positions, *,
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
 
-    qpk = h // n_kv
-    m = torch.full((b, tq, n_kv, qpk), NEG_INF, dtype=torch.float32,
-                   device=q.device)
+    # the carries shaped (and, on DTensors, placed) like the queries
+    m = torch.full_like(qs[..., 0], NEG_INF)
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, tq, n_kv, qpk, hd), dtype=torch.float32,
-                      device=q.device)
+    acc = torch.zeros_like(qs)
     for c0 in range(0, s, chunk):
         k_i = k[:, c0:c0 + chunk].float()
         v_i = v[:, c0:c0 + chunk].float()

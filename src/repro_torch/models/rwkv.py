@@ -6,9 +6,12 @@ the (B, H, dk, dv) state, with products inside each chunk. Intra-chunk
 relative decays use the factored form R~ = r * exp(logW_{i-1}),
 K~ = k * exp(-logW_j); the per-step log-decay is clamped to
 >= -LOG_CLAMP so the factored exponentials stay in fp32 range over a
-chunk. Decode is the plain one-step recurrence. (The reference's
-sharding pin and its XLA barrier change no value and have no
-counterpart here.)
+chunk. Decode is the plain one-step recurrence. (The reference's XLA
+barrier changes no value and has no counterpart here.)
+``_pin_replicated_d`` is the reference's pin of a (B, T, d) activation
+to batch-sharded, d replicated; as there, no call site uses it (a pin at
+the lerp was measured worse there: it adds a resharding instead of
+changing the producer's layout).
 """
 from __future__ import annotations
 
@@ -31,6 +34,14 @@ def _decays(xw, p, cfg):
     lora = torch.tanh(xw @ p["w_decay_a"]) @ p["w_decay_b"]
     logw = -torch.exp(torch.clamp(p["decay_base"] + lora, -8.0, 1.0))
     return torch.clamp(logw.float(), min=-LOG_CLAMP)
+
+
+def _pin_replicated_d(t):
+    """Keep a (B, T, d) DTensor replicated on d, the batch split (the
+    layer carry's pin, ``sharding.context.pin_activations``). The
+    identity without an active sharding context."""
+    from repro_torch.sharding.context import pin_activations
+    return pin_activations(t)
 
 
 def _project(x, xs, p, cfg):

@@ -52,6 +52,10 @@ from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import frontends, mlp, moe, rglru, rwkv
 from repro_torch.models.layers import embed_lookup, rms_norm, softcap, unembed
+from repro_torch.sharding.context import current_ctx, pin_activations
+from repro_torch.sharding.local import (batch_local, heads_local, is_dtensor,
+                                       on_shards)
+from repro_torch.sharding.rules import Ax, Struct
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -78,15 +82,16 @@ def check_supported(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def param_table(cfg: ModelConfig):
-    """{group: {name: (shape, init_scale)}} — the reference's table:
-    ``attn`` over the attention layers (with ``q_norm`` / ``k_norm``
-    (nA, hd) under qk_norm), ``ffn`` over the dense-FFN layers that are
-    not RWKV (an RWKV layer's FFN is its channel mix), ``moe`` over the
-    MoE layers (router, experts, shared experts), ``rglru`` over the
-    RG-LRU layers, ``rwkv`` over the RWKV layers (time mix, its norms and
-    the channel mix ``cmu`` / ``c_k`` / ``c_v`` / ``c_r``),
-    ``frontend.adapter`` (d, d) on a frontend arch, and the embed /
-    unembed / final_norm groups. A group with no layer is absent."""
+    """{group: {name: (shape, Ax(logical...), init_scale)}} — the
+    reference's table: ``attn`` over the attention layers (with
+    ``q_norm`` / ``k_norm`` (nA, hd) under qk_norm), ``ffn`` over the
+    dense-FFN layers that are not RWKV (an RWKV layer's FFN is its channel
+    mix), ``moe`` over the MoE layers (router, experts, shared experts),
+    ``rglru`` over the RG-LRU layers, ``rwkv`` over the RWKV layers (time
+    mix, its norms and the channel mix ``cmu`` / ``c_k`` / ``c_v`` /
+    ``c_r``), ``frontend.adapter`` (d, d) on a frontend arch, and the
+    embed / unembed / final_norm groups. A group with no layer is absent.
+    The logical names (``sharding.rules``) place each leaf on a mesh."""
     check_supported(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
@@ -95,80 +100,109 @@ def param_table(cfg: ModelConfig):
     n_d = sum(1 for lt, ft in zip(cfg.layer_types, cfg.ffn_types)
               if ft == FFN_DENSE and lt != RWKV)
     t: Dict[str, Dict[str, tuple]] = {}
-    t["embed"] = {"tok": ((cfg.vocab_size, d), 0.02)}
+    t["embed"] = {"tok": ((cfg.vocab_size, d), Ax("vocab", "embed"), 0.02)}
     if cfg.frontend != "none":
-        t["frontend"] = {"adapter": ((d, d), d ** -0.5)}
+        t["frontend"] = {"adapter": ((d, d), Ax("embed", "embed_tp"),
+                                     d ** -0.5)}
     if not cfg.tie_embeddings:
-        t["unembed"] = {"w": ((d, cfg.vocab_size), d ** -0.5)}
-    t["final_norm"] = {"scale": ((d,), 0.0)}
+        t["unembed"] = {"w": ((d, cfg.vocab_size), Ax("embed", "vocab"),
+                              d ** -0.5)}
+    t["final_norm"] = {"scale": ((d,), Ax("embed"), 0.0)}
     if n_a:
         t["attn"] = {
-            "ln": ((n_a, d), 0.0),
-            "wq": ((n_a, d, h, hd), d ** -0.5),
-            "wk": ((n_a, d, kv, hd), d ** -0.5),
-            "wv": ((n_a, d, kv, hd), d ** -0.5),
-            "wo": ((n_a, h, hd, d), (h * hd) ** -0.5),
+            "ln": ((n_a, d), Ax("layers", "embed"), 0.0),
+            "wq": ((n_a, d, h, hd),
+                   Ax("layers", "embed", "heads", "head_dim"), d ** -0.5),
+            "wk": ((n_a, d, kv, hd),
+                   Ax("layers", "embed", "kv_heads", "head_dim"), d ** -0.5),
+            "wv": ((n_a, d, kv, hd),
+                   Ax("layers", "embed", "kv_heads", "head_dim"), d ** -0.5),
+            "wo": ((n_a, h, hd, d),
+                   Ax("layers", "heads", "head_dim", "embed"),
+                   (h * hd) ** -0.5),
         }
         if cfg.qk_norm:
-            t["attn"]["q_norm"] = ((n_a, hd), 0.0)
-            t["attn"]["k_norm"] = ((n_a, hd), 0.0)
+            t["attn"]["q_norm"] = ((n_a, hd), Ax("layers", "head_dim"), 0.0)
+            t["attn"]["k_norm"] = ((n_a, hd), Ax("layers", "head_dim"), 0.0)
     if n_d:
         g = {
-            "ln": ((n_d, d), 0.0),
-            "w_up": ((n_d, d, cfg.d_ff), d ** -0.5),
-            "w_down": ((n_d, cfg.d_ff, d), cfg.d_ff ** -0.5),
+            "ln": ((n_d, d), Ax("layers", "embed"), 0.0),
+            "w_up": ((n_d, d, cfg.d_ff), Ax("layers", "embed", "mlp"),
+                     d ** -0.5),
+            "w_down": ((n_d, cfg.d_ff, d), Ax("layers", "mlp", "embed"),
+                       cfg.d_ff ** -0.5),
         }
         if cfg.gated_mlp:
-            g["w_gate"] = ((n_d, d, cfg.d_ff), d ** -0.5)
+            g["w_gate"] = ((n_d, d, cfg.d_ff), Ax("layers", "embed", "mlp"),
+                           d ** -0.5)
         t["ffn"] = g
     if n_m:
         fe, e = cfg.moe_d_ff, cfg.n_experts
+        ex = Ax("layers", "experts", "embed", "expert_mlp")
         g = {
-            "ln": ((n_m, d), 0.0),
-            "router": ((n_m, d, e), d ** -0.5),
-            "w_gate": ((n_m, e, d, fe), d ** -0.5),
-            "w_up": ((n_m, e, d, fe), d ** -0.5),
-            "w_down": ((n_m, e, fe, d), fe ** -0.5),
+            "ln": ((n_m, d), Ax("layers", "embed"), 0.0),
+            "router": ((n_m, d, e), Ax("layers", "embed", "experts"),
+                       d ** -0.5),
+            "w_gate": ((n_m, e, d, fe), ex, d ** -0.5),
+            "w_up": ((n_m, e, d, fe), ex, d ** -0.5),
+            "w_down": ((n_m, e, fe, d),
+                       Ax("layers", "experts", "expert_mlp", "embed"),
+                       fe ** -0.5),
         }
         if cfg.n_shared_experts:
             sf = cfg.n_shared_experts * fe
-            g["shared_gate"] = ((n_m, d, sf), d ** -0.5)
-            g["shared_up"] = ((n_m, d, sf), d ** -0.5)
-            g["shared_down"] = ((n_m, sf, d), sf ** -0.5)
+            g["shared_gate"] = ((n_m, d, sf), Ax("layers", "embed", "mlp"),
+                                d ** -0.5)
+            g["shared_up"] = ((n_m, d, sf), Ax("layers", "embed", "mlp"),
+                              d ** -0.5)
+            g["shared_down"] = ((n_m, sf, d), Ax("layers", "mlp", "embed"),
+                                sf ** -0.5)
         t["moe"] = g
     if n_r:
         rw, cw = cfg.rnn_width, cfg.conv_width
         t["rglru"] = {
-            "ln": ((n_r, d), 0.0),
-            "w_x": ((n_r, d, rw), d ** -0.5),
-            "w_gate": ((n_r, d, rw), d ** -0.5),
-            "conv_w": ((n_r, cw, rw), cw ** -0.5),
-            "conv_b": ((n_r, rw), 0.0),
-            "w_a": ((n_r, rw, rw), rw ** -0.5),
-            "w_i": ((n_r, rw, rw), rw ** -0.5),
-            "log_lambda": ((n_r, rw), 0.5),
-            "w_out": ((n_r, rw, d), rw ** -0.5),
+            "ln": ((n_r, d), Ax("layers", "embed"), 0.0),
+            "w_x": ((n_r, d, rw), Ax("layers", "embed", "rnn"), d ** -0.5),
+            "w_gate": ((n_r, d, rw), Ax("layers", "embed", "rnn"),
+                       d ** -0.5),
+            "conv_w": ((n_r, cw, rw), Ax("layers", "conv", "rnn"),
+                       cw ** -0.5),
+            "conv_b": ((n_r, rw), Ax("layers", "rnn"), 0.0),
+            "w_a": ((n_r, rw, rw), Ax("layers", "rnn", "embed_tp"),
+                    rw ** -0.5),
+            "w_i": ((n_r, rw, rw), Ax("layers", "rnn", "embed_tp"),
+                    rw ** -0.5),
+            "log_lambda": ((n_r, rw), Ax("layers", "rnn"), 0.5),
+            "w_out": ((n_r, rw, d), Ax("layers", "rnn", "embed"),
+                      rw ** -0.5),
         }
     if n_w:
         lora = 64
+        tp = Ax("layers", "embed", "embed_tp")
         t["rwkv"] = {
-            "ln1": ((n_w, d), 0.0),
-            "ln2": ((n_w, d), 0.0),
-            "mu": ((n_w, 5, d), 0.3),
-            "w_r": ((n_w, d, d), d ** -0.5),
-            "w_k": ((n_w, d, d), d ** -0.5),
-            "w_v": ((n_w, d, d), d ** -0.5),
-            "w_g": ((n_w, d, d), d ** -0.5),
-            "w_decay_a": ((n_w, d, lora), d ** -0.5),
-            "w_decay_b": ((n_w, lora, d), 0.01),
-            "decay_base": ((n_w, d), 0.5),
-            "u": ((n_w, cfg.n_rwkv_heads, cfg.rwkv_head_dim), 0.5),
-            "w_o": ((n_w, d, d), d ** -0.5),
-            "ln_x": ((n_w, d), 0.0),
-            "cmu": ((n_w, 2, d), 0.3),
-            "c_k": ((n_w, d, cfg.d_ff), d ** -0.5),
-            "c_v": ((n_w, cfg.d_ff, d), cfg.d_ff ** -0.5),
-            "c_r": ((n_w, d, d), d ** -0.5),
+            "ln1": ((n_w, d), Ax("layers", "embed"), 0.0),
+            "ln2": ((n_w, d), Ax("layers", "embed"), 0.0),
+            "mu": ((n_w, 5, d), Ax("layers", None, "embed"), 0.3),
+            "w_r": ((n_w, d, d), tp, d ** -0.5),
+            "w_k": ((n_w, d, d), tp, d ** -0.5),
+            "w_v": ((n_w, d, d), tp, d ** -0.5),
+            "w_g": ((n_w, d, d), tp, d ** -0.5),
+            "w_decay_a": ((n_w, d, lora), Ax("layers", "embed", "lora"),
+                          d ** -0.5),
+            "w_decay_b": ((n_w, lora, d), Ax("layers", "lora", "embed"),
+                          0.01),
+            "decay_base": ((n_w, d), Ax("layers", "embed"), 0.5),
+            "u": ((n_w, cfg.n_rwkv_heads, cfg.rwkv_head_dim),
+                  Ax("layers", "heads", "head_dim"), 0.5),
+            "w_o": ((n_w, d, d), Ax("layers", "embed_tp", "embed"),
+                    d ** -0.5),
+            "ln_x": ((n_w, d), Ax("layers", "embed"), 0.0),
+            "cmu": ((n_w, 2, d), Ax("layers", None, "embed"), 0.3),
+            "c_k": ((n_w, d, cfg.d_ff), Ax("layers", "embed", "mlp"),
+                    d ** -0.5),
+            "c_v": ((n_w, cfg.d_ff, d), Ax("layers", "mlp", "embed"),
+                    cfg.d_ff ** -0.5),
+            "c_r": ((n_w, d, d), tp, d ** -0.5),
         }
     return t
 
@@ -184,7 +218,7 @@ def init_params(cfg: ModelConfig, generator=None, device=None):
     params: Dict[str, Any] = {}
     for g, grp in param_table(cfg).items():
         params[g] = {}
-        for n, (shape, scale) in grp.items():
+        for n, (shape, _, scale) in grp.items():
             if scale == 0.0:
                 params[g][n] = torch.zeros(shape, dtype=dt, device=dev)
             else:
@@ -193,6 +227,17 @@ def init_params(cfg: ModelConfig, generator=None, device=None):
                 params[g][n] = w.mul_(scale).to(dt)
                 del w
     return params
+
+
+def param_structs(cfg: ModelConfig):
+    """(tree of ``Struct`` (shape, dtype), tree of ``Ax``) of the
+    parameters: no allocation (the dry-run and the sharding rules)."""
+    dt = model_dtype(cfg)
+    table = param_table(cfg)
+    return ({g: {n: Struct(s, dt) for n, (s, _, _) in grp.items()}
+             for g, grp in table.items()},
+            {g: {n: ax for n, (_, ax, _) in grp.items()}
+             for g, grp in table.items()})
 
 
 def layer_plan(cfg: ModelConfig):
@@ -275,6 +320,27 @@ def decode_state_shapes(cfg: ModelConfig, batch: int, max_seq: int):
     return shapes
 
 
+def decode_state_structs(cfg: ModelConfig, batch: int, max_seq: int):
+    """(tree of ``Struct``, tree of ``Ax``) of the decode state
+    (``decode_state_shapes``) with the reference's logical names."""
+    cache = Ax("layers", "batch", "kv_heads", "seq", "head_dim")
+    names = {"pos": Ax("batch"), "kg": cache, "vg": cache,
+             "kg_scale": Ax("layers", "batch", "kv_heads", "seq"),
+             "vg_scale": Ax("layers", "batch", "kv_heads", "seq"),
+             "kl": Ax("layers", "batch", "kv_heads", "seq_nosplit",
+                      "head_dim"),
+             "vl": Ax("layers", "batch", "kv_heads", "seq_nosplit",
+                      "head_dim"),
+             "rg_h": Ax("layers", "batch", "rnn"),
+             "rg_conv": Ax("layers", "batch", None, "rnn"),
+             "rwkv_wkv": Ax("layers", "batch", "heads", None, None),
+             "rwkv_shift": Ax("layers", "batch", "embed"),
+             "rwkv_cshift": Ax("layers", "batch", "embed")}
+    shapes = decode_state_shapes(cfg, batch, max_seq)
+    return ({k: Struct(s, dt) for k, (s, dt) in shapes.items()},
+            {k: names[k] for k in shapes})
+
+
 def zeros_state(shapes, device):
     """Zero tensors for a ``{name: (shape, dtype)}`` table."""
     return {k: torch.zeros(shape, dtype=dt, device=device)
@@ -319,14 +385,25 @@ def _prefix_attention(q, k, v, prefix_kv, gi, plen, cap):
 def _prefill_write(state, gi, pos_idx, k, v):
     """Write a prefill's K/V (B, T, KV, hd) at rows ``pos_idx`` of layer
     ``gi``'s dense caches, in place; int8 caches take ``quant_rows`` codes
-    and scales (reference ``attn_branch``'s cache write)."""
+    and scales (reference ``attn_branch``'s cache write). DTensor caches
+    are written shard by shard."""
     for name, x in (("kg", k), ("vg", v)):
         x = x.transpose(1, 2)                       # (B, KV, T, hd)
+        cache = state[name][gi]
         if name + "_scale" in state:
             from repro_torch.core.cache import quant_rows
+            if is_dtensor(cache) and any(p.is_shard(3)
+                                         for p in cache.placements):
+                raise NotImplementedError(
+                    "an int8 cache split on head_dim: a row's scale needs "
+                    "the whole row")
             x, sc = quant_rows(x)
-            state[name + "_scale"][gi].index_copy_(2, pos_idx, sc)
-        state[name][gi].index_copy_(2, pos_idx, x.to(state[name].dtype))
+            on_shards(lambda c, i, r: c.index_copy_(2, i, r),
+                      state[name + "_scale"][gi], pos_idx, sc,
+                      dim_maps=(None, {0: 0, 1: 1}), fixed=(2,))
+        on_shards(lambda c, i, r: c.index_copy_(2, i, r), cache, pos_idx,
+                  x.to(state[name].dtype),
+                  dim_maps=(None, {0: 0, 1: 1, 3: 3}), fixed=(2,))
 
 
 def _ring_write(state, li, k, v, positions, vl):
@@ -356,7 +433,7 @@ def _ring_write(state, li, k, v, positions, vl):
                                 cache))
 
 
-MOE_IMPLS = ("ragged", "capacity")
+MOE_IMPLS = ("ragged", "capacity", "ep")
 
 
 def _embed(params, cfg, tokens, embeddings=None):
@@ -387,9 +464,15 @@ def _ffn(h, params, cfg, plan, i, moe_impl, aux=None):
     xn = rms_norm(h, pm["ln"], cfg.norm_eps)
     if moe_impl == "ragged":
         return h + moe.moe_ffn_ragged(xn, pm, cfg), aux
-    if aux is None:
+    ctx = current_ctx() if moe_impl == "ep" else None
+    if ctx is not None:     # expert parallel; without a mesh, capacity
+        y, a = moe.moe_ffn_ep(xn, pm, cfg, ctx, return_aux=True)
+    elif aux is None:
         return h + moe.moe_ffn(xn, pm, cfg), None
-    y, a = moe.moe_ffn(xn, pm, cfg, return_aux=True)
+    else:
+        y, a = moe.moe_ffn(xn, pm, cfg, return_aux=True)
+    if aux is None:
+        return h + y, None
     return h + y, {k: aux[k] + a[k] for k in aux}
 
 
@@ -450,9 +533,7 @@ def _channel_mix(h, params, cfg, wi, state, step=False):
 
 def _check_moe_impl(moe_impl):
     if moe_impl not in MOE_IMPLS:
-        raise ValueError(f"moe_impl {moe_impl!r}: the port runs 'ragged' or "
-                         "'capacity' (expert parallelism, 'ep', waits for "
-                         "the sharding tooling, ROADMAP #16)")
+        raise ValueError(f"moe_impl {moe_impl!r}: one of {MOE_IMPLS}")
 
 
 def _attention_fullseq(h, params, cfg, plan, i, state, positions, pos_idx,
@@ -467,10 +548,10 @@ def _attention_fullseq(h, params, cfg, plan, i, state, positions, pos_idx,
         y = _prefix_attention(q, k, v, prefix_kv, gi, plen,
                               cfg.attn_logit_softcap)
     else:
-        y = attn_mod.attention_fullseq(
-            q, k, v, positions, positions,
-            window=cfg.window_size if li is not None else 0,
-            attn_softcap=cfg.attn_logit_softcap)
+        y = heads_local(attn_mod.attention_fullseq, q, k, v, positions,
+                        positions,
+                        window=cfg.window_size if li is not None else 0,
+                        attn_softcap=cfg.attn_logit_softcap)
     if state is not None and li is not None:
         _ring_write(state, li, k, v, positions, vl)
     elif state is not None:
@@ -551,8 +632,11 @@ def forward_fullseq(params, cfg: ModelConfig, tokens, *, state=None,
             h = _attention_fullseq(h, params, cfg, plan, i, state,
                                    positions, pos_idx, vl, plen, prefix_kv)
         if plan["rwkv"][i] is not None:
-            return _channel_mix(h, params, cfg, plan["rwkv"][i], state), aux
-        return _ffn(h, params, cfg, plan, i, moe_impl, aux)
+            h = _channel_mix(h, params, cfg, plan["rwkv"][i], state)
+        else:
+            h, aux = _ffn(h, params, cfg, plan, i, moe_impl, aux)
+        # the carry pinned to batch-sharded (identity without a context)
+        return pin_activations(h), aux
 
     for i in range(cfg.n_layers):
         h, aux = (torch.utils.checkpoint.checkpoint(layer, i, h, aux,
@@ -658,7 +742,16 @@ def _paged_write_rows(pool, page_idx, row, new, write_mask, scale=None):
 def _dense_write_rows(cache, pos, new, write_mask, scale=None):
     """Commit one token's rows (B, rows, hd) at each slot's ``pos`` of a
     dense cache (B, rows, S, hd), in place; with ``scale`` ((B, rows, S),
-    int8 caches) as ``quant_rows`` codes and scales."""
+    int8 caches) as ``quant_rows`` codes and scales. A DTensor cache is
+    written shard by shard (``sharding.local.on_shards``)."""
+    if is_dtensor(cache):
+        if scale is not None and any(p.is_shard(3) for p in cache.placements):
+            raise NotImplementedError(
+                "an int8 cache split on head_dim: a row's scale needs the "
+                "whole row")
+        return on_shards(_dense_write_rows, cache, pos, new, write_mask,
+                         scale, dim_maps=({0: 0}, {0: 0, 1: 1, 3: 2},
+                                          {0: 0}, None), fixed=(2,))
     ar = torch.arange(new.shape[0], device=new.device)
     pl = write_positions(pos, cache.shape[2])
     if scale is not None:
@@ -813,9 +906,12 @@ def _plain_decode_attention(xn, p, cfg, state, gi, ai, li=None,
 
 
 def _flash_decode(q, kc, vc, pos, ts, plain):
+    """The flash decode op (or its plain version); on DTensors through
+    ``sharding.local.batch_local``: batch split, the rest replicated."""
     if plain:
-        return kref.flash_decode_ref(q, kc, vc, pos)
-    return kops.flash_decode_attention(q, kc, vc, pos, ts=ts)
+        return batch_local(kref.flash_decode_ref, kc, q, kc, vc, pos)
+    return batch_local(kops.flash_decode_attention, kc, q, kc, vc, pos,
+                       ts=ts)
 
 
 def _attention_decode(h, params, cfg, plan, i, state, chai_ctx, steady,
@@ -899,7 +995,8 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *, chai_ctx=None,
             h = _channel_mix(h, params, cfg, plan["rwkv"][i], state,
                              step=True)
         else:
-            h = _ffn(h[:, None], params, cfg, plan, i, moe_impl)[0][:, 0]
+            h = _ffn(h[:, None], params, cfg, plan, i,
+                     "capacity" if moe_impl == "ep" else moe_impl)[0][:, 0]
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(h, _unembed_w(params, cfg), cfg.final_logit_softcap)
     state["pos"] = state["pos"] + 1

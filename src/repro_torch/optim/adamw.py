@@ -9,8 +9,12 @@ dicts (``{group: {name: tensor}}``); ``tree_map`` and ``tree_leaves``
 walk them in the reference's order (dict keys sorted). ``update`` is
 functional: it returns new parameters and a new state. A bf16 parameter
 is updated in fp32 and cast back. (The reference's ``opt_barrier`` is a
-TPU scheduling hint and changes no value; ``state_structs`` feeds the
-sharded dry-run and waits for ROADMAP #16.)
+TPU scheduling hint and changes no value.) Every op is elementwise or a
+sum, so the same code runs on DTensor trees: each moment keeps its
+parameter's placements (``init``), or the ZeRO placements the sharded
+step gives it, and the update's norm is a sum over ranks.
+``state_structs`` gives the dry-run the state's structs and logical
+names.
 """
 from __future__ import annotations
 
@@ -54,13 +58,29 @@ def tree_pick(tree, i):
 
 
 def init(params) -> AdamWState:
-    """Step 0 and zero fp32 moments on each parameter's device."""
+    """Step 0 and zero fp32 moments on each parameter's device (a
+    DTensor parameter's moments with its placements)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     step = torch.zeros((), dtype=torch.int32,
                        device=tree_leaves(params)[0].device)
     return AdamWState(step=step, m=tree_map(zeros, params),
                       v=tree_map(zeros, params))
+
+
+def state_structs(param_structs, param_logical):
+    """(``AdamWState`` of ``Struct``, ``AdamWState`` of ``Ax``) matching
+    ``init`` (the dry-run's optimizer structs)."""
+    from repro_torch.sharding.rules import Ax, Struct
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        return Struct(tuple(tree.shape), torch.float32)
+    shapes = AdamWState(step=Struct((), torch.int32), m=f32(param_structs),
+                        v=f32(param_structs))
+    return shapes, AdamWState(step=Ax(), m=param_logical, v=param_logical)
 
 
 @functools.lru_cache(maxsize=1)

@@ -6,10 +6,12 @@
   ``n_micro`` sequential microbatches with an fp32 gradient accumulator
   (a loop in place of the reference's ``lax.scan``); it caps activation
   memory at one microbatch's.
-* ``make_compressed_train_step``: the int8 error-feedback cross-pod
-  reduction needs a mesh with a ``pod`` axis, and waits for the sharding
-  tooling (ROADMAP #16). ``optim.compression.compressed_psum`` itself is
-  ported.
+* ``make_compressed_train_step``: manual over the pod axis only
+  (``optim.compression.wrap_pod_manual``; the in-pod axes stay
+  DTensor-propagated). Each pod's loss and gradients come from its slice
+  of the batch, then cross the pods as int8 codes with error feedback
+  (``compressed_psum`` over the pod group); parameters, moments and the
+  residual are replicated across pods.
 """
 from __future__ import annotations
 
@@ -63,8 +65,48 @@ def make_microbatched_train_step(cfg: ModelConfig, *, n_micro: int,
     return train_step
 
 
-def make_compressed_train_step(cfg: ModelConfig, mesh=None, **kw):
-    """The int8 cross-pod train step needs a mesh with a ``pod`` axis."""
-    raise NotImplementedError(
-        "make_compressed_train_step needs a device mesh with a pod axis: "
-        "the sharding tooling waits for ROADMAP #16")
+def make_compressed_train_step(cfg: ModelConfig, mesh=None, *,
+                               pod_axis="pod", remat=True,
+                               moe_impl="capacity",
+                               lr_kw: Optional[dict] = None):
+    """Train step with the int8 error-feedback cross-pod gradient sum.
+
+    Signature: (params, opt_state, residual, batch) -> (params',
+    opt_state', residual', metrics). ``mesh``: a DeviceMesh with a
+    ``pod_axis``; params, moments and residual DTensors replicated across
+    pods, the batch split on the pod axis (dim 0). The metrics' loss and
+    ce are the pods' mean."""
+    from repro_torch.optim import compression
+    from repro_torch.sharding.rules import Spec
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if pod_axis not in names:
+        raise ValueError(
+            f"make_compressed_train_step needs a device mesh with a "
+            f"{pod_axis!r} axis (got {names or 'no mesh'}): build one with "
+            "launch.mesh.make_mesh((pods, data, model), ('pod', 'data', "
+            "'model'))")
+    loss_fn = make_loss_fn(cfg, remat=remat, moe_impl=moe_impl)
+    lr_kw = lr_kw or {}
+    group = mesh.get_group(pod_axis)
+
+    def body(params, opt_state, residual, batch):
+        (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+        grads, residual = compression.compressed_psum(grads, residual,
+                                                      group)
+        lr = adamw.cosine_lr(opt_state.step, **lr_kw) if lr_kw else None
+        params, opt_state, om = adamw.update(grads, opt_state, params, lr=lr)
+        return params, opt_state, residual, {
+            "loss": compression.pod_mean(loss, group),
+            "ce": compression.pod_mean(metrics["ce"], group),
+            "load_balance": metrics["load_balance"],
+            "router_z": metrics["router_z"], **om}
+
+    rep, split = Spec(), Spec(pod_axis)
+    wrapped = compression.wrap_pod_manual(
+        body, mesh, in_specs=(rep, rep, rep, split),
+        out_specs=(rep, rep, rep, rep), pod_axis=pod_axis)
+
+    def train_step(params, opt_state, residual, batch):
+        return wrapped(params, opt_state, residual, batch)
+
+    return train_step

@@ -188,7 +188,7 @@ def test_weights_carry_leaf_by_leaf(arch):
     assert {g: set(grp) for g, grp in table.items()} == {
         g: set(grp) for g, grp in jparams.items()}
     for g, grp in table.items():
-        for n, (shape, _) in grp.items():
+        for n, (shape, _, _) in grp.items():
             got = tparams[g][n]
             assert got.dtype == torch.bfloat16
             assert tuple(got.shape) == shape == jparams[g][n].shape

@@ -131,7 +131,7 @@ def test_checkpoint_shape_mismatch_raises(tmp_path):
         mgr.restore(1, {"a": torch.zeros(4)}, device="cpu")
     with pytest.raises(KeyError):
         mgr.restore(1, {"b": torch.zeros(3)}, device="cpu")
-    with pytest.raises(ValueError, match="#16"):
+    with pytest.raises(KeyError):     # shardings of another structure
         mgr.restore(1, {"a": torch.zeros(3)}, device="cpu", shardings={})
 
 
@@ -250,7 +250,8 @@ def test_trainer_straggler_hook_fires(tmp_path):
 
 
 def test_trainer_refuses_compress_pods(tmp_path):
-    with pytest.raises(ValueError, match="#16"):
+    """The int8 cross-pod step needs a mesh with a pod axis."""
+    with pytest.raises(ValueError, match="'pod' axis"):
         Trainer(_tiny(), _data_cfg(128),
                 TrainerConfig(ckpt_dir=str(tmp_path), compress_pods=True),
                 device="cpu")

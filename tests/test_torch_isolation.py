@@ -43,7 +43,10 @@ def test_port_files_exist():
                 "models/rglru", "models/rwkv", "optim/adamw",
                 "optim/compression", "data/pipeline",
                 "checkpoint/checkpoint", "train/train_step",
-                "train/trainer", "launch/train"):
+                "train/trainer", "launch/train", "sharding/rules",
+                "sharding/context", "sharding/local", "launch/mesh",
+                "launch/inputs", "launch/roofline", "launch/dryrun",
+                "serving/workload"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "src/repro_torch/configs/nemotron_4_15b.py" in names
     for cfg in ("gemma3_4b", "deepseek_moe_16b", "qwen3_moe_30b_a3b",
@@ -130,6 +133,26 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch, tmp_path):
     mgr.save(1, {"a": torch.zeros(2)})
     with pytest.raises(RuntimeError, match="CUDA"):
         mgr.restore(1, {"a": torch.zeros(2)})
+    from repro_torch.launch import mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh((1, 1), ("data", "model"))
+
+
+def test_mesh_names_the_world_it_needs():
+    """No port call site waits for the sharding tooling any more; a mesh
+    larger than the world raises naming the ranks it needs (no process
+    group is made for it)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        assert "#16" not in path.read_text(), path
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="needs 4 ranks, have 1"):
+        mesh.make_mesh((2, 2), ("data", "model"), device="cpu")
+    for multi, n in ((False, 256), (True, 512)):
+        with pytest.raises(RuntimeError, match=f"needs {n} ranks, have 1"):
+            mesh.make_production_mesh(multi_pod=multi, device="cpu")
+    assert not dist.is_initialized()
 
 
 def test_continuous_scheduler_names_the_next_slice():

@@ -480,7 +480,7 @@ def test_weights_carry_leaf_by_leaf(arch):
     assert {g: set(grp) for g, grp in table.items()} == {
         g: set(grp) for g, grp in jparams.items()}
     for g, grp in table.items():
-        for n, (shape, _) in grp.items():
+        for n, (shape, _, _) in grp.items():
             assert tuple(tparams[g][n].shape) == shape == jparams[g][n].shape
             np.testing.assert_array_equal(tparams[g][n].numpy(),
                                           np.asarray(jparams[g][n]))

@@ -185,7 +185,7 @@ def test_deepseek_forward_and_decode_match_reference():
     assert plan["dense"] == [0, None] and plan["moe"] == [None, 0]
     rng = np.random.default_rng(3)
     toks = rng.integers(0, tcfg.vocab_size, (2, 12))
-    for impl in ("capacity", "ragged"):
+    for impl in ("capacity", "ragged", "ep"):   # "ep" with no mesh: capacity
         jl, _, _ = jtfm.forward_fullseq(jparams, jcfg, jnp.asarray(toks),
                                         moe_impl=impl)
         tl, _ = ttfm.forward_fullseq(tparams, tcfg, _t(toks), moe_impl=impl)
@@ -203,8 +203,11 @@ def test_deepseek_forward_and_decode_match_reference():
                                   moe_impl=impl)
         tl, ts = ttfm.decode_step(tparams, tcfg, _t(nt), ts, moe_impl=impl)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
-    with pytest.raises(ValueError, match="ROADMAP #16"):
-        ttfm.decode_step(tparams, tcfg, _t(nt), ts, moe_impl="ep")
+    # "ep" without a mesh context: the capacity form, as in the reference
+    jl, js = jtfm.decode_step(jparams, jcfg, jnp.asarray(nt), js,
+                              moe_impl="ep")
+    tl, ts = ttfm.decode_step(tparams, tcfg, _t(nt), ts, moe_impl="ep")
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
 
 
 # ------------------------------------------------------ the engines ----

@@ -53,7 +53,7 @@ def _layer(dtype):
     rng = np.random.default_rng(2)
     jp = {n: jnp.asarray((rng.normal(size=shape[1:]) * (scale or 0.1))
                          .astype(np.float32)).astype(dtype)
-          for n, (shape, scale) in ttfm.param_table(tcfg)["rwkv"].items()}
+          for n, (shape, _, scale) in ttfm.param_table(tcfg)["rwkv"].items()}
     tp = params_from_numpy({"l": jax.tree.map(np.asarray, jp)},
                            device="cpu")["l"]
     return jcfg, tcfg, jp, tp

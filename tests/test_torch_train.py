@@ -80,7 +80,7 @@ def _numpy_params(tcfg, seed):
     rng = np.random.default_rng(seed)
     return {g: {n: jnp.asarray((rng.normal(size=shape)
                                 * (scale or 0.1)).astype(np.float32))
-                for n, (shape, scale) in grp.items()}
+                for n, (shape, _, scale) in grp.items()}
             for g, grp in ttfm.param_table(tcfg).items()}
 
 
@@ -371,7 +371,8 @@ def test_microbatched_matches_fused_and_reference():
 
 def test_train_step_grad_dtype_and_refusals():
     """``grad_dtype`` casts the gradients before the optimizer (the
-    moments stay fp32); the mesh-only options raise naming ROADMAP #16."""
+    moments stay fp32); ``grad_shardings`` leaves plain gradients as they
+    are; the compressed step refuses a mesh without a pod axis."""
     _, tcfg = _tiny()
     tparams = _port(_numpy_params(tcfg, 0))
     rng = np.random.default_rng(1)
@@ -381,9 +382,16 @@ def test_train_step_grad_dtype_and_refusals():
     p, opt, m = step(tparams, tadamw.init(tparams), batch)
     assert np.isfinite(float(m["loss"])) and int(opt.step) == 1
     assert all(t.dtype == torch.float32 for t in tadamw.tree_leaves(opt.m))
-    with pytest.raises(ValueError, match="#16"):
-        tsteps.make_train_step(tcfg, grad_shardings={})
-    with pytest.raises(NotImplementedError, match="#16"):
+    # without a mesh the gradients are plain tensors, which a ZeRO layout
+    # leaves as they are
+    none = tadamw.tree_map(lambda _: None, tparams)
+    step_z = tsteps.make_train_step(tcfg, remat=False, grad_dtype="bfloat16",
+                                    grad_shardings=none)
+    pz, _, mz = step_z(tparams, tadamw.init(tparams), batch)
+    assert float(mz["loss"]) == float(m["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(tadamw.tree_leaves(pz),
+                                                 tadamw.tree_leaves(p)))
+    with pytest.raises(ValueError, match="'pod' axis"):
         tts.make_compressed_train_step(tcfg)
 
 
