@@ -264,7 +264,14 @@ result line):
    STEADY slot, the flash decode pair 5 times an MHA-baseline step, all
    in their wide-head mode, the local layers eager; paged == dense
    tokens; KV bytes unchanged at CLUSTER (GQA); the four kernels held at
-   2e-5 on the first all-STEADY (first full) step's first global layer.
+   2e-5 on the first all-STEADY (first full) step's first global layer;
+   then gemma3's model-level suffix prefill (``suffix_prefill_path``: a
+   256-token prefix in shuffled pool pages, a 128-token suffix through
+   ``forward_fullseq(prefix_len, prefix_kv)``) on the bf16 pool and on
+   the int8 one, each launching ``flash_prefill`` and
+   ``paged_prefix_attend`` once a global layer (5 each) at head dim 320,
+   every launch in the ``wide`` mode, greedy tokens equal to the plain
+   route's on margin-checked positions.
    (b) full-width deepseek-moe-16b at full depth (28 layers, MHA 16
    heads, hd 128; the dense FFN then 27 MoE layers of 64 experts top-6
    and 2 shared; 32.8 GB in bf16) on the continuous paged engine, CHAI
@@ -364,8 +371,14 @@ result line):
    (``kernels.chai_attention.MODE_LAUNCHES``) over every run of the
    process and must be 0), a ``[wide]`` row for each of the four decode
    kernels at head dim 320, its launches those of its gemma3-4b path in
-   phase 21a, the card's name and power limit, and, last,
-   ``{"ok": true, "device": {...}}``.
+   phase 21a, ``flash_prefill[wide]``, ``paged_prefix_attend[wide]`` and
+   ``[int8+wide]`` on gemma3's suffix prefills (phase 21a), and the other
+   head-dim-320 modes on no path, their launches by mode over every run
+   0 (``flash_prefill[softcap+wide]`` and ``[window+wide]``,
+   ``paged_prefix_attend[kv=...+wide]``, the relay's ``[wide]``,
+   ``[int8+wide]``, ``[softcap+wide]`` and ``[kv=...+wide]``, the fused
+   pair's ``[kv=...+wide]``), the card's name and power limit, and,
+   last, ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the wide head (``wide_head_checks``): the fused pair
 on its wide-head libraries (``build.VARIANTS``: the sources built again
@@ -378,7 +391,20 @@ bitwise, a poisoned null page and poisoned positions past pos changing
 no bit, SDPA timed beside ``flash_decode`` with the backend it picks at
 head dim 320 named from its kernels; every such launch counted in the
 ``wide`` mode; then the hd-128 rows of the four kernels on
-chai-llama-7b's shapes, timed in the same run. Phase 4 also runs the
+chai-llama-7b's shapes, timed in the same run. Then head dim 320 on the
+rest, at gemma3-4b's layout, each case at 2e-5 against its plain
+version and counted in the ``wide`` mode: gemma3's suffix prefill in one
+global layer at full width (``suffix_layer_check``, bf16 and int8
+pages, against the eager attention over 384 positions; its cases are
+the main cases of the prefill pair's ``[wide]`` rows);
+``wide_prefill_checks`` (``flash_prefill`` bf16 and fp32, finalized and
+as the state, offsets 0, 256 and a ragged 77-row chunk, its softcap and
+window modes; ``paged_prefix_attend`` at plen 0 / 200 / 384 over bf16,
+fp32 and int8 pools and three pairings of the general pool instance);
+``wide_relay_checks`` (G = 2 groups over Sp = 1024: bf16, fp32, int8
+with and without V scales, the softcap, two general pairings; Sp =
+65,536 once); ``wide_kv_checks`` (the fused pair on every general K/V
+pairing, the ``_wide_kv`` libraries, and fp32 K and V). Phase 4 also runs the
 five archs of phase 21 and the two of phase 22 reduced, cuda against cpu
 (``reduced_arch_checks``: the teacher-forced reference check, rwkv's as
 plain decode steps with every state leaf held; the continuous engine
@@ -404,7 +430,7 @@ MHA, GQA and share_values maps, bf16 and int8 (the share maps' raw int8
 V codes held over l and over their range of 127); two launches, softcap
 0 and an unreachable window ``torch.equal`` to the plain launch; the
 capped output unequal to the uncapped one; and gemma2's suffix prefill
-in one global layer at full width (``gemma2_suffix_prefill_check``:
+in one global layer at full width (``suffix_layer_check``:
 ``paged_prefix_attend`` over 256 paged positions merged with
 ``flash_prefill`` over a 128-token suffix, against the eager attention
 over all 384, bf16 and int8 pages).
@@ -734,12 +760,31 @@ def build_kernels():
         f"{time.time() - t0:.3f} s; each source's seconds, all started "
         f"together: { {n: round(t, 1) for n, t in seconds.items()} }")
     for name, out in outputs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for inst, res in ptxas_resources(out).items():
+            log(f"  {name}: {inst}: {res}")
     for name in KERNEL_ROWS:
         build.load(name)
     tensor_core_counts()
+
+
+def ptxas_resources(text):
+    """{instance: "R registers, S/L spill bytes"} from a ``ptxas -v``
+    log, each instance named by its kernel and mangled template arguments
+    (``flash_prefill_kernelI13__nv_bfloat16Li320ELb0EE``)."""
+    out, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(I\w*?EE)", m.group(1))
+            entry = k.group(1) + k.group(2) if k else m.group(1)
+            out[entry] = {}
+        elif entry and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[entry]["spill"] = f"{m.group(1)}/{m.group(2)}"
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            out[entry]["registers"] = int(m.group(1))
+    return {k: f"{v.get('registers')} registers, {v.get('spill')} spill "
+               "bytes (stores/loads)" for k, v in out.items()}
 
 
 # The kernels whose SASS is logged for tensor-core instructions: the
@@ -764,7 +809,8 @@ def tensor_core_counts():
         procs = {name: subprocess.Popen(
             [str(tool), "-sass", str(build.BUILD_DIR / f"lib{name}.so")],
             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-            for name in REWRITTEN}
+            for name in REWRITTEN + ("flash_prefill_wide",
+                                     "paged_prefix_attend_wide")}
         for name, proc in procs.items():
             sass = proc.communicate()[0].splitlines()
             counts = {op: sum(f" {op}." in ln or f" {op} " in ln
@@ -1150,11 +1196,13 @@ def prefix_bound(q, pool, bt_k, plen, scaled, softcap=False):
 
 
 def flash_case(q, k, v, *, offset=0, emit_state=True, library=False,
-               window=0, softcap=0.0):
+               window=0, softcap=0.0, per_l=False):
     """``flash_prefill`` against its plain version on one input (2e-5,
     or one bf16 step for a finalized bf16 output), in the ``window`` and
     ``softcap`` modes when set; returns the case's record with its times
-    and bound. ``library``: also time PyTorch's
+    and bound. ``per_l``: a state held with each acc row over its l
+    (``_own_per_l``), the raw error recorded beside. ``library``: also
+    time PyTorch's
     ``scaled_dot_product_attention`` (causal, or with the band mask of
     the window; ``enable_gqa`` when KV < H) beside the finalized mode on
     the same inputs, whose every row must see a key (SDPA has no tanh
@@ -1162,8 +1210,12 @@ def flash_case(q, k, v, *, offset=0, emit_state=True, library=False,
     mode = dict(offset=offset, window=window, softcap=softcap)
     got = fk.flash_prefill(q, k, v, emit_state=emit_state, **mode)
     torch.cuda.synchronize()
+    extra = {}
     if emit_state:
         want, tol = kref.flash_prefill_state_ref(q, k, v, **mode), TOL
+        if per_l:
+            extra = dict(held="acc / l", raw_max_abs_err=_max_err(got, want))
+            got, want = _own_per_l(got), _own_per_l(want)
     else:
         if got.dtype != q.dtype:
             raise AssertionError(f"finalized output in {got.dtype}")
@@ -1180,7 +1232,7 @@ def flash_case(q, k, v, *, offset=0, emit_state=True, library=False,
                                     bool(softcap))
     rec = dict(q=list(q.shape), k=list(k.shape), dtype=str(q.dtype),
                offset=offset, emit_state=emit_state, max_abs_err=err,
-               tolerance="2e-5" if tol is TOL else "one bf16 step",
+               tolerance="2e-5" if tol is TOL else "one bf16 step", **extra,
                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
     if window or softcap:
         rec.update(window=window, softcap=softcap)
@@ -1210,12 +1262,13 @@ def flash_case(q, k, v, *, offset=0, emit_state=True, library=False,
 
 
 def prefix_case(q, pool, bt_k, bt_v, plen, softcap=0.0, v_unit=1.0,
-                **scale_pools):
+                per_l=False, **scale_pools):
     """``paged_prefix_attend`` against its plain version (2e-5), capped at
     ``softcap`` when set; rows with plen == 0 must hold the merge
     identity exactly (``scale_pools``: the pool's k_scale_pool and
     v_scale_pool, each optional). ``v_unit``: acc held over V's range (a
-    raw int8 V side: 127), the raw error recorded beside it. Returns the
+    raw int8 V side: 127), the raw error recorded beside it; ``per_l``:
+    each acc row held over its l (``_own_per_l``), likewise. Returns the
     record."""
     if softcap:
         scale_pools = dict(scale_pools, softcap=softcap)
@@ -1224,12 +1277,12 @@ def prefix_case(q, pool, bt_k, bt_v, plen, softcap=0.0, v_unit=1.0,
     want = kref.paged_prefix_attend_ref(q, pool, bt_k, bt_v, plen,
                                         **scale_pools)
     extra = {}
-    if v_unit != 1:
-        extra = dict(held=f"acc / {v_unit:g}", raw_max_abs_err=_max_err(
-            got, want))
-        err = _hold(*(((m, l, acc / v_unit) for m, l, acc in (got, want))))
-    else:
-        err = _hold(got, want)
+    held = (_own_per_l(got), _own_per_l(want)) if per_l else (got, want)
+    if v_unit != 1 or per_l:
+        extra = dict(held=("acc / l" if per_l else "acc")
+                     + (f" / {v_unit:g}" if v_unit != 1 else ""),
+                     raw_max_abs_err=_max_err(got, want))
+    err = _hold(*(((m, l, acc / v_unit) for m, l, acc in held)))
     empty = plen == 0
     if empty.any():
         m, l, acc = (x[empty] for x in got)
@@ -1484,11 +1537,14 @@ def _per_l(state, a_row):
     return m, l, acc / torch.gather(l, 1, a_row.long())[..., None]
 
 
-def _share_per_l(state):
-    """A share_values decode state (acc rows: the reps) with each acc row
-    over its own l. Its raw sums round apart by ~1e-7 of l between two
-    summation orders, which over raw int8 V codes (up to 127) or tens of
-    thousands of positions exceeds 2e-5; over l it is one output's
+def _own_per_l(state):
+    """A state whose acc rows are its m and l rows (a share_values decode
+    state, acc rows the reps; a prefill state, (B, H, T) rows) with each
+    acc row over its own l. Its raw sums round apart by ~1e-7 of l between
+    two summation orders, which over raw int8 V codes (up to 127) or tens
+    of thousands of positions exceeds 2e-5, as does a score's ~3e-6 at
+    head dim 320 on queries of std 4 (two fp32 orders of a 320-long dot)
+    carried into an acc of a few units; over l it is one output's
     scale."""
     m, l, acc = state
     return m, l, acc / torch.clamp(l, min=1e-37)[..., None]
@@ -1563,20 +1619,21 @@ def _log_relay(case):
         f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
 
 
-def relay_maps(gen, members, nmax, *, gqa):
+def relay_maps(gen, members, nmax, *, gqa, layout=(8, 5, 6)):
     """Routing maps as the engine builds them (``serving.engine.
     _relay_row_maps``) for groups of ``members`` real slots of ``nmax``;
     padded entries stay 0. MHA (chai-llama-7b: R = 25 reps of H = 32
     heads, K and V rows per head): query row j*R + i reads K row reps[i],
     head h reads query row j*R + h2c[h] (one rep without a head) and V row
-    h. GQA (nemotron-4-15b: 8 KV groups of 5 reps and 6 heads, R = 40, H =
-    48): query row j*R + c*5 + i reads K row c, so 4 x 5 = 20 query rows
-    of a full group read each K row; head h of KV group c reads query row
-    j*R + c*5 + (its cluster) and V row c. Returns (k_row, a_row, v_row,
-    R, K rows, V rows)."""
+    h. GQA on ``layout`` (KV groups, reps a group, heads a group; default
+    nemotron-4-15b: 8 KV groups of 5 reps and 6 heads, R = 40, H = 48):
+    query row j*R + c*5 + i reads K row c, so 4 x 5 = 20 query rows of a
+    full group read each K row; head h of KV group c reads query row j*R
+    + c*5 + (its cluster) and V row c. Returns (k_row, a_row, v_row, R, K
+    rows, V rows)."""
     dev = "cuda"
     if gqa:
-        n_kv, r_g, qpk = 8, 5, 6
+        n_kv, r_g, qpk = layout
         r, h, kv, vr = n_kv * r_g, n_kv * qpk, n_kv, n_kv
     else:
         r, h = get_config(ARCH).k_max, 32
@@ -1726,8 +1783,8 @@ def fused_pair_case(tag, q, k, v, h2c, pos, *, rpg, gen, null_k_rows=(),
     _bitwise(f"{tag}: paged vs dense state",
              states["paged_chai_fused_decode"], states["chai_fused_decode"])
     if share:
-        _hold(_share_per_l(states["chai_fused_decode"]),
-              _share_per_l(kref.chai_fused_decode_ref(
+        _hold(_own_per_l(states["chai_fused_decode"]),
+              _own_per_l(kref.chai_fused_decode_ref(
                   q, kd, vd, h2c, pos, reps_per_group=rpg, emit_state=True,
                   **dense_sc, **mode, **capkw)))
     elif softcap:
@@ -2672,24 +2729,28 @@ def prefill_mode_checks():
     return out
 
 
-def gemma2_suffix_prefill_check():
-    """gemma2-9b's suffix prefill in one global layer at full width (16
-    heads over 8 of hd 224, cap 50, bf16): a 256-token prefix in shuffled
-    pages and a 128-token suffix; ``paged_prefix_attend`` over the pages
-    and ``flash_prefill`` (``emit_state``) over the suffix, merged and
-    finalized, held at 2e-5 against the eager ``attention_fullseq`` with
-    the softcap over all 384 positions (in fp32 on the same bf16
+def suffix_layer_check(tag, heads, cap):
+    """A model's suffix prefill in one global layer at full width
+    (``heads``: query heads, KV heads, head dim; ``cap``: its attention
+    softcap, 0 for none; queries of std MODE_Q, bf16): a 256-token prefix
+    in shuffled pages and a 128-token suffix; ``paged_prefix_attend`` over
+    the pages and ``flash_prefill`` (``emit_state``) over the suffix,
+    merged and finalized, held at 2e-5 against the eager
+    ``attention_fullseq`` over all 384 positions (in fp32 on the same bf16
     values). Then the same with the prefix pages in int8 (codes and
-    scales; the eager attention over the dequantized prefix). Returns
-    {"flash_prefill": case, "paged_prefix_attend": case,
-    "paged_prefix_attend_int8": case}."""
+    scales; the eager attention over the dequantized prefix). gemma2-9b:
+    16 heads over 8 of hd 224, cap 50; gemma3-4b: 8 over 4 of hd 320 (the
+    wide libraries), no cap, its states held with each acc row over its l
+    (``_own_per_l``). Returns {"flash_prefill": case,
+    "paged_prefix_attend": case, "paged_prefix_attend_int8": case}."""
     from repro_torch.models import attention as attn_mod
     gen = torch.Generator("cuda").manual_seed(29)
     dev = "cuda"
-    h, kv, hd = GEMMA_HEADS
+    h, kv, hd = heads
+    wide = hd == ck.WIDE_HD
     plen, t = 256, 128
     n_pages = plen // PAGE
-    q = (torch.randn(1, t, h, hd, generator=gen, device=dev) * 4).to(
+    q = (torch.randn(1, t, h, hd, generator=gen, device=dev) * MODE_Q).to(
         torch.bfloat16)
     k, v = (torch.randn(1, plen + t, kv, hd, generator=gen,
                         device=dev).to(torch.bfloat16) for _ in range(2))
@@ -2699,6 +2760,7 @@ def gemma2_suffix_prefill_check():
     bt_k, bt_v = ids[:n_pages][None], ids[n_pages:2 * n_pages][None]
     plen_t = torch.tensor([plen], dtype=torch.int32, device=dev)
     positions = torch.arange(plen + t, device=dev)
+    capkw = dict(softcap=cap) if cap else {}
     cases = {}
     for kind in ("bf16", "int8"):
         sc = {}
@@ -2725,10 +2787,9 @@ def gemma2_suffix_prefill_check():
                 if scales is not None:
                     spool[bt[0, j]] = scales[sl].transpose(0, 1)
         ks_, vs_ = k[:, plen:], v[:, plen:]
-        st_p = fk.paged_prefix_attend(q, pool, bt_k, bt_v, plen_t,
-                                      softcap=GEMMA_CAP, **sc)
-        st_s = fk.flash_prefill(q, ks_, vs_, softcap=GEMMA_CAP,
-                                emit_state=True)
+        st_p = fk.paged_prefix_attend(q, pool, bt_k, bt_v, plen_t, **capkw,
+                                      **sc)
+        st_s = fk.flash_prefill(q, ks_, vs_, emit_state=True, **capkw)
         got = kops.finalize_prefill_state(kops.merge_prefill_states(st_s,
                                                                     st_p))
         torch.cuda.synchronize()
@@ -2736,40 +2797,42 @@ def gemma2_suffix_prefill_check():
         vf = torch.cat([vp.float(), vs_.float()], 1)
         want = attn_mod.attention_fullseq(q.float(), kf, vf,
                                           positions[plen:], positions,
-                                          attn_softcap=GEMMA_CAP)
+                                          attn_softcap=cap)
         err = _hold(got, want)
-        rec = dict(case=f"gemma2_suffix_prefill_{kind}_prefix{plen}_"
+        rec = dict(case=f"{tag}_suffix_prefill_{kind}_prefix{plen}_"
                         f"suffix{t}", q=list(q.shape), heads=[h, kv],
-                   softcap=GEMMA_CAP, max_abs_err=err,
+                   softcap=cap, max_abs_err=err,
                    held_against="eager attention_fullseq over 384 "
                                 "positions (fp32)")
-        log(f"gemma2 suffix prefill ({kind} prefix pages, hd {hd}, cap "
-            f"{GEMMA_CAP:g}): paged_prefix_attend + flash_prefill merged "
+        log(f"{tag} suffix prefill ({kind} prefix pages, hd {hd}, cap "
+            f"{cap:g}): paged_prefix_attend + flash_prefill merged "
             f"against the eager attention over {plen + t} positions: "
             f"max_abs_err {err:.3e}")
         pargs = (q, pool, bt_k, bt_v, plen_t)
-        pcase = dict(case=f"gemma2_layer_{kind}_plen{plen}",
-                     **prefix_case(*pargs, softcap=GEMMA_CAP, **sc))
+        pcase = dict(case=f"{tag}_layer_{kind}_plen{plen}",
+                     **prefix_case(*pargs, softcap=cap, per_l=wide, **sc))
         pcall = lambda a=pargs, s_=sc: fk.paged_prefix_attend(  # noqa
-            *a, softcap=GEMMA_CAP, **s_)
+            *a, **capkw, **s_)
         pcase.update(device_ms=device_ms(pcall, "paged_prefix_attend_"
                                          "kernel"),
-                     plain_mode_device_ms=device_ms(
-                         lambda a=pargs, s_=sc: fk.paged_prefix_attend(
-                             *a, **s_), "paged_prefix_attend_kernel"),
                      single_call_ms=single_call_ms(pcall), layer_check=rec)
+        if cap:
+            pcase["plain_mode_device_ms"] = device_ms(
+                lambda a=pargs, s_=sc: fk.paged_prefix_attend(*a, **s_),
+                "paged_prefix_attend_kernel")
         _log_case("paged_prefix_attend", pcase)
         cases["paged_prefix_attend" + ("_int8" if kind == "int8"
                                        else "")] = pcase
         if kind == "bf16":
-            fcase = dict(case=f"gemma2_layer_suffix{t}_state",
+            fcase = dict(case=f"{tag}_layer_suffix{t}_state",
                          **flash_case(q, ks_, vs_, emit_state=True,
-                                      library=True, softcap=GEMMA_CAP),
-                         plain_mode_device_ms=device_ms(
-                             lambda: fk.flash_prefill(q, ks_, vs_,
-                                                      emit_state=True),
-                             "flash_prefill_kernel"),
+                                      library=True, softcap=cap,
+                                      per_l=wide),
                          layer_check=rec)
+            if cap:
+                fcase["plain_mode_device_ms"] = device_ms(
+                    lambda: fk.flash_prefill(q, ks_, vs_, emit_state=True),
+                    "flash_prefill_kernel")
             _log_case("flash_prefill", fcase)
             cases["flash_prefill"] = fcase
         del pool
@@ -3735,6 +3798,237 @@ def wide_head_checks():
             f"{n.get('single_call_ms')} ms; bound {c['bound_ms']:.4f} "
             f"against {n['bound_ms']:.4f} ms")
     return wide, narrow
+
+
+GEMMA3_HEADS = (8, 4, 320)     # gemma3-4b's query heads, KV heads, head dim
+GEMMA3_LAYOUT = (4, 2, 2)      # its KV groups, reps a group, heads a group
+
+
+def _wide_row(name, before):
+    """The ``MODE_LAUNCHES`` key of the one launch made since ``before``
+    (a copy of it), which must carry the ``wide`` mode."""
+    new = {k: n - before.get(k, 0) for k, n in ck.MODE_LAUNCHES.items()
+           if n != before.get(k, 0)}
+    keys = [k for k in new if k.partition("[")[0] == name]
+    if len(keys) != 1 or "wide" not in keys[0]:
+        raise AssertionError(f"{name}: launches by mode {new}, expected "
+                             "one mode key with wide")
+    return keys[0]
+
+
+def wide_prefill_checks():
+    """The prefill pair at head dim 320 (the wide block of
+    ``flash_tiles.cuh`` in the wide libraries, ``build.VARIANTS``) on
+    gemma3-4b's layout (8 heads over 4 KV groups), each at 2e-5 against
+    its plain version (one bf16 step for a finalized bf16 output):
+    ``flash_prefill`` bf16 and fp32, finalized and as the state, at offset
+    0 (T = S = 128) and 256 (T = 128 over S = 384), a ragged T = 77 at
+    offset 200, and its modes instance (the softcap at 50, a window of
+    64) on queries of std MODE_Q; causal SDPA timed beside the finalized
+    bf16 chunk; ``paged_prefix_attend`` on shuffled pages at plen 0, 200
+    and 384 over bf16, fp32 and int8 pools, and on three pairings of the
+    general instance (``kPool`` 2: bf16 pages with both scale pools, int8
+    pages with the K scale only, fp32 pages with both). Every state is
+    held with each acc row over its l (``_own_per_l``), the raw error
+    recorded beside. Each launch counts in the ``wide`` mode. Returns
+    {row: [records]}."""
+    gen = torch.Generator("cuda").manual_seed(37)
+    dev = "cuda"
+    h, kv, hd = GEMMA3_HEADS
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+
+    def rand(*shape, dtype=bf16, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(
+            dtype)
+
+    for name, (t, s, dtype, offset, emit, lib, mode) in {
+            "chunk_bf16_state": (128, 128, bf16, 0, True, False, {}),
+            "chunk_bf16_finalized": (128, 128, bf16, 0, False, True, {}),
+            "chunk_fp32_state": (128, 128, f32, 0, True, False, {}),
+            "chunk_fp32_finalized": (128, 128, f32, 0, False, False, {}),
+            "offset256_bf16_state": (128, 384, bf16, 256, True, False, {}),
+            "offset256_bf16_finalized": (128, 384, bf16, 256, False, False,
+                                         {}),
+            "offset256_fp32_state": (128, 384, f32, 256, True, False, {}),
+            "offset256_fp32_finalized": (128, 384, f32, 256, False, False,
+                                         {}),
+            "ragged_t77_offset200_bf16_state": (77, 277, bf16, 200, True,
+                                                False, {}),
+            "softcap50_bf16_state": (128, 384, bf16, 256, True, False,
+                                     dict(softcap=GEMMA_CAP)),
+            "softcap50_fp32_finalized": (128, 384, f32, 256, False, False,
+                                         dict(softcap=GEMMA_CAP)),
+            "window64_bf16_state": (128, 384, bf16, 256, True, False,
+                                    dict(window=64))}.items():
+        q = rand(1, t, h, hd, dtype=dtype, std=MODE_Q if mode else 1.0)
+        k, v = rand(1, s, kv, hd, dtype=dtype), rand(1, s, kv, hd,
+                                                     dtype=dtype)
+        before = dict(ck.MODE_LAUNCHES)
+        case = dict(case=f"gemma3_{name}",
+                    **flash_case(q, k, v, offset=offset, emit_state=emit,
+                                 library=lib, per_l=True, **mode))
+        if not lib:
+            call = lambda a=(q, k, v), e=emit, o=offset, m=mode: (  # noqa
+                fk.flash_prefill(*a, offset=o, emit_state=e, **m))
+            case.update(device_ms=device_ms(call, "flash_prefill_kernel"),
+                        single_call_ms=single_call_ms(call))
+        row = _wide_row("flash_prefill", before)
+        out.setdefault(row, []).append(case)
+        _log_case(row, case)
+
+    b, p_slot = 3, MAX_SEQ // PAGE
+    n_pool = 2 * b * p_slot + 1
+    ids = (torch.randperm(n_pool - 1, generator=gen, device=dev)
+           + 1).to(torch.int32)
+    bt_k = ids[:b * p_slot].reshape(b, p_slot)
+    bt_v = ids[b * p_slot:2 * b * p_slot].reshape(b, p_slot)
+    plen = torch.tensor((0, 200, 384), dtype=torch.int32, device=dev)
+    x = torch.randn(n_pool, kv, PAGE, hd, generator=gen, device=dev)
+    q = torch.randn(b, 128, h, hd, generator=gen, device=dev)
+    for name, pair in (("bf16", ("bf16", "bf16")), ("fp32", ("f32", "f32")),
+                       ("int8", ("i8s", "i8s")),
+                       ("kv_bf16s_bf16s", ("bf16s", "bf16s")),
+                       ("kv_i8s_i8", ("i8s", "i8")),
+                       ("kv_f32s_f32s", ("f32s", "f32s"))):
+        base = pair[0].rstrip("s")
+        k_s, v_s = pair[0].endswith("s"), pair[1].endswith("s")
+        pool, spool = kv_side(x, base + ("s" if k_s or v_s else ""), gen)
+        sc = dict(k_scale_pool=spool if k_s else None,
+                  v_scale_pool=spool if v_s else None)
+        qq = _kv_query(q, pair[0]).to(f32 if base == "f32" else bf16)
+        args = (qq, pool, bt_k, bt_v, plen)
+        before = dict(ck.MODE_LAUNCHES)
+        _bitwise(f"paged_prefix_attend wide {name}: two launches",
+                 fk.paged_prefix_attend(*args, **sc),
+                 fk.paged_prefix_attend(*args, **sc))
+        row = _wide_row("paged_prefix_attend", before)
+        case = dict(case=f"gemma3_rows_0_200_384_{name}",
+                    pairing="/".join(pair),
+                    **prefix_case(*args, v_unit=_kv_unit(pair[1]),
+                                  per_l=True, **sc),
+                    repeat_bitwise=True)
+        call = lambda a=args, kw=sc: fk.paged_prefix_attend(*a, **kw)  # noqa
+        case["device_ms"] = device_ms(call, "paged_prefix_attend_kernel")
+        case["single_call_ms"] = single_call_ms(call)
+        out.setdefault(row, []).append(case)
+        _log_case(row, case)
+        del pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_relay_checks():
+    """``relay_prefix_decode`` at head dim 320 on gemma3-4b's GQA layout
+    (``relay_maps`` with 4 KV groups of 2 reps and 2 heads: 4 query rows a
+    member on each K row), G = 2 groups of 4 and 3 members (the fourth
+    slot of group 1 padded) at plen 1000 and 700 over Sp = 1024, each at
+    2e-5 against its plain version with each acc row over its query's l
+    (``relay_case(per_l=True)``: over up to 1000 positions the raw sums
+    round apart by ~1e-7 of l; the raw error recorded beside) and launched
+    twice ``torch.equal``: bf16, fp32, int8 K and V with scales, int8 K
+    with scales beside raw int8 V (also over 127), the softcap at 50 on
+    queries of std MODE_Q, and two pairings of the general blocks (bf16 K
+    beside int8 V with scales; fp32 K with scales beside bf16 V); then G =
+    1 of 4 members at Sp = 65,536 (bf16). Each launch counts in the
+    ``wide`` mode. Returns {row: [records]}."""
+    gen = torch.Generator("cuda").manual_seed(41)
+    dev = "cuda"
+    hd, nmax, sp = GEMMA3_HEADS[2], 4, MAX_SEQ
+    out = {}
+
+    def run(tag, q, k, v, maps, plen_t, pair=None, **kw):
+        before = dict(ck.MODE_LAUNCHES)
+        kw["per_l"] = True
+        if pair is not None:
+            kk, ks = kv_side(k, pair[0], gen)
+            vv, vs = kv_side(v, pair[1], gen)
+            q, k, v = _kv_query(q, pair[0]), kk, vv
+            kw.update(k_scale=ks, v_scale=vs, v_unit=_kv_unit(pair[1]))
+        case = dict(case=f"gemma3_{tag}", **relay_case(q, k, v, *maps,
+                                                       plen_t, PAGE, **kw))
+        if pair is not None:
+            case["pairing"] = "/".join(pair)
+        row = _wide_row("relay_prefix_decode", before)
+        sc = {n: kw[n] for n in ("k_scale", "v_scale", "softcap") if n in kw}
+        case["single_call_ms"] = single_call_ms(
+            lambda: ck.relay_prefix_decode(q, k, v, *maps, plen_t, ts=PAGE,
+                                           **sc), reps=5)
+        out.setdefault(row, []).append(case)
+        _log_relay(case)
+
+    k_row, a_row, v_row, r, kv, vr = relay_maps(
+        gen, (4, 3), nmax, gqa=True, layout=GEMMA3_LAYOUT)
+    maps = (k_row, a_row, v_row)
+    plen = (1000, 700)
+    plen_t = torch.tensor(plen, dtype=torch.int32, device=dev)
+    q = torch.randn(2, nmax * r, hd, generator=gen, device=dev)
+    k = torch.randn(2, kv, sp, hd, generator=gen, device=dev)
+    v = torch.randn(2, vr, sp, hd, generator=gen, device=dev)
+    for i, n in enumerate(plen):          # the engine's views: zero tail
+        k[i, :, n:] = 0
+        v[i, :, n:] = 0
+    run("g2_sp1024_bfloat16", q, k.to(torch.bfloat16), v.to(torch.bfloat16),
+        maps, plen_t)
+    run("g2_sp1024_float32", q, k, v, maps, plen_t)
+    for pair in (("i8s", "i8s"), ("i8s", "i8"), ("bf16", "i8s"),
+                 ("f32s", "bf16")):
+        run(f"g2_sp1024_{pair[0]}_{pair[1]}", q, k, v, maps, plen_t,
+            pair=pair)
+    run("g2_sp1024_softcap50_bfloat16", q * MODE_Q, k.to(torch.bfloat16),
+        v.to(torch.bfloat16), maps, plen_t, softcap=GEMMA_CAP)
+    del k, v
+    k_row, a_row, v_row, r, kv, vr = relay_maps(
+        gen, (4,), nmax, gqa=True, layout=GEMMA3_LAYOUT)
+    sp = 65536
+    q = torch.randn(1, nmax * r, hd, generator=gen, device=dev)
+    k = torch.randn(1, kv, sp, hd, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn(1, vr, sp, hd, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    run("long_65536_g1_bfloat16", q, k, v, (k_row, a_row, v_row),
+        torch.tensor([sp], dtype=torch.int32, device=dev))
+    del k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_kv_checks():
+    """The fused pair at head dim 320 on every general K/V pairing
+    (``KV_PAIRS`` whose ``kv_body`` is the general body: the
+    ``_wide_kv`` libraries) and on fp32 K and V (the serving pairings'
+    fp32 instance of the ``_wide`` libraries), each through
+    ``fused_pair_case`` on gemma3-4b's layout (8 heads over 4 KV groups,
+    2 reps a group, B 4, S 1024, a WARMUP-like row): against its plain
+    version at 2e-5 (raw int8 V held over 127), paged == dense and two
+    launches ``torch.equal``, emit + identity merge + finalize ==
+    finalized, device and single-call times. Each launch counts in the
+    ``wide`` mode. Returns {row: [records]}."""
+    gen = torch.Generator("cuda").manual_seed(43)
+    h, kv, hd = GEMMA3_HEADS
+    out = {}
+    pairs = [("f32", "f32")] + [
+        p for p in KV_PAIRS if p[0] != "i8s" or p[1] != "i8"]
+    for pair in pairs:
+        q, k, v, h2c, pos = synthetic_case(gen, b=4, h=h, kv=kv, rpg=2,
+                                           s=MAX_SEQ, hd=hd,
+                                           dtype=torch.float32,
+                                           empty_rep=None)
+        h2c[1] = 0
+        kk, ks = kv_side(k, pair[0], gen)
+        vv, vs = kv_side(v, pair[1], gen)
+        del k, v
+        before = dict(ck.MODE_LAUNCHES)
+        recs = fused_pair_case(
+            f"wide_kv_{pair[0]}_{pair[1]}", _kv_query(q, pair[0]), kk, vv,
+            h2c, pos, rpg=2, gen=gen, null_k_rows=(1,), k_scale=ks,
+            v_scale=vs, v_unit=_kv_unit(pair[1]),
+            profile=True)
+        for name, rec in recs.items():
+            rec["pairing"] = "/".join(pair)
+            out.setdefault(_wide_row(name, before), []).append(rec)
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------ phase 4 ----
@@ -5338,7 +5632,7 @@ def prefix_path(cfg, params, tag="prefix"):
     got = ck.paged_chai_fused_decode(*pa, **kw)
     want = kref.paged_chai_fused_decode_ref(*pa, **kw)
     if raw_v:       # raw int8 V codes: acc rows held over their l
-        got, want = _share_per_l(got), _share_per_l(want)
+        got, want = _own_per_l(got), _own_per_l(want)
     err = _hold(got, want)
     emit_main = dict(case=f"{tag}_relay_first_relay_step_layer0_emit_state",
                      emit_state=True, pos=pc["pos"].tolist(), max_abs_err=err,
@@ -5961,11 +6255,19 @@ def pipeline_lane(inputs):
             cache = t["k_pool"].element_size()
         else:
             s, cache = t["k"].shape[2], (1 if int8 else t["k"].element_size())
-        prof = device_profile(pipe)
-        stages = {func: sum(ms for key, ms in prof.items()
-                            if re.search(rf"\b{func}\b", key))
-                  for func in ("qk_kernel", "row_softmax_kernel",
-                               "av_kernel")}
+        # a trace can hold the lane's torch kernels but miss the three
+        # launched through ctypes: take up to three, else record none
+        for _ in range(3):
+            prof = device_profile(pipe)
+            stages = {func: sum(ms for key, ms in prof.items()
+                                if re.search(rf"\b{func}\b", key))
+                      for func in ("qk_kernel", "row_softmax_kernel",
+                                   "av_kernel")}
+            if all(stages.values()):
+                break
+        else:
+            log(f"lane {label}: no trace held the pipeline's three kernels "
+                f"({sorted(prof)}): its device times not measured")
         rec = dict(
             case=label, kind=kind, q=list(t["q"].shape), rpg=rpg, int8=int8,
             share_values=share,
@@ -6004,7 +6306,7 @@ def pipeline_lane(inputs):
                                           tables=tables, share=share,
                                           **flags)
             rec.update(fused_bound_ms=bound)
-            if rec["fused_device_ms"]:
+            if rec["fused_device_ms"] and all(stages.values()):
                 rec.update(
                     fused_over_pipeline_device=(
                         rec["fused_device_ms"]
@@ -6445,18 +6747,19 @@ class _PrefillModes:
     finalize_prefill_state = staticmethod(kops.finalize_prefill_state)
 
 
-def gemma2_suffix_prefill_path(cfg, params, label):
-    """gemma2-9b's model-level suffix prefill at full depth and width
-    (``models.transformer.forward_fullseq(prefix_len, prefix_kv)``, the
+def suffix_prefill_path(cfg, params, label):
+    """A model's suffix prefill at full width (gemma2-9b, gemma3-4b:
+    ``models.transformer.forward_fullseq(prefix_len, prefix_kv)``, the
     reference's suffix prefill; the engines refuse the prefix cache on a
     local arch, as the reference's do): a 256-token prefix prefilled into
     a dense state (eager attention, no launch), its global K/V (under
     int8: codes and scales) moved to shuffled pool pages, then a
     128-token suffix over them. Every global layer merges
     ``paged_prefix_attend`` over the pages with ``flash_prefill`` over
-    the suffix, both in the softcap mode (the pool int8 under int8): a
-    launch of each a global layer and nothing else. The logits are
-    finite and hold
+    the suffix, in the model's softcap mode when it has one (the pool
+    int8 under int8; at head dim 320 every launch in the ``wide`` mode,
+    none elsewhere): a launch of each a global layer and nothing else.
+    The logits are finite and hold
     the plain route's (the same call with every prefill op on its plain
     version) greedy token on every position whose plain top-2 margin
     exceeds CHUNK_MARGIN (bf16 activations round apart between the two
@@ -6510,10 +6813,16 @@ def gemma2_suffix_prefill_path(cfg, params, label):
         finally:
             tfm.kops = kops
         out[route] = (logits.float(), launches, modes.calls, wall,
-                      int(st["pos"][0]))
+                      int(st["pos"][0]), MODE_RUNS[-1])
         del st
-    logits, launches, calls, wall, pos = out["kernels"]
-    plain, _, plain_calls, plain_wall, _ = out["plain"]
+    logits, launches, calls, wall, pos, by_mode = out["kernels"]
+    plain, _, plain_calls, plain_wall, _, _ = out["plain"]
+    wide = sum(n for key, n in by_mode.items()
+               if "wide" in key.partition("[")[2].rstrip("]").split("+"))
+    if wide != (2 * ng if hd == ck.WIDE_HD else 0):
+        raise AssertionError(f"{label}: launches by mode {by_mode}; at head "
+                             f"dim {hd} every prefill launch counts in the "
+                             "wide mode, elsewhere none")
     want = {k: 0 for k in launches}
     want["flash_prefill"] = want["paged_prefix_attend"] = ng
     dt = "int8" if int8 else cfg.dtype
@@ -6538,7 +6847,8 @@ def gemma2_suffix_prefill_path(cfg, params, label):
                              f"{CHUNK_MARGIN}")
     diff = float((logits - plain).abs().max())
     log(f"{label}: forward_fullseq over a {plen}-token prefix in pages "
-        f"({dt}) and a {t}-token suffix: launches {launches}, prefill op "
+        f"({dt}) and a {t}-token suffix: launches {launches} (by mode "
+        f"{by_mode}), prefill op "
         f"calls by (op, softcap, dtype) {calls}; {wall * 1e3:.2f} ms "
         f"(plain route {plain_wall * 1e3:.2f} ms); greedy tokens equal to "
         f"the plain route's on {int(same.sum())} of {t} positions, all "
@@ -8352,8 +8662,13 @@ def gemma3_path():
     in its wide-head mode 5 times a step with a STEADY slot, the flash
     decode pair in its wide mode 5 times an MHA-baseline step, the local
     layers eager; paged == dense tokens; KV bytes unchanged at CLUSTER
-    (GQA keeps its dense pages, as the reference does); empty pools.
-    Returns ``gemma2_path``'s triple."""
+    (GQA keeps its dense pages, as the reference does); empty pools. Then
+    gemma3's model-level suffix prefill (``suffix_prefill_path``) on the
+    same weights, bf16 and then on the int8 KV cache: 5
+    ``flash_prefill`` and 5 ``paged_prefix_attend`` launches each (the
+    int8 one's pool int8), all in the ``wide`` mode. Returns
+    ``gemma2_path``'s triple, its launches joined by the suffix
+    prefills'."""
     cfg, params = init_full_model(GEMMA3)
     ids = tuple(i for i, t in enumerate(cfg.layer_types)
                 if t == "attn_global")
@@ -8363,13 +8678,19 @@ def gemma3_path():
                              f"{ids}, window {cfg.window_size}, head_dim "
                              f"{cfg.head_dim}")
     t0 = time.time()
-    out = gemma2_path(cfg, params, label="gemma3", mha_depth=None,
-                      traffic=ZOO_TRAFFIC)
+    launches, cases, sums = gemma2_path(cfg, params, label="gemma3",
+                                        mha_depth=None, traffic=ZOO_TRAFFIC)
+    t1 = time.time()
+    for c, label in ((cfg, "gemma3_suffix_prefill"),
+                     (cfg.replace(kv_cache_dtype="int8"),
+                      "gemma3_int8_suffix_prefill")):
+        launches.update(suffix_prefill_path(c, params, label)[0])
     log(f"phase 21a (gemma3-4b, {cfg.n_layers} layers): "
-        f"{time.time() - t0:.1f} s")
+        f"{time.time() - t0:.1f} s, the two suffix prefills "
+        f"{time.time() - t1:.1f} s of it")
     del params
     _free()
-    return out
+    return launches, cases, sums
 
 
 class _FfnTimer:
@@ -9675,8 +9996,18 @@ def main():
     share_cases = share_kernel_checks()
     softcap_cases = softcap_kernel_checks()
     mode_cases = prefill_mode_checks()
-    g_layer = gemma2_suffix_prefill_check()
+    g_layer = suffix_layer_check("gemma2", GEMMA_HEADS, GEMMA_CAP)
     wide_cases, narrow_cases = wide_head_checks()
+    # head dim 320 on the prefill pair, the relay and the fused pair's
+    # general pairings (the fp32 serving pairing joins the [wide] rows)
+    t0 = time.time()
+    g3_layer = suffix_layer_check("gemma3", GEMMA3_HEADS, 0.0)
+    wide_more = {**wide_prefill_checks(), **wide_relay_checks()}
+    for row, cases in wide_kv_checks().items():
+        (wide_cases if row in wide_cases else wide_more).setdefault(
+            row, []).extend(cases)
+    log(f"phase 3, head dim 320 of the prefill pair, the relay and the "
+        f"general pairings: {time.time() - t0:.1f} s")
     sass_counts_done()
     for arch in (ARCH, NEMO):
         reduced_reference_check(arch)
@@ -9805,14 +10136,14 @@ def main():
     t0 = time.time()
     gcfg, gparams = init_full_model(GEMMA, n_layers=SIDE_DEPTH)
     g_launches, g_cases, g_sums = gemma2_path(gcfg, gparams)
-    sp_launches, _ = gemma2_suffix_prefill_path(gcfg, gparams,
-                                                "gemma2_suffix_prefill")
+    sp_launches, _ = suffix_prefill_path(gcfg, gparams,
+                                         "gemma2_suffix_prefill")
     # Phase 14: gemma2-9b on the int8 KV cache, on phase 13's weights.
     gcfg8 = gcfg.replace(kv_cache_dtype="int8")
     g8_launches, g8_cases, _ = gemma2_int8_path(gcfg8, gparams, g_launches,
                                                 g_sums)
-    sp8_launches, _ = gemma2_suffix_prefill_path(
-        gcfg8, gparams, "gemma2_int8_suffix_prefill")
+    sp8_launches, _ = suffix_prefill_path(gcfg8, gparams,
+                                          "gemma2_int8_suffix_prefill")
     log(f"phases 13-14 (gemma2-9b, {gcfg.n_layers} layers): "
         f"{time.time() - t0:.1f} s")
     del gparams
@@ -9888,6 +10219,21 @@ def main():
         mains[f"{name}[wide]"] = (g3_cases[name], path,
                                   wide_cases[f"{name}[wide]"]
                                   + [g3_cases[name]])
+    # The prefill pair at head dim 320 on gemma3-4b's suffix prefills
+    # (phase 21a; the main cases are gemma3's full-width layer check of
+    # phase 3); every other head-dim-320 mode (the prefill pair's modes and
+    # general pool, the relay, the fused pair's general pairings) on no
+    # path: its launches by mode over every run must be 0.
+    for row, key, path in (
+            ("flash_prefill[wide]", "flash_prefill", "gemma3_suffix_prefill"),
+            ("paged_prefix_attend[wide]", "paged_prefix_attend",
+             "gemma3_suffix_prefill"),
+            ("paged_prefix_attend[int8+wide]", "paged_prefix_attend_int8",
+             "gemma3_int8_suffix_prefill")):
+        mains[row] = (g3_layer[key], path,
+                      wide_more.pop(row) + [g3_layer[key]])
+    for row, cases in wide_more.items():
+        mains[row] = (cases[0], None, cases)
     for name in PIPE_KERNELS:
         mains[name] = (pipe_mains[name][0], "pipeline_lane",
                        pipe_cases[name] + pipe_mains[name]

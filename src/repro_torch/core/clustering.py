@@ -72,6 +72,14 @@ def identify_membership(scores, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
             "reps": reps}
 
 
+def membership_churn(prev_ctx, new_ctx):
+    """Fraction of heads whose cluster id changed between two ctxs (the
+    paper's Fig. 9 metric): ``h2c`` (MHA) or ``cluster_of`` (GQA), as
+    ``new_ctx`` holds it. Returns a 0-d fp32 tensor."""
+    key = "h2c" if "h2c" in new_ctx else "cluster_of"
+    return (prev_ctx[key] != new_ctx[key]).float().mean()
+
+
 def identify_membership_slot(scores, cfg: ModelConfig, identify_fn=None):
     """Membership for ONE request. scores: (nA, H, F).
 

@@ -10,8 +10,10 @@ bodies) and is compiled on first use with
 
 into ``build/kernels/`` at the repository root (listed in ``.gitignore``).
 A variant (``VARIANTS``) is a kernel's source built again with extra
-compile definitions into a library of its own: the wide-head fused
-decode pair, ``lib<kernel>_wide.so``, with the head dim fixed at 320.
+compile definitions into a library of its own: the wide head's (head dim
+fixed at 320, gemma3-4b's), ``lib<kernel>_wide.so`` for the fused decode
+pair's serving pairings and the prefill pair, and
+``lib<kernel>_wide_kv.so`` for the fused pair's general pairings.
 A library newer than its source and than every header in ``csrc/`` (the
 tile steps the decode, relay, prefill and flash decode kernels include)
 is reused. A missing ``nvcc`` or a failed build raises: nothing falls
@@ -36,11 +38,18 @@ KERNELS = ("chai_fused_decode", "paged_chai_fused_decode", "flash_prefill",
 SOURCE_OF = {"chai_qk_i8": "chai_qk", "paged_chai_qk": "chai_qk",
              "paged_chai_av": "chai_av"}
 # Libraries built from a kernel's source with extra compile definitions:
-# {library: (source, flags)}. The fused decode pair's wide-head
-# instances (gemma3-4b's head_dim 320) get libraries of their own, so the
-# instances of head dims up to 256 keep their code and build in parallel.
-VARIANTS = {f"{k}_wide": (k, ("-DCHAI_FIXED_HD=320",))
-            for k in ("chai_fused_decode", "paged_chai_fused_decode")}
+# {library: (source, flags)}. The wide-head instances (gemma3-4b's
+# head_dim 320) get libraries of their own, so the instances of head dims
+# up to 256 keep their code and every library builds in parallel: the
+# fused decode pair's serving pairings (``_wide``) and general pairings
+# (``_wide_kv``), and the prefill pair (``_wide``).
+_FUSED = ("chai_fused_decode", "paged_chai_fused_decode")
+VARIANTS = {
+    **{f"{k}_wide": (k, ("-DCHAI_FIXED_HD=320",)) for k in _FUSED},
+    **{f"{k}_wide_kv": (k, ("-DCHAI_FIXED_HD=320", "-DCHAI_WIDE_GENERAL=1"))
+       for k in _FUSED},
+    **{f"{k}_wide": (k, ("-DFLASH_FIXED_HD=320",))
+       for k in ("flash_prefill", "paged_prefix_attend")}}
 LIBRARIES = KERNELS + tuple(VARIANTS)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -92,9 +92,9 @@ LAUNCHES = {"chai_fused_decode": 0, "paged_chai_fused_decode": 0,
 # "<kernel>[<modes>]" -> launches, the modes a launch ran joined by "+" in
 # the order of _MODES; a launch in no mode is counted in LAUNCHES only.
 # "kv" names a K/V pairing that no serving path runs ("kv=<K>/<V>", see
-# ``kv_modes``); "wide" a launch of a wide-head instance (head_dim 320:
-# the fused pair's ``_wide`` libraries, the flash decode pair's kWideHd
-# instance).
+# ``kv_modes``); "wide" a launch at head_dim 320 (``WIDE_HD``: the fused
+# pair's and the prefill pair's wide libraries, the flash decode pair's
+# kWideHd instance, the relay kernel's blocks at that head dim).
 MODE_LAUNCHES: dict = {}
 _MODES = ("kv", "int8", "share", "softcap", "window", "wide")
 
@@ -113,8 +113,8 @@ _CHUNK = 128            # kChunk: positions per chunk, the longest step
 _THREADS = 128          # kThreads
 _MAX_Q = 8              # kMaxQ: rep queries of one K row (reps_per_group)
 _MAX_HD = 256           # kMaxHd
-# kWideHd: the head_dim of the fused pair's wide-head libraries
-# (build.VARIANTS; gemma3-4b's 2560 / 8)
+# kWideHd: the head_dim of the wide-head libraries (build.VARIANTS;
+# gemma3-4b's 2560 / 8), which the relay kernel takes at run time too
 WIDE_HD = 320
 _MAX_SPLIT = 64         # kMaxSplit
 _SLICE = 8              # kSlice: members (accumulator rows) of a block
@@ -341,6 +341,15 @@ def _launcher(name, n_ptrs, n_ints, n_floats=0, lib=None):
     return fn
 
 
+def _wide_lib(name, wide, body):
+    """The variant library a fused decode launch takes (``build.
+    VARIANTS``): none below head_dim 320; at 320 the serving pairings'
+    (``<name>_wide``) or the general body's (``<name>_wide_kv``)."""
+    if not wide:
+        return None
+    return f"{name}_wide_kv" if body == KV_GENERAL else f"{name}_wide"
+
+
 def _check_scales(name, k, v, k_scale, v_scale):
     """Each side on its own, as the Pallas bodies read it: K and V are
     each fp32, bf16 or int8, and each scale is optional; a scale, where
@@ -374,22 +383,17 @@ def kv_modes(body, k, k_scale, v, v_scale):
                             for x, sc in ((k, k_scale), (v, v_scale))))
 
 
-def _check_block(name, hd, reps_per_group, cfg, body=None):
+def _check_block(name, hd, reps_per_group, cfg):
     """The block body's limits: 16-byte row loads, at most ``_MAX_Q``
     queries a block, and a block's shared memory (fixed in S; it grows
-    with the member map only). ``body`` (the fused pair's ``kv_body``):
-    head_dim ``WIDE_HD`` is taken too, on the wide-head libraries, which
-    hold the serving pairings' bodies only; without it (the relay) the
-    head dim is at most ``_MAX_HD``."""
-    wide = body is not None and hd == WIDE_HD
-    if hd % 8 or not (0 < hd <= _MAX_HD or wide):
+    with the member map only). The head dim: a multiple of 8 up to
+    ``_MAX_HD``, or ``WIDE_HD`` (the fused pair on its wide-head
+    libraries, every K/V pairing; the relay kernel, whose blocks take the
+    head dim at run time)."""
+    if hd % 8 or not (0 < hd <= _MAX_HD or hd == WIDE_HD):
         raise ValueError(f"{name}: head_dim {hd} must be a multiple of 8 "
-                         f"and at most {_MAX_HD} (16-byte row loads)"
-                         + (f", or {WIDE_HD}" if body is not None else ""))
-    if wide and body == KV_GENERAL:
-        raise ValueError(f"{name}: head_dim {WIDE_HD} runs the serving "
-                         "paths' K/V pairings (one float type, or int8 with "
-                         "its K scales), not a general pairing")
+                         f"and at most {_MAX_HD} (16-byte row loads), or "
+                         f"{WIDE_HD}")
     if not 0 < reps_per_group <= _MAX_Q:
         raise ValueError(f"{name}: reps_per_group {reps_per_group} must be "
                          f"1..{_MAX_Q}")
@@ -535,8 +539,8 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     once scaled, becomes softcap * tanh(score / softcap) before the mask,
     in any of the modes above.
     head_dim: a multiple of 8 up to 256, or ``WIDE_HD`` (320, gemma3-4b)
-    on the wide-head library (``build.VARIANTS``; the serving pairings
-    only), counted in the ``wide`` mode.
+    on the wide-head libraries (``build.VARIANTS``: the serving pairings'
+    and the general pairings'), counted in the ``wide`` mode.
     """
     _check_scales("chai_fused_decode", k_cache, v_cache, k_scale, v_scale)
     if share_values:
@@ -554,7 +558,7 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     cfg, ts = dense_launch_config(
         q_rep, k_cache, h2c, reps_per_group=reps_per_group, ts=ts,
         share_values=share_values, general=body == KV_GENERAL)
-    _check_block("chai_fused_decode", hd, reps_per_group, cfg, body)
+    _check_block("chai_fused_decode", hd, reps_per_group, cfg)
     wide = hd == WIDE_HD
     dev = q_rep.device
     q = q_rep.float().contiguous()
@@ -567,7 +571,7 @@ def chai_fused_decode(q_rep, k_cache, v_cache, h2c, pos, *, k_scale=None,
     rows = r_total if share_values else h_total
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state, rows)
     fn = _launcher("chai_fused_decode", 14, 19, 1,
-                   lib="chai_fused_decode_wide" if wide else None)
+                   lib=_wide_lib("chai_fused_decode", wide, body))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch = split_scratch(cfg.n_split, b, r_total, rows, hd,
@@ -614,7 +618,7 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     ONE kernel launch, or the ``emit_state`` triple. ``share_values``:
     v_pool is the clustered pool (KVv == R; the engine's ``cp`` through
     ``bt_vc``), as in the dense call; ``softcap`` and head_dim 320 (the
-    wide-head library) as in the dense call.
+    wide-head libraries) as in the dense call.
     """
     _check_scales("paged_chai_fused_decode", k_pool, v_pool, k_scale_pool,
                   v_scale_pool)
@@ -637,7 +641,7 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     cfg = paged_launch_config(
         q_rep, k_pool, bt_k, h2c, reps_per_group=reps_per_group,
         share_values=share_values, general=body == KV_GENERAL)
-    _check_block("paged_chai_fused_decode", hd, reps_per_group, cfg, body)
+    _check_block("paged_chai_fused_decode", hd, reps_per_group, cfg)
     wide = hd == WIDE_HD
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
                     ("k_scale_pool", k_scale_pool),
@@ -653,7 +657,7 @@ def paged_chai_fused_decode(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
     rows = r_total if share_values else h_total
     out, m, l = _outputs(b, r_total, h_total, hd, dev, emit_state, rows)
     fn = _launcher("paged_chai_fused_decode", 16, 19, 1,
-                   lib="paged_chai_fused_decode_wide" if wide else None)
+                   lib=_wide_lib("paged_chai_fused_decode", wide, body))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch = split_scratch(cfg.n_split, b, r_total, rows, hd,
@@ -697,8 +701,9 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
     the S-tile (0: Sp; the whole prefix when it does not divide Sp). Any
     Sp, NR and A: the kernel streams Sp with shared memory fixed in all
     three, cut into ``split_plan`` ranges merged inside the launch; at
-    most 256 K rows and 256 V rows. Scratch: the scores (G, NR, Sp) fp32
-    and the splits' partial states.
+    most 256 K rows and 256 V rows. head_dim: a multiple of 8 up to 256,
+    or ``WIDE_HD`` (320), counted in the ``wide`` mode. Scratch: the
+    scores (G, NR, Sp) fp32 and the splits' partial states.
     Returns (m (G, NR), l (G, NR), acc (G, A, hd)) fp32, unnormalized, from
     ONE kernel launch.
     """
@@ -726,6 +731,7 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
     ts = fused_tile_size(ts, sp)
     cfg = relay_launch_config(g, nr, a_total, kv, vr, sp // ts)
     _check_block("relay_prefix_decode", hd, 1, cfg)
+    wide = hd == WIDE_HD
     dev = q.device
     qf = q.float().contiguous()
     kc, vc = k.contiguous(), v.contiguous()
@@ -757,7 +763,8 @@ def relay_prefix_decode(q, k, v, k_row, a_row, v_row, plen, *, k_scale=None,
         raise RuntimeError(f"relay_prefix_decode launch failed: CUDA error "
                            f"{err}")
     count_launch(LAUNCHES, "relay_prefix_decode",
-                 **kv_modes(body, kc, ks, vc, vs), softcap=softcap)
+                 **kv_modes(body, kc, ks, vc, vs), softcap=softcap,
+                 wide=wide)
     return m, l, acc
 
 

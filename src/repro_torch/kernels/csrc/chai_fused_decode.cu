@@ -60,9 +60,15 @@
 // -DCHAI_FIXED_HD=320 (kernels/build.py: VARIANTS), so the two share every
 // line and the head dims up to 256 keep their own library and instances.
 // The wide library's launcher takes hd == 320 and the serving paths' K/V
-// pairings only (one float type, or int8 with its scales).
+// pairings only (one float type, or int8 with its scales); built once
+// more with -DCHAI_WIDE_GENERAL=1 as well, it takes hd == 320 and the
+// general body's pairings only (lib<kernel>_wide_kv.so), so neither wide
+// library's build holds the other's instances.
 #ifndef CHAI_FIXED_HD
 #define CHAI_FIXED_HD 0
+#endif
+#ifndef CHAI_WIDE_GENERAL
+#define CHAI_WIDE_GENERAL 0
 #endif
 
 namespace {
@@ -174,7 +180,8 @@ struct Launch {
 // with values in
 // [0, R); pos: (B,) int32; out: (B, H, hd) fp32; m, l: (B, R) fp32, or
 // both null. All contiguous and 16-byte aligned; hd % 8 == 0, hd <= 256
-// (the wide-head library: hd == 320, the serving pairings only);
+// (the wide-head libraries: hd == 320, the serving pairings in one, the
+// general ones in the other);
 // R == kv_k * rpg with rpg <= 8; S % ts == 0; ``step`` (<= 128) divides
 // ts. The split plan: n_split (<= 64) ranges of ``tps`` tiles; with
 // n_split > 1 the scratch mp, lp (B, n_split, R), accp (B, n_split, H,
@@ -208,18 +215,23 @@ extern "C" int chai_fused_decode_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kFixedHd ? hd != kFixedHd : hd > kMaxHd)
     return static_cast<int>(cudaErrorInvalidValue);
+#if CHAI_WIDE_GENERAL
+  // the wide general library serves the general body only
+  if (body != kBodyGeneral) return static_cast<int>(cudaErrorInvalidValue);
+#else
   if (body != kBodyGeneral)   // one type for K and V
     return with_elem(k_type, [&](auto t) {
       using T = decltype(t);
       return with_queries(rpg, Launch<T, T, false>{a, B, st});
     });
-#if CHAI_FIXED_HD == 0
+#endif
+#if CHAI_FIXED_HD == 0 || CHAI_WIDE_GENERAL
   return with_kv_types(k_type, v_type, [&](auto tk, auto tv) {
     return Launch<decltype(tk), decltype(tv), true>{a, B, st}
         .template run<kGeneralQ>();
   });
 #else
-  // the wide head serves the serving paths' pairings only
+  // the wide serving library serves the serving paths' pairings only
   return static_cast<int>(cudaErrorInvalidValue);
 #endif
 }

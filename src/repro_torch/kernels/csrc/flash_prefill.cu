@@ -40,6 +40,11 @@
 // not be multiples of the tiles: rows and keys past the edges are
 // zero-filled and masked in the kernel. The offset is read from device
 // memory, so a traced start position costs no host sync.
+//
+// Head dim 320 (gemma3-4b's global layers) runs the wide block of
+// flash_tiles.cuh (the two warp groups split the output columns over
+// every key tile, one tile a round), built into its own library
+// (FLASH_FIXED_HD=320, kernels/build.py: VARIANTS) in both instances.
 
 #include "flash_tiles.cuh"
 
@@ -83,11 +88,12 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      float cap) {
   using L = Layout<T, HD>;
   constexpr int kTs = L::kTs;
+  constexpr int kPer = L::kRoundTiles;  // tiles a round
   if constexpr (!kModes) window = 0;   // the plain instance: no window
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
-  T* ks = qs + kBlockRows * L::kStride;    // kStages x kKeyGroups K tiles
-  T* vs = ks + kStages * kKeyGroups * kTs * L::kStride;   // and V tiles
+  T* ks = qs + kBlockRows * L::kStride;    // kStages x kPer K tiles
+  T* vs = ks + kStages * kPer * kTs * L::kStride;   // and V tiles
   const int tid = threadIdx.x, warp = tid / 32;
   const int wq = warp % kWarps, kg = warp / kWarps;  // row group, key group
   const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
@@ -107,19 +113,17 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_first =
       window > 0 ? max(0, off + q0 - window + 1) / kTs : 0;
   const int n_tiles = max(0, t_end - t_first);
-  const int n_rounds = (n_tiles + kKeyGroups - 1) / kKeyGroups;
+  const int n_rounds = (n_tiles + kPer - 1) / kPer;
   const DenseRows<T> rows{k, v,
                           (static_cast<size_t>(b) * S * KV + kvh) * HD,
                           KV * HD};
-  // loop tile u of round r = u / kKeyGroups sits in buffer slot
-  // (r % kStages) * kKeyGroups + u % kKeyGroups
+  // loop tile u of round r = u / kPer sits in buffer slot
+  // (r % kStages) * kPer + u % kPer
   auto slot = [&](int u) {
-    return ((u / kKeyGroups) % kStages * kKeyGroups + u % kKeyGroups) *
-           kTs * L::kStride;
+    return ((u / kPer) % kStages * kPer + u % kPer) * kTs * L::kStride;
   };
   auto stage_round = [&](int r) {
-    for (int u = r * kKeyGroups; u < min(n_tiles, (r + 1) * kKeyGroups);
-         ++u) {
+    for (int u = r * kPer; u < min(n_tiles, (r + 1) * kPer); ++u) {
       const int k0 = (t_first + u) * kTs, n_keys = min(kTs, S - k0);
       stage_rows<T, HD>(ks + slot(u), kTs, n_keys,
                         [&](int j) { return rows.krow(k0 + j); }, tid,
@@ -137,7 +141,10 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the first key of the warp's first row's window (0 without a window)
   const int w_first = window > 0 ? off + r0 - window + 1 : 0;
   const bool w_live = r0 < n_q;
-  State<HD> st;
+  // the wide block: every warp reads the round's one tile, at its
+  // column group's first column of V
+  const int v_col = L::kWide ? kg * L::kCols : 0;
+  State<L::kCols> st;
   st.init();
   for (int r = 0; r < n_rounds; ++r) {
     if (r + 1 < n_rounds) {
@@ -148,17 +155,18 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int u = r * kKeyGroups + kg, k0 = (t_first + u) * kTs;
+    const int u = r * kPer + (L::kWide ? 0 : kg), k0 = (t_first + u) * kTs;
     if (u < n_tiles && w_live && k0 <= w_last && k0 + kTs > w_first)
       attend_tile<T, HD, false, kModes>(
-          qs + wq * kRows * L::kStride, ks + slot(u), vs + slot(u),
+          qs + wq * kRows * L::kStride, ks + slot(u), vs + slot(u) + v_col,
           min(kTs, S - k0), CausalMask<kModes>{off + r0, k0, window}, scale,
           cap, st);
     __syncthreads();
   }
   cp_async_wait<0>();
-  merge_key_groups<HD>(st, reinterpret_cast<float*>(ks));
-  if (kg == 0 && w_live)
+  if constexpr (!L::kWide)
+    merge_key_groups<HD>(st, reinterpret_cast<float*>(ks));
+  if ((L::kWide || kg == 0) && w_live)
     store_rows<T, HD>(st, b, h, r0, n_q, H, out, m_out, l_out, acc_out);
 }
 
@@ -192,8 +200,8 @@ int launch(const void* q, const void* k, const void* v, const void* offset,
 // emit_state == 0: out (B, n_q, H, hd) in the input dtype, m_out, l_out and
 // acc_out unused; emit_state == 1: m_out, l_out (B, H, n_q) and acc_out
 // (B, H, n_q, hd) fp32, out unused. H % KV == 0, hd a power of two from
-// 8 to 256 or 224 (else cudaErrorInvalidValue), every tensor 16-byte
-// aligned. window > 0: the sliding window (0: none); cap != 0: the softcap.
+// 8 to 256 or 224 (the wide library: 320; else cudaErrorInvalidValue),
+// every tensor 16-byte aligned. window > 0: the sliding window (0: none); cap != 0: the softcap.
 // Returns the launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, const void* offset,

@@ -69,6 +69,27 @@
 // takes the 32-key (bf16) or 16-key (fp32) tiles of rows over 256 bytes.
 // bf16 rows shorter than the mma's k of 16 are staged zero-padded to 16.
 // The wrappers require 16-byte aligned tensors.
+//
+// The wide head (kWideHd = 320, gemma3-4b's 2560 / 8) has a block of its
+// own (Layout::kWide). Its per-thread acc alone would be HD / 2 = 160
+// registers, and the tile's p.V sums as many again: the design of the
+// head dims up to 256 (which already spills at 224 and 256) cannot hold
+// both. So the two warp groups split the output columns instead of the
+// key tiles: warp (g, w) owns rows 16w .. 16w + 15 and columns
+// 160g .. 160g + 159 (Layout::kCols) over every key tile, and each round
+// stages one tile that both groups read. Both groups compute the whole
+// Q.K^T of their rows (the same instructions on the same data: the same
+// scores, m and l bit for bit), so nothing merges at the end: group g
+// writes its columns, group 0 the m and l. The p.V of a tile runs in
+// chunks of 80 columns (pv_wide), so a chunk's tile sums and V fragments
+// sit beside the 80-register acc. Its bf16 Q.K^T sums each k-step from
+// zeros and adds it to the score in fp32, as fp32 inputs do everywhere
+// (a 320-long dot in the tensor core's own accumulator drifted past 2e-5
+// on the card). Shared memory: the 64-row Q tile and
+// kStages rounds of one 16-key K and V tile, 84 KB (bf16) or 166 KB
+// (fp32), above the 48 KB default (allow_smem opts in). Its instances
+// are built only in the wide libraries (FLASH_FIXED_HD=320,
+// kernels/build.py: VARIANTS), so the instances up to 256 keep their code.
 
 #pragma once
 
@@ -91,11 +112,25 @@ constexpr int kGroupThreads = kWarps * 32;
 constexpr int kThreads = kGroupThreads * kKeyGroups;
 constexpr int kBlockRows = kWarps * kRows;
 constexpr int kStages = 2;      // rounds of tiles in flight (double buffering)
+constexpr int kWideHd = 320;    // the wide libraries' head dim (gemma3-4b)
+
+// The head dim of a library's instances: 0, every head dim up to 256 that
+// with_head_dim lists; or kWideHd alone, the wide library (the source
+// built again with -DFLASH_FIXED_HD=320, kernels/build.py: VARIANTS).
+#ifndef FLASH_FIXED_HD
+#define FLASH_FIXED_HD 0
+#endif
+static_assert(FLASH_FIXED_HD == 0 || FLASH_FIXED_HD == kWideHd,
+              "FLASH_FIXED_HD: 0 or the wide head dim");
 
 // Calls f(std::integral_constant<int, HD>()) for a supported head dim and
 // returns its result; cudaErrorInvalidValue for any other.
 template <typename F>
 int with_head_dim(int hd, F&& f) {
+#if FLASH_FIXED_HD
+  if (hd == FLASH_FIXED_HD)
+    return f(std::integral_constant<int, FLASH_FIXED_HD>());
+#else
   switch (hd) {
     case 8: return f(std::integral_constant<int, 8>());
     case 16: return f(std::integral_constant<int, 16>());
@@ -105,13 +140,17 @@ int with_head_dim(int hd, F&& f) {
     case 224: return f(std::integral_constant<int, 224>());
     case 256: return f(std::integral_constant<int, 256>());
   }
+#endif
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The staged row layout of element type T at head dim HD.
 template <typename T, int HD>
 struct Layout {
-  static_assert(HD == 8 || (HD % 16 == 0 && HD <= 256), "head dim");
+  static_assert(HD == 8 || (HD % 16 == 0 && HD <= 256) || HD == kWideHd,
+                "head dim");
+  // the wide block: the warp groups split the columns, not the key tiles
+  static constexpr bool kWide = HD > 256;
   static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   static constexpr int kVec = 16 / sizeof(T);               // T per copy
   static constexpr int kDim = (kBf16 && HD < 16) ? 16 : HD;  // staged width
@@ -123,15 +162,21 @@ struct Layout {
   // than 32 at the chunk's shapes on the card)
   static constexpr int kTs =
       sizeof(T) * HD <= 256 ? 64 : sizeof(T) * HD <= 512 ? 32 : 16;
-  // the K and V tiles of kStages rounds of kKeyGroups tiles
+  // key tiles a round: one per key group, or (wide) one both groups read
+  static constexpr int kRoundTiles = kWide ? 1 : kKeyGroups;
+  // output columns a warp accumulates: all, or (wide) its group's half
+  static constexpr int kCols = kWide ? HD / kKeyGroups : HD;
+  // the K and V tiles of kStages rounds of kRoundTiles tiles
   static constexpr size_t kTileBytes =
-      static_cast<size_t>(2 * kStages * kKeyGroups * kTs) * kStride *
+      static_cast<size_t>(2 * kStages * kRoundTiles * kTs) * kStride *
       sizeof(T);
   // Shared memory of a block, in bytes: the queries, then the tiles.
   static constexpr size_t kBytes =
       static_cast<size_t>(kBlockRows) * kStride * sizeof(T) + kTileBytes;
-  // the tiles' space holds the key groups' exchange at the end
-  static_assert(kTileBytes >= (HD / 2 + 4) * kGroupThreads * sizeof(float),
+  // the tiles' space holds the key groups' exchange at the end (the wide
+  // block has no exchange)
+  static_assert(kWide ||
+                    kTileBytes >= (HD / 2 + 4) * kGroupThreads * sizeof(float),
                 "exchange");
 };
 
@@ -308,6 +353,98 @@ struct State {
   }
 };
 
+// The wide block's acc += p . V over its warp's kCols columns (``vs``:
+// the tile's V rows from the warp's first column), in chunks of kPvCols
+// columns: each chunk's tile product is summed in the tensor core from
+// zeros and added to acc in fp32, with the operand splits of the blocks
+// up to 256 (bf16: p in three bf16 pieces, 16 keys an mma, V's fragments
+// by ldmatrix.trans; fp32: 3xTF32, 8 keys an mma on the permuted key
+// axis). A chunk's sums over the tile's keys run in the same order as a
+// whole row's would, so the chunking changes no bit.
+template <typename T, int HD>
+__device__ __forceinline__ void pv_wide(float (&s)[Layout<T, HD>::kTs / 8][4],
+                                        const T* vs, int n_keys,
+                                        State<Layout<T, HD>::kCols>& st) {
+  using L = Layout<T, HD>;
+  constexpr int kNt = L::kTs / 8;     // 8-key slices of the tile
+  constexpr int kPvCols = 80;         // columns a chunk: 10 slices of 8
+  static_assert(L::kCols % kPvCols == 0, "column chunks");
+  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  if constexpr (L::kBf16) {
+    constexpr int kNp = kPvCols / 16;     // pairs of 8-column slices
+#pragma unroll
+    for (int c0 = 0; c0 < L::kCols; c0 += kPvCols) {
+      float t[2 * kNp][4];
+#pragma unroll
+      for (int n = 0; n < 2 * kNp; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNt / 2; ++j) {
+        if (j * 16 >= n_keys) break;
+        uint32_t pa[3][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float* sp = s[2 * j + r / 2] + 2 * (r % 2);
+          split_bf16x3(sp[0], sp[1], pa[0][r], pa[1][r], pa[2][r]);
+        }
+        uint32_t b[kNp][4];
+#pragma unroll
+        for (int np = 0; np < kNp; ++np)
+          ldmatrix_x4_trans(b[np], vs + (j * 16 + lane % 8 +
+                                         ((lane / 8) % 2) * 8) * L::kStride +
+                                       c0 + np * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int piece = 2; piece >= 0; --piece)
+#pragma unroll
+          for (int np = 0; np < kNp; ++np) {
+            mma_bf16(t[2 * np], pa[piece], b[np][0], b[np][1]);
+            mma_bf16(t[2 * np + 1], pa[piece], b[np][2], b[np][3]);
+          }
+      }
+#pragma unroll
+      for (int n = 0; n < 2 * kNp; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st.acc[c0 / 8 + n][e] += t[n][e];
+    }
+  } else {
+    uint32_t ph[kNt][4], pl[kNt][4];
+#pragma unroll
+    for (int kc = 0; kc < kNt; ++kc) {
+      split_tf32(s[kc][0], ph[kc][0], pl[kc][0]);
+      split_tf32(s[kc][2], ph[kc][1], pl[kc][1]);
+      split_tf32(s[kc][1], ph[kc][2], pl[kc][2]);
+      split_tf32(s[kc][3], ph[kc][3], pl[kc][3]);
+    }
+#pragma unroll
+    for (int c0 = 0; c0 < L::kCols; c0 += kPvCols) {
+      float t[kPvCols / 8][4];
+#pragma unroll
+      for (int n = 0; n < kPvCols / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kNt; ++kc) {
+        if (kc * 8 >= n_keys) break;
+#pragma unroll
+        for (int n = 0; n < kPvCols / 8; ++n) {
+          const T* v0 = vs + (kc * 8 + 2 * c) * L::kStride + c0 + n * 8 + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(to_f32(v0[0]), bh0, bl0);
+          split_tf32(to_f32(v0[L::kStride]), bh1, bl1);
+          mma_tf32(t[n], pl[kc], bh0, bh1);
+          mma_tf32(t[n], ph[kc], bl0, bl1);
+          mma_tf32(t[n], ph[kc], bh0, bh1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kPvCols / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st.acc[c0 / 8 + n][e] += t[n][e];
+    }
+  }
+}
+
 // One online-softmax update of a warp's 16 rows with the staged tile of
 // n_keys keys. qs: the warp's 16 staged query rows; ks, vs: the tile's K
 // and V rows; ``valid(r, j)`` masks (warp row r, tile key j); with kCap,
@@ -319,12 +456,10 @@ struct State {
 // moved onto p) enters p.V, split into its pieces after that product.
 template <typename T, int HD, bool kScaled = false, bool kCap = true,
           typename Mask>
-__device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
-                                            const T* vs, int n_keys,
-                                            const Mask& valid, float scale,
-                                            float cap, State<HD>& st,
-                                            const float* ksc = nullptr,
-                                            const float* vsc = nullptr) {
+__device__ __forceinline__ void attend_tile(
+    const T* qs, const T* ks, const T* vs, int n_keys, const Mask& valid,
+    float scale, float cap, State<Layout<T, HD>::kCols>& st,
+    const float* ksc = nullptr, const float* vsc = nullptr) {
   using L = Layout<T, HD>;
   constexpr int kNt = L::kTs / 8;  // 8-key slices of the tile
   const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
@@ -335,7 +470,31 @@ __device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
   for (int n = 0; n < kNt; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-  if constexpr (L::kBf16) {
+  if constexpr (L::kBf16 && L::kWide) {
+    // The wide head's 320-long dot: each k-step of 16 summed in the tensor
+    // core from zeros and added to the score in fp32 (carried through the
+    // tensor core's truncating accumulator over 20 k-steps, the state
+    // drifted past 2e-5 at scores of std 4 on the card).
+#pragma unroll
+    for (int kk = 0; kk < L::kDim; kk += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qs + (lane % 16) * L::kStride + kk + (lane / 16) * 8);
+#pragma unroll
+      for (int n = 0; n < kNt; n += 2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + (n * 8 + lane % 8 + (lane / 16) * 8) *
+                                L::kStride + kk + ((lane / 8) % 2) * 8);
+        float z0[4] = {0.f, 0.f, 0.f, 0.f}, z1[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(z0, a, b[0], b[1]);
+        mma_bf16(z1, a, b[2], b[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] += z0[e];
+          s[n + 1][e] += z1[e];
+        }
+      }
+    }
+  } else if constexpr (L::kBf16) {
 #pragma unroll
     for (int kk = 0; kk < L::kDim; kk += 16) {
       uint32_t a[4];
@@ -429,7 +588,7 @@ __device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
       for (int e = 0; e < 4; ++e) s[n][e] *= vsc[n * 8 + 2 * c + (e & 1)];
   }
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
+  for (int n = 0; n < L::kCols / 8; ++n) {
     st.acc[n][0] *= alpha[0];
     st.acc[n][1] *= alpha[0];
     st.acc[n][2] *= alpha[1];
@@ -438,7 +597,9 @@ __device__ __forceinline__ void attend_tile(const T* qs, const T* ks,
 
   // acc += p . V. The tile's product for each 8-column slice n is summed
   // in the tensor core from zeros and added to acc in fp32 once a tile.
-  if constexpr (L::kBf16) {
+  if constexpr (L::kWide) {
+    pv_wide<T, HD>(s, vs, n_keys, st);
+  } else if constexpr (L::kBf16) {
     // p = p1 + p2 + p3 in bf16 (24 bits: p itself), 16 keys an mma. The
     // score fragments of key slices 2j, 2j + 1 are the A fragment of key
     // chunk j as they stand; V's B fragments come from ldmatrix.trans.
@@ -571,32 +732,36 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
 // into out (B, n_q, H, HD); else the head-major state m, l (B, H, n_q)
 // and acc (B, H, n_q, HD), a row with l == 0 (no visible key: every
 // visible key adds exp(0) = 1 at its max) as the exact merge identity,
-// m = -2e38, whichever tiles it went through.
+// m = -2e38, whichever tiles it went through. The wide block: the warp's
+// column group (threadIdx.x / kGroupThreads) writes its kCols columns,
+// group 0 the m and l.
 template <typename T, int HD>
-__device__ void store_rows(const State<HD>& st, int b, int h, int r0,
-                           int n_q, int H, T* out, float* m_out,
-                           float* l_out, float* acc_out) {
+__device__ void store_rows(const State<Layout<T, HD>::kCols>& st, int b,
+                           int h, int r0, int n_q, int H, T* out,
+                           float* m_out, float* l_out, float* acc_out) {
+  using L = Layout<T, HD>;
   const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  const int col0 = L::kWide ? threadIdx.x / kGroupThreads * L::kCols : 0;
   const size_t bh = static_cast<size_t>(b) * H + h;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = r0 + g + 8 * i;
     if (t >= n_q) continue;
     if (out == nullptr) {
-      if (c == 0) {
+      if (c == 0 && col0 == 0) {
         m_out[bh * n_q + t] = st.l[i] > 0.f ? st.m[i] : kNegInf;
         l_out[bh * n_q + t] = st.l[i];
       }
-      float* row = acc_out + (bh * n_q + t) * HD + 2 * c;
+      float* row = acc_out + (bh * n_q + t) * HD + col0 + 2 * c;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
+      for (int n = 0; n < L::kCols / 8; ++n)
         store2(row + n * 8, st.acc[n][2 * i], st.acc[n][2 * i + 1]);
     } else {
       const float den = fmaxf(st.l[i], 1e-37f);
       T* row = out + ((static_cast<size_t>(b) * n_q + t) * H + h) * HD +
-               2 * c;
+               col0 + 2 * c;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
+      for (int n = 0; n < L::kCols / 8; ++n)
         store2(row + n * 8, st.acc[n][2 * i] / den,
                st.acc[n][2 * i + 1] / den);
     }

@@ -37,9 +37,15 @@
 // -DCHAI_FIXED_HD=320 (kernels/build.py: VARIANTS), so the two share every
 // line and the head dims up to 256 keep their own library and instances.
 // The wide library's launcher takes hd == 320 and the serving paths' K/V
-// pairings only (one float type, or int8 with its scales).
+// pairings only (one float type, or int8 with its scales); built once
+// more with -DCHAI_WIDE_GENERAL=1 as well, it takes hd == 320 and the
+// general body's pairings only (lib<kernel>_wide_kv.so), so neither wide
+// library's build holds the other's instances.
 #ifndef CHAI_FIXED_HD
 #define CHAI_FIXED_HD 0
+#endif
+#ifndef CHAI_WIDE_GENERAL
+#define CHAI_WIDE_GENERAL 0
 #endif
 
 namespace {
@@ -155,8 +161,8 @@ struct Launch {
 // clustered pool read through bt_v). The split plan (n_split ranges of
 // ``tps`` pages), ``step`` (a divisor of the page, <= 128), the scratch
 // and n_cap as in chai_fused_decode_launch. All contiguous and 16-byte
-// aligned; hd % 8 == 0, hd <= 256 (the wide-head library: hd == 320,
-// the serving pairings only); ``cap`` (the softcap mode, 0 = off) as
+// aligned; hd % 8 == 0, hd <= 256 (the wide-head libraries: hd == 320,
+// the serving pairings in one, the general ones in the other); ``cap`` (the softcap mode, 0 = off) as
 // in chai_fused_decode_launch. Returns the launch's cudaError_t (0 on
 // success); does not synchronise.
 extern "C" int paged_chai_fused_decode_launch(
@@ -181,18 +187,23 @@ extern "C" int paged_chai_fused_decode_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kFixedHd ? hd != kFixedHd : hd > kMaxHd)
     return static_cast<int>(cudaErrorInvalidValue);
+#if CHAI_WIDE_GENERAL
+  // the wide general library serves the general body only
+  if (body != kBodyGeneral) return static_cast<int>(cudaErrorInvalidValue);
+#else
   if (body != kBodyGeneral)   // one type for K and V
     return with_elem(k_type, [&](auto t) {
       using T = decltype(t);
       return with_queries(rpg, Launch<T, T, false>{a, B, st});
     });
-#if CHAI_FIXED_HD == 0
+#endif
+#if CHAI_FIXED_HD == 0 || CHAI_WIDE_GENERAL
   return with_kv_types(k_type, v_type, [&](auto tk, auto tv) {
     return Launch<decltype(tk), decltype(tv), true>{a, B, st}
         .template run<kGeneralQ>();
   });
 #else
-  // the wide head serves the serving paths' pairings only
+  // the wide serving library serves the serving paths' pairings only
   return static_cast<int>(cudaErrorInvalidValue);
 #endif
 }

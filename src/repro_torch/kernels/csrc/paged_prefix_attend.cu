@@ -44,6 +44,11 @@
 // The softcap mode (gemma2's attention-logit cap, ``cap`` != 0): each
 // scaled score (int8: after the K scale, then 1/sqrt(hd), the Pallas
 // kernel's order) becomes cap * tanh(score / cap) in the shared tile step.
+//
+// Head dim 320 (gemma3-4b's global layers) runs the wide block of
+// flash_tiles.cuh (the two warp groups split the output columns over
+// every key tile, one tile a round), every kPool instance, built into its
+// own library (FLASH_FIXED_HD=320, kernels/build.py: VARIANTS).
 
 #include "flash_tiles.cuh"
 
@@ -99,15 +104,16 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
                            int pool_i8) {
   using L = Layout<T, HD>;
   constexpr int kTs = L::kTs;
+  constexpr int kPer = L::kRoundTiles;  // tiles a round
   constexpr bool kI8 = kPool == 1, kScaled = kPool != 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
-  T* ks = qs + kBlockRows * L::kStride;    // kStages x kKeyGroups K tiles
-  T* vs = ks + kStages * kKeyGroups * kTs * L::kStride;   // and V tiles
+  T* ks = qs + kBlockRows * L::kStride;    // kStages x kPer K tiles
+  T* vs = ks + kStages * kPer * kTs * L::kStride;   // and V tiles
   // scaled: the tiles' K and V scales, kTs floats each per tile slot
-  float* ksc = reinterpret_cast<float*>(vs + kStages * kKeyGroups * kTs *
-                                                 L::kStride);
-  float* vsc = ksc + kStages * kKeyGroups * kTs;
+  float* ksc =
+      reinterpret_cast<float*>(vs + kStages * kPer * kTs * L::kStride);
+  float* vsc = ksc + kStages * kPer * kTs;
   const int tid = threadIdx.x, warp = tid / 32;
   const int wq = warp % kWarps, kg = warp / kWarps;  // row group, key group
   const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
@@ -115,7 +121,7 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
   // over P pages does.
   const int n_keys = max(0, min(plen[b], P * page));
   const int n_tiles = (n_keys + kTs - 1) / kTs;
-  const int n_rounds = (n_tiles + kKeyGroups - 1) / kKeyGroups;
+  const int n_rounds = (n_tiles + kPer - 1) / kPer;
   using Pool = typename std::conditional<kI8, int8_t, T>::type;
   const PagedRows<Pool, false> rows{static_cast<const Pool*>(pool), ks_pool,
                                     vs_pool, bt_k + static_cast<size_t>(b) * P,
@@ -133,15 +139,14 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
       return q + ((static_cast<size_t>(b) * n_q + q0 + r) * H + h) * HD;
     }, tid, kThreads);
   }
-  // tile t of round r = t / kKeyGroups sits in buffer slot
-  // (r % kStages) * kKeyGroups + t % kKeyGroups
+  // tile t of round r = t / kPer sits in buffer slot
+  // (r % kStages) * kPer + t % kPer
   auto tile_slot = [&](int t) {
-    return (t / kKeyGroups) % kStages * kKeyGroups + t % kKeyGroups;
+    return (t / kPer) % kStages * kPer + t % kPer;
   };
   auto slot = [&](int t) { return tile_slot(t) * kTs * L::kStride; };
   auto stage_round = [&](int r) {
-    for (int t = r * kKeyGroups; t < min(n_tiles, (r + 1) * kKeyGroups);
-         ++t) {
+    for (int t = r * kPer; t < min(n_tiles, (r + 1) * kPer); ++t) {
       const int k0 = t * kTs, n = min(kTs, n_keys - k0);
       if constexpr (kPool == 2) {
         const int sc0 = tile_slot(t) * kTs;
@@ -190,7 +195,10 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
   cp_async_commit();
   const int r0 = q0 + wq * kRows;
   const bool w_live = r0 < n_q;
-  State<HD> st;
+  // the wide block: every warp reads the round's one tile, at its
+  // column group's first column of V
+  const int v_col = L::kWide ? kg * L::kCols : 0;
+  State<L::kCols> st;
   st.init();
   for (int r = 0; r < n_rounds; ++r) {
     if (r + 1 < n_rounds) {
@@ -201,18 +209,20 @@ paged_prefix_attend_kernel(const T* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int t = r * kKeyGroups + kg;
+    const int t = r * kPer + (L::kWide ? 0 : kg);
     if (t < n_tiles && w_live)
       attend_tile<T, HD, kScaled>(qs + wq * kRows * L::kStride, ks + slot(t),
-                              vs + slot(t), min(kTs, n_keys - t * kTs),
+                              vs + slot(t) + v_col,
+                              min(kTs, n_keys - t * kTs),
                               AllVisible{}, scale, cap, st,
                               ksc + tile_slot(t) * kTs,
                               vsc + tile_slot(t) * kTs);
     __syncthreads();
   }
   cp_async_wait<0>();
-  merge_key_groups<HD>(st, reinterpret_cast<float*>(ks));
-  if (kg == 0 && w_live)
+  if constexpr (!L::kWide)
+    merge_key_groups<HD>(st, reinterpret_cast<float*>(ks));
+  if ((L::kWide || kg == 0) && w_live)
     store_rows<T, HD>(st, b, h, r0, n_q, H, nullptr, m_out, l_out, acc_out);
 }
 
@@ -227,7 +237,7 @@ int launch(const void* q, const void* pool, const void* ks_pool,
     using L = Layout<T, HD>;
     // scaled: the tiles' scales after the tiles (a key's K and V scale)
     constexpr size_t smem =
-        L::kBytes + (kPool ? 2 * kStages * kKeyGroups * L::kTs * 4 : 0);
+        L::kBytes + (kPool ? 2 * kStages * L::kRoundTiles * L::kTs * 4 : 0);
     auto kern = paged_prefix_attend_kernel<T, HD, kPool>;
     cudaError_t err = allow_smem(kern, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -254,8 +264,8 @@ int launch(const void* q, const void* pool, const void* ks_pool,
 // bt_v: (B, P) int32 page ids into the pool; plen:
 // (B,) int32 cached positions; m_out, l_out: (B, H, n_q) and acc_out: (B, H,
 // n_q, hd) fp32. All contiguous and 16-byte aligned; H % KV == 0, hd a power
-// of two from 8 to 256 or 224 (else cudaErrorInvalidValue); cap != 0: the
-// softcap. Returns the launch's cudaError_t (0 on success); does not
+// of two from 8 to 256 or 224 (the wide library: 320; else
+// cudaErrorInvalidValue); cap != 0: the softcap. Returns the launch's cudaError_t (0 on success); does not
 // synchronise.
 extern "C" int paged_prefix_attend_launch(
     const void* q, const void* pool, const void* ks_pool, const void* vs_pool,

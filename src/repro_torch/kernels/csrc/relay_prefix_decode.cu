@@ -91,6 +91,17 @@
 // plen mask; positions >= plen are never scored. The split maxima, the
 // sums and the ordered merge only ever see capped scores. cap == 0 leaves
 // the score as it is: one uniform branch.
+//
+// The head dim is the call's, up to 256 or gemma3-4b's 320: nothing in the
+// blocks is sized by it. A score block stages kMaxQ x hd query floats in
+// ``big`` (2,560 at 320, of kRed = 8,192); a sum block lays its threads
+// out as hd / kVec load groups of nsl = kThreads / (hd / kVec) position
+// slices, whose partial sums ``big`` holds: nsl * kSlice * hd <= kThreads
+// * kVec * kSlice = kRed floats whatever hd (kVec <= 8). At 320 that is
+// 40 groups of 3 slices (bf16, int8: 8 threads idle) or 80 groups of 1
+// (fp32: 48 idle); a thread past the slices (sl >= nsl) reads and writes
+// nothing. Each thread's sums are acc[kSlice][kVec] in registers at every
+// hd, so the instances and kSmemBytes are those of every head dim.
 
 #include "chai_decode_tiles.cuh"
 
@@ -639,7 +650,8 @@ relay_prefix_decode_kernel(const Args a) {
 // k_row: (G, NR) int32 in [0, KV);
 // a_row: (G, A) int32 in [0, NR); v_row: (G, A) int32 in [0, VR); plen:
 // (G,) int32 in [0, Sp]; m, l: (G, NR) fp32; acc: (G, A, hd) fp32. All
-// contiguous and 16-byte aligned; hd % 8 == 0, hd <= 256; KV, VR <= 256;
+// contiguous and 16-byte aligned; hd % 8 == 0, hd <= 256 or hd == 320
+// (gemma3-4b's; nothing in the blocks is sized by hd); KV, VR <= 256;
 // Sp % ts == 0. The split plan: n_split (<= 64) ranges of ``tps`` tiles;
 // q_slots score and v_slots (>= 1) sum blocks per (group, split), at
 // least the group's query slices of 8 per K row and acc slices of 8 per V

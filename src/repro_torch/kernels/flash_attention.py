@@ -9,7 +9,10 @@ online-softmax state. ``paged_prefix_attend`` launches
 of a page pool, read through block tables, as that state. The chunked
 prefill runs both in every global layer and merges the two states
 (``kernels.ops.merge_prefill_states``). Both kernels share the tile steps
-of ``csrc/flash_tiles.cuh``.
+of ``csrc/flash_tiles.cuh``. Head dim 320 (gemma3-4b's global layers)
+runs their wide block (the warp groups split the output columns), built
+into the wide libraries (``build.VARIANTS``), counted in the ``wide``
+mode.
 
 ``flash_decode`` launches ``csrc/flash_decode.cu`` (the port of the Pallas
 ``flash_decode``): plain MHA/GQA decode attention of one query token over
@@ -43,7 +46,8 @@ LAUNCHES = {"flash_prefill": 0, "paged_prefix_attend": 0,
             "flash_decode": 0, "paged_decode": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (8, 16, 32, 64, 128, 224, 256)  # flash_tiles.cuh: with_head_dim
+# flash_tiles.cuh: with_head_dim, and kWideHd on the wide libraries
+_HEAD_DIMS = (8, 16, 32, 64, 128, 224, 256, ck.WIDE_HD)
 _DECODE_MAX_HD = 256     # decode_tiles.cuh: kMaxHd
 _DECODE_WIDE_HD = 320    # decode_tiles.cuh: kWideHd, the wide instance
 # Query heads of one KV group a decode block serves: at most 2
@@ -59,7 +63,11 @@ _DECODE_MAX_SPLIT = 64   # decode_tiles.cuh: kMaxSplit (split_plan's cap)
 
 
 def _check_heads(name, q, kv_heads, hd):
-    """Device, dtype and head checks both wrappers share."""
+    """Head, device and dtype checks both wrappers share (the head dim
+    first: shapes alone decide it, on any device)."""
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} is not one the kernel is "
+                         f"built for {_HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"{name} launches a CUDA kernel; got tensors on "
                          f"{q.device}")
@@ -71,9 +79,6 @@ def _check_heads(name, q, kv_heads, hd):
     if kv_heads == 0 or q.shape[2] % kv_heads:
         raise ValueError(f"{name}: KV={kv_heads} must divide H="
                          f"{q.shape[2]}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} is not one the kernel is "
-                         f"built for {_HEAD_DIMS}")
 
 
 def _check_aligned(name, **tensors):
@@ -130,7 +135,9 @@ def flash_prefill(q, k, v, *, offset=0, window=0, softcap=0.0,
     else:
         out = torch.empty((b, t, h, hd), dtype=q.dtype, device=dev)
         ptrs = (out.data_ptr(), None, None, None)
-    fn = _launcher("flash_prefill", 8, 9, 1)
+    wide = hd == ck.WIDE_HD
+    fn = _launcher("flash_prefill", 8, 9, 1,
+                   lib="flash_prefill_wide" if wide else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(),
@@ -139,7 +146,7 @@ def flash_prefill(q, k, v, *, offset=0, window=0, softcap=0.0,
     if err:
         raise RuntimeError(f"flash_prefill launch failed: CUDA error {err}")
     ck.count_launch(LAUNCHES, "flash_prefill", softcap=softcap,
-                    window=int(window) > 0)
+                    window=int(window) > 0, wide=wide)
     return (m, l, acc) if emit_state else out
 
 
@@ -193,7 +200,9 @@ def paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, *, k_scale_pool=None,
     body = ck.kv_body(kv_pool, k_scale_pool, kv_pool, v_scale_pool,
                       int8_raw_v=False)
     m, l, acc = _state(b, h, t, hd, dev)
-    fn = _launcher("paged_prefix_attend", 10, 10, 1)
+    wide = hd == ck.WIDE_HD
+    fn = _launcher("paged_prefix_attend", 10, 10, 1,
+                   lib="paged_prefix_attend_wide" if wide else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), kv_pool.data_ptr(), ck._ptr(k_scale_pool),
@@ -206,7 +215,8 @@ def paged_prefix_attend(q, kv_pool, bt_k, bt_v, plen, *, k_scale_pool=None,
                            f"{err}")
     ck.count_launch(LAUNCHES, "paged_prefix_attend",
                     **ck.kv_modes(body, kv_pool, k_scale_pool, kv_pool,
-                                  v_scale_pool), softcap=softcap)
+                                  v_scale_pool), softcap=softcap,
+                    wide=wide)
     return m, l, acc
 
 

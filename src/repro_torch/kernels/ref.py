@@ -10,6 +10,11 @@ Both take ``emit_state`` (the unnormalized (m, l, acc) triple the relay
 decode merges), and ``relay_prefix_decode_ref`` is the relay kernel's:
 the group-batched pass over a packed shared prefix.
 
+The reference's two-step oracles, kept for its tests' use:
+``chai_scores_i8_ref`` (K dequantized, then the normalized scores),
+``chai_decode_ref`` (scores, then A.V) and their paged forms
+``paged_chai_scores_ref`` / ``paged_chai_decode_ref``.
+
 The three-kernel pipeline's plain versions, each the Pallas kernel's
 function exactly: ``chai_qk_ref`` / ``paged_chai_qk_ref`` (raw scores
 dot(q, k) * (1 / sqrt(hd)), exactly NEG_INF where masked),
@@ -99,6 +104,39 @@ def chai_av_ref(a, v_cache, h2c):
     a_full = torch.gather(a, 1, h2c.long()[..., None].expand(
         b, h, a.shape[-1]))                                  # (B, H, S)
     return torch.einsum("bhs,bhsd->bhd", a_full.float(), v_cache.float())
+
+
+def chai_scores_i8_ref(q_rep, k_cache_i8, k_scale, pos, *,
+                       reps_per_group=0):
+    """The reference's int8 clustered-scores oracle: K dequantized first
+    (codes times their row scales), then ``chai_scores_ref``."""
+    return chai_scores_ref(q_rep, _dequant(k_cache_i8, k_scale), pos,
+                           reps_per_group=reps_per_group)
+
+
+def chai_decode_ref(q_rep, k_cache, v_cache, h2c, pos, *,
+                    reps_per_group=0):
+    """The reference's two-step clustered decode oracle: normalized
+    clustered scores, then A row h2c[b, h] times V row h. Returns (B, H,
+    hd) fp32."""
+    return chai_av_ref(chai_scores_ref(q_rep, k_cache, pos,
+                                       reps_per_group=reps_per_group),
+                       v_cache, h2c)
+
+
+def paged_chai_scores_ref(q_rep, k_pool, bt, pos, *, reps_per_group=0):
+    """``chai_scores_ref`` over a page pool densified through ``bt``."""
+    return chai_scores_ref(q_rep, gather_pages_ref(k_pool, bt), pos,
+                           reps_per_group=reps_per_group)
+
+
+def paged_chai_decode_ref(q_rep, k_pool, bt_k, v_pool, bt_v, h2c, pos, *,
+                          reps_per_group=0):
+    """``chai_decode_ref`` over page pools densified through their block
+    tables."""
+    return chai_av_ref(paged_chai_scores_ref(
+        q_rep, k_pool, bt_k, pos, reps_per_group=reps_per_group),
+        gather_pages_ref(v_pool, bt_v), h2c)
 
 
 def chai_qk_ref(q_rep, k_cache, pos, *, reps_per_group=1, window=0,

@@ -61,6 +61,29 @@ def attention_fullseq(q, k, v, q_positions, kv_positions, *,
     return out.reshape(b, tq, h, hd).to(q.dtype)
 
 
+def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window=0,
+                     attn_softcap=0.0):
+    """One-token decode against a cache (the reference's
+    ``decode_attention``): q (B, H, hd); caches (B, KV, S, hd);
+    kv_positions (S,) the absolute position of each cache slot (ring-aware,
+    -1 for an empty one); pos a scalar, the query's position. Slots at
+    positions 0..pos (inside the window when > 0) are visible; scores,
+    softmax and the AV sum run in fp32. Returns (B, H, hd) in q's
+    dtype."""
+    b, h, hd = q.shape
+    n_kv = k_cache.shape[1]
+    qs = q.reshape(b, n_kv, h // n_kv, hd).float()
+    sc = torch.einsum("bkgd,bksd->bkgs", qs, k_cache.float()) / math.sqrt(hd)
+    sc = softcap(sc, attn_softcap)
+    valid = (kv_positions >= 0) & (kv_positions <= pos)
+    if window and window > 0:
+        valid &= (pos - kv_positions) < window
+    sc = torch.where(valid[None, None, None, :], sc, NEG_INF)
+    out = torch.einsum("bkgs,bksd->bkgd", torch.softmax(sc, dim=-1),
+                       v_cache.float())
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
 def ring_positions(pos, size):
     """Absolute position stored in each slot of a ring buffer of ``size``
     (the reference's ``ring_positions``, batched): slot s holds the latest

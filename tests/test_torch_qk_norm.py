@@ -22,9 +22,9 @@ versions at head dim 320, against the JAX package's, on the CPU.
   interpret mode at gemma3's layout (GQA 8/4, two reps a group), at the
   reference tests' tolerances; paged == dense bitwise at ts == page.
 * The CUDA wrappers take head dim 320 (the fused pair on its wide-head
-  libraries, the serving pairings only; the flash decode pair on its
-  wide instance) and still refuse a head dim that is not a multiple of 8,
-  one above 320, and 320 on the relay kernel (shapes only, meta tensors).
+  libraries, every K/V pairing; the relay kernel; the flash decode pair
+  on its wide instance) and still refuse a head dim that is not a
+  multiple of 8 or one above 256 but 320 (shapes only, meta tensors).
 """
 import numpy as np
 import pytest
@@ -361,32 +361,40 @@ META = dict(device="meta")
 @pytest.mark.parametrize("hd,ok", [(320, True), (256, True), (128, True),
                                    (324, False), (328, False), (264, False)])
 def test_fused_wrappers_take_hd320(hd, ok):
-    """The fused pair's checks (shapes only): a multiple of 8 up to 256,
-    or 320 on the wide-head libraries for the serving pairings; the
-    general pairing and the relay kernel stay at 256."""
+    """The fused pair's and the relay kernel's checks (shapes only): a
+    multiple of 8 up to 256, or 320: the fused pair on its wide-head
+    libraries, the serving pairings' (``_wide``) and the general
+    pairings' (``_wide_kv``), the relay on its blocks at that head dim;
+    264, 324 and 328 are refused on every body."""
     q = torch.empty(2, 8, hd, **META)
     k = torch.empty(2, 4, 64, hd, dtype=torch.bfloat16, **META)
     h2c = torch.empty(2, 8, dtype=torch.int32, **META)
     cfg, _ = tck.dense_launch_config(q, k, h2c, reps_per_group=2, ts=16)
+    gcfg, _ = tck.dense_launch_config(q, k, h2c, reps_per_group=2, ts=16,
+                                      general=True)
     pool = torch.empty(9, 4, 16, hd, dtype=torch.bfloat16, **META)
     bt = torch.empty(2, 4, dtype=torch.int32, **META)
     pcfg = tck.paged_launch_config(q, pool, bt, h2c, reps_per_group=2)
     assert pcfg == cfg
-    for name, c in (("chai_fused_decode", cfg),
-                    ("paged_chai_fused_decode", pcfg)):
-        for body in (tck.KV_FLOAT, tck.KV_INT8):
-            if ok:
-                tck._check_block(name, hd, 2, c, body)
-            else:
-                with pytest.raises(ValueError, match="multiple of 8"):
-                    tck._check_block(name, hd, 2, c, body)
+    rcfg = tck.relay_launch_config(2, 8, 16, 4, 4, 4)
+    for name, c, rpg in (("chai_fused_decode", cfg, 2),
+                         ("chai_fused_decode", gcfg, 2),
+                         ("paged_chai_fused_decode", pcfg, 2),
+                         ("relay_prefix_decode", rcfg, 1)):
+        if ok:
+            tck._check_block(name, hd, rpg, c)
+        else:
+            with pytest.raises(ValueError, match="multiple of 8"):
+                tck._check_block(name, hd, rpg, c)
     if hd == 320:
         assert cfg.smem_bytes <= 48 * 1024
-        with pytest.raises(ValueError, match="general pairing"):
-            tck._check_block("chai_fused_decode", hd, 2, cfg,
-                             tck.KV_GENERAL)
-        with pytest.raises(ValueError, match="at most 256"):
-            tck._check_block("relay_prefix_decode", hd, 1, cfg)
+        assert gcfg.smem_bytes <= tck._SMEM_LIMIT
+        for name in ("chai_fused_decode", "paged_chai_fused_decode"):
+            assert tck._wide_lib(name, True, tck.KV_FLOAT) == f"{name}_wide"
+            assert tck._wide_lib(name, True, tck.KV_INT8) == f"{name}_wide"
+            assert (tck._wide_lib(name, True, tck.KV_GENERAL)
+                    == f"{name}_wide_kv")
+            assert tck._wide_lib(name, False, tck.KV_GENERAL) is None
     # a meta tensor passes the op to the wrapper, which refuses the device
     before = dict(tck.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):

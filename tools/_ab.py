@@ -118,6 +118,51 @@ def build_verbose(build, names, name=lambda mangled: mangled,
     return resources, seconds
 
 
+def sass(build, names):
+    """{library: {function: digest of its SASS}} of the built libraries
+    ``names`` (``cuobjdump -sass``; each instruction's address and
+    encoding comments dropped), so that two trees' instances compare
+    instruction for instruction."""
+    import hashlib
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    out = {}
+    for n in names:
+        text = subprocess.run(
+            [str(tool), "-sass", str(build.BUILD_DIR / f"lib{n}.so")],
+            capture_output=True, text=True, check=True).stdout
+        # the anonymous namespace's id differs from tree to tree
+        text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", text)
+        funcs, name, body = {}, None, []
+        for line in text.splitlines() + ["Function : <end>"]:
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                if name is not None:
+                    funcs[name] = hashlib.sha1(
+                        "\n".join(body).encode()).hexdigest()
+                name, body = m.group(1), []
+            elif name is not None:
+                ins = re.sub(r"/\*[^*]*\*/", "", line).strip()
+                if ins:
+                    body.append(ins)
+        funcs.pop("<end>", None)
+        out[n] = funcs
+    return out
+
+
+def same_sass(a, b):
+    """Compare two ``sass`` records: {library: {"functions": n,
+    "identical": n, "differ": [names], "only_one_side": [names]}}."""
+    out = {}
+    for lib in sorted(set(a) | set(b)):
+        fa, fb = a.get(lib, {}), b.get(lib, {})
+        both = set(fa) & set(fb)
+        out[lib] = dict(functions=len(both),
+                        identical=sum(fa[f] == fb[f] for f in both),
+                        differ=sorted(f for f in both if fa[f] != fb[f]),
+                        only_one_side=sorted(set(fa) ^ set(fb)))
+    return out
+
+
 def medians(runs, side, keys):
     """{case: {key: median over ``side``'s runs}} for each of ``keys``
     that the runs hold."""

@@ -13,7 +13,9 @@ lists), with ``ptxas -v``, and records for each tree:
   fp32 at hd 128, bf16 at hd 256, and ``paged_prefix_attend`` over 384
   cached positions in pages of 16 (bf16 and int8);
 * each case's max abs error against the plain PyTorch version
-  (``kernels.ref``), fp32 on queries of std 1 and 4.
+  (``kernels.ref``), fp32 on queries of std 1 and 4;
+* each instance's SASS (``cuobjdump -sass``, addresses and encodings
+  dropped), compared function by function between the trees.
 
 Each tree is measured in its own process, in the order other, this,
 this, other, so that a drift of the card's clocks shows as a difference
@@ -114,6 +116,8 @@ def measure(tree, label, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     rec = {"tree": str(tree), "label": label, "resources": resources,
            "build_seconds": seconds, "cases": {}}
+    if label.endswith("_1"):
+        rec["sass"] = _ab.sass(build, KERNELS)
     outs = {}
     for name, (call, plain, kernel) in _cases(torch, fk, kref).items():
         got = call()
@@ -145,7 +149,11 @@ def summarize(runs, out_dir):
         max_abs_diff=max(float((x.float() - y.float()).abs().max())
                          for x, y in zip(a[name], b[name])))
         for name in a}
-    return {"other_vs_this": same, "device_ms_median": {
+    first = {r["label"]: r for r in runs if r["label"].endswith("_1")}
+    return {"other_vs_this": same,
+            "sass_other_vs_this": _ab.same_sass(first["other_1"]["sass"],
+                                                first["this_1"]["sass"]),
+            "device_ms_median": {
         side: _ab.medians(runs, side, ("device_ms",))
         for side in ("other", "this")}}
 
